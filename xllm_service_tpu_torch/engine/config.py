@@ -1,0 +1,49 @@
+"""Engine runtime configuration (the fields of
+``xllm_service_tpu/engine/config.py`` this port implements)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..models.base import ModelConfig, tiny_config
+
+
+@dataclass
+class EngineConfig:
+    model_family: str = "llama"
+    model: ModelConfig = field(default_factory=tiny_config)
+    # KV pool. Page 0 is reserved as the garbage page (inactive batch slots
+    # write there), so usable pages = num_pages - 1.
+    num_pages: int = 256
+    page_size: int = 16
+    # Prefix-cache block size for global-index hashing (must match the
+    # service's block_size).
+    hash_block_size: int = 128
+    # Batching.
+    max_batch_size: int = 8
+    max_seq_len: int = 2048
+    # Sampling.
+    max_top_logprobs: int = 5
+    seed: int = 0
+    # Decode horizon: tokens generated per host fetch (a Python loop of
+    # decode steps with sampling on the device). 1 = lowest streaming
+    # latency; larger values amortize the per-fetch synchronisation.
+    decode_horizon: int = 1
+    # TTFT guard: while requests are waiting, decode calls shrink to this
+    # many tokens so admission isn't blocked behind a long horizon. 0
+    # disables.
+    admission_horizon: int = 8
+
+    @property
+    def pages_per_seq(self) -> int:
+        return self.max_seq_len // self.page_size
+
+    def validate(self) -> None:
+        if self.max_seq_len % self.page_size:
+            raise ValueError("max_seq_len must be a multiple of page_size")
+        if self.hash_block_size % self.page_size:
+            raise ValueError("hash_block_size must be a multiple of page_size")
+        if self.max_seq_len > self.model.max_context_len:
+            raise ValueError("max_seq_len exceeds model max_context_len")
+        if self.decode_horizon < 1:
+            raise ValueError("decode_horizon must be at least 1")
