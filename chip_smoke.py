@@ -8,12 +8,15 @@ serves Llama-3-8B through them.
 
 Phases (any failure exits non-zero before the result line):
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build both CUDA kernels from ``xllm_service_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) into ``build/torch_kernels``;
+2. build the four CUDA libraries from ``xllm_service_tpu_torch/csrc`` (one
+   nvcc per source, in parallel) into ``build/torch_kernels``;
 3. each kernel against its plain PyTorch version on the card at Llama-3-8B
-   shapes (bf16 and f32, ragged contexts, NaN garbage past every context),
-   and timed beside its plain version and a PyTorch yardstick
-   (``scaled_dot_product_attention`` on the K/V already gathered dense);
+   shapes, timed beside its plain version and a PyTorch yardstick: the two
+   attention kernels and the fused append-and-attend (bf16 and f32, ragged
+   contexts, NaN garbage past every context;
+   ``scaled_dot_product_attention`` on the K/V already gathered dense) and
+   the page movers at one hash block (bit for bit; ``index_select`` /
+   ``index_copy_``);
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -21,6 +24,13 @@ Phases (any failure exits non-zero before the result line):
    on fresh engines; checks lengths, determinism, prefix hits, kernel
    launches, and one prompt's logits by the cold, cached-prefix and decode
    routes;
+4a. KV tiers at the same width: a 1024-token prompt served from HBM, its
+   blocks evicted into a DRAM arena of four blocks and an SSD spill file,
+   then served again from the tiers; the tokens must match, both tiers
+   must have onloaded, and the restored pages must equal the evicted ones;
+4b. the fused decode writeback (``XLLM_KV_WRITEBACK=fused``): phase 4's
+   batch served twice through the fused kernel, with kernel 1 idle, and the
+   decode-step logits checked again;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -29,6 +39,7 @@ It needs one card; without CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -68,6 +79,15 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------- helpers
+KERNEL_WRAPPERS = []     # every kernel wrapper with a launch count
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count (just before a path is driven)."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, with L2 flushed before each (the
     serving path finds K/V cold: other layers ran in between). A spin
@@ -214,6 +234,118 @@ def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain):
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
 
 
+def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain):
+    """Kernel 3 against its plain version: the output within TOL, both pools
+    after the call equal bit for bit (the append is a copy)."""
+    err = 0.0
+    ctxs = [0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS]
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v, pt = paged_inputs(dtype, ctxs, seed=4)
+        q = torch.randn((B, N_Q, HD), device="cuda").to(dtype)
+        k_new = torch.randn((B, N_KV, HD), device="cuda").to(dtype)
+        v_new = torch.randn((B, N_KV, HD), device="cuda").to(dtype)
+        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+        kp, vp = k.clone(), v.clone()
+        got = fused_decode_attention(q, k_new, v_new, kp, vp, pt, cl)[0]
+        want = fused_decode_attention_plain(q, k_new, v_new, k, v, pt, cl)[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "fused kernel: non-finite output"
+        e = (got.float() - want.float()).abs().max().item()
+        same_pools = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                         for a, b in ((kp, k), (vp, v)))
+        log(f"  fused_decode_attention {str(dtype)[6:]:8s} ctx={ctxs} "
+            f"max_abs_err={e:.3g} (tol {TOL[dtype]}), pools bit-identical "
+            f"{same_pools}")
+        assert e <= TOL[dtype], "fused kernel disagrees with plain"
+        assert same_pools, "fused kernel's append differs from plain"
+        err = max(err, e)
+
+    # Timing at the decode step's shapes: B 8, ctx 1024, bf16.
+    ctx = 1024
+    k, v, pt = paged_inputs(torch.bfloat16, [ctx] * B, seed=5)
+    q = torch.randn((B, N_Q, HD), device="cuda").to(torch.bfloat16)
+    k_new = torch.randn((B, N_KV, HD), device="cuda").to(torch.bfloat16)
+    v_new = torch.randn((B, N_KV, HD), device="cuda").to(torch.bfloat16)
+    cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    kd, vd = gathered(k, pt, ctx).contiguous(), gathered(v, pt, ctx).contiguous()
+    qd = q[:, :, None, :]
+    ms = time_ms(lambda: fused_decode_attention(q, k_new, v_new, k, v, pt, cl))
+    plain_ms = time_ms(lambda: fused_decode_attention_plain(
+        q, k_new, v_new, k, v, pt, cl))
+    lib_ms = time_ms(lambda: sdpa(qd, kd, vd))
+    # q and the output, the new rows read and written, ctx - 1 pooled tokens
+    # of K and V, one page-table entry per page read, the lengths.
+    nbytes = (2 * q.numel() * 2 + 2 * 2 * k_new.numel() * 2
+              + B * (ctx - 1) * N_KV * HD * 2 * 2
+              + B * (-(-(ctx - 1) // PS)) * 4 + B * 4)
+    ops = 4 * N_Q * HD * B * ctx
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS)
+    log(f"  fused_decode_attention bf16 B={B} ctx={ctx}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+
+
+def check_page_movers(page_dma):
+    """Kernels 4-5 against their plain versions at one Llama-3-8B hash block
+    ([32, 2, 8, 8, 16, 128]): bit for bit, with NaN in every page they must
+    not touch. Returns (gather row, scatter row)."""
+    L, ppb, n_pages = 32, 8, 40
+    ids = [17, 3, 29, 8, 35, 1, 22, 12]                  # shuffled, 8 pages
+    untouched = [p for p in range(n_pages) if p not in ids]
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(6)
+        kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), generator=g,
+                         device="cuda").to(dtype)
+        kv[:, :, untouched] = float("nan")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        got = page_dma.gather_kv_pages(kv, ids)
+        want = page_dma.gather_kv_pages_plain(kv, ids)
+        block = torch.randn(want.shape, generator=g, device="cuda").to(dtype)
+        pool, ref = kv.clone(), kv.clone()
+        page_dma.scatter_kv_pages(pool, ids, block)
+        page_dma.scatter_kv_pages_plain(ref, ids, block)
+        torch.cuda.synchronize()
+        g_ok = torch.equal(got.view(bits), want.view(bits))
+        s_ok = torch.equal(pool.view(bits), ref.view(bits))
+        kept = torch.equal(pool[:, :, untouched].view(bits),
+                           kv[:, :, untouched].view(bits))
+        log(f"  page movers {str(dtype)[6:]:8s} block {tuple(want.shape)}: "
+            f"gather bit-identical {g_ok}, scatter bit-identical {s_ok}, "
+            f"other pages untouched {kept}")
+        assert g_ok and s_ok and kept, "a page mover disagrees with plain"
+
+    # Timing at one bf16 hash block (the offload and onload of one block).
+    kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), device="cuda").to(
+        torch.bfloat16)
+    block = torch.randn((L, 2, ppb, N_KV, PS, HD), device="cuda").to(
+        torch.bfloat16)
+    ids_d = torch.tensor(ids, device="cuda")
+    # Each byte of the block read once and written once, and the ids.
+    nbytes = 2 * block.numel() * 2 + len(ids) * 4
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    rows = []
+    for name, kernel, plain, lib in (
+            ("gather_kv_pages",
+             lambda: page_dma.gather_kv_pages(kv, ids),
+             lambda: page_dma.gather_kv_pages_plain(kv, ids_d),
+             lambda: kv.index_select(2, ids_d)),
+            ("scatter_kv_pages",
+             lambda: page_dma.scatter_kv_pages(kv, ids, block),
+             lambda: page_dma.scatter_kv_pages_plain(kv, ids_d, block),
+             lambda: kv.index_copy_(2, ids_d, block))):
+        ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(lib)
+        log(f"  {name} bf16 block {tuple(block.shape)}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{nbytes / ms / 1e9:.3f} TB/s)")
+        rows.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 class Collector:
     def __init__(self):
@@ -323,6 +455,159 @@ def check_logits(llama, cfg, params, prompt, prefix):
         assert err <= PREFILL_REL_TOL * scale, f"{name} logits drifted"
 
 
+# --------------------------------------------------------------- phase 4a
+def serve_one(eng, engine_mod, name, toks, max_tokens=16):
+    """One greedy request through a running engine; returns its tokens."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    col = Collector()
+    eng.submit(engine_mod.EngineRequest(
+        name, token_ids=toks, on_output=col,
+        sampling=SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                                ignore_eos=True)))
+    assert col.done.wait(600), f"{name} never finished"
+    assert len(col.tokens) == max_tokens and col.reason == "length", \
+        f"{name}: {len(col.tokens)} tokens, reason {col.reason!r}"
+    return col.tokens
+
+
+def wait_for(pred, what, timeout=120.0):
+    t0 = time.monotonic()
+    while not pred():
+        assert time.monotonic() - t0 < timeout, f"timed out: {what}"
+        time.sleep(0.01)
+
+
+def tier_phase(engine_mod, cfg, params, page_dma, card):
+    """Prompt A (1024 tokens = 8 hash blocks) served from HBM, evicted into
+    the tiers by two unrelated prompts, served again from the tiers.
+
+    The pool holds A's 65 pages plus one more request's, so the second
+    unrelated prompt evicts exactly A's eight blocks. A request on A's
+    first four blocks in between makes blocks 4-7 the least recently used:
+    they are evicted first, so the DRAM arena (four blocks) ends holding
+    blocks 0-3 and blocks 4-7 are demoted to the SSD file. The onload walk
+    then reads 0-3 from DRAM, each fetch freeing the arena slot that the
+    walk's own evictions refill, and 4-6 from SSD (block 7 is prefilled: a
+    prefill keeps at least one token).
+
+    One tier worker: installs land in eviction order, and an install that
+    the walk's own eviction starts cannot demote the next block before the
+    walk fetches it (with two workers, two installs could race one
+    fetch)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.hashing import prefix_block_hashes
+
+    hbs = cfg.hash_block_size
+    rng = np.random.default_rng(7)
+    V = cfg.model.vocab_size
+    prompt_a = rng.integers(3, V, size=8 * hbs).tolist()
+    m = cfg.model
+    blk = (m.num_layers * 2 * hbs * m.num_kv_heads * m.head_dim
+           * torch.empty((), dtype=m.dtype).element_size())
+    # 129 usable pages: A's 65 (1024 + 16 tokens) and U1's 64 cached pages.
+    tcfg = replace(cfg, num_pages=130, kv_tier_dram_bytes=4 * blk,
+                   kv_tier_ssd_bytes=16 * blk, kv_tier_threads=1)
+    eng = engine_mod.InferenceEngine(tcfg, params=params)
+    store = eng.tier_store
+    assert store is not None and store.block_nbytes == blk
+    log(f"  block {blk / (1 << 20):.0f} MiB; DRAM arena 4 blocks, SSD file "
+        "16 blocks, one tier worker")
+    hashes = [h.hex() for h in prefix_block_hashes(prompt_a, hbs)]
+    reset_counts()
+    eng.start()
+    try:
+        serve_one(eng, engine_mod, "A0", prompt_a)
+        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a)        # HBM hit
+        # The bytes to be evicted, for the check after the onload (plain
+        # gather; looking the blocks up refreshes them in LRU order).
+        before = {}
+        for h in hashes[:7]:
+            pages = eng.page_mgr.match_block(h)
+            before[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
+            eng.page_mgr.release_prefix([h])
+        serve_one(eng, engine_mod, "A-half",
+                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist())
+        t0 = time.monotonic()
+        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist())
+        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist())
+        wait_for(lambda: all(store.ready(h) for h in hashes),
+                 "A's blocks in the tiers")
+        t_off = time.monotonic() - t0
+        st0 = store.stats()
+        tiers = [store.tier_of(h) for h in hashes]
+        log(f"  after eviction: A's blocks in tiers {tiers}, stats {st0}")
+        t0 = time.monotonic()
+        t_tier = serve_one(eng, engine_mod, "A2", prompt_a)      # tiers
+        t_on = time.monotonic() - t0
+        launches = (page_dma.gather_kv_pages.launches,
+                    page_dma.scatter_kv_pages.launches)
+        wait_for(lambda: not store._pending, "the tier pump settling")
+        st = store.stats()
+        ev = eng.drain_kv_events()
+        after = {}
+        for h in hashes[:7]:
+            pages = eng.page_mgr.match_block(h)
+            assert pages is not None, "an onloaded block is not in HBM"
+            after[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
+    finally:
+        eng.stop()
+    same = all(torch.equal(before[h].view(torch.int16),
+                           after[h].view(torch.int16)) for h in before)
+    log(f"  tier stats {st}; events stored {len(ev.stored)} offloaded "
+        f"{len(ev.offloaded)} removed {len(ev.removed)}; launches "
+        f"gather/scatter {launches}")
+    log(f"  T_hbm == T_tier: {t_hbm == t_tier}; restored pages bit-identical "
+        f"to the evicted ones: {same}")
+    mb = 1 << 20
+    log(f"  offload {st0['bytes_offloaded'] / mb:.0f} MiB in {t_off:.2f} s "
+        f"(two 1024-token requests and the downloads: "
+        f"{st0['bytes_offloaded'] / mb / t_off:.0f} MiB/s); onload "
+        f"{(st['bytes_onloaded']) / mb:.0f} MiB within A's second request "
+        f"of {t_on:.2f} s ({st['bytes_onloaded'] / mb / t_on:.0f} MiB/s, "
+        f"prefill and decode included); information only, {card}")
+    assert t_tier == t_hbm, "tokens after the tier round trip differ"
+    assert same, "restored pages differ from the evicted ones"
+    assert "dram" in tiers and "ssd" in tiers, "not both tiers were used"
+    assert st["onload_total"] >= 7 and st["demote_total"] >= 1
+    assert ev.offloaded, "no offloaded events were drained"
+    assert launches[0] > 0 and launches[1] > 0, "a page mover never ran"
+    return launches
+
+
+# --------------------------------------------------------------- phase 4b
+def fused_phase(engine_mod, cfg, params, prompts, shared, sampled_prompt,
+                kernels, llama):
+    """Phase 4's batch twice under XLLM_KV_WRITEBACK=fused: every decode step
+    through kernel 3 and none through kernel 1."""
+    fused, paged = kernels
+    os.environ["XLLM_KV_WRITEBACK"] = "fused"
+    try:
+        runs = []
+        for r in range(2):
+            reset_counts()
+            t = time.monotonic()
+            toks, reasons, stats, ttft, tps = serve_once(
+                engine_mod, cfg, params, prompts, shared, sampled_prompt)
+            launches = (fused.launches, paged.launches)
+            log(f"  fused run {r}: {time.monotonic() - t:.1f} s, launches "
+                f"fused/decode {launches}, {tps:.1f} generated tok/s "
+                f"(information only)")
+            for name, tk in toks.items():
+                assert len(tk) == 64 and reasons[name] == "length", \
+                    f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
+            assert launches[0] > 0, "the fused kernel never launched"
+            assert launches[1] == 0, "kernel 1 launched under fused mode"
+            runs.append((toks, launches))
+        assert runs[0][0] == runs[1][0], "two fused runs differ"
+        log("  both fused runs gave identical tokens for all 11 requests")
+        check_logits(llama, cfg, params, shared[0], 512)
+    finally:
+        del os.environ["XLLM_KV_WRITEBACK"]
+    return runs[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -335,7 +620,11 @@ def main() -> int:
     from xllm_service_tpu_torch.engine import engine as engine_mod
     from xllm_service_tpu_torch.models import llama
     from xllm_service_tpu_torch.models.base import llama3_8b_config
-    from xllm_service_tpu_torch.ops import _build
+    from xllm_service_tpu_torch.ops import _build, page_dma
+    from xllm_service_tpu_torch.ops.fused_decode_attention import (
+        fused_decode_attention,
+        fused_decode_attention_plain,
+    )
     from xllm_service_tpu_torch.ops.mq_paged_attention import (
         mq_paged_attention,
         mq_paged_attention_plain,
@@ -345,13 +634,17 @@ def main() -> int:
         paged_attention_plain,
     )
 
+    KERNEL_WRAPPERS.extend([paged_attention, mq_paged_attention,
+                            fused_decode_attention, page_dma.gather_kv_pages,
+                            page_dma.scatter_kv_pages])
+
     # Phase 1: environment.
     card = smi_line()
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} | {card} | "
         f"devices {torch.cuda.device_count()}")
 
-    # Phase 2: build both kernels in parallel.
+    # Phase 2: build the four libraries in parallel.
     t = time.monotonic()
     logs = _build.build(verbose=True)
     log(f"[2] built {sorted(logs) or 'nothing (up to date)'} in "
@@ -365,6 +658,9 @@ def main() -> int:
     log("[3] kernels against their plain versions")
     k1 = check_decode_kernel(paged_attention, paged_attention_plain)
     k2 = check_mq_kernel(mq_paged_attention, mq_paged_attention_plain)
+    k3 = check_fused_kernel(fused_decode_attention,
+                            fused_decode_attention_plain)
+    k4, k5 = check_page_movers(page_dma)
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
@@ -394,8 +690,7 @@ def main() -> int:
 
     runs = []
     for r in range(2):
-        paged_attention.launches = 0
-        mq_paged_attention.launches = 0
+        reset_counts()
         t = time.monotonic()
         toks, reasons, stats, ttft, tps = serve_once(
             engine_mod, cfg, params, prompts, shared, sampled_prompt)
@@ -416,16 +711,38 @@ def main() -> int:
     log("  both runs gave identical tokens for all 11 requests")
     check_logits(llama, cfg, params, shared[0], 512)
 
+    # Phase 4a: KV tiers at full width.
+    log("[4a] KV tiers: HBM -> DRAM -> SSD and back, llama3-8b")
+    tier_launches = tier_phase(engine_mod, cfg, params, page_dma, card)
+
+    # Phase 4b: the fused decode writeback.
+    log("[4b] serving under XLLM_KV_WRITEBACK=fused")
+    fused_toks, fused_launches = fused_phase(
+        engine_mod, cfg, params, prompts, shared, sampled_prompt,
+        (fused_decode_attention, paged_attention), llama)
+    same = sum(fused_toks[n] == runs[0][0][n] for n in fused_toks)
+    log(f"  fused vs default route: {same}/{len(fused_toks)} requests with "
+        "identical tokens (information only: the two sum in another order)")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
+    csrc = "xllm_service_tpu_torch/csrc/"
     for name, src, tpu, res, n in (
-            ("paged_attention", "xllm_service_tpu_torch/csrc/paged_attention.cu",
+            ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0]),
-            ("mq_paged_attention",
-             "xllm_service_tpu_torch/csrc/mq_paged_attention.cu",
+            ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
-             runs[0][1][1])):
+             runs[0][1][1]),
+            ("fused_decode_attention", csrc + "fused_decode_attention.cu",
+             "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
+             fused_launches[0]),
+            ("gather_kv_pages", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
+             tier_launches[0]),
+            ("scatter_kv_pages", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
+             tier_launches[1])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": n, **res})
     log(f"  total {time.monotonic() - t_start:.1f} s")

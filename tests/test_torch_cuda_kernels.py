@@ -1,4 +1,6 @@
-"""The two CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the two
+attention kernels, the fused append-and-attend and the page movers (bit for
+bit: they are copies), and the engine's tier round trip through them.
 
 Marked ``cuda``: they need a GPU and nvcc and skip elsewhere. Run them on
 a machine with an H100 with ``python -m pytest -m cuda
@@ -10,11 +12,18 @@ from f32 on both sides, so they differ by at most one bf16 ulp (2e-2 on
 outputs below 4).
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from xllm_service_tpu_torch.ops import attention
+from xllm_service_tpu_torch.ops import attention, page_dma
+from xllm_service_tpu_torch.ops.fused_decode_attention import (
+    fused_decode_attention,
+    fused_decode_attention_plain,
+)
 from xllm_service_tpu_torch.ops.mq_paged_attention import (
     mq_paged_attention,
     mq_paged_attention_plain,
@@ -123,3 +132,147 @@ def test_prefill_attention_routes_through_the_mq_kernel(dev):
                                        k_pages.cpu(), v_pages.cpu(),
                                        pt.cpu(), pre.cpu(), lens.cpu())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+# ------------------------------------------------- kernel 3: fused decode
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv,hd", [(8, 2, 128), (32, 8, 128),
+                                         (4, 2, 32)])
+def test_fused_decode_kernel_matches_plain(dev, dtype, n_q, n_kv, hd):
+    B, ps, mp = 6, 16, 6
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 4)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    ctx = [0, 1, 16, 17, 50, 96]
+    # NaN from the new token's position on: never read, the slot rewritten.
+    _poison_past(k, v, pt.cpu(), [max(c - 1, 0) for c in ctx], ps)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    k_new = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    v_new = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    kp, vp = k.clone(), v.clone()
+    before = fused_decode_attention.launches
+    got, kp_out, vp_out = fused_decode_attention(q, k_new, v_new, kp, vp, pt,
+                                                 cl)
+    want, _, _ = fused_decode_attention_plain(q, k_new, v_new, k, v, pt, cl)
+    torch.cuda.synchronize()
+    assert fused_decode_attention.launches == before + 1
+    assert kp_out is kp and vp_out is vp
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(kp.view(bits), k.view(bits))
+    assert torch.equal(vp.view(bits), v.view(bits))
+    # The ctx-0 row attends only the new token.
+    assert (got[0].float() - v_new[0].float().repeat_interleave(
+        n_q // n_kv, dim=0)).abs().max().item() <= TOL[dtype]
+
+
+def test_decode_step_routes_through_the_fused_kernel(dev, monkeypatch):
+    B, n_q, n_kv, hd, ps = 3, 8, 2, 128, 16
+    k, v = _pool(dev, torch.float32, 13, n_kv, ps, hd, 5)
+    pt = torch.arange(1, 13, dtype=torch.int32, device=dev).reshape(B, 4)
+    q = torch.randn((B, n_q, hd), device=dev)
+    kn = torch.randn((B, n_kv, hd), device=dev)
+    vn = torch.randn((B, n_kv, hd), device=dev)
+    cl = torch.tensor([5, 33, 64], dtype=torch.int32, device=dev)
+    want = attention.decode_attention_step(q, kn, vn, k.clone(), v.clone(),
+                                           pt, cl)[0]
+    monkeypatch.setenv("XLLM_KV_WRITEBACK", "fused")
+    fused_before = fused_decode_attention.launches
+    paged_before = paged_attention.launches
+    got = attention.decode_attention_step(q, kn, vn, k, v, pt, cl)[0]
+    assert fused_decode_attention.launches == fused_before + 1
+    assert paged_attention.launches == paged_before
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------- kernels 4-5: page movers
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (4, 2, 20, 8, 16, 128)),    # Llama-3-8B page rows
+    (torch.float32, (2, 2, 9, 2, 16, 32)),
+    (torch.bfloat16, (2, 2, 7, 1, 1, 3)),        # 6-byte rows: byte loop
+])
+def test_page_movers_match_plain(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(7)
+    kv = torch.randn(shape, generator=g, device=dev).to(dtype)
+    ids = [5, 0, 3, 6]
+    untouched = [p for p in range(shape[2]) if p not in ids]
+    kv[:, :, untouched] = float("nan")
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    g0, s0 = page_dma.gather_kv_pages.launches, \
+        page_dma.scatter_kv_pages.launches
+    got = page_dma.gather_kv_pages(kv, ids)
+    assert torch.equal(got.view(bits),
+                       page_dma.gather_kv_pages_plain(kv, ids).view(bits))
+    block = torch.randn(got.shape, generator=g, device=dev)   # f32: cast
+    pool, ref = kv.clone(), kv.clone()
+    page_dma.scatter_kv_pages(pool, torch.tensor(ids), block)
+    page_dma.scatter_kv_pages_plain(ref, ids, block)
+    torch.cuda.synchronize()
+    assert torch.equal(pool.view(bits), ref.view(bits))
+    assert torch.equal(pool[:, :, untouched].view(bits),
+                       kv[:, :, untouched].view(bits))
+    assert (page_dma.gather_kv_pages.launches,
+            page_dma.scatter_kv_pages.launches) == (g0 + 1, s0 + 1)
+
+
+def test_page_movers_refuse_device_ids_and_foreign_blocks(dev):
+    kv = torch.zeros((1, 2, 4, 1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="host"):
+        page_dma.gather_kv_pages(kv, torch.tensor([1], device=dev))
+    with pytest.raises(ValueError, match="block on"):
+        page_dma.scatter_kv_pages(kv, [1], torch.zeros((1, 2, 1, 1, 2, 8)))
+
+
+def test_engine_tier_round_trip_on_the_card(dev):
+    """The engine's fence on the card: gather on the engine's stream, the
+    download on the tier stream into pinned memory, the upload and scatter
+    ahead of the prefill. Greedy tokens survive the round trip."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+    from xllm_service_tpu_torch.engine import (
+        EngineConfig,
+        EngineRequest,
+        InferenceEngine,
+    )
+    from xllm_service_tpu_torch.models.base import tiny_config
+
+    eng = InferenceEngine(EngineConfig(
+        model=tiny_config(dtype=torch.float32, max_context_len=256),
+        num_pages=10, page_size=16, hash_block_size=32, max_batch_size=4,
+        max_seq_len=256, kv_tier_dram_bytes=64 << 20,
+        kv_tier_ssd_bytes=64 << 20), device=dev)
+
+    def run(rid, prompt):
+        toks, done = [], threading.Event()
+
+        def on_output(out):
+            for s in out.outputs:
+                toks.extend(s.token_ids)
+            if out.finished:
+                done.set()
+
+        eng.submit(EngineRequest(rid, token_ids=prompt, on_output=on_output,
+                                 sampling=SamplingParams(
+                                     max_tokens=8, temperature=0.0,
+                                     ignore_eos=True)))
+        while not done.is_set():
+            eng.step()
+        return toks
+
+    g0 = page_dma.gather_kv_pages.launches
+    s0 = page_dma.scatter_kv_pages.launches
+    try:
+        first = run("a1", list(range(100, 196)))
+        run("b1", list(range(300, 428)))
+        store = eng.tier_store
+        t0 = time.monotonic()
+        while store.offload_total < 3:
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.01)
+        assert run("a2", list(range(100, 196))) == first
+        assert store.onload_total >= 2
+        assert page_dma.gather_kv_pages.launches > g0
+        assert page_dma.scatter_kv_pages.launches > s0
+    finally:
+        eng.stop()

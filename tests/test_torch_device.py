@@ -10,6 +10,13 @@ from xllm_service_tpu_torch.engine import EngineConfig, InferenceEngine
 from xllm_service_tpu_torch.models import llama
 from xllm_service_tpu_torch.models.base import tiny_config
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
+from xllm_service_tpu_torch.ops.fused_decode_attention import (
+    fused_decode_attention,
+)
+from xllm_service_tpu_torch.ops.page_dma import (
+    gather_kv_pages,
+    scatter_kv_pages,
+)
 from xllm_service_tpu_torch.ops.paged_attention import (
     check_cuda_operands,
     paged_attention,
@@ -50,6 +57,22 @@ def test_non_cpu_non_cuda_tensor_is_refused():
     idx = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paged_attention(q, pages, pages, idx, idx[0])
+
+
+@pytest.mark.parametrize("call", ["fused", "gather", "scatter"])
+def test_new_wrappers_refuse_non_cpu_non_cuda_tensors(call):
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if call == "fused":
+            q = torch.zeros((1, 4, 32), **meta)
+            new = torch.zeros((1, 2, 32), **meta)
+            pages = torch.zeros((2, 2, 4, 32), **meta)
+            idx = torch.zeros((1, 1), dtype=torch.int32, **meta)
+            fused_decode_attention(q, new, new, pages, pages, idx, idx[0])
+        kv = torch.zeros((1, 2, 3, 2, 4, 8), **meta)
+        if call == "gather":
+            gather_kv_pages(kv, [1])
+        scatter_kv_pages(kv, [1], torch.zeros((1, 2, 1, 2, 4, 8), **meta))
 
 
 def test_operand_checks():

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``xllm_service_tpu_torch`` pulls in neither ``jax`` nor anything of
-``xllm_service_tpu``, and ``chip_smoke.py`` imports neither."""
+``xllm_service_tpu`` (nor ``ml_dtypes``, the reference's bf16 host type),
+and ``chip_smoke.py`` imports none of them."""
 
 import ast
 import pkgutil
@@ -11,7 +12,7 @@ from pathlib import Path
 import xllm_service_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "xllm_service_tpu")
+FORBIDDEN = ("jax", "jaxlib", "xllm_service_tpu", "ml_dtypes")
 
 
 def _modules() -> list[str]:
@@ -22,7 +23,9 @@ def _modules() -> list[str]:
 def test_every_port_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "xllm_service_tpu_torch.engine.engine" in mods
-    assert "xllm_service_tpu_torch.ops.mq_paged_attention" in mods
+    for m in ("ops.mq_paged_attention", "ops.fused_decode_attention",
+              "ops.page_dma", "engine.kv_tier"):
+        assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -70,8 +70,44 @@ def _script(mod):
     return log
 
 
+def _tier_script(mod):
+    """The tier hand-off: with tiering on, evictions divert to
+    drain_evicted (no `removed`), onloaded blocks install as `stored`, and
+    match_block stitches single HBM blocks."""
+    mgr = mod.KVPageManager(num_pages=9, page_size=4, hash_block_size=8)
+    mgr.enable_tiering(True)
+    log = []
+    a = list(range(100, 124))            # 3 blocks = 6 pages
+    pages_a = mgr.allocate(6)
+    stored, donated = mgr.store_prefix(a, pages_a)
+    mgr.release_prefix(stored)
+    log.append(("store a", stored, sorted(donated)))
+    pages_c = mgr.allocate(5)            # evicts a's two oldest blocks
+    log.append(("alloc c", pages_c, mgr.drain_evicted(), mgr.drain_evicted()))
+    log.append(("match_block", mgr.match_block(stored[2]),
+                mgr.match_block(stored[0])))
+    mgr.free(pages_c)
+    fresh = mgr.allocate(2)
+    log.append(("install", mgr.install_block(stored[0], fresh),
+                mgr.install_block(stored[0], fresh)))
+    n, pages, hashes = mgr.match_prefix(a)
+    log.append(("match a", n, pages, hashes))
+    ev = mgr.drain_events()
+    log.append(("events", ev.stored, ev.removed, ev.offloaded))
+    mgr.enable_tiering(False)
+    mgr.release_prefix(hashes + [stored[2]])
+    mgr.release_prefix([stored[0]])
+    log.append(("plain evict", mgr.allocate(8), mgr.drain_evicted(),
+                mgr.drain_events().removed))
+    return log
+
+
 def test_scripted_sequence_matches_reference():
     assert _script(kv_cache) == _script(ref_kv)
+
+
+def test_tier_handoff_matches_reference():
+    assert _tier_script(kv_cache) == _tier_script(ref_kv)
 
 
 def test_tail_page_never_donated():

@@ -129,3 +129,18 @@ def test_init_params_shapes_and_seed():
                        b["layers"]["up_proj"]["kernel"])
     assert not torch.equal(a["layers"]["up_proj"]["kernel"][0],
                            a["layers"]["up_proj"]["kernel"][1])
+
+
+def test_out_of_vocabulary_ids_take_the_reference_rows(models):
+    """The reference's ``embedding[tokens]`` clamps an id past the
+    vocabulary to the last row and wraps a negative one; the port's
+    lookup does the same instead of raising."""
+    rcfg = models[0]
+    V = rcfg.vocab_size
+    tokens = np.array([[5, V, V + 77, -1, -V, 9]], np.int32)
+    seq = np.array([6], np.int32)
+    pt = np.arange(1, 3, dtype=np.int32)[None]
+    got, want, kv, kv_ref = _prefill(models, _pool(rcfg), tokens,
+                                     np.zeros(1, np.int32), seq, pt)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(kv, kv_ref, **TOL)

@@ -33,6 +33,23 @@ class EngineConfig:
     # many tokens so admission isn't blocked behind a long horizon. 0
     # disables.
     admission_horizon: int = 8
+    # --- Tiered KV cache (engine/kv_tier.py) ---
+    # Host-RAM (DRAM) tier capacity in bytes: evicted prefix blocks are
+    # offloaded here asynchronously instead of being dropped, and a
+    # prefix-matching admission onloads them back ahead of prefill. 0
+    # disables tiering (evictions report `removed` as before).
+    kv_tier_dram_bytes: int = 0
+    # SSD spill tier capacity in bytes (DRAM overflow, LRU-demoted, BLAKE2b
+    # checksummed). Requires kv_tier_dram_bytes > 0: offloads land in the
+    # DRAM arena first and SSD is its overflow.
+    kv_tier_ssd_bytes: int = 0
+    # Spill file path ("" = a temp file, unlinked when the engine stops).
+    kv_tier_ssd_path: str = ""
+    # Transfer-pump worker threads and the hard in-flight cap: offloads
+    # past the cap are DROPPED (reported as plain evictions), never queued
+    # behind decode.
+    kv_tier_threads: int = 2
+    kv_tier_max_inflight: int = 8
 
     @property
     def pages_per_seq(self) -> int:

@@ -21,10 +21,16 @@
   horizon follows the LONGEST remaining budget; while requests wait, calls
   shrink to ``admission_horizon``.
 - A dead slot's page-table row is cleared before its pages are recycled.
+- **KV tiers** (``kv_tier_dram_bytes`` > 0): evicted prefix blocks are
+  gathered out of the pool (kernel ``gather_kv_pages``) on the engine's
+  stream before any later kernel can reuse their pages, downloaded to a
+  host arena off-thread, spilled to an SSD file when the arena is full,
+  and restored (kernel ``scatter_kv_pages``) ahead of the prefill of a
+  prefix-matching admission.
 
 Not in this port yet: speculation, chunked prefill, the mixed
-decode+chunk step, KV tiers, PD injection/handoff, multimodal input,
-meshes, offline preemption and the pipelined dispatch-before-fetch.
+decode+chunk step, PD injection/handoff, multimodal input, meshes,
+offline preemption and the pipelined dispatch-before-fetch.
 """
 
 from __future__ import annotations
@@ -53,10 +59,12 @@ from ..common.request import (
 )
 from ..common.types import KvCacheEvent
 from ..models.base import get_model_family
+from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
 from ..tokenizer.base import Tokenizer
 from ..tokenizer.simple import SimpleTokenizer
 from .config import EngineConfig
 from .kv_cache import GARBAGE_PAGE, KVPageManager, SequencePages
+from .kv_tier import TieredKVStore, host_block
 from .sampling import NUM_BIAS, SamplingState, record_tokens, sample_tokens
 
 logger = logging.getLogger(__name__)
@@ -120,6 +128,7 @@ class InferenceEngine:
         self.kv_pages = torch.zeros(
             (mcfg.num_layers, 2, cfg.num_pages, mcfg.num_kv_heads,
              cfg.page_size, mcfg.head_dim), dtype=mcfg.dtype, device=dev)
+        self._init_tiers()
         self._reset_slot_state()
         # Seeds of unseeded sampled requests.
         self._rng = random.Random(cfg.seed + 1)
@@ -136,6 +145,48 @@ class InferenceEngine:
         self.total_generated = 0
         self.prefix_hits = 0            # admissions that reused cached KV
         self.prefix_hit_tokens = 0      # prompt tokens they did not prefill
+
+    def _init_tiers(self) -> None:
+        """Tiered KV store (DRAM arena + SSD spill): populated by
+        evictions, drained by prefix-matching admissions. None = off."""
+        cfg, mcfg = self.cfg, self.cfg.model
+        self.tier_store: Optional[TieredKVStore] = None
+        # Side stream of the tier workers' downloads (CUDA engines).
+        self._tier_stream: Optional[torch.cuda.Stream] = None
+        if cfg.kv_tier_dram_bytes <= 0 < cfg.kv_tier_ssd_bytes:
+            # SSD-only is not a mode: offloads land in the DRAM arena
+            # first and SSD is its overflow.
+            logger.warning(
+                "kv_tier_ssd_bytes=%d ignored: tiering is DRAM-fronted "
+                "(SSD holds DRAM overflow) — set kv_tier_dram_bytes > 0 "
+                "to enable the tiers", cfg.kv_tier_ssd_bytes)
+        elif cfg.kv_tier_dram_bytes > 0:
+            on_cuda = self.device.type == "cuda"
+            store = TieredKVStore(
+                block_shape=(mcfg.num_layers, 2, self.page_mgr.pages_per_block,
+                             mcfg.num_kv_heads, cfg.page_size,
+                             mcfg.head_dim),
+                dtype=mcfg.dtype,
+                dram_bytes=cfg.kv_tier_dram_bytes,
+                ssd_bytes=cfg.kv_tier_ssd_bytes,
+                ssd_path=cfg.kv_tier_ssd_path,
+                threads=cfg.kv_tier_threads,
+                max_inflight=cfg.kv_tier_max_inflight,
+                pin_memory=on_cuda)
+            if store.enabled:
+                self.tier_store = store
+                if on_cuda:
+                    self._tier_stream = torch.cuda.Stream(self.device)
+            else:
+                # A store that can hold nothing must not swallow evictions
+                # (they would vanish from the global index).
+                logger.warning(
+                    "KV tiering disabled: kv_tier_dram_bytes=%d is below "
+                    "one block (%d bytes)", cfg.kv_tier_dram_bytes,
+                    store.block_nbytes)
+                store.close()
+        # Evictions divert to the tier pump only with a usable store.
+        self.page_mgr.enable_tiering(self.tier_store is not None)
 
     def _reset_slot_state(self) -> None:
         """Fresh per-slot device state: every slot inactive, its page-table
@@ -172,6 +223,8 @@ class InferenceEngine:
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        if self.tier_store is not None:
+            self.tier_store.close()
 
     # ---------------------------------------------------------------- API
     def submit(self, req: EngineRequest) -> None:
@@ -204,7 +257,7 @@ class InferenceEngine:
 
     def stats(self) -> dict[str, Any]:
         with self._lock:
-            return {
+            out = {
                 "waiting": len(self._waiting),
                 "running": len(self._running),
                 "kv_usage_perc": self.page_mgr.usage_perc(),
@@ -213,10 +266,20 @@ class InferenceEngine:
                 "prefix_hits": self.prefix_hits,
                 "prefix_hit_tokens": self.prefix_hit_tokens,
             }
+        if self.tier_store is not None:
+            out["kv_tier"] = self.tier_store.stats()
+        return out
 
     def drain_kv_events(self) -> KvCacheEvent:
-        """Heartbeat delta: page-manager stored/removed block hashes."""
-        return self.page_mgr.drain_events()
+        """Heartbeat delta: page-manager stored/removed plus the tier
+        store's completed transitions (HBM->DRAM and DRAM->SSD as
+        `offloaded`; capacity and corruption drops as `removed`)."""
+        ev = self.page_mgr.drain_events()
+        if self.tier_store is not None:
+            off, rem = self.tier_store.drain_events()
+            ev.offloaded.extend(off)
+            ev.removed.extend(rem)
+        return ev
 
     # ------------------------------------------------------------- the loop
     def _loop(self) -> None:
@@ -311,6 +374,98 @@ class InferenceEngine:
                 return admitted
             admitted = True
 
+    # ------------------------------------------------------------ KV tiers
+    def _tier_gather(self, pages: list[int]):
+        """Gather one hash block's pages into a NEW tensor for offload, on
+        the engine's stream (so before any later kernel that reuses the
+        pages). On CUDA it returns (block, event recorded after the
+        gather) for :meth:`_tier_download`."""
+        block = gather_kv_pages(self.kv_pages, pages)
+        if self._tier_stream is None:
+            return block
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return block, ready
+
+    def _tier_download(self, blob) -> torch.Tensor:
+        """Tier worker (CUDA): copy a gathered block into pinned host
+        memory on the side stream once the gather's event has passed. Only
+        this worker waits for the copy; the engine thread never does. The
+        block stays referenced here until the copy has completed."""
+        block, ready = blob
+        host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+        stream = self._tier_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            host.copy_(block, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return host
+
+    def _pump_tier_offloads(self) -> None:
+        """Hand freshly evicted blocks to the tier store. Called right
+        after EVERY page allocation: the gather is enqueued here, before
+        any kernel that could overwrite the recycled pages; the download
+        and arena write then run on the store's bounded executor, never
+        this thread."""
+        if self.tier_store is None:
+            return
+        fetch = (host_block if self._tier_stream is None
+                 else self._tier_download)
+        for h, pages in self.page_mgr.drain_evicted():
+            # Lazy gather: enqueued (on THIS thread, keeping stream order)
+            # only if the pump accepts the block; a drop is reported by the
+            # store itself as a plain `removed` eviction.
+            self.tier_store.offload(
+                h, lambda p=pages: self._tier_gather(p), fetch=fetch)
+
+    def _onload_cold_prefix(self, prompt_hashes: list, matched: int,
+                            cached_pages: list[int],
+                            cached_hashes: list[str], P0: int) -> int:
+        """Extend an HBM prefix match from the cold tiers: contiguous next
+        blocks that are fence-complete in DRAM/SSD are restored into
+        freshly allocated pages (upload and scatter enqueued ahead of the
+        prefill that reads them) and re-donated to the HBM cache. Blocks
+        still resident in HBM beyond a cold gap are stitched in directly.
+        Mutates cached_pages/cached_hashes in place; returns the new
+        matched token count. Stops at the first miss, corruption, or page
+        shortage — the prefix must stay contiguous."""
+        hbs = self.cfg.hash_block_size
+        ppb = self.page_mgr.pages_per_block
+        i = matched // hbs
+        while i < len(prompt_hashes) and matched + hbs < P0:
+            hx = prompt_hashes[i].hex()
+            hbm_pages = self.page_mgr.match_block(hx)
+            if hbm_pages is not None:
+                cached_hashes.append(hx)
+                cached_pages.extend(hbm_pages)
+                matched += hbs
+                i += 1
+                continue
+            if not self.tier_store.ready(hx):
+                break
+            pages = self.page_mgr.allocate(ppb)
+            self._pump_tier_offloads()
+            if pages is None:
+                break
+            arr = self.tier_store.fetch(hx)
+            if arr is None:
+                # Miss (raced an eviction) or SSD checksum corruption:
+                # fails only this block; the walk stops here.
+                self.page_mgr.free(pages)
+                break
+            if not self.page_mgr.install_block(hx, pages):
+                self.page_mgr.free(pages)
+                break
+            scatter_kv_pages(self.kv_pages, pages,
+                             arr.to(self.device, non_blocking=True))
+            cached_hashes.append(hx)
+            cached_pages.extend(pages)
+            matched += hbs
+            i += 1
+        return matched
+
     def _start_sequence(self, req: EngineRequest) -> bool:
         cfg = self.cfg
         prompt = req.token_ids
@@ -331,8 +486,16 @@ class InferenceEngine:
             matched = len(cached_hashes) * cfg.hash_block_size
             cached_pages = cached_pages[:matched // cfg.page_size]
 
+        # Cold-tier onload: extend the HBM match with fence-complete
+        # DRAM/SSD blocks restored ahead of prefill (suffix-only prefill
+        # then starts past them, exactly like an HBM hit).
+        if self.tier_store is not None:
+            matched = self._onload_cold_prefix(
+                prompt_hashes, matched, cached_pages, cached_hashes, P0)
+
         total_pages = -(-max_total // cfg.page_size)   # ceil
         own_pages = self.page_mgr.allocate(total_pages - len(cached_pages))
+        self._pump_tier_offloads()
         if own_pages is None:
             self.page_mgr.release_prefix(cached_hashes)
             return False
@@ -363,6 +526,11 @@ class InferenceEngine:
             block_hashes=prompt_hashes)
         seq.pages.donated_hashes = stored
         seq.pages.donated_pages = donated
+        if self.tier_store is not None:
+            # A re-prefilled block supersedes any cold-tier copy (its
+            # `stored` event moves the instance to HBM).
+            for hx in stored:
+                self.tier_store.discard(hx)
         self._running[seq.slot] = seq
         self._emit_token(seq, first_token, lp)
         return True

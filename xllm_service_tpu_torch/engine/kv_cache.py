@@ -1,9 +1,9 @@
 """Host-side KV page management: allocator + block-hash prefix cache.
 
-A copy of ``xllm_service_tpu/engine/kv_cache.py`` without the tier
-hand-off (KV tiers are not ported yet): the same page ids, prefix matches,
-LRU eviction order and ``KvCacheEvent`` deltas, so the global prefix index
-sees the same identities from either engine.
+A copy of ``xllm_service_tpu/engine/kv_cache.py``, tier hand-off included:
+the same page ids, prefix matches, LRU eviction order and ``KvCacheEvent``
+deltas, so the global prefix index sees the same identities from either
+engine.
 
 Page 0 is reserved as the garbage page: inactive batch slots in the decode
 step write their K/V there, never corrupting live data.
@@ -51,6 +51,15 @@ class KVPageManager:
         # Heartbeat delta accumulators.
         self._stored: list[str] = []
         self._removed: list[str] = []
+        # Tiered eviction: with a cold-tier store attached (engine/
+        # kv_tier.py), evicted blocks are handed to the engine for async
+        # offload instead of being reported `removed` outright. The engine
+        # drains this right after every allocate() and enqueues the device
+        # gather BEFORE any kernel that reuses the pages (stream order
+        # makes the capture exact). The tier store then reports
+        # `offloaded` on completion (or `removed` on a drop).
+        self._tiering = False
+        self._evicted_pending: list[tuple[str, list[int]]] = []
 
     # ------------------------------------------------------------ alloc/free
     @property
@@ -84,9 +93,41 @@ class KVPageManager:
             if blk.ref_count == 0:
                 del self._blocks[h]
                 self._free.extend(blk.pages)
-                self._removed.append(h)
+                if self._tiering:
+                    self._evicted_pending.append((h, list(blk.pages)))
+                else:
+                    self._removed.append(h)
                 return True
         return False
+
+    def enable_tiering(self, on: bool) -> None:
+        """Divert evictions to :meth:`drain_evicted` (a tier store is
+        attached) instead of reporting them `removed`."""
+        with self._lock:
+            self._tiering = on
+
+    def drain_evicted(self) -> list[tuple[str, list[int]]]:
+        """Tier-eviction hand-off: (hash, pages) of blocks evicted since the
+        last drain. The pages are already back on the free list, so the
+        caller must enqueue its device gather before any kernel that could
+        reuse them (every engine allocate() is followed by a drain)."""
+        with self._lock:
+            out = self._evicted_pending
+            self._evicted_pending = []
+            return out
+
+    def install_block(self, hash_hex: str, pages: list[int]) -> bool:
+        """Register an ONLOADED block (tier -> HBM): the pages now hold the
+        restored KV and belong to the cache; the caller gets a reference
+        (release via release_prefix). Reports `stored`. Returns False (the
+        caller frees the pages) if the hash is already cached."""
+        with self._lock:
+            if hash_hex in self._blocks:
+                return False
+            self._blocks[hash_hex] = CachedBlock(hash_hex, list(pages),
+                                                 ref_count=1)
+            self._stored.append(hash_hex)
+            return True
 
     # ---------------------------------------------------------- prefix cache
     def match_prefix(self, token_ids: Sequence[int],
@@ -110,6 +151,19 @@ class KVPageManager:
                 pages.extend(blk.pages)
                 matched_hashes.append(hx)
         return len(matched_hashes) * self.hash_block_size, pages, matched_hashes
+
+    def match_block(self, hash_hex: str) -> Optional[list[int]]:
+        """Single-block HBM hit: take a reference on `hash_hex` if it is
+        cached. The tier-onload walk uses this to stitch blocks still
+        resident in HBM BEYOND a cold gap back into the prefix
+        (match_prefix alone stops at the first HBM miss)."""
+        with self._lock:
+            blk = self._blocks.get(hash_hex)
+            if blk is None:
+                return None
+            blk.ref_count += 1
+            self._blocks.move_to_end(hash_hex)
+            return list(blk.pages)
 
     def release_prefix(self, block_hashes: Sequence[str]) -> None:
         with self._lock:

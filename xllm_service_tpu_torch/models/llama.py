@@ -106,6 +106,19 @@ def _attn_mlp_residual(lp: dict, x: torch.Tensor, attn: torch.Tensor,
     return x + _mlp(lp, h2)
 
 
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """Embedding rows of ``tokens``, with the reference's gather semantics:
+    a negative id wraps like numpy's and an id past the vocabulary is
+    clamped to its last row (the reference's ``embedding[tokens]`` in JAX
+    clamps out-of-range ids; a torch index would raise)."""
+    table = params["embed"]["embedding"]
+    V = table.shape[0]
+    idx = tokens.long()
+    idx = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
+    return table[idx].to(cfg.dtype)
+
+
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
     if cfg.tie_embeddings:
@@ -131,7 +144,7 @@ def prefill_forward(params: Params, cfg: ModelConfig,
     card."""
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
-    x = params["embed"]["embedding"][tokens.long()].to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
@@ -160,7 +173,7 @@ def decode_forward(params: Params, cfg: ModelConfig,
     tokens' K/V are written into ``kv_pages`` in place and every layer's
     attention runs through the paged-attention wrapper (the CUDA kernel
     on the card)."""
-    x = params["embed"]["embedding"][tokens.long()].to(cfg.dtype)  # [B, D]
+    x = _embed(params, cfg, tokens)                                # [B, D]
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)

@@ -12,17 +12,21 @@ The writes update the pool in place (the reference returns new arrays from
 a donated jit; PyTorch has no need for that) and return it.
 
 Numerics: projections in model dtype, softmax in f32. These plain ops are
-the CPU path and the oracles of the two CUDA kernels; on a CUDA tensor,
-``paged_attention`` launches kernel 1 and a prefill against a cached prefix
-launches kernel 2.
+the CPU path and the oracles of the CUDA kernels; on a CUDA tensor,
+``paged_attention`` launches kernel 1, a prefill against a cached prefix
+launches kernel 2, and a decode step under ``XLLM_KV_WRITEBACK=fused``
+launches kernel 3.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Optional
 
 import torch
 
+from .fused_decode_attention import fused_decode_attention
 from .mq_paged_attention import mq_paged_attention
 from .paged_attention import NEG_INF, paged_attention
 
@@ -204,6 +208,27 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ------------------------------------------------------------ decode attn
+_warned_writeback_modes: set[str] = set()
+
+
+def kv_writeback_mode() -> str:
+    """The single reader of the ``XLLM_KV_WRITEBACK`` decode switch (the
+    reference's own). "fused" routes the decode step through the fused
+    append-and-attend kernel; "", "slice" and "scatter" are the
+    reference's XLA layout variants of the same write, which the port
+    treats alike (the write in place, then kernel 1). An unknown value
+    falls back to the default with a one-time warning."""
+    mode = os.environ.get("XLLM_KV_WRITEBACK", "")
+    if mode not in ("", "slice", "scatter", "fused"):
+        if mode not in _warned_writeback_modes:
+            _warned_writeback_modes.add(mode)
+            logging.getLogger(__name__).warning(
+                "XLLM_KV_WRITEBACK=%r is not one of '', 'slice', "
+                "'scatter', 'fused'; using the default writeback", mode)
+        return ""
+    return mode
+
+
 def decode_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_pages: torch.Tensor, v_pages: torch.Tensor,
                           page_table: torch.Tensor,
@@ -216,7 +241,16 @@ def decode_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [B, n_heads, hd]; k/v: [B, n_kv, hd] — the new token, written at
     position ``context_lens[b] - 1`` (context_lens INCLUDE it); attention
     covers positions < ``context_lens[b]``. Returns (attn [B, n_heads, hd],
-    k_pages, v_pages)."""
+    k_pages, v_pages).
+
+    Under ``XLLM_KV_WRITEBACK=fused``, with no softcap, window or explicit
+    scale (the reference's condition), the step is one fused append and
+    attend (kernel 3 on the card, its plain version on the CPU); otherwise
+    the write, then kernel 1."""
+    if (kv_writeback_mode() == "fused" and softcap == 0.0 and window == 0
+            and scale is None):
+        return fused_decode_attention(q, k, v, k_pages, v_pages, page_table,
+                                      context_lens)
     write_decode_kv(k_pages, v_pages, k, v, page_table, context_lens - 1)
     attn = paged_attention(q, k_pages, v_pages, page_table, context_lens,
                            scale=scale, softcap=softcap, window=window)
