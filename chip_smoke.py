@@ -8,15 +8,17 @@ serves Llama-3-8B through them.
 
 Phases (any failure exits non-zero before the result line):
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build the four CUDA libraries from ``xllm_service_tpu_torch/csrc`` (one
+2. build the five CUDA libraries from ``xllm_service_tpu_torch/csrc`` (one
    nvcc per source, in parallel) into ``build/torch_kernels``;
 3. each kernel against its plain PyTorch version on the card at Llama-3-8B
    shapes, timed beside its plain version and a PyTorch yardstick: the two
    attention kernels and the fused append-and-attend (bf16 and f32, ragged
    contexts, NaN garbage past every context;
-   ``scaled_dot_product_attention`` on the K/V already gathered dense) and
-   the page movers at one hash block (bit for bit; ``index_select`` /
-   ``index_copy_``);
+   ``scaled_dot_product_attention`` on the K/V already gathered dense), the
+   page movers at one hash block (bit for bit; ``index_select`` /
+   ``index_copy_``) and the context-parallel partial per shard at seq 2
+   and 4 (NaN in every page a shard does not own and occupy; the whole CP
+   op against single-device attention, and timed against kernel 1);
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -31,6 +33,13 @@ Phases (any failure exits non-zero before the result line):
 4b. the fused decode writeback (``XLLM_KV_WRITEBACK=fused``): phase 4's
    batch served twice through the fused kernel, with kernel 1 idle, and the
    decode-step logits checked again;
+4c. context-parallel serving at the same width and depth: the KV pool
+   sharded four ways over a ``seq`` mesh (on one card, ``cuda:0`` four
+   times); a long prefix-free prompt (ring prefill), a short one, one
+   sharing the long one's first 512 tokens (a prefix hit through kernel 2)
+   and a seeded sampled one, run twice on fresh engines; every decode step
+   through kernel 6, kernels 1 and 3 idle; one decode step's logits against
+   the single-device engine's;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -346,6 +355,141 @@ def check_page_movers(page_dma):
     return rows
 
 
+def poison_unowned(k, v, pt, ctxs):
+    """NaN into every (page, slot) of the pool that no row occupies below
+    its context: what a shard holds outside its owned, occupied pages."""
+    P = k.shape[0]
+    keep = torch.zeros((P, PS), dtype=torch.bool, device="cuda")
+    pos = torch.arange(pt.shape[1] * PS, device="cuda")
+    for b, ctx in enumerate(ctxs):
+        live = pos[:ctx]
+        keep[pt[b, live // PS].long(), live % PS] = True
+    k.masked_fill_(~keep[:, None, :, None], float("nan"))
+    v.masked_fill_(~keep[:, None, :, None], float("nan"))
+
+
+def check_cp_kernel(cp, paged_attention, paged_attention_plain,
+                    build_mesh, MeshConfig):
+    """Kernel 6 against its plain version, shard by shard, at seq 2 and 4;
+    the whole CP op against single-device attention on the same pool; then
+    times at the decode step's shapes.
+
+    Checks: rows where the plain version sees nothing (m <= NEG_INF / 2)
+    must match exactly (m = NEG_INF, l = 0, acc = 0); elsewhere m within
+    TOL, and l and acc within TOL after dividing by max(l, 1): both are
+    sums of up to ctx terms weighted by p <= 1, so their rounding grows
+    with l. The merged output is compared within TOL."""
+    from xllm_service_tpu_torch.ops.paged_attention import NEG_INF
+
+    err = 0.0
+    ctxs = [0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS]
+    P = B * MAX_PAGES + 4                    # divisible by 2 and 4
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(8)
+        k = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+        v = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+        # Tables: a permutation of pages 1..P-1 across every shard; row 1
+        # on the garbage page with ctx 1; row 2 (ctx 16, one page) is
+        # untouched by every shard but the one owning its page.
+        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(8))
+        pt = (perm[:B * MAX_PAGES] + 1).reshape(B, MAX_PAGES).to(
+            torch.int32).cuda()
+        pt[1] = 0
+        poison_unowned(k, v, pt, ctxs)
+        q = torch.randn((B, N_Q, HD), device="cuda").to(dtype)
+        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+        want = paged_attention_plain(q, k, v, pt, cl)
+        for n in (2, 4):
+            mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
+            k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+            P_loc = P // n
+            for d in range(n):
+                tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc, PS)
+                m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d], *tables, cl)
+                m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d],
+                                                    *tables, cl)
+                torch.cuda.synchronize()
+                dead = m0 <= NEG_INF / 2
+                assert torch.equal(dead, m <= NEG_INF / 2), \
+                    "cp partial: masked rows differ"
+                assert (m[dead] == m0[dead]).all() and \
+                    (l[dead] == 0).all() and (acc[dead] == 0).all(), \
+                    "cp partial: a row the shard does not touch is not empty"
+                assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+                lsc = l0.clamp_min(1.0)
+                e = max((m - m0)[~dead].abs().max().item(),
+                        ((l - l0).abs() / lsc).max().item(),
+                        ((acc - a0).abs() / lsc[..., None]).max().item())
+                log(f"  cp_paged_partial {str(dtype)[6:]:8s} seq={n} shard "
+                    f"{d}: n_local {tables[2].tolist()}, err={e:.3g} "
+                    f"(tol {TOL[dtype]})")
+                assert e <= TOL[dtype], "cp partial disagrees with plain"
+                err = max(err, e)
+            got = cp.cp_paged_attention(q, k_sh, v_sh, pt, cl, mesh)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            log(f"  cp_paged_attention {str(dtype)[6:]:8s} seq={n} vs "
+                f"single-device plain: max_abs_err={e:.3g} (tol {TOL[dtype]})")
+            assert torch.isfinite(got).all() and (got[0] == 0).all()
+            assert e <= TOL[dtype], "cp op disagrees with single-device"
+            err = max(err, e)
+
+    # Timing at the decode step's shapes over four shards: B 8, ctx 1024,
+    # bf16; entry j of every row on shard j % 4, so each shard owns 16 of
+    # a row's 64 pages, at positions that are not contiguous.
+    n, ctx, mp = 4, 1024, 1024 // PS
+    P = 4 * B * mp + 4
+    P_loc = P // n
+    k = torch.randn((P, N_KV, PS, HD), device="cuda").to(torch.bfloat16)
+    v = torch.randn((P, N_KV, PS, HD), device="cuda").to(torch.bfloat16)
+    j = torch.arange(mp, device="cuda")
+    pt = ((j % n) * P_loc + 1 + torch.arange(B, device="cuda")[:, None] * mp
+          // n + j // n).to(torch.int32)                   # [B, 64], unique
+    q = torch.randn((B, N_Q, HD), device="cuda").to(torch.bfloat16)
+    cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
+    k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+    tabs = cp.cp_tables(pt, cl, cp.ShardedPages(k_sh, mesh))
+    t0 = tabs[0]
+    own = int(t0[2].sum())                      # pages shard 0 walks
+    assert own == B * mp // n
+    ms = time_ms(lambda: cp.paged_partial(q, k_sh[0], v_sh[0], *t0))
+    plain_ms = time_ms(lambda: cp.paged_partial_plain(q, k_sh[0], v_sh[0],
+                                                      *t0))
+    # The yardstick: SDPA over shard 0's owned pages of each row, gathered
+    # dense (each row owns the same count here).
+    local = t0[0][:, :mp // n].long()
+    kd = k_sh[0][local].permute(0, 2, 1, 3, 4).reshape(
+        B, N_KV, mp // n * PS, HD).contiguous()
+    vd = v_sh[0][local].permute(0, 2, 1, 3, 4).reshape(
+        B, N_KV, mp // n * PS, HD).contiguous()
+    lib_ms = time_ms(lambda: sdpa(q[:, :, None, :], kd, vd))
+    # q, the f32 outputs (m, l, acc), the owned K/V, the owned entries of
+    # local_pt and starts, n_local and the lengths.
+    tok = own * PS
+    nbytes = (q.numel() * 2 + B * N_Q * (2 + HD) * 4 + tok * N_KV * HD * 2 * 2
+              + own * 4 * 2 + B * 4 * 2)
+    ops = 4 * N_Q * HD * tok
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS)
+    log(f"  cp_paged_partial bf16 B={B} ctx={ctx} shard 0 of {n} "
+        f"({own} owned pages): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP)")
+    # The whole CP op (n partial launches and the merge) against kernel 1
+    # at the same B and ctx on the unsharded pool; the step's compaction,
+    # shared by all layers, apart.
+    op_ms = time_ms(lambda: cp.cp_paged_attention(q, k_sh, v_sh, pt, cl, mesh,
+                                                  tables=tabs))
+    tab_ms = time_ms(lambda: cp.cp_tables(pt, cl, cp.ShardedPages(k_sh, mesh)))
+    k1_ms = time_ms(lambda: paged_attention(q, k, v, pt, cl))
+    log(f"  cp_paged_attention bf16 B={B} ctx={ctx} seq={n}: {op_ms:.4f} ms "
+        f"(4 partials + merge), tables {tab_ms:.4f} ms per step; kernel 1 "
+        f"on the unsharded pool {k1_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------- phase 4
 class Collector:
     def __init__(self):
@@ -368,13 +512,15 @@ class Collector:
             self.done.set()
 
 
-def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt):
-    """One serving run on a fresh engine with its background loop. Returns
-    (greedy tokens per request, sampled tokens, stats, ttft ms, decode
-    tokens/s over the run)."""
+def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
+               mesh=None):
+    """One serving run on a fresh engine (on ``mesh`` if given) with its
+    background loop. Returns (tokens per request, finish reasons, stats
+    with the count of ring prefills, ttft ms, generated tokens/s over the
+    run)."""
     from xllm_service_tpu_torch.common.request import SamplingParams
 
-    eng = engine_mod.InferenceEngine(cfg, params=params)
+    eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
     greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     samp = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
                           seed=1234, ignore_eos=True)
@@ -404,7 +550,7 @@ def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt):
         wall = time.monotonic() - t0
     finally:
         eng.stop()
-    stats = eng.stats()
+    stats = dict(eng.stats(), ring_prefills=eng.ring_prefills)
     ttft = sorted((c.t_first - t_sub[n]) * 1e3 for n, c in cols.items())
     toks = {n: c.tokens for n, c in cols.items()}
     reasons = {n: c.reason for n, c in cols.items()}
@@ -608,6 +754,110 @@ def fused_phase(engine_mod, cfg, params, prompts, shared, sampled_prompt,
     return runs[0]
 
 
+# --------------------------------------------------------------- phase 4c
+def check_cp_logits(llama, cfg, params, prompt, mesh, ShardedPages):
+    """One prompt's decode-step logits two ways: the single-device route
+    (dense prefill, kernel 1) and the context-parallel route the engine
+    takes (ring prefill over the suffix padded to the axis, then the CP op
+    over a pool sharded four ways). They must agree within PREFILL_REL_TOL
+    of max |logit|."""
+    mcfg = cfg.model
+    n = len(prompt)
+    n_pages = -(-n // PS)
+    shards = len(mesh.axis_devices("seq"))
+    n_pool = -(-(n_pages + 1) // shards) * shards
+    i32 = dict(dtype=torch.int32, device="cuda")
+    shape = (mcfg.num_layers, 2, n_pool, N_KV, PS, HD)
+    pt = torch.arange(1, n_pages + 1, **i32)[None]
+    toks = torch.tensor([prompt], **i32)
+
+    def route(kv, ring):
+        pre = list(prompt[:-1])
+        if ring:
+            pre += [0] * (-len(pre) % shards)
+        llama.prefill_forward(
+            params, mcfg, torch.tensor([pre], **i32),
+            torch.arange(len(pre), **i32)[None], kv, pt,
+            torch.zeros((1,), **i32), torch.tensor([n - 1], **i32),
+            has_prefix=False, ring=ring)
+        return llama.decode_forward(
+            params, mcfg, toks[:, n - 1], torch.tensor([n - 1], **i32), kv,
+            pt, torch.tensor([n], **i32))[0]
+
+    single = route(torch.zeros(shape, dtype=mcfg.dtype, device="cuda"), False)
+    cp = route(ShardedPages.zeros(shape, mcfg.dtype, mesh), True)
+    scale = single.abs().max().item()
+    err = (single - cp).abs().max().item()
+    log(f"  logits single-device vs context-parallel decode step ({n} "
+        f"tokens, ring prefill): max_abs_err={err:.4g}, max|logit|="
+        f"{scale:.4g} (tol {PREFILL_REL_TOL} x max|logit|), argmax "
+        f"{int(single.argmax())} vs {int(cp.argmax())}")
+    assert torch.isfinite(cp).all()
+    assert err <= PREFILL_REL_TOL * scale, "CP decode-step logits drifted"
+
+
+def cp_phase(engine_mod, cfg, params, llama, kernels, card):
+    """Context-parallel serving of Llama-3-8B on a seq=4 mesh, twice on
+    fresh engines: ring prefill for the long prompt, a prefix hit through
+    kernel 2, every decode step through kernel 6, kernels 1 and 3 idle.
+    Returns (the first run's tokens and launches, single-device tokens)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.ops.cp_paged_attention import ShardedPages
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    partial, paged, mq, fused = kernels
+    count = torch.cuda.device_count()
+    mesh = build_mesh(MeshConfig(seq=4),
+                      [torch.device("cuda", i % count) for i in range(4)])
+    log(f"  mesh seq=4 on {[str(d) for d in mesh.devices]}")
+    cp_cfg = replace(cfg, seq_parallel_min_tokens=1024)
+    rng = np.random.default_rng(11)
+    V = cfg.model.vocab_size
+    long = rng.integers(3, V, size=int(rng.integers(1100, 1501))).tolist()
+    short = rng.integers(3, V, size=int(rng.integers(64, 513))).tolist()
+    shared = [long[:512] + rng.integers(3, V, size=200).tolist()]
+    sampled_prompt = rng.integers(3, V, size=200).tolist()
+    log(f"  prompts: long {len(long)}, short {len(short)}, shared 512 + 200, "
+        f"sampled 200 tokens; 64 generated each")
+    runs = []
+    for r in range(2):
+        reset_counts()
+        t = time.monotonic()
+        toks, reasons, stats, ttft, tps = serve_once(
+            engine_mod, cp_cfg, params, [long, short], shared,
+            sampled_prompt, mesh=mesh)
+        launches = dict(partial=partial.launches, decode=paged.launches,
+                        mq=mq.launches, fused=fused.launches)
+        log(f"  cp run {r}: {time.monotonic() - t:.1f} s, ring prefills "
+            f"{stats['ring_prefills']}, prefix hits {stats['prefix_hits']}, "
+            f"launches {launches}")
+        log(f"  cp run {r}: TTFT ms p50 {ttft[len(ttft) // 2]:.1f} max "
+            f"{ttft[-1]:.1f}; {tps:.1f} generated tok/s over the run "
+            f"(information only; {card})")
+        for name, tk in toks.items():
+            assert len(tk) == 64 and reasons[name] == "length", \
+                f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
+        assert launches["partial"] > 0, "kernel 6 never launched"
+        assert launches["decode"] == 0 and launches["fused"] == 0, \
+            "kernel 1 or 3 launched under the seq mesh"
+        assert launches["mq"] > 0, "the prefix hit did not take kernel 2"
+        assert stats["ring_prefills"] == 1, "the ring route did not run once"
+        assert stats["prefix_hits"] >= 1 and \
+            stats["prefix_hit_tokens"] >= 512, "no prefix hit"
+        runs.append((toks, launches))
+    assert runs[0][0] == runs[1][0], "two CP runs of the same batch differ"
+    log("  both CP runs gave identical tokens for all 4 requests")
+    single, *_ = serve_once(engine_mod, cfg, params, [long, short], shared,
+                            sampled_prompt)
+    same = sum(single[n] == runs[0][0][n] for n in single)
+    log(f"  CP vs single-device engine: {same}/{len(single)} requests with "
+        "identical tokens (information only: random bf16 weights give "
+        "near-ties, and the two sum in another order)")
+    check_cp_logits(llama, cfg, params, long[:1100], mesh, ShardedPages)
+    return runs[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -621,6 +871,7 @@ def main() -> int:
     from xllm_service_tpu_torch.models import llama
     from xllm_service_tpu_torch.models.base import llama3_8b_config
     from xllm_service_tpu_torch.ops import _build, page_dma
+    from xllm_service_tpu_torch.ops import cp_paged_attention as cp
     from xllm_service_tpu_torch.ops.fused_decode_attention import (
         fused_decode_attention,
         fused_decode_attention_plain,
@@ -633,10 +884,11 @@ def main() -> int:
         paged_attention,
         paged_attention_plain,
     )
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
     KERNEL_WRAPPERS.extend([paged_attention, mq_paged_attention,
                             fused_decode_attention, page_dma.gather_kv_pages,
-                            page_dma.scatter_kv_pages])
+                            page_dma.scatter_kv_pages, cp.paged_partial])
 
     # Phase 1: environment.
     card = smi_line()
@@ -644,7 +896,7 @@ def main() -> int:
         f"python {sys.version.split()[0]} | {card} | "
         f"devices {torch.cuda.device_count()}")
 
-    # Phase 2: build the four libraries in parallel.
+    # Phase 2: build the five libraries in parallel.
     t = time.monotonic()
     logs = _build.build(verbose=True)
     log(f"[2] built {sorted(logs) or 'nothing (up to date)'} in "
@@ -661,6 +913,8 @@ def main() -> int:
     k3 = check_fused_kernel(fused_decode_attention,
                             fused_decode_attention_plain)
     k4, k5 = check_page_movers(page_dma)
+    k6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
+                         build_mesh, MeshConfig)
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
@@ -724,6 +978,13 @@ def main() -> int:
     log(f"  fused vs default route: {same}/{len(fused_toks)} requests with "
         "identical tokens (information only: the two sum in another order)")
 
+    # Phase 4c: context-parallel serving.
+    log("[4c] context-parallel serving on a seq=4 mesh, llama3-8b")
+    _, cp_launches = cp_phase(
+        engine_mod, cfg, params, llama,
+        (cp.paged_partial, paged_attention, mq_paged_attention,
+         fused_decode_attention), card)
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -742,7 +1003,10 @@ def main() -> int:
              tier_launches[0]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
-             tier_launches[1])):
+             tier_launches[1]),
+            ("cp_paged_partial", csrc + "cp_paged_partial.cu",
+             "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
+             cp_launches["partial"])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": n, **res})
     log(f"  total {time.monotonic() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the two
-attention kernels, the fused append-and-attend and the page movers (bit for
-bit: they are copies), and the engine's tier round trip through them.
+attention kernels, the fused append-and-attend, the page movers (bit for
+bit: they are copies), the context-parallel partial and the CP op, and the
+engine's tier round trip and context-parallel serving through them.
 
 Marked ``cuda``: they need a GPU and nvcc and skip elsewhere. Run them on
 a machine with an H100 with ``python -m pytest -m cuda
@@ -9,7 +10,9 @@ tests/test_torch_cuda_kernels.py``.
 Tolerances: f32 kernels sum in another order than the plain versions
 (1e-4 absolute on outputs of magnitude ~1); bf16 outputs are rounded once
 from f32 on both sides, so they differ by at most one bf16 ulp (2e-2 on
-outputs below 4).
+outputs below 4). The context-parallel partial's raw statistics (f32 on
+both sides) are compared within the same tolerances after dividing l and
+acc by max(l, 1): both are sums of up to ctx terms weighted by p <= 1.
 """
 
 import threading
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from xllm_service_tpu_torch.ops import attention, page_dma
+from xllm_service_tpu_torch.ops import cp_paged_attention as cp
 from xllm_service_tpu_torch.ops.fused_decode_attention import (
     fused_decode_attention,
     fused_decode_attention_plain,
@@ -29,9 +33,11 @@ from xllm_service_tpu_torch.ops.mq_paged_attention import (
     mq_paged_attention_plain,
 )
 from xllm_service_tpu_torch.ops.paged_attention import (
+    NEG_INF,
     paged_attention,
     paged_attention_plain,
 )
+from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -276,3 +282,136 @@ def test_engine_tier_round_trip_on_the_card(dev):
         assert page_dma.scatter_kv_pages.launches > s0
     finally:
         eng.stop()
+
+
+# ----------------------------------------- kernel 6: context-parallel partial
+def _poison_unowned(k, v, pt, ctxs, ps):
+    """NaN into every (page, slot) that no row occupies below its context."""
+    keep = torch.zeros((k.shape[0], ps), dtype=torch.bool, device=k.device)
+    for b, ctx in enumerate(ctxs):
+        pos = torch.arange(ctx, device=k.device)
+        keep[pt[b, pos // ps].long(), pos % ps] = True
+    k.masked_fill_(~keep[:, None, :, None], float("nan"))
+    v.masked_fill_(~keep[:, None, :, None], float("nan"))
+
+
+def _cp_case(dev, dtype, n_q, n_kv, hd, mp, ctxs, seed):
+    """A pool of B * mp + 4 pages, tables a permutation across all of it,
+    row 1 on the garbage page, NaN outside the occupied slots."""
+    B, ps = len(ctxs), 16
+    P = B * mp + 4
+    k, v = _pool(dev, dtype, P, n_kv, ps, hd, seed)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(seed))
+    pt = (perm[:B * mp] + 1).reshape(B, mp).to(torch.int32).to(dev)
+    pt[1] = 0
+    _poison_unowned(k, v, pt, ctxs, ps)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    return q, k, v, pt, cl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n_q,n_kv,hd", [(32, 8, 128), (8, 2, 128),
+                                         (4, 2, 32)])
+def test_cp_partial_kernel_matches_plain(dev, dtype, n, n_q, n_kv, hd):
+    ctxs = [0, 1, 16, 17, 500, 777, 1024, 2048]
+    q, k, v, pt, cl = _cp_case(dev, dtype, n_q, n_kv, hd, 128, ctxs, 8)
+    P_loc = k.shape[0] // n
+    k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+    for d in range(n):
+        tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc, 16)
+        before = cp.paged_partial.launches
+        m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d], *tables, cl)
+        m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d], *tables, cl)
+        torch.cuda.synchronize()
+        assert cp.paged_partial.launches == before + 1
+        dead = m0 <= NEG_INF / 2
+        assert torch.equal(dead, m <= NEG_INF / 2)
+        assert (m[dead] == NEG_INF).all() and (l[dead] == 0).all()
+        assert (acc[dead] == 0).all()
+        lsc = l0.clamp_min(1.0)
+        assert (m - m0)[~dead].abs().max().item() <= TOL[dtype]
+        assert ((l - l0).abs() / lsc).max().item() <= TOL[dtype]
+        assert ((acc - a0).abs() / lsc[..., None]).max().item() <= TOL[dtype]
+    got = cp.cp_paged_attention(q, k_sh, v_sh, pt, cl,
+                                build_mesh(MeshConfig(seq=n), [dev] * n))
+    want = paged_attention_plain(q, k, v, pt, cl)
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_cp_decode_step_routes_through_kernel_6(dev, monkeypatch):
+    """A decode step on a sharded pool: the write lands on the owning
+    shards and kernel 6 runs once per shard; kernels 1 and 3 stay idle even
+    under XLLM_KV_WRITEBACK=fused."""
+    monkeypatch.setenv("XLLM_KV_WRITEBACK", "fused")
+    B, n_q, n_kv, hd, ps, n = 3, 8, 2, 128, 16, 4
+    k, v = _pool(dev, torch.float32, 16, n_kv, ps, hd, 9)
+    pt = torch.tensor([[5, 9, 14, 2], [1, 6, 11, 0], [13, 3, 0, 0]],
+                      dtype=torch.int32, device=dev)
+    cl = torch.tensor([60, 40, 17], dtype=torch.int32, device=dev)
+    q = torch.randn((B, n_q, hd), device=dev)
+    kn = torch.randn((B, n_kv, hd), device=dev)
+    vn = torch.randn((B, n_kv, hd), device=dev)
+    mesh = build_mesh(MeshConfig(seq=n), [dev] * n)
+    kp = cp.ShardedPages(list(k.clone().chunk(n)), mesh)
+    vp = cp.ShardedPages(list(v.clone().chunk(n)), mesh)
+    counts = (cp.paged_partial.launches, paged_attention.launches,
+              fused_decode_attention.launches)
+    got = attention.decode_attention_step(q, kn, vn, kp, vp, pt, cl)[0]
+    assert (cp.paged_partial.launches - counts[0],
+            paged_attention.launches - counts[1],
+            fused_decode_attention.launches - counts[2]) == (n, 0, 0)
+    monkeypatch.delenv("XLLM_KV_WRITEBACK")
+    kf, vf = k.clone(), v.clone()
+    want = attention.decode_attention_step(q, kn, vn, kf, vf, pt, cl)[0]
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(kp.full(), kf) and torch.equal(vp.full(), vf)
+
+
+def test_engine_context_parallel_serving_on_the_card(dev):
+    """A tiny model on a seq=4 mesh of this card repeated: the ring prefill,
+    a prefix hit through kernel 2 and decode through kernel 6 give the
+    single-device engine's greedy tokens."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+    from xllm_service_tpu_torch.engine import (
+        EngineConfig,
+        EngineRequest,
+        InferenceEngine,
+    )
+    from xllm_service_tpu_torch.models.base import tiny_config
+
+    def cfg():
+        return EngineConfig(
+            model=tiny_config(dtype=torch.float32, max_context_len=512),
+            num_pages=64, page_size=16, hash_block_size=32,
+            max_batch_size=2, max_seq_len=512, seq_parallel_min_tokens=64)
+
+    def run(eng, prompt):
+        toks, done = [], threading.Event()
+
+        def on_output(out):
+            for s in out.outputs:
+                toks.extend(s.token_ids)
+            if out.finished:
+                done.set()
+
+        eng.submit(EngineRequest("r", token_ids=prompt, on_output=on_output,
+                                 sampling=SamplingParams(
+                                     max_tokens=6, temperature=0.0,
+                                     ignore_eos=True)))
+        while not done.is_set():
+            eng.step()
+        return toks
+
+    single = InferenceEngine(cfg(), device=dev)
+    eng = InferenceEngine(cfg(), params=single.params,
+                          mesh=build_mesh(MeshConfig(seq=4), [dev] * 4))
+    long = [(i * 11 + 5) % 300 + 10 for i in range(100)]
+    p0, m0 = cp.paged_partial.launches, mq_paged_attention.launches
+    for prompt in (list(range(40, 70)), long, long):
+        assert run(eng, prompt) == run(single, prompt)
+    assert eng.ring_prefills == 1
+    assert cp.paged_partial.launches > p0
+    assert mq_paged_attention.launches > m0

@@ -24,7 +24,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "xllm_service_tpu_torch.engine.engine" in mods
     for m in ("ops.mq_paged_attention", "ops.fused_decode_attention",
-              "ops.page_dma", "engine.kv_tier"):
+              "ops.page_dma", "engine.kv_tier", "parallel.mesh",
+              "ops.cp_paged_attention", "ops.ring_attention"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

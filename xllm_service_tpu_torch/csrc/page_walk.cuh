@@ -1,5 +1,5 @@
-// Shared page walk of the two paged-attention kernels (paged_attention.cu,
-// mq_paged_attention.cu).
+// Shared page walk of the paged-attention kernels (paged_attention.cu,
+// mq_paged_attention.cu, fused_decode_attention.cu, cp_paged_partial.cu).
 //
 // Carries the invariants of the reference's ops/pallas_page_dma.py, written
 // once for both kernels (its 2-slot VMEM DMA ring is the TPU's shape and is
@@ -129,14 +129,41 @@ __device__ __forceinline__ void widen16(const uint4& raw, float* dst) {
   for (int i = 0; i < kVec; ++i) dst[i] = Elt<T>::to_f(e[i]);
 }
 
+// Token positions of the walk. Token t of a chunk (t < kChunkTokens) lies
+// on entry page = p0 + t / ps of the row's table; start = p0 * ps.
+//
+// ContiguousPos: entry j of the table holds positions [j * ps, (j + 1) *
+// ps), so the token sits at start + t. Kernels 1-3 use it; it ignores
+// `page`, so their generated code is what it was before the walk took a
+// position functor.
+struct ContiguousPos {
+  __device__ __forceinline__ int operator()(int start, int t, int) const {
+    return start + t;
+  }
+};
+
+// CompactedPos: the context-parallel partial's table is compacted (a
+// shard's owned entries moved to the front), so entry j starts at global
+// position starts[j], and entries at or past n (never loaded) sit at the
+// context bound, where both masks reject them.
+struct CompactedPos {
+  const int* starts;  // [max_pages] global token start of each entry
+  int n;              // live entries (n_local, at most max_pages)
+  int ps;
+  int bound;
+  __device__ __forceinline__ int operator()(int, int t, int page) const {
+    return page < n ? starts[page] + t % ps : bound;
+  }
+};
+
 // masked_kv_f32 for one chunk: pages [p0, p0 + 64/ps) of the row's table
 // (those below p_hi), K/V of head kv, into shared memory as f32; tokens at
 // positions >= bound (or on pages >= p_hi) are zero and never read.
-template <typename T>
+template <typename T, typename Pos>
 __device__ __forceinline__ void load_chunk(
     const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ pt_row, int p0, int p_hi, int n_kv, int kv,
-    int ps, int hd, int bound, const WalkSmem& sm) {
+    int ps, int hd, int bound, const WalkSmem& sm, const Pos& pos_of) {
   constexpr int kVec = 16 / sizeof(T);
   const int n_vec = kChunkTokens * hd / kVec;
   const int start = p0 * ps;
@@ -148,7 +175,7 @@ __device__ __forceinline__ void load_chunk(
     const int page = p0 + t / ps;
     float kf[kVec];
     float vf[kVec];
-    if (page < p_hi && start + t < bound) {
+    if (page < p_hi && pos_of(start, t, page) < bound) {
       const size_t off = (size_t(pt_row[page]) * n_kv + kv) * ps * hd +
                          size_t(t % ps) * hd + d;
       widen16<T>(*reinterpret_cast<const uint4*>(k_pages + off), kf);
@@ -170,13 +197,16 @@ __device__ __forceinline__ void load_chunk(
 // / hd)), column threadIdx.x % hd, unnormalised; sm.m / sm.l hold the
 // softmax state. The caller has filled sm.q, sm.hi, sm.lo, set m = NEG_INF
 // and l = 0, and synchronised. R <= walk_max_rows(blockDim.x, hd, ps).
-template <typename T>
+// pos_of gives each token's position (ContiguousPos unless the table is
+// compacted).
+template <typename T, typename Pos = ContiguousPos>
 __device__ void page_walk(const T* __restrict__ k_pages,
                           const T* __restrict__ v_pages,
                           const int* __restrict__ pt_row, int p_lo, int p_hi,
                           int n_kv, int kv, int ps, int hd, int R, int bound,
                           float softcap, const WalkSmem& sm,
-                          float (&acc)[kMaxAccRows]) {
+                          float (&acc)[kMaxAccRows],
+                          const Pos& pos_of = Pos()) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -196,7 +226,7 @@ __device__ void page_walk(const T* __restrict__ k_pages,
   for (int p0 = p_lo; p0 < p_hi; p0 += pages_per_chunk) {
     const int start = p0 * ps;
     load_chunk<T>(k_pages, v_pages, pt_row, p0, p_hi, n_kv, kv, ps, hd,
-                  bound, sm);
+                  bound, sm, pos_of);
     __syncthreads();
 
     // 1. Scores, masked to each row's visible window.
@@ -220,7 +250,7 @@ __device__ void page_walk(const T* __restrict__ k_pages,
           }
         }
       }
-      const int pos = start + st;
+      const int pos = pos_of(start, st, p0 + st / ps);
 #pragma unroll
       for (int i = 0; i < kMaxScoreRows; ++i) {
         const int r = s_row0 + i * s_rows_step;

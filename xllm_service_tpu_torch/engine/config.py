@@ -4,14 +4,25 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from ..models.base import ModelConfig, tiny_config
+from ..parallel.mesh import MeshConfig
 
 
 @dataclass
 class EngineConfig:
     model_family: str = "llama"
     model: ModelConfig = field(default_factory=tiny_config)
+    # Device mesh. None = one device (the reference's None means all local
+    # devices on its TP axis; the port has no tensor parallelism yet, so
+    # only the `seq` axis may exceed 1). A config mesh takes distinct cards
+    # cuda:offset..; pass InferenceEngine(mesh=...) to name the devices,
+    # which may repeat.
+    mesh: Optional[MeshConfig] = None
+    # First device index for this engine's mesh (co-hosted instances on
+    # disjoint device groups).
+    mesh_device_offset: int = 0
     # KV pool. Page 0 is reserved as the garbage page (inactive batch slots
     # write there), so usable pages = num_pages - 1.
     num_pages: int = 256
@@ -50,6 +61,12 @@ class EngineConfig:
     # behind decode.
     kv_tier_threads: int = 2
     kv_tier_max_inflight: int = 8
+    # Sequence/context parallelism: when the engine's mesh has a `seq` axis
+    # of size > 1, the KV pool shards by page range over it (decode merges
+    # per-shard flash statistics), and uncached prompts whose suffix is at
+    # least this many tokens prefill with ring attention over that axis.
+    # Shorter or prefix-cached prompts use the standard path.
+    seq_parallel_min_tokens: int = 1024
 
     @property
     def pages_per_seq(self) -> int:

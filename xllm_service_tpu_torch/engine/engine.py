@@ -27,10 +27,18 @@
   host arena off-thread, spilled to an SSD file when the arena is full,
   and restored (kernel ``scatter_kv_pages``) ahead of the prefill of a
   prefix-matching admission.
+- **Context parallelism** (a mesh whose ``seq`` axis is n > 1): the KV
+  pool is n shard tensors ``[L, 2, P/n, n_kv, ps, hd]``, one per device of
+  the axis (``ShardedPages``); the dense model computes on the mesh's first
+  device (the reference replicates the parameters over ``seq`` and computes
+  them redundantly, with the same result). Every decode step attends
+  through the context-parallel op (kernel 6 per shard, then the merge);
+  a long prefix-free prompt prefills with ring attention over the axis.
 
 Not in this port yet: speculation, chunked prefill, the mixed
-decode+chunk step, PD injection/handoff, multimodal input, meshes,
-offline preemption and the pipelined dispatch-before-fetch.
+decode+chunk step, PD injection/handoff, multimodal input, mesh axes other
+than ``seq``, KV tiers under a seq mesh, offline preemption and the
+pipelined dispatch-before-fetch.
 """
 
 from __future__ import annotations
@@ -59,7 +67,9 @@ from ..common.request import (
 )
 from ..common.types import KvCacheEvent
 from ..models.base import get_model_family
+from ..ops.cp_paged_attention import ShardedPages
 from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
+from ..parallel.mesh import AXIS_SEQ, DeviceMesh, mesh_from_config
 from ..tokenizer.base import Tokenizer
 from ..tokenizer.simple import SimpleTokenizer
 from .config import EngineConfig
@@ -109,10 +119,24 @@ class InferenceEngine:
                  device: Optional[Union[str, torch.device]] = None,
                  tokenizer: Optional[Tokenizer] = None,
                  eos_token_id: Optional[int] = None,
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 mesh: Optional[DeviceMesh] = None):
         cfg.validate()
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
+        self.mesh = mesh = self._resolve_mesh(cfg, device, mesh)
+        self.device = dev = (mesh.devices[0] if mesh is not None
+                             else resolve_device(device))
+        # Context parallelism: size of the mesh's seq axis (1 = off).
+        self.seq_parallel = mesh.shape[AXIS_SEQ] if mesh is not None else 1
+        if self.seq_parallel > 1 and cfg.kv_tier_dram_bytes > 0:
+            raise ValueError(
+                "KV tiers under a seq mesh are not ported yet (ROADMAP "
+                "queue 1 item 15): moving a hash block whose pages span "
+                "shards through the page movers is left for later")
+        if self.seq_parallel > 1 and cfg.num_pages % self.seq_parallel:
+            raise ValueError("num_pages must divide by the seq-axis size for "
+                             "context-parallel decode")
+        self.ring_prefills = 0          # prefills that took the ring route
         self.tokenizer = tokenizer or SimpleTokenizer()
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
             getattr(self.tokenizer, "eos_id", None)
@@ -125,9 +149,13 @@ class InferenceEngine:
         self.params = params
         self.page_mgr = KVPageManager(cfg.num_pages, cfg.page_size,
                                       cfg.hash_block_size)
-        self.kv_pages = torch.zeros(
-            (mcfg.num_layers, 2, cfg.num_pages, mcfg.num_kv_heads,
-             cfg.page_size, mcfg.head_dim), dtype=mcfg.dtype, device=dev)
+        shape = (mcfg.num_layers, 2, cfg.num_pages, mcfg.num_kv_heads,
+                 cfg.page_size, mcfg.head_dim)
+        if self.seq_parallel > 1:
+            self.kv_pages = ShardedPages.zeros(shape, mcfg.dtype, mesh,
+                                               AXIS_SEQ)
+        else:
+            self.kv_pages = torch.zeros(shape, dtype=mcfg.dtype, device=dev)
         self._init_tiers()
         self._reset_slot_state()
         # Seeds of unseeded sampled requests.
@@ -145,6 +173,31 @@ class InferenceEngine:
         self.total_generated = 0
         self.prefix_hits = 0            # admissions that reused cached KV
         self.prefix_hit_tokens = 0      # prompt tokens they did not prefill
+
+    @staticmethod
+    def _resolve_mesh(cfg: EngineConfig, device, mesh: Optional[DeviceMesh]
+                      ) -> Optional[DeviceMesh]:
+        """The engine's mesh: the caller's, else one built from
+        ``cfg.mesh`` over distinct devices from ``mesh_device_offset``
+        (raising when the machine has fewer), else None. Only the ``seq``
+        axis may exceed 1; a named ``device`` must be the mesh's first."""
+        if mesh is None and cfg.mesh is not None:
+            mesh = mesh_from_config(cfg.mesh, resolve_device(device),
+                                    cfg.mesh_device_offset)
+        if mesh is None:
+            return None
+        wide = [a for a, n in mesh.shape.items() if a != AXIS_SEQ and n > 1]
+        if wide:
+            raise NotImplementedError(
+                f"mesh axes {wide} > 1: tensor, expert, data and pipe "
+                "parallelism are not ported yet (ROADMAP queue 1 item 14)")
+        if device is not None:
+            want, first = torch.device(device), mesh.devices[0]
+            if want.type != first.type or want.index not in (None,
+                                                             first.index):
+                raise ValueError(f"device {want} is not the mesh's first "
+                                 f"device {first}")
+        return mesh
 
     def _init_tiers(self) -> None:
         """Tiered KV store (DRAM arena + SSD spill): populated by
@@ -588,6 +641,14 @@ class InferenceEngine:
                              st.repetition_penalty[s], st.token_counts[s],
                              st.bias_ids[s], st.bias_vals[s])
 
+    def _sp_applicable(self, suffix_len: int, matched: int) -> bool:
+        """Route to the ring-attention prefill? As the reference: a seq
+        mesh axis, a prefix-free prompt (the ring has no paged-prefix term)
+        and enough tokens to be worth the ring. The port has no prefill
+        buckets: the suffix is padded to a multiple of the axis instead."""
+        return (self.seq_parallel > 1 and matched == 0
+                and suffix_len >= self.cfg.seq_parallel_min_tokens)
+
     def _prefill_install(self, seq: _Sequence, prompt: list[int],
                          matched: int) -> tuple[int, Optional[LogProb]]:
         """Prefill the suffix past the cached prefix, install the sequence
@@ -596,6 +657,12 @@ class InferenceEngine:
         sp = seq.req.sampling
         suffix = prompt[matched:]
         S = len(suffix)
+        ring = self._sp_applicable(S, matched)
+        if ring:
+            # End padding, masked by seq_lens: the causal ring keeps it out
+            # of every valid query's window, and its K/V go to page 0.
+            suffix = suffix + [0] * (-S % self.seq_parallel)
+            self.ring_prefills += 1
         row = np.full((cfg.pages_per_seq,), GARBAGE_PAGE, np.int32)
         pages = seq.pages.all_pages
         row[:len(pages)] = pages
@@ -604,11 +671,12 @@ class InferenceEngine:
         logits, _ = self.family.prefill_forward(
             self.params, cfg.model,
             torch.tensor([suffix], dtype=i32, device=dev),
-            torch.arange(matched, matched + S, dtype=i32, device=dev)[None],
+            torch.arange(matched, matched + len(suffix), dtype=i32,
+                         device=dev)[None],
             self.kv_pages, pt_row[None],
             torch.tensor([matched], dtype=i32, device=dev),
             torch.tensor([S], dtype=i32, device=dev),
-            has_prefix=matched > 0)
+            has_prefix=matched > 0, ring=ring)
 
         # Install the slot's sampling controls, then sample with them.
         st = self._slot_state(slot)

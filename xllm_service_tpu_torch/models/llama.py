@@ -6,7 +6,9 @@ embeddings. Parameters are a plain dict in the reference's layout — every
 layer tensor stacked with a leading L dim, projections ``[in, out]`` — so
 ``models/weights.py`` carries a reference tree over unchanged and both
 compute the same thing. The layer loop is a Python loop; the KV pool
-``[L, 2, P, n_kv, ps, hd]`` is updated in place.
+``[L, 2, P, n_kv, ps, hd]`` is updated in place. The pool may be sharded
+over a mesh's ``seq`` axis (``ShardedPages``): the forwards then compute on
+the mesh's first device and the attention ops route per shard.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..ops.attention import (
     rms_norm,
     write_prefill_kv,
 )
+from ..ops.cp_paged_attention import ShardedPages, cp_tables
 from .base import ModelConfig, ModelFamily, register_model_family
 
 Params = dict
@@ -136,12 +139,14 @@ def prefill_forward(params: Params, cfg: ModelConfig,
                     prefix_lens: torch.Tensor,  # [B] cached-prefix lengths
                     seq_lens: torch.Tensor,     # [B] valid suffix lengths
                     has_prefix: Optional[bool] = None,
+                    ring: bool = False,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (last-valid-token logits [B, V] f32, kv_pages). The suffix's
     K/V are written into ``kv_pages`` in place. ``has_prefix`` (any
     prefix_lens > 0) lets the caller pick the attention route without a
     device sync; a prefill with a prefix runs the multi-query kernel on the
-    card."""
+    card. ``ring`` (a sharded pool, no prefix, S divisible by the seq
+    axis) runs the suffix's self-attention as ring attention."""
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
     x = _embed(params, cfg, tokens)
@@ -154,7 +159,7 @@ def prefill_forward(params: Params, cfg: ModelConfig,
                          seq_lens)
         attn = prefill_attention(q, k, v, k_pages, v_pages, page_table,
                                  prefix_lens, seq_lens,
-                                 has_prefix=has_prefix)
+                                 has_prefix=has_prefix, ring=ring)
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
     idx = torch.clamp(seq_lens.long() - 1, min=0)
@@ -172,7 +177,10 @@ def decode_forward(params: Params, cfg: ModelConfig,
     """One decode step. Returns (logits [B, V] f32, kv_pages); the new
     tokens' K/V are written into ``kv_pages`` in place and every layer's
     attention runs through the paged-attention wrapper (the CUDA kernel
-    on the card)."""
+    on the card). With a sharded pool every layer runs the
+    context-parallel op on tables compacted once for the step."""
+    tables = (cp_tables(page_table, context_lens, kv_pages)
+              if isinstance(kv_pages, ShardedPages) else None)
     x = _embed(params, cfg, tokens)                                # [B, D]
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
@@ -180,7 +188,7 @@ def decode_forward(params: Params, cfg: ModelConfig,
         q, k, v = _project_qkv(lp, h, cfg, positions)           # [B, H, hd]
         attn, _, _ = decode_attention_step(q, k, v, kv_pages[l, 0],
                                            kv_pages[l, 1], page_table,
-                                           context_lens)
+                                           context_lens, cp_tables=tables)
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
     return _unembed(params, cfg, x), kv_pages

@@ -25,7 +25,7 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("paged_attention", "mq_paged_attention",
-           "fused_decode_attention", "page_dma")
+           "fused_decode_attention", "page_dma", "cp_paged_partial")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

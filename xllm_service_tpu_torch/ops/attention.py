@@ -16,6 +16,14 @@ the CPU path and the oracles of the CUDA kernels; on a CUDA tensor,
 ``paged_attention`` launches kernel 1, a prefill against a cached prefix
 launches kernel 2, and a decode step under ``XLLM_KV_WRITEBACK=fused``
 launches kernel 3.
+
+A pool sharded over the mesh's ``seq`` axis (``ShardedPages``, the
+reference's pool under a seq mesh) changes three things, as in the
+reference: each K/V write lands on the shard that owns its page; a decode
+step is the write, then the context-parallel op (kernel 6 per shard and
+the merge), whatever ``XLLM_KV_WRITEBACK`` says; and a prefill against a
+cached prefix reads the row's pages gathered from their shards. A long
+prefix-free prefill may take the ring (``ring=True``).
 """
 
 from __future__ import annotations
@@ -26,9 +34,11 @@ from typing import Optional
 
 import torch
 
+from .cp_paged_attention import ShardedPages, cp_paged_attention
 from .fused_decode_attention import fused_decode_attention
 from .mq_paged_attention import mq_paged_attention
 from .paged_attention import NEG_INF, paged_attention
+from .ring_attention import ring_attention
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -78,17 +88,53 @@ def _wrap(idx: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
     return idx.clamp(0, n - 1), ok
 
 
-def _scatter_rows(pages: torch.Tensor, page_idx: torch.Tensor,
+def _scatter_rows(pages, page_idx: torch.Tensor,
                   slot: torch.Tensor, rows: torch.Tensor) -> None:
     """pages[page_idx[i], :, slot[i], :] = rows[i] in place. Rows whose page
     id is outside the pool are dropped (the reference's mode="drop";
     ``index_put_`` would raise on them): they rewrite what the garbage
     page already holds at their slot."""
+    if isinstance(pages, ShardedPages):
+        _scatter_rows_sharded(pages, page_idx, slot, rows)
+        return
     p, ok = _wrap(page_idx.long(), pages.shape[0])
     p = torch.where(ok, p, 0)
     s = slot.long()
     old = pages[p, :, s]
     pages[p, :, s] = torch.where(ok[:, None, None], rows.to(pages.dtype), old)
+
+
+def _scatter_rows_sharded(pages: ShardedPages, page_idx: torch.Tensor,
+                          slot: torch.Tensor, rows: torch.Tensor) -> None:
+    """``_scatter_rows`` over a sharded pool: the global index semantics
+    are the same, and each row lands on the shard that owns its page, at
+    local index ``page - d * P_loc``.
+
+    A row that shard d does not own is DROPPED there. It must not be
+    redirected to local page 0 as the single-device write redirects
+    out-of-range rows: only shard 0's local page 0 is the garbage page; on
+    shard d > 0 it is the real page ``d * P_loc``, and a redirected row
+    would race a kept row writing there. Without a host sync (the kept
+    count is data on the device), a dropped row instead repeats the write
+    of the shard's first kept row (same place, same value) or, when the
+    shard keeps none, rewrites its slot of local page 0 with what it
+    holds."""
+    P_loc = pages.pages_per_shard
+    p, ok = _wrap(page_idx.long(), P_loc * len(pages.shards))
+    for d, shard in enumerate(pages.shards):
+        dev = shard.device
+        keep = (ok & (p // P_loc == d)).to(dev)
+        local = (p - d * P_loc).clamp(0, P_loc - 1).to(dev)
+        s = slot.long().to(dev)
+        r = rows.to(dev, shard.dtype)
+        first = keep.to(torch.int32).argmax()
+        any_kept = keep.any()
+        tp = torch.where(keep, local, torch.where(any_kept, local[first], 0))
+        ts = torch.where(keep, s, torch.where(any_kept, s[first], s))
+        val = torch.where(keep[:, None, None], r,
+                          torch.where(any_kept, r[first],
+                                      shard[torch.zeros_like(s), :, s]))
+        shard[tp, :, ts] = val
 
 
 def write_prefill_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -144,13 +190,29 @@ def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.transpose(2, 3).reshape(B, mp * ps, n_kv, hd)
 
 
+def gather_sharded_table(k_pages: ShardedPages, v_pages: ShardedPages,
+                         page_table: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pages of every row's table gathered from their owning shards
+    into a compact pool on the first mesh device, and the table remapped to
+    it (row b's entries at ``b * max_pages + j``): what the reference's
+    GSPMD gather does for a prefill that reads a sharded pool, so the
+    prefix route (kernel 2 on the card) runs as on one device."""
+    B, mp = page_table.shape
+    ids = page_table.reshape(-1).to(k_pages.device)
+    table = torch.arange(B * mp, dtype=torch.int32,
+                         device=k_pages.device).reshape(B, mp)
+    return k_pages.gather(ids), v_pages.gather(ids), table
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_pages: Optional[torch.Tensor],
                       v_pages: Optional[torch.Tensor],
                       page_table: Optional[torch.Tensor],
                       prefix_lens: torch.Tensor, seq_lens: torch.Tensor,
                       scale: Optional[float] = None,
-                      has_prefix: Optional[bool] = None) -> torch.Tensor:
+                      has_prefix: Optional[bool] = None,
+                      ring: bool = False) -> torch.Tensor:
     """Causal attention for a (possibly prefix-cached) prefill suffix.
 
     q/k/v: [B, S, n(_kv), hd] for the suffix being prefilled; queries also
@@ -164,13 +226,29 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which reads the suffix's K/V from the pages (written first by
     write_prefill_kv); without one, and on the CPU, it is the dense f32
     computation below (the reference's XLA path).
+
+    ``ring`` (the pool sharded over the seq axis, no cached prefix) takes
+    ring attention over the pool's mesh axis, as the reference's
+    sequence-parallel prefill: queries past ``seq_lens`` are end padding,
+    which the causal mask keeps out of every valid query's window. A
+    prefill with a prefix against a sharded pool reads the row's pages
+    gathered from their shards (``gather_sharded_table``).
     """
     B, S, n_heads, hd = q.shape
     n_kv = k.shape[2]
     n_rep = n_heads // n_kv
     if k_pages is not None and has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
+    if ring:
+        if not isinstance(k_pages, ShardedPages) or has_prefix:
+            raise ValueError("ring prefill needs a pool sharded over the "
+                             "seq axis and no cached prefix")
+        return ring_attention(q, k, v, k_pages.mesh,
+                              seq_axis=k_pages.seq_axis, scale=scale)
     with_prefix = k_pages is not None and has_prefix
+    if with_prefix and isinstance(k_pages, ShardedPages):
+        k_pages, v_pages, page_table = gather_sharded_table(
+            k_pages, v_pages, page_table)
     if with_prefix and q.is_cuda:
         return mq_paged_attention(q, k_pages, v_pages, page_table,
                                   prefix_lens, seq_lens, scale=scale)
@@ -235,6 +313,7 @@ def decode_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           context_lens: torch.Tensor,
                           scale: Optional[float] = None,
                           softcap: float = 0.0, window: int = 0,
+                          cp_tables: Optional[list] = None,
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Append one token's K/V (in place) and attend, as one step.
 
@@ -246,7 +325,24 @@ def decode_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Under ``XLLM_KV_WRITEBACK=fused``, with no softcap, window or explicit
     scale (the reference's condition), the step is one fused append and
     attend (kernel 3 on the card, its plain version on the CPU); otherwise
-    the write, then kernel 1."""
+    the write, then kernel 1.
+
+    With a pool sharded over the seq axis the step is always the write,
+    then ``cp_paged_attention`` (kernel 6 per shard on the card), as the
+    reference keeps the unfused write under context-parallel decode;
+    ``cp_tables`` are the step's compacted tables (``cp_tables`` of
+    ``ops/cp_paged_attention.py``), computed per call when None."""
+    if isinstance(k_pages, ShardedPages):
+        if softcap != 0.0 or window != 0:
+            raise NotImplementedError(
+                "context-parallel decode does not support attn "
+                "softcap/sliding window")
+        write_decode_kv(k_pages, v_pages, k, v, page_table, context_lens - 1)
+        attn = cp_paged_attention(q, k_pages.shards, v_pages.shards,
+                                  page_table, context_lens, k_pages.mesh,
+                                  seq_axis=k_pages.seq_axis, scale=scale,
+                                  tables=cp_tables)
+        return attn, k_pages, v_pages
     if (kv_writeback_mode() == "fused" and softcap == 0.0 and window == 0
             and scale is None):
         return fused_decode_attention(q, k, v, k_pages, v_pages, page_table,
