@@ -13,7 +13,11 @@ Phases (any failure exits non-zero before the result line):
 3. each kernel against its plain PyTorch version on the card at Llama-3-8B
    shapes, timed beside its plain version and a PyTorch yardstick: the two
    attention kernels and the fused append-and-attend (bf16 and f32, ragged
-   contexts, NaN garbage past every context;
+   contexts, NaN garbage past every context; for the split-K decode kernel
+   also contexts shorter than a split, a lone row and windows, for the
+   tensor-core prefill kernel a suffix that is no multiple of its tile and
+   a row with no block; their splits, registers, blocks per SM and shares
+   of the library's time and of the bound are logged;
    ``scaled_dot_product_attention`` on the K/V already gathered dense), the
    page movers at one hash block (bit for bit; ``index_select`` /
    ``index_copy_``) and the context-parallel partial per shard at seq 2
@@ -47,6 +51,7 @@ It needs one card; without CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -88,6 +93,21 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------- helpers
+def ptxas_report(text: str) -> list[str]:
+    """ptxas -v's output, one line per kernel: its (mangled) name, registers
+    and spills."""
+    out, fn, spills = [], "", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line[line.index("Used"):].strip()
+            out.append(f"{fn}: {used}; {spills}")
+    return out
+
+
 KERNEL_WRAPPERS = []     # every kernel wrapper with a launch count
 
 
@@ -153,23 +173,41 @@ def sdpa(q, k, v, mask=None):
 
 
 # ---------------------------------------------------------------- phase 3
-def check_decode_kernel(paged_attention, paged_attention_plain):
+def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
+                        kernel_fn):
     err = 0.0
-    ctxs = [0, 1, 7, 16, 17, 500, 1000, MAX_PAGES * PS]   # ragged, full table
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # Ragged contexts up to the full table, then what split-K brings: a
+    # context shorter than one split (3), one whose last split holds part of
+    # one page (67: units 0-1, 2-3, 4 and an empty split at four splits),
+    # one row alone (the most splits), and a window that starts inside a
+    # later split's unit (ctx 1000, window 300: position 700).
+    cases = [
+        ([0, 1, 7, 16, 17, 500, 1000, MAX_PAGES * PS], {}),
+        ([67, 3, 33, MAX_PAGES * PS, 1029, 515, 130, 64], {}),
+        ([777], {}),
+        ([1000, 67, 301, 0, 2048, 300, 16, 1500], {"window": 300}),
+        ([1000], {"window": 300, "softcap": 30.0}),
+    ]
     for dtype in (torch.bfloat16, torch.float32):
-        k, v, pt = paged_inputs(dtype, ctxs)
-        q = torch.randn((B, N_Q, HD), device="cuda").to(dtype)
-        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
-        got = paged_attention(q, k, v, pt, cl)
-        want = paged_attention_plain(q, k, v, pt, cl)
-        torch.cuda.synchronize()
-        assert torch.isfinite(got).all(), "decode kernel: non-finite output"
-        assert (got[0] == 0).all(), "decode kernel: ctx 0 row not zero"
-        e = (got.float() - want.float()).abs().max().item()
-        log(f"  paged_attention {str(dtype)[6:]:8s} ctx={ctxs} "
-            f"max_abs_err={e:.3g} (tol {TOL[dtype]})")
-        assert e <= TOL[dtype], "decode kernel disagrees with plain"
-        err = max(err, e)
+        for ctxs, opts in cases:
+            rows = len(ctxs)
+            k, v, pt = paged_inputs(dtype, ctxs)
+            q = torch.randn((rows, N_Q, HD), device="cuda").to(dtype)
+            cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+            got = paged_attention(q, k, v, pt, cl, **opts)
+            want = paged_attention_plain(q, k, v, pt, cl, **opts)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), "decode kernel: non-finite"
+            for b, c in enumerate(ctxs):
+                assert c > 0 or (got[b] == 0).all(), \
+                    "decode kernel: ctx 0 row not zero"
+            e = (got.float() - want.float()).abs().max().item()
+            log(f"  paged_attention {str(dtype)[6:]:8s} ctx={ctxs} {opts} "
+                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms)} "
+                f"max_abs_err={e:.3g} (tol {TOL[dtype]})")
+            assert e <= TOL[dtype], "decode kernel disagrees with plain"
+            err = max(err, e)
 
     # Timing at the decode step's shapes: B 8, ctx 1024, bf16.
     ctx = 1024
@@ -188,17 +226,39 @@ def check_decode_kernel(paged_attention, paged_attention_plain):
     log(f"  paged_attention bf16 B={B} ctx={ctx}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    per_sm = kernel_fn("paged_attention", "paged_attention_blocks_per_sm",
+                       [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
+    log(f"  paged_attention: splits {split_count(B, N_KV, MAX_PAGES, PS, sms)}"
+        f" on {sms} SMs, {per_sm} blocks per SM; "
+        f"{ms / lib_ms:.2f}x the library's time, "
+        f"{ms / bound:.1f}x the bound, "
+        f"{nbytes / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    # What the host's choice of splits is worth: the same call with the
+    # choice overridden (information only; the row above is the wrapper's).
+    from xllm_service_tpu_torch.ops import paged_attention as pa_mod
+    sweep = {}
+    try:
+        for n in (1, 2, 4, 8):
+            pa_mod.split_count = lambda *args, n=n: n
+            sweep[n] = time_ms(lambda: paged_attention(q, k, v, pt, cl))
+    finally:
+        pa_mod.split_count = split_count
+    log("  paged_attention: splits sweep "
+        + ", ".join(f"{n}: {t:.4f} ms" for n, t in sweep.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
 
 
-def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain):
+def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain, kernel_fn):
     err = 0.0
+    # Sq 70 is no multiple of the 16-query tile; its second row has a block
+    # length of 0 (every query padding, so the row comes out zero).
     for dtype in (torch.bfloat16, torch.float32):
-        for s_q in (1, 17, 512):
+        for s_q in (1, 17, 70, 512):
             for prefix in (0, 5, 384):      # none, a partial page, 3 blocks
-                blocks = [s_q, max(1, s_q - 3)]
+                blocks = [s_q, 0 if s_q == 70 else max(1, s_q - 3)]
                 ends = [prefix + b for b in blocks]
                 k, v, pt = paged_inputs(dtype, ends, seed=2)
                 q = torch.randn((2, s_q, N_Q, HD), device="cuda").to(dtype)
@@ -209,6 +269,8 @@ def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain):
                 want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
                 torch.cuda.synchronize()
                 assert torch.isfinite(got).all(), "mq kernel: non-finite"
+                assert blocks[1] > 0 or (got[1] == 0).all(), \
+                    "mq kernel: a row with no block is not zero"
                 e = (got.float() - want.float()).abs().max().item()
                 log(f"  mq_paged_attention {str(dtype)[6:]:8s} Sq={s_q:3d} "
                     f"prefix={prefix:3d} max_abs_err={e:.3g} "
@@ -238,6 +300,11 @@ def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain):
     log(f"  mq_paged_attention bf16 Sq={s_q} prefix={prefix}: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    per_sm = kernel_fn("mq_paged_attention",
+                       "mq_paged_attention_blocks_per_sm", [ctypes.c_int])(HD)
+    log(f"  mq_paged_attention: {per_sm} blocks per SM; "
+        f"{ms / lib_ms:.2f}x the library's time, "
+        f"{ms / bound:.1f}x the bound, {ops / ms / 1e9:.1f} TFLOP/s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
@@ -883,6 +950,7 @@ def main() -> int:
     from xllm_service_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_plain,
+        split_count,
     )
     from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
@@ -902,14 +970,18 @@ def main() -> int:
     log(f"[2] built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.monotonic() - t:.1f} s into {_build.BUILD_DIR}")
     for name, text in logs.items():
+        for line in ptxas_report(text):
+            log(f"  {name}: {line}")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Performance Loss" in line:       # e.g. serialized wgmma
+                log(f"  {name}: {line.strip()[:200]}")
 
     # Phase 3: kernels against plain, and times.
     log("[3] kernels against their plain versions")
-    k1 = check_decode_kernel(paged_attention, paged_attention_plain)
-    k2 = check_mq_kernel(mq_paged_attention, mq_paged_attention_plain)
+    k1 = check_decode_kernel(paged_attention, paged_attention_plain,
+                             split_count, _build.kernel_fn)
+    k2 = check_mq_kernel(mq_paged_attention, mq_paged_attention_plain,
+                         _build.kernel_fn)
     k3 = check_fused_kernel(fused_decode_attention,
                             fused_decode_attention_plain)
     k4, k5 = check_page_movers(page_dma)

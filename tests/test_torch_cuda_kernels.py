@@ -31,11 +31,13 @@ from xllm_service_tpu_torch.ops.fused_decode_attention import (
 from xllm_service_tpu_torch.ops.mq_paged_attention import (
     mq_paged_attention,
     mq_paged_attention_plain,
+    mq_route,
 )
 from xllm_service_tpu_torch.ops.paged_attention import (
     NEG_INF,
     paged_attention,
     paged_attention_plain,
+    split_count,
 )
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
@@ -98,6 +100,131 @@ def test_decode_kernel_gemma2_options(dev, opts):
     got = paged_attention(q, k, v, pt, cl, **opts)
     want = paged_attention_plain(q, k, v, pt, cl, **opts)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx,opts", [
+    ([3, 67, 1029, 2048], {}),           # shorter than a split; a split that
+                                         # holds part of one page; full table
+    ([777], {}),                         # one row: the most splits
+    ([1000, 301, 0, 300], {"window": 300}),   # the window starts inside a
+    ([1000], {"window": 300, "softcap": 30.0}),   # later split's unit
+])
+def test_decode_kernel_split_k_edges(dev, dtype, ctx, opts):
+    """Wide tables (128 pages), so the wrapper splits each (row, KV head)
+    over several blocks: every split's share, empty splits and the merge."""
+    B, n_q, n_kv, hd, ps, mp = len(ctx), 32, 8, 128, 16, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert split_count(B, n_kv, mp, ps, sms) > 1
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 10)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    dead = (torch.arange(mp * ps, device=dev)[None, :] >= cl[:, None])
+    b_idx, p_idx = dead.nonzero(as_tuple=True)
+    page = pt[b_idx, p_idx // ps].long()
+    k[page, :, p_idx % ps] = float("nan")
+    v[page, :, p_idx % ps] = float("nan")
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    for _ in range(2):          # twice: the merge's tickets reset themselves
+        got = paged_attention(q, k, v, pt, cl, **opts)
+        want = paged_attention_plain(q, k, v, pt, cl, **opts)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        for b, c in enumerate(ctx):
+            assert c > 0 or (got[b] == 0).all()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_decode_kernel_group_of_16(dev):
+    """The widest GQA group the kernel reports (16 query heads per KV head),
+    in both types."""
+    B, n_q, n_kv, hd, ps, mp = 3, 32, 2, 128, 16, 40
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 11)
+        pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+              .reshape(B, mp) + 1)
+        q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+        cl = torch.tensor([640, 17, 333], dtype=torch.int32, device=dev)
+        got = paged_attention(q, k, v, pt, cl)
+        want = paged_attention_plain(q, k, v, pt, cl)
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mq_kernel_tile_edges(dev, dtype):
+    """An Sq that is no multiple of the 16-query tile, a row whose block
+    length is 0 (all padding: zeros), a row that ends inside a tile."""
+    B, s_q, n_q, n_kv, hd, ps, mp = 3, 70, 32, 8, 128, 16, 16
+    prefix = 100
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 12)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    blocks = [70, 0, 41]
+    _poison_past(k, v, pt.cpu(), [prefix + b for b in blocks], ps)
+    q = torch.randn((B, s_q, n_q, hd), device=dev).to(dtype)
+    pre = torch.full((B,), prefix, dtype=torch.int32, device=dev)
+    blk = torch.tensor(blocks, dtype=torch.int32, device=dev)
+    got = mq_paged_attention(q, k, v, pt, pre, blk)
+    want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got[1] == 0).all() and (got[2, 41:] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_mq_kernel_bf16_shapes_off_the_tensor_core_path(dev):
+    """bf16 with a GQA group that does not divide 64 takes the f32 walk (the
+    route the wrapper names), and agrees with the plain version."""
+    B, s_q, n_q, n_kv, hd, ps, mp = 2, 19, 6, 2, 128, 16, 8
+    assert mq_route(torch.bfloat16, hd, ps, n_q // n_kv) == "walk"
+    k, v = _pool(dev, torch.bfloat16, B * mp + 1, n_kv, ps, hd, 13)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    q = torch.randn((B, s_q, n_q, hd), device=dev).to(torch.bfloat16)
+    pre = torch.tensor([40, 3], dtype=torch.int32, device=dev)
+    blk = torch.tensor([19, 7], dtype=torch.int32, device=dev)
+    got = mq_paged_attention(q, k, v, pt, pre, blk)
+    want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[
+        torch.bfloat16]
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """A CUDA tensor never takes the plain version: an unsupported type or
+    shape raises."""
+    B, n_q, n_kv, ps, mp = 2, 8, 2, 16, 4
+    pt = torch.ones((B, mp), dtype=torch.int32, device=dev)
+    cl = torch.full((B,), 5, dtype=torch.int32, device=dev)
+
+    def decode(dtype, hd, page_size=ps):
+        q = torch.zeros((B, n_q, hd), dtype=dtype, device=dev)
+        kp = torch.zeros((B * mp + 1, n_kv, page_size, hd), dtype=dtype,
+                         device=dev)
+        return paged_attention(q, kp, kp.clone(), pt, cl)
+
+    def prefill(dtype, hd, page_size=ps):
+        q = torch.zeros((B, 3, n_q, hd), dtype=dtype, device=dev)
+        kp = torch.zeros((B * mp + 1, n_kv, page_size, hd), dtype=dtype,
+                         device=dev)
+        return mq_paged_attention(q, kp, kp.clone(), pt, cl, cl)
+
+    for fn in (decode, prefill):
+        with pytest.raises(TypeError, match="f32 or bf16"):
+            fn(torch.float16, 128)
+        with pytest.raises(ValueError, match="not supported"):
+            fn(torch.bfloat16, 48)              # head dim
+        with pytest.raises(ValueError, match="not supported"):
+            fn(torch.float32, 128, page_size=24)    # page size
+    q = torch.zeros((B, 34, 128), dtype=torch.bfloat16, device=dev)
+    kp = torch.zeros((B * mp + 1, 2, ps, 128), dtype=torch.bfloat16,
+                     device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        paged_attention(q, kp, kp.clone(), pt, cl)      # a group of 17
+    with pytest.raises(TypeError, match="int32"):
+        decode_lens = cl.long()
+        paged_attention(q[:, :8].contiguous(), kp, kp.clone(), pt,
+                        decode_lens)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

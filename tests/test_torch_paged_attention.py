@@ -5,6 +5,13 @@ GQA grouping, gemma-2 options and a write-then-attend step.
 
 Tolerance rtol/atol 2e-5, as the reference's own kernel tests: both sides
 attend in f32 and differ only in summation order.
+
+The split-K cases hold ``paged_attention_split_plain`` (the CUDA kernel's
+two passes: per-split partials over the 16-token units the kernel takes,
+base-2 softmax, then the log-sum-exp merge) against the plain version
+within 1e-5 (f32 on both sides, another summation order) and against the
+Pallas kernel within the tolerance above, and ``split_count`` /
+``split_unit_range`` as pure functions.
 """
 
 import jax
@@ -17,8 +24,12 @@ from xllm_service_tpu.ops.attention import paged_attention_xla, write_decode_kv
 from xllm_service_tpu.ops.pallas_paged_attention import paged_attention_pallas
 from xllm_service_tpu_torch.ops import attention as port
 from xllm_service_tpu_torch.ops.paged_attention import (
+    MAX_SPLITS,
     paged_attention,
     paged_attention_plain,
+    paged_attention_split_plain,
+    split_count,
+    split_unit_range,
 )
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -126,3 +137,99 @@ def test_cpu_wrapper_counts_no_launch():
     before = paged_attention.launches
     _both(*_setup(), [96, 41, 8, 64])
     assert paged_attention.launches == before
+
+
+# ------------------------------------------------- the split-K arithmetic
+SPLIT_CTX = [96, 0, 1, 17, 50, 16]          # ragged, an inactive row, one unit
+
+
+def _torch_args(q, k, v, pt, cl):
+    return (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(pt), torch.tensor(cl, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("opts", [
+    {},
+    {"softcap": 30.0},
+    {"window": 40},
+    {"softcap": 50.0, "window": 33, "scale": 0.0625},
+], ids=["plain", "softcap", "window", "all"])
+def test_split_plain_matches_plain(splits, opts):
+    args = _torch_args(*_setup(B=6, pages=40), SPLIT_CTX)
+    want = paged_attention_plain(*args, **opts)
+    got = paged_attention_split_plain(*args, splits=splits, **opts)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(got[1].numpy() == 0.0)           # ctx 0: zeros, not NaN
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("opts", [{}, {"softcap": 30.0, "window": 40}],
+                         ids=["plain", "gemma2"])
+def test_split_plain_matches_pallas_kernel(splits, opts):
+    q, k, v, pt = _setup(B=6, pages=40)
+    want = np.asarray(paged_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pt),
+        jnp.asarray(SPLIT_CTX, jnp.int32), interpret=True, **opts))
+    got = paged_attention_split_plain(*_torch_args(q, k, v, pt, SPLIT_CTX),
+                                      splits=splits, **opts).numpy()
+    for b, c in enumerate(SPLIT_CTX):
+        if c > 0:
+            np.testing.assert_allclose(got[b], want[b], **TOL)
+        else:
+            assert np.all(got[b] == 0.0)
+
+
+def test_split_plain_ignores_nan_past_the_context():
+    q, k, v, pt = _setup(B=6, pages=40)
+    want = paged_attention_split_plain(*_torch_args(q, k, v, pt, SPLIT_CTX),
+                                       splits=3)
+    for b, c in enumerate(SPLIT_CTX):
+        for pos in range(c, pt.shape[1] * 16):
+            k[pt[b, pos // 16], :, pos % 16] = np.nan
+            v[pt[b, pos // 16], :, pos % 16] = np.nan
+    got = paged_attention_split_plain(*_torch_args(q, k, v, pt, SPLIT_CTX),
+                                      splits=3)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("ctx,window,splits", [
+    (0, 0, 4), (1, 0, 4), (67, 0, 4), (1000, 0, 4), (1000, 300, 4),
+    (2048, 0, 16), (777, 5, 3), (16, 0, 1),
+])
+def test_split_unit_ranges_tile_the_visible_units(ctx, window, splits):
+    """The splits' unit ranges are disjoint, in order, and together cover
+    exactly the units that hold a visible position."""
+    lo_pos = max(ctx - window, 0) if window > 0 else 0
+    covered = []
+    for sp in range(splits):
+        u0, u1, lo = split_unit_range(ctx, window, splits, sp)
+        assert lo == lo_pos
+        covered.extend(range(u0, u1))
+    want = sorted({pos // 16 for pos in range(lo_pos, ctx)})
+    assert covered == want
+
+
+def test_split_count_llama3_decode_shape():
+    # B 8 x n_kv 8 on 132 SMs: 4 splits, 256 blocks, about two per SM.
+    assert split_count(8, 8, 128, 16, 132) == 4
+
+
+def test_split_count_is_monotone_in_the_rows():
+    counts = [split_count(b, 8, 128, 16, 132) for b in (1, 2, 4, 8, 16, 64)]
+    assert counts == sorted(counts, reverse=True)
+    assert counts[-1] == 1                      # 512 blocks already fill it
+
+
+@pytest.mark.parametrize("max_pages,ps", [(128, 16), (6, 16), (1, 16),
+                                          (64, 64), (512, 1), (4096, 16)])
+def test_split_count_never_exceeds_the_tables_chunks(max_pages, ps):
+    chunks = -(-(max_pages * ps) // 64)
+    n = split_count(1, 1, max_pages, ps, 132)
+    assert 1 <= n <= max(1, chunks) and n <= MAX_SPLITS
+
+
+def test_split_count_short_table_is_not_split():
+    assert split_count(1, 1, 6, 16, 132) == 1          # 96 tokens: 2 chunks
+    assert split_count(1, 1, 7, 16, 132) == 1          # under two per split

@@ -9,19 +9,30 @@ K/V; ``context_lens`` include the new token, whose K/V are already written.
 Bound on the H100: the K/V bytes it reads. At Llama-3-8B decode shapes
 (B 8, ctx 1024, n_kv 8, hd 128, bf16) that is 33.5 MB per call, about
 10 us at 3.35 TB/s, and the engine launches it once per layer per decode
-step. The kernel gives each (row, KV head) one block, so the G query heads
-of a group share every page it loads, and walks only the pages below ctx.
-Its time on the card beside that bound is in PERF.md (measured by
-``chip_smoke.py``).
+step. A kernel bound by bytes needs every SM busy and loads in flight the
+whole time, so the kernel splits each (row, KV head) over the context
+(flash-decoding: grid ``(splits, n_kv, B)``, ``split_count`` blocks per
+(row, KV head), about two per SM), stages K/V by ``cp.async`` into a ring per
+warp so that later units load while an earlier one is computed, and merges
+the splits' ``(m, l, acc)`` in the same launch (the last block to finish a
+(row, KV head), found by an atomic ticket, merges). The G query heads of a
+group still share a block, so each K/V byte is read once.
+``context_lens`` is never read on the host: each block reads ctx on the
+device and takes its share of the visible 16-token units. Its time on the
+card beside that bound is in PERF.md (measured by ``chip_smoke.py``).
 
 ``paged_attention`` is the wrapper the engine calls: for a CPU tensor it
 computes ``paged_attention_plain``; for a CUDA tensor it launches the kernel
 or raises. ``paged_attention.launches`` counts the launches.
+``paged_attention_split_plain`` mirrors the kernel's two passes (per-split
+partials over the unit ranges the kernel takes, then the merge) for the CPU
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -75,8 +86,121 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(B, n_q, hd).to(q.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+UNIT = 16          # tokens per step of a warp in the kernel
+MAX_SPLITS = 32    # the merge reads every split's partial once per output
+
+
+def split_count(batch: int, n_kv: int, max_pages: int, page_size: int,
+                sm_count: int) -> int:
+    """Blocks per (row, KV head) of the split-K decode kernel, from what
+    the host knows without a device sync: enough that the grid holds about
+    two blocks per SM, but no split shorter than two 64-token chunks of the
+    table's width (so a short table is not split), and at most
+    ``MAX_SPLITS``."""
+    rows = max(1, batch * n_kv)
+    want = max(1, (2 * sm_count) // rows)
+    chunks = -(-(max_pages * page_size) // 64)
+    return max(1, min(want, chunks // 2, MAX_SPLITS))
+
+
+def split_unit_range(ctx: int, window: int, splits: int, split: int
+                     ) -> tuple[int, int, int]:
+    """What split ``split`` of ``splits`` walks for a row of context
+    ``ctx``: 16-token units ``[u0, u1)`` (possibly empty) of the visible
+    range ``[lo_pos, ctx)``; returns ``(u0, u1, lo_pos)``. The kernel
+    computes the same on the device."""
+    lo_pos = max(ctx - window, 0) if window > 0 else 0
+    u_lo = lo_pos // UNIT
+    u_hi = -(-ctx // UNIT)
+    per = -(-max(u_hi - u_lo, 0) // splits)
+    u0 = u_lo + split * per
+    return u0, min(u0 + per, u_hi), lo_pos
+
+
+def paged_attention_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                page_table: torch.Tensor,
+                                context_lens: torch.Tensor,
+                                scale: Optional[float] = None,
+                                softcap: float = 0.0, window: int = 0,
+                                splits: int = 1) -> torch.Tensor:
+    """The split-K kernel's two passes in plain PyTorch, for the CPU tests:
+    per split the partial ``(m, l, acc)`` over the units the kernel gives it
+    (base-2 softmax, K/V past ctx zeroed, scores select-masked, p zero on
+    the sentinel; an empty split gives m = NEG_INF, l = 0, acc = 0), then
+    the log-sum-exp merge with l floored at 1e-9."""
+    B, n_q, hd = q.shape
+    n_kv, ps = k_pages.shape[1], k_pages.shape[2]
+    G = n_q // n_kv
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    log2e = 1.4426950408889634
+    T = page_table.shape[1] * ps
+    idx = page_table.long()
+    k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
+    v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
+    qf = q.float().reshape(B, n_kv, G, hd) * scale
+    m = torch.full((splits, B, n_kv, G), NEG_INF)
+    l = torch.zeros((splits, B, n_kv, G))
+    acc = torch.zeros((splits, B, n_kv, G, hd))
+    for b in range(B):
+        ctx = min(int(context_lens[b]), T)
+        for sp in range(splits):
+            u0, u1, lo_pos = split_unit_range(ctx, window, splits, sp)
+            if u1 <= u0:
+                continue
+            pos = torch.arange(u0 * UNIT, u1 * UNIT)
+            live = (pos < ctx)[None, :, None]
+            kc = torch.where(live, k[b, :, pos.clamp(max=T - 1)], 0.0)
+            vc = torch.where(live, v[b, :, pos.clamp(max=T - 1)], 0.0)
+            sc = torch.einsum("kgd,ktd->kgt", qf[b], kc)
+            if softcap > 0:
+                sc = softcap * torch.tanh(sc / softcap)
+            visible = (pos < ctx) & (pos >= lo_pos)
+            sc = torch.where(visible[None, None, :], sc * log2e, NEG_INF)
+            mm = sc.amax(dim=-1)
+            p = torch.where(sc <= NEG_INF / 2, 0.0,
+                            torch.exp2(sc - mm[..., None]))
+            m[sp, b], l[sp, b] = mm, p.sum(dim=-1)
+            acc[sp, b] = torch.einsum("kgt,ktd->kgd", p, vc)
+    m_g = m.amax(dim=0)
+    w = torch.where(m <= NEG_INF / 2, 0.0, torch.exp2(m - m_g))
+    l_g = (l * w).sum(dim=0).clamp_min(1e-9)
+    out = (acc * w[..., None]).sum(dim=0) / l_g[..., None]
+    return out.reshape(B, n_q, hd).to(q.dtype)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+# Work space of the split-K merge, one per (device, stream): the zeroed
+# ticket counters (the kernel leaves them zero) and the f32 scratch for the
+# splits' partials. Launches on one stream run in order, so both are made
+# once and only grow; no launch is added per call.
+_work: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _work_space(device: torch.device, stream: int, n_tickets: int,
+                n_scratch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (_device_index(device), stream)
+    tickets, scratch = _work.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
+                              device=device)
+    if scratch is None or scratch.numel() < n_scratch:
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=device)
+    _work[key] = (tickets, scratch)
+    return tickets, scratch
 
 
 def check_cuda_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
@@ -148,14 +272,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    max_pages = page_table.shape[1]
+    splits = split_count(B, n_kv, max_pages, ps,
+                         _sm_count(_device_index(q.device)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch_ptr = tickets_ptr = 0
+    if splits > 1:
+        # Partials (acc, then m and l) of every split, f32.
+        tickets, scratch = _work_space(q.device, stream, B * n_kv,
+                                       B * n_q * splits * (hd + 2))
+        scratch_ptr, tickets_ptr = scratch.data_ptr(), tickets.data_ptr()
     launch = _build.kernel_fn("paged_attention", "paged_attention_launch",
                               _ARGTYPES)
     err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), context_lens.data_ptr(),
-                 out.data_ptr(), B, n_q, n_kv, hd, ps, page_table.shape[1],
-                 1 if q.dtype == torch.bfloat16 else 0, float(scale),
-                 float(softcap), int(window),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 out.data_ptr(), scratch_ptr, tickets_ptr, B, n_q, n_kv, hd,
+                 ps, max_pages, 1 if q.dtype == torch.bfloat16 else 0, splits,
+                 float(scale), float(softcap), int(window), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention: CUDA launch failed with "
                            f"error {err}")
