@@ -13,16 +13,18 @@ Phases (any failure exits non-zero before the result line):
 3. each kernel against its plain PyTorch version on the card at Llama-3-8B
    shapes, timed beside its plain version and a PyTorch yardstick: the two
    attention kernels and the fused append-and-attend (bf16 and f32, ragged
-   contexts, NaN garbage past every context; for the split-K decode kernel
-   also contexts shorter than a split, a lone row and windows, for the
+   contexts, NaN garbage past every context; for the three split-K decode
+   kernels also contexts shorter than a split, a split holding part of one
+   page, empty splits and a lone row, windows for kernel 1; for the
    tensor-core prefill kernel a suffix that is no multiple of its tile and
-   a row with no block; their splits, registers, blocks per SM and shares
-   of the library's time and of the bound are logged;
+   a row with no block; their splits, registers, blocks per SM, splits
+   sweeps and shares of the library's time and of the bound are logged;
    ``scaled_dot_product_attention`` on the K/V already gathered dense), the
    page movers at one hash block (bit for bit; ``index_select`` /
    ``index_copy_``) and the context-parallel partial per shard at seq 2
-   and 4 (NaN in every page a shard does not own and occupy; the whole CP
-   op against single-device attention, and timed against kernel 1);
+   and 4 (NaN in every page a shard does not own and occupy, a shard that
+   owns only a row's last, partial page; the whole CP op against
+   single-device attention, and timed against kernel 1);
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -139,6 +141,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def sweep_splits(module, name, counts, fn):
+    """The same call with the host's choice of splits overridden by each of
+    ``counts`` (``module.name`` replaced by a constant), timed; information
+    only, the timed row is the wrapper's own choice."""
+    real = getattr(module, name)
+    sweep = {}
+    try:
+        for n in counts:
+            setattr(module, name, lambda *args, n=n: n)
+            sweep[n] = time_ms(fn)
+    finally:
+        setattr(module, name, real)
+    return ", ".join(f"{n}: {t:.4f} ms" for n, t in sweep.items())
+
+
 def paged_inputs(dtype, ctxs, n_pages=MAX_PAGES, seed=0):
     """Pool with a private page span per row, NaN in every slot past each
     row's context (a pool made with torch.empty can hold NaN there)."""
@@ -234,18 +251,11 @@ def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
         f"{ms / bound:.1f}x the bound, "
         f"{nbytes / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
         f"{HBM_BYTES_PER_S / 1e12} TB/s")
-    # What the host's choice of splits is worth: the same call with the
-    # choice overridden (information only; the row above is the wrapper's).
+    # What the host's choice of splits is worth.
     from xllm_service_tpu_torch.ops import paged_attention as pa_mod
-    sweep = {}
-    try:
-        for n in (1, 2, 4, 8):
-            pa_mod.split_count = lambda *args, n=n: n
-            sweep[n] = time_ms(lambda: paged_attention(q, k, v, pt, cl))
-    finally:
-        pa_mod.split_count = split_count
-    log("  paged_attention: splits sweep "
-        + ", ".join(f"{n}: {t:.4f} ms" for n, t in sweep.items()))
+    log("  paged_attention: splits sweep " + sweep_splits(
+        pa_mod, "split_count", (1, 2, 4, 8),
+        lambda: paged_attention(q, k, v, pt, cl)))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
@@ -310,31 +320,46 @@ def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain, kernel_fn):
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
 
 
-def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain):
+def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
+                       split_count, kernel_fn):
     """Kernel 3 against its plain version: the output within TOL, both pools
-    after the call equal bit for bit (the append is a copy)."""
+    after the call equal bit for bit (the append is a copy). Its walk covers
+    ctx - 1 pooled tokens, so the split-K edges sit one token later than
+    kernel 1's: a walk shorter than one split (ctx 4), one whose last split
+    holds part of one page (68: units 0-1, 2-3, 4 and an empty split at four
+    splits), a full table, and one row alone (the most splits)."""
+    from xllm_service_tpu_torch.ops import fused_decode_attention as fd_mod
+
     err = 0.0
-    ctxs = [0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [[0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS],
+             [68, 4, 34, MAX_PAGES * PS, 1030, 516, 131, 65],
+             [778]]
     for dtype in (torch.bfloat16, torch.float32):
-        k, v, pt = paged_inputs(dtype, ctxs, seed=4)
-        q = torch.randn((B, N_Q, HD), device="cuda").to(dtype)
-        k_new = torch.randn((B, N_KV, HD), device="cuda").to(dtype)
-        v_new = torch.randn((B, N_KV, HD), device="cuda").to(dtype)
-        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
-        kp, vp = k.clone(), v.clone()
-        got = fused_decode_attention(q, k_new, v_new, kp, vp, pt, cl)[0]
-        want = fused_decode_attention_plain(q, k_new, v_new, k, v, pt, cl)[0]
-        torch.cuda.synchronize()
-        assert torch.isfinite(got).all(), "fused kernel: non-finite output"
-        e = (got.float() - want.float()).abs().max().item()
-        same_pools = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                         for a, b in ((kp, k), (vp, v)))
-        log(f"  fused_decode_attention {str(dtype)[6:]:8s} ctx={ctxs} "
-            f"max_abs_err={e:.3g} (tol {TOL[dtype]}), pools bit-identical "
-            f"{same_pools}")
-        assert e <= TOL[dtype], "fused kernel disagrees with plain"
-        assert same_pools, "fused kernel's append differs from plain"
-        err = max(err, e)
+        for ctxs in cases:
+            rows = len(ctxs)
+            k, v, pt = paged_inputs(dtype, ctxs, seed=4)
+            q = torch.randn((rows, N_Q, HD), device="cuda").to(dtype)
+            k_new = torch.randn((rows, N_KV, HD), device="cuda").to(dtype)
+            v_new = torch.randn((rows, N_KV, HD), device="cuda").to(dtype)
+            cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+            kp, vp = k.clone(), v.clone()
+            got = fused_decode_attention(q, k_new, v_new, kp, vp, pt, cl)[0]
+            want = fused_decode_attention_plain(q, k_new, v_new, k, v, pt,
+                                                cl)[0]
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), "fused kernel: non-finite output"
+            e = (got.float() - want.float()).abs().max().item()
+            same_pools = all(
+                torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in ((kp, k), (vp, v)))
+            log(f"  fused_decode_attention {str(dtype)[6:]:8s} ctx={ctxs} "
+                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms)} "
+                f"max_abs_err={e:.3g} (tol {TOL[dtype]}), pools "
+                f"bit-identical {same_pools}")
+            assert e <= TOL[dtype], "fused kernel disagrees with plain"
+            assert same_pools, "fused kernel's append differs from plain"
+            err = max(err, e)
 
     # Timing at the decode step's shapes: B 8, ctx 1024, bf16.
     ctx = 1024
@@ -345,7 +370,11 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain):
     cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     kd, vd = gathered(k, pt, ctx).contiguous(), gathered(v, pt, ctx).contiguous()
     qd = q[:, :, None, :]
-    ms = time_ms(lambda: fused_decode_attention(q, k_new, v_new, k, v, pt, cl))
+
+    def call():
+        return fused_decode_attention(q, k_new, v_new, k, v, pt, cl)
+
+    ms = time_ms(call)
     plain_ms = time_ms(lambda: fused_decode_attention_plain(
         q, k_new, v_new, k, v, pt, cl))
     lib_ms = time_ms(lambda: sdpa(qd, kd, vd))
@@ -359,6 +388,15 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain):
     log(f"  fused_decode_attention bf16 B={B} ctx={ctx}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    per_sm = kernel_fn("fused_decode_attention",
+                       "fused_decode_attention_blocks_per_sm",
+                       [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
+    log(f"  fused_decode_attention: splits "
+        f"{split_count(B, N_KV, MAX_PAGES, PS, sms)} on {sms} SMs, {per_sm} "
+        f"blocks per SM; {ms / lib_ms:.2f}x the library's time, "
+        f"{ms / bound:.1f}x the bound")
+    log("  fused_decode_attention: splits sweep "
+        + sweep_splits(fd_mod, "split_count", (1, 2, 4, 8), call))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
@@ -435,12 +473,43 @@ def poison_unowned(k, v, pt, ctxs):
     v.masked_fill_(~keep[:, None, :, None], float("nan"))
 
 
+def cp_case(dtype, ctxs, seed, tail_row=None):
+    """Inputs of kernel 6's check: a pool of B * MAX_PAGES + 8 pages (the
+    count divides by 2 and 4), tables a permutation of pages 4..P-2 across
+    every shard, NaN in every slot no row occupies below its context. Row 1
+    (when there are two rows or more) sits on the garbage page. Row
+    ``tail_row`` (four pages long) holds pages 1, 2, 3 of shard 0's range
+    and, for its last, partial page, page P - 1 of the last shard's range,
+    so that shard owns only that page of the row."""
+    rows = len(ctxs)
+    P = B * MAX_PAGES + 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+    v = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(P - 5, generator=torch.Generator().manual_seed(seed))
+    pt = (perm[:rows * MAX_PAGES] + 4).reshape(rows, MAX_PAGES).to(
+        torch.int32).cuda()
+    if rows > 1:
+        pt[1] = 0
+    if tail_row is not None:
+        assert -(-ctxs[tail_row] // PS) == 4, "the tail row holds four pages"
+        pt[tail_row, :4] = torch.tensor([1, 2, 3, P - 1], dtype=torch.int32)
+    poison_unowned(k, v, pt, ctxs)
+    q = torch.randn((rows, N_Q, HD), device="cuda").to(dtype)
+    cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    return q, k, v, pt, cl
+
+
 def check_cp_kernel(cp, paged_attention, paged_attention_plain,
-                    build_mesh, MeshConfig):
+                    build_mesh, MeshConfig, kernel_fn):
     """Kernel 6 against its plain version, shard by shard, at seq 2 and 4;
     the whole CP op against single-device attention on the same pool; then
     times at the decode step's shapes.
 
+    Cases: ragged contexts up to the full table; kernel 1's split-K edges
+    (a context shorter than one split, 3; one whose last split holds part
+    of one page, 67; a row whose last, partial page is all one shard owns
+    of it, 3 * 16 + 5) beside empty rows; one row alone (the most splits).
     Checks: rows where the plain version sees nothing (m <= NEG_INF / 2)
     must match exactly (m = NEG_INF, l = 0, acc = 0); elsewhere m within
     TOL, and l and acc within TOL after dividing by max(l, 1): both are
@@ -449,57 +518,61 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     from xllm_service_tpu_torch.ops.paged_attention import NEG_INF
 
     err = 0.0
-    ctxs = [0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS]
-    P = B * MAX_PAGES + 4                    # divisible by 2 and 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [([0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS], None),
+             ([67, 3, 33, 3 * PS + 5, 0, 1029, 130, MAX_PAGES * PS], 3),
+             ([777], None)]
     for dtype in (torch.bfloat16, torch.float32):
-        g = torch.Generator(device="cuda").manual_seed(8)
-        k = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
-        v = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
-        # Tables: a permutation of pages 1..P-1 across every shard; row 1
-        # on the garbage page with ctx 1; row 2 (ctx 16, one page) is
-        # untouched by every shard but the one owning its page.
-        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(8))
-        pt = (perm[:B * MAX_PAGES] + 1).reshape(B, MAX_PAGES).to(
-            torch.int32).cuda()
-        pt[1] = 0
-        poison_unowned(k, v, pt, ctxs)
-        q = torch.randn((B, N_Q, HD), device="cuda").to(dtype)
-        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
-        want = paged_attention_plain(q, k, v, pt, cl)
-        for n in (2, 4):
-            mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
-            k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
-            P_loc = P // n
-            for d in range(n):
-                tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc, PS)
-                m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d], *tables, cl)
-                m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d],
-                                                    *tables, cl)
+        for ci, (ctxs, tail_row) in enumerate(cases):
+            q, k, v, pt, cl = cp_case(dtype, ctxs, 8 + ci, tail_row)
+            rows, P = len(ctxs), k.shape[0]
+            want = paged_attention_plain(q, k, v, pt, cl)
+            for n in (2, 4):
+                mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
+                k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+                P_loc = P // n
+                splits = cp.partial_split_count(rows, N_KV, MAX_PAGES, PS,
+                                                sms, n)
+                for d in range(n):
+                    tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc,
+                                                    PS)
+                    m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d],
+                                                 *tables, cl, shards=n)
+                    m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d],
+                                                        *tables, cl)
+                    torch.cuda.synchronize()
+                    dead = m0 <= NEG_INF / 2
+                    assert torch.equal(dead, m <= NEG_INF / 2), \
+                        "cp partial: masked rows differ"
+                    assert (m[dead] == m0[dead]).all() and \
+                        (l[dead] == 0).all() and (acc[dead] == 0).all(), \
+                        "cp partial: a row the shard does not touch is not " \
+                        "empty"
+                    assert torch.isfinite(acc).all() and \
+                        torch.isfinite(l).all()
+                    lsc = l0.clamp_min(1.0)
+                    e = max((m - m0)[~dead].abs().max().item()
+                            if (~dead).any() else 0.0,
+                            ((l - l0).abs() / lsc).max().item(),
+                            ((acc - a0).abs() / lsc[..., None]).max().item())
+                    log(f"  cp_paged_partial {str(dtype)[6:]:8s} ctx={ctxs} "
+                        f"seq={n} shard {d} splits={splits}: n_local "
+                        f"{tables[2].tolist()}, err={e:.3g} "
+                        f"(tol {TOL[dtype]})")
+                    assert e <= TOL[dtype], "cp partial disagrees with plain"
+                    err = max(err, e)
+                got = cp.cp_paged_attention(q, k_sh, v_sh, pt, cl, mesh)
                 torch.cuda.synchronize()
-                dead = m0 <= NEG_INF / 2
-                assert torch.equal(dead, m <= NEG_INF / 2), \
-                    "cp partial: masked rows differ"
-                assert (m[dead] == m0[dead]).all() and \
-                    (l[dead] == 0).all() and (acc[dead] == 0).all(), \
-                    "cp partial: a row the shard does not touch is not empty"
-                assert torch.isfinite(acc).all() and torch.isfinite(l).all()
-                lsc = l0.clamp_min(1.0)
-                e = max((m - m0)[~dead].abs().max().item(),
-                        ((l - l0).abs() / lsc).max().item(),
-                        ((acc - a0).abs() / lsc[..., None]).max().item())
-                log(f"  cp_paged_partial {str(dtype)[6:]:8s} seq={n} shard "
-                    f"{d}: n_local {tables[2].tolist()}, err={e:.3g} "
+                e = (got.float() - want.float()).abs().max().item()
+                log(f"  cp_paged_attention {str(dtype)[6:]:8s} ctx={ctxs} "
+                    f"seq={n} vs single-device plain: max_abs_err={e:.3g} "
                     f"(tol {TOL[dtype]})")
-                assert e <= TOL[dtype], "cp partial disagrees with plain"
+                assert torch.isfinite(got).all()
+                for b, c in enumerate(ctxs):
+                    assert c > 0 or (got[b] == 0).all(), \
+                        "cp op: a ctx-0 row is not zero"
+                assert e <= TOL[dtype], "cp op disagrees with single-device"
                 err = max(err, e)
-            got = cp.cp_paged_attention(q, k_sh, v_sh, pt, cl, mesh)
-            torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            log(f"  cp_paged_attention {str(dtype)[6:]:8s} seq={n} vs "
-                f"single-device plain: max_abs_err={e:.3g} (tol {TOL[dtype]})")
-            assert torch.isfinite(got).all() and (got[0] == 0).all()
-            assert e <= TOL[dtype], "cp op disagrees with single-device"
-            err = max(err, e)
 
     # Timing at the decode step's shapes over four shards: B 8, ctx 1024,
     # bf16; entry j of every row on shard j % 4, so each shard owns 16 of
@@ -520,7 +593,11 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     t0 = tabs[0]
     own = int(t0[2].sum())                      # pages shard 0 walks
     assert own == B * mp // n
-    ms = time_ms(lambda: cp.paged_partial(q, k_sh[0], v_sh[0], *t0))
+
+    def call():
+        return cp.paged_partial(q, k_sh[0], v_sh[0], *t0, shards=n)
+
+    ms = time_ms(call)
     plain_ms = time_ms(lambda: cp.paged_partial_plain(q, k_sh[0], v_sh[0],
                                                       *t0))
     # The yardstick: SDPA over shard 0's owned pages of each row, gathered
@@ -542,6 +619,15 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
         f"({own} owned pages): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} GFLOP)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = kernel_fn("cp_paged_partial", "cp_paged_partial_blocks_per_sm",
+                       [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
+    log(f"  cp_paged_partial: splits "
+        f"{cp.partial_split_count(B, N_KV, mp, PS, sms, n)} on {sms} SMs, "
+        f"{per_sm} blocks per SM; {ms / lib_ms:.2f}x the library's time, "
+        f"{ms / bound:.1f}x the bound")
+    log("  cp_paged_partial: splits sweep "
+        + sweep_splits(cp, "partial_split_count", (1, 2, 4), call))
     # The whole CP op (n partial launches and the merge) against kernel 1
     # at the same B and ctx on the unsharded pool; the step's compaction,
     # shared by all layers, apart.
@@ -983,10 +1069,11 @@ def main() -> int:
     k2 = check_mq_kernel(mq_paged_attention, mq_paged_attention_plain,
                          _build.kernel_fn)
     k3 = check_fused_kernel(fused_decode_attention,
-                            fused_decode_attention_plain)
+                            fused_decode_attention_plain, split_count,
+                            _build.kernel_fn)
     k4, k5 = check_page_movers(page_dma)
     k6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
-                         build_mesh, MeshConfig)
+                         build_mesh, MeshConfig, _build.kernel_fn)
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")

@@ -11,11 +11,19 @@ the 8 virtual CPU devices of tests/conftest.py.
   ``_local_partial_kernelized`` (cp_paged_attention.py:262-279);
 - ``cp_paged_attention`` against the reference's at seq 2 and 4, through
   both reference bodies (XLA; Pallas in interpret mode), mirroring
-  tests/test_cp_paged_attention.py.
+  tests/test_cp_paged_attention.py;
+- ``paged_partial_split_plain`` (the CUDA kernel's passes over the
+  compacted slots) at splits 1/2/3/8 against the interpret-mode kernel's
+  raw statistics, and, at page sizes 8, 16 and 32, against the plain
+  version for a shard that owns only a row's last, partial page or none
+  of it: the split units tile the owned slots and nothing past them is
+  read.
 
 Tolerance rtol/atol 2e-5 in f32, as tests/test_cp_paged_attention.py: both
 sides attend in f32 and differ only in summation order.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,10 +45,16 @@ from xllm_service_tpu_torch.ops.cp_paged_attention import (
     cp_tables,
     merge_partials,
     paged_partial,
+    paged_partial_plain,
+    partial_split_count,
+    paged_partial_split_plain,
 )
 from xllm_service_tpu_torch.ops.paged_attention import (
     NEG_INF,
+    UNIT,
     paged_attention_plain,
+    split_count,
+    split_unit_range,
 )
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
@@ -121,13 +135,16 @@ def test_compaction_matches_reference_transcription(n):
             np.testing.assert_array_equal(g.numpy(), w)
 
 
-@pytest.mark.parametrize("n,d", [(2, 0), (2, 1), (4, 1), (4, 3)])
-def test_partial_matches_pallas_kernel_raw_stats(n, d):
-    """Raw (m, l, acc) of one shard: the plain version against the TPU
-    kernel in interpret mode. Row 0 sits on the garbage page with ctx 1
-    (owned by shard 0 only); row 3 keeps every page in shard 0's range, so
-    shards d > 0 own none of it; NaN fills every slot the shard must not
-    read."""
+SHARD_CASES = [(2, 0), (2, 1), (4, 1), (4, 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _raw_stats_case(n: int, d: int) -> tuple:
+    """Shard d of n: its compacted inputs (NaN in every slot it must not
+    read) and the TPU kernel's raw (m, l, acc) in interpret mode, as numpy.
+    Row 0 sits on the garbage page with ctx 1 (owned by shard 0 only); row
+    3 keeps every page in shard 0's range, so shards d > 0 own none of
+    it."""
     q, k, v, pt, clens = make_case(B=4, hd=128, H=8, n_kv=2, seed=5)
     P_loc, ps = 32 // n, 16
     pt[0] = 0
@@ -137,28 +154,109 @@ def test_partial_matches_pallas_kernel_raw_stats(n, d):
     lo = d * P_loc
     local_pt, starts, n_local = compact_numpy(pt, clens, lo, P_loc, ps)
     ks, vs = _nan_outside_owned(k, v, pt, clens, lo, P_loc, ps)
-    scale = 1.0 / np.sqrt(128)
+    scale = float(1.0 / np.sqrt(128))
     m_ref, l_ref, acc_ref = _paged_partial_pallas(
         jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs),
         jnp.asarray(local_pt), jnp.asarray(starts), jnp.asarray(n_local),
-        jnp.asarray(clens), scale=float(scale), interpret=True)
-    m, l, acc = paged_partial(
-        torch.from_numpy(q), torch.from_numpy(ks), torch.from_numpy(vs),
-        torch.from_numpy(local_pt), torch.from_numpy(starts),
-        torch.from_numpy(n_local), torch.from_numpy(clens),
-        scale=float(scale))
+        jnp.asarray(clens), scale=scale, interpret=True)
+    inputs = (q, ks, vs, local_pt, starts, n_local, clens)
+    want = (np.asarray(m_ref)[..., 0], np.asarray(l_ref)[..., 0],
+            np.asarray(acc_ref))
+    return inputs, want, scale
+
+
+def _check_raw_stats(got, want, n_local):
+    m, l, acc = got
     assert m.dtype == l.dtype == acc.dtype == torch.float32
-    assert m.shape == l.shape == (4, 8) and acc.shape == (4, 8, 128)
-    np.testing.assert_allclose(m.numpy(), np.asarray(m_ref)[..., 0], **TOL)
-    np.testing.assert_allclose(l.numpy(), np.asarray(l_ref)[..., 0], **TOL)
-    np.testing.assert_allclose(acc.numpy(), np.asarray(acc_ref), **TOL)
-    for b in range(4):
+    assert m.shape == l.shape == want[0].shape and acc.shape == want[2].shape
+    np.testing.assert_allclose(m.numpy(), want[0], **TOL)
+    np.testing.assert_allclose(l.numpy(), want[1], **TOL)
+    np.testing.assert_allclose(acc.numpy(), want[2], **TOL)
+    for b in range(m.shape[0]):
         if n_local[b] == 0:
             # A row the shard does not touch: the merge weighs it 0.
             assert (m[b] == NEG_INF).all() and (l[b] == 0).all()
             assert (acc[b] == 0).all()
+
+
+@pytest.mark.parametrize("n,d", SHARD_CASES)
+def test_partial_matches_pallas_kernel_raw_stats(n, d):
+    """Raw (m, l, acc) of one shard: the plain version against the TPU
+    kernel in interpret mode (see _raw_stats_case)."""
+    inputs, want, scale = _raw_stats_case(n, d)
+    got = paged_partial(*[torch.from_numpy(x) for x in inputs], scale=scale)
+    _check_raw_stats(got, want, inputs[5])
     if d > 0:
-        assert n_local[3] == 0
+        assert inputs[5][3] == 0
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("n,d", SHARD_CASES)
+def test_split_plain_matches_pallas_kernel_raw_stats(n, d, splits):
+    """The kernel's passes at several split counts (a row owns at most 4
+    entries, 4 units: at 8 splits half are empty) against the TPU kernel's
+    raw statistics; untouched rows exact."""
+    inputs, want, scale = _raw_stats_case(n, d)
+    got = paged_partial_split_plain(*[torch.from_numpy(x) for x in inputs],
+                                    scale=scale, splits=splits)
+    _check_raw_stats(got, want, inputs[5])
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("n_local", [0, 1])
+def test_split_plain_tiles_the_compacted_slots(ps, n_local):
+    """One row whose shard owns only its last, partial page (table entry 1,
+    ctx ps + ps // 2 + 1), or none of it. The split units tile the owned
+    slots [0, n_local * ps) in order; a unit that runs past them (ps 8: its
+    second half is entry 1, past n_local, on local page 0) reads nothing
+    there. NaN fills every slot but the visible ones, and the statistics
+    match the plain version (exactly, for a row with nothing owned)."""
+    rng = np.random.default_rng(ps + n_local)
+    n_kv, G, hd, mp, P_loc = 2, 2, 32, 4, 4
+    ctx = ps + ps // 2 + 1
+    k = rng.normal(size=(P_loc, n_kv, ps, hd)).astype(np.float32)
+    v = rng.normal(size=(P_loc, n_kv, ps, hd)).astype(np.float32)
+    keep = np.zeros((P_loc, ps), bool)
+    keep[2, :ctx - ps] = n_local == 1         # the owned page's live slots
+    k = np.where(keep[:, None, :, None], k, np.nan).astype(np.float32)
+    v = np.where(keep[:, None, :, None], v, np.nan).astype(np.float32)
+    q = rng.normal(size=(1, n_kv * G, hd)).astype(np.float32)
+    local_pt = np.array([[2 if n_local else 0, 0, 0, 0]], np.int32)
+    starts = np.array([[ps if n_local else ctx, ctx, ctx, ctx]], np.int32)
+    args = [torch.from_numpy(x) for x in (
+        q, k, v, local_pt, starts, np.array([n_local], np.int32),
+        np.array([ctx], np.int32))]
+    want = paged_partial_plain(*args)
+    owned = n_local * ps
+    for splits in (1, 2, 3, 8):
+        slots = []
+        for sp in range(splits):
+            u0, u1, lo = split_unit_range(owned, 0, splits, sp)
+            assert lo == 0 and u0 * UNIT >= len(slots)
+            slots += range(u0 * UNIT, max(u0, u1) * UNIT)
+        assert slots == list(range(-(-owned // UNIT) * UNIT))
+        got = paged_partial_split_plain(*args, splits=splits)
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            if n_local:
+                np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+            else:
+                assert torch.equal(g, w)
+    if n_local == 0:
+        assert (want[0] == NEG_INF).all() and (want[1] == 0).all()
+
+
+@pytest.mark.parametrize("batch,max_pages,shards,want", [
+    (8, 64, 4, 1),     # the timing shape: 16 entries, 256 slots a row
+    (8, 128, 4, 2),    # the serving table: 512 slots, two splits of 256
+    (1, 128, 4, 2),    # one row: still no split below 256 slots
+    (8, 128, 1, 4),    # one shard: kernel 1's count
+    (8, 4, 4, 1),      # a table shorter than one split
+])
+def test_partial_split_count(batch, max_pages, shards, want):
+    got = partial_split_count(batch, 8, max_pages, 16, 132, shards)
+    assert got == want
+    assert got <= split_count(batch, 8, -(-max_pages // shards), 16, 132)
 
 
 @pytest.mark.parametrize("sp", [2, 4])

@@ -24,6 +24,7 @@ import torch
 
 from xllm_service_tpu_torch.ops import attention, page_dma
 from xllm_service_tpu_torch.ops import cp_paged_attention as cp
+from xllm_service_tpu_torch.ops import fused_decode_attention as fused_mod
 from xllm_service_tpu_torch.ops.fused_decode_attention import (
     fused_decode_attention,
     fused_decode_attention_plain,
@@ -301,6 +302,41 @@ def test_fused_decode_kernel_matches_plain(dev, dtype, n_q, n_kv, hd):
         n_q // n_kv, dim=0)).abs().max().item() <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx", [[4, 68, 1030, 2048], [778]])
+@pytest.mark.parametrize("splits", [None, 1, 3, 8])
+def test_fused_decode_kernel_split_k_edges(dev, monkeypatch, dtype, ctx,
+                                           splits):
+    """Wide tables (128 pages) at the wrapper's split count (None) and at
+    counts forced on it: a walk shorter than one split (ctx 4), a last split
+    holding part of one page (68), empty splits, one row alone; twice, as
+    the merge's tickets reset themselves. Output within TOL, pools bit for
+    bit."""
+    B, n_q, n_kv, hd, ps, mp = len(ctx), 32, 8, 128, 16, 128
+    if splits is not None:
+        monkeypatch.setattr(fused_mod, "split_count",
+                            lambda *args: splits)
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 12)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    _poison_past(k, v, pt.cpu(), [c - 1 for c in ctx], ps)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    k_new = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    v_new = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    want, k_want, v_want = fused_decode_attention_plain(
+        q, k_new, v_new, k.clone(), v.clone(), pt, cl)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for _ in range(2):
+        kp, vp = k.clone(), v.clone()
+        got = fused_decode_attention(q, k_new, v_new, kp, vp, pt, cl)[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+        assert torch.equal(kp.view(bits), k_want.view(bits))
+        assert torch.equal(vp.view(bits), v_want.view(bits))
+
+
 def test_decode_step_routes_through_the_fused_kernel(dev, monkeypatch):
     B, n_q, n_kv, hd, ps = 3, 8, 2, 128, 16
     k, v = _pool(dev, torch.float32, 13, n_kv, ps, hd, 5)
@@ -424,13 +460,14 @@ def _poison_unowned(k, v, pt, ctxs, ps):
 
 def _cp_case(dev, dtype, n_q, n_kv, hd, mp, ctxs, seed):
     """A pool of B * mp + 4 pages, tables a permutation across all of it,
-    row 1 on the garbage page, NaN outside the occupied slots."""
+    row 1 (if any) on the garbage page, NaN outside the occupied slots."""
     B, ps = len(ctxs), 16
     P = B * mp + 4
     k, v = _pool(dev, dtype, P, n_kv, ps, hd, seed)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(seed))
     pt = (perm[:B * mp] + 1).reshape(B, mp).to(torch.int32).to(dev)
-    pt[1] = 0
+    if B > 1:
+        pt[1] = 0
     _poison_unowned(k, v, pt, ctxs, ps)
     q = torch.randn((B, n_q, hd), device=dev).to(dtype)
     cl = torch.tensor(ctxs, dtype=torch.int32, device=dev)
@@ -466,6 +503,47 @@ def test_cp_partial_kernel_matches_plain(dev, dtype, n, n_q, n_kv, hd):
     want = paged_attention_plain(q, k, v, pt, cl)
     assert torch.isfinite(got).all() and (got[0] == 0).all()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("splits", [None, 1, 3, 8])
+def test_cp_partial_kernel_split_k_edges(dev, monkeypatch, dtype, n, splits):
+    """Kernel 1's split-K edges per shard, at the wrapper's split count
+    (None) and at counts forced on it: a context shorter than one split
+    (3), a last split holding part of one page (67), row 3 whose last,
+    partial page is all the last shard owns of it, empty rows, and one row
+    alone; twice each, as the merge's tickets reset themselves."""
+    if splits is not None:
+        monkeypatch.setattr(cp, "partial_split_count", lambda *args: splits)
+    for ctxs in ([67, 3, 33, 53, 0, 1029, 130, 2048], [777]):
+        q, k, v, pt, cl = _cp_case(dev, dtype, 32, 8, 128, 128, ctxs, 13)
+        if len(ctxs) > 3:
+            # Row 3: pages 1-3 in shard 0's range, its last in the last's.
+            P = k.shape[0]
+            pt[3, :4] = torch.tensor([1, 2, 3, P - 1], dtype=torch.int32)
+            k, v = _pool(dev, dtype, P, 8, 16, 128, 13)
+            _poison_unowned(k, v, pt, ctxs, 16)
+        P_loc = k.shape[0] // n
+        k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+        for d in range(n):
+            tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc, 16)
+            m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d], *tables,
+                                                cl)
+            dead = m0 <= NEG_INF / 2
+            lsc = l0.clamp_min(1.0)
+            for _ in range(2):
+                m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d], *tables, cl,
+                                             shards=n)
+                torch.cuda.synchronize()
+                assert torch.equal(dead, m <= NEG_INF / 2)
+                assert (m[dead] == NEG_INF).all() and (l[dead] == 0).all()
+                assert (acc[dead] == 0).all()
+                if (~dead).any():
+                    assert (m - m0)[~dead].abs().max().item() <= TOL[dtype]
+                assert ((l - l0).abs() / lsc).max().item() <= TOL[dtype]
+                assert ((acc - a0).abs() / lsc[..., None]).max().item() \
+                    <= TOL[dtype]
 
 
 def test_cp_decode_step_routes_through_kernel_6(dev, monkeypatch):

@@ -12,12 +12,19 @@ ulps. bf16: one bf16 ulp at |out| < 4 (2**-6), since both round an f32
 result once. Pools are compared exactly (the append is a copy), outside
 page 0 where the inactive rows' writes race.
 
+The split-K cases hold ``fused_decode_attention_split_plain`` (the CUDA
+kernel's passes: per-split partials over the pooled slots, the new token as
+one more partial, the merge, the append) at splits 1/2/3/8 against the
+interpret-mode kernel at the parity cases, within the f32 tolerance above;
+the pools after the append are compared exactly.
+
 Engine level: the port's engine under ``XLLM_KV_WRITEBACK=fused`` against
 the reference engine on the same switch (Pallas in interpret mode) and the
 port's own default route, mirroring
 tests/test_pallas_engine_routing.py::test_fused_decode_writeback_matches_default.
 """
 
+import functools
 import logging
 import threading
 
@@ -48,6 +55,7 @@ from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.ops.fused_decode_attention import (
     fused_decode_attention,
     fused_decode_attention_plain,
+    fused_decode_attention_split_plain,
 )
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -99,13 +107,16 @@ def _compare(q, k_new, v_new, k, v, pt, cl, dtype=torch.float32):
     return _np(got), _np(kp), _np(vp)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("prev", [
+PREV_CASES = [
     [10, 20, 30, 40],       # mid-page appends
     [0, 16, 31, 95],        # page starts/edges + pool-full row
     [0, 0, 0, 0],           # empty contexts: first token ever
     [15, 16, 31, 32],       # ctx on a page boundary (16, 17, 32, 33)
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prev", PREV_CASES)
 def test_parity_with_pallas(dtype, prev):
     args = _setup()
     _, kp, _ = _compare(*args, [p + 1 for p in prev], dtype)
@@ -114,6 +125,38 @@ def test_parity_with_pallas(dtype, prev):
     for b, p in enumerate(prev):
         want = torch.from_numpy(k_new[b]).to(dtype).float().numpy()
         np.testing.assert_array_equal(kp[pt[b, p // 16], :, p % 16], want)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_fused(prev: tuple) -> tuple:
+    """The interpret-mode kernel's (out, k_pages, v_pages) at _setup()'s
+    f32 inputs and contexts prev + 1, as numpy."""
+    q, k_new, v_new, k, v, pt = _setup()
+    out = fused_decode_attention_pallas(
+        *[jnp.asarray(a) for a in (q, k_new, v_new, k, v, pt)],
+        jnp.asarray([p + 1 for p in prev], jnp.int32), interpret=True)
+    return tuple(_np(x) for x in out)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("prev", PREV_CASES)
+def test_split_plain_matches_pallas(prev, splits):
+    """The kernel's passes at several split counts (6 units per row: at 8
+    splits two are empty, at 3 each holds two) against the reference
+    kernel: the output within the f32 tolerance, the pools after the
+    append exactly, outside the garbage page."""
+    q, k_new, v_new, k, v, pt = _setup()
+    want, kp_want, vp_want = _pallas_fused(tuple(prev))
+    kp, vp = _t(k, torch.float32), _t(v, torch.float32)
+    got, kp_out, vp_out = fused_decode_attention_split_plain(
+        *[_t(a, torch.float32) for a in (q, k_new, v_new)], kp, vp,
+        torch.from_numpy(pt),
+        torch.tensor([p + 1 for p in prev], dtype=torch.int32),
+        splits=splits)
+    assert kp_out is kp and vp_out is vp          # pools updated in place
+    np.testing.assert_allclose(got.numpy(), want, **TOL[torch.float32])
+    np.testing.assert_array_equal(kp.numpy()[1:], kp_want[1:])
+    np.testing.assert_array_equal(vp.numpy()[1:], vp_want[1:])
 
 
 def test_gqa():

@@ -1,7 +1,7 @@
-// Staged K/V loads for the redesigned attention kernels (paged_attention.cu,
-// mq_paged_attention.cu): 16-byte cp.async copies from the page pool into a
-// ring of shared-memory stages, so the loads of a later stage are in flight
-// while an earlier one is multiplied.
+// Staged K/V loads for the redesigned attention kernels (split_decode.cuh,
+// the walk of kernels 1, 3 and 6; mq_paged_attention.cu): 16-byte cp.async
+// copies from the page pool into a ring of shared-memory stages, so the
+// loads of a later stage are in flight while an earlier one is multiplied.
 //
 // Layout of a staged token row: hd elements of T, contiguous, cut into
 // 16-byte pieces; piece c of token t is stored at piece c ^ swizzle(t).

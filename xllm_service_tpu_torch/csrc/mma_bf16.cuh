@@ -1,8 +1,9 @@
 // Tensor-core building blocks for bf16 inputs with f32 accumulators:
 // mma.sync.aligned.m16n8k16 fed by ldmatrix from swizzled shared memory
-// (kv_ring.cuh). Used by paged_attention.cu, where the GQA group's few query
-// heads are the rows of one tile; mq_paged_attention.cu shares the register
-// layouts and pack_bf16 and multiplies through wgmma_bf16.cuh.
+// (kv_ring.cuh). Used by split_decode.cuh (kernels 1, 3 and 6), where the
+// GQA group's few query heads are the rows of one tile; mq_paged_attention.cu
+// shares the register layouts and pack_bf16 and multiplies through
+// wgmma_bf16.cuh.
 //
 // Fragment layouts of one warp (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), four registers of two bf16:

@@ -108,7 +108,6 @@ __global__ void __launch_bounds__(kWalkThreads)
     sm.m[r] = xllm::kNegInf;
     sm.l[r] = 0.f;
     sm.hi[r] = s < blk ? prefix + s + 1 : 0;
-    sm.lo[r] = 0;
   }
   __syncthreads();
 
@@ -120,8 +119,8 @@ __global__ void __launch_bounds__(kWalkThreads)
   const int s_end = min(s0 + q_tile, blk);
   const int p_hi =
       s_end > s0 ? min((prefix + s_end + ps - 1) / ps, max_pages) : 0;
-  xllm::page_walk<T>(k_pages, v_pages, page_table + size_t(b) * max_pages, 0,
-                     p_hi, n_kv, kv, ps, hd, R, ctx, 0.f, sm, acc);
+  xllm::page_walk<T>(k_pages, v_pages, page_table + size_t(b) * max_pages,
+                     p_hi, n_kv, kv, ps, hd, R, ctx, sm, acc);
 #pragma unroll
   for (int i = 0; i < xllm::kMaxAccRows; ++i) {
     const xllm::AccSlot a = xllm::acc_slot(i, hd);

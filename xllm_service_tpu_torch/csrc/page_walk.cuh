@@ -1,9 +1,8 @@
-// Shared page walk of the paged-attention kernels (paged_attention.cu,
-// mq_paged_attention.cu, fused_decode_attention.cu, cp_paged_partial.cu).
+// The f32 page walk of kernel 2's CUDA-core route (mq_paged_attention.cu:
+// f32 inputs, and bf16 shapes its tensor-core route does not take).
 //
-// Carries the invariants of the reference's ops/pallas_page_dma.py, written
-// once for both kernels (its 2-slot VMEM DMA ring is the TPU's shape and is
-// not carried over):
+// Carries the invariants of the reference's ops/pallas_page_dma.py (its
+// 2-slot VMEM DMA ring is the TPU's shape and is not carried over):
 //
 // - masked_kv_f32 (pallas_page_dma.py:282): K/V rows at positions >= the
 //   context bound are zero in shared memory (they are never read), so
@@ -13,14 +12,13 @@
 //   score is the mask sentinel, so a fully masked chunk adds nothing
 //   (without it exp(NEG_INF - NEG_INF) = 1 would pollute l and acc).
 // - NEG_INF = -1e30, and l is clamped at 1e-9 on output
-//   (pallas_paged_attention.py:103-104): a row that sees no key (an inactive
-//   slot with ctx == 0, a padding query) writes zeros.
+//   (pallas_paged_attention.py:103-104): a row that sees no key (a padding
+//   query) writes zeros.
 //
-// One thread block owns R query rows that share one KV head (the G query
-// heads of a GQA group, times a tile of queries for the multi-query kernel)
-// and walks that head's pages a chunk of kChunkTokens tokens at a time
-// (64 / page_size pages): the chunk is staged in shared memory as f32 and
-// used by every row. Per chunk:
+// One thread block owns R query rows that share one KV head (a tile of
+// queries times the G query heads of a GQA group) and walks that head's
+// pages a chunk of kChunkTokens tokens at a time (64 / page_size pages): the
+// chunk is staged in shared memory as f32 and used by every row. Per chunk:
 //   1. scores: thread (token t, row group) holds t's K row and dots it with
 //      its rows' queries (float4 shared-memory reads, K rows padded so a
 //      warp's reads are conflict-free);
@@ -86,8 +84,7 @@ struct WalkSmem {
   float* m;      // [R]                      running max
   float* l;      // [R]                      running denominator
   float* alpha;  // [R]                      rescale of acc for this chunk
-  int* hi;       // [R]                      row r sees keys at positions
-  int* lo;       // [R]                      in [lo[r], hi[r])
+  int* hi;       // [R]                      row r sees keys below hi[r]
 };
 
 __host__ __device__ inline size_t walk_smem_bytes(int R, int hd) {
@@ -95,7 +92,7 @@ __host__ __device__ inline size_t walk_smem_bytes(int R, int hd) {
              (size_t(R) * hd + size_t(kChunkTokens) * (hd + kKPad) +
               size_t(kChunkTokens) * hd + size_t(R) * kChunkTokens +
               3 * size_t(R)) +
-         sizeof(int) * 2 * size_t(R);
+         sizeof(int) * size_t(R);
 }
 
 __device__ inline WalkSmem carve_smem(char* base, int R, int hd) {
@@ -116,7 +113,6 @@ __device__ inline WalkSmem carve_smem(char* base, int R, int hd) {
   sm.alpha = f;
   f += R;
   sm.hi = reinterpret_cast<int*>(f);
-  sm.lo = sm.hi + R;
   return sm;
 }
 
@@ -129,41 +125,14 @@ __device__ __forceinline__ void widen16(const uint4& raw, float* dst) {
   for (int i = 0; i < kVec; ++i) dst[i] = Elt<T>::to_f(e[i]);
 }
 
-// Token positions of the walk. Token t of a chunk (t < kChunkTokens) lies
-// on entry page = p0 + t / ps of the row's table; start = p0 * ps.
-//
-// ContiguousPos: entry j of the table holds positions [j * ps, (j + 1) *
-// ps), so the token sits at start + t. Kernels 1-3 use it; it ignores
-// `page`, so their generated code is what it was before the walk took a
-// position functor.
-struct ContiguousPos {
-  __device__ __forceinline__ int operator()(int start, int t, int) const {
-    return start + t;
-  }
-};
-
-// CompactedPos: the context-parallel partial's table is compacted (a
-// shard's owned entries moved to the front), so entry j starts at global
-// position starts[j], and entries at or past n (never loaded) sit at the
-// context bound, where both masks reject them.
-struct CompactedPos {
-  const int* starts;  // [max_pages] global token start of each entry
-  int n;              // live entries (n_local, at most max_pages)
-  int ps;
-  int bound;
-  __device__ __forceinline__ int operator()(int, int t, int page) const {
-    return page < n ? starts[page] + t % ps : bound;
-  }
-};
-
 // masked_kv_f32 for one chunk: pages [p0, p0 + 64/ps) of the row's table
 // (those below p_hi), K/V of head kv, into shared memory as f32; tokens at
 // positions >= bound (or on pages >= p_hi) are zero and never read.
-template <typename T, typename Pos>
+template <typename T>
 __device__ __forceinline__ void load_chunk(
     const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ pt_row, int p0, int p_hi, int n_kv, int kv,
-    int ps, int hd, int bound, const WalkSmem& sm, const Pos& pos_of) {
+    int ps, int hd, int bound, const WalkSmem& sm) {
   constexpr int kVec = 16 / sizeof(T);
   const int n_vec = kChunkTokens * hd / kVec;
   const int start = p0 * ps;
@@ -175,7 +144,7 @@ __device__ __forceinline__ void load_chunk(
     const int page = p0 + t / ps;
     float kf[kVec];
     float vf[kVec];
-    if (page < p_hi && pos_of(start, t, page) < bound) {
+    if (page < p_hi && start + t < bound) {
       const size_t off = (size_t(pt_row[page]) * n_kv + kv) * ps * hd +
                          size_t(t % ps) * hd + d;
       widen16<T>(*reinterpret_cast<const uint4*>(k_pages + off), kf);
@@ -192,21 +161,18 @@ __device__ __forceinline__ void load_chunk(
   }
 }
 
-// Walk pages [p_lo, p_hi) of one row's page table for R query rows against
-// KV head `kv`. acc[i] accumulates row (threadIdx.x / hd + i * (blockDim.x
-// / hd)), column threadIdx.x % hd, unnormalised; sm.m / sm.l hold the
-// softmax state. The caller has filled sm.q, sm.hi, sm.lo, set m = NEG_INF
-// and l = 0, and synchronised. R <= walk_max_rows(blockDim.x, hd, ps).
-// pos_of gives each token's position (ContiguousPos unless the table is
-// compacted).
-template <typename T, typename Pos = ContiguousPos>
+// Walk pages [0, p_hi) of one row's page table for R query rows against
+// KV head `kv`; entry j holds positions [j * ps, (j + 1) * ps). acc[i]
+// accumulates row (threadIdx.x / hd + i * (blockDim.x / hd)), column
+// threadIdx.x % hd, unnormalised; sm.m / sm.l hold the softmax state. The
+// caller has filled sm.q and sm.hi, set m = NEG_INF and l = 0, and
+// synchronised. R <= walk_max_rows(blockDim.x, hd, ps).
+template <typename T>
 __device__ void page_walk(const T* __restrict__ k_pages,
                           const T* __restrict__ v_pages,
-                          const int* __restrict__ pt_row, int p_lo, int p_hi,
-                          int n_kv, int kv, int ps, int hd, int R, int bound,
-                          float softcap, const WalkSmem& sm,
-                          float (&acc)[kMaxAccRows],
-                          const Pos& pos_of = Pos()) {
+                          const int* __restrict__ pt_row, int p_hi, int n_kv,
+                          int kv, int ps, int hd, int R, int bound,
+                          const WalkSmem& sm, float (&acc)[kMaxAccRows]) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -223,13 +189,13 @@ __device__ void page_walk(const T* __restrict__ k_pages,
   const int p_rows_step = nt / hd;
   const int hd4 = hd / 4;
 
-  for (int p0 = p_lo; p0 < p_hi; p0 += pages_per_chunk) {
+  for (int p0 = 0; p0 < p_hi; p0 += pages_per_chunk) {
     const int start = p0 * ps;
     load_chunk<T>(k_pages, v_pages, pt_row, p0, p_hi, n_kv, kv, ps, hd,
-                  bound, sm, pos_of);
+                  bound, sm);
     __syncthreads();
 
-    // 1. Scores, masked to each row's visible window.
+    // 1. Scores, masked to each row's visible keys.
     {
       float x[kMaxScoreRows];
 #pragma unroll
@@ -250,16 +216,12 @@ __device__ void page_walk(const T* __restrict__ k_pages,
           }
         }
       }
-      const int pos = pos_of(start, st, p0 + st / ps);
+      const int pos = start + st;
 #pragma unroll
       for (int i = 0; i < kMaxScoreRows; ++i) {
         const int r = s_row0 + i * s_rows_step;
-        if (r < R) {
-          float y = x[i];
-          if (softcap > 0.f) y = softcap * tanhf(y / softcap);
-          sm.s[r * kChunkTokens + st] =
-              (pos < sm.hi[r] && pos >= sm.lo[r]) ? y : kNegInf;
-        }
+        if (r < R)
+          sm.s[r * kChunkTokens + st] = pos < sm.hi[r] ? x[i] : kNegInf;
       }
     }
     __syncthreads();

@@ -16,7 +16,8 @@ axis) on the mesh's first device:
 
 The per-shard partial is the hand-written CUDA kernel
 ``csrc/cp_paged_partial.cu`` (built by ``ops/_build.py``), which replaces
-the TPU kernel ``_paged_partial_pallas``. Like the TPU body
+the TPU kernel ``_paged_partial_pallas``, on kernel 1's split-K walk
+(``csrc/split_decode.cuh``) over the compacted slots. Like the TPU body
 ``_local_partial_kernelized``, the caller compacts each shard's owned,
 occupied page-table entries to the front (``compact_local_table``) and the
 kernel walks only those pages. The page table and context lengths are the
@@ -25,12 +26,16 @@ step and shard (``cp_tables``) and reuses the tables for all layers; the
 reference recomputes them inside its jit, with the same result.
 
 Bound on the H100: the owned, occupied K/V bytes a shard reads (a quarter
-of kernel 1's at four shards and even ownership). Its time on the card is
-in PERF.md (measured by ``chip_smoke.py``).
+of kernel 1's at four shards and even ownership). A shard walks about
+``1 / n`` of a row, so ``partial_split_count`` sizes the split-K grid from
+the table's chunks divided by the axis size. Its time on the card is in
+PERF.md (measured by ``chip_smoke.py``).
 
 ``paged_partial`` is the wrapper: for a CPU tensor it computes
 ``paged_partial_plain``; for a CUDA tensor it launches the kernel or
 raises. ``paged_partial.launches`` counts the launches.
+``paged_partial_split_plain`` mirrors the kernel's passes for the CPU
+tests.
 """
 
 from __future__ import annotations
@@ -42,7 +47,16 @@ import torch
 
 from ..parallel.mesh import AXIS_SEQ, DeviceMesh
 from . import _build
-from .paged_attention import NEG_INF, check_cuda_operands
+from .paged_attention import (
+    NEG_INF,
+    check_cuda_operands,
+    gather_rows,
+    merge_splits,
+    sm_count,
+    split_count,
+    split_partials,
+    split_work,
+)
 
 
 # ------------------------------------------------------------ sharded pool
@@ -191,9 +205,7 @@ def paged_partial_plain(q: torch.Tensor, k_pages: torch.Tensor,
     pos = torch.where(live, starts.long(), ctx)[:, :, None] + \
         torch.arange(ps, device=q.device)                        # [B, mp, ps]
     visible = pos.reshape(B, T) < ctx                            # [B, T]
-    idx = local_pt.long()
-    k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
-    v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
+    k, v = gather_rows(k_pages, local_pt), gather_rows(v_pages, local_pt)
     v = torch.where(visible[:, None, :, None], v, 0.0)
     qf = q.float().reshape(B, n_kv, G, hd) * scale
     s = torch.einsum("bkgd,bktd->bkgt", qf, k)
@@ -205,19 +217,71 @@ def paged_partial_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return (m.reshape(B, n_q), l.reshape(B, n_q), acc.reshape(B, n_q, hd))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+def paged_partial_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, local_pt: torch.Tensor,
+                              starts: torch.Tensor, n_local: torch.Tensor,
+                              context_lens: torch.Tensor,
+                              scale: Optional[float] = None, splits: int = 1
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The kernel's passes in plain PyTorch, for the CPU tests: the walk
+    covers compacted slots ``[0, n_local * ps)``, slot c of entry ``c //
+    ps`` at position ``starts[c // ps] + c % ps``, staged and visible only
+    below ctx; per split the partial over its 16-slot units
+    (``split_partials``), then the merge, and m from log2 to natural-log
+    units (a row with nothing visible keeps m = NEG_INF exactly, l = 0,
+    acc = 0). Shapes and result as :func:`paged_partial_plain`."""
+    B, n_q, hd = q.shape
+    n_kv, ps = k_pages.shape[1], k_pages.shape[2]
+    mp = local_pt.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    k, v = gather_rows(k_pages, local_pt), gather_rows(v_pages, local_pt)
+    qf = q.float().reshape(B, n_kv, n_q // n_kv, hd) * scale
+    c = torch.arange(mp * ps)
+    parts = []
+    for b in range(B):
+        n = min(max(int(n_local[b]), 0), mp) * ps
+        pos = starts[b].long()[c // ps] + c % ps
+        live = (c < n) & (pos < int(context_lens[b]))
+        parts.append(split_partials(qf[b], k[b], v[b], n, live, splits))
+    m, l, acc = merge_splits(*(torch.stack(x, dim=1) for x in zip(*parts)))
+    m = torch.where(m <= NEG_INF / 2, NEG_INF, m * 0.6931471805599453)
+    return m.reshape(B, n_q), l.reshape(B, n_q), acc.reshape(B, n_q, hd)
+
+
+MIN_SPLIT_SLOTS = 256   # four 16-slot units for each warp of a split
+
+
+def partial_split_count(batch: int, n_kv: int, max_pages: int,
+                        page_size: int, sms: int, shards: int) -> int:
+    """Blocks per (row, KV head) of kernel 6 on one of ``shards`` shards,
+    from what the host knows: kernel 1's ``split_count`` for the row's
+    share of the table (``ceil(max_pages / shards)`` entries, about what a
+    shard owns), with no split shorter than ``MIN_SPLIT_SLOTS``. Each split
+    pays a merge through scratch and the ticket, and a shard's walk is
+    short: at the decode shapes one split of 256 slots beat two of 128
+    (``chip_smoke.py``'s splits sweep, in PERF.md)."""
+    share = -(-max_pages // shards)
+    return max(1, min(split_count(batch, n_kv, share, page_size, sms),
+                      share * page_size // MIN_SPLIT_SLOTS))
+
+
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
 def paged_partial(q: torch.Tensor, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, local_pt: torch.Tensor,
                   starts: torch.Tensor, n_local: torch.Tensor,
-                  context_lens: torch.Tensor, scale: Optional[float] = None
+                  context_lens: torch.Tensor, scale: Optional[float] = None,
+                  shards: int = 1
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One shard's raw statistics ``(m, l, acc)`` (see
-    ``paged_partial_plain``). A CPU tensor takes the plain version; a CUDA
-    tensor launches the CUDA kernel on the current stream of its device,
-    or raises."""
+    ``paged_partial_plain``); ``shards`` is the size of the mesh axis the
+    pool is sharded over, which sizes the split-K grid. A CPU tensor takes
+    the plain version; a CUDA tensor launches the CUDA kernel on the
+    current stream of its device, or raises."""
     if q.device.type == "cpu":
         return paged_partial_plain(q, k_pages, v_pages, local_pt, starts,
                                    n_local, context_lens, scale=scale)
@@ -242,14 +306,19 @@ def paged_partial(q: torch.Tensor, k_pages: torch.Tensor,
         return m, l, acc
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    max_pages = local_pt.shape[1]
+    splits = partial_split_count(B, n_kv, max_pages, ps, sm_count(q.device),
+                                 shards)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("cp_paged_partial", "cp_paged_partial_launch",
                               _ARGTYPES)
     err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  local_pt.data_ptr(), starts.data_ptr(), n_local.data_ptr(),
                  context_lens.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 acc.data_ptr(), B, n_q, n_kv, hd, ps, local_pt.shape[1],
-                 1 if q.dtype == torch.bfloat16 else 0, float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 acc.data_ptr(), scratch_ptr, tickets_ptr, B, n_q, n_kv, hd,
+                 ps, max_pages, 1 if q.dtype == torch.bfloat16 else 0,
+                 splits, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_partial: CUDA launch failed with error "
                            f"{err}")
@@ -304,6 +373,6 @@ def cp_paged_attention(q: torch.Tensor, k_shards: Sequence[torch.Tensor],
     parts = []
     for kd, vd, (lpt, st, nl, cl) in zip(k_shards, v_shards, tables):
         m, l, acc = paged_partial(q.to(kd.device), kd, vd, lpt, st, nl, cl,
-                                  scale=scale)
+                                  scale=scale, shards=len(devs))
         parts.append((m.to(q.device), l.to(q.device), acc.to(q.device)))
     return merge_partials(parts).to(q.dtype)

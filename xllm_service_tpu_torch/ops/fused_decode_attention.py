@@ -4,17 +4,20 @@ the port.
 Replaces the TPU kernel
 ``xllm_service_tpu/ops/pallas_fused_decode_attention.py::fused_decode_attention_pallas``
 with the hand-written CUDA kernel ``csrc/fused_decode_attention.cu`` (built
-by ``ops/_build.py``), on kernel 1's layout and page walk: one block per
-(row, KV head). ``context_lens`` include the new token, whose K/V arrive as
+by ``ops/_build.py``), on kernel 1's split-K walk (``csrc/split_decode.cuh``:
+grid ``(splits, n_kv, B)``, ``split_count`` blocks per (row, KV head), a
+``cp.async`` ring per warp, the splits merged in the same launch by a
+ticket). ``context_lens`` include the new token, whose K/V arrive as
 operands; the step attends over the ``ctx - 1`` pooled tokens plus the new
-one and writes the new K/V rows into the pools IN PLACE, at position
-``pos = max(ctx - 1, 0)``: slot ``pos % ps`` of page
-``page_table[b, min(pos // ps, max_pages - 1)]``.
+one (one more partial in the final merge) and writes the new K/V rows into
+the pools IN PLACE, at position ``pos = max(ctx - 1, 0)``: slot ``pos % ps``
+of page ``page_table[b, min(pos // ps, max_pages - 1)]``.
 
-Safe in place because the walk never reads slot ``pos`` and tail pages are
-private to their sequence (the page manager donates only whole hash blocks
-of whole pages). A row with ctx 0 attends only the new token (its output
-is ``v_new``, as in the reference kernel) and writes slot 0 of
+Safe in place because the block that writes is the one that runs the final
+merge, after every split's walk, no walk stages slot ``pos``, and tail
+pages are private to their sequence (the page manager donates only whole
+hash blocks of whole pages). A row with ctx 0 attends only the new token
+(its output is ``v_new``, as in the reference kernel) and writes slot 0 of
 ``page_table[b, 0]``, the garbage page for an inactive slot.
 
 Bound on the H100: the K/V bytes it reads, as kernel 1 (33.5 MB at B 8,
@@ -25,6 +28,8 @@ ctx 1024, about 10 us at 3.35 TB/s). Its time on the card is in PERF.md
 under ``XLLM_KV_WRITEBACK=fused``: for a CPU tensor it computes
 ``fused_decode_attention_plain``; for a CUDA tensor it launches the kernel
 or raises. ``fused_decode_attention.launches`` counts the launches.
+``fused_decode_attention_split_plain`` mirrors the kernel's passes for the
+CPU tests.
 """
 
 from __future__ import annotations
@@ -34,9 +39,18 @@ import ctypes
 import torch
 
 from . import _build
-from .paged_attention import NEG_INF, check_cuda_operands
+from .paged_attention import (
+    NEG_INF,
+    check_cuda_operands,
+    gather_rows,
+    merge_splits,
+    sm_count,
+    split_count,
+    split_partials,
+    split_work,
+)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -57,14 +71,11 @@ def fused_decode_attention_plain(q: torch.Tensor, k_new: torch.Tensor,
     including the new token. Returns (out [B, n_q, hd], k_pages, v_pages).
     """
     B, n_q, hd = q.shape
-    n_kv, ps = k_pages.shape[1], k_pages.shape[2]
+    n_kv = k_pages.shape[1]
     G = n_q // n_kv
-    max_pages = page_table.shape[1]
     scale = 1.0 / (hd ** 0.5)
-    idx = page_table.long()
-    T = max_pages * ps
-    k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
-    v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
+    k, v = gather_rows(k_pages, page_table), gather_rows(v_pages, page_table)
+    T = k.shape[2]
     pos = (context_lens.long() - 1).clamp_min(0)            # the new token
     visible = torch.arange(T, device=q.device)[None, :] < pos[:, None]
     v = torch.where(visible[:, None, :, None], v, 0.0)
@@ -78,12 +89,60 @@ def fused_decode_attention_plain(q: torch.Tensor, k_new: torch.Tensor,
     p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     out = (torch.einsum("bkgt,bktd->bkgd", p, v) / l).reshape(B, n_q, hd)
+    _append(k_new, v_new, k_pages, v_pages, page_table, context_lens)
+    return out.to(q.dtype), k_pages, v_pages
 
+
+def _append(k_new: torch.Tensor, v_new: torch.Tensor, k_pages: torch.Tensor,
+            v_pages: torch.Tensor, page_table: torch.Tensor,
+            context_lens: torch.Tensor) -> None:
+    """The new rows into slot ``pos % ps`` of page ``page_table[b,
+    min(pos // ps, max_pages - 1)]``, ``pos = max(ctx - 1, 0)``, in
+    place."""
+    ps, max_pages = k_pages.shape[2], page_table.shape[1]
+    pos = (context_lens.long() - 1).clamp_min(0)
     col = (pos // ps).clamp_max(max_pages - 1)
-    page = torch.gather(idx, 1, col[:, None])[:, 0]
+    page = torch.gather(page_table.long(), 1, col[:, None])[:, 0]
     slot = pos % ps
     k_pages[page, :, slot] = k_new.to(k_pages.dtype)
     v_pages[page, :, slot] = v_new.to(v_pages.dtype)
+
+
+def fused_decode_attention_split_plain(q: torch.Tensor, k_new: torch.Tensor,
+                                       v_new: torch.Tensor,
+                                       k_pages: torch.Tensor,
+                                       v_pages: torch.Tensor,
+                                       page_table: torch.Tensor,
+                                       context_lens: torch.Tensor,
+                                       splits: int = 1
+                                       ) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """The kernel's passes in plain PyTorch, for the CPU tests: per split
+    the partial over its units of the pooled slots ``[0, ctx - 1)``
+    (``split_partials``), the new token as one more partial in log2 units
+    (m = its scaled score times log2(e), l = 1, acc = v_new), the merge
+    with l floored at 1e-9, then the append. Shapes and result as
+    :func:`fused_decode_attention_plain`."""
+    B, n_q, hd = q.shape
+    n_kv = k_pages.shape[1]
+    G = n_q // n_kv
+    log2e = 1.4426950408889634
+    k, v = gather_rows(k_pages, page_table), gather_rows(v_pages, page_table)
+    T = k.shape[2]
+    qf = q.float().reshape(B, n_kv, G, hd) * (1.0 / (hd ** 0.5))
+    parts = []
+    for b in range(B):
+        n = min(max(int(context_lens[b]) - 1, 0), T)
+        parts.append(split_partials(qf[b], k[b], v[b], n,
+                                    torch.arange(T) < n, splits))
+    m, l, acc = (torch.stack(x, dim=1) for x in zip(*parts))
+    m_new = torch.einsum("bkgd,bkd->bkg", qf, k_new.float()) * log2e
+    acc_new = v_new.float()[:, :, None, :].expand(B, n_kv, G, hd)
+    _, l_g, acc_g = merge_splits(torch.cat([m, m_new[None]]),
+                                 torch.cat([l, torch.ones_like(l[:1])]),
+                                 torch.cat([acc, acc_new[None]]))
+    out = (acc_g / l_g.clamp_min(1e-9)[..., None]).reshape(B, n_q, hd)
+    _append(k_new, v_new, k_pages, v_pages, page_table, context_lens)
     return out.to(q.dtype), k_pages, v_pages
 
 
@@ -126,14 +185,18 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out, k_pages, v_pages
+    max_pages = page_table.shape[1]
+    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("fused_decode_attention",
                               "fused_decode_attention_launch", _ARGTYPES)
     err = launch(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), context_lens.data_ptr(),
-                 out.data_ptr(), B, n_q, n_kv, hd, ps, page_table.shape[1],
-                 1 if q.dtype == torch.bfloat16 else 0, 1.0 / (hd ** 0.5),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 out.data_ptr(), scratch_ptr, tickets_ptr, B, n_q, n_kv, hd,
+                 ps, max_pages, 1 if q.dtype == torch.bfloat16 else 0,
+                 splits, 1.0 / (hd ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_attention: CUDA launch failed "
                            f"with error {err}")

@@ -3,7 +3,8 @@
 Replaces the TPU kernel
 ``xllm_service_tpu/ops/pallas_paged_attention.py::paged_attention_pallas``
 with the hand-written CUDA kernel ``csrc/paged_attention.cu`` (built by
-``ops/_build.py``). One query token per sequence attends over its paged
+``ops/_build.py``) on the split-K walk of ``csrc/split_decode.cuh``, which
+kernels 3 and 6 share. One query token per sequence attends over its paged
 K/V; ``context_lens`` include the new token, whose K/V are already written.
 
 Bound on the H100: the K/V bytes it reads. At Llama-3-8B decode shapes
@@ -26,7 +27,8 @@ computes ``paged_attention_plain``; for a CUDA tensor it launches the kernel
 or raises. ``paged_attention.launches`` counts the launches.
 ``paged_attention_split_plain`` mirrors the kernel's two passes (per-split
 partials over the unit ranges the kernel takes, then the merge) for the CPU
-tests.
+tests; ``split_partials`` and ``merge_splits`` are those passes, shared
+with the split versions of kernels 3 and 6.
 """
 
 from __future__ import annotations
@@ -63,10 +65,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     G = n_q // n_kv
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    idx = page_table.long()
-    T = idx.shape[1] * ps
-    k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
-    v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
+    k, v = gather_rows(k_pages, page_table), gather_rows(v_pages, page_table)
+    T = k.shape[2]
     pos = torch.arange(T, device=q.device)[None, :]
     ctx = context_lens.long()[:, None]
     visible = pos < ctx                                          # [B, T]
@@ -117,6 +117,67 @@ def split_unit_range(ctx: int, window: int, splits: int, split: int
     return u0, min(u0 + per, u_hi), lo_pos
 
 
+def split_partials(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   n: int, live: torch.Tensor, splits: int, window: int = 0,
+                   softcap: float = 0.0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One row's per-split partials as the split-K kernels form them.
+
+    qf: [n_kv, G, hd] f32 queries, pre-scaled; k, v: [n_kv, T, hd] f32, the
+    row's slots in walk order; the walk covers slots ``[0, n)`` and
+    ``live`` [T] says which slots are staged (the others are zero and
+    masked). Split ``sp`` takes the 16-slot units ``split_unit_range(n,
+    window, splits, sp)``; scores are select-masked to live slots from the
+    window's start, the softmax runs in base 2, and p is zero on the
+    sentinel. Returns m, l [splits, n_kv, G] (log2 units) and acc
+    [splits, n_kv, G, hd]; an empty split gives m = NEG_INF, l = 0,
+    acc = 0."""
+    log2e = 1.4426950408889634
+    n_kv, G, hd = qf.shape
+    T = k.shape[1]
+    m = torch.full((splits, n_kv, G), NEG_INF)
+    l = torch.zeros((splits, n_kv, G))
+    acc = torch.zeros((splits, n_kv, G, hd))
+    for sp in range(splits):
+        u0, u1, lo = split_unit_range(n, window, splits, sp)
+        if u1 <= u0:
+            continue
+        c = torch.arange(u0 * UNIT, u1 * UNIT)
+        on = (c < T) & live[c.clamp(max=T - 1)]
+        kc = torch.where(on[None, :, None], k[:, c.clamp(max=T - 1)], 0.0)
+        vc = torch.where(on[None, :, None], v[:, c.clamp(max=T - 1)], 0.0)
+        sc = torch.einsum("kgd,ktd->kgt", qf, kc)
+        if softcap > 0:
+            sc = softcap * torch.tanh(sc / softcap)
+        visible = on & (c >= lo)
+        sc = torch.where(visible[None, None, :], sc * log2e, NEG_INF)
+        mm = sc.amax(dim=-1)
+        p = torch.where(sc <= NEG_INF / 2, 0.0,
+                        torch.exp2(sc - mm[..., None]))
+        m[sp], l[sp] = mm, p.sum(dim=-1)
+        acc[sp] = torch.einsum("kgt,ktd->kgd", p, vc)
+    return m, l, acc
+
+
+def merge_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' log-sum-exp merge of partials over dim 0, m in log2
+    units: a part with m at the sentinel weighs 0. Returns the merged
+    ``(m, l, acc)``, still unnormalised."""
+    m_g = m.amax(dim=0)
+    w = torch.where(m <= NEG_INF / 2, 0.0, torch.exp2(m - m_g))
+    return m_g, (l * w).sum(dim=0), (acc * w[..., None]).sum(dim=0)
+
+
+def gather_rows(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[P, n_kv, ps, hd] pages through a [B, mp] table -> [B, n_kv,
+    mp * ps, hd] f32, each row's slots in table order."""
+    B, mp = table.shape
+    n_kv, ps, hd = pages.shape[1:]
+    return (pages[table.long()].permute(0, 2, 1, 3, 4)
+            .reshape(B, n_kv, mp * ps, hd).float())
+
+
 def paged_attention_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor,
                                 page_table: torch.Tensor,
@@ -126,47 +187,24 @@ def paged_attention_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 splits: int = 1) -> torch.Tensor:
     """The split-K kernel's two passes in plain PyTorch, for the CPU tests:
     per split the partial ``(m, l, acc)`` over the units the kernel gives it
-    (base-2 softmax, K/V past ctx zeroed, scores select-masked, p zero on
-    the sentinel; an empty split gives m = NEG_INF, l = 0, acc = 0), then
-    the log-sum-exp merge with l floored at 1e-9."""
+    (``split_partials``: K/V past ctx zeroed), then the log-sum-exp merge
+    with l floored at 1e-9."""
     B, n_q, hd = q.shape
-    n_kv, ps = k_pages.shape[1], k_pages.shape[2]
-    G = n_q // n_kv
+    n_kv = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    log2e = 1.4426950408889634
-    T = page_table.shape[1] * ps
-    idx = page_table.long()
-    k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
-    v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, hd).float()
-    qf = q.float().reshape(B, n_kv, G, hd) * scale
-    m = torch.full((splits, B, n_kv, G), NEG_INF)
-    l = torch.zeros((splits, B, n_kv, G))
-    acc = torch.zeros((splits, B, n_kv, G, hd))
+    k, v = gather_rows(k_pages, page_table), gather_rows(v_pages, page_table)
+    T = k.shape[2]
+    qf = q.float().reshape(B, n_kv, n_q // n_kv, hd) * scale
+    parts = []
     for b in range(B):
         ctx = min(int(context_lens[b]), T)
-        for sp in range(splits):
-            u0, u1, lo_pos = split_unit_range(ctx, window, splits, sp)
-            if u1 <= u0:
-                continue
-            pos = torch.arange(u0 * UNIT, u1 * UNIT)
-            live = (pos < ctx)[None, :, None]
-            kc = torch.where(live, k[b, :, pos.clamp(max=T - 1)], 0.0)
-            vc = torch.where(live, v[b, :, pos.clamp(max=T - 1)], 0.0)
-            sc = torch.einsum("kgd,ktd->kgt", qf[b], kc)
-            if softcap > 0:
-                sc = softcap * torch.tanh(sc / softcap)
-            visible = (pos < ctx) & (pos >= lo_pos)
-            sc = torch.where(visible[None, None, :], sc * log2e, NEG_INF)
-            mm = sc.amax(dim=-1)
-            p = torch.where(sc <= NEG_INF / 2, 0.0,
-                            torch.exp2(sc - mm[..., None]))
-            m[sp, b], l[sp, b] = mm, p.sum(dim=-1)
-            acc[sp, b] = torch.einsum("kgt,ktd->kgd", p, vc)
-    m_g = m.amax(dim=0)
-    w = torch.where(m <= NEG_INF / 2, 0.0, torch.exp2(m - m_g))
-    l_g = (l * w).sum(dim=0).clamp_min(1e-9)
-    out = (acc * w[..., None]).sum(dim=0) / l_g[..., None]
+        parts.append(split_partials(qf[b], k[b], v[b], ctx,
+                                    torch.arange(T) < ctx, splits, window,
+                                    softcap))
+    m, l, acc = (torch.stack(x, dim=1) for x in zip(*parts))
+    _, l_g, acc_g = merge_splits(m, l, acc)
+    out = acc_g / l_g.clamp_min(1e-9)[..., None]
     return out.reshape(B, n_q, hd).to(q.dtype)
 
 
@@ -201,6 +239,27 @@ def _work_space(device: torch.device, stream: int, n_tickets: int,
         scratch = torch.empty(n_scratch, dtype=torch.float32, device=device)
     _work[key] = (tickets, scratch)
     return tickets, scratch
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA tensor's device."""
+    return _sm_count(_device_index(device))
+
+
+def split_work(q: torch.Tensor, n_kv: int, splits: int, stream: int
+               ) -> tuple[int, int]:
+    """Pointers ``(scratch, tickets)`` for a split-K launch of ``q``'s
+    shape [B, n_q, hd] on ``stream``: the f32 partials (acc, then m and l)
+    of every split and one zeroed ticket per (row, KV head); ``(0, 0)``
+    with one split, which touches neither. Shared by kernels 1, 3 and 6:
+    launches on one stream run in order, and each leaves its tickets
+    zero."""
+    if splits == 1:
+        return 0, 0
+    B, n_q, hd = q.shape
+    tickets, scratch = _work_space(q.device, stream, B * n_kv,
+                                   B * n_q * splits * (hd + 2))
+    return scratch.data_ptr(), tickets.data_ptr()
 
 
 def check_cuda_operands(name: str, q: torch.Tensor, k_pages: torch.Tensor,
@@ -273,15 +332,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     max_pages = page_table.shape[1]
-    splits = split_count(B, n_kv, max_pages, ps,
-                         _sm_count(_device_index(q.device)))
+    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    scratch_ptr = tickets_ptr = 0
-    if splits > 1:
-        # Partials (acc, then m and l) of every split, f32.
-        tickets, scratch = _work_space(q.device, stream, B * n_kv,
-                                       B * n_q * splits * (hd + 2))
-        scratch_ptr, tickets_ptr = scratch.data_ptr(), tickets.data_ptr()
+    scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("paged_attention", "paged_attention_launch",
                               _ARGTYPES)
     err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
