@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the result line):
    sweeps and shares of the library's time and of the bound are logged;
    ``scaled_dot_product_attention`` on the K/V already gathered dense), the
    page movers at one hash block (bit for bit; ``index_select`` /
-   ``index_copy_``) and the context-parallel partial per shard at seq 2
+   ``index_copy_``; also on the pool sharded four ways, one launch per
+   call; the copy floor, a contiguous ``copy_`` of the same bytes; the
+   sweep of the bulk route's stages, chunk and blocks per SM) and the
+   context-parallel partial per shard at seq 2
    and 4 (NaN in every page a shard does not own and occupy, a shard that
    owns only a row's last, partial page; the whole CP op against
    single-device attention, and timed against kernel 1);
@@ -46,6 +49,13 @@ Phases (any failure exits non-zero before the result line):
    and a seeded sampled one, run twice on fresh engines; every decode step
    through kernel 6, kernels 1 and 3 idle; one decode step's logits against
    the single-device engine's;
+4d. KV tiers under that seq mesh: phase 4a's round trip on a pool sharded
+   four ways, with hash blocks that straddle shards; both tiers must have
+   been used, the restored pages must equal the evicted ones, A's first
+   token after the onload must equal its first from HBM, a decode step
+   over the restored pages must agree with one over the evicted bytes on
+   one device, and kernels 4, 5 and 6 must have launched, kernel 4 once
+   per offloaded block;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -402,34 +412,87 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
 
 
-def check_page_movers(page_dma):
+def mover_case(page_dma, kv, ids, untouched, block, tag):
+    """Gather and scatter of ``ids`` on pool ``kv`` (a tensor or a
+    ``ShardedPages``) against the plain versions, bit for bit; the pages
+    in ``untouched`` must keep their bits, and each call must be one
+    launch."""
+    full = (lambda t: t.full()) if hasattr(kv, "shards") else (lambda t: t)
+    clone = ((lambda t: type(t)([s.clone() for s in t.shards], t.mesh))
+             if hasattr(kv, "shards") else (lambda t: t.clone()))
+    dtype = block.dtype
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    g0 = page_dma.gather_kv_pages.launches
+    s0 = page_dma.scatter_kv_pages.launches
+    got = page_dma.gather_kv_pages(kv, ids)
+    want = page_dma.gather_kv_pages_plain(kv, ids)
+    pool, ref = clone(kv), clone(kv)
+    page_dma.scatter_kv_pages(pool, ids, block)
+    page_dma.scatter_kv_pages_plain(ref, ids, block)
+    torch.cuda.synchronize()
+    launches = (page_dma.gather_kv_pages.launches - g0,
+                page_dma.scatter_kv_pages.launches - s0)
+    g_ok = torch.equal(got.view(bits), want.view(bits))
+    s_ok = torch.equal(full(pool).view(bits), full(ref).view(bits))
+    kept = torch.equal(full(pool)[:, :, untouched].view(bits),
+                       full(kv)[:, :, untouched].view(bits))
+    log(f"  page movers {tag} {str(dtype)[6:]:8s} block {tuple(want.shape)}: "
+        f"gather bit-identical {g_ok}, scatter bit-identical {s_ok}, other "
+        f"pages untouched {kept}, launches gather/scatter {launches}")
+    assert g_ok and s_ok and kept, "a page mover disagrees with plain"
+    assert launches == (1, 1), "a page mover call took more than one launch"
+
+
+def sweep_movers(page_dma, gather, scatter):
+    """The movers with the bulk route's shape overridden (stages x chunk x
+    blocks per SM, every combination whose ring fits the SM's shared
+    memory), each timed; information only, the timed rows use the
+    module's own shape."""
+    keys = ("STAGES", "CHUNK_BYTES", "BLOCKS_PER_SM")
+    real = {k: getattr(page_dma, k) for k in keys}
+    configs = [(st, ck << 10, bps) for bps in (1, 2) for st in (2, 4, 8)
+               for ck in (4, 8, 16, 32) if bps * st * ck <= 220]
+    out = []
+    try:
+        for cfg in configs:
+            for k, val in zip(keys, cfg):
+                setattr(page_dma, k, val)
+            g_ms, s_ms = time_ms(gather), time_ms(scatter)
+            log(f"  page movers sweep stages={cfg[0]} chunk={cfg[1] >> 10}K "
+                f"blocks/SM={cfg[2]}: gather {g_ms:.4f} ms, scatter "
+                f"{s_ms:.4f} ms")
+            out.append((g_ms + s_ms, cfg))
+    finally:
+        for k, val in real.items():
+            setattr(page_dma, k, val)
+    best = min(out)
+    log(f"  page movers sweep: fastest {best[1]} ({best[0] / 2:.4f} ms "
+        f"mean); shipped {tuple(real.values())}")
+
+
+def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages):
     """Kernels 4-5 against their plain versions at one Llama-3-8B hash block
     ([32, 2, 8, 8, 16, 128]): bit for bit, with NaN in every page they must
-    not touch. Returns (gather row, scatter row)."""
+    not touch, on one pool and on the same pool sharded four ways on one
+    card (the block's eight pages on all four shards), one launch per
+    call. Then times, the bulk route's sweep and the copy floor. Returns
+    (gather row, scatter row)."""
     L, ppb, n_pages = 32, 8, 40
     ids = [17, 3, 29, 8, 35, 1, 22, 12]                  # shuffled, 8 pages
     untouched = [p for p in range(n_pages) if p not in ids]
+    mesh = build_mesh(MeshConfig(seq=4), ["cuda:0"] * 4)
+    assert sorted({p // (n_pages // 4) for p in ids}) == [0, 1, 2, 3]
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(6)
         kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), generator=g,
                          device="cuda").to(dtype)
         kv[:, :, untouched] = float("nan")
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        got = page_dma.gather_kv_pages(kv, ids)
-        want = page_dma.gather_kv_pages_plain(kv, ids)
-        block = torch.randn(want.shape, generator=g, device="cuda").to(dtype)
-        pool, ref = kv.clone(), kv.clone()
-        page_dma.scatter_kv_pages(pool, ids, block)
-        page_dma.scatter_kv_pages_plain(ref, ids, block)
-        torch.cuda.synchronize()
-        g_ok = torch.equal(got.view(bits), want.view(bits))
-        s_ok = torch.equal(pool.view(bits), ref.view(bits))
-        kept = torch.equal(pool[:, :, untouched].view(bits),
-                           kv[:, :, untouched].view(bits))
-        log(f"  page movers {str(dtype)[6:]:8s} block {tuple(want.shape)}: "
-            f"gather bit-identical {g_ok}, scatter bit-identical {s_ok}, "
-            f"other pages untouched {kept}")
-        assert g_ok and s_ok and kept, "a page mover disagrees with plain"
+        block = torch.randn((L, 2, ppb, N_KV, PS, HD), generator=g,
+                            device="cuda").to(dtype)
+        mover_case(page_dma, kv, ids, untouched, block, "pool")
+        sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)],
+                               mesh)
+        mover_case(page_dma, sharded, ids, untouched, block, "4 shards")
 
     # Timing at one bf16 hash block (the offload and onload of one block).
     kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), device="cuda").to(
@@ -440,23 +503,35 @@ def check_page_movers(page_dma):
     # Each byte of the block read once and written once, and the ids.
     nbytes = 2 * block.numel() * 2 + len(ids) * 4
     bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)], mesh)
+    # The copy floor: the card's own contiguous copy of the same 16 MiB (a
+    # yardstick only; the port never calls it).
+    src = torch.empty_like(block)
+    dst = torch.empty_like(block)
+    floor_ms = time_ms(lambda: dst.copy_(src))
     rows = []
-    for name, kernel, plain, lib in (
+    for name, kernel, plain, lib, shard_call in (
             ("gather_kv_pages",
              lambda: page_dma.gather_kv_pages(kv, ids),
              lambda: page_dma.gather_kv_pages_plain(kv, ids_d),
-             lambda: kv.index_select(2, ids_d)),
+             lambda: kv.index_select(2, ids_d),
+             lambda: page_dma.gather_kv_pages(sharded, ids)),
             ("scatter_kv_pages",
              lambda: page_dma.scatter_kv_pages(kv, ids, block),
              lambda: page_dma.scatter_kv_pages_plain(kv, ids_d, block),
-             lambda: kv.index_copy_(2, ids_d, block))):
+             lambda: kv.index_copy_(2, ids_d, block),
+             lambda: page_dma.scatter_kv_pages(sharded, ids, block))):
         ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(lib)
-        log(f"  {name} bf16 block {tuple(block.shape)}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+        shard_ms = time_ms(shard_call)
+        log(f"  {name} bf16 block {tuple(block.shape)}: kernel {ms:.4f} ms "
+            f"(4 shards {shard_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, copy floor {floor_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{nbytes / ms / 1e9:.3f} TB/s)")
+            f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of the bound)")
         rows.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
+    sweep_movers(page_dma, lambda: page_dma.gather_kv_pages(kv, ids),
+                 lambda: page_dma.scatter_kv_pages(kv, ids, block))
     return rows
 
 
@@ -1011,6 +1086,158 @@ def cp_phase(engine_mod, cfg, params, llama, kernels, card):
     return runs[0]
 
 
+# --------------------------------------------------------------- phase 4d
+def restored_decode_check(llama, cfg, params, eng, pages, blocks, token):
+    """One decode step of prompt A at position 1024 two ways: on the
+    engine's sharded pool, whose rows ``pages`` (A's 64) hold blocks
+    restored from the tiers (kernel 6 per shard, then the merge), and on a
+    single-device pool filled with ``blocks``, the bytes gathered before
+    the eviction (kernel 1). They must agree within PREFILL_REL_TOL of max
+    |logit|."""
+    mcfg = cfg.model
+    i32 = dict(dtype=torch.int32, device=eng.device)
+    n = len(pages)
+    extra = eng.page_mgr.allocate(1)             # the new token's page
+    tok = torch.tensor([token], **i32)
+    pos = torch.tensor([n * cfg.page_size], **i32)
+    cp_logits = llama.decode_forward(
+        params, mcfg, tok, pos, eng.kv_pages,
+        torch.tensor([pages + extra], **i32), pos + 1)[0]
+    single = torch.zeros((*blocks[0].shape[:2], n + 2, *blocks[0].shape[3:]),
+                         dtype=mcfg.dtype, device=eng.device)
+    single[:, :, 1:n + 1] = torch.cat(blocks, dim=2)
+    one_logits = llama.decode_forward(
+        params, mcfg, tok, pos, single,
+        torch.arange(1, n + 2, **i32)[None], pos + 1)[0]
+    scale = one_logits.abs().max().item()
+    err = (one_logits - cp_logits).abs().max().item()
+    log(f"  logits of the decode step after A's prompt, restored sharded "
+        f"pool vs the evicted bytes on one device: max_abs_err={err:.4g}, "
+        f"max|logit|={scale:.4g} (tol {PREFILL_REL_TOL} x max|logit|), "
+        f"argmax {int(one_logits.argmax())} vs {int(cp_logits.argmax())}")
+    assert torch.isfinite(cp_logits).all()
+    assert err <= PREFILL_REL_TOL * scale, "decode over restored pages drifted"
+
+
+def tier_cp_phase(engine_mod, cfg, params, llama, page_dma, partial,
+                  devices, card):
+    """Phase 4a's round trip on a pool sharded four ways over a seq mesh
+    (``devices``, four of them): prompt A (1024 tokens, 8 hash blocks)
+    served from HBM, evicted into a DRAM arena of four blocks and an SSD
+    file by two unrelated prompts, served again from the tiers.
+
+    136 pages (34 a shard): A's 65 and U1's 64 fit with 6 to spare, and
+    U2 evicts A's eight blocks in phase 4a's order (blocks 4-7 first, so
+    they are demoted to SSD when 0-3 fill the arena). A's block 4 lies on
+    pages 33-40, across shards 0 and 1, and the onload walk restores
+    blocks across shards too (the phase logs each block's shards): one
+    launch moves pages of two shards.
+
+    Checks: the restored pages equal the evicted ones bit for bit; A's
+    first token after the onload (the prefill behind the restored prefix,
+    whose pages are gathered in table order) equals its first token from
+    HBM; a decode step over the restored sharded pages agrees with one
+    over the evicted bytes on one device (``restored_decode_check``). The
+    later tokens are compared for information only: each decode step sums
+    every shard's partial, and the restored pages lie on other shards than
+    before, so the f32 sums run in another order and random bf16 weights
+    give near-ties. Returns the gather and scatter launch counts."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.hashing import prefix_block_hashes
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    hbs = cfg.hash_block_size
+    rng = np.random.default_rng(13)
+    V = cfg.model.vocab_size
+    prompt_a = rng.integers(3, V, size=8 * hbs).tolist()
+    m = cfg.model
+    blk = (m.num_layers * 2 * hbs * m.num_kv_heads * m.head_dim
+           * torch.empty((), dtype=m.dtype).element_size())
+    tcfg = replace(cfg, num_pages=136, kv_tier_dram_bytes=4 * blk,
+                   kv_tier_ssd_bytes=16 * blk, kv_tier_threads=1)
+    mesh = build_mesh(MeshConfig(seq=4), devices)
+    eng = engine_mod.InferenceEngine(tcfg, params=params, mesh=mesh)
+    store = eng.tier_store
+    P_loc = eng.kv_pages.pages_per_shard
+    assert store is not None and P_loc == 34
+    log(f"  mesh seq=4 on {[str(d) for d in mesh.devices]}, {P_loc} pages a "
+        "shard; DRAM arena 4 blocks, SSD file 16 blocks, one tier worker")
+    hashes = [h.hex() for h in prefix_block_hashes(prompt_a, hbs)]
+    reset_counts()
+    eng.start()
+    try:
+        serve_one(eng, engine_mod, "A0", prompt_a)
+        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a)        # HBM hit
+        before, spans = {}, []
+        for h in hashes[:7]:
+            pages = eng.page_mgr.match_block(h)
+            spans.append(sorted({p // P_loc for p in pages}))
+            before[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
+            eng.page_mgr.release_prefix([h])
+        serve_one(eng, engine_mod, "A-half",
+                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist())
+        t0 = time.monotonic()
+        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist())
+        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist())
+        wait_for(lambda: all(store.ready(h) for h in hashes),
+                 "A's blocks in the tiers")
+        t_off = time.monotonic() - t0
+        st0 = store.stats()
+        tiers = [store.tier_of(h) for h in hashes]
+        log(f"  A's blocks on shards {spans} (blocks 0-6); after eviction in "
+            f"tiers {tiers}")
+        t0 = time.monotonic()
+        t_tier = serve_one(eng, engine_mod, "A2", prompt_a)      # tiers
+        t_on = time.monotonic() - t0
+        launches = (page_dma.gather_kv_pages.launches,
+                    page_dma.scatter_kv_pages.launches, partial.launches)
+        wait_for(lambda: not store._pending, "the tier pump settling")
+        st = store.stats()
+        ev = eng.drain_kv_events()
+        after, spans, rows = {}, [], []
+        for h in hashes:
+            pages = eng.page_mgr.match_block(h)
+            assert pages is not None, "an onloaded block is not in HBM"
+            spans.append(sorted({p // P_loc for p in pages}))
+            after[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
+            rows += pages
+    finally:
+        eng.stop()
+    same = all(torch.equal(before[h].view(torch.int16),
+                           after[h].view(torch.int16)) for h in before)
+    restored_decode_check(llama, cfg, params, eng, rows,
+                          [before[h] for h in hashes[:7]] + [after[hashes[7]]],
+                          t_tier[0])
+    del eng
+    torch.cuda.empty_cache()
+    agree = [a == b for a, b in zip(t_hbm, t_tier)]
+    log(f"  restored on shards {spans}; tier stats {st}; events stored "
+        f"{len(ev.stored)} offloaded {len(ev.offloaded)} removed "
+        f"{len(ev.removed)}; launches gather/scatter/partial {launches}")
+    log(f"  A's first token from HBM and from the tiers equal: "
+        f"{t_hbm[0] == t_tier[0]}; restored pages bit-identical to the "
+        f"evicted ones: {same}; decode tokens equal {sum(agree)}/{len(agree)}"
+        f" (information only), first difference at "
+        f"{agree.index(False) if not all(agree) else None}")
+    mb = 1 << 20
+    log(f"  offload {st0['bytes_offloaded'] / mb:.0f} MiB in {t_off:.2f} s "
+        f"({st0['bytes_offloaded'] / mb / t_off:.0f} MiB/s, two 1024-token "
+        f"requests included); onload {st['bytes_onloaded'] / mb:.0f} MiB "
+        f"within A's second request of {t_on:.2f} s "
+        f"({st['bytes_onloaded'] / mb / t_on:.0f} MiB/s, prefill and decode "
+        f"included); information only, {card}")
+    assert t_tier[0] == t_hbm[0], "the first token after the onload differs"
+    assert same, "restored pages differ from the evicted ones"
+    assert "dram" in tiers and "ssd" in tiers, "not both tiers were used"
+    assert st["onload_total"] >= 7 and st["demote_total"] >= 1
+    assert ev.offloaded, "no offloaded events were drained"
+    assert launches[0] == st["offload_total"], \
+        "not one gather launch per offloaded block"
+    assert launches[1] > 0 and launches[2] > 0, "kernel 5 or 6 never ran"
+    return launches[:2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1071,7 +1298,8 @@ def main() -> int:
     k3 = check_fused_kernel(fused_decode_attention,
                             fused_decode_attention_plain, split_count,
                             _build.kernel_fn)
-    k4, k5 = check_page_movers(page_dma)
+    k4, k5 = check_page_movers(page_dma, build_mesh, MeshConfig,
+                               cp.ShardedPages)
     k6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
                          build_mesh, MeshConfig, _build.kernel_fn)
 
@@ -1143,6 +1371,13 @@ def main() -> int:
         engine_mod, cfg, params, llama,
         (cp.paged_partial, paged_attention, mq_paged_attention,
          fused_decode_attention), card)
+
+    # Phase 4d: KV tiers under the seq mesh.
+    log("[4d] KV tiers on a seq=4 mesh: HBM -> DRAM -> SSD and back, "
+        "llama3-8b")
+    count = torch.cuda.device_count()
+    tier_cp_phase(engine_mod, cfg, params, llama, page_dma, cp.paged_partial,
+                  [torch.device("cuda", i % count) for i in range(4)], card)
 
     # Phase 5: the kernels line, the card line, the result.
     rows = []

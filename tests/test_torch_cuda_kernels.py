@@ -386,6 +386,99 @@ def test_page_movers_match_plain(dev, dtype, shape):
             page_dma.scatter_kv_pages.launches) == (g0 + 1, s0 + 1)
 
 
+def _mover_pool(dev, dtype, shape, ids, seed):
+    """A pool with NaN in every page outside ``ids``, and a block."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randn(shape, generator=g, device=dev).to(dtype)
+    kv[:, :, [p for p in range(shape[2]) if p not in ids]] = float("nan")
+    block = torch.randn((*shape[:2], len(ids), *shape[3:]), generator=g,
+                        device=dev).to(dtype)
+    return kv, block
+
+
+def _check_movers(kv, pool_of, full_of, ids, block, launches):
+    """Gather and scatter on ``pool_of(kv)`` against the plain versions,
+    bit for bit, each call ``launches`` launches."""
+    bits = {2: torch.int16, 4: torch.int32}[kv.element_size()]
+    g0, s0 = page_dma.gather_kv_pages.launches, \
+        page_dma.scatter_kv_pages.launches
+    got = page_dma.gather_kv_pages(pool_of(kv), ids)
+    assert torch.equal(got.view(bits), page_dma.gather_kv_pages_plain(
+        kv, ids).view(bits))
+    pool, ref = pool_of(kv), kv.clone()
+    page_dma.scatter_kv_pages(pool, ids, block)
+    page_dma.scatter_kv_pages_plain(ref, ids, block)
+    torch.cuda.synchronize()
+    assert torch.equal(full_of(pool).view(bits), ref.view(bits))
+    assert (page_dma.gather_kv_pages.launches - g0,
+            page_dma.scatter_kv_pages.launches - s0) == (launches, launches)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (4, 2, 20, 8, 16, 128)),    # Llama-3-8B page rows
+    (torch.float32, (2, 2, 12, 2, 16, 32)),
+    (torch.bfloat16, (2, 2, 8, 1, 1, 3)),        # 6-byte rows: byte loop
+])
+def test_sharded_page_movers_one_launch(dev, dtype, shape):
+    """Four shards on one card (the seq mesh of one card): one launch per
+    call whatever the block's spread, bit-identical to plain."""
+    P = shape[2]
+    ids = [P - 1, 1, P // 4, P // 2 + 1]           # all four shards
+    kv, block = _mover_pool(dev, dtype, shape, ids, seed=8)
+    mesh = build_mesh(MeshConfig(seq=4), [dev] * 4)
+
+    def shard(t):
+        return cp.ShardedPages([c.contiguous() for c in t.chunk(4, dim=2)],
+                               mesh)
+
+    _check_movers(kv, shard, lambda p: p.full(), ids, block, 1)
+
+
+@pytest.mark.parametrize("stages,chunk,per_sm", [
+    (2, 16, 1), (2, 48, 2), (3, 4096, 1), (8, 1 << 10, 4), (4, 16 << 10, 2)])
+def test_page_movers_any_ring_shape(dev, monkeypatch, stages, chunk, per_sm):
+    """The bulk route's ring at shapes off the shipped one: chunks that do
+    not divide a row (48 bytes into 4096), the fewest stages, more stages
+    than a block has units."""
+    for name, val in (("STAGES", stages), ("CHUNK_BYTES", chunk),
+                      ("BLOCKS_PER_SM", per_sm)):
+        monkeypatch.setattr(page_dma, name, val)
+    ids = [6, 0, 3, 9, 1]
+    kv, block = _mover_pool(dev, torch.float32, (3, 2, 11, 2, 16, 32), ids,
+                            seed=9)
+    _check_movers(kv, torch.Tensor.clone, lambda p: p, ids, block, 1)
+
+
+def test_page_movers_split_past_the_slot_limit(dev):
+    """More pages than one launch's table holds: one launch per full
+    table, still bit-identical."""
+    P = 700
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
+    ids = (ids[:600] + 1).tolist()
+    kv, block = _mover_pool(dev, torch.bfloat16, (1, 2, P, 1, 2, 8), ids,
+                            seed=10)
+    _check_movers(kv, torch.Tensor.clone, lambda p: p, ids, block, 3)
+
+
+def test_sharded_page_movers_on_four_cards(dev):
+    """One shard per card: a launch on each card that holds pages of the
+    block; the gather assembles the block on the first card, the scatter
+    sends each card its slots."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    devs = [torch.device("cuda", i) for i in range(4)]
+    ids = [22, 1, 7, 13, 18, 2]
+    kv, block = _mover_pool(dev, torch.bfloat16, (4, 2, 24, 8, 16, 128), ids,
+                            seed=11)
+    mesh = build_mesh(MeshConfig(seq=4), devs)
+
+    def shard(t):
+        return cp.ShardedPages([c.to(d).contiguous() for c, d in
+                                zip(t.chunk(4, dim=2), devs)], mesh)
+
+    _check_movers(kv, shard, lambda p: p.full(), ids, block, 4)
+
+
 def test_page_movers_refuse_device_ids_and_foreign_blocks(dev):
     kv = torch.zeros((1, 2, 4, 1, 2, 8), device=dev)
     with pytest.raises(ValueError, match="host"):
@@ -445,6 +538,90 @@ def test_engine_tier_round_trip_on_the_card(dev):
         assert page_dma.scatter_kv_pages.launches > s0
     finally:
         eng.stop()
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_engine_tiers_under_a_seq_mesh_on_the_card(dev, cards):
+    """tests/test_torch_tier_seq_parallel.py's round trip (DRAM+SSD case)
+    on a seq=4 mesh of one card (four shards on it) or of four cards: A's
+    blocks straddle shards 0 and 1 when evicted and come back bit for bit;
+    the first token after the onload equals the first one from HBM; the
+    movers' launches as the launch plan gives them, kernel 6 launched."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    from xllm_service_tpu_torch.common.hashing import prefix_block_hashes
+    from xllm_service_tpu_torch.common.request import SamplingParams
+    from xllm_service_tpu_torch.engine import (
+        EngineConfig,
+        EngineRequest,
+        InferenceEngine,
+    )
+    from xllm_service_tpu_torch.models.base import tiny_config
+
+    devs = [torch.device("cuda", i % cards) for i in range(4)]
+    blk = 2 * 2 * 2 * 2 * 16 * 32 * 4
+    eng = InferenceEngine(EngineConfig(
+        model=tiny_config(dtype=torch.float32, max_context_len=256),
+        num_pages=12, page_size=16, hash_block_size=32, max_batch_size=2,
+        max_seq_len=256, kv_tier_dram_bytes=blk, kv_tier_ssd_bytes=4 * blk,
+        kv_tier_threads=1), mesh=build_mesh(MeshConfig(seq=4), devs))
+
+    def run(rid, prompt, n=6):
+        toks, done = [], threading.Event()
+
+        def on_output(out):
+            for s in out.outputs:
+                toks.extend(s.token_ids)
+            if out.finished:
+                done.set()
+
+        eng.submit(EngineRequest(rid, token_ids=prompt, on_output=on_output,
+                                 sampling=SamplingParams(
+                                     max_tokens=n, temperature=0.0,
+                                     ignore_eos=True)))
+        while not done.is_set():
+            eng.step()
+        return toks
+
+    rng = np.random.default_rng(5)
+    prompt_a = rng.integers(3, 250, size=96).tolist()
+    hashes = [h.hex() for h in prefix_block_hashes(prompt_a, 32)][:2]
+    store = eng.tier_store
+    counts = (page_dma.gather_kv_pages, page_dma.scatter_kv_pages,
+              cp.paged_partial)
+    before_counts = [f.launches for f in counts]
+    try:
+        run("w", list(range(300, 316)), n=17)
+        first = run("a1", prompt_a)
+        pages = [eng.page_mgr._blocks[h].pages for h in hashes]
+        assert pages == [[3, 2], [1, 4]]          # across shards 0 and 1
+        before = [page_dma.gather_kv_pages_plain(eng.kv_pages, p)
+                  for p in pages]
+        run("u1", rng.integers(250, 500, size=90).tolist(), n=24)
+        t0 = time.monotonic()
+        while not all(store.ready(h) for h in hashes):
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.01)
+        assert [store.tier_of(h) for h in hashes] == ["ssd", "dram"]
+        again = run("a2", prompt_a)
+        while store._pending:
+            time.sleep(0.01)
+        after = [page_dma.gather_kv_pages_plain(
+            eng.kv_pages, eng.page_mgr._blocks[h].pages) for h in hashes]
+        launches = [f.launches - b for f, b in zip(counts, before_counts)]
+        st = store.stats()
+    finally:
+        eng.stop()
+    assert again[0] == first[0]
+    for want, got in zip(before, after):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert st["onload_total"] == 2 and st["demote_total"] == 1
+    # Per offloaded block one launch on one card; on four, one per card
+    # holding its pages ([3, 2], [1, 4] and [5, 6]: two cards each). The
+    # restored blocks lie on one shard each.
+    assert st["offload_total"] == 3
+    assert launches[0] == (3 if cards == 1 else 6)
+    assert launches[1] == 2 and launches[2] > 0
 
 
 # ----------------------------------------- kernel 6: context-parallel partial

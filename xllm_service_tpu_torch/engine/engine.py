@@ -26,7 +26,9 @@
   stream before any later kernel can reuse their pages, downloaded to a
   host arena off-thread, spilled to an SSD file when the arena is full,
   and restored (kernel ``scatter_kv_pages``) ahead of the prefill of a
-  prefix-matching admission.
+  prefix-matching admission. Under a seq mesh a block's pages may lie on
+  several shards; the movers take the sharded pool whole (one launch per
+  device) and the block lives on the mesh's first device.
 - **Context parallelism** (a mesh whose ``seq`` axis is n > 1): the KV
   pool is n shard tensors ``[L, 2, P/n, n_kv, ps, hd]``, one per device of
   the axis (``ShardedPages``); the dense model computes on the mesh's first
@@ -37,8 +39,7 @@
 
 Not in this port yet: speculation, chunked prefill, the mixed
 decode+chunk step, PD injection/handoff, multimodal input, mesh axes other
-than ``seq``, KV tiers under a seq mesh, offline preemption and the
-pipelined dispatch-before-fetch.
+than ``seq``, offline preemption and the pipelined dispatch-before-fetch.
 """
 
 from __future__ import annotations
@@ -128,11 +129,6 @@ class InferenceEngine:
                              else resolve_device(device))
         # Context parallelism: size of the mesh's seq axis (1 = off).
         self.seq_parallel = mesh.shape[AXIS_SEQ] if mesh is not None else 1
-        if self.seq_parallel > 1 and cfg.kv_tier_dram_bytes > 0:
-            raise ValueError(
-                "KV tiers under a seq mesh are not ported yet (ROADMAP "
-                "queue 1 item 15): moving a hash block whose pages span "
-                "shards through the page movers is left for later")
         if self.seq_parallel > 1 and cfg.num_pages % self.seq_parallel:
             raise ValueError("num_pages must divide by the seq-axis size for "
                              "context-parallel decode")
@@ -190,7 +186,7 @@ class InferenceEngine:
         if wide:
             raise NotImplementedError(
                 f"mesh axes {wide} > 1: tensor, expert, data and pipe "
-                "parallelism are not ported yet (ROADMAP queue 1 item 14)")
+                "parallelism are not ported yet (ROADMAP queue 1 item 11)")
         if device is not None:
             want, first = torch.device(device), mesh.devices[0]
             if want.type != first.type or want.index not in (None,
@@ -431,8 +427,10 @@ class InferenceEngine:
     def _tier_gather(self, pages: list[int]):
         """Gather one hash block's pages into a NEW tensor for offload, on
         the engine's stream (so before any later kernel that reuses the
-        pages). On CUDA it returns (block, event recorded after the
-        gather) for :meth:`_tier_download`."""
+        pages; under a seq mesh the block is on the mesh's first device and
+        a remote shard's pages reach it on that device's stream). On CUDA
+        it returns (block, event recorded after the gather) for
+        :meth:`_tier_download`."""
         block = gather_kv_pages(self.kv_pages, pages)
         if self._tier_stream is None:
             return block
@@ -511,6 +509,8 @@ class InferenceEngine:
             if not self.page_mgr.install_block(hx, pages):
                 self.page_mgr.free(pages)
                 break
+            # Upload and scatter on the first device's stream; a remote
+            # shard's slots follow the upload onto its own device's stream.
             scatter_kv_pages(self.kv_pages, pages,
                              arr.to(self.device, non_blocking=True))
             cached_hashes.append(hx)
