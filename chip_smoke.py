@@ -32,23 +32,25 @@ Phases (any failure exits non-zero before the result line):
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
    submitted after its prefill) and one seeded sampled request, run twice
-   on fresh engines; checks lengths, determinism, prefix hits, kernel
-   launches, and one prompt's logits by the cold, cached-prefix and decode
-   routes;
+   on fresh engines; every decode step after a variant's first is a replay
+   of the engine's captured step (``engine/decode_graph.py``), and the
+   launch counts include the replays; checks lengths, determinism, prefix
+   hits, kernel launches, the replays, and one prompt's logits by the
+   cold, cached-prefix and decode routes;
 4a. KV tiers at the same width: a 1024-token prompt served from HBM, its
    blocks evicted into a DRAM arena of four blocks and an SSD spill file,
    then served again from the tiers; the tokens must match, both tiers
    must have onloaded, and the restored pages must equal the evicted ones;
 4b. the fused decode writeback (``XLLM_KV_WRITEBACK=fused``): phase 4's
-   batch served twice through the fused kernel, with kernel 1 idle, and the
-   decode-step logits checked again;
+   batch served twice through the fused kernel (replayed in the captured
+   step), with kernel 1 idle, and the decode-step logits checked again;
 4c. context-parallel serving at the same width and depth: the KV pool
    sharded four ways over a ``seq`` mesh (on one card, ``cuda:0`` four
    times); a long prefix-free prompt (ring prefill), a short one, one
    sharing the long one's first 512 tokens (a prefix hit through kernel 2)
    and a seeded sampled one, run twice on fresh engines; every decode step
    through kernel 6, kernels 1 and 3 idle; one decode step's logits against
-   the single-device engine's;
+   the single-device engine's (the step stays eager under the mesh);
 4d. KV tiers under that seq mesh: phase 4a's round trip on a pool sharded
    four ways, with hash blocks that straddle shards; both tiers must have
    been used, the restored pages must equal the evicted ones, A's first
@@ -56,6 +58,15 @@ Phases (any failure exits non-zero before the result line):
    over the restored pages must agree with one over the evicted bytes on
    one device, and kernels 4, 5 and 6 must have launched, kernel 4 once
    per offloaded block;
+4e. the decode step's host path: from the same state at full width, one
+   replay of the captured step and the same step run op by op must agree
+   bit for bit (packed rows, KV pool, slot state; greedy, seeded sampled
+   and logprob rows, on both writeback routes); then the bench twin
+   (``xllm_service_tpu_torch/bench.py``, Llama-3-8B, B 16, ctx 512,
+   horizon 32) and the decode-profile twin
+   (``xllm_service_tpu_torch/benchmarks/decode_profile.py``): tok/s and
+   pct_roofline, eager and graphed ``full_step_ms``, kernels per step and
+   the device's busy share from a ``torch.profiler`` trace;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -64,9 +75,9 @@ It needs one card; without CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -94,14 +105,6 @@ N_Q, N_KV, HD, PS, B, MAX_PAGES = 32, 8, 128, 16, 8, 128
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------- helpers
@@ -783,8 +786,20 @@ def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
     toks = {n: c.tokens for n, c in cols.items()}
     reasons = {n: c.reason for n, c in cols.items()}
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return toks, reasons, stats, ttft, sum(map(len, toks.values())) / wall
+
+
+def check_replays(stats, name):
+    """The run decoded through the captured step: a variant is captured at
+    its first use (greedy; with a sampled request, sampling), every later
+    step is a replay."""
+    graph = stats["decode_graph"]
+    log(f"  {name}: decode graph captures {graph['captures']}, replays "
+        f"{graph['replays']}")
+    assert 1 <= graph["captures"] <= 4, "unexpected captures"
+    assert graph["replays"] > 10 * graph["captures"], "few replays"
 
 
 def check_logits(llama, cfg, params, prompt, prefix):
@@ -973,6 +988,7 @@ def fused_phase(engine_mod, cfg, params, prompts, shared, sampled_prompt,
                     f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
             assert launches[0] > 0, "the fused kernel never launched"
             assert launches[1] == 0, "kernel 1 launched under fused mode"
+            check_replays(stats, f"fused run {r}")
             runs.append((toks, launches))
         assert runs[0][0] == runs[1][0], "two fused runs differ"
         log("  both fused runs gave identical tokens for all 11 requests")
@@ -1067,6 +1083,7 @@ def cp_phase(engine_mod, cfg, params, llama, kernels, card):
             assert len(tk) == 64 and reasons[name] == "length", \
                 f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
         assert launches["partial"] > 0, "kernel 6 never launched"
+        assert "decode_graph" not in stats, "a graph under the seq mesh"
         assert launches["decode"] == 0 and launches["fused"] == 0, \
             "kernel 1 or 3 launched under the seq mesh"
         assert launches["mq"] > 0, "the prefix hit did not take kernel 2"
@@ -1238,6 +1255,125 @@ def tier_cp_phase(engine_mod, cfg, params, llama, page_dma, partial,
     return launches[:2]
 
 
+# --------------------------------------------------------------- phase 4e
+def graph_step_check(engine_mod, cfg, params):
+    """From one state at full width, the captured step's replay and the
+    same step run op by op must agree bit for bit: the packed rows, the KV
+    pool and the slot state, for greedy rows, seeded sampled rows and
+    logprob rows, on both writeback routes. Every slot is busy (an idle
+    slot's write to the garbage page races the others' in either run)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    B_ = cfg.max_batch_size
+    gcfg = replace(cfg, num_pages=B_ * 24 + 8)
+    rng = np.random.default_rng(5)
+    V = cfg.model.vocab_size
+    cases = [("default", False, False), ("default", False, True),
+             ("default", True, True), ("fused", False, True)]
+    for route, want_lp, sample in cases:
+        if route == "fused":
+            os.environ["XLLM_KV_WRITEBACK"] = "fused"
+        try:
+            eng = engine_mod.InferenceEngine(gcfg, params=params)
+            for i in range(B_):
+                sp = (dict(temperature=0.8, top_p=0.9, seed=100 + i)
+                      if sample and i % 2 else dict(temperature=0.0))
+                eng.submit(engine_mod.EngineRequest(
+                    f"c{i}", token_ids=rng.integers(3, V, 200).tolist(),
+                    sampling=SamplingParams(max_tokens=100, ignore_eos=True,
+                                            logprobs=want_lp, **sp)))
+            eng._admit()
+            assert len(eng._running) == B_
+            st = [eng._row, eng.kv_pages, eng._last, eng._clens,
+                  eng._active, eng._st.token_counts]
+
+            def restore(snap):
+                for t_, v in zip(st, snap):
+                    t_.copy_(v)
+                for b, g in enumerate(eng._gens):
+                    g.manual_seed(1000 + b)
+
+            snap = [t_.clone() for t_ in st]
+            restore(snap)
+            eng._decode_step(want_lp, sample)
+            eager = [t_.clone() for t_ in st]
+            same = []
+            # The first step of the variant (warm-up, capture, replay),
+            # then a plain replay, each from the same state.
+            for _ in range(2):
+                restore(snap)
+                eng._graphs.run(want_lp, sample)
+                torch.cuda.synchronize()
+                same.append([torch.equal(a.view(torch.uint8),
+                                         b.view(torch.uint8))
+                             if a.is_floating_point() else torch.equal(a, b)
+                             for a, b in zip(eager, st)])
+            toks = eager[0][:, 0].long().tolist()
+            log(f"  {route}, logprobs {want_lp}, sampled rows {sample}: "
+                f"eager == graphed bit for bit (row, pool, last, clens, "
+                f"active, counts; first replay, second) {same}; tokens "
+                f"{toks}")
+            assert all(map(all, same)), \
+                "the replayed step differs from the eager one"
+            assert eng._graphs.captures == 1 and eng._graphs.replays == 2
+            assert torch.equal(st[3], snap[3] + 1), "a row did not advance"
+            eng.stop()
+            del eng, st, snap, eager
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.environ.pop("XLLM_KV_WRITEBACK", None)
+
+
+def twins_phase(params, card):
+    """The two benchmark twins at Llama-3-8B on the card (the weights are
+    the smoke's own, which are the twins' seed-0 weights)."""
+    from xllm_service_tpu_torch import bench
+    from xllm_service_tpu_torch.benchmarks import decode_profile
+
+    os.environ["XLLM_BENCH_MODEL"] = "8b"
+    try:
+        t = time.monotonic()
+        b = bench.run("cuda", params=params)
+        log(f"  bench twin (8b, B {b['batch']}, ctx {b['ctx']}, horizon "
+            f"{b['decode_horizon']}): {b['value']:.1f} tok/s, pct_roofline "
+            f"{b['pct_roofline']:.2f}, {b['ms_per_token_step']:.3f} ms a "
+            f"token-step, {time.monotonic() - t:.1f} s; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        prof = decode_profile.run("cuda", params=params, iters=10,
+                                  trace_steps=8)
+        log(f"  profile twin (8b): full_step_ms eager "
+            f"{prof['full_step_ms']:.3f}, graphed "
+            f"{prof['full_step_graphed_ms']:.3f}; forward "
+            f"{prof['forward_only_ms']:.3f}, attention "
+            f"{prof['attention_only_ms']:.3f}, sampling "
+            f"{prof['sampling_only_ms']:.3f}; ideal weight stream "
+            f"{prof['ideal_weight_stream_ms']:.3f} ms; "
+            f"{time.monotonic() - t:.1f} s; {card}")
+        for name in ("trace", "trace_graphed"):
+            tr = prof[name]
+            log(f"  {name}: kernels/step {tr['kernels_per_step']}, busy "
+                f"share {tr['busy_share']}, device busy ms/step "
+                f"{tr['device_busy_ms_per_step']}, host ms/step "
+                f"{tr['host_ms_per_step']:.3f} (/layer "
+                f"{tr['host_ms_per_layer']:.4f}), matrix products' share "
+                f"{tr['gemm_share_of_device_time']}")
+        log(f"  engine loop per step (host, untraced): {prof['engine_loop']}")
+        log("  bench " + json.dumps(b))
+        log("  profile " + json.dumps(prof))
+        assert b["value"] > 0 and b["tokens"] > 0
+        assert prof["full_step_graphed_ms"] < prof["full_step_ms"], \
+            "the graphed step is not faster than the eager one"
+    finally:
+        del os.environ["XLLM_BENCH_MODEL"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1246,6 +1382,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from xllm_service_tpu_torch.common.device import card_line
     from xllm_service_tpu_torch.engine import EngineConfig
     from xllm_service_tpu_torch.engine import engine as engine_mod
     from xllm_service_tpu_torch.models import llama
@@ -1272,7 +1409,7 @@ def main() -> int:
                             page_dma.scatter_kv_pages, cp.paged_partial])
 
     # Phase 1: environment.
-    card = smi_line()
+    card = card_line()
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} | {card} | "
         f"devices {torch.cuda.device_count()}")
@@ -1347,6 +1484,7 @@ def main() -> int:
         assert stats["prefix_hits"] >= 2 and \
             stats["prefix_hit_tokens"] >= 2 * 512, "no prefix hits"
         assert launches[0] > 0 and launches[1] > 0, "a kernel never launched"
+        check_replays(stats, f"run {r}")
         runs.append((toks, launches))
     assert runs[0][0] == runs[1][0], "two runs of the same batch differ"
     log("  both runs gave identical tokens for all 11 requests")
@@ -1378,6 +1516,12 @@ def main() -> int:
     count = torch.cuda.device_count()
     tier_cp_phase(engine_mod, cfg, params, llama, page_dma, cp.paged_partial,
                   [torch.device("cuda", i % count) for i in range(4)], card)
+
+    # Phase 4e: the decode step's host path.
+    log("[4e] the captured decode step against the eager one; the bench "
+        "and decode-profile twins, llama3-8b")
+    graph_step_check(engine_mod, cfg, params)
+    twins_phase(params, card)
 
     # Phase 5: the kernels line, the card line, the result.
     rows = []

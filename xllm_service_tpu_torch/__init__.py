@@ -11,8 +11,10 @@ Layout mirrors the reference so each module's counterpart is easy to find:
 - ``engine/``: ``InferenceEngine`` (continuous batching over a paged KV
   pool), ``EngineConfig``, the page manager and batched sampling;
 - ``models/``: the dense Llama-3 forwards over the paged pool;
-- ``ops/``: plain PyTorch attention ops, and the wrappers of the two
-  hand-written CUDA kernels (``csrc/``) that carry paged attention.
+- ``ops/``: plain PyTorch attention ops, and the wrappers of the
+  hand-written CUDA kernels (``csrc/``);
+- ``bench.py`` and ``benchmarks/``: twins of the repository's ``bench.py``
+  and ``benchmarks/decode_profile.py``, run with ``python -m``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -19,3 +19,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a
+    card below its maximum power runs slower under load, so every timing
+    is reported beside this line)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

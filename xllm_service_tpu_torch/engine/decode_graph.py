@@ -1,0 +1,122 @@
+"""The fixed-batch decode step as a CUDA graph: the port's counterpart of
+the reference's one-jit decode horizon
+(``xllm_service_tpu/engine/engine.py``, ``decode_multi``: a ``lax.scan``
+of the step inside one donated ``jax.jit``).
+
+The engine's step (``decode_forward``, ``sample_tokens``,
+``record_tokens``, the device-side stop and budget update, the row pack)
+reads and writes only tensors the engine allocates once and updates in
+place, so one captured step replays on the live state: a horizon of H
+steps is H replays, each followed by the copy of the step's row into the
+horizon's buffer. A replay costs the host one launch instead of one per op
+of every layer.
+
+Variants are keyed by what the host already knows: whether any running
+slot wants logprobs (the top-K pack) and whether any samples (the per-slot
+generators' draws). Capture is lazy. At a variant's first use a warm-up
+step runs on the capture stream: it builds every kernel library, the
+split-K work space and cuBLAS's work space on the stream the graph records
+(so the graph holds pointers that outlive it) and fills rope's cache. The
+warm-up is then undone: the state it advanced (``state``: last tokens,
+lengths, active flags, the penalty histogram) is copied back and the
+generators' states restored; its K/V writes need no undoing, since the
+step writes the same rows at the same positions again. The step is
+captured, and every step of the variant, the first included, is a replay
+of that graph, kept for the engine's life. A sampling variant registers
+the engine's per-slot generators, so each replay draws from each slot's
+generator where an eager call would; a generator re-seeded between
+replays starts its stream afresh.
+
+Launch counts: the kernel wrappers count launches in Python (``.launches``),
+which a replay does not run. The runner records each counter's increase
+while the step is captured, takes it back (capture executes nothing), and
+adds it again at every replay, so a counter still says how many times its
+kernel ran (the warm-up's launches included).
+
+A capture that fails raises; nothing here falls back to the eager step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from ..ops.cp_paged_attention import paged_partial
+from ..ops.fused_decode_attention import fused_decode_attention
+from ..ops.mq_paged_attention import mq_paged_attention
+from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
+from ..ops.paged_attention import paged_attention
+
+# Every kernel wrapper with a launch count.
+KERNEL_COUNTERS = (paged_attention, fused_decode_attention,
+                   mq_paged_attention, gather_kv_pages, scatter_kv_pages,
+                   paged_partial)
+
+
+class DecodeGraphs:
+    """Captured decode steps of one engine on one CUDA device.
+
+    ``step(want_lp, sample)`` runs one decode step in place on the
+    engine's state; ``state`` are the tensors it advances (apart from the
+    K/V pool); ``generators`` are the per-slot generators a sampling step
+    draws from."""
+
+    def __init__(self, step: Callable[[bool, bool], None],
+                 state: Sequence[torch.Tensor],
+                 generators: Sequence[torch.Generator],
+                 device: torch.device):
+        self._step = step
+        self._state = list(state)
+        self._generators = list(generators)
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        # (want_lp, sample) -> (graph, [(counter, launches per replay)])
+        self._graphs: dict[tuple[bool, bool], tuple] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, want_lp: bool, sample: bool) -> None:
+        """One decode step: a replay of the variant's graph, captured
+        first at the variant's first use."""
+        entry = self._graphs.get((want_lp, sample))
+        if entry is None:
+            entry = self._graphs[(want_lp, sample)] = self._capture(
+                want_lp, sample)
+        graph, deltas = entry
+        graph.replay()
+        for fn, n in deltas:
+            fn.launches += n
+        self.replays += 1
+
+    def _capture(self, want_lp: bool, sample: bool) -> tuple:
+        """Warm up, undo the warm-up, capture; returns (graph, [(counter,
+        launches per replay)])."""
+        cur = torch.cuda.current_stream(self.device)
+        s = self.stream
+        gen_states = [g.get_state() for g in self._generators]
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            saved = [t.clone() for t in self._state]
+            self._step(want_lp, sample)           # the warm-up
+            for t, v in zip(self._state, saved):
+                t.copy_(v)
+        cur.wait_stream(s)
+        for g, st in zip(self._generators, gen_states):
+            g.set_state(st)
+        graph = torch.cuda.CUDAGraph()
+        if sample:
+            for g in self._generators:
+                graph.register_generator_state(g)
+        before = [fn.launches for fn in KERNEL_COUNTERS]
+        # thread_local: the tier workers' copies and allocations on other
+        # threads stay legal while the engine thread captures.
+        with torch.cuda.graph(graph, stream=s,
+                              capture_error_mode="thread_local"):
+            self._step(want_lp, sample)
+        deltas = [(fn, fn.launches - n)
+                  for fn, n in zip(KERNEL_COUNTERS, before)]
+        for fn, n in deltas:
+            fn.launches -= n
+        self.captures += 1
+        return graph, [(fn, n) for fn, n in deltas if n]

@@ -6,10 +6,21 @@
   is data on the device. Inactive slots write their K/V to the garbage page
   0 and attend nothing.
 - **Device-resident decode state**: the KV pool, penalty histograms,
-  sampling controls, last tokens, context lengths, page tables, stop ids
-  and budgets live on the device and are updated in place; the decode
-  horizon is a Python loop of steps with sampling on the device and ONE
-  host fetch per horizon.
+  sampling controls, per-slot generators, last tokens, context lengths,
+  page tables, stop ids and budgets live on the device, are allocated once
+  and are updated in place; a decode horizon is H steps with sampling on
+  the device and ONE host fetch.
+- **The step as a CUDA graph** (``engine/decode_graph.py``): on a card with
+  a single-device pool each step of a horizon is a replay of one captured
+  step (the reference's horizon is one jit); on the CPU, and under a seq
+  mesh, the step's ops run one by one.
+- **Dispatch before fetch**: a horizon's rows are copied into a pinned
+  host buffer behind it on the stream; the engine dispatches horizon N+1
+  before it waits for and emits horizon N, so the host's emission overlaps
+  the device's work. Rows of a slot finished, cancelled or reused since
+  the dispatch are dropped. The drain records the reference's decode
+  telemetry (``tpot_samples``, ``recent_max_tbt_ms``; TTFT at the prefill
+  install), which ``drain_recent_latency`` hands to a heartbeat.
 - **Admission control**: pages for prompt + max_new_tokens are reserved at
   admission, so decode never runs out of pages mid-flight; requests beyond
   the batch queue.
@@ -39,7 +50,9 @@
 
 Not in this port yet: speculation, chunked prefill, the mixed
 decode+chunk step, PD injection/handoff, multimodal input, mesh axes other
-than ``seq``, offline preemption and the pipelined dispatch-before-fetch.
+than ``seq``, offline preemption, the asynchronous install (a burst of
+prefills dispatched before any first token is fetched: the port's install
+still fetches its first token) and the captured step under a seq mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from __future__ import annotations
 import logging
 import random
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Union
@@ -74,6 +88,7 @@ from ..parallel.mesh import AXIS_SEQ, DeviceMesh, mesh_from_config
 from ..tokenizer.base import Tokenizer
 from ..tokenizer.simple import SimpleTokenizer
 from .config import EngineConfig
+from .decode_graph import DecodeGraphs
 from .kv_cache import GARBAGE_PAGE, KVPageManager, SequencePages
 from .kv_tier import TieredKVStore, host_block
 from .sampling import NUM_BIAS, SamplingState, record_tokens, sample_tokens
@@ -153,9 +168,20 @@ class InferenceEngine:
         else:
             self.kv_pages = torch.zeros(shape, dtype=mcfg.dtype, device=dev)
         self._init_tiers()
-        self._reset_slot_state()
+        self._alloc_slot_state()
         # Seeds of unseeded sampled requests.
         self._rng = random.Random(cfg.seed + 1)
+        # The captured step: on a card, for a single-device pool (a
+        # sharded pool keeps the eager step).
+        self._graphs: Optional[DecodeGraphs] = None
+        if dev.type == "cuda" and self.seq_parallel == 1:
+            self._graphs = DecodeGraphs(
+                self._decode_step, [self._last, self._clens, self._active,
+                                    self._st.token_counts], self._gens, dev)
+        # Dispatch before fetch: the last dispatched horizon whose rows
+        # are not read yet, as (host rows, ready event, t_dispatch,
+        # horizon, {slot: seq} snapshot).
+        self._pending_decode: Optional[tuple] = None
 
         B = cfg.max_batch_size
         self._waiting: deque[EngineRequest] = deque()
@@ -169,6 +195,15 @@ class InferenceEngine:
         self.total_generated = 0
         self.prefix_hits = 0            # admissions that reused cached KV
         self.prefix_hit_tokens = 0      # prompt tokens they did not prefill
+        # Decode telemetry, as the reference's: the heartbeat takes and
+        # resets the recent maxima through drain_recent_latency (under the
+        # leaf lock, so a sample landing between read and reset is never
+        # lost); ttft: (prompt_len, ms); tpot: (batch, total_ctx, ms/tok).
+        self._telemetry_lock = threading.Lock()
+        self.recent_max_ttft_ms = 0.0
+        self.recent_max_tbt_ms = 0.0
+        self.ttft_samples: deque[tuple[int, float]] = deque(maxlen=512)
+        self.tpot_samples: deque[tuple[int, int, float]] = deque(maxlen=512)
 
     @staticmethod
     def _resolve_mesh(cfg: EngineConfig, device, mesh: Optional[DeviceMesh]
@@ -237,11 +272,14 @@ class InferenceEngine:
         # Evictions divert to the tier pump only with a usable store.
         self.page_mgr.enable_tiering(self.tier_store is not None)
 
-    def _reset_slot_state(self) -> None:
-        """Fresh per-slot device state: every slot inactive, its page-table
-        row on the garbage page."""
+    def _alloc_slot_state(self) -> None:
+        """The per-slot device state, allocated once: a captured step reads
+        and writes these tensors at fixed addresses, so every later write
+        is in place. Every slot starts inactive, its page-table row on the
+        garbage page."""
         cfg, dev = self.cfg, self.device
         B, i32 = cfg.max_batch_size, torch.int32
+        K = cfg.max_top_logprobs
         self._st = SamplingState.init(B, cfg.model.vocab_size, dev)
         self._last = torch.zeros((B,), dtype=i32, device=dev)
         self._clens = torch.zeros((B,), dtype=i32, device=dev)
@@ -256,8 +294,33 @@ class InferenceEngine:
         # Per-slot token budget (max_total_len; 0 = none): a slot freezes AT
         # its budget, so one nearly-done sequence never shrinks the horizon.
         self._budget = torch.zeros((B,), dtype=i32, device=dev)
-        # Per-slot sampling generator (None for greedy slots).
-        self._gens: list[Optional[torch.Generator]] = [None] * B
+        # Per-slot sampling generators, re-seeded when a sampled request
+        # takes the slot; a sampling step draws from all B.
+        self._gens = [torch.Generator(device=dev) for _ in range(B)]
+        # A step's packed row [B, 2 + 2K] (token, chosen logprob, top-K
+        # logprobs, top-K ids), the horizon's rows on the device, and two
+        # host buffers (pinned on a card) for the fetch: horizon N+1 is
+        # dispatched before horizon N is read.
+        H = cfg.decode_horizon
+        self._row = torch.zeros((B, 2 + 2 * K), dtype=torch.float32,
+                                device=dev)
+        self._hrows = torch.zeros((H, B, 2 + 2 * K), dtype=torch.float32,
+                                  device=dev)
+        self._host_rows = [torch.zeros((H, B, 2 + 2 * K),
+                                       dtype=torch.float32,
+                                       pin_memory=dev.type == "cuda")
+                           for _ in range(2)]
+        self._host_next = 0
+
+    def _reset_slot_state(self) -> None:
+        """Every slot back to inactive on the garbage page, in place."""
+        self._st.reset_()
+        self._last.zero_()
+        self._clens.zero_()
+        self._pt.fill_(GARBAGE_PAGE)
+        self._active.zero_()
+        self._stop_ids.fill_(-1)
+        self._budget.zero_()
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "InferenceEngine":
@@ -272,6 +335,9 @@ class InferenceEngine:
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        # A pending horizon whose sequences have all finished carries
+        # nothing deliverable: drop it without fetching.
+        self._pending_decode = None
         if self.tier_store is not None:
             self.tier_store.close()
 
@@ -317,6 +383,18 @@ class InferenceEngine:
             }
         if self.tier_store is not None:
             out["kv_tier"] = self.tier_store.stats()
+        if self._graphs is not None:
+            out["decode_graph"] = {"captures": self._graphs.captures,
+                                   "replays": self._graphs.replays}
+        return out
+
+    def drain_recent_latency(self) -> tuple[float, float]:
+        """Heartbeat drain: take and reset the window's
+        (recent_max_ttft_ms, recent_max_tbt_ms) atomically."""
+        with self._telemetry_lock:
+            out = (self.recent_max_ttft_ms, self.recent_max_tbt_ms)
+            self.recent_max_ttft_ms = 0.0
+            self.recent_max_tbt_ms = 0.0
         return out
 
     def drain_kv_events(self) -> KvCacheEvent:
@@ -348,7 +426,8 @@ class InferenceEngine:
     def _fail_all(self, message: str) -> None:
         """A step-level failure poisons the batch: surface it to every
         in-flight request instead of hanging them, and start the slots
-        afresh."""
+        afresh. A pending horizon is dropped without fetching."""
+        self._pending_decode = None
         with self._lock:
             waiting = list(self._waiting)
             self._waiting.clear()
@@ -521,6 +600,7 @@ class InferenceEngine:
 
     def _start_sequence(self, req: EngineRequest) -> bool:
         cfg = self.cfg
+        t0 = time.monotonic()
         prompt = req.token_ids
         P0 = len(prompt)
         max_new = max(1, min(req.sampling.max_tokens, cfg.max_seq_len - P0))
@@ -567,6 +647,10 @@ class InferenceEngine:
         except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
             self._fail_admission(seq, req, e)
             raise
+        ttft_ms = (time.monotonic() - t0) * 1000
+        with self._telemetry_lock:
+            self.recent_max_ttft_ms = max(self.recent_max_ttft_ms, ttft_ms)
+        self.ttft_samples.append((P0, ttft_ms))
 
         if matched:
             self.prefix_hits += 1
@@ -704,8 +788,7 @@ class InferenceEngine:
         gen = None
         if sp.temperature > 0:
             seed = sp.seed if sp.seed is not None else self._rng.getrandbits(63)
-            gen = torch.Generator(device=dev).manual_seed(seed)
-        self._gens[slot] = gen
+            gen = self._gens[slot].manual_seed(seed)
 
         toks, logprobs = sample_tokens(logits, st, [gen],
                                        want_logprobs=sp.logprobs)
@@ -733,11 +816,13 @@ class InferenceEngine:
     # -------------------------------------------------------------- decode
     def _decode(self) -> bool:
         if not self._running:
-            return False
+            # No live batch: flush the pipeline's tail.
+            return self._drain_pending_decode()
         # Bound the horizon by the LONGEST remaining token budget among
         # running sequences (pow2 ceiling); per-sequence budgets are
         # enforced on the device, so one nearly-done sequence never clamps
-        # the whole batch.
+        # the whole batch. (With a horizon in flight, output_ids lags by
+        # its length; the device budget freezes any overshoot.)
         horizon = self.cfg.decode_horizon
         # TTFT guard: with arrivals waiting, keep decode calls short.
         ah = self.cfg.admission_horizon
@@ -748,11 +833,45 @@ class InferenceEngine:
                   default=horizon)
         if 0 < rem < horizon:
             horizon = min(1 << (rem - 1).bit_length(), horizon)
-        snapshot = dict(self._running)
-        packed = self._decode_multi(horizon, snapshot)    # [H, B, 2+2K]
+        t0 = time.monotonic()
+        snapshot = {slot: seq for slot, seq in self._running.items()
+                    if not seq.finished}
+        rows, ready = self._decode_multi(horizon, snapshot)
+        # Pipeline: this horizon is enqueued; process the PREVIOUS one's
+        # rows while the device runs it.
+        prev, self._pending_decode = (self._pending_decode,
+                                      (rows, ready, t0, horizon, snapshot))
+        if prev is not None:
+            self._drain_one_decode(prev)
+        return True
+
+    def _drain_pending_decode(self) -> bool:
+        pend, self._pending_decode = self._pending_decode, None
+        if pend is None:
+            return False
+        self._drain_one_decode(pend)
+        return True
+
+    def _drain_one_decode(self, pend: tuple) -> None:
+        """Wait for a dispatched horizon's rows and emit them, one delta
+        per live sequence, recording the step's latency."""
+        rows, ready, t0, horizon, snapshot = pend
+        if ready is not None:
+            ready.synchronize()
+        packed = rows.numpy()                         # [H, B, 2 + 2K]
+        ms_per_tok = (time.monotonic() - t0) * 1000 / max(1, horizon)
+        with self._telemetry_lock:
+            self.recent_max_tbt_ms = max(self.recent_max_tbt_ms, ms_per_tok)
+        live = [s for s in snapshot.values() if not s.finished]
+        if live:
+            self.tpot_samples.append(
+                (len(live), sum(s.context_len for s in live), ms_per_tok))
         K = self.cfg.max_top_logprobs
         H = packed.shape[0]
         for slot, seq in snapshot.items():
+            # The slot may have been finished, cancelled or reused by a new
+            # sequence since the dispatch: emit only to the sequence the
+            # horizon decoded, and only while it owns the slot.
             if seq.finished or self._running.get(slot) is not seq:
                 continue
             tokens = packed[:, slot, 0].astype(np.int64).tolist()
@@ -770,46 +889,72 @@ class InferenceEngine:
             # ONE delta per sequence per horizon (tokens past a stop are
             # discarded inside _emit_tokens).
             self._emit_tokens(seq, tokens, lps)
-        return True
 
-    def _decode_multi(self, horizon: int,
-                      running: dict[int, _Sequence]) -> np.ndarray:
-        """``horizon`` decode steps of the whole batch on the device, then
-        one fetch. Returns [H, B, 2 + 2K] f32 rows of (token, chosen
-        logprob, top-K logprobs, top-K ids)."""
+    def _decode_multi(self, horizon: int, running: dict[int, _Sequence]
+                      ) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Dispatch ``horizon`` decode steps of the whole batch and the
+        copy of their rows to the host. Returns (host rows [H, B, 2 + 2K]
+        f32, the event after the copy; None on the CPU, where the copy has
+        completed)."""
+        want_lp = any(s.req.sampling.logprobs for s in running.values())
+        sample = any(s.req.sampling.temperature > 0 for s in running.values())
+        for h in range(horizon):
+            self._step(want_lp, sample)
+            self._hrows[h].copy_(self._row)
+        rows = self._host_rows[self._host_next][:horizon]
+        self._host_next ^= 1
+        on_card = self.device.type == "cuda"
+        rows.copy_(self._hrows[:horizon], non_blocking=on_card)
+        if not on_card:
+            return rows, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return rows, ready
+
+    def _step(self, want_lp: bool, sample: bool) -> None:
+        """One decode step: a replay of the captured step on a card with a
+        single-device pool, the eager step otherwise."""
+        if self._graphs is not None:
+            self._graphs.run(want_lp, sample)
+        else:
+            self._decode_step(want_lp, sample)
+
+    def _decode_step(self, want_lp: bool, sample: bool) -> None:
+        """One decode step of the whole batch, in place on the device
+        state: forward, sampling (``sample``: every slot draws from its
+        generator; greedy slots ignore the draw), the penalty histogram,
+        the device-side stop and budget update, and the packed row into
+        ``self._row`` (top-K logprobs with ``want_lp``, else zeros).
+        Allocates nothing that outlives the call and reads nothing from
+        the host, so it can be captured (``engine/decode_graph.py``)."""
         cfg, mcfg = self.cfg, self.cfg.model
         K = cfg.max_top_logprobs
-        B = cfg.max_batch_size
-        gens = [self._gens[s] if s in running else None for s in range(B)]
-        want_lp = any(s.req.sampling.logprobs for s in running.values())
-        rows = []
-        for _ in range(horizon):
-            logits, _ = self.family.decode_forward(
-                self.params, mcfg, self._last, self._clens - 1,
-                self.kv_pages, self._pt, self._clens)
-            toks, logprobs = sample_tokens(logits, self._st, gens,
-                                           want_logprobs=want_lp)
-            record_tokens(self._st.token_counts, toks, self._active)
-            if want_lp:
-                chosen = torch.gather(logprobs, 1, toks.long()[:, None])
-                tv, ti = torch.topk(logprobs, K, dim=-1)
-            else:
-                chosen = torch.zeros((B, 1), device=self.device)
-                tv = torch.zeros((B, K), device=self.device)
-                ti = tv
-            # Device-side stop: a slot that sampled one of its stop ids, or
-            # reached its token budget, freezes (no clens growth, its KV
-            # writes repeat in place) for the rest of the horizon. The stop
-            # token itself is still emitted by the host.
-            hit = (toks[:, None] == self._stop_ids).any(dim=-1)
-            hit |= (self._budget > 0) & (self._clens + 1 >= self._budget)
-            advance = self._active & ~hit
-            self._last = torch.where(advance, toks, self._last)
-            self._clens = torch.where(advance, self._clens + 1, self._clens)
-            self._active = advance
-            rows.append(torch.cat([toks.float()[:, None], chosen, tv,
-                                   ti.float()], dim=1))
-        return torch.stack(rows).cpu().numpy()
+        logits, _ = self.family.decode_forward(
+            self.params, mcfg, self._last, self._clens - 1,
+            self.kv_pages, self._pt, self._clens)
+        gens = self._gens if sample else [None] * cfg.max_batch_size
+        toks, logprobs = sample_tokens(logits, self._st, gens,
+                                       want_logprobs=want_lp)
+        record_tokens(self._st.token_counts, toks, self._active)
+        row = self._row
+        row[:, 0].copy_(toks)
+        if want_lp:
+            row[:, 1:2].copy_(torch.gather(logprobs, 1, toks.long()[:, None]))
+            tv, ti = torch.topk(logprobs, K, dim=-1)
+            row[:, 2:2 + K].copy_(tv)
+            row[:, 2 + K:].copy_(ti)
+        else:
+            row[:, 1:].zero_()
+        # Device-side stop: a slot that sampled one of its stop ids, or
+        # reached its token budget, freezes (no clens growth, its KV
+        # writes repeat in place) for the rest of the horizon. The stop
+        # token itself is still emitted by the host.
+        hit = (toks[:, None] == self._stop_ids).any(dim=-1)
+        hit |= (self._budget > 0) & (self._clens + 1 >= self._budget)
+        advance = self._active & ~hit
+        self._last.copy_(torch.where(advance, toks, self._last))
+        self._clens.copy_(torch.where(advance, self._clens + 1, self._clens))
+        self._active.copy_(advance)
 
     # ----------------------------------------------------------- emission
     # Finalized-context window for the incremental diff: the tail is always
@@ -946,7 +1091,6 @@ class InferenceEngine:
             self._active[s] = False
             self._clens[s] = 0
             self._budget[s] = 0
-            self._gens[s] = None
             with self._lock:
                 self._free_slots.append(s)
         seq.pages.release(self.page_mgr)

@@ -4,9 +4,10 @@
 Per-slot controls are device tensors, so one code path serves any mix of
 greedy/temperature/top-k/top-p/penalty settings. Greedy picks, penalties,
 logit bias and the top-k/top-p masks are the reference's arithmetic;
-random draws come from a per-request ``torch.Generator`` (Gumbel-max over
-the filtered logits), so a seeded request repeats exactly whatever batch it
-shares. They are not the reference's random bits: ``jax.random`` and
+random draws come from one ``torch.Generator`` per batch slot (Gumbel-max
+over the filtered logits), which the engine re-seeds when a request takes
+the slot, so a seeded request repeats exactly whatever batch it shares.
+They are not the reference's random bits: ``jax.random`` and
 ``torch.Generator`` are different streams.
 """
 
@@ -55,6 +56,20 @@ class SamplingState:
             bias_vals=torch.zeros((batch, NUM_BIAS), dtype=f32,
                                   device=device),
         )
+
+    def reset_(self) -> "SamplingState":
+        """Every slot back to :meth:`init`'s values, in place (a captured
+        decode step keeps reading these tensors)."""
+        self.temperature.fill_(1.0)
+        self.top_k.zero_()
+        self.top_p.fill_(1.0)
+        self.frequency_penalty.zero_()
+        self.presence_penalty.zero_()
+        self.repetition_penalty.fill_(1.0)
+        self.token_counts.zero_()
+        self.bias_ids.fill_(-1)
+        self.bias_vals.zero_()
+        return self
 
 
 def apply_penalties(logits: torch.Tensor, st: SamplingState) -> torch.Tensor:
@@ -129,12 +144,15 @@ def sample_tokens(logits: torch.Tensor, st: SamplingState,
     tokens = torch.argmax(logits, dim=-1)
     if any(g is not None for g in generators):
         scaled = filtered_logits(logits, st)
-        noise = torch.zeros_like(scaled)
+        u = torch.empty_like(scaled)
         for b, g in enumerate(generators):
             if g is not None:
-                u = torch.rand(scaled.shape[1], generator=g,
-                               device=scaled.device)
-                noise[b] = -torch.log(-torch.log(u.clamp_min(1e-20)))
+                torch.rand(scaled.shape[1], generator=g,
+                           device=scaled.device, out=u[b])
+        noise = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        idle = [b for b, g in enumerate(generators) if g is None]
+        if idle:
+            noise[idle] = 0.0
         sampled = torch.argmax(scaled + noise, dim=-1)
         tokens = torch.where(st.temperature <= 0.0, tokens, sampled)
     if want_logprobs:

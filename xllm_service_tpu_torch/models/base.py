@@ -45,6 +45,31 @@ class ModelConfig:
     def kv_size(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    # ---- roofline accounting (bench.py twin: pct_roofline) ----------------
+    @property
+    def dtype_bytes(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def decode_weight_stream_bytes(self) -> int:
+        """Bytes of weights streamed from device memory per decode
+        token-step: every layer projection and the lm_head once (the
+        embedding is a gather of B rows and is left out; a tied head
+        streams the table all the same), plus the RMSNorm scales. The
+        reference's accounting for its dense path, with the width of the
+        port's weight dtype (bf16: 2 bytes, as the reference's)."""
+        h, L, wb = self.hidden_size, self.num_layers, self.dtype_bytes
+        attn = h * self.q_size + 2 * h * self.kv_size + self.q_size * h
+        mlp_total = L * 3 * h * self.ffn_size
+        norms = (L * 2 * h + h) * wb
+        head = self.vocab_size * h * wb
+        return (L * attn + mlp_total) * wb + norms + head
+
+    def kv_bytes_per_token(self, context_len: int) -> int:
+        """Bytes of KV cache read per sequence per decode token-step: K and
+        V over the live context, every layer, in the pool's dtype."""
+        return self.num_layers * 2 * context_len * self.kv_size * \
+            self.dtype_bytes
+
 
 @dataclass
 class ModelFamily:

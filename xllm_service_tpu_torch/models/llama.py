@@ -20,10 +20,11 @@ import torch.nn.functional as F
 
 from ..common.device import resolve_device
 from ..ops.attention import (
-    apply_rope,
     decode_attention_step,
     prefill_attention,
     rms_norm,
+    rope_cos_sin,
+    rope_rotate,
     write_prefill_kv,
 )
 from ..ops.cp_paged_attention import ShardedPages, cp_tables
@@ -83,17 +84,16 @@ def _layer(params: Params, l: int) -> dict:
 
 
 def _project_qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """x: [B, S, D] (or [B, D] for decode) -> q, k, v heads with rope."""
+                 cos_sin: tuple[torch.Tensor, torch.Tensor]):
+    """x: [B, S, D] (or [B, D] for decode) -> q, k, v heads with rope;
+    ``cos_sin`` is the forward's ``rope_cos_sin`` of its positions."""
     q = x @ lp["q_proj"]["kernel"]
     k = x @ lp["k_proj"]["kernel"]
     v = x @ lp["v_proj"]["kernel"]
     q = q.reshape(*q.shape[:-1], cfg.num_heads, cfg.head_dim)
     k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return rope_rotate(q, cos_sin), rope_rotate(k, cos_sin), v
 
 
 def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -150,10 +150,11 @@ def prefill_forward(params: Params, cfg: ModelConfig,
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
     x = _embed(params, cfg, tokens)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
-        q, k, v = _project_qkv(lp, h, cfg, positions)
+        q, k, v = _project_qkv(lp, h, cfg, cos_sin)
         k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
         write_prefill_kv(k_pages, v_pages, k, v, page_table, prefix_lens,
                          seq_lens)
@@ -182,10 +183,12 @@ def decode_forward(params: Params, cfg: ModelConfig,
     tables = (cp_tables(page_table, context_lens, kv_pages)
               if isinstance(kv_pages, ShardedPages) else None)
     x = _embed(params, cfg, tokens)                                # [B, D]
+    # Rope's cos/sin once for the step, shared by every layer's q and k.
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
-        q, k, v = _project_qkv(lp, h, cfg, positions)           # [B, H, hd]
+        q, k, v = _project_qkv(lp, h, cfg, cos_sin)             # [B, H, hd]
         attn, _, _ = decode_attention_step(q, k, v, kv_pages[l, 0],
                                            kv_pages[l, 1], page_table,
                                            context_lens, cp_tables=tables)

@@ -48,27 +48,49 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dtype)
 
 
+_inv_freq: dict[tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rope_inv_freq(head_dim: int, theta: float,
+                  device: torch.device) -> torch.Tensor:
+    """``1 / theta ** (arange(0, hd, 2) / hd)`` in f32, computed once per
+    (head_dim, theta, device): the upload of ``theta`` happens at the
+    first call, never inside a captured decode step."""
+    key = (head_dim, float(theta), torch.device(device))
+    inv = _inv_freq.get(key)
+    if inv is None:
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+        inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                           device=device), exps)
+        _inv_freq[key] = inv
+    return inv
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [...] -> cos/sin [..., head_dim//2] in f32."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), exps)
-    angles = positions.float()[..., None] * inv_freq
+    angles = positions.float()[..., None] * rope_inv_freq(
+        head_dim, theta, positions.device)
     return torch.cos(angles), torch.sin(angles)
+
+
+def rope_rotate(x: torch.Tensor, cos_sin: tuple[torch.Tensor, torch.Tensor]
+                ) -> torch.Tensor:
+    """x: [..., n_heads, head_dim] rotated by ``rope_cos_sin``'s cos/sin
+    [..., head_dim//2] (the rotate-half convention)."""
+    cos = cos_sin[0][..., None, :]                   # broadcast over heads
+    sin = cos_sin[1][..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., n_heads, head_dim]; positions broadcastable to
     x.shape[:-2]. 1-D rope (the rotate-half convention)."""
-    cos, sin = rope_cos_sin(positions, x.shape[-1], theta)
-    cos = cos[..., None, :]                          # broadcast over heads
-    sin = sin[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rope_rotate(x, rope_cos_sin(positions, x.shape[-1], theta))
 
 
 def _repeat_kv(kv: torch.Tensor, n_rep: int) -> torch.Tensor:
