@@ -67,6 +67,20 @@ Phases (any failure exits non-zero before the result line):
    (``xllm_service_tpu_torch/benchmarks/decode_profile.py``): tok/s and
    pct_roofline, eager and graphed ``full_step_ms``, kernels per step and
    the device's busy share from a ``torch.profiler`` trace;
+4f. serving through the agent: the port's ``EngineAgent`` on the card,
+   with phase 4's engine configuration and weights, behind a stub master
+   of the standard library here (it writes its address under
+   ``XLLM:SERVICE:MASTER`` in the agent's in-process coordination store and
+   takes ``/rpc/heartbeat`` and ``/rpc/generations`` as the reference master
+   does). Phase 4's eleven requests are posted as enriched JSON dispatches
+   in phase 4's order, then an ``n: 2`` seeded request, a logprob request,
+   a request cancelled through ``/rpc/cancel`` after its first delta, a
+   dispatch past its deadline (504) and an embeddings call; checks the
+   registration, every request's deltas (``delta_seq`` 1..k, instance and
+   incarnation, one ``finished`` with usage), the greedy and sampled tokens
+   against phase 4's, the heartbeats (load, latency, KV events), the
+   launches of kernels 1 and 2, the graph's replays, and the embeddings
+   against ``engine.embed``;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -1374,6 +1388,249 @@ def twins_phase(params, card):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 4f
+class StubMaster:
+    """The master's two ingest routes on the standard library:
+    ``/rpc/generations`` (deltas per request, in arrival order) and
+    ``/rpc/heartbeat``, each answered ``{"ok": true, "alive": {...}}``."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.gens: dict[str, list] = {}
+        self.first: dict[str, float] = {}
+        self.posts = 0
+        self.heartbeats: list = []
+        self.lock = threading.Lock()
+        self.changed = threading.Condition(self.lock)
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(n))
+                with stub.changed:
+                    if self.path == "/rpc/generations":
+                        stub.posts += 1
+                        for g in body["gens"]:
+                            sid = g["service_request_id"]
+                            stub.first.setdefault(sid, time.monotonic())
+                            stub.gens.setdefault(sid, []).append(g)
+                    else:
+                        stub.heartbeats.append(body)
+                    stub.changed.notify_all()
+                data = json.dumps({"ok": True, "alive": {}}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.addr = f"127.0.0.1:{self.server.server_address[1]}"
+
+    def wait(self, pred, what, timeout=300.0):
+        with self.changed:
+            assert self.changed.wait_for(pred, timeout), f"timed out: {what}"
+
+    def finished(self, sid):
+        return any(g["finished"] for g in self.gens.get(sid, ()))
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def post_json(addr, path, obj):
+    """One POST to the agent -> (status, parsed reply)."""
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        conn.request("POST", path, body=json.dumps(obj).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def check_deltas(name, gens, agent):
+    """Every delta of one request: delta_seq 1..k in order, stamped with
+    the agent's instance and incarnation, exactly one finished (the last),
+    carrying usage. Returns the token ids per choice."""
+    assert gens, f"{name}: no deltas"
+    assert [g["delta_seq"] for g in gens] == list(range(1, len(gens) + 1)), \
+        f"{name}: delta_seq out of order"
+    assert all(g["instance"] == agent.name
+               and g["incarnation"] == agent.incarnation_id for g in gens), \
+        f"{name}: unstamped delta"
+    assert [g["finished"] for g in gens].count(True) == 1 \
+        and gens[-1]["finished"] and "usage" in gens[-1], \
+        f"{name}: not one finished delta with usage"
+    toks: dict[int, list] = {}
+    for g in gens:
+        for o in g["outputs"]:
+            toks.setdefault(o["index"], []).extend(o["token_ids"])
+    return toks
+
+
+def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
+                kernels, card):
+    """Phase 4's traffic through the agent's HTTP routes, then the
+    agent-only requests. ``phase4`` = phase 4's runs, each (tokens per
+    request, launches, tok/s, sorted TTFTs); the first is the cold one.
+    Returns the launches of kernels 1 and 2 in this phase."""
+    from xllm_service_tpu_torch.common.types import InstanceMetaInfo, now_ms
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.rpc import MASTER_KEY, instance_key
+
+    mcfg = cfg.model
+    store = MemoryStore()
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    agent = EngineAgent(cfg, AgentConfig(model_id="llama3-8b",
+                                         heartbeat_interval_s=1.0),
+                        coord=InMemoryCoordination(store), params=params,
+                        device="cuda")
+    greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+    samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
+                ignore_eos=True)
+
+    def dispatch(sid, toks, **sp):
+        return post_json(agent.name, "/v1/completions", dict(
+            service_request_id=sid, request_id=sid, token_ids=toks,
+            source_service_addr=master.addr, **sp))
+
+    reset_counts()
+    agent.start()
+    try:
+        meta = InstanceMetaInfo.from_json(
+            store.get(instance_key("MIX", agent.name)))
+        assert meta.wire_formats == ["json"] and \
+            (meta.num_layers, meta.num_kv_heads, meta.head_dim) == (
+                mcfg.num_layers, mcfg.num_kv_heads, mcfg.head_dim), meta
+        log(f"  registered {instance_key('MIX', agent.name)}: wire "
+            f"{meta.wire_formats}, layers {meta.num_layers}, kv heads "
+            f"{meta.num_kv_heads}, head dim {meta.head_dim}")
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            assert dispatch(f"g{i}", p, **greedy)[0] == 200
+        assert dispatch("sampled", sampled_prompt, **samp)[0] == 200
+        master.wait(lambda: "g0" in master.first, "request 0's first delta")
+        for j, p in enumerate(shared):
+            assert dispatch(f"s{j}", p, **greedy)[0] == 200
+        names = [f"g{i}" for i in range(len(prompts))] + ["sampled"] + \
+            [f"s{j}" for j in range(len(shared))]
+        master.wait(lambda: all(map(master.finished, names)),
+                    "phase 4's requests")
+        wall = time.monotonic() - t0
+        toks = {n: check_deltas(n, master.gens[n], agent)[0] for n in names}
+        tps = sum(map(len, toks.values())) / wall
+        same = [n for n in names if toks[n] == phase4[0][0][n]]
+        log(f"  phase 4's 11 requests through the agent: {len(same)}/"
+            f"{len(names)} with phase 4's tokens")
+        assert len(same) == len(names), \
+            f"tokens differ from phase 4's: {sorted(set(names) - set(same))}"
+
+        # The agent-only requests, together.
+        assert dispatch("n2", sampled_prompt, max_tokens=16, temperature=0.8,
+                        seed=7, n=2, ignore_eos=True)[0] == 200
+        assert dispatch("lp", prompts[1], max_tokens=8, temperature=0.0,
+                        logprobs=True, top_logprobs=2,
+                        ignore_eos=True)[0] == 200
+        assert dispatch("cancel", prompts[2], max_tokens=1024,
+                        temperature=0.0, ignore_eos=True)[0] == 200
+        status, reply = dispatch("late", prompts[3], max_tokens=8,
+                                 deadline_ms=now_ms() - 1000)
+        assert status == 504, (status, reply)
+        master.wait(lambda: "cancel" in master.first, "the first delta")
+        assert post_json(agent.name, "/rpc/cancel",
+                         {"service_request_id": "cancel"})[0] == 200
+        texts = ["the agent serves embeddings", "a second input, longer "
+                 "than the first one by a few words"]
+        status, emb = post_json(agent.name, "/v1/embeddings",
+                                {"input": texts})
+        assert status == 200, emb
+        master.wait(lambda: all(map(master.finished, ("n2", "lp", "cancel"))),
+                    "the agent-only requests")
+        n2 = check_deltas("n2", master.gens["n2"], agent)
+        assert sorted(n2) == [0, 1] and all(len(v) == 16 for v in n2.values())
+        lp = master.gens["lp"]
+        check_deltas("lp", lp, agent)
+        rows = [r for g in lp for o in g["outputs"] for r in o["logprobs"]]
+        assert len(rows) == 8 and all(len(r["top_logprobs"]) == 2
+                                      for r in rows), "logprob rows"
+        cancel = master.gens["cancel"]
+        n_cancel = sum(len(o["token_ids"]) for g in cancel
+                       for o in g["outputs"])
+        assert cancel[-1]["finished"] and n_cancel < 1024, "not cancelled"
+        assert "late" not in master.gens, "an expired dispatch streamed"
+        vecs = np.asarray([d["embedding"] for d in emb["data"]], np.float32)
+        want = agent.engine.embed([agent.engine.tokenizer.encode(t)
+                                   for t in texts])
+        emb_err = float(np.abs(vecs - want).max())
+        assert vecs.shape == (2, mcfg.hidden_size) and \
+            np.isfinite(vecs).all(), vecs.shape
+        assert emb_err <= 1e-4, f"embeddings differ from engine.embed: " \
+            f"{emb_err}"
+        log(f"  n 2 choices {sorted(n2)}; logprob rows {len(rows)}; "
+            f"cancelled after {n_cancel} tokens (status "
+            f"{cancel[-1]['status']}); expired dispatch 504; embeddings "
+            f"{vecs.shape} vs engine.embed max_abs_err {emb_err:.3g} "
+            f"(tol 1e-4)")
+
+        # Heartbeats: load, latency and the 512-token prompts' KV events.
+        master.wait(lambda: any(
+            h["latency_metrics"]["recent_max_ttft"] > 0
+            for h in master.heartbeats) and any(
+            h["kv_cache_event"]["stored"] for h in master.heartbeats),
+            "a heartbeat with latency and KV events", timeout=30)
+        beats = list(master.heartbeats)
+        assert all("load_metrics" in h and "latency_metrics" in h
+                   and h["name"] == agent.name for h in beats)
+        stats = agent.engine.stats()
+        launches = (kernels[0].launches, kernels[1].launches)
+        check_replays(stats, "4f")
+        assert launches[0] > 0 and launches[1] > 0, \
+            f"kernels 1/2 launches {launches}"
+        spans = sorted(agent.ttft_spans)
+        n_gens = sum(map(len, master.gens.values()))
+        log(f"  launches decode/mq {launches}; stats {stats}")
+        before = "; ".join(
+            f"run {r}: TTFT p50 {t_[len(t_) // 2]:.1f} max {t_[-1]:.1f} ms, "
+            f"{tps_:.1f} tok/s" for r, (_, _, tps_, t_) in enumerate(phase4))
+        log(f"  agent-side TTFT (accept -> first delta) ms p50 "
+            f"{spans[len(spans) // 2]:.1f} max {spans[-1]:.1f}; "
+            f"{tps:.1f} generated tok/s through the agent (phase 4 {before}); "
+            f"{n_gens / master.posts:.2f} deltas per "
+            f"POST ({n_gens} in {master.posts}); {len(beats)} heartbeats, "
+            f"max recent_max_ttft "
+            f"{max(h['latency_metrics']['recent_max_ttft'] for h in beats):.1f}"
+            f" ms, {sum(len(h['kv_cache_event']['stored']) for h in beats)} "
+            f"stored blocks (information only; {card})")
+        return launches
+    finally:
+        agent.stop()
+        master.close()
+        store.close()
+        del agent
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1485,7 +1742,7 @@ def main() -> int:
             stats["prefix_hit_tokens"] >= 2 * 512, "no prefix hits"
         assert launches[0] > 0 and launches[1] > 0, "a kernel never launched"
         check_replays(stats, f"run {r}")
-        runs.append((toks, launches))
+        runs.append((toks, launches, tps, ttft))
     assert runs[0][0] == runs[1][0], "two runs of the same batch differ"
     log("  both runs gave identical tokens for all 11 requests")
     check_logits(llama, cfg, params, shared[0], 512)
@@ -1523,16 +1780,27 @@ def main() -> int:
     graph_step_check(engine_mod, cfg, params)
     twins_phase(params, card)
 
+    # Phase 4f: serving through the agent.
+    log("[4f] serving llama3-8b through the engine agent behind a stub "
+        f"master ({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+        "before: the weights alone)")
+    t = time.monotonic()
+    agent_launches = agent_phase(
+        cfg, params, prompts, shared, sampled_prompt,
+        runs, (paged_attention, mq_paged_attention),
+        card)
+    log(f"  phase 4f: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
     for name, src, tpu, res, n in (
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
-             runs[0][1][0]),
+             runs[0][1][0] + agent_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
-             runs[0][1][1]),
+             runs[0][1][1] + agent_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

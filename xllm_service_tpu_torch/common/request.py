@@ -1,11 +1,12 @@
 """Request and engine-output types (copy of the part of
-``xllm_service_tpu/common/request.py`` the engine uses)."""
+``xllm_service_tpu/common/request.py`` the engine and its agent use,
+with the wire forms of a delta and of the sampling controls)."""
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, field
-from typing import Optional
+from dataclasses import asdict, dataclass, field
+from typing import Any, Optional
 
 
 class StatusCode(enum.IntEnum):
@@ -77,6 +78,59 @@ class RequestOutput:
     finished: bool = False
     # True when the request finished at its first token.
     finished_on_prefill: bool = False
+    # Monotonic per-request delivery sequence number, assigned by the agent's
+    # streamer: the service dedupes on it, so a retried Generations POST
+    # whose original was processed cannot deliver a delta twice.
+    delta_seq: Optional[int] = None
+    # Sender identity: after a failover the service drops deltas from an
+    # incarnation the request is no longer bound to.
+    instance: str = ""
+    incarnation: str = ""
+
+    def to_dict(self) -> dict[str, Any]:
+        """The delta's wire form (one entry of a Generations batch)."""
+        d: dict[str, Any] = {
+            "request_id": self.request_id,
+            "service_request_id": self.service_request_id,
+            "status": {"code": int(self.status.code),
+                       "message": self.status.message},
+            "outputs": [
+                {
+                    "index": o.index,
+                    "text": o.text,
+                    "token_ids": list(o.token_ids),
+                    "finish_reason": o.finish_reason,
+                    "logprobs": [
+                        {
+                            "token": lp.token,
+                            "token_id": lp.token_id,
+                            "logprob": lp.logprob,
+                            "top_logprobs": [
+                                {"token": t.token, "token_id": t.token_id,
+                                 "logprob": t.logprob}
+                                for t in lp.top_logprobs
+                            ],
+                        }
+                        for lp in o.logprobs
+                    ],
+                }
+                for o in self.outputs
+            ],
+            "finished": self.finished,
+            "finished_on_prefill": self.finished_on_prefill,
+        }
+        if self.delta_seq is not None:
+            d["delta_seq"] = self.delta_seq
+        if self.instance:
+            d["instance"] = self.instance
+        if self.incarnation:
+            d["incarnation"] = self.incarnation
+        if self.usage is not None:
+            d["usage"] = {
+                "num_prompt_tokens": self.usage.num_prompt_tokens,
+                "num_generated_tokens": self.usage.num_generated_tokens,
+            }
+        return d
 
 
 @dataclass
@@ -101,3 +155,15 @@ class SamplingParams:
     # OpenAI logit_bias: token id -> additive bias (first NUM_BIAS entries
     # applied on the device).
     logit_bias: dict[int, float] = field(default_factory=dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "SamplingParams":
+        sp = cls(**{k: v for k, v in d.items()
+                    if k in cls.__dataclass_fields__})
+        # JSON round-trips dict keys as strings.
+        sp.logit_bias = {int(k): float(v)
+                         for k, v in (sp.logit_bias or {}).items()}
+        return sp

@@ -48,6 +48,14 @@
   through the context-parallel op (kernel 6 per shard, then the merge);
   a long prefix-free prompt prefills with ring attention over the axis.
 
+- **Admission order** as the reference's: online before offline, then
+  higher priority first, FIFO otherwise.
+- **Embeddings** (``embed``, for the agent's ``/v1/embeddings``): the
+  family's dense forward, run on the engine thread between steps.
+
+Its entry point for a fleet is the agent (``engine/agent.py``), which
+serves the reference master's wire contract.
+
 Not in this port yet: speculation, chunked prefill, the mixed
 decode+chunk step, PD injection/handoff, multimodal input, mesh axes other
 than ``seq``, offline preemption, the asynchronous install (a burst of
@@ -62,6 +70,7 @@ import random
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Union
 
@@ -109,6 +118,10 @@ class EngineRequest:
     sampling: SamplingParams = field(default_factory=SamplingParams)
     # Called from the engine thread with each RequestOutput delta.
     on_output: Callable[[RequestOutput], None] = lambda out: None
+    # Online/offline hybrid scheduling: offline requests yield admission to
+    # online traffic; within a class a higher priority goes first.
+    offline: bool = False
+    priority: int = 0
 
 
 @dataclass
@@ -189,6 +202,9 @@ class InferenceEngine:
         self._free_slots = list(range(B - 1, -1, -1))
         self._lock = threading.Condition()
         self._cancelled: set[str] = set()
+        # Calls run on the engine thread between steps (``embed``), with
+        # the future their caller waits on.
+        self._calls: deque[tuple[Callable[[], Any], Future]] = deque()
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -335,6 +351,10 @@ class InferenceEngine:
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        with self._lock:
+            calls, self._calls = self._calls, deque()
+        for _, fut in calls:
+            fut.set_exception(RuntimeError("engine stopped"))
         # A pending horizon whose sequences have all finished carries
         # nothing deliverable: drop it without fetching.
         self._pending_decode = None
@@ -408,11 +428,80 @@ class InferenceEngine:
             ev.removed.extend(rem)
         return ev
 
+    def embed(self, token_id_lists: list[list[int]]) -> np.ndarray:
+        """Text embeddings for a batch of token lists -> [n, D] f32
+        (mean-pooled final hidden states). Inputs are grouped as the
+        reference's: by length bucket (the port has no prefill buckets, so
+        the next power of two, at most ``max_seq_len``), at most
+        ``max_batch_size`` rows a call, rows padded to a power of two.
+        Raises if the family has no embed_forward.
+
+        With the loop running, the forward runs on the engine thread
+        between steps and the caller waits for it: the loop captures and
+        replays the decode step as a CUDA graph, and work that another
+        thread puts on the card during a capture can invalidate the
+        capture or the replay."""
+        if self.family.embed_forward is None:
+            raise NotImplementedError(
+                f"model family {self.cfg.model_family} has no "
+                "embedding forward")
+        return self._on_loop(lambda: self._embed(token_id_lists))
+
+    def _embed(self, token_id_lists: list[list[int]]) -> np.ndarray:
+        cfg, dev = self.cfg, self.device
+        clipped = [ids[:cfg.max_seq_len] or [0] for ids in token_id_lists]
+        by_bucket: dict[int, list[int]] = {}
+        for i, ids in enumerate(clipped):
+            S = min(1 << (len(ids) - 1).bit_length(), cfg.max_seq_len)
+            by_bucket.setdefault(S, []).append(i)
+        out: dict[int, np.ndarray] = {}
+        Bmax = cfg.max_batch_size
+        for S, idxs in by_bucket.items():
+            for start in range(0, len(idxs), Bmax):
+                group = idxs[start:start + Bmax]
+                nb = 1 << (len(group) - 1).bit_length()   # pow2 pad
+                toks = np.zeros((nb, S), np.int32)
+                lens = np.ones((nb,), np.int32)
+                for row, i in enumerate(group):
+                    toks[row, :len(clipped[i])] = clipped[i]
+                    lens[row] = len(clipped[i])
+                vecs = self.family.embed_forward(
+                    self.params, cfg.model, torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(lens).to(dev)).cpu().numpy()
+                for row, i in enumerate(group):
+                    out[i] = vecs[row]
+        return np.stack([out[i] for i in range(len(clipped))])
+
+    def _on_loop(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` on the engine thread between steps and return its
+        result; in place when called from that thread or when the loop is
+        not running (nothing else then works on the card)."""
+        t = self._thread
+        if t is None or not t.is_alive() or t is threading.current_thread():
+            return fn()
+        fut: Future = Future()
+        with self._lock:
+            if self._stopped.is_set():
+                raise RuntimeError("engine stopped")
+            self._calls.append((fn, fut))
+            self._lock.notify_all()
+        return fut.result()
+
+    def _run_calls(self) -> bool:
+        with self._lock:
+            calls, self._calls = self._calls, deque()
+        for fn, fut in calls:
+            try:
+                fut.set_result(fn())
+            except Exception as e:  # noqa: BLE001 — handed to the caller
+                fut.set_exception(e)
+        return bool(calls)
+
     # ------------------------------------------------------------- the loop
     def _loop(self) -> None:
         while not self._stopped.is_set():
             try:
-                did_work = self.step()
+                did_work = self._run_calls() | self.step()
             except Exception as e:  # noqa: BLE001 — the loop must survive
                 logger.exception("engine step failed; failing in-flight "
                                  "requests")
@@ -420,7 +509,7 @@ class InferenceEngine:
                 did_work = True
             if not did_work:
                 with self._lock:
-                    if not self._waiting and not self._running:
+                    if not (self._waiting or self._running or self._calls):
                         self._lock.wait(timeout=0.05)
 
     def _fail_all(self, message: str) -> None:
@@ -484,17 +573,28 @@ class InferenceEngine:
             status=Status(StatusCode.CANCELLED, "cancelled"), finished=True))
 
     # ------------------------------------------------------------ admission
+    def _pop_next_waiting(self) -> EngineRequest:
+        """Admission order: online before offline; higher priority first
+        within a class; FIFO otherwise. Must hold the lock; the queue is
+        not empty."""
+        best_i = min(range(len(self._waiting)), key=lambda i: (
+            self._waiting[i].offline, -self._waiting[i].priority, i))
+        self._waiting.rotate(-best_i)
+        req = self._waiting.popleft()
+        self._waiting.rotate(best_i)
+        return req
+
     def _admit(self) -> bool:
-        """Admit waiting requests FIFO while slots and pages last. Each
-        admission prefills and installs before the next one starts, so a
-        request sharing a prefix with an earlier one in the same burst sees
-        its donated blocks."""
+        """Admit waiting requests in admission order while slots and pages
+        last. Each admission prefills and installs before the next one
+        starts, so a request sharing a prefix with an earlier one in the
+        same burst sees its donated blocks."""
         admitted = False
         while True:
             with self._lock:
                 if not self._free_slots or not self._waiting:
                     return admitted
-                req = self._waiting.popleft()
+                req = self._pop_next_waiting()
             if not self._start_sequence(req):
                 # Not enough KV pages: wait for running sequences to finish.
                 with self._lock:

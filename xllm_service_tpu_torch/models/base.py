@@ -9,6 +9,8 @@ Engine-facing surface per family:
   prefix_lens, seq_lens) -> (logits_last, kv_pages)``.
 - ``decode_forward(params, cfg, tokens, positions, kv_pages, page_table,
   context_lens) -> (logits, kv_pages)``.
+- ``embed_forward(params, cfg, tokens, seq_lens) -> [B, D] f32`` (None for
+  a family without one).
 
 Both forwards update the paged pool ``kv_pages`` in place and return it.
 """
@@ -16,7 +18,7 @@ Both forwards update the paged pool ``kv_pages`` in place and return it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -77,6 +79,7 @@ class ModelFamily:
     init_params: Callable[..., Any]
     prefill_forward: Callable[..., Any]
     decode_forward: Callable[..., Any]
+    embed_forward: Optional[Callable[..., Any]] = None
 
 
 _REGISTRY: dict[str, ModelFamily] = {}

@@ -197,9 +197,38 @@ def decode_forward(params: Params, cfg: ModelConfig,
     return _unembed(params, cfg, x), kv_pages
 
 
+def embed_forward(params: Params, cfg: ModelConfig,
+                  tokens: torch.Tensor,     # [B, S] padded token ids
+                  seq_lens: torch.Tensor,   # [B] valid lengths
+                  ) -> torch.Tensor:
+    """Text embeddings: a dense causal forward (no paged cache), the final
+    norm, and a mean-pool over the valid positions -> [B, D] f32. Attention
+    goes through ``prefill_attention`` without a pool, the plain route, as
+    the reference's."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    x = _embed(params, cfg, tokens)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        q, k, v = _project_qkv(lp, h, cfg, cos_sin)
+        attn = prefill_attention(q, k, v, None, None, None, zeros, seq_lens)
+        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
+                                                   cfg.q_size), cfg)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    mask = (torch.arange(S, device=x.device)[None, :]
+            < seq_lens.long()[:, None])[..., None]
+    summed = torch.where(mask, x.float(), 0.0).sum(dim=1)
+    return summed / torch.clamp(seq_lens.float()[:, None], min=1.0)
+
+
 register_model_family(ModelFamily(
     name="llama",
     init_params=init_params,
     prefill_forward=prefill_forward,
     decode_forward=decode_forward,
+    embed_forward=embed_forward,
 ))
