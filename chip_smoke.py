@@ -73,14 +73,16 @@ Phases (any failure exits non-zero before the result line):
    ``XLLM:SERVICE:MASTER`` in the agent's in-process coordination store and
    takes ``/rpc/heartbeat`` and ``/rpc/generations`` as the reference master
    does). Phase 4's eleven requests are posted as enriched JSON dispatches
-   in phase 4's order, then an ``n: 2`` seeded request, a logprob request,
+   on one kept-alive connection, in phase 4's order, then an ``n: 2`` seeded request, a logprob request,
    a request cancelled through ``/rpc/cancel`` after its first delta, a
    dispatch past its deadline (504) and an embeddings call; checks the
    registration, every request's deltas (``delta_seq`` 1..k, instance and
    incarnation, one ``finished`` with usage), the greedy and sampled tokens
    against phase 4's, the heartbeats (load, latency, KV events), the
-   launches of kernels 1 and 2, the graph's replays, and the embeddings
-   against ``engine.embed``;
+   launches of kernels 1 and 2, the graph's replays, the embeddings
+   against ``engine.embed``, and the first against plain f32 math (within
+   4x the error of the same math in bf16). Information only: the host's
+   split of phase 4 run 1 and of phase 4f (``StepClock``, ``CallClock``);
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -757,15 +759,116 @@ class Collector:
             self.done.set()
 
 
+class StepClock:
+    """Where a serving run's wall time goes on the host (information only).
+    Wraps one engine's ``submit``, ``_admit``, ``_start_sequence`` (one
+    prefill and install, inside an admission) and ``_decode``: the calls
+    that did work, each with its wall time and the engine thread's CPU
+    time (a call still running when the window closes counts up to then),
+    the rest of the window as the loop's idle time, the time of the last
+    submit, and the CPU time of the process outside the engine thread (the
+    agent's, the stub master's and the driver's threads)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.parts = {"admit": [0, 0.0, 0.0], "prefill": [0, 0.0, 0.0],
+                      "decode": [0, 0.0, 0.0]}
+        self.admit_walls: list[float] = []
+        self.submits: list[float] = []
+        self.lock = threading.Lock()
+        self.closed = False
+        self.inflight = None   # (part, wall at entry, thread CPU at entry)
+        for part, name in (("admit", "_admit"), ("decode", "_decode"),
+                           ("prefill", "_start_sequence")):
+            setattr(eng, name, self._timed(getattr(eng, name), part))
+        submit = eng.submit
+
+        def timed_submit(req):
+            self.submits.append(time.perf_counter())
+            submit(req)
+
+        eng.submit = timed_submit
+
+    def _timed(self, fn, part):
+        outer = part != "prefill"
+
+        def wrapped(*args):
+            w, c = time.perf_counter(), time.thread_time()
+            if outer:
+                self.inflight = (part, w, c)
+            did = fn(*args)
+            with self.lock:
+                if outer:
+                    self.inflight = None
+                if did and not self.closed:
+                    self._add(part, time.perf_counter() - w,
+                              time.thread_time() - c)
+            return did
+        return wrapped
+
+    def _add(self, part, wall, cpu):
+        acc = self.parts[part]
+        acc[0] += 1
+        acc[1] += wall
+        acc[2] += cpu
+        if part == "admit":
+            self.admit_walls.append(wall * 1e3)
+
+    def _engine_cpu(self) -> float:
+        return time.clock_gettime(
+            time.pthread_getcpuclockid(self.eng._thread.ident))
+
+    def begin(self) -> None:
+        self.t0 = time.perf_counter()
+        self.cpu0 = time.process_time()
+        self.eng_cpu0 = self._engine_cpu()
+
+    def end(self) -> dict:
+        with self.lock:
+            self.closed = True
+            now, eng_now = time.perf_counter(), self._engine_cpu()
+            if self.inflight is not None:
+                part, w, c = self.inflight
+                self._add(part, now - w, eng_now - c)
+        wall = now - self.t0
+        eng_cpu = eng_now - self.eng_cpu0
+        out = {"wall_ms": wall * 1e3,
+               "last_submit_ms": (max(self.submits) - self.t0) * 1e3,
+               "engine_cpu_ms": eng_cpu * 1e3,
+               "other_cpu_ms": (time.process_time() - self.cpu0 - eng_cpu)
+               * 1e3,
+               "admit_walls_ms": list(self.admit_walls)}
+        for part, (n, w, c) in self.parts.items():
+            out[part] = (n, w * 1e3, c * 1e3)
+        out["idle_ms"] = wall * 1e3 - out["admit"][1] - out["decode"][1]
+        return out
+
+    @staticmethod
+    def line(r: dict) -> str:
+        return (f"wall {r['wall_ms']:.1f} ms, last submit at "
+                f"+{r['last_submit_ms']:.1f} ms; admissions "
+                f"{r['admit'][0]} calls {r['admit'][1]:.1f} ms wall ("
+                + " + ".join(f"{w:.1f}" for w in r["admit_walls_ms"])
+                + f") {r['admit'][2]:.1f} ms engine CPU, of which "
+                f"{r['prefill'][0]} prefills {r['prefill'][1]:.1f} ms wall; "
+                f"decode {r['decode'][0]} calls {r['decode'][1]:.1f} ms "
+                f"wall {r['decode'][2]:.1f} ms engine CPU; loop idle "
+                f"{r['idle_ms']:.1f} ms; engine thread CPU "
+                f"{r['engine_cpu_ms']:.1f} ms, other threads CPU "
+                f"{r['other_cpu_ms']:.1f} ms")
+
+
 def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
-               mesh=None):
+               mesh=None, clocks=None):
     """One serving run on a fresh engine (on ``mesh`` if given) with its
     background loop. Returns (tokens per request, finish reasons, stats
     with the count of ring prefills, ttft ms, generated tokens/s over the
-    run)."""
+    run). With a ``clocks`` list, a ``StepClock`` summary of the run is
+    appended to it."""
     from xllm_service_tpu_torch.common.request import SamplingParams
 
     eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
+    clock = StepClock(eng) if clocks is not None else None
     greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     samp = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
                           seed=1234, ignore_eos=True)
@@ -774,6 +877,8 @@ def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
     eng.start()
     try:
         t0 = time.monotonic()
+        if clock is not None:
+            clock.begin()
 
         def submit(name, toks, sp):
             cols[name] = Collector()
@@ -793,6 +898,8 @@ def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
         for name, c in cols.items():
             assert c.done.wait(900), f"{name} never finished"
         wall = time.monotonic() - t0
+        if clock is not None:
+            clocks.append(clock.end())
     finally:
         eng.stop()
     stats = dict(eng.stats(), ring_prefills=eng.ring_prefills)
@@ -1389,6 +1496,74 @@ def twins_phase(params, card):
 
 
 # --------------------------------------------------------------- phase 4f
+class CallClock:
+    """Calls, wall time and the calling thread's CPU time of one wrapped
+    callable (information only). For a thread that does no blocking I/O
+    in the call, wall minus CPU is time spent waiting for the GIL or a
+    core."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.n, self.wall, self.cpu = 0, 0.0, 0.0
+        self.lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        w, c = time.perf_counter(), time.thread_time()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            dw, dc = time.perf_counter() - w, time.thread_time() - c
+            with self.lock:
+                self.n += 1
+                self.wall += dw
+                self.cpu += dc
+
+    def line(self, what: str) -> str:
+        return (f"{what} {self.n} calls {self.wall * 1e3:.1f} ms wall "
+                f"{self.cpu * 1e3:.1f} ms CPU")
+
+
+def plain_embedding(params, mcfg, ids, dtype):
+    """One row's embedding by plain tensor math in ``dtype``, weights cast
+    one layer at a time: rotate-half rope, causal GQA attention through an
+    explicit f32 softmax, SwiGLU, the final norm, the mean over the row.
+    It shares no code with the port's forwards or attention ops."""
+    dev = params["final_norm"]["scale"].device
+    S, H, G, hd = len(ids), mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+
+    def norm(x, w):
+        x = x.float()
+        x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + mcfg.rms_eps)
+        return (x * w.float()).to(dtype)
+
+    inv = 1.0 / mcfg.rope_theta ** (
+        torch.arange(0, hd, 2, device=dev, dtype=torch.float64) / hd)
+    ang = torch.arange(S, device=dev, dtype=torch.float64)[:, None] * inv
+    cos, sin = ang.cos().float()[:, None], ang.sin().float()[:, None]
+
+    def rope(t):
+        a, b = t.float()[..., :hd // 2], t.float()[..., hd // 2:]
+        return torch.cat([a * cos - b * sin, a * sin + b * cos], -1).to(dtype)
+
+    x = params["embed"]["embedding"][torch.tensor(ids, device=dev)].to(dtype)
+    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    for l in range(mcfg.num_layers):
+        w = {name: next(iter(leaf.values()))[l].to(dtype)
+             for name, leaf in params["layers"].items()}
+        h = norm(x, w["input_norm"])
+        q = rope((h @ w["q_proj"]).view(S, H, hd))
+        k = rope((h @ w["k_proj"]).view(S, G, hd)).repeat_interleave(H // G, 1)
+        v = (h @ w["v_proj"]).view(S, G, hd).repeat_interleave(H // G, 1)
+        p = (torch.einsum("qhd,khd->hqk", q.float(), k.float()) * hd ** -0.5
+             ).masked_fill(~causal, float("-inf")).softmax(-1)
+        a = torch.einsum("hqk,khd->qhd", p, v.float()).to(dtype)
+        x = x + a.reshape(S, H * hd) @ w["o_proj"]
+        h = norm(x, w["post_attn_norm"])
+        x = x + (torch.nn.functional.silu(h @ w["gate_proj"])
+                 * (h @ w["up_proj"])) @ w["down_proj"]
+    return norm(x, params["final_norm"]["scale"]).float().mean(0)
+
+
 class StubMaster:
     """The master's two ingest routes on the standard library:
     ``/rpc/generations`` (deltas per request, in arrival order) and
@@ -1400,6 +1575,7 @@ class StubMaster:
         self.gens: dict[str, list] = {}
         self.first: dict[str, float] = {}
         self.posts = 0
+        self.busy = [0, 0.0, 0.0]   # handled POSTs, wall s, thread CPU s
         self.heartbeats: list = []
         self.lock = threading.Lock()
         self.changed = threading.Condition(self.lock)
@@ -1407,8 +1583,12 @@ class StubMaster:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # As the master's server: a reply written in two pieces must
+            # not wait on Nagle for the ACK of the first.
+            disable_nagle_algorithm = True
 
             def do_POST(self):
+                w, c = time.perf_counter(), time.thread_time()
                 n = int(self.headers.get("Content-Length") or 0)
                 body = json.loads(self.rfile.read(n))
                 with stub.changed:
@@ -1426,6 +1606,10 @@ class StubMaster:
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
+                with stub.lock:
+                    stub.busy[0] += 1
+                    stub.busy[1] += time.perf_counter() - w
+                    stub.busy[2] += time.thread_time() - c
 
             def log_message(self, *args):
                 pass
@@ -1448,19 +1632,24 @@ class StubMaster:
         self.server.server_close()
 
 
-def post_json(addr, path, obj):
-    """One POST to the agent -> (status, parsed reply)."""
-    import http.client
+class Poster:
+    """POSTs JSON to one address on one kept-alive connection, as the
+    master's client does: ``post(path, obj)`` -> (status, parsed reply)."""
 
-    host, _, port = addr.rpartition(":")
-    conn = http.client.HTTPConnection(host, int(port), timeout=300)
-    try:
-        conn.request("POST", path, body=json.dumps(obj).encode(),
-                     headers={"Content-Type": "application/json"})
-        r = conn.getresponse()
+    def __init__(self, addr):
+        import http.client
+
+        host, _, port = addr.rpartition(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=300)
+
+    def __call__(self, path, obj):
+        self.conn.request("POST", path, body=json.dumps(obj).encode(),
+                          headers={"Content-Type": "application/json"})
+        r = self.conn.getresponse()
         return r.status, json.loads(r.read())
-    finally:
-        conn.close()
+
+    def close(self):
+        self.conn.close()
 
 
 def check_deltas(name, gens, agent):
@@ -1487,8 +1676,9 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
                 kernels, card):
     """Phase 4's traffic through the agent's HTTP routes, then the
     agent-only requests. ``phase4`` = phase 4's runs, each (tokens per
-    request, launches, tok/s, sorted TTFTs); the first is the cold one.
-    Returns the launches of kernels 1 and 2 in this phase."""
+    request, launches, tok/s, sorted TTFTs, ``StepClock`` summary); the
+    first is the cold one. Returns the launches of kernels 1 and 2 in this
+    phase."""
     from xllm_service_tpu_torch.common.types import InstanceMetaInfo, now_ms
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
@@ -1509,13 +1699,23 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
     samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
                 ignore_eos=True)
 
+    rtts: list[float] = []
+
     def dispatch(sid, toks, **sp):
-        return post_json(agent.name, "/v1/completions", dict(
+        t_ = time.perf_counter()
+        reply = post("/v1/completions", dict(
             service_request_id=sid, request_id=sid, token_ids=toks,
             source_service_addr=master.addr, **sp))
+        rtts.append((time.perf_counter() - t_) * 1e3)
+        return reply
 
+    # Where the wall time of phase 4's traffic goes (information only).
+    clock = StepClock(agent.engine)
+    agent._route = routes = CallClock(agent._route)
+    agent.streamer._send = sends = CallClock(agent.streamer._send)
     reset_counts()
     agent.start()
+    post = Poster(agent.name)
     try:
         meta = InstanceMetaInfo.from_json(
             store.get(instance_key("MIX", agent.name)))
@@ -1525,7 +1725,10 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
         log(f"  registered {instance_key('MIX', agent.name)}: wire "
             f"{meta.wire_formats}, layers {meta.num_layers}, kv heads "
             f"{meta.num_kv_heads}, head dim {meta.head_dim}")
+        with master.lock:
+            master.busy = [0, 0.0, 0.0]
         t0 = time.monotonic()
+        clock.begin()
         for i, p in enumerate(prompts):
             assert dispatch(f"g{i}", p, **greedy)[0] == 200
         assert dispatch("sampled", sampled_prompt, **samp)[0] == 200
@@ -1537,6 +1740,17 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
         master.wait(lambda: all(map(master.finished, names)),
                     "phase 4's requests")
         wall = time.monotonic() - t0
+        split = clock.end()
+        log(f"  host split, phase 4's traffic through the agent: "
+            f"{StepClock.line(split)}")
+        log(f"  same split, phase 4 run 1: {StepClock.line(phase4[1][4])}")
+        r_ = sorted(rtts)
+        log(f"  dispatch POSTs {len(r_)} (one kept-alive connection): round "
+            f"trip sum {sum(r_):.1f} ms, p50 {r_[len(r_) // 2]:.1f} max "
+            f"{r_[-1]:.1f} ms; {routes.line('agent handlers')}; "
+            f"{sends.line('streamer sends')}; stub master {master.busy[0]} "
+            f"POSTs {master.busy[1] * 1e3:.1f} ms wall "
+            f"{master.busy[2] * 1e3:.1f} ms CPU (information only)")
         toks = {n: check_deltas(n, master.gens[n], agent)[0] for n in names}
         tps = sum(map(len, toks.values())) / wall
         same = [n for n in names if toks[n] == phase4[0][0][n]]
@@ -1557,11 +1771,11 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
                                  deadline_ms=now_ms() - 1000)
         assert status == 504, (status, reply)
         master.wait(lambda: "cancel" in master.first, "the first delta")
-        assert post_json(agent.name, "/rpc/cancel",
+        assert post("/rpc/cancel",
                          {"service_request_id": "cancel"})[0] == 200
         texts = ["the agent serves embeddings", "a second input, longer "
                  "than the first one by a few words"]
-        status, emb = post_json(agent.name, "/v1/embeddings",
+        status, emb = post("/v1/embeddings",
                                 {"input": texts})
         assert status == 200, emb
         master.wait(lambda: all(map(master.finished, ("n2", "lp", "cancel"))),
@@ -1586,6 +1800,24 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
             np.isfinite(vecs).all(), vecs.shape
         assert emb_err <= 1e-4, f"embeddings differ from engine.embed: " \
             f"{emb_err}"
+        # An independent check of the bf16 embed forward: the first row
+        # against plain f32 math, held within 4x the error of the same
+        # plain math in bf16 (the control), plus 1e-3 of the row's largest
+        # value so that a small control cannot fail it by chance.
+        ids = agent.engine.tokenizer.encode(texts[0])
+        ref = plain_embedding(params, mcfg, ids, torch.float32)
+        ctl = plain_embedding(params, mcfg, ids, mcfg.dtype)
+        got = torch.from_numpy(vecs[0]).to(ref.device)
+        f32_err = float((got - ref).abs().max())
+        ctl_err = float((ctl - ref).abs().max())
+        scale = float(ref.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=0))
+        log(f"  embedding row 0 ({len(ids)} tokens) vs plain f32 math: "
+            f"max_abs_err {f32_err:.4g}, cosine {cos:.6f}; bf16 control "
+            f"max_abs_err {ctl_err:.4g}; max|ref| {scale:.4g} (tol "
+            f"4 x control + 1e-3 x max|ref|)")
+        assert f32_err <= 4 * ctl_err + 1e-3 * scale, \
+            f"embed forward off the plain f32 math: {f32_err}"
         log(f"  n 2 choices {sorted(n2)}; logprob rows {len(rows)}; "
             f"cancelled after {n_cancel} tokens (status "
             f"{cancel[-1]['status']}); expired dispatch 504; embeddings "
@@ -1611,7 +1843,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
         log(f"  launches decode/mq {launches}; stats {stats}")
         before = "; ".join(
             f"run {r}: TTFT p50 {t_[len(t_) // 2]:.1f} max {t_[-1]:.1f} ms, "
-            f"{tps_:.1f} tok/s" for r, (_, _, tps_, t_) in enumerate(phase4))
+            f"{tps_:.1f} tok/s" for r, (_, _, tps_, t_, _) in enumerate(phase4))
         log(f"  agent-side TTFT (accept -> first delta) ms p50 "
             f"{spans[len(spans) // 2]:.1f} max {spans[-1]:.1f}; "
             f"{tps:.1f} generated tok/s through the agent (phase 4 {before}); "
@@ -1623,6 +1855,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
             f"stored blocks (information only; {card})")
         return launches
     finally:
+        post.close()
         agent.stop()
         master.close()
         store.close()
@@ -1727,14 +1960,17 @@ def main() -> int:
     for r in range(2):
         reset_counts()
         t = time.monotonic()
+        clocks = []
         toks, reasons, stats, ttft, tps = serve_once(
-            engine_mod, cfg, params, prompts, shared, sampled_prompt)
+            engine_mod, cfg, params, prompts, shared, sampled_prompt,
+            clocks=clocks)
         launches = (paged_attention.launches, mq_paged_attention.launches)
         log(f"  run {r}: {time.monotonic() - t:.1f} s, stats {stats}, "
             f"launches decode/mq {launches}")
         log(f"  run {r}: TTFT ms p50 {ttft[len(ttft) // 2]:.1f} max "
             f"{ttft[-1]:.1f}; {tps:.1f} generated tok/s over the run "
             f"(information only; {card})")
+        log(f"  run {r}, host split: {StepClock.line(clocks[0])}")
         for name, tk in toks.items():
             assert len(tk) == 64 and reasons[name] == "length", \
                 f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
@@ -1742,7 +1978,7 @@ def main() -> int:
             stats["prefix_hit_tokens"] >= 2 * 512, "no prefix hits"
         assert launches[0] > 0 and launches[1] > 0, "a kernel never launched"
         check_replays(stats, f"run {r}")
-        runs.append((toks, launches, tps, ttft))
+        runs.append((toks, launches, tps, ttft, clocks[0]))
     assert runs[0][0] == runs[1][0], "two runs of the same batch differ"
     log("  both runs gave identical tokens for all 11 requests")
     check_logits(llama, cfg, params, shared[0], 512)

@@ -388,6 +388,19 @@ def test_kv_cache_event_to_dict_matches_reference():
         RefKvCacheEvent(**lists).to_dict()
 
 
+def test_kept_alive_replies_do_not_wait_on_nagle(agent):
+    """A reply goes out in two writes; without TCP_NODELAY each request
+    after the first on a kept-alive connection (the master's client keeps
+    them) waits for the delayed ACK, about 40 ms on Linux. Ten requests on
+    one connection stay well under the 400 ms that would cost."""
+    with requests.Session() as s:
+        assert s.get(f"http://{agent.name}/health", timeout=30).ok
+        t = time.monotonic()
+        for _ in range(10):
+            assert s.get(f"http://{agent.name}/health", timeout=30).ok
+        assert time.monotonic() - t < 0.2
+
+
 def test_json_wire_only():
     body, ctype = wire.encode_dispatch({"a": [1, 2]})
     assert ctype == wire.JSON_CONTENT_TYPE

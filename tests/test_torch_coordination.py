@@ -40,11 +40,11 @@ def _client(srv, **kw):
 
 
 def test_set_get_rm(server):
-    c = _client(server, namespace="ns")
+    c = _client(server)
     try:
         assert c.ping()
         assert c.set("k", "v1") and c.get("k") == "v1"
-        assert server.store.get("ns/k") == "v1"
+        assert server.store.get("k") == "v1"
         assert c.get("missing") is None
         assert c.rm("k") and c.get("k") is None
         assert not c.rm("k")
@@ -57,10 +57,11 @@ def test_keepalive_holds_the_lease_and_close_lets_it_lapse(server):
     owner, reader = _client(server), _client(server)
     try:
         assert owner.set("lease", "alive", ttl_s=TTL)
-        assert owner.set("once", "x", ttl_s=TTL, keepalive=False)
+        assert reader.set("once", "x", ttl_s=TTL)
+        reader.release("once")
         time.sleep(4 * TTL)
         assert reader.get("lease") == "alive"   # refreshed at ttl/3
-        assert reader.get("once") is None       # never refreshed
+        assert reader.get("once") is None       # released: never refreshed
         owner.close()
         assert wait_until(lambda: reader.get("lease") is None,
                           timeout=5 * TTL)
@@ -114,7 +115,6 @@ def _script(store) -> list:
     """One TTL and expiry script, run against a store's put/refresh/get/rm."""
     T = SCRIPT_TTL
     out = [store.put("a", "1", T), store.put("b", "2", None),
-           store.put("a", "x", T, create_only=True),
            store.put("c", "3", T)]
     time.sleep(T / 2)
     out += [store.refresh("a", T), store.refresh("b", T),
@@ -122,7 +122,7 @@ def _script(store) -> list:
     time.sleep(0.75 * T)            # c's lease has run out, a's has not
     out += [store.get("a"), store.get("b"), store.get("c")]
     time.sleep(0.75 * T)
-    out += [store.get("a"), store.put("a", "4", T, create_only=True),
+    out += [store.get("a"), store.put("a", "4", T),
             store.get("a"), store.rm("b"), store.rm("b"), store.get("b")]
     return out
 
@@ -135,21 +135,21 @@ def test_memory_store_matches_reference():
         mine.close()
         ref.close()
     assert got == want
-    assert got == [True, True, False, True, True, False, False,
+    assert got == [True, True, True, True, False, False,
                    "1", "2", None, None, True, "4", True, False, None]
 
 
 def test_in_memory_client_leases():
     store = MemoryStore(expiry_tick_s=0.01)
-    owner = InMemoryCoordination(store, namespace="ns")
+    owner = InMemoryCoordination(store)
     reader = InMemoryCoordination(store)
     try:
         assert owner.ping()
         owner.set("lease", "v", ttl_s=TTL)
         time.sleep(3 * TTL)
-        assert reader.get("ns/lease") == "v" and owner.get("lease") == "v"
+        assert reader.get("lease") == "v" and owner.get("lease") == "v"
         owner.close()
-        assert wait_until(lambda: reader.get("ns/lease") is None,
+        assert wait_until(lambda: reader.get("lease") is None,
                           timeout=5 * TTL)
     finally:
         owner.close()

@@ -7,14 +7,11 @@ from .memory import InMemoryCoordination
 __all__ = ["CoordinationClient", "InMemoryCoordination", "connect"]
 
 
-def connect(addr: str = "", namespace: str = "",
-            reconnect_max_backoff_s: float = 2.0) -> CoordinationClient:
+def connect(addr: str = "") -> CoordinationClient:
     """Empty addr -> the shared in-memory store; 'host:port' -> a TCP
     client of a coordination server."""
     if not addr:
-        return InMemoryCoordination.shared(namespace=namespace)
+        return InMemoryCoordination.shared()
     from .client import TcpCoordinationClient
 
-    return TcpCoordinationClient(
-        addr, namespace=namespace,
-        reconnect_max_backoff_s=reconnect_max_backoff_s)
+    return TcpCoordinationClient(addr)

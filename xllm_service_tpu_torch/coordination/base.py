@@ -15,13 +15,11 @@ from typing import Optional
 
 
 class CoordinationClient(abc.ABC):
-    """All keys are namespaced transparently."""
-
     @abc.abstractmethod
-    def set(self, key: str, value: str, ttl_s: Optional[float] = None,
-            keepalive: bool = True) -> bool:
-        """Put. With ttl_s, attach a lease; with keepalive, auto-refresh the
-        lease until `release(key)` or client close."""
+    def set(self, key: str, value: str,
+            ttl_s: Optional[float] = None) -> bool:
+        """Put. With ttl_s, attach a lease that a keepalive refreshes until
+        `release(key)` or client close."""
 
     @abc.abstractmethod
     def get(self, key: str) -> Optional[str]: ...

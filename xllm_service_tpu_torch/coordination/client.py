@@ -32,9 +32,7 @@ class CoordinationError(RuntimeError):
 
 
 class TcpCoordinationClient(CoordinationClient):
-    def __init__(self, addr: str, namespace: str = "",
-                 timeout_s: float = 10.0,
-                 reconnect_max_backoff_s: float = 2.0):
+    def __init__(self, addr: str, reconnect_max_backoff_s: float = 2.0):
         host, _, port = addr.rpartition(":")
         self._addr = (host or "127.0.0.1", int(port))
         self._reconnect_max_backoff_s = max(0.1, reconnect_max_backoff_s)
@@ -43,7 +41,6 @@ class TcpCoordinationClient(CoordinationClient):
         # the reader thread after __init__.
         self.connected = True
         self.reconnects_total = 0
-        self._ns = namespace.strip("/")
         self._ids = itertools.count(1)
         self._wlock = threading.Lock()     # serializes frames on the socket
         # rid -> (event, response, connection generation it was sent on).
@@ -53,7 +50,7 @@ class TcpCoordinationClient(CoordinationClient):
         self._keepalives: dict[str, tuple[float, str]] = {}
         self._ka_lock = threading.Lock()
         self._closed = threading.Event()
-        self._timeout_s = timeout_s
+        self._timeout_s = 10.0
         self._gen = 0
         self._connect()
         self._reader = threading.Thread(target=self._read_loop,
@@ -74,9 +71,6 @@ class TcpCoordinationClient(CoordinationClient):
             self._sock = sock
             self._gen += 1
         self._rfile = sock.makefile("rb")
-
-    def _k(self, key: str) -> str:
-        return f"{self._ns}/{key}" if self._ns else key
 
     def _send_raw(self, req: dict) -> bool:
         data = (json.dumps(req) + "\n").encode()
@@ -229,25 +223,25 @@ class TcpCoordinationClient(CoordinationClient):
                                timeout_s=min(1.0, self._timeout_s))
                     .get("ok"))
 
-    def set(self, key, value, ttl_s=None, keepalive=True) -> bool:
-        ok = self._call({"op": "put", "key": self._k(key), "value": value,
+    def set(self, key, value, ttl_s=None) -> bool:
+        ok = self._call({"op": "put", "key": key, "value": value,
                          "ttl": ttl_s}).get("ok", False)
-        if ok and ttl_s and keepalive:
+        if ok and ttl_s:
             with self._ka_lock:
-                self._keepalives[self._k(key)] = (ttl_s, value)
+                self._keepalives[key] = (ttl_s, value)
         return ok
 
     def get(self, key) -> Optional[str]:
-        resp = self._call({"op": "get", "key": self._k(key)})
+        resp = self._call({"op": "get", "key": key})
         return resp.get("value") if resp.get("ok") else None
 
     def rm(self, key) -> bool:
         self.release(key)
-        return self._call({"op": "rm", "key": self._k(key)}).get("ok", False)
+        return self._call({"op": "rm", "key": key}).get("ok", False)
 
     def release(self, key) -> None:
         with self._ka_lock:
-            self._keepalives.pop(self._k(key), None)
+            self._keepalives.pop(key, None)
 
     def close(self) -> None:
         if self._closed.is_set():

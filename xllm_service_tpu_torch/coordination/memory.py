@@ -26,17 +26,16 @@ class MemoryStore:
     """The shared 'cluster'. Thread-safe; a sweeper thread drops expired
     leased keys every ``expiry_tick_s``."""
 
-    _shared: dict[str, "MemoryStore"] = {}
+    _shared: Optional["MemoryStore"] = None
     _shared_lock = threading.Lock()
 
     @classmethod
-    def shared(cls, name: str = "default") -> "MemoryStore":
+    def shared(cls) -> "MemoryStore":
+        """The process's one store behind ``connect("")``."""
         with cls._shared_lock:
-            st = cls._shared.get(name)
-            if st is None:
-                st = cls()
-                cls._shared[name] = st
-            return st
+            if cls._shared is None:
+                cls._shared = cls()
+            return cls._shared
 
     def __init__(self, expiry_tick_s: float = 0.05):
         self._data: dict[str, _Entry] = {}
@@ -56,15 +55,9 @@ class MemoryStore:
                           if e.expire_at is not None and e.expire_at <= now]:
                     del self._data[k]
 
-    # ---- ops (called by clients, keys already namespaced) ------------------
-    def put(self, key: str, value: str, ttl_s: Optional[float],
-            create_only: bool = False) -> bool:
+    # ---- ops (called by clients) -------------------------------------------
+    def put(self, key: str, value: str, ttl_s: Optional[float]) -> bool:
         with self._lock:
-            if create_only and key in self._data:
-                e = self._data[key]
-                # Sweep lag: a logically expired lease no longer blocks.
-                if e.expire_at is None or e.expire_at > time.monotonic():
-                    return False
             expire_at = time.monotonic() + ttl_s if ttl_s else None
             self._data[key] = _Entry(value, expire_at)
             return True
@@ -93,10 +86,8 @@ class MemoryStore:
 class InMemoryCoordination(CoordinationClient):
     """A 'process handle' on a MemoryStore: owns its keepalives."""
 
-    def __init__(self, store: Optional[MemoryStore] = None,
-                 namespace: str = ""):
+    def __init__(self, store: Optional[MemoryStore] = None):
         self._store = store or MemoryStore()
-        self._ns = namespace.strip("/")
         # key -> ttl for keys this client keeps alive.
         self._keepalives: dict[str, float] = {}
         self._ka_lock = threading.Lock()
@@ -107,16 +98,12 @@ class InMemoryCoordination(CoordinationClient):
         self._ka_thread.start()
 
     @classmethod
-    def shared(cls, name: str = "default",
-               namespace: str = "") -> "InMemoryCoordination":
-        return cls(MemoryStore.shared(name), namespace=namespace)
+    def shared(cls) -> "InMemoryCoordination":
+        return cls(MemoryStore.shared())
 
     @property
     def store(self) -> MemoryStore:
         return self._store
-
-    def _k(self, key: str) -> str:
-        return f"{self._ns}/{key}" if self._ns else key
 
     def _keepalive_loop(self) -> None:
         # Each leased key refreshed every 0.1 s (well inside any ttl/3).
@@ -126,23 +113,23 @@ class InMemoryCoordination(CoordinationClient):
             for key, ttl in items:
                 self._store.refresh(key, ttl)
 
-    def set(self, key, value, ttl_s=None, keepalive=True) -> bool:
-        ok = self._store.put(self._k(key), value, ttl_s)
-        if ok and ttl_s and keepalive:
+    def set(self, key, value, ttl_s=None) -> bool:
+        ok = self._store.put(key, value, ttl_s)
+        if ok and ttl_s:
             with self._ka_lock:
-                self._keepalives[self._k(key)] = ttl_s
+                self._keepalives[key] = ttl_s
         return ok
 
     def get(self, key):
-        return self._store.get(self._k(key))
+        return self._store.get(key)
 
     def rm(self, key) -> bool:
         self.release(key)
-        return self._store.rm(self._k(key))
+        return self._store.rm(key)
 
     def release(self, key) -> None:
         with self._ka_lock:
-            self._keepalives.pop(self._k(key), None)
+            self._keepalives.pop(key, None)
 
     def close(self) -> None:
         self._closed.set()

@@ -85,10 +85,8 @@ class AgentConfig:
     host: str = "127.0.0.1"
     port: int = 0                      # 0 = ephemeral
     coordination_addr: str = ""
-    coordination_namespace: str = ""
     instance_type: InstanceType = InstanceType.MIX
     model_id: str = "tiny-llama"
-    tokenizer_path: str = ""
     heartbeat_interval_s: float = 3.0
     lease_ttl_s: float = 3.0
     generation_flush_ms: float = 5.0   # batching window for Generations
@@ -320,6 +318,11 @@ class _Handler(BaseHTTPRequestHandler):
     JSON with a Content-Length (the master's clients keep connections)."""
 
     protocol_version = "HTTP/1.1"
+    # A reply goes out as two writes (headers, then body). On a kept-alive
+    # connection Nagle holds the body until the client ACKs the headers,
+    # which a client waiting for the body delays by the delayed-ACK timer
+    # (about 40 ms on Linux) on every request after the first.
+    disable_nagle_algorithm = True
     agent: "EngineAgent"
 
     def setup(self) -> None:
@@ -376,13 +379,12 @@ class EngineAgent:
                  params: Optional[dict] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = agent_cfg
-        tokenizer = TokenizerFactory.create_tokenizer(agent_cfg.tokenizer_path)
+        tokenizer = TokenizerFactory.create_tokenizer()
         # The engine first: without a card (and no device named) it raises
         # before anything else is opened.
         self.engine = InferenceEngine(engine_cfg, device=device,
                                       tokenizer=tokenizer, params=params)
-        self.coord = coord or connect(agent_cfg.coordination_addr,
-                                      agent_cfg.coordination_namespace)
+        self.coord = coord or connect(agent_cfg.coordination_addr)
         self.port = agent_cfg.port or pick_free_port(agent_cfg.host)
         self.name = f"{agent_cfg.host}:{self.port}"
         self.incarnation_id = uuid.uuid4().hex[:12]

@@ -430,11 +430,11 @@ class InferenceEngine:
 
     def embed(self, token_id_lists: list[list[int]]) -> np.ndarray:
         """Text embeddings for a batch of token lists -> [n, D] f32
-        (mean-pooled final hidden states). Inputs are grouped as the
-        reference's: by length bucket (the port has no prefill buckets, so
-        the next power of two, at most ``max_seq_len``), at most
-        ``max_batch_size`` rows a call, rows padded to a power of two.
-        Raises if the family has no embed_forward.
+        (mean-pooled final hidden states). At most ``max_batch_size`` rows
+        go in one forward, padded to the group's longest row: the
+        reference's length buckets and power-of-two row padding bound its
+        recompiles, which eager PyTorch does not have, so here they would
+        only add work. Raises if the family has no embed_forward.
 
         With the loop running, the forward runs on the engine thread
         between steps and the caller waits for it: the loop captures and
@@ -450,27 +450,17 @@ class InferenceEngine:
     def _embed(self, token_id_lists: list[list[int]]) -> np.ndarray:
         cfg, dev = self.cfg, self.device
         clipped = [ids[:cfg.max_seq_len] or [0] for ids in token_id_lists]
-        by_bucket: dict[int, list[int]] = {}
-        for i, ids in enumerate(clipped):
-            S = min(1 << (len(ids) - 1).bit_length(), cfg.max_seq_len)
-            by_bucket.setdefault(S, []).append(i)
-        out: dict[int, np.ndarray] = {}
-        Bmax = cfg.max_batch_size
-        for S, idxs in by_bucket.items():
-            for start in range(0, len(idxs), Bmax):
-                group = idxs[start:start + Bmax]
-                nb = 1 << (len(group) - 1).bit_length()   # pow2 pad
-                toks = np.zeros((nb, S), np.int32)
-                lens = np.ones((nb,), np.int32)
-                for row, i in enumerate(group):
-                    toks[row, :len(clipped[i])] = clipped[i]
-                    lens[row] = len(clipped[i])
-                vecs = self.family.embed_forward(
-                    self.params, cfg.model, torch.from_numpy(toks).to(dev),
-                    torch.from_numpy(lens).to(dev)).cpu().numpy()
-                for row, i in enumerate(group):
-                    out[i] = vecs[row]
-        return np.stack([out[i] for i in range(len(clipped))])
+        out = []
+        for start in range(0, len(clipped), cfg.max_batch_size):
+            group = clipped[start:start + cfg.max_batch_size]
+            toks = np.zeros((len(group), max(map(len, group))), np.int32)
+            for row, ids in enumerate(group):
+                toks[row, :len(ids)] = ids
+            lens = np.array([len(ids) for ids in group], np.int32)
+            out.append(self.family.embed_forward(
+                self.params, cfg.model, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(lens).to(dev)).cpu().numpy())
+        return np.concatenate(out)
 
     def _on_loop(self, fn: Callable[[], Any]) -> Any:
         """Run ``fn`` on the engine thread between steps and return its
