@@ -83,6 +83,24 @@ Phases (any failure exits non-zero before the result line):
    against ``engine.embed``, and the first against plain f32 math (within
    4x the error of the same math in bf16). Information only: the host's
    split of phase 4 run 1 and of phase 4f (``StepClock``, ``CallClock``);
+4g. the admission path at the same width and depth: kernel 2 at the chunk
+   shapes (Sq 256 behind 256-1536 written tokens, Sq 1024 behind 256 and
+   1024) against its plain version, timed beside SDPA; the prefix-free
+   prefill's SDPA route against the f32 path on a 2048-token prompt's
+   shapes (within 4x a bf16 control); one 1792-token prompt's first-token
+   logits with its chunks riding mixed steps and as standalone chunks
+   against the prompt installed whole; the captured mixed step against
+   the same step op by op, bit for bit, at spans 256 and 1024; then six
+   short requests decoding while two 1792-token prompts and one of 1100
+   arrive, three times (chunks of 256 riding the decode steps,
+   ``XLLM_SARATHI=0``, whole installs): rides happen, kernel 2 runs inside
+   every captured mixed step, every request gets its budget, and the
+   chunked runs' greedy streams equal the whole installs' but where the
+   top-2 logit gap at the first difference is within the logit tolerance;
+   an online request preempting an offline one on a 100-page pool (the
+   offline stream against its unpreempted run, by the same rule); and
+   phase 4's eleven requests submitted at once (the burst's admission
+   split, information);
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -213,7 +231,9 @@ def gathered(pages, pt, T):
 
 def sdpa(q, k, v, mask=None):
     """The yardstick: PyTorch's fused attention (GQA-aware) on K/V already
-    gathered dense. Timed here only; the port never calls it."""
+    gathered dense. Timed here only: no kernel route of the port calls it
+    (the port's one SDPA call is the prefix-free prefill, work that no
+    Pallas kernel did, held against the f32 path in phase 4g)."""
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True)
 
@@ -741,6 +761,7 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
 class Collector:
     def __init__(self):
         self.tokens: list[int] = []
+        self.times: list[float] = []     # arrival of each delta with tokens
         self.reason = ""
         self.t_first = 0.0
         self.first = threading.Event()
@@ -752,6 +773,8 @@ class Collector:
         for s in out.outputs:
             self.tokens.extend(s.token_ids)
             self.reason = s.finish_reason or self.reason
+        if any(s.token_ids for s in out.outputs):
+            self.times.append(time.monotonic())
         if not self.first.is_set():
             self.t_first = time.monotonic()
             self.first.set()
@@ -762,7 +785,8 @@ class Collector:
 class StepClock:
     """Where a serving run's wall time goes on the host (information only).
     Wraps one engine's ``submit``, ``_admit``, ``_start_sequence`` (one
-    prefill and install, inside an admission) and ``_decode``: the calls
+    admission's prefix match and install dispatch, inside an admission
+    pass, whose end waits once for the burst) and ``_decode``: the calls
     that did work, each with its wall time and the engine thread's CPU
     time (a call still running when the window closes counts up to then),
     the rest of the window as the loop's idle time, the time of the last
@@ -850,7 +874,8 @@ class StepClock:
                 f"{r['admit'][0]} calls {r['admit'][1]:.1f} ms wall ("
                 + " + ".join(f"{w:.1f}" for w in r["admit_walls_ms"])
                 + f") {r['admit'][2]:.1f} ms engine CPU, of which "
-                f"{r['prefill'][0]} prefills {r['prefill'][1]:.1f} ms wall; "
+                f"{r['prefill'][0]} install dispatches {r['prefill'][1]:.1f} "
+                f"ms wall; "
                 f"decode {r['decode'][0]} calls {r['decode'][1]:.1f} ms "
                 f"wall {r['decode'][2]:.1f} ms engine CPU; loop idle "
                 f"{r['idle_ms']:.1f} ms; engine thread CPU "
@@ -1864,6 +1889,483 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 4g
+CHUNK = 256                  # phase 4g's prefill_chunk_tokens
+
+
+def time_mq_chunk_shapes(mq_paged_attention, mq_paged_attention_plain):
+    """Kernel 2 at the chunked path's shapes, bf16, one row: Sq = C behind
+    256-1536 written tokens and Sq = 4C (a pressure ride) behind 256 and
+    1024, each held against its plain version and timed beside SDPA on the
+    same K/V gathered dense (the times are information)."""
+    for s_q, prefix in ((CHUNK, 256), (CHUNK, 1024), (CHUNK, 1536),
+                        (4 * CHUNK, 256), (4 * CHUNK, 1024)):
+        k, v, pt = paged_inputs(torch.bfloat16, [prefix + s_q], seed=7)
+        q = torch.randn((1, s_q, N_Q, HD), device="cuda").to(torch.bfloat16)
+        pre = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+        blk = torch.tensor([s_q], dtype=torch.int32, device="cuda")
+        got = mq_paged_attention(q, k, v, pt, pre, blk)
+        want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16], \
+            f"mq kernel disagrees with plain at Sq {s_q}, prefix {prefix}"
+        T = prefix + s_q
+        kd = gathered(k, pt, T).contiguous()
+        vd = gathered(v, pt, T).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= prefix + torch.arange(s_q, device="cuda")[:, None])
+        ms = time_ms(lambda: mq_paged_attention(q, k, v, pt, pre, blk))
+        lib = time_ms(lambda: sdpa(qd, kd, vd, mask))
+        nbytes = 2 * q.numel() * 2 + T * N_KV * HD * 2 * 2 + (T // PS) * 4
+        ops = 4 * N_Q * HD * (s_q * prefix + s_q * (s_q + 1) // 2)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS)
+        log(f"  mq_paged_attention bf16 Sq={s_q} prefix={prefix}: kernel "
+            f"{ms:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound "
+            f"{bound:.4f} ms, max_abs_err {err:.3g}")
+
+
+def sdpa_route_check(attention):
+    """The prefix-free prefill's card route (one SDPA call) against the f32
+    path (``dense_prefill_attention``) at one 2048-token prompt's shapes,
+    bf16, two rows (valid lengths 2048 and 1100: the padding mask).
+    Tolerance: 4x the error of the same attention computed in bf16 (the
+    products and the softmax in bf16, a control of bf16 rounding alone)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    S = 2048
+
+    def rnd(heads):
+        return torch.randn((2, S, heads, HD), generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(N_Q), rnd(N_KV), rnd(N_KV)
+    lens = torch.tensor([S, 1100], dtype=torch.int32, device="cuda")
+    zero = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    got = attention.prefill_attention(q, k, v, None, None, None, zero, lens)
+    want = attention.dense_prefill_attention(q, k, v, None, None, None, zero,
+                                             lens)
+    rep = N_Q // N_KV
+    kk, vv = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    pos = torch.arange(S, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < lens.long()[:, None, None]))
+    s_ = torch.einsum("bqhd,bkhd->bhqk", q, kk) * (HD ** -0.5)
+    s_ = s_.masked_fill(~mask[:, None], float("-inf"))
+    ctrl = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), vv)
+    err = (got.float() - want.float()).abs().max().item()
+    ctl = (ctrl.float() - want.float()).abs().max().item()
+    ms = time_ms(lambda: attention.prefill_attention(q, k, v, None, None,
+                                                     None, zero, lens))
+    f32_ms = time_ms(lambda: attention.dense_prefill_attention(
+        q, k, v, None, None, None, zero, lens), reps=5, warmup=1)
+    log(f"  prefix-free prefill, SDPA route vs the f32 path (2 rows, S "
+        f"{S}, lengths 2048/1100): max_abs_err {err:.4g} (tol 4 x bf16 "
+        f"control {ctl:.4g}); {ms:.4f} ms against {f32_ms:.4f} ms")
+    assert torch.isfinite(got).all(), "SDPA route: non-finite"
+    assert err <= 4 * ctl, "the SDPA route disagrees with the f32 path"
+    del s_, ctrl, want
+
+
+def chunked_logits_check(llama, cfg, params, prompt):
+    """One long prompt's first-token logits, its non-final chunks written
+    as the engine writes them, against the same prompt installed whole
+    (the SDPA route): (a) each chunk riding a mixed step beside eight idle
+    decode rows (kernel 2 at every start, kernel 1 on the rows), (b) each
+    as a standalone chunk (the first prefix-free, the later ones through
+    kernel 2); the final chunk is an install behind its written prefix
+    (kernel 2). Tolerance: PREFILL_REL_TOL of max |logit|, as phase 4's
+    check_logits."""
+    n = len(prompt)
+    n_pages = -(-n // cfg.page_size)
+    i32 = dict(dtype=torch.int32, device=params["final_norm"]["scale"].device)
+    mcfg = cfg.model
+    toks = torch.tensor([prompt], **i32)
+    pt = torch.arange(1, n_pages + 1, **i32)[None]
+    B_ = cfg.max_batch_size
+    idle = torch.zeros((B_,), **i32)
+    idle_pt = torch.zeros((B_, cfg.pages_per_seq), **i32)
+
+    def pool():
+        return empty_pool(cfg, n_pages + 1, i32["device"])
+
+    def prefill(kv, lo, hi):
+        return llama.prefill_forward(
+            params, mcfg, toks[:, lo:hi], torch.arange(lo, hi, **i32)[None],
+            kv, pt, torch.tensor([lo], **i32), torch.tensor([hi - lo], **i32),
+            has_prefix=lo > 0)[0]
+
+    whole = prefill(pool(), 0, n)
+    last = (n - 1) // CHUNK * CHUNK
+    routes = {}
+    for name in ("riding", "standalone"):
+        kv = pool()
+        for lo in range(0, last, CHUNK):
+            if name == "riding":
+                llama.mixed_decode_chunk_forward(
+                    params, mcfg, idle, idle - 1, toks[0, lo:lo + CHUNK],
+                    torch.arange(lo, lo + CHUNK, **i32), kv, idle_pt, pt,
+                    idle, torch.tensor([lo], **i32),
+                    torch.tensor([CHUNK], **i32))
+            else:
+                prefill(kv, lo, lo + CHUNK)
+        routes[name] = prefill(kv, last, n)
+    scale = whole.abs().max().item()
+    for name, got in routes.items():
+        err = (whole - got).abs().max().item()
+        log(f"  first-token logits, whole install vs {name} chunks of "
+            f"{CHUNK} ({n} tokens): max_abs_err={err:.4g}, max|logit|="
+            f"{scale:.4g} (tol {PREFILL_REL_TOL} x max|logit|), argmax "
+            f"{int(whole.argmax())} vs {int(got.argmax())}")
+        assert torch.isfinite(got).all(), name
+        assert err <= PREFILL_REL_TOL * scale, f"{name} chunks drifted"
+
+
+def empty_pool(cfg, n_pages, device):
+    """A zeroed KV pool of ``n_pages`` pages for ``cfg``'s model."""
+    m = cfg.model
+    return torch.zeros((m.num_layers, 2, n_pages, m.num_kv_heads,
+                        cfg.page_size, m.head_dim), dtype=m.dtype,
+                       device=device)
+
+
+def top2_gap(llama, cfg, params, context):
+    """(top-1 minus top-2 logit, max |logit|) of the next token after
+    ``context``, installed whole."""
+    n = len(context)
+    n_pages = -(-n // cfg.page_size)
+    i32 = dict(dtype=torch.int32, device=params["final_norm"]["scale"].device)
+    kv = empty_pool(cfg, n_pages + 1, i32["device"])
+    logits = llama.prefill_forward(
+        params, cfg.model, torch.tensor([context], **i32),
+        torch.arange(n, **i32)[None], kv,
+        torch.arange(1, n_pages + 1, **i32)[None],
+        torch.zeros((1,), **i32), torch.tensor([n], **i32),
+        has_prefix=False)[0][0]
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item(), logits.abs().max().item()
+
+
+def compare_streams(llama, cfg, params, prompts, got, want, what):
+    """Greedy streams ``got`` against ``want`` (name -> tokens). A
+    divergence is logged with its position and the top-2 logit gap there
+    (after the shared context, installed whole); it fails only if that gap
+    is above PREFILL_REL_TOL of max |logit| (a real disagreement, not a
+    near-tie broken by bf16 rounding). Returns how many streams diverged."""
+    diverged = 0
+    for name, w in want.items():
+        g = got[name]
+        assert len(g) == len(w), f"{what}: {name} length {len(g)}"
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if i is None:
+            continue
+        diverged += 1
+        gap, scale = top2_gap(llama, cfg, params, prompts[name] + w[:i])
+        log(f"  {what}: {name} diverges at token {i}: top-2 gap {gap:.4g} "
+            f"(tol {PREFILL_REL_TOL} x max|logit| = "
+            f"{PREFILL_REL_TOL * scale:.4g})")
+        assert gap <= PREFILL_REL_TOL * scale, \
+            f"{what}: {name} diverges at a decided token"
+    log(f"  {what}: {len(want) - diverged}/{len(want)} streams identical")
+    return diverged
+
+
+def admission_run(engine_mod, cfg, params, passes, chunk, sarathi, kernels):
+    """``passes`` = [(shorts, longs), ...] served one after the other on
+    one engine: six short greedy requests (128 new tokens) decoding, then
+    the long prompts (16 new tokens each) arriving at once. The first pass
+    warms the engine (its mixed-step captures, first-use costs); the last
+    is the measured one: the counts are set to 0 before its shorts are
+    submitted and read after its last request ends. Returns a dict of the
+    last pass: tokens per request, the longs' TTFT ms, the shorts' largest
+    gap between deltas while the longs install, rides and standalone
+    chunks, kernel launches (``kernels`` order), and the engine's
+    mixed-step graph variants with their launches per replay."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    rcfg = replace(cfg, prefill_chunk_tokens=chunk, max_concurrent_prefills=2)
+    os.environ["XLLM_SARATHI"] = "1" if sarathi else "0"
+    try:
+        eng = engine_mod.InferenceEngine(rcfg, params=params)
+    finally:
+        del os.environ["XLLM_SARATHI"]
+    chunks = [0]
+    prefill_chunk = eng._prefill_chunk
+
+    def counted(*args):
+        chunks[0] += 1
+        return prefill_chunk(*args)
+
+    eng._prefill_chunk = counted
+
+    def serve(shorts, longs):
+        cols, t_sub = {}, {}
+
+        def submit(name, toks, n):
+            cols[name] = Collector()
+            t_sub[name] = time.monotonic()
+            eng.submit(engine_mod.EngineRequest(
+                name, token_ids=toks, on_output=cols[name],
+                sampling=SamplingParams(max_tokens=n, temperature=0.0,
+                                        ignore_eos=True)))
+
+        for name, toks in shorts.items():
+            submit(name, toks, 128)
+        for name in shorts:
+            assert cols[name].first.wait(600), f"{name} never started"
+        t_long = time.monotonic()
+        for name, toks in longs.items():
+            submit(name, toks, 16)
+        for name, c in cols.items():
+            assert c.done.wait(900), f"{name} never finished"
+        return cols, t_sub, t_long
+
+    eng.start()
+    try:
+        for i, (shorts, longs) in enumerate(passes):
+            if i == len(passes) - 1:
+                reset_counts()
+                rides0, chunks[0] = eng.sarathi_rides, 0
+            cols, t_sub, t_long = serve(shorts, longs)
+        launches = tuple(fn.launches for fn in kernels)
+    finally:
+        eng.stop()
+    t_end = max(cols[n].t_first for n in longs)
+    gaps = []
+    for name in shorts:
+        ts = [t for t in cols[name].times if t_long <= t <= t_end]
+        before = [t for t in cols[name].times if t < t_long]
+        ts = before[-1:] + ts
+        gaps += [b - a for a, b in zip(ts, ts[1:])]
+    mixed = {key: deltas for key, (_, deltas) in eng._graphs._graphs.items()
+             if len(key) == 3}
+    out = dict(tokens={n: c.tokens for n, c in cols.items()},
+               reasons={n: c.reason for n, c in cols.items()},
+               ttft={n: (cols[n].t_first - t_sub[n]) * 1e3 for n in longs},
+               gap_ms=max(gaps, default=0.0) * 1e3,
+               rides=eng.sarathi_rides - rides0, chunks=chunks[0],
+               launches=launches, mixed=mixed)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def preemption_phase(engine_mod, llama, cfg, params, rng, card):
+    """An engine with 100 pages: an offline request (512-token prompt, 128
+    new tokens: 40 pages) runs; an online one (1024 + 16: 65 pages) finds
+    59 free and preempts it; the offline request resumes as a continuation
+    once the online one is done. Checks the preemption and the offline
+    output against an unpreempted run of the same request."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    V = cfg.model.vocab_size
+    off_prompt = rng.integers(3, V, size=512).tolist()
+    on_prompt = rng.integers(3, V, size=1024).tolist()
+
+    def run(num_pages, with_online):
+        eng = engine_mod.InferenceEngine(replace(cfg, num_pages=num_pages),
+                                         params=params)
+        off, on = Collector(), Collector()
+        eng.start()
+        try:
+            eng.submit(engine_mod.EngineRequest(
+                "off", token_ids=off_prompt, offline=True, on_output=off,
+                sampling=SamplingParams(max_tokens=128, temperature=0.0,
+                                        ignore_eos=True)))
+            if with_online:
+                wait_for(lambda: len(off.tokens) >= 16, "offline tokens")
+                eng.submit(engine_mod.EngineRequest(
+                    "on", token_ids=on_prompt, on_output=on,
+                    sampling=SamplingParams(max_tokens=16, temperature=0.0,
+                                            ignore_eos=True)))
+                assert on.done.wait(600), "online request never finished"
+            assert off.done.wait(600), "offline request never finished"
+        finally:
+            eng.stop()
+        out = (off.tokens, on.tokens, off.reason, eng.preemption_count,
+               eng.page_mgr.num_free)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    t = time.monotonic()
+    off_tok, on_tok, reason, preempted, _ = run(100, True)
+    alone = run(cfg.num_pages, False)[0]
+    log(f"  preemption: {preempted} preemption(s); offline {len(off_tok)} "
+        f"tokens ({reason}), online {len(on_tok)}; "
+        f"{time.monotonic() - t:.1f} s; {card}")
+    assert preempted >= 1, "the online request preempted nothing"
+    assert len(on_tok) == 16 and len(off_tok) == 128 and reason == "length"
+    compare_streams(llama, cfg, params, {"off": off_prompt},
+                    {"off": off_tok}, {"off": alone},
+                    "preempted offline vs unpreempted")
+    return preempted
+
+
+def mixed_graph_check(engine_mod, cfg, params):
+    """From one state at full width, the captured mixed step's replay and
+    the same step run op by op must agree bit for bit (packed row, KV
+    pool, slot state): eight busy slots and one prompt chunk-prefilling,
+    for each span (C and 4C)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    B_ = cfg.max_batch_size
+    rng = np.random.default_rng(9)
+    V = cfg.model.vocab_size
+    gcfg = replace(cfg, num_pages=512, prefill_chunk_tokens=CHUNK,
+                   max_batch_size=B_ + 1)
+    eng = engine_mod.InferenceEngine(gcfg, params=params)
+    greedy = SamplingParams(max_tokens=100, temperature=0.0, ignore_eos=True)
+    for i in range(B_):
+        eng.submit(engine_mod.EngineRequest(
+            f"c{i}", token_ids=rng.integers(3, V, 200).tolist(),
+            sampling=greedy))
+    eng._admit()
+    assert len(eng._running) == B_
+    for span_chunks in (1, 4):
+        eng.submit(engine_mod.EngineRequest(
+            f"long{span_chunks}",
+            token_ids=rng.integers(3, V, 6 * CHUNK).tolist(),
+            sampling=greedy))
+        eng._admit()
+        if span_chunks == 4:
+            eng.submit(engine_mod.EngineRequest(       # queue pressure
+                "waiting", token_ids=[5, 6, 7], sampling=greedy))
+        assert eng._prefillings
+        span = eng._ride_chunk_args()
+        assert span == span_chunks * CHUNK, span
+        st = [eng._row, eng.kv_pages, eng._last, eng._clens, eng._active,
+              eng._st.token_counts]
+        snap = [t_.clone() for t_ in st]
+        eng._decode_step(False, False, span)
+        eager = [t_.clone() for t_ in st]
+        for t_, v in zip(st, snap):
+            t_.copy_(v)
+        eng._graphs.run(False, False, span)
+        torch.cuda.synchronize()
+        same = [torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                if a.is_floating_point() else torch.equal(a, b)
+                for a, b in zip(eager, st)]
+        log(f"  mixed step, span {span}: eager == graphed bit for bit "
+            f"(row, pool, last, clens, active, counts) {same}")
+        assert all(same), "the replayed mixed step differs from the eager one"
+        with eng._lock:
+            eng._waiting.clear()
+        eng.cancel(f"long{span_chunks}")
+        eng._process_cancellations()
+    eng.stop()
+    del eng, st, snap, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def admission_phase(engine_mod, llama, attention, cfg, params, prompts,
+                    shared, sampled_prompt, phase4_clock, paged_attention,
+                    mq, mq_plain, card):
+    """Phase 4g: the admission path at Llama-3-8B. Returns the launches of
+    kernels 1 and 2 in the chunked run with rides (the path's main run)."""
+    time_mq_chunk_shapes(mq, mq_plain)
+    sdpa_route_check(attention)
+    rng = np.random.default_rng(4)
+    V = cfg.model.vocab_size
+    chunked_logits_check(llama, cfg, params,
+                         rng.integers(3, V, size=1792).tolist())
+    mixed_graph_check(engine_mod, cfg, params)
+
+    # Two sets of prompts of the same lengths: the first warms each engine
+    # (distinct tokens, so the second misses the prefix cache), the second
+    # is measured and checked.
+    passes = [({f"short{i}": rng.integers(3, V, size=128).tolist()
+                for i in range(6)},
+               {f"long{i}": rng.integers(3, V, size=n).tolist()
+                for i, n in enumerate((1792, 1792, 1100))})
+              for _ in range(2)]
+    prompts_4g = {**passes[-1][0], **passes[-1][1]}
+    counters = (paged_attention, mq)
+    runs = {}
+    for name, chunk, sarathi in (("chunked, rides", CHUNK, True),
+                                 ("chunked, XLLM_SARATHI=0", CHUNK, False),
+                                 ("whole installs", 0, True)):
+        t = time.monotonic()
+        r = runs[name] = admission_run(engine_mod, cfg, params, passes,
+                                       chunk, sarathi, counters)
+        for n, tk in r["tokens"].items():
+            want = 16 if n.startswith("long") else 128
+            assert len(tk) == want and r["reasons"][n] == "length", \
+                f"{name}: {n}: {len(tk)} tokens, reason {r['reasons'][n]!r}"
+        log(f"  {name} (warm pass, then this one): "
+            f"{time.monotonic() - t:.1f} s; longs' TTFT ms "
+            + ", ".join(f"{v:.1f}" for v in r["ttft"].values())
+            + f"; shorts' largest inter-token gap while they install "
+            f"{r['gap_ms']:.1f} ms; rides {r['rides']}, standalone chunks "
+            f"{r['chunks']}; launches kernel 1 / kernel 2 {r['launches']}; "
+            f"mixed-step variants {sorted(r['mixed'])} (information only; "
+            f"{card})")
+    main = runs["chunked, rides"]
+    assert main["rides"] > 0, "no chunk rode a decode step"
+    assert runs["chunked, XLLM_SARATHI=0"]["rides"] == 0
+    assert runs["whole installs"]["chunks"] == 0
+    assert main["mixed"], "no mixed step was captured"
+    for key, deltas in main["mixed"].items():
+        per_replay = dict((fn.__name__, n) for fn, n in deltas)
+        assert per_replay.get("mq_paged_attention", 0) == \
+            cfg.model.num_layers, f"kernel 2 not in the mixed step {key}"
+    assert main["launches"][1] >= main["rides"] * cfg.model.num_layers
+    for name in ("chunked, rides", "chunked, XLLM_SARATHI=0"):
+        compare_streams(llama, cfg, params, prompts_4g,
+                        runs[name]["tokens"],
+                        runs["whole installs"]["tokens"],
+                        f"{name} vs whole installs")
+
+    log("  preemption at llama3-8b")
+    preemption_phase(engine_mod, llama, cfg, params, rng, card)
+
+    # The burst: phase 4's eleven requests submitted at once.
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    eng = engine_mod.InferenceEngine(cfg, params=params)
+    clock = StepClock(eng)
+    cols = {}
+    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    samp = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
+                          seed=1234, ignore_eos=True)
+    reqs = ([(f"g{i}", p, greedy) for i, p in enumerate(prompts)]
+            + [("sampled", sampled_prompt, samp)]
+            + [(f"s{j}", p, greedy) for j, p in enumerate(shared)])
+    eng.start()
+    try:
+        clock.begin()
+        for name, toks, sp in reqs:
+            cols[name] = Collector()
+            eng.submit(engine_mod.EngineRequest(name, token_ids=toks,
+                                                sampling=sp,
+                                                on_output=cols[name]))
+        for name, c in cols.items():
+            assert c.done.wait(900), f"{name} never finished"
+        split = clock.end()
+    finally:
+        eng.stop()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert all(len(c.tokens) == 64 for c in cols.values())
+    log(f"  the burst (11 requests at once), host split: "
+        f"{StepClock.line(split)}")
+    log(f"  phase 4 run 1 (9 at once, then 2), admissions ms: "
+        + " + ".join(f"{w:.1f}" for w in phase4_clock["admit_walls_ms"])
+        + f"; the burst's: "
+        + " + ".join(f"{w:.1f}" for w in split["admit_walls_ms"])
+        + f" (information only; {card})")
+    return main["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2027,16 +2529,27 @@ def main() -> int:
         card)
     log(f"  phase 4f: {time.monotonic() - t:.1f} s")
 
+    # Phase 4g: the admission path.
+    log("[4g] the admission path at llama3-8b: chunked prefill, the "
+        "Sarathi mixed step, offline preemption, the asynchronous install")
+    t = time.monotonic()
+    from xllm_service_tpu_torch.ops import attention
+    g_launches = admission_phase(
+        engine_mod, llama, attention, cfg, params, prompts, shared,
+        sampled_prompt, runs[1][4], paged_attention, mq_paged_attention,
+        mq_paged_attention_plain, card)
+    log(f"  phase 4g: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
     for name, src, tpu, res, n in (
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
-             runs[0][1][0] + agent_launches[0]),
+             runs[0][1][0] + agent_launches[0] + g_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
-             runs[0][1][1] + agent_launches[1]),
+             runs[0][1][1] + agent_launches[1] + g_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

@@ -41,7 +41,12 @@ from xllm_service_tpu.master import Master
 from xllm_service_tpu.models import llama as ref_llama
 from xllm_service_tpu.models.base import tiny_config as ref_tiny
 from xllm_service_tpu_torch.engine import EngineConfig
-from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+from xllm_service_tpu_torch.engine.agent import (
+    AgentConfig,
+    EngineAgent,
+    _parser,
+    engine_config,
+)
 from xllm_service_tpu_torch.models.base import tiny_config
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 
@@ -59,10 +64,11 @@ def _options():
                           reconcile_interval_s=0.1)
 
 
-def _port_agent(store, tree, heartbeat_interval_s=0.3):
+def _port_agent(store, tree, heartbeat_interval_s=0.3, **engine_kw):
     return EngineAgent(
         EngineConfig(model=tiny_config(dtype=torch.float32,
-                                       max_context_len=256), **ENGINE_KW),
+                                       max_context_len=256),
+                     **ENGINE_KW, **engine_kw),
         AgentConfig(host="127.0.0.1", model_id="tiny-llama",
                     heartbeat_interval_s=heartbeat_interval_s,
                     lease_ttl_s=1.0),
@@ -218,6 +224,53 @@ def test_embeddings_parity_with_the_jax_agent(clusters):
         for c in (port, ref))
     assert got.shape == want.shape == (3, 128)
     assert np.abs(got - want).max() <= EMBED_TOL
+
+
+@pytest.fixture(scope="module")
+def chunked_clusters(tree):
+    """Both agents with chunked prefill (32-token chunks), as the
+    reference agent's ``--prefill-chunk 32`` sets it."""
+    chunk = engine_config(_parser().parse_args(
+        ["--prefill-chunk", "32"])).prefill_chunk_tokens
+    ref = _Cluster(lambda store: RefAgent(
+        RefEngineConfig(model_id="tiny-llama",
+                        model=ref_tiny(dtype=jnp.float32,
+                                       max_context_len=256),
+                        prefill_buckets=(32, 64, 256),
+                        prefill_chunk_tokens=chunk, **ENGINE_KW),
+        RefAgentConfig(host="127.0.0.1", model_id="tiny-llama",
+                       heartbeat_interval_s=0.3, lease_ttl_s=1.0),
+        coord=InMemoryCoordination(store), params=tree))
+    port = _Cluster(lambda store: _port_agent(
+        store, tree, prefill_chunk_tokens=chunk))
+    yield ref, port
+    port.stop()
+    ref.stop()
+
+
+def test_the_agent_takes_prefill_chunk():
+    args = _parser().parse_args(["--prefill-chunk", "64", "--model-config",
+                                 "tiny", "--max-seq-len", "256"])
+    cfg = engine_config(args)
+    assert cfg.prefill_chunk_tokens == 64
+    cfg.validate()
+    assert engine_config(_parser().parse_args([])).prefill_chunk_tokens == 0
+
+
+def test_chunked_request_parity_with_the_jax_agent(chunked_clusters):
+    """A prompt of six 32-token chunks, streamed, through the reference
+    master to each agent: the port's text and token ids are the JAX
+    agent's; its stats report the chunked path's counters and spans."""
+    ref, port = chunked_clusters
+    body = {"prompt": "chunked prefill " * 12, "max_tokens": 8,
+            "stream": True}
+    want_text, _, want_ids = _serve(ref, "/v1/completions", body)
+    got_text, _, got_ids = _serve(port, "/v1/completions", body)
+    assert got_text == want_text and got_ids == want_ids
+    assert all(len(v) == 8 for v in got_ids.values())
+    stats = requests.get(f"http://{port.agent.name}/stats", timeout=5).json()
+    assert stats["sarathi_rides"] == 0 and stats["preemption_count"] == 0
+    assert stats["ttft_spans"]["engine_prefill_ms"] > 0
 
 
 def test_unported_agent_routes_are_refused(cluster):

@@ -180,3 +180,26 @@ def test_decode_attention_step(dt):
     _close(attn, attn_r, dt)
     np.testing.assert_array_equal(_np(ok), _np(rk))
     np.testing.assert_array_equal(_np(ov), _np(rv))
+
+
+@pytest.mark.parametrize("lens", [(33, 33), (33, 20), (33, 1)])
+def test_sdpa_prefill_route_masks_as_the_dense_path(lens, monkeypatch):
+    """The card's prefix-free route (one ``scaled_dot_product_attention``
+    call, the causal and padding masks built by the port) against the
+    dense f32 path. On the card the call is held to the memory-efficient
+    backend; here, where that backend does not exist, PyTorch's math
+    backend computes the same masked attention."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    monkeypatch.setattr(port, "sdpa_kernel",
+                        lambda _: sdpa_kernel(SDPBackend.MATH))
+    g = torch.Generator().manual_seed(len(lens) + lens[1])
+    q = torch.randn((2, 33, 4, 32), generator=g)
+    k = torch.randn((2, 33, 2, 32), generator=g)
+    v = torch.randn((2, 33, 2, 32), generator=g)
+    seq_lens = torch.tensor(lens, dtype=torch.int32)
+    zero = torch.zeros((2,), dtype=torch.int32)
+    got = port.sdpa_prefill_attention(q, k, v, seq_lens)
+    want = port.dense_prefill_attention(q, k, v, None, None, None, zero,
+                                        seq_lens)
+    _close(got, want, "f32")

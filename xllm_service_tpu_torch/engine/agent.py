@@ -632,6 +632,8 @@ class EngineAgent:
             "cached_blocks": s["cached_blocks"],
             "total_generated": s["total_generated"],
             "dp_size": 1,
+            "sarathi_rides": self.engine.sarathi_rides,
+            "preemption_count": self.engine.preemption_count,
         }
 
     def _route(self, method: str, path: str, body: bytes,
@@ -678,12 +680,18 @@ class EngineAgent:
         return dict(store.stats()) if store is not None else {}
 
     def _span_summary(self) -> dict[str, float]:
-        """p50 of the TTFT span samples (agent accept -> first delta), so
-        an external bench can split client TTFT across processes."""
-        xs = sorted(self.ttft_spans)
-        return {"n": len(xs),
-                "agent_accept_to_first_delta_ms":
-                    round(xs[len(xs) // 2], 1) if xs else 0.0}
+        """p50s of the TTFT span samples (agent accept -> first delta; the
+        engine's queue wait; its prefill), so an external bench can split
+        client TTFT across processes."""
+        def p50(xs):
+            xs = sorted(xs)
+            return round(xs[len(xs) // 2], 1) if xs else 0.0
+
+        eng = list(self.engine.span_samples)
+        return {"n": len(self.ttft_spans),
+                "agent_accept_to_first_delta_ms": p50(self.ttft_spans),
+                "engine_queue_ms": p50(s["queue_ms"] for s in eng),
+                "engine_prefill_ms": p50(s["prefill_ms"] for s in eng)}
 
     def _h_link(self, body: bytes, ctype: str) -> Reply:
         peer = InstanceMetaInfo.from_json(
@@ -889,7 +897,6 @@ _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--quant": ("", "weight-only int8, queue 1 item 7"),
     "--checkpoint-path": ("", "checkpoint loading, queue 1 item 8"),
     "--tokenizer-path": ("", "checkpoint loading, queue 1 item 8"),
-    "--prefill-chunk": (0, "chunked prefill, queue 1 item 4"),
     "--speculate-k": (0, "speculative decoding, queue 1 item 6"),
     "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
                                    "queue 1 item 3"),
@@ -922,6 +929,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--decode-horizon", type=int, default=0,
                    help="tokens per host fetch (0 = config default)")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked-prefill tokens per engine iteration "
+                        "(0 = whole-suffix installs); with a chunk set, "
+                        "mid chunks ride decode steps (Sarathi mixed "
+                        "steps) unless XLLM_SARATHI=0")
     p.add_argument("--generation-flush-ms", type=float, default=5.0,
                    help="batching window for Generations delta pushes")
     p.add_argument("--kv-tier-dram-mb", type=int, default=0,
@@ -946,14 +958,9 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[list[str]] = None) -> None:
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The engine configuration of parsed command-line ``args``."""
     from ..models import base as model_base
-
-    p = _parser()
-    args = p.parse_args(argv)
-    for flag, (default, item) in _REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            p.error(f"{flag} is not ported yet (ROADMAP {item})")
 
     mcfg = {"tiny": model_base.tiny_config,
             "bench_1b": model_base.bench_1b_config,
@@ -969,13 +976,25 @@ def main(argv: Optional[list[str]] = None) -> None:
         ecfg.kv_tier_ssd_path = args.kv_tier_ssd_path
     if args.decode_horizon > 0:
         ecfg.decode_horizon = args.decode_horizon
+    if args.prefill_chunk > 0:
+        ecfg.prefill_chunk_tokens = args.prefill_chunk
+    return ecfg
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    p = _parser()
+    args = p.parse_args(argv)
+    for flag, (default, item) in _REFUSED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            p.error(f"{flag} is not ported yet (ROADMAP {item})")
     agent = EngineAgent(
-        ecfg, AgentConfig(host=args.host, port=args.port,
-                          coordination_addr=args.coordination_addr,
-                          instance_type=InstanceType.parse(args.type),
-                          model_id=args.model_id,
-                          generation_flush_ms=args.generation_flush_ms,
-                          degraded_mode=args.degraded_mode),
+        engine_config(args),
+        AgentConfig(host=args.host, port=args.port,
+                    coordination_addr=args.coordination_addr,
+                    instance_type=InstanceType.parse(args.type),
+                    model_id=args.model_id,
+                    generation_flush_ms=args.generation_flush_ms,
+                    degraded_mode=args.degraded_mode),
         device=args.device)
     agent.start()
     import signal as _signal

@@ -36,13 +36,22 @@ class EngineConfig:
     # Sampling.
     max_top_logprobs: int = 5
     seed: int = 0
+    # Chunked prefill: prompts longer than this are written to the KV pool
+    # in chunks of this many tokens across engine iterations, so running
+    # decodes keep streaming while a long prompt prefills. 0 disables
+    # (whole-suffix prefill in one call). Must be page-aligned.
+    prefill_chunk_tokens: int = 0
+    # How many chunked prefills may be in flight at once (advanced
+    # round-robin, one chunk per engine step): >1 keeps several long
+    # prompts progressing fairly; short prompts always admit past them.
+    max_concurrent_prefills: int = 2
     # Decode horizon: tokens generated per host fetch (a Python loop of
     # decode steps with sampling on the device). 1 = lowest streaming
     # latency; larger values amortize the per-fetch synchronisation.
     decode_horizon: int = 1
-    # TTFT guard: while requests are waiting, decode calls shrink to this
-    # many tokens so admission isn't blocked behind a long horizon. 0
-    # disables.
+    # TTFT guard: while requests are waiting (or a chunked prefill is in
+    # flight), decode calls shrink to this many tokens so admission isn't
+    # blocked behind a long horizon. 0 disables.
     admission_horizon: int = 8
     # --- Tiered KV cache (engine/kv_tier.py) ---
     # Host-RAM (DRAM) tier capacity in bytes: evicted prefix blocks are
@@ -81,3 +90,5 @@ class EngineConfig:
             raise ValueError("max_seq_len exceeds model max_context_len")
         if self.decode_horizon < 1:
             raise ValueError("decode_horizon must be at least 1")
+        if self.prefill_chunk_tokens % self.page_size:
+            raise ValueError("prefill_chunk_tokens must be page-aligned")

@@ -12,8 +12,14 @@ horizon's buffer. A replay costs the host one launch instead of one per op
 of every layer.
 
 Variants are keyed by what the host already knows: whether any running
-slot wants logprobs (the top-K pack) and whether any samples (the per-slot
-generators' draws). Capture is lazy. At a variant's first use a warm-up
+slot wants logprobs (the top-K pack), whether any samples (the per-slot
+generators' draws) and, for the Sarathi mixed step (the first step of a
+horizon that carries a prefill chunk, the reference's
+``decode_chunk_multi``), the chunk's span, C or 4C rows. The mixed step
+reads its chunk from buffers the engine writes in place before the replay
+(tokens, the chunk's page row, its start and valid length), so a horizon
+with a ride is one replay of a mixed variant and H - 1 of a plain one.
+Capture is lazy. At a variant's first use a warm-up
 step runs on the capture stream: it builds every kernel library, the
 split-K work space and cuBLAS's work space on the stream the graph records
 (so the graph holds pointers that outlive it) and fills rope's cache. The
@@ -57,12 +63,13 @@ KERNEL_COUNTERS = (paged_attention, fused_decode_attention,
 class DecodeGraphs:
     """Captured decode steps of one engine on one CUDA device.
 
-    ``step(want_lp, sample)`` runs one decode step in place on the
-    engine's state; ``state`` are the tensors it advances (apart from the
-    K/V pool); ``generators`` are the per-slot generators a sampling step
-    draws from."""
+    ``step(*key)`` runs one decode step in place on the engine's state,
+    its arguments naming the variant (``(want_lp, sample)``, and the span
+    for a mixed step); ``state`` are the tensors it advances (apart from
+    the K/V pool); ``generators`` are the per-slot generators a sampling
+    step draws from."""
 
-    def __init__(self, step: Callable[[bool, bool], None],
+    def __init__(self, step: Callable[..., None],
                  state: Sequence[torch.Tensor],
                  generators: Sequence[torch.Generator],
                  device: torch.device):
@@ -71,34 +78,35 @@ class DecodeGraphs:
         self._generators = list(generators)
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        # (want_lp, sample) -> (graph, [(counter, launches per replay)])
-        self._graphs: dict[tuple[bool, bool], tuple] = {}
+        # step arguments -> (graph, [(counter, launches per replay)])
+        self._graphs: dict[tuple, tuple] = {}
         self.captures = 0
         self.replays = 0
 
-    def run(self, want_lp: bool, sample: bool) -> None:
-        """One decode step: a replay of the variant's graph, captured
-        first at the variant's first use."""
-        entry = self._graphs.get((want_lp, sample))
+    def run(self, *key) -> None:
+        """One decode step with the step's arguments ``key``: a replay of
+        the variant's graph, captured first at the variant's first use."""
+        entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[(want_lp, sample)] = self._capture(
-                want_lp, sample)
+            entry = self._graphs[key] = self._capture(key)
         graph, deltas = entry
         graph.replay()
         for fn, n in deltas:
             fn.launches += n
         self.replays += 1
 
-    def _capture(self, want_lp: bool, sample: bool) -> tuple:
+    def _capture(self, key: tuple) -> tuple:
         """Warm up, undo the warm-up, capture; returns (graph, [(counter,
-        launches per replay)])."""
+        launches per replay)]). A mixed step's warm-up writes its chunk's
+        K/V as the replay will again."""
+        sample = key[1]
         cur = torch.cuda.current_stream(self.device)
         s = self.stream
         gen_states = [g.get_state() for g in self._generators]
         s.wait_stream(cur)
         with torch.cuda.stream(s):
             saved = [t.clone() for t in self._state]
-            self._step(want_lp, sample)           # the warm-up
+            self._step(*key)                      # the warm-up
             for t, v in zip(self._state, saved):
                 t.copy_(v)
         cur.wait_stream(s)
@@ -113,7 +121,7 @@ class DecodeGraphs:
         # threads stay legal while the engine thread captures.
         with torch.cuda.graph(graph, stream=s,
                               capture_error_mode="thread_local"):
-            self._step(want_lp, sample)
+            self._step(*key)
         deltas = [(fn, fn.launches - n)
                   for fn, n in zip(KERNEL_COUNTERS, before)]
         for fn, n in deltas:

@@ -50,22 +50,46 @@
 
 - **Admission order** as the reference's: online before offline, then
   higher priority first, FIFO otherwise.
+- **Asynchronous install**: an admission pass dispatches a burst of
+  prefill installs, each leaving its first token (and logprob pack) in its
+  slot's row of a host buffer (pinned on a card), then waits ONCE for the
+  whole burst and completes the installs in order (TTFT telemetry,
+  ``span_samples``, prefix donation, the first emission). A request whose
+  first hash block equals one already in the burst completes the burst
+  first, so the prefix cache sees the donation (the ``n > 1`` fan-out).
+- **Chunked prefill** (``prefill_chunk_tokens`` > 0): a suffix longer than
+  a chunk joins up to ``max_concurrent_prefills`` in-flight prefills and is
+  written chunk by chunk across steps, round-robin (every chunk behind the
+  first attends its written prefix through kernel 2 on the card); the
+  final chunk samples the first token through the install. Under queue
+  pressure a suffix of at most four chunks installs whole instead; a long
+  prompt that finds the prefill set full is deferred, not blocking the
+  short ones behind it.
+- **The Sarathi mixed step** (``models/llama.py::mixed_decode_chunk_forward``):
+  a decode horizon with a prefill in flight carries the front sequence's
+  next chunk (four under queue pressure, never the final one) inside its
+  first step, one forward over the decode rows and the chunk's rows; on a
+  card that step is a replay of its own captured graph.
+  ``XLLM_SARATHI=0`` (the reference's switch) turns rides off; under a seq
+  mesh there are none.
+- **Offline preemption**: an online request that finds no pages preempts
+  the most recently admitted running offline sequence, which re-queues as
+  a continuation re-prefilling its prompt and the tokens it had emitted
+  (its stream never repeats a token).
 - **Embeddings** (``embed``, for the agent's ``/v1/embeddings``): the
   family's dense forward, run on the engine thread between steps.
 
 Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
-Not in this port yet: speculation, chunked prefill, the mixed
-decode+chunk step, PD injection/handoff, multimodal input, mesh axes other
-than ``seq``, offline preemption, the asynchronous install (a burst of
-prefills dispatched before any first token is fetched: the port's install
-still fetches its first token) and the captured step under a seq mesh.
+Not in this port yet: speculation, PD injection/handoff, multimodal input,
+mesh axes other than ``seq`` and the captured step under a seq mesh.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
 import threading
 import time
@@ -108,6 +132,9 @@ logger = logging.getLogger(__name__)
 # device for mid-horizon deactivation. Longer lists still work — the host
 # stop check covers the rest; the device just can't freeze the slot early.
 NUM_STOP_IDS = 4
+# Chunks one ride carries under queue pressure (the mixed step's second
+# span, beside one chunk).
+PRESSURE_SPAN_CHUNKS = 4
 
 
 @dataclass
@@ -122,6 +149,14 @@ class EngineRequest:
     # online traffic; within a class a higher priority goes first.
     offline: bool = False
     priority: int = 0
+    # Continuation state installed by offline preemption: the tokens
+    # already emitted, re-prefilled after the prompt and never re-sent.
+    resume_output_ids: list[int] = field(default_factory=list)
+    resume_emitted_chars: int = 0
+    resume_logprobs: list[LogProb] = field(default_factory=list)
+    # Set by submit(): splits the engine's TTFT into queue wait and
+    # prefill (``span_samples``).
+    t_submit: float = 0.0
 
 
 @dataclass
@@ -199,6 +234,10 @@ class InferenceEngine:
         B = cfg.max_batch_size
         self._waiting: deque[EngineRequest] = deque()
         self._running: dict[int, _Sequence] = {}
+        # In-flight chunked prefills (at most max_concurrent_prefills), as
+        # {seq, req, prompt, cache_matched, written, t0}: one chunk advances
+        # per step, round-robin, standalone or riding a decode step.
+        self._prefillings: deque[dict[str, Any]] = deque()
         self._free_slots = list(range(B - 1, -1, -1))
         self._lock = threading.Condition()
         self._cancelled: set[str] = set()
@@ -220,6 +259,15 @@ class InferenceEngine:
         self.recent_max_tbt_ms = 0.0
         self.ttft_samples: deque[tuple[int, float]] = deque(maxlen=512)
         self.tpot_samples: deque[tuple[int, int, float]] = deque(maxlen=512)
+        # Per-admission spans of the engine's TTFT: queue wait, prefill
+        # (dispatch to first token, chunks included), prompt length.
+        self.span_samples: deque[dict[str, float]] = deque(maxlen=512)
+        self.preemption_count = 0
+        # Mixed decode+chunk calls dispatched (proof that rides happened).
+        self.sarathi_rides = 0
+        # XLLM_SARATHI=0 turns the mixed step off (the reference's switch).
+        self._sarathi = os.environ.get("XLLM_SARATHI", "1") != "0"
+        self._rode_chunk = False        # this step's decode carried a chunk
 
     @staticmethod
     def _resolve_mesh(cfg: EngineConfig, device, mesh: Optional[DeviceMesh]
@@ -327,6 +375,23 @@ class InferenceEngine:
                                        pin_memory=dev.type == "cuda")
                            for _ in range(2)]
         self._host_next = 0
+        # An install's first token and logprob pack, one row per slot on
+        # the device and in a host buffer (pinned on a card): a burst of
+        # installs is read after one wait.
+        self._inst_rows = torch.zeros((B, 2 + 2 * K), dtype=torch.float32,
+                                      device=dev)
+        self._inst_host = torch.zeros((B, 2 + 2 * K), dtype=torch.float32,
+                                      pin_memory=dev.type == "cuda")
+        # The mixed step's chunk, written in place before a ride (a
+        # captured mixed step reads it at these addresses): tokens for the
+        # larger span (a one-chunk span reads their head), the chunk
+        # sequence's page-table row, its start and its valid length.
+        span = PRESSURE_SPAN_CHUNKS * cfg.prefill_chunk_tokens
+        self._chunk_toks = torch.zeros((span,), dtype=i32, device=dev)
+        self._chunk_pt = torch.full((1, cfg.pages_per_seq), GARBAGE_PAGE,
+                                    dtype=i32, device=dev)
+        self._chunk_start = torch.zeros((1,), dtype=i32, device=dev)
+        self._chunk_valid = torch.zeros((1,), dtype=i32, device=dev)
 
     def _reset_slot_state(self) -> None:
         """Every slot back to inactive on the garbage page, in place."""
@@ -379,6 +444,7 @@ class InferenceEngine:
                               f"max_seq_len {self.cfg.max_seq_len}"),
                 finished=True))
             return
+        req.t_submit = time.monotonic()
         with self._lock:
             self._waiting.append(req)
             self._lock.notify_all()
@@ -512,13 +578,15 @@ class InferenceEngine:
             self._waiting.clear()
         running = list(self._running.values())
         self._running.clear()
-        for seq in running:
+        prefilling = [st["seq"] for st in self._prefillings]
+        self._prefillings.clear()
+        for seq in running + prefilling:
             seq.finished = True
             with self._lock:
                 self._free_slots.append(seq.slot)
             seq.pages.release(self.page_mgr)
         self._reset_slot_state()
-        for req in [seq.req for seq in running] + waiting:
+        for req in [seq.req for seq in running + prefilling] + waiting:
             try:
                 req.on_output(RequestOutput(
                     service_request_id=req.service_request_id,
@@ -530,12 +598,17 @@ class InferenceEngine:
                 logger.exception("failure callback")
 
     def step(self) -> bool:
-        """One engine iteration: process cancellations, admit waiting
-        requests into free slots, decode one horizon."""
+        """One engine iteration, in the reference's order: cancellations,
+        admission (short prompts never wait behind a chunked prefill), one
+        decode horizon (which may carry the next chunk of a prefill in
+        flight), then one standalone chunk when none rode."""
         self._process_cancellations()
-        admitted = self._admit()
+        worked = self._admit()
+        self._rode_chunk = False
         decoded = self._decode()
-        return admitted or decoded
+        if self._prefillings and not self._rode_chunk:
+            worked = self._advance_prefill() or worked
+        return worked or decoded
 
     def _process_cancellations(self) -> None:
         with self._lock:
@@ -548,6 +621,15 @@ class InferenceEngine:
             for r in self._waiting:
                 (victims if r.service_request_id in cancelled else kept).append(r)
             self._waiting = kept
+        for st in [st for st in self._prefillings
+                   if st["seq"].req.service_request_id in cancelled]:
+            self._prefillings.remove(st)
+            seq = st["seq"]
+            with self._lock:
+                self._free_slots.append(seq.slot)
+            seq.pages.release(self.page_mgr)
+            seq.finished = True
+            victims.append(seq.req)
         # Callbacks run outside the lock (they may do slow I/O).
         for r in victims:
             self._emit_cancelled(r)
@@ -576,21 +658,87 @@ class InferenceEngine:
 
     def _admit(self) -> bool:
         """Admit waiting requests in admission order while slots and pages
-        last. Each admission prefills and installs before the next one
-        starts, so a request sharing a prefix with an earlier one in the
-        same burst sees its donated blocks."""
+        last. The installs are dispatched as a burst and completed in order
+        after one wait (in ``finally``). A long prompt that would chunk
+        while ``max_concurrent_prefills`` are in flight is deferred, and
+        the requests behind it still admit. A request sharing its first
+        hash block with one in the burst completes the burst first, so it
+        matches the donated blocks. An online request that finds no pages
+        may preempt a running offline sequence."""
         admitted = False
-        while True:
+        C = self.cfg.prefill_chunk_tokens
+        hb = self.cfg.hash_block_size
+        deferred: list[EngineRequest] = []
+        batch: list[tuple] = []
+
+        def requeue(*reqs: EngineRequest) -> None:
+            # Back to the queue's head in the order they were popped.
             with self._lock:
-                if not self._free_slots or not self._waiting:
-                    return admitted
-                req = self._pop_next_waiting()
-            if not self._start_sequence(req):
-                # Not enough KV pages: wait for running sequences to finish.
+                for r in reversed([*deferred, *reqs]):
+                    self._waiting.appendleft(r)
+            deferred.clear()
+
+        try:
+            while True:
                 with self._lock:
-                    self._waiting.appendleft(req)
-                return admitted
-            admitted = True
+                    if not self._free_slots or not self._waiting:
+                        break
+                    req = self._pop_next_waiting()
+                if (C > 0 and len(req.token_ids)
+                        + len(req.resume_output_ids) > C
+                        and len(self._prefillings)
+                        >= self.cfg.max_concurrent_prefills):
+                    deferred.append(req)
+                    continue
+                head = req.token_ids[:hb]
+                if batch and len(head) == hb and any(
+                        e[2][:hb] == head for e in batch):
+                    try:
+                        self._complete_batch(batch)
+                    except Exception:
+                        requeue(req)
+                        raise
+                # Not enough KV pages: an online request may preempt a
+                # running offline sequence to make room.
+                if not self._start_sequence(req, batch) and (
+                        req.offline or not self._preempt_one_offline()
+                        or not self._start_sequence(req, batch)):
+                    requeue(req)
+                    break
+                admitted = True
+            requeue()
+            return admitted
+        finally:
+            self._complete_batch(batch)
+
+    def _preempt_one_offline(self) -> bool:
+        """Evict the most recently admitted running offline sequence. It
+        re-queues as a continuation: its prompt and the tokens emitted so
+        far are prefilled again at readmission (rows of a pending horizon
+        are dropped with the sequence and decoded again)."""
+        victim: Optional[_Sequence] = None
+        for seq in self._running.values():
+            if seq.req.offline and not seq.finished:
+                victim = seq    # insertion order: the last one wins
+        if victim is None:
+            return False
+        req = victim.req
+        cont = EngineRequest(
+            service_request_id=req.service_request_id,
+            request_id=req.request_id, token_ids=list(req.token_ids),
+            sampling=req.sampling, on_output=req.on_output, offline=True,
+            priority=req.priority,
+            resume_output_ids=list(victim.output_ids),
+            resume_emitted_chars=victim.emitted_chars,
+            resume_logprobs=list(victim.logprobs))
+        logger.info("preempting offline request %s after %d tokens",
+                    req.service_request_id, len(victim.output_ids))
+        self.preemption_count += 1
+        self._release_slot_and_pages(victim)
+        victim.finished = True
+        with self._lock:
+            self._waiting.append(cont)
+        return True
 
     # ------------------------------------------------------------ KV tiers
     def _tier_gather(self, pages: list[int]):
@@ -688,13 +836,21 @@ class InferenceEngine:
             i += 1
         return matched
 
-    def _start_sequence(self, req: EngineRequest) -> bool:
+    def _start_sequence(self, req: EngineRequest,
+                        batch: Optional[list] = None) -> bool:
+        """Match the prompt's cached prefix, reserve its pages and a slot,
+        then install it (dispatched into ``batch`` when given) or, for a
+        long suffix, start its chunked prefill. False when the pages do not
+        suffice."""
         cfg = self.cfg
-        t0 = time.monotonic()
-        prompt = req.token_ids
-        P0 = len(prompt)
+        # A continuation (offline preemption) re-prefills prompt + emitted.
+        prompt = req.token_ids + req.resume_output_ids
+        P0 = len(req.token_ids)
         max_new = max(1, min(req.sampling.max_tokens, cfg.max_seq_len - P0))
         max_total = min(P0 + max_new, cfg.max_seq_len)
+        if len(prompt) >= cfg.max_seq_len:
+            self._emit_cancelled(req)
+            return True
 
         # Prefix-cache match (block-aligned; keep at least 1 suffix token so
         # prefill produces the next-token logits). The prompt's hash chain
@@ -729,28 +885,168 @@ class InferenceEngine:
                                 cached_pages=cached_pages,
                                 own_pages=own_pages,
                                 block_hashes=prompt_hashes),
-            prompt_len=P0, context_len=P0, max_total_len=max_total)
+            prompt_len=P0, context_len=len(prompt), max_total_len=max_total,
+            output_ids=list(req.resume_output_ids),
+            emitted_chars=req.resume_emitted_chars,
+            logprobs=list(req.resume_logprobs))
         with self._lock:
             seq.slot = self._free_slots.pop()
+
+        # The ring takes precedence over chunking: it spreads a long suffix
+        # over the seq axis in one call. Under queue pressure a suffix of
+        # at most four chunks installs whole (a burst admits in one pass);
+        # a longer one always chunks.
+        C = cfg.prefill_chunk_tokens
+        suffix = len(prompt) - matched
+        if (not self._sp_applicable(suffix, matched) and C > 0
+                and suffix > C
+                and not (self._waiting and suffix <= 4 * C)):
+            self._prefillings.append(
+                {"seq": seq, "req": req, "prompt": prompt,
+                 "cache_matched": matched, "written": matched,
+                 "t0": time.monotonic()})
+            return True
+        return self._finish_admission(seq, req, prompt, matched, matched,
+                                      time.monotonic(), batch)
+
+    def _advance_prefill(self) -> bool:
+        """One chunk of ONE in-flight chunked prefill, round-robin over the
+        set (every long prompt progresses, none owns the engine). The final
+        chunk goes through the install."""
+        if not self._prefillings:
+            return False
+        st = self._prefillings.popleft()
+        seq, req, prompt = st["seq"], st["req"], st["prompt"]
+        C, written = self.cfg.prefill_chunk_tokens, st["written"]
+        if len(prompt) - written <= C:
+            return self._finish_admission(seq, req, prompt,
+                                          st["cache_matched"], written,
+                                          st["t0"])
         try:
-            first_token, lp = self._prefill_install(seq, prompt, matched)
+            self._prefill_chunk(seq, prompt[written:written + C], written)
         except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
             self._fail_admission(seq, req, e)
             raise
-        ttft_ms = (time.monotonic() - t0) * 1000
+        st["written"] = written + C
+        self._prefillings.append(st)   # back of the round-robin
+        return True
+
+    def _prefill_chunk(self, seq: _Sequence, chunk: list[int],
+                       start: int) -> None:
+        """Write one non-final chunk's K/V behind the ``start`` tokens
+        already in the sequence's pages, attending to them (kernel 2 on
+        the card once ``start`` > 0); its logits are dropped."""
+        dev, n, i32 = self.device, len(chunk), torch.int32
+        P = self.cfg.pages_per_seq
+        # The page row first: kernel 2 takes it 16-byte aligned.
+        packed = self._upload(np.concatenate(
+            [self._page_row(seq), np.asarray(chunk, np.int32)]))
+        self.family.prefill_forward(
+            self.params, self.cfg.model, packed[None, P:],
+            torch.arange(start, start + n, dtype=i32, device=dev)[None],
+            self.kv_pages, packed[None, :P],
+            torch.full((1,), start, dtype=i32, device=dev),
+            torch.full((1,), n, dtype=i32, device=dev),
+            has_prefix=start > 0)
+
+    def _ride_chunk_args(self) -> Optional[int]:
+        """Write the next chunk of the FRONT prefilling sequence into the
+        mixed step's inputs and return its span (C, or 4C under queue
+        pressure), or None when nothing can ride: no mixed forward, no
+        prefill in flight, a seq mesh, rides turned off, or only the final
+        chunk left (it samples the first token through the install). The
+        host's ``written`` advances here; the device work follows in
+        stream order."""
+        if (self.family.mixed_decode_chunk_forward is None
+                or not self._prefillings or self.seq_parallel > 1
+                or not self._sarathi):
+            return None
+        st = self._prefillings[0]
+        prompt, written = st["prompt"], st["written"]
+        C = self.cfg.prefill_chunk_tokens
+        rideable = len(prompt) - written - C
+        if rideable <= 0:
+            return None
+        span = C
+        if rideable >= PRESSURE_SPAN_CHUNKS * C and (
+                self._waiting or len(self._prefillings) > 1):
+            span = PRESSURE_SPAN_CHUNKS * C
+        consume = min(span, rideable)
+        toks = np.zeros((span,), np.int32)
+        toks[:consume] = prompt[written:written + consume]
+        packed = self._upload(np.concatenate([
+            toks, self._page_row(st["seq"]),
+            np.asarray([written, consume], np.int32)]))
+        self._chunk_toks[:span].copy_(packed[:span])
+        self._chunk_pt.copy_(packed[None, span:-2])
+        self._chunk_start.copy_(packed[-2:-1])
+        self._chunk_valid.copy_(packed[-1:])
+        st["written"] = written + consume
+        # Round-robin, as the standalone chunks.
+        self._prefillings.rotate(-1)
+        return span
+
+    def _finish_admission(self, seq: _Sequence, req: EngineRequest,
+                          prompt: list[int], cache_matched: int,
+                          prefix_written: int, t0: float,
+                          batch: Optional[list] = None) -> bool:
+        """Dispatch the install (the last chunk and the first token); with
+        ``batch`` the caller completes it with the burst, else it is
+        completed here."""
+        try:
+            self._dispatch_prefill_install(seq, prompt, prefix_written)
+        except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
+            self._fail_admission(seq, req, e)
+            raise
+        entry = (seq, req, prompt, cache_matched, t0)
+        if batch is None:
+            self._complete_batch([entry])
+        else:
+            batch.append(entry)
+        return True
+
+    def _complete_batch(self, batch: list) -> None:
+        """Complete the dispatched installs of ``batch`` in order after ONE
+        wait for all of them. On a failure the entries not completed yet
+        (they hold slots and pages ``_fail_all`` cannot see) are failed
+        before it re-raises."""
+        if not batch:
+            return
+        try:
+            self._sync(self._ready_event())
+            while batch:
+                self._complete_admission(batch.pop(0))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            for seq, req, *_ in batch:
+                self._fail_admission(seq, req, e)
+            batch.clear()
+            raise
+
+    def _complete_admission(self, entry: tuple) -> None:
+        """After the burst's wait: TTFT telemetry and spans, prefix
+        donation, the slot joins the batch, the first token goes out."""
+        seq, req, prompt, cache_matched, t0 = entry
+        cfg = self.cfg
+        first_token, lp = self._complete_prefill_install(seq)
+        now = time.monotonic()
+        ttft_ms = (now - t0) * 1000
         with self._telemetry_lock:
             self.recent_max_ttft_ms = max(self.recent_max_ttft_ms, ttft_ms)
-        self.ttft_samples.append((P0, ttft_ms))
-
-        if matched:
+        self.ttft_samples.append((len(prompt), ttft_ms))
+        if req.t_submit:
+            self.span_samples.append({
+                "queue_ms": (t0 - req.t_submit) * 1000,
+                "prefill_ms": ttft_ms,
+                "prompt_len": float(len(prompt))})
+        if cache_matched:
             self.prefix_hits += 1
-            self.prefix_hit_tokens += matched
-        # Donate completed prompt blocks to the prefix cache (skipping the
-        # blocks matched FROM the cache).
+            self.prefix_hit_tokens += cache_matched
+        # Donate completed prompt blocks to the prefix cache (skipping only
+        # the blocks matched FROM the cache: chunks written here donate).
         stored, donated = self.page_mgr.store_prefix(
             prompt, seq.pages.all_pages,
-            skip_blocks=matched // cfg.hash_block_size,
-            block_hashes=prompt_hashes)
+            skip_blocks=cache_matched // cfg.hash_block_size,
+            block_hashes=seq.pages.block_hashes)
         seq.pages.donated_hashes = stored
         seq.pages.donated_pages = donated
         if self.tier_store is not None:
@@ -760,7 +1056,6 @@ class InferenceEngine:
                 self.tier_store.discard(hx)
         self._running[seq.slot] = seq
         self._emit_token(seq, first_token, lp)
-        return True
 
     def _fail_admission(self, seq: _Sequence, req: EngineRequest,
                         e: Exception) -> None:
@@ -823,12 +1118,52 @@ class InferenceEngine:
         return (self.seq_parallel > 1 and matched == 0
                 and suffix_len >= self.cfg.seq_parallel_min_tokens)
 
-    def _prefill_install(self, seq: _Sequence, prompt: list[int],
-                         matched: int) -> tuple[int, Optional[LogProb]]:
-        """Prefill the suffix past the cached prefix, install the sequence
-        into its batch slot and sample its first token (one host fetch)."""
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device without a host wait. On a card the
+        bytes pass through a block of PyTorch's pinned-memory cache, which
+        is not handed out again before the copy has run (a copy from
+        pageable memory would wait for the stream, the pending horizon
+        included)."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _page_row(self, seq: _Sequence) -> np.ndarray:
+        """The sequence's page-table row [pages_per_seq], garbage-padded."""
+        row = np.full((self.cfg.pages_per_seq,), GARBAGE_PAGE, np.int32)
+        pages = seq.pages.all_pages
+        row[:len(pages)] = pages
+        return row
+
+    def _ready_event(self) -> Optional[torch.cuda.Event]:
+        """An event behind everything enqueued so far (None on the CPU,
+        where work has completed when its call returns)."""
+        if self.device.type != "cuda":
+            return None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return ready
+
+    def _sync(self, ready: Optional[torch.cuda.Event]) -> None:
+        """The engine's one kind of host wait on the card: at a horizon's
+        drain, and once per burst of installs."""
+        if ready is not None:
+            ready.synchronize()
+
+    def _dispatch_prefill_install(self, seq: _Sequence, prompt: list[int],
+                                  matched: int) -> None:
+        """Prefill the suffix past the first ``matched`` tokens, install the
+        sequence into its batch slot and sample its first token, without
+        waiting: its inputs go up in ONE packed upload, and the token (with
+        its logprob pack when asked for) lands in the slot's row of the
+        install buffer on the host behind the stream, read by
+        ``_complete_prefill_install`` after the burst's wait. Every buffer
+        it writes is its slot's, so a later install of the burst touches
+        none that an earlier one still reads."""
         cfg, dev, slot = self.cfg, self.device, seq.slot
         sp = seq.req.sampling
+        V = cfg.model.vocab_size
         suffix = prompt[matched:]
         S = len(suffix)
         ring = self._sp_applicable(S, matched)
@@ -837,42 +1172,45 @@ class InferenceEngine:
             # of every valid query's window, and its K/V go to page 0.
             suffix = suffix + [0] * (-S % self.seq_parallel)
             self.ring_prefills += 1
-        row = np.full((cfg.pages_per_seq,), GARBAGE_PAGE, np.int32)
-        pages = seq.pages.all_pages
-        row[:len(pages)] = pages
-        pt_row = torch.from_numpy(row).to(dev)
+        rep = sp.repetition_penalty if sp.repetition_penalty > 0 else 1.0
+        # The dense [V] prompt histogram feeds only the penalty terms;
+        # penalty-free requests install a zeroed row (which clears the
+        # previous occupant's counts).
+        needs_counts = (sp.frequency_penalty != 0.0
+                        or sp.presence_penalty != 0.0 or rep != 1.0)
+        bias_ids, bias_vals = self._device_bias(sp)
+        # The page row first: kernel 2 takes it 16-byte aligned.
+        parts = [self._page_row(seq), np.asarray(suffix, np.int32),
+                 self._device_stop_ids(sp), bias_ids, bias_vals.view(np.int32)]
+        if needs_counts:
+            parts.append(np.bincount(np.asarray(prompt, np.int64),
+                                     minlength=V)[:V].astype(np.int32))
+        packed = self._upload(np.concatenate(parts))
+        sizes = [p.size for p in parts]
+        pt_row, toks, stop_ids, b_ids, b_vals, *counts = torch.split(
+            packed, sizes)
         i32 = torch.int32
         logits, _ = self.family.prefill_forward(
-            self.params, cfg.model,
-            torch.tensor([suffix], dtype=i32, device=dev),
+            self.params, cfg.model, toks[None],
             torch.arange(matched, matched + len(suffix), dtype=i32,
                          device=dev)[None],
             self.kv_pages, pt_row[None],
-            torch.tensor([matched], dtype=i32, device=dev),
-            torch.tensor([S], dtype=i32, device=dev),
+            torch.full((1,), matched, dtype=i32, device=dev),
+            torch.full((1,), S, dtype=i32, device=dev),
             has_prefix=matched > 0, ring=ring)
 
         # Install the slot's sampling controls, then sample with them.
         st = self._slot_state(slot)
-        rep = sp.repetition_penalty if sp.repetition_penalty > 0 else 1.0
         st.temperature.fill_(sp.temperature)
         st.top_k.fill_(int(sp.top_k))
         st.top_p.fill_(sp.top_p)
         st.frequency_penalty.fill_(sp.frequency_penalty)
         st.presence_penalty.fill_(sp.presence_penalty)
         st.repetition_penalty.fill_(rep)
-        bias_ids, bias_vals = self._device_bias(sp)
-        st.bias_ids.copy_(torch.from_numpy(bias_ids)[None])
-        st.bias_vals.copy_(torch.from_numpy(bias_vals)[None])
-        # The dense [V] prompt histogram feeds only the penalty terms;
-        # penalty-free requests install a zeroed row (which clears the
-        # previous occupant's counts).
-        if (sp.frequency_penalty != 0.0 or sp.presence_penalty != 0.0
-                or rep != 1.0):
-            counts = np.bincount(np.asarray(prompt, np.int64),
-                                 minlength=cfg.model.vocab_size)
-            st.token_counts.copy_(torch.from_numpy(
-                counts[:cfg.model.vocab_size].astype(np.int32))[None])
+        st.bias_ids.copy_(b_ids[None])
+        st.bias_vals.copy_(b_vals.view(torch.float32)[None])
+        if counts:
+            st.token_counts.copy_(counts[0][None])
         else:
             st.token_counts.zero_()
         gen = None
@@ -880,28 +1218,37 @@ class InferenceEngine:
             seed = sp.seed if sp.seed is not None else self._rng.getrandbits(63)
             gen = self._gens[slot].manual_seed(seed)
 
-        toks, logprobs = sample_tokens(logits, st, [gen],
-                                       want_logprobs=sp.logprobs)
-        record_tokens(st.token_counts, toks,
+        tok, logprobs = sample_tokens(logits, st, [gen],
+                                      want_logprobs=sp.logprobs)
+        record_tokens(st.token_counts, tok,
                       torch.ones((1,), dtype=torch.bool, device=dev))
         self._pt[slot] = pt_row
-        self._last[slot] = toks[0]
+        self._last[slot] = tok[0]
         self._clens[slot] = matched + S + 1
         self._active[slot] = True
-        self._stop_ids[slot] = torch.from_numpy(self._device_stop_ids(sp))
+        self._stop_ids[slot] = stop_ids
         self._budget[slot] = seq.max_total_len
 
         K = cfg.max_top_logprobs
+        row = self._inst_rows[slot]
+        row[:1].copy_(tok)
         if sp.logprobs:
             tv, ti = torch.topk(logprobs, K, dim=-1)
-            chosen = torch.gather(logprobs, 1, toks.long()[:, None])[:, 0]
-            packed = torch.cat([toks.float(), chosen, tv[0], ti[0].float()])
-            out = packed.cpu().numpy()
-            token = int(out[0])
-            return token, self._make_logprob(token, float(out[1]),
-                                             out[2:2 + K],
-                                             out[2 + K:].astype(np.int64), sp)
-        return int(toks.cpu()[0]), None
+            row[1:2].copy_(torch.gather(logprobs, 1, tok.long()[:, None])[0])
+            row[2:2 + K].copy_(tv[0])
+            row[2 + K:].copy_(ti[0])
+        self._inst_host[slot].copy_(row, non_blocking=dev.type == "cuda")
+
+    def _complete_prefill_install(self, seq: _Sequence
+                                  ) -> tuple[int, Optional[LogProb]]:
+        """A dispatched install's first token (and logprob), read from its
+        slot's row of the host buffer after the burst's wait."""
+        row = self._inst_host[seq.slot].numpy()
+        K = self.cfg.max_top_logprobs
+        token = int(row[0])
+        return token, self._make_logprob(token, float(row[1]), row[2:2 + K],
+                                         row[2 + K:].astype(np.int64),
+                                         seq.req.sampling)
 
     # -------------------------------------------------------------- decode
     def _decode(self) -> bool:
@@ -914,9 +1261,10 @@ class InferenceEngine:
         # the whole batch. (With a horizon in flight, output_ids lags by
         # its length; the device budget freezes any overshoot.)
         horizon = self.cfg.decode_horizon
-        # TTFT guard: with arrivals waiting, keep decode calls short.
+        # TTFT guard: with arrivals waiting or a chunked prefill in flight,
+        # keep decode calls short.
         ah = self.cfg.admission_horizon
-        if ah > 0 and self._waiting:
+        if ah > 0 and (self._waiting or self._prefillings):
             horizon = min(horizon, ah)
         rem = max((s.max_total_len - s.prompt_len - len(s.output_ids)
                    for s in self._running.values() if not s.finished),
@@ -926,7 +1274,11 @@ class InferenceEngine:
         t0 = time.monotonic()
         snapshot = {slot: seq for slot, seq in self._running.items()
                     if not seq.finished}
-        rows, ready = self._decode_multi(horizon, snapshot)
+        span = self._ride_chunk_args()
+        rows, ready = self._decode_multi(horizon, snapshot, span or 0)
+        if span:
+            self._rode_chunk = True
+            self.sarathi_rides += 1
         # Pipeline: this horizon is enqueued; process the PREVIOUS one's
         # rows while the device runs it.
         prev, self._pending_decode = (self._pending_decode,
@@ -946,8 +1298,7 @@ class InferenceEngine:
         """Wait for a dispatched horizon's rows and emit them, one delta
         per live sequence, recording the step's latency."""
         rows, ready, t0, horizon, snapshot = pend
-        if ready is not None:
-            ready.synchronize()
+        self._sync(ready)
         packed = rows.numpy()                         # [H, B, 2 + 2K]
         ms_per_tok = (time.monotonic() - t0) * 1000 / max(1, horizon)
         with self._telemetry_lock:
@@ -980,48 +1331,60 @@ class InferenceEngine:
             # discarded inside _emit_tokens).
             self._emit_tokens(seq, tokens, lps)
 
-    def _decode_multi(self, horizon: int, running: dict[int, _Sequence]
+    def _decode_multi(self, horizon: int, running: dict[int, _Sequence],
+                      span: int = 0
                       ) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-        """Dispatch ``horizon`` decode steps of the whole batch and the
+        """Dispatch ``horizon`` decode steps of the whole batch (the first a
+        mixed step carrying ``span`` chunk rows when ``span`` > 0) and the
         copy of their rows to the host. Returns (host rows [H, B, 2 + 2K]
         f32, the event after the copy; None on the CPU, where the copy has
         completed)."""
         want_lp = any(s.req.sampling.logprobs for s in running.values())
         sample = any(s.req.sampling.temperature > 0 for s in running.values())
         for h in range(horizon):
-            self._step(want_lp, sample)
+            self._step(want_lp, sample, span if h == 0 else 0)
             self._hrows[h].copy_(self._row)
         rows = self._host_rows[self._host_next][:horizon]
         self._host_next ^= 1
-        on_card = self.device.type == "cuda"
-        rows.copy_(self._hrows[:horizon], non_blocking=on_card)
-        if not on_card:
-            return rows, None
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
-        return rows, ready
+        rows.copy_(self._hrows[:horizon],
+                   non_blocking=self.device.type == "cuda")
+        return rows, self._ready_event()
 
-    def _step(self, want_lp: bool, sample: bool) -> None:
-        """One decode step: a replay of the captured step on a card with a
-        single-device pool, the eager step otherwise."""
+    def _step(self, want_lp: bool, sample: bool, span: int = 0) -> None:
+        """One decode step (a mixed one with ``span`` chunk rows): a replay
+        of its captured variant on a card with a single-device pool, the
+        eager step otherwise."""
+        key = (want_lp, sample, span) if span else (want_lp, sample)
         if self._graphs is not None:
-            self._graphs.run(want_lp, sample)
+            self._graphs.run(*key)
         else:
-            self._decode_step(want_lp, sample)
+            self._decode_step(*key)
 
-    def _decode_step(self, want_lp: bool, sample: bool) -> None:
+    def _decode_step(self, want_lp: bool, sample: bool,
+                     span: int = 0) -> None:
         """One decode step of the whole batch, in place on the device
         state: forward, sampling (``sample``: every slot draws from its
         generator; greedy slots ignore the draw), the penalty histogram,
         the device-side stop and budget update, and the packed row into
-        ``self._row`` (top-K logprobs with ``want_lp``, else zeros).
+        ``self._row`` (top-K logprobs with ``want_lp``, else zeros). With
+        ``span`` > 0 the forward is the mixed step over the batch and the
+        first ``span`` rows of the chunk buffers (``_ride_chunk_args``).
         Allocates nothing that outlives the call and reads nothing from
         the host, so it can be captured (``engine/decode_graph.py``)."""
         cfg, mcfg = self.cfg, self.cfg.model
         K = cfg.max_top_logprobs
-        logits, _ = self.family.decode_forward(
-            self.params, mcfg, self._last, self._clens - 1,
-            self.kv_pages, self._pt, self._clens)
+        if span:
+            logits, _ = self.family.mixed_decode_chunk_forward(
+                self.params, mcfg, self._last, self._clens - 1,
+                self._chunk_toks[:span],
+                self._chunk_start + torch.arange(span, dtype=torch.int32,
+                                                 device=self.device),
+                self.kv_pages, self._pt, self._chunk_pt, self._clens,
+                self._chunk_start, self._chunk_valid)
+        else:
+            logits, _ = self.family.decode_forward(
+                self.params, mcfg, self._last, self._clens - 1,
+                self.kv_pages, self._pt, self._clens)
         gens = self._gens if sample else [None] * cfg.max_batch_size
         toks, logprobs = sample_tokens(logits, self._st, gens,
                                        want_logprobs=want_lp)
@@ -1169,8 +1532,7 @@ class InferenceEngine:
         if seq.finished or seq.cancelled:
             self._finish_sequence(seq, finish_reason or "abort", emit=False)
 
-    def _finish_sequence(self, seq: _Sequence, reason: str,
-                         emit: bool = True) -> None:
+    def _release_slot_and_pages(self, seq: _Sequence) -> None:
         if seq.slot >= 0 and seq.slot in self._running:
             del self._running[seq.slot]
             # Clear the device page-table row BEFORE recycling pages — a
@@ -1184,6 +1546,10 @@ class InferenceEngine:
             with self._lock:
                 self._free_slots.append(s)
         seq.pages.release(self.page_mgr)
+
+    def _finish_sequence(self, seq: _Sequence, reason: str,
+                         emit: bool = True) -> None:
+        self._release_slot_and_pages(seq)
         if emit and not seq.finished:
             seq.req.on_output(RequestOutput(
                 service_request_id=seq.req.service_request_id,

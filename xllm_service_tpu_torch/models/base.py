@@ -80,6 +80,9 @@ class ModelFamily:
     prefill_forward: Callable[..., Any]
     decode_forward: Callable[..., Any]
     embed_forward: Optional[Callable[..., Any]] = None
+    # The Sarathi mixed step (decode rows and one prefill chunk in one
+    # forward); a family without it never rides.
+    mixed_decode_chunk_forward: Optional[Callable[..., Any]] = None
 
 
 _REGISTRY: dict[str, ModelFamily] = {}

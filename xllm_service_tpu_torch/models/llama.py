@@ -225,10 +225,66 @@ def embed_forward(params: Params, cfg: ModelConfig,
     return summed / torch.clamp(seq_lens.float()[:, None], min=1.0)
 
 
+def mixed_decode_chunk_forward(
+        params: Params, cfg: ModelConfig,
+        dec_tokens: torch.Tensor,       # [B] last sampled tokens
+        dec_positions: torch.Tensor,    # [B] their absolute positions
+        chunk_tokens: torch.Tensor,     # [c] a prefill chunk (one sequence)
+        chunk_positions: torch.Tensor,  # [c] absolute positions in its prompt
+        kv_pages: torch.Tensor,         # [L, 2, P, n_kv, ps, hd]
+        dec_pt: torch.Tensor,           # [B, max_pages]
+        chunk_pt: torch.Tensor,         # [1, max_pages] the chunk's table
+        dec_clens: torch.Tensor,        # [B] incl. the new token
+        chunk_start: torch.Tensor,      # [] or [1] tokens written before it
+        chunk_valid: torch.Tensor,      # [] or [1] live tokens (<= c)
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Sarathi mixed step: one forward that decodes the running batch
+    AND writes and attends one chunk of a prefilling sequence. The
+    projections, the MLP and the unembed run once over the concatenated
+    ``B + c`` rows, so the decode rows ride the chunk's weight stream.
+
+    Per layer the chunk's K/V are written first (its own pages), the
+    decode rows attend through ``decode_attention_step`` (kernel 1 on the
+    card, kernel 3 under ``XLLM_KV_WRITEBACK=fused``) and the chunk rows
+    through ``prefill_attention`` behind ``chunk_start``, always on the
+    prefix route (kernel 2 on the card): kernel 2 at a prefix of 0 is the
+    causal attention of the chunk alone (its K/V are in the pages
+    already), so one route serves every chunk and a captured mixed step
+    needs no variant per route.
+
+    Returns (decode-row logits [B, V] f32, kv_pages), the pool updated in
+    place. Padding rows (``chunk_valid`` < c) write to the garbage page,
+    and their outputs are dropped."""
+    B = dec_tokens.shape[0]
+    x = torch.cat([_embed(params, cfg, dec_tokens),
+                   _embed(params, cfg, chunk_tokens)])            # [B+c, D]
+    cos_sin = rope_cos_sin(torch.cat([dec_positions, chunk_positions]),
+                           cfg.head_dim, cfg.rope_theta)
+    start = chunk_start.reshape(1)
+    valid = chunk_valid.reshape(1)
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        q, k, v = _project_qkv(lp, h, cfg, cos_sin)           # [B+c, H, hd]
+        k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
+        write_prefill_kv(k_pages, v_pages, k[None, B:], v[None, B:],
+                         chunk_pt, start, valid)
+        attn_d, _, _ = decode_attention_step(q[:B], k[:B], v[:B], k_pages,
+                                             v_pages, dec_pt, dec_clens)
+        attn_c = prefill_attention(q[None, B:], k[None, B:], v[None, B:],
+                                   k_pages, v_pages, chunk_pt, start, valid,
+                                   has_prefix=True)
+        attn = torch.cat([attn_d, attn_c[0]])
+        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
+                                                   cfg.q_size), cfg)
+    return _unembed(params, cfg, x[:B]), kv_pages
+
+
 register_model_family(ModelFamily(
     name="llama",
     init_params=init_params,
     prefill_forward=prefill_forward,
     decode_forward=decode_forward,
     embed_forward=embed_forward,
+    mixed_decode_chunk_forward=mixed_decode_chunk_forward,
 ))

@@ -15,7 +15,10 @@ Numerics: projections in model dtype, softmax in f32. These plain ops are
 the CPU path and the oracles of the CUDA kernels; on a CUDA tensor,
 ``paged_attention`` launches kernel 1, a prefill against a cached prefix
 launches kernel 2, and a decode step under ``XLLM_KV_WRITEBACK=fused``
-launches kernel 3.
+launches kernel 3. A prefill with no cached prefix is one PyTorch
+``scaled_dot_product_attention`` call on the card: no TPU kernel computes
+it (the reference leaves it to XLA), so it is a library call for work
+outside any Pallas kernel, not a kernel port.
 
 A pool sharded over the mesh's ``seq`` axis (``ShardedPages``, the
 reference's pool under a seq mesh) changes three things, as in the
@@ -33,6 +36,8 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from .cp_paged_attention import ShardedPages, cp_paged_attention
 from .fused_decode_attention import fused_decode_attention
@@ -246,8 +251,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the host, so the choice needs no device sync (None computes it). On
     a CUDA tensor a prefill with a prefix launches the multi-query kernel,
     which reads the suffix's K/V from the pages (written first by
-    write_prefill_kv); without one, and on the CPU, it is the dense f32
-    computation below (the reference's XLA path).
+    write_prefill_kv), and one without is ``sdpa_prefill_attention``; on
+    the CPU both are ``dense_prefill_attention`` (the reference's XLA
+    path, in f32).
 
     ``ring`` (the pool sharded over the seq axis, no cached prefix) takes
     ring attention over the pool's mesh axis, as the reference's
@@ -256,9 +262,6 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prefill with a prefix against a sharded pool reads the row's pages
     gathered from their shards (``gather_sharded_table``).
     """
-    B, S, n_heads, hd = q.shape
-    n_kv = k.shape[2]
-    n_rep = n_heads // n_kv
     if k_pages is not None and has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
     if ring:
@@ -271,9 +274,60 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if with_prefix and isinstance(k_pages, ShardedPages):
         k_pages, v_pages, page_table = gather_sharded_table(
             k_pages, v_pages, page_table)
-    if with_prefix and q.is_cuda:
-        return mq_paged_attention(q, k_pages, v_pages, page_table,
-                                  prefix_lens, seq_lens, scale=scale)
+    if q.is_cuda:
+        if with_prefix:
+            return mq_paged_attention(q, k_pages, v_pages, page_table,
+                                      prefix_lens, seq_lens, scale=scale)
+        return sdpa_prefill_attention(q, k, v, seq_lens, scale=scale)
+    if not with_prefix:
+        k_pages = v_pages = page_table = None
+    return dense_prefill_attention(q, k, v, k_pages, v_pages, page_table,
+                                   prefix_lens, seq_lens, scale=scale)
+
+
+def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, seq_lens: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """A prefill with no cached prefix as one PyTorch
+    ``scaled_dot_product_attention`` call, with the causal and padding
+    masks (the card's route; the reference's is XLA's attention, which no
+    Pallas kernel replaces). q/k/v: [B, S, n(_kv), hd]; K/V heads are
+    repeated to the query heads for the masked call. The call is held to
+    the memory-efficient backend (it raises where that backend cannot
+    run): the default choice on an H100, cuDNN's, builds a plan at the
+    first call of each new sequence length, about a second each on the
+    card, which every install of a new prompt length would pay. A row
+    with ``seq_lens`` 0 attends its first key (its output is dropped; a
+    fully masked row would give NaN). Returns [B, S, n_heads, hd]."""
+    B, S, n_heads, hd = q.shape
+    n_rep = n_heads // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    lens = seq_lens.long().clamp(min=1)
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < lens[:, None, None]))        # [B, S, S]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), _repeat_kv(k, n_rep).transpose(1, 2),
+            _repeat_kv(v, n_rep).transpose(1, 2), attn_mask=mask[:, None],
+            scale=scale)
+    return out.transpose(1, 2).contiguous()
+
+
+def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            k_pages: Optional[torch.Tensor],
+                            v_pages: Optional[torch.Tensor],
+                            page_table: Optional[torch.Tensor],
+                            prefix_lens: torch.Tensor,
+                            seq_lens: torch.Tensor,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """``prefill_attention`` in dense f32 on any device (the CPU route,
+    and the oracle of the card's routes): the suffix's causal,
+    padding-masked attention, plus the cached prefix read from the pages
+    when ``k_pages`` is given."""
+    B, S, n_heads, hd = q.shape
+    n_rep = n_heads // k.shape[2]
+    with_prefix = k_pages is not None
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
 
