@@ -156,6 +156,56 @@ def test_device_failure_mid_burst_fails_every_entry(weights, monkeypatch):  # no
         eng.stop()
 
 
+def test_install_failure_with_a_full_prefill_set_fails_deferred_entries(
+        weights, monkeypatch):  # noqa: F811
+    """A long prompt deferred because the prefill set is full, then an
+    install dispatch that raises in the same pass: the deferred request
+    still gets its failure (it goes back to the queue, which the loop's
+    _fail_all answers), and no slot or page leaks."""
+    eng = make_engine(weights, ref=False, prefill_chunk_tokens=32,
+                      max_concurrent_prefills=1)
+    free0 = eng.page_mgr.num_free
+    cols = {name: Collector() for name in ("long0", "long1", "short")}
+    prompts = {"long0": list(range(3, 203)), "long1": list(range(5, 205)),
+               "short": list(range(7, 37))}
+
+    def submit(name):
+        eng.submit(EngineRequest(
+            name, token_ids=prompts[name],
+            sampling=SamplingParams(max_tokens=4, temperature=0.0,
+                                    ignore_eos=True), on_output=cols[name]))
+
+    submit("long0")
+    eng._admit()
+    assert len(eng._prefillings) == 1
+    failed = threading.Event()
+    fail_all = eng._fail_all
+
+    def recorded_fail_all(message):
+        fail_all(message)
+        failed.set()
+
+    def broken_dispatch(*args):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(eng, "_fail_all", recorded_fail_all)
+    monkeypatch.setattr(eng, "_dispatch_prefill_install", broken_dispatch)
+    submit("long1")                     # deferred: the prefill set is full
+    submit("short")                     # its install dispatch raises
+    eng.start()
+    try:
+        assert failed.wait(30)
+        for name, c in cols.items():
+            assert c.done.is_set(), name
+            assert len(c.outputs) == 1 and not c.outputs[0].status.ok()
+        assert "prefill failure" in cols["short"].outputs[0].status.message
+        assert len(eng._free_slots) == eng.cfg.max_batch_size
+        assert eng.page_mgr.num_free == free0
+        assert not (eng._running or eng._waiting or eng._prefillings)
+    finally:
+        eng.stop()
+
+
 @pytest.mark.parametrize("horizon", [1, 4])
 def test_burst_behind_a_pending_horizon(weights, horizon):  # noqa: F811
     """A burst admitted while a horizon is in flight: the new slots' rows

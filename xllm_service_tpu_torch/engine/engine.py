@@ -708,6 +708,11 @@ class InferenceEngine:
                 admitted = True
             requeue()
             return admitted
+        except BaseException:
+            # Deferred requests go back to the queue, where the loop's
+            # _fail_all answers them.
+            requeue()
+            raise
         finally:
             self._complete_batch(batch)
 

@@ -278,7 +278,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if with_prefix:
             return mq_paged_attention(q, k_pages, v_pages, page_table,
                                       prefix_lens, seq_lens, scale=scale)
-        return sdpa_prefill_attention(q, k, v, seq_lens, scale=scale)
+        return sdpa_prefill_attention(q, k, v, scale=scale)
     if not with_prefix:
         k_pages = v_pages = page_table = None
     return dense_prefill_attention(q, k, v, k_pages, v_pages, page_table,
@@ -286,29 +286,25 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, seq_lens: torch.Tensor,
+                           v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """A prefill with no cached prefix as one PyTorch
-    ``scaled_dot_product_attention`` call, with the causal and padding
-    masks (the card's route; the reference's is XLA's attention, which no
-    Pallas kernel replaces). q/k/v: [B, S, n(_kv), hd]; K/V heads are
-    repeated to the query heads for the masked call. The call is held to
-    the memory-efficient backend (it raises where that backend cannot
+    """A prefill with no cached prefix as one causal PyTorch
+    ``scaled_dot_product_attention`` call (the card's route; the
+    reference's is XLA's attention, which no Pallas kernel replaces).
+    q/k/v: [B, S, n(_kv), hd]; K/V heads are repeated to the query heads.
+    No padding mask is needed: a valid query (position < its row's length)
+    sees only keys at or before it, all valid, and the rows past the
+    length are padding whose outputs every caller drops. The call is held
+    to the memory-efficient backend (it raises where that backend cannot
     run): the default choice on an H100, cuDNN's, builds a plan at the
     first call of each new sequence length, about a second each on the
-    card, which every install of a new prompt length would pay. A row
-    with ``seq_lens`` 0 attends its first key (its output is dropped; a
-    fully masked row would give NaN). Returns [B, S, n_heads, hd]."""
-    B, S, n_heads, hd = q.shape
-    n_rep = n_heads // k.shape[2]
-    pos = torch.arange(S, device=q.device)
-    lens = seq_lens.long().clamp(min=1)
-    mask = ((pos[None, :] <= pos[:, None])[None]
-            & (pos[None, None, :] < lens[:, None, None]))        # [B, S, S]
+    card, which every install of a new prompt length would pay. Returns
+    [B, S, n_heads, hd]."""
+    n_rep = q.shape[2] // k.shape[2]
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), _repeat_kv(k, n_rep).transpose(1, 2),
-            _repeat_kv(v, n_rep).transpose(1, 2), attn_mask=mask[:, None],
+            _repeat_kv(v, n_rep).transpose(1, 2), is_causal=True,
             scale=scale)
     return out.transpose(1, 2).contiguous()
 
