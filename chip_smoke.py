@@ -27,7 +27,10 @@ Phases (any failure exits non-zero before the result line):
    context-parallel partial per shard at seq 2
    and 4 (NaN in every page a shard does not own and occupy, a shard that
    owns only a row's last, partial page; the whole CP op against
-   single-device attention, and timed against kernel 1);
+   single-device attention, and timed against kernel 1); kernel 2 also at
+   the speculative verify's shapes (B 8, Sq 5, block lengths 5, 1 and 0 in
+   one call behind prefixes 256-1536, bf16 and f32), timed beside SDPA and
+   the bound there and at a uniform context of 1024;
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -105,6 +108,19 @@ Phases (any failure exits non-zero before the result line):
    unpreempted run up to the preemption in bf16, and in full in f32 at
    full width and 4 layers); and phase 4's eleven requests submitted at
    once (the burst's admission split, information);
+4h. speculative decoding at the same width and depth (``speculate_k`` 4,
+   ``speculate_cycles`` 4, batch 10): eight greedy requests on the
+   reference spec bench's repetitive prompts (256 ids plus the request's
+   index), a seeded sampled one and a logprob one, 128 new tokens each,
+   served with speculation and without after a warm pass: every budget
+   met, the spec path taken (a spy on ``_spec_multi``), a cycle accepting
+   a draft, kernel 2 in every layer of the captured spec cycle, each
+   greedy stream equal to the plain run's but at a near-tie (as in 4g);
+   the same traffic in f32 at full width and 4 layers, every stream and
+   logprob (1e-4) equal with and without speculation; the captured spec
+   cycle against the same cycle op by op, bit for bit; the
+   ``spec_bench`` twin (``bench_1b_config``). Tokens per cycle and tokens/s
+   are information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -145,6 +161,7 @@ PREFILL_REL_TOL = 0.1
 TIE_STEPS = 4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same source
+F32_FLOPS = 67e12                # f32 outside the tensor cores, same source
 N_Q, N_KV, HD, PS, B, MAX_PAGES = 32, 8, 128, 16, 8, 128
 
 
@@ -378,6 +395,74 @@ def check_mq_kernel(mq_paged_attention, mq_paged_attention_plain, kernel_fn):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+
+
+VERIFY_SQ = 5                          # a verify block at speculate_k=4
+VERIFY_BLOCKS = [5, 5, 1, 0, 5, 5, 1, 5]   # eligible, ineligible, idle rows
+VERIFY_PREFIXES = [256, 512, 768, 1024, 1280, 1536, 384, 1152]
+
+
+def check_mq_verify(mq_paged_attention, mq_paged_attention_plain):
+    """Kernel 2 at the speculative verify's shapes (B 8, Sq 5, block
+    lengths 5, 1 and 0 in one call, prefixes 256-1536), bf16 (the
+    tensor-core route) and f32 (the walk), each against its plain version,
+    and timed beside one masked SDPA call on the same K/V gathered dense
+    and the bound; bf16 also at a uniform prefix of 1024, every block 5
+    (kernel 1's timing context). Returns the timings by case."""
+    out = {}
+    for dtype, name, prefixes, blocks in (
+            (torch.bfloat16, "mixed", VERIFY_PREFIXES, VERIFY_BLOCKS),
+            (torch.float32, "mixed", VERIFY_PREFIXES, VERIFY_BLOCKS),
+            (torch.bfloat16, "ctx 1024", [1024] * B, [VERIFY_SQ] * B)):
+        ends = [p + b for p, b in zip(prefixes, blocks)]
+        k, v, pt = paged_inputs(dtype, ends, seed=8)
+        q = torch.randn((B, VERIFY_SQ, N_Q, HD), device="cuda").to(dtype)
+        pre = torch.tensor(prefixes, dtype=torch.int32, device="cuda")
+        blk = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+        got = mq_paged_attention(q, k, v, pt, pre, blk)
+        want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "mq kernel: non-finite (verify)"
+        e = (got.float() - want.float()).abs().max().item()
+        for b_, n in enumerate(blocks):
+            assert (got[b_, n:] == 0).all(), "a padding query is not zero"
+        assert e <= TOL[dtype], "mq kernel disagrees with plain (verify)"
+        T = max(ends)
+        kd = gathered(k, pt, T).contiguous()
+        vd = gathered(v, pt, T).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        s_idx = torch.arange(VERIFY_SQ, device="cuda")
+        # Query s of row b sees keys <= prefix_b + s; a padding query sees
+        # key 0 only (its output is dropped; an empty row would be NaN).
+        hi = torch.where(s_idx[None, :] < blk[:, None],
+                         pre[:, None] + s_idx[None, :], 0)
+        mask = (torch.arange(T, device="cuda")[None, None, :]
+                <= hi[:, :, None])[:, None]
+        ms = time_ms(lambda: mq_paged_attention(q, k, v, pt, pre, blk))
+        plain_ms = time_ms(
+            lambda: mq_paged_attention_plain(q, k, v, pt, pre, blk))
+        lib = time_ms(lambda: sdpa(qd, kd, vd, mask))
+        eb = q.element_size()
+        nbytes = (2 * q.numel() * eb
+                  + sum(e_ for e_, bl in zip(ends, blocks) if bl > 0)
+                  * N_KV * HD * 2 * eb + B * MAX_PAGES * 4 + 2 * B * 4)
+        ops = 4 * N_Q * HD * sum(bl * p + bl * (bl + 1) // 2
+                                 for p, bl in zip(prefixes, blocks))
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak \
+            else "operations"
+        out[(str(dtype)[6:], name)] = dict(ms=ms, plain_ms=plain_ms,
+                                           library_ms=lib, bound_ms=bound,
+                                           bound_by=by, max_abs_err=e)
+        log(f"  mq_paged_attention {str(dtype)[6:]} verify B={B} "
+            f"Sq={VERIFY_SQ} ({name}: blocks {blocks}, prefixes "
+            f"{min(prefixes)}-{max(prefixes)}): max_abs_err={e:.3g} (tol "
+            f"{TOL[dtype]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound {bound:.4f} ms "
+            f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
+            f"{ms / bound:.1f}x the bound")
+    return out
 
 
 def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
@@ -2501,6 +2586,264 @@ def admission_phase(engine_mod, llama, attention, cfg, params, prompts,
     return main["launches"]
 
 
+# --------------------------------------------------------------- phase 4h
+SPEC_UNIT = list(range(11, 19))     # the reference spec bench's id unit
+SPEC_NEW = 128                      # new tokens per phase 4h request
+
+
+class LpCollector(Collector):
+    """A Collector that also keeps each token's (id, logprob)."""
+
+    def __init__(self):
+        super().__init__()
+        self.logprobs: list[tuple[int, float]] = []
+
+    def __call__(self, out) -> None:
+        super().__call__(out)
+        for s in out.outputs:
+            self.logprobs.extend((lp.token_id, lp.logprob)
+                                 for lp in (s.logprobs or []))
+
+
+def spec_requests(unit):
+    """Phase 4h's traffic: eight greedy requests on the reference spec
+    bench's repetitive prompts (``unit`` repeated to 256 ids, plus the
+    request's index), a seeded sampled request and a logprob request on
+    prompts of the same kind. Returns {name: (prompt, sampling fields)}."""
+    body = (unit * (256 // len(unit)))[:256]
+    reqs = {f"g{i}": (body + [i], dict(temperature=0.0)) for i in range(8)}
+    reqs["sampled"] = (body + [8], dict(temperature=0.8, top_p=0.9,
+                                        seed=4321))
+    reqs["logprobs"] = (body + [9], dict(temperature=0.0, logprobs=True,
+                                         top_logprobs=5))
+    return reqs
+
+
+def spec_serve(engine_mod, cfg, params, passes, kernels):
+    """Serve each request set of ``passes`` to the end, one after the
+    other, on one engine with its loop; the last pass is measured (the
+    counts set to 0 just before its submits, read after its last request
+    ends; earlier passes take the captures and first uses). Returns the
+    last pass's tokens, finish reasons, logprobs, generated tokens/s over
+    the pass and over the greedy requests' window (their tokens until the
+    last of them ends: the sampled and logprob streams emit one token a
+    cycle, so they bound the pass either way), spec calls (a spy on
+    ``_spec_multi``, as the reference's tests), tokens emitted per cycle
+    per request (from the drained rows), the launches of ``kernels`` and
+    the engine's captured spec variants with their launches per
+    replay."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    eng = engine_mod.InferenceEngine(cfg, params=params)
+    calls, per_cycle = [0], {}
+    spec_multi, drain_one = eng._spec_multi, eng._drain_one_spec
+
+    def counted(*args):
+        calls[0] += 1
+        return spec_multi(*args)
+
+    def drained(pend):
+        drain_one(pend)
+        rows, _, _, snapshot = pend
+        out = rows.numpy()
+        for slot, seq in snapshot.items():
+            per_cycle.setdefault(seq.req.service_request_id, []).extend(
+                int(n) for n in out[:, slot, 0] if n > 0)
+
+    eng._spec_multi, eng._drain_one_spec = counted, drained
+    eng.start()
+    try:
+        for i, reqs in enumerate(passes):
+            if i == len(passes) - 1:
+                reset_counts()
+                calls[0] = 0
+                per_cycle.clear()
+                t0 = time.monotonic()
+            cols = {}
+            for name, (prompt, sp) in reqs.items():
+                cols[name] = LpCollector()
+                eng.submit(engine_mod.EngineRequest(
+                    name, token_ids=prompt, on_output=cols[name],
+                    sampling=SamplingParams(max_tokens=SPEC_NEW,
+                                            ignore_eos=True, **sp)))
+            for name, c in cols.items():
+                assert c.done.wait(900), f"{name} never finished"
+        wall = time.monotonic() - t0
+        launches = tuple(fn.launches for fn in kernels)
+    finally:
+        eng.stop()
+    graphs = {} if eng._graphs is None else {
+        key: dict((fn.__name__, n) for fn, n in deltas)
+        for key, (_, deltas) in eng._graphs._graphs.items()
+        if key[0] == "spec"}
+    greedy = [c for n, c in cols.items() if n.startswith("g")]
+    out = dict(tokens={n: c.tokens for n, c in cols.items()},
+               reasons={n: c.reason for n, c in cols.items()},
+               logprobs={n: c.logprobs for n, c in cols.items()},
+               tps=sum(len(c.tokens) for c in cols.values()) / wall,
+               greedy_tps=sum(len(c.tokens) for c in greedy)
+               / (max(c.times[-1] for c in greedy) - t0),
+               calls=calls[0], per_cycle=per_cycle, launches=launches,
+               graphs=graphs)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_graph_check(engine_mod, cfg, params):
+    """From one state at full width, the captured spec cycle's replay and
+    the same cycle run op by op must agree bit for bit (packed row, KV
+    pool, slot state, history, room), for a greedy-only variant and one
+    with sampled and logprob rows; phase 4h's ten requests admitted."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    reqs = spec_requests(SPEC_UNIT)
+    gcfg = replace(cfg, num_pages=512)
+    for want_lp, sample in ((False, False), (True, True)):
+        eng = engine_mod.InferenceEngine(gcfg, params=params)
+        for name, (prompt, sp) in reqs.items():
+            eng.submit(engine_mod.EngineRequest(
+                name, token_ids=prompt, sampling=SamplingParams(
+                    max_tokens=100, ignore_eos=True, **sp)))
+        eng._admit()
+        assert len(eng._running) == len(reqs)
+        eng._room.fill_(60)
+        st = [eng._srow, eng.kv_pages, eng._last, eng._clens, eng._active,
+              eng._st.token_counts, eng._hist_buf, eng._room]
+
+        def restore(snap):
+            for t_, v in zip(st, snap):
+                t_.copy_(v)
+            for b, g in enumerate(eng._gens):
+                g.manual_seed(1000 + b)
+
+        snap = [t_.clone() for t_ in st]
+        restore(snap)
+        eng._spec_cycle(want_lp, sample)
+        eager = [t_.clone() for t_ in st]
+        same = []
+        for _ in range(2):        # the first use (capture), then a replay
+            restore(snap)
+            eng._graphs.run("spec", want_lp, sample)
+            torch.cuda.synchronize()
+            same.append([torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                         if a.is_floating_point() else torch.equal(a, b)
+                         for a, b in zip(eager, st)])
+        emitted = eager[0][:, 0].long().tolist()
+        log(f"  spec cycle, logprobs {want_lp}, sampled rows {sample}: "
+            f"eager == graphed bit for bit (row, pool, last, clens, active, "
+            f"counts, history, room; first use, replay) {same}; tokens "
+            f"emitted per slot {emitted}")
+        assert all(map(all, same)), \
+            "the replayed spec cycle differs from the eager one"
+        eng.stop()
+        del eng, st, snap, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def spec_phase(engine_mod, llama, cfg, params, kernels, card):
+    """Phase 4h: speculative decoding at Llama-3-8B. Returns the launches
+    of ``kernels`` in the measured speculative run (the path's main run)."""
+    from dataclasses import replace
+
+    L = cfg.model.num_layers
+    scfg = replace(cfg, max_batch_size=10, speculate_k=4, speculate_cycles=4)
+    pcfg = replace(cfg, max_batch_size=10)
+    warm, reqs = spec_requests(list(range(21, 29))), spec_requests(SPEC_UNIT)
+    prompts = {n: p for n, (p, _) in reqs.items()}
+
+    # (a) Serving, bf16, speculation on and off, each after a warm pass.
+    runs = {}
+    for name, rcfg in (("speculate_k=4", scfg), ("plain", pcfg)):
+        t = time.monotonic()
+        r = runs[name] = spec_serve(engine_mod, rcfg, params, [warm, reqs],
+                                    kernels)
+        for n, tk in r["tokens"].items():
+            assert len(tk) == SPEC_NEW and r["reasons"][n] == "length", \
+                f"{name}: {n}: {len(tk)} tokens, reason {r['reasons'][n]!r}"
+        log(f"  {name} (warm pass, then this one): {r['tps']:.1f} generated "
+            f"tok/s over the pass, {r['greedy_tps']:.1f} over the greedy "
+            f"requests' window, spec calls {r['calls']}, launches kernel "
+            f"1 / kernel 2 {r['launches']}, {time.monotonic() - t:.1f} s "
+            f"(information only; {card})")
+    spec, plain = runs["speculate_k=4"], runs["plain"]
+    assert spec["calls"] > 0, "the spec path never ran"
+    assert plain["calls"] == 0
+    for n in reqs:
+        # The cycles until the stream's budget (the install gave its first
+        # token; rows past the budget are overshoot, and a stream left
+        # with no eligible neighbour finishes on the plain path).
+        c, got = [], 1
+        for e in spec["per_cycle"].get(n, []):
+            if got >= SPEC_NEW:
+                break
+            c.append(min(e, SPEC_NEW - got))
+            got += e
+        log(f"  {n}: {sum(c)} tokens in {len(c)} spec cycles, "
+            f"{sum(c) / max(1, len(c)):.2f} per cycle, most {max(c or [0])}")
+    assert max(max(spec["per_cycle"].get(f"g{i}", [0])) for i in range(8)) \
+        >= 2, "no cycle accepted a draft"
+    assert spec["graphs"], "no spec cycle was captured"
+    for key, per_replay in spec["graphs"].items():
+        assert per_replay.get("mq_paged_attention", 0) == L, \
+            f"kernel 2 not in every layer of the spec cycle {key}"
+    assert spec["launches"][1] >= spec["calls"] * scfg.speculate_cycles * L
+    log(f"  speculation against the plain path: {spec['tps']:.1f} / "
+        f"{plain['tps']:.1f} tok/s = {spec['tps'] / plain['tps']:.3f}x over "
+        f"the pass; greedy window {spec['greedy_tps']:.1f} / "
+        f"{plain['greedy_tps']:.1f} = "
+        f"{spec['greedy_tps'] / plain['greedy_tps']:.3f}x (information "
+        f"only; {card})")
+    greedy = [n for n in reqs if n != "sampled"]
+    compare_streams(llama, cfg, params, prompts,
+                    {n: spec["tokens"][n] for n in greedy},
+                    {n: plain["tokens"][n] for n in greedy},
+                    "speculation vs plain, bf16")
+    log(f"  sampled stream, bf16: identical "
+        f"{spec['tokens']['sampled'] == plain['tokens']['sampled']} "
+        "(information only)")
+
+    # (b) Exactness in f32 at full width and 4 layers.
+    t = time.monotonic()
+    f32 = replace(cfg.model, dtype=torch.float32, num_layers=4)
+    f32_params = llama.init_params(
+        f32, torch.Generator(device="cuda").manual_seed(5))
+    exact = [spec_serve(engine_mod, replace(rcfg, model=f32), f32_params,
+                        [reqs], kernels) for rcfg in (scfg, pcfg)]
+    del f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lp_err = max(abs(a[1] - b[1]) for a, b in zip(
+        exact[0]["logprobs"]["logprobs"], exact[1]["logprobs"]["logprobs"]))
+    same = sum(exact[0]["tokens"][n] == exact[1]["tokens"][n] for n in reqs)
+    log(f"  f32, full width, 4 layers: {same}/{len(reqs)} streams identical "
+        f"with and without speculation (greedy, sampled, logprobs); spec "
+        f"calls {exact[0]['calls']}; logprobs max diff {lp_err:.3g} (tol "
+        f"1e-4); {time.monotonic() - t:.1f} s")
+    assert exact[0]["calls"] > 0
+    assert same == len(reqs), "speculation changed a stream in f32"
+    assert [a[0] for a in exact[0]["logprobs"]["logprobs"]] == \
+        [b[0] for b in exact[1]["logprobs"]["logprobs"]]
+    assert len(exact[0]["logprobs"]["logprobs"]) == SPEC_NEW
+    assert lp_err <= 1e-4, "logprobs moved under speculation"
+
+    # (c) The captured spec cycle against the eager one.
+    spec_graph_check(engine_mod, scfg, params)
+
+    # (d) The spec_bench twin (bench_1b_config, B 8).
+    from xllm_service_tpu_torch.benchmarks import spec_bench
+
+    t = time.monotonic()
+    for rec in spec_bench.run("cuda"):
+        log("  spec_bench " + json.dumps(rec))
+    log(f"  spec_bench twin: {time.monotonic() - t:.1f} s; {card}")
+    return spec["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2559,6 +2902,7 @@ def main() -> int:
                              split_count, _build.kernel_fn)
     k2 = check_mq_kernel(mq_paged_attention, mq_paged_attention_plain,
                          _build.kernel_fn)
+    check_mq_verify(mq_paged_attention, mq_paged_attention_plain)
     k3 = check_fused_kernel(fused_decode_attention,
                             fused_decode_attention_plain, split_count,
                             _build.kernel_fn)
@@ -2675,6 +3019,14 @@ def main() -> int:
         mq_paged_attention_plain, card)
     log(f"  phase 4g: {time.monotonic() - t:.1f} s")
 
+    # Phase 4h: speculative decoding.
+    log("[4h] speculative decoding at llama3-8b: device-side n-gram "
+        "drafts, the batched verify through kernel 2")
+    t = time.monotonic()
+    h_launches = spec_phase(engine_mod, llama, cfg, params,
+                            (paged_attention, mq_paged_attention), card)
+    log(f"  phase 4h: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -2684,7 +3036,8 @@ def main() -> int:
              runs[0][1][0] + agent_launches[0] + g_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
-             runs[0][1][1] + agent_launches[1] + g_launches[1]),
+             runs[0][1][1] + agent_launches[1] + g_launches[1]
+             + h_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

@@ -22,6 +22,7 @@ from xllm_service_tpu_torch.engine import (
 )
 from xllm_service_tpu_torch.engine.decode_graph import DecodeGraphs
 from xllm_service_tpu_torch.models.base import tiny_config
+from xllm_service_tpu_torch.ops.mq_paged_attention import mq_paged_attention
 from xllm_service_tpu_torch.ops.fused_decode_attention import (
     fused_decode_attention,
 )
@@ -38,12 +39,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _engine(dev, horizon=4):
+def _engine(dev, horizon=4, **kw):
     mcfg = tiny_config(vocab_size=1024, hidden_size=512, num_heads=8,
                        num_kv_heads=2, head_dim=64, ffn_size=1024)
     cfg = EngineConfig(model=mcfg, num_pages=96, page_size=16,
                        hash_block_size=32, max_batch_size=B,
-                       max_seq_len=256, decode_horizon=horizon, seed=0)
+                       max_seq_len=256, decode_horizon=horizon, seed=0, **kw)
     return InferenceEngine(cfg, device=dev)
 
 
@@ -171,6 +172,59 @@ def test_first_step_of_a_variant_is_a_replay(dev):
     assert eng._graphs.replays == 1
     for a, b in zip(eager, _snapshot(eng)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("want_lp,sample", [(False, False), (False, True),
+                                            (True, True)])
+def test_replayed_spec_cycle_equals_eager_cycle_bit_for_bit(dev, want_lp,
+                                                            sample):
+    """The captured spec cycle against the same cycle op by op, from one
+    state (repetitive prompts, so the drafts are real): the packed row,
+    the pool, the slot state, the history and the room, bit for bit; the
+    verify runs kernel 2 once a layer per replay."""
+    eng = _engine(dev, speculate_k=4)
+    for i in range(B):
+        sp = (dict(temperature=0.9, top_p=0.9, seed=50 + i)
+              if sample and i % 2 else dict(temperature=0.0))
+        eng.submit(EngineRequest(
+            f"r{i}", token_ids=[5 + i, 6, 7, 8] * (6 + i),
+            sampling=SamplingParams(max_tokens=100, ignore_eos=True,
+                                    logprobs=want_lp and i == 0,
+                                    top_logprobs=3, **sp)))
+    eng._admit()
+    eng._room.fill_(60)
+
+    def state():
+        return [eng._srow, eng.kv_pages, eng._last, eng._clens, eng._active,
+                eng._st.token_counts, eng._hist_buf, eng._room]
+
+    n0 = mq_paged_attention.launches
+    eng._graphs.run("spec", want_lp, sample)   # capture, then a replay
+    snap = [t.clone() for t in state()]
+
+    def restore():
+        for t, v in zip(state(), snap):
+            t.copy_(v)
+        for b, g in enumerate(eng._gens):
+            g.manual_seed(1000 + b)
+
+    restore()
+    eng._spec_cycle(want_lp, sample)
+    eager = [t.clone() for t in state()]
+    restore()
+    n1 = mq_paged_attention.launches
+    eng._graphs.run("spec", want_lp, sample)   # a replay
+    torch.cuda.synchronize()
+    L = eng.cfg.model.num_layers
+    assert mq_paged_attention.launches == n1 + L
+    assert n1 - n0 == 3 * L                    # warm-up, replay, eager
+    assert eng._graphs.captures == 1
+    for name, a, b in zip(["row", "kv_pages", "last", "clens", "active",
+                           "token_counts", "hist", "room"], eager, state()):
+        assert torch.equal(a.view(torch.uint8) if a.is_floating_point()
+                           else a, b.view(torch.uint8)
+                           if b.is_floating_point() else b), name
+    assert (eager[3] > snap[3]).all()          # every slot emitted
 
 
 def test_capture_failure_raises(dev):

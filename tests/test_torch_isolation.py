@@ -31,7 +31,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "ops.page_dma", "engine.kv_tier", "parallel.mesh",
               "ops.cp_paged_attention", "ops.ring_attention",
               "engine.agent", "coordination.client", "coordination.memory",
-              "rpc.wire", "common.net", "tokenizer.factory"):
+              "rpc.wire", "common.net", "tokenizer.factory",
+              "engine.speculative", "benchmarks.spec_bench"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -897,7 +897,6 @@ _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--quant": ("", "weight-only int8, queue 1 item 7"),
     "--checkpoint-path": ("", "checkpoint loading, queue 1 item 8"),
     "--tokenizer-path": ("", "checkpoint loading, queue 1 item 8"),
-    "--speculate-k": (0, "speculative decoding, queue 1 item 6"),
     "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
                                    "queue 1 item 3"),
     "--slice-id": ("slice-0", "topology placement with PD, queue 1 "
@@ -934,6 +933,9 @@ def _parser() -> argparse.ArgumentParser:
                         "(0 = whole-suffix installs); with a chunk set, "
                         "mid chunks ride decode steps (Sarathi mixed "
                         "steps) unless XLLM_SARATHI=0")
+    p.add_argument("--speculate-k", type=int, default=0,
+                   help="prompt-lookup speculative decoding: draft tokens "
+                        "verified per cycle (0 disables)")
     p.add_argument("--generation-flush-ms", type=float, default=5.0,
                    help="batching window for Generations delta pushes")
     p.add_argument("--kv-tier-dram-mb", type=int, default=0,
@@ -978,6 +980,8 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         ecfg.decode_horizon = args.decode_horizon
     if args.prefill_chunk > 0:
         ecfg.prefill_chunk_tokens = args.prefill_chunk
+    if args.speculate_k > 0:
+        ecfg.speculate_k = args.speculate_k
     return ecfg
 
 

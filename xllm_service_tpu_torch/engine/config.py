@@ -53,6 +53,20 @@ class EngineConfig:
     # flight), decode calls shrink to this many tokens so admission isn't
     # blocked behind a long horizon. 0 disables.
     admission_horizon: int = 8
+    # Speculative decoding (prompt-lookup / n-gram drafts, verified in a
+    # batched multi-token forward; greedy-exact). 0 disables. Eligibility
+    # is PER SLOT, decided on the device: plain-greedy slots (no
+    # penalties, logprobs or bias) verify drafts; every other slot takes a
+    # normal sampled single-token step inside the SAME cycle, so one
+    # sampled request does not disable speculation for its greedy
+    # neighbours. Drafts are proposed on the device (an n-gram match over
+    # the device-resident token history), and `speculate_cycles`
+    # propose+verify cycles run per host round trip, the spec analog of
+    # decode_horizon. The engine takes the speculative path whenever at
+    # least one running slot is eligible; with none, the plain horizon.
+    speculate_k: int = 0
+    speculate_ngram: int = 3
+    speculate_cycles: int = 4
     # --- Tiered KV cache (engine/kv_tier.py) ---
     # Host-RAM (DRAM) tier capacity in bytes: evicted prefix blocks are
     # offloaded here asynchronously instead of being dropped, and a

@@ -19,12 +19,18 @@ horizon that carries a prefill chunk, the reference's
 reads its chunk from buffers the engine writes in place before the replay
 (tokens, the chunk's page row, its start and valid length), so a horizon
 with a ride is one replay of a mixed variant and H - 1 of a plain one.
+A speculative call is C replays of a spec-cycle variant, keyed ``("spec",
+want_lp, sample)``, each followed by the copy of the cycle's row (the
+reference's ``spec_multi``, a ``lax.scan`` of C cycles); the cycle reads
+its budget from a room buffer the engine uploads before the call, and its
+verify forward's logits come from the graph's private pool.
 Capture is lazy. At a variant's first use a warm-up
 step runs on the capture stream: it builds every kernel library, the
 split-K work space and cuBLAS's work space on the stream the graph records
 (so the graph holds pointers that outlive it) and fills rope's cache. The
 warm-up is then undone: the state it advanced (``state``: last tokens,
-lengths, active flags, the penalty histogram) is copied back and the
+lengths, active flags, the penalty histogram and, with speculation, the
+token history and the room) is copied back and the
 generators' states restored; its K/V writes need no undoing, since the
 step writes the same rows at the same positions again. The step is
 captured, and every step of the variant, the first included, is a replay
@@ -65,7 +71,8 @@ class DecodeGraphs:
 
     ``step(*key)`` runs one decode step in place on the engine's state,
     its arguments naming the variant (``(want_lp, sample)``, and the span
-    for a mixed step); ``state`` are the tensors it advances (apart from
+    for a mixed step; ``("spec", want_lp, sample)`` for a spec cycle);
+    ``state`` are the tensors it advances (apart from
     the K/V pool); ``generators`` are the per-slot generators a sampling
     step draws from."""
 
@@ -99,7 +106,7 @@ class DecodeGraphs:
         """Warm up, undo the warm-up, capture; returns (graph, [(counter,
         launches per replay)]). A mixed step's warm-up writes its chunk's
         K/V as the replay will again."""
-        sample = key[1]
+        sample = key[2] if key[0] == "spec" else key[1]
         cur = torch.cuda.current_stream(self.device)
         s = self.stream
         gen_states = [g.get_state() for g in self._generators]

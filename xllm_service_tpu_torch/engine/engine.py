@@ -76,14 +76,27 @@
   the most recently admitted running offline sequence, which re-queues as
   a continuation re-prefilling its prompt and the tokens it had emitted
   (its stream never repeats a token).
+- **Speculative decoding** (``speculate_k`` > 0): the token history of
+  every slot lives on the device (seeded at the install, repaired whole
+  after a chunked or cache-matched one, appended by every step), drafts
+  are the continuation of the trailing ``speculate_ngram`` tokens' latest
+  earlier occurrence (``engine/speculative.py``), and a spec call runs
+  ``speculate_cycles`` propose+verify cycles per host round trip, each
+  one ``verify_forward`` over [last ‖ k drafts] for the whole batch (kernel
+  2 in every layer on the card; on a card each cycle is a replay of its
+  captured variant). Eligibility is per slot and decided on the device:
+  plain greedy slots accept the longest draft prefix equal to the
+  model's argmax plus one token; sampled and logprob slots take a normal
+  step from the same forward. The path runs while one running slot is
+  eligible; greedy output equals the plain path's.
 - **Embeddings** (``embed``, for the agent's ``/v1/embeddings``): the
   family's dense forward, run on the engine thread between steps.
 
 Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
-Not in this port yet: speculation, PD injection/handoff, multimodal input,
-mesh axes other than ``seq`` and the captured step under a seq mesh.
+Not in this port yet: PD injection/handoff, multimodal input, mesh axes
+other than ``seq`` and the captured step under a seq mesh.
 """
 
 from __future__ import annotations
@@ -125,6 +138,7 @@ from .decode_graph import DecodeGraphs
 from .kv_cache import GARBAGE_PAGE, KVPageManager, SequencePages
 from .kv_tier import TieredKVStore, host_block
 from .sampling import NUM_BIAS, SamplingState, record_tokens, sample_tokens
+from .speculative import propose_drafts, spec_eligible
 
 logger = logging.getLogger(__name__)
 
@@ -200,6 +214,13 @@ class InferenceEngine:
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
             getattr(self.tokenizer, "eos_id", None)
         self.family = get_model_family(cfg.model_family)
+        # Speculation needs the family's verify forward; without one it is
+        # turned off with a warning, as in the reference.
+        self._spec_on = (cfg.speculate_k > 0
+                         and self.family.verify_forward is not None)
+        if cfg.speculate_k > 0 and not self._spec_on:
+            logger.warning("model family %s has no verify_forward; "
+                           "speculative decoding disabled", cfg.model_family)
         mcfg = cfg.model
         if params is None:
             # Random weights from the config's seed (benchmarks, the smoke).
@@ -223,13 +244,19 @@ class InferenceEngine:
         # sharded pool keeps the eager step).
         self._graphs: Optional[DecodeGraphs] = None
         if dev.type == "cuda" and self.seq_parallel == 1:
-            self._graphs = DecodeGraphs(
-                self._decode_step, [self._last, self._clens, self._active,
-                                    self._st.token_counts], self._gens, dev)
+            state = [self._last, self._clens, self._active,
+                     self._st.token_counts]
+            if self._spec_on:
+                state += [self._hist_buf, self._room]
+            self._graphs = DecodeGraphs(self._graph_step, state, self._gens,
+                                        dev)
         # Dispatch before fetch: the last dispatched horizon whose rows
         # are not read yet, as (host rows, ready event, t_dispatch,
-        # horizon, {slot: seq} snapshot).
+        # horizon, {slot: seq} snapshot). The speculative path keeps its
+        # own pending call with the same discipline; switching paths
+        # drains the other one first.
         self._pending_decode: Optional[tuple] = None
+        self._pending_spec: Optional[tuple] = None
 
         B = cfg.max_batch_size
         self._waiting: deque[EngineRequest] = deque()
@@ -392,6 +419,35 @@ class InferenceEngine:
                                     dtype=i32, device=dev)
         self._chunk_start = torch.zeros((1,), dtype=i32, device=dev)
         self._chunk_valid = torch.zeros((1,), dtype=i32, device=dev)
+        if not self._spec_on:
+            return
+        # Speculation. The device-resident token history (prompt suffix and
+        # generated tokens), valid in [hist_lo, clens): drafts are proposed
+        # from it on the device, so a propose+verify cycle costs no host
+        # round trip. hist_lo > 0 when a cache-matched prefix was never
+        # uploaded to this engine. The buffer's extra last column takes the
+        # writes at positions >= max_seq_len, which the reference drops.
+        L, Kd = cfg.max_seq_len, cfg.speculate_k
+        self._hist_buf = torch.zeros((B, L + 1), dtype=i32, device=dev)
+        self._hist = self._hist_buf[:, :L]
+        self._hist_lo = torch.zeros((B,), dtype=i32, device=dev)
+        # Per slot: logprobs asked for (an eligibility input), and the
+        # token budget left, uploaded before each spec call and counted
+        # down on the device by the cycles.
+        self._want_lp = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._room = torch.zeros((B,), dtype=i32, device=dev)
+        # A cycle's packed row [B, 1 + (k+1) + 1 + 2K] (tokens emitted,
+        # the block's predictions, position 0's chosen logprob, top-K
+        # logprobs and ids), a call's rows on the device, and two host
+        # buffers (pinned on a card), as the plain horizon's.
+        C, W = cfg.speculate_cycles, 1 + (Kd + 1) + 1 + 2 * K
+        self._srow = torch.zeros((B, W), dtype=torch.float32, device=dev)
+        self._spec_rows = torch.zeros((C, B, W), dtype=torch.float32,
+                                      device=dev)
+        self._spec_host = [torch.zeros((C, B, W), dtype=torch.float32,
+                                       pin_memory=dev.type == "cuda")
+                           for _ in range(2)]
+        self._spec_next = 0
 
     def _reset_slot_state(self) -> None:
         """Every slot back to inactive on the garbage page, in place."""
@@ -402,6 +458,11 @@ class InferenceEngine:
         self._active.zero_()
         self._stop_ids.fill_(-1)
         self._budget.zero_()
+        if self._spec_on:
+            self._hist_buf.zero_()
+            self._hist_lo.zero_()
+            self._want_lp.zero_()
+            self._room.zero_()
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "InferenceEngine":
@@ -423,6 +484,7 @@ class InferenceEngine:
         # A pending horizon whose sequences have all finished carries
         # nothing deliverable: drop it without fetching.
         self._pending_decode = None
+        self._pending_spec = None
         if self.tier_store is not None:
             self.tier_store.close()
 
@@ -573,6 +635,7 @@ class InferenceEngine:
         in-flight request instead of hanging them, and start the slots
         afresh. A pending horizon is dropped without fetching."""
         self._pending_decode = None
+        self._pending_spec = None
         with self._lock:
             waiting = list(self._waiting)
             self._waiting.clear()
@@ -1003,7 +1066,7 @@ class InferenceEngine:
         except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
             self._fail_admission(seq, req, e)
             raise
-        entry = (seq, req, prompt, cache_matched, t0)
+        entry = (seq, req, prompt, cache_matched, prefix_written, t0)
         if batch is None:
             self._complete_batch([entry])
         else:
@@ -1030,9 +1093,21 @@ class InferenceEngine:
     def _complete_admission(self, entry: tuple) -> None:
         """After the burst's wait: TTFT telemetry and spans, prefix
         donation, the slot joins the batch, the first token goes out."""
-        seq, req, prompt, cache_matched, t0 = entry
+        seq, req, prompt, cache_matched, prefix_written, t0 = entry
         cfg = self.cfg
         first_token, lp = self._complete_prefill_install(seq)
+        if self._spec_on and prefix_written > 0:
+            # A chunked install (its earlier chunks went up with no slot)
+            # or a cache-matched one seeded only the last suffix into the
+            # history: one row overwrite repairs it with the whole prompt
+            # (a continuation's emitted tokens included), and the draft
+            # search opens from 0. Stream order puts it after the
+            # install's writes and before the next decode dispatch.
+            row = np.zeros((cfg.max_seq_len,), np.int32)
+            row[:len(prompt)] = prompt
+            row[len(prompt)] = first_token
+            self._hist[seq.slot].copy_(self._upload(row))
+            self._hist_lo[seq.slot] = 0
         now = time.monotonic()
         ttft_ms = (now - t0) * 1000
         with self._telemetry_lock:
@@ -1233,6 +1308,14 @@ class InferenceEngine:
         self._active[slot] = True
         self._stop_ids[slot] = stop_ids
         self._budget[slot] = seq.max_total_len
+        if self._spec_on:
+            # Seed the history with the uploaded suffix and the first
+            # token; the tokens before ``matched`` were never uploaded, so
+            # the draft search starts there.
+            self._hist_buf[slot, matched:matched + S].copy_(toks[:S])
+            self._hist_buf[slot, matched + S] = tok[0]
+            self._hist_lo[slot] = matched
+            self._want_lp[slot] = sp.logprobs
 
         K = cfg.max_top_logprobs
         row = self._inst_rows[slot]
@@ -1258,8 +1341,18 @@ class InferenceEngine:
     # -------------------------------------------------------------- decode
     def _decode(self) -> bool:
         if not self._running:
-            # No live batch: flush the pipeline's tail.
-            return self._drain_pending_decode()
+            # No live batch: flush the tail of either pipeline.
+            drained = self._drain_pending_decode()
+            return self._drain_pending_spec() or drained
+        if self._spec_on and self._spec_worthwhile():
+            # Switching paths costs one wait: a pending plain horizon is
+            # drained before a spec call dispatches (and the other way
+            # round), so the two pipelines never interleave on stale state.
+            # The spec call carries no chunk: step() advances a chunked
+            # prefill by a standalone chunk meanwhile.
+            self._drain_pending_decode()
+            return self._decode_speculative()
+        self._drain_pending_spec()
         # Bound the horizon by the LONGEST remaining token budget among
         # running sequences (pow2 ceiling); per-sequence budgets are
         # enforced on the device, so one nearly-done sequence never clamps
@@ -1365,6 +1458,14 @@ class InferenceEngine:
         else:
             self._decode_step(*key)
 
+    def _graph_step(self, *key) -> None:
+        """The step a captured variant records: ``("spec", want_lp,
+        sample)`` is one spec cycle, any other key a decode step."""
+        if key[0] == "spec":
+            self._spec_cycle(*key[1:])
+        else:
+            self._decode_step(*key)
+
     def _decode_step(self, want_lp: bool, sample: bool,
                      span: int = 0) -> None:
         """One decode step of the whole batch, in place on the device
@@ -1403,6 +1504,12 @@ class InferenceEngine:
             row[:, 2 + K:].copy_(ti)
         else:
             row[:, 1:].zero_()
+        if self._spec_on:
+            # Append to the history (drafts come from it): the token lands
+            # at clens, becoming hist[new clens - 1] == last.
+            wpos = torch.where(self._active, self._clens,
+                               self.cfg.max_seq_len)
+            self._hist_buf.scatter_(1, wpos.long()[:, None], toks[:, None])
         # Device-side stop: a slot that sampled one of its stop ids, or
         # reached its token budget, freezes (no clens growth, its KV
         # writes repeat in place) for the rest of the horizon. The stop
@@ -1413,6 +1520,193 @@ class InferenceEngine:
         self._last.copy_(torch.where(advance, toks, self._last))
         self._clens.copy_(torch.where(advance, self._clens + 1, self._clens))
         self._active.copy_(advance)
+
+    # ------------------------------------------------ speculative decoding
+    @staticmethod
+    def _spec_ok(sp: SamplingParams) -> bool:
+        """Host mirror of the device's eligibility predicate
+        (``spec_eligible``): the verify is greedy-exact only for plain
+        greedy slots. It only informs the path choice; ineligible slots
+        still run, a normal sampled step inside the same cycle."""
+        return (sp.temperature == 0.0 and not sp.logprobs
+                and sp.frequency_penalty == 0.0
+                and sp.presence_penalty == 0.0
+                and sp.repetition_penalty in (0.0, 1.0)
+                and not sp.logit_bias)
+
+    def _spec_worthwhile(self) -> bool:
+        """Take the speculative path when at least one running slot can
+        verify drafts; with none, the plain horizon gives the same tokens
+        per round trip without k dead verify positions a forward."""
+        return any(not s.finished and self._spec_ok(s.req.sampling)
+                   for s in self._running.values())
+
+    def _decode_speculative(self) -> bool:
+        """``speculate_cycles`` propose+verify cycles per host round trip,
+        dispatched before the previous call's rows are read. Greedy slots
+        emit up to ``speculate_k`` + 1 tokens a cycle; sampled and logprob
+        slots exactly one, the rate of a plain horizon of that length."""
+        B, C = self.cfg.max_batch_size, self.cfg.speculate_cycles
+        room = np.zeros((B,), np.int32)
+        for slot, seq in self._running.items():
+            if not seq.finished:
+                # With a call in flight, output_ids lags one call: the
+                # overshoot this allows is discarded by _emit_tokens at
+                # the budget, and its K/V lands on the garbage page.
+                room[slot] = max(0, seq.max_total_len - seq.prompt_len
+                                 - len(seq.output_ids))
+        snapshot = {slot: seq for slot, seq in self._running.items()
+                    if not seq.finished}
+        t0 = time.monotonic()
+        self._room.copy_(self._upload(room))
+        rows, ready = self._spec_multi(C, snapshot)
+        prev, self._pending_spec = (self._pending_spec,
+                                    (rows, ready, t0, snapshot))
+        if prev is not None:
+            self._drain_one_spec(prev)
+        return True
+
+    def _spec_multi(self, cycles: int, running: dict[int, _Sequence]
+                    ) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Dispatch ``cycles`` spec cycles of the whole batch and the copy
+        of their rows to the host. Returns (host rows [cycles, B, 1 + (k+1)
+        + 1 + 2K] f32, the event after the copy; None on the CPU)."""
+        want_lp = any(s.req.sampling.logprobs for s in running.values())
+        sample = any(s.req.sampling.temperature > 0 for s in running.values())
+        for c in range(cycles):
+            if self._graphs is not None:
+                self._graphs.run("spec", want_lp, sample)
+            else:
+                self._spec_cycle(want_lp, sample)
+            self._spec_rows[c].copy_(self._srow)
+        rows = self._spec_host[self._spec_next][:cycles]
+        self._spec_next ^= 1
+        rows.copy_(self._spec_rows[:cycles],
+                   non_blocking=self.device.type == "cuda")
+        return rows, self._ready_event()
+
+    def _spec_cycle(self, want_lp: bool, sample: bool) -> None:
+        """One propose+verify cycle of the whole batch, in place on the
+        device state (the reference's ``spec_multi`` cycle). Eligible
+        slots verify drafts proposed from their history: one forward over
+        [last ‖ drafts] accepts the longest draft prefix equal to the
+        model's own argmax, plus one correction or bonus token. Every other
+        live slot takes a normal step from position 0's logits (the
+        forward of ``last``, exactly the decode step's), drawing once from
+        its generator when ``sample``, as a plain step does. The block is
+        bounded by ``_room``, which counts down; acceptance is cut at the
+        first stop id. Writes the packed row into ``self._srow``.
+        Allocates nothing that outlives the call and reads nothing from
+        the host, so it can be captured."""
+        cfg, mcfg, dev = self.cfg, self.cfg.model, self.device
+        Kd, K, B = cfg.speculate_k, cfg.max_top_logprobs, cfg.max_batch_size
+        st, clens, room = self._st, self._clens, self._room
+        steps = torch.arange(Kd + 1, dtype=torch.int32, device=dev)[None, :]
+        live = self._active
+        ok = spec_eligible(st, self._want_lp)
+        drafts = propose_drafts(self._hist, clens, self._hist_lo,
+                                cfg.speculate_ngram, Kd)
+        drafts = torch.where((ok & live)[:, None], drafts, -1)
+        blk = torch.where(ok, room.clamp(max=Kd + 1), room.clamp(max=1))
+        seq_lens = torch.where(live, blk.clamp(min=0), 0)
+        tokens = torch.cat([self._last[:, None], drafts], dim=1)
+        prefix = (clens - 1).clamp(min=0)
+        logits, _ = self.family.verify_forward(
+            self.params, mcfg, tokens, prefix[:, None] + steps,
+            self.kv_pages, self._pt, prefix, seq_lens)      # [B, k+1, V]
+        preds = logits.argmax(dim=-1).to(torch.int32)
+        gens = self._gens if sample else [None] * B
+        toks0, logprobs0 = sample_tokens(logits[:, 0], st, gens,
+                                         want_logprobs=want_lp)
+        record_tokens(st.token_counts, toks0, live & ~ok)
+        emit0 = torch.where(ok, preds[:, 0], toks0)
+        preds = torch.cat([emit0[:, None], preds[:, 1:]], dim=1)
+        row = self._srow
+        if want_lp:
+            row[:, 2 + Kd].copy_(
+                torch.gather(logprobs0, 1, emit0.long()[:, None])[:, 0])
+            tv, ti = torch.topk(logprobs0, K, dim=-1)
+            row[:, 3 + Kd:3 + Kd + K].copy_(tv)
+            row[:, 3 + Kd + K:].copy_(ti)
+        else:
+            row[:, 2 + Kd:].zero_()
+        match = (drafts == preds[:, :Kd]).to(torch.int32)
+        acc = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+        # Acceptance bounded by the block (a slot never emits past room).
+        acc = torch.minimum(acc, (seq_lens - 1).clamp(min=0))
+        emit_mask = (steps <= acc[:, None]) & live[:, None]
+        # Device-side stop: acceptance is cut at the first stop id.
+        is_stop = (preds[:, :, None] == self._stop_ids[:, None, :]).any(-1)
+        stop_hit = emit_mask & is_stop
+        any_stop = stop_hit.any(dim=1)
+        first_stop = stop_hit.to(torch.int32).argmax(dim=1)
+        acc = torch.where(any_stop,
+                          torch.minimum(acc, first_stop.to(torch.int32)), acc)
+        emitting = live & (room > 0)
+        n_emit = torch.where(emitting, acc + 1, 0)
+        # Append the emitted tokens to the history.
+        wpos = torch.where(steps < n_emit[:, None], clens[:, None] + steps,
+                           cfg.max_seq_len)
+        self._hist_buf.scatter_(1, wpos.long(), preds)
+        last_tok = torch.gather(preds, 1, acc.long()[:, None])[:, 0]
+        advance = emitting & ~any_stop
+        self._last.copy_(torch.where(advance, last_tok, self._last))
+        clens.copy_(torch.where(emitting, clens + n_emit, clens))
+        self._active.copy_(advance)
+        room.sub_(n_emit)
+        row[:, 0].copy_(n_emit)
+        row[:, 1:2 + Kd].copy_(preds)
+
+    def _drain_pending_spec(self) -> bool:
+        pend, self._pending_spec = self._pending_spec, None
+        if pend is None:
+            return False
+        self._drain_one_spec(pend)
+        return True
+
+    def _drain_one_spec(self, pend: tuple) -> None:
+        """Wait for a dispatched spec call's rows and emit them: per live
+        sequence one delta per cycle that emitted, with the decode
+        telemetry per emitted token."""
+        rows, ready, t0, snapshot = pend
+        self._sync(ready)
+        out = rows.numpy()                    # [C, B, 1 + (k+1) + 1 + 2K]
+        elapsed = time.monotonic() - t0
+        Kd, K = self.cfg.speculate_k, self.cfg.max_top_logprobs
+        base = 1 + (Kd + 1)
+        emitted = 0
+        for slot, seq in snapshot.items():
+            # As the plain pipeline: the slot may have finished, been
+            # cancelled or been reused since the dispatch.
+            if seq.finished or self._running.get(slot) is not seq:
+                continue
+            for c in range(out.shape[0]):
+                if seq.finished:
+                    break       # a host-side stop (e.g. a stop string)
+                n = int(out[c, slot, 0])
+                if n <= 0:
+                    continue
+                tokens = out[c, slot, 1:1 + n].astype(np.int64).tolist()
+                lps: list[Optional[LogProb]] = [None] * n
+                if seq.req.sampling.logprobs:
+                    # A logprob slot emits one token a cycle; the row's
+                    # tail is its logprob pack.
+                    lps[0] = self._make_logprob(
+                        tokens[0], float(out[c, slot, base]),
+                        out[c, slot, base + 1:base + 1 + K],
+                        out[c, slot, base + 1 + K:].astype(np.int64),
+                        seq.req.sampling)
+                seq.context_len += n
+                emitted += n
+                self._emit_tokens(seq, tokens, lps)
+        per_seq = emitted / max(1, len(snapshot))
+        ms_per_tok = elapsed * 1000 / max(1.0, per_seq)
+        with self._telemetry_lock:
+            self.recent_max_tbt_ms = max(self.recent_max_tbt_ms, ms_per_tok)
+        live = [s for s in snapshot.values() if not s.finished]
+        if live:
+            self.tpot_samples.append(
+                (len(live), sum(s.context_len for s in live), ms_per_tok))
 
     # ----------------------------------------------------------- emission
     # Finalized-context window for the incremental diff: the tail is always

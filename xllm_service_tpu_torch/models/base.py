@@ -83,6 +83,9 @@ class ModelFamily:
     # The Sarathi mixed step (decode rows and one prefill chunk in one
     # forward); a family without it never rides.
     mixed_decode_chunk_forward: Optional[Callable[..., Any]] = None
+    # Speculative verify (logits at every position of a short block per
+    # sequence); a family without it never speculates.
+    verify_forward: Optional[Callable[..., Any]] = None
 
 
 _REGISTRY: dict[str, ModelFamily] = {}

@@ -147,9 +147,29 @@ def prefill_forward(params: Params, cfg: ModelConfig,
     device sync; a prefill with a prefix runs the multi-query kernel on the
     card. ``ring`` (a sharded pool, no prefix, S divisible by the seq
     axis) runs the suffix's self-attention as ring attention."""
+    return prefill_from_embeddings(params, cfg, _embed(params, cfg, tokens),
+                                   positions, kv_pages, page_table,
+                                   prefix_lens, seq_lens,
+                                   has_prefix=has_prefix, ring=ring)
+
+
+def prefill_from_embeddings(params: Params, cfg: ModelConfig,
+                            x: torch.Tensor,            # [B, S, D]
+                            positions: torch.Tensor,
+                            kv_pages: torch.Tensor,
+                            page_table: torch.Tensor,
+                            prefix_lens: torch.Tensor,
+                            seq_lens: torch.Tensor,
+                            has_prefix: Optional[bool] = None,
+                            ring: bool = False,
+                            all_logits: bool = False,
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill body over input embeddings ``x`` (``prefill_forward``'s
+    arguments otherwise). ``all_logits`` returns the logits of EVERY
+    position [B, S, V] f32 (the speculative verify needs each position's
+    prediction); by default only the last valid token's [B, V]."""
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
-    x = _embed(params, cfg, tokens)
     cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
@@ -163,9 +183,36 @@ def prefill_forward(params: Params, cfg: ModelConfig,
                                  has_prefix=has_prefix, ring=ring)
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
+    if all_logits:
+        return _unembed(params, cfg, x), kv_pages
     idx = torch.clamp(seq_lens.long() - 1, min=0)
     last = x[torch.arange(x.shape[0], device=x.device), idx]
     return _unembed(params, cfg, last), kv_pages
+
+
+def verify_forward(params: Params, cfg: ModelConfig,
+                   tokens: torch.Tensor,       # [B, S] block to verify
+                   positions: torch.Tensor,    # [B, S]
+                   kv_pages: torch.Tensor,
+                   page_table: torch.Tensor,
+                   prefix_lens: torch.Tensor,  # [B] K/V already in the pool
+                   seq_lens: torch.Tensor,     # [B] valid block lengths
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative verify: one forward over a short block per sequence (the
+    last accepted token and the drafts), returning the logits at EVERY
+    block position [B, S, V] f32, the block's K/V written in place. It is
+    a batched mini-prefill behind each row's context, always on the prefix
+    route (``has_prefix`` a constant, so a captured cycle has one route):
+    on the card every layer runs kernel 2 at Sq = S, which at a prefix of
+    0 is the block's own causal attention, and a row of block length 0
+    writes to the garbage page and comes out zero. The reference opts into
+    its kernel for the verify (``XLLM_MQ_PALLAS=1``); here kernel 2
+    already carries every prefill with a prefix, so the verify has that
+    one route."""
+    return prefill_from_embeddings(params, cfg, _embed(params, cfg, tokens),
+                                   positions, kv_pages, page_table,
+                                   prefix_lens, seq_lens, has_prefix=True,
+                                   all_logits=True)
 
 
 def decode_forward(params: Params, cfg: ModelConfig,
@@ -287,4 +334,5 @@ register_model_family(ModelFamily(
     decode_forward=decode_forward,
     embed_forward=embed_forward,
     mixed_decode_chunk_forward=mixed_decode_chunk_forward,
+    verify_forward=verify_forward,
 ))
