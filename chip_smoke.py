@@ -2619,19 +2619,20 @@ def spec_requests(unit):
     return reqs
 
 
-def spec_serve(engine_mod, cfg, params, passes, kernels):
-    """Serve each request set of ``passes`` to the end, one after the
-    other, on one engine with its loop; the last pass is measured (the
-    counts set to 0 just before its submits, read after its last request
-    ends; earlier passes take the captures and first uses). Returns the
-    last pass's tokens, finish reasons, logprobs, generated tokens/s over
-    the pass and over the greedy requests' window (their tokens until the
-    last of them ends: the sampled and logprob streams emit one token a
-    cycle, so they bound the pass either way), spec calls (a spy on
-    ``_spec_multi``, as the reference's tests), tokens emitted per cycle
-    per request (from the drained rows), the launches of ``kernels`` and
-    the engine's captured spec variants with their launches per
-    replay."""
+def spec_serve(engine_mod, cfg, params, passes, kernels,
+               max_tokens=SPEC_NEW):
+    """Serve each request set of ``passes`` (``max_tokens`` each) to the
+    end, one after the other, on one engine with its loop; the last pass
+    is measured (the counts set to 0 just before its submits, read after
+    its last request ends; earlier passes take the captures and first
+    uses). Returns the last pass's tokens, finish reasons, logprobs,
+    generated tokens/s over the pass and over the greedy requests' window
+    (their tokens until the last of them ends: the sampled and logprob
+    streams emit one token a cycle, so they bound the pass either way),
+    spec calls (a spy on ``_spec_multi``, as the reference's tests),
+    tokens emitted per cycle per request (from the drained rows), the
+    launches of ``kernels`` and the engine's captured spec variants with
+    their launches per replay."""
     from xllm_service_tpu_torch.common.request import SamplingParams
 
     eng = engine_mod.InferenceEngine(cfg, params=params)
@@ -2664,7 +2665,7 @@ def spec_serve(engine_mod, cfg, params, passes, kernels):
                 cols[name] = LpCollector()
                 eng.submit(engine_mod.EngineRequest(
                     name, token_ids=prompt, on_output=cols[name],
-                    sampling=SamplingParams(max_tokens=SPEC_NEW,
+                    sampling=SamplingParams(max_tokens=max_tokens,
                                             ignore_eos=True, **sp)))
             for name, c in cols.items():
                 assert c.done.wait(900), f"{name} never finished"
@@ -2814,9 +2815,6 @@ def spec_phase(engine_mod, llama, cfg, params, kernels, card):
         f32, torch.Generator(device="cuda").manual_seed(5))
     exact = [spec_serve(engine_mod, replace(rcfg, model=f32), f32_params,
                         [reqs], kernels) for rcfg in (scfg, pcfg)]
-    del f32_params
-    gc.collect()
-    torch.cuda.empty_cache()
     lp_err = max(abs(a[1] - b[1]) for a, b in zip(
         exact[0]["logprobs"]["logprobs"], exact[1]["logprobs"]["logprobs"]))
     same = sum(exact[0]["tokens"][n] == exact[1]["tokens"][n] for n in reqs)
@@ -2830,6 +2828,32 @@ def spec_phase(engine_mod, llama, cfg, params, kernels, card):
         [b[0] for b in exact[1]["logprobs"]["logprobs"]]
     assert len(exact[0]["logprobs"]["logprobs"]) == SPEC_NEW
     assert lp_err <= 1e-4, "logprobs moved under speculation"
+
+    # (e) Budgets that fill the context, on the same f32 weights. The room
+    # lags one call, so the last verify blocks run past max_seq_len: the
+    # history's and the pool's writes there must go nowhere, with every
+    # stream still equal to the plain path's.
+    t = time.monotonic()
+    L_end = 384                            # 24 pages: the table's end
+    g_reqs = {n: r for n, r in reqs.items() if n.startswith("g")}
+    new = L_end - len(g_reqs["g0"][0])
+    ends = [spec_serve(engine_mod, replace(rcfg, model=f32,
+                                           max_seq_len=L_end),
+                       f32_params, [g_reqs], kernels, max_tokens=new)
+            for rcfg in (scfg, pcfg)]
+    assert ends[0]["calls"] > 0, "the spec path never ran"
+    most = max(max(v) for v in ends[0]["per_cycle"].values())
+    same = sum(ends[0]["tokens"][n] == ends[1]["tokens"][n] for n in g_reqs)
+    log(f"  f32, budgets filling max_seq_len {L_end}: {same}/{len(g_reqs)} "
+        f"greedy streams identical with and without speculation; spec "
+        f"calls {ends[0]['calls']}, most tokens in a cycle {most}; "
+        f"{time.monotonic() - t:.1f} s")
+    for r in ends:
+        assert all(len(tk) == new for tk in r["tokens"].values())
+    assert same == len(g_reqs), "a stream moved at the context's end"
+    del f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # (c) The captured spec cycle against the eager one.
     spec_graph_check(engine_mod, scfg, params)
@@ -3033,7 +3057,8 @@ def main() -> int:
     for name, src, tpu, res, n in (
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
-             runs[0][1][0] + agent_launches[0] + g_launches[0]),
+             runs[0][1][0] + agent_launches[0] + g_launches[0]
+             + h_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]

@@ -97,6 +97,28 @@ def test_write_prefill_kv_in_place(dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_write_prefill_kv_drops_past_the_table(dt):
+    """Row 0's block runs three positions past its 12-position table (a
+    verify block overshooting the context). Those writes go to page 0:
+    the live pages hold exactly the reference's write of the in-table
+    part, where clamping would wrap them onto positions 8-10."""
+    rng = np.random.default_rng(5)
+    jk, jv, tk, tv = _pools(dt)
+    B, S = 2, 7
+    kn = rng.normal(size=(B, S, 2, 32)).astype(np.float32)
+    vn = rng.normal(size=(B, S, 2, 32)).astype(np.float32)
+    (jkn, tkn), (jvn, tvn) = _pair(kn, dt), _pair(vn, dt)
+    jpt, tpt = _ints([[3, 5, 7], [9, 2, 11]])
+    jpre, tpre = _ints([8, 4])
+    _, tlen = _ints([7, 5])
+    jin, _ = _ints([4, 5])                 # row 0's positions 8-11 only
+    rk, rv = ref.write_prefill_kv(jk, jv, jkn, jvn, jpt, jpre, jin)
+    port.write_prefill_kv(tk, tv, tkn, tvn, tpt, tpre, tlen)
+    np.testing.assert_array_equal(_np(tk)[1:], _np(rk)[1:])
+    np.testing.assert_array_equal(_np(tv)[1:], _np(rv)[1:])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_write_decode_kv_redirects_and_drops(dt):
     rng = np.random.default_rng(3)
     jk, jv, tk, tv = _pools(dt)

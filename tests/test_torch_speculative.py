@@ -40,7 +40,11 @@ from xllm_service_tpu.ops.pallas_mq_paged_attention import (
 from xllm_service_tpu_torch.common.request import SamplingParams
 from xllm_service_tpu_torch.engine import EngineRequest
 from xllm_service_tpu_torch.engine import agent as port_agent
-from xllm_service_tpu_torch.engine.speculative import propose_drafts
+from xllm_service_tpu_torch.engine.speculative import (
+    propose_drafts,
+    spec_eligible,
+    spec_ok,
+)
 from xllm_service_tpu_torch.models import base
 from xllm_service_tpu_torch.models import llama
 from xllm_service_tpu_torch.ops.mq_paged_attention import (
@@ -244,6 +248,22 @@ def test_budget_edge_does_not_corrupt_neighbor(weights):  # noqa: F811
     assert port == serve(weights, sc, ref=True)
 
 
+def test_budget_filling_the_context(weights):  # noqa: F811
+    """A greedy slot whose budget runs to max_seq_len: the room uploaded
+    with a call in flight lags one call, so its last verify blocks run
+    past the end of the context. Their history writes go to the spare
+    column and their K/V to the garbage page (``write_prefill_kv``), and
+    both streams are the plain path's and the JAX engine's."""
+    L = 128
+    sc = streams(("a", REPETITIVE, L - len(REPETITIVE), {}),
+                 ("b", VARIED, 40, {}))
+    port = serve(weights, sc, ref=False, max_seq_len=L)
+    assert len(port[0]) == L - len(REPETITIVE)
+    assert port == serve(weights, sc, ref=False, max_seq_len=L,
+                         speculate_k=0)
+    assert port == serve(weights, sc, ref=True, max_seq_len=L)
+
+
 # ------------------------------------------------------------ the history
 def _history(eng):
     if hasattr(eng, "_dstate"):
@@ -331,6 +351,37 @@ def test_history_equals_reference(weights, scenario, kw):  # noqa: F811
             np.testing.assert_array_equal(a, b)
         else:
             assert a == b
+
+
+def test_host_and_device_eligibility_agree(weights):  # noqa: F811
+    """The host's path choice (``spec_ok`` on a request's parameters) and
+    the cycle's per-slot predicate (``spec_eligible`` on the installed
+    sampling state) are one rule: only the plain greedy slot verifies."""
+    cases = [dict(temperature=0.0), dict(temperature=0.8, seed=3),
+             dict(temperature=0.0, logprobs=True, top_logprobs=2),
+             dict(temperature=0.0, frequency_penalty=0.5),
+             dict(temperature=0.0, presence_penalty=0.5),
+             dict(temperature=0.0, repetition_penalty=1.1),
+             dict(temperature=0.0, logit_bias={7: 1.0})]
+    eng = make_engine(weights, False, **{**SPEC_KW, "speculate_k": 4,
+                                         "max_batch_size": len(cases)})
+    try:
+        for i, sp in enumerate(cases):
+            eng.submit(EngineRequest(f"r{i}", token_ids=VARIED,
+                                     sampling=SamplingParams(max_tokens=4,
+                                                             **sp),
+                                     on_output=Collector()))
+        eng._admit()
+        assert len(eng._running) == len(cases)
+        device = spec_eligible(eng._st, eng._want_lp).tolist()
+        host = {seq.req.service_request_id: spec_ok(seq.req.sampling)
+                for seq in eng._running.values()}
+        assert [host[f"r{i}"] for i in range(len(cases))] == \
+            [True] + [False] * (len(cases) - 1)
+        for slot, seq in eng._running.items():
+            assert device[slot] == host[seq.req.service_request_id]
+    finally:
+        eng.stop()
 
 
 def test_propose_drafts_examples():

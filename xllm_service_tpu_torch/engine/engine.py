@@ -138,7 +138,7 @@ from .decode_graph import DecodeGraphs
 from .kv_cache import GARBAGE_PAGE, KVPageManager, SequencePages
 from .kv_tier import TieredKVStore, host_block
 from .sampling import NUM_BIAS, SamplingState, record_tokens, sample_tokens
-from .speculative import propose_drafts, spec_eligible
+from .speculative import propose_drafts, spec_eligible, spec_ok
 
 logger = logging.getLogger(__name__)
 
@@ -1507,8 +1507,8 @@ class InferenceEngine:
         if self._spec_on:
             # Append to the history (drafts come from it): the token lands
             # at clens, becoming hist[new clens - 1] == last.
-            wpos = torch.where(self._active, self._clens,
-                               self.cfg.max_seq_len)
+            L = self.cfg.max_seq_len
+            wpos = torch.where(self._active, self._clens.clamp(max=L), L)
             self._hist_buf.scatter_(1, wpos.long()[:, None], toks[:, None])
         # Device-side stop: a slot that sampled one of its stop ids, or
         # reached its token budget, freezes (no clens growth, its KV
@@ -1522,23 +1522,11 @@ class InferenceEngine:
         self._active.copy_(advance)
 
     # ------------------------------------------------ speculative decoding
-    @staticmethod
-    def _spec_ok(sp: SamplingParams) -> bool:
-        """Host mirror of the device's eligibility predicate
-        (``spec_eligible``): the verify is greedy-exact only for plain
-        greedy slots. It only informs the path choice; ineligible slots
-        still run, a normal sampled step inside the same cycle."""
-        return (sp.temperature == 0.0 and not sp.logprobs
-                and sp.frequency_penalty == 0.0
-                and sp.presence_penalty == 0.0
-                and sp.repetition_penalty in (0.0, 1.0)
-                and not sp.logit_bias)
-
     def _spec_worthwhile(self) -> bool:
         """Take the speculative path when at least one running slot can
         verify drafts; with none, the plain horizon gives the same tokens
         per round trip without k dead verify positions a forward."""
-        return any(not s.finished and self._spec_ok(s.req.sampling)
+        return any(not s.finished and spec_ok(s.req.sampling)
                    for s in self._running.values())
 
     def _decode_speculative(self) -> bool:
@@ -1552,7 +1540,9 @@ class InferenceEngine:
             if not seq.finished:
                 # With a call in flight, output_ids lags one call: the
                 # overshoot this allows is discarded by _emit_tokens at
-                # the budget, and its K/V lands on the garbage page.
+                # the budget. Its K/V lands in the row's slack pages or on
+                # the garbage page, and its history writes past the
+                # context in the spare column.
                 room[slot] = max(0, seq.max_total_len - seq.prompt_len
                                  - len(seq.output_ids))
         snapshot = {slot: seq for slot, seq in self._running.items()
@@ -1644,9 +1634,12 @@ class InferenceEngine:
                           torch.minimum(acc, first_stop.to(torch.int32)), acc)
         emitting = live & (room > 0)
         n_emit = torch.where(emitting, acc + 1, 0)
-        # Append the emitted tokens to the history.
-        wpos = torch.where(steps < n_emit[:, None], clens[:, None] + steps,
-                           cfg.max_seq_len)
+        # Append the emitted tokens to the history. A block that overshoots
+        # the context (room lags one call) sends its writes past the table
+        # to the spare column, as the reference's writes there are dropped.
+        L = cfg.max_seq_len
+        wpos = torch.where(steps < n_emit[:, None],
+                           (clens[:, None] + steps).clamp(max=L), L)
         self._hist_buf.scatter_(1, wpos.long(), preds)
         last_tok = torch.gather(preds, 1, acc.long()[:, None])[:, 0]
         advance = emitting & ~any_stop

@@ -2,16 +2,19 @@
 and the eligibility predicate inside ``spec_multi`` in
 ``xllm_service_tpu/engine/engine.py``).
 
-Both are plain functions on device tensors: they read nothing from the
-host and have no shape that depends on data, so the engine's spec cycle
-that calls them can be captured as a CUDA graph
-(``engine/decode_graph.py``).
+``propose_drafts`` and ``spec_eligible`` are plain functions on device
+tensors: they read nothing from the host and have no shape that depends
+on data, so the engine's spec cycle that calls them can be captured as a
+CUDA graph (``engine/decode_graph.py``). ``spec_ok`` is the same
+eligibility rule on a request's sampling parameters, for the host's path
+choice.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..common.request import SamplingParams
 from .sampling import SamplingState
 
 
@@ -48,6 +51,17 @@ def propose_drafts(hist: torch.Tensor, clens: torch.Tensor,
     ok = (best[:, None] >= 0) & (dpos < clens[:, None])
     drafts = torch.gather(hist, 1, dpos.clamp(0, L - 1))
     return torch.where(ok, drafts, -1).to(torch.int32)
+
+
+def spec_ok(sp: SamplingParams) -> bool:
+    """``spec_eligible`` on the host, from one request's sampling
+    parameters. It only informs the path choice; ineligible slots still
+    run, a normal sampled step inside the same cycle."""
+    return (sp.temperature == 0.0 and not sp.logprobs
+            and sp.frequency_penalty == 0.0
+            and sp.presence_penalty == 0.0
+            and sp.repetition_penalty in (0.0, 1.0)
+            and not sp.logit_bias)
 
 
 def spec_eligible(st: SamplingState, want_lp: torch.Tensor) -> torch.Tensor:

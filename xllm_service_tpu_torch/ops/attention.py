@@ -173,13 +173,17 @@ def write_prefill_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
     k/v: [B, S, n_kv, hd]; token j of row b lands at absolute position
     prefix_lens[b] + j. Padding positions (j >= seq_lens[b]) go to the
-    garbage page 0 so padding never overwrites live cache lines."""
+    garbage page 0 so padding never overwrites live cache lines, and so
+    do positions past the page table (a speculative verify block that
+    overshoots the context): clamped into the table's last page, they
+    would wrap onto the row's own earlier tokens."""
     B, S = k.shape[0], k.shape[1]
     page_size = k_pages.shape[2]
     max_pages = page_table.shape[1]
     ar = torch.arange(S, device=k.device)
     pos = prefix_lens.long()[:, None] + ar[None, :]               # [B, S]
-    valid = ar[None, :] < seq_lens.long()[:, None]
+    valid = ((ar[None, :] < seq_lens.long()[:, None])
+             & (pos < max_pages * page_size))
     page_idx = torch.gather(page_table.long(), 1,
                             torch.clamp(pos // page_size, 0, max_pages - 1))
     page_idx = torch.where(valid, page_idx, 0)
