@@ -121,6 +121,28 @@ Phases (any failure exits non-zero before the result line):
    cycle against the same cycle op by op, bit for bit; the
    ``spec_bench`` twin (``bench_1b_config``). Tokens per cycle and tokens/s
    are information;
+4i. PD disaggregation at the same width and depth: a PREFILL agent in this
+   process on phase 4's params (chunks of 256) and a DECODE agent in a
+   second process on the same card, started through the agent's entry
+   point (``python3 chip_smoke.py --decode-agent``, which runs
+   ``engine/agent.py::main`` with two probes this script reads), behind
+   the stub master (which links them both ways and dispatches each
+   request to the prefill agent with ``routing.decode_name``) and a
+   coordination server of the standard library here. Phase 4's eleven
+   requests and a logprob one go through the pair; checks: (a) the greedy
+   streams equal phase 4's but at a near-tie (as in 4g); (b) every
+   handoff took the CUDA IPC path (``device_sent`` and ``device_received``
+   equal the request count, the host counts 0); (c) kernel 4's extract at
+   every handoff equals the plain gather of the same pages bit for bit,
+   and one request's pages in the decode pool after its install, read
+   through the plain gather, equal the prefill side's extracted buffer
+   bit for bit; (d) kernel 4
+   once a handoff and kernel 2 on the prefill side, kernel 5 once a
+   handoff and kernel 1 on the decode side; (e) the decode agent's
+   heartbeat reports the donated blocks. Then the ``pd_handoff_bench``
+   twin (device, streamed and inline paths at ``bench_1b_config``'s KV
+   shapes, 2048 and 8192 tokens). Handoff ms, the pair's TTFT beside
+   phase 4f's and tokens/s are information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -1799,7 +1821,8 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
     agent-only requests. ``phase4`` = phase 4's runs, each (tokens per
     request, launches, tok/s, sorted TTFTs, ``StepClock`` summary); the
     first is the cold one. Returns the launches of kernels 1 and 2 in this
-    phase."""
+    phase, and the client-side TTFT (dispatch to first delta at the stub
+    master, ms) of phase 4's requests."""
     from xllm_service_tpu_torch.common.types import InstanceMetaInfo, now_ms
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
@@ -1821,8 +1844,10 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
                 ignore_eos=True)
 
     rtts: list[float] = []
+    sent: dict[str, float] = {}
 
     def dispatch(sid, toks, **sp):
+        sent[sid] = time.monotonic()
         t_ = time.perf_counter()
         reply = post("/v1/completions", dict(
             service_request_id=sid, request_id=sid, token_ids=toks,
@@ -1974,7 +1999,8 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
             f"{max(h['latency_metrics']['recent_max_ttft'] for h in beats):.1f}"
             f" ms, {sum(len(h['kv_cache_event']['stored']) for h in beats)} "
             f"stored blocks (information only; {card})")
-        return launches
+        return launches, {n: (master.first[n] - sent[n]) * 1e3
+                          for n in names}
     finally:
         post.close()
         agent.stop()
@@ -2868,6 +2894,378 @@ def spec_phase(engine_mod, llama, cfg, params, kernels, card):
     return spec["launches"]
 
 
+# --------------------------------------------------------------- phase 4i
+PD_PROBE = "s0"      # the request whose pages phase 4i holds bit for bit
+
+
+class CoordServer:
+    """The newline-JSON protocol of the coordination server, as far as the
+    port's TCP client speaks it (put with a lease, refresh, get, rm,
+    ping), over a port ``MemoryStore`` on the standard library: phase 4i's
+    decode agent registers here from its own process and finds the stub
+    master's address here."""
+
+    def __init__(self, store):
+        import socketserver
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                for line in self.rfile:
+                    req = json.loads(line)
+                    op, key = req.get("op"), req.get("key", "")
+                    out = {"id": req.get("id"), "ok": True}
+                    if op == "put":
+                        store.put(key, req["value"], req.get("ttl"))
+                    elif op == "refresh":
+                        out["ok"] = store.refresh(key, req.get("ttl") or 0)
+                    elif op == "get":
+                        out["value"] = store.get(key)
+                    elif op == "rm":
+                        store.rm(key)
+                    elif op != "ping":
+                        out = {"id": req.get("id"), "ok": False,
+                               "error": f"unknown op {op!r}"}
+                    self.wfile.write((json.dumps(out) + "\n").encode())
+                    self.wfile.flush()
+
+        class Server(socketserver.ThreadingTCPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+        self.server = Server(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.addr = f"127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def decode_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --decode-agent SID ARGS...``: phase 4i's
+    decode agent, started in this process through the agent's own entry
+    point (``engine/agent.py::main`` with ARGS), with two probes the script
+    reads: after the install of request SID, a digest of its pages read
+    through the plain gather; and, for each line on standard input, one
+    line ``REPORT {...}`` on standard output with this process's kernel
+    launch counts and the digests. End of input stops the agent (SIGTERM:
+    its drain)."""
+    import hashlib
+    import logging
+    import signal
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+    from xllm_service_tpu_torch.engine import engine as engine_mod
+    from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.ops.mq_paged_attention import (
+        mq_paged_attention,
+    )
+    from xllm_service_tpu_torch.ops.paged_attention import paged_attention
+
+    probe_sid, args = argv[0], argv[1:]
+    digests: dict[str, str] = {}
+    install = engine_mod.InferenceEngine._dispatch_injected_install
+
+    def probed_install(self, seq, blob, first_token):
+        install(self, seq, blob, first_token)
+        if seq.req.service_request_id == probe_sid:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            pages = seq.pages.all_pages[:blob.shape[2]]
+            got = page_dma.gather_kv_pages_plain(self.kv_pages, pages)
+            digests[probe_sid] = hashlib.blake2b(
+                tensor_bytes(got), digest_size=16).hexdigest()
+
+    engine_mod.InferenceEngine._dispatch_injected_install = probed_install
+
+    def reports():
+        for _ in sys.stdin:
+            print("REPORT " + json.dumps({"launches": {
+                "paged_attention": paged_attention.launches,
+                "mq_paged_attention": mq_paged_attention.launches,
+                "gather_kv_pages": page_dma.gather_kv_pages.launches,
+                "scatter_kv_pages": page_dma.scatter_kv_pages.launches},
+                "digests": dict(digests)}), flush=True)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    threading.Thread(target=reports, daemon=True).start()
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    agent_mod.main(args)
+    return 0
+
+
+def http_get(addr, path):
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
+             mix_ttft, kernels, card):
+    """Phase 4i: PD disaggregation at Llama-3-8B on one card. A PREFILL
+    agent in this process on phase 4's params (chunks of CHUNK), a DECODE
+    agent in a second process (the agent's entry point, the same seed,
+    phase 4's engine shape), both behind the stub master, which links them
+    both ways and dispatches each request to the prefill agent with
+    ``routing.decode_name``. ``want`` = phase 4's tokens per request,
+    ``mix_ttft`` = phase 4f's client-side TTFT per request. Returns the
+    launches of kernels 1, 2, 4 and 5 in this phase (both processes)."""
+    import dataclasses
+    import hashlib
+    import subprocess
+    import types
+
+    from xllm_service_tpu_torch.common.net import pick_free_port
+    from xllm_service_tpu_torch.common.types import (
+        InstanceMetaInfo,
+        InstanceType,
+    )
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.rpc import MASTER_KEY, instance_key
+
+    paged_attention, mq_paged_attention = kernels
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    dec_name = f"127.0.0.1:{pick_free_port('127.0.0.1')}"
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    log_path = os.path.join(root, "build", "phase4i_decode_agent.log")
+    t = time.monotonic()
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--decode-agent",
+         PD_PROBE, "--type", "DECODE", "--model-config", "llama3_8b",
+         "--model-id", "llama3-8b", "--coordination-addr", coord.addr,
+         "--port", dec_name.rpartition(":")[2],
+         "--num-pages", str(cfg.num_pages),
+         "--page-size", str(cfg.page_size),
+         "--max-batch-size", str(cfg.max_batch_size),
+         "--max-seq-len", str(cfg.max_seq_len),
+         "--decode-horizon", str(cfg.decode_horizon)],
+        cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        stderr=open(log_path, "w"))
+
+    def child_log():
+        with open(log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def report():
+        child.stdin.write("report\n")
+        child.stdin.flush()
+        while True:
+            line = child.stdout.readline()
+            assert line, f"the decode agent exited:\n{child_log()}"
+            if line.startswith("REPORT "):
+                return json.loads(line[7:])
+
+    pre = None
+    try:
+        pre = EngineAgent(
+            dataclasses.replace(cfg, prefill_chunk_tokens=CHUNK),
+            AgentConfig(instance_type=InstanceType.PREFILL,
+                        model_id="llama3-8b", heartbeat_interval_s=1.0),
+            coord=InMemoryCoordination(store), params=params, device="cuda")
+        pre.start()
+        key = instance_key("DECODE", dec_name)
+        deadline = time.monotonic() + 600
+        while store.get(key) is None:
+            assert child.poll() is None and time.monotonic() < deadline, \
+                f"the decode agent did not register:\n{child_log()}"
+            time.sleep(0.5)
+        dmeta = InstanceMetaInfo.from_json(store.get(key))
+        log(f"  decode agent {dec_name} (pid {child.pid}) registered after "
+            f"{time.monotonic() - t:.1f} s; transfer address "
+            f"{dmeta.topology.kv_transfer_addr}")
+        assert dmeta.topology.kv_transfer_addr == pre.kv_transfer.address, \
+            "the two agents do not name the same card"
+        post_pre, post_dec = Poster(pre.name), Poster(dec_name)
+        # The stub master links the pair both ways, as the master does.
+        for post, peer in ((post_pre, dmeta), (post_dec, pre.meta())):
+            status, reply = post("/rpc/link",
+                                 {"peer": json.loads(peer.to_json())})
+            assert status == 200 and reply["ok"], reply
+        offered: dict[str, str] = {}
+        offer = pre.kv_transfer.offer
+
+        def probed_offer(sid, blob, incarnation="", ready=None):
+            desc = offer(sid, blob, incarnation, ready=ready)
+            if sid == PD_PROBE:      # the extract has run (offer waited)
+                offered[sid] = hashlib.blake2b(
+                    tensor_bytes(blob), digest_size=16).hexdigest()
+            return desc
+
+        pre.kv_transfer.offer = probed_offer
+        # Kernel 4 at the handoff's shapes: right after each extract's
+        # gather, before its pages are recycled, the plain gather of the
+        # same pages; the count of differing elements stays on the card
+        # until the run is over (no wait on the engine thread).
+        extract = pre.engine.extract_kv_pages_device
+        gathers: list = []
+
+        def probed_extract(pages):
+            got = extract(pages)
+            want = page_dma.gather_kv_pages_plain(pre.engine.kv_pages, pages)
+            bits = torch.int16 if got.element_size() == 2 else torch.int32
+            gathers.append((tuple(got.shape),
+                            (got.view(bits) != want.view(bits)).sum()))
+            return got
+
+        pre.engine.extract_kv_pages_device = probed_extract
+        before = report()["launches"]
+        greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+        samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
+                    ignore_eos=True)
+        sent: dict[str, float] = {}
+
+        def dispatch(sid, toks, **sp):
+            sent[sid] = time.monotonic()
+            status, reply = post_pre("/v1/completions", dict(
+                service_request_id=sid, request_id=sid, token_ids=toks,
+                source_service_addr=master.addr,
+                routing={"decode_name": dec_name}, **sp))
+            assert status == 200, reply
+
+        reset_counts()
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            dispatch(f"g{i}", p, **greedy)
+        dispatch("sampled", sampled_prompt, **samp)
+        master.wait(lambda: "g0" in master.first, "request 0's first delta")
+        for j, p in enumerate(shared):
+            dispatch(f"s{j}", p, **greedy)
+        dispatch("lp", prompts[1], max_tokens=8, temperature=0.0,
+                 logprobs=True, top_logprobs=2, ignore_eos=True)
+        names = [f"g{i}" for i in range(len(prompts))] + ["sampled"] + \
+            [f"s{j}" for j in range(len(shared))] + ["lp"]
+        master.wait(lambda: all(map(master.finished, names)),
+                    "phase 4i's requests", timeout=600)
+        wall = time.monotonic() - t0
+        after = report()
+        n = len(names)
+        dec = types.SimpleNamespace(name=dec_name,
+                                    incarnation_id=dmeta.incarnation_id)
+        toks = {nm: check_deltas(nm, master.gens[nm], dec)[0]
+                for nm in names}
+        tps = sum(map(len, toks.values())) / wall
+
+        # (a) The greedy streams against phase 4's (MIX, whole installs on
+        # one engine): equal but at a bf16 near-tie (the prefill side
+        # chunks by CHUNK, which rounds otherwise).
+        ctx = {f"g{i}": p for i, p in enumerate(prompts)}
+        ctx.update({f"s{j}": p for j, p in enumerate(shared)})
+        parted = compare_streams(llama, cfg, params, ctx,
+                                 {nm: toks[nm] for nm in ctx},
+                                 {nm: want[nm] for nm in ctx},
+                                 "4i PD pair vs phase 4")
+        rows = [r for g in master.gens["lp"] for o in g["outputs"]
+                for r in o["logprobs"]]
+        assert len(toks["lp"]) == 8 and len(rows) == 8 and all(
+            len(r["top_logprobs"]) == 2 for r in rows), "logprob rows"
+        assert len(toks["sampled"]) == 64
+        log(f"  (a) {len(ctx) - parted}/{len(ctx)} greedy streams equal to "
+            f"phase 4's; the seeded sampled stream "
+            f"{'equals' if toks['sampled'] == want['sampled'] else 'differs from'}"
+            f" phase 4's (information: chunked bf16 logits); 8 logprob rows "
+            f"with 2 alternatives")
+        # (b) Every handoff on the device path.
+        status, dstats = http_get(dec_name, "/stats")
+        assert status == 200, dstats
+        kvt = dstats["kv_transfer"]
+        assert (pre.kv_device_sent, pre.kv_host_sent) == (n, 0) and \
+            (kvt["device_received"], kvt["host_received"]) == (n, 0), \
+            f"handoffs off the device path: sent {pre.kv_device_sent} " \
+            f"device / {pre.kv_host_sent} host, received {kvt}"
+        log(f"  (b) {n} handoffs, all on the CUDA IPC path: device_sent "
+            f"{pre.kv_device_sent}, device_received "
+            f"{kvt['device_received']}, host_sent {pre.kv_host_sent}, "
+            f"host_received {kvt['host_received']}")
+        # (c) Kernel 4 against the plain gather at every handoff's pages,
+        # and one request's pages: the decode side's after the install
+        # (the plain gather) against the prefill side's extracted buffer.
+        bad = [(shape, int(d)) for shape, d in gathers if int(d)]
+        assert len(gathers) == n and not bad, \
+            f"kernel 4 at the handoffs: {len(gathers)} gathers for {n} " \
+            f"handoffs; differing elements (shape, count) {bad}"
+        shapes = sorted({shape for shape, _ in gathers},
+                        key=lambda sh: sh[2])
+        log(f"  (c) kernel 4 bit-identical to the plain gather at all {n} "
+            f"handoffs, {len(shapes)} shapes from {shapes[0]} to "
+            f"{shapes[-1]}")
+        got = after["digests"].get(PD_PROBE)
+        assert got is not None and got == offered.get(PD_PROBE), \
+            f"{PD_PROBE}: decode pages {got} != extracted {offered}"
+        log(f"      {PD_PROBE}: the decode side's installed pages equal the "
+            f"prefill side's extracted buffer bit for bit (blake2b {got})")
+        # (d) The kernels on each side.
+        dl = {k: after["launches"][k] - before[k] for k in before}
+        mine = (page_dma.gather_kv_pages.launches,
+                mq_paged_attention.launches,
+                page_dma.scatter_kv_pages.launches, paged_attention.launches)
+        assert mine[0] == n and mine[1] > 0 and mine[3] == 0, \
+            f"prefill side: gather/mq/scatter/decode launches {mine}"
+        assert dl["scatter_kv_pages"] == n and dl["paged_attention"] > 0, \
+            f"decode side: launches {dl}"
+        log(f"  (d) prefill side: kernel 4 {mine[0]} (one a handoff), kernel "
+            f"2 {mine[1]}, kernel 1 {mine[3]}; decode side: kernel 5 "
+            f"{dl['scatter_kv_pages']} (one a handoff), kernel 1 "
+            f"{dl['paged_attention']}, kernel 2 {dl['mq_paged_attention']}")
+        # (e) The decode side's heartbeat reports the donated blocks.
+        master.wait(lambda: any(h["name"] == dec_name
+                                and h["kv_cache_event"]["stored"]
+                                for h in master.heartbeats),
+                    "a decode heartbeat with stored blocks", timeout=30)
+        stored = sum(len(h["kv_cache_event"]["stored"])
+                     for h in master.heartbeats if h["name"] == dec_name)
+        log(f"  (e) the decode agent's heartbeats report {stored} stored "
+            "blocks")
+        pd_ttft = sorted((master.first[nm] - sent[nm]) * 1e3 for nm in ctx)
+        mx = sorted(mix_ttft[nm] for nm in ctx)
+        log(f"  client-side TTFT ms over phase 4's greedy requests: PD pair "
+            f"p50 {pd_ttft[len(pd_ttft) // 2]:.1f} max {pd_ttft[-1]:.1f}; "
+            f"phase 4f MIX p50 {mx[len(mx) // 2]:.1f} max {mx[-1]:.1f}; "
+            f"{tps:.1f} generated tok/s through the pair (information only; "
+            f"{card})")
+        return (dl["paged_attention"], mine[1] + dl["mq_paged_attention"],
+                mine[0] + dl["gather_kv_pages"],
+                mine[2] + dl["scatter_kv_pages"])
+    except BaseException:
+        log(f"  the decode agent's log, last lines:\n{child_log()}")
+        raise
+    finally:
+        if child.poll() is None:
+            child.stdin.close()
+            try:
+                child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        if pre is not None:
+            pre.stop()
+        master.close()
+        coord.close()
+        store.close()
+        del pre
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3026,7 +3424,7 @@ def main() -> int:
         f"master ({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
         "before: the weights alone)")
     t = time.monotonic()
-    agent_launches = agent_phase(
+    agent_launches, mix_ttft = agent_phase(
         cfg, params, prompts, shared, sampled_prompt,
         runs, (paged_attention, mq_paged_attention),
         card)
@@ -3051,6 +3449,26 @@ def main() -> int:
                             (paged_attention, mq_paged_attention), card)
     log(f"  phase 4h: {time.monotonic() - t:.1f} s")
 
+    # Phase 4i: PD disaggregation.
+    log("[4i] PD disaggregation at llama3-8b: a prefill agent here and a "
+        "decode agent in a second process, the KV over CUDA IPC "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    i_launches = pd_phase(cfg, params, llama, prompts, shared,
+                          sampled_prompt, runs[0][0], mix_ttft,
+                          (paged_attention, mq_paged_attention), card)
+    from xllm_service_tpu_torch.benchmarks import pd_handoff_bench
+    t_ = time.monotonic()
+    rec = pd_handoff_bench.run("cuda")
+    log("  pd_handoff_bench " + json.dumps(rec))
+    log(f"  pd_handoff_bench twin: {time.monotonic() - t_:.1f} s; per-path "
+        "handoff ms " + "; ".join(
+            f"ctx {r['ctx']}: device {r['device_ms']:.3f} (open "
+            f"{r['device_open_ms']:.3f}, copy {r['device_copy_ms']:.3f}), "
+            f"stream {r['stream_ms']:.1f}, inline {r['inline_ms']:.1f}"
+            for r in (rec["ctx_2048"], rec["ctx_8192"])) + f" ({card})")
+    log(f"  phase 4i: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -3058,20 +3476,20 @@ def main() -> int:
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
-             + h_launches[0]),
+             + h_launches[0] + i_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
-             + h_launches[1]),
+             + h_launches[1] + i_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
-             tier_launches[0]),
+             tier_launches[0] + i_launches[2]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
-             tier_launches[1]),
+             tier_launches[1] + i_launches[3]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
              cp_launches["partial"])):
@@ -3087,4 +3505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--decode-agent"]:
+        sys.exit(decode_agent_child(sys.argv[2:]))
     sys.exit(main())

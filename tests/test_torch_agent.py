@@ -283,8 +283,6 @@ def test_bad_dispatches_are_refused(agent, master):
 
 
 @pytest.mark.parametrize("path,body,item", [
-    ("/rpc/kv_transfer", {}, "item 10"),
-    ("/rpc/kv_stream_pull", {}, "item 10"),
     ("/rpc/encode", {}, "item 13"),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "text", "text": "what is this"},
@@ -297,15 +295,36 @@ def test_unported_routes_answer_501(agent, master, path, body, item):
     assert f"ROADMAP queue 1 {item}" in r.json()["error"]
 
 
+@pytest.mark.parametrize("path", ["/rpc/kv_transfer", "/rpc/kv_stream_pull"])
+def test_pd_routes_refuse_a_bad_frame(agent, path):
+    """The PD routes are served: a body that is no msgpack frame is a 400,
+    as the reference answers it."""
+    r = requests.post(f"http://{agent.name}{path}", data=b"\xc1",
+                      headers={"Content-Type": "application/msgpack"},
+                      timeout=30)
+    assert r.status_code == 400 and "bad" in r.json()["error"]
+
+
 def test_prefill_role_refuses_a_decode_handoff(master):
+    """A PREFILL agent routed a decode peer it cannot reach prefills, fails
+    the handoff on every path and reports it to the service as
+    UNAVAILABLE (the reference's behaviour); nothing else streams."""
     store = MemoryStore(expiry_tick_s=0.02)
     a = _agent(store, instance_type=InstanceType.PREFILL).start()
     try:
         body = {"token_ids": [5, 6, 7], "max_tokens": 2,
                 "source_service_addr": master.addr}
         r = _post(a, "/v1/completions",
-                  dict(body, routing={"decode_name": "127.0.0.1:1"}))
-        assert r.status_code == 501 and "item 10" in r.json()["error"]
+                  dict(body, service_request_id="pd-1",
+                       routing={"decode_name": "127.0.0.1:1"}))
+        assert r.status_code == 200
+        assert wait_until(lambda: master.gens, timeout=30)
+        (g,) = master.gens
+        assert g["service_request_id"] == "pd-1" and g["finished"]
+        assert g["status"]["code"] == int(port_request.StatusCode.UNAVAILABLE)
+        assert not g["outputs"]
+        assert a.kv_host_sent == a.kv_device_sent == 0
+        master.gens.clear()
         # Without a routed decode peer it serves the request itself.
         assert _post(a, "/v1/completions", body).status_code == 200
         assert wait_until(lambda: any(g["finished"] for g in master.gens),
@@ -429,6 +448,31 @@ def test_unported_flags_are_refused(flag, capsys):
         port_agent.main([flag, _refused_value(default)])
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,value,field,want", [
+    ("--slice-id", "slice-9", "slice_id", "slice-9"),
+    ("--topo-host", "host-a0", "topo_host", "host-a0"),
+    ("--topo-chip", "3", "topo_chip", 3),
+    ("--ici-bytes-per-s", "1e9", "ici_bytes_per_s", 1e9),
+    ("--dcn-bytes-per-s", "2e8", "dcn_bytes_per_s", 2e8),
+])
+def test_agent_takes_topology_flags(flag, value, field, want, monkeypatch):
+    """The reference's placement and budget flags reach AgentConfig."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_agent(ecfg, cfg, **kw):
+        seen["cfg"] = cfg
+        raise Stop
+
+    monkeypatch.setattr(port_agent, "EngineAgent", fake_agent)
+    with pytest.raises(Stop):
+        port_agent.main(["--model-config", "tiny", "--device", "cpu",
+                         flag, value])
+    assert getattr(seen["cfg"], field) == want
 
 
 def test_main_runs_on_the_card_unless_asked(monkeypatch):

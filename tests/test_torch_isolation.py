@@ -32,7 +32,9 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "ops.cp_paged_attention", "ops.ring_attention",
               "engine.agent", "coordination.client", "coordination.memory",
               "rpc.wire", "common.net", "tokenizer.factory",
-              "engine.speculative", "benchmarks.spec_bench"):
+              "engine.speculative", "benchmarks.spec_bench",
+              "rpc.msgpack_lite", "common.topology", "engine.kv_transfer",
+              "benchmarks.pd_handoff_bench"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

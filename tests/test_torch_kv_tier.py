@@ -400,3 +400,37 @@ def test_tier_config_warnings_and_stop(weights, caplog):
     assert os.path.exists(path) and "kv_tier" in port.stats()
     port.stop()
     assert not os.path.exists(path)         # the spill file is unlinked
+
+
+def test_onload_walk_reads_a_block_before_its_evictions_land(weights):
+    """The onload walk's own evictions must not demote the block it is
+    about to read. Here the tier worker runs inline (the fastest a worker
+    can be) and a demotion never completes, so a block fenced
+    mid-demotion would stop the walk: every block of A must still be
+    restored (found on the card, phase 4a: 2 of 7 onloads)."""
+    prompt_a = list(range(100, 196))        # 96 tokens = 3 hash blocks
+    blk = 2 * 2 * 2 * 2 * 16 * 32 * 4       # [L, 2, pages, kv, ps, hd] f32
+    engine = _port_engine(weights, num_pages=10, kv_tier_dram_bytes=3 * blk,
+                          kv_tier_ssd_bytes=8 * blk)
+    store = engine.tier_store
+    first = _run(engine, "a1", prompt_a, 8)
+    _run(engine, "b1", list(range(300, 428)), 8)   # evicts A into DRAM
+    assert wait_until(lambda: store.offload_total >= 3 and not store._pending)
+    assert store.dram_blocks() == 3
+
+    class Inline:
+        def submit(self, fn, *args):
+            fn(*args)
+
+    spills = []
+    store._executor, pool = Inline(), store._executor
+    store._spill_to_ssd, spill = (lambda h, arr: spills.append((h, arr)),
+                                  store._spill_to_ssd)
+    try:
+        assert _run(engine, "a2", prompt_a, 8) == first
+        assert store.onload_total == 2     # the last block keeps 1 token
+    finally:
+        store._executor, store._spill_to_ssd = pool, spill
+        for h, arr in spills:
+            spill(h, arr)
+        engine.stop()

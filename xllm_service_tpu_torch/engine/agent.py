@@ -12,6 +12,18 @@ reference master serves it unchanged: it advertises
 ``wire_formats=["json"]``, so the master dispatches JSON to it, and its
 heartbeats and Generations are JSON, which the master decodes.
 
+PD disaggregation: a PREFILL agent given a ``routing.decode_name`` runs
+the request prefill-only and ships the ``PrefillHandoff`` to that peer on
+``/rpc/kv_transfer`` in the reference's msgpack frame
+(``rpc/msgpack_lite.py``): over CUDA IPC when the peer's
+``kv_transfer_addr`` names this same card (``engine/kv_transfer.py``),
+else streamed back over ``/rpc/kv_stream_pull`` at or above
+``kv_stream_threshold_bytes``, else inline; a failed handoff reaches the
+service as UNAVAILABLE. A DECODE agent takes handoffs only from linked
+peers and injects them into its engine. The reference's tracing spans,
+fault hooks and flight-recorder entries on these paths are not ported
+(ROADMAP queue 1 items 3.2 and 3.4).
+
 Written on the standard library: ``http.server`` for the routes (HTTP/1.1,
 kept-alive connections, a ``Content-Length`` on every reply) and
 ``http.client`` for its own posts. A route or flag of the reference that
@@ -35,14 +47,24 @@ import threading
 import time
 import uuid
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional, Union
 
 import torch
 
+from ..common import topology as topo
 from ..common.net import pick_free_port
-from ..common.request import RequestOutput, SamplingParams, Usage
+from ..common.request import (
+    LogProb,
+    LogProbData,
+    RequestOutput,
+    SamplingParams,
+    Status,
+    StatusCode,
+    Usage,
+)
 from ..common.types import (
     InstanceMetaInfo,
     InstanceType,
@@ -51,21 +73,80 @@ from ..common.types import (
     now_ms,
 )
 from ..coordination import CoordinationClient, connect
-from ..rpc import MASTER_KEY, instance_key
+from ..rpc import MASTER_KEY, instance_key, msgpack_lite
 from ..rpc import wire
 from ..tokenizer.factory import TokenizerFactory
 from .config import EngineConfig
-from .engine import EngineRequest, InferenceEngine
+from .engine import EngineRequest, InferenceEngine, PrefillHandoff
+from .kv_transfer import (
+    BandwidthAccountant,
+    KvTransferManager,
+    StreamOfferTable,
+    dtype_name,
+    pull_stream,
+    tensor_bytes,
+    tensor_from_bytes,
+)
 
 logger = logging.getLogger(__name__)
+
+
+
+def pack_handoff(h: PrefillHandoff, source_service_addr: str,
+                 kv_ref: Optional[dict] = None,
+                 source_instance: str = "",
+                 trace_context: Optional[dict] = None,
+                 kv_stream: Optional[dict] = None) -> bytes:
+    """Serialize a PD handoff control message (the reference's frame).
+    With `kv_ref` (device path) only the pull descriptor is sent; with
+    `kv_stream` the host bytes are pulled back in chunked frames;
+    otherwise the blob is downloaded and carried inline (raw bytes, bf16
+    as its 16-bit patterns under the dtype string "bfloat16").
+    `source_instance` identifies the sending prefill instance: the decode
+    side only accepts handoffs from linked peers."""
+    lp = h.first_logprob
+    msg: dict[str, Any] = {
+        "service_request_id": h.service_request_id,
+        "request_id": h.request_id,
+        "source_service_addr": source_service_addr,
+        "source_instance": source_instance,
+        "token_ids": [int(t) for t in h.token_ids],
+        "first_token": int(h.first_token),
+        "first_logprob": None if lp is None else {
+            "token": lp.token, "token_id": int(lp.token_id),
+            "logprob": float(lp.logprob),
+            "top": [(t.token, int(t.token_id), float(t.logprob))
+                    for t in lp.top_logprobs]},
+        "sampling": h.sampling.to_dict(),
+    }
+    if trace_context is not None:
+        msg["trace_context"] = trace_context
+    if kv_ref is not None:
+        msg["kv_ref"] = kv_ref
+    elif kv_stream is not None:
+        msg["kv_stream"] = kv_stream
+    else:
+        blob = h.kv_blob
+        msg["kv"] = {"bytes": tensor_bytes(blob),
+                     "shape": list(blob.shape),
+                     "dtype": dtype_name(blob.dtype)}
+    return msgpack_lite.packb(msg)
+
+
+def unpack_handoff(data: bytes) -> dict:
+    """Inverse of :func:`pack_handoff`; an inline ``kv`` entry becomes
+    ``kv_blob``, a CPU tensor over the frame's bytes."""
+    obj = msgpack_lite.unpackb(data)
+    kv = obj.get("kv")
+    if kv is not None:
+        obj["kv_blob"] = tensor_from_bytes(kv["bytes"], kv["shape"],
+                                           kv["dtype"])
+    return obj
+
 
 # Reference routes this agent does not serve, each with its ROADMAP item
 # (queue 1). A request to one gets 501 and this reason.
 _NOT_PORTED = {
-    "/rpc/kv_transfer": "PD KV transfer is not ported (ROADMAP queue 1 "
-                        "item 10)",
-    "/rpc/kv_stream_pull": "PD KV transfer is not ported (ROADMAP queue 1 "
-                           "item 10)",
     "/rpc/encode": "the vision encoder (EPD) is not ported (ROADMAP queue 1 "
                    "item 13)",
     "/metrics": "/metrics is not ported (ROADMAP queue 1 item 3)",
@@ -95,6 +176,21 @@ class AgentConfig:
     # master's degraded-mode liveness fallback sees this engine alive;
     # "off": no resolvable master, no beats.
     degraded_mode: str = "on"
+    slice_id: str = "slice-0"
+    # Topology placement coordinate (common/topology.py): a non-empty
+    # topo_host marks this instance as placed; its PD links are then
+    # classed by coordinates for the bandwidth budgets.
+    topo_host: str = ""
+    topo_chip: int = -1
+    # Host-path streaming transfer: payloads at or above the threshold are
+    # pulled back in chunked msgpack frames instead of one inline POST. 0
+    # streams everything; a negative threshold disables streaming.
+    kv_stream_threshold_bytes: int = 256 * 1024
+    # Per-link-class bandwidth budgets, bytes/s (0 = unthrottled): links
+    # to a peer on the same slice are ICI-shaped, others DCN-shaped. The
+    # pull side paces to the budget; throughput reports in /stats.
+    ici_bytes_per_s: float = 0.0
+    dcn_bytes_per_s: float = 0.0
 
 
 class _ChoiceAggregator:
@@ -351,9 +447,12 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — surfaced as a 500
             logger.exception("%s %s failed", method, path)
             status, obj = 500, {"error": str(e)}
-        data = json.dumps(obj).encode()
+        if isinstance(obj, bytes):          # a msgpack frame
+            data, ctype = obj, msgpack_lite.CONTENT_TYPE
+        else:
+            data, ctype = json.dumps(obj).encode(), wire.JSON_CONTENT_TYPE
         self.send_response(status)
-        self.send_header("Content-Type", wire.JSON_CONTENT_TYPE)
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
@@ -370,7 +469,8 @@ class _BadRequest(ValueError):
     """A request body the agent cannot parse (HTTP 400)."""
 
 
-Reply = tuple[int, dict]
+# (status, a JSON object or the bytes of a msgpack frame).
+Reply = tuple[int, Union[dict, bytes]]
 
 
 class EngineAgent:
@@ -403,6 +503,34 @@ class EngineAgent:
         self.streamer.incarnation = self.incarnation_id
         # Agent-observed TTFT per request (ms, accept -> first delta).
         self.ttft_spans: deque = deque(maxlen=512)
+        # The device path (CUDA IPC between two processes on one card): on
+        # a card it must start (a failure raises); None under --device cpu.
+        self.kv_transfer: Optional[KvTransferManager] = None
+        if self.engine.device.type == "cuda":
+            self.kv_transfer = KvTransferManager.create(self.engine.device)
+            logger.info("device KV transfer on %s", self.kv_transfer.address)
+        # The streamed host path's offers (served on /rpc/kv_stream_pull)
+        # and per-link bandwidth accounting (ICI vs DCN by peer slice).
+        self.kv_stream = StreamOfferTable()
+        self.bandwidth = BandwidthAccountant(agent_cfg.ici_bytes_per_s,
+                                             agent_cfg.dcn_bytes_per_s)
+        # Pulls run here, off the HTTP handler's thread.
+        self._pulls = ThreadPoolExecutor(max_workers=4,
+                                         thread_name_prefix="kv-pull")
+        # Handoff idempotency: sid -> receive time. A device-path control
+        # POST whose response is lost makes the prefill side retry by a
+        # host path; without this the sequence would inject twice.
+        self._handoffs_seen: dict[str, float] = {}
+        self._seen_lock = threading.Lock()
+        # PD transfer-path counters (/stats), bumped through _count_kv
+        # from the handoff and pull threads.
+        self._kv_count_lock = threading.Lock()
+        self.kv_device_sent = 0
+        self.kv_host_sent = 0
+        self.kv_stream_sent = 0
+        self.kv_device_received = 0
+        self.kv_host_received = 0
+        self.kv_stream_received = 0
         self.linked_peers: dict[str, InstanceMetaInfo] = {}
         self._draining = False
         # Registration and role flips under one lock: a heartbeat's
@@ -427,6 +555,8 @@ class EngineAgent:
             ("POST", "/rpc/cancel"): self._h_cancel,
             ("POST", "/rpc/flip_role"): self._h_flip,
             ("POST", "/rpc/drain"): self._h_drain,
+            ("POST", "/rpc/kv_transfer"): self._h_kv_transfer,
+            ("POST", "/rpc/kv_stream_pull"): self._h_kv_stream_pull,
         }
 
     def cancel(self, service_request_id: str) -> None:
@@ -480,13 +610,16 @@ class EngineAgent:
             name=self.name, rpc_address=self.name, type=self.instance_type,
             dp_size=1,
             topology=TpuTopology(
-                # The reference's default slice; placement flags are not
-                # ported. Describes THIS engine's mesh (mesh-less = one
-                # device).
-                slice_id="slice-0",
+                slice_id=self.cfg.slice_id,
+                host=self.cfg.topo_host,
+                chip=self.cfg.topo_chip,
+                # Describes THIS engine's mesh (mesh-less = one device):
+                # the device-path gate compares these between peers.
                 mesh_shape=self._mesh_shape(),
                 axis_names=self._mesh_axes(),
-                host_addrs=[self.name]),
+                host_addrs=[self.name],
+                kv_transfer_addr=self.kv_transfer.address
+                if self.kv_transfer is not None else ""),
             kv_page_size=ecfg.page_size,
             kv_dtype=str(mcfg.dtype).removeprefix("torch."),
             num_layers=mcfg.num_layers, num_kv_heads=mcfg.num_kv_heads,
@@ -556,6 +689,9 @@ class EngineAgent:
         self.coord.rm(instance_key(self.instance_type.value, self.name))
         self.streamer.stop()
         self.engine.stop()
+        self._pulls.shutdown(wait=False, cancel_futures=True)
+        if self.kv_transfer is not None:
+            self.kv_transfer.close()
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -579,6 +715,9 @@ class EngineAgent:
         resolve the elected master, beat to it."""
         while not self._wake.wait(self.cfg.heartbeat_interval_s):
             try:
+                if self.kv_transfer is not None:
+                    self.kv_transfer.gc()   # free never-pulled KV offers
+                self.kv_stream.gc()         # ... and expired stream offers
                 self.register()
                 target = self.coord.get(MASTER_KEY) or ""
                 if target:
@@ -670,6 +809,15 @@ class EngineAgent:
             **self.aggregate_stats(),
             "telemetry": {"mode": "master",
                           "direct_sends": self.streamer.direct_sends},
+            "kv_transfer": {
+                "device_sent": self.kv_device_sent,
+                "host_sent": self.kv_host_sent,
+                "device_received": self.kv_device_received,
+                "host_received": self.kv_host_received,
+                "stream_sent": self.kv_stream_sent,
+                "stream_received": self.kv_stream_received,
+                "bandwidth": self.bandwidth.stats(),
+            },
             "kv_tier": self._tier_stats(),
             "ttft_spans": self._span_summary(),
         }
@@ -805,12 +953,6 @@ class EngineAgent:
                                   "streams results to the service RPC "
                                   "endpoint)"}
         decode_name = (body.get("routing") or {}).get("decode_name", "")
-        if self.instance_type == InstanceType.PREFILL and decode_name \
-                and decode_name != self.name:
-            return 501, {"error": "the prefill-to-decode handoff needs PD "
-                                  "KV transfer, which is not ported "
-                                  "(ROADMAP queue 1 item 10)"}
-
         dest = source
         first_delta = [True]
 
@@ -824,13 +966,32 @@ class EngineAgent:
                 self.ttft_spans.append((time.monotonic() - t_recv) * 1000)
             self.streamer.push(dest, out)
 
+        request_id = body.get("request_id", sid)
+        # PD disaggregation: a PREFILL instance with a routed decode peer
+        # prefills, then ships KV + first token to the peer, which owns
+        # the stream from there.
+        if self.instance_type == InstanceType.PREFILL and decode_name \
+                and decode_name != self.name:
+
+            def on_prefill_done(h: PrefillHandoff) -> None:
+                threading.Thread(
+                    target=self._transfer_to_peer, daemon=True,
+                    args=(h, decode_name, dest),
+                    name=f"kv-transfer-{h.service_request_id}").start()
+
+            self.engine.submit(EngineRequest(
+                service_request_id=sid, request_id=request_id,
+                token_ids=token_ids, sampling=sampling,
+                prefill_only=True, on_prefill_done=on_prefill_done,
+                on_output=on_output))    # surfaces prefill-side errors
+            return 200, {"ok": True, "service_request_id": sid}
+
         # n > 1: fan out into n engine sequences sharing the prompt (the
         # prefix cache dedupes their prefill); choice k's outputs are
         # re-indexed, and `finished` is withheld until every choice is done.
         n = max(1, sampling.n)
         offline = bool(body.get("offline", False))
         priority = int(body.get("priority") or 0)
-        request_id = body.get("request_id", sid)
         if n == 1:
             self.engine.submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
@@ -850,6 +1011,225 @@ class EngineAgent:
                 on_output=agg.callback_for(k),
                 offline=offline, priority=priority))
         return 200, {"ok": True, "service_request_id": sid}
+
+    # ------------------------------------------------- PD disaggregation
+    def _transfer_to_peer(self, h: PrefillHandoff, peer: str,
+                          dest: str) -> None:
+        """Ship a prefilled sequence to its decode peer: the device path
+        first (a CUDA IPC pull by a peer on this card), then the streamed
+        host path at or above ``kv_stream_threshold_bytes``, then the
+        inline host path. A device offer that fails falls back to the host
+        paths (counted in /stats: ``device_sent`` against ``host_sent``);
+        a handoff that fails on every path reaches the service as
+        UNAVAILABLE."""
+        peer_meta = self.linked_peers.get(peer)
+        if (self.kv_transfer is not None and peer_meta is not None
+                and peer_meta.topology.kv_transfer_addr
+                == self.kv_transfer.address
+                and self._same_mesh_topology(peer_meta)):
+            desc = None
+            try:
+                desc = self.kv_transfer.offer(
+                    h.service_request_id, h.kv_blob, self.incarnation_id,
+                    ready=h.kv_ready)
+                self._post_handoff(peer, pack_handoff(
+                    h, dest, kv_ref=desc, source_instance=self.name))
+                self.kv_transfer.release(desc["uuid"])
+                self._count_kv("kv_device_sent")
+                return
+            except Exception as e:  # noqa: BLE001 — the host path follows
+                if desc is not None:
+                    self.kv_transfer.release(desc["uuid"])
+                logger.warning(
+                    "device KV transfer of %s to %s failed (%s); falling "
+                    "back to the host path", h.service_request_id, peer, e)
+        try:
+            if h.kv_ready is not None:
+                h.kv_ready.synchronize()
+            host = PrefillHandoff(**{**h.__dict__,
+                                     "kv_blob": h.kv_blob.cpu(),
+                                     "kv_ready": None})
+            nbytes = host.kv_blob.numel() * host.kv_blob.element_size()
+            thresh = self.cfg.kv_stream_threshold_bytes
+            if 0 <= thresh <= nbytes and self._stream_to_peer(
+                    host, peer, dest, nbytes):
+                return
+            self._post_handoff(peer, pack_handoff(
+                host, dest, source_instance=self.name))
+            self._count_kv("kv_host_sent")
+        except Exception as e:  # noqa: BLE001 — reported to the service
+            logger.warning("KV transfer of %s to %s failed: %s",
+                           h.service_request_id, peer, e)
+            self.streamer.push(dest, RequestOutput(
+                service_request_id=h.service_request_id,
+                request_id=h.request_id,
+                status=Status(StatusCode.UNAVAILABLE,
+                              f"KV transfer to decode peer failed: {e}"),
+                finished=True))
+
+    def _stream_to_peer(self, h: PrefillHandoff, peer: str, dest: str,
+                        nbytes: int) -> bool:
+        """The streamed host path: offer the bytes for chunked pulls and
+        post the descriptor. False (the inline path follows) on failure."""
+        desc = None
+        try:
+            desc = self.kv_stream.offer(
+                h.service_request_id, tensor_bytes(h.kv_blob),
+                shape=list(h.kv_blob.shape),
+                dtype=dtype_name(h.kv_blob.dtype),
+                incarnation=self.incarnation_id,
+                block_bytes=nbytes // max(1, h.kv_blob.shape[2]))
+            self._post_handoff(peer, pack_handoff(
+                h, dest, source_instance=self.name, kv_stream=desc))
+            self.kv_stream.release(desc["stream_uuid"])
+            self._count_kv("kv_stream_sent", "kv_host_sent")
+            return True
+        except Exception as e:  # noqa: BLE001 — the inline path follows
+            if desc is not None:
+                self.kv_stream.release(desc["stream_uuid"])
+            logger.warning(
+                "streamed KV transfer of %s to %s failed (%s); falling back "
+                "to the inline host path", h.service_request_id, peer, e)
+            return False
+
+    def _count_kv(self, *names: str) -> None:
+        with self._kv_count_lock:
+            for n in names:
+                setattr(self, n, getattr(self, n) + 1)
+
+    def _same_mesh_topology(self, peer_meta: InstanceMetaInfo) -> bool:
+        """The device path needs an identical mesh topology on both ends
+        (the shard layouts must line up); mismatched pairs take the host
+        path, which re-materializes on the receiver."""
+        theirs = peer_meta.topology
+        return (self._mesh_shape() == theirs.mesh_shape
+                and self._mesh_axes() == theirs.axis_names)
+
+    @staticmethod
+    def _post_handoff(peer: str, payload: bytes) -> None:
+        host, _, port = peer.rpartition(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        try:
+            conn.request("POST", "/rpc/kv_transfer", body=payload,
+                         headers={"Content-Type": msgpack_lite.CONTENT_TYPE})
+            r = conn.getresponse()
+            data = r.read()
+        finally:
+            conn.close()
+        if r.status != 200:
+            raise RuntimeError(f"peer returned {r.status}: {data[:200]!r}")
+
+    def _h_kv_stream_pull(self, body: bytes, ctype: str) -> Reply:
+        """Serve one chunk of a streamed KV offer (msgpack in and out)."""
+        try:
+            obj = msgpack_lite.unpackb(body)
+            frame = self.kv_stream.read_chunk(
+                int(obj["uuid"]), int(obj.get("offset", 0)),
+                int(obj.get("max_bytes", self.kv_stream.default_chunk_bytes)))
+        except (TypeError, ValueError, KeyError, AttributeError) as e:
+            return 400, {"error": f"bad pull frame: {e}"}
+        if frame is None:
+            return 404, {"error": "unknown or expired offer"}
+        return 200, msgpack_lite.packb(frame)
+
+    def _link_class(self, peer_name: str) -> str:
+        """ICI-shaped vs DCN-shaped for bandwidth budgeting, from the
+        topology coordinates (``common/topology.py``); a same-host link
+        rides the ICI bucket. Peers without placement coordinates keep the
+        rule: same declared slice = ICI."""
+        meta = self.linked_peers.get(peer_name)
+        peer_topo = meta.topology if meta is not None else None
+        if self.cfg.topo_host and getattr(peer_topo, "host", ""):
+            mine = topo.Coord(self.cfg.slice_id, self.cfg.topo_host,
+                              self.cfg.topo_chip, placed=True)
+            link = topo.link_class(
+                mine, topo.effective_coord(peer_topo, peer_name))
+            return "ici" if link == topo.LINK_LOCAL else link
+        if peer_topo is not None and peer_topo.slice_id \
+                and peer_topo.slice_id == self.cfg.slice_id:
+            return "ici"
+        return "dcn"
+
+    def _h_kv_transfer(self, body: bytes, ctype: str) -> Reply:
+        """Decode side of the PD handoff: accept prompt KV + first token
+        from a linked peer and inject it into the engine. The KV arrives
+        inline, as a stream descriptor this side pulls in chunks, or as a
+        device descriptor this side pulls over CUDA IPC (the pulls run on
+        the agent's pull threads)."""
+        try:
+            obj = unpack_handoff(body)
+            if not isinstance(obj, dict):
+                raise ValueError("not a map")
+        except (TypeError, ValueError, KeyError) as e:
+            return 400, {"error": f"bad handoff: {e}"}
+        # The P-D link is enforced on the transfer itself.
+        src = obj.get("source_instance", "")
+        if src not in self.linked_peers:
+            return 403, {"error": f"instance {src or '<unknown>'} is not a "
+                                  "linked peer; rejecting KV handoff"}
+        sid = obj.get("service_request_id", "")
+        now = time.monotonic()
+        with self._seen_lock:
+            for k, ts in list(self._handoffs_seen.items()):
+                if now - ts > 600:
+                    self._handoffs_seen.pop(k, None)
+            if sid in self._handoffs_seen:
+                # Duplicate delivery (the sender retried after a lost
+                # response): the sequence is already injected.
+                return 200, {"ok": True, "duplicate": True}
+        # The sid is marked seen only once the payload is in hand: marking
+        # before a pull would bounce the sender's inline retry as a
+        # duplicate while the pull it raced can still fail.
+        if "kv_blob" not in obj and obj.get("kv_stream") is not None:
+            try:
+                obj["kv_blob"] = self._pulls.submit(
+                    pull_stream, src, obj["kv_stream"], self.bandwidth,
+                    self._link_class(src)).result()
+                self._count_kv("kv_stream_received")
+            except Exception as e:  # noqa: BLE001 — reported to the peer
+                logger.warning("streamed KV pull for %s failed: %s", sid, e)
+                return 502, {"error": f"streamed KV pull failed: {e}"}
+        if "kv_blob" not in obj:
+            ref = obj.get("kv_ref")
+            if ref is None or self.kv_transfer is None:
+                return 400, {"error": "no KV payload and no device-transfer "
+                                      "capability"}
+            try:
+                obj["kv_blob"] = self._pulls.submit(self.kv_transfer.pull,
+                                                    ref).result()
+                self._count_kv("kv_device_received")
+            except Exception as e:  # noqa: BLE001 — reported to the peer
+                logger.warning("device KV pull for %s failed: %s", sid, e)
+                return 502, {"error": f"device KV pull failed: {e}"}
+        else:
+            self._count_kv("kv_host_received")
+        dest = obj.get("source_service_addr", "")
+        lp_d = obj.get("first_logprob")
+        lp = None
+        if lp_d:
+            lp = LogProb(token=lp_d["token"], token_id=lp_d["token_id"],
+                         logprob=lp_d["logprob"],
+                         top_logprobs=[LogProbData(t[0], t[1], t[2])
+                                       for t in lp_d.get("top", ())])
+
+        def on_output(out: RequestOutput) -> None:
+            self.streamer.push(dest, out)
+
+        with self._seen_lock:
+            if sid in self._handoffs_seen:
+                # A retry raced this one and injected first.
+                return 200, {"ok": True, "duplicate": True}
+            self._handoffs_seen[sid] = time.monotonic()
+            self.engine.submit(EngineRequest(
+                service_request_id=sid,
+                request_id=obj.get("request_id", ""),
+                token_ids=list(obj["token_ids"]),
+                sampling=SamplingParams.from_dict(obj.get("sampling", {})),
+                injected_first_token=int(obj["first_token"]),
+                injected_kv=obj["kv_blob"],
+                injected_first_logprob=lp,
+                on_output=on_output))
+        return 200, {"ok": True}
 
     @staticmethod
     def _sampling_from_body(body: dict[str, Any]) -> SamplingParams:
@@ -899,12 +1279,6 @@ _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--tokenizer-path": ("", "checkpoint loading, queue 1 item 8"),
     "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
                                    "queue 1 item 3"),
-    "--slice-id": ("slice-0", "topology placement with PD, queue 1 "
-                              "item 10"),
-    "--topo-host": ("", "topology placement with PD, queue 1 item 10"),
-    "--topo-chip": (-1, "topology placement with PD, queue 1 item 10"),
-    "--ici-bytes-per-s": (0.0, "PD KV transfer budgets, queue 1 item 10"),
-    "--dcn-bytes-per-s": (0.0, "PD KV transfer budgets, queue 1 item 10"),
 }
 
 
@@ -951,6 +1325,21 @@ def _parser() -> argparse.ArgumentParser:
                    help="on = keep heartbeats flowing to the last-known-"
                         "good master while the coordination plane is "
                         "unreachable; off = no resolvable master, no beats")
+    p.add_argument("--slice-id", default="slice-0",
+                   help="slice this instance's devices live on; same-slice "
+                        "PD handoffs are ICI-shaped links, cross-slice ones "
+                        "DCN-shaped")
+    p.add_argument("--topo-host", default="",
+                   help="physical host coordinate; non-empty marks this "
+                        "instance placed ('' = a synthetic per-host slice)")
+    p.add_argument("--topo-chip", type=int, default=-1,
+                   help="chip index within --topo-host (-1 = unpinned)")
+    p.add_argument("--ici-bytes-per-s", type=float, default=0.0,
+                   help="ICI-class KV pull bandwidth budget, bytes/s "
+                        "(0 = account only, no pacing)")
+    p.add_argument("--dcn-bytes-per-s", type=float, default=0.0,
+                   help="DCN-class KV pull bandwidth budget, bytes/s "
+                        "(0 = account only, no pacing)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a "
                         "card). 'cpu' runs on the CPU")
@@ -998,7 +1387,11 @@ def main(argv: Optional[list[str]] = None) -> None:
                     instance_type=InstanceType.parse(args.type),
                     model_id=args.model_id,
                     generation_flush_ms=args.generation_flush_ms,
-                    degraded_mode=args.degraded_mode),
+                    degraded_mode=args.degraded_mode,
+                    slice_id=args.slice_id, topo_host=args.topo_host,
+                    topo_chip=args.topo_chip,
+                    ici_bytes_per_s=args.ici_bytes_per_s,
+                    dcn_bytes_per_s=args.dcn_bytes_per_s),
         device=args.device)
     agent.start()
     import signal as _signal

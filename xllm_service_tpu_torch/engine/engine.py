@@ -92,11 +92,27 @@
 - **Embeddings** (``embed``, for the agent's ``/v1/embeddings``): the
   family's dense forward, run on the engine thread between steps.
 
+- **PD disaggregation**: a ``prefill_only`` request runs its prefill
+  (whole, cache-matched or chunked) and, once its first token is in hand
+  after the burst's wait, its prompt pages are gathered into one buffer
+  ``[L, 2, n, n_kv, ps, hd]`` (kernel ``gather_kv_pages``) on the engine's
+  stream before its slot's row is cleared and its pages recycled; the
+  ``PrefillHandoff`` goes to ``on_prefill_done`` and nothing is emitted.
+  A request with ``injected_kv`` (the decode side) reserves pages for
+  prompt + max_new and a slot, scatters the buffer into its pages (kernel
+  ``scatter_kv_pages``; a host buffer goes up through the pinned cache, a
+  device one never touches the host), installs the slot with the prefill
+  side's first token in one packed upload, donates the prompt's blocks to
+  the prefix cache and emits the first token; the next decode dispatch
+  follows it in stream order. A seeded sampled request's generator skips
+  the prefill side's one draw, so its stream is the one a MIX engine
+  gives it. Under a seq mesh both movers take the sharded pool.
+
 Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
-Not in this port yet: PD injection/handoff, multimodal input, mesh axes
-other than ``seq`` and the captured step under a seq mesh.
+Not in this port yet: multimodal input, mesh axes other than ``seq`` and
+the captured step under a seq mesh.
 """
 
 from __future__ import annotations
@@ -151,6 +167,11 @@ NUM_STOP_IDS = 4
 PRESSURE_SPAN_CHUNKS = 4
 
 
+def _repetition(sp: SamplingParams) -> float:
+    """The repetition penalty the device applies (1.0, none, when unset)."""
+    return sp.repetition_penalty if sp.repetition_penalty > 0 else 1.0
+
+
 @dataclass
 class EngineRequest:
     service_request_id: str
@@ -168,9 +189,40 @@ class EngineRequest:
     resume_output_ids: list[int] = field(default_factory=list)
     resume_emitted_chars: int = 0
     resume_logprobs: list[LogProb] = field(default_factory=list)
+    # PD disaggregation: a prefill-only request runs its prefill, then
+    # hands the sequence (first token + KV pages) to ``on_prefill_done``
+    # instead of joining the local decode batch.
+    prefill_only: bool = False
+    on_prefill_done: Optional[Callable[["PrefillHandoff"], None]] = None
     # Set by submit(): splits the engine's TTFT into queue wait and
     # prefill (``span_samples``).
     t_submit: float = 0.0
+    # Decode-side injection: the sequence arrives with its prompt's KV
+    # computed, a tensor [L, 2, n, n_kv, ps, hd] on the host (host paths)
+    # or on this engine's device (the device path).
+    injected_first_token: Optional[int] = None
+    injected_kv: Optional[torch.Tensor] = None
+    injected_first_logprob: Optional[LogProb] = None
+
+
+@dataclass
+class PrefillHandoff:
+    """Everything the decode peer needs to continue a prefilled sequence:
+    the prompt's token ids, the first sampled token (and logprob) and the
+    prompt's KV pages as one tensor [L, 2, n_pages, n_kv, ps, hd] on the
+    engine's device (the agent downloads it only for a host path)."""
+
+    service_request_id: str
+    request_id: str
+    token_ids: list[int]
+    first_token: int
+    first_logprob: Optional[LogProb]
+    sampling: SamplingParams
+    kv_blob: Any
+    # On a card: an event recorded right after the gather that wrote
+    # ``kv_blob`` (None on the CPU). A reader on another stream or in
+    # another process waits for it first.
+    kv_ready: Optional[Any] = None
 
 
 @dataclass
@@ -749,6 +801,7 @@ class InferenceEngine:
                     req = self._pop_next_waiting()
                 if (C > 0 and len(req.token_ids)
                         + len(req.resume_output_ids) > C
+                        and req.injected_kv is None
                         and len(self._prefillings)
                         >= self.cfg.max_concurrent_prefills):
                     deferred.append(req)
@@ -882,10 +935,15 @@ class InferenceEngine:
             if not self.tier_store.ready(hx):
                 break
             pages = self.page_mgr.allocate(ppb)
+            # Read the block BEFORE pumping the allocation's evictions: an
+            # offload the pump starts may demote the arena's LRU block, and
+            # a block fenced mid-demotion cannot be read, so the walk would
+            # stop early. The pump still runs before any kernel that
+            # reuses the evicted pages (the fetch enqueues none).
+            arr = self.tier_store.fetch(hx) if pages is not None else None
             self._pump_tier_offloads()
             if pages is None:
                 break
-            arr = self.tier_store.fetch(hx)
             if arr is None:
                 # Miss (raced an eviction) or SSD checksum corruption:
                 # fails only this block; the walk stops here.
@@ -909,12 +967,20 @@ class InferenceEngine:
         """Match the prompt's cached prefix, reserve its pages and a slot,
         then install it (dispatched into ``batch`` when given) or, for a
         long suffix, start its chunked prefill. False when the pages do not
-        suffice."""
+        suffice. A request carrying KV (PD decode side) is installed from
+        it instead."""
+        if req.injected_kv is not None:
+            return self._start_injected(req)
         cfg = self.cfg
         # A continuation (offline preemption) re-prefills prompt + emitted.
         prompt = req.token_ids + req.resume_output_ids
         P0 = len(req.token_ids)
-        max_new = max(1, min(req.sampling.max_tokens, cfg.max_seq_len - P0))
+        if req.prefill_only:
+            # PD prefill side: exactly the first token, then the handoff.
+            max_new = 1
+        else:
+            max_new = max(1, min(req.sampling.max_tokens,
+                                 cfg.max_seq_len - P0))
         max_total = min(P0 + max_new, cfg.max_seq_len)
         if len(prompt) >= cfg.max_seq_len:
             self._emit_cancelled(req)
@@ -1096,7 +1162,8 @@ class InferenceEngine:
         seq, req, prompt, cache_matched, prefix_written, t0 = entry
         cfg = self.cfg
         first_token, lp = self._complete_prefill_install(seq)
-        if self._spec_on and prefix_written > 0:
+        handoff = req.prefill_only and req.on_prefill_done is not None
+        if self._spec_on and prefix_written > 0 and not handoff:
             # A chunked install (its earlier chunks went up with no slot)
             # or a cache-matched one seeded only the last suffix into the
             # history: one row overwrite repairs it with the whole prompt
@@ -1134,8 +1201,131 @@ class InferenceEngine:
             # `stored` event moves the instance to HBM).
             for hx in stored:
                 self.tier_store.discard(hx)
+        if handoff:
+            self._hand_off(seq, first_token, lp)
+            return
         self._running[seq.slot] = seq
         self._emit_token(seq, first_token, lp)
+
+    # ------------------------------------------------- PD disaggregation
+    def extract_kv_pages_device(self, pages: list[int]) -> torch.Tensor:
+        """Gather a sequence's KV pages into a new tensor [L, 2, n, n_kv,
+        ps, hd] on the engine's device (kernel ``gather_kv_pages`` on a
+        card, the plain gather on the CPU), enqueued on the engine's
+        stream. The device path offers it untouched; the host paths
+        download it."""
+        return gather_kv_pages(self.kv_pages, pages)
+
+    def extract_kv_pages(self, pages: list[int]) -> torch.Tensor:
+        """A sequence's KV pages on the host (a CPU tensor), for the host
+        paths."""
+        return self.extract_kv_pages_device(pages).cpu()
+
+    def _hand_off(self, seq: _Sequence, first_token: int,
+                  lp: Optional[LogProb]) -> None:
+        """PD prefill side, after the install's wait: gather the prompt's
+        pages, then clear the slot's row and recycle the slot and pages (a
+        later kernel that reuses them follows the gather in stream order),
+        and give the handoff to the request's callback. Nothing is
+        emitted: the decode peer owns the stream."""
+        req = seq.req
+        n_pages = -(-len(req.token_ids) // self.cfg.page_size)
+        blob = self.extract_kv_pages_device(seq.pages.all_pages[:n_pages])
+        handoff = PrefillHandoff(
+            service_request_id=req.service_request_id,
+            request_id=req.request_id, token_ids=list(req.token_ids),
+            first_token=first_token, first_logprob=lp,
+            sampling=req.sampling, kv_blob=blob,
+            kv_ready=self._ready_event())
+        self._clear_slot(seq.slot)
+        with self._lock:
+            self._free_slots.append(seq.slot)
+        seq.pages.release(self.page_mgr)
+        seq.finished = True
+        try:
+            req.on_prefill_done(handoff)
+        except Exception:  # noqa: BLE001
+            logger.exception("prefill handoff callback failed for %s",
+                             req.service_request_id)
+
+    def _start_injected(self, req: EngineRequest) -> bool:
+        """PD decode side: admit a sequence whose prompt KV arrives from
+        the prefill peer. Reserves pages for prompt + max_new and a slot,
+        installs the sequence from the KV and the first token (no wait:
+        the next decode dispatch follows it in stream order), donates the
+        prompt's blocks to the prefix cache and emits the first token.
+        False when the pages do not suffice."""
+        cfg = self.cfg
+        prompt = req.token_ids
+        P0 = len(prompt)
+        max_new = max(1, min(req.sampling.max_tokens, cfg.max_seq_len - P0))
+        max_total = min(P0 + max_new, cfg.max_seq_len)
+        own_pages = self.page_mgr.allocate(-(-max_total // cfg.page_size))
+        self._pump_tier_offloads()
+        if own_pages is None:
+            return False
+        seq = _Sequence(req=req, pages=SequencePages(own_pages=own_pages),
+                        prompt_len=P0, context_len=P0,
+                        max_total_len=max_total)
+        with self._lock:
+            seq.slot = self._free_slots.pop()
+        mcfg, blob = cfg.model, req.injected_kv
+        want = (mcfg.num_layers, 2, -(-P0 // cfg.page_size),
+                mcfg.num_kv_heads, cfg.page_size, mcfg.head_dim)
+        if tuple(blob.shape) != want:
+            # A peer's layout this engine cannot take: fail the request.
+            self._fail_admission(seq, req, ValueError(
+                f"injected KV of shape {tuple(blob.shape)}, expected "
+                f"{want}"))
+            return True
+        first_token = int(req.injected_first_token)
+        try:
+            self._dispatch_injected_install(seq, blob, first_token)
+        except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
+            self._fail_admission(seq, req, e)
+            raise
+        # The scatter is enqueued: the buffer can go (stream order keeps
+        # its memory until the scatter has read it).
+        req.injected_kv = None
+        stored, donated = self.page_mgr.store_prefix(prompt,
+                                                     seq.pages.all_pages)
+        seq.pages.donated_hashes = stored
+        seq.pages.donated_pages = donated
+        if self.tier_store is not None:
+            for hx in stored:
+                self.tier_store.discard(hx)
+        self._running[seq.slot] = seq
+        # The decode side emits everything, starting with the prefill
+        # side's first token.
+        self._emit_token(seq, first_token, req.injected_first_logprob)
+        return True
+
+    def _dispatch_injected_install(self, seq: _Sequence, blob: torch.Tensor,
+                                   first_token: int) -> None:
+        """Scatter the prompt's KV into the sequence's pages (kernel
+        ``scatter_kv_pages`` on a card) and install its slot with the
+        first token, the sampling controls, stop ids, bias, budget and
+        generator, in one packed upload, without waiting. A host blob goes
+        up through the pinned-memory cache; a device blob stays where it
+        is."""
+        dev, sp, prompt = self.device, seq.req.sampling, seq.req.token_ids
+        if blob.device.type == "cpu" and dev.type == "cuda":
+            blob = blob.pin_memory().to(dev, non_blocking=True)
+        scatter_kv_pages(self.kv_pages, seq.pages.all_pages[:blob.shape[2]],
+                         blob)
+        # The penalty histogram covers prompt + first token.
+        pt_row, tok, stop_ids, b_ids, b_vals, counts = self._upload_install(
+            seq, [first_token], prompt + [first_token])
+        _, gen = self._install_controls(seq.slot, sp, b_ids, b_vals, counts)
+        if gen is not None and sp.seed is not None:
+            # The prefill side drew the first token from this seed (one
+            # draw of V uniforms, as sample_tokens draws): skip it, so the
+            # stream goes on as one engine's would.
+            torch.rand(self.cfg.model.vocab_size, generator=gen, device=dev)
+        # Only the first token is on this engine (the prompt stayed with
+        # the prefill side): the draft search starts there.
+        self._install_registers(seq, pt_row, stop_ids, tok, len(prompt),
+                                tok[:0])
 
     def _fail_admission(self, seq: _Sequence, req: EngineRequest,
                         e: Exception) -> None:
@@ -1231,6 +1421,71 @@ class InferenceEngine:
         if ready is not None:
             ready.synchronize()
 
+    def _upload_install(self, seq: _Sequence, toks: list[int],
+                        hist: list[int]) -> tuple:
+        """A slot install's inputs in ONE packed upload: the page-table row
+        first (kernel 2 takes it 16-byte aligned), ``toks``, the stop ids,
+        the bias, and the [V] histogram of ``hist``, which feeds only the
+        penalty terms: without a penalty ``counts`` is None and the install
+        zeroes the row (clearing the previous occupant's counts)."""
+        sp, V = seq.req.sampling, self.cfg.model.vocab_size
+        bias_ids, bias_vals = self._device_bias(sp)
+        parts = [self._page_row(seq), np.asarray(toks, np.int32),
+                 self._device_stop_ids(sp), bias_ids, bias_vals.view(np.int32)]
+        if (sp.frequency_penalty != 0.0 or sp.presence_penalty != 0.0
+                or _repetition(sp) != 1.0):
+            parts.append(np.bincount(np.asarray(hist, np.int64),
+                                     minlength=V)[:V].astype(np.int32))
+        packed = self._upload(np.concatenate(parts))
+        pt_row, toks_t, stop_ids, b_ids, b_vals, *counts = torch.split(
+            packed, [p.size for p in parts])
+        return (pt_row, toks_t, stop_ids, b_ids, b_vals,
+                counts[0] if counts else None)
+
+    def _install_controls(self, slot: int, sp: SamplingParams,
+                          b_ids: torch.Tensor, b_vals: torch.Tensor,
+                          counts: Optional[torch.Tensor]
+                          ) -> tuple[SamplingState, Optional[torch.Generator]]:
+        """Write a slot's sampling controls, bias and penalty histogram, and
+        seed its generator (None when greedy)."""
+        st = self._slot_state(slot)
+        st.temperature.fill_(sp.temperature)
+        st.top_k.fill_(int(sp.top_k))
+        st.top_p.fill_(sp.top_p)
+        st.frequency_penalty.fill_(sp.frequency_penalty)
+        st.presence_penalty.fill_(sp.presence_penalty)
+        st.repetition_penalty.fill_(_repetition(sp))
+        st.bias_ids.copy_(b_ids[None])
+        st.bias_vals.copy_(b_vals.view(torch.float32)[None])
+        if counts is not None:
+            st.token_counts.copy_(counts[None])
+        else:
+            st.token_counts.zero_()
+        if sp.temperature <= 0:
+            return st, None
+        seed = sp.seed if sp.seed is not None else self._rng.getrandbits(63)
+        return st, self._gens[slot].manual_seed(seed)
+
+    def _install_registers(self, seq: _Sequence, pt_row: torch.Tensor,
+                           stop_ids: torch.Tensor, tok: torch.Tensor,
+                           hist_lo: int, hist_toks: torch.Tensor) -> None:
+        """Make a slot live with its first token ``tok``: page row, last
+        token, context length, stop ids and budget. Under speculation the
+        history holds ``hist_toks`` from ``hist_lo`` on, then the token,
+        and the draft search starts at ``hist_lo``."""
+        slot, clen = seq.slot, hist_lo + hist_toks.numel()
+        self._pt[slot] = pt_row
+        self._last[slot] = tok[0]
+        self._clens[slot] = clen + 1
+        self._active[slot] = True
+        self._stop_ids[slot] = stop_ids
+        self._budget[slot] = seq.max_total_len
+        if self._spec_on:
+            self._hist_buf[slot, hist_lo:clen].copy_(hist_toks)
+            self._hist_buf[slot, clen] = tok[0]
+            self._hist_lo[slot] = hist_lo
+            self._want_lp[slot] = seq.req.sampling.logprobs
+
     def _dispatch_prefill_install(self, seq: _Sequence, prompt: list[int],
                                   matched: int) -> None:
         """Prefill the suffix past the first ``matched`` tokens, install the
@@ -1243,7 +1498,6 @@ class InferenceEngine:
         none that an earlier one still reads."""
         cfg, dev, slot = self.cfg, self.device, seq.slot
         sp = seq.req.sampling
-        V = cfg.model.vocab_size
         suffix = prompt[matched:]
         S = len(suffix)
         ring = self._sp_applicable(S, matched)
@@ -1252,23 +1506,8 @@ class InferenceEngine:
             # of every valid query's window, and its K/V go to page 0.
             suffix = suffix + [0] * (-S % self.seq_parallel)
             self.ring_prefills += 1
-        rep = sp.repetition_penalty if sp.repetition_penalty > 0 else 1.0
-        # The dense [V] prompt histogram feeds only the penalty terms;
-        # penalty-free requests install a zeroed row (which clears the
-        # previous occupant's counts).
-        needs_counts = (sp.frequency_penalty != 0.0
-                        or sp.presence_penalty != 0.0 or rep != 1.0)
-        bias_ids, bias_vals = self._device_bias(sp)
-        # The page row first: kernel 2 takes it 16-byte aligned.
-        parts = [self._page_row(seq), np.asarray(suffix, np.int32),
-                 self._device_stop_ids(sp), bias_ids, bias_vals.view(np.int32)]
-        if needs_counts:
-            parts.append(np.bincount(np.asarray(prompt, np.int64),
-                                     minlength=V)[:V].astype(np.int32))
-        packed = self._upload(np.concatenate(parts))
-        sizes = [p.size for p in parts]
-        pt_row, toks, stop_ids, b_ids, b_vals, *counts = torch.split(
-            packed, sizes)
+        pt_row, toks, stop_ids, b_ids, b_vals, counts = self._upload_install(
+            seq, suffix, prompt)
         i32 = torch.int32
         logits, _ = self.family.prefill_forward(
             self.params, cfg.model, toks[None],
@@ -1280,42 +1519,15 @@ class InferenceEngine:
             has_prefix=matched > 0, ring=ring)
 
         # Install the slot's sampling controls, then sample with them.
-        st = self._slot_state(slot)
-        st.temperature.fill_(sp.temperature)
-        st.top_k.fill_(int(sp.top_k))
-        st.top_p.fill_(sp.top_p)
-        st.frequency_penalty.fill_(sp.frequency_penalty)
-        st.presence_penalty.fill_(sp.presence_penalty)
-        st.repetition_penalty.fill_(rep)
-        st.bias_ids.copy_(b_ids[None])
-        st.bias_vals.copy_(b_vals.view(torch.float32)[None])
-        if counts:
-            st.token_counts.copy_(counts[0][None])
-        else:
-            st.token_counts.zero_()
-        gen = None
-        if sp.temperature > 0:
-            seed = sp.seed if sp.seed is not None else self._rng.getrandbits(63)
-            gen = self._gens[slot].manual_seed(seed)
-
+        st, gen = self._install_controls(slot, sp, b_ids, b_vals, counts)
         tok, logprobs = sample_tokens(logits, st, [gen],
                                       want_logprobs=sp.logprobs)
         record_tokens(st.token_counts, tok,
                       torch.ones((1,), dtype=torch.bool, device=dev))
-        self._pt[slot] = pt_row
-        self._last[slot] = tok[0]
-        self._clens[slot] = matched + S + 1
-        self._active[slot] = True
-        self._stop_ids[slot] = stop_ids
-        self._budget[slot] = seq.max_total_len
-        if self._spec_on:
-            # Seed the history with the uploaded suffix and the first
-            # token; the tokens before ``matched`` were never uploaded, so
-            # the draft search starts there.
-            self._hist_buf[slot, matched:matched + S].copy_(toks[:S])
-            self._hist_buf[slot, matched + S] = tok[0]
-            self._hist_lo[slot] = matched
-            self._want_lp[slot] = sp.logprobs
+        # The tokens before ``matched`` were never uploaded: the draft
+        # search starts there.
+        self._install_registers(seq, pt_row, stop_ids, tok, matched,
+                                toks[:S])
 
         K = cfg.max_top_logprobs
         row = self._inst_rows[slot]
@@ -1827,17 +2039,19 @@ class InferenceEngine:
     def _release_slot_and_pages(self, seq: _Sequence) -> None:
         if seq.slot >= 0 and seq.slot in self._running:
             del self._running[seq.slot]
-            # Clear the device page-table row BEFORE recycling pages — a
-            # stale row would let a dead slot scribble K/V into pages that a
-            # new sequence now owns.
-            s = seq.slot
-            self._pt[s] = GARBAGE_PAGE
-            self._active[s] = False
-            self._clens[s] = 0
-            self._budget[s] = 0
+            self._clear_slot(seq.slot)
             with self._lock:
-                self._free_slots.append(s)
+                self._free_slots.append(seq.slot)
         seq.pages.release(self.page_mgr)
+
+    def _clear_slot(self, s: int) -> None:
+        """Clear a dead slot's device row BEFORE its pages are recycled: a
+        stale row would let it scribble K/V into pages that a new sequence
+        now owns."""
+        self._pt[s] = GARBAGE_PAGE
+        self._active[s] = False
+        self._clens[s] = 0
+        self._budget[s] = 0
 
     def _finish_sequence(self, seq: _Sequence, reason: str,
                          emit: bool = True) -> None:
