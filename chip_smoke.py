@@ -30,7 +30,13 @@ Phases (any failure exits non-zero before the result line):
    single-device attention, and timed against kernel 1); kernel 2 also at
    the speculative verify's shapes (B 8, Sq 5, block lengths 5, 1 and 0 in
    one call behind prefixes 256-1536, bf16 and f32), timed beside SDPA and
-   the bound there and at a uniform context of 1024;
+   the bound there and at a uniform context of 1024; kernels 1, 3 and 6
+   at head dim 256 (Gemma's 16/8 and 8/1 heads, both types; kernel 1 also
+   with a window of 300, Gemma-2's softcap 50 and scale 1/16, and all
+   three, and timed at Gemma-2-9B's decode behind 1024 and 4608 tokens,
+   local and global layers; kernel 6 on shard 0 of four), and kernel 2's
+   f32 walk at the two shapes its tensor-core route does not take
+   (Gemma-2B's head dim 256, Qwen2-7B's group of 7), timed beside SDPA;
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -143,6 +149,16 @@ Phases (any failure exits non-zero before the result line):
    twin (device, streamed and inline paths at ``bench_1b_config``'s KV
    shapes, 2048 and 8192 tokens). Handoff ms, the pair's TTFT beside
    phase 4f's and tokens/s are information;
+4j. the llama family's variants at full width and depth, one after the
+   other on random weights with drawn norm scales and biases: Gemma-2-9B
+   (a 4600-token prompt past its 4096-token window beside phase 4's kind
+   of requests, two prefix hits), Qwen2-7B (qkv biases, a prefix hit
+   through kernel 2's walk) and Llama-3-8B in weight-only int8 (phase 4's
+   weights and requests). Each leg checks kernel 1 at one launch a layer
+   per step, one decode step against kernel 1's plain version, and every
+   greedy token against its recomputation at the near-tie rule; Gemma-2's
+   prefills take the dense route (counted, kernel 2 idle). Then the bench
+   twin in int8 beside phase 4e's bf16 figure (information);
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -253,14 +269,14 @@ def sweep_splits(module, name, counts, fn):
     return ", ".join(f"{n}: {t:.4f} ms" for n, t in sweep.items())
 
 
-def paged_inputs(dtype, ctxs, n_pages=MAX_PAGES, seed=0):
+def paged_inputs(dtype, ctxs, n_pages=MAX_PAGES, seed=0, n_kv=N_KV, hd=HD):
     """Pool with a private page span per row, NaN in every slot past each
     row's context (a pool made with torch.empty can hold NaN there)."""
     rows = len(ctxs)
     g = torch.Generator(device="cuda").manual_seed(seed)
     P = rows * n_pages + 1
-    k = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
-    v = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+    k = torch.randn((P, n_kv, PS, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((P, n_kv, PS, hd), generator=g, device="cuda").to(dtype)
     pt = (torch.arange(rows * n_pages, dtype=torch.int32, device="cuda")
           .reshape(rows, n_pages) + 1)
     pos = torch.arange(n_pages * PS, device="cuda")
@@ -275,8 +291,8 @@ def paged_inputs(dtype, ctxs, n_pages=MAX_PAGES, seed=0):
 def gathered(pages, pt, T):
     """[P, n_kv, ps, hd] x [B, mp] -> dense [B, n_kv, T, hd] (first T)."""
     g = pages[pt.long()]                              # [B, mp, n_kv, ps, hd]
-    Bn, mp = g.shape[:2]
-    return g.permute(0, 2, 1, 3, 4).reshape(Bn, N_KV, mp * PS, HD)[:, :, :T]
+    Bn, mp, n_kv, ps, hd = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(Bn, n_kv, mp * ps, hd)[:, :, :T]
 
 
 def sdpa(q, k, v, mask=None):
@@ -291,6 +307,10 @@ def sdpa(q, k, v, mask=None):
 # ---------------------------------------------------------------- phase 3
 def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
                         kernel_fn):
+    from xllm_service_tpu_torch.ops.paged_attention import (
+        planned_blocks_per_sm,
+    )
+
     err = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # Ragged contexts up to the full table, then what split-K brings: a
@@ -306,6 +326,8 @@ def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
         ([1000], {"window": 300, "softcap": 30.0}),
     ]
     for dtype in (torch.bfloat16, torch.float32):
+        plan = planned_blocks_per_sm("paged_attention", HD, N_Q // N_KV,
+                                     dtype == torch.bfloat16)
         for ctxs, opts in cases:
             rows = len(ctxs)
             k, v, pt = paged_inputs(dtype, ctxs)
@@ -320,7 +342,7 @@ def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
                     "decode kernel: ctx 0 row not zero"
             e = (got.float() - want.float()).abs().max().item()
             log(f"  paged_attention {str(dtype)[6:]:8s} ctx={ctxs} {opts} "
-                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms)} "
+                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms, plan)} "
                 f"max_abs_err={e:.3g} (tol {TOL[dtype]})")
             assert e <= TOL[dtype], "decode kernel disagrees with plain"
             err = max(err, e)
@@ -344,8 +366,9 @@ def check_decode_kernel(paged_attention, paged_attention_plain, split_count,
         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
     per_sm = kernel_fn("paged_attention", "paged_attention_blocks_per_sm",
                        [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
-    log(f"  paged_attention: splits {split_count(B, N_KV, MAX_PAGES, PS, sms)}"
-        f" on {sms} SMs, {per_sm} blocks per SM; "
+    log(f"  paged_attention: splits "
+        f"{split_count(B, N_KV, MAX_PAGES, PS, sms, 2)} on {sms} SMs, "
+        f"{per_sm} blocks per SM (the plan takes 2); "
         f"{ms / lib_ms:.2f}x the library's time, "
         f"{ms / bound:.1f}x the bound, "
         f"{nbytes / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
@@ -496,6 +519,9 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
     holds part of one page (68: units 0-1, 2-3, 4 and an empty split at four
     splits), a full table, and one row alone (the most splits)."""
     from xllm_service_tpu_torch.ops import fused_decode_attention as fd_mod
+    from xllm_service_tpu_torch.ops.paged_attention import (
+        planned_blocks_per_sm,
+    )
 
     err = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -503,6 +529,8 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
              [68, 4, 34, MAX_PAGES * PS, 1030, 516, 131, 65],
              [778]]
     for dtype in (torch.bfloat16, torch.float32):
+        plan = planned_blocks_per_sm("fused_decode_attention", HD,
+                                     N_Q // N_KV, dtype == torch.bfloat16)
         for ctxs in cases:
             rows = len(ctxs)
             k, v, pt = paged_inputs(dtype, ctxs, seed=4)
@@ -521,7 +549,7 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
                 torch.equal(a.view(torch.int16), b.view(torch.int16))
                 for a, b in ((kp, k), (vp, v)))
             log(f"  fused_decode_attention {str(dtype)[6:]:8s} ctx={ctxs} "
-                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms)} "
+                f"splits={split_count(rows, N_KV, MAX_PAGES, PS, sms, plan)} "
                 f"max_abs_err={e:.3g} (tol {TOL[dtype]}), pools "
                 f"bit-identical {same_pools}")
             assert e <= TOL[dtype], "fused kernel disagrees with plain"
@@ -559,8 +587,9 @@ def check_fused_kernel(fused_decode_attention, fused_decode_attention_plain,
                        "fused_decode_attention_blocks_per_sm",
                        [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
     log(f"  fused_decode_attention: splits "
-        f"{split_count(B, N_KV, MAX_PAGES, PS, sms)} on {sms} SMs, {per_sm} "
-        f"blocks per SM; {ms / lib_ms:.2f}x the library's time, "
+        f"{split_count(B, N_KV, MAX_PAGES, PS, sms, 2)} on {sms} SMs, "
+        f"{per_sm} blocks per SM (the plan takes 2); {ms / lib_ms:.2f}x the "
+        f"library's time, "
         f"{ms / bound:.1f}x the bound")
     log("  fused_decode_attention: splits sweep "
         + sweep_splits(fd_mod, "split_count", (1, 2, 4, 8), call))
@@ -705,7 +734,7 @@ def poison_unowned(k, v, pt, ctxs):
     v.masked_fill_(~keep[:, None, :, None], float("nan"))
 
 
-def cp_case(dtype, ctxs, seed, tail_row=None):
+def cp_case(dtype, ctxs, seed, tail_row=None, n_q=N_Q, n_kv=N_KV, hd=HD):
     """Inputs of kernel 6's check: a pool of B * MAX_PAGES + 8 pages (the
     count divides by 2 and 4), tables a permutation of pages 4..P-2 across
     every shard, NaN in every slot no row occupies below its context. Row 1
@@ -716,8 +745,8 @@ def cp_case(dtype, ctxs, seed, tail_row=None):
     rows = len(ctxs)
     P = B * MAX_PAGES + 8
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
-    v = torch.randn((P, N_KV, PS, HD), generator=g, device="cuda").to(dtype)
+    k = torch.randn((P, n_kv, PS, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((P, n_kv, PS, hd), generator=g, device="cuda").to(dtype)
     perm = torch.randperm(P - 5, generator=torch.Generator().manual_seed(seed))
     pt = (perm[:rows * MAX_PAGES] + 4).reshape(rows, MAX_PAGES).to(
         torch.int32).cuda()
@@ -727,7 +756,7 @@ def cp_case(dtype, ctxs, seed, tail_row=None):
         assert -(-ctxs[tail_row] // PS) == 4, "the tail row holds four pages"
         pt[tail_row, :4] = torch.tensor([1, 2, 3, P - 1], dtype=torch.int32)
     poison_unowned(k, v, pt, ctxs)
-    q = torch.randn((rows, N_Q, HD), device="cuda").to(dtype)
+    q = torch.randn((rows, n_q, hd), device="cuda").to(dtype)
     cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
     return q, k, v, pt, cl
 
@@ -747,7 +776,10 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     TOL, and l and acc within TOL after dividing by max(l, 1): both are
     sums of up to ctx terms weighted by p <= 1, so their rounding grows
     with l. The merged output is compared within TOL."""
-    from xllm_service_tpu_torch.ops.paged_attention import NEG_INF
+    from xllm_service_tpu_torch.ops.paged_attention import (
+        NEG_INF,
+        planned_blocks_per_sm,
+    )
 
     err = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -763,8 +795,10 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                 mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
                 k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
                 P_loc = P // n
-                splits = cp.partial_split_count(rows, N_KV, MAX_PAGES, PS,
-                                                sms, n)
+                splits = cp.partial_split_count(
+                    rows, N_KV, MAX_PAGES, PS, sms, n, planned_blocks_per_sm(
+                        "cp_paged_partial", HD, N_Q // N_KV,
+                        dtype == torch.bfloat16))
                 for d in range(n):
                     tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc,
                                                     PS)
@@ -855,8 +889,9 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     per_sm = kernel_fn("cp_paged_partial", "cp_paged_partial_blocks_per_sm",
                        [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
     log(f"  cp_paged_partial: splits "
-        f"{cp.partial_split_count(B, N_KV, mp, PS, sms, n)} on {sms} SMs, "
-        f"{per_sm} blocks per SM; {ms / lib_ms:.2f}x the library's time, "
+        f"{cp.partial_split_count(B, N_KV, mp, PS, sms, n, 2)} on {sms} SMs, "
+        f"{per_sm} blocks per SM (the plan takes 2); {ms / lib_ms:.2f}x the "
+        f"library's time, "
         f"{ms / bound:.1f}x the bound")
     log("  cp_paged_partial: splits sweep "
         + sweep_splits(cp, "partial_split_count", (1, 2, 4), call))
@@ -873,6 +908,367 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+
+
+
+# ------------------------------------------------ phase 3, head dim 256
+# Gemma-2-9B's attention options (query_pre_attn_scalar 256: scale 1/16)
+# and the two Gemma groups, as (n_q, n_kv): Gemma-2-9B's 16/8, Gemma-2B's
+# 8/1.
+GEMMA2_OPTS = {"softcap": 50.0, "scale": 1 / 16}
+HD256_GROUPS = ((16, 8), (8, 1))
+HD256_CASES = [[0, 1, 7, 16, 17, 500, 1000, MAX_PAGES * PS],
+               [67, 3, 33, MAX_PAGES * PS, 1029, 515, 130, 64], [777]]
+HD256_OPTS = [{}, {"window": 300}, GEMMA2_OPTS,
+              {**GEMMA2_OPTS, "window": 300}]
+# Cases where the cap bites, as (gain on q, options): with N(0, 1) q and k
+# the scores at scale 1/16 have a deviation of 1, where a cap of 50 moves
+# them by under 0.01; q scaled up brings them to a good share of the cap.
+# Each case first shows, on the plain version, that dropping the cap moves
+# the output by more than CAP_MOVES, so a kernel without it fails there.
+HD256_CAPPED = [(4.0, {"softcap": 5.0, "scale": 1 / 16}),
+                (16.0, GEMMA2_OPTS),
+                (16.0, {**GEMMA2_OPTS, "window": 300})]
+CAP_MOVES = 0.2                         # ten times the bf16 tolerance
+
+
+def bound_of(nbytes, ops, peak=BF16_FLOPS):
+    """(bound ms, what bounds it) of a call moving ``nbytes`` and doing
+    ``ops`` operations at ``peak``."""
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak), by
+
+
+def check_hd256_decode(paged_attention, paged_attention_plain, split_count):
+    """Kernel 1 at head dim 256 against its plain version: both Gemma
+    groups, both types, phase 3's context mixes, each with no option, a
+    window of 300, Gemma-2's softcap and scale, and all three, and each
+    with q scaled so that the cap bites (HD256_CAPPED); then timed
+    at Gemma-2-9B's decode (B 8, 16/8 heads): behind 1024 tokens, and
+    behind 4608 with the softcap and scale on a local layer (window 4096)
+    and a global one. No PyTorch call computes a softcapped attention, so
+    the softcapped shapes have no library time; SDPA at the same shape
+    without cap or window is logged as information. Returns the timings
+    by case."""
+    from xllm_service_tpu_torch.ops.paged_attention import blocks_per_sm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_q, n_kv in HD256_GROUPS:
+            err, cap_moved = 0.0, float("inf")
+            for ctxs in HD256_CASES:
+                k, v, pt = paged_inputs(dtype, ctxs, seed=20, n_kv=n_kv,
+                                        hd=256)
+                q = torch.randn((len(ctxs), n_q, 256), device="cuda").to(
+                    dtype)
+                cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+                for opts in HD256_OPTS:
+                    got = paged_attention(q, k, v, pt, cl, **opts)
+                    want = paged_attention_plain(q, k, v, pt, cl, **opts)
+                    torch.cuda.synchronize()
+                    assert torch.isfinite(got).all(), "hd 256: non-finite"
+                    for b, c in enumerate(ctxs):
+                        assert c > 0 or (got[b] == 0).all(), \
+                            "hd 256: ctx 0 row not zero"
+                    e = (got.float() - want.float()).abs().max().item()
+                    assert e <= TOL[dtype], \
+                        f"decode kernel at hd 256 disagrees ({ctxs}, {opts})"
+                    err = max(err, e)
+                for gain, opts in HD256_CAPPED:
+                    qc = (q.float() * gain).to(dtype)
+                    got = paged_attention(qc, k, v, pt, cl, **opts)
+                    want = paged_attention_plain(qc, k, v, pt, cl, **opts)
+                    uncapped = paged_attention_plain(
+                        qc, k, v, pt, cl,
+                        **{o: x for o, x in opts.items() if o != "softcap"})
+                    torch.cuda.synchronize()
+                    moved = (want.float() - uncapped.float()).abs().max(
+                    ).item()
+                    assert moved > CAP_MOVES, \
+                        f"hd 256: the cap moves plain by only {moved:.3g}"
+                    e = (got.float() - want.float()).abs().max().item()
+                    assert torch.isfinite(got).all() and e <= TOL[dtype], \
+                        f"decode kernel at hd 256 disagrees where the cap " \
+                        f"bites ({ctxs}, q x {gain}, {opts}): {e:.3g}"
+                    err = max(err, e)
+                    cap_moved = min(cap_moved, moved)
+            per_sm = blocks_per_sm("paged_attention", 256, n_q // n_kv,
+                                   dtype == torch.bfloat16)
+            log(f"  paged_attention hd 256 {str(dtype)[6:]:8s} {n_q}/{n_kv} "
+                f"heads: {len(HD256_CASES)} context mixes x "
+                f"{len(HD256_OPTS)} option sets (none, window 300, softcap "
+                f"50 + scale 1/16, all) + {len(HD256_CAPPED)} where the cap "
+                f"bites (the cap moves plain by >= {cap_moved:.3g}), "
+                f"max_abs_err={err:.3g} (tol "
+                f"{TOL[dtype]}); {per_sm} block(s) per SM, splits "
+                f"{split_count(8, n_kv, MAX_PAGES, PS, sms, per_sm)} at "
+                "B 8")
+
+    out = {}
+    n_q, n_kv = HD256_GROUPS[0]
+    for name, ctx, opts in (("ctx 1024", 1024, {}),
+                            ("gemma2 local", 4608,
+                             {**GEMMA2_OPTS, "window": 4096}),
+                            ("gemma2 global", 4608, GEMMA2_OPTS)):
+        k, v, pt = paged_inputs(torch.bfloat16, [ctx] * B, n_pages=ctx // PS,
+                                seed=21, n_kv=n_kv, hd=256)
+        q = torch.randn((B, n_q, 256), device="cuda").to(torch.bfloat16)
+        cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+        got = paged_attention(q, k, v, pt, cl, **opts)
+        want = paged_attention_plain(q, k, v, pt, cl, **opts)
+        e = (got.float() - want.float()).abs().max().item()
+        assert e <= TOL[torch.bfloat16], f"hd 256 {name}: disagrees"
+        visible = min(ctx, opts.get("window", ctx))
+        kd = gathered(k, pt, ctx)[:, :, ctx - visible:].contiguous()
+        vd = gathered(v, pt, ctx)[:, :, ctx - visible:].contiguous()
+        qd = q[:, :, None, :]
+        ms = time_ms(lambda: paged_attention(q, k, v, pt, cl, **opts))
+        plain_ms = time_ms(
+            lambda: paged_attention_plain(q, k, v, pt, cl, **opts))
+        sdpa_ms = time_ms(lambda: sdpa(qd, kd, vd))
+        nbytes = (2 * q.numel() * 2 + B * visible * n_kv * 256 * 2 * 2
+                  + B * (-(-visible // PS)) * 4 + B * 4)
+        bound, by = bound_of(nbytes, 4 * n_q * 256 * B * visible)
+        lib = None if opts else sdpa_ms
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=lib, max_abs_err=e)
+        log(f"  paged_attention hd 256 bf16 B={B} {n_q}/{n_kv} heads "
+            f"{name} (ctx {ctx}, {visible} visible, {opts}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}, {nbytes / 1e6:.1f} MB), {ms / bound:.2f}x the bound; "
+            f"library {'none (softcap)' if opts else f'{sdpa_ms:.4f} ms'}"
+            f"{f', sdpa without cap or window {sdpa_ms:.4f} ms' if opts else ''}"
+            f"; max_abs_err={e:.3g}")
+    return out
+
+
+QWEN2_TABLE = 2048 // PS     # phase 4j's Qwen2-7B engine: max_seq_len 2048
+
+
+def check_group7_decode(paged_attention, paged_attention_plain):
+    """Kernel 1 at Qwen2-7B's decode: 28/4 heads (a GQA group of 7, the
+    rows of one tensor-core tile), head dim 128 and the table of phase
+    4j's Qwen2-7B engine (128 pages of 16), against its plain version at
+    both types on phase 3's context mixes (a window of 300 too, for the
+    split-K edges), then timed at B 8 behind 1024 tokens beside one SDPA
+    call and the bound."""
+    from xllm_service_tpu_torch.ops.paged_attention import (
+        planned_blocks_per_sm,
+        split_count,
+    )
+
+    n_q, n_kv, hd = 28, 4, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [([0, 1, 7, 16, 17, 500, 1000, QWEN2_TABLE * PS], {}),
+             ([67, 3, 33, QWEN2_TABLE * PS, 1029, 515, 130, 64], {}),
+             ([777], {}),
+             ([1000, 67, 301, 0, 2048, 300, 16, 1500], {"window": 300})]
+    for dtype in (torch.bfloat16, torch.float32):
+        err = 0.0
+        for ctxs, opts in cases:
+            k, v, pt = paged_inputs(dtype, ctxs, n_pages=QWEN2_TABLE,
+                                    seed=28, n_kv=n_kv, hd=hd)
+            q = torch.randn((len(ctxs), n_q, hd), device="cuda").to(dtype)
+            cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+            got = paged_attention(q, k, v, pt, cl, **opts)
+            want = paged_attention_plain(q, k, v, pt, cl, **opts)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), "group 7: non-finite"
+            for b, c in enumerate(ctxs):
+                assert c > 0 or (got[b] == 0).all(), \
+                    "group 7: ctx 0 row not zero"
+            e = (got.float() - want.float()).abs().max().item()
+            assert e <= TOL[dtype], \
+                f"decode kernel at group 7 disagrees ({ctxs}, {opts})"
+            err = max(err, e)
+        plan = planned_blocks_per_sm("paged_attention", hd, n_q // n_kv,
+                                     dtype == torch.bfloat16)
+        log(f"  paged_attention {str(dtype)[6:]:8s} {n_q}/{n_kv} heads hd "
+            f"{hd}, {QWEN2_TABLE}-page table: {len(cases)} context mixes, "
+            f"max_abs_err={err:.3g} (tol {TOL[dtype]}); splits "
+            f"{split_count(B, n_kv, QWEN2_TABLE, PS, sms, plan)} at B {B}")
+    ctx = 1024
+    k, v, pt = paged_inputs(torch.bfloat16, [ctx] * B, n_pages=QWEN2_TABLE,
+                            seed=29, n_kv=n_kv, hd=hd)
+    q = torch.randn((B, n_q, hd), device="cuda").to(torch.bfloat16)
+    cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    kd, vd = gathered(k, pt, ctx).contiguous(), gathered(v, pt, ctx).contiguous()
+    qd = q[:, :, None, :]
+    ms = time_ms(lambda: paged_attention(q, k, v, pt, cl))
+    plain_ms = time_ms(lambda: paged_attention_plain(q, k, v, pt, cl))
+    lib_ms = time_ms(lambda: sdpa(qd, kd, vd))
+    nbytes = (2 * q.numel() * 2 + B * ctx * n_kv * hd * 2 * 2
+              + B * (ctx // PS) * 4 + B * 4)
+    bound, by = bound_of(nbytes, 4 * n_q * hd * B * ctx)
+    log(f"  paged_attention bf16 B={B} {n_q}/{n_kv} heads hd {hd} ctx {ctx}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+        f"({ms / lib_ms:.2f}x), bound {bound:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB), {ms / bound:.2f}x the bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def check_hd256_fused_and_partial(fused, fused_plain, cp):
+    """Kernel 3 at head dim 256 (both groups, both types: output within
+    TOL, the pools bit for bit after the append) and kernel 6 at head dim
+    256 on shard 0 of four (Gemma-2-9B's group, scale 1/16), each timed at
+    B 8, ctx 1024 beside its bound."""
+    from xllm_service_tpu_torch.ops.paged_attention import NEG_INF
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_q, n_kv in HD256_GROUPS:
+            err = 0.0
+            for ctxs in ([0, 1, 16, 17, 500, 777, 1024, MAX_PAGES * PS],
+                         [778]):
+                k, v, pt = paged_inputs(dtype, ctxs, seed=22, n_kv=n_kv,
+                                        hd=256)
+                q = torch.randn((len(ctxs), n_q, 256), device="cuda").to(
+                    dtype)
+                kn = torch.randn((len(ctxs), n_kv, 256), device="cuda").to(
+                    dtype)
+                vn = torch.randn((len(ctxs), n_kv, 256), device="cuda").to(
+                    dtype)
+                cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+                kp, vp = k.clone(), v.clone()
+                got = fused(q, kn, vn, kp, vp, pt, cl)[0]
+                want = fused_plain(q, kn, vn, k, v, pt, cl)[0]
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                assert e <= TOL[dtype], "fused kernel at hd 256 disagrees"
+                assert all(torch.equal(a.view(torch.int16),
+                                       b.view(torch.int16))
+                           for a, b in ((kp, k), (vp, v))), \
+                    "fused kernel's append at hd 256 differs"
+                err = max(err, e)
+            log(f"  fused_decode_attention hd 256 {str(dtype)[6:]:8s} "
+                f"{n_q}/{n_kv} heads: max_abs_err={err:.3g} (tol "
+                f"{TOL[dtype]}), pools bit-identical")
+    n_q, n_kv = HD256_GROUPS[0]
+    ctx = 1024
+    k, v, pt = paged_inputs(torch.bfloat16, [ctx] * B, seed=23, n_kv=n_kv,
+                            hd=256)
+    q = torch.randn((B, n_q, 256), device="cuda").to(torch.bfloat16)
+    kn = torch.randn((B, n_kv, 256), device="cuda").to(torch.bfloat16)
+    vn = torch.randn((B, n_kv, 256), device="cuda").to(torch.bfloat16)
+    cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda: fused(q, kn, vn, k, v, pt, cl))
+    plain_ms = time_ms(lambda: fused_plain(q, kn, vn, k, v, pt, cl))
+    nbytes = (2 * q.numel() * 2 + 2 * 2 * kn.numel() * 2
+              + B * (ctx - 1) * n_kv * 256 * 2 * 2
+              + B * (-(-(ctx - 1) // PS)) * 4 + B * 4)
+    bound, by = bound_of(nbytes, 4 * n_q * 256 * B * ctx)
+    out["fused"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by)
+    log(f"  fused_decode_attention hd 256 bf16 B={B} {n_q}/{n_kv} heads "
+        f"ctx {ctx}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, pt, cl = cp_case(dtype, [0, 1, 16, 17, 500, 777, 1024,
+                                          MAX_PAGES * PS], 24, n_q=n_q,
+                                  n_kv=n_kv, hd=256)
+        P_loc = k.shape[0] // 4
+        tables = cp.compact_local_table(pt, cl, 0, P_loc, PS)
+        k0, v0 = k[:P_loc].contiguous(), v[:P_loc].contiguous()
+        m, l, acc = cp.paged_partial(q, k0, v0, *tables, cl, scale=1 / 16,
+                                     shards=4)
+        m0, l0, a0 = cp.paged_partial_plain(q, k0, v0, *tables, cl,
+                                            scale=1 / 16)
+        torch.cuda.synchronize()
+        dead = m0 <= NEG_INF / 2
+        assert torch.equal(dead, m <= NEG_INF / 2), "hd 256 cp: masked rows"
+        lsc = l0.clamp_min(1.0)
+        e = max((m - m0)[~dead].abs().max().item() if (~dead).any() else 0.0,
+                ((l - l0).abs() / lsc).max().item(),
+                ((acc - a0).abs() / lsc[..., None]).max().item())
+        assert e <= TOL[dtype], "cp partial at hd 256 disagrees"
+        log(f"  cp_paged_partial hd 256 {str(dtype)[6:]:8s} {n_q}/{n_kv} "
+            f"heads, shard 0 of 4: n_local {tables[2].tolist()}, "
+            f"err={e:.3g} (tol {TOL[dtype]})")
+    q, k, v, pt, cl = cp_case(torch.bfloat16, [ctx] * B, 25, n_q=n_q,
+                              n_kv=n_kv, hd=256)
+    P_loc = k.shape[0] // 4
+    tables = cp.compact_local_table(pt, cl, 0, P_loc, PS)
+    k0, v0 = k[:P_loc].contiguous(), v[:P_loc].contiguous()
+    ms = time_ms(lambda: cp.paged_partial(q, k0, v0, *tables, cl,
+                                          scale=1 / 16, shards=4))
+    plain_ms = time_ms(lambda: cp.paged_partial_plain(q, k0, v0, *tables,
+                                                      cl, scale=1 / 16))
+    owned = int(tables[2].sum()) * PS
+    nbytes = (q.numel() * 2 + B * n_q * (256 + 2) * 4
+              + owned * n_kv * 256 * 2 * 2 + int(tables[2].sum()) * 8
+              + 2 * B * 4)
+    bound, by = bound_of(nbytes, 4 * n_q * 256 * owned)
+    out["partial"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+    log(f"  cp_paged_partial hd 256 bf16 B={B} ctx {ctx}, shard 0 of 4 "
+        f"({owned} owned slots): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
+    return out
+
+
+def check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
+                         mq_route):
+    """Kernel 2's f32 walk at the two shapes the tensor-core route does not
+    take: Gemma-2B's head dim 256 (8/1 heads) and Qwen2-7B's group of 7
+    (28/4 heads, hd 128), each Sq 512 behind 512 (bf16) and Qwen2-7B also
+    at the verify shape (B 8, Sq 5 behind 1024), against the plain version
+    (also f32 at Sq 17 behind 384), and timed beside one masked SDPA call
+    and the bound."""
+    out = {}
+    for n_q, n_kv, hd in ((8, 1, 256), (28, 4, 128)):
+        assert mq_route(torch.bfloat16, hd, PS, n_q // n_kv) == "walk"
+        k, v, pt = paged_inputs(torch.float32, [384 + 17, 384 + 14],
+                                seed=26, n_kv=n_kv, hd=hd)
+        q = torch.randn((2, 17, n_q, hd), device="cuda")
+        pre = torch.full((2,), 384, dtype=torch.int32, device="cuda")
+        blk = torch.tensor([17, 14], dtype=torch.int32, device="cuda")
+        e32 = (mq_paged_attention(q, k, v, pt, pre, blk)
+               - mq_paged_attention_plain(q, k, v, pt, pre, blk)).abs().max(
+               ).item()
+        assert e32 <= TOL[torch.float32], "mq walk (f32) disagrees"
+        shapes = [("Sq 512 behind 512", 1, 512, 512)]
+        if hd == 128:
+            shapes.append(("verify B 8, Sq 5 behind 1024", B, VERIFY_SQ,
+                           1024))
+        for name, rows, s_q, prefix in shapes:
+            T = prefix + s_q
+            k, v, pt = paged_inputs(torch.bfloat16, [T] * rows, seed=27,
+                                    n_kv=n_kv, hd=hd)
+            q = torch.randn((rows, s_q, n_q, hd), device="cuda").to(
+                torch.bfloat16)
+            pre = torch.full((rows,), prefix, dtype=torch.int32,
+                             device="cuda")
+            blk = torch.full((rows,), s_q, dtype=torch.int32, device="cuda")
+            got = mq_paged_attention(q, k, v, pt, pre, blk)
+            want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            assert e <= TOL[torch.bfloat16], f"mq walk {name} disagrees"
+            kd = gathered(k, pt, T).contiguous()
+            vd = gathered(v, pt, T).contiguous()
+            qd = q.transpose(1, 2).contiguous()
+            mask = (torch.arange(T, device="cuda")[None, :]
+                    <= prefix + torch.arange(s_q, device="cuda")[:, None])
+            ms = time_ms(lambda: mq_paged_attention(q, k, v, pt, pre, blk))
+            plain_ms = time_ms(
+                lambda: mq_paged_attention_plain(q, k, v, pt, pre, blk))
+            lib = time_ms(lambda: sdpa(qd, kd, vd, mask))
+            nbytes = (2 * q.numel() * 2 + rows * T * n_kv * hd * 2 * 2
+                      + rows * (-(-T // PS)) * 4 + 2 * rows * 4)
+            ops = 4 * n_q * hd * rows * (s_q * prefix
+                                         + s_q * (s_q + 1) // 2)
+            bound, by = bound_of(nbytes, ops)
+            key = f"{n_q}/{n_kv} hd {hd} {name}"
+            out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                            bound_ms=bound, bound_by=by, max_abs_err=e)
+            log(f"  mq_paged_attention walk bf16 {key}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa {lib:.4f} ms "
+                f"({ms / lib:.2f}x), bound {bound:.4f} ms ({by}), "
+                f"{ms / bound:.1f}x the bound; max_abs_err={e:.3g} (f32 "
+                f"at Sq 17 behind 384: {e32:.3g})")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1632,6 +2028,7 @@ def twins_phase(params, card):
         assert b["value"] > 0 and b["tokens"] > 0
         assert prof["full_step_graphed_ms"] < prof["full_step_ms"], \
             "the graphed step is not faster than the eager one"
+        return b["value"]
     finally:
         del os.environ["XLLM_BENCH_MODEL"]
         gc.collect()
@@ -3266,6 +3663,328 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 4j
+def draw_norms_and_biases(params, seed):
+    """Every norm scale and qkv bias of a random tree drawn from N(0, 0.1)
+    (plus 1 for a plain norm): zero biases and identity norms would hide a
+    bias or (1 + w) fault. In place."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    unit = params["final_norm"]["scale"].float().mean().item()
+
+    def draw(t, base):
+        t.copy_(base + 0.1 * torch.randn(t.shape, generator=g, device="cuda",
+                                          dtype=torch.float32))
+
+    draw(params["final_norm"]["scale"], unit)
+    for name, leaf in params["layers"].items():
+        if name.endswith("_norm"):
+            draw(leaf["scale"], unit)
+        if "bias" in leaf:
+            draw(leaf["bias"], 0.0)
+
+
+def serve_variant(engine_mod, cfg, params, prompts, shared, sampled_prompt,
+                  long_prompt):
+    """One serving run of phase 4j on a fresh engine with its loop: the
+    greedy ``prompts``, one seeded sampled and one greedy logprob request,
+    ``long_prompt`` (if any) with them, and the ``shared`` prompts once
+    request 0 has its first token (prefix hits). 64 new tokens each.
+    Returns (tokens and prompts by name, stats, TTFT ms sorted, generated
+    tok/s, the engine's params: quantized if the config says so)."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    eng = engine_mod.InferenceEngine(cfg, params=params)
+    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    samp = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
+                          seed=1234, ignore_eos=True)
+    lp = SamplingParams(max_tokens=64, temperature=0.0, logprobs=True,
+                        top_logprobs=2, ignore_eos=True)
+    cols, sent, t_sub = {}, {}, {}
+    eng.start()
+    try:
+        t0 = time.monotonic()
+
+        def submit(name, toks, sp):
+            cols[name], sent[name] = Collector(), toks
+            t_sub[name] = time.monotonic()
+            eng.submit(engine_mod.EngineRequest(name, token_ids=toks,
+                                                sampling=sp,
+                                                on_output=cols[name]))
+
+        for i, p in enumerate(prompts):
+            submit(f"g{i}", p, greedy)
+        submit("sampled", sampled_prompt, samp)
+        submit("logprobs", prompts[-1][:300], lp)
+        if long_prompt is not None:
+            submit("long", long_prompt, greedy)
+        assert cols["g0"].first.wait(600), "request 0 never started"
+        for j, p in enumerate(shared):
+            submit(f"s{j}", p, greedy)
+        for name, c in cols.items():
+            assert c.done.wait(900), f"{name} never finished"
+        wall = time.monotonic() - t0
+    finally:
+        eng.stop()
+    for name, c in cols.items():
+        assert len(c.tokens) == 64 and c.reason == "length", \
+            f"{name}: {len(c.tokens)} tokens, reason {c.reason!r}"
+    stats = eng.stats()
+    ttft = sorted((c.t_first - t_sub[n]) * 1e3 for n, c in cols.items())
+    toks = {n: c.tokens for n, c in cols.items()}
+    eng_params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (toks, sent, stats, ttft, sum(map(len, toks.values())) / wall,
+            eng_params)
+
+
+def decode_step_vs_plain(llama, attention, cfg, params, context,
+                         paged_attention_plain):
+    """One decode step after ``context`` (its last token decoded behind
+    the rest, installed whole): its logits with kernel 1, then the same
+    step on the same pool with kernel 1's plain version in its place.
+    Returns (max abs difference, max |logit|)."""
+    m = cfg.model
+    n = len(context)
+    n_pages = -(-n // cfg.page_size)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    kv = empty_pool(cfg, n_pages + 1, "cuda")
+    pt = torch.arange(1, n_pages + 1, **i32)[None]
+    toks = torch.tensor([context], **i32)
+    llama.prefill_forward(params, m, toks[:, :n - 1],
+                          torch.arange(n - 1, **i32)[None], kv, pt,
+                          torch.zeros((1,), **i32),
+                          torch.tensor([n - 1], **i32), has_prefix=False)
+
+    def step():
+        return llama.decode_forward(params, m, toks[:, n - 1],
+                                    torch.tensor([n - 1], **i32), kv, pt,
+                                    torch.tensor([n], **i32))[0]
+
+    got = step()
+    real = attention.paged_attention
+    attention.paged_attention = paged_attention_plain
+    try:
+        want = step()
+    finally:
+        attention.paged_attention = real
+    assert torch.isfinite(got).all(), "decode step: non-finite logits"
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def check_streams_recomputed(llama, cfg, params, sent, toks, what):
+    """Each greedy stream against its recomputation: the prompt but its
+    last token installed whole, then one verify forward over the last
+    prompt token and the stream's tokens but the last gives the logits
+    that predict every stream token. Each token must be the argmax, or a
+    near-tie as in ``compare_streams`` (one of the two largest values,
+    within TIE_STEPS bf16 steps of the top). Returns (tokens checked,
+    argmax tokens)."""
+    m = cfg.model
+    i32 = dict(dtype=torch.int32, device="cuda")
+    checked = exact = 0
+    for name, gen in toks.items():
+        if name == "sampled":
+            continue
+        prompt = sent[name]
+        n = len(prompt)
+        n_pages = -(-(n + len(gen)) // cfg.page_size)
+        kv = empty_pool(cfg, n_pages + 1, "cuda")
+        pt = torch.arange(1, n_pages + 1, **i32)[None]
+        llama.prefill_forward(params, m, torch.tensor([prompt[:-1]], **i32),
+                              torch.arange(n - 1, **i32)[None], kv, pt,
+                              torch.zeros((1,), **i32),
+                              torch.tensor([n - 1], **i32), has_prefix=False)
+        block = [prompt[-1]] + gen[:-1]
+        logits = llama.verify_forward(
+            params, m, torch.tensor([block], **i32),
+            torch.arange(n - 1, n - 1 + len(block), **i32)[None], kv, pt,
+            torch.tensor([n - 1], **i32), torch.tensor([len(block)], **i32))[
+            0][0]
+        for j, tok in enumerate(gen):
+            row = logits[j]
+            values = torch.unique(row)
+            took = row[tok]
+            rank = int((values > took).sum()) + 1
+            gap = (values[-1] - took).item()
+            tol = TIE_STEPS * bf16_step(row.abs().max().item())
+            assert rank <= 2 and gap <= tol, \
+                f"{what}: {name} token {j} ({tok}) is no near-tie: rank " \
+                f"{rank}, {gap:.4g} below the top (tol {tol:.4g})"
+            checked += 1
+            exact += rank == 1
+    log(f"  {what}: {checked} greedy tokens against their recomputation: "
+        f"{exact} the argmax, {checked - exact} near-ties")
+    return checked, exact
+
+
+def variant_leg(engine_mod, llama, attention, name, cfg, params, requests,
+                kernels, card, logit_context):
+    """One leg of phase 4j: serve ``requests`` = (prompts, shared,
+    sampled_prompt, long_prompt) with the counts set to 0 just before and
+    read just after; check the replays and kernel 1's launches (one per
+    layer per step: every step is a replay or a capture's warm-up), one
+    decode step's logits against kernel 1's plain version after
+    ``logit_context``, and the greedy streams against their
+    recomputation. Returns (kernel 1 and kernel 2 launches, dense-route
+    prefills, prefix hits)."""
+    paged_attention, mq_paged_attention, paged_attention_plain = kernels
+    reset_counts()
+    dense0 = attention.dense_prefill_route.launches
+    t = time.monotonic()
+    toks, sent, stats, ttft, tps, eng_params = serve_variant(
+        engine_mod, cfg, params, *requests)
+    k1, k2 = paged_attention.launches, mq_paged_attention.launches
+    dense = attention.dense_prefill_route.launches - dense0
+    L = cfg.model.num_layers
+    graph = stats["decode_graph"]
+    log(f"  {name}: served {len(toks)} requests in "
+        f"{time.monotonic() - t:.1f} s: TTFT ms p50 {ttft[len(ttft) // 2]:.1f}"
+        f" max {ttft[-1]:.1f}; {tps:.1f} generated tok/s over the run "
+        f"(information only; {card}); prefix hits {stats['prefix_hits']}; "
+        f"decode graph captures {graph['captures']}, replays "
+        f"{graph['replays']}; launches: kernel 1 {k1}, kernel 2 {k2}; "
+        f"prefill attention calls on the dense route {dense}")
+    check_replays(stats, name)
+    assert k1 == L * (graph["replays"] + graph["captures"]), \
+        f"{name}: kernel 1 launched {k1} times, not {L} a step"
+    e, scale = decode_step_vs_plain(llama, attention, cfg, eng_params,
+                                    logit_context, paged_attention_plain)
+    log(f"  {name}: a decode step after {len(logit_context)} tokens, kernel "
+        f"1 vs its plain version: max_abs_err={e:.4g}, max|logit|="
+        f"{scale:.4g} (tol {PREFILL_REL_TOL} x max|logit|)")
+    assert e <= PREFILL_REL_TOL * scale, f"{name}: decode logits drifted"
+    check_streams_recomputed(llama, cfg, eng_params, sent, toks, name)
+    del eng_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, k2, dense, stats["prefix_hits"]
+
+
+def bench_twin_int8(params, card):
+    """The bench twin (B 16, ctx 512) at Llama-3-8B in weight-only int8 on
+    ``params``; logs and returns its record (information only, beside phase
+    4e's bf16 figure)."""
+    from xllm_service_tpu_torch import bench
+
+    os.environ["XLLM_BENCH_MODEL"] = "8b"
+    os.environ["XLLM_QUANT"] = "int8"
+    try:
+        b = bench.run("cuda", params=params)
+    finally:
+        del os.environ["XLLM_BENCH_MODEL"], os.environ["XLLM_QUANT"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  bench twin (8b int8, B {b['batch']}, ctx {b['ctx']}): "
+        f"{b['value']:.1f} tok/s, {b['ms_per_token_step']:.3f} ms a "
+        f"token-step, pct_roofline {b['pct_roofline']:.2f} "
+        f"({b['bytes_per_step_mb']:.1f} MB a step; information only; {card})")
+    return b
+
+
+def variants_phase(engine_mod, llama, attention, llama_cfg, llama_params,
+                   prompts, shared, sampled_prompt, kernels, card, bench_bf16):
+    """Phase 4j: the llama family's variants at full width and depth, each
+    on random weights from a seed with drawn norm scales and biases:
+    (a) Gemma-2-9B with a prompt past its 4096-token window, (b) Qwen2-7B
+    with qkv biases, (c) Llama-3-8B in weight-only int8 (phase 4's weights,
+    quantized by the engine, then the bench twin in int8). Returns the
+    summed launches of kernels 1 and 2."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.models.gemma import gemma2_9b_config
+    from xllm_service_tpu_torch.models.qwen2 import qwen2_7b_config
+
+    total = [0, 0]
+    rng = np.random.default_rng(12)
+
+    # (a) Gemma-2-9B.
+    t = time.monotonic()
+    mcfg = gemma2_9b_config()
+    V = mcfg.vocab_size
+    gcfg = engine_config_4j(mcfg, num_pages=1024, max_seq_len=8192)
+    params = llama.init_params(mcfg, torch.Generator(device="cuda")
+                               .manual_seed(1), "cuda")
+    draw_norms_and_biases(params, 2)
+    g_prompts = [rng.integers(3, V, size=int(n)).tolist()
+                 for n in rng.integers(64, 1025, size=5)]
+    g_shared = [g_prompts[0][:512] + rng.integers(3, V, size=int(n)).tolist()
+                for n in rng.integers(64, 513, size=2)]
+    long_prompt = rng.integers(3, V, size=4600).tolist()
+    log(f"  gemma2-9b: {mcfg.num_layers} layers, hidden {mcfg.hidden_size}, "
+        f"{mcfg.num_heads}/{mcfg.num_kv_heads} heads of {mcfg.head_dim}, "
+        f"window {mcfg.sliding_window} on even layers; weights drawn in "
+        f"{time.monotonic() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    k1, k2, dense, hits = variant_leg(
+        engine_mod, llama, attention, "gemma2-9b", gcfg, params,
+        (g_prompts, g_shared, rng.integers(3, V, size=200).tolist(),
+         long_prompt), kernels, card, long_prompt)
+    assert hits >= 2, "gemma2-9b: no prefix hits"
+    assert dense > 0 and k2 == 0, \
+        "gemma2-9b: a softcapped prefill left the dense route"
+    total[0] += k1
+    total[1] += k2
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  gemma2-9b leg: {time.monotonic() - t:.1f} s")
+
+    # (b) Qwen2-7B.
+    t = time.monotonic()
+    mcfg = qwen2_7b_config()
+    V = mcfg.vocab_size
+    qcfg = engine_config_4j(mcfg, num_pages=2048, max_seq_len=2048)
+    params = llama.init_params(mcfg, torch.Generator(device="cuda")
+                               .manual_seed(3), "cuda")
+    draw_norms_and_biases(params, 4)
+    q_prompts = [rng.integers(3, V, size=int(n)).tolist()
+                 for n in rng.integers(64, 1025, size=6)]
+    q_shared = [q_prompts[0][:512] + rng.integers(3, V, size=300).tolist()]
+    k1, k2, dense, hits = variant_leg(
+        engine_mod, llama, attention, "qwen2-7b", qcfg, params,
+        (q_prompts, q_shared, rng.integers(3, V, size=200).tolist(), None),
+        kernels, card, q_prompts[1])
+    assert hits >= 1 and k2 > 0, "qwen2-7b: no prefix hit through kernel 2"
+    assert dense == 0
+    log(f"  qwen2-7b: kernel 2 (the f32 walk: group "
+        f"{mcfg.num_heads // mcfg.num_kv_heads}) launched {k2} times")
+    total[0] += k1
+    total[1] += k2
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  qwen2-7b leg: {time.monotonic() - t:.1f} s")
+
+    # (c) Llama-3-8B in int8, phase 4's weights and requests.
+    t = time.monotonic()
+    icfg = replace(llama_cfg, model=replace(llama_cfg.model, quant="int8"))
+    k1, k2, dense, hits = variant_leg(
+        engine_mod, llama, attention, "llama3-8b int8", icfg, llama_params,
+        (prompts, shared, sampled_prompt, None), kernels, card, shared[0])
+    assert hits >= 2 and dense == 0
+    total[0] += k1
+    total[1] += k2
+    b = bench_twin_int8(llama_params, card)
+    log(f"  int8 against bf16 at Llama-3-8B: {b['value']:.1f} against phase "
+        f"4e's {bench_bf16:.1f} tok/s, {b['value'] / bench_bf16:.3f}x")
+    log(f"  llama3-8b int8 leg: {time.monotonic() - t:.1f} s")
+    return total
+
+
+def engine_config_4j(mcfg, num_pages, max_seq_len):
+    """Phase 4j's engine shape for model ``mcfg``: batch 8, page 16, hash
+    block 128, horizon 8, whole installs, seed 0."""
+    from xllm_service_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(model=mcfg, model_family=mcfg.name,
+                        num_pages=num_pages, page_size=16,
+                        hash_block_size=128, max_batch_size=8,
+                        max_seq_len=max_seq_len, decode_horizon=8,
+                        admission_horizon=8, seed=0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3288,6 +4007,7 @@ def main() -> int:
     from xllm_service_tpu_torch.ops.mq_paged_attention import (
         mq_paged_attention,
         mq_paged_attention_plain,
+        mq_route,
     )
     from xllm_service_tpu_torch.ops.paged_attention import (
         paged_attention,
@@ -3332,6 +4052,15 @@ def main() -> int:
                                cp.ShardedPages)
     k6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
                          build_mesh, MeshConfig, _build.kernel_fn)
+    log("[3] head dim 256 (Gemma) and kernel 2's walk shapes")
+    t = time.monotonic()
+    check_hd256_decode(paged_attention, paged_attention_plain, split_count)
+    check_group7_decode(paged_attention, paged_attention_plain)
+    check_hd256_fused_and_partial(fused_decode_attention,
+                                  fused_decode_attention_plain, cp)
+    check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
+                         mq_route)
+    log(f"  head dim 256 and walk shapes: {time.monotonic() - t:.1f} s")
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
@@ -3417,7 +4146,7 @@ def main() -> int:
     log("[4e] the captured decode step against the eager one; the bench "
         "and decode-profile twins, llama3-8b")
     graph_step_check(engine_mod, cfg, params)
-    twins_phase(params, card)
+    bench_bf16 = twins_phase(params, card)
 
     # Phase 4f: serving through the agent.
     log("[4f] serving llama3-8b through the engine agent behind a stub "
@@ -3469,6 +4198,17 @@ def main() -> int:
             for r in (rec["ctx_2048"], rec["ctx_8192"])) + f" ({card})")
     log(f"  phase 4i: {time.monotonic() - t:.1f} s")
 
+    # Phase 4j: the llama family's variants.
+    log("[4j] the llama family's variants at full width and depth: "
+        "Gemma-2-9B, Qwen2-7B, Llama-3-8B in int8 "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    j_launches = variants_phase(
+        engine_mod, llama, attention, cfg, params, prompts, shared,
+        sampled_prompt, (paged_attention, mq_paged_attention,
+                         paged_attention_plain), card, bench_bf16)
+    log(f"  phase 4j: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -3476,11 +4216,11 @@ def main() -> int:
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
-             + h_launches[0] + i_launches[0]),
+             + h_launches[0] + i_launches[0] + j_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
-             + h_launches[1] + i_launches[1]),
+             + h_launches[1] + i_launches[1] + j_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

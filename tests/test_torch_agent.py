@@ -450,6 +450,63 @@ def test_unported_flags_are_refused(flag, capsys):
     assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("config", ["gemma_tiny", "gemma_2b"])
+def test_agent_takes_the_gemma_configs_and_int8(config):
+    """The reference agent's gemma configs and ``--quant int8``."""
+    from xllm_service_tpu.models import gemma as ref_gemma
+
+    args = port_agent._parser().parse_args(
+        ["--model-config", config, "--quant", "int8"])
+    cfg = port_agent.engine_config(args)
+    want = dataclasses.replace(getattr(ref_gemma, f"{config}_config")(),
+                               quant="int8")
+    assert cfg.model_family == "gemma" and cfg.model.quant == "int8"
+    for f in dataclasses.fields(cfg.model):
+        if f.name != "dtype":
+            assert getattr(cfg.model, f.name) == getattr(want, f.name)
+    assert port_agent.engine_config(port_agent._parser().parse_args(
+        ["--model-config", config])).model.quant == ""
+
+
+def test_int8_gemma_tiny_from_engine_config_gives_the_jax_tokens():
+    """``engine_config`` of ``--model-config gemma_tiny --quant int8``
+    serves a request with the JAX engine's tokens on the same weights,
+    each engine quantizing them itself (f32 on both sides, so that greedy
+    tokens compare exactly)."""
+    from xllm_service_tpu.models import gemma as ref_gemma
+    from test_torch_chunked_prefill import Collector, step_until
+    from test_torch_gemma import drawn_tree
+
+    args = port_agent._parser().parse_args(
+        ["--model-config", "gemma_tiny", "--quant", "int8",
+         "--max-seq-len", "256", "--num-pages", "64"])
+    ecfg = port_agent.engine_config(args)
+    ecfg = dataclasses.replace(ecfg, model=dataclasses.replace(
+        ecfg.model, dtype=torch.float32))
+    rcfg = ref_gemma.gemma_tiny_config(dtype=jnp.float32, quant="int8")
+    tree = drawn_tree(rcfg)
+    port = InferenceEngine(ecfg, device="cpu",
+                           params=llama_params_from_jax(tree, device="cpu"))
+    ref = RefEngine(RefConfig(
+        model=rcfg, model_family="gemma", num_pages=ecfg.num_pages,
+        page_size=ecfg.page_size, max_batch_size=ecfg.max_batch_size,
+        max_seq_len=ecfg.max_seq_len, prefill_buckets=(32, 64, 256)),
+        params=tree)
+    toks = []
+    for eng, req_cls, sp_cls in ((ref, RefRequest, ref_request.SamplingParams),
+                                 (port, EngineRequest,
+                                  port_request.SamplingParams)):
+        col = Collector()
+        eng.submit(req_cls("q", token_ids=list(range(5, 45)),
+                           sampling=sp_cls(max_tokens=12, temperature=0.0,
+                                           ignore_eos=True),
+                           on_output=col))
+        step_until(eng, [col])
+        eng.stop()
+        toks.append(col.tokens)
+    assert len(toks[1]) == 12 and toks[1] == toks[0]
+
+
 @pytest.mark.parametrize("flag,value,field,want", [
     ("--slice-id", "slice-9", "slice_id", "slice-9"),
     ("--topo-host", "host-a0", "topo_host", "host-a0"),

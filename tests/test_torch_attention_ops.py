@@ -227,3 +227,89 @@ def test_sdpa_prefill_route_masks_as_the_dense_path(lens, monkeypatch):
                                         seq_lens)
     for b, n in enumerate(lens):
         _close(got[b, :n], want[b, :n], "f32")
+
+
+# ------------------------------------- M-RoPE, softcap and sliding window
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mrope_sections(dt):
+    """Positions [B, S, 3] rotate each half-dim section (4, 6, 6 of 16) by
+    its own stream; 1-D positions with the sections set keep 1-D rope."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 5, 3, 32)).astype(np.float32)
+    jx, tx = _pair(x, dt)
+    pos3 = rng.integers(0, 300, size=(2, 5, 3))
+    jp, tp = _ints(pos3)
+    sec = (4, 6, 6)
+    want = ref.apply_rope(jx, jp, 10000.0, sec)
+    got = port.apply_rope(tx, tp, 10000.0, sec)
+    _close(got, want, dt)
+    jp1, tp1 = _ints(pos3[..., 0])
+    _close(port.apply_rope(tx, tp1, 10000.0, sec),
+           ref.apply_rope(jx, jp1, 10000.0), dt)
+    _close(port.apply_rope(tx, tp1, 10000.0, sec),
+           port.apply_rope(tx, tp1, 10000.0), dt)
+
+
+OPTS = [dict(softcap=5.0), dict(window=3), dict(scale=0.1, softcap=5.0,
+                                                window=3)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("opts", OPTS)
+@pytest.mark.parametrize("prefix", [[0, 0], [5, 8], [0, 3]])
+def test_prefill_attention_softcap_and_window(dt, opts, prefix):
+    """Gemma-2's options against the reference's XLA path, with a cached
+    prefix (the window reaches back into it: prefix_lens + r - c <
+    window) and without; every such call counts on the dense route."""
+    q, k, v, pt, pre, lens, jk, jv, tk, tv = _prefill_case(
+        dt, prefix, [6, 4], seed=12)
+    (jq, tq), (jkk, tkk), (jvv, tvv) = (_pair(q, dt), _pair(k, dt),
+                                        _pair(v, dt))
+    jpt, tpt = _ints(pt)
+    jpre, tpre = _ints(pre)
+    jlen, tlen = _ints(lens)
+    jk, jv = ref.write_prefill_kv(jk, jv, jkk, jvv, jpt, jpre, jlen)
+    port.write_prefill_kv(tk, tv, tkk, tvv, tpt, tpre, tlen)
+    before = port.dense_prefill_route.launches
+    want = ref.prefill_attention(jq, jkk, jvv, jk, jv, jpt, jpre, jlen,
+                                 **opts)
+    got = port.prefill_attention(tq, tkk, tvv, tk, tv, tpt, tpre, tlen,
+                                 **opts)
+    assert port.dense_prefill_route.launches == before + 1
+    for b, n in enumerate(lens):
+        _close(got[b, :n], want[b, :n], dt)
+    plain = port.prefill_attention(tq, tkk, tvv, tk, tv, tpt, tpre, tlen)
+    assert (_np(plain) - _np(got)).__abs__().max() > 1e-3
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("opts", OPTS)
+def test_decode_attention_step_softcap_and_window(dt, opts):
+    """The decode step with Gemma-2's options takes kernel 1's plain
+    version here (the fused route stays off), as the reference's."""
+    rng = np.random.default_rng(13)
+    jk, jv, tk, tv = _pools(dt, P=16)
+    q = rng.normal(size=(3, 4, 32)).astype(np.float32)
+    kn = rng.normal(size=(3, 2, 32)).astype(np.float32)
+    vn = rng.normal(size=(3, 2, 32)).astype(np.float32)
+    (jq, tq), (jkn, tkn), (jvn, tvn) = (_pair(q, dt), _pair(kn, dt),
+                                        _pair(vn, dt))
+    jpt, tpt = _ints([[3, 5, 7], [9, 2, 11], [4, 6, 8]])
+    jcl, tcl = _ints([1, 9, 12])
+    attn_r, rk, rv = ref.decode_attention_step(jq, jkn, jvn, jk, jv, jpt,
+                                               jcl, **opts)
+    attn, ok, ov = port.decode_attention_step(tq, tkn, tvn, tk, tv, tpt, tcl,
+                                              **opts)
+    _close(attn, attn_r, dt)
+    np.testing.assert_array_equal(_np(ok), _np(rk))
+    np.testing.assert_array_equal(_np(ov), _np(rv))
+
+
+def test_ring_prefill_refuses_softcap_and_window():
+    q = torch.zeros((1, 4, 2, 32))
+    for opts in OPTS:
+        with pytest.raises(NotImplementedError, match="softcap"):
+            port.prefill_attention(q, q[:, :, :1], q[:, :, :1], None, None,
+                                   None, torch.zeros(1, dtype=torch.int32),
+                                   torch.full((1,), 4, dtype=torch.int32),
+                                   ring=True, **opts)

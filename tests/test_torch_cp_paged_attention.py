@@ -254,9 +254,10 @@ def test_split_plain_tiles_the_compacted_slots(ps, n_local):
     (8, 4, 4, 1),      # a table shorter than one split
 ])
 def test_partial_split_count(batch, max_pages, shards, want):
-    got = partial_split_count(batch, 8, max_pages, 16, 132, shards)
+    got = partial_split_count(batch, 8, max_pages, 16, 132, shards, 2)
     assert got == want
-    assert got <= split_count(batch, 8, -(-max_pages // shards), 16, 132)
+    assert got <= split_count(batch, 8, -(-max_pages // shards), 16, 132,
+                             2)
 
 
 @pytest.mark.parametrize("sp", [2, 4])

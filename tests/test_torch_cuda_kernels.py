@@ -1,7 +1,11 @@
 """The CUDA kernels against their plain versions, on the card: the two
 attention kernels, the fused append-and-attend, the page movers (bit for
 bit: they are copies), the context-parallel partial and the CP op, and the
-engine's tier round trip and context-parallel serving through them.
+engine's tier round trip and context-parallel serving through them; the
+split-K kernels also at head dim 256 (Gemma's groups of 2 and 8, kernel 1
+with Gemma-2's window, softcap and scale), kernel 2's walk at Gemma-2B's
+head dim 256 and Qwen2-7B's group of 7, and a softcapped prefill on the
+dense route.
 
 Marked ``cuda``: they need a GPU and nvcc and skip elsewhere. Run them on
 a machine with an H100 with ``python -m pytest -m cuda
@@ -116,7 +120,7 @@ def test_decode_kernel_split_k_edges(dev, dtype, ctx, opts):
     over several blocks: every split's share, empty splits and the merge."""
     B, n_q, n_kv, hd, ps, mp = len(ctx), 32, 8, 128, 16, 128
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert split_count(B, n_kv, mp, ps, sms) > 1
+    assert split_count(B, n_kv, mp, ps, sms, 2) > 1
     k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 10)
     pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
           .reshape(B, mp) + 1)
@@ -797,3 +801,177 @@ def test_engine_context_parallel_serving_on_the_card(dev):
     assert eng.ring_prefills == 1
     assert cp.paged_partial.launches > p0
     assert mq_paged_attention.launches > m0
+
+
+# ------------------------------------------- head dim 256 (the Gemma shapes)
+GEMMA_OPTS = [{}, {"window": 300}, {"softcap": 50.0, "scale": 1 / 16},
+              {"softcap": 50.0, "scale": 1 / 16, "window": 300}]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv", [(16, 8), (8, 1)])
+@pytest.mark.parametrize("opts", GEMMA_OPTS)
+def test_decode_kernel_head_dim_256(dev, dtype, n_q, n_kv, opts):
+    """Kernel 1 at Gemma-2-9B's group of 2 and Gemma-2B's of 8, with
+    Gemma-2's options: ragged contexts on wide tables (split-K), NaN past
+    every context, twice (the merge's tickets reset)."""
+    ctx = [0, 1, 17, 67, 301, 1000, 1029, 2048]
+    B, hd, ps, mp = len(ctx), 256, 16, 128
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 20)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    _poison_past(k, v, pt.cpu(), ctx, ps)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        got = paged_attention(q, k, v, pt, cl, **opts)
+        want = paged_attention_plain(q, k, v, pt, cl, **opts)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and (got[0] == 0).all()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv", [(16, 8), (8, 1)])
+@pytest.mark.parametrize("gain,opts", [
+    (4.0, {"softcap": 5.0, "scale": 1 / 16}),
+    (16.0, {"softcap": 50.0, "scale": 1 / 16}),
+    (16.0, {"softcap": 50.0, "scale": 1 / 16, "window": 300}),
+])
+def test_decode_kernel_head_dim_256_where_the_cap_bites(dev, dtype, n_q, n_kv,
+                                                        gain, opts):
+    """q scaled so that the scores reach a good share of the cap: dropping
+    the cap moves the plain version's output by more than ten times the
+    bf16 tolerance, so a kernel without it (on either route) fails here."""
+    ctx = [0, 1, 17, 67, 301, 1000, 1029, 2048]
+    B, hd, ps, mp = len(ctx), 256, 16, 128
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 25)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    _poison_past(k, v, pt.cpu(), ctx, ps)
+    q = (torch.randn((B, n_q, hd), device=dev) * gain).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    want = paged_attention_plain(q, k, v, pt, cl, **opts)
+    uncapped = paged_attention_plain(
+        q, k, v, pt, cl, **{o: x for o, x in opts.items() if o != "softcap"})
+    assert (want.float() - uncapped.float()).abs().max().item() > \
+        10 * TOL[torch.bfloat16]
+    got = paged_attention(q, k, v, pt, cl, **opts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx,opts", [
+    ([0, 1, 7, 17, 500, 1000, 1029, 2048], {}),
+    ([777], {}),
+    ([1000, 67, 301, 0, 2048, 300, 16, 1500], {"window": 300}),
+])
+def test_decode_kernel_qwen2_group_7(dev, dtype, ctx, opts):
+    """Kernel 1 at Qwen2-7B's decode: 28/4 heads (a GQA group of 7), head
+    dim 128, a 128-page table of 16 (max_seq_len 2048)."""
+    B, n_q, n_kv, hd, ps, mp = len(ctx), 28, 4, 128, 16, 128
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 26)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    _poison_past(k, v, pt.cpu(), ctx, ps)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    got = paged_attention(q, k, v, pt, cl, **opts)
+    want = paged_attention_plain(q, k, v, pt, cl, **opts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, c in enumerate(ctx):
+        assert c > 0 or (got[b] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv", [(16, 8), (8, 1)])
+def test_fused_decode_kernel_head_dim_256(dev, dtype, n_q, n_kv):
+    ctx = [0, 1, 17, 500, 1029, 2048]
+    B, hd, ps, mp = len(ctx), 256, 16, 128
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 21)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    q = torch.randn((B, n_q, hd), device=dev).to(dtype)
+    kn = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    vn = torch.randn((B, n_kv, hd), device=dev).to(dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    k2, v2 = k.clone(), v.clone()
+    got, _, _ = fused_decode_attention(q, kn, vn, k, v, pt, cl)
+    want, _, _ = fused_decode_attention_plain(q, kn, vn, k2, v2, pt, cl)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_partial_kernel_head_dim_256(dev, dtype):
+    ctxs = [0, 1, 16, 17, 500, 777, 1024, 2048]
+    n = 4
+    q, k, v, pt, cl = _cp_case(dev, dtype, 16, 8, 256, 128, ctxs, 22)
+    P_loc = k.shape[0] // n
+    k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
+    for d in range(n):
+        tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc, 16)
+        m, l, acc = cp.paged_partial(q, k_sh[d], v_sh[d], *tables, cl,
+                                     scale=1 / 16)
+        m0, l0, a0 = cp.paged_partial_plain(q, k_sh[d], v_sh[d], *tables, cl,
+                                            scale=1 / 16)
+        torch.cuda.synchronize()
+        dead = m0 <= NEG_INF / 2
+        assert torch.equal(dead, m <= NEG_INF / 2)
+        lsc = l0.clamp_min(1.0)
+        assert (m - m0)[~dead].abs().max().item() <= TOL[dtype]
+        assert ((acc - a0).abs() / lsc[..., None]).max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv,hd", [(8, 1, 256), (28, 4, 128)])
+def test_mq_kernel_gemma_and_qwen2_shapes(dev, dtype, n_q, n_kv, hd):
+    """Kernel 2's walk at Gemma-2B's head dim 256 and Qwen2-7B's group of
+    7 (neither takes the tensor-core route)."""
+    assert mq_route(dtype, hd, 16, n_q // n_kv) == "walk"
+    B, s_q, ps, mp = 2, 37, 16, 8
+    k, v = _pool(dev, dtype, B * mp + 1, n_kv, ps, hd, 23)
+    pt = (torch.arange(B * mp, dtype=torch.int32, device=dev)
+          .reshape(B, mp) + 1)
+    pre = torch.tensor([40, 3], dtype=torch.int32, device=dev)
+    blk = torch.tensor([37, 11], dtype=torch.int32, device=dev)
+    _poison_past(k, v, pt.cpu(), [77, 14], ps)
+    q = torch.randn((B, s_q, n_q, hd), device=dev).to(dtype)
+    got = mq_paged_attention(q, k, v, pt, pre, blk)
+    want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_softcapped_prefill_takes_the_dense_route_on_the_card(dev):
+    """A prefill with a softcap or a window never reaches kernel 2 or the
+    SDPA call, with or without a prefix: it counts on the dense route."""
+    B, S, n_q, n_kv, hd, ps, mp = 1, 9, 16, 8, 256, 16, 4
+    k_pages, v_pages = _pool(dev, torch.bfloat16, mp + 1, n_kv, ps, hd, 24)
+    pt = torch.arange(1, mp + 1, dtype=torch.int32, device=dev)[None]
+    q = torch.randn((B, S, n_q, hd), device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, n_kv, hd), device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, n_kv, hd), device=dev).to(torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    for prefix in (0, 20):
+        pre = torch.full((B,), prefix, dtype=torch.int32, device=dev)
+        attention.write_prefill_kv(k_pages, v_pages, k, v, pt, pre, lens)
+        mq0, dense0 = (mq_paged_attention.launches,
+                       attention.dense_prefill_route.launches)
+        got = attention.prefill_attention(q, k, v, k_pages, v_pages, pt,
+                                          pre, lens, scale=1 / 16,
+                                          softcap=50.0, window=12)
+        assert mq_paged_attention.launches == mq0
+        assert attention.dense_prefill_route.launches == dense0 + 1
+        want = attention.dense_prefill_attention(
+            q.cpu(), k.cpu(), v.cpu(), k_pages.cpu(), v_pages.cpu(),
+            pt.cpu(), pre.cpu(), lens.cpu(), scale=1 / 16, softcap=50.0,
+            window=12)
+        assert (got.float().cpu() - want.float()).abs().max().item() <= \
+            TOL[torch.bfloat16]

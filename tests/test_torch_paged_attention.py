@@ -28,6 +28,7 @@ from xllm_service_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_plain,
     paged_attention_split_plain,
+    planned_blocks_per_sm,
     split_count,
     split_unit_range,
 )
@@ -213,11 +214,11 @@ def test_split_unit_ranges_tile_the_visible_units(ctx, window, splits):
 
 def test_split_count_llama3_decode_shape():
     # B 8 x n_kv 8 on 132 SMs: 4 splits, 256 blocks, about two per SM.
-    assert split_count(8, 8, 128, 16, 132) == 4
+    assert split_count(8, 8, 128, 16, 132, 2) == 4
 
 
 def test_split_count_is_monotone_in_the_rows():
-    counts = [split_count(b, 8, 128, 16, 132) for b in (1, 2, 4, 8, 16, 64)]
+    counts = [split_count(b, 8, 128, 16, 132, 2) for b in (1, 2, 4, 8, 16, 64)]
     assert counts == sorted(counts, reverse=True)
     assert counts[-1] == 1                      # 512 blocks already fill it
 
@@ -226,10 +227,27 @@ def test_split_count_is_monotone_in_the_rows():
                                           (64, 64), (512, 1), (4096, 16)])
 def test_split_count_never_exceeds_the_tables_chunks(max_pages, ps):
     chunks = -(-(max_pages * ps) // 64)
-    n = split_count(1, 1, max_pages, ps, 132)
+    n = split_count(1, 1, max_pages, ps, 132, 2)
     assert 1 <= n <= max(1, chunks) and n <= MAX_SPLITS
 
 
+@pytest.mark.parametrize("lib", ["paged_attention", "fused_decode_attention",
+                                 "cp_paged_partial"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_split_plan_takes_two_blocks_per_sm_below_head_dim_256(lib, hd,
+                                                               bf16):
+    # The plan the splits sweeps measured; the occupancy query (a CUDA
+    # library) is asked only at head dim 256.
+    assert planned_blocks_per_sm(lib, hd, 4, bf16) == 2
+
+
+def test_split_count_at_one_block_per_sm():
+    # Gemma-2-9B's decode behind 4608 tokens: B 8 x n_kv 8 on 132 SMs.
+    assert split_count(8, 8, 288, 16, 132, 1) == 2
+    assert split_count(8, 8, 288, 16, 132, 2) == 4
+
+
 def test_split_count_short_table_is_not_split():
-    assert split_count(1, 1, 6, 16, 132) == 1          # 96 tokens: 2 chunks
-    assert split_count(1, 1, 7, 16, 132) == 1          # under two per split
+    assert split_count(1, 1, 6, 16, 132, 2) == 1          # 96 tokens: 2 chunks
+    assert split_count(1, 1, 7, 16, 132, 2) == 1          # under two per split

@@ -5,12 +5,14 @@ chunk-prefills, its chunks ride the running decodes' steps; the tokens
 must equal the JAX engine's on the same weights and steps (and the
 unchunked port's), the ride must engage, ``XLLM_SARATHI=0`` must turn it
 off, a ride never takes the final chunk, queue pressure rides four chunks
-at once, and a ride's sequence can be cancelled without a leak. The gemma
-case waits for the gemma family (ROADMAP queue 1 item 7).
+at once, and a ride's sequence can be cancelled without a leak; a Gemma-2
+engine (score softcap, sliding window and query scale on every layer)
+rides too, with the JAX engine's tokens.
 
 The forward half mirrors tests/test_mixed_decode_chunk.py: the port's
 ``mixed_decode_chunk_forward`` against the JAX one on the same weights and
-pool, decode-row logits and the whole KV pool within 1e-5 (f32), and the
+pool, decode-row logits and the whole KV pool within 1e-5 (f32), for
+llama and, with drawn biases and norm scales, qwen2 and Gemma-2; and the
 empty chunk as a pure decode step.
 """
 
@@ -30,6 +32,7 @@ from xllm_service_tpu_torch.ops.mq_paged_attention import (
 )
 
 from test_torch_chunked_prefill import both, step_until, weights  # noqa: F401
+from test_torch_gemma import check_mixed, drawn_tree, make_models, serve_both
 
 # tests/test_sarathi.py's make_engine.
 SARATHI_KW = dict(num_pages=96, max_seq_len=512)
@@ -276,3 +279,32 @@ def test_kernel_2_at_prefix_zero_is_causal_attention(s_q):
     got = mq_paged_attention_plain(q, k_pages, v_pages, pt, zero, lens)
     want = dense_prefill_attention(q, k, v, None, None, None, zero, lens)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_gemma2_rides_with_softcap():
+    """tests/test_sarathi.py's gemma-2 case: the mixed step composes with
+    the score softcap, the sliding window and the query scale; the tokens
+    are the JAX engine's (chunked the same way) and the unchunked port's.
+    """
+    from xllm_service_tpu.models.gemma import gemma2_tiny_config
+
+    rcfg = gemma2_tiny_config(dtype=jnp.float32, max_context_len=512)
+    tree = drawn_tree(rcfg)
+    ref, port = serve_both(rcfg, tree, drive, prefill_chunk_tokens=32,
+                           **SARATHI_KW)
+    assert port[2] >= 1, "gemma-2 never took the mixed path"
+    assert port[:2] == ref[:2]
+    plain = serve_both(rcfg, tree, drive, **SARATHI_KW)[1]
+    assert plain[2] == 0 and port[:2] == plain[:2]
+
+
+@pytest.mark.parametrize("family", ["qwen2", "gemma2"])
+@pytest.mark.parametrize("start,valid", [(24, 12), (0, 16)])
+def test_mixed_step_matches_the_jax_one_per_family(family, start, valid):
+    """tests/test_mixed_decode_chunk.py's qwen2 and gemma-2 cases."""
+    from xllm_service_tpu.models.gemma import gemma2_tiny_config
+
+    rcfg = (gemma2_tiny_config(dtype=jnp.float32) if family == "gemma2"
+            else ref_base.tiny_config(name="qwen2", dtype=jnp.float32,
+                                      qkv_bias=True))
+    check_mixed(make_models(rcfg), start, valid)

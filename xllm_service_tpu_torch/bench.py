@@ -16,7 +16,9 @@ On the card the shapes are the reference's: B 16, ctx 512, max_seq 1024,
 ``decode_horizon`` 32, page 16, hash block 128, bf16 weights drawn from
 seed 0. ``XLLM_BENCH_MODEL`` picks ``1b`` (default) or ``8b`` (Llama-3-8B);
 ``XLLM_BENCH_CTX`` runs the long-context variant (the batch shrinks so the
-pool fits). ``pct_roofline`` is the weight and KV stream of one token-step
+pool fits); ``XLLM_QUANT=int8`` serves weight-only int8 (the engine
+quantizes the weights). ``pct_roofline`` is the weight and KV stream of
+one token-step
 (``decode_weight_stream_bytes() + B * kv_bytes_per_token(mid_ctx)``) at
 the achieved step rate, over the card's 3.35 TB/s. There is no CPU
 fallback: without a card and without ``--device cpu`` it raises. A CPU run
@@ -62,7 +64,8 @@ class BenchShape:
 
     def engine_config(self) -> EngineConfig:
         return EngineConfig(
-            model=self.mcfg, num_pages=self.batch * self.max_seq // 16 + 64,
+            model=self.mcfg, model_family=self.mcfg.name,
+            num_pages=self.batch * self.max_seq // 16 + 64,
             page_size=16, max_batch_size=self.batch,
             max_seq_len=self.max_seq, hash_block_size=self.hash_block,
             decode_horizon=self.horizon, seed=0)
@@ -70,7 +73,8 @@ class BenchShape:
 
 def bench_shape(device: torch.device) -> BenchShape:
     """The reference's bench shapes on the card (``XLLM_BENCH_MODEL``,
-    ``XLLM_BENCH_CTX``), ``tiny_config`` in f32 on the CPU."""
+    ``XLLM_BENCH_CTX``, ``XLLM_QUANT``), ``tiny_config`` in f32 on the
+    CPU."""
     if device.type != "cuda":
         return BenchShape("tiny", tiny_config(dtype=torch.float32), batch=8,
                           ctx=64, max_seq=128, horizon=4, hash_block=32,
@@ -79,6 +83,11 @@ def bench_shape(device: torch.device) -> BenchShape:
     if model_key not in ("1b", "8b"):
         raise ValueError(f"XLLM_BENCH_MODEL={model_key!r}: 1b or 8b")
     mcfg = llama3_8b_config() if model_key == "8b" else bench_1b_config()
+    quant = os.environ.get("XLLM_QUANT", "")
+    if quant:
+        # Weight-only int8 (the reference bench's switch); bf16 is the
+        # default here, where the 8b weights fit the card.
+        mcfg = dataclasses.replace(mcfg, quant=quant)
     B, ctx, max_seq = 16, 512, 1024
     if os.environ.get("XLLM_BENCH_CTX", ""):
         # Long-context variant: the page walk dominates; the batch shrinks
@@ -157,6 +166,7 @@ def run(device: Optional[Union[str, torch.device]] = None,
         "backend": dev.type, "model": shape.model_key, "batch": B,
         "ctx": shape.ctx, "decode_horizon": shape.horizon,
         "n_steps": shape.n_steps, "tokens": generated, "seconds": dt,
+        "quant": mcfg.quant,
         "ms_per_token_step": 1e3 / step_rate if step_rate else None,
         "bytes_per_step_mb": bytes_per_step / 1e6,
         "effective_gbps": bytes_per_step * step_rate / 1e9,

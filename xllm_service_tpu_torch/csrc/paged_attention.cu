@@ -18,8 +18,8 @@
 // l is floored at 1e-9 (a row with ctx == 0 writes zeros), and a window
 // starts the walk at the unit that holds position ctx - window. Softcap,
 // sliding window and an explicit scale follow the TPU kernel (gemma-2
-// options; the Llama path passes scale = 1/sqrt(hd) and neither of the
-// others).
+// options, at head dim 256 with its GQA group of 2; the Llama path passes
+// scale = 1/sqrt(hd) and neither of the others).
 
 #include "split_decode.cuh"
 
@@ -29,8 +29,8 @@ using xllm::split::Decode;
 extern "C" {
 
 // Query heads per KV head the kernel takes at this head dim and page size
-// (0: the shape is not supported): head dim 32, 64 or 128, page size a power
-// of two up to 64.
+// (0: the shape is not supported): head dim 32, 64 or 128 (up to 16) or 256
+// (up to 8), page size a power of two up to 64.
 int paged_attention_max_group(int hd, int ps) {
   return xllm::split::max_group(hd, ps);
 }

@@ -32,9 +32,15 @@
 //   block's share and a private ring of stages, so it starts the loads of
 //   units i + 1 .. i + kStages - 1 before it computes unit i and needs only
 //   __syncwarp, never a block barrier, inside the walk.
-// - bf16 at a head dim of 64 or 128 multiplies on the tensor cores
-//   (mma.sync, mma_bf16.cuh); f32, and bf16 at a head dim of 32, on the CUDA
-//   cores in f32. Both run the softmax in base 2.
+// - bf16 at a head dim of 64, 128 or 256 multiplies on the tensor cores
+//   (mma.sync, mma_bf16.cuh); f32, and bf16 at a head dim of 32, on the
+//   CUDA cores in f32. Both run the softmax in base 2.
+// - Head dim 256 (the Gemma configs): a bf16 unit is 16 KB of K/V, so the
+//   three-stage rings of the four warps take 192 KB and one block fills an
+//   SM; f32 rows take one stage (128 KB). The GQA group is capped at 8 there
+//   (every Gemma config has 2 or 8), which halves the merge and the q tile.
+//   The host sizes its split count from the blocks per SM the occupancy
+//   calculator reports (blocks_per_sm).
 // - The merge: the four warps merge through shared memory; with splits > 1
 //   the block writes (m, l, acc) in f32 to scratch, and the last block of a
 //   (row, KV head) to finish, found by an atomic ticket after
@@ -69,22 +75,26 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kUnit = 16;      // slots per warp step
 constexpr int kMaxGroup = 16;  // query heads per KV head
 constexpr int kMaxStages = 3;  // of a warp's ring (stages_of)
+constexpr int kMaxGroupHd256 = 8;  // query heads per KV head at head dim 256
 
 // Stages of a warp's ring: three where a block then still leaves room for a
 // second one on the SM (bf16: 4 warps x 3 x 8 KB = 96 KB at hd 128), two for
-// f32 rows (128 KB).
-template <typename T>
+// f32 rows (128 KB). At head dim 256 one block fills the SM either way:
+// bf16 keeps three stages (4 x 3 x 16 KB = 192 KB), f32 takes one (4 x
+// 32 KB = 128 KB; two would be 256 KB, over the 227 KB a block may have).
+template <typename T, int HD>
 constexpr int stages_of() {
-  return sizeof(T) == 2 ? 3 : 2;
+  return sizeof(T) == 2 ? 3 : (HD <= 128 ? 2 : 1);
 }
 
 // Query heads per KV head the kernels take at this head dim and page size
-// (0: the shape is not supported): head dim 32, 64 or 128, page size a power
-// of two up to 64.
+// (0: the shape is not supported): head dim 32, 64 or 128 (groups up to 16)
+// or 256 (up to 8), page size a power of two up to 64.
 inline int max_group(int hd, int ps) {
-  const bool hd_ok = hd == 32 || hd == 64 || hd == 128;
   const bool ps_ok = ps > 0 && ps <= 64 && (ps & (ps - 1)) == 0;
-  return hd_ok && ps_ok ? kMaxGroup : 0;
+  if (!ps_ok) return 0;
+  if (hd == 32 || hd == 64 || hd == 128) return kMaxGroup;
+  return hd == 256 ? kMaxGroupHd256 : 0;
 }
 
 // Eight (bf16) or four (f32) consecutive elements of a staged row as f32.
@@ -130,7 +140,7 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
 // Shared memory of one block.
 template <typename T, int HD, int GMAX>
 struct Smem {
-  static constexpr int kStages = stages_of<T>();
+  static constexpr int kStages = stages_of<T, HD>();
   static constexpr int kTileBytes = kUnit * HD * int(sizeof(T));  // K or V
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
@@ -276,9 +286,18 @@ struct WarpRing {
     for (int i = 0; i < Stages - 1; ++i) load(i);
   }
   __device__ __forceinline__ int next(int i) {
-    xllm::cp_async_wait<Stages - 2>();  // unit i has landed
-    __syncwarp();                       // and unit i - 1 is consumed
-    load(i + Stages - 1);
+    if constexpr (Stages == 1) {
+      // One stage: unit i - 1 is consumed, then unit i is loaded and waited
+      // for (nothing is in flight while a unit is computed).
+      __syncwarp();
+      load(i);
+      xllm::cp_async_wait<0>();
+      __syncwarp();
+    } else {
+      xllm::cp_async_wait<Stages - 2>();  // unit i has landed
+      __syncwarp();                       // and unit i - 1 is consumed
+      load(i + Stages - 1);
+    }
     return (i % Stages) * kStageBytes;
   }
   __device__ __forceinline__ uint32_t staged(int i) const {
@@ -622,9 +641,14 @@ __global__ void __launch_bounds__(kThreads) fma_kernel(Args a) {
 #pragma unroll
         for (int c = 0; c < CPL; ++c) acc[g][c] *= alpha[g];
       }
-    constexpr int kColBytes = CPL * int(sizeof(T));  // this lane's bytes/row
-    struct alignas(kColBytes) Cols {
-      T v[CPL];
+    // This lane's bytes of a row, loaded in pieces of at most 16 bytes: a
+    // row's logical pieces are not adjacent in the swizzled stage.
+    constexpr int kColBytes = CPL * int(sizeof(T));
+    constexpr int kLoadBytes = kColBytes < 16 ? kColBytes : 16;
+    constexpr int kLoads = kColBytes / kLoadBytes;
+    constexpr int kPerLoad = kLoadBytes / int(sizeof(T));
+    struct alignas(kLoadBytes) Cols {
+      T v[kPerLoad];
     };
     const int col_piece = (lane * kColBytes) >> 4;
     const int col_in = (lane * kColBytes) & 15;
@@ -633,12 +657,16 @@ __global__ void __launch_bounds__(kThreads) fma_kernel(Args a) {
       float vf[4][CPL];
 #pragma unroll
       for (int tt = 0; tt < 4; ++tt) {
-        const char* src = v_t +
-                          xllm::staged_offset<kPieces>(4 * t4 + tt, col_piece) +
-                          col_in;
-        const Cols cv = *reinterpret_cast<const Cols*>(src);  // one load
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) vf[tt][c] = to_f<T>(cv.v[c]);
+        for (int j = 0; j < kLoads; ++j) {
+          const char* src =
+              v_t + xllm::staged_offset<kPieces>(4 * t4 + tt, col_piece + j) +
+              col_in;
+          const Cols cv = *reinterpret_cast<const Cols*>(src);  // one load
+#pragma unroll
+          for (int c = 0; c < kPerLoad; ++c)
+            vf[tt][j * kPerLoad + c] = to_f<T>(cv.v[c]);
+        }
       }
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
@@ -683,12 +711,13 @@ __global__ void __launch_bounds__(kThreads) fma_kernel(Args a) {
 }
 
 // ------------------------------------------------- bf16 on the tensor cores
-// bf16 at a head dim of 64 or 128: the group's G <= 16 query heads are the
-// rows of one m16n8k16 tile (rows past G are zero queries, never written), a
-// unit's 16 keys two 8-key tiles of scores, and the softmax stays in
-// registers as in mq_paged_attention.cu. Per unit a warp runs 16 ldmatrix
-// and 32 mma where the CUDA-core path runs about a thousand instructions,
-// so the warp is free to wait on its loads.
+// bf16 at a head dim of 64, 128 or 256: the group's G <= 16 query heads are
+// the rows of one m16n8k16 tile (rows past G are zero queries, never
+// written), a unit's 16 keys two 8-key tiles of scores, and the softmax
+// stays in registers as in mq_paged_attention.cu. Per unit a warp runs 16
+// ldmatrix and 32 mma (twice that at head dim 256) where the CUDA-core path
+// runs about a thousand instructions, so the warp is free to wait on its
+// loads.
 using bf16 = __nv_bfloat16;
 
 template <int HD, typename P>
@@ -917,13 +946,20 @@ template <typename P, typename T, int HD>
 int launch_fma_group(const Args& a, int B, int splits, cudaStream_t stream) {
   const int G = a.n_q / a.n_kv;
   if (G <= 4) return launch_fma<P, T, HD, 4>(a, B, splits, stream);
-  if (G <= 8) return launch_fma<P, T, HD, 8>(a, B, splits, stream);
-  return launch_fma<P, T, HD, kMaxGroup>(a, B, splits, stream);
+  if constexpr (HD > 128) {  // groups up to kMaxGroupHd256
+    return launch_fma<P, T, HD, kMaxGroupHd256>(a, B, splits, stream);
+  } else {
+    if (G <= 8) return launch_fma<P, T, HD, 8>(a, B, splits, stream);
+    return launch_fma<P, T, HD, kMaxGroup>(a, B, splits, stream);
+  }
 }
 
-// The route of a call: bf16 at a head dim of 64 or 128 takes the tensor
-// cores, everything else the f32 arithmetic on the CUDA cores. dtype: 0 =
-// float32, 1 = bfloat16; splits 0 asks for the blocks per SM (negated).
+// The route of a call: bf16 at a head dim of 64, 128 or 256 takes the
+// tensor cores, everything else the f32 arithmetic on the CUDA cores. dtype:
+// 0 = float32, 1 = bfloat16; splits 0 asks for the blocks per SM (negated).
+// At head dim 256 the tensor-core kernel holds 245 registers without a
+// spill (ptxas -v, in chip_smoke.py's build log) and ran faster than the
+// CUDA-core route on the card at Gemma-2-9B's shapes.
 template <typename P>
 int dispatch(const Args& a, int B, int hd, int dtype, int splits,
              cudaStream_t stream) {
@@ -931,8 +967,10 @@ int dispatch(const Args& a, int B, int hd, int dtype, int splits,
     if (hd == 128) return launch_mma<P, 128>(a, B, splits, stream);
     if (hd == 64) return launch_mma<P, 64>(a, B, splits, stream);
     if (hd == 32) return launch_fma_group<P, bf16, 32>(a, B, splits, stream);
+    if (hd == 256) return launch_mma<P, 256>(a, B, splits, stream);
     return int(cudaErrorInvalidValue);
   }
+  if (hd == 256) return launch_fma_group<P, float, 256>(a, B, splits, stream);
   if (hd == 128) return launch_fma_group<P, float, 128>(a, B, splits, stream);
   if (hd == 64) return launch_fma_group<P, float, 64>(a, B, splits, stream);
   if (hd == 32) return launch_fma_group<P, float, 32>(a, B, splits, stream);

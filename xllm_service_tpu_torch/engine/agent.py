@@ -37,6 +37,7 @@ host:port --model-config llama3_8b`` (the card unless ``--device cpu``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import http.client
 import json
 import logging
@@ -1274,7 +1275,6 @@ _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--tp": (0, "tensor parallelism, queue 1 item 11"),
     "--device-offset": (0, "multi-device placement, queue 1 item 11"),
     "--dp-size": (1, "dp_size > 1, queue 1 item 3"),
-    "--quant": ("", "weight-only int8, queue 1 item 7"),
     "--checkpoint-path": ("", "checkpoint loading, queue 1 item 8"),
     "--tokenizer-path": ("", "checkpoint loading, queue 1 item 8"),
     "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
@@ -1293,9 +1293,12 @@ def _parser() -> argparse.ArgumentParser:
                    choices=[t.value for t in InstanceType])
     p.add_argument("--model-id", default="bench-1b")
     p.add_argument("--model-config", default="bench_1b",
-                   choices=["tiny", "bench_1b", "llama3_8b"],
-                   help="config factory in models.base (random weights "
-                        "from the engine's seed)")
+                   choices=["tiny", "bench_1b", "llama3_8b", "gemma_2b",
+                            "gemma_tiny"],
+                   help="config factory in models.base or models.gemma "
+                        "(random weights from the engine's seed)")
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="weight-only quantization (models/quant.py)")
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16)
@@ -1352,10 +1355,15 @@ def _parser() -> argparse.ArgumentParser:
 def engine_config(args: argparse.Namespace) -> EngineConfig:
     """The engine configuration of parsed command-line ``args``."""
     from ..models import base as model_base
+    from ..models import gemma
 
     mcfg = {"tiny": model_base.tiny_config,
             "bench_1b": model_base.bench_1b_config,
-            "llama3_8b": model_base.llama3_8b_config}[args.model_config]()
+            "llama3_8b": model_base.llama3_8b_config,
+            "gemma_2b": gemma.gemma_2b_config,
+            "gemma_tiny": gemma.gemma_tiny_config}[args.model_config]()
+    if args.quant:
+        mcfg = dataclasses.replace(mcfg, quant=args.quant)
     ecfg = EngineConfig(
         model_family=mcfg.name, model=mcfg,
         num_pages=args.num_pages, page_size=args.page_size,

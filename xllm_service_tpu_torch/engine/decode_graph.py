@@ -54,16 +54,18 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..ops.attention import dense_prefill_route
 from ..ops.cp_paged_attention import paged_partial
 from ..ops.fused_decode_attention import fused_decode_attention
 from ..ops.mq_paged_attention import mq_paged_attention
 from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
 from ..ops.paged_attention import paged_attention
 
-# Every kernel wrapper with a launch count.
+# Every kernel wrapper with a launch count, and the dense prefill route of
+# a softcapped or windowed prefill (a mixed step's chunk under Gemma-2).
 KERNEL_COUNTERS = (paged_attention, fused_decode_attention,
                    mq_paged_attention, gather_kv_pages, scatter_kv_pages,
-                   paged_partial)
+                   paged_partial, dense_prefill_route)
 
 
 class DecodeGraphs:

@@ -111,6 +111,12 @@
 Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
+The model is any registered family (``llama``, ``qwen2``, ``gemma``,
+``models/base.py``). With ``model.quant == "int8"`` the weights, random or
+given, are quantized one layer at a time before serving (weight-only int8,
+``models/quant.py``). A config with Gemma-2's score softcap or sliding
+window refuses a seq mesh, as the reference does.
+
 Not in this port yet: multimodal input, mesh axes other than ``seq`` and
 the captured step under a seq mesh.
 """
@@ -144,6 +150,7 @@ from ..common.request import (
 )
 from ..common.types import KvCacheEvent
 from ..models.base import get_model_family
+from ..models.quant import quantize_tree
 from ..ops.cp_paged_attention import ShardedPages
 from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
 from ..parallel.mesh import AXIS_SEQ, DeviceMesh, mesh_from_config
@@ -261,6 +268,14 @@ class InferenceEngine:
         if self.seq_parallel > 1 and cfg.num_pages % self.seq_parallel:
             raise ValueError("num_pages must divide by the seq-axis size for "
                              "context-parallel decode")
+        if self.seq_parallel > 1 and (cfg.model.attn_logit_softcap > 0
+                                      or cfg.model.sliding_window > 0):
+            # The ring prefill and kernel 6 take neither gemma-2's score
+            # softcap nor its sliding window, as in the reference.
+            raise ValueError(
+                "seq-axis parallelism is not supported for models with "
+                "attn_logit_softcap/sliding_window (gemma-2); use a mesh "
+                "without a seq axis")
         self.ring_prefills = 0          # prefills that took the ring route
         self.tokenizer = tokenizer or SimpleTokenizer()
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
@@ -278,6 +293,10 @@ class InferenceEngine:
             # Random weights from the config's seed (benchmarks, the smoke).
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = self.family.init_params(mcfg, gen, dev)
+        if mcfg.quant:
+            # Random or given weights alike, as the reference: quantized
+            # one layer at a time where they lie.
+            params = self._quantize(params, mcfg)
         self.params = params
         self.page_mgr = KVPageManager(cfg.num_pages, cfg.page_size,
                                       cfg.hash_block_size)
@@ -347,6 +366,19 @@ class InferenceEngine:
         # XLLM_SARATHI=0 turns the mixed step off (the reference's switch).
         self._sarathi = os.environ.get("XLLM_SARATHI", "1") != "0"
         self._rode_chunk = False        # this step's decode carried a chunk
+
+    def _quantize(self, params: dict, mcfg) -> dict:
+        """``params`` with their projections in weight-only int8
+        (``models/quant.py``); raises for another mode or a family whose
+        forwards do not take int8 leaves."""
+        if mcfg.quant != "int8":
+            raise ValueError(f"unknown quant mode {mcfg.quant!r}")
+        if not self.family.supports_int8:
+            raise NotImplementedError(
+                f"family {self.cfg.model_family} does not route its "
+                "matmuls through quantized_einsum (ModelFamily."
+                "supports_int8)")
+        return quantize_tree(params)
 
     @staticmethod
     def _resolve_mesh(cfg: EngineConfig, device, mesh: Optional[DeviceMesh]

@@ -1,5 +1,7 @@
 """Model contract shared by all families (port of
-``xllm_service_tpu/models/base.py``, dense configurations only).
+``xllm_service_tpu/models/base.py``: the dense llama, qwen2 and gemma
+configurations, weight-only int8; the MLA, MoE and vision fields are not
+ported).
 
 Engine-facing surface per family:
 - ``init_params(cfg, generator, device) -> params``: random init from an
@@ -36,8 +38,38 @@ class ModelConfig:
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
+    qkv_bias: bool = False          # Qwen2 family
     dtype: torch.dtype = torch.bfloat16
     max_context_len: int = 8192
+    # M-RoPE (the Qwen2-VL LM stack): per-axis (temporal, h, w) half-dim
+    # rope sections summing to head_dim // 2. Empty = 1-D rope.
+    mrope_section: tuple = ()
+    # Weight-only quantization ("" = off, "int8" = per-output-channel int8
+    # projections, models/quant.py).
+    quant: str = ""
+    # Gemma switches, honored by the shared body of models/llama.py: GeGLU,
+    # embeddings scaled by sqrt(hidden), RMSNorm computing (1 + w), a tanh
+    # cap on the final logits (0 = off).
+    act: str = "silu"
+    embed_scale: bool = False
+    rms_unit_offset: bool = False
+    final_logit_softcap: float = 0.0
+    # Gemma-2 attention extras: a tanh cap on the attention scores; layer l
+    # attends to the trailing ``sliding_window`` positions unless
+    # l % sliding_window_pattern == pattern - 1 (a global layer); the query
+    # scale query_pre_attn_scalar ** -0.5 in place of head_dim ** -0.5; and
+    # norms on the attention and MLP outputs (sandwich_norms).
+    attn_logit_softcap: float = 0.0
+    sliding_window: int = 0
+    sliding_window_pattern: int = 0
+    query_pre_attn_scalar: float = 0.0
+    sandwich_norms: bool = False
+
+    def layer_is_local(self, layer: int) -> bool:
+        """True if ``layer`` uses sliding-window (local) attention."""
+        n = self.sliding_window_pattern
+        return (self.sliding_window > 0 and n > 0
+                and (layer % n) != n - 1)
 
     @property
     def q_size(self) -> int:
@@ -58,12 +90,16 @@ class ModelConfig:
         embedding is a gather of B rows and is left out; a tied head
         streams the table all the same), plus the RMSNorm scales. The
         reference's accounting for its dense path, with the width of the
-        port's weight dtype (bf16: 2 bytes, as the reference's)."""
-        h, L, wb = self.hidden_size, self.num_layers, self.dtype_bytes
+        port's weight dtype (bf16: 2 bytes, as the reference's); under
+        int8 a projection weight is 1 byte, while the norms and a tied
+        head (the embedding table) keep the model dtype."""
+        h, L, db = self.hidden_size, self.num_layers, self.dtype_bytes
+        wb = 1 if self.quant == "int8" else db
         attn = h * self.q_size + 2 * h * self.kv_size + self.q_size * h
         mlp_total = L * 3 * h * self.ffn_size
-        norms = (L * 2 * h + h) * wb
-        head = self.vocab_size * h * wb
+        n_norms = 4 if self.sandwich_norms else 2
+        norms = (L * n_norms * h + h) * db
+        head = self.vocab_size * h * (db if self.tie_embeddings else wb)
         return (L * attn + mlp_total) * wb + norms + head
 
     def kv_bytes_per_token(self, context_len: int) -> int:
@@ -86,6 +122,9 @@ class ModelFamily:
     # Speculative verify (logits at every position of a short block per
     # sequence); a family without it never speculates.
     verify_forward: Optional[Callable[..., Any]] = None
+    # Whether every projection of the family's forwards goes through
+    # models/quant.py::quantized_matmul (weight-only int8).
+    supports_int8: bool = False
 
 
 _REGISTRY: dict[str, ModelFamily] = {}
@@ -96,9 +135,14 @@ def register_model_family(family: ModelFamily) -> None:
 
 
 def get_model_family(name: str) -> ModelFamily:
-    # Lazy import so importing the registry doesn't pull in every family.
-    if name not in _REGISTRY and name in ("llama", "llama3"):
-        from . import llama  # noqa: F401
+    # Lazy imports so importing the registry doesn't pull in every family.
+    if name not in _REGISTRY:
+        if name in ("llama", "llama3"):
+            from . import llama  # noqa: F401
+        elif name in ("qwen2", "qwen2.5", "qwen"):
+            from . import qwen2  # noqa: F401
+        elif name == "gemma":
+            from . import gemma  # noqa: F401
     fam = _REGISTRY.get(name)
     if fam is None:
         raise ValueError(f"unknown model family: {name}")

@@ -1,8 +1,15 @@
 """Llama-3 family over the paged KV pool (port of
-``xllm_service_tpu/models/llama.py``, dense bf16 path).
+``xllm_service_tpu/models/llama.py``), and the shared body of qwen2 and
+gemma (``models/qwen2.py``, ``models/gemma.py``).
 
 Architecture: RMSNorm, GQA attention with RoPE, SwiGLU MLP, optional tied
-embeddings. Parameters are a plain dict in the reference's layout — every
+embeddings. The body branches on the config as the reference's does: qkv
+biases (qwen2), M-RoPE sections, the (1 + w) norm, the embedding scale,
+GeGLU, sandwich norms and the final-logit softcap (gemma), and per layer
+the query scale, score softcap and sliding window (``_attn_opts``,
+Gemma-2). Every projection goes through ``models/quant.py``'s
+``quantized_matmul``, so a weight-only int8 tree serves through the same
+forwards. Parameters are a plain dict in the reference's layout — every
 layer tensor stacked with a leading L dim, projections ``[in, out]`` — so
 ``models/weights.py`` carries a reference tree over unchanged and both
 compute the same thing. The layer loop is a Python loop; the KV pool
@@ -29,6 +36,7 @@ from ..ops.attention import (
 )
 from ..ops.cp_paged_attention import ShardedPages, cp_tables
 from .base import ModelConfig, ModelFamily, register_model_family
+from .quant import quantized_matmul
 
 Params = dict
 
@@ -40,7 +48,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     generator must live there too). Without a generator, seed 0.
 
     Layer tensors are drawn one layer at a time so a full-width model never
-    holds an f32 copy of a whole stacked projection."""
+    holds an f32 copy of a whole stacked projection. Biases are zeros and
+    norm scales ones, or zeros under ``rms_unit_offset`` (the norm then
+    computes 1 + w), as the reference draws them."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -55,58 +65,127 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                   dtype=torch.float32) * (fan_in ** -0.5))
         return out
 
-    def ones(shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+    def norm_init(shape):
+        fill = torch.zeros if cfg.rms_unit_offset else torch.ones
+        return fill(shape, dtype=cfg.dtype, device=dev)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=dev)
 
     params: Params = {
         "embed": {"embedding": dense((cfg.vocab_size, D), D)},
         "layers": {
-            "input_norm": {"scale": ones((L, D))},
+            "input_norm": {"scale": norm_init((L, D))},
             "q_proj": {"kernel": dense((L, D, Hq), D)},
             "k_proj": {"kernel": dense((L, D, Hkv), D)},
             "v_proj": {"kernel": dense((L, D, Hkv), D)},
             "o_proj": {"kernel": dense((L, Hq, D), Hq)},
-            "post_attn_norm": {"scale": ones((L, D))},
+            "post_attn_norm": {"scale": norm_init((L, D))},
             "gate_proj": {"kernel": dense((L, D, F_), D)},
             "up_proj": {"kernel": dense((L, D, F_), D)},
             "down_proj": {"kernel": dense((L, F_, D), F_)},
         },
-        "final_norm": {"scale": ones((D,))},
+        "final_norm": {"scale": norm_init((D,))},
     }
+    layers = params["layers"]
+    if cfg.qkv_bias:
+        layers["q_proj"]["bias"] = zeros((L, Hq))
+        layers["k_proj"]["bias"] = zeros((L, Hkv))
+        layers["v_proj"]["bias"] = zeros((L, Hkv))
+    if cfg.sandwich_norms:       # gemma-2: pre/post feed-forward norms
+        layers["pre_ffw_norm"] = {"scale": norm_init((L, D))}
+        layers["post_ffw_norm"] = {"scale": norm_init((L, D))}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": dense((D, cfg.vocab_size), D)}
     return params
 
 
 def _layer(params: Params, l: int) -> dict:
-    return {name: {k: t[l] for k, t in leaf.items()}
-            for name, leaf in params["layers"].items()}
+    """Layer ``l``'s leaves (an int8 kernel's q8 and scale included)."""
+    def pick(node):
+        if isinstance(node, dict):
+            return {k: pick(v) for k, v in node.items()}
+        return node[l]
+    return pick(params["layers"])
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor, tokens: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rope's cos/sin of a forward's positions, once for every layer:
+    positions with one axis more than the tokens carry the M-RoPE streams
+    of ``cfg.mrope_section`` (``apply_rope``'s rule)."""
+    mrope = (cfg.mrope_section
+             if cfg.mrope_section and positions.ndim == tokens.ndim + 1
+             else ())
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, mrope)
 
 
 def _project_qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                  cos_sin: tuple[torch.Tensor, torch.Tensor]):
     """x: [B, S, D] (or [B, D] for decode) -> q, k, v heads with rope;
-    ``cos_sin`` is the forward's ``rope_cos_sin`` of its positions."""
-    q = x @ lp["q_proj"]["kernel"]
-    k = x @ lp["k_proj"]["kernel"]
-    v = x @ lp["v_proj"]["kernel"]
+    ``cos_sin`` is the forward's ``_rope`` of its positions."""
+    q = quantized_matmul(x, lp["q_proj"]["kernel"])
+    k = quantized_matmul(x, lp["k_proj"]["kernel"])
+    v = quantized_matmul(x, lp["v_proj"]["kernel"])
+    if "bias" in lp["q_proj"]:
+        q = q + lp["q_proj"]["bias"]
+        k = k + lp["k_proj"]["bias"]
+        v = v + lp["v_proj"]["bias"]
     q = q.reshape(*q.shape[:-1], cfg.num_heads, cfg.head_dim)
     k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, cfg.head_dim)
     return rope_rotate(q, cos_sin), rope_rotate(k, cos_sin), v
 
 
-def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ lp["gate_proj"]["kernel"]
-    up = x @ lp["up_proj"]["kernel"]
-    return (F.silu(gate) * up) @ lp["down_proj"]["kernel"]
+def _attn_opts(cfg: ModelConfig, layer: int) -> dict:
+    """Per-layer attention options of the Gemma-2 extras: the explicit
+    query scale (query_pre_attn_scalar), the score softcap, and the sliding
+    window on local layers. Empty for every other family, so their calls
+    keep every kernel route (the fused decode needs no scale given)."""
+    opts: dict = {}
+    if cfg.query_pre_attn_scalar > 0:
+        opts["scale"] = cfg.query_pre_attn_scalar ** -0.5
+    if cfg.attn_logit_softcap > 0:
+        opts["softcap"] = cfg.attn_logit_softcap
+    if cfg.layer_is_local(layer):
+        opts["window"] = cfg.sliding_window
+    return opts
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    """RMSNorm; the gemma family stores w with the norm computing (1 + w)
+    in f32 (``rms_unit_offset``)."""
+    if cfg.rms_unit_offset:
+        scale = 1.0 + scale.float()
+    return rms_norm(x, scale, cfg.rms_eps)
+
+
+def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU, or GeGLU with the tanh approximation of gelu (the
+    reference's ``jax.nn.gelu`` default; torch's default is erf)."""
+    gate = quantized_matmul(x, lp["gate_proj"]["kernel"])
+    up = quantized_matmul(x, lp["up_proj"]["kernel"])
+    act = (F.gelu(gate, approximate="tanh") if cfg.act == "gelu"
+           else F.silu(gate))
+    return quantized_matmul(act * up, lp["down_proj"]["kernel"])
 
 
 def _attn_mlp_residual(lp: dict, x: torch.Tensor, attn: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
-    x = x + attn @ lp["o_proj"]["kernel"]
-    h2 = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_eps)
-    return x + _mlp(lp, h2)
+    """Fold the attention output and the MLP into the residual stream.
+    ``sandwich_norms`` (Gemma-2) norms the attention and MLP outputs too:
+    x += post_attn_norm(o_proj(attn)); x += post_ffw_norm(mlp(
+    pre_ffw_norm(x)))."""
+    o = quantized_matmul(attn, lp["o_proj"]["kernel"])
+    if cfg.sandwich_norms:
+        x = x + _norm(o, lp["post_attn_norm"]["scale"], cfg)
+        h2 = _norm(x, lp["pre_ffw_norm"]["scale"], cfg)
+        return x + _norm(_mlp(lp, h2, cfg), lp["post_ffw_norm"]["scale"],
+                         cfg)
+    x = x + o
+    h2 = _norm(x, lp["post_attn_norm"]["scale"], cfg)
+    return x + _mlp(lp, h2, cfg)
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
@@ -119,16 +198,26 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     V = table.shape[0]
     idx = tokens.long()
     idx = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
-    return table[idx].to(cfg.dtype)
+    x = table[idx].to(cfg.dtype)
+    if cfg.embed_scale:
+        # gemma scales by sqrt(hidden), cast to the model dtype first as
+        # the reference's jnp.asarray(h ** 0.5, dtype) (bf16: 59.75 for
+        # 3584 ** 0.5 = 59.866).
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype).item()
+    return x
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = _norm(x, params["final_norm"]["scale"], cfg)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["embedding"].T
     else:
-        logits = x @ params["lm_head"]["kernel"]
-    return logits.float()
+        logits = quantized_matmul(x, params["lm_head"]["kernel"])
+    logits = logits.float()
+    if cfg.final_logit_softcap > 0:       # gemma-2's tanh cap
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def prefill_forward(params: Params, cfg: ModelConfig,
@@ -170,17 +259,17 @@ def prefill_from_embeddings(params: Params, cfg: ModelConfig,
     prediction); by default only the last valid token's [B, V]."""
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, positions, x[..., 0])
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        h = _norm(x, lp["input_norm"]["scale"], cfg)
         q, k, v = _project_qkv(lp, h, cfg, cos_sin)
         k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
         write_prefill_kv(k_pages, v_pages, k, v, page_table, prefix_lens,
                          seq_lens)
         attn = prefill_attention(q, k, v, k_pages, v_pages, page_table,
-                                 prefix_lens, seq_lens,
-                                 has_prefix=has_prefix, ring=ring)
+                                 prefix_lens, seq_lens, has_prefix=has_prefix,
+                                 ring=ring, **_attn_opts(cfg, l))
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
     if all_logits:
@@ -231,14 +320,15 @@ def decode_forward(params: Params, cfg: ModelConfig,
               if isinstance(kv_pages, ShardedPages) else None)
     x = _embed(params, cfg, tokens)                                # [B, D]
     # Rope's cos/sin once for the step, shared by every layer's q and k.
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, positions, tokens)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        h = _norm(x, lp["input_norm"]["scale"], cfg)
         q, k, v = _project_qkv(lp, h, cfg, cos_sin)             # [B, H, hd]
         attn, _, _ = decode_attention_step(q, k, v, kv_pages[l, 0],
                                            kv_pages[l, 1], page_table,
-                                           context_lens, cp_tables=tables)
+                                           context_lens, cp_tables=tables,
+                                           **_attn_opts(cfg, l))
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
     return _unembed(params, cfg, x), kv_pages
@@ -256,16 +346,17 @@ def embed_forward(params: Params, cfg: ModelConfig,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, positions, tokens)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        h = _norm(x, lp["input_norm"]["scale"], cfg)
         q, k, v = _project_qkv(lp, h, cfg, cos_sin)
-        attn = prefill_attention(q, k, v, None, None, None, zeros, seq_lens)
+        attn = prefill_attention(q, k, v, None, None, None, zeros, seq_lens,
+                                 **_attn_opts(cfg, l))
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = _norm(x, params["final_norm"]["scale"], cfg)
     mask = (torch.arange(S, device=x.device)[None, :]
             < seq_lens.long()[:, None])[..., None]
     summed = torch.where(mask, x.float(), 0.0).sum(dim=1)
@@ -305,22 +396,24 @@ def mixed_decode_chunk_forward(
     B = dec_tokens.shape[0]
     x = torch.cat([_embed(params, cfg, dec_tokens),
                    _embed(params, cfg, chunk_tokens)])            # [B+c, D]
-    cos_sin = rope_cos_sin(torch.cat([dec_positions, chunk_positions]),
-                           cfg.head_dim, cfg.rope_theta)
+    tokens = torch.cat([dec_tokens, chunk_tokens])
+    cos_sin = _rope(cfg, torch.cat([dec_positions, chunk_positions]), tokens)
     start = chunk_start.reshape(1)
     valid = chunk_valid.reshape(1)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
+        opts = _attn_opts(cfg, l)
+        h = _norm(x, lp["input_norm"]["scale"], cfg)
         q, k, v = _project_qkv(lp, h, cfg, cos_sin)           # [B+c, H, hd]
         k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
         write_prefill_kv(k_pages, v_pages, k[None, B:], v[None, B:],
                          chunk_pt, start, valid)
         attn_d, _, _ = decode_attention_step(q[:B], k[:B], v[:B], k_pages,
-                                             v_pages, dec_pt, dec_clens)
+                                             v_pages, dec_pt, dec_clens,
+                                             **opts)
         attn_c = prefill_attention(q[None, B:], k[None, B:], v[None, B:],
                                    k_pages, v_pages, chunk_pt, start, valid,
-                                   has_prefix=True)
+                                   has_prefix=True, **opts)
         attn = torch.cat([attn_d, attn_c[0]])
         x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
                                                    cfg.q_size), cfg)
@@ -335,4 +428,5 @@ register_model_family(ModelFamily(
     embed_forward=embed_forward,
     mixed_decode_chunk_forward=mixed_decode_chunk_forward,
     verify_forward=verify_forward,
+    supports_int8=True,
 ))

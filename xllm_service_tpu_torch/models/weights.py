@@ -1,11 +1,14 @@
 """Weight bridge from the reference's parameter tree.
 
-``llama_params_from_jax`` turns the JAX package's Llama parameter tree,
-given as numpy arrays (``xllm_service_tpu/models/llama.py::init_params``
-layout: stacked ``[L, ...]`` layers, projections ``[in, out]``), into the
-port's tensors with the same layout, so both engines compute from the same
-weights. The caller converts its arrays with ``numpy.asarray``; nothing
-here imports JAX.
+``params_from_jax`` turns a JAX package parameter tree of the llama body
+(llama, qwen2 with its biases, gemma with its sandwich norms, and int8
+trees with their ``{"q8", "scale"}`` leaves), given as numpy arrays
+(``xllm_service_tpu/models/llama.py::init_params`` layout: stacked
+``[L, ...]`` layers, projections ``[in, out]``), into the port's tensors
+with the same layout and dtypes, so both engines compute from the same
+weights. ``llama_params_from_jax`` is the same function under its first
+name. The caller converts its arrays with ``numpy.asarray``; nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def llama_params_from_jax(tree: dict,
-                          device: Optional[Union[str, torch.device]] = None
-                          ) -> dict:
+def params_from_jax(tree: dict,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> dict:
     """Nested dict of numpy arrays -> the same nested dict of tensors (same
     dtypes) on ``device`` (``cuda`` unless named)."""
     dev = resolve_device(device)
@@ -42,3 +45,6 @@ def llama_params_from_jax(tree: dict,
         return _to_tensor(node, dev)
 
     return walk(tree)
+
+
+llama_params_from_jax = params_from_jax

@@ -1,5 +1,6 @@
 """Attention primitives for the paged-KV engine (port of
-``xllm_service_tpu/ops/attention.py``, dense Llama path).
+``xllm_service_tpu/ops/attention.py``: the llama family's ops, with
+M-RoPE's sections and Gemma-2's score softcap and sliding window).
 
 Layouts, as in the reference:
 - KV pool per layer: ``k_pages/v_pages: [num_pages, n_kv, page_size, hd]``
@@ -18,7 +19,11 @@ launches kernel 2, and a decode step under ``XLLM_KV_WRITEBACK=fused``
 launches kernel 3. A prefill with no cached prefix is one PyTorch
 ``scaled_dot_product_attention`` call on the card: no TPU kernel computes
 it (the reference leaves it to XLA), so it is a library call for work
-outside any Pallas kernel, not a kernel port.
+outside any Pallas kernel, not a kernel port. A prefill with a score
+softcap or a sliding window (Gemma-2) takes ``dense_prefill_route``, the
+dense f32 path, on the card as on the CPU, as the reference takes XLA for
+it: neither kernel 2 nor the SDPA call computes a softcap. The choice comes from the
+call's options (the model's config), never from a failed launch.
 
 A pool sharded over the mesh's ``seq`` axis (``ShardedPages``, the
 reference's pool under a seq mesh) changes three things, as in the
@@ -31,6 +36,7 @@ prefix-free prefill may take the ring (``ring=True``).
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 from typing import Optional
@@ -72,11 +78,21 @@ def rope_inv_freq(head_dim: int, theta: float,
     return inv
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int,
-                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions [...] -> cos/sin [..., head_dim//2] in f32."""
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope_section: tuple = ()
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> cos/sin [..., head_dim//2] in f32.
+
+    With ``mrope_section`` (M-RoPE: half-dim sections summing to
+    head_dim // 2) the positions carry a trailing axis of one stream per
+    section, [..., len(mrope_section)] = (temporal, h, w), and each
+    section's frequencies rotate by its own stream."""
     angles = positions.float()[..., None] * rope_inv_freq(
         head_dim, theta, positions.device)
+    if mrope_section:                                # [..., 3, hd/2]
+        bounds = list(itertools.accumulate(mrope_section, initial=0))
+        angles = torch.cat([angles[..., k, lo:hi] for k, (lo, hi) in
+                            enumerate(zip(bounds[:-1], bounds[1:]))], dim=-1)
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -91,11 +107,18 @@ def rope_rotate(x: torch.Tensor, cos_sin: tuple[torch.Tensor, torch.Tensor]
     return out.to(x.dtype)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_section: tuple = ()) -> torch.Tensor:
     """x: [..., n_heads, head_dim]; positions broadcastable to
-    x.shape[:-2]. 1-D rope (the rotate-half convention)."""
-    return rope_rotate(x, rope_cos_sin(positions, x.shape[-1], theta))
+    x.shape[:-2] (the rotate-half convention). With ``mrope_section``,
+    positions may instead carry a trailing axis [..., 3] of M-RoPE
+    streams (``rope_cos_sin``); 1-D positions take the standard path,
+    which is the same rotation for them."""
+    mrope = (mrope_section if mrope_section
+             and positions.ndim == x.ndim - 1
+             and positions.shape[-1] == len(mrope_section) else ())
+    return rope_rotate(x, rope_cos_sin(positions, x.shape[-1], theta,
+                                       mrope))
 
 
 def _repeat_kv(kv: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -242,6 +265,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       page_table: Optional[torch.Tensor],
                       prefix_lens: torch.Tensor, seq_lens: torch.Tensor,
                       scale: Optional[float] = None,
+                      softcap: float = 0.0, window: int = 0,
                       has_prefix: Optional[bool] = None,
                       ring: bool = False) -> torch.Tensor:
     """Causal attention for a (possibly prefix-cached) prefill suffix.
@@ -259,6 +283,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU both are ``dense_prefill_attention`` (the reference's XLA
     path, in f32).
 
+    ``softcap`` > 0 tanh-caps the scores (after q is scaled); ``window``
+    > 0 restricts each query to the trailing ``window`` key positions
+    (Gemma-2's local layers). Such a prefill takes ``dense_prefill_route``
+    on any device, as the reference's gate sends it to XLA.
+
     ``ring`` (the pool sharded over the seq axis, no cached prefix) takes
     ring attention over the pool's mesh axis, as the reference's
     sequence-parallel prefill: queries past ``seq_lens`` are end padding,
@@ -269,6 +298,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k_pages is not None and has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
     if ring:
+        if softcap != 0.0 or window != 0:
+            raise NotImplementedError(
+                "ring attention does not support attn softcap/sliding "
+                "window; the engine must not enable sequence-parallel "
+                "prefill for gemma-2-style models")
         if not isinstance(k_pages, ShardedPages) or has_prefix:
             raise ValueError("ring prefill needs a pool sharded over the "
                              "seq axis and no cached prefix")
@@ -278,15 +312,40 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if with_prefix and isinstance(k_pages, ShardedPages):
         k_pages, v_pages, page_table = gather_sharded_table(
             k_pages, v_pages, page_table)
+    if not with_prefix:
+        k_pages = v_pages = page_table = None
+    if softcap != 0.0 or window != 0:
+        return dense_prefill_route(q, k, v, k_pages, v_pages, page_table,
+                                   prefix_lens, seq_lens, scale=scale,
+                                   softcap=softcap, window=window)
     if q.is_cuda:
         if with_prefix:
             return mq_paged_attention(q, k_pages, v_pages, page_table,
                                       prefix_lens, seq_lens, scale=scale)
         return sdpa_prefill_attention(q, k, v, scale=scale)
-    if not with_prefix:
-        k_pages = v_pages = page_table = None
     return dense_prefill_attention(q, k, v, k_pages, v_pages, page_table,
                                    prefix_lens, seq_lens, scale=scale)
+
+
+def dense_prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        k_pages: Optional[torch.Tensor],
+                        v_pages: Optional[torch.Tensor],
+                        page_table: Optional[torch.Tensor],
+                        prefix_lens: torch.Tensor, seq_lens: torch.Tensor,
+                        scale: Optional[float] = None, softcap: float = 0.0,
+                        window: int = 0) -> torch.Tensor:
+    """The route of a prefill with a score softcap or a sliding window, on
+    any device: ``dense_prefill_attention`` (the reference takes XLA's
+    dense path there, reference ``ops/attention.py:228-230``). Each call
+    adds one to ``dense_prefill_route.launches``, as the kernel wrappers
+    count theirs, so a serving run can say how many prefills took it."""
+    dense_prefill_route.launches += 1
+    return dense_prefill_attention(q, k, v, k_pages, v_pages, page_table,
+                                   prefix_lens, seq_lens, scale=scale,
+                                   softcap=softcap, window=window)
+
+
+dense_prefill_route.launches = 0
 
 
 def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,
@@ -320,11 +379,16 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             page_table: Optional[torch.Tensor],
                             prefix_lens: torch.Tensor,
                             seq_lens: torch.Tensor,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            softcap: float = 0.0,
+                            window: int = 0) -> torch.Tensor:
     """``prefill_attention`` in dense f32 on any device (the CPU route,
-    and the oracle of the card's routes): the suffix's causal,
-    padding-masked attention, plus the cached prefix read from the pages
-    when ``k_pages`` is given."""
+    the card's route under a softcap or a window, and the oracle of the
+    card's other routes): the suffix's causal, padding-masked attention,
+    plus the cached prefix read from the pages when ``k_pages`` is given.
+    ``softcap`` caps the scaled scores; under ``window`` suffix row r sees
+    suffix column c while r - c < window and prefix position c while
+    prefix_lens + r - c < window."""
     B, S, n_heads, hd = q.shape
     n_rep = n_heads // k.shape[2]
     with_prefix = k_pages is not None
@@ -335,11 +399,17 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     vf = _repeat_kv(v, n_rep).float()
     qf = q.float() * scale
 
-    # Suffix-suffix scores, causal + padding mask.
-    ss = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    def cap(s: torch.Tensor) -> torch.Tensor:
+        return softcap * torch.tanh(s / softcap) if softcap > 0 else s
+
+    # Suffix-suffix scores, causal + padding mask; row r and column c sit
+    # at prefix_lens + r and prefix_lens + c, so the window is r - c.
+    ss = cap(torch.einsum("bqhd,bkhd->bhqk", qf, kf))
     rows = torch.arange(S, device=q.device)[None, :, None]
     cols = torch.arange(S, device=q.device)[None, None, :]
     mask = (cols <= rows) & (cols < seq_lens.long()[:, None, None])
+    if window > 0:
+        mask = mask & (rows - cols < window)
     ss = torch.where(mask[:, None, :, :], ss, NEG_INF)
 
     if not with_prefix:
@@ -349,12 +419,17 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     pk = _repeat_kv(gather_pages(k_pages, page_table), n_rep).float()
     pv = _repeat_kv(gather_pages(v_pages, page_table), n_rep).float()
     T = pk.shape[1]
-    live = (torch.arange(T, device=q.device)[None, :]
-            < prefix_lens.long()[:, None])                        # [B, T]
+    ar_t = torch.arange(T, device=q.device)
+    live = ar_t[None, :] < prefix_lens.long()[:, None]             # [B, T]
     # masked_kv_f32: V rows past the prefix never reach the sum (0 x NaN).
     pv = torch.where(live[:, :, None, None], pv, 0.0)
-    ps_scores = torch.einsum("bqhd,bkhd->bhqk", qf, pk)
-    ps_scores = torch.where(live[:, None, None, :], ps_scores, NEG_INF)
+    ps_scores = cap(torch.einsum("bqhd,bkhd->bhqk", qf, pk))
+    pmask = live[:, None, :]                                      # [B, 1, T]
+    if window > 0:
+        dist = (prefix_lens.long()[:, None, None] + rows
+                - ar_t[None, None, :])                            # [B, S, T]
+        pmask = pmask & (dist < window)
+    ps_scores = torch.where(pmask[:, None], ps_scores, NEG_INF)
     scores = torch.cat([ps_scores, ss], dim=-1)
     values = torch.cat([pv, vf], dim=1)
     probs = torch.softmax(scores, dim=-1)

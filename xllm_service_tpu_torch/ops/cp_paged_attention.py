@@ -52,6 +52,7 @@ from .paged_attention import (
     check_cuda_operands,
     gather_rows,
     merge_splits,
+    planned_blocks_per_sm,
     sm_count,
     split_count,
     split_partials,
@@ -254,16 +255,19 @@ MIN_SPLIT_SLOTS = 256   # four 16-slot units for each warp of a split
 
 
 def partial_split_count(batch: int, n_kv: int, max_pages: int,
-                        page_size: int, sms: int, shards: int) -> int:
+                        page_size: int, sms: int, shards: int,
+                        per_sm: int) -> int:
     """Blocks per (row, KV head) of kernel 6 on one of ``shards`` shards,
     from what the host knows: kernel 1's ``split_count`` for the row's
     share of the table (``ceil(max_pages / shards)`` entries, about what a
-    shard owns), with no split shorter than ``MIN_SPLIT_SLOTS``. Each split
+    shard owns, at ``per_sm`` blocks per SM), with no split shorter than
+    ``MIN_SPLIT_SLOTS``. Each split
     pays a merge through scratch and the ticket, and a shard's walk is
     short: at the decode shapes one split of 256 slots beat two of 128
     (``chip_smoke.py``'s splits sweep, in PERF.md)."""
     share = -(-max_pages // shards)
-    return max(1, min(split_count(batch, n_kv, share, page_size, sms),
+    return max(1, min(split_count(batch, n_kv, share, page_size, sms,
+                                  per_sm),
                       share * page_size // MIN_SPLIT_SLOTS))
 
 
@@ -307,8 +311,10 @@ def paged_partial(q: torch.Tensor, k_pages: torch.Tensor,
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     max_pages = local_pt.shape[1]
-    splits = partial_split_count(B, n_kv, max_pages, ps, sm_count(q.device),
-                                 shards)
+    splits = partial_split_count(
+        B, n_kv, max_pages, ps, sm_count(q.device), shards,
+        planned_blocks_per_sm("cp_paged_partial", hd, n_q // n_kv,
+                              q.dtype == torch.bfloat16))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("cp_paged_partial", "cp_paged_partial_launch",

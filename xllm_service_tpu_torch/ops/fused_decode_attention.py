@@ -44,6 +44,7 @@ from .paged_attention import (
     check_cuda_operands,
     gather_rows,
     merge_splits,
+    planned_blocks_per_sm,
     sm_count,
     split_count,
     split_partials,
@@ -186,7 +187,10 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     if B == 0:
         return out, k_pages, v_pages
     max_pages = page_table.shape[1]
-    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device))
+    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device),
+                         planned_blocks_per_sm("fused_decode_attention", hd,
+                                               n_q // n_kv,
+                                               q.dtype == torch.bfloat16))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("fused_decode_attention",

@@ -91,14 +91,14 @@ MAX_SPLITS = 32    # the merge reads every split's partial once per output
 
 
 def split_count(batch: int, n_kv: int, max_pages: int, page_size: int,
-                sm_count: int) -> int:
+                sm_count: int, per_sm: int) -> int:
     """Blocks per (row, KV head) of the split-K decode kernel, from what
     the host knows without a device sync: enough that the grid holds about
-    two blocks per SM, but no split shorter than two 64-token chunks of the
-    table's width (so a short table is not split), and at most
-    ``MAX_SPLITS``."""
+    ``per_sm`` blocks per SM (``planned_blocks_per_sm``), but no split
+    shorter than two 64-token chunks of the table's width (so a short table
+    is not split), and at most ``MAX_SPLITS``."""
     rows = max(1, batch * n_kv)
-    want = max(1, (2 * sm_count) // rows)
+    want = max(1, (per_sm * sm_count) // rows)
     chunks = -(-(max_pages * page_size) // 64)
     return max(1, min(want, chunks // 2, MAX_SPLITS))
 
@@ -246,6 +246,27 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(_device_index(device))
 
 
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(lib: str, hd: int, group: int, bf16: bool) -> int:
+    """Blocks of library ``lib``'s split-K kernel (``paged_attention``,
+    ``fused_decode_attention`` or ``cp_paged_partial``) that one SM holds
+    at this head dim, GQA group and dtype, by the occupancy calculator.
+    Raises if the query fails."""
+    n = _build.kernel_fn(lib, f"{lib}_blocks_per_sm",
+                         [ctypes.c_int] * 3)(hd, group, 1 if bf16 else 0)
+    if n <= 0:
+        raise RuntimeError(f"{lib}: blocks per SM query failed ({n})")
+    return n
+
+
+def planned_blocks_per_sm(lib: str, hd: int, group: int, bf16: bool) -> int:
+    """Blocks per SM that ``split_count`` plans for at this shape: two at
+    head dims up to 128 (the plan the splits sweeps measured, PERF.md), and
+    at 256 what the occupancy calculator reports for library ``lib``
+    (``blocks_per_sm``: one, as a bf16 block's ring takes 192 KB)."""
+    return blocks_per_sm(lib, hd, group, bf16) if hd == 256 else 2
+
+
 def split_work(q: torch.Tensor, n_kv: int, splits: int, stream: int
                ) -> tuple[int, int]:
     """Pointers ``(scratch, tickets)`` for a split-K launch of ``q``'s
@@ -323,6 +344,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                  [ctypes.c_int, ctypes.c_int])(hd, ps)
     check_cuda_operands("paged_attention", q, k_pages, v_pages,
                         [page_table, context_lens], max_group, n_q // n_kv)
+    bf16 = q.dtype == torch.bfloat16
     if page_table.shape[0] != B or context_lens.shape != (B,):
         raise ValueError("paged_attention: page_table/context_lens rows "
                          "must match q")
@@ -332,7 +354,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     max_pages = page_table.shape[1]
-    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device))
+    splits = split_count(B, n_kv, max_pages, ps, sm_count(q.device),
+                         planned_blocks_per_sm("paged_attention", hd,
+                                               n_q // n_kv, bf16))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch_ptr, tickets_ptr = split_work(q, n_kv, splits, stream)
     launch = _build.kernel_fn("paged_attention", "paged_attention_launch",
@@ -340,7 +364,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), context_lens.data_ptr(),
                  out.data_ptr(), scratch_ptr, tickets_ptr, B, n_q, n_kv, hd,
-                 ps, max_pages, 1 if q.dtype == torch.bfloat16 else 0, splits,
+                 ps, max_pages, 1 if bf16 else 0, splits,
                  float(scale), float(softcap), int(window), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention: CUDA launch failed with "
