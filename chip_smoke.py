@@ -159,6 +159,28 @@ Phases (any failure exits non-zero before the result line):
    greedy token against its recomputation at the near-tie rule; Gemma-2's
    prefills take the dense route (counted, kernel 2 idle). Then the bench
    twin in int8 beside phase 4e's bf16 figure (information);
+4k. checkpoint loading: phase 4's Llama-3-8B weights written as a Hugging
+   Face model directory through the port's safetensors writer (four bf16
+   shards named as Meta's with their index, ``config.json`` with the
+   published values, a Llama-3-shaped ``tokenizer.json`` of 128000 ranks
+   drawn from a seed and the 256 special tokens at their published ids,
+   ``tokenizer_config.json``), under ``tempfile.mkdtemp()``; loaded here
+   (every leaf bit for bit against phase 4's; with ``quant="int8"`` against
+   ``quantize_tree`` of phase 4's); then served by the agent in a second
+   process started from its command line (``--model-config llama3_8b
+   --checkpoint-path D --tokenizer-path D``, through ``python3
+   chip_smoke.py --checkpoint-agent``, which runs ``engine/agent.py::main``
+   with probes) behind the stub master: after a warm pass on other
+   prompts, phase 4's requests give phase 4's tokens exactly (their host
+   split beside phase 4f's), two text requests are tokenised there as here and
+   stream the decode of their ids, kernels 1 and 2 launch there. Then
+   Qwen2-7B and Gemma-2-9B (tied, no ``lm_head``) at full width and
+   K_DEPTH layers, norms and biases drawn: written, loaded bit for bit,
+   one rollout (kernel 2 behind a cached prefix for Qwen2, kernel 1 on
+   every decode step) giving the tree in memory's tokens and logits
+   exactly. Write and load times and rates, the time to registration,
+   the tokenizer's encode rate and the detokeniser's share of the engine
+   loop beside phase 4f's split are information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -1200,11 +1222,27 @@ def check_hd256_fused_and_partial(fused, fused_plain, cp):
               + owned * n_kv * 256 * 2 * 2 + int(tables[2].sum()) * 8
               + 2 * B * 4)
     bound, by = bound_of(nbytes, 4 * n_q * 256 * owned)
+    # The yardstick: one SDPA call over each row's owned pages on shard 0,
+    # gathered dense and padded to the longest row (a key mask), scale
+    # 1/16. The rows own different counts here (ctx 1024 each, pages drawn
+    # from the whole pool).
+    n_loc = tables[2].long()
+    T = int(n_loc.max()) * PS
+    idx = tables[0][:, :T // PS].long()
+    kd = k0[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, 256).contiguous()
+    vd = v0[idx].permute(0, 2, 1, 3, 4).reshape(B, n_kv, T, 256).contiguous()
+    keep = (torch.arange(T, device="cuda")[None, :]
+            < (n_loc * PS)[:, None])[:, None, None, :]
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=keep, scale=1 / 16,
+        enable_gqa=True))
     out["partial"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by)
+                          bound_by=by, library_ms=lib_ms)
     log(f"  cp_paged_partial hd 256 bf16 B={B} ctx {ctx}, shard 0 of 4 "
         f"({owned} owned slots): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
+        f"ms, sdpa {lib_ms:.4f} ms (owned K/V gathered dense, padded to "
+        f"{T} keys), bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the "
+        f"bound, {ms / lib_ms:.2f}x the library's time")
     return out
 
 
@@ -2218,8 +2256,9 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
     agent-only requests. ``phase4`` = phase 4's runs, each (tokens per
     request, launches, tok/s, sorted TTFTs, ``StepClock`` summary); the
     first is the cold one. Returns the launches of kernels 1 and 2 in this
-    phase, and the client-side TTFT (dispatch to first delta at the stub
-    master, ms) of phase 4's requests."""
+    phase, the client-side TTFT (dispatch to first delta at the stub
+    master, ms) of phase 4's requests, and the host split of their
+    window (``StepClock``)."""
     from xllm_service_tpu_torch.common.types import InstanceMetaInfo, now_ms
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
@@ -2397,7 +2436,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
             f" ms, {sum(len(h['kv_cache_event']['stored']) for h in beats)} "
             f"stored blocks (information only; {card})")
         return launches, {n: (master.first[n] - sent[n]) * 1e3
-                          for n in names}
+                          for n in names}, split
     finally:
         post.close()
         agent.stop()
@@ -3985,6 +4024,619 @@ def engine_config_4j(mcfg, num_pages, max_seq_len):
                         admission_horizon=8, seed=0)
 
 
+# --------------------------------------------------------------- phase 4k
+# Llama-3's published pre-tokenizer split pattern.
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+K_DEPTH = 4          # phase 4k (b): layers of Qwen2-7B and Gemma-2-9B
+K_PROBE_NEW = 16     # phase 4k (b): greedy tokens per rollout
+
+
+def llama3_specials() -> dict[int, str]:
+    """Llama-3's 256 special tokens at their published ids."""
+    names = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+             128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+             128009: "<|eot_id|>"}
+    reserved = iter(range(251))
+    return {i: names.get(i) or f"<|reserved_special_token_{next(reserved)}|>"
+            for i in range(128000, 128256)}
+
+
+def llama3_tokenizer_files(d, seed, n_ranks=128000) -> None:
+    """A ``tokenizer.json`` of Llama-3's shape in ``d``: a byte-level BPE
+    with ``ignore_merges`` under Llama-3's split pattern, ``n_ranks`` ranks
+    drawn from ``seed`` (the 256 bytes, then each token the merge of two
+    lower-ranked ones, drawn toward the low ranks), the 256 special tokens
+    after them; and a ``tokenizer_config.json`` whose eos is
+    ``<|eot_id|>``."""
+    from xllm_service_tpu_torch.tokenizer.hf_json import BYTE_TO_CHAR
+
+    rng = np.random.default_rng(seed)
+    toks = [BYTE_TO_CHAR[b] for b in range(256)]
+    vocab = {t: i for i, t in enumerate(toks)}
+    merges = []
+    while len(toks) < n_ranks:
+        u = rng.random((2, 4096)) ** 3
+        for a_u, b_u in zip(*u):
+            r = len(toks)
+            if r == n_ranks:
+                break
+            a, b = toks[int(a_u * r)], toks[int(b_u * r)]
+            if a + b in vocab:
+                continue
+            vocab[a + b] = r
+            toks.append(a + b)
+            merges.append([a, b])
+    specials = llama3_specials() if n_ranks == 128000 else {
+        n_ranks + i: s for i, s in enumerate(
+            ("<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>"))}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": s, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, s in sorted(specials.items())],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                           "trim_offsets": False, "use_regex": True},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+                   "added_tokens_decoder": {
+                       str(i): {"content": s, "special": True}
+                       for i, s in specials.items()}}, f)
+
+
+def hf_config_json(mcfg, model_type) -> dict:
+    """The ``config.json`` that publishes ``mcfg`` (HF's field names)."""
+    out = {"model_type": model_type,
+           "architectures": [{"llama": "LlamaForCausalLM",
+                              "qwen2": "Qwen2ForCausalLM",
+                              "gemma2": "Gemma2ForCausalLM"}[model_type]],
+           "vocab_size": mcfg.vocab_size, "hidden_size": mcfg.hidden_size,
+           "num_hidden_layers": mcfg.num_layers,
+           "num_attention_heads": mcfg.num_heads,
+           "num_key_value_heads": mcfg.num_kv_heads,
+           "head_dim": mcfg.head_dim, "intermediate_size": mcfg.ffn_size,
+           "rope_theta": mcfg.rope_theta, "rms_norm_eps": mcfg.rms_eps,
+           "max_position_embeddings": mcfg.max_context_len,
+           "tie_word_embeddings": mcfg.tie_embeddings,
+           "torch_dtype": "bfloat16"}
+    if model_type == "gemma2":
+        out.update(hidden_activation="gelu_pytorch_tanh",
+                   query_pre_attn_scalar=mcfg.query_pre_attn_scalar,
+                   attn_logit_softcapping=mcfg.attn_logit_softcap,
+                   final_logit_softcapping=mcfg.final_logit_softcap,
+                   sliding_window=mcfg.sliding_window)
+    return out
+
+
+def tree_leaf(params, path):
+    node = params
+    for part in path.split("/"):
+        node = node[part]
+    return node
+
+
+def hf_tensors(params, mcfg) -> list:
+    """(HF name, tensor view) of every leaf of ``params`` in an HF
+    checkpoint's order (the embedding, the layers, the final norm, the
+    head), each layer's projection transposed to HF's ``[out, in]`` (the
+    port's loader maps, inverted)."""
+    from xllm_service_tpu_torch.models import loader
+
+    top = {name: where for name, where in loader._HF_TOP_MAP.items()}
+    out = []
+
+    def add(name, path, layer, transpose):
+        try:
+            leaf = tree_leaf(params, path)
+        except KeyError:
+            return                       # a tied head, no biases, ...
+        t = leaf if layer is None else leaf[layer]
+        out.append((name, t.t() if transpose else t))
+
+    path, transpose = top["model.embed_tokens.weight"]
+    add("model.embed_tokens.weight", path, None, transpose)
+    for layer in range(mcfg.num_layers):
+        for leaf, (path, transpose) in loader._HF_LAYER_MAP.items():
+            add(f"model.layers.{layer}.{leaf}", "layers/" + path, layer,
+                transpose)
+    for name in ("model.norm.weight", "lm_head.weight"):
+        path, transpose = top[name]
+        add(name, path, None, transpose)
+    return out
+
+
+def write_hf_dir(d, params, mcfg, model_type, n_shards) -> int:
+    """``params`` as an HF model directory in ``d`` through the port's
+    writer: bf16 tensors under HF names in ``n_shards`` shards named as the
+    published ones, ``model.safetensors.index.json`` and ``config.json``.
+    Returns the bytes of the shards."""
+    from xllm_service_tpu_torch.models.safetensors_io import save_file
+
+    os.makedirs(d, exist_ok=True)
+    tensors = hf_tensors(params, mcfg)
+    total = sum(t.numel() * t.element_size() for _, t in tensors)
+    shards, acc = [[] for _ in range(n_shards)], 0
+    for name, t in tensors:
+        shards[min(n_shards - 1, acc * n_shards // total)].append((name, t))
+        acc += t.numel() * t.element_size()
+    weight_map = {}
+    for k, part in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{n_shards:05d}.safetensors"
+        save_file(dict(part), os.path.join(d, fname),
+                  metadata={"format": "pt"})
+        weight_map.update({name: fname for name, _ in part})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf_config_json(mcfg, model_type), f)
+    return total
+
+
+def assert_trees_bit_equal(got, want, what):
+    """Every leaf of ``got`` equal to ``want``'s bit for bit, same keys."""
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    g, w = dict(leaves(got)), dict(leaves(want))
+    assert sorted(g) == sorted(w), f"{what}: leaves {sorted(set(g) ^ set(w))}"
+    for path, t in w.items():
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            t.element_size()]
+        assert g[path].dtype == t.dtype and g[path].shape == t.shape and \
+            torch.equal(g[path].view(bits), t.view(bits)), f"{what}: {path}"
+    return len(w)
+
+
+def rollout(llama, mcfg, params, prompt, prefix):
+    """``prompt`` installed in two prefills, its first ``prefix`` tokens
+    cold and the rest behind them (kernel 2 where the family's prefill
+    takes it), then K_PROBE_NEW greedy decode steps (kernel 1). Returns
+    (the tokens, the last step's logits)."""
+    n = len(prompt) + K_PROBE_NEW
+    n_pages = -(-n // PS)
+    dev = params["final_norm"]["scale"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    kv = torch.zeros((mcfg.num_layers, 2, n_pages + 1, mcfg.num_kv_heads, PS,
+                      mcfg.head_dim), dtype=mcfg.dtype, device=dev)
+    pt = torch.arange(1, n_pages + 1, **i32)[None]
+    toks = torch.tensor([prompt], **i32)
+    for lo, hi in ((0, prefix), (prefix, len(prompt))):
+        logits = llama.prefill_forward(
+            params, mcfg, toks[:, lo:hi], torch.arange(lo, hi, **i32)[None],
+            kv, pt, torch.tensor([lo], **i32), torch.tensor([hi - lo], **i32),
+            has_prefix=lo > 0)[0]
+    out = []
+    for _ in range(K_PROBE_NEW):
+        out.append(int(logits[0].argmax()))
+        pos = len(prompt) + len(out) - 1
+        logits = llama.decode_forward(
+            params, mcfg, torch.tensor([out[-1]], **i32),
+            torch.tensor([pos], **i32), kv, pt,
+            torch.tensor([pos + 1], **i32))[0]
+    return out, logits.float().cpu()
+
+
+def checkpoint_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --checkpoint-agent ARGS...``: phase 4k's
+    agent, started in this process through the agent's own entry point
+    (``engine/agent.py::main`` with ARGS), with probes driven by lines on
+    standard input, each answered by one line ``REPORT {...}`` on standard
+    output: ``begin`` puts a ``StepClock`` on its engine and a
+    ``CallClock`` on its tokenizer's ``decode``, and records what its
+    tokenizer encodes (``{}``); ``report`` gives this process's kernel
+    launch counts, the load's seconds, the encoded texts with their ids
+    and, the first time after a ``begin``, the split and the decode clock.
+    End of input stops the agent (SIGTERM: its drain)."""
+    import logging
+    import signal
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+    from xllm_service_tpu_torch.ops.mq_paged_attention import (
+        mq_paged_attention,
+    )
+    from xllm_service_tpu_torch.ops.paged_attention import paged_attention
+
+    built, state = [], {}
+    build, load = agent_mod.build_agent, agent_mod.checkpoint_params
+
+    def probed_build(args, coord=None):
+        built.append(build(args, coord))
+        return built[-1]
+
+    def timed_load(*args, **kw):
+        t = time.perf_counter()
+        params = load(*args, **kw)
+        torch.cuda.synchronize()
+        state["load_s"] = time.perf_counter() - t
+        return params
+
+    agent_mod.build_agent = probed_build
+    agent_mod.checkpoint_params = timed_load
+
+    def commands():
+        for line in sys.stdin:
+            eng = built[0].engine
+            if line.strip() == "begin":
+                tok = eng.tokenizer
+                state["decode"] = tok.decode = CallClock(tok.decode)
+                encodes = state["encodes"] = {}
+                encode = tok.encode
+
+                def recording_encode(text):
+                    ids = encode(text)
+                    encodes[text] = ids
+                    return ids
+
+                tok.encode = recording_encode
+                state["clock"] = StepClock(eng)
+                state["clock"].begin()
+                print("REPORT {}", flush=True)
+                continue
+            rec = {"launches": {
+                "paged_attention": paged_attention.launches,
+                "mq_paged_attention": mq_paged_attention.launches},
+                "load_s": state.get("load_s"),
+                "tokenizer": type(eng.tokenizer).__name__,
+                "encodes": state.get("encodes", {})}
+            if "clock" in state:
+                d = state["decode"]
+                rec.update(split=state.pop("clock").end(),
+                           decode=[d.n, d.wall * 1e3, d.cpu * 1e3])
+            print("REPORT " + json.dumps(rec), flush=True)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    threading.Thread(target=commands, daemon=True).start()
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    agent_mod.main(argv)
+    return 0
+
+
+def sample_text(seed, n_chars) -> str:
+    """Text to tokenize: words of Latin, accented, Cyrillic and CJK letters,
+    numbers and punctuation, with runs of spaces and newlines."""
+    rng = np.random.default_rng(seed)
+    alphabets = ["etaoinshrdlucmfwypvbgkqjxz", "àéîõüçñß", "привет", "世界中文",
+                 "0123456789", ".,;:!?'\"()-"]
+    p = np.asarray([80, 3, 4, 2, 6, 5], float)
+    p /= p.sum()
+    parts, n = [], 0
+    while n < n_chars:
+        a = alphabets[rng.choice(len(alphabets), p=p)]
+        w = "".join(rng.choice(list(a), size=int(rng.integers(1, 9))))
+        sep = " " if rng.random() < 0.93 else rng.choice(["\n", "\n\n", "  "])
+        parts.append(w + sep)
+        n += len(parts[-1])
+    return "".join(parts)[:n_chars]
+
+
+def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
+                     want, split_4f, kernels, card):
+    """Phase 4k: checkpoint loading. (a) Phase 4's Llama-3-8B weights
+    written as an HF model directory (four bf16 shards with their index,
+    ``config.json``, a Llama-3-shaped ``tokenizer.json``), loaded in this
+    process (every leaf bit for bit, and in int8 against ``quantize_tree``),
+    then served by the agent in a second process from its command line
+    (``--checkpoint-path D --tokenizer-path D``) behind the stub master:
+    after a warm pass on other prompts, phase 4's requests give phase 4's
+    tokens (``want``), two text requests are tokenised as here, kernels 1
+    and 2 launch there. (b) Qwen2-7B and
+    Gemma-2-9B at full width and K_DEPTH layers: written, loaded bit for
+    bit, and one rollout's tokens and logits equal to the tree in memory's.
+    ``split_4f`` = phase 4f's host split (the byte tokenizer). Returns the
+    launches of kernels 1 and 2 in this phase (both processes)."""
+    import dataclasses
+    import shutil
+    import subprocess
+    import tempfile
+    import types
+
+    from xllm_service_tpu_torch.common.net import pick_free_port
+    from xllm_service_tpu_torch.common.types import InstanceMetaInfo
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.models import hf_config
+    from xllm_service_tpu_torch.models.gemma import gemma2_9b_config
+    from xllm_service_tpu_torch.models.quant import quantize_tree
+    from xllm_service_tpu_torch.models.qwen2 import qwen2_7b_config
+    from xllm_service_tpu_torch.rpc import MASTER_KEY, instance_key
+    from xllm_service_tpu_torch.tokenizer import HFTokenizer
+
+    paged_attention, mq_paged_attention = kernels
+    mcfg = cfg.model
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="phase4k-")
+    total = [0, 0]
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"  scratch {root}: {free / 1e9:.1f} GB free")
+        d = os.path.join(root, "llama3_8b")
+        t = time.monotonic()
+        nbytes = write_hf_dir(d, params, mcfg, "llama", 4)
+        write_s = time.monotonic() - t
+        t = time.monotonic()
+        llama3_tokenizer_files(d, seed=0)
+        tok_s = time.monotonic() - t
+        log(f"  wrote {nbytes / 1e9:.2f} GB of bf16 shards in {write_s:.1f} s "
+            f"({nbytes / 1e9 / write_s:.2f} GB/s, the card to the disk) and "
+            f"a tokenizer of 128256 tokens in {tok_s:.1f} s; files "
+            f"{sorted(os.listdir(d))} ({card})")
+        assert hf_config.model_config_from_hf(d) == mcfg, "config.json"
+
+        # In-process loads: bf16 bit for bit, then int8.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded = hf_config.load_checkpoint(d, mcfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        n = assert_trees_bit_equal(loaded, params, "llama3-8b")
+        del loaded
+        t = time.perf_counter()
+        q8 = hf_config.load_checkpoint(
+            d, dataclasses.replace(mcfg, quant="int8"), device="cuda")
+        torch.cuda.synchronize()
+        q8_s = time.perf_counter() - t
+        n8 = assert_trees_bit_equal(q8, quantize_tree(params),
+                                    "llama3-8b int8")
+        del q8
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  in-process load: {n} leaves bit-identical to phase 4's in "
+            f"{load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s, shards just "
+            f"written: the page cache); int8: {n8} leaves bit-identical to "
+            f"quantize_tree of phase 4's in {q8_s:.2f} s ({card})")
+
+        # The tokenizer: the parent's copy, and its encode rate.
+        t = time.perf_counter()
+        tok = HFTokenizer(os.path.join(d, "tokenizer.json"))
+        build_s = time.perf_counter() - t
+        text = sample_text(1, 1 << 20)
+        t = time.perf_counter()
+        ids = tok.encode(text)
+        enc_s = time.perf_counter() - t
+        log(f"  tokenizer: built in {build_s:.2f} s; encode of "
+            f"{len(text.encode()) / 1e6:.2f} MB: {enc_s:.2f} s, "
+            f"{len(text.encode()) / 1e6 / enc_s:.3f} MB/s, "
+            f"{len(ids) / enc_s:.0f} tokens/s ({len(ids)} tokens; the "
+            f"host's CPU)")
+        assert tok.decode(tok.encode("Hello world, ¡hola!")) == \
+            "Hello world, ¡hola!"
+
+        # Served through the agent's command line in a second process.
+        store = MemoryStore()
+        coord = CoordServer(store)
+        master = StubMaster()
+        InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+        name = f"127.0.0.1:{pick_free_port('127.0.0.1')}"
+        os.makedirs(os.path.join(here, "build"), exist_ok=True)
+        log_path = os.path.join(here, "build", "phase4k_agent.log")
+        t = time.monotonic()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--checkpoint-agent",
+             "--model-config", "llama3_8b", "--model-id", "llama3-8b",
+             "--checkpoint-path", d, "--tokenizer-path", d,
+             "--coordination-addr", coord.addr,
+             "--port", name.rpartition(":")[2],
+             "--num-pages", str(cfg.num_pages),
+             "--page-size", str(cfg.page_size),
+             "--max-batch-size", str(cfg.max_batch_size),
+             "--max-seq-len", str(cfg.max_seq_len),
+             "--decode-horizon", str(cfg.decode_horizon)],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True, stderr=open(log_path, "w"))
+
+        def child_log():
+            with open(log_path) as f:
+                return "".join(f.readlines()[-30:])
+
+        def command(cmd):
+            child.stdin.write(cmd + "\n")
+            child.stdin.flush()
+            while True:
+                line = child.stdout.readline()
+                assert line, f"the agent exited:\n{child_log()}"
+                if line.startswith("REPORT "):
+                    return json.loads(line[7:])
+
+        post = None
+        try:
+            key = instance_key("MIX", name)
+            deadline = time.monotonic() + 600
+            while store.get(key) is None:
+                assert child.poll() is None and time.monotonic() < deadline, \
+                    f"the agent did not register:\n{child_log()}"
+                time.sleep(0.25)
+            reg_s = time.monotonic() - t
+            before = command("report")
+            log(f"  agent {name} (pid {child.pid}) registered {reg_s:.1f} s "
+                f"after its start; its load {before['load_s']:.2f} s "
+                f"({nbytes / 1e9 / before['load_s']:.2f} GB/s), tokenizer "
+                f"{before['tokenizer']} ({card})")
+            assert before["tokenizer"] == "HFTokenizer"
+            post = Poster(name)
+            greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+            samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
+                        ignore_eos=True)
+
+            def dispatch(sid, toks=None, **sp):
+                body = dict(service_request_id=sid, request_id=sid,
+                            source_service_addr=master.addr, **sp)
+                if toks is not None:
+                    body["token_ids"] = toks
+                status, reply = post("/v1/completions", body)
+                assert status == 200, reply
+
+            # A warm pass: phase 4's shapes on other prompts, so that the
+            # measured window finds the process warm (first prefills,
+            # captures, library handles), as phase 4f's did, and the
+            # engine's prefix cache holds nothing of phase 4's prompts.
+            warm = np.random.default_rng(99)
+            for i, p in enumerate(prompts + [sampled_prompt]):
+                dispatch(f"warm{i}", warm.integers(
+                    3, mcfg.vocab_size, size=len(p)).tolist(),
+                    **(samp if i == len(prompts) else greedy))
+            master.wait(lambda: all(master.finished(f"warm{i}")
+                                    for i in range(len(prompts) + 1)),
+                        "the warm pass", timeout=600)
+            mid = command("report")
+            command("begin")
+            for i, p in enumerate(prompts):
+                dispatch(f"g{i}", p, **greedy)
+            dispatch("sampled", sampled_prompt, **samp)
+            master.wait(lambda: "g0" in master.first,
+                        "request 0's first delta")
+            for j, p in enumerate(shared):
+                dispatch(f"s{j}", p, **greedy)
+            names = [f"g{i}" for i in range(len(prompts))] + ["sampled"] + \
+                [f"s{j}" for j in range(len(shared))]
+            master.wait(lambda: all(map(master.finished, names)),
+                        "phase 4's requests", timeout=600)
+            after = command("report")
+            texts = ["The capital of France is Paris, and " * 12,
+                     sample_text(2, 1500)]
+            for i, text in enumerate(texts):
+                dispatch(f"text{i}", prompt=text, max_tokens=48,
+                         temperature=0.0, ignore_eos=True)
+            master.wait(lambda: all(master.finished(f"text{i}")
+                                    for i in range(len(texts))),
+                        "the text requests", timeout=300)
+            last = command("report")
+            dec = types.SimpleNamespace(
+                name=name, incarnation_id=InstanceMetaInfo.from_json(
+                    store.get(key)).incarnation_id)
+            got = {n_: check_deltas(n_, master.gens[n_], dec)[0]
+                   for n_ in names}
+            same = [n_ for n_ in names if got[n_] == want[n_]]
+            log(f"  phase 4's {len(names)} requests through the checkpoint "
+                f"agent: {len(same)}/{len(names)} with phase 4's tokens")
+            assert len(same) == len(names), \
+                f"tokens differ from phase 4's: " \
+                f"{sorted(set(names) - set(same))}"
+            for i, text in enumerate(texts):
+                gens = master.gens[f"text{i}"]
+                out_ids = check_deltas(f"text{i}", gens, dec)[0]
+                streamed = "".join(o["text"] for g in gens
+                                   for o in g["outputs"])
+                assert last["encodes"][text] == tok.encode(text), \
+                    f"text{i}: the agent tokenised it otherwise"
+                assert streamed == tok.decode(out_ids), \
+                    f"text{i}: streamed text {streamed!r} is not the decode"
+                log(f"  text{i}: {len(text)} chars -> "
+                    f"{len(last['encodes'][text])} tokens as here; "
+                    f"{len(out_ids)} tokens streamed, their text the decode "
+                    f"of their ids ({len(streamed)} chars)")
+            k1 = after["launches"]["paged_attention"] - \
+                mid["launches"]["paged_attention"]
+            k2 = after["launches"]["mq_paged_attention"] - \
+                mid["launches"]["mq_paged_attention"]
+            log(f"  launches in the agent over phase 4's requests: kernel 1 "
+                f"{k1}, kernel 2 {k2}")
+            assert k1 > 0 and k2 > 0, "kernels 1 and 2 in the agent"
+            total[0] += last["launches"]["paged_attention"] - \
+                before["launches"]["paged_attention"]
+            total[1] += last["launches"]["mq_paged_attention"] - \
+                before["launches"]["mq_paged_attention"]
+            split, (n_dec, dec_wall, dec_cpu) = after["split"], after["decode"]
+            log(f"  host split, phase 4's traffic through the checkpoint "
+                f"agent (its tokenizer), after a warm pass: "
+                f"{StepClock.line(split)}")
+            log(f"  same split, phase 4f (the byte tokenizer): "
+                f"{StepClock.line(split_4f)}")
+            log(f"  the detokeniser in the agent: {n_dec} decode calls, "
+                f"{dec_wall:.1f} ms wall, {dec_cpu:.1f} ms CPU: "
+                f"{dec_cpu / split['engine_cpu_ms']:.3f} of the engine "
+                f"thread's CPU, {dec_wall / split['wall_ms']:.3f} of the "
+                f"window's wall (information only; {card})")
+        finally:
+            if post is not None:
+                post.close()
+            child.stdin.close()
+            try:
+                child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+            master.close()
+            coord.close()
+            store.close()
+        shutil.rmtree(d)
+
+        # (b) Qwen2-7B and Gemma-2-9B at full width, K_DEPTH layers.
+        rng = np.random.default_rng(13)
+        for name, make, model_type, seed in (
+                ("qwen2-7b", qwen2_7b_config, "qwen2", 3),
+                ("gemma2-9b", gemma2_9b_config, "gemma2", 1)):
+            t = time.monotonic()
+            vcfg = dataclasses.replace(make(), num_layers=K_DEPTH)
+            vparams = llama.init_params(
+                vcfg, torch.Generator(device="cuda").manual_seed(seed),
+                "cuda")
+            draw_norms_and_biases(vparams, seed + 1)
+            vd = os.path.join(root, name)
+            vbytes = write_hf_dir(vd, vparams, vcfg, model_type, 2)
+            assert hf_config.model_config_from_hf(vd) == vcfg, \
+                f"{name}: config.json"
+            reset_counts()
+            t_ = time.perf_counter()
+            loaded = hf_config.load_checkpoint(vd, vcfg, device="cuda")
+            torch.cuda.synchronize()
+            vload_s = time.perf_counter() - t_
+            n = assert_trees_bit_equal(loaded, vparams, name)
+            prompt = rng.integers(3, vcfg.vocab_size, size=700).tolist()
+            got = rollout(llama, vcfg, loaded, prompt, 512)
+            ref = rollout(llama, vcfg, vparams, prompt, 512)
+            k1, k2 = paged_attention.launches, mq_paged_attention.launches
+            assert got[0] == ref[0], f"{name}: greedy tokens differ"
+            assert torch.equal(got[1], ref[1]), f"{name}: logits differ"
+            assert torch.isfinite(got[1]).all()
+            log(f"  {name} ({K_DEPTH} of {make().num_layers} layers, full "
+                f"width, {vbytes / 1e9:.2f} GB, "
+                f"{'tied, no lm_head' if vcfg.tie_embeddings else 'untied'}"
+                f"): {n} leaves bit-identical, loaded in {vload_s:.2f} s; "
+                f"{K_PROBE_NEW} greedy tokens and the last logits equal to "
+                f"the tree in memory's (max|logit| "
+                f"{got[1].abs().max().item():.4g}); kernel 1 {k1}, kernel 2 "
+                f"{k2} launches over both rollouts; "
+                f"{time.monotonic() - t:.1f} s")
+            assert k1 > 0, f"{name}: kernel 1"
+            if model_type == "qwen2":
+                assert k2 > 0, "qwen2-7b: the prefix prefill skipped kernel 2"
+            total[0] += k1
+            total[1] += k2
+            del loaded, vparams
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(vd)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4153,7 +4805,7 @@ def main() -> int:
         f"master ({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
         "before: the weights alone)")
     t = time.monotonic()
-    agent_launches, mix_ttft = agent_phase(
+    agent_launches, mix_ttft, split_4f = agent_phase(
         cfg, params, prompts, shared, sampled_prompt,
         runs, (paged_attention, mq_paged_attention),
         card)
@@ -4209,6 +4861,17 @@ def main() -> int:
                          paged_attention_plain), card, bench_bf16)
     log(f"  phase 4j: {time.monotonic() - t:.1f} s")
 
+    # Phase 4k: checkpoint loading.
+    log("[4k] checkpoint loading: llama3-8b as an HF model directory, "
+        "loaded here and served by the agent from its command line; "
+        f"qwen2-7b and gemma2-9b at {K_DEPTH} layers "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    k_launches = checkpoint_phase(
+        llama, cfg, params, prompts, shared, sampled_prompt, runs[0][0],
+        split_4f, (paged_attention, mq_paged_attention), card)
+    log(f"  phase 4k: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -4216,11 +4879,13 @@ def main() -> int:
             ("paged_attention", csrc + "paged_attention.cu",
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
-             + h_launches[0] + i_launches[0] + j_launches[0]),
+             + h_launches[0] + i_launches[0] + j_launches[0]
+             + k_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
-             + h_launches[1] + i_launches[1] + j_launches[1]),
+             + h_launches[1] + i_launches[1] + j_launches[1]
+             + k_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
@@ -4247,4 +4912,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-agent"]:
         sys.exit(decode_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--checkpoint-agent"]:
+        sys.exit(checkpoint_agent_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,0 +1,81 @@
+"""The port's ``models/hf_config.py`` against the reference's, on the CPU,
+on the model directories that ``test_hf_parity.make_model_dir`` writes:
+``model_config_from_hf`` field by field for llama, qwen2 and gemma2 (the
+checkpoint's dtype, an override, a bounded context), the refusals of the
+families still to come (ROADMAP queue 1 items 12 and 13) and of an unknown
+``model_type``, and ``load_checkpoint`` through ``loader_for``."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from xllm_service_tpu.models import hf_config as ref_hf
+from xllm_service_tpu_torch.models import hf_config, loader
+from xllm_service_tpu_torch.models.base import ModelConfig
+
+from test_hf_parity import make_model_dir
+from test_torch_loader import assert_trees_equal
+
+
+def _fields_equal(port: ModelConfig, ref) -> None:
+    for f in dataclasses.fields(port):
+        want = getattr(ref, f.name)
+        got = getattr(port, f.name)
+        if f.name == "dtype":
+            assert str(got).rsplit(".", 1)[-1] == jnp.dtype(want).name
+        else:
+            assert got == want, (f.name, got, want)
+
+
+@pytest.mark.parametrize("model_type", ["llama", "qwen2", "gemma2"])
+def test_model_config_from_hf_matches_the_reference(tmp_path, model_type):
+    d = make_model_dir(tmp_path, model_type)
+    _fields_equal(hf_config.model_config_from_hf(d),
+                  ref_hf.model_config_from_hf(d))
+    _fields_equal(hf_config.model_config_from_hf(
+        d, dtype=torch.float32, max_context_len=128),
+        ref_hf.model_config_from_hf(d, dtype=jnp.float32,
+                                    max_context_len=128))
+    cfg = hf_config.model_config_from_hf(d)
+    assert cfg.name == {"gemma2": "gemma"}.get(model_type, model_type)
+    assert cfg.qkv_bias == (model_type == "qwen2")
+    if model_type == "gemma2":
+        assert cfg.tie_embeddings and cfg.sandwich_norms and \
+            cfg.sliding_window_pattern == 2 and cfg.layer_is_local(0)
+
+
+@pytest.mark.parametrize("model_type,item", [
+    ("mixtral", "item 12"), ("deepseek_v2", "item 12"),
+    ("deepseek_v3", "item 12"), ("qwen2_vl", "item 13")])
+def test_families_still_to_come_are_refused(tmp_path, model_type, item):
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": model_type}))
+    with pytest.raises(ValueError, match=f"{model_type}.*{item}"):
+        hf_config.model_config_from_hf(tmp_path)
+    with pytest.raises(ValueError, match="items 12 and 13"):
+        hf_config.loader_for(dataclasses.replace(ModelConfig(),
+                                                 name="mixtral"))
+
+
+def test_unknown_model_type_raises_as_the_reference(tmp_path):
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "mamba"}))
+    with pytest.raises(ValueError, match="model_type 'mamba'"):
+        ref_hf.model_config_from_hf(tmp_path)
+    with pytest.raises(ValueError, match="model_type 'mamba'"):
+        hf_config.model_config_from_hf(tmp_path)
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        hf_config.model_config_from_hf(tmp_path / "none")
+
+
+@pytest.mark.parametrize("model_type", ["llama", "gemma2"])
+def test_load_checkpoint_picks_the_family_loader(tmp_path, model_type):
+    d = make_model_dir(tmp_path, model_type)
+    rcfg = ref_hf.model_config_from_hf(d, dtype=jnp.float32)
+    cfg = hf_config.model_config_from_hf(d, dtype=torch.float32)
+    assert hf_config.loader_for(cfg) is loader.load_hf_llama_safetensors
+    assert_trees_equal(hf_config.load_checkpoint(d, cfg, device="cpu"),
+                       ref_hf.load_checkpoint(d, rcfg))

@@ -34,7 +34,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "rpc.wire", "common.net", "tokenizer.factory",
               "engine.speculative", "benchmarks.spec_bench",
               "rpc.msgpack_lite", "common.topology", "engine.kv_transfer",
-              "benchmarks.pd_handoff_bench"):
+              "benchmarks.pd_handoff_bench", "models.safetensors_io",
+              "models.hf_config", "models.loader", "tokenizer.args",
+              "tokenizer.unicode_re", "tokenizer.tiktoken",
+              "tokenizer.hf_json", "tokenizer.sentencepiece_tok"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -31,7 +31,13 @@ the port lacks is refused with an error that names its ROADMAP item; the
 agent never answers as if it had done work it did not do.
 
 Run: ``python -m xllm_service_tpu_torch.engine.agent --coordination-addr
-host:port --model-config llama3_8b`` (the card unless ``--device cpu``).
+host:port --model-config llama3_8b`` (the card unless ``--device cpu``),
+with random weights from the engine's seed; with ``--checkpoint-path D
+--tokenizer-path D`` it serves a Hugging Face model directory D (its
+``*.safetensors`` read straight onto the card, its ``tokenizer.json``
+read on the standard library), or a native checkpoint
+(``models/loader.py::save_params``). ``--model-config hf`` takes the model
+from D's ``config.json`` (llama, qwen2, gemma2) in its ``torch_dtype``.
 """
 
 from __future__ import annotations
@@ -192,6 +198,9 @@ class AgentConfig:
     # pull side paces to the budget; throughput reports in /stats.
     ici_bytes_per_s: float = 0.0
     dcn_bytes_per_s: float = 0.0
+    # A model directory (tokenizer.json, tiktoken or SentencePiece) or a
+    # tokenizer file; "" = the hermetic byte tokenizer.
+    tokenizer_path: str = ""
 
 
 class _ChoiceAggregator:
@@ -480,7 +489,8 @@ class EngineAgent:
                  params: Optional[dict] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = agent_cfg
-        tokenizer = TokenizerFactory.create_tokenizer()
+        tokenizer = TokenizerFactory.create_tokenizer(
+            agent_cfg.tokenizer_path)
         # The engine first: without a card (and no device named) it raises
         # before anything else is opened.
         self.engine = InferenceEngine(engine_cfg, device=device,
@@ -1275,8 +1285,6 @@ _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--tp": (0, "tensor parallelism, queue 1 item 11"),
     "--device-offset": (0, "multi-device placement, queue 1 item 11"),
     "--dp-size": (1, "dp_size > 1, queue 1 item 3"),
-    "--checkpoint-path": ("", "checkpoint loading, queue 1 item 8"),
-    "--tokenizer-path": ("", "checkpoint loading, queue 1 item 8"),
     "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
                                    "queue 1 item 3"),
 }
@@ -1294,11 +1302,22 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--model-id", default="bench-1b")
     p.add_argument("--model-config", default="bench_1b",
                    choices=["tiny", "bench_1b", "llama3_8b", "gemma_2b",
-                            "gemma_tiny"],
-                   help="config factory in models.base or models.gemma "
-                        "(random weights from the engine's seed)")
+                            "gemma_tiny", "hf"],
+                   help="config factory in models.base or models.gemma, "
+                        "or 'hf': --checkpoint-path's config.json "
+                        "(models/hf_config.py) in its torch_dtype")
     p.add_argument("--quant", default="", choices=["", "int8"],
                    help="weight-only quantization (models/quant.py)")
+    p.add_argument("--checkpoint-path", default="",
+                   help="weights to serve: an HF model directory "
+                        "(*.safetensors, read with --model-config's "
+                        "config) or a native checkpoint "
+                        "(models/loader.py::save_params); '' = random "
+                        "weights from the engine's seed")
+    p.add_argument("--tokenizer-path", default="",
+                   help="tokenizer directory or file (tokenizer.json, "
+                        "tiktoken, SentencePiece); '' = the byte "
+                        "tokenizer")
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16)
@@ -1355,13 +1374,18 @@ def _parser() -> argparse.ArgumentParser:
 def engine_config(args: argparse.Namespace) -> EngineConfig:
     """The engine configuration of parsed command-line ``args``."""
     from ..models import base as model_base
-    from ..models import gemma
+    from ..models import gemma, hf_config
 
-    mcfg = {"tiny": model_base.tiny_config,
-            "bench_1b": model_base.bench_1b_config,
-            "llama3_8b": model_base.llama3_8b_config,
-            "gemma_2b": gemma.gemma_2b_config,
-            "gemma_tiny": gemma.gemma_tiny_config}[args.model_config]()
+    if args.model_config == "hf":
+        mcfg = hf_config.model_config_from_hf(
+            args.checkpoint_path,
+            dtype=hf_config.checkpoint_dtype(args.checkpoint_path))
+    else:
+        mcfg = {"tiny": model_base.tiny_config,
+                "bench_1b": model_base.bench_1b_config,
+                "llama3_8b": model_base.llama3_8b_config,
+                "gemma_2b": gemma.gemma_2b_config,
+                "gemma_tiny": gemma.gemma_tiny_config}[args.model_config]()
     if args.quant:
         mcfg = dataclasses.replace(mcfg, quant=args.quant)
     ecfg = EngineConfig(
@@ -1382,14 +1406,29 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
     return ecfg
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    p = _parser()
-    args = p.parse_args(argv)
-    for flag, (default, item) in _REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            p.error(f"{flag} is not ported yet (ROADMAP {item})")
-    agent = EngineAgent(
-        engine_config(args),
+def checkpoint_params(path: str, mcfg, device=None) -> dict:
+    """The weights under ``path`` for model ``mcfg``, as the reference
+    agent loads them: a directory holding ``*.safetensors`` is an HF model
+    directory (``models/loader.py::load_hf_llama_safetensors``), anything
+    else a native checkpoint (``load_params``). A failed load raises: the
+    agent never falls back to random weights. Under ``--quant int8`` the
+    engine quantizes the loaded tree at start."""
+    from ..models import loader
+
+    if loader.shard_files(path):
+        return loader.load_hf_llama_safetensors(path, mcfg, device=device)
+    return loader.load_params(path, mcfg, device=device)
+
+
+def build_agent(args: argparse.Namespace,
+                coord: Optional[CoordinationClient] = None) -> EngineAgent:
+    """The agent of parsed command-line ``args`` (not started), its
+    weights loaded from ``--checkpoint-path`` when one is given."""
+    ecfg = engine_config(args)
+    params = checkpoint_params(args.checkpoint_path, ecfg.model,
+                               args.device) if args.checkpoint_path else None
+    return EngineAgent(
+        ecfg,
         AgentConfig(host=args.host, port=args.port,
                     coordination_addr=args.coordination_addr,
                     instance_type=InstanceType.parse(args.type),
@@ -1399,8 +1438,20 @@ def main(argv: Optional[list[str]] = None) -> None:
                     slice_id=args.slice_id, topo_host=args.topo_host,
                     topo_chip=args.topo_chip,
                     ici_bytes_per_s=args.ici_bytes_per_s,
-                    dcn_bytes_per_s=args.dcn_bytes_per_s),
-        device=args.device)
+                    dcn_bytes_per_s=args.dcn_bytes_per_s,
+                    tokenizer_path=args.tokenizer_path),
+        coord=coord, params=params, device=args.device)
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    p = _parser()
+    args = p.parse_args(argv)
+    for flag, (default, item) in _REFUSED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            p.error(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.model_config == "hf" and not args.checkpoint_path:
+        p.error("--model-config hf reads --checkpoint-path's config.json")
+    agent = build_agent(args)
     agent.start()
     import signal as _signal
 

@@ -1,0 +1,144 @@
+"""Map a Hugging Face model directory (``config.json``) onto a
+``ModelConfig`` and its loader (port of
+``xllm_service_tpu/models/hf_config.py``, the llama body's families):
+
+    cfg = model_config_from_hf(model_dir)
+    params = load_checkpoint(model_dir, cfg)
+
+``llama``, ``qwen2`` and ``gemma2`` map field for field as in the
+reference. ``mixtral`` and ``deepseek_v2``/``deepseek_v3`` wait for their
+MoE and MLA families (ROADMAP queue 1 item 12), ``qwen2_vl`` for the
+vision families (item 13); any other type raises as the reference's does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Callable, Optional, Union
+
+import torch
+
+from .base import ModelConfig
+
+# model_type -> the ROADMAP item that brings its family.
+_NOT_PORTED = {
+    "mixtral": "queue 1 item 12, MoE and MLA",
+    "deepseek_v2": "queue 1 item 12, MoE and MLA",
+    "deepseek_v3": "queue 1 item 12, MoE and MLA",
+    "qwen2_vl": "queue 1 item 13, multimodal",
+}
+
+
+def _read_config(ckpt_dir: Union[str, Path]) -> dict:
+    p = Path(ckpt_dir) / "config.json"
+    if not p.exists():
+        raise FileNotFoundError(f"no config.json under {ckpt_dir}")
+    return json.loads(p.read_text())
+
+
+def _common(hf: dict) -> dict[str, Any]:
+    heads = hf["num_attention_heads"]
+    return dict(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        ffn_size=hf["intermediate_size"],
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        rms_eps=float(hf.get("rms_norm_eps", 1e-5)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+        max_context_len=int(hf.get("max_position_embeddings", 8192)),
+    )
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def checkpoint_dtype(ckpt_dir: Union[str, Path]) -> torch.dtype:
+    """The dtype a checkpoint directory's config.json publishes
+    (``torch_dtype``), bf16 when it names none."""
+    name = _read_config(ckpt_dir).get("torch_dtype") or "bfloat16"
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"config.json under {ckpt_dir}: torch_dtype "
+                         f"{name!r} is not one of {sorted(_TORCH_DTYPES)}"
+                         ) from None
+
+
+def model_config_from_hf(ckpt_dir: Union[str, Path], *,
+                         dtype: Optional[torch.dtype] = None,
+                         max_context_len: Optional[int] = None
+                         ) -> ModelConfig:
+    """A ModelConfig from an HF checkpoint directory's config.json.
+    ``dtype`` and ``max_context_len`` override the checkpoint's."""
+    hf = _read_config(ckpt_dir)
+    mt = hf.get("model_type", "")
+
+    if mt in ("llama", "qwen2"):
+        kw = _common(hf)
+        kw.update(name="llama" if mt == "llama" else "qwen2",
+                  qkv_bias=(mt == "qwen2"))
+    elif mt == "gemma2":
+        kw = _common(hf)
+        kw.update(
+            name="gemma", act="gelu", embed_scale=True,
+            rms_unit_offset=True, sandwich_norms=True,
+            final_logit_softcap=float(
+                hf.get("final_logit_softcapping") or 0.0),
+            attn_logit_softcap=float(
+                hf.get("attn_logit_softcapping") or 0.0),
+            sliding_window=int(hf.get("sliding_window") or 0),
+            # HF gemma-2 alternates local/global every other layer.
+            sliding_window_pattern=2 if hf.get("sliding_window") else 0,
+            query_pre_attn_scalar=float(
+                hf.get("query_pre_attn_scalar") or 0.0))
+    elif mt in _NOT_PORTED:
+        raise ValueError(
+            f"HF model_type {mt!r} under {ckpt_dir} is not ported yet "
+            f"(ROADMAP {_NOT_PORTED[mt]})")
+    else:
+        raise ValueError(
+            f"unsupported HF model_type {mt!r} under {ckpt_dir} — "
+            f"supported: llama, qwen2, gemma2 (mixtral, deepseek_v2/3 and "
+            f"qwen2_vl wait for ROADMAP queue 1 items 12 and 13)")
+
+    if dtype is not None:
+        kw["dtype"] = dtype
+    cfg = ModelConfig(**kw)
+    if max_context_len is not None:
+        cfg = dataclasses.replace(
+            cfg, max_context_len=min(cfg.max_context_len, max_context_len))
+    return cfg
+
+
+def loader_for(cfg: ModelConfig) -> Callable:
+    """The safetensors loader matching a config built above."""
+    from . import loader as L
+
+    if cfg.name in ("llama", "qwen2", "gemma"):
+        return L.load_hf_llama_safetensors
+    raise ValueError(f"no checkpoint loader for family {cfg.name!r} (the "
+                     "MoE, MLA and vision loaders wait for ROADMAP queue 1 "
+                     "items 12 and 13)")
+
+
+def load_checkpoint(ckpt_dir: Union[str, Path], cfg: ModelConfig,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> dict:
+    """One-call load: the family's loader onto ``device`` (``cuda`` unless
+    named). With ``cfg.quant`` set the tree comes back in its int8 form
+    (``models/quant.py::quantize_tree``, as the engine would make it)."""
+    params = loader_for(cfg)(ckpt_dir, cfg, device=device)
+    if cfg.quant:
+        from .quant import quantize_tree
+
+        if cfg.quant != "int8":
+            raise ValueError(f"unknown quant mode {cfg.quant!r}")
+        params = quantize_tree(params)
+    return params
