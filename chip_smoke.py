@@ -80,8 +80,10 @@ Phases (any failure exits non-zero before the result line):
    with phase 4's engine configuration and weights, behind a stub master
    of the standard library here (it writes its address under
    ``XLLM:SERVICE:MASTER`` in the agent's in-process coordination store and
-   takes ``/rpc/heartbeat`` and ``/rpc/generations`` as the reference master
-   does). Phase 4's eleven requests are posted as enriched JSON dispatches
+   takes ``/rpc/heartbeat`` and ``/rpc/generations`` in msgpack or JSON as
+   the reference master does; it has no ``/rpc/telemetry``, so the agent's
+   default mux mode demotes itself to those routes, which is checked).
+   Phase 4's eleven requests are posted as enriched JSON dispatches
    on one kept-alive connection, in phase 4's order, then an ``n: 2`` seeded request, a logprob request,
    a request cancelled through ``/rpc/cancel`` after its first delta, a
    dispatch past its deadline (504) and an embeddings call; checks the
@@ -145,9 +147,18 @@ Phases (any failure exits non-zero before the result line):
    bit for bit; (d) kernel 4
    once a handoff and kernel 2 on the prefill side, kernel 5 once a
    handoff and kernel 1 on the decode side; (e) the decode agent's
-   heartbeat reports the donated blocks. Then the ``pd_handoff_bench``
-   twin (device, streamed and inline paths at ``bench_1b_config``'s KV
-   shapes, 2048 and 8192 tokens). Handoff ms, the pair's TTFT beside
+   heartbeat reports the donated blocks; (f) every request's trace, under
+   the trace context its dispatch carried: ``engine.prefill`` and
+   ``kv_transfer.offer`` in the prefill agent, ``kv_transfer.pull`` and
+   the injected ``engine.decode`` in the decode agent; (g) one more
+   request sent down the streamed path by a fault rule on the device
+   offer here, its streamed pull failed by a rule in the decode process
+   (``fault`` on the child's standard input): the inline fallback gives
+   phase 4's tokens but at a near-tie, and the prefill agent's
+   ``/admin/flightrecorder/recent`` holds exactly one
+   ``kv_stream_fallback`` bundle with its ``engine`` context. Then the
+   ``pd_handoff_bench`` twin (device, streamed and inline paths at
+   ``bench_1b_config``'s KV shapes, 2048 and 8192 tokens). Handoff ms, the pair's TTFT beside
    phase 4f's and tokens/s are information;
 4j. the llama family's variants at full width and depth, one after the
    other on random weights with drawn norm scales and biases: Gemma-2-9B
@@ -181,6 +192,30 @@ Phases (any failure exits non-zero before the result line):
    exactly. Write and load times and rates, the time to registration,
    the tokenizer's encode rate and the detokeniser's share of the engine
    loop beside phase 4f's split are information;
+4l. the agent at the reference's defaults: one agent with ``dp_size`` 2
+   (both replicas on this card, sharing phase 4's weight tensors, each with
+   its pool and captured steps) in the mux telemetry mode, behind two
+   stub masters A and B of the standard library (both registered as
+   service members, A also the elected master; each takes
+   ``/rpc/telemetry`` frames, relays ``gens`` frames for the other, and
+   answers an ``owner`` hint). Phase 4's eleven requests as msgpack
+   dispatches with trace contexts, their deltas for A and B in turn;
+   checks: the registration (``dp_size`` 2, ``wire_formats`` msgpack and
+   json), every request's deltas, the greedy and sampled tokens equal to
+   phase 4's (as phase 4f's), each request on the
+   replica its first hash block names unless the load guard spilled it
+   (spills counted), the shared-prefix requests' cache hits there through
+   kernel 2, kernel 1 in both replicas' captured steps, beats and pushes
+   only to the rendezvous owner (computed here from blake2b), the traces
+   of every request (``/admin/trace``, ``/admin/trace/recent``), an owner
+   hint adopted for the next beat, the owner stopped while three long
+   requests stream: the successor gets the next beat and the pending
+   deltas within one heartbeat interval plus one resolver window and no
+   request is lost, ``/metrics`` (the reference's families,
+   ``engine_dp_size`` 2, ``engine_generated_tokens_total`` the summed
+   usage) and ``/admin/profile`` (the engine loop's role; the folded text
+   parses back). Tokens/s against phase 4f's, the telemetry counts and
+   the sampler thread's CPU share are information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -193,6 +228,7 @@ import gc
 import json
 import math
 import os
+import re
 import sys
 import threading
 import time
@@ -2143,21 +2179,87 @@ def plain_embedding(params, mcfg, ids, dtype):
 
 
 class StubMaster:
-    """The master's two ingest routes on the standard library:
-    ``/rpc/generations`` (deltas per request, in arrival order) and
-    ``/rpc/heartbeat``, each answered ``{"ok": true, "alive": {...}}``."""
+    """The master's ingest routes on the standard library:
+    ``/rpc/generations`` (deltas per request, in ``delta_seq`` order, a
+    replayed delta dropped as the master drops it) and ``/rpc/heartbeat``,
+    in msgpack (read with the port's ``msgpack_lite``) or JSON, each
+    answered ``{"ok": true, "alive": {...}}``. Without ``mux`` it has no
+    ``/rpc/telemetry`` (404), as a master that predates the multiplexed
+    session: the agent demotes itself to the per-endpoint routes. With
+    ``mux`` it takes the tagged frames there: ``hb`` frames are beats
+    (answered with ``owner``, the one-shot ``hint`` when one is set),
+    ``gens`` frames are delivered to their ``dest``: here, or relayed to
+    ``peer`` (another stub) on its ``/rpc/generations``, with ``dest_ok``
+    per dest. ``close()`` also drops its kept-alive connections, so a
+    stopped stub is gone for the agent as a killed master is."""
 
-    def __init__(self):
+    def __init__(self, mux=False):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from xllm_service_tpu_torch.rpc import msgpack_lite
 
         self.gens: dict[str, list] = {}
         self.first: dict[str, float] = {}
         self.posts = 0
         self.busy = [0, 0.0, 0.0]   # handled POSTs, wall s, thread CPU s
         self.heartbeats: list = []
+        self.beat_times: list = []  # arrival of each beat (any route)
+        self.gens_times: list = []  # arrival of each batch from an agent
+        self.telemetry_posts = 0
+        self.direct_posts = 0       # /rpc/generations from an agent
+        self.relayed_in = 0         # /rpc/generations relayed by the peer
+        self.relayed_out = 0
+        self.mux = mux
+        self.peer = None
+        self.hint = ""
+        self.hinted_at = None       # when the hint went out
+        self.dead = False
         self.lock = threading.Lock()
         self.changed = threading.Condition(self.lock)
+        self.conns: set = set()
         stub = self
+
+        def take_gens(gens, relayed=False):
+            now = time.monotonic()
+            with stub.changed:
+                if not relayed:
+                    stub.gens_times.append(now)
+                for g in gens:
+                    sid = g["service_request_id"]
+                    seen = stub.gens.setdefault(sid, [])
+                    if seen and g["delta_seq"] <= seen[-1]["delta_seq"]:
+                        continue            # a retried delta
+                    stub.first.setdefault(sid, now)
+                    seen.append(g)
+                stub.changed.notify_all()
+
+        def take_beat(beat):
+            with stub.changed:
+                stub.heartbeats.append(beat)
+                stub.beat_times.append(time.monotonic())
+                stub.changed.notify_all()
+
+        def relay(gens):
+            import http.client
+
+            host, _, port = stub.peer.addr.rpartition(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=10)
+            try:
+                conn.request("POST", "/rpc/generations",
+                             body=msgpack_lite.packb({"gens": gens}),
+                             headers={"Content-Type":
+                                      msgpack_lite.CONTENT_TYPE,
+                                      "X-Relayed": "1"})
+                r = conn.getresponse()
+                r.read()
+                ok = r.status == 200
+            except OSError:
+                ok = False
+            finally:
+                conn.close()
+            with stub.lock:
+                stub.relayed_out += 1
+            return ok
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -2165,25 +2267,75 @@ class StubMaster:
             # not wait on Nagle for the ACK of the first.
             disable_nagle_algorithm = True
 
+            def setup(self):
+                super().setup()
+                with stub.lock:
+                    stub.conns.add(self.connection)
+
+            def finish(self):
+                with stub.lock:
+                    stub.conns.discard(self.connection)
+                super().finish()
+
             def do_POST(self):
                 w, c = time.perf_counter(), time.thread_time()
                 n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n))
-                with stub.changed:
-                    if self.path == "/rpc/generations":
+                data = self.rfile.read(n)
+                if stub.dead:
+                    self.close_connection = True
+                    return
+                if "msgpack" in self.headers.get("Content-Type", ""):
+                    body = msgpack_lite.unpackb(data)
+                else:
+                    body = json.loads(data)
+                status, reply = 200, {"ok": True, "alive": {}}
+                if self.path == "/rpc/generations":
+                    relayed = bool(self.headers.get("X-Relayed"))
+                    with stub.lock:
                         stub.posts += 1
-                        for g in body["gens"]:
-                            sid = g["service_request_id"]
-                            stub.first.setdefault(sid, time.monotonic())
-                            stub.gens.setdefault(sid, []).append(g)
-                    else:
-                        stub.heartbeats.append(body)
-                    stub.changed.notify_all()
-                data = json.dumps({"ok": True, "alive": {}}).encode()
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(data)))
+                        if relayed:
+                            stub.relayed_in += 1
+                        else:
+                            stub.direct_posts += 1
+                    take_gens(body["gens"], relayed)
+                elif self.path == "/rpc/heartbeat":
+                    take_beat(body)
+                elif self.path == "/rpc/telemetry" and not stub.mux:
+                    with stub.lock:
+                        stub.telemetry_posts += 1
+                    status, reply = 404, {"error": "no /rpc/telemetry"}
+                elif self.path == "/rpc/telemetry":
+                    dest_ok = {}
+                    with stub.lock:
+                        stub.telemetry_posts += 1
+                    for fr in body["frames"]:
+                        if fr["t"] == "hb":
+                            take_beat(fr["d"])
+                            with stub.changed:
+                                reply["owner"] = stub.hint or stub.addr
+                                if stub.hint:
+                                    stub.hint = ""
+                                    stub.hinted_at = time.monotonic()
+                                stub.changed.notify_all()
+                        elif fr["dest"] == stub.addr:
+                            with stub.lock:
+                                stub.posts += 1
+                            take_gens(fr["d"]["gens"])
+                            dest_ok[fr["dest"]] = True
+                        else:
+                            dest_ok[fr["dest"]] = \
+                                stub.peer is not None and \
+                                fr["dest"] == stub.peer.addr and \
+                                relay(fr["d"]["gens"])
+                    reply["dest_ok"] = dest_ok
+                else:
+                    status, reply = 404, {"error": f"no route {self.path}"}
+                out = json.dumps(reply).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
                 self.end_headers()
-                self.wfile.write(data)
+                self.wfile.write(out)
                 with stub.lock:
                     stub.busy[0] += 1
                     stub.busy[1] += time.perf_counter() - w
@@ -2206,23 +2358,41 @@ class StubMaster:
         return any(g["finished"] for g in self.gens.get(sid, ()))
 
     def close(self):
+        import socket
+
+        self.dead = True
         self.server.shutdown()
         self.server.server_close()
+        with self.lock:
+            conns = list(self.conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
 
 class Poster:
-    """POSTs JSON to one address on one kept-alive connection, as the
-    master's client does: ``post(path, obj)`` -> (status, parsed reply)."""
+    """POSTs to one address on one kept-alive connection, as the master's
+    client does, in JSON or (``packed``) msgpack: ``post(path, obj)`` ->
+    (status, parsed reply)."""
 
-    def __init__(self, addr):
+    def __init__(self, addr, packed=False):
         import http.client
 
         host, _, port = addr.rpartition(":")
         self.conn = http.client.HTTPConnection(host, int(port), timeout=300)
+        self.packed = packed
 
     def __call__(self, path, obj):
-        self.conn.request("POST", path, body=json.dumps(obj).encode(),
-                          headers={"Content-Type": "application/json"})
+        from xllm_service_tpu_torch.rpc import msgpack_lite
+
+        if self.packed:
+            body, ctype = msgpack_lite.packb(obj), msgpack_lite.CONTENT_TYPE
+        else:
+            body, ctype = json.dumps(obj).encode(), "application/json"
+        self.conn.request("POST", path, body=body,
+                          headers={"Content-Type": ctype})
         r = self.conn.getresponse()
         return r.status, json.loads(r.read())
 
@@ -2257,8 +2427,8 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
     request, launches, tok/s, sorted TTFTs, ``StepClock`` summary); the
     first is the cold one. Returns the launches of kernels 1 and 2 in this
     phase, the client-side TTFT (dispatch to first delta at the stub
-    master, ms) of phase 4's requests, and the host split of their
-    window (``StepClock``)."""
+    master, ms) of phase 4's requests, the host split of their window
+    (``StepClock``) and its generated tokens/s."""
     from xllm_service_tpu_torch.common.types import InstanceMetaInfo, now_ms
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
@@ -2301,7 +2471,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
     try:
         meta = InstanceMetaInfo.from_json(
             store.get(instance_key("MIX", agent.name)))
-        assert meta.wire_formats == ["json"] and \
+        assert meta.wire_formats == ["msgpack", "json"] and \
             (meta.num_layers, meta.num_kv_heads, meta.head_dim) == (
                 mcfg.num_layers, mcfg.num_kv_heads, mcfg.head_dim), meta
         log(f"  registered {instance_key('MIX', agent.name)}: wire "
@@ -2415,6 +2585,14 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
         beats = list(master.heartbeats)
         assert all("load_metrics" in h and "latency_metrics" in h
                    and h["name"] == agent.name for h in beats)
+        # The stub has no /rpc/telemetry: the agent's default mux mode
+        # demoted itself to the per-endpoint routes, in msgpack.
+        tel = agent.telemetry_stats()
+        assert tel["mode"] == "master" and master.telemetry_posts >= 1 \
+            and master.direct_posts == master.posts, tel
+        log(f"  telemetry: mux demoted to the elected-master funnel by the "
+            f"stub's 404 ({master.telemetry_posts} /rpc/telemetry POSTs); "
+            f"{tel}")
         stats = agent.engine.stats()
         launches = (kernels[0].launches, kernels[1].launches)
         check_replays(stats, "4f")
@@ -2436,7 +2614,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
             f" ms, {sum(len(h['kv_cache_event']['stored']) for h in beats)} "
             f"stored blocks (information only; {card})")
         return launches, {n: (master.first[n] - sent[n]) * 1e3
-                          for n in names}, split
+                          for n in names}, split, tps
     finally:
         post.close()
         agent.stop()
@@ -3336,10 +3514,10 @@ PD_PROBE = "s0"      # the request whose pages phase 4i holds bit for bit
 
 class CoordServer:
     """The newline-JSON protocol of the coordination server, as far as the
-    port's TCP client speaks it (put with a lease, refresh, get, rm,
-    ping), over a port ``MemoryStore`` on the standard library: phase 4i's
-    decode agent registers here from its own process and finds the stub
-    master's address here."""
+    port's TCP client speaks it (put with a lease, refresh, get,
+    get_prefix, rm, ping), over a port ``MemoryStore`` on the standard
+    library: phase 4i's decode agent registers here from its own process
+    and finds the stub master's address here."""
 
     def __init__(self, store):
         import socketserver
@@ -3356,6 +3534,8 @@ class CoordServer:
                         out["ok"] = store.refresh(key, req.get("ttl") or 0)
                     elif op == "get":
                         out["value"] = store.get(key)
+                    elif op == "get_prefix":
+                        out["kvs"] = store.get_prefix(req.get("prefix", ""))
                     elif op == "rm":
                         store.rm(key)
                     elif op != "ping":
@@ -3385,12 +3565,14 @@ def decode_agent_child(argv) -> int:
     reads: after the install of request SID, a digest of its pages read
     through the plain gather; and, for each line on standard input, one
     line ``REPORT {...}`` on standard output with this process's kernel
-    launch counts and the digests. End of input stops the agent (SIGTERM:
-    its drain)."""
+    launch counts and the digests. A line ``fault {...}`` first adds that
+    rule to this process's fault plane. End of input stops the agent
+    (SIGTERM: its drain)."""
     import hashlib
     import logging
     import signal
 
+    from xllm_service_tpu_torch.common.faults import FAULTS
     from xllm_service_tpu_torch.engine import agent as agent_mod
     from xllm_service_tpu_torch.engine import engine as engine_mod
     from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
@@ -3417,7 +3599,9 @@ def decode_agent_child(argv) -> int:
     engine_mod.InferenceEngine._dispatch_injected_install = probed_install
 
     def reports():
-        for _ in sys.stdin:
+        for line in sys.stdin:
+            if line.startswith("fault "):
+                FAULTS.add(**json.loads(line[6:]))
             print("REPORT " + json.dumps({"launches": {
                 "paged_attention": paged_attention.launches,
                 "mq_paged_attention": mq_paged_attention.launches,
@@ -3454,12 +3638,21 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
     phase 4's engine shape), both behind the stub master, which links them
     both ways and dispatches each request to the prefill agent with
     ``routing.decode_name``. ``want`` = phase 4's tokens per request,
-    ``mix_ttft`` = phase 4f's client-side TTFT per request. Returns the
-    launches of kernels 1, 2, 4 and 5 in this phase (both processes)."""
+    ``mix_ttft`` = phase 4f's client-side TTFT per request. Every
+    dispatch carries a trace context. After the checks of the device
+    path, one more request is sent down the streamed path by a fault rule
+    on the prefill side's device offer, and its streamed pull is failed
+    by a rule in the decode process: the handoff falls back inline.
+    Returns the launches of kernels 1, 2, 4 and 5 in this phase (both
+    processes)."""
     import dataclasses
     import hashlib
     import subprocess
     import types
+    import uuid
+
+    from xllm_service_tpu_torch.common.faults import FAULTS
+    from xllm_service_tpu_torch.engine.kv_transfer import transfer_uuid
 
     from xllm_service_tpu_torch.common.net import pick_free_port
     from xllm_service_tpu_torch.common.types import (
@@ -3502,8 +3695,8 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         with open(log_path) as f:
             return "".join(f.readlines()[-30:])
 
-    def report():
-        child.stdin.write("report\n")
+    def report(cmd="report"):
+        child.stdin.write(cmd + "\n")
         child.stdin.flush()
         while True:
             line = child.stdout.readline()
@@ -3540,8 +3733,8 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         offered: dict[str, str] = {}
         offer = pre.kv_transfer.offer
 
-        def probed_offer(sid, blob, incarnation="", ready=None):
-            desc = offer(sid, blob, incarnation, ready=ready)
+        def probed_offer(sid, blob, incarnation="", ready=None, ctx=None):
+            desc = offer(sid, blob, incarnation, ready=ready, ctx=ctx)
             if sid == PD_PROBE:      # the extract has run (offer waited)
                 offered[sid] = hashlib.blake2b(
                     tensor_bytes(blob), digest_size=16).hexdigest()
@@ -3569,12 +3762,15 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
                     ignore_eos=True)
         sent: dict[str, float] = {}
+        ctxs: dict[str, dict] = {}
 
         def dispatch(sid, toks, **sp):
             sent[sid] = time.monotonic()
+            ctxs[sid] = {"trace_id": uuid.uuid4().hex,
+                         "span_id": uuid.uuid4().hex[:16]}
             status, reply = post_pre("/v1/completions", dict(
                 service_request_id=sid, request_id=sid, token_ids=toks,
-                source_service_addr=master.addr,
+                source_service_addr=master.addr, trace_context=ctxs[sid],
                 routing={"decode_name": dec_name}, **sp))
             assert status == 200, reply
 
@@ -3678,6 +3874,83 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
             f"phase 4f MIX p50 {mx[len(mx) // 2]:.1f} max {mx[-1]:.1f}; "
             f"{tps:.1f} generated tok/s through the pair (information only; "
             f"{card})")
+
+        # (f) The spans of every handoff under its dispatched trace: the
+        # prefill stage and the device offer here, the device pull and
+        # the injected decode stage in the decode process.
+        def spans_of(addr, sid):
+            status, body = http_get(addr, f"/admin/trace?request_id={sid}")
+            assert status == 200, (addr, sid, body)
+            tid = ctxs[sid]["trace_id"]
+            assert body["trace_id"] == tid and all(
+                s_["trace_id"] == tid for s_ in body["spans"]), body
+            return {(s_["point"], s_["attrs"].get("path")): s_
+                    for s_ in body["spans"]}
+
+        for nm in names:
+            mine_, theirs = spans_of(pre.name, nm), spans_of(dec_name, nm)
+            root = ctxs[nm]["span_id"]
+            assert mine_[("engine.prefill", None)]["parent_span_id"] == root
+            assert ("kv_transfer.offer", "device") in mine_, sorted(mine_)
+            assert ("kv_transfer.pull", "device") in theirs, sorted(theirs)
+            dspan = theirs[("engine.decode", None)]
+            assert dspan["parent_span_id"] == root and \
+                dspan["attrs"]["injected"] is True
+        log(f"  (f) {n} traces: engine.prefill and kv_transfer.offer (device) "
+            f"in the prefill agent, kv_transfer.pull (device) and the "
+            f"injected engine.decode in the decode agent, each under its "
+            f"dispatched trace id and parented on the carried span")
+
+        # (g) A streamed handoff whose pull fails falls back inline: the
+        # device offer of "fb" is failed here (so it streams), its
+        # streamed pull in the decode process.
+        fb = "fb"
+        FAULTS.add("kv_transfer.offer", match={"sid": fb}, max_fires=1)
+        report("fault " + json.dumps({
+            "point": "kv_transfer.pull", "max_fires": 1, "match": {
+                "uuid": transfer_uuid(fb, "stream:" + pre.incarnation_id)}}))
+        sent0 = (pre.kv_device_sent, pre.kv_host_sent, pre.kv_stream_sent)
+        recv0 = http_get(dec_name, "/stats")[1]["kv_transfer"]
+        dispatch(fb, prompts[0], **greedy)
+        master.wait(lambda: master.finished(fb), "the fallback request",
+                    timeout=300)
+        final = report()
+        fb_toks = check_deltas(fb, master.gens[fb], dec)[0]
+        compare_streams(llama, cfg, params, {fb: prompts[0]}, {fb: fb_toks},
+                        {fb: want["g0"]}, "4i inline fallback vs phase 4")
+        recv1 = http_get(dec_name, "/stats")[1]["kv_transfer"]
+        assert (pre.kv_device_sent, pre.kv_host_sent, pre.kv_stream_sent) \
+            == (sent0[0], sent0[1] + 1, sent0[2]), "the fallback's path"
+        assert (recv1["host_received"] - recv0["host_received"],
+                recv1["stream_received"] - recv0["stream_received"],
+                recv1["device_received"] - recv0["device_received"]) == \
+            (1, 0, 0), (recv0, recv1)
+        status, fr = http_get(
+            pre.name, "/admin/flightrecorder/recent?kind=kv_stream_fallback")
+        assert status == 200 and fr["num_records"] == 1, fr
+        rec = fr["records"][0]
+        assert rec["request_id"] == fb and \
+            rec["trace_id"] == ctxs[fb]["trace_id"] and \
+            rec["engine"]["instance"] == pre.name and \
+            "kv_transfer" in rec["engine"], rec
+        mine_, theirs = spans_of(pre.name, fb), spans_of(dec_name, fb)
+        pull = theirs[("kv_transfer.pull", "stream")]
+        assert pull["status"].startswith("ERROR") and \
+            pull["events"][0]["name"] == "fault", pull
+        assert mine_[("kv_transfer.offer", "device")]["status"] \
+            .startswith("ERROR")
+        assert {("kv_transfer.offer", "stream"),
+                ("kv_transfer.offer", "host")} <= set(mine_)
+        log(f"  (g) the fault rules sent {fb} down the streamed path and "
+            f"failed its pull: inline fallback (host_sent +1, stream_sent "
+            f"+0), its 64 tokens equal phase 4's g0 but at a near-tie, one "
+            f"kv_stream_fallback record with the engine context "
+            f"({rec['engine']['stats']}), the stream pull span ERROR with "
+            f"its fault event, the offer spans of the three paths")
+        dl = {k: final["launches"][k] - before[k] for k in before}
+        mine = (page_dma.gather_kv_pages.launches,
+                mq_paged_attention.launches,
+                page_dma.scatter_kv_pages.launches)
         return (dl["paged_attention"], mine[1] + dl["mq_paged_attention"],
                 mine[0] + dl["gather_kv_pages"],
                 mine[2] + dl["scatter_kv_pages"])
@@ -3685,6 +3958,7 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         log(f"  the decode agent's log, last lines:\n{child_log()}")
         raise
     finally:
+        FAULTS.clear()
         if child.poll() is None:
             child.stdin.close()
             try:
@@ -4637,6 +4911,389 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
     return total
 
 
+# --------------------------------------------------------------- phase 4l
+# The reference agent's /metrics families with their types (its
+# ``_h_metrics``), less the KV-tier, stream-link and PD-peer rows, which a
+# run without tiers and links does not render.
+METRIC_FAMILIES = {
+    "engine_waiting_requests": "gauge", "engine_running_requests": "gauge",
+    "engine_kv_usage_perc": "gauge", "engine_cached_prefix_blocks": "gauge",
+    "engine_generated_tokens_total": "counter",
+    "engine_preemptions_total": "counter",
+    "engine_recent_max_ttft_milliseconds": "gauge",
+    "engine_recent_max_tbt_milliseconds": "gauge",
+    "engine_dp_size": "gauge", "engine_sarathi_rides_total": "counter",
+    "engine_telemetry_session_hosts": "gauge",
+    "engine_telemetry_connections_created": "counter",
+    "engine_telemetry_mux_sends_total": "counter",
+    "engine_telemetry_direct_sends_total": "counter",
+    "engine_ttft_span_p50_milliseconds": "gauge",
+    "engine_heartbeats_total": "counter",
+}
+RESOLVER_WINDOW_S = 2.0   # the agent's owner cache (TelemetryOwnerResolver)
+
+
+def rendezvous_owner(members, name):
+    """The telemetry owner of instance ``name`` over ``members``, computed
+    here from the shard map's definition: the highest blake2b-8 score of
+    ``<member>|hb|<name>`` (big-endian), the first on a tie."""
+    import hashlib
+
+    best, best_score = "", -1
+    for m in members:
+        score = int.from_bytes(hashlib.blake2b(
+            f"{m}|hb|{name}".encode(), digest_size=8).digest(), "big")
+        if score > best_score:
+            best, best_score = m, score
+    return best
+
+
+def http_text(addr, path):
+    """GET ``path``: (status, body text, content type)."""
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode(), r.getheader("Content-Type", "")
+    finally:
+        conn.close()
+
+
+def thread_cpu_s(thread) -> float:
+    return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+
+
+def dp_mux_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
+                 tps_4f, kernels, card):
+    """Phase 4l: the agent at the reference's defaults on the card. One
+    agent with ``dp_size`` 2 (both replicas on this card, sharing the
+    weights) in the mux telemetry mode behind two stub masters A and B
+    (both under ``XLLM:SERVICE:<addr>``, A also the elected master). Phase
+    4's eleven requests go in as msgpack dispatches with trace contexts,
+    their deltas destined for A and B in turn. Returns the launches of
+    kernels 1 and 2 in this phase."""
+    import uuid
+
+    from xllm_service_tpu_torch.common.types import InstanceMetaInfo
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.profiling.sampler import (
+        PROFILER,
+        parse_folded,
+    )
+    from xllm_service_tpu_torch.rpc import (
+        MASTER_KEY,
+        SERVICE_KEY_PREFIX,
+        instance_key,
+    )
+
+    paged_attention, mq_paged_attention = kernels
+    hb_s = 1.0
+    store = MemoryStore()
+    stubs = {}
+    for _ in range(2):
+        stub = StubMaster(mux=True)
+        stubs[stub.addr] = stub
+    a, b = stubs.values()
+    a.peer, b.peer = b, a
+    coord = InMemoryCoordination(store)
+    for addr in stubs:
+        coord.set(SERVICE_KEY_PREFIX + addr, "{}")
+    coord.set(MASTER_KEY, a.addr)
+    agent = post = None
+    try:
+        agent = EngineAgent(cfg, AgentConfig(
+            model_id="llama3-8b", heartbeat_interval_s=hb_s, dp_size=2,
+            telemetry_mode="mux"), coord=InMemoryCoordination(store),
+            params=params, device="cuda")
+        owner = stubs[rendezvous_owner(list(stubs), agent.name)]
+        other = b if owner is a else a
+        e0, e1 = agent.engines
+        assert e1.params["embed"]["embedding"] is \
+            e0.params["embed"]["embedding"], "replica 1 copied the weights"
+        log(f"  {agent.name}: replicas on {e0.device} and {e1.device}, the "
+            f"weights shared ({torch.cuda.memory_allocated() / 2**30:.1f} "
+            f"GiB allocated with both pools); telemetry owner "
+            f"{owner.addr} ({'A' if owner is a else 'B'}) of A {a.addr}, B "
+            f"{b.addr}")
+        # Which replica each request lands on, and the depths the dispatch
+        # saw.
+        served: dict[str, int] = {}
+        for i, eng in enumerate(agent.engines):
+            def probed_submit(req, i=i, submit=eng.submit):
+                served.setdefault(req.service_request_id, i)
+                submit(req)
+            eng.submit = probed_submit
+        picks: list = []
+        pick = agent._pick_engine
+
+        def probed_pick(token_ids):
+            depths = [sum(e.stats()[k] for k in ("waiting", "running"))
+                      for e in agent.engines]
+            eng = pick(token_ids)
+            picks.append((token_ids, depths, agent.engines.index(eng)))
+            return eng
+
+        agent._pick_engine = probed_pick
+        reset_counts()
+        agent.start()
+        meta = InstanceMetaInfo.from_json(
+            store.get(instance_key("MIX", agent.name)))
+        assert meta.dp_size == 2 and meta.wire_formats == \
+            ["msgpack", "json"], meta
+        sampler = PROFILER._thread
+        post = Poster(agent.name, packed=True)
+        greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+        samp = dict(max_tokens=64, temperature=0.8, top_p=0.9, seed=1234,
+                    ignore_eos=True)
+        ctxs: dict[str, dict] = {}
+        dests: dict[str, StubMaster] = {}
+
+        def dispatch(sid, toks, dest, **sp):
+            ctxs[sid] = {"trace_id": uuid.uuid4().hex,
+                         "span_id": uuid.uuid4().hex[:16]}
+            dests[sid] = dest
+            status, reply = post("/v1/completions", dict(
+                service_request_id=sid, request_id=sid, token_ids=toks,
+                source_service_addr=dest.addr, trace_context=ctxs[sid],
+                **sp))
+            assert status == 200, reply
+
+        def finished(sid):
+            return dests[sid].finished(sid)
+
+        def wait_all(sids, what, timeout=600.0):
+            deadline = time.monotonic() + timeout
+            while not all(map(finished, sids)):
+                assert time.monotonic() < deadline, f"timed out: {what}"
+                time.sleep(0.01)
+
+        names = [f"g{i}" for i in range(len(prompts))] + ["sampled"] + \
+            [f"s{j}" for j in range(len(shared))]
+        order = [a, b]
+        t0 = time.monotonic()
+        cpu0 = thread_cpu_s(sampler)
+        for i, p in enumerate(prompts):
+            dispatch(f"g{i}", p, order[i % 2], **greedy)
+        dispatch("sampled", sampled_prompt, order[len(prompts) % 2], **samp)
+        deadline = time.monotonic() + 600
+        while "g0" not in dests["g0"].first:
+            assert time.monotonic() < deadline, "request 0's first delta"
+            time.sleep(0.005)
+        for j, p in enumerate(shared):
+            dispatch(f"s{j}", p, order[j % 2], **greedy)
+        wait_all(names, "phase 4's requests through the two replicas")
+        wall = time.monotonic() - t0
+        sampler_share = (thread_cpu_s(sampler) - cpu0) / wall
+        toks = {n: check_deltas(n, dests[n].gens[n], agent)[0]
+                for n in names}
+        same = [n for n in names if toks[n] == want[n]]
+        log(f"  phase 4's 11 requests as msgpack dispatches through the two "
+            f"replicas: {len(same)}/{len(names)} with phase 4's tokens")
+        if len(same) != len(names):
+            # Where they part, and whether at a near-tie (information for
+            # the failure below).
+            ctx = {f"g{i}": p for i, p in enumerate(prompts)}
+            ctx.update({f"s{j}": p for j, p in enumerate(shared)})
+            try:
+                compare_streams(llama, cfg, params, ctx,
+                                {n: toks[n] for n in ctx},
+                                {n: want[n] for n in ctx}, "4l")
+            except AssertionError as e:
+                log(f"  4l: {e}")
+        assert len(same) == len(names), \
+            f"tokens differ from phase 4's: {sorted(set(names) - set(same))}"
+        tps = sum(map(len, toks.values())) / wall
+
+        # Placement: the replica hash(tuple(ids[:block])) % 2 names, unless
+        # the load guard spilled the request.
+        block, B = cfg.hash_block_size, cfg.max_batch_size
+        spilled = []
+        for ids, depths, chosen in picks:
+            affine = hash(tuple(ids[:block])) % 2
+            if chosen != affine:
+                assert depths[affine] > min(depths) + B, \
+                    f"a spill without the guard: depths {depths}"
+                spilled.append(depths)
+        placed = {n: served[n] for n in names}
+        hit = agent.engines[placed["s0"]].stats()
+        assert placed["s0"] == placed["s1"] == placed["g0"] or spilled, \
+            placed
+        assert hit["prefix_hits"] >= 2 and \
+            hit["prefix_hit_tokens"] >= 2 * 512, hit
+        launches = (paged_attention.launches, mq_paged_attention.launches)
+        assert launches[0] > 0 and launches[1] > 0, launches
+        for i, eng in enumerate(agent.engines):
+            check_replays(eng.stats(), f"4l replica {i}")
+            assert any(fn is paged_attention and n > 0
+                       for _, deltas in eng._graphs._graphs.values()
+                       for fn, n in deltas), f"replica {i}: no kernel 1"
+        log(f"  placement {placed} (replica 0 {sum(v == 0 for v in placed.values())}, "
+            f"replica 1 {sum(v == 1 for v in placed.values())}), "
+            f"{len(spilled)} spilled by the load guard; the shared-prefix "
+            f"requests hit replica {placed['s0']}'s cache ({hit['prefix_hits']} "
+            f"hits, {hit['prefix_hit_tokens']} tokens) through kernel 2; "
+            f"launches decode/mq {launches}, kernel 1 in both replicas' "
+            f"captured steps")
+
+        # Telemetry: beats and pushes only to the owner; the other stub
+        # gets its requests' deltas by the owner's relay.
+        tel = agent.telemetry_stats()
+        assert tel["mode"] == "mux" and tel["owner"] == owner.addr and \
+            tel["direct_sends"] == 0 and tel["mux_sends"] > 0 and \
+            tel["hosts"] == 1, tel
+        assert not other.heartbeats and other.telemetry_posts == 0 and \
+            other.direct_posts == 0 and other.relayed_in > 0, \
+            (other.telemetry_posts, other.direct_posts, other.relayed_in)
+        assert owner.heartbeats and owner.direct_posts == 0 and \
+            owner.relayed_out == other.relayed_in
+        log(f"  telemetry: {tel['mux_sends']} mux sends, "
+            f"{tel['direct_sends']} direct; beats A {len(a.heartbeats)} B "
+            f"{len(b.heartbeats)}; /rpc/telemetry POSTs owner "
+            f"{owner.telemetry_posts} other {other.telemetry_posts}; "
+            f"relayed to the other {other.relayed_in}; connections created "
+            f"{tel['connections_created']} to {tel['hosts']} host")
+
+        # The traces: each request's stage spans under its dispatched
+        # context; the recent list holds them all.
+        for n in names:
+            status, body = http_get(agent.name,
+                                    f"/admin/trace?request_id={n}")
+            assert status == 200, body
+            spans = {s_["point"]: s_ for s_ in body["spans"]}
+            for point in ("engine.prefill", "engine.decode"):
+                sp = spans[point]
+                assert sp["trace_id"] == ctxs[n]["trace_id"] and \
+                    sp["parent_span_id"] == ctxs[n]["span_id"] and \
+                    sp["instance"] == agent.name and sp["end_ms"], sp
+        status, recent = http_get(agent.name, "/admin/trace/recent?limit=64")
+        listed = {r["trace_id"] for r in recent["traces"]}
+        assert status == 200 and {c["trace_id"] for c in ctxs.values()} \
+            <= listed, recent
+        log(f"  traces: engine.prefill and engine.decode of all "
+            f"{len(names)} requests under their dispatched trace ids, "
+            f"parented on the carried spans; /admin/trace/recent lists "
+            f"{len(listed)} traces")
+
+        # The owner hint: the owner answers one beat naming the other
+        # stub, which takes the next beat; then the beats come back.
+        with owner.lock:
+            owner.hint = other.addr
+            n_other = len(other.heartbeats)
+        owner.wait(lambda: owner.hinted_at is not None, "the hinted beat",
+                   timeout=10)
+        other.wait(lambda: len(other.heartbeats) > n_other,
+                   "a beat at the hinted master", timeout=10)
+        dt_hint = other.beat_times[n_other] - owner.hinted_at
+        assert dt_hint <= hb_s + 0.5, dt_hint
+        n_owner = len(owner.heartbeats)
+        owner.wait(lambda: len(owner.heartbeats) > n_owner,
+                   "the beats back at the owner",
+                   timeout=RESOLVER_WINDOW_S + 2 * hb_s + 1)
+        log(f"  owner hint adopted: the next beat went to the other stub "
+            f"{dt_hint * 1e3:.0f} ms after the hinted reply; the beats were "
+            f"back at the owner after the pin's window")
+
+        # Owner death: three long requests whose deltas go to the other
+        # stub (by the owner's relay); the owner stops mid-stream.
+        rng = np.random.default_rng(4)
+        longs = [f"long{i}" for i in range(3)]
+        for sid in longs:
+            dispatch(sid, rng.integers(3, cfg.model.vocab_size,
+                                       size=96).tolist(), other,
+                     max_tokens=384, temperature=0.0, ignore_eos=True)
+        other.wait(lambda: all(len(other.gens.get(s_, ())) >= 2
+                               for s_ in longs), "the long requests' deltas")
+        n_beats, n_gens = len(other.beat_times), len(other.gens_times)
+        owner.close()
+        t_kill = time.monotonic()
+        coord.rm(SERVICE_KEY_PREFIX + owner.addr)   # its lease lapses
+        coord.set(MASTER_KEY, other.addr)
+        other.wait(lambda: len(other.beat_times) > n_beats,
+                   "a beat at the successor", timeout=30)
+        other.wait(lambda: len(other.gens_times) > n_gens,
+                   "pending deltas at the successor", timeout=30)
+        dt_beat = other.beat_times[n_beats] - t_kill
+        dt_gens = other.gens_times[n_gens] - t_kill
+        assert dt_beat <= hb_s + RESOLVER_WINDOW_S and \
+            dt_gens <= hb_s + RESOLVER_WINDOW_S, (dt_beat, dt_gens)
+        wait_all(longs, "the long requests after the owner's death")
+        long_toks = {s_: check_deltas(s_, other.gens[s_], agent)[0]
+                     for s_ in longs}
+        assert all(len(t_) == 384 for t_ in long_toks.values())
+        tel2 = agent.telemetry_stats()
+        assert tel2["owner"] == other.addr and tel2["direct_sends"] == 0
+        log(f"  owner stopped mid-stream: the successor had the next beat "
+            f"after {dt_beat * 1e3:.0f} ms and the pending deltas after "
+            f"{dt_gens * 1e3:.0f} ms (bound {hb_s + RESOLVER_WINDOW_S:.1f} "
+            f"s: one heartbeat interval plus one resolver window); all 3 "
+            f"long requests finished with 384 tokens, delta_seq unbroken")
+
+        # /metrics: Prometheus text with the reference's families.
+        status, text, ctype = http_text(agent.name, "/metrics")
+        assert status == 200 and ctype.startswith("text/plain"), ctype
+        types = {}
+        values = {}
+        for line in text.splitlines():
+            if line.startswith("# TYPE "):
+                _, _, fam, kind = line.split()
+                types[fam] = kind
+                continue
+            name_, value = line.rsplit(" ", 1)
+            assert re.fullmatch(r'[a-z0-9_]+(\{[a-z_]+="[^"]*"'
+                                r'(,[a-z_]+="[^"]*")*\})?', name_), line
+            values[name_] = float(value)
+        assert types == METRIC_FAMILIES, sorted(set(types) ^
+                                                set(METRIC_FAMILIES))
+        usage = sum(g["usage"]["num_generated_tokens"]
+                    for sid, st in dests.items()
+                    for g in st.gens[sid] if g["finished"])
+        assert values["engine_dp_size"] == 2 and \
+            values["engine_generated_tokens_total"] == usage, \
+            (values["engine_generated_tokens_total"], usage)
+        log(f"  /metrics: {len(types)} families, the reference's; "
+            f"engine_dp_size 2, engine_generated_tokens_total {usage:.0f} = "
+            f"the summed usage")
+
+        # The profiler: the engine loop's role, and the folded text parses.
+        status, prof = http_get(agent.name, "/admin/profile")
+        assert status == 200 and prof["roles"].get(
+            "engine-pump", {}).get("samples", 0) > 0, sorted(prof["roles"])
+        status, folded, _ = http_text(agent.name,
+                                      "/admin/profile?format=folded")
+        counts = parse_folded(folded)
+        assert status == 200 and any(k[0] == "engine-pump" for k in counts), \
+            sorted({k[0] for k in counts})
+        log(f"  /admin/profile: {prof['samples']} samples over "
+            f"{prof['ticks']} ticks, engine-pump "
+            f"{prof['roles']['engine-pump']['samples']}, roles "
+            f"{sorted(prof['roles'])}; the folded text parses back "
+            f"({len(counts)} stacks)")
+        log(f"  {tps:.1f} generated tok/s over phase 4's requests with two "
+            f"replicas time-sharing the card, against {tps_4f:.1f} through "
+            f"phase 4f's one; the sampler thread's CPU {sampler_share:.4f} "
+            f"of the window's wall (information only; {card})")
+        return paged_attention.launches, mq_paged_attention.launches
+    finally:
+        if post is not None:
+            post.close()
+        if agent is not None:
+            agent.stop()
+        for stub in stubs.values():
+            stub.close()
+        coord.close()
+        store.close()
+        del agent
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4805,7 +5462,7 @@ def main() -> int:
         f"master ({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
         "before: the weights alone)")
     t = time.monotonic()
-    agent_launches, mix_ttft, split_4f = agent_phase(
+    agent_launches, mix_ttft, split_4f, tps_4f = agent_phase(
         cfg, params, prompts, shared, sampled_prompt,
         runs, (paged_attention, mq_paged_attention),
         card)
@@ -4872,6 +5529,17 @@ def main() -> int:
         split_4f, (paged_attention, mq_paged_attention), card)
     log(f"  phase 4k: {time.monotonic() - t:.1f} s")
 
+    # Phase 4l: the agent at the reference's defaults.
+    log("[4l] the agent at the reference's defaults: dp_size 2 on this "
+        "card behind two stub masters, mux telemetry, msgpack dispatches, "
+        "/metrics, traces, the profiler, an owner's death "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    l_launches = dp_mux_phase(cfg, params, llama, prompts, shared,
+                              sampled_prompt, runs[0][0], tps_4f,
+                              (paged_attention, mq_paged_attention), card)
+    log(f"  phase 4l: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -4880,12 +5548,12 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
-             + k_launches[0]),
+             + k_launches[0] + l_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
-             + k_launches[1]),
+             + k_launches[1] + l_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

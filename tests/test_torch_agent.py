@@ -13,6 +13,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import jax
 import jax.numpy as jnp
+import msgpack
 import numpy as np
 import pytest
 import requests
@@ -61,13 +62,17 @@ EMBED_TOL = 1e-5   # f32 on both sides; measured at most 1.6e-6
 
 
 class StubMaster:
-    """Takes /rpc/generations and /rpc/heartbeat as the master does and
-    answers ``{"ok": true, "alive": {...}}``."""
+    """Takes /rpc/generations and /rpc/heartbeat as the master does, in
+    msgpack (read with the msgpack package) or JSON, and answers ``{"ok":
+    true, "alive": {...}}``. It has no /rpc/telemetry (404): an agent in
+    the default mux mode demotes itself to these per-endpoint routes, as
+    against a master that predates the multiplexed session."""
 
     def __init__(self):
         self.gens: list = []
         self.heartbeats: list = []
         self.alive: dict = {}
+        self.telemetry_posts = 0
         stub = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -75,7 +80,17 @@ class StubMaster:
 
             def do_POST(self):
                 n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n))
+                data = self.rfile.read(n)
+                if self.path == "/rpc/telemetry":
+                    stub.telemetry_posts += 1
+                    self.send_response(404)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                if "msgpack" in self.headers.get("Content-Type", ""):
+                    body = msgpack.unpackb(data, raw=False)
+                else:
+                    body = json.loads(data)
                 if self.path == "/rpc/generations":
                     stub.gens.extend(body["gens"])
                 else:
@@ -270,8 +285,9 @@ def test_bad_dispatches_are_refused(agent, master):
     body = {"token_ids": [5, 6, 7], "max_tokens": 2}
     assert _post(agent, "/v1/completions", body).status_code == 400
     body["source_service_addr"] = master.addr
+    # A body marked msgpack that is not (here: JSON text) is malformed.
     assert _post(agent, "/v1/completions", body,
-                 ctype=wire.MSGPACK_CONTENT_TYPE).status_code == 415
+                 ctype=wire.MSGPACK_CONTENT_TYPE).status_code == 400
     r = _post(agent, "/v1/completions",
               dict(body, deadline_ms=now_ms() - 1000))
     assert r.status_code == 504
@@ -385,14 +401,16 @@ def test_models_health_and_stats(agent):
     assert requests.get(base + "/v1/models", timeout=5).json()["data"][0][
         "id"] == "tiny-llama"
     stats = requests.get(base + "/stats", timeout=5).json()
-    assert stats["dp_size"] == 1 and stats["telemetry"]["mode"] == "master"
+    # The default mux mode demoted itself against the stub's 404.
+    assert stats["dp_size"] == 1 and stats["telemetry"]["mode"] in (
+        "mux", "master")
     assert requests.get(base + "/nope", timeout=5).status_code == 404
 
 
 # ----------------------------------------------------------- wire forms
 def test_instance_meta_parses_with_the_reference(agent):
     mine = agent.meta()
-    assert mine.wire_formats == ["json"]
+    assert mine.wire_formats == ["msgpack", "json"]
     assert mine.topology.mesh_shape == [1]
     theirs = RefMeta.from_json(mine.to_json())
     assert json.loads(theirs.to_json()) == json.loads(mine.to_json())
@@ -421,11 +439,68 @@ def test_kept_alive_replies_do_not_wait_on_nagle(agent):
 
 
 def test_json_wire_only():
+    """The JSON format is the default of ``encode_dispatch``; a body marked
+    msgpack is parsed as msgpack, and a malformed one raises ValueError."""
     body, ctype = wire.encode_dispatch({"a": [1, 2]})
     assert ctype == wire.JSON_CONTENT_TYPE
     assert wire.decode_body(ctype, body) == {"a": [1, 2]}
-    with pytest.raises(wire.UnsupportedMediaType):
-        wire.decode_body(wire.MSGPACK_CONTENT_TYPE, b"\x80")
+    assert wire.decode_body(wire.MSGPACK_CONTENT_TYPE, b"\x80") == {}
+    with pytest.raises(ValueError):
+        wire.decode_body(wire.MSGPACK_CONTENT_TYPE, b"\x81")
+
+
+def test_shared_telemetry_pool_keeps_threads_apart():
+    """The heartbeat and streamer threads share one kept-alive pool: many
+    threads posting at once each get their own reply (no two share a
+    connection mid-request), the pool holds one destination, and it
+    keeps at most its bound of idle connections."""
+    import sys
+
+    class Echo(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_POST(self):
+            data = self.rfile.read(int(self.headers["Content-Length"]))
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Echo)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    dest = f"127.0.0.1:{server.server_address[1]}"
+    pool = port_agent._Connections(timeout_s=10.0)
+    bad: list = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def worker(i):
+            for j in range(25):
+                body = f"{i}:{j}".encode()
+                status, data = pool.post(dest, "/x", body, "text/plain")
+                if (status, data) != (200, body):
+                    bad.append((status, data, body))
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        stats = pool.stats()
+        idle = len(pool._pools[dest][0])
+    finally:
+        sys.setswitchinterval(interval)
+        pool.close()
+        server.shutdown()
+        server.server_close()
+    assert not bad
+    assert stats["hosts"] == 1 and stats["connections_created"] >= 1
+    assert idle <= pool.MAX_PER_HOST and pool.stats()["hosts"] == 0
 
 
 def test_tokenizer_factory():

@@ -13,11 +13,11 @@ streaming, ``n > 1`` and logprob requests go through both masters:
 - top logprobs agree within 1e-4 absolute (measured: at most 1.2e-6);
 - ``/v1/embeddings`` agree within 1e-4 absolute (measured: at most 8.3e-7).
 
-The rest mirrors test_e2e_real_engine.py's 17 cases against the port's
+The rest mirrors test_e2e_real_engine.py's 18 cases against the port's
 cluster (its second ``TestNChoices`` shadows the first there; both are
-kept here, under two names). Left out: ``test_prometheus_metrics``, which
-reads the agent's ``/metrics`` (not ported; the agent answers 501 and names
-its ROADMAP item, checked here instead).
+kept here, under two names). The agent runs in its default telemetry mode
+(mux, msgpack) against the master's defaults. Of the reference's routes
+only ``/rpc/encode`` (the vision encoder) answers 501.
 """
 
 import json
@@ -275,9 +275,25 @@ def test_chunked_request_parity_with_the_jax_agent(chunked_clusters):
 
 def test_unported_agent_routes_are_refused(cluster):
     master, agent = cluster
-    for path in ("/metrics", "/admin/trace/recent"):
-        r = requests.get(f"http://{agent.name}{path}", timeout=5)
-        assert r.status_code == 501 and "ROADMAP" in r.json()["error"]
+    r = requests.post(f"http://{agent.name}/rpc/encode", data=b"{}",
+                      timeout=5)
+    assert r.status_code == 501
+    assert "ROADMAP queue 1 item 13" in r.json()["error"]
+
+
+@pytest.mark.parametrize("path,kind", [
+    ("/metrics", "text"), ("/admin/trace/recent", "traces"),
+    ("/admin/flightrecorder/recent", "records"),
+    ("/admin/profile", "roles"), ("/admin/profile?format=folded", "text")])
+def test_newly_served_agent_routes_answer(cluster, path, kind):
+    """The routes the agent once refused are served."""
+    master, agent = cluster
+    r = requests.get(f"http://{agent.name}{path}", timeout=5)
+    assert r.status_code == 200, r.text
+    if kind == "text":
+        assert r.headers["Content-Type"].startswith("text/plain")
+    else:
+        assert kind in r.json()
 
 
 # ------------------------------------------- test_e2e_real_engine's cases
@@ -344,6 +360,14 @@ class TestRealEngineE2E:
         r = requests.get(f"http://{agent.name}/stats", timeout=5)
         stats = r.json()
         assert "kv_usage_perc" in stats and "cached_blocks" in stats
+
+    def test_prometheus_metrics(self, cluster):
+        master, agent = cluster
+        r = requests.get(f"http://{agent.name}/metrics", timeout=5)
+        assert r.status_code == 200
+        assert "engine_generated_tokens_total" in r.text
+        assert "engine_kv_usage_perc" in r.text
+        assert "engine_sarathi_rides_total" in r.text
 
 
 class TestNChoicesGreedy:

@@ -229,6 +229,53 @@ def test_sdpa_prefill_route_masks_as_the_dense_path(lens, monkeypatch):
         _close(got[b, :n], want[b, :n], "f32")
 
 
+def test_sdpa_route_keeps_its_backend_under_concurrent_engines(monkeypatch):
+    """The backend flags ``sdpa_kernel`` sets are the process's: engines
+    of one process calling the prefix-free route at once must each run
+    inside their own selection (the memory-efficient backend alone), never
+    inside flags another call just restored."""
+    import sys
+    import threading
+    import types
+
+    import torch.nn.functional as F
+
+    seen: list = []
+
+    def recording_sdpa(q, k, v, **kw):
+        seen.append((torch.backends.cuda.flash_sdp_enabled(),
+                     torch.backends.cuda.mem_efficient_sdp_enabled(),
+                     torch.backends.cuda.math_sdp_enabled()))
+        # The CPU has no memory-efficient backend: compute with math (its
+        # own set and restore of the flags, as another caller's would be).
+        with torch.nn.attention.sdpa_kernel(
+                torch.nn.attention.SDPBackend.MATH):
+            return F.scaled_dot_product_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(port, "F", types.SimpleNamespace(
+        scaled_dot_product_attention=recording_sdpa))
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 8, 4, 16), generator=g)
+    k = torch.randn((1, 8, 2, 16), generator=g)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            port.sdpa_prefill_attention(q, k, k) for _ in range(40)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(seen) == 320 and set(seen) == {(False, True, False)}
+    assert (torch.backends.cuda.flash_sdp_enabled(),
+            torch.backends.cuda.mem_efficient_sdp_enabled(),
+            torch.backends.cuda.math_sdp_enabled()) == (True, True, True)
+
+
 # ------------------------------------- M-RoPE, softcap and sliding window
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_mrope_sections(dt):

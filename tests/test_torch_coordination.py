@@ -166,3 +166,48 @@ def test_connect_picks_the_backend(server):
     finally:
         tcp.close()
         mem.close()
+
+
+def _prefix_script(put, get_prefix) -> list:
+    for k, v in (("XLLM:SERVICE:a:1", "x"), ("XLLM:SERVICE:MASTER", "a:1"),
+                 ("XLLM:SERVICE:b:2", "y"), ("XLLM:INSTANCE:MIX:e", "z"),
+                 ("XLLM:SERVICEX", "w")):
+        put(k, v)
+    return [get_prefix("XLLM:SERVICE:"), get_prefix("XLLM:"),
+            get_prefix("nope"), get_prefix("")]
+
+
+def test_get_prefix_against_the_reference_server(server):
+    c = _client(server)
+    try:
+        got = _prefix_script(c.set, c.get_prefix)
+    finally:
+        c.close()
+    ref = RefStore(expiry_tick_s=0.02)
+    try:
+        want = _prefix_script(lambda k, v: ref.put(k, v, None),
+                              ref.get_prefix)
+    finally:
+        ref.close()
+    assert got == want
+    assert set(got[0]) == {"XLLM:SERVICE:a:1", "XLLM:SERVICE:MASTER",
+                           "XLLM:SERVICE:b:2"}
+
+
+def test_get_prefix_of_the_in_memory_store_matches_reference():
+    mine, ref = MemoryStore(expiry_tick_s=0.01), RefStore(expiry_tick_s=0.01)
+    client = InMemoryCoordination(mine)
+    try:
+        got = _prefix_script(client.set, client.get_prefix)
+        want = _prefix_script(lambda k, v: ref.put(k, v, None),
+                              ref.get_prefix)
+        # A lapsed lease leaves the prefix view.
+        client.set("XLLM:SERVICE:c:3", "q", ttl_s=0.05)
+        client.release("XLLM:SERVICE:c:3")
+        assert wait_until(lambda: "XLLM:SERVICE:c:3" not in
+                          client.get_prefix("XLLM:SERVICE:"), timeout=5)
+    finally:
+        client.close()
+        mine.close()
+        ref.close()
+    assert got == want

@@ -37,7 +37,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "benchmarks.pd_handoff_bench", "models.safetensors_io",
               "models.hf_config", "models.loader", "tokenizer.args",
               "tokenizer.unicode_re", "tokenizer.tiktoken",
-              "tokenizer.hf_json", "tokenizer.sentencepiece_tok"):
+              "tokenizer.hf_json", "tokenizer.sentencepiece_tok",
+              "multimaster.ownership", "common.metrics", "common.tracing",
+              "common.faults", "common.flightrecorder", "profiling.sampler",
+              "profiling.critical_path"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -303,7 +303,7 @@ class FakeDevicePath:
         self.fail = fail
         self.offers: dict = {}
 
-    def offer(self, sid, blob, incarnation="", ready=None):
+    def offer(self, sid, blob, incarnation="", ready=None, ctx=None):
         if self.fail:
             raise RuntimeError("offer failed")
         uid = port_kv.transfer_uuid(sid, incarnation)
@@ -313,7 +313,7 @@ class FakeDevicePath:
                 "ipc_handle": bytes(64), "offset": 0,
                 "nbytes": blob.numel() * blob.element_size()}
 
-    def pull(self, desc):
+    def pull(self, desc, ctx=None):
         return self.offers[desc["uuid"]].clone()
 
     def release(self, uuid):

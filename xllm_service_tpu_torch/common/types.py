@@ -1,7 +1,7 @@
 """Domain types the engine and its agent report through (copy of the part
 of ``xllm_service_tpu/common/types.py`` they use: the instance role, the
 registration record with its topology, and the KV-cache event with its
-JSON heartbeat form)."""
+JSON and msgpack heartbeat forms)."""
 
 from __future__ import annotations
 
@@ -103,7 +103,8 @@ class KvCacheEvent:
     """Delta of the instance's prefix-cache content, carried in heartbeats:
     chained block hashes (``common/hashing.py``) stored, removed or
     offloaded since the last drain. Keys are hex strings in the engine, or
-    raw 16-byte keys; ``to_dict`` renders hex, the JSON heartbeat form."""
+    raw 16-byte keys; ``to_dict`` renders hex (the JSON heartbeat form),
+    ``to_wire_dict`` raw bytes (the msgpack heartbeat form)."""
 
     stored: list = field(default_factory=list)
     removed: list = field(default_factory=list)
@@ -117,8 +118,39 @@ class KvCacheEvent:
         return [k.hex() if isinstance(k, (bytes, bytearray)) else k
                 for k in keys]
 
+    @staticmethod
+    def _raws(keys: list) -> list[bytes]:
+        return [bytes(k) if isinstance(k, (bytes, bytearray))
+                else bytes.fromhex(k) for k in keys]
+
+    def merge(self, other: "KvCacheEvent") -> None:
+        """Union of two replicas' deltas (dp_size > 1): a block one replica
+        removed but another stored stays stored; a block one replica
+        offloaded but another holds on the device ships stored only (the
+        index applies stored before offloaded). Within one delta, stored
+        and offloaded together is the donate-then-evict sequence, and the
+        offload survives."""
+        hbm_only = (set(self.stored) - set(self.offloaded)) \
+            | (set(other.stored) - set(other.offloaded))
+        removed_here = set(other.stored)
+        self.removed = [h for h in self.removed if h not in removed_here]
+        stored_there = set(self.stored)
+        self.stored += [h for h in other.stored if h not in stored_there]
+        kept = set(self.stored)
+        self.removed += [h for h in other.removed
+                         if h not in kept and h not in set(self.removed)]
+        offloaded = self.offloaded + [h for h in other.offloaded
+                                      if h not in set(self.offloaded)]
+        self.offloaded = [h for h in offloaded if h not in hbm_only]
+
     def to_dict(self) -> dict[str, Any]:
         """JSON-safe form: hex-string keys (the JSON heartbeat wire)."""
         return {"stored": self._hexes(self.stored),
                 "removed": self._hexes(self.removed),
                 "offloaded": self._hexes(self.offloaded)}
+
+    def to_wire_dict(self) -> dict[str, Any]:
+        """msgpack form: raw 16-byte keys (the binary heartbeat wire)."""
+        return {"stored": self._raws(self.stored),
+                "removed": self._raws(self.removed),
+                "offloaded": self._raws(self.offloaded)}

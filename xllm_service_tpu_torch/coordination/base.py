@@ -3,9 +3,10 @@
 
 Capability parity with an etcd client as the reference uses it: a put with
 a TTL lease that a background keepalive refreshes until ``release``,
-``get``, ``rm``, and a liveness probe of the plane. Values are opaque
-strings. Prefix gets, bulk ops, create-if-absent and watches are the
-master's and are not part of the port (ROADMAP queue 1 item 3).
+``get``, ``get_prefix`` (the telemetry-owner resolver reads the service
+membership with it), ``rm``, and a liveness probe of the plane. Values are
+opaque strings. Bulk ops, create-if-absent and watches are the master's
+and are not part of the port (ROADMAP queue 1 item 3.7).
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ class CoordinationClient(abc.ABC):
 
     @abc.abstractmethod
     def get(self, key: str) -> Optional[str]: ...
+
+    @abc.abstractmethod
+    def get_prefix(self, prefix: str) -> dict[str, str]:
+        """Every live key under ``prefix`` with its value."""
 
     @abc.abstractmethod
     def rm(self, key: str) -> bool: ...

@@ -8,7 +8,7 @@ a key whose refresh fails, so if this process dies its leases lapse on the
 server, and a server restart converges back to the live registrations. On
 connection loss the reader reconnects with jittered backoff and re-creates
 every leased key before it declares the session good. Watches and auth are
-not ported (ROADMAP queue 1 item 3).
+not ported (ROADMAP queue 1 item 3.7).
 """
 
 from __future__ import annotations
@@ -234,6 +234,10 @@ class TcpCoordinationClient(CoordinationClient):
     def get(self, key) -> Optional[str]:
         resp = self._call({"op": "get", "key": key})
         return resp.get("value") if resp.get("ok") else None
+
+    def get_prefix(self, prefix) -> dict[str, str]:
+        resp = self._call({"op": "get_prefix", "prefix": prefix})
+        return dict(resp.get("kvs") or {}) if resp.get("ok") else {}
 
     def rm(self, key) -> bool:
         self.release(key)

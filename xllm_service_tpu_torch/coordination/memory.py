@@ -75,6 +75,11 @@ class MemoryStore:
             e = self._data.get(key)
             return e.value if e is not None else None
 
+    def get_prefix(self, prefix: str) -> dict[str, str]:
+        with self._lock:
+            return {k: e.value for k, e in self._data.items()
+                    if k.startswith(prefix)}
+
     def rm(self, key: str) -> bool:
         with self._lock:
             return self._data.pop(key, None) is not None
@@ -122,6 +127,9 @@ class InMemoryCoordination(CoordinationClient):
 
     def get(self, key):
         return self._store.get(key)
+
+    def get_prefix(self, prefix):
+        return self._store.get_prefix(prefix)
 
     def rm(self, key) -> bool:
         self.release(key)

@@ -1,41 +1,60 @@
-"""Engine instance agent: the process that owns one port engine and speaks
-the orchestration wire contract (port of ``xllm_service_tpu/engine/
-agent.py``, its single-engine MIX path on the JSON wire).
+"""Engine instance agent: the process that owns the port's engines and
+speaks the orchestration wire contract (port of ``xllm_service_tpu/engine/
+agent.py``).
 
 It registers in coordination under ``XLLM:INSTANCE:<TYPE>:<name>`` with a
-TTL lease and an incarnation id, heartbeats every 3 s to the elected master
-(``XLLM:SERVICE:MASTER``) with KvCacheEvents and load/latency metrics,
-accepts enriched completions and chat dispatches, streams batched
-Generations to the dispatching service's RPC endpoint, serves ``/health``
-probes, and honours cancel, drain, link/unlink and role flips. The
-reference master serves it unchanged: it advertises
-``wire_formats=["json"]``, so the master dispatches JSON to it, and its
-heartbeats and Generations are JSON, which the master decodes.
+TTL lease and an incarnation id, beats every 3 s with KvCacheEvents and
+load/latency metrics, accepts enriched completions and chat dispatches,
+streams batched Generations back, serves ``/health`` probes, and honours
+cancel, drain, link/unlink and role flips. The unchanged reference master
+serves it in the reference's defaults:
+
+- **Telemetry** (``telemetry_mode``). ``"mux"`` (the default): beats and
+  delta pushes ride tagged msgpack frames on one kept-alive pool to the
+  master that owns this instance under the rendezvous shard map
+  (``multimaster/ownership.py``) on ``/rpc/telemetry``; a master without
+  the route (404/405) demotes the agent to the elected-master funnel, an
+  owner that fails is skipped for its rendezvous successor, and a beat's
+  ``owner`` hint re-routes the next one. ``"owner"``: beats to the owner,
+  pushes direct. ``"master"``: the legacy funnel.
+- **Wire.** It advertises ``wire_formats=["msgpack", "json"]``; dispatch
+  bodies are decoded by content type (``rpc/wire.py``), heartbeats and
+  Generations go out as msgpack (a master answering 400/415 demotes the
+  beats to JSON until the master changes).
+- **Observability.** ``/metrics`` (the reference's families and labels),
+  engine-side spans under the master's trace (``engine.prefill`` at
+  accept, ``engine.decode`` from the first token; ``/admin/trace`` and
+  ``/admin/trace/recent``), the flight recorder
+  (``/admin/flightrecorder/recent``, with this agent's ``engine``
+  context) and the sampling profiler (``/admin/profile``).
+- **Replicas** (``dp_size``): independent engines behind one
+  registration, replica ``i`` on the ``i``-th device from the agent's
+  (the same card for every replica on a one-card machine, sharing replica
+  0's weight tensors), dispatched prefix-affine with a load guard.
 
 PD disaggregation: a PREFILL agent given a ``routing.decode_name`` runs
 the request prefill-only and ships the ``PrefillHandoff`` to that peer on
-``/rpc/kv_transfer`` in the reference's msgpack frame
-(``rpc/msgpack_lite.py``): over CUDA IPC when the peer's
-``kv_transfer_addr`` names this same card (``engine/kv_transfer.py``),
-else streamed back over ``/rpc/kv_stream_pull`` at or above
-``kv_stream_threshold_bytes``, else inline; a failed handoff reaches the
+``/rpc/kv_transfer`` in the reference's msgpack frame: over CUDA IPC when
+the peer's ``kv_transfer_addr`` names this same card
+(``engine/kv_transfer.py``), else streamed back over
+``/rpc/kv_stream_pull`` at or above ``kv_stream_threshold_bytes``, else
+inline; a streamed handoff that falls back to inline leaves a
+``kv_stream_fallback`` flight record, and a failed handoff reaches the
 service as UNAVAILABLE. A DECODE agent takes handoffs only from linked
-peers and injects them into its engine. The reference's tracing spans,
-fault hooks and flight-recorder entries on these paths are not ported
-(ROADMAP queue 1 items 3.2 and 3.4).
+peers and injects them into the replica ``_pick_engine`` chooses.
 
 Written on the standard library: ``http.server`` for the routes (HTTP/1.1,
 kept-alive connections, a ``Content-Length`` on every reply) and
-``http.client`` for its own posts. A route or flag of the reference that
-the port lacks is refused with an error that names its ROADMAP item; the
-agent never answers as if it had done work it did not do.
+``http.client`` for its own posts. The reference's vision-encoder route
+(``/rpc/encode``) is refused with an error that names its ROADMAP item.
 
 Run: ``python -m xllm_service_tpu_torch.engine.agent --coordination-addr
-host:port --model-config llama3_8b`` (the card unless ``--device cpu``),
-with random weights from the engine's seed; with ``--checkpoint-path D
+host:port --model-config llama3_8b [--dp-size N] [--telemetry-mode
+mux|owner|master]`` (the card unless ``--device cpu``), with random
+weights from the engine's seed; with ``--checkpoint-path D
 --tokenizer-path D`` it serves a Hugging Face model directory D (its
-``*.safetensors`` read straight onto the card, its ``tokenizer.json``
-read on the standard library), or a native checkpoint
+``*.safetensors`` read straight onto the card, its ``tokenizer.json`` read
+on the standard library), or a native checkpoint
 (``models/loader.py::save_params``). ``--model-config hf`` takes the model
 from D's ``config.json`` (llama, qwen2, gemma2) in its ``torch_dtype``.
 """
@@ -53,15 +72,22 @@ import statistics
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional, Union
+from urllib.parse import parse_qsl, urlsplit
 
 import torch
 
 from ..common import topology as topo
+from ..common.flightrecorder import RECORDER, admin_flightrecorder_recent
+from ..common.metrics import (
+    ENGINE_HEARTBEATS_TOTAL,
+    ENGINE_PEER_LINKED,
+    evict_series,
+)
 from ..common.net import pick_free_port
 from ..common.request import (
     LogProb,
@@ -72,6 +98,13 @@ from ..common.request import (
     StatusCode,
     Usage,
 )
+from ..common.tracing import (
+    NOOP_SPAN,
+    TRACER,
+    TraceContext,
+    admin_trace,
+    admin_trace_recent,
+)
 from ..common.types import (
     InstanceMetaInfo,
     InstanceType,
@@ -80,6 +113,8 @@ from ..common.types import (
     now_ms,
 )
 from ..coordination import CoordinationClient, connect
+from ..multimaster.ownership import TelemetryOwnerResolver
+from ..profiling.sampler import PROFILER, admin_profile
 from ..rpc import MASTER_KEY, instance_key, msgpack_lite
 from ..rpc import wire
 from ..tokenizer.factory import TokenizerFactory
@@ -96,7 +131,6 @@ from .kv_transfer import (
 )
 
 logger = logging.getLogger(__name__)
-
 
 
 def pack_handoff(h: PrefillHandoff, source_service_addr: str,
@@ -151,21 +185,17 @@ def unpack_handoff(data: bytes) -> dict:
     return obj
 
 
+
+
 # Reference routes this agent does not serve, each with its ROADMAP item
 # (queue 1). A request to one gets 501 and this reason.
 _NOT_PORTED = {
     "/rpc/encode": "the vision encoder (EPD) is not ported (ROADMAP queue 1 "
                    "item 13)",
-    "/metrics": "/metrics is not ported (ROADMAP queue 1 item 3)",
-    "/admin/trace": "engine-side tracing is not ported (ROADMAP queue 1 "
-                    "item 3)",
-    "/admin/trace/recent": "engine-side tracing is not ported (ROADMAP "
-                           "queue 1 item 3)",
-    "/admin/flightrecorder/recent": "the flight recorder is not ported "
-                                    "(ROADMAP queue 1 item 3)",
-    "/admin/profile": "the profiler routes are not ported (ROADMAP queue 1 "
-                      "item 3)",
 }
+
+# The agent's telemetry wirings (see the module docstring).
+TELEMETRY_MODES = ("mux", "owner", "master")
 
 
 @dataclass
@@ -178,10 +208,14 @@ class AgentConfig:
     heartbeat_interval_s: float = 3.0
     lease_ttl_s: float = 3.0
     generation_flush_ms: float = 5.0   # batching window for Generations
-    # Coordination-plane static stability: "on" keeps heartbeats flowing to
-    # the last master that resolved while the plane is unreachable, so the
-    # master's degraded-mode liveness fallback sees this engine alive;
-    # "off": no resolvable master, no beats.
+    # "mux": one multiplexed session to the owning master (tagged hb and
+    # gens frames on /rpc/telemetry); "owner": beats to the owner, deltas
+    # direct per destination; "master": beats to the elected master.
+    telemetry_mode: str = "mux"
+    # Coordination-plane static stability: "on" keeps beats flowing to the
+    # last owner (or master) that resolved while the plane is unreachable,
+    # so the masters' degraded-mode liveness fallback sees this engine
+    # alive; "off": no resolvable target, no beats.
     degraded_mode: str = "on"
     slice_id: str = "slice-0"
     # Topology placement coordinate (common/topology.py): a non-empty
@@ -189,6 +223,9 @@ class AgentConfig:
     # classed by coordinates for the bandwidth budgets.
     topo_host: str = ""
     topo_chip: int = -1
+    # Engine replicas behind this one registration: replica i runs on the
+    # i-th device from the agent's (round robin over the cards).
+    dp_size: int = 1
     # Host-path streaming transfer: payloads at or above the threshold are
     # pulled back in chunked msgpack frames instead of one inline POST. 0
     # streams everything; a negative threshold disables streaming.
@@ -238,51 +275,93 @@ class _ChoiceAggregator:
 
 
 class _Connections:
-    """Kept-alive HTTP/1.1 connections, one per destination ("host:port"),
-    used by one thread. A post that finds its reused connection closed by
-    the peer (an idle keep-alive timeout) is sent once more on a fresh one;
-    the receivers are idempotent (Generations dedupe on ``delta_seq``,
-    heartbeats apply absolute state)."""
+    """A bounded pool of kept-alive HTTP/1.1 connections shared by the
+    agent's telemetry threads (the heartbeat and the streamer), as the
+    reference's one keep-alive session: at most ``MAX_HOSTS`` destinations
+    ("host:port", least recently used dropped first), each with at most
+    ``MAX_PER_HOST`` idle connections (the reference session's bounds).
+    A post that finds its reused connection closed by the peer (an idle
+    keep-alive timeout) is sent once more on a fresh one; the receivers
+    are idempotent (Generations dedupe on ``delta_seq``, heartbeats apply
+    absolute state). ``stats()`` counts the destinations held and the
+    connections they have made."""
 
     _STALE = (http.client.RemoteDisconnected, BrokenPipeError,
               ConnectionResetError, ConnectionAbortedError)
 
+    MAX_HOSTS = 4
+    MAX_PER_HOST = 4
+
     def __init__(self, timeout_s: float):
         self._timeout_s = timeout_s
-        self._conns: dict[str, http.client.HTTPConnection] = {}
+        self._lock = threading.Lock()
+        # dest -> [idle connections, connections made], LRU order.
+        self._pools: OrderedDict[str, list] = OrderedDict()
 
-    def post(self, dest: str, path: str, body: bytes,
-             ctype: str) -> tuple[int, bytes]:
-        while True:
-            conn = self._conns.get(dest)
-            reused = conn is not None
+    def _take(self, dest: str) -> tuple[http.client.HTTPConnection, bool]:
+        dropped: list = []
+        with self._lock:
+            pool = self._pools.get(dest)
+            if pool is None:
+                pool = self._pools[dest] = [[], 0]
+                while len(self._pools) > self.MAX_HOSTS:
+                    dropped += self._pools.popitem(last=False)[1][0]
+            self._pools.move_to_end(dest)
+            conn = pool[0].pop() if pool[0] else None
             if conn is None:
-                host, _, port = dest.rpartition(":")
-                conn = http.client.HTTPConnection(host, int(port),
-                                                  timeout=self._timeout_s)
-                self._conns[dest] = conn
+                pool[1] += 1
+        for c in dropped:
+            c.close()
+        if conn is not None:
+            return conn, True
+        host, _, port = dest.rpartition(":")
+        return http.client.HTTPConnection(host, int(port),
+                                          timeout=self._timeout_s), False
+
+    def _give(self, dest: str, conn: http.client.HTTPConnection) -> None:
+        with self._lock:
+            pool = self._pools.get(dest)
+            if pool is not None and len(pool[0]) < self.MAX_PER_HOST:
+                pool[0].append(conn)
+                return
+        conn.close()
+
+    def post(self, dest: str, path: str, body: bytes, ctype: str,
+             timeout_s: Optional[float] = None) -> tuple[int, bytes]:
+        timeout_s = timeout_s or self._timeout_s
+        while True:
+            conn, reused = self._take(dest)
+            conn.timeout = timeout_s
+            if conn.sock is not None:
+                conn.sock.settimeout(timeout_s)
             try:
                 conn.request("POST", path, body=body,
                              headers={"Content-Type": ctype})
                 resp = conn.getresponse()
                 data = resp.read()
             except (http.client.HTTPException, OSError) as e:
-                self.drop(dest)
+                conn.close()
                 if reused and isinstance(e, self._STALE):
                     continue
                 raise
             if resp.will_close:
-                self.drop(dest)
+                conn.close()
+            else:
+                self._give(dest, conn)
             return resp.status, data
 
-    def drop(self, dest: str) -> None:
-        conn = self._conns.pop(dest, None)
-        if conn is not None:
-            conn.close()
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"hosts": len(self._pools),
+                    "connections_created": sum(p[1]
+                                               for p in self._pools.values())}
 
     def close(self) -> None:
-        for dest in list(self._conns):
-            self.drop(dest)
+        with self._lock:
+            pools, self._pools = self._pools, OrderedDict()
+        for idle, _ in pools.values():
+            for c in idle:
+                c.close()
 
 
 _NOTHING = object()   # queue-timeout marker distinct from the stop sentinel
@@ -290,9 +369,9 @@ _NOTHING = object()   # queue-timeout marker distinct from the stop sentinel
 
 class GenerationStreamer:
     """Batches RequestOutput deltas per destination service and POSTs
-    `{"gens": [...]}` as JSON to its ``/rpc/generations`` on a kept-alive
-    connection (the reference's direct per-destination wire). ``engine``
-    is anything with a ``cancel(service_request_id)``.
+    `{"gens": [...]}` as msgpack (the reference's batched Generations).
+    ``engine`` is anything with a ``cancel(service_request_id)``: the
+    agent passes itself, which fans a cancel across its replicas.
 
     Delivery semantics: each delta carries a per-request monotonic
     `delta_seq` (the service dedupes on it, so retries are safe even when
@@ -300,12 +379,23 @@ class GenerationStreamer:
     keeps its gens queued and is retried after a backoff without blocking
     flushes to healthy dests; only after `FLUSH_RETRIES` consecutive
     failures are that dest's requests cancelled. Requests the service
-    reports not alive are cancelled."""
+    reports not alive are cancelled.
+
+    With an ``owner_fn`` (the telemetry-owner resolver), every ready
+    dest's batch rides one tagged-frame POST to the owning master's
+    ``/rpc/telemetry``, which ingests its own dests and relays the rest
+    master to master; its reply carries per-dest verdicts, so the retry
+    and cancel machinery is unchanged. An owner that fails is reported to
+    the resolver (the next flush goes to its rendezvous successor); an
+    owner without the route (404/405) demotes the streamer to the direct
+    per-dest wire for the process's life."""
 
     FLUSH_RETRIES = 2
     RETRY_BACKOFF_S = 0.25
 
-    def __init__(self, engine: Any, flush_ms: float):
+    def __init__(self, engine: Any, flush_ms: float,
+                 conns: Optional[_Connections] = None,
+                 owner_fn: Optional[Callable[[], str]] = None):
         self._engine = engine
         self._q: "queue.Queue[Optional[tuple[str, dict]]]" = queue.Queue()
         self._flush_s = flush_ms / 1000.0
@@ -314,8 +404,12 @@ class GenerationStreamer:
         # Sender identity stamped on every delta (set by the agent).
         self.instance_name = ""
         self.incarnation = ""
+        self._own_conns = conns is None
+        self._conns = conns or _Connections(timeout_s=10.0)
+        self._owner_fn = owner_fn
+        self._mux_ok = owner_fn is not None
+        self.mux_sends = 0
         self.direct_sends = 0
-        self._conns = _Connections(timeout_s=10.0)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="gen-streamer")
         self._thread.start()
@@ -344,7 +438,8 @@ class GenerationStreamer:
         while True:
             now = time.monotonic()
             if stopping and not pending:
-                self._conns.close()
+                if self._own_conns:
+                    self._conns.close()
                 return
             if pending:
                 wait = max(0.0, min(next_try.get(d, now)
@@ -377,9 +472,9 @@ class GenerationStreamer:
             now = time.monotonic()
             ready = [d for d in list(pending)
                      if stopping or next_try.get(d, 0.0) <= now]
+            outcomes = self._flush_ready(ready, pending)
             for dest in ready:
-                self.direct_sends += 1
-                if self._send(dest, pending[dest]):
+                if outcomes.get(dest, False):
                     del pending[dest]
                     attempts.pop(dest, None)
                     next_try.pop(dest, None)
@@ -396,11 +491,60 @@ class GenerationStreamer:
                     attempts[dest] = n
                     next_try[dest] = now + self.RETRY_BACKOFF_S * n
 
+    def _flush_ready(self, dests: list, pending: dict) -> dict:
+        """One flush pass over the ready dests: per-dest delivery verdicts.
+        The multiplexed wire while an owner resolves, direct per-dest POSTs
+        otherwise (or after a demotion)."""
+        if not dests:
+            return {}
+        if self._mux_ok:
+            owner = self._owner_fn()
+            if owner:
+                out = self._send_mux(owner, {d: pending[d] for d in dests})
+                if out is not None:
+                    return out
+        self.direct_sends += len(dests)
+        return {d: self._send(d, pending[d]) for d in dests}
+
+    def _send_mux(self, owner: str, batches: dict) -> Optional[dict]:
+        """Every ready batch as tagged frames in one POST to the owning
+        master. Per-dest verdicts, or None after a demotion (the caller
+        sends this pass on the direct wire)."""
+        frames = [{"t": wire.TELEMETRY_GENS, "dest": d, "d": {"gens": gens}}
+                  for d, gens in batches.items()]
+        body, ctype = wire.encode_telemetry(frames)
+        try:
+            status, data = self._conns.post(owner, "/rpc/telemetry", body,
+                                            ctype, timeout_s=10.0)
+            if status in (404, 405):
+                logger.warning("telemetry owner %s lacks /rpc/telemetry; "
+                               "demoting the streamer to the direct "
+                               "per-dest wire", owner)
+                self._mux_ok = False
+                return None
+            if status != 200:
+                raise ValueError(f"HTTP {status}: {data[:200]!r}")
+            payload = json.loads(data)
+        except (http.client.HTTPException, OSError, ValueError) as e:
+            logger.warning("multiplexed gens push via %s failed: %s",
+                           owner, e)
+            note = getattr(self._owner_fn, "note_failure", None)
+            if note is not None:
+                # The next flush targets the rendezvous successor.
+                note(owner)
+            return {d: False for d in batches}
+        self.mux_sends += 1
+        for sid, ok in (payload.get("alive") or {}).items():
+            if not ok:
+                self._engine.cancel(sid)
+        dest_ok = payload.get("dest_ok") or {}
+        return {d: bool(dest_ok.get(d, False)) for d in batches}
+
     def _send(self, dest: str, gens: list[dict]) -> bool:
-        body, ctype = wire.encode_dispatch({"gens": gens})
+        body, ctype = wire.encode_dispatch({"gens": gens}, wire.WIRE_MSGPACK)
         try:
             status, data = self._conns.post(dest, "/rpc/generations", body,
-                                            ctype)
+                                            ctype, timeout_s=10.0)
             # An error page must route through retry/cancel, not count as
             # delivery.
             if status != 200:
@@ -419,9 +563,19 @@ class GenerationStreamer:
         self._thread.join(timeout=15)
 
 
+@dataclass
+class _Request:
+    """One request to the agent, as its route handlers take it."""
+
+    body: bytes
+    ctype: str
+    query: dict[str, str]
+    headers: Any
+
+
 class _Handler(BaseHTTPRequestHandler):
-    """One kept-alive HTTP/1.1 connection to the agent; every reply is
-    JSON with a Content-Length (the master's clients keep connections)."""
+    """One kept-alive HTTP/1.1 connection to the agent; every reply has a
+    Content-Length (the master's clients keep connections)."""
 
     protocol_version = "HTTP/1.1"
     # A reply goes out as two writes (headers, then body). On a kept-alive
@@ -433,6 +587,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def setup(self) -> None:
         super().setup()
+        # Named for the profiler's "http" role.
+        threading.current_thread().name = "agent-handler"
         self.agent._note_conn(self.connection, True)
 
     def finish(self) -> None:
@@ -450,15 +606,18 @@ class _Handler(BaseHTTPRequestHandler):
     def _serve(self, method: str) -> None:
         n = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(n) if n else b""
-        path = self.path.split("?", 1)[0]
+        url = urlsplit(self.path)
+        req = _Request(body, self.headers.get("Content-Type", ""),
+                       dict(parse_qsl(url.query)), self.headers)
         try:
-            status, obj = self.agent._route(
-                method, path, body, self.headers.get("Content-Type", ""))
+            status, obj = self.agent._route(method, url.path, req)
         except Exception as e:  # noqa: BLE001 — surfaced as a 500
-            logger.exception("%s %s failed", method, path)
+            logger.exception("%s %s failed", method, url.path)
             status, obj = 500, {"error": str(e)}
         if isinstance(obj, bytes):          # a msgpack frame
             data, ctype = obj, msgpack_lite.CONTENT_TYPE
+        elif isinstance(obj, str):          # Prometheus or folded text
+            data, ctype = obj.encode(), "text/plain; charset=utf-8"
         else:
             data, ctype = json.dumps(obj).encode(), wire.JSON_CONTENT_TYPE
         self.send_response(status)
@@ -479,8 +638,16 @@ class _BadRequest(ValueError):
     """A request body the agent cannot parse (HTTP 400)."""
 
 
-# (status, a JSON object or the bytes of a msgpack frame).
-Reply = tuple[int, Union[dict, bytes]]
+# (status, a JSON object, the bytes of a msgpack frame, or plain text).
+Reply = tuple[int, Union[dict, bytes, str]]
+
+
+def _params_on(tree: Any, device: torch.device) -> Any:
+    """A weight tree on ``device``: the same tensors where they already
+    lie there (no copy), else copies."""
+    if isinstance(tree, dict):
+        return {k: _params_on(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 class EngineAgent:
@@ -488,25 +655,43 @@ class EngineAgent:
                  coord: Optional[CoordinationClient] = None,
                  params: Optional[dict] = None,
                  device: Optional[Union[str, torch.device]] = None):
+        if agent_cfg.telemetry_mode not in TELEMETRY_MODES:
+            raise ValueError(f"telemetry_mode {agent_cfg.telemetry_mode!r} "
+                             f"is not one of {TELEMETRY_MODES}")
         self.cfg = agent_cfg
         tokenizer = TokenizerFactory.create_tokenizer(
             agent_cfg.tokenizer_path)
-        # The engine first: without a card (and no device named) it raises
-        # before anything else is opened.
-        self.engine = InferenceEngine(engine_cfg, device=device,
-                                      tokenizer=tokenizer, params=params)
+        # The engines first: without a card (and no device named) the
+        # first raises before anything else is opened.
+        self.engines = self._build_engines(engine_cfg, tokenizer, params,
+                                           device)
+        self.engine = self.engines[0]   # config and metadata accessor
+        self._rr_replica = 0
         self.coord = coord or connect(agent_cfg.coordination_addr)
         self.port = agent_cfg.port or pick_free_port(agent_cfg.host)
         self.name = f"{agent_cfg.host}:{self.port}"
         self.incarnation_id = uuid.uuid4().hex[:12]
         self.instance_type = agent_cfg.instance_type
-        # Last master address that resolved: the degraded-mode target
-        # while the plane is unreachable.
+        # Heartbeat wire: msgpack (KV-event keys as raw 16 bytes) until a
+        # master rejects it, then JSON for the rest of that master's life
+        # (a new master may take msgpack again).
+        self._hb_wire = wire.WIRE_MSGPACK
+        self._hb_master = ""
+        # One kept-alive pool for every telemetry hop (beats and pushes)
+        # and the owner resolver over the mirrored service membership.
+        self.telemetry_conns = _Connections(timeout_s=10.0)
+        self.telemetry_owner = TelemetryOwnerResolver(
+            self.coord, self.name,
+            hold_last_owner=agent_cfg.degraded_mode != "off")
+        self._telemetry_mode = agent_cfg.telemetry_mode
+        # Last master address that resolved (the funnel mode): the
+        # degraded-mode target while the plane is unreachable.
         self._last_master = ""
-        self._hb_conns = _Connections(timeout_s=3.0)
-        # Pass the agent itself: cancel() is the engine's.
-        self.streamer = GenerationStreamer(self,
-                                           agent_cfg.generation_flush_ms)
+        # Pass the agent itself: cancel() fans out across replicas.
+        self.streamer = GenerationStreamer(
+            self, agent_cfg.generation_flush_ms, conns=self.telemetry_conns,
+            owner_fn=self.telemetry_owner
+            if self._telemetry_mode == "mux" else None)
         # Stamp sender identity on every delta: after a transparent
         # failover the service drops deltas from incarnations the request
         # is no longer bound to.
@@ -549,15 +734,23 @@ class EngineAgent:
         self._reg_lock = threading.Lock()
         self._stop_lock = threading.Lock()
         self._stopped = False
+        self._profiler_started = False
         self._wake = threading.Event()
         self._server: Optional[_Server] = None
         self._conns: set = set()
         self._conns_lock = threading.Lock()
         self._threads: list[threading.Thread] = []
-        self._routes: dict[tuple[str, str], Callable[[bytes, str], Reply]] = {
+        self._routes: dict[tuple[str, str], Callable[[_Request], Reply]] = {
             ("GET", "/health"): self._h_health,
             ("GET", "/v1/models"): self._h_models,
             ("GET", "/stats"): self._h_stats,
+            ("GET", "/metrics"): self._h_metrics,
+            ("GET", "/admin/trace"): lambda r: admin_trace(r.query),
+            ("GET", "/admin/trace/recent"):
+                lambda r: admin_trace_recent(r.query),
+            ("GET", "/admin/flightrecorder/recent"):
+                lambda r: admin_flightrecorder_recent(r.query),
+            ("GET", "/admin/profile"): lambda r: admin_profile(r.query),
             ("POST", "/v1/completions"): self._h_completion,
             ("POST", "/v1/chat/completions"): self._h_chat,
             ("POST", "/v1/embeddings"): self._h_embeddings,
@@ -569,30 +762,107 @@ class EngineAgent:
             ("POST", "/rpc/kv_transfer"): self._h_kv_transfer,
             ("POST", "/rpc/kv_stream_pull"): self._h_kv_stream_pull,
         }
+        # Flight-recorder bundles carry this agent's state at anomaly time.
+        RECORDER.add_context_provider("engine", self._anomaly_context)
 
+    def _build_engines(self, engine_cfg: EngineConfig, tokenizer,
+                       params: Optional[dict],
+                       device) -> list[InferenceEngine]:
+        """The replicas: replica 0 on ``device``, replica i on the i-th
+        CUDA device from it (every replica on the one card of a one-card
+        machine; the CPU for all on the CPU), each with its own pool,
+        pinned buffers and streams, sharing replica 0's weight tensors
+        where the device is the same (copies elsewhere). A tier spill file
+        is per replica (``<path>.<i>``): a shared one would be truncated
+        under another replica's live mapping."""
+        dp = max(1, self.cfg.dp_size)
+        if dp > 1 and engine_cfg.mesh is not None:
+            logger.warning("dp_size > 1 with an engine mesh is not "
+                           "supported; forcing dp_size 1")
+            dp = 1
+        first = InferenceEngine(engine_cfg, device=device,
+                                tokenizer=tokenizer, params=params)
+        engines = [first]
+        for i in range(1, dp):
+            dev = first.device
+            if dev.type == "cuda":
+                base = dev.index if dev.index is not None \
+                    else torch.cuda.current_device()
+                dev = torch.device("cuda",
+                                   (base + i) % torch.cuda.device_count())
+            cfg_i = engine_cfg
+            if engine_cfg.kv_tier_ssd_path:
+                cfg_i = dataclasses.replace(
+                    engine_cfg,
+                    kv_tier_ssd_path=f"{engine_cfg.kv_tier_ssd_path}.{i}")
+            engines.append(InferenceEngine(
+                cfg_i, device=dev, tokenizer=tokenizer,
+                params=_params_on(first.params, dev)))
+        return engines
+
+    def _anomaly_context(self) -> dict[str, Any]:
+        return {
+            "instance": self.name,
+            "incarnation": self.incarnation_id,
+            "stats": self.aggregate_stats(),
+            "kv_tier": self._tier_stats(),
+            "kv_transfer": {
+                "device_sent": self.kv_device_sent,
+                "host_sent": self.kv_host_sent,
+                "stream_sent": self.kv_stream_sent,
+                "stream_received": self.kv_stream_received,
+            },
+        }
+
+    # --------------------------------------------------------- dp dispatch
     def cancel(self, service_request_id: str) -> None:
-        self.engine.cancel(service_request_id)
+        """Fan a cancel across the replicas (each ignores unknown ids)."""
+        for eng in self.engines:
+            eng.cancel(service_request_id)
+
+    def _pick_engine(self, token_ids: list[int]) -> InferenceEngine:
+        """Replica dispatch: prefix-affine (the same first hash block lands
+        on the same replica, so its prefix cache hits), with a load guard
+        (the least-loaded replica when the affine one is a full batch
+        deeper)."""
+        if len(self.engines) == 1:
+            return self.engines[0]
+        block = self.engine.cfg.hash_block_size
+        key = hash(tuple(token_ids[:block])) if token_ids \
+            else self._rr_replica
+        self._rr_replica += 1
+        affine = self.engines[key % len(self.engines)]
+
+        def depth(e: InferenceEngine) -> int:
+            s = e.stats()
+            return s["waiting"] + s["running"]
+
+        lightest = min(self.engines, key=depth)
+        if depth(affine) > depth(lightest) + self.engine.cfg.max_batch_size:
+            return lightest
+        return affine
 
     # ------------------------------------------------------------ metadata
-    # Conservative cold-start tables (used until the engine has measured
-    # enough of its own traffic to fit real ones).
+    # Conservative cold-start tables (used until the engines have measured
+    # enough of their own traffic to fit real ones).
     DEFAULT_TTFT_TABLE = [[128, 30.0], [512, 80.0], [2048, 250.0],
                           [4096, 520.0]]
     DEFAULT_TPOT_TABLE = [[1, 128, 6.0], [4, 2048, 9.0],
                           [8, 8192, 14.0], [16, 32768, 25.0]]
 
     def profiling_tables(self) -> tuple[list, list]:
-        """SLO profiling tables from live engine telemetry. Samples are
-        bucketed (median per bucket, robust to stragglers); until >= 3
-        distinct buckets exist the conservative defaults are advertised so
-        the predictor always has something to fit."""
+        """SLO profiling tables from every replica's live telemetry.
+        Samples are bucketed (median per bucket, robust to stragglers);
+        until >= 3 distinct buckets exist the conservative defaults are
+        advertised so the predictor always has something to fit."""
         ttft: dict[int, list[float]] = {}
         tpot: dict[int, list[tuple[int, float]]] = {}
-        for plen, ms in list(self.engine.ttft_samples):
-            bucket = 1 << max(5, (plen - 1).bit_length())
-            ttft.setdefault(bucket, []).append(ms)
-        for batch, toks, ms in list(self.engine.tpot_samples):
-            tpot.setdefault(batch, []).append((toks, ms))
+        for eng in self.engines:
+            for plen, ms in list(eng.ttft_samples):
+                bucket = 1 << max(5, (plen - 1).bit_length())
+                ttft.setdefault(bucket, []).append(ms)
+            for batch, toks, ms in list(eng.tpot_samples):
+                tpot.setdefault(batch, []).append((toks, ms))
         ttft_table = [[b, statistics.median(v)]
                       for b, v in sorted(ttft.items())]
         tpot_table = [
@@ -619,7 +889,7 @@ class EngineAgent:
         ttft_table, tpot_table = self.profiling_tables()
         return InstanceMetaInfo(
             name=self.name, rpc_address=self.name, type=self.instance_type,
-            dp_size=1,
+            dp_size=len(self.engines),
             topology=TpuTopology(
                 slice_id=self.cfg.slice_id,
                 host=self.cfg.topo_host,
@@ -639,14 +909,20 @@ class EngineAgent:
             incarnation_id=self.incarnation_id,
             register_ts_ms=int(time.time() * 1000),
             models=[self.cfg.model_id],
-            wire_formats=[wire.WIRE_JSON],
+            # The accept routes parse msgpack: the master dispatches it.
+            wire_formats=[wire.WIRE_MSGPACK, wire.WIRE_JSON],
             ttft_profiling_data=ttft_table,
             tpot_profiling_data=tpot_table,
         )
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "EngineAgent":
-        self.engine.start()
+        # The sampling profiler is refcounted: agents sharing a process
+        # share its one sampler.
+        PROFILER.start()
+        self._profiler_started = True
+        for eng in self.engines:
+            eng.start()
         handler = type("_AgentHandler", (_Handler,), {"agent": self})
         self._server = _Server((self.cfg.host, self.port), handler)
         t = threading.Thread(target=self._server.serve_forever,
@@ -659,9 +935,10 @@ class EngineAgent:
                               name="agent-heartbeat")
         hb.start()
         self._threads.append(hb)
-        logger.info("engine agent %s (%s, model=%s) up on %s",
-                    self.name, self.instance_type.value, self.cfg.model_id,
-                    self.engine.device)
+        logger.info("engine agent %s (%s, model=%s, dp_size=%d, telemetry "
+                    "%s) up on %s", self.name, self.instance_type.value,
+                    self.cfg.model_id, len(self.engines),
+                    self._telemetry_mode, self.engine.device)
         return self
 
     def register(self) -> None:
@@ -697,9 +974,20 @@ class EngineAgent:
                 return
             self._stopped = True
         self._wake.set()
+        if self._profiler_started:
+            self._profiler_started = False
+            PROFILER.stop()
+        RECORDER.remove_context_provider("engine", self._anomaly_context)
+        # This agent's labeled series end with it (agents that share a
+        # process share the families).
+        for peer in list(self.linked_peers):
+            evict_series(ENGINE_PEER_LINKED, peer=peer)
+        if self._hb_master:
+            evict_series(ENGINE_HEARTBEATS_TOTAL, master=self._hb_master)
         self.coord.rm(instance_key(self.instance_type.value, self.name))
         self.streamer.stop()
-        self.engine.stop()
+        for eng in self.engines:
+            eng.stop()
         self._pulls.shutdown(wait=False, cancel_futures=True)
         if self.kv_transfer is not None:
             self.kv_transfer.close()
@@ -713,7 +1001,7 @@ class EngineAgent:
                 c.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
-        self._hb_conns.close()
+        self.telemetry_conns.close()
         self.coord.close()
 
     def _note_conn(self, conn: Any, open_: bool) -> None:
@@ -722,76 +1010,173 @@ class EngineAgent:
 
     # ----------------------------------------------------------- heartbeats
     def _heartbeat_loop(self) -> None:
-        """The reference's master funnel: re-register (lease refresh),
-        resolve the elected master, beat to it."""
+        """Re-register (the lease refresh), pick the target by telemetry
+        mode and beat to it; a target that fails hands this same beat to
+        the rendezvous successor at once."""
         while not self._wake.wait(self.cfg.heartbeat_interval_s):
             try:
-                if self.kv_transfer is not None:
-                    self.kv_transfer.gc()   # free never-pulled KV offers
-                self.kv_stream.gc()         # ... and expired stream offers
-                self.register()
-                target = self.coord.get(MASTER_KEY) or ""
-                if target:
-                    self._last_master = target
-                elif self.cfg.degraded_mode != "off":
-                    # Static stability: an unreachable plane resolves no
-                    # master; keep beating at the last one that did.
-                    target = self._last_master
-                if not target:
-                    continue
-                stats = self.aggregate_stats()
-                ev = self.engine.drain_kv_events()
-                ttft, tbt = self.engine.drain_recent_latency()
-                payload = {
-                    "name": self.name,
-                    "incarnation_id": self.incarnation_id,
-                    "load_metrics": {
-                        "waiting_requests_num": stats["waiting"],
-                        "running_requests_num": stats["running"],
-                        "hbm_cache_usage_perc": stats["kv_usage_perc"],
-                    },
-                    "latency_metrics": {
-                        "recent_max_ttft": ttft,
-                        "recent_max_tbt": tbt,
-                    },
-                }
-                self._post_heartbeat(target, payload, ev)
+                self._beat_once()
             except Exception:  # noqa: BLE001 — the loop must survive
                 logger.exception("heartbeat failed")
 
+    def _beat_once(self) -> None:
+        self.register()
+        if self.kv_transfer is not None:
+            self.kv_transfer.gc()   # free never-pulled KV offers
+        self.kv_stream.gc()         # ... and expired stream offers
+        if self._telemetry_mode == "master":
+            target = self.coord.get(MASTER_KEY) or ""
+            if target:
+                self._last_master = target
+            elif self.cfg.degraded_mode != "off":
+                # Static stability: an unreachable plane resolves no
+                # master; keep beating at the last one that did (the
+                # owner modes hold inside the resolver).
+                target = self._last_master
+        else:
+            target = self.telemetry_owner()
+        if not target:
+            return
+        stats = self.aggregate_stats()
+        ev = self.engines[0].drain_kv_events()
+        for eng in self.engines[1:]:
+            ev.merge(eng.drain_kv_events())
+        drained = [e.drain_recent_latency() for e in self.engines]
+        payload = {
+            "name": self.name,
+            "incarnation_id": self.incarnation_id,
+            "load_metrics": {
+                "waiting_requests_num": stats["waiting"],
+                "running_requests_num": stats["running"],
+                "hbm_cache_usage_perc": stats["kv_usage_perc"],
+            },
+            "latency_metrics": {
+                "recent_max_ttft": max(t for t, _ in drained),
+                "recent_max_tbt": max(t for _, t in drained),
+            },
+        }
+        if not self._post_heartbeat(target, payload, ev):
+            # The owner is unreachable: the resolver skips it and its
+            # rendezvous successor gets this same beat now, not an
+            # interval later.
+            self.telemetry_owner.note_failure(target)
+            successor = self.telemetry_owner() \
+                if self._telemetry_mode != "master" else ""
+            if successor and successor != target:
+                self._post_heartbeat(successor, payload, ev)
+
     def _post_heartbeat(self, target: str, payload: dict,
                         ev: KvCacheEvent) -> bool:
-        """One heartbeat on the JSON wire (KV-event keys as hex)."""
-        payload = dict(payload, kv_cache_event=ev.to_dict())
-        body, ctype = wire.encode_dispatch(payload)
+        """One beat. mode "mux": a tagged frame on the telemetry pool (a
+        target without /rpc/telemetry demotes the agent to the elected-
+        master funnel). The per-endpoint wire: msgpack with raw 16-byte
+        KV-event keys, demoted to JSON on 400/415 and re-sent (a beat is
+        idempotent: the index applies absolute moves)."""
+        conns = self.telemetry_conns
         try:
-            status, _ = self._hb_conns.post(target, "/rpc/heartbeat", body,
-                                            ctype)
+            self._note_master(target)
+            if self._telemetry_mode == "mux":
+                frame = dict(payload, kv_cache_event=ev.to_wire_dict())
+                body, ctype = wire.encode_telemetry(
+                    [{"t": wire.TELEMETRY_HB, "d": frame}])
+                status, data = conns.post(target, "/rpc/telemetry", body,
+                                          ctype, timeout_s=3.0)
+                ENGINE_HEARTBEATS_TOTAL.labels(master=target).inc()
+                if status not in (404, 405):
+                    if status == 200:
+                        self._adopt_owner_hint(data, target)
+                        return True
+                    return False
+                logger.warning("telemetry target %s lacks /rpc/telemetry; "
+                               "demoting the agent to the elected-master "
+                               "funnel", target)
+                # A master without the route predates the sharded ingest:
+                # there only the elected master takes beats.
+                self._telemetry_mode = "master"
+            fmt = self._hb_wire
+            body, ctype = wire.encode_dispatch(dict(
+                payload, kv_cache_event=ev.to_wire_dict()
+                if fmt == wire.WIRE_MSGPACK else ev.to_dict()), fmt)
+            status, data = conns.post(target, "/rpc/heartbeat", body, ctype,
+                                      timeout_s=3.0)
+            ENGINE_HEARTBEATS_TOTAL.labels(master=target).inc()
+            if status in (400, 415) and fmt == wire.WIRE_MSGPACK:
+                logger.warning("master rejected the msgpack heartbeat (%d); "
+                               "demoting to the JSON wire", status)
+                self._hb_wire = wire.WIRE_JSON
+                body, ctype = wire.encode_dispatch(
+                    dict(payload, kv_cache_event=ev.to_dict()))
+                status, data = conns.post(target, "/rpc/heartbeat", body,
+                                          ctype, timeout_s=3.0)
+            if status == 200:
+                self._adopt_owner_hint(data, target)
+                return True
+            return False
         except (http.client.HTTPException, OSError) as e:
             logger.warning("heartbeat to %s failed: %s", target, e)
             return False
-        return status == 200
+
+    def _adopt_owner_hint(self, data: bytes, target: str) -> None:
+        """A beat's reply names the receiving master's view of this
+        instance's owner (`owner`); in a membership race the mirrored
+        resolution can lag it, and adopting the hint re-routes the next
+        beat instead of waiting a cache window out."""
+        if self._telemetry_mode == "master":
+            return
+        try:
+            owner = (json.loads(data) or {}).get("owner", "")
+        except (ValueError, AttributeError):
+            return
+        if owner and owner != target:
+            logger.info("telemetry owner hint: %s -> %s", target, owner)
+            self.telemetry_owner.pin(owner)
+
+    def _note_master(self, master: str) -> None:
+        """Track the beat's destination. On a change: probe msgpack again
+        (the new master may take it) and evict the old master's labeled
+        heartbeat series (master addresses are ephemeral; a long-lived
+        engine would otherwise grow one dead series per election)."""
+        if master == self._hb_master:
+            return
+        if self._hb_master:
+            evict_series(ENGINE_HEARTBEATS_TOTAL, master=self._hb_master)
+        self._hb_master = master
+        self._hb_wire = wire.WIRE_MSGPACK
+
+    def telemetry_stats(self) -> dict[str, Any]:
+        """The telemetry wiring and its pool: ``hosts`` = destinations the
+        pool holds (the mux mode keeps it at 1), ``connections_created``
+        = connections they have made."""
+        return {
+            "mode": self._telemetry_mode,
+            "owner": self.telemetry_owner() or "",
+            "mux_sends": self.streamer.mux_sends,
+            "direct_sends": self.streamer.direct_sends,
+            **self.telemetry_conns.stats(),
+        }
 
     # ------------------------------------------------------------ handlers
     def aggregate_stats(self) -> dict[str, Any]:
-        s = self.engine.stats()
+        """Instance-level stats: the sum over replicas (kv usage: the max,
+        a saturation signal)."""
+        per = [e.stats() for e in self.engines]
         return {
-            "waiting": s["waiting"],
-            "running": s["running"],
-            "kv_usage_perc": s["kv_usage_perc"],
-            "cached_blocks": s["cached_blocks"],
-            "total_generated": s["total_generated"],
-            "dp_size": 1,
-            "sarathi_rides": self.engine.sarathi_rides,
-            "preemption_count": self.engine.preemption_count,
+            "waiting": sum(s["waiting"] for s in per),
+            "running": sum(s["running"] for s in per),
+            "kv_usage_perc": max(s["kv_usage_perc"] for s in per),
+            "cached_blocks": sum(s["cached_blocks"] for s in per),
+            "total_generated": sum(s["total_generated"] for s in per),
+            "dp_size": len(self.engines),
+            "sarathi_rides": sum(e.sarathi_rides for e in self.engines),
+            "preemption_count": sum(e.preemption_count
+                                    for e in self.engines),
         }
 
-    def _route(self, method: str, path: str, body: bytes,
-               ctype: str) -> Reply:
+    def _route(self, method: str, path: str, req: _Request) -> Reply:
         fn = self._routes.get((method, path))
         if fn is not None:
             try:
-                return fn(body, ctype)
+                return fn(req)
             except _BadRequest as e:
                 return 400, {"error": str(e)}
         if path in _NOT_PORTED:
@@ -808,18 +1193,17 @@ class EngineAgent:
             raise _BadRequest("body must be an object")
         return obj
 
-    def _h_health(self, body: bytes, ctype: str) -> Reply:
+    def _h_health(self, req: _Request) -> Reply:
         return 200, {"status": "ok"}
 
-    def _h_models(self, body: bytes, ctype: str) -> Reply:
+    def _h_models(self, req: _Request) -> Reply:
         return 200, {"object": "list", "data": [
             {"id": self.cfg.model_id, "object": "model"}]}
 
-    def _h_stats(self, body: bytes, ctype: str) -> Reply:
+    def _h_stats(self, req: _Request) -> Reply:
         return 200, {
             **self.aggregate_stats(),
-            "telemetry": {"mode": "master",
-                          "direct_sends": self.streamer.direct_sends},
+            "telemetry": self.telemetry_stats(),
             "kv_transfer": {
                 "device_sent": self.kv_device_sent,
                 "host_sent": self.kv_host_sent,
@@ -834,27 +1218,129 @@ class EngineAgent:
         }
 
     def _tier_stats(self) -> dict[str, Any]:
-        """Tier-store telemetry ({} = tiering off)."""
-        store = self.engine.tier_store
-        return dict(store.stats()) if store is not None else {}
+        """Tier-store telemetry summed over replicas ({} = tiering off)."""
+        out: dict[str, Any] = {}
+        for eng in self.engines:
+            store = eng.tier_store
+            if store is None:
+                continue
+            for k, v in store.stats().items():
+                out[k] = out.get(k, 0) + v if k != "block_nbytes" else v
+        return out
 
     def _span_summary(self) -> dict[str, float]:
         """p50s of the TTFT span samples (agent accept -> first delta; the
-        engine's queue wait; its prefill), so an external bench can split
+        engines' queue wait; their prefill), so an external bench can split
         client TTFT across processes."""
         def p50(xs):
             xs = sorted(xs)
             return round(xs[len(xs) // 2], 1) if xs else 0.0
 
-        eng = list(self.engine.span_samples)
+        eng = [s for e in self.engines for s in list(e.span_samples)]
         return {"n": len(self.ttft_spans),
                 "agent_accept_to_first_delta_ms": p50(self.ttft_spans),
                 "engine_queue_ms": p50(s["queue_ms"] for s in eng),
                 "engine_prefill_ms": p50(s["prefill_ms"] for s in eng)}
 
-    def _h_link(self, body: bytes, ctype: str) -> Reply:
+    def _h_metrics(self, req: _Request) -> Reply:
+        """Prometheus text of the engine's state: the reference agent's
+        families, types and labels."""
+        st = self.aggregate_stats()
+        lines = [
+            "# TYPE engine_waiting_requests gauge",
+            f"engine_waiting_requests {st['waiting']}",
+            "# TYPE engine_running_requests gauge",
+            f"engine_running_requests {st['running']}",
+            "# TYPE engine_kv_usage_perc gauge",
+            f"engine_kv_usage_perc {st['kv_usage_perc']:.6f}",
+            "# TYPE engine_cached_prefix_blocks gauge",
+            f"engine_cached_prefix_blocks {st['cached_blocks']}",
+            "# TYPE engine_generated_tokens_total counter",
+            f"engine_generated_tokens_total {st['total_generated']}",
+            "# TYPE engine_preemptions_total counter",
+            f"engine_preemptions_total {st['preemption_count']}",
+            "# TYPE engine_recent_max_ttft_milliseconds gauge",
+            f"engine_recent_max_ttft_milliseconds "
+            f"{max(e.recent_max_ttft_ms for e in self.engines):.3f}",
+            "# TYPE engine_recent_max_tbt_milliseconds gauge",
+            f"engine_recent_max_tbt_milliseconds "
+            f"{max(e.recent_max_tbt_ms for e in self.engines):.3f}",
+            "# TYPE engine_dp_size gauge",
+            f"engine_dp_size {len(self.engines)}",
+            "# TYPE engine_sarathi_rides_total counter",
+            f"engine_sarathi_rides_total {st['sarathi_rides']}",
+        ]
+        tel = self.telemetry_stats()
+        lines += [
+            "# TYPE engine_telemetry_session_hosts gauge",
+            f"engine_telemetry_session_hosts {tel['hosts']}",
+            "# TYPE engine_telemetry_connections_created counter",
+            f"engine_telemetry_connections_created "
+            f"{tel['connections_created']}",
+            "# TYPE engine_telemetry_mux_sends_total counter",
+            f"engine_telemetry_mux_sends_total {tel['mux_sends']}",
+            "# TYPE engine_telemetry_direct_sends_total counter",
+            f"engine_telemetry_direct_sends_total {tel['direct_sends']}",
+        ]
+        tier = self._tier_stats()
+        if tier:
+            lines += [
+                "# TYPE engine_kv_tier_blocks gauge",
+                f'engine_kv_tier_blocks{{tier="dram"}} '
+                f"{tier.get('dram_blocks', 0)}",
+                f'engine_kv_tier_blocks{{tier="ssd"}} '
+                f"{tier.get('ssd_blocks', 0)}",
+                "# TYPE engine_kv_tier_offloads_total counter",
+                f"engine_kv_tier_offloads_total "
+                f"{tier.get('offload_total', 0)}",
+                "# TYPE engine_kv_tier_onloads_total counter",
+                f"engine_kv_tier_onloads_total "
+                f"{tier.get('onload_total', 0)}",
+                "# TYPE engine_kv_tier_bytes_total counter",
+                f'engine_kv_tier_bytes_total{{direction="offload"}} '
+                f"{tier.get('bytes_offloaded', 0)}",
+                f'engine_kv_tier_bytes_total{{direction="onload"}} '
+                f"{tier.get('bytes_onloaded', 0)}",
+            ]
+        for link, bw in self.bandwidth.stats().items():
+            lines += [
+                f'engine_kv_stream_bytes_total{{link="{link}"}} '
+                f"{bw['bytes_total']:.0f}",
+                f'engine_kv_stream_throughput_bytes_per_s{{link="{link}"}} '
+                f"{bw['throughput_bytes_per_s']:.1f}",
+            ]
+        spans = self._span_summary()
+        lines += [
+            "# TYPE engine_ttft_span_p50_milliseconds gauge",
+            'engine_ttft_span_p50_milliseconds{span="agent_total"} '
+            f"{spans['agent_accept_to_first_delta_ms']:.3f}",
+            'engine_ttft_span_p50_milliseconds{span="engine_queue"} '
+            f"{spans['engine_queue_ms']:.3f}",
+            'engine_ttft_span_p50_milliseconds{span="engine_prefill"} '
+            f"{spans['engine_prefill_ms']:.3f}",
+        ]
+        # The agent's labeled families (evicted on unlink and on a master
+        # change, so the exposition stays bounded).
+        for inst in (ENGINE_PEER_LINKED, ENGINE_HEARTBEATS_TOTAL):
+            rendered = inst.render()
+            if rendered:
+                lines.append(f"# TYPE {inst.name} {inst.kind}")
+                lines.append(rendered.rstrip("\n"))
+        return 200, "\n".join(lines) + "\n"
+
+    def _stage_span(self, point: str, ctx: Optional[TraceContext],
+                    sid: str, **attrs: Any):
+        """An engine-side stage span under the orchestrator's carried
+        context; a request without one is not traced (there is no tree to
+        hang it on). Only started and ended, never entered: it may end on
+        another thread than the one that opened it."""
+        return TRACER.start_span(point, ctx=ctx, request_id=sid,
+                                 require_ctx=True, instance=self.name,
+                                 incarnation=self.incarnation_id, **attrs)
+
+    def _h_link(self, req: _Request) -> Reply:
         peer = InstanceMetaInfo.from_json(
-            json.dumps(self._json(body).get("peer", {})))
+            json.dumps(self._json(req.body).get("peer", {})))
         # KV-layout compatibility gate.
         mine = self.meta()
         for f in ("kv_page_size", "num_layers", "num_kv_heads", "head_dim"):
@@ -862,17 +1348,22 @@ class EngineAgent:
                 return 409, {"ok": False,
                              "error": f"kv layout mismatch on {f}"}
         self.linked_peers[peer.name] = peer
+        ENGINE_PEER_LINKED.labels(peer=peer.name).set(1)
         return 200, {"ok": True}
 
-    def _h_unlink(self, body: bytes, ctype: str) -> Reply:
-        self.linked_peers.pop(self._json(body).get("peer_name", ""), None)
+    def _h_unlink(self, req: _Request) -> Reply:
+        peer_name = self._json(req.body).get("peer_name", "")
+        if self.linked_peers.pop(peer_name, None) is not None:
+            # A departed peer's series goes with it (ephemeral ports would
+            # make the set unbounded).
+            evict_series(ENGINE_PEER_LINKED, peer=peer_name)
         return 200, {"ok": True}
 
-    def _h_cancel(self, body: bytes, ctype: str) -> Reply:
-        self.cancel(self._json(body).get("service_request_id", ""))
+    def _h_cancel(self, req: _Request) -> Reply:
+        self.cancel(self._json(req.body).get("service_request_id", ""))
         return 200, {"ok": True}
 
-    def _h_drain(self, body: bytes, ctype: str) -> Reply:
+    def _h_drain(self, req: _Request) -> Reply:
         """Master-initiated graceful retirement: the drain sequence runs
         on a background thread; the RPC acks immediately."""
         if not self._draining:
@@ -880,20 +1371,20 @@ class EngineAgent:
                              daemon=True).start()
         return 200, {"ok": True, "draining": True}
 
-    def _h_flip(self, body: bytes, ctype: str) -> Reply:
-        """Dynamic PD-role switch: the engine keeps its weights and KV
-        pool; the registration moves to the new role's key."""
-        new_type = InstanceType.parse(self._json(body).get("type"))
+    def _h_flip(self, req: _Request) -> Reply:
+        """Dynamic PD-role switch: the engines keep their weights and KV
+        pools; the registration moves to the new role's key."""
+        new_type = InstanceType.parse(self._json(req.body).get("type"))
         with self._reg_lock:
             self.coord.rm(instance_key(self.instance_type.value, self.name))
             self.instance_type = new_type
         self.register()
         return 200, {"ok": True}
 
-    def _h_embeddings(self, body: bytes, ctype: str) -> Reply:
-        """OpenAI embeddings over the engine's embed forward."""
-        req = self._json(body)
-        inputs = req.get("input")
+    def _h_embeddings(self, req: _Request) -> Reply:
+        """OpenAI embeddings over an engine's embed forward."""
+        body = self._json(req.body)
+        inputs = body.get("input")
         if isinstance(inputs, str):
             inputs = [inputs]
         if not isinstance(inputs, list) or not inputs:
@@ -906,29 +1397,28 @@ class EngineAgent:
         max_len = self.engine.cfg.max_seq_len
         tok = self.engine.tokenizer
         token_lists = [tok.encode(str(t))[:max_len] or [0] for t in inputs]
-        vecs = self.engine.embed(token_lists)
+        vecs = self._pick_engine(token_lists[0]).embed(token_lists)
         n_tokens = sum(len(t) for t in token_lists)
         return 200, {
             "object": "list",
-            "model": req.get("model", self.cfg.model_id),
+            "model": body.get("model", self.cfg.model_id),
             "data": [{"object": "embedding", "index": i,
                       "embedding": [float(x) for x in v]}
                      for i, v in enumerate(vecs)],
             "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
         }
 
-    def _h_completion(self, body: bytes, ctype: str) -> Reply:
-        return self._accept(body, ctype, chat=False)
+    def _h_completion(self, req: _Request) -> Reply:
+        return self._accept(req, chat=False)
 
-    def _h_chat(self, body: bytes, ctype: str) -> Reply:
-        return self._accept(body, ctype, chat=True)
+    def _h_chat(self, req: _Request) -> Reply:
+        return self._accept(req, chat=True)
 
-    def _accept(self, data: bytes, ctype: str, chat: bool) -> Reply:
+    def _accept(self, req: _Request, chat: bool) -> Reply:
         t_recv = time.monotonic()
         try:
-            body = wire.decode_body(ctype, data)
-        except wire.UnsupportedMediaType as e:
-            return 415, {"error": str(e)}
+            # The negotiated dispatch wire: msgpack or JSON by content type.
+            body = wire.decode_body(req.ctype, req.body)
         except ValueError:
             return 400, {"error": "invalid request body"}
         if not isinstance(body, dict):
@@ -963,60 +1453,81 @@ class EngineAgent:
             return 400, {"error": "source_service_addr required (engine "
                                   "streams results to the service RPC "
                                   "endpoint)"}
-        decode_name = (body.get("routing") or {}).get("decode_name", "")
         dest = source
         first_delta = [True]
+        # Stage spans under the orchestrator's carried context: prefill
+        # from accept to the first delta (or the PD handoff), decode from
+        # there to the finish.
+        ctx = TraceContext.from_dict(body.get("trace_context")) \
+            or TraceContext.from_headers(req.headers)
+        stage = {"span": self._stage_span("engine.prefill", ctx, sid,
+                                          prompt_tokens=len(token_ids))}
 
         def on_output(out: RequestOutput) -> None:
             if deadline_ms and not out.finished and now_ms() > deadline_ms:
                 # Mid-decode expiry: stop the request through the cancel
                 # path; the delta in hand still ships.
                 self.cancel(out.service_request_id)
+            err = None if out.status.ok() else \
+                f"ERROR: {out.status.message or out.status.code.name}"
             if first_delta[0]:
                 first_delta[0] = False
                 self.ttft_spans.append((time.monotonic() - t_recv) * 1000)
+                stage["span"].end(err)
+                # A prefill that failed before any token has no decode.
+                stage["span"] = NOOP_SPAN if err else \
+                    self._stage_span("engine.decode", ctx, sid)
+            if out.finished:
+                stage["span"].end(err)
             self.streamer.push(dest, out)
 
         request_id = body.get("request_id", sid)
         # PD disaggregation: a PREFILL instance with a routed decode peer
         # prefills, then ships KV + first token to the peer, which owns
         # the stream from there.
+        decode_name = (body.get("routing") or {}).get("decode_name", "")
         if self.instance_type == InstanceType.PREFILL and decode_name \
                 and decode_name != self.name:
 
             def on_prefill_done(h: PrefillHandoff) -> None:
+                stage["span"].end()
                 threading.Thread(
                     target=self._transfer_to_peer, daemon=True,
-                    args=(h, decode_name, dest),
+                    args=(h, decode_name, dest, ctx),
                     name=f"kv-transfer-{h.service_request_id}").start()
 
-            self.engine.submit(EngineRequest(
+            self._pick_engine(token_ids).submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
                 token_ids=token_ids, sampling=sampling,
                 prefill_only=True, on_prefill_done=on_prefill_done,
                 on_output=on_output))    # surfaces prefill-side errors
             return 200, {"ok": True, "service_request_id": sid}
 
-        # n > 1: fan out into n engine sequences sharing the prompt (the
-        # prefix cache dedupes their prefill); choice k's outputs are
-        # re-indexed, and `finished` is withheld until every choice is done.
+        # n > 1: fan out into n engine sequences sharing the prompt on one
+        # replica (its prefix cache dedupes their prefill); choice k's
+        # outputs are re-indexed, and `finished` is withheld until every
+        # choice is done.
         n = max(1, sampling.n)
         offline = bool(body.get("offline", False))
         priority = int(body.get("priority") or 0)
+        engine = self._pick_engine(token_ids)
         if n == 1:
-            self.engine.submit(EngineRequest(
+            engine.submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
                 token_ids=token_ids, sampling=sampling, on_output=on_output,
                 offline=offline, priority=priority))
             return 200, {"ok": True, "service_request_id": sid}
 
+        # The stage spans do not model the n-way fan-out: the prefill span
+        # closes here, so the trace still records the admission.
+        stage["span"].set(n=n).end()
         agg = _ChoiceAggregator(n, lambda out: self.streamer.push(dest, out))
         for k in range(n):
             sub_sampling = sampling
             if sampling.seed is not None:
                 sub_sampling = SamplingParams.from_dict(sampling.to_dict())
                 sub_sampling.seed = sampling.seed + k
-            self.engine.submit(EngineRequest(
+            engine.submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
                 token_ids=list(token_ids), sampling=sub_sampling,
                 on_output=agg.callback_for(k),
@@ -1024,15 +1535,17 @@ class EngineAgent:
         return 200, {"ok": True, "service_request_id": sid}
 
     # ------------------------------------------------- PD disaggregation
-    def _transfer_to_peer(self, h: PrefillHandoff, peer: str,
-                          dest: str) -> None:
+    def _transfer_to_peer(self, h: PrefillHandoff, peer: str, dest: str,
+                          ctx: Optional[TraceContext] = None) -> None:
         """Ship a prefilled sequence to its decode peer: the device path
         first (a CUDA IPC pull by a peer on this card), then the streamed
         host path at or above ``kv_stream_threshold_bytes``, then the
         inline host path. A device offer that fails falls back to the host
         paths (counted in /stats: ``device_sent`` against ``host_sent``);
-        a handoff that fails on every path reaches the service as
-        UNAVAILABLE."""
+        a streamed one that fails falls back inline and leaves a
+        ``kv_stream_fallback`` flight record; a handoff that fails on
+        every path reaches the service as UNAVAILABLE."""
+        trace_dict = ctx.to_dict() if ctx is not None else None
         peer_meta = self.linked_peers.get(peer)
         if (self.kv_transfer is not None and peer_meta is not None
                 and peer_meta.topology.kv_transfer_addr
@@ -1042,9 +1555,10 @@ class EngineAgent:
             try:
                 desc = self.kv_transfer.offer(
                     h.service_request_id, h.kv_blob, self.incarnation_id,
-                    ready=h.kv_ready)
+                    ready=h.kv_ready, ctx=ctx)
                 self._post_handoff(peer, pack_handoff(
-                    h, dest, kv_ref=desc, source_instance=self.name))
+                    h, dest, kv_ref=desc, source_instance=self.name,
+                    trace_context=trace_dict))
                 self.kv_transfer.release(desc["uuid"])
                 self._count_kv("kv_device_sent")
                 return
@@ -1063,10 +1577,14 @@ class EngineAgent:
             nbytes = host.kv_blob.numel() * host.kv_blob.element_size()
             thresh = self.cfg.kv_stream_threshold_bytes
             if 0 <= thresh <= nbytes and self._stream_to_peer(
-                    host, peer, dest, nbytes):
+                    host, peer, dest, nbytes, ctx):
                 return
-            self._post_handoff(peer, pack_handoff(
-                host, dest, source_instance=self.name))
+            with TRACER.span("kv_transfer.offer", ctx=ctx, require_ctx=True,
+                             request_id=h.service_request_id,
+                             instance=self.name, path="host"):
+                self._post_handoff(peer, pack_handoff(
+                    host, dest, source_instance=self.name,
+                    trace_context=trace_dict))
             self._count_kv("kv_host_sent")
         except Exception as e:  # noqa: BLE001 — reported to the service
             logger.warning("KV transfer of %s to %s failed: %s",
@@ -1079,9 +1597,12 @@ class EngineAgent:
                 finished=True))
 
     def _stream_to_peer(self, h: PrefillHandoff, peer: str, dest: str,
-                        nbytes: int) -> bool:
+                        nbytes: int,
+                        ctx: Optional[TraceContext] = None) -> bool:
         """The streamed host path: offer the bytes for chunked pulls and
-        post the descriptor. False (the inline path follows) on failure."""
+        post the descriptor. False (the inline path follows) on failure,
+        which is an anomaly worth a post-mortem: the handoff survives, but
+        the chunked pull and its pacing were lost mid-request."""
         desc = None
         try:
             desc = self.kv_stream.offer(
@@ -1089,9 +1610,11 @@ class EngineAgent:
                 shape=list(h.kv_blob.shape),
                 dtype=dtype_name(h.kv_blob.dtype),
                 incarnation=self.incarnation_id,
-                block_bytes=nbytes // max(1, h.kv_blob.shape[2]))
+                block_bytes=nbytes // max(1, h.kv_blob.shape[2]), ctx=ctx)
             self._post_handoff(peer, pack_handoff(
-                h, dest, source_instance=self.name, kv_stream=desc))
+                h, dest, source_instance=self.name,
+                trace_context=ctx.to_dict() if ctx is not None else None,
+                kv_stream=desc))
             self.kv_stream.release(desc["stream_uuid"])
             self._count_kv("kv_stream_sent", "kv_host_sent")
             return True
@@ -1101,6 +1624,12 @@ class EngineAgent:
             logger.warning(
                 "streamed KV transfer of %s to %s failed (%s); falling back "
                 "to the inline host path", h.service_request_id, peer, e)
+            trace_id = ctx.trace_id if ctx is not None else ""
+            TRACER.keep_trace(trace_id)
+            RECORDER.record(
+                "kv_stream_fallback", request_id=h.service_request_id,
+                trace_id=trace_id,
+                detail={"peer": peer, "error": str(e), "bytes": nbytes})
             return False
 
     def _count_kv(self, *names: str) -> None:
@@ -1130,10 +1659,10 @@ class EngineAgent:
         if r.status != 200:
             raise RuntimeError(f"peer returned {r.status}: {data[:200]!r}")
 
-    def _h_kv_stream_pull(self, body: bytes, ctype: str) -> Reply:
+    def _h_kv_stream_pull(self, req: _Request) -> Reply:
         """Serve one chunk of a streamed KV offer (msgpack in and out)."""
         try:
-            obj = msgpack_lite.unpackb(body)
+            obj = msgpack_lite.unpackb(req.body)
             frame = self.kv_stream.read_chunk(
                 int(obj["uuid"]), int(obj.get("offset", 0)),
                 int(obj.get("max_bytes", self.kv_stream.default_chunk_bytes)))
@@ -1161,14 +1690,14 @@ class EngineAgent:
             return "ici"
         return "dcn"
 
-    def _h_kv_transfer(self, body: bytes, ctype: str) -> Reply:
+    def _h_kv_transfer(self, req: _Request) -> Reply:
         """Decode side of the PD handoff: accept prompt KV + first token
-        from a linked peer and inject it into the engine. The KV arrives
-        inline, as a stream descriptor this side pulls in chunks, or as a
-        device descriptor this side pulls over CUDA IPC (the pulls run on
-        the agent's pull threads)."""
+        from a linked peer and inject it into the replica ``_pick_engine``
+        chooses. The KV arrives inline, as a stream descriptor this side
+        pulls in chunks, or as a device descriptor this side pulls over
+        CUDA IPC (the pulls run on the agent's pull threads)."""
         try:
-            obj = unpack_handoff(body)
+            obj = unpack_handoff(req.body)
             if not isinstance(obj, dict):
                 raise ValueError("not a map")
         except (TypeError, ValueError, KeyError) as e:
@@ -1179,6 +1708,7 @@ class EngineAgent:
             return 403, {"error": f"instance {src or '<unknown>'} is not a "
                                   "linked peer; rejecting KV handoff"}
         sid = obj.get("service_request_id", "")
+        ctx = TraceContext.from_dict(obj.get("trace_context"))
         now = time.monotonic()
         with self._seen_lock:
             for k, ts in list(self._handoffs_seen.items()):
@@ -1195,7 +1725,7 @@ class EngineAgent:
             try:
                 obj["kv_blob"] = self._pulls.submit(
                     pull_stream, src, obj["kv_stream"], self.bandwidth,
-                    self._link_class(src)).result()
+                    self._link_class(src), ctx=ctx).result()
                 self._count_kv("kv_stream_received")
             except Exception as e:  # noqa: BLE001 — reported to the peer
                 logger.warning("streamed KV pull for %s failed: %s", sid, e)
@@ -1206,8 +1736,8 @@ class EngineAgent:
                 return 400, {"error": "no KV payload and no device-transfer "
                                       "capability"}
             try:
-                obj["kv_blob"] = self._pulls.submit(self.kv_transfer.pull,
-                                                    ref).result()
+                obj["kv_blob"] = self._pulls.submit(
+                    self.kv_transfer.pull, ref, ctx=ctx).result()
                 self._count_kv("kv_device_received")
             except Exception as e:  # noqa: BLE001 — reported to the peer
                 logger.warning("device KV pull for %s failed: %s", sid, e)
@@ -1222,8 +1752,16 @@ class EngineAgent:
                          logprob=lp_d["logprob"],
                          top_logprobs=[LogProbData(t[0], t[1], t[2])
                                        for t in lp_d.get("top", ())])
+        token_ids = list(obj["token_ids"])
+        engine = self._pick_engine(token_ids)
+        blob = obj["kv_blob"]
+        if blob.device.type == "cuda" and blob.device != engine.device:
+            blob = blob.to(engine.device)   # a replica on another card
+        dspan = self._stage_span("engine.decode", ctx, sid, injected=True)
 
         def on_output(out: RequestOutput) -> None:
+            if out.finished:
+                dspan.end()
             self.streamer.push(dest, out)
 
         with self._seen_lock:
@@ -1231,13 +1769,13 @@ class EngineAgent:
                 # A retry raced this one and injected first.
                 return 200, {"ok": True, "duplicate": True}
             self._handoffs_seen[sid] = time.monotonic()
-            self.engine.submit(EngineRequest(
+            engine.submit(EngineRequest(
                 service_request_id=sid,
                 request_id=obj.get("request_id", ""),
-                token_ids=list(obj["token_ids"]),
+                token_ids=token_ids,
                 sampling=SamplingParams.from_dict(obj.get("sampling", {})),
                 injected_first_token=int(obj["first_token"]),
-                injected_kv=obj["kv_blob"],
+                injected_kv=blob,
                 injected_first_logprob=lp,
                 on_output=on_output))
         return 200, {"ok": True}
@@ -1278,15 +1816,11 @@ class EngineAgent:
                 pass
         return sp
 
-
 # Reference flags this agent does not take: flag -> (the value that means
 # "off", the ROADMAP item that ports it). Any other value is an error.
 _REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
     "--tp": (0, "tensor parallelism, queue 1 item 11"),
     "--device-offset": (0, "multi-device placement, queue 1 item 11"),
-    "--dp-size": (1, "dp_size > 1, queue 1 item 3"),
-    "--telemetry-mode": ("master", "the mux and owner telemetry modes, "
-                                   "queue 1 item 3"),
 }
 
 
@@ -1334,6 +1868,15 @@ def _parser() -> argparse.ArgumentParser:
                         "verified per cycle (0 disables)")
     p.add_argument("--generation-flush-ms", type=float, default=5.0,
                    help="batching window for Generations delta pushes")
+    p.add_argument("--dp-size", type=int, default=1,
+                   help="engine replicas behind this registration (replica "
+                        "i on the i-th card from the agent's, round robin)")
+    p.add_argument("--telemetry-mode", default="mux",
+                   choices=list(TELEMETRY_MODES),
+                   help="mux = one multiplexed kept-alive session to the "
+                        "owning master (tagged hb and gens frames); owner = "
+                        "heartbeats to the rendezvous owner, deltas direct; "
+                        "master = the elected-master funnel")
     p.add_argument("--kv-tier-dram-mb", type=int, default=0,
                    help="host-RAM tier for evicted prefix KV blocks, MiB "
                         "(0 disables tiering)")
@@ -1434,6 +1977,8 @@ def build_agent(args: argparse.Namespace,
                     instance_type=InstanceType.parse(args.type),
                     model_id=args.model_id,
                     generation_flush_ms=args.generation_flush_ms,
+                    dp_size=args.dp_size,
+                    telemetry_mode=args.telemetry_mode,
                     degraded_mode=args.degraded_mode,
                     slice_id=args.slice_id, topo_host=args.topo_host,
                     topo_chip=args.topo_chip,
@@ -1451,6 +1996,8 @@ def main(argv: Optional[list[str]] = None) -> None:
             p.error(f"{flag} is not ported yet (ROADMAP {item})")
     if args.model_config == "hf" and not args.checkpoint_path:
         p.error("--model-config hf reads --checkpoint-path's config.json")
+    if args.dp_size < 1:
+        p.error("--dp-size must be >= 1")
     agent = build_agent(args)
     agent.start()
     import signal as _signal

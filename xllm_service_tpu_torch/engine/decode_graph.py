@@ -40,32 +40,35 @@ generator where an eager call would; a generator re-seeded between
 replays starts its stream afresh.
 
 Launch counts: the kernel wrappers count launches in Python (``.launches``),
-which a replay does not run. The runner records each counter's increase
-while the step is captured, takes it back (capture executes nothing), and
-adds it again at every replay, so a counter still says how many times its
-kernel ran (the warm-up's launches included).
+which a replay does not run. The runner tallies the launches its own
+thread counts while the step is captured (``ops/_build.py::launch_tally``:
+another engine's thread counting meanwhile is not in it), takes them back
+(capture executes nothing), and adds them again at every replay, so a
+counter still says how many times its kernel ran (the warm-up's launches
+included).
+
+Captures are serialized across the process (``_CAPTURE_LOCK``): entering
+a capture empties the caching allocator's cache, which must not happen
+while another engine of the process (an agent's replica) is capturing.
+Automatic garbage collection is off while a step records: collecting an
+unreachable engine's graphs on the capturing thread is an operation the
+capture mode forbids, and it invalidates the capture.
 
 A capture that fails raises; nothing here falls back to the eager step.
 """
 
 from __future__ import annotations
 
+import gc
+import threading
 from typing import Callable, Sequence
 
 import torch
 
-from ..ops.attention import dense_prefill_route
-from ..ops.cp_paged_attention import paged_partial
-from ..ops.fused_decode_attention import fused_decode_attention
-from ..ops.mq_paged_attention import mq_paged_attention
-from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
-from ..ops.paged_attention import paged_attention
+from ..ops import _build
 
-# Every kernel wrapper with a launch count, and the dense prefill route of
-# a softcapped or windowed prefill (a mixed step's chunk under Gemma-2).
-KERNEL_COUNTERS = (paged_attention, fused_decode_attention,
-                   mq_paged_attention, gather_kv_pages, scatter_kv_pages,
-                   paged_partial, dense_prefill_route)
+# One capture at a time in the process (see the module docstring).
+_CAPTURE_LOCK = threading.Lock()
 
 
 class DecodeGraphs:
@@ -101,13 +104,17 @@ class DecodeGraphs:
         graph, deltas = entry
         graph.replay()
         for fn, n in deltas:
-            fn.launches += n
+            _build.count_launch(fn, n)
         self.replays += 1
 
     def _capture(self, key: tuple) -> tuple:
         """Warm up, undo the warm-up, capture; returns (graph, [(counter,
         launches per replay)]). A mixed step's warm-up writes its chunk's
         K/V as the replay will again."""
+        with _CAPTURE_LOCK:
+            return self._capture_locked(key)
+
+    def _capture_locked(self, key: tuple) -> tuple:
         sample = key[2] if key[0] == "spec" else key[1]
         cur = torch.cuda.current_stream(self.device)
         s = self.stream
@@ -125,15 +132,23 @@ class DecodeGraphs:
         if sample:
             for g in self._generators:
                 graph.register_generator_state(g)
-        before = [fn.launches for fn in KERNEL_COUNTERS]
-        # thread_local: the tier workers' copies and allocations on other
-        # threads stay legal while the engine thread captures.
-        with torch.cuda.graph(graph, stream=s,
-                              capture_error_mode="thread_local"):
-            self._step(*key)
-        deltas = [(fn, fn.launches - n)
-                  for fn, n in zip(KERNEL_COUNTERS, before)]
-        for fn, n in deltas:
-            fn.launches -= n
+        # thread_local: the tier workers' copies and allocations, and other
+        # engines' steps, on other threads stay legal while this engine's
+        # thread captures.
+        # No automatic garbage collection while the step records: it could
+        # destroy an unreachable engine's graphs on this thread, which the
+        # capture mode forbids, invalidating the capture.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.launch_tally() as counts, \
+                    torch.cuda.graph(graph, stream=s,
+                                     capture_error_mode="thread_local"):
+                self._step(*key)
+        finally:
+            if gc_on:
+                gc.enable()
+        for fn, n in counts.items():
+            _build.count_launch(fn, -n)
         self.captures += 1
-        return graph, [(fn, n) for fn, n in deltas if n]
+        return graph, [(fn, n) for fn, n in counts.items() if n]

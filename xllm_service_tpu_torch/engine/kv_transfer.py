@@ -28,8 +28,12 @@ The framework-neutral parts (``transfer_uuid``, ``BandwidthAccountant``,
 ``pull_stream`` speaks ``http.client`` and ``rpc/msgpack_lite.py`` where
 the reference uses ``requests`` and ``msgpack``, and returns a CPU tensor
 (bf16 read from its raw bits) where the reference returns a numpy array.
-The reference's ``TRACER`` spans, ``FAULTS`` hooks and lifecycle notes are
-not ported (ROADMAP queue 1 items 3.2 and 3.4).
+Each transport records the reference's spans under the request's carried
+trace context (``kv_transfer.offer`` on the prefill side,
+``kv_transfer.pull`` on the decode side, with ``path`` device or stream)
+and checks the same fault points (``common/faults.py``): an injected
+offer fault sends the handoff down the next path, an injected pull fault
+fails the pull, and the sender retries inline.
 
 No kernel moves the bytes here: the device path is one device-to-device
 memory copy, which no TPU kernel did either.
@@ -49,6 +53,8 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from ..common.faults import FAULTS
+from ..common.tracing import TRACER, TraceContext
 from ..rpc import msgpack_lite
 
 logger = logging.getLogger(__name__)
@@ -184,16 +190,22 @@ class StreamOfferTable:
 
     def offer(self, service_request_id: str, data: bytes,
               shape: list, dtype: str, incarnation: str = "",
-              block_bytes: int = 0) -> dict[str, Any]:
+              block_bytes: int = 0,
+              ctx: Optional[TraceContext] = None) -> dict[str, Any]:
         """Register `data` for streaming; returns the wire descriptor the
         control message carries (everything the puller needs, including
-        the whole-payload checksum)."""
+        the whole-payload checksum). `ctx` parents the offer span."""
         uid = transfer_uuid(service_request_id, "stream:" + incarnation)
-        self.gc()
-        with self._lock:
-            self._offers[uid] = (data, {"shape": list(shape),
-                                        "dtype": dtype},
-                                 time.monotonic() + OFFER_TTL_S)
+        with TRACER.span("kv_transfer.offer", ctx=ctx, require_ctx=True,
+                         request_id=service_request_id, path="stream",
+                         nbytes=len(data)):
+            # An injected fault here sends the caller to the inline path.
+            FAULTS.check("kv_transfer.offer", sid=service_request_id)
+            self.gc()
+            with self._lock:
+                self._offers[uid] = (data, {"shape": list(shape),
+                                            "dtype": dtype},
+                                     time.monotonic() + OFFER_TTL_S)
         return {
             "stream_uuid": uid,
             "total_bytes": len(data),
@@ -274,7 +286,8 @@ def pull_stream(peer_addr: str, desc: dict[str, Any],
                 accountant: Optional[BandwidthAccountant] = None,
                 link: str = "dcn",
                 post: Optional[Callable[[str, dict], dict]] = None,
-                deadline_s: float = 45.0) -> torch.Tensor:
+                deadline_s: float = 45.0,
+                ctx: Optional[TraceContext] = None) -> torch.Tensor:
     """Pull a streamed KV payload from `peer_addr` in chunked round trips
     (run off the HTTP handler's thread: pacing sleeps are free there).
     Returns the reassembled CPU tensor; raises ValueError on a bad frame or
@@ -285,7 +298,8 @@ def pull_stream(peer_addr: str, desc: dict[str, Any],
     side first and the sender's inline retry finds the handoff unclaimed.
 
     `post(url, payload_dict) -> response_dict` is injectable for tests;
-    the default POSTs msgpack to ``/rpc/kv_stream_pull``."""
+    the default POSTs msgpack to ``/rpc/kv_stream_pull``. `ctx` parents
+    the pull span."""
     if post is None:
         post = _msgpack_post()
     url = f"http://{peer_addr}/rpc/kv_stream_pull"
@@ -294,28 +308,34 @@ def pull_stream(peer_addr: str, desc: dict[str, Any],
     buf = bytearray(total)
     got = 0
     t0 = time.monotonic()
-    while got < total:
-        if time.monotonic() - t0 > deadline_s:
-            raise TimeoutError(
-                f"stream pull exceeded {deadline_s:.0f}s deadline at "
-                f"{got}/{total} bytes (budget too tight for this payload; "
-                "the sender's retry rides the inline path)")
-        frame = post(url, {"uuid": desc["stream_uuid"], "offset": got,
-                           "max_bytes": chunk_bytes})
-        if not frame or frame.get("data") is None:
-            raise ValueError("stream offer expired or unknown")
-        data = frame["data"]
-        if not data:
-            raise ValueError("empty stream frame")
-        buf[got:got + len(data)] = data
-        got += len(data)
+    with TRACER.span("kv_transfer.pull", ctx=ctx, require_ctx=True,
+                     path="stream", nbytes=total, link=link) as span:
+        while got < total:
+            if time.monotonic() - t0 > deadline_s:
+                raise TimeoutError(
+                    f"stream pull exceeded {deadline_s:.0f}s deadline at "
+                    f"{got}/{total} bytes (budget too tight for this "
+                    "payload; the sender's retry rides the inline path)")
+            # A pull fault aborts this transfer; the sender retries inline.
+            FAULTS.check("kv_transfer.pull", uuid=desc.get("stream_uuid"))
+            frame = post(url, {"uuid": desc["stream_uuid"], "offset": got,
+                               "max_bytes": chunk_bytes})
+            if not frame or frame.get("data") is None:
+                raise ValueError("stream offer expired or unknown")
+            data = frame["data"]
+            if not data:
+                raise ValueError("empty stream frame")
+            buf[got:got + len(data)] = data
+            got += len(data)
+            if accountant is not None:
+                sleep_s = accountant.debit(link, len(data))
+                if sleep_s > 0:
+                    time.sleep(sleep_s)
+        elapsed = max(1e-9, time.monotonic() - t0)
         if accountant is not None:
-            sleep_s = accountant.debit(link, len(data))
-            if sleep_s > 0:
-                time.sleep(sleep_s)
-    elapsed = max(1e-9, time.monotonic() - t0)
-    if accountant is not None:
-        accountant.record_busy(link, elapsed)
+            accountant.record_busy(link, elapsed)
+        span.set(mbps=round(total / elapsed / 1e6, 3),
+                 round_trips=-(-total // chunk_bytes))
     digest = hashlib.blake2b(buf, digest_size=8).hexdigest()
     if desc.get("checksum") and digest != desc["checksum"]:
         raise ValueError("stream checksum mismatch")
@@ -468,25 +488,33 @@ class KvTransferManager:
     # ------------------------------------------------------------ prefill
     def offer(self, service_request_id: str, blob: torch.Tensor,
               incarnation: str = "",
-              ready: Optional[torch.cuda.Event] = None) -> dict[str, Any]:
+              ready: Optional[torch.cuda.Event] = None,
+              ctx: Optional[TraceContext] = None) -> dict[str, Any]:
         """Export ``blob`` for a pull by the peer; returns the wire
         descriptor. ``ready`` is an event recorded after the work that
         wrote ``blob`` (the gather); the offer waits for it, so the peer
         never reads the buffer before it is written (without one, it waits
-        for the work enqueued so far on the blob's device)."""
+        for the work enqueued so far on the blob's device). ``ctx``
+        parents the offer span."""
         uid = transfer_uuid(service_request_id, incarnation)
         if blob.device.type != "cuda" or not blob.is_contiguous():
             raise ValueError("offer needs a contiguous CUDA tensor")
-        self.gc()
-        if ready is not None:
-            ready.synchronize()
-        else:
-            torch.cuda.current_stream(blob.device).synchronize()
-        with torch.cuda.device(blob.device):
-            self._ipc.bind(blob.device.index)
-            handle, offset = self._ipc.export(blob.data_ptr())
-        with self._lock:
-            self._pending[uid] = ([blob], time.monotonic() + OFFER_TTL_S)
+        with TRACER.span("kv_transfer.offer", ctx=ctx, require_ctx=True,
+                         request_id=service_request_id, path="device",
+                         shape=list(blob.shape)):
+            # An injected fault here sends the agent down the host paths.
+            FAULTS.check("kv_transfer.offer", sid=service_request_id)
+            self.gc()
+            if ready is not None:
+                ready.synchronize()
+            else:
+                torch.cuda.current_stream(blob.device).synchronize()
+            with torch.cuda.device(blob.device):
+                self._ipc.bind(blob.device.index)
+                handle, offset = self._ipc.export(blob.data_ptr())
+            with self._lock:
+                self._pending[uid] = ([blob],
+                                      time.monotonic() + OFFER_TTL_S)
         return {
             "addr": self.address,
             "uuid": uid,
@@ -519,9 +547,19 @@ class KvTransferManager:
             self._pending.clear()
 
     # ------------------------------------------------------------- decode
-    def pull(self, desc: dict[str, Any]) -> torch.Tensor:
+    def pull(self, desc: dict[str, Any],
+             ctx: Optional[TraceContext] = None) -> torch.Tensor:
         """Copy the offered KV pages into a new buffer of this engine's
-        device and return it, once the copy has completed."""
+        device and return it, once the copy has completed. ``ctx``
+        parents the pull span."""
+        with TRACER.span("kv_transfer.pull", ctx=ctx, require_ctx=True,
+                         path="device", shape=list(desc.get("shape", ()))):
+            # A pull fault is reported to the peer, which retries by the
+            # host paths.
+            FAULTS.check("kv_transfer.pull", uuid=desc.get("uuid"))
+            return self._pull(desc)
+
+    def _pull(self, desc: dict[str, Any]) -> torch.Tensor:
         if desc.get("addr") != self.address:
             raise ValueError(f"offer at {desc.get('addr')!r} is not on this "
                              f"card ({self.address})")

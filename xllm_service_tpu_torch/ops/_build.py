@@ -9,10 +9,18 @@ outside the package's own sources is compiled.
 
 ``build()`` starts one ``nvcc`` per missing library, all at once, and waits
 for them together.
+
+Launch counts: each kernel wrapper adds one to its ``launches`` where it
+launches its kernel, through :func:`count_launch`. Several engines of one
+process (an agent's replicas) count from their own threads at once: the
+adds take a lock, and :func:`launch_tally` collects the launches of the
+calling thread alone, which is how a graph capture learns what one replay
+of it launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +40,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
+_count_lock = threading.Lock()
+_tally = threading.local()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` launches to wrapper ``fn``'s count (and to the calling
+    thread's open :func:`launch_tally`)."""
+    with _count_lock:
+        fn.launches += n
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[fn] = counts.get(fn, 0) + n
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """The launches the calling thread counts inside the block, as
+    ``{wrapper: n}``; other threads' launches are not in it."""
+    prev = getattr(_tally, "counts", None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
 
 
 def _sources(name: str) -> list[Path]:

@@ -39,12 +39,14 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from . import _build
 from .cp_paged_attention import ShardedPages, cp_paged_attention
 from .fused_decode_attention import fused_decode_attention
 from .mq_paged_attention import mq_paged_attention
@@ -60,21 +62,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 _inv_freq: dict[tuple[int, float, torch.device], torch.Tensor] = {}
+_inv_freq_lock = threading.Lock()
 
 
 def rope_inv_freq(head_dim: int, theta: float,
                   device: torch.device) -> torch.Tensor:
     """``1 / theta ** (arange(0, hd, 2) / hd)`` in f32, computed once per
     (head_dim, theta, device): the upload of ``theta`` happens at the
-    first call, never inside a captured decode step."""
+    first call, never inside a captured decode step. Engines of one
+    process share the tensor, so it is made under a lock: a second copy
+    made by a racing thread would be dropped while a graph may hold it."""
     key = (head_dim, float(theta), torch.device(device))
     inv = _inv_freq.get(key)
     if inv is None:
-        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=device) / head_dim
-        inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                           device=device), exps)
-        _inv_freq[key] = inv
+        with _inv_freq_lock:
+            inv = _inv_freq.get(key)
+            if inv is None:
+                exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                    device=device) / head_dim
+                inv = 1.0 / torch.pow(torch.tensor(
+                    theta, dtype=torch.float32, device=device), exps)
+                _inv_freq[key] = inv
     return inv
 
 
@@ -339,13 +347,16 @@ def dense_prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dense path there, reference ``ops/attention.py:228-230``). Each call
     adds one to ``dense_prefill_route.launches``, as the kernel wrappers
     count theirs, so a serving run can say how many prefills took it."""
-    dense_prefill_route.launches += 1
+    _build.count_launch(dense_prefill_route)
     return dense_prefill_attention(q, k, v, k_pages, v_pages, page_table,
                                    prefix_lens, seq_lens, scale=scale,
                                    softcap=softcap, window=window)
 
 
 dense_prefill_route.launches = 0
+
+
+_sdpa_lock = threading.Lock()   # see sdpa_prefill_attention
 
 
 def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,
@@ -362,9 +373,15 @@ def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     run): the default choice on an H100, cuDNN's, builds a plan at the
     first call of each new sequence length, about a second each on the
     card, which every install of a new prompt length would pay. Returns
-    [B, S, n_heads, hd]."""
+    [B, S, n_heads, hd].
+
+    The backend choice is PyTorch's process-wide flags, which
+    ``sdpa_kernel`` sets and restores: the call holds ``_sdpa_lock``, or a
+    second engine of the process (an agent's replica) restoring the flags
+    mid-call would let this one run on another backend, whose rounding
+    differs."""
     n_rep = q.shape[2] // k.shape[2]
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+    with _sdpa_lock, sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), _repeat_kv(k, n_rep).transpose(1, 2),
             _repeat_kv(v, n_rep).transpose(1, 2), is_causal=True,

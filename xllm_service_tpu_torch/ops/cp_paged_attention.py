@@ -328,7 +328,7 @@ def paged_partial(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_partial: CUDA launch failed with error "
                            f"{err}")
-    paged_partial.launches += 1
+    _build.count_launch(paged_partial)
     return m, l, acc
 
 

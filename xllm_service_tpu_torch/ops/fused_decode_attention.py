@@ -204,7 +204,7 @@ def fused_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_decode_attention: CUDA launch failed "
                            f"with error {err}")
-    fused_decode_attention.launches += 1
+    _build.count_launch(fused_decode_attention)
     return out, k_pages, v_pages
 
 

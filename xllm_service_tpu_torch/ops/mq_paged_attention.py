@@ -250,7 +250,7 @@ def mq_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mq_paged_attention: CUDA launch failed with "
                            f"error {err}")
-    mq_paged_attention.launches += 1
+    _build.count_launch(mq_paged_attention)
     return out
 
 

@@ -236,7 +236,7 @@ def gather_kv_pages(kv: Pool, page_ids: PageIds) -> torch.Tensor:
             _launch("gather_kv_pages", shards, launch, buf, range(m), 0)
             for j, i in enumerate(launch.slots):
                 out[:, :, i].copy_(buf[:, :, j])
-        gather_kv_pages.launches += 1
+        _build.count_launch(gather_kv_pages)
     return out
 
 
@@ -273,7 +273,7 @@ def scatter_kv_pages(kv: Pool, page_ids: PageIds,
             part = block[:, :, list(launch.slots)].to(launch.device)
             _launch("scatter_kv_pages", shards, launch, part,
                     range(len(launch.slots)), 1)
-        scatter_kv_pages.launches += 1
+        _build.count_launch(scatter_kv_pages)
     return kv
 
 

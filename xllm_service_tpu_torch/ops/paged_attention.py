@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -228,16 +229,21 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+_work_lock = threading.Lock()   # engines of one process launch at once
+
+
 def _work_space(device: torch.device, stream: int, n_tickets: int,
                 n_scratch: int) -> tuple[torch.Tensor, torch.Tensor]:
     key = (_device_index(device), stream)
-    tickets, scratch = _work.get(key, (None, None))
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
-                              device=device)
-    if scratch is None or scratch.numel() < n_scratch:
-        scratch = torch.empty(n_scratch, dtype=torch.float32, device=device)
-    _work[key] = (tickets, scratch)
+    with _work_lock:
+        tickets, scratch = _work.get(key, (None, None))
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
+                                  device=device)
+        if scratch is None or scratch.numel() < n_scratch:
+            scratch = torch.empty(n_scratch, dtype=torch.float32,
+                                  device=device)
+        _work[key] = (tickets, scratch)
     return tickets, scratch
 
 
@@ -369,7 +375,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_attention: CUDA launch failed with "
                            f"error {err}")
-    paged_attention.launches += 1
+    _build.count_launch(paged_attention)
     return out
 
 

@@ -1,9 +1,10 @@
 """The engine's half of the service↔engine wire contract (copy of the key
-scheme of ``xllm_service_tpu/rpc/__init__.py``; the JSON dispatch wire is
-``rpc/wire.py``)."""
+scheme of ``xllm_service_tpu/rpc/__init__.py``; the dispatch, heartbeat
+and telemetry wire is ``rpc/wire.py``)."""
 
 # Coordination key layout (reference key scheme `XLLM:<TYPE>:<name>`).
 INSTANCE_KEY_PREFIX = "XLLM:INSTANCE:"       # + "<TYPE>:<name>"
+SERVICE_KEY_PREFIX = "XLLM:SERVICE:"         # + "<ip:rpc_port>"
 MASTER_KEY = "XLLM:SERVICE:MASTER"
 
 

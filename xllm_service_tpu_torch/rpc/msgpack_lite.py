@@ -1,12 +1,14 @@
-"""A standard-library codec for the msgpack subset of the PD handoff and
-KV stream frames (``engine/agent.py::pack_handoff``,
-``engine/kv_transfer.py::pull_stream`` and the agent's
-``/rpc/kv_stream_pull``).
+"""A standard-library codec for the msgpack subset of the engine's wire:
+the dispatch, heartbeat, Generations and telemetry frames
+(``rpc/wire.py``), the PD handoff and the KV stream frames
+(``engine/agent.py::pack_handoff``, ``engine/kv_transfer.py::pull_stream``
+and the agent's ``/rpc/kv_stream_pull``).
 
 The types: maps (str keys in every frame the port sends), str, bin (bytes,
-bytearray, memoryview), int (-2**63 .. 2**64 - 1; the transfer uuid is a
-63-bit int), float (packed as float64), bool, None, and arrays (lists and
-tuples; a tuple packs as an array, as ``msgpack.packb`` packs it).
+bytearray, memoryview; a heartbeat's raw 16-byte KV-event keys), int
+(-2**63 .. 2**64 - 1; the transfer uuid is a 63-bit int), float (packed
+as float64), bool, None, and arrays (lists and tuples; a tuple packs as an
+array, as ``msgpack.packb`` packs it).
 ``packb(obj)`` gives the bytes ``msgpack.packb(obj, use_bin_type=True)``
 gives on these types: every int and length takes its smallest encoding, as
 the msgpack package chooses it. ``unpackb(data)`` is
@@ -14,9 +16,6 @@ the msgpack package chooses it. ``unpackb(data)`` is
 str, bin as bytes. Anything else raises ``TypeError`` (a value outside the
 subset), ``OverflowError`` (an int past 64 bits, as msgpack) or
 ``ValueError`` (a malformed or truncated frame); nothing is stringified.
-
-The dispatch, heartbeat and Generations wire stays JSON (``rpc/wire.py``):
-the agent advertises ``wire_formats=["json"]``.
 """
 
 from __future__ import annotations
