@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``xllm_service_tpu_torch``) on one
 NVIDIA GPU: the quickest proof that the port starts, that its hand-written
 kernels build and agree with their plain versions, and that the engine
-serves Llama-3-8B through them.
+serves Llama-3-8B, its variants, Mixtral-8x7B and DeepSeek-V2-Lite
+through them.
 
     python3 chip_smoke.py
 
@@ -216,6 +217,33 @@ Phases (any failure exits non-zero before the result line):
    usage) and ``/admin/profile`` (the engine loop's role; the folded text
    parses back). Tokens/s against phase 4f's, the telemetry counts and
    the sampler thread's CPU share are information;
+4m. MoE and MLA at full width and depth, phase 4's weights freed first:
+   (a) one MoE layer at Mixtral-8x7B's width (eight experts of 14336,
+   top 2), 16 tokens, bf16 and int8: the dense dispatch against an
+   independent f32 loop over each token's two experts (within 4x the same
+   loop in bf16 plus 1e-3 of max |ref|; a token whose 2nd and 3rd router
+   logits lie within ROUTE_EPS is excused and counted), timed;
+   (b) Mixtral-8x7B in weight-only int8, all 32 layers, its weights drawn
+   in int8 one layer of one leaf at a time by the engine (the build's
+   seconds and ``max_memory_allocated``), served by the port's agent from
+   its command line (``--model-config mixtral_8x7b --quant int8``) behind
+   phase 4f's stub master: six requests, two sharing a 512-token prefix;
+   checks the deltas, kernel 1 at 32 launches a replayed step, kernel 2
+   on the prefix hits, the replays, every greedy token against its
+   recomputation (the near-tie rule of 4g, and routing near-ties: a
+   layer's router margin below two routes' rounding, at most
+   ROUTED_SHARE of the tokens, counted) and, exactly, against a replay at
+   the serving path's own shapes (each install as dispatched, then
+   decode steps at the batch width); (c) DeepSeek-V2-Lite in bf16,
+   all 27 layers and 64 experts, through ``InferenceEngine``: phase 4j's
+   kind of requests (two prefix hits) and an embeddings call; checks the
+   latent pool ``[27, 2, P, 1, 16, 576]``, kernels 1, 2 and 3 idle, the
+   MLA decode route (``paged_attention_xla``) once a layer a step, the
+   prefix hits on the dense route, each embedding row unmoved by its
+   batch's padding, every greedy token against its recomputation and its
+   replay as in (b); the MLA decode route timed at B 16 (information);
+   (d) the bench twin at ``XLLM_BENCH_MODEL=moe``. Tokens/s, TTFT and KV
+   bytes a token are information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -223,6 +251,7 @@ It needs one card; without CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -3997,13 +4026,16 @@ def draw_norms_and_biases(params, seed):
 
 
 def serve_variant(engine_mod, cfg, params, prompts, shared, sampled_prompt,
-                  long_prompt):
+                  long_prompt, after=None, attach=None):
     """One serving run of phase 4j on a fresh engine with its loop: the
     greedy ``prompts``, one seeded sampled and one greedy logprob request,
     ``long_prompt`` (if any) with them, and the ``shared`` prompts once
     request 0 has its first token (prefix hits). 64 new tokens each.
-    Returns (tokens and prompts by name, stats, TTFT ms sorted, generated
-    tok/s, the engine's params: quantized if the config says so)."""
+    ``attach(engine)`` runs before the loop starts (phase 4m's install
+    spy), ``after(engine)`` once every request has finished, before the
+    loop stops (phase 4m's embeddings call). Returns (tokens and prompts
+    by name, stats, TTFT ms sorted, generated tok/s, the engine's params:
+    quantized if the config says so, ``after``'s result)."""
     from xllm_service_tpu_torch.common.request import SamplingParams
 
     eng = engine_mod.InferenceEngine(cfg, params=params)
@@ -4013,6 +4045,8 @@ def serve_variant(engine_mod, cfg, params, prompts, shared, sampled_prompt,
     lp = SamplingParams(max_tokens=64, temperature=0.0, logprobs=True,
                         top_logprobs=2, ignore_eos=True)
     cols, sent, t_sub = {}, {}, {}
+    if attach is not None:
+        attach(eng)
     eng.start()
     try:
         t0 = time.monotonic()
@@ -4036,6 +4070,7 @@ def serve_variant(engine_mod, cfg, params, prompts, shared, sampled_prompt,
         for name, c in cols.items():
             assert c.done.wait(900), f"{name} never finished"
         wall = time.monotonic() - t0
+        extra = after(eng) if after is not None else None
     finally:
         eng.stop()
     for name, c in cols.items():
@@ -4049,7 +4084,7 @@ def serve_variant(engine_mod, cfg, params, prompts, shared, sampled_prompt,
     gc.collect()
     torch.cuda.empty_cache()
     return (toks, sent, stats, ttft, sum(map(len, toks.values())) / wall,
-            eng_params)
+            eng_params, extra)
 
 
 def decode_step_vs_plain(llama, attention, cfg, params, context,
@@ -4086,17 +4121,55 @@ def decode_step_vs_plain(llama, attention, cfg, params, context,
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def check_streams_recomputed(llama, cfg, params, sent, toks, what):
+@contextlib.contextmanager
+def router_logits(moe):
+    """The f32 router logits [T, E] of every MoE layer the forwards of
+    module ``moe`` (models/deepseek_moe.py) run inside the block, in
+    call order."""
+    real = moe._moe_mlp
+    rec = []
+
+    def logged(mp, x, cfg):
+        rec.append(x.reshape(-1, x.shape[-1]).float()
+                   @ mp["router"]["kernel"].float())
+        return real(mp, x, cfg)
+
+    moe._moe_mlp = logged
+    try:
+        yield rec
+    finally:
+        moe._moe_mlp = real
+
+
+def check_streams_recomputed(llama, cfg, params, sent, toks, what,
+                             moe=None):
     """Each greedy stream against its recomputation: the prompt but its
     last token installed whole, then one verify forward over the last
     prompt token and the stream's tokens but the last gives the logits
     that predict every stream token. Each token must be the argmax, or a
     near-tie as in ``compare_streams`` (one of the two largest values,
-    within TIE_STEPS bf16 steps of the top). Returns (tokens checked,
-    argmax tokens)."""
+    within TIE_STEPS bf16 steps of the top).
+
+    With ``moe`` (the MoE families' module) a token may also be a routing
+    near-tie: the expert choice is discontinuous, so where two routes
+    round a position's hidden state apart, a layer whose k-th and
+    (k+1)-th router logits lie closer than the routes' difference may
+    take another expert there, and the logits move by more than
+    rounding. The route drift is measured on the stream itself: per
+    layer, the median over the block's positions of the largest
+    difference between the router logits of the verify forward and those
+    of one prefill of the prompt and the stream (the dense route, other
+    matmul shapes). A token that fails the rule above is excused, and
+    counted, only if some layer's margin at its position is below that
+    layer's drift, and at most ROUTED_SHARE of the tokens may be excused:
+    a fault of the serving path (a wrong page, position or gate) moves
+    most tokens, not a few. With random weights over 26-32 MoE layers most
+    positions have such a layer (the count is logged), so the share is
+    what holds the run. Returns (tokens checked, argmax tokens)."""
     m = cfg.model
     i32 = dict(dtype=torch.int32, device="cuda")
-    checked = exact = 0
+    checked = exact = routed = excusable = 0
+    drifts = []
     for name, gen in toks.items():
         if name == "sampled":
             continue
@@ -4110,11 +4183,32 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what):
                               torch.zeros((1,), **i32),
                               torch.tensor([n - 1], **i32), has_prefix=False)
         block = [prompt[-1]] + gen[:-1]
-        logits = llama.verify_forward(
-            params, m, torch.tensor([block], **i32),
-            torch.arange(n - 1, n - 1 + len(block), **i32)[None], kv, pt,
-            torch.tensor([n - 1], **i32), torch.tensor([len(block)], **i32))[
-            0][0]
+        with (router_logits(moe) if moe is not None
+              else contextlib.nullcontext([])) as rec:
+            logits = llama.verify_forward(
+                params, m, torch.tensor([block], **i32),
+                torch.arange(n - 1, n - 1 + len(block), **i32)[None], kv,
+                pt, torch.tensor([n - 1], **i32),
+                torch.tensor([len(block)], **i32))[0][0]
+        if moe is not None:
+            k = m.num_experts_per_token
+            r1 = torch.stack(rec)                                 # [L, S, E]
+            top = r1.topk(k + 1, dim=-1).values
+            margin = top[..., k - 1] - top[..., k]                # [L, S]
+            whole = prompt + gen[:-1]
+            kv2 = empty_pool(cfg, n_pages + 1, "cuda")
+            with router_logits(moe) as rec2:
+                llama.prefill_forward(
+                    params, m, torch.tensor([whole], **i32),
+                    torch.arange(len(whole), **i32)[None], kv2, pt,
+                    torch.zeros((1,), **i32),
+                    torch.tensor([len(whole)], **i32), has_prefix=False)
+            r2 = torch.stack([b[n - 1:] for b in rec2])
+            drift = (r1 - r2).abs().amax(dim=-1).median(dim=1).values  # [L]
+            near = (margin < drift[:, None]).any(dim=0)           # [S]
+            drifts.append(drift)
+            excusable += int(near.sum())
+            del kv2, rec2, r1, r2
         for j, tok in enumerate(gen):
             row = logits[j]
             values = torch.unique(row)
@@ -4122,13 +4216,33 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what):
             rank = int((values > took).sum()) + 1
             gap = (values[-1] - took).item()
             tol = TIE_STEPS * bf16_step(row.abs().max().item())
-            assert rank <= 2 and gap <= tol, \
-                f"{what}: {name} token {j} ({tok}) is no near-tie: rank " \
-                f"{rank}, {gap:.4g} below the top (tol {tol:.4g})"
             checked += 1
-            exact += rank == 1
+            if rank <= 2 and gap <= tol:
+                exact += rank == 1
+                continue
+            if moe is not None and bool(near[j]):
+                routed += 1
+                continue
+            raise AssertionError(
+                f"{what}: {name} token {j} ({tok}) is no near-tie: rank "
+                f"{rank}, {gap:.4g} below the top (tol {tol:.4g})" + (
+                    f"; router margin / route drift at its position "
+                    f"{(margin[:, j] / drifts[-1]).min().item():.4g}"
+                    if moe is not None else ""))
+    if moe is None:
+        log(f"  {what}: {checked} greedy tokens against their "
+            f"recomputation: {exact} the argmax, {checked - exact} "
+            f"near-ties")
+        return checked, exact
+    d = torch.stack(drifts)
     log(f"  {what}: {checked} greedy tokens against their recomputation: "
-        f"{exact} the argmax, {checked - exact} near-ties")
+        f"{exact} the argmax, {checked - exact - routed} near-ties, "
+        f"{routed} routing near-ties (tol {ROUTED_SHARE} of the tokens; "
+        f"{excusable} positions had a layer's router margin below its "
+        f"route drift, which is {d.min().item():.4g}-{d.max().item():.4g} "
+        f"by layer)")
+    assert routed <= ROUTED_SHARE * checked, \
+        f"{what}: {routed} of {checked} tokens only routing near-ties"
     return checked, exact
 
 
@@ -4146,7 +4260,7 @@ def variant_leg(engine_mod, llama, attention, name, cfg, params, requests,
     reset_counts()
     dense0 = attention.dense_prefill_route.launches
     t = time.monotonic()
-    toks, sent, stats, ttft, tps, eng_params = serve_variant(
+    toks, sent, stats, ttft, tps, eng_params, _ = serve_variant(
         engine_mod, cfg, params, *requests)
     k1, k2 = paged_attention.launches, mq_paged_attention.launches
     dense = attention.dense_prefill_route.launches - dense0
@@ -5294,6 +5408,430 @@ def dp_mux_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 4m
+# A routing near-tie: the k-th and (k+1)-th router logits of a token within
+# ROUTE_EPS. Both sides compute the f32 router logits from the same bf16
+# rows and f32 router in another summation order (about 1e-6 apart at
+# logits of order 1), so only such a token may pick other experts.
+ROUTE_EPS = 1e-3
+# The largest share of a run's greedy tokens that may pass their
+# recomputation only as routing near-ties (check_streams_recomputed).
+ROUTED_SHARE = 0.2
+
+
+def dequantized(kern):
+    """A plain or int8 kernel as f32 (q8 * scale over the output dim)."""
+    if isinstance(kern, dict):
+        return kern["q8"].float() * kern["scale"][..., None, :]
+    return kern.float()
+
+
+def moe_layer_check(deepseek_moe, mixtral, card):
+    """4m (a): one MoE layer at Mixtral-8x7B's width (hidden 4096, eight
+    experts of 14336, top 2), 16 tokens, in bf16 and in int8: the dense
+    dispatch (``_moe_mlp``) against an independent f32 loop (each token's
+    top-2 experts, each expert's SwiGLU on the dequantized weights,
+    weighted by the softmax of the two logits), held within 4x the error
+    of the same loop in bf16 (the control) plus 1e-3 of max |ref|. A token
+    whose 2nd and 3rd router logits lie within ROUTE_EPS is excused and
+    counted. Times the layer (information). Returns {mode: ms}."""
+    from dataclasses import replace
+
+    one = replace(mixtral.mixtral_8x7b_config(), num_layers=1,
+                  vocab_size=16)
+    k = one.num_experts_per_token
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((16, one.hidden_size), generator=g, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    times = {}
+    for mode in ("", "int8"):
+        p = deepseek_moe.init_params(replace(one, quant=mode),
+                                     torch.Generator(device="cuda")
+                                     .manual_seed(22), "cuda")
+        mp = deepseek_moe._at(p["moe"], 0)
+        got = deepseek_moe._moe_mlp(mp, x, one).float()
+        logits = x.float() @ mp["router"]["kernel"].float()
+        top, idx = logits.sort(dim=-1, descending=True)
+        ties = (top[:, k - 1] - top[:, k]) < ROUTE_EPS
+        ex = mp["experts"]
+        w = [dequantized(ex[n]["kernel"])
+             for n in ("gate_proj", "up_proj", "down_proj")]
+        ref = torch.zeros((16, one.hidden_size), device="cuda")
+        ctl = torch.zeros_like(ref)
+        for t in range(16):
+            gates = torch.softmax(top[t, :k], dim=-1)
+            for j in range(k):
+                e = int(idx[t, j])
+                for out, dt in ((ref, torch.float32), (ctl, torch.bfloat16)):
+                    xt = x[t].to(dt)
+                    wg, wu, wd = (m[e].to(dt) for m in w)
+                    h = torch.nn.functional.silu(xt @ wg) * (xt @ wu)
+                    out[t] += gates[j] * (h @ wd).float()
+        keep = ~ties
+        err = (got - ref).abs()[keep].max().item()
+        ctl_err = (ctl - ref).abs()[keep].max().item()
+        scale = ref.abs().max().item()
+        ms = time_ms(lambda: deepseek_moe._moe_mlp(mp, x, one))
+        times[mode or "bf16"] = ms
+        log(f"  (a) MoE layer at mixtral-8x7b's width, 16 tokens, "
+            f"{mode or 'bf16'}: dense dispatch vs the f32 loop max_abs_err "
+            f"{err:.4g}; bf16 loop (control) {ctl_err:.4g}; max|ref| "
+            f"{scale:.4g} (tol 4 x control + 1e-3 x max|ref|); routing "
+            f"near-ties (within {ROUTE_EPS}) {int(ties.sum())} of 16; "
+            f"{ms:.4f} ms a layer ({card})")
+        assert int(keep.sum()) >= 12, "too many routing near-ties"
+        assert err <= 4 * ctl_err + 1e-3 * scale, \
+            f"MoE dispatch ({mode or 'bf16'}) off the f32 loop: {err}"
+        del p, mp, ex, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return times
+
+
+def mixtral_agent_leg(deepseek_moe, kernels, card):
+    """4m (b): Mixtral-8x7B in weight-only int8, all 32 layers and eight
+    experts, random weights drawn in their int8 form from the engine's
+    seed, served by the port's agent built from its command line
+    (``--model-config mixtral_8x7b --quant int8``) behind phase 4f's stub
+    master: four greedy requests, then two sharing the first's 512-token
+    prefix once it streams. Checks the deltas, kernel 1 at 32 launches a
+    replayed step, kernel 2 on the prefix hits, the captured step's
+    replays, and every greedy token against its recomputation. Returns the
+    launches of kernels 1 and 2."""
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import _parser, build_agent
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    paged_attention, mq_paged_attention = kernels
+    store = MemoryStore()
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    args = _parser().parse_args([
+        "--model-config", "mixtral_8x7b", "--quant", "int8",
+        "--model-id", "mixtral-8x7b", "--num-pages", "1024",
+        "--max-batch-size", "8", "--max-seq-len", "2048",
+        "--decode-horizon", "8"])
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    agent = build_agent(args, coord=InMemoryCoordination(store))
+    torch.cuda.synchronize()
+    cfg = agent.engine.cfg
+    m = cfg.model
+    n_params = sum(t_.numel() for t_ in _tree_tensors(agent.engine.params))
+    log(f"  (b) mixtral-8x7b int8: {m.num_layers} layers, {m.num_experts} "
+        f"experts of {m.moe_ffn_size}, {m.num_heads}/{m.num_kv_heads} "
+        f"heads: {n_params / 1e9:.2f} B weights built one layer of one "
+        f"leaf at a time in {time.monotonic() - t:.1f} s (the agent's "
+        f"engine); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(31)
+    V = m.vocab_size
+    lens = [640] + [int(n) for n in rng.integers(64, 769, size=3)]
+    prompts = [rng.integers(3, V, size=n).tolist() for n in lens]
+    shared = [prompts[0][:512] + rng.integers(3, V, size=int(n)).tolist()
+              for n in rng.integers(32, 257, size=2)]
+    greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+    sent_at, sent = {}, {}
+    installs = spy_installs(agent.engine)
+    reset_counts()
+    agent.start()
+    post = Poster(agent.name)
+    try:
+        def dispatch(sid, toks):
+            sent_at[sid], sent[sid] = time.monotonic(), toks
+            status, reply = post("/v1/completions", dict(
+                service_request_id=sid, request_id=sid, token_ids=toks,
+                source_service_addr=master.addr, **greedy))
+            assert status == 200, (sid, status, reply)
+
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            dispatch(f"g{i}", p)
+        master.wait(lambda: "g0" in master.first, "request 0's first delta")
+        for j, p in enumerate(shared):
+            dispatch(f"s{j}", p)
+        names = list(sent)
+        master.wait(lambda: all(map(master.finished, names)),
+                    "mixtral's requests", timeout=600)
+        wall = time.monotonic() - t0
+        toks = {n: check_deltas(n, master.gens[n], agent)[0] for n in names}
+        stats = agent.engine.stats()
+        k1, k2 = paged_attention.launches, mq_paged_attention.launches
+        graph = stats["decode_graph"]
+        assert all(len(v) == 64 for v in toks.values()), "short streams"
+        ttft = sorted((master.first[n] - sent_at[n]) * 1e3 for n in names)
+        tps = sum(map(len, toks.values())) / wall
+        kv_tok = m.num_layers * 2 * m.kv_size * m.dtype_bytes
+        log(f"  (b) {len(names)} requests through the agent in {wall:.1f} "
+            f"s: TTFT ms p50 {ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f};"
+            f" {tps:.1f} generated tok/s; KV {kv_tok} bytes a token "
+            f"(information only; {card}); prefix hits "
+            f"{stats['prefix_hits']}; launches: kernel 1 {k1}, kernel 2 "
+            f"{k2}")
+        check_replays(stats, "mixtral-8x7b")
+        assert k1 == m.num_layers * (graph["replays"] + graph["captures"]), \
+            f"mixtral: kernel 1 launched {k1} times, not {m.num_layers} a step"
+        assert stats["prefix_hits"] >= 2 and k2 > 0, \
+            "mixtral: no prefix hit through kernel 2"
+        check_streams_recomputed(deepseek_moe, cfg, agent.engine.params,
+                                 sent, toks, "(b) mixtral-8x7b int8",
+                                 moe=deepseek_moe)
+        replay_streams(deepseek_moe, cfg, agent.engine.params, sent, toks,
+                       installs, "(b) mixtral-8x7b int8")
+        return k1, k2
+    finally:
+        post.close()
+        agent.stop()
+        master.close()
+        store.close()
+        del agent
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tree_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_tensors(v)
+        else:
+            yield v
+
+
+def deepseek_leg(engine_mod, deepseek_moe, attention, kernels, card):
+    """4m (c): DeepSeek-V2-Lite in bf16, all 27 layers and 64 routed
+    experts (two shared, layer 0 dense), random weights from a seed,
+    through ``InferenceEngine`` (the reference agent has no config for
+    it): phase 4j's kind of requests (two prefix hits) and an embeddings
+    call. Checks the latent pool's shape ``[27, 2, P, 1, ps, 576]``,
+    kernels 1, 2 and 3 idle, the MLA decode route (``paged_attention_xla``)
+    once a layer every step, the prefix hits on the dense route, the
+    embeddings (finite, each row independent of its batch's padding), and
+    every greedy token against its recomputation."""
+    from xllm_service_tpu_torch.models.deepseek_moe import (
+        deepseek_v2_lite_config,
+    )
+
+    mcfg = deepseek_v2_lite_config()
+    cfg = engine_config_4j(mcfg, num_pages=1024, max_seq_len=2048)
+    rng = np.random.default_rng(41)
+    V = mcfg.vocab_size
+    prompts = [rng.integers(3, V, size=int(n)).tolist()
+               for n in rng.integers(64, 1025, size=4)]
+    shared = [prompts[0][:512] + rng.integers(3, V, size=int(n)).tolist()
+              for n in rng.integers(64, 513, size=2)]
+    texts = [rng.integers(3, V, size=n).tolist() for n in (40, 300)]
+
+    def after(eng):
+        both = eng.embed(texts)
+        alone = eng.embed(texts[:1])
+        return tuple(eng.kv_pages.shape), both, alone
+
+    spied = {}
+
+    def attach(eng):
+        spied["installs"] = spy_installs(eng)
+
+    reset_counts()
+    xla0 = attention.paged_attention_xla.launches
+    dense0 = attention.dense_prefill_route.launches
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    toks, sent, stats, ttft, tps, params, (shape, both, alone) = \
+        serve_variant(engine_mod, cfg, None, prompts, shared,
+                      rng.integers(3, V, size=200).tolist(), None,
+                      after=after, attach=attach)
+    xla = attention.paged_attention_xla.launches - xla0
+    dense = attention.dense_prefill_route.launches - dense0
+    k1, k2, k3 = (fn.launches for fn in kernels)
+    graph = stats["decode_graph"]
+    L = mcfg.num_layers
+    pool_tok = L * 2 * mcfg.kv_size * mcfg.dtype_bytes
+    log(f"  (c) deepseek-v2-lite bf16 ({L} layers, {mcfg.num_experts} "
+        f"experts of {mcfg.moe_ffn_size} + {mcfg.num_shared_experts} "
+        f"shared, MLA latent {mcfg.kv_lora_rank} + rope "
+        f"{mcfg.qk_rope_head_dim}): served {len(toks)} requests in "
+        f"{time.monotonic() - t:.1f} s (weights drawn by the engine); "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; TTFT ms p50 "
+        f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; {tps:.1f} generated "
+        f"tok/s; MLA pool {pool_tok} bytes a token (information only; "
+        f"{card}); pool {shape}; prefix hits {stats['prefix_hits']}; MLA "
+        f"decode route calls {xla}, dense-route prefills {dense}; kernels "
+        f"1/2/3 {k1}/{k2}/{k3}")
+    assert shape == (L, 2, cfg.num_pages, 1, cfg.page_size, 576), shape
+    assert (k1, k2, k3) == (0, 0, 0), "a GQA kernel ran on the MLA engine"
+    check_replays(stats, "deepseek-v2-lite")
+    assert xla == L * (graph["replays"] + graph["captures"]), \
+        f"MLA decode route called {xla} times, not {L} a step"
+    assert stats["prefix_hits"] >= 2 and dense >= 2 * L, \
+        "deepseek: the prefix hits did not take the dense route"
+    err = float(np.abs(both[0] - alone[0]).max())
+    cos = float(both[0] @ alone[0] / (np.linalg.norm(both[0])
+                                       * np.linalg.norm(alone[0])))
+    log(f"  (c) embeddings {both.shape}: row 0 (40 tokens) beside a "
+        f"300-token row vs alone: cosine {cos:.6f} (tol >= 0.999: pooling "
+        f"the 260 padded positions would move it far more), max_abs_err "
+        f"{err:.4g}")
+    assert both.shape == (2, mcfg.hidden_size) and np.isfinite(both).all()
+    assert cos >= 0.999, "an embedding row saw its batch's padding"
+    check_streams_recomputed(deepseek_moe, cfg, params, sent, toks,
+                             "(c) deepseek-v2-lite bf16", moe=deepseek_moe)
+    replay_streams(deepseek_moe, cfg, params, sent, toks, spied["installs"],
+                   "(c) deepseek-v2-lite bf16")
+    mla_route_timing(attention, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return xla
+
+
+def spy_installs(engine):
+    """Record each install the engine dispatches, in order, as (request
+    id, tokens of its prompt already in the pages); returns the list."""
+    installs = []
+    real = engine._dispatch_prefill_install
+
+    def spied(seq, prompt, matched):
+        installs.append((seq.req.service_request_id, matched))
+        return real(seq, prompt, matched)
+
+    engine._dispatch_prefill_install = spied
+    return installs
+
+
+def replay_streams(family, cfg, params, sent, toks, installs, what):
+    """Every greedy stream fed back through the serving path's own shapes:
+    each install as the engine dispatched it (a prefill at B 1 of the
+    prompt past its ``installs`` prefix, behind the donor request's pages
+    that hold that prefix, on the prefix route when it is not empty), then
+    decode steps at the engine's batch width over full-width page tables,
+    row r fed stream r's tokens. Every op of the step computes each row on
+    its own, so each row's logits are the served step's bit for bit, and
+    every greedy token must be the replay's argmax: no tolerance. Returns
+    the tokens checked."""
+    m = cfg.model
+    B, W, ps = cfg.max_batch_size, cfg.pages_per_seq, cfg.page_size
+    i32 = dict(dtype=torch.int32, device="cuda")
+    order = [(n, k) for n, k in installs if n in toks and n != "sampled"]
+    assert len(order) <= B, order
+    pool = empty_pool(cfg, 1 + len(order) * W, "cuda")
+    tables = {}
+    checked = 0
+    for i, (name, matched) in enumerate(order):
+        prompt = sent[name]
+        table = torch.arange(1 + i * W, 1 + (i + 1) * W, **i32)
+        if matched:
+            donor = next(d for d, _ in order[:i]
+                         if sent[d][:matched] == prompt[:matched])
+            table[:matched // ps] = tables[donor][:matched // ps]
+        tables[name] = table
+        logits, _ = family.prefill_forward(
+            params, m, torch.tensor([prompt[matched:]], **i32),
+            torch.arange(matched, len(prompt), **i32)[None], pool,
+            table[None], torch.tensor([matched], **i32),
+            torch.tensor([len(prompt) - matched], **i32),
+            has_prefix=matched > 0)
+        assert int(logits[0].argmax()) == toks[name][0], \
+            f"{what}: {name}'s first token differs from its replay"
+        checked += 1
+    pt = torch.zeros((B, W), **i32)
+    for r, (name, _) in enumerate(order):
+        pt[r] = tables[name]
+    n_prompt = torch.tensor([len(sent[n]) for n, _ in order] + [0] * (
+        B - len(order)), **i32)
+    steps = min(len(toks[n]) for n, _ in order)
+    for j in range(1, steps):
+        last = torch.tensor([toks[n][j - 1] for n, _ in order] + [0] * (
+            B - len(order)), **i32)
+        logits, _ = family.decode_forward(
+            params, m, last, n_prompt + j - 1, pool, pt, n_prompt + j)
+        got = logits[:len(order)].argmax(dim=-1).tolist()
+        want = [toks[n][j] for n, _ in order]
+        assert got == want, f"{what}: step {j} differs from its replay: " \
+            f"{got} != {want}"
+        checked += len(order)
+    log(f"  {what}: {checked} greedy tokens equal to a replay at the "
+        f"serving path's shapes ({len(order)} installs as dispatched, "
+        f"{sum(1 for _, k in order if k)} behind a cached prefix, then "
+        f"decode steps at batch {B}), exactly")
+    return checked
+
+
+def mla_route_timing(attention, card):
+    """The MLA decode route (``paged_attention_xla``: the whole table
+    gathered dense, f32) at DeepSeek-V2-Lite's decode, one layer: B 16,
+    16 heads over one 576-wide latent head, 1024 tokens of context each in
+    a 128-page table (the engine's 2048 tokens), beside its bound (the
+    visible K and V read once, q and the output once) and one SDPA call
+    over the same K/V gathered dense. Information only; returns the
+    route's ms."""
+    B, H, D, ps, mp, ctx = 16, 16, 576, 16, 128, 1024
+    g = torch.Generator(device="cuda").manual_seed(51)
+    pool = torch.randn((B * mp + 1, 1, ps, D), generator=g, device="cuda"
+                       ).to(torch.bfloat16)
+    pt = torch.arange(1, B * mp + 1, dtype=torch.int32,
+                      device="cuda").reshape(B, mp)
+    clens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    scale = 1.0 / 192 ** 0.5
+    ms = time_ms(lambda: attention.paged_attention_xla(q, pool, pool, pt,
+                                                       clens, scale=scale))
+    kv = pool[pt[:, :ctx // ps].long()].reshape(B, 1, ctx, D)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kv.expand(B, H, ctx, D), kv.expand(B, H, ctx, D),
+        scale=scale))
+    bound = bound_of(2 * (2 * B * ctx * D + 2 * B * H * D),
+                     4 * B * H * ctx * D)
+    log(f"  (c) MLA decode route at B {B}, {H} heads over one {D}-wide "
+        f"latent, ctx {ctx} in a {mp * ps}-token table: {ms:.4f} ms a "
+        f"layer; bound {bound[0]:.4f} ms ({bound[1]}); one SDPA call on "
+        f"the K/V gathered dense {lib:.4f} ms ({card})")
+    return ms
+
+
+def moe_bench_twin(card):
+    """4m (d): the bench twin at ``XLLM_BENCH_MODEL=moe`` (the reference's
+    MLA+MoE bench shape in int8, B 16, ctx 512); information only."""
+    from xllm_service_tpu_torch import bench
+
+    os.environ["XLLM_BENCH_MODEL"] = "moe"
+    try:
+        b = bench.run("cuda")
+    finally:
+        del os.environ["XLLM_BENCH_MODEL"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("  bench " + json.dumps(b))
+    log(f"  (d) bench twin (moe {b['quant']}, B {b['batch']}, ctx "
+        f"{b['ctx']}): {b['value']:.1f} tok/s, {b['ms_per_token_step']:.3f} "
+        f"ms a token-step, pct_roofline {b['pct_roofline']:.2f} of the "
+        f"active experts' stream ({b['bytes_per_step_mb']:.1f} MB a step; "
+        f"information only; {card})")
+    return b
+
+
+def moe_phase(engine_mod, attention, kernels, card):
+    """Phase 4m: MoE and MLA at full width and depth, (a) to (d). Returns
+    the launches of kernels 1 and 2 (the Mixtral leg's)."""
+    from xllm_service_tpu_torch.models import deepseek_moe, mixtral
+
+    paged_attention, mq_paged_attention, fused_decode_attention = kernels
+    moe_layer_check(deepseek_moe, mixtral, card)
+    t = time.monotonic()
+    k1, k2 = mixtral_agent_leg(deepseek_moe,
+                               (paged_attention, mq_paged_attention), card)
+    log(f"  (b) leg: {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    deepseek_leg(engine_mod, deepseek_moe, attention, kernels, card)
+    log(f"  (c) leg: {time.monotonic() - t:.1f} s")
+    moe_bench_twin(card)
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5540,6 +6078,21 @@ def main() -> int:
                               (paged_attention, mq_paged_attention), card)
     log(f"  phase 4l: {time.monotonic() - t:.1f} s")
 
+    # Phase 4m: MoE and MLA. Phase 4's weights go first: Mixtral-8x7B's
+    # int8 weights alone take about 47 GB.
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[4m] MoE and MLA at full width and depth: one MoE layer at "
+        "mixtral-8x7b's width; mixtral-8x7b int8 through the agent; "
+        "deepseek-v2-lite bf16; the moe bench twin "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    m_launches = moe_phase(engine_mod, attention,
+                           (paged_attention, mq_paged_attention,
+                            fused_decode_attention), card)
+    log(f"  phase 4m: {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -5548,12 +6101,12 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
-             + k_launches[0] + l_launches[0]),
+             + k_launches[0] + l_launches[0] + m_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
-             + k_launches[1] + l_launches[1]),
+             + k_launches[1] + l_launches[1] + m_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

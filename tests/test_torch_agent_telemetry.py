@@ -276,6 +276,12 @@ class TestMux:
                                      re.M)}
             return types, samples, text
 
+        # A labelled family renders once its first child exists, in both
+        # registries: wait for each agent's first beat to be counted.
+        for c in clusters:
+            assert wait_until(
+                lambda c=c: "engine_heartbeats_total" in families(c.agent)[0],
+                timeout=30)
         (jt, js, _), (pt, ps, text) = (families(c.agent) for c in clusters)
         assert pt == jt
         # The heartbeat family's label value is each agent's own master.

@@ -1,9 +1,10 @@
 """The port's ``models/hf_config.py`` against the reference's, on the CPU,
 on the model directories that ``test_hf_parity.make_model_dir`` writes:
-``model_config_from_hf`` field by field for llama, qwen2 and gemma2 (the
-checkpoint's dtype, an override, a bounded context), the refusals of the
-families still to come (ROADMAP queue 1 items 12 and 13) and of an unknown
-``model_type``, and ``load_checkpoint`` through ``loader_for``."""
+``model_config_from_hf`` field by field for llama, qwen2, gemma2, mixtral
+and deepseek_v2/v3 (the checkpoint's dtype, an override, a bounded
+context), the refusal of the family still to come (ROADMAP queue 1 item
+13) and of an unknown ``model_type``, and ``load_checkpoint`` through
+``loader_for``."""
 
 import dataclasses
 import json
@@ -30,9 +31,23 @@ def _fields_equal(port: ModelConfig, ref) -> None:
             assert got == want, (f.name, got, want)
 
 
-@pytest.mark.parametrize("model_type", ["llama", "qwen2", "gemma2"])
+def _model_dir(tmp_path, model_type):
+    """``make_model_dir``'s directory; deepseek_v3 is deepseek_v2's with
+    its model_type renamed (both map alike in the reference)."""
+    if model_type != "deepseek_v3":
+        return make_model_dir(tmp_path, model_type)
+    d = make_model_dir(tmp_path, "deepseek_v2")
+    conf = json.loads((d / "config.json").read_text())
+    (d / "config.json").write_text(json.dumps(
+        {**conf, "model_type": "deepseek_v3"}))
+    return d
+
+
+@pytest.mark.parametrize("model_type", ["llama", "qwen2", "gemma2",
+                                        "mixtral", "deepseek_v2",
+                                        "deepseek_v3"])
 def test_model_config_from_hf_matches_the_reference(tmp_path, model_type):
-    d = make_model_dir(tmp_path, model_type)
+    d = _model_dir(tmp_path, model_type)
     _fields_equal(hf_config.model_config_from_hf(d),
                   ref_hf.model_config_from_hf(d))
     _fields_equal(hf_config.model_config_from_hf(
@@ -40,24 +55,29 @@ def test_model_config_from_hf_matches_the_reference(tmp_path, model_type):
         ref_hf.model_config_from_hf(d, dtype=jnp.float32,
                                     max_context_len=128))
     cfg = hf_config.model_config_from_hf(d)
-    assert cfg.name == {"gemma2": "gemma"}.get(model_type, model_type)
+    assert cfg.name == {"gemma2": "gemma", "deepseek_v2": "deepseek_moe",
+                        "deepseek_v3": "deepseek_moe"}.get(model_type,
+                                                           model_type)
     assert cfg.qkv_bias == (model_type == "qwen2")
+    if model_type == "mixtral":
+        assert cfg.num_experts == 4 and cfg.moe_ffn_size == cfg.ffn_size
+    if model_type.startswith("deepseek"):
+        assert cfg.num_kv_heads == 1 and cfg.first_dense_layers == 1 and \
+            cfg.head_dim == cfg.kv_lora_rank + cfg.qk_rope_head_dim
     if model_type == "gemma2":
         assert cfg.tie_embeddings and cfg.sandwich_norms and \
             cfg.sliding_window_pattern == 2 and cfg.layer_is_local(0)
 
 
-@pytest.mark.parametrize("model_type,item", [
-    ("mixtral", "item 12"), ("deepseek_v2", "item 12"),
-    ("deepseek_v3", "item 12"), ("qwen2_vl", "item 13")])
+@pytest.mark.parametrize("model_type,item", [("qwen2_vl", "item 13")])
 def test_families_still_to_come_are_refused(tmp_path, model_type, item):
     (tmp_path / "config.json").write_text(json.dumps({
         "model_type": model_type}))
     with pytest.raises(ValueError, match=f"{model_type}.*{item}"):
         hf_config.model_config_from_hf(tmp_path)
-    with pytest.raises(ValueError, match="items 12 and 13"):
+    with pytest.raises(ValueError, match="item 13"):
         hf_config.loader_for(dataclasses.replace(ModelConfig(),
-                                                 name="mixtral"))
+                                                 name="qwen2_vl"))
 
 
 def test_unknown_model_type_raises_as_the_reference(tmp_path):
@@ -71,11 +91,16 @@ def test_unknown_model_type_raises_as_the_reference(tmp_path):
         hf_config.model_config_from_hf(tmp_path / "none")
 
 
-@pytest.mark.parametrize("model_type", ["llama", "gemma2"])
-def test_load_checkpoint_picks_the_family_loader(tmp_path, model_type):
+@pytest.mark.parametrize("model_type,load", [
+    ("llama", loader.load_hf_llama_safetensors),
+    ("gemma2", loader.load_hf_llama_safetensors),
+    ("mixtral", loader.load_hf_mixtral_safetensors),
+    ("deepseek_v2", loader.load_hf_deepseek_safetensors)])
+def test_load_checkpoint_picks_the_family_loader(tmp_path, model_type,
+                                                 load):
     d = make_model_dir(tmp_path, model_type)
     rcfg = ref_hf.model_config_from_hf(d, dtype=jnp.float32)
     cfg = hf_config.model_config_from_hf(d, dtype=torch.float32)
-    assert hf_config.loader_for(cfg) is loader.load_hf_llama_safetensors
+    assert hf_config.loader_for(cfg) is load
     assert_trees_equal(hf_config.load_checkpoint(d, cfg, device="cpu"),
                        ref_hf.load_checkpoint(d, rcfg))

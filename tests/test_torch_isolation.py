@@ -40,7 +40,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "tokenizer.hf_json", "tokenizer.sentencepiece_tok",
               "multimaster.ownership", "common.metrics", "common.tracing",
               "common.faults", "common.flightrecorder", "profiling.sampler",
-              "profiling.critical_path"):
+              "profiling.critical_path", "models.deepseek_moe",
+              "models.mixtral", "models.quant", "models.weights"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -14,11 +14,13 @@ prints ONE JSON line:
 
 On the card the shapes are the reference's: B 16, ctx 512, max_seq 1024,
 ``decode_horizon`` 32, page 16, hash block 128, bf16 weights drawn from
-seed 0. ``XLLM_BENCH_MODEL`` picks ``1b`` (default) or ``8b`` (Llama-3-8B);
-``XLLM_BENCH_CTX`` runs the long-context variant (the batch shrinks so the
-pool fits); ``XLLM_QUANT=int8`` serves weight-only int8 (the engine
-quantizes the weights). ``pct_roofline`` is the weight and KV stream of
-one token-step
+seed 0. ``XLLM_BENCH_MODEL`` picks ``1b`` (default), ``8b`` (Llama-3-8B)
+or ``moe`` (the reference's MLA+MoE bench shape, ``bench_moe_config``, in
+weight-only int8 unless ``XLLM_QUANT`` names another mode, as the
+reference's bench has it); ``XLLM_BENCH_CTX`` runs the long-context
+variant (the batch shrinks so the pool fits); ``XLLM_QUANT=int8`` serves
+weight-only int8 (the engine quantizes the weights). ``pct_roofline`` is
+the weight and KV stream of one token-step
 (``decode_weight_stream_bytes() + B * kv_bytes_per_token(mid_ctx)``) at
 the achieved step rate, over the card's 3.35 TB/s. There is no CPU
 fallback: without a card and without ``--device cpu`` it raises. A CPU run
@@ -46,6 +48,7 @@ from .models.base import (
     llama3_8b_config,
     tiny_config,
 )
+from .models.deepseek_moe import bench_moe_config
 
 METRIC = "decode_tokens_per_sec_per_chip"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -80,13 +83,15 @@ def bench_shape(device: torch.device) -> BenchShape:
                           ctx=64, max_seq=128, horizon=4, hash_block=32,
                           n_steps=4)
     model_key = os.environ.get("XLLM_BENCH_MODEL", "1b")
-    if model_key not in ("1b", "8b"):
-        raise ValueError(f"XLLM_BENCH_MODEL={model_key!r}: 1b or 8b")
-    mcfg = llama3_8b_config() if model_key == "8b" else bench_1b_config()
-    quant = os.environ.get("XLLM_QUANT", "")
+    if model_key not in ("1b", "8b", "moe"):
+        raise ValueError(f"XLLM_BENCH_MODEL={model_key!r}: 1b, 8b or moe")
+    mcfg = {"1b": bench_1b_config, "8b": llama3_8b_config,
+            "moe": bench_moe_config}[model_key]()
+    # Weight-only int8 (the reference bench's switch): the default for moe
+    # as there; bf16 for 8b here, where its weights fit the card.
+    quant = os.environ.get("XLLM_QUANT",
+                           "int8" if model_key == "moe" else "")
     if quant:
-        # Weight-only int8 (the reference bench's switch); bf16 is the
-        # default here, where the 8b weights fit the card.
         mcfg = dataclasses.replace(mcfg, quant=quant)
     B, ctx, max_seq = 16, 512, 1024
     if os.environ.get("XLLM_BENCH_CTX", ""):

@@ -1836,10 +1836,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--model-id", default="bench-1b")
     p.add_argument("--model-config", default="bench_1b",
                    choices=["tiny", "bench_1b", "llama3_8b", "gemma_2b",
-                            "gemma_tiny", "hf"],
-                   help="config factory in models.base or models.gemma, "
-                        "or 'hf': --checkpoint-path's config.json "
-                        "(models/hf_config.py) in its torch_dtype")
+                            "gemma_tiny", "mixtral_8x7b", "mixtral_tiny",
+                            "hf"],
+                   help="config factory in models.base, models.gemma or "
+                        "models.mixtral, or 'hf': --checkpoint-path's "
+                        "config.json (models/hf_config.py: llama, qwen2, "
+                        "gemma2, mixtral, deepseek_v2/3) in its "
+                        "torch_dtype")
     p.add_argument("--quant", default="", choices=["", "int8"],
                    help="weight-only quantization (models/quant.py)")
     p.add_argument("--checkpoint-path", default="",
@@ -1917,7 +1920,7 @@ def _parser() -> argparse.ArgumentParser:
 def engine_config(args: argparse.Namespace) -> EngineConfig:
     """The engine configuration of parsed command-line ``args``."""
     from ..models import base as model_base
-    from ..models import gemma, hf_config
+    from ..models import gemma, hf_config, mixtral
 
     if args.model_config == "hf":
         mcfg = hf_config.model_config_from_hf(
@@ -1928,7 +1931,10 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
                 "bench_1b": model_base.bench_1b_config,
                 "llama3_8b": model_base.llama3_8b_config,
                 "gemma_2b": gemma.gemma_2b_config,
-                "gemma_tiny": gemma.gemma_tiny_config}[args.model_config]()
+                "gemma_tiny": gemma.gemma_tiny_config,
+                "mixtral_8x7b": mixtral.mixtral_8x7b_config,
+                "mixtral_tiny": mixtral.mixtral_tiny_config,
+                }[args.model_config]()
     if args.quant:
         mcfg = dataclasses.replace(mcfg, quant=args.quant)
     ecfg = EngineConfig(
@@ -1950,16 +1956,18 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
 
 
 def checkpoint_params(path: str, mcfg, device=None) -> dict:
-    """The weights under ``path`` for model ``mcfg``, as the reference
-    agent loads them: a directory holding ``*.safetensors`` is an HF model
-    directory (``models/loader.py::load_hf_llama_safetensors``), anything
-    else a native checkpoint (``load_params``). A failed load raises: the
-    agent never falls back to random weights. Under ``--quant int8`` the
-    engine quantizes the loaded tree at start."""
-    from ..models import loader
+    """The weights under ``path`` for model ``mcfg``: a directory holding
+    ``*.safetensors`` is an HF model directory, read by the family's loader
+    (``models/hf_config.py::loader_for``; the reference agent reads every
+    such directory with its llama loader, which maps no MoE tensor),
+    anything else a native checkpoint (``load_params``). A failed load
+    raises: the agent never falls back to random weights. Under ``--quant
+    int8`` the loaders quantize the stacked projections as they assemble
+    them, and the engine quantizes the rest at start."""
+    from ..models import hf_config, loader
 
     if loader.shard_files(path):
-        return loader.load_hf_llama_safetensors(path, mcfg, device=device)
+        return hf_config.loader_for(mcfg)(path, mcfg, device=device)
     return loader.load_params(path, mcfg, device=device)
 
 

@@ -112,10 +112,15 @@ Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
 The model is any registered family (``llama``, ``qwen2``, ``gemma``,
-``models/base.py``). With ``model.quant == "int8"`` the weights, random or
-given, are quantized one layer at a time before serving (weight-only int8,
-``models/quant.py``). A config with Gemma-2's score softcap or sliding
-window refuses a seq mesh, as the reference does.
+``deepseek_moe``, ``mixtral``, ``models/base.py``). With ``model.quant ==
+"int8"`` the weights, random or given, are quantized one layer at a time
+before serving (weight-only int8, ``models/quant.py``); the MoE families
+draw random weights in their int8 form directly, one layer of one leaf at
+a time, so Mixtral-8x7B's bf16 tree never exists whole. The MoE families
+have no mixed step, so their chunks never ride a decode step. A config
+with Gemma-2's score softcap or sliding window refuses a seq mesh, as the
+reference does; so do the MoE families, whose context-parallel path is
+not ported.
 
 Not in this port yet: multimodal input, mesh axes other than ``seq`` and
 the captured step under a seq mesh.
@@ -276,6 +281,10 @@ class InferenceEngine:
                 "seq-axis parallelism is not supported for models with "
                 "attn_logit_softcap/sliding_window (gemma-2); use a mesh "
                 "without a seq axis")
+        if self.seq_parallel > 1 and cfg.model.num_experts > 0:
+            raise NotImplementedError(
+                "seq-axis parallelism is not ported for the MoE families "
+                "(deepseek_moe, mixtral)")
         self.ring_prefills = 0          # prefills that took the ring route
         self.tokenizer = tokenizer or SimpleTokenizer()
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
@@ -290,7 +299,8 @@ class InferenceEngine:
                            "speculative decoding disabled", cfg.model_family)
         mcfg = cfg.model
         if params is None:
-            # Random weights from the config's seed (benchmarks, the smoke).
+            # Random weights from the config's seed (benchmarks, the smoke;
+            # the MoE families draw int8 leaves directly under quant).
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = self.family.init_params(mcfg, gen, dev)
         if mcfg.quant:

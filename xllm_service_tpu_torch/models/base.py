@@ -1,7 +1,8 @@
 """Model contract shared by all families (port of
 ``xllm_service_tpu/models/base.py``: the dense llama, qwen2 and gemma
-configurations, weight-only int8; the MLA, MoE and vision fields are not
-ported).
+configurations, the MLA and MoE fields of the deepseek_moe and mixtral
+families, weight-only int8; the vision fields wait for the multimodal
+families).
 
 Engine-facing surface per family:
 - ``init_params(cfg, generator, device) -> params``: random init from an
@@ -41,6 +42,20 @@ class ModelConfig:
     qkv_bias: bool = False          # Qwen2 family
     dtype: torch.dtype = torch.bfloat16
     max_context_len: int = 8192
+    # MLA, multi-head latent attention (deepseek family): kv_lora_rank > 0
+    # turns it on. The paged pool then stores one [kv_lora_rank +
+    # qk_rope_head_dim] latent a token, so the config sets num_kv_heads=1
+    # and head_dim=kv_lora_rank + qk_rope_head_dim for the pool's layout.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # MoE (deepseek_moe and mixtral families).
+    num_experts: int = 0
+    num_experts_per_token: int = 2
+    num_shared_experts: int = 0
+    moe_ffn_size: int = 0           # per-expert ffn width
+    first_dense_layers: int = 1     # leading dense layers before MoE blocks
     # M-RoPE (the Qwen2-VL LM stack): per-axis (temporal, h, w) half-dim
     # rope sections summing to head_dim // 2. Empty = 1-D rope.
     mrope_section: tuple = ()
@@ -89,14 +104,33 @@ class ModelConfig:
         token-step: every layer projection and the lm_head once (the
         embedding is a gather of B rows and is left out; a tied head
         streams the table all the same), plus the RMSNorm scales. The
-        reference's accounting for its dense path, with the width of the
-        port's weight dtype (bf16: 2 bytes, as the reference's); under
-        int8 a projection weight is 1 byte, while the norms and a tied
-        head (the embedding table) keep the model dtype."""
+        reference's accounting, with the width of the port's weight dtype
+        (bf16: 2 bytes, as the reference's); under int8 a projection
+        weight is 1 byte, while the norms and a tied head (the embedding
+        table) keep the model dtype. MLA streams its latent projections in
+        place of the GQA ones; an MoE layer streams the routed experts'
+        and the shared experts' FFNs only (``num_experts_per_token +
+        num_shared_experts`` of them), what a sparse dispatch reads."""
         h, L, db = self.hidden_size, self.num_layers, self.dtype_bytes
         wb = 1 if self.quant == "int8" else db
-        attn = h * self.q_size + 2 * h * self.kv_size + self.q_size * h
-        mlp_total = L * 3 * h * self.ffn_size
+        if self.kv_lora_rank > 0:
+            dn, dr = self.qk_nope_head_dim, self.qk_rope_head_dim
+            dc, dv = self.kv_lora_rank, self.v_head_dim
+            attn = (h * self.num_heads * (dn + dr)      # q_proj
+                    + h * dc + h * dr                   # kv_down, k_rope
+                    + self.num_heads * dn * dc          # k_up
+                    + self.num_heads * dc * dv          # v_up
+                    + self.num_heads * dv * h)          # o_proj
+        else:
+            attn = h * self.q_size + 2 * h * self.kv_size + self.q_size * h
+        if self.num_experts:
+            n_moe = max(0, L - self.first_dense_layers)
+            n_dense = L - n_moe
+            active = self.num_experts_per_token + self.num_shared_experts
+            moe_mlp = 3 * h * (self.moe_ffn_size or self.ffn_size) * active
+            mlp_total = n_dense * 3 * h * self.ffn_size + n_moe * moe_mlp
+        else:
+            mlp_total = L * 3 * h * self.ffn_size
         n_norms = 4 if self.sandwich_norms else 2
         norms = (L * n_norms * h + h) * db
         head = self.vocab_size * h * (db if self.tie_embeddings else wb)
@@ -123,7 +157,8 @@ class ModelFamily:
     # sequence); a family without it never speculates.
     verify_forward: Optional[Callable[..., Any]] = None
     # Whether every projection of the family's forwards goes through
-    # models/quant.py::quantized_matmul (weight-only int8).
+    # models/quant.py (quantized_matmul, quantized_einsum: weight-only
+    # int8).
     supports_int8: bool = False
 
 
@@ -141,8 +176,12 @@ def get_model_family(name: str) -> ModelFamily:
             from . import llama  # noqa: F401
         elif name in ("qwen2", "qwen2.5", "qwen"):
             from . import qwen2  # noqa: F401
+        elif name in ("deepseek_moe", "deepseek"):
+            from . import deepseek_moe  # noqa: F401
         elif name == "gemma":
             from . import gemma  # noqa: F401
+        elif name == "mixtral":
+            from . import mixtral  # noqa: F401
     fam = _REGISTRY.get(name)
     if fam is None:
         raise ValueError(f"unknown model family: {name}")

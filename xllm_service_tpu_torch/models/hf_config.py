@@ -5,10 +5,10 @@
     cfg = model_config_from_hf(model_dir)
     params = load_checkpoint(model_dir, cfg)
 
-``llama``, ``qwen2`` and ``gemma2`` map field for field as in the
-reference. ``mixtral`` and ``deepseek_v2``/``deepseek_v3`` wait for their
-MoE and MLA families (ROADMAP queue 1 item 12), ``qwen2_vl`` for the
-vision families (item 13); any other type raises as the reference's does.
+``llama``, ``qwen2``, ``gemma2``, ``mixtral`` and ``deepseek_v2``/
+``deepseek_v3`` map field for field as in the reference; ``qwen2_vl`` waits
+for the vision families (ROADMAP queue 1 item 13); any other type raises
+as the reference's does.
 """
 
 from __future__ import annotations
@@ -24,9 +24,6 @@ from .base import ModelConfig
 
 # model_type -> the ROADMAP item that brings its family.
 _NOT_PORTED = {
-    "mixtral": "queue 1 item 12, MoE and MLA",
-    "deepseek_v2": "queue 1 item 12, MoE and MLA",
-    "deepseek_v3": "queue 1 item 12, MoE and MLA",
     "qwen2_vl": "queue 1 item 13, multimodal",
 }
 
@@ -98,6 +95,32 @@ def model_config_from_hf(ckpt_dir: Union[str, Path], *,
             sliding_window_pattern=2 if hf.get("sliding_window") else 0,
             query_pre_attn_scalar=float(
                 hf.get("query_pre_attn_scalar") or 0.0))
+    elif mt == "mixtral":
+        kw = _common(hf)
+        # HF's intermediate_size is the per-expert width; the MoE forward
+        # reads moe_ffn_size (first_dense_layers=0: every layer sparse).
+        kw.update(name="mixtral",
+                  num_experts=hf["num_local_experts"],
+                  num_experts_per_token=hf["num_experts_per_tok"],
+                  moe_ffn_size=hf["intermediate_size"],
+                  num_shared_experts=0, first_dense_layers=0)
+    elif mt in ("deepseek_v2", "deepseek_v3"):
+        kw = _common(hf)
+        # MLA: the pool stores one [kv_lora_rank + rope] latent a token,
+        # advertised as a single wide KV head.
+        kw.update(
+            name="deepseek_moe",
+            num_kv_heads=1,
+            head_dim=hf["kv_lora_rank"] + hf["qk_rope_head_dim"],
+            kv_lora_rank=hf["kv_lora_rank"],
+            qk_nope_head_dim=hf["qk_nope_head_dim"],
+            qk_rope_head_dim=hf["qk_rope_head_dim"],
+            v_head_dim=hf["v_head_dim"],
+            num_experts=hf.get("n_routed_experts", 0),
+            num_experts_per_token=hf.get("num_experts_per_tok", 2),
+            num_shared_experts=hf.get("n_shared_experts", 0),
+            moe_ffn_size=hf.get("moe_intermediate_size", 0),
+            first_dense_layers=hf.get("first_k_dense_replace", 1))
     elif mt in _NOT_PORTED:
         raise ValueError(
             f"HF model_type {mt!r} under {ckpt_dir} is not ported yet "
@@ -105,8 +128,8 @@ def model_config_from_hf(ckpt_dir: Union[str, Path], *,
     else:
         raise ValueError(
             f"unsupported HF model_type {mt!r} under {ckpt_dir} — "
-            f"supported: llama, qwen2, gemma2 (mixtral, deepseek_v2/3 and "
-            f"qwen2_vl wait for ROADMAP queue 1 items 12 and 13)")
+            f"supported: llama, qwen2, gemma2, mixtral, deepseek_v2/3 "
+            f"(qwen2_vl waits for ROADMAP queue 1 item 13)")
 
     if dtype is not None:
         kw["dtype"] = dtype
@@ -123,9 +146,12 @@ def loader_for(cfg: ModelConfig) -> Callable:
 
     if cfg.name in ("llama", "qwen2", "gemma"):
         return L.load_hf_llama_safetensors
+    if cfg.name == "mixtral":
+        return L.load_hf_mixtral_safetensors
+    if cfg.name == "deepseek_moe":
+        return L.load_hf_deepseek_safetensors
     raise ValueError(f"no checkpoint loader for family {cfg.name!r} (the "
-                     "MoE, MLA and vision loaders wait for ROADMAP queue 1 "
-                     "items 12 and 13)")
+                     "vision loader waits for ROADMAP queue 1 item 13)")
 
 
 def load_checkpoint(ckpt_dir: Union[str, Path], cfg: ModelConfig,
@@ -133,7 +159,8 @@ def load_checkpoint(ckpt_dir: Union[str, Path], cfg: ModelConfig,
                     ) -> dict:
     """One-call load: the family's loader onto ``device`` (``cuda`` unless
     named). With ``cfg.quant`` set the tree comes back in its int8 form
-    (``models/quant.py::quantize_tree``, as the engine would make it)."""
+    (``models/quant.py::quantize_tree``, as the engine would make it; the
+    loaders quantize the stacked projections as they assemble them)."""
     params = loader_for(cfg)(ckpt_dir, cfg, device=device)
     if cfg.quant:
         from .quant import quantize_tree

@@ -1,6 +1,7 @@
 """Checkpoint loading: Hugging Face safetensors -> the port's stacked
-parameter tree (port of ``xllm_service_tpu/models/loader.py``, the llama
-body's families: llama, qwen2 and gemma2).
+parameter tree (port of ``xllm_service_tpu/models/loader.py``: the llama
+body's families, llama, qwen2 and gemma2, and the MoE families, DeepSeek-V2
+and Mixtral).
 
 HF weight names map onto the stacked-layer tree of ``models/llama.py``
 (a leading ``[L]`` dim, projections ``[in, out]``), exactly the layout of
@@ -8,11 +9,17 @@ HF weight names map onto the stacked-layer tree of ``models/llama.py``
 loaded tree from one carried across.
 
 The load never stacks the model on the host (the reference's
-``np.stack`` holds it twice there). The shards' headers are read first;
-each stacked leaf is then allocated once on the device in the model's
-dtype, and each checkpoint tensor is copied from its ``mmap`` view onto
-the device and into its row, transposed from HF's ``[out, in]`` there.
-Beyond the page cache the host holds nothing.
+``np.stack`` holds it twice there). The shards' headers are read first
+(``_load_pieces``); each stacked leaf is then allocated once on the
+device in the model's dtype and filled layer by layer, each checkpoint
+tensor copied from its ``mmap`` view onto the device and into its row,
+transposed from HF's ``[out, in]`` there. Beyond the page cache the host
+holds nothing. Under ``cfg.quant == "int8"`` each layer of a stacked
+projection is assembled in the model dtype and quantized at once
+(``quantize_kernel``, as ``quantize_tree`` would), so a Mixtral
+checkpoint never has its bf16 tree on the card: the peak is one layer of
+one expert stack. The lm_head (absent: the embedding's transpose, unless
+tied) is quantized with the rest of the tree afterwards.
 
 ``save_params`` / ``load_params`` are the port's native checkpoint (the
 reference's orbax pair, for engine restarts): one file in the safetensors
@@ -21,20 +28,28 @@ int8 trees included (``.../q8`` as I8, ``.../scale`` as F32). The files
 are named ``<group>.st``, so that a directory of them is never taken for
 an HF directory (``*.safetensors``). Orbax directories are not read.
 
-The MoE and vision loaders wait for their families (ROADMAP queue 1 items
-12 and 13).
+The MoE loaders (``load_hf_deepseek_safetensors``,
+``load_hf_mixtral_safetensors``) map HF names as the reference's do: the
+MLA projections split and reshaped (``kv_a_proj_with_mqa`` -> kv_down and
+k_rope, ``kv_b_proj`` -> k_up and v_up), the experts stacked ``[Lm, E,
+...]``, the leading dense layers' MLP into ``dense_mlp``; every leaf in
+the model's dtype, the router included, as the reference's cast.
+
+The vision loader waits for its family (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from pathlib import Path
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..common.device import resolve_device
 from .base import ModelConfig
+from .quant import QUANT_KERNELS, quantize_kernel
 from .safetensors_io import SafeTensorsFile, save_file, shard_files
 
 logger = logging.getLogger(__name__)
@@ -76,85 +91,128 @@ def _set_path(tree: dict, path: str, value) -> None:
     node[parts[-1]] = value
 
 
-def _place(name: str, num_layers: int):
-    """(tree path, layer or None, transpose) of checkpoint tensor ``name``,
-    or None (with the reference's warning) for a tensor it does not map."""
+# One destination of a checkpoint tensor: (tree path, index into the
+# leaf's stack dims, transform of the tensor on the device, its shape).
+_Piece = tuple[str, tuple, Callable[[torch.Tensor], torch.Tensor], tuple]
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.t()
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _top_pieces(name: str, shape: tuple) -> Optional[list[_Piece]]:
+    """The pieces of a top-level tensor, None for a per-layer one, [] (with
+    the reference's warning) for one it does not map."""
     if name in _HF_TOP_MAP:
         path, transpose = _HF_TOP_MAP[name]
-        return path, None, transpose
+        return [(path, (), _t if transpose else _same,
+                 shape[::-1] if transpose else shape)]
     if not name.startswith("model.layers."):
         logger.warning("unmapped checkpoint tensor: %s", name)
-        return None
-    idx_str, _, leaf = name[len("model.layers."):].partition(".")
-    if leaf not in _HF_LAYER_MAP:
-        logger.warning("unmapped layer tensor: %s", name)
-        return None
-    idx = int(idx_str)
-    if not 0 <= idx < num_layers:
-        raise ValueError(f"checkpoint tensor {name} is past the config's "
-                         f"{num_layers} layers")
-    path, transpose = _HF_LAYER_MAP[leaf]
-    return f"layers/{path}", idx, transpose
+        return []
+    return None
 
 
-def load_hf_llama_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
-                              device: Optional[Union[str, torch.device]]
-                              = None) -> Params:
-    """Load an HF llama/qwen2/gemma2 checkpoint directory (``*.safetensors``
-    shards) into the stacked tree on ``device`` (``cuda`` unless named), in
-    ``cfg.dtype``. A checkpoint without ``lm_head`` gets the embedding's
-    transpose unless ``cfg.tie_embeddings`` (whose forwards unembed through
-    the embedding), as in the reference."""
+def _load_pieces(ckpt_dir: Union[str, Path], cfg: ModelConfig,
+                 device: Optional[Union[str, torch.device]],
+                 place: Callable[[str, tuple], list],
+                 stack_dims: Callable[[str], tuple],
+                 missing_word: str = "entries") -> Params:
+    """Every loader's two passes. ``place(name, shape)`` gives a tensor's
+    pieces; ``stack_dims(path)`` a leaf's leading stack dims (``(L,)``,
+    ``(Lm, E)``, ``()``). Pass 1 reads the headers, fixes every leaf's
+    shape and checks that each index of every stacked leaf is filled (the
+    reference's errors, which call a gap ``missing_word``); pass 2 fills
+    each leaf on ``device``, one stack layer at a time, each tensor copied
+    from its mapped bytes onto the device and transformed there. Under
+    int8 a stacked ``QUANT_KERNELS`` leaf's layer is assembled in the
+    model dtype and quantized into its q8 and scale. A checkpoint without
+    ``lm_head`` gets the embedding's transpose unless
+    ``cfg.tie_embeddings`` (whose forwards unembed through the
+    embedding)."""
     dev = resolve_device(device)
     files = shard_files(ckpt_dir)
     if not files:
         raise FileNotFoundError(f"no .safetensors in {ckpt_dir}")
-    L = cfg.num_layers
+    quant = cfg.quant == "int8"
 
-    # Pass 1: the headers. Every placed tensor's leaf, row and shape.
-    plan: list[tuple[Path, list]] = []
     shapes: dict[str, tuple] = {}
-    rows: dict[str, list[bool]] = {}
+    # (path, stack layer or None) -> [(file, name, index in layer, fn)]
+    groups: dict[tuple, list] = {}
     for f in files:
         with SafeTensorsFile(f) as sf:
-            placed = []
             for name in sf.keys():
-                where = _place(name, L)
-                if where is None:
-                    continue
-                path, idx, transpose = where
-                shape = sf.shape(name)
-                if transpose:
-                    shape = shape[::-1]
-                if idx is not None:
-                    rows.setdefault(path, [False] * L)[idx] = True
-                    shape = (L,) + shape
-                if shapes.setdefault(path, shape) != shape:
-                    raise ValueError(f"checkpoint tensor {name} has shape "
-                                     f"{sf.shape(name)}, where {path} has "
-                                     f"{shapes[path]}")
-                placed.append((name, path, idx, transpose))
-            plan.append((f, placed))
-    for path, seen in rows.items():
-        missing = [i for i, s in enumerate(seen) if not s]
-        if missing:
-            raise ValueError(f"checkpoint missing layers {missing} for "
-                             f"{path[len('layers/'):]}")
+                for path, idx, fn, shape in place(name, sf.shape(name)):
+                    stack = stack_dims(path)
+                    if len(idx) != len(stack) or not all(
+                            0 <= i < n for i, n in zip(idx, stack)):
+                        raise ValueError(
+                            f"checkpoint tensor {name} lands at {idx} of "
+                            f"{path}, whose stack is {stack}")
+                    full = stack + tuple(shape)
+                    if shapes.setdefault(path, full) != full:
+                        raise ValueError(
+                            f"checkpoint tensor {name} makes {path} "
+                            f"{full}, where it is {shapes[path]}")
+                    key = (path, idx[0] if idx else None)
+                    groups.setdefault(key, []).append(
+                        (f, name, idx[1:], fn))
+    for path, full in shapes.items():
+        stack = stack_dims(path)
+        have = {(i,) + tuple(x[2]) for (p, i), xs in groups.items()
+                if p == path and i is not None for x in xs}
+        rel = path.split("/", 1)[1]         # the reference's name for it
+        if len(stack) == 2:
+            for mi in range(stack[0]):
+                missing = [e for e in range(stack[1]) if (mi, e) not in have]
+                if missing:
+                    raise ValueError(f"moe layer {mi} missing experts "
+                                     f"{missing} for {rel}")
+        elif stack:
+            missing = [i for i in range(stack[0]) if (i,) not in have]
+            if missing:
+                raise ValueError(f"checkpoint missing {missing_word} "
+                                 f"{missing} for {rel}")
 
-    # Pass 2: each leaf allocated once on the device; each tensor copied
-    # from its mapped bytes into its row.
-    leaves = {path: torch.empty(shape, dtype=cfg.dtype, device=dev)
-              for path, shape in shapes.items()}
-    for f, placed in plan:
-        with SafeTensorsFile(f) as sf:
-            for name, path, idx, transpose in placed:
-                src = sf.get_tensor(name).to(dev)
-                dst = leaves[path] if idx is None else leaves[path][idx]
-                dst.copy_(src.t() if transpose else src)
-                del src
     tree: Params = {}
-    for path, leaf in leaves.items():
-        _set_path(tree, path, leaf)
+    with contextlib.ExitStack() as opened:
+        handles: dict[Path, SafeTensorsFile] = {}
+
+        def fill(dst: torch.Tensor, entries: list) -> None:
+            for f, name, sub, fn in entries:
+                if f not in handles:
+                    handles[f] = opened.enter_context(SafeTensorsFile(f))
+                src = handles[f].get_tensor(name).to(dev)
+                (dst[sub] if sub else dst).copy_(fn(src))
+                del src
+
+        for path, full in shapes.items():
+            stack = stack_dims(path)
+            if not stack:
+                leaf = torch.empty(full, dtype=cfg.dtype, device=dev)
+                fill(leaf, groups[(path, None)])
+            elif (quant and path.endswith("/kernel")
+                  and path.split("/")[-2] in QUANT_KERNELS):
+                leaf = {"q8": torch.empty(full, dtype=torch.int8, device=dev),
+                        "scale": torch.empty((*full[:-2], full[-1]),
+                                             dtype=torch.float32,
+                                             device=dev)}
+                for i in range(stack[0]):
+                    part = torch.empty(full[1:], dtype=cfg.dtype, device=dev)
+                    fill(part, groups[(path, i)])
+                    q = quantize_kernel(part)
+                    leaf["q8"][i].copy_(q["q8"])
+                    leaf["scale"][i].copy_(q["scale"])
+                    del part, q
+            else:
+                leaf = torch.empty(full, dtype=cfg.dtype, device=dev)
+                for i in range(stack[0]):
+                    fill(leaf[i], groups[(path, i)])
+            _set_path(tree, path, leaf)
 
     if "lm_head" not in tree and not cfg.tie_embeddings:
         # Tied checkpoints ship no lm_head; honor tying implicitly.
@@ -162,6 +220,170 @@ def load_hf_llama_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
         tree["lm_head"] = {"kernel": tree["embed"]["embedding"].t()
                            .contiguous()}
     return tree
+
+
+def _layer_index(name: str, num_layers: int) -> tuple[int, str]:
+    idx_str, _, leaf = name[len("model.layers."):].partition(".")
+    li = int(idx_str)
+    if not 0 <= li < num_layers:
+        raise ValueError(f"checkpoint tensor {name} is past the config's "
+                         f"{num_layers} layers")
+    return li, leaf
+
+
+def load_hf_llama_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
+                              device: Optional[Union[str, torch.device]]
+                              = None) -> Params:
+    """Load an HF llama/qwen2/gemma2 checkpoint directory (``*.safetensors``
+    shards) into the stacked tree on ``device`` (``cuda`` unless named), in
+    ``cfg.dtype``."""
+    L = cfg.num_layers
+
+    def place(name: str, shape: tuple) -> list[_Piece]:
+        top = _top_pieces(name, shape)
+        if top is not None:
+            return top
+        li, leaf = _layer_index(name, L)
+        if leaf not in _HF_LAYER_MAP:
+            logger.warning("unmapped layer tensor: %s", name)
+            return []
+        path, transpose = _HF_LAYER_MAP[leaf]
+        return [(f"layers/{path}", (li,), _t if transpose else _same,
+                 shape[::-1] if transpose else shape)]
+
+    return _load_pieces(ckpt_dir, cfg, device, place,
+                        lambda path: (L,) if path.startswith("layers/")
+                        else (), missing_word="layers")
+
+
+def load_hf_deepseek_safetensors(ckpt_dir: Union[str, Path],
+                                 cfg: ModelConfig,
+                                 device: Optional[Union[str, torch.device]]
+                                 = None) -> Params:
+    """An HF DeepSeek-V2/V3 checkpoint directory -> the deepseek_moe tree
+    on ``device`` (``cuda`` unless named): the MLA projections split and
+    reshaped (``kv_a_proj_with_mqa`` rows -> kv_down ‖ k_rope, ``kv_b_proj``
+    -> per-head k_up [H, dn, dc] and v_up [H, dc, dv]), the experts
+    stacked [Lm, E, ...], the shared experts and the router stacked
+    [Lm, ...], layer i < first_dense_layers's MLP in ``dense_mlp``."""
+    L, Ld = cfg.num_layers, cfg.first_dense_layers
+    Lm, E, H = L - Ld, cfg.num_experts, cfg.num_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dc, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    mla = dc > 0
+
+    def stack_dims(path: str) -> tuple:
+        if path.startswith("layers/"):
+            return (L,)
+        if path.startswith("moe/experts/"):
+            return (Lm, E)
+        if path.startswith("moe/"):
+            return (Lm,)
+        if path.startswith("dense_mlp/"):
+            return (Ld,)
+        return ()
+
+    def place(name: str, shape: tuple) -> list[_Piece]:
+        top = _top_pieces(name, shape)
+        if top is not None:
+            return top
+        li, leaf = _layer_index(name, L)
+        mi = li - Ld
+        t_shape = shape[::-1]
+
+        def lay(path, fn=_t, out=t_shape):
+            return [(f"layers/{path}", (li,), fn, out)]
+
+        if leaf == "input_layernorm.weight":
+            return lay("input_norm/scale", _same, shape)
+        if leaf == "post_attention_layernorm.weight":
+            return lay("post_attn_norm/scale", _same, shape)
+        if leaf == "self_attn.o_proj.weight":
+            return lay("o_proj/kernel")
+        if leaf == "self_attn.q_proj.weight":
+            return lay("q_proj/kernel")
+        if mla and leaf == "self_attn.kv_a_proj_with_mqa.weight":
+            return (lay("kv_down/kernel", lambda t: t[:dc].t(),
+                        (shape[1], dc))
+                    + lay("k_rope/kernel", lambda t: t[dc:dc + dr].t(),
+                          (shape[1], dr)))
+        if mla and leaf == "self_attn.kv_a_layernorm.weight":
+            return lay("kv_norm/scale", _same, shape)
+        if mla and leaf == "self_attn.kv_b_proj.weight":
+            return (lay("k_up/kernel",
+                        lambda t: t.reshape(H, dn + dv, dc)[:, :dn, :],
+                        (H, dn, dc))
+                    + lay("v_up/kernel",
+                          lambda t: t.reshape(H, dn + dv, dc)[:, dn:, :]
+                          .transpose(1, 2), (H, dc, dv)))
+        if not mla and leaf == "self_attn.k_proj.weight":
+            return lay("k_proj/kernel")
+        if not mla and leaf == "self_attn.v_proj.weight":
+            return lay("v_proj/kernel")
+        if leaf == "mlp.gate.weight":
+            return [("moe/router/kernel", (mi,), _t, t_shape)]
+        if leaf.startswith("mlp.experts."):
+            e_str, _, w = leaf[len("mlp.experts."):].partition(".")
+            proj = w.split(".")[0]         # gate_proj|up_proj|down_proj
+            return [(f"moe/experts/{proj}/kernel", (mi, int(e_str)), _t,
+                     t_shape)]
+        if leaf.startswith("mlp.shared_experts."):
+            proj = leaf[len("mlp.shared_experts."):].split(".")[0]
+            return [(f"moe/shared/{proj}/kernel", (mi,), _t, t_shape)]
+        if li < Ld and leaf.startswith("mlp."):
+            proj = leaf[len("mlp."):].split(".")[0]
+            return [(f"dense_mlp/{proj}/kernel", (li,), _t, t_shape)]
+        logger.warning("unmapped layer tensor: %s", name)
+        return []
+
+    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
+
+
+_MIXTRAL_EXPERT = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
+
+
+def load_hf_mixtral_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
+                                device: Optional[Union[str, torch.device]]
+                                = None) -> Params:
+    """An HF Mixtral checkpoint directory -> the mixtral tree on ``device``
+    (``cuda`` unless named): attention and norms as llama's,
+    ``block_sparse_moe`` gate/w1/w3/w2 as router/gate_proj/up_proj/
+    down_proj stacked [L, E, ...] (no shared experts, no dense layers)."""
+    L, E = cfg.num_layers, cfg.num_experts
+
+    def stack_dims(path: str) -> tuple:
+        if path.startswith("layers/"):
+            return (L,)
+        if path.startswith("moe/experts/"):
+            return (L, E)
+        if path.startswith("moe/"):
+            return (L,)
+        return ()
+
+    def place(name: str, shape: tuple) -> list[_Piece]:
+        top = _top_pieces(name, shape)
+        if top is not None:
+            return top
+        li, leaf = _layer_index(name, L)
+        if leaf in _HF_LAYER_MAP:          # attention and norms
+            path, transpose = _HF_LAYER_MAP[leaf]
+            return [(f"layers/{path}", (li,), _t if transpose else _same,
+                     shape[::-1] if transpose else shape)]
+        if leaf == "block_sparse_moe.gate.weight":
+            return [("moe/router/kernel", (li,), _t, shape[::-1])]
+        if leaf.startswith("block_sparse_moe.experts."):
+            e_str, _, w = leaf[len("block_sparse_moe.experts."):] \
+                .partition(".")
+            proj = _MIXTRAL_EXPERT.get(w.split(".")[0])
+            if proj is None:
+                logger.warning("unmapped expert tensor: %s", name)
+                return []
+            return [(f"moe/experts/{proj}/kernel", (li, int(e_str)), _t,
+                     shape[::-1])]
+        logger.warning("unmapped layer tensor: %s", name)
+        return []
+
+    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
 
 
 # ------------------------------------------------------ native checkpoint
@@ -193,7 +415,8 @@ def load_params(path: Union[str, Path], cfg: ModelConfig,
                 ) -> Params:
     """A tree written by ``save_params``, on ``device`` (``cuda`` unless
     named): floating leaves in ``cfg.dtype``, the leaves of an int8 kernel
-    (``q8``, ``scale``) as written."""
+    (``q8``, ``scale``) and an MoE router (f32 from ``init_params``) as
+    written."""
     dev = resolve_device(device)
     files = sorted(Path(path).glob(f"*{NATIVE_SUFFIX}"))
     if not files:
@@ -204,9 +427,10 @@ def load_params(path: Union[str, Path], cfg: ModelConfig,
         with SafeTensorsFile(f) as sf:
             for name in sf.keys():
                 src = sf.get_tensor(name)
-                quant_leaf = name.rsplit("/", 1)[-1] in ("q8", "scale")
+                as_written = (name.rsplit("/", 1)[-1] in ("q8", "scale")
+                              or name.endswith("router/kernel"))
                 leaf = torch.empty(src.shape, device=dev, dtype=src.dtype
-                                   if quant_leaf else cfg.dtype)
+                                   if as_written else cfg.dtype)
                 leaf.copy_(src.to(dev))
                 _set_path(tree, name, leaf)
     return tree

@@ -22,8 +22,13 @@ it (the reference leaves it to XLA), so it is a library call for work
 outside any Pallas kernel, not a kernel port. A prefill with a score
 softcap or a sliding window (Gemma-2) takes ``dense_prefill_route``, the
 dense f32 path, on the card as on the CPU, as the reference takes XLA for
-it: neither kernel 2 nor the SDPA call computes a softcap. The choice comes from the
-call's options (the model's config), never from a failed launch.
+it: neither kernel 2 nor the SDPA call computes a softcap. So does a
+prefill against a cached prefix with an explicit scale (MLA's latent
+cache, head dim 576), which the reference's kernel gate (``scale is
+None``) keeps away from its kernel. MLA's decode is ``paged_attention_xla``
+on every device, as the reference calls its XLA path by name there: no
+Pallas kernel computes it. The choice comes from the call's options (the
+model's config), never from a failed launch.
 
 A pool sharded over the mesh's ``seq`` axis (``ShardedPages``, the
 reference's pool under a seq mesh) changes three things, as in the
@@ -50,7 +55,7 @@ from . import _build
 from .cp_paged_attention import ShardedPages, cp_paged_attention
 from .fused_decode_attention import fused_decode_attention
 from .mq_paged_attention import mq_paged_attention
-from .paged_attention import NEG_INF, paged_attention
+from .paged_attention import NEG_INF, paged_attention, paged_attention_plain
 from .ring_attention import ring_attention
 
 
@@ -294,7 +299,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softcap`` > 0 tanh-caps the scores (after q is scaled); ``window``
     > 0 restricts each query to the trailing ``window`` key positions
     (Gemma-2's local layers). Such a prefill takes ``dense_prefill_route``
-    on any device, as the reference's gate sends it to XLA.
+    on any device, as the reference's gate sends it to XLA; so does a
+    prefill with a cached prefix and an explicit ``scale`` (the MLA latent
+    path: the reference's kernel gate is ``scale is None``).
 
     ``ring`` (the pool sharded over the seq axis, no cached prefix) takes
     ring attention over the pool's mesh axis, as the reference's
@@ -322,7 +329,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_pages, v_pages, page_table)
     if not with_prefix:
         k_pages = v_pages = page_table = None
-    if softcap != 0.0 or window != 0:
+    if softcap != 0.0 or window != 0 or (with_prefix and scale is not None):
         return dense_prefill_route(q, k, v, k_pages, v_pages, page_table,
                                    prefix_lens, seq_lens, scale=scale,
                                    softcap=softcap, window=window)
@@ -342,9 +349,10 @@ def dense_prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         prefix_lens: torch.Tensor, seq_lens: torch.Tensor,
                         scale: Optional[float] = None, softcap: float = 0.0,
                         window: int = 0) -> torch.Tensor:
-    """The route of a prefill with a score softcap or a sliding window, on
-    any device: ``dense_prefill_attention`` (the reference takes XLA's
-    dense path there, reference ``ops/attention.py:228-230``). Each call
+    """The route of a prefill with a score softcap or a sliding window, or
+    with a cached prefix and an explicit scale, on any device:
+    ``dense_prefill_attention`` (the reference takes XLA's dense path
+    there, reference ``ops/attention.py:228-230``). Each call
     adds one to ``dense_prefill_route.launches``, as the kernel wrappers
     count theirs, so a serving run can say how many prefills took it."""
     _build.count_launch(dense_prefill_route)
@@ -454,6 +462,31 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # ------------------------------------------------------------ decode attn
+def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_table: torch.Tensor,
+                        context_lens: torch.Tensor,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The reference's ``paged_attention_xla`` on any device: one query a
+    row over its paged K/V, the table gathered dense and attended in f32
+    (``paged_attention_plain``'s body). The MLA latent decode calls it by
+    name, as the reference does: its pool (one KV head of kv_lora_rank +
+    rope dims) reaches no Pallas kernel there, and kernel 1 here takes no
+    head dim of 576.
+
+    The reference buckets the gathered span (``lax.switch`` over a
+    power-of-two ladder of table prefixes). A captured step cannot switch
+    on device data, so this gathers the whole table: a row's
+    ``max_pages * page_size`` slots every layer, whatever its context.
+    Each call adds one to ``paged_attention_xla.launches``, so a serving
+    run can say how many decode layers took it."""
+    _build.count_launch(paged_attention_xla)
+    return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                 context_lens, scale=scale)
+
+
+paged_attention_xla.launches = 0
+
+
 _warned_writeback_modes: set[str] = set()
 
 
