@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``xllm_service_tpu_torch``) on one
 NVIDIA GPU: the quickest proof that the port starts, that its hand-written
 kernels build and agree with their plain versions, and that the engine
-serves Llama-3-8B, its variants, Mixtral-8x7B and DeepSeek-V2-Lite
-through them.
+serves Llama-3-8B, its variants, Qwen2-VL-2B's image chats, Mixtral-8x7B
+and DeepSeek-V2-Lite through them.
 
     python3 chip_smoke.py
 
@@ -35,9 +35,11 @@ Phases (any failure exits non-zero before the result line):
    at head dim 256 (Gemma's 16/8 and 8/1 heads, both types; kernel 1 also
    with a window of 300, Gemma-2's softcap 50 and scale 1/16, and all
    three, and timed at Gemma-2-9B's decode behind 1024 and 4608 tokens,
-   local and global layers; kernel 6 on shard 0 of four), and kernel 2's
-   f32 walk at the two shapes its tensor-core route does not take
-   (Gemma-2B's head dim 256, Qwen2-7B's group of 7), timed beside SDPA;
+   local and global layers; kernel 6 on shard 0 of four), kernel 1 at the
+   GQA groups of Qwen2-7B (28/4) and Qwen2-VL-2B (12/2), and kernel 2's
+   f32 walk at the shapes its tensor-core route does not take (Gemma-2B's
+   head dim 256, Qwen2-7B's group of 7, Qwen2-VL-2B's group of 6 at Sq 256
+   behind 256), timed beside SDPA;
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -244,6 +246,24 @@ Phases (any failure exits non-zero before the result line):
    replay as in (b); the MLA decode route timed at B 16 (information);
    (d) the bench twin at ``XLLM_BENCH_MODEL=moe``. Tokens/s, TTFT and KV
    bytes a token are information;
+4n. multimodal and EPD (run before 4m): Qwen2-VL-2B at full width and
+   depth (random weights, seed 0, bf16, page 16): (a) ``encode_images``
+   on four seeded 224 px images against the same encoder in f32 (within
+   VL_ENC_REL_TOL of max |f32|; ``[4, 64, 1536]``; ms an image is
+   information); (b) a MIX and an ENCODE agent on this card sharing the
+   weights, behind phase 4f's stub master, which sets
+   ``routing.encode_name`` for image requests: eight greedy image chats
+   (one or two PNG data URIs each, two chats differing only in their
+   image) and two text chats; checks the deltas, every image chat's
+   tokens against an in-process ``InferenceEngine`` on the same token ids
+   and visual rows, the ENCODE agent's ``encode_count`` equal to the image
+   chats and the MIX agent's 0, the two chats' tokens differing,
+   ``cached_blocks`` unmoved by image chats, kernel 1 at 28 launches a
+   replayed step and the replays, and a non-zero ``mrope_delta`` on a
+   slot while image chats decode (read on the engine thread); TTFT and
+   tok/s are information; (c) a 360-token two-image prompt chunked by 128
+   against its whole install, in f32 at full width and depth: equal
+   tokens, kernel 2 on the chunks behind the first;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -1132,19 +1152,20 @@ def check_hd256_decode(paged_attention, paged_attention_plain, split_count):
 QWEN2_TABLE = 2048 // PS     # phase 4j's Qwen2-7B engine: max_seq_len 2048
 
 
-def check_group7_decode(paged_attention, paged_attention_plain):
-    """Kernel 1 at Qwen2-7B's decode: 28/4 heads (a GQA group of 7, the
-    rows of one tensor-core tile), head dim 128 and the table of phase
-    4j's Qwen2-7B engine (128 pages of 16), against its plain version at
-    both types on phase 3's context mixes (a window of 300 too, for the
-    split-K edges), then timed at B 8 behind 1024 tokens beside one SDPA
-    call and the bound."""
+def check_gqa_decode(paged_attention, paged_attention_plain, n_q, n_kv):
+    """Kernel 1 at a Qwen decode's GQA group: Qwen2-7B's 28/4 heads (a
+    group of 7, the rows of one tensor-core tile) or Qwen2-VL-2B's 12/2
+    (a group of 6), head dim 128 and a table of 128 pages of 16 (phase 4j's
+    Qwen2-7B engine, phase 4n's engines hold fewer), against its plain
+    version at both types on phase 3's context mixes (a window of 300 too,
+    for the split-K edges), then timed at B 8 behind 1024 tokens beside
+    one SDPA call and the bound."""
     from xllm_service_tpu_torch.ops.paged_attention import (
         planned_blocks_per_sm,
         split_count,
     )
 
-    n_q, n_kv, hd = 28, 4, 128
+    hd, tag = 128, f"group {n_q // n_kv}"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [([0, 1, 7, 16, 17, 500, 1000, QWEN2_TABLE * PS], {}),
              ([67, 3, 33, QWEN2_TABLE * PS, 1029, 515, 130, 64], {}),
@@ -1160,13 +1181,13 @@ def check_group7_decode(paged_attention, paged_attention_plain):
             got = paged_attention(q, k, v, pt, cl, **opts)
             want = paged_attention_plain(q, k, v, pt, cl, **opts)
             torch.cuda.synchronize()
-            assert torch.isfinite(got).all(), "group 7: non-finite"
+            assert torch.isfinite(got).all(), f"{tag}: non-finite"
             for b, c in enumerate(ctxs):
                 assert c > 0 or (got[b] == 0).all(), \
-                    "group 7: ctx 0 row not zero"
+                    f"{tag}: ctx 0 row not zero"
             e = (got.float() - want.float()).abs().max().item()
             assert e <= TOL[dtype], \
-                f"decode kernel at group 7 disagrees ({ctxs}, {opts})"
+                f"decode kernel at {tag} disagrees ({ctxs}, {opts})"
             err = max(err, e)
         plan = planned_blocks_per_sm("paged_attention", hd, n_q // n_kv,
                                      dtype == torch.bfloat16)
@@ -1192,7 +1213,7 @@ def check_group7_decode(paged_attention, paged_attention_plain):
         f"({ms / lib_ms:.2f}x), bound {bound:.4f} ms ({by}, "
         f"{nbytes / 1e6:.1f} MB), {ms / bound:.2f}x the bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, max_abs_err=err)
 
 
 def check_hd256_fused_and_partial(fused, fused_plain, cp):
@@ -1313,14 +1334,15 @@ def check_hd256_fused_and_partial(fused, fused_plain, cp):
 
 def check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
                          mq_route):
-    """Kernel 2's f32 walk at the two shapes the tensor-core route does not
-    take: Gemma-2B's head dim 256 (8/1 heads) and Qwen2-7B's group of 7
-    (28/4 heads, hd 128), each Sq 512 behind 512 (bf16) and Qwen2-7B also
-    at the verify shape (B 8, Sq 5 behind 1024), against the plain version
-    (also f32 at Sq 17 behind 384), and timed beside one masked SDPA call
-    and the bound."""
+    """Kernel 2's f32 walk at the shapes the tensor-core route does not
+    take: Gemma-2B's head dim 256 (8/1 heads), Qwen2-7B's group of 7
+    (28/4 heads, hd 128), each Sq 512 behind 512 (bf16), Qwen2-7B also
+    at the verify shape (B 8, Sq 5 behind 1024), and Qwen2-VL-2B's group
+    of 6 (12/2 heads, hd 128) at a chunk of phase 4n's chunked prompt, Sq
+    256 behind 256, against the plain version (also f32 at Sq 17 behind
+    384), and timed beside one masked SDPA call and the bound."""
     out = {}
-    for n_q, n_kv, hd in ((8, 1, 256), (28, 4, 128)):
+    for n_q, n_kv, hd in ((8, 1, 256), (28, 4, 128), (12, 2, 128)):
         assert mq_route(torch.bfloat16, hd, PS, n_q // n_kv) == "walk"
         k, v, pt = paged_inputs(torch.float32, [384 + 17, 384 + 14],
                                 seed=26, n_kv=n_kv, hd=hd)
@@ -1332,9 +1354,11 @@ def check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
                ).item()
         assert e32 <= TOL[torch.float32], "mq walk (f32) disagrees"
         shapes = [("Sq 512 behind 512", 1, 512, 512)]
-        if hd == 128:
+        if n_q == 28:
             shapes.append(("verify B 8, Sq 5 behind 1024", B, VERIFY_SQ,
                            1024))
+        if n_q == 12:
+            shapes = [("Sq 256 behind 256", 1, 256, 256)]
         for name, rows, s_q, prefix in shapes:
             T = prefix + s_q
             k, v, pt = paged_inputs(torch.bfloat16, [T] * rows, seed=27,
@@ -2382,6 +2406,17 @@ class StubMaster:
     def wait(self, pred, what, timeout=300.0):
         with self.changed:
             assert self.changed.wait_for(pred, timeout), f"timed out: {what}"
+
+    @staticmethod
+    def routing(coord, has_images):
+        """The ``routing`` a dispatch carries, as the master's scheduler
+        sets it: an image request's vision stage goes to a registered
+        ENCODE instance (``encode_name``; the first, by name, here)."""
+        from xllm_service_tpu_torch.rpc import instance_key
+
+        prefix = instance_key("ENCODE", "")
+        names = sorted(k[len(prefix):] for k in coord.get_prefix(prefix))
+        return {"encode_name": names[0] if has_images and names else ""}
 
     def finished(self, sid):
         return any(g["finished"] for g in self.gens.get(sid, ()))
@@ -5832,6 +5867,318 @@ def moe_phase(engine_mod, attention, kernels, card):
     return k1, k2
 
 
+# --------------------------------------------------------------- phase 4n
+# The encoder in bf16 against its f32 path: 32 layers of bf16 rounding
+# (unit roundoff 2**-9) on a residual stream through LayerNorms drift by a
+# few percent of the embeddings' scale; a patchify, rope or merge fault
+# moves them by their whole scale. Bound: 10% of max |f32 embedding|.
+VL_ENC_REL_TOL = 0.1
+VL_CHAT_TEXT = ("Describe what you see in the picture and name the "
+                "colours that stand out, in one short and plain sentence. ")
+
+
+def vl_png_uri(seed, size=224):
+    """A seeded size x size RGB PNG as a data URI (PIL, as a client
+    encodes one)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img = Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                       dtype=np.uint8), "RGB")
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+def vl_messages(text, seeds):
+    parts = [{"type": "text", "text": text}]
+    parts += [{"type": "image_url", "image_url": {"url": vl_png_uri(s)}}
+              for s in seeds]
+    return [{"role": "user", "content": parts}]
+
+
+def cast_tree(tree, dtype):
+    """A copy of a weight tree with every leaf in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def vl_encoder_check(qwen2_vl, mcfg, params, card):
+    """4n (a): ``encode_images`` on four seeded 224 px images in bf16
+    against the same encoder in f32 (the vision weights cast up), timed.
+    Returns the bf16 embeddings [4, 64, D]."""
+    from dataclasses import replace
+
+    px = torch.from_numpy(np.random.default_rng(41).uniform(
+        size=(4, 224, 224, 3)).astype(np.float32)).cuda()
+    got = qwen2_vl.encode_images(params, mcfg, px)
+    f32 = {"vision": cast_tree(params["vision"], torch.float32)}
+    want = qwen2_vl.encode_images(f32, replace(mcfg, dtype=torch.float32),
+                                  px)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (4, mcfg.vision.out_tokens, mcfg.hidden_size)
+    assert torch.isfinite(got).all(), "encoder: non-finite embeddings"
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    ms = time_ms(lambda: qwen2_vl.encode_images(params, mcfg, px), reps=5,
+                 warmup=1)
+    log(f"  (a) encode_images bf16 [4, 224, 224, 3] -> {list(got.shape)}: "
+        f"max_abs_err {err:.4g} against f32 (max |f32| {scale:.4g}, tol "
+        f"{VL_ENC_REL_TOL} of it); {ms / 4:.2f} ms an image (information "
+        f"only; {card})")
+    assert err <= VL_ENC_REL_TOL * scale, "encoder bf16 disagrees with f32"
+    del f32, want
+    return got
+
+
+def vl_agents_leg(engine_mod, cfg, params, kernels, card):
+    """4n (b): a MIX and an ENCODE agent on the card, sharing the weights,
+    behind phase 4f's stub master, which routes each image chat's vision
+    stage to the ENCODE agent (``routing.encode_name``). Eight greedy image
+    chats (one or two PNG data URIs, two of them differing only in their
+    image) and two text chats; checks in the module docstring. Returns
+    the launches of kernels 1 and 2."""
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    paged_attention, mq_paged_attention = kernels
+    mcfg = cfg.model
+    store = MemoryStore()
+    coord = InMemoryCoordination(store)
+    master = StubMaster()
+    coord.set(MASTER_KEY, master.addr)
+
+    def agent(itype, c):
+        return EngineAgent(c, AgentConfig(model_id="qwen2-vl-2b",
+                                          instance_type=itype,
+                                          heartbeat_interval_s=1.0),
+                           coord=InMemoryCoordination(store), params=params,
+                           device="cuda")
+
+    mix = agent(InstanceType.MIX, cfg)
+    enc = agent(InstanceType.ENCODE, replace(cfg, num_pages=256,
+                                             max_batch_size=1))
+    chats = {f"i{k}": vl_messages(VL_CHAT_TEXT[:60 + 7 * k],
+                                  [100 + k] + ([200 + k] if k % 2 else []))
+             for k in range(6)}
+    chats["same-a"] = vl_messages(VL_CHAT_TEXT, [300])
+    chats["same-b"] = vl_messages(VL_CHAT_TEXT, [301])
+    texts = {"t0": [{"role": "user", "content": VL_CHAT_TEXT * 2}],
+             "t1": [{"role": "user", "content": VL_CHAT_TEXT[::-1]}]}
+    greedy = dict(max_tokens=32, temperature=0.0, ignore_eos=True)
+    sent_at = {}
+    mix.start()
+    enc.start()
+    post = Poster(mix.name)
+    try:
+        assert coord.get_prefix("XLLM:INSTANCE:ENCODE:"), "no ENCODE agent"
+        reset_counts()
+        cached0 = mix.engine.stats()["cached_blocks"]
+
+        def dispatch(sid, msgs, images):
+            sent_at[sid] = time.monotonic()
+            status, reply = post("/v1/chat/completions", dict(
+                service_request_id=sid, request_id=sid, messages=msgs,
+                source_service_addr=master.addr,
+                routing=StubMaster.routing(coord, images), **greedy))
+            assert status == 200, (sid, status, reply)
+
+        deltas = []
+        poll = threading.Event()
+
+        def watch():
+            # The slot registers on the engine thread, between steps.
+            while not poll.is_set():
+                d = mix.engine._on_loop(
+                    lambda: [mix.engine._mrope_delta[s].item()
+                             for s in list(mix.engine._running)])
+                deltas.extend(x for x in d if x)
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.monotonic()
+        for sid, msgs in chats.items():
+            dispatch(sid, msgs, True)
+        master.wait(lambda: all(map(master.finished, chats)),
+                    "the image chats")
+        wall = time.monotonic() - t0
+        poll.set()
+        watcher.join()
+        cached1 = mix.engine.stats()["cached_blocks"]
+        for sid, msgs in texts.items():
+            dispatch(sid, msgs, False)
+        master.wait(lambda: all(map(master.finished, texts)),
+                    "the text chats")
+        names = list(chats) + list(texts)
+        toks = {n: check_deltas(n, master.gens[n], mix)[0] for n in names}
+        stats = mix.engine.stats()
+        graph = stats["decode_graph"]
+        k1, k2 = paged_attention.launches, mq_paged_attention.launches
+        ttft = sorted((master.first[n] - sent_at[n]) * 1e3 for n in chats)
+        tps = sum(len(toks[n]) for n in chats) / wall
+        log(f"  (b) {len(chats)} image chats through the MIX agent, vision "
+            f"on the ENCODE agent: TTFT ms p50 {ttft[len(ttft) // 2]:.1f} "
+            f"max {ttft[-1]:.1f}; {tps:.1f} generated tok/s (information "
+            f"only; {card}); encodes {enc.encode_count} there, "
+            f"{mix.encode_count} here; cached blocks {cached0} -> "
+            f"{cached1} over the image chats; launches: kernel 1 {k1}, "
+            f"kernel 2 {k2}; graph {graph}; non-zero deltas seen "
+            f"{sorted(set(deltas))}")
+        assert all(len(toks[n]) == 32 for n in names), "short streams"
+        assert enc.encode_count == len(chats) and mix.encode_count == 0, \
+            "the vision stage did not run on the ENCODE agent"
+        assert cached1 == cached0, "an image chat donated prefix blocks"
+        assert deltas, "no slot held a non-zero M-RoPE delta"
+        check_replays(stats, "qwen2-vl-2b")
+        assert k1 == mcfg.num_layers * (graph["replays"]
+                                        + graph["captures"]), \
+            f"qwen2-vl: kernel 1 launched {k1} times, not " \
+            f"{mcfg.num_layers} a step"
+        assert toks["same-a"] != toks["same-b"], \
+            "two chats differing only in their image gave the same tokens"
+
+        # Each image chat's tokens against an in-process engine on the
+        # same token ids and visual rows (the agent's own tokens and
+        # pixels, encoded by the ENCODE agent's encoder).
+        ref = engine_mod.InferenceEngine(cfg, params=params)
+        try:
+            cols = {}
+            for sid, msgs in chats.items():
+                ids = mix._build_mm_token_ids(msgs)
+                mm = enc._encode_local(mix._extract_images(msgs))
+                cols[sid] = Collector()
+                ref.submit(engine_mod.EngineRequest(
+                    sid, token_ids=ids, mm_embeds=mm.reshape(
+                        -1, mm.shape[-1]),
+                    sampling=_greedy_sampling(32), on_output=cols[sid]))
+            ref.start()
+            for c in cols.values():
+                assert c.done.wait(300), "in-process engine stalled"
+        finally:
+            ref.stop()
+        same = [n for n in chats if cols[n].tokens == toks[n]]
+        log(f"  (b) {len(same)}/{len(chats)} image chats equal the "
+            "in-process engine's tokens")
+        assert len(same) == len(chats), \
+            f"agent and engine differ: {sorted(set(chats) - set(same))}"
+        return k1, k2
+    finally:
+        post.close()
+        mix.stop()
+        enc.stop()
+        master.close()
+        store.close()
+        del mix, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _greedy_sampling(n):
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    return SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True)
+
+
+def vl_chunked_leg(engine_mod, cfg, params, mm, kernels, card):
+    """4n (c): a two-image prompt of 360 tokens chunked by 128 against the
+    same prompt installed whole, in f32 at full width and depth (the LM's
+    weights cast up; the visual rows are (a)'s first two images): the
+    greedy tokens must be equal, and the chunks behind the first run
+    kernel 2 (its f32 walk at group 6). Returns kernel 2's launches."""
+    from dataclasses import replace
+
+    paged_attention, mq_paged_attention = kernels
+    f32 = cast_tree({k: v for k, v in params.items() if k != "vision"},
+                    torch.float32)
+    mcfg = replace(cfg.model, dtype=torch.float32)
+    img = mcfg.image_token_id
+    n_img = mcfg.vision.out_tokens
+    rng = np.random.default_rng(43)
+    text = [int(x) for x in rng.integers(3, 150000, size=232)]
+    prompt = text[:70] + [img] * n_img + text[70:150] + [img] * n_img \
+        + text[150:]
+    assert len(prompt) >= 300
+    rows = mm[:2].reshape(-1, mm.shape[-1]).float().cpu().numpy()
+    out = {}
+    for chunk in (0, 128):
+        c = replace(cfg, model=mcfg, prefill_chunk_tokens=chunk,
+                    max_batch_size=2)
+        eng = engine_mod.InferenceEngine(c, params=f32)
+        reset_counts()
+        try:
+            col = Collector()
+            eng.submit(engine_mod.EngineRequest(
+                f"c{chunk}", token_ids=prompt, mm_embeds=rows,
+                sampling=_greedy_sampling(16), on_output=col))
+            eng.start()
+            assert col.done.wait(300), "chunked VL prompt stalled"
+        finally:
+            eng.stop()
+        out[chunk] = (col.tokens, mq_paged_attention.launches,
+                      paged_attention.launches)
+    log(f"  (c) {len(prompt)}-token prompt with two images, f32: chunks of "
+        f"128 {out[128][0][:8]}... whole {out[0][0][:8]}...; kernel 2 "
+        f"launches {out[128][1]} chunked, {out[0][1]} whole")
+    assert len(out[128][0]) == 16 and out[128][0] == out[0][0], \
+        "the chunked VL prompt's tokens differ from the whole install's"
+    assert out[128][1] >= 2 * mcfg.num_layers, \
+        "the chunks did not run kernel 2"
+    del f32
+    return out[128][1], out[128][2] + out[0][2]
+
+
+def vl_phase(engine_mod, kernels, card):
+    """Phase 4n: Qwen2-VL-2B at full width and depth on random weights
+    (seed 0), bf16, page 16: (a) the encoder, (b) EPD through a MIX and an
+    ENCODE agent, (c) a chunked multimodal prompt. Returns the launches of
+    kernels 1 and 2 in (b) and (c)."""
+    from xllm_service_tpu_torch.engine import EngineConfig
+    from xllm_service_tpu_torch.models import qwen2_vl
+
+    mcfg = qwen2_vl.qwen2_vl_2b_config()
+    t = time.monotonic()
+    params = qwen2_vl.init_params(
+        mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in _tree_tensors(params))
+    nv = sum(x.numel() for x in _tree_tensors(params["vision"]))
+    log(f"  qwen2-vl-2b: {n / 1e9:.2f} B weights ({nv / 1e9:.2f} B in the "
+        f"vision tower) in {time.monotonic() - t:.1f} s; "
+        f"{mcfg.num_heads}/{mcfg.num_kv_heads} heads (group "
+        f"{mcfg.num_heads // mcfg.num_kv_heads}), mrope {mcfg.mrope_section}")
+    cfg = EngineConfig(model=mcfg, model_family="qwen2_vl", num_pages=1024,
+                       page_size=16, hash_block_size=128, max_batch_size=8,
+                       max_seq_len=2048, decode_horizon=8, seed=0)
+    try:
+        t = time.monotonic()
+        mm = vl_encoder_check(qwen2_vl, mcfg, params, card)
+        log(f"  (a) {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        b1, b2 = vl_agents_leg(engine_mod, cfg, params, kernels, card)
+        log(f"  (b) {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        c2, c1 = vl_chunked_leg(engine_mod, cfg, params, mm, kernels, card)
+        log(f"  (c) {time.monotonic() - t:.1f} s")
+        return b1 + c1, b2 + c2
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5902,7 +6249,8 @@ def main() -> int:
     log("[3] head dim 256 (Gemma) and kernel 2's walk shapes")
     t = time.monotonic()
     check_hd256_decode(paged_attention, paged_attention_plain, split_count)
-    check_group7_decode(paged_attention, paged_attention_plain)
+    check_gqa_decode(paged_attention, paged_attention_plain, 28, 4)
+    check_gqa_decode(paged_attention, paged_attention_plain, 12, 2)
     check_hd256_fused_and_partial(fused_decode_attention,
                                   fused_decode_attention_plain, cp)
     check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
@@ -6078,6 +6426,15 @@ def main() -> int:
                               (paged_attention, mq_paged_attention), card)
     log(f"  phase 4l: {time.monotonic() - t:.1f} s")
 
+    # Phase 4n: multimodal and EPD.
+    log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
+        "EPD through a MIX and an ENCODE agent, chunked multimodal "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    n_launches = vl_phase(engine_mod, (paged_attention, mq_paged_attention),
+                          card)
+    log(f"  phase 4n: {time.monotonic() - t:.1f} s")
+
     # Phase 4m: MoE and MLA. Phase 4's weights go first: Mixtral-8x7B's
     # int8 weights alone take about 47 GB.
     del params
@@ -6101,12 +6458,14 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
-             + k_launches[0] + l_launches[0] + m_launches[0]),
+             + k_launches[0] + l_launches[0] + m_launches[0]
+             + n_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
-             + k_launches[1] + l_launches[1] + m_launches[1]),
+             + k_launches[1] + l_launches[1] + m_launches[1]
+             + n_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),

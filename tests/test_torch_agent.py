@@ -298,17 +298,28 @@ def test_bad_dispatches_are_refused(agent, master):
     assert not master.gens
 
 
-@pytest.mark.parametrize("path,body,item", [
-    ("/rpc/encode", {}, "item 13"),
+@pytest.mark.parametrize("path,body,status", [
+    ("/rpc/encode", {}, 400),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "text", "text": "what is this"},
-        {"type": "image_url", "image_url": {"url": "data:,"}}]}]},
-     "item 13"),
+        {"type": "image_url", "image_url": {"url": "data:,"}}]}],
+        "max_tokens": 2}, 200),
 ])
-def test_unported_routes_answer_501(agent, master, path, body, item):
+def test_multimodal_routes_on_a_text_family(agent, master, path, body,
+                                            status):
+    """A text family answers the encode route 400 (it has no vision
+    encoder) and serves an image chat as text, image parts unread, as the
+    reference agent does."""
     r = _post(agent, path, dict(body, source_service_addr=master.addr))
-    assert r.status_code == 501
-    assert f"ROADMAP queue 1 {item}" in r.json()["error"]
+    assert r.status_code == status, r.text
+    if status == 400:
+        assert "has no vision encoder" in r.json()["error"]
+    else:
+        sid = r.json()["service_request_id"]
+        assert wait_until(lambda: any(
+            g["finished"] and g["service_request_id"] == sid
+            for g in master.gens), timeout=30)
+        master.gens.clear()
 
 
 @pytest.mark.parametrize("path", ["/rpc/kv_transfer", "/rpc/kv_stream_pull"])

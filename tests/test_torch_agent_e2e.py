@@ -16,8 +16,9 @@ streaming, ``n > 1`` and logprob requests go through both masters:
 The rest mirrors test_e2e_real_engine.py's 18 cases against the port's
 cluster (its second ``TestNChoices`` shadows the first there; both are
 kept here, under two names). The agent runs in its default telemetry mode
-(mux, msgpack) against the master's defaults. Of the reference's routes
-only ``/rpc/encode`` (the vision encoder) answers 501.
+(mux, msgpack) against the master's defaults. ``/rpc/encode`` is served:
+this llama agent answers it 400, having no vision encoder, as the
+reference agent does (tests/test_torch_epd_e2e.py serves it).
 """
 
 import json
@@ -273,12 +274,14 @@ def test_chunked_request_parity_with_the_jax_agent(chunked_clusters):
     assert stats["ttft_spans"]["engine_prefill_ms"] > 0
 
 
-def test_unported_agent_routes_are_refused(cluster):
+def test_encode_route_on_a_text_family_is_refused(cluster):
+    """The route is served; a llama agent has no vision encoder and says
+    so with a 400, as the reference agent does."""
     master, agent = cluster
     r = requests.post(f"http://{agent.name}/rpc/encode", data=b"{}",
                       timeout=5)
-    assert r.status_code == 501
-    assert "ROADMAP queue 1 item 13" in r.json()["error"]
+    assert r.status_code == 400
+    assert "has no vision encoder" in r.json()["error"]
 
 
 @pytest.mark.parametrize("path,kind", [

@@ -177,11 +177,29 @@ class _Cluster:
 PROMPTS = ["Hello world, this is a test", "tok " * 40, "x" * 70]
 
 
+def _drop_labelled_children():
+    """Drop every child series of the agents' labelled families in both
+    packages' registries. The registries belong to the process, so agents
+    of an earlier test file in this worker leave their children behind: a
+    JAX agent's linked PD peer kept ``engine_peer_linked`` in the
+    reference's exposition, absent from the port's."""
+    from xllm_service_tpu.common import metrics as ref_metrics
+    from xllm_service_tpu_torch.common import metrics as port_metrics
+
+    for m in (ref_metrics.ENGINE_PEER_LINKED,
+              ref_metrics.ENGINE_HEARTBEATS_TOTAL,
+              port_metrics.ENGINE_PEER_LINKED,
+              port_metrics.ENGINE_HEARTBEATS_TOTAL):
+        for values in list(m._children):
+            m.remove(**dict(zip(m.labelnames, values)))
+
+
 @pytest.fixture(scope="module")
 def clusters(tree):
     """One master each: the JAX agent's cluster and the port's, both in
     the default mux mode. The port agent's dispatch bodies' content types
     are recorded."""
+    _drop_labelled_children()
     jax_c = _Cluster(lambda s: _jax(s, tree))
     port_c = _Cluster(lambda s: _port(s, tree))
     agent = port_c.agent
@@ -277,11 +295,21 @@ class TestMux:
             return types, samples, text
 
         # A labelled family renders once its first child exists, in both
-        # registries: wait for each agent's first beat to be counted.
+        # registries: wait until each agent's first beat is counted and its
+        # TYPE and sample sets are the same on two scrapes running.
+        def settled(agent):
+            last = []
+
+            def same_twice():
+                types, samples, _ = families(agent)
+                now = (types, samples)
+                ok = "engine_heartbeats_total" in types and last == [now]
+                last[:] = [now]
+                return ok
+            return same_twice
+
         for c in clusters:
-            assert wait_until(
-                lambda c=c: "engine_heartbeats_total" in families(c.agent)[0],
-                timeout=30)
+            assert wait_until(settled(c.agent), timeout=30)
         (jt, js, _), (pt, ps, text) = (families(c.agent) for c in clusters)
         assert pt == jt
         # The heartbeat family's label value is each agent's own master.

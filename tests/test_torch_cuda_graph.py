@@ -2,7 +2,9 @@
 from the same state, one replay of the captured step and the same step run
 op by op give bit-identical packed rows, KV pool and slot state (greedy,
 seeded sampled and logprob rows); the kernels' launch counters advance per
-replay; a capture that fails raises and reaches the requests.
+replay; a capture that fails raises and reaches the requests; a step
+captured before an image request arrives rotates that request's slot at
+its M-RoPE delta (qwen2_vl).
 
 Marked ``cuda``: they need a GPU and nvcc and skip elsewhere. Run them on
 a machine with an H100 with ``python -m pytest --noconftest -m cuda
@@ -265,3 +267,51 @@ def test_capture_failure_reaches_the_requests(dev):
         eng.stop()
     assert not outs[-1].status.ok()
     assert "engine failure" in outs[-1].status.message
+
+
+def test_a_step_captured_before_an_image_request_uses_its_delta(dev):
+    """A qwen2_vl engine captures its step while a text request runs; the
+    image request after it replays that graph and must give the tokens of
+    an engine whose first capture came with the image (the delta is read
+    from its fixed buffer, not baked into the graph)."""
+    from xllm_service_tpu_torch.models import qwen2_vl
+
+    mcfg = qwen2_vl.tiny_vl_config(image_token_id=100)
+    params = qwen2_vl.init_params(
+        mcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    cfg = EngineConfig(model=mcfg, model_family="qwen2_vl", num_pages=96,
+                       page_size=16, hash_block_size=32, max_batch_size=B,
+                       max_seq_len=256, decode_horizon=4, seed=0)
+    prompt = [5, 6] + [100] * 4 + list(range(40, 60)) + [100] * 4 + [7, 8]
+    rows = torch.randn((8, mcfg.hidden_size),
+                       generator=torch.Generator().manual_seed(7))
+
+    def run(eng, reqs):
+        out = []
+        for name, toks, mm in reqs:
+            done = threading.Event()
+            got = []
+
+            def cb(o, got=got, done=done):
+                got.extend(t for s in o.outputs for t in s.token_ids)
+                if o.finished:
+                    done.set()
+            eng.submit(EngineRequest(name, token_ids=toks, mm_embeds=mm,
+                                     sampling=SamplingParams(
+                                         max_tokens=12, temperature=0.0,
+                                         ignore_eos=True), on_output=cb))
+            assert done.wait(120)
+            out.append(got)
+        return out
+
+    warm = InferenceEngine(cfg, device=dev, params=params).start()
+    cold = InferenceEngine(cfg, device=dev, params=params).start()
+    try:
+        got = run(warm, [("t", list(range(50, 80)), None),
+                         ("i", prompt, rows)])
+        captures = warm.stats()["decode_graph"]["captures"]
+        want = run(cold, [("i", prompt, rows)])
+    finally:
+        warm.stop()
+        cold.stop()
+    assert captures == 1 and got[1] == want[0]

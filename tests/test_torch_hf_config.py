@@ -2,9 +2,8 @@
 on the model directories that ``test_hf_parity.make_model_dir`` writes:
 ``model_config_from_hf`` field by field for llama, qwen2, gemma2, mixtral
 and deepseek_v2/v3 (the checkpoint's dtype, an override, a bounded
-context), the refusal of the family still to come (ROADMAP queue 1 item
-13) and of an unknown ``model_type``, and ``load_checkpoint`` through
-``loader_for``."""
+context), qwen2_vl with its vision tower, the refusal of an unknown
+``model_type``, and ``load_checkpoint`` through ``loader_for``."""
 
 import dataclasses
 import json
@@ -69,15 +68,24 @@ def test_model_config_from_hf_matches_the_reference(tmp_path, model_type):
             cfg.sliding_window_pattern == 2 and cfg.layer_is_local(0)
 
 
-@pytest.mark.parametrize("model_type,item", [("qwen2_vl", "item 13")])
-def test_families_still_to_come_are_refused(tmp_path, model_type, item):
-    (tmp_path / "config.json").write_text(json.dumps({
-        "model_type": model_type}))
-    with pytest.raises(ValueError, match=f"{model_type}.*{item}"):
-        hf_config.model_config_from_hf(tmp_path)
-    with pytest.raises(ValueError, match="item 13"):
+@pytest.mark.parametrize("model_type", ["qwen2_vl"])
+def test_vision_family_maps_as_the_reference(tmp_path, model_type):
+    """A qwen2_vl config.json (vision_config, mrope_section, the image
+    token) maps field for field as the reference's, its vision tower
+    included, and loader_for names the vision loader."""
+    from test_torch_vl_loader import HF_CONFIG
+
+    (tmp_path / "config.json").write_text(json.dumps(
+        {**HF_CONFIG, "model_type": model_type}))
+    cfg = hf_config.model_config_from_hf(tmp_path)
+    ref = ref_hf.model_config_from_hf(tmp_path)
+    _fields_equal(dataclasses.replace(cfg, vision=None),
+                  dataclasses.replace(ref, vision=None))
+    assert dataclasses.asdict(cfg.vision) == dataclasses.asdict(ref.vision)
+    assert hf_config.loader_for(cfg) is loader.load_hf_qwen2_vl_safetensors
+    with pytest.raises(ValueError, match="no checkpoint loader"):
         hf_config.loader_for(dataclasses.replace(ModelConfig(),
-                                                 name="qwen2_vl"))
+                                                 name="mamba"))
 
 
 def test_unknown_model_type_raises_as_the_reference(tmp_path):

@@ -43,10 +43,23 @@ inline; a streamed handoff that falls back to inline leaves a
 service as UNAVAILABLE. A DECODE agent takes handoffs only from linked
 peers and injects them into the replica ``_pick_engine`` chooses.
 
+EPD (encode, prefill, decode) for the qwen2_vl family: a chat whose
+messages carry image parts (PNG data URIs decoded with PIL, or raw
+``image_data`` float32 arrays) is encoded by the vision tower on the
+ENCODE instance the master routes in ``routing.encode_name`` (its
+``/rpc/encode``, a msgpack body ``{"bytes", "shape", "dtype"}`` both
+ways), or here without one; the chat template renders each image part as
+one marker, which expands to ``out_tokens`` placeholder ids, and the
+engine splices the visual rows there. A bad image part answers 400, a
+failed encode 502. An ENCODE agent registers as ``--type ENCODE`` and
+counts its encodes (``encode_count`` in ``/stats``). The encoder runs on
+the engine's thread between steps, as ``/v1/embeddings`` does.
+
 Written on the standard library: ``http.server`` for the routes (HTTP/1.1,
 kept-alive connections, a ``Content-Length`` on every reply) and
-``http.client`` for its own posts. The reference's vision-encoder route
-(``/rpc/encode``) is refused with an error that names its ROADMAP item.
+``http.client`` for its own posts; ``jinja2`` renders the chat template
+and PIL decodes images, as in the reference (PyTorch's own requirements
+bring ``jinja2``).
 
 Run: ``python -m xllm_service_tpu_torch.engine.agent --coordination-addr
 host:port --model-config llama3_8b [--dp-size N] [--telemetry-mode
@@ -56,7 +69,8 @@ weights from the engine's seed; with ``--checkpoint-path D
 ``*.safetensors`` read straight onto the card, its ``tokenizer.json`` read
 on the standard library), or a native checkpoint
 (``models/loader.py::save_params``). ``--model-config hf`` takes the model
-from D's ``config.json`` (llama, qwen2, gemma2) in its ``torch_dtype``.
+from D's ``config.json`` (llama, qwen2, gemma2, mixtral, deepseek_v2/3,
+qwen2_vl) in its ``torch_dtype``.
 """
 
 from __future__ import annotations
@@ -79,8 +93,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional, Union
 from urllib.parse import parse_qsl, urlsplit
 
+import numpy as np
 import torch
 
+from ..chat_template import MM_PLACEHOLDER, JinjaChatTemplate
 from ..common import topology as topo
 from ..common.flightrecorder import RECORDER, admin_flightrecorder_recent
 from ..common.metrics import (
@@ -185,14 +201,6 @@ def unpack_handoff(data: bytes) -> dict:
     return obj
 
 
-
-
-# Reference routes this agent does not serve, each with its ROADMAP item
-# (queue 1). A request to one gets 501 and this reason.
-_NOT_PORTED = {
-    "/rpc/encode": "the vision encoder (EPD) is not ported (ROADMAP queue 1 "
-                   "item 13)",
-}
 
 # The agent's telemetry wirings (see the module docstring).
 TELEMETRY_MODES = ("mux", "owner", "master")
@@ -661,6 +669,8 @@ class EngineAgent:
         self.cfg = agent_cfg
         tokenizer = TokenizerFactory.create_tokenizer(
             agent_cfg.tokenizer_path)
+        self.chat_template = JinjaChatTemplate(
+            TokenizerFactory.load_chat_template(agent_cfg.tokenizer_path))
         # The engines first: without a card (and no device named) the
         # first raises before anything else is opened.
         self.engines = self._build_engines(engine_cfg, tokenizer, params,
@@ -729,6 +739,10 @@ class EngineAgent:
         self.kv_stream_received = 0
         self.linked_peers: dict[str, InstanceMetaInfo] = {}
         self._draining = False
+        # /rpc/encode calls served (EPD's ENCODE stage), bumped by the
+        # handler threads under their own lock.
+        self.encode_count = 0
+        self._encode_lock = threading.Lock()
         # Registration and role flips under one lock: a heartbeat's
         # re-registration must not re-create the key a flip just removed.
         self._reg_lock = threading.Lock()
@@ -761,6 +775,7 @@ class EngineAgent:
             ("POST", "/rpc/drain"): self._h_drain,
             ("POST", "/rpc/kv_transfer"): self._h_kv_transfer,
             ("POST", "/rpc/kv_stream_pull"): self._h_kv_stream_pull,
+            ("POST", "/rpc/encode"): self._h_encode,
         }
         # Flight-recorder bundles carry this agent's state at anomaly time.
         RECORDER.add_context_provider("engine", self._anomaly_context)
@@ -1179,8 +1194,6 @@ class EngineAgent:
                 return fn(req)
             except _BadRequest as e:
                 return 400, {"error": str(e)}
-        if path in _NOT_PORTED:
-            return 501, {"error": _NOT_PORTED[path]}
         return 404, {"error": f"no route {method} {path}"}
 
     @staticmethod
@@ -1215,6 +1228,7 @@ class EngineAgent:
             },
             "kv_tier": self._tier_stats(),
             "ttft_spans": self._span_summary(),
+            "encode_count": self.encode_count,
         }
 
     def _tier_stats(self) -> dict[str, Any]:
@@ -1431,15 +1445,26 @@ class EngineAgent:
         deadline_ms = int(body.get("deadline_ms") or 0)
         if deadline_ms and now_ms() > deadline_ms:
             return 504, {"error": "deadline exceeded"}
-        if chat and any(
-                isinstance(part, dict)
-                and str(part.get("type", "")).startswith("image")
-                for m in body.get("messages") or ()
-                if isinstance(m, dict) and isinstance(m.get("content"), list)
-                for part in m["content"]):
-            return 501, {"error": "image inputs need the vision encoder, "
-                                  "which is not ported (ROADMAP queue 1 "
-                                  "item 13)"}
+        # EPD: extract the images, encode them (on the routed ENCODE
+        # instance, or here), and rebuild the token ids with the
+        # placeholder runs the model splices the visual rows into.
+        mm_embeds = None
+        if chat and self.engine.cfg.model_family == "qwen2_vl":
+            try:
+                pixels = self._extract_images(body.get("messages") or [])
+            except ValueError as e:
+                return 400, {"error": str(e)}
+            except Exception as e:  # noqa: BLE001 — bad base64 or image
+                return 400, {"error": f"invalid image payload: {e}"}
+            if pixels is not None:
+                encode_name = (body.get("routing") or {}).get(
+                    "encode_name", "")
+                try:
+                    mm_embeds = self._encode_pixels(pixels, encode_name)
+                except Exception as e:  # noqa: BLE001 — surfaced as 502
+                    return 502, {"error": f"vision encode failed: {e}"}
+                token_ids = self._build_mm_token_ids(
+                    body.get("messages") or [])
         if not token_ids:
             # Standalone mode (no orchestrator enrichment): tokenize here.
             prompt = body.get("prompt", "")
@@ -1500,7 +1525,8 @@ class EngineAgent:
                 service_request_id=sid, request_id=request_id,
                 token_ids=token_ids, sampling=sampling,
                 prefill_only=True, on_prefill_done=on_prefill_done,
-                on_output=on_output))    # surfaces prefill-side errors
+                on_output=on_output,     # surfaces prefill-side errors
+                mm_embeds=mm_embeds))
             return 200, {"ok": True, "service_request_id": sid}
 
         # n > 1: fan out into n engine sequences sharing the prompt on one
@@ -1515,7 +1541,7 @@ class EngineAgent:
             engine.submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
                 token_ids=token_ids, sampling=sampling, on_output=on_output,
-                offline=offline, priority=priority))
+                offline=offline, priority=priority, mm_embeds=mm_embeds))
             return 200, {"ok": True, "service_request_id": sid}
 
         # The stage spans do not model the n-way fan-out: the prefill span
@@ -1531,8 +1557,147 @@ class EngineAgent:
                 service_request_id=sid, request_id=request_id,
                 token_ids=list(token_ids), sampling=sub_sampling,
                 on_output=agg.callback_for(k),
-                offline=offline, priority=priority))
+                offline=offline, priority=priority, mm_embeds=mm_embeds))
         return 200, {"ok": True, "service_request_id": sid}
+
+    # -------------------------------------------------------- multimodal
+    def _h_encode(self, req: _Request) -> Reply:
+        """EPD's ENCODE stage: the vision tower on pixel arrays (a msgpack
+        ``{"bytes", "shape", "dtype"}`` body), answered with the visual
+        embeddings [N, out_tokens, D] as f32 in the same frame. The
+        encoder runs on the engine's thread between steps (as the
+        reference runs it off its event loop): a capture of the decode
+        step must not see another thread's work on the card."""
+        if self.engine.cfg.model_family != "qwen2_vl":
+            return 400, {"error": f"model family "
+                                  f"{self.engine.cfg.model_family} has no "
+                                  "vision encoder"}
+        try:
+            obj = msgpack_lite.unpackb(req.body)
+            pixels = np.frombuffer(obj["bytes"], dtype=np.dtype(
+                obj["dtype"])).reshape(obj["shape"])
+        except Exception as e:  # noqa: BLE001 — a malformed frame
+            raise _BadRequest(f"invalid encode body: {e}") from None
+        with self._encode_lock:
+            self.encode_count += 1
+        embeds = self._encode_local(pixels)
+        return 200, msgpack_lite.packb({
+            "bytes": embeds.tobytes(), "shape": list(embeds.shape),
+            "dtype": "float32"})
+
+    def _encode_local(self, pixels: np.ndarray) -> np.ndarray:
+        """``encode_images`` on this agent's first engine -> [N, out_tokens,
+        D] f32 on the host."""
+        from ..models.qwen2_vl import encode_images
+
+        eng = self.engine
+
+        def run() -> np.ndarray:
+            x = torch.from_numpy(np.array(pixels, np.float32))
+            return encode_images(eng.params, eng.cfg.model,
+                                 x.to(eng.device)).float().cpu().numpy()
+
+        return eng._on_loop(run)
+
+    @staticmethod
+    def _is_image_part(part: Any) -> bool:
+        """The one test of an image part, shared by the extraction and the
+        token building (and the master's routing check): the two must
+        agree, or the placeholder runs and the rows misalign."""
+        return isinstance(part, dict) and \
+            str(part.get("type", "")).startswith("image")
+
+    def _extract_images(self, messages: list[dict]) -> Optional[np.ndarray]:
+        """The image parts of the chat's messages as [N, S, S, 3] f32 in
+        [0, 1] (S the encoder's input size): ``image_url`` data URIs
+        decoded with PIL and resized with its default resampling, and raw
+        ``image_data`` parts (base64 f32 and a shape). Any other image
+        part, or a URL that is not a data URI, raises ValueError."""
+        import base64
+        import io
+
+        vision = self.engine.cfg.model.vision
+        if vision is None:
+            return None
+        size = vision.image_size
+        out: list[np.ndarray] = []
+        for m in messages:
+            content = m.get("content")
+            if not isinstance(content, list):
+                continue
+            for part in content:
+                if not self._is_image_part(part):
+                    continue
+                ptype = str(part.get("type", ""))
+                if ptype == "image_url":
+                    url = (part.get("image_url") or {}).get("url", "")
+                    if not url.startswith("data:"):
+                        raise ValueError(
+                            "only data: URIs are supported for images")
+                    from PIL import Image
+
+                    raw = base64.b64decode(url.split(",", 1)[1])
+                    img = Image.open(io.BytesIO(raw)).convert("RGB") \
+                        .resize((size, size))
+                    out.append(np.asarray(img, np.float32) / 255.0)
+                elif ptype == "image_data":
+                    arr = np.frombuffer(
+                        base64.b64decode(part["data"]),
+                        np.float32).reshape(part["shape"])
+                    out.append(arr.astype(np.float32))
+                else:
+                    # Must raise: _build_mm_token_ids makes a placeholder
+                    # run for EVERY image part, so skipping one here would
+                    # misalign the splice.
+                    raise ValueError(
+                        f"unsupported image part type: {ptype}")
+        return np.stack(out) if out else None
+
+    def _encode_pixels(self, pixels: np.ndarray,
+                       encode_name: str) -> np.ndarray:
+        """The ENCODE stage: on the routed instance, or here without one.
+        Returns the flattened [n_images * out_tokens, D] f32 rows."""
+        if encode_name and encode_name != self.name:
+            host, _, port = encode_name.rpartition(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=60)
+            try:
+                conn.request("POST", "/rpc/encode", body=msgpack_lite.packb({
+                    "bytes": pixels.tobytes(), "shape": list(pixels.shape),
+                    "dtype": "float32"}), headers={
+                        "Content-Type": msgpack_lite.CONTENT_TYPE})
+                r = conn.getresponse()
+                data = r.read()
+            finally:
+                conn.close()
+            if r.status != 200:
+                raise RuntimeError(f"{encode_name} returned {r.status}: "
+                                   f"{data[:200]!r}")
+            obj = msgpack_lite.unpackb(data)
+            embeds = np.frombuffer(obj["bytes"], np.float32) \
+                .reshape(obj["shape"])
+        else:
+            embeds = self._encode_local(pixels)
+        return embeds.reshape(-1, embeds.shape[-1])
+
+    def _build_mm_token_ids(self, messages: list[dict]) -> list[int]:
+        """A multimodal prompt's token ids: the chat template renders the
+        messages (each image part one MM_PLACEHOLDER), and each marker
+        expands to ``out_tokens`` copies of the model's image placeholder
+        id, so an image prompt keeps the role structure and system prompt
+        of a text one. (The master's routing count, one marker an image,
+        is short by out_tokens - 1 an image; the usage sent to clients is
+        the engine's own count.)"""
+        mcfg = self.engine.cfg.model
+        out_tokens = mcfg.vision.out_tokens if mcfg.vision else 0
+        tok = self.engine.tokenizer
+        rendered = self.chat_template.apply(messages)
+        ids: list[int] = []
+        for i, segment in enumerate(rendered.split(MM_PLACEHOLDER)):
+            if i > 0:
+                ids.extend([mcfg.image_token_id] * out_tokens)
+            if segment:
+                ids.extend(tok.encode(segment))
+        return ids
 
     # ------------------------------------------------- PD disaggregation
     def _transfer_to_peer(self, h: PrefillHandoff, peer: str, dest: str,
@@ -1837,12 +2002,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--model-config", default="bench_1b",
                    choices=["tiny", "bench_1b", "llama3_8b", "gemma_2b",
                             "gemma_tiny", "mixtral_8x7b", "mixtral_tiny",
-                            "hf"],
-                   help="config factory in models.base, models.gemma or "
-                        "models.mixtral, or 'hf': --checkpoint-path's "
-                        "config.json (models/hf_config.py: llama, qwen2, "
-                        "gemma2, mixtral, deepseek_v2/3) in its "
-                        "torch_dtype")
+                            "qwen2_vl_2b", "qwen2_vl_tiny", "hf"],
+                   help="config factory in models.base, models.gemma, "
+                        "models.mixtral or models.qwen2_vl, or 'hf': "
+                        "--checkpoint-path's config.json (models/"
+                        "hf_config.py: llama, qwen2, gemma2, mixtral, "
+                        "deepseek_v2/3, qwen2_vl) in its torch_dtype")
     p.add_argument("--quant", default="", choices=["", "int8"],
                    help="weight-only quantization (models/quant.py)")
     p.add_argument("--checkpoint-path", default="",
@@ -1920,7 +2085,7 @@ def _parser() -> argparse.ArgumentParser:
 def engine_config(args: argparse.Namespace) -> EngineConfig:
     """The engine configuration of parsed command-line ``args``."""
     from ..models import base as model_base
-    from ..models import gemma, hf_config, mixtral
+    from ..models import gemma, hf_config, mixtral, qwen2_vl
 
     if args.model_config == "hf":
         mcfg = hf_config.model_config_from_hf(
@@ -1934,6 +2099,8 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
                 "gemma_tiny": gemma.gemma_tiny_config,
                 "mixtral_8x7b": mixtral.mixtral_8x7b_config,
                 "mixtral_tiny": mixtral.mixtral_tiny_config,
+                "qwen2_vl_2b": qwen2_vl.qwen2_vl_2b_config,
+                "qwen2_vl_tiny": qwen2_vl.tiny_vl_config,
                 }[args.model_config]()
     if args.quant:
         mcfg = dataclasses.replace(mcfg, quant=args.quant)

@@ -112,7 +112,7 @@ Its entry point for a fleet is the agent (``engine/agent.py``), which
 serves the reference master's wire contract.
 
 The model is any registered family (``llama``, ``qwen2``, ``gemma``,
-``deepseek_moe``, ``mixtral``, ``models/base.py``). With ``model.quant ==
+``deepseek_moe``, ``mixtral``, ``qwen2_vl``, ``models/base.py``). With ``model.quant ==
 "int8"`` the weights, random or given, are quantized one layer at a time
 before serving (weight-only int8, ``models/quant.py``); the MoE families
 draw random weights in their int8 form directly, one layer of one leaf at
@@ -122,8 +122,22 @@ with Gemma-2's score softcap or sliding window refuses a seq mesh, as the
 reference does; so do the MoE families, whose context-parallel path is
 not ported.
 
-Not in this port yet: multimodal input, mesh axes other than ``seq`` and
-the captured step under a seq mesh.
+- **Multimodal** (the ``qwen2_vl`` family): a request's ``mm_embeds``
+  (the encoder's visual tokens, ``[n, D]``) are spliced into its
+  placeholder positions at prefill; each chunk of a chunked prompt takes
+  the rows of its own placeholders. Prefill positions are M-RoPE's
+  ``[S, 3]`` rows, computed on the host (``models/qwen2_vl.py::
+  mrope_positions``), and the slot keeps the prompt's decode delta in
+  ``_mrope_delta`` (zeroed on release): every decode step rotates rope at
+  ``clens - 1 + delta`` while the K/V write stays at ``clens - 1``, and a
+  captured step reads the delta from that fixed buffer, so a graph
+  captured before an image request arrives uses the request's delta. An
+  image prompt never matches nor donates prefix-cache blocks (its token
+  ids do not see the image), never rides a decode step and never takes
+  the ring. A PD decode side recomputes the delta from the prompt's ids.
+
+Not in this port yet: mesh axes other than ``seq``, the captured step
+under a seq mesh, and the qwen2_vl family under a seq mesh.
 """
 
 from __future__ import annotations
@@ -215,6 +229,9 @@ class EngineRequest:
     injected_first_token: Optional[int] = None
     injected_kv: Optional[torch.Tensor] = None
     injected_first_logprob: Optional[LogProb] = None
+    # Multimodal (qwen2_vl family): the visual embeddings [n_mm, D] (a host
+    # array or a tensor), spliced into the placeholder positions in order.
+    mm_embeds: Optional[Any] = None
 
 
 @dataclass
@@ -285,6 +302,12 @@ class InferenceEngine:
             raise NotImplementedError(
                 "seq-axis parallelism is not ported for the MoE families "
                 "(deepseek_moe, mixtral)")
+        # The qwen2_vl family: M-RoPE prefill positions and a decode delta.
+        self._is_vl = cfg.model_family == "qwen2_vl"
+        if self.seq_parallel > 1 and self._is_vl:
+            raise NotImplementedError(
+                "seq-axis parallelism is not ported for the qwen2_vl family "
+                "(ROADMAP queue 1 item 16)")
         self.ring_prefills = 0          # prefills that took the ring route
         self.tokenizer = tokenizer or SimpleTokenizer()
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
@@ -479,6 +502,9 @@ class InferenceEngine:
         # Per-slot token budget (max_total_len; 0 = none): a slot freezes AT
         # its budget, so one nearly-done sequence never shrinks the horizon.
         self._budget = torch.zeros((B,), dtype=i32, device=dev)
+        # Per-slot M-RoPE decode offset (qwen2_vl: the image grids of the
+        # slot's prompt), added to the rope positions of every step.
+        self._mrope_delta = torch.zeros((B,), dtype=i32, device=dev)
         # Per-slot sampling generators, re-seeded when a sampled request
         # takes the slot; a sampling step draws from all B.
         self._gens = [torch.Generator(device=dev) for _ in range(B)]
@@ -552,6 +578,7 @@ class InferenceEngine:
         self._active.zero_()
         self._stop_ids.fill_(-1)
         self._budget.zero_()
+        self._mrope_delta.zero_()
         if self._spec_on:
             self._hist_buf.zero_()
             self._hist_lo.zero_()
@@ -893,7 +920,7 @@ class InferenceEngine:
             priority=req.priority,
             resume_output_ids=list(victim.output_ids),
             resume_emitted_chars=victim.emitted_chars,
-            resume_logprobs=list(victim.logprobs))
+            resume_logprobs=list(victim.logprobs), mm_embeds=req.mm_embeds)
         logger.info("preempting offline request %s after %d tokens",
                     req.service_request_id, len(victim.output_ids))
         self.preemption_count += 1
@@ -1030,10 +1057,16 @@ class InferenceEngine:
 
         # Prefix-cache match (block-aligned; keep at least 1 suffix token so
         # prefill produces the next-token logits). The prompt's hash chain
-        # is computed once and reused by the post-prefill donation.
-        prompt_hashes = prefix_block_hashes(prompt, cfg.hash_block_size)
-        matched, cached_pages, cached_hashes = \
-            self.page_mgr.match_prefix(prompt, block_hashes=prompt_hashes)
+        # is computed once and reused by the post-prefill donation. An image
+        # prompt neither matches nor donates: its token ids are the same
+        # placeholder runs for different images.
+        if req.mm_embeds is not None:
+            prompt_hashes = None
+            matched, cached_pages, cached_hashes = 0, [], []
+        else:
+            prompt_hashes = prefix_block_hashes(prompt, cfg.hash_block_size)
+            matched, cached_pages, cached_hashes = \
+                self.page_mgr.match_prefix(prompt, block_hashes=prompt_hashes)
         if matched >= P0:
             drop = (matched - P0) // cfg.hash_block_size + 1
             self.page_mgr.release_prefix(cached_hashes[-drop:])
@@ -1044,7 +1077,7 @@ class InferenceEngine:
         # Cold-tier onload: extend the HBM match with fence-complete
         # DRAM/SSD blocks restored ahead of prefill (suffix-only prefill
         # then starts past them, exactly like an HBM hit).
-        if self.tier_store is not None:
+        if self.tier_store is not None and prompt_hashes is not None:
             matched = self._onload_cold_prefix(
                 prompt_hashes, matched, cached_pages, cached_hashes, P0)
 
@@ -1074,7 +1107,7 @@ class InferenceEngine:
         # a longer one always chunks.
         C = cfg.prefill_chunk_tokens
         suffix = len(prompt) - matched
-        if (not self._sp_applicable(suffix, matched) and C > 0
+        if (not self._sp_applicable(suffix, matched, req) and C > 0
                 and suffix > C
                 and not (self._waiting and suffix <= 4 * C)):
             self._prefillings.append(
@@ -1099,7 +1132,7 @@ class InferenceEngine:
                                           st["cache_matched"], written,
                                           st["t0"])
         try:
-            self._prefill_chunk(seq, prompt[written:written + C], written)
+            self._prefill_chunk(seq, prompt, written, C)
         except Exception as e:  # noqa: BLE001 — e.g. a kernel launch error
             self._fail_admission(seq, req, e)
             raise
@@ -1107,23 +1140,35 @@ class InferenceEngine:
         self._prefillings.append(st)   # back of the round-robin
         return True
 
-    def _prefill_chunk(self, seq: _Sequence, chunk: list[int],
-                       start: int) -> None:
-        """Write one non-final chunk's K/V behind the ``start`` tokens
-        already in the sequence's pages, attending to them (kernel 2 on
-        the card once ``start`` > 0); its logits are dropped."""
-        dev, n, i32 = self.device, len(chunk), torch.int32
+    def _prefill_chunk(self, seq: _Sequence, prompt: list[int], start: int,
+                       n: int) -> None:
+        """Write the non-final chunk ``prompt[start:start + n]``'s K/V
+        behind the ``start`` tokens already in the sequence's pages,
+        attending to them (kernel 2 on the card once ``start`` > 0); its
+        logits are dropped. A VL chunk takes its M-RoPE rows and the
+        visual rows of its own placeholders."""
+        dev, i32 = self.device, torch.int32
         P = self.cfg.pages_per_seq
+        chunk = np.asarray(prompt[start:start + n], np.int32)
         # The page row first: kernel 2 takes it 16-byte aligned.
-        packed = self._upload(np.concatenate(
-            [self._page_row(seq), np.asarray(chunk, np.int32)]))
+        parts = [self._page_row(seq), chunk]
+        if self._is_vl:
+            parts.append(self._mrope_chunk(prompt, start, start + n)[0]
+                         .reshape(-1))
+        packed = self._upload(np.concatenate(parts))
+        toks = packed[None, P:P + n]
+        kw: dict[str, Any] = dict(has_prefix=start > 0)
+        if self._is_vl:
+            positions = packed[P + n:].reshape(1, n, 3)
+            kw["mm_embeds"] = self._mm_chunk_array(seq.req, prompt, start,
+                                                   start + n)
+        else:
+            positions = torch.arange(start, start + n, dtype=i32,
+                                     device=dev)[None]
         self.family.prefill_forward(
-            self.params, self.cfg.model, packed[None, P:],
-            torch.arange(start, start + n, dtype=i32, device=dev)[None],
-            self.kv_pages, packed[None, :P],
-            torch.full((1,), start, dtype=i32, device=dev),
-            torch.full((1,), n, dtype=i32, device=dev),
-            has_prefix=start > 0)
+            self.params, self.cfg.model, toks, positions, self.kv_pages,
+            packed[None, :P], torch.full((1,), start, dtype=i32, device=dev),
+            torch.full((1,), n, dtype=i32, device=dev), **kw)
 
     def _ride_chunk_args(self) -> Optional[int]:
         """Write the next chunk of the FRONT prefilling sequence into the
@@ -1138,6 +1183,8 @@ class InferenceEngine:
                 or not self._sarathi):
             return None
         st = self._prefillings[0]
+        if st["req"].mm_embeds is not None:
+            return None       # visual rows take the standalone chunk
         prompt, written = st["prompt"], st["written"]
         C = self.cfg.prefill_chunk_tokens
         rideable = len(prompt) - written - C
@@ -1232,17 +1279,10 @@ class InferenceEngine:
             self.prefix_hit_tokens += cache_matched
         # Donate completed prompt blocks to the prefix cache (skipping only
         # the blocks matched FROM the cache: chunks written here donate).
-        stored, donated = self.page_mgr.store_prefix(
-            prompt, seq.pages.all_pages,
-            skip_blocks=cache_matched // cfg.hash_block_size,
-            block_hashes=seq.pages.block_hashes)
-        seq.pages.donated_hashes = stored
-        seq.pages.donated_pages = donated
-        if self.tier_store is not None:
-            # A re-prefilled block supersedes any cold-tier copy (its
-            # `stored` event moves the instance to HBM).
-            for hx in stored:
-                self.tier_store.discard(hx)
+        # An image prompt's blocks are never donated.
+        if req.mm_embeds is None:
+            self._donate(seq, prompt, cache_matched // cfg.hash_block_size,
+                         seq.pages.block_hashes)
         if handoff:
             self._hand_off(seq, first_token, lp)
             return
@@ -1329,18 +1369,29 @@ class InferenceEngine:
         # The scatter is enqueued: the buffer can go (stream order keeps
         # its memory until the scatter has read it).
         req.injected_kv = None
-        stored, donated = self.page_mgr.store_prefix(prompt,
-                                                     seq.pages.all_pages)
-        seq.pages.donated_hashes = stored
-        seq.pages.donated_pages = donated
-        if self.tier_store is not None:
-            for hx in stored:
-                self.tier_store.discard(hx)
+        # An image prompt (placeholders in its ids) is not donated here
+        # either: the prefill side's images are not in its hash.
+        if not (self._is_vl and self._count_placeholders(prompt)):
+            self._donate(seq, prompt, 0, None)
         self._running[seq.slot] = seq
         # The decode side emits everything, starting with the prefill
         # side's first token.
         self._emit_token(seq, first_token, req.injected_first_logprob)
         return True
+
+    def _donate(self, seq: _Sequence, prompt: list[int], skip_blocks: int,
+                block_hashes: Optional[list]) -> None:
+        """Donate the prompt's completed blocks past ``skip_blocks`` to the
+        prefix cache; a re-prefilled block supersedes any cold-tier copy
+        (its ``stored`` event moves the instance to HBM)."""
+        stored, donated = self.page_mgr.store_prefix(
+            prompt, seq.pages.all_pages, skip_blocks=skip_blocks,
+            block_hashes=block_hashes)
+        seq.pages.donated_hashes = stored
+        seq.pages.donated_pages = donated
+        if self.tier_store is not None:
+            for hx in stored:
+                self.tier_store.discard(hx)
 
     def _dispatch_injected_install(self, seq: _Sequence, blob: torch.Tensor,
                                    first_token: int) -> None:
@@ -1356,8 +1407,8 @@ class InferenceEngine:
         scatter_kv_pages(self.kv_pages, seq.pages.all_pages[:blob.shape[2]],
                          blob)
         # The penalty histogram covers prompt + first token.
-        pt_row, tok, stop_ids, b_ids, b_vals, counts = self._upload_install(
-            seq, [first_token], prompt + [first_token])
+        pt_row, tok, stop_ids, b_ids, b_vals, counts, _ = \
+            self._upload_install(seq, [first_token], prompt + [first_token])
         _, gen = self._install_controls(seq.slot, sp, b_ids, b_vals, counts)
         if gen is not None and sp.seed is not None:
             # The prefill side drew the first token from this seed (one
@@ -1365,9 +1416,13 @@ class InferenceEngine:
             # stream goes on as one engine's would.
             torch.rand(self.cfg.model.vocab_size, generator=gen, device=dev)
         # Only the first token is on this engine (the prompt stayed with
-        # the prefill side): the draft search starts there.
+        # the prefill side): the draft search starts there. A VL slot's
+        # M-RoPE delta is recomputed from the prompt's ids, where its image
+        # grids are.
         self._install_registers(seq, pt_row, stop_ids, tok, len(prompt),
                                 tok[:0])
+        if self._is_vl:
+            self._mrope_delta[seq.slot] = self._mrope_chunk(prompt, 0, 0)[1]
 
     def _fail_admission(self, seq: _Sequence, req: EngineRequest,
                         e: Exception) -> None:
@@ -1422,13 +1477,59 @@ class InferenceEngine:
                              st.repetition_penalty[s], st.token_counts[s],
                              st.bias_ids[s], st.bias_vals[s])
 
-    def _sp_applicable(self, suffix_len: int, matched: int) -> bool:
+    def _sp_applicable(self, suffix_len: int, matched: int,
+                       req: EngineRequest) -> bool:
         """Route to the ring-attention prefill? As the reference: a seq
-        mesh axis, a prefix-free prompt (the ring has no paged-prefix term)
-        and enough tokens to be worth the ring. The port has no prefill
-        buckets: the suffix is padded to a multiple of the axis instead."""
+        mesh axis, a prefix-free prompt (the ring has no paged-prefix term),
+        no visual splice and enough tokens to be worth the ring. The port
+        has no prefill buckets: the suffix is padded to a multiple of the
+        axis instead."""
         return (self.seq_parallel > 1 and matched == 0
+                and req.mm_embeds is None
                 and suffix_len >= self.cfg.seq_parallel_min_tokens)
+
+    def _count_placeholders(self, tokens: list[int]) -> int:
+        tid = self.cfg.model.image_token_id
+        return sum(1 for t in tokens if t == tid)
+
+    def _mrope_chunk(self, prompt: list[int], start: int, end: int
+                     ) -> tuple[np.ndarray, int]:
+        """The M-RoPE position rows [end - start, 3] of prompt[start:end]
+        and the prompt's decode delta (``models/qwen2_vl.py::
+        mrope_positions``)."""
+        from ..models.qwen2_vl import mrope_positions
+
+        pos, delta = mrope_positions(prompt, self.cfg.model.image_token_id)
+        return pos[start:end], delta
+
+    def _mm_chunk_array(self, req: EngineRequest, prompt: list[int],
+                        start: int, end: int) -> torch.Tensor:
+        """The visual rows that prompt[start:end]'s placeholders take, [1,
+        M, D] on the device in the model's dtype: chunk k's placeholders
+        take the rows after those of the earlier chunks. Padded with zero
+        rows to a multiple of four images' tokens, as the reference pads
+        it (a padding row is never read); a request without images gets
+        one zero row, the reference's dummy."""
+        mcfg = self.cfg.model
+        D = mcfg.hidden_size
+        if req.mm_embeds is None:
+            return torch.zeros((1, 1, D), dtype=mcfg.dtype,
+                               device=self.device)
+        offset = self._count_placeholders(prompt[:start])
+        n = self._count_placeholders(prompt[start:end])
+        mm = req.mm_embeds[offset:offset + n]
+        vis = mcfg.vision
+        unit = max(1, (vis.out_tokens if vis else 1) * 4)
+        M = max(unit, -(-max(1, mm.shape[0]) // unit) * unit)
+        if not isinstance(mm, torch.Tensor) or mm.device.type == "cpu":
+            host = np.zeros((M, D), np.float32)
+            host[:mm.shape[0]] = (mm.float().numpy()
+                                  if isinstance(mm, torch.Tensor)
+                                  else np.asarray(mm, np.float32))
+            return self._upload(host).to(mcfg.dtype)[None]
+        out = torch.zeros((M, D), dtype=mcfg.dtype, device=self.device)
+        out[:mm.shape[0]] = mm.to(self.device, mcfg.dtype)
+        return out[None]
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the device without a host wait. On a card the
@@ -1464,25 +1565,30 @@ class InferenceEngine:
             ready.synchronize()
 
     def _upload_install(self, seq: _Sequence, toks: list[int],
-                        hist: list[int]) -> tuple:
+                        hist: list[int], extra: Optional[np.ndarray] = None
+                        ) -> tuple:
         """A slot install's inputs in ONE packed upload: the page-table row
         first (kernel 2 takes it 16-byte aligned), ``toks``, the stop ids,
-        the bias, and the [V] histogram of ``hist``, which feeds only the
-        penalty terms: without a penalty ``counts`` is None and the install
-        zeroes the row (clearing the previous occupant's counts)."""
+        the bias, ``extra`` int32s (a VL install's M-RoPE rows and delta;
+        returned last, None without), and the [V] histogram of ``hist``,
+        which feeds only the penalty terms: without a penalty ``counts`` is
+        None and the install zeroes the row (clearing the previous
+        occupant's counts)."""
         sp, V = seq.req.sampling, self.cfg.model.vocab_size
         bias_ids, bias_vals = self._device_bias(sp)
         parts = [self._page_row(seq), np.asarray(toks, np.int32),
-                 self._device_stop_ids(sp), bias_ids, bias_vals.view(np.int32)]
+                 self._device_stop_ids(sp), bias_ids, bias_vals.view(np.int32),
+                 extra if extra is not None else np.zeros((0,), np.int32)]
         if (sp.frequency_penalty != 0.0 or sp.presence_penalty != 0.0
                 or _repetition(sp) != 1.0):
             parts.append(np.bincount(np.asarray(hist, np.int64),
                                      minlength=V)[:V].astype(np.int32))
         packed = self._upload(np.concatenate(parts))
-        pt_row, toks_t, stop_ids, b_ids, b_vals, *counts = torch.split(
-            packed, [p.size for p in parts])
+        pt_row, toks_t, stop_ids, b_ids, b_vals, extra_t, *counts = \
+            torch.split(packed, [p.size for p in parts])
         return (pt_row, toks_t, stop_ids, b_ids, b_vals,
-                counts[0] if counts else None)
+                counts[0] if counts else None,
+                extra_t if extra is not None else None)
 
     def _install_controls(self, slot: int, sp: SamplingParams,
                           b_ids: torch.Tensor, b_vals: torch.Tensor,
@@ -1542,23 +1648,35 @@ class InferenceEngine:
         sp = seq.req.sampling
         suffix = prompt[matched:]
         S = len(suffix)
-        ring = self._sp_applicable(S, matched)
+        ring = self._sp_applicable(S, matched, seq.req)
         if ring:
             # End padding, masked by seq_lens: the causal ring keeps it out
             # of every valid query's window, and its K/V go to page 0.
             suffix = suffix + [0] * (-S % self.seq_parallel)
             self.ring_prefills += 1
-        pt_row, toks, stop_ids, b_ids, b_vals, counts = self._upload_install(
-            seq, suffix, prompt)
+        vl = None
+        if self._is_vl:
+            # [pos3 (3S) | delta]: M-RoPE's rows depend on the image grids,
+            # which only the host sees.
+            pos3, delta = self._mrope_chunk(prompt, matched, len(prompt))
+            vl = np.concatenate([pos3.reshape(-1),
+                                 np.asarray([delta], np.int32)])
+        pt_row, toks, stop_ids, b_ids, b_vals, counts, vl_t = \
+            self._upload_install(seq, suffix, prompt, vl)
         i32 = torch.int32
+        kw: dict[str, Any] = dict(has_prefix=matched > 0, ring=ring)
+        if vl_t is not None:
+            positions = vl_t[:-1].reshape(1, S, 3)
+            kw["mm_embeds"] = self._mm_chunk_array(seq.req, prompt, matched,
+                                                   len(prompt))
+        else:
+            positions = torch.arange(matched, matched + len(suffix),
+                                     dtype=i32, device=dev)[None]
         logits, _ = self.family.prefill_forward(
-            self.params, cfg.model, toks[None],
-            torch.arange(matched, matched + len(suffix), dtype=i32,
-                         device=dev)[None],
+            self.params, cfg.model, toks[None], positions,
             self.kv_pages, pt_row[None],
             torch.full((1,), matched, dtype=i32, device=dev),
-            torch.full((1,), S, dtype=i32, device=dev),
-            has_prefix=matched > 0, ring=ring)
+            torch.full((1,), S, dtype=i32, device=dev), **kw)
 
         # Install the slot's sampling controls, then sample with them.
         st, gen = self._install_controls(slot, sp, b_ids, b_vals, counts)
@@ -1570,6 +1688,8 @@ class InferenceEngine:
         # search starts there.
         self._install_registers(seq, pt_row, stop_ids, tok, matched,
                                 toks[:S])
+        if vl_t is not None:
+            self._mrope_delta[slot] = vl_t[-1]
 
         K = cfg.max_top_logprobs
         row = self._inst_rows[slot]
@@ -1741,6 +1861,13 @@ class InferenceEngine:
                                                  device=self.device),
                 self.kv_pages, self._pt, self._chunk_pt, self._clens,
                 self._chunk_start, self._chunk_valid)
+        elif self._is_vl:
+            # M-RoPE: rope at the index plus the slot's delta, read from
+            # its fixed buffer; the K/V write stays at the index.
+            pos = self._clens - 1
+            logits, _ = self.family.decode_forward(
+                self.params, mcfg, self._last, pos, self.kv_pages, self._pt,
+                self._clens, rope_positions=pos + self._mrope_delta)
         else:
             logits, _ = self.family.decode_forward(
                 self.params, mcfg, self._last, self._clens - 1,
@@ -2094,6 +2221,7 @@ class InferenceEngine:
         self._active[s] = False
         self._clens[s] = 0
         self._budget[s] = 0
+        self._mrope_delta[s] = 0
 
     def _finish_sequence(self, seq: _Sequence, reason: str,
                          emit: bool = True) -> None:

@@ -1,8 +1,8 @@
 """Model contract shared by all families (port of
 ``xllm_service_tpu/models/base.py``: the dense llama, qwen2 and gemma
 configurations, the MLA and MoE fields of the deepseek_moe and mixtral
-families, weight-only int8; the vision fields wait for the multimodal
-families).
+families, the vision tower and M-RoPE of the qwen2_vl family, weight-only
+int8).
 
 Engine-facing surface per family:
 - ``init_params(cfg, generator, device) -> params``: random init from an
@@ -56,6 +56,9 @@ class ModelConfig:
     num_shared_experts: int = 0
     moe_ffn_size: int = 0           # per-expert ffn width
     first_dense_layers: int = 1     # leading dense layers before MoE blocks
+    # Multimodal (qwen2_vl family).
+    vision: Optional["VisionConfig"] = None
+    image_token_id: int = 151655    # <|image_pad|> placeholder id
     # M-RoPE (the Qwen2-VL LM stack): per-axis (temporal, h, w) half-dim
     # rope sections summing to head_dim // 2. Empty = 1-D rope.
     mrope_section: tuple = ()
@@ -143,6 +146,34 @@ class ModelConfig:
             self.dtype_bytes
 
 
+@dataclass(frozen=True)
+class VisionConfig:
+    """The Qwen2-VL vision tower (``models/qwen2_vl.py``; checkpoint
+    layout ``visual.*``, HF's Qwen2VisionTransformer): a Conv3d-equivalent
+    patch embedding with a temporal patch, 2-D rotary positions over the
+    (row, col) patch grid, LayerNorm blocks with a fused qkv, a QuickGELU
+    MLP, and the spatial-merge PatchMerger to the LM width.
+    ``window_size``/``fullatt_block_indexes`` add Qwen2.5-VL's windowed
+    attention (non-overlapping local windows except the listed global
+    blocks); 0 keeps every block global (Qwen2-VL). The vision tower is
+    not in ``decode_weight_stream_bytes``: a decode step never reads it,
+    and the reference does not count it."""
+
+    # Consistent with qwen2_vl.init_params' invariant:
+    # out_tokens == (image_size / patch_size / spatial_merge_size) ** 2.
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 4
+    num_heads: int = 16
+    out_tokens: int = 64            # visual tokens emitted per image
+    temporal_patch_size: int = 2    # Qwen2-VL: 2 (an image tiled over t)
+    spatial_merge_size: int = 2     # Qwen2-VL: 2 (2x2 patch merge)
+    rope_theta: float = 10000.0
+    window_size: int = 0            # patches per window side (2.5-VL: 8)
+    fullatt_block_indexes: tuple = ()
+
+
 @dataclass
 class ModelFamily:
     name: str
@@ -182,6 +213,8 @@ def get_model_family(name: str) -> ModelFamily:
             from . import gemma  # noqa: F401
         elif name == "mixtral":
             from . import mixtral  # noqa: F401
+        elif name == "qwen2_vl":
+            from . import qwen2_vl  # noqa: F401
     fam = _REGISTRY.get(name)
     if fam is None:
         raise ValueError(f"unknown model family: {name}")

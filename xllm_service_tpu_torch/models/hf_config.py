@@ -5,10 +5,9 @@
     cfg = model_config_from_hf(model_dir)
     params = load_checkpoint(model_dir, cfg)
 
-``llama``, ``qwen2``, ``gemma2``, ``mixtral`` and ``deepseek_v2``/
-``deepseek_v3`` map field for field as in the reference; ``qwen2_vl`` waits
-for the vision families (ROADMAP queue 1 item 13); any other type raises
-as the reference's does.
+``llama``, ``qwen2``, ``gemma2``, ``mixtral``, ``deepseek_v2``/
+``deepseek_v3`` and ``qwen2_vl`` map field for field as in the reference;
+any other type raises as the reference's does.
 """
 
 from __future__ import annotations
@@ -20,13 +19,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-from .base import ModelConfig
-
-# model_type -> the ROADMAP item that brings its family.
-_NOT_PORTED = {
-    "qwen2_vl": "queue 1 item 13, multimodal",
-}
-
+from .base import ModelConfig, VisionConfig
 
 def _read_config(ckpt_dir: Union[str, Path]) -> dict:
     p = Path(ckpt_dir) / "config.json"
@@ -121,15 +114,32 @@ def model_config_from_hf(ckpt_dir: Union[str, Path], *,
             num_shared_experts=hf.get("n_shared_experts", 0),
             moe_ffn_size=hf.get("moe_intermediate_size", 0),
             first_dense_layers=hf.get("first_k_dense_replace", 1))
-    elif mt in _NOT_PORTED:
-        raise ValueError(
-            f"HF model_type {mt!r} under {ckpt_dir} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[mt]})")
+    elif mt == "qwen2_vl":
+        kw = _common(hf)
+        sec = (hf.get("rope_scaling") or {}).get("mrope_section") or ()
+        vc = hf.get("vision_config") or {}
+        merge = int(vc.get("spatial_merge_size", 2))
+        patch = int(vc.get("patch_size", 14))
+        # HF's vision_config has no fixed image size (dynamic resolution);
+        # the tower here runs the canonical 224 px grid.
+        image = 224
+        kw.update(
+            name="qwen2_vl", qkv_bias=True, mrope_section=tuple(sec),
+            image_token_id=hf.get("image_token_id", 151655),
+            vision=VisionConfig(
+                image_size=image, patch_size=patch,
+                hidden_size=int(vc.get("embed_dim",
+                                       vc.get("hidden_size", 1280))),
+                num_layers=int(vc.get("depth", vc.get("num_layers", 32))),
+                num_heads=int(vc.get("num_heads", 16)),
+                out_tokens=(image // patch // merge) ** 2,
+                temporal_patch_size=int(vc.get("temporal_patch_size", 2)),
+                spatial_merge_size=merge))
     else:
         raise ValueError(
             f"unsupported HF model_type {mt!r} under {ckpt_dir} — "
-            f"supported: llama, qwen2, gemma2, mixtral, deepseek_v2/3 "
-            f"(qwen2_vl waits for ROADMAP queue 1 item 13)")
+            f"supported: llama, qwen2, gemma2, mixtral, deepseek_v2/3, "
+            f"qwen2_vl")
 
     if dtype is not None:
         kw["dtype"] = dtype
@@ -150,8 +160,9 @@ def loader_for(cfg: ModelConfig) -> Callable:
         return L.load_hf_mixtral_safetensors
     if cfg.name == "deepseek_moe":
         return L.load_hf_deepseek_safetensors
-    raise ValueError(f"no checkpoint loader for family {cfg.name!r} (the "
-                     "vision loader waits for ROADMAP queue 1 item 13)")
+    if cfg.name == "qwen2_vl":
+        return L.load_hf_qwen2_vl_safetensors
+    raise ValueError(f"no checkpoint loader for family {cfg.name!r}")
 
 
 def load_checkpoint(ckpt_dir: Union[str, Path], cfg: ModelConfig,

@@ -310,17 +310,25 @@ def decode_forward(params: Params, cfg: ModelConfig,
                    kv_pages: torch.Tensor,      # [L, 2, P, n_kv, ps, hd]
                    page_table: torch.Tensor,    # [B, max_pages] int32
                    context_lens: torch.Tensor,  # [B] lens INCLUDING new token
+                   rope_positions: Optional[torch.Tensor] = None,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step. Returns (logits [B, V] f32, kv_pages); the new
     tokens' K/V are written into ``kv_pages`` in place and every layer's
     attention runs through the paged-attention wrapper (the CUDA kernel
     on the card). With a sharded pool every layer runs the
-    context-parallel op on tables compacted once for the step."""
+    context-parallel op on tables compacted once for the step.
+
+    ``rope_positions`` [B] (M-RoPE, qwen2_vl): rope rotates q and k at
+    these positions (the sequence index plus the slot's delta left by its
+    image grids), while the K/V write and the paging stay at
+    ``positions``."""
     tables = (cp_tables(page_table, context_lens, kv_pages)
               if isinstance(kv_pages, ShardedPages) else None)
     x = _embed(params, cfg, tokens)                                # [B, D]
+    if rope_positions is None:
+        rope_positions = positions
     # Rope's cos/sin once for the step, shared by every layer's q and k.
-    cos_sin = _rope(cfg, positions, tokens)
+    cos_sin = _rope(cfg, rope_positions, tokens)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         h = _norm(x, lp["input_norm"]["scale"], cfg)

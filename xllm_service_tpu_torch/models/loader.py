@@ -35,13 +35,18 @@ k_rope, ``kv_b_proj`` -> k_up and v_up), the experts stacked ``[Lm, E,
 ...]``, the leading dense layers' MLP into ``dense_mlp``; every leaf in
 the model's dtype, the router included, as the reference's cast.
 
-The vision loader waits for its family (ROADMAP queue 1 item 13).
+The vision loader (``load_hf_qwen2_vl_safetensors``) maps the LM as
+qwen2's and the ``visual.*`` tower onto ``models/qwen2_vl.py``'s encoder,
+as the reference's: the Conv3d patch embedding flattened to the (c, t, ph,
+pw) linear the encoder applies, the blocks stacked ``[Lv, ...]`` under
+``vision/layers``, the PatchMerger's ln_q and MLP under ``vision/merger``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 from pathlib import Path
 from typing import Callable, Optional, Union
 
@@ -165,7 +170,10 @@ def _load_pieces(ckpt_dir: Union[str, Path], cfg: ModelConfig,
         stack = stack_dims(path)
         have = {(i,) + tuple(x[2]) for (p, i), xs in groups.items()
                 if p == path and i is not None for x in xs}
-        rel = path.split("/", 1)[1]         # the reference's name for it
+        # The reference's name for it, relative to its stack.
+        rel = (path[len("vision/layers/"):]
+               if path.startswith("vision/layers/")
+               else path.split("/", 1)[1])
         if len(stack) == 2:
             for mi in range(stack[0]):
                 missing = [e for e in range(stack[1]) if (mi, e) not in have]
@@ -382,6 +390,90 @@ def load_hf_mixtral_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
                      shape[::-1])]
         logger.warning("unmapped layer tensor: %s", name)
         return []
+
+    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
+
+
+# visual.blocks.{i}.<leaf> -> (the vision/layers path, transpose?)
+_HF_VISION_BLOCK_MAP = {
+    "norm1.weight": ("norm1/scale", False),
+    "norm1.bias": ("norm1/bias", False),
+    "attn.qkv.weight": ("qkv/kernel", True),
+    "attn.qkv.bias": ("qkv/bias", False),
+    "attn.proj.weight": ("proj/kernel", True),
+    "attn.proj.bias": ("proj/bias", False),
+    "norm2.weight": ("norm2/scale", False),
+    "norm2.bias": ("norm2/bias", False),
+    "mlp.fc1.weight": ("fc1/kernel", True),
+    "mlp.fc1.bias": ("fc1/bias", False),
+    "mlp.fc2.weight": ("fc2/kernel", True),
+    "mlp.fc2.bias": ("fc2/bias", False),
+}
+_HF_VISION_TOP_MAP = {
+    "visual.merger.ln_q.weight": ("vision/merger/ln_q/scale", False),
+    "visual.merger.ln_q.bias": ("vision/merger/ln_q/bias", False),
+    "visual.merger.mlp.0.weight": ("vision/merger/fc1/kernel", True),
+    "visual.merger.mlp.0.bias": ("vision/merger/fc1/bias", False),
+    "visual.merger.mlp.2.weight": ("vision/merger/fc2/kernel", True),
+    "visual.merger.mlp.2.bias": ("vision/merger/fc2/bias", False),
+}
+
+
+def _patch_kernel(t: torch.Tensor) -> torch.Tensor:
+    """Conv3d [Dv, 3, tps, p, p] -> the [3 * tps * p * p, Dv] linear."""
+    return t.reshape(t.shape[0], -1).t()
+
+
+def load_hf_qwen2_vl_safetensors(ckpt_dir: Union[str, Path],
+                                 cfg: ModelConfig,
+                                 device: Optional[Union[str, torch.device]]
+                                 = None) -> Params:
+    """An HF Qwen2-VL checkpoint directory -> the qwen2_vl tree on
+    ``device`` (``cuda`` unless named), in ``cfg.dtype``: the LM as
+    qwen2's (the qkv-bias llama), the ``visual.*`` tower onto the
+    encoder's tree."""
+    v = cfg.vision
+    assert v is not None
+    L, Lv = cfg.num_layers, v.num_layers
+
+    def place(name: str, shape: tuple) -> list[_Piece]:
+        if name in _HF_VISION_TOP_MAP:
+            path, transpose = _HF_VISION_TOP_MAP[name]
+            return [(path, (), _t if transpose else _same,
+                     shape[::-1] if transpose else shape)]
+        if name == "visual.patch_embed.proj.weight":
+            return [("vision/patch_embed/kernel", (), _patch_kernel,
+                     (math.prod(shape[1:]), shape[0]))]
+        if name.startswith("visual.blocks."):
+            idx_str, _, leaf = name[len("visual.blocks."):].partition(".")
+            if leaf not in _HF_VISION_BLOCK_MAP:
+                logger.warning("unmapped vision tensor: %s", name)
+                return []
+            li = int(idx_str)
+            if not 0 <= li < Lv:
+                raise ValueError(f"checkpoint tensor {name} is past the "
+                                 f"config's {Lv} vision layers")
+            path, transpose = _HF_VISION_BLOCK_MAP[leaf]
+            return [(f"vision/layers/{path}", (li,),
+                     _t if transpose else _same,
+                     shape[::-1] if transpose else shape)]
+        top = _top_pieces(name, shape)
+        if top is not None:
+            return top
+        li, leaf = _layer_index(name, L)
+        if leaf not in _HF_LAYER_MAP:
+            logger.warning("unmapped layer tensor: %s", name)
+            return []
+        path, transpose = _HF_LAYER_MAP[leaf]
+        return [(f"layers/{path}", (li,), _t if transpose else _same,
+                 shape[::-1] if transpose else shape)]
+
+    def stack_dims(path: str) -> tuple:
+        if path.startswith("layers/"):
+            return (L,)
+        if path.startswith("vision/layers/"):
+            return (Lv,)
+        return ()
 
     return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
 

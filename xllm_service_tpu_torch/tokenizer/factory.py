@@ -90,9 +90,9 @@ class TokenizerFactory:
     @staticmethod
     def load_chat_template(tokenizer_path: str) -> Optional[str]:
         """The chat template string (chat_template.json /
-        chat_template.jinja take priority over tokenizer_config.json).
-        Rendering it waits for the vision families (ROADMAP queue 1 item
-        13): the reference agent renders only for image messages."""
+        chat_template.jinja take priority over tokenizer_config.json); the
+        agent renders it (``chat_template/``) for image messages, as the
+        reference agent does."""
         if not tokenizer_path:
             return None
         return TokenizerFactory.load_args(tokenizer_path).chat_template \
