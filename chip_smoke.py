@@ -39,7 +39,13 @@ Phases (any failure exits non-zero before the result line):
    GQA groups of Qwen2-7B (28/4) and Qwen2-VL-2B (12/2), and kernel 2's
    f32 walk at the shapes its tensor-core route does not take (Gemma-2B's
    head dim 256, Qwen2-7B's group of 7, Qwen2-VL-2B's group of 6 at Sq 256
-   behind 256), timed beside SDPA;
+   behind 256), timed beside SDPA; the page movers again at
+   DeepSeek-V2-Lite's MLA block ``[27, 2, 8, 1, 16, 576]`` (one pool and
+   four shards, bit for bit, timed beside ``index_select`` /
+   ``index_copy_`` and the copy floor) and kernel 6 at Qwen2-VL-2B's 12/2
+   heads (per shard at seq 2 and 4, the whole op, timed on shard 0 of
+   four beside SDPA over the owned K/V); each of these two shapes is a
+   row of its own in the ``kernels`` line;
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -245,7 +251,27 @@ Phases (any failure exits non-zero before the result line):
    batch's padding, every greedy token against its recomputation and its
    replay as in (b); the MLA decode route timed at B 16 (information);
    (d) the bench twin at ``XLLM_BENCH_MODEL=moe``. Tokens/s, TTFT and KV
-   bytes a token are information;
+   bytes a token are information. Then, MOE_NEW tokens a request: (f)
+   Mixtral-8x7B int8 on a ``seq=4`` pool (phase 4c's mesh) on (b)'s
+   weights: a 1101-token prompt (the ring), two short ones and a prefix
+   hit (kernel 2 on the gathered table); kernel 6 at 32 a step and shard,
+   kernels 1 and 3 idle, the tokens against the one-device engine's (each
+   parting a counted near-tie, ``held_to``); (i) Mixtral-8x7B int8 under
+   ``speculate_k=4`` against the plain engine: tokens a cycle, kernel 2 in
+   every layer of the captured cycle, the tokens held as in (f); (e)
+   DeepSeek-V2-Lite as (f) on (c)'s weights: the MLA decode route at 27
+   a step over the sharded pool, the prefix hit on the dense route,
+   kernels 1, 2, 3 and 6 idle; (g) phase 4a's tier round trip at
+   DeepSeek-V2-Lite (hash blocks of 7,962,624 bytes): the restored pages
+   bit for bit, the tier hit's tokens equal to the hot run's; (j) the
+   ``kvtier_bench`` twin's legs 1 and 2 at DeepSeek-V2-Lite (information);
+   (h) a PREFILL agent here and a DECODE agent in a second process, both
+   DeepSeek-V2-Lite at full width cut to MLA_PD_LAYERS layers (two
+   processes at full depth would hold about 63 GB of weights), the KV
+   over CUDA IPC: every handoff on the device path, kernel 4 once a
+   handoff and bit for bit against the plain gather, kernel 5 once a
+   handoff there, one request's installed pages equal to its extracted
+   buffer, the tokens against an in-process MIX engine;
 4n. multimodal and EPD (run before 4m): Qwen2-VL-2B at full width and
    depth (random weights, seed 0, bf16, page 16): (a) ``encode_images``
    on four seeded 224 px images against the same encoder in f32 (within
@@ -263,7 +289,15 @@ Phases (any failure exits non-zero before the result line):
    slot while image chats decode (read on the engine thread); TTFT and
    tok/s are information; (c) a 360-token two-image prompt chunked by 128
    against its whole install, in f32 at full width and depth: equal
-   tokens, kernel 2 on the chunks behind the first;
+   tokens, kernel 2 on the chunks behind the first; (d) a ``seq=4`` pool:
+   two image prompts (no ring) and a 1101-token text prompt (the ring,
+   its M-RoPE rows padded), kernel 6 at group 6, 28 a step and shard,
+   kernels 1-3 idle, the tokens against the one-device engine's (a
+   parting holds only where both streams pass their recomputation); (e)
+   a PREFILL agent here and a DECODE agent in a second process (the
+   agent's entry point, ``--model-config qwen2_vl_2b``), six of (b)'s
+   image chats over CUDA IPC, checked as 4m (h) and every stream equal to
+   (b)'s;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -763,41 +797,45 @@ def sweep_movers(page_dma, gather, scatter):
         f"mean); shipped {tuple(real.values())}")
 
 
-def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages):
-    """Kernels 4-5 against their plain versions at one Llama-3-8B hash block
-    ([32, 2, 8, 8, 16, 128]): bit for bit, with NaN in every page they must
-    not touch, on one pool and on the same pool sharded four ways on one
-    card (the block's eight pages on all four shards), one launch per
-    call. Then times, the bulk route's sweep and the copy floor. Returns
-    (gather row, scatter row)."""
-    L, ppb, n_pages = 32, 8, 40
+def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
+                      L=32, n_kv=N_KV, hd=HD, what="llama3-8b", sweep=True):
+    """Kernels 4-5 against their plain versions at one hash block of 128
+    tokens, ``[L, 2, 8, n_kv, 16, hd]`` (Llama-3-8B's [32, 2, 8, 8, 16,
+    128] by default; DeepSeek-V2-Lite's MLA block is [27, 2, 8, 1, 16,
+    576]): bit for bit, with NaN in every page they must not touch, on one
+    pool and on the same pool sharded four ways on one card (the block's
+    eight pages on all four shards), one launch per call. Then times, the
+    bulk route's sweep (``sweep``) and the copy floor. Returns (gather
+    row, scatter row)."""
+    ppb, n_pages = 8, 40
     ids = [17, 3, 29, 8, 35, 1, 22, 12]                  # shuffled, 8 pages
     untouched = [p for p in range(n_pages) if p not in ids]
     mesh = build_mesh(MeshConfig(seq=4), ["cuda:0"] * 4)
     assert sorted({p // (n_pages // 4) for p in ids}) == [0, 1, 2, 3]
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(6)
-        kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), generator=g,
+        kv = torch.randn((L, 2, n_pages, n_kv, PS, hd), generator=g,
                          device="cuda").to(dtype)
         kv[:, :, untouched] = float("nan")
-        block = torch.randn((L, 2, ppb, N_KV, PS, HD), generator=g,
+        block = torch.randn((L, 2, ppb, n_kv, PS, hd), generator=g,
                             device="cuda").to(dtype)
-        mover_case(page_dma, kv, ids, untouched, block, "pool")
+        mover_case(page_dma, kv, ids, untouched, block, f"{what} pool")
         sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)],
                                mesh)
-        mover_case(page_dma, sharded, ids, untouched, block, "4 shards")
+        mover_case(page_dma, sharded, ids, untouched, block,
+                   f"{what} 4 shards")
 
     # Timing at one bf16 hash block (the offload and onload of one block).
-    kv = torch.randn((L, 2, n_pages, N_KV, PS, HD), device="cuda").to(
+    kv = torch.randn((L, 2, n_pages, n_kv, PS, hd), device="cuda").to(
         torch.bfloat16)
-    block = torch.randn((L, 2, ppb, N_KV, PS, HD), device="cuda").to(
+    block = torch.randn((L, 2, ppb, n_kv, PS, hd), device="cuda").to(
         torch.bfloat16)
     ids_d = torch.tensor(ids, device="cuda")
     # Each byte of the block read once and written once, and the ids.
     nbytes = 2 * block.numel() * 2 + len(ids) * 4
     bound = 1e3 * nbytes / HBM_BYTES_PER_S
     sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)], mesh)
-    # The copy floor: the card's own contiguous copy of the same 16 MiB (a
+    # The copy floor: the card's own contiguous copy of the same bytes (a
     # yardstick only; the port never calls it).
     src = torch.empty_like(block)
     dst = torch.empty_like(block)
@@ -816,15 +854,17 @@ def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages):
              lambda: page_dma.scatter_kv_pages(sharded, ids, block))):
         ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(lib)
         shard_ms = time_ms(shard_call)
-        log(f"  {name} bf16 block {tuple(block.shape)}: kernel {ms:.4f} ms "
+        log(f"  {name} {what} bf16 block {tuple(block.shape)}: kernel "
+            f"{ms:.4f} ms "
             f"(4 shards {shard_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
             f"{lib_ms:.4f} ms, copy floor {floor_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
             f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of the bound)")
         rows.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
-    sweep_movers(page_dma, lambda: page_dma.gather_kv_pages(kv, ids),
-                 lambda: page_dma.scatter_kv_pages(kv, ids, block))
+    if sweep:
+        sweep_movers(page_dma, lambda: page_dma.gather_kv_pages(kv, ids),
+                     lambda: page_dma.scatter_kv_pages(kv, ids, block))
     return rows
 
 
@@ -869,10 +909,13 @@ def cp_case(dtype, ctxs, seed, tail_row=None, n_q=N_Q, n_kv=N_KV, hd=HD):
 
 
 def check_cp_kernel(cp, paged_attention, paged_attention_plain,
-                    build_mesh, MeshConfig, kernel_fn):
+                    build_mesh, MeshConfig, kernel_fn, n_q=N_Q, n_kv=N_KV,
+                    what="llama3-8b's 32/8 heads", extras=True):
     """Kernel 6 against its plain version, shard by shard, at seq 2 and 4;
     the whole CP op against single-device attention on the same pool; then
-    times at the decode step's shapes.
+    times at the decode step's shapes, with ``n_q``/``n_kv`` heads at head
+    dim 128 (``extras``: the splits sweep and the whole op's time beside
+    kernel 1's).
 
     Cases: ragged contexts up to the full table; kernel 1's split-K edges
     (a context shorter than one split, 3; one whose last split holds part
@@ -895,7 +938,8 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
              ([777], None)]
     for dtype in (torch.bfloat16, torch.float32):
         for ci, (ctxs, tail_row) in enumerate(cases):
-            q, k, v, pt, cl = cp_case(dtype, ctxs, 8 + ci, tail_row)
+            q, k, v, pt, cl = cp_case(dtype, ctxs, 8 + ci, tail_row,
+                                      n_q=n_q, n_kv=n_kv)
             rows, P = len(ctxs), k.shape[0]
             want = paged_attention_plain(q, k, v, pt, cl)
             for n in (2, 4):
@@ -903,8 +947,8 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                 k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
                 P_loc = P // n
                 splits = cp.partial_split_count(
-                    rows, N_KV, MAX_PAGES, PS, sms, n, planned_blocks_per_sm(
-                        "cp_paged_partial", HD, N_Q // N_KV,
+                    rows, n_kv, MAX_PAGES, PS, sms, n, planned_blocks_per_sm(
+                        "cp_paged_partial", HD, n_q // n_kv,
                         dtype == torch.bfloat16))
                 for d in range(n):
                     tables = cp.compact_local_table(pt, cl, d * P_loc, P_loc,
@@ -928,7 +972,8 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                             if (~dead).any() else 0.0,
                             ((l - l0).abs() / lsc).max().item(),
                             ((acc - a0).abs() / lsc[..., None]).max().item())
-                    log(f"  cp_paged_partial {str(dtype)[6:]:8s} ctx={ctxs} "
+                    log(f"  cp_paged_partial {what} {str(dtype)[6:]:8s} "
+                        f"ctx={ctxs} "
                         f"seq={n} shard {d} splits={splits}: n_local "
                         f"{tables[2].tolist()}, err={e:.3g} "
                         f"(tol {TOL[dtype]})")
@@ -937,7 +982,8 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                 got = cp.cp_paged_attention(q, k_sh, v_sh, pt, cl, mesh)
                 torch.cuda.synchronize()
                 e = (got.float() - want.float()).abs().max().item()
-                log(f"  cp_paged_attention {str(dtype)[6:]:8s} ctx={ctxs} "
+                log(f"  cp_paged_attention {what} {str(dtype)[6:]:8s} "
+                    f"ctx={ctxs} "
                     f"seq={n} vs single-device plain: max_abs_err={e:.3g} "
                     f"(tol {TOL[dtype]})")
                 assert torch.isfinite(got).all()
@@ -953,12 +999,12 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     n, ctx, mp = 4, 1024, 1024 // PS
     P = 4 * B * mp + 4
     P_loc = P // n
-    k = torch.randn((P, N_KV, PS, HD), device="cuda").to(torch.bfloat16)
-    v = torch.randn((P, N_KV, PS, HD), device="cuda").to(torch.bfloat16)
+    k = torch.randn((P, n_kv, PS, HD), device="cuda").to(torch.bfloat16)
+    v = torch.randn((P, n_kv, PS, HD), device="cuda").to(torch.bfloat16)
     j = torch.arange(mp, device="cuda")
     pt = ((j % n) * P_loc + 1 + torch.arange(B, device="cuda")[:, None] * mp
           // n + j // n).to(torch.int32)                   # [B, 64], unique
-    q = torch.randn((B, N_Q, HD), device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, n_q, HD), device="cuda").to(torch.bfloat16)
     cl = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     mesh = build_mesh(MeshConfig(seq=n), ["cuda:0"] * n)
     k_sh, v_sh = list(k.chunk(n)), list(v.chunk(n))
@@ -977,29 +1023,34 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     # dense (each row owns the same count here).
     local = t0[0][:, :mp // n].long()
     kd = k_sh[0][local].permute(0, 2, 1, 3, 4).reshape(
-        B, N_KV, mp // n * PS, HD).contiguous()
+        B, n_kv, mp // n * PS, HD).contiguous()
     vd = v_sh[0][local].permute(0, 2, 1, 3, 4).reshape(
-        B, N_KV, mp // n * PS, HD).contiguous()
+        B, n_kv, mp // n * PS, HD).contiguous()
     lib_ms = time_ms(lambda: sdpa(q[:, :, None, :], kd, vd))
     # q, the f32 outputs (m, l, acc), the owned K/V, the owned entries of
     # local_pt and starts, n_local and the lengths.
     tok = own * PS
-    nbytes = (q.numel() * 2 + B * N_Q * (2 + HD) * 4 + tok * N_KV * HD * 2 * 2
+    nbytes = (q.numel() * 2 + B * n_q * (2 + HD) * 4 + tok * n_kv * HD * 2 * 2
               + own * 4 * 2 + B * 4 * 2)
-    ops = 4 * N_Q * HD * tok
+    ops = 4 * n_q * HD * tok
     bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS)
-    log(f"  cp_paged_partial bf16 B={B} ctx={ctx} shard 0 of {n} "
+    log(f"  cp_paged_partial {what} bf16 B={B} ctx={ctx} shard 0 of {n} "
         f"({own} owned pages): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} GFLOP)")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = kernel_fn("cp_paged_partial", "cp_paged_partial_blocks_per_sm",
-                       [ctypes.c_int] * 3)(HD, N_Q // N_KV, 1)
-    log(f"  cp_paged_partial: splits "
-        f"{cp.partial_split_count(B, N_KV, mp, PS, sms, n, 2)} on {sms} SMs, "
+                       [ctypes.c_int] * 3)(HD, n_q // n_kv, 1)
+    log(f"  cp_paged_partial {what}: splits "
+        f"{cp.partial_split_count(B, n_kv, mp, PS, sms, n, 2)} on {sms} SMs, "
         f"{per_sm} blocks per SM (the plan takes 2); {ms / lib_ms:.2f}x the "
         f"library's time, "
         f"{ms / bound:.1f}x the bound")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+               >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+    if not extras:
+        return row
     log("  cp_paged_partial: splits sweep "
         + sweep_splits(cp, "partial_split_count", (1, 2, 4), call))
     # The whole CP op (n partial launches and the merge) against kernel 1
@@ -1012,9 +1063,7 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
     log(f"  cp_paged_attention bf16 B={B} ctx={ctx} seq={n}: {op_ms:.4f} ms "
         f"(4 partials + merge), tables {tab_ms:.4f} ms per step; kernel 1 "
         f"on the unsharded pool {k1_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / BF16_FLOPS else "operations", library_ms=lib_ms)
+    return row
 
 
 
@@ -2926,6 +2975,16 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
+def tie_rank(logits, tok):
+    """(the rank of token ``tok``'s value among the distinct values of
+    ``logits`` (bf16 logits tie exactly), its gap below the top, the
+    near-tie tolerance: TIE_STEPS bf16 steps at max |logit|)."""
+    values = torch.unique(logits)
+    took = logits[tok]
+    return (int((values > took).sum()) + 1, (values[-1] - took).item(),
+            TIE_STEPS * bf16_step(logits.abs().max().item()))
+
+
 def compare_streams(llama, cfg, params, prompts, got, want, what):
     """Greedy streams ``got`` against ``want`` (name -> tokens). At the
     first difference the logits after the shared context (installed
@@ -2941,14 +3000,10 @@ def compare_streams(llama, cfg, params, prompts, got, want, what):
             continue
         diverged += 1
         logits = next_token_logits(llama, cfg, params, prompts[name] + w[:i])
-        # bf16 logits tie exactly, so rank the distinct values.
-        values = torch.unique(logits)
-        took = logits[g[i]]
-        rank = int((values > took).sum()) + 1
-        gap = (values[-1] - took).item()
-        tol = TIE_STEPS * bf16_step(logits.abs().max().item())
+        rank, gap, tol = tie_rank(logits, g[i])
         log(f"  {what}: {name} parts at token {i}: took {g[i]} (value rank "
-            f"{rank} there, {int((logits == took).sum())} token(s) at that "
+            f"{rank} there, {int((logits == logits[g[i]]).sum())} token(s) "
+            f"at that "
             f"value), {gap:.4g} below the top (tol {TIE_STEPS} bf16 steps "
             f"= {tol:.4g})")
         assert rank <= 2 and gap <= tol, \
@@ -3681,6 +3736,83 @@ def decode_agent_child(argv) -> int:
     return 0
 
 
+class DecodeChild:
+    """A DECODE agent in a second process: ``python3 chip_smoke.py
+    HEAD... --type DECODE ... AGENT_ARGS...`` (``HEAD`` is
+    ``--decode-agent SID``, or ``--mla-decode-agent LAYERS SID``), with
+    its log under ``build/``. ``link(store, pre)`` waits for its
+    registration in ``store`` (through the ``CoordServer`` at
+    ``coord_addr``) and links it and the PREFILL agent ``pre`` both ways,
+    as the master does; ``report(cmd)`` writes ``cmd`` to its standard
+    input and reads its ``REPORT`` line (launch counts, the probe
+    request's page digest)."""
+
+    def __init__(self, head, agent_args, coord_addr, log_name):
+        import subprocess
+
+        from xllm_service_tpu_torch.common.net import pick_free_port
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.name = f"127.0.0.1:{pick_free_port('127.0.0.1')}"
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        self.log_path = os.path.join(root, "build", log_name)
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *head, "--type",
+             "DECODE", "--coordination-addr", coord_addr, "--port",
+             self.name.rpartition(":")[2], *agent_args],
+            cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True, stderr=open(self.log_path, "w"))
+
+    def tail(self):
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def link(self, store, pre):
+        from xllm_service_tpu_torch.common.types import InstanceMetaInfo
+        from xllm_service_tpu_torch.rpc import instance_key
+
+        key = instance_key("DECODE", self.name)
+        deadline = time.monotonic() + 600
+        while store.get(key) is None:
+            assert self.proc.poll() is None and time.monotonic() < deadline, \
+                f"the decode agent did not register:\n{self.tail()}"
+            time.sleep(0.5)
+        meta = InstanceMetaInfo.from_json(store.get(key))
+        assert meta.topology.kv_transfer_addr == pre.kv_transfer.address, \
+            "the two agents do not name the same card"
+        for addr, peer in ((pre.name, meta), (self.name, pre.meta())):
+            post = Poster(addr)
+            try:
+                status, reply = post("/rpc/link",
+                                     {"peer": json.loads(peer.to_json())})
+            finally:
+                post.close()
+            assert status == 200 and reply["ok"], reply
+        self.meta = meta
+        return time.monotonic() - self.t0
+
+    def report(self, cmd="report"):
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        while True:
+            line = self.proc.stdout.readline()
+            assert line, f"the decode agent exited:\n{self.tail()}"
+            if line.startswith("REPORT "):
+                return json.loads(line[7:])
+
+    def close(self):
+        import subprocess
+
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
 def http_get(addr, path):
     import http.client
 
@@ -3711,63 +3843,38 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
     processes)."""
     import dataclasses
     import hashlib
-    import subprocess
     import types
     import uuid
 
     from xllm_service_tpu_torch.common.faults import FAULTS
-    from xllm_service_tpu_torch.engine.kv_transfer import transfer_uuid
-
-    from xllm_service_tpu_torch.common.net import pick_free_port
-    from xllm_service_tpu_torch.common.types import (
-        InstanceMetaInfo,
-        InstanceType,
-    )
+    from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
         MemoryStore,
     )
     from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
-    from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
+    from xllm_service_tpu_torch.engine.kv_transfer import (
+        tensor_bytes,
+        transfer_uuid,
+    )
     from xllm_service_tpu_torch.ops import page_dma
-    from xllm_service_tpu_torch.rpc import MASTER_KEY, instance_key
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
 
     paged_attention, mq_paged_attention = kernels
-    root = os.path.dirname(os.path.abspath(__file__))
     store = MemoryStore()
     coord = CoordServer(store)
     master = StubMaster()
     InMemoryCoordination(store).set(MASTER_KEY, master.addr)
-    dec_name = f"127.0.0.1:{pick_free_port('127.0.0.1')}"
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    log_path = os.path.join(root, "build", "phase4i_decode_agent.log")
-    t = time.monotonic()
-    child = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--decode-agent",
-         PD_PROBE, "--type", "DECODE", "--model-config", "llama3_8b",
-         "--model-id", "llama3-8b", "--coordination-addr", coord.addr,
-         "--port", dec_name.rpartition(":")[2],
+    child = DecodeChild(
+        ["--decode-agent", PD_PROBE],
+        ["--model-config", "llama3_8b", "--model-id", "llama3-8b",
          "--num-pages", str(cfg.num_pages),
          "--page-size", str(cfg.page_size),
          "--max-batch-size", str(cfg.max_batch_size),
          "--max-seq-len", str(cfg.max_seq_len),
-         "--decode-horizon", str(cfg.decode_horizon)],
-        cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
-        stderr=open(log_path, "w"))
-
-    def child_log():
-        with open(log_path) as f:
-            return "".join(f.readlines()[-30:])
-
-    def report(cmd="report"):
-        child.stdin.write(cmd + "\n")
-        child.stdin.flush()
-        while True:
-            line = child.stdout.readline()
-            assert line, f"the decode agent exited:\n{child_log()}"
-            if line.startswith("REPORT "):
-                return json.loads(line[7:])
-
+         "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
+        "phase4i_decode_agent.log")
+    dec_name, report = child.name, child.report
     pre = None
     try:
         pre = EngineAgent(
@@ -3776,24 +3883,12 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
                         model_id="llama3-8b", heartbeat_interval_s=1.0),
             coord=InMemoryCoordination(store), params=params, device="cuda")
         pre.start()
-        key = instance_key("DECODE", dec_name)
-        deadline = time.monotonic() + 600
-        while store.get(key) is None:
-            assert child.poll() is None and time.monotonic() < deadline, \
-                f"the decode agent did not register:\n{child_log()}"
-            time.sleep(0.5)
-        dmeta = InstanceMetaInfo.from_json(store.get(key))
-        log(f"  decode agent {dec_name} (pid {child.pid}) registered after "
-            f"{time.monotonic() - t:.1f} s; transfer address "
+        reg_s = child.link(store, pre)
+        dmeta = child.meta
+        log(f"  decode agent {dec_name} (pid {child.proc.pid}) registered "
+            f"after {reg_s:.1f} s; transfer address "
             f"{dmeta.topology.kv_transfer_addr}")
-        assert dmeta.topology.kv_transfer_addr == pre.kv_transfer.address, \
-            "the two agents do not name the same card"
-        post_pre, post_dec = Poster(pre.name), Poster(dec_name)
-        # The stub master links the pair both ways, as the master does.
-        for post, peer in ((post_pre, dmeta), (post_dec, pre.meta())):
-            status, reply = post("/rpc/link",
-                                 {"peer": json.loads(peer.to_json())})
-            assert status == 200 and reply["ok"], reply
+        post_pre = Poster(pre.name)
         offered: dict[str, str] = {}
         offer = pre.kv_transfer.offer
 
@@ -4019,17 +4114,11 @@ def pd_phase(cfg, params, llama, prompts, shared, sampled_prompt, want,
                 mine[0] + dl["gather_kv_pages"],
                 mine[2] + dl["scatter_kv_pages"])
     except BaseException:
-        log(f"  the decode agent's log, last lines:\n{child_log()}")
+        log(f"  the decode agent's log, last lines:\n{child.tail()}")
         raise
     finally:
         FAULTS.clear()
-        if child.poll() is None:
-            child.stdin.close()
-            try:
-                child.wait(timeout=120)
-            except subprocess.TimeoutExpired:
-                child.kill()
-                child.wait()
+        child.close()
         if pre is not None:
             pre.stop()
         master.close()
@@ -4245,12 +4334,7 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what,
             excusable += int(near.sum())
             del kv2, rec2, r1, r2
         for j, tok in enumerate(gen):
-            row = logits[j]
-            values = torch.unique(row)
-            took = row[tok]
-            rank = int((values > took).sum()) + 1
-            gap = (values[-1] - took).item()
-            tol = TIE_STEPS * bf16_step(row.abs().max().item())
+            rank, gap, tol = tie_rank(logits[j], tok)
             checked += 1
             if rank <= 2 and gap <= tol:
                 exact += rank == 1
@@ -5532,7 +5616,8 @@ def mixtral_agent_leg(deepseek_moe, kernels, card):
     prefix once it streams. Checks the deltas, kernel 1 at 32 launches a
     replayed step, kernel 2 on the prefix hits, the captured step's
     replays, and every greedy token against its recomputation. Returns the
-    launches of kernels 1 and 2."""
+    launches of kernels 1 and 2, the engine's configuration and its int8
+    weights (legs (f) and (i) serve on them)."""
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
         MemoryStore,
@@ -5617,7 +5702,7 @@ def mixtral_agent_leg(deepseek_moe, kernels, card):
                                  moe=deepseek_moe)
         replay_streams(deepseek_moe, cfg, agent.engine.params, sent, toks,
                        installs, "(b) mixtral-8x7b int8")
-        return k1, k2
+        return k1, k2, cfg, agent.engine.params
     finally:
         post.close()
         agent.stop()
@@ -5645,7 +5730,9 @@ def deepseek_leg(engine_mod, deepseek_moe, attention, kernels, card):
     kernels 1, 2 and 3 idle, the MLA decode route (``paged_attention_xla``)
     once a layer every step, the prefix hits on the dense route, the
     embeddings (finite, each row independent of its batch's padding), and
-    every greedy token against its recomputation."""
+    every greedy token against its recomputation. Returns the MLA route's
+    calls, the engine's configuration and its weights (legs (e), (g) and
+    (j) serve on them)."""
     from xllm_service_tpu_torch.models.deepseek_moe import (
         deepseek_v2_lite_config,
     )
@@ -5718,10 +5805,7 @@ def deepseek_leg(engine_mod, deepseek_moe, attention, kernels, card):
     replay_streams(deepseek_moe, cfg, params, sent, toks, spied["installs"],
                    "(c) deepseek-v2-lite bf16")
     mla_route_timing(attention, card)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return xla
+    return xla, cfg, params
 
 
 def spy_installs(engine):
@@ -5849,22 +5933,498 @@ def moe_bench_twin(card):
     return b
 
 
-def moe_phase(engine_mod, attention, kernels, card):
-    """Phase 4m: MoE and MLA at full width and depth, (a) to (d). Returns
-    the launches of kernels 1 and 2 (the Mixtral leg's)."""
+# ------------------------------------------------- phase 4m, legs (e)-(j)
+# The later legs run eager on a seq mesh (phase 4c served 14.7-29.4 tok/s
+# there), so each serves at most six requests of MOE_NEW tokens.
+MOE_NEW = 16
+# Leg (h) runs two DeepSeek-V2-Lite engines, one in each process: at full
+# depth their weights alone take about 63 GB, so the pair runs layer 0
+# (dense) and the first three MoE layers at full width.
+MLA_PD_LAYERS = 4
+MLA_PD_PROBE = "s0"
+
+
+def seq_mesh4():
+    """Phase 4c's mesh: a seq axis of four over the cards round robin
+    (``cuda:0`` four times on one card)."""
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    count = torch.cuda.device_count()
+    return build_mesh(MeshConfig(seq=4),
+                      [torch.device("cuda", i % count) for i in range(4)])
+
+
+def serve_greedy(engine_mod, cfg, params, prompts, shared=None, mesh=None,
+                 max_tokens=MOE_NEW, mm=None):
+    """One greedy run on a fresh engine with its loop (on ``mesh`` if
+    given): ``prompts`` (name -> ids) at once, then ``shared`` once the
+    first prompt has its first token (its blocks are donated by then);
+    ``mm`` maps an image prompt's name to its visual rows. Returns (tokens
+    by name, stats with the ring count, the eager decode steps (a spy on
+    ``_decode_step``: under a seq mesh every step is one call) and the
+    pool's shard shapes, wall s)."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
+    steps = [0]
+    step = eng._decode_step
+
+    def counted(*args):
+        steps[0] += 1
+        return step(*args)
+
+    eng._decode_step = counted
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                        ignore_eos=True)
+    cols = {}
+    eng.start()
+    try:
+        t0 = time.monotonic()
+
+        def submit(name, toks):
+            cols[name] = Collector()
+            eng.submit(engine_mod.EngineRequest(
+                name, token_ids=toks, sampling=sp, on_output=cols[name],
+                mm_embeds=(mm or {}).get(name)))
+
+        for name, toks in prompts.items():
+            submit(name, toks)
+        if shared:
+            assert cols[next(iter(prompts))].first.wait(600), \
+                "the first request never started"
+            for name, toks in shared.items():
+                submit(name, toks)
+        for name, c in cols.items():
+            assert c.done.wait(900), f"{name} never finished"
+        wall = time.monotonic() - t0
+    finally:
+        eng.stop()
+    for name, c in cols.items():
+        assert len(c.tokens) == max_tokens and c.reason == "length", \
+            f"{name}: {len(c.tokens)} tokens, reason {c.reason!r}"
+    kv = eng.kv_pages
+    stats = dict(eng.stats(), ring_prefills=eng.ring_prefills,
+                 eager_steps=steps[0],
+                 pool=[tuple(s.shape) for s in getattr(kv, "shards", [kv])])
+    toks = {n: c.tokens for n, c in cols.items()}
+    del eng, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, stats, wall
+
+
+def held_to(moe, cfg, params, sent, got, want, what):
+    """MoE streams ``got`` against ``want``, served by another route on the
+    same weights (PERF.md's rule): equal streams are counted; a stream
+    that parts, and the one it parts from, must each pass
+    ``check_streams_recomputed`` (every token its recomputation's argmax,
+    a logit near-tie or a counted routing near-tie), so every parting is
+    a reported near-tie. Returns the count of streams that parted."""
+    parted = [n for n in got if got[n] != want[n]]
+    for n in parted:
+        j = next(i for i, (a, b) in enumerate(zip(got[n], want[n]))
+                 if a != b)
+        log(f"  {what}: {n} parts at token {j} ({got[n][j]} against "
+            f"{want[n][j]})")
+    for side, streams in (("served", got), ("other route", want)):
+        if not parted:
+            break
+        check_streams_recomputed(moe, cfg, params, sent,
+                                 {n: streams[n] for n in parted},
+                                 f"{what}, the parted streams ({side})",
+                                 moe=moe)
+    log(f"  {what}: {len(got) - len(parted)}/{len(got)} greedy streams "
+        f"equal to the other route's; every parting a near-tie")
+    return len(parted)
+
+
+def seq_prompts(V, seed):
+    """A seq-mesh leg's traffic: a 1101-token prefix-free prompt (the ring,
+    its suffix padded by three to a multiple of four), two short ones and,
+    once the long one has its first token, one sharing its first 512
+    tokens (a prefix hit). Returns (prompts, shared)."""
+    rng = np.random.default_rng(seed)
+    long = rng.integers(3, V, size=1101).tolist()
+    prompts = {"long": long, "a": rng.integers(3, V, size=90).tolist(),
+               "b": rng.integers(3, V, size=300).tolist()}
+    shared = {"hit": long[:512] + rng.integers(3, V, size=100).tolist()}
+    return prompts, shared
+
+
+def moe_seq_leg(engine_mod, moe, attention, kernels, cfg, params, tag,
+                seed, card):
+    """4m (e) and (f): an MoE model on a seq=4 pool (``seq_mesh4``), then
+    on one device on the same weights, ``seq_prompts``' four requests of
+    MOE_NEW tokens each, the ring taking prompts of 1024 tokens or more.
+    Checks: one shard ``[L, 2, P/4, n_kv, 16, hd]`` a device of the axis,
+    one ring route, the prefix hit, the routes of every decode step (MLA:
+    ``paged_attention_xla`` once a layer over the sharded pool, kernels 1,
+    2, 3 and 6 idle; GQA: kernel 6 once a layer and shard, kernel 2 on the
+    prefix hit, kernels 1 and 3 idle), and the tokens against the
+    one-device engine's (``held_to``). Returns (kernel 6's launches, the
+    MLA route's calls, the launches of kernels 1 and 2 on one device)."""
+    from dataclasses import replace
+
+    paged, mq, fused, partial = kernels
+    m = cfg.model
+    L, mla = m.num_layers, m.kv_lora_rank > 0
+    prompts, shared = seq_prompts(m.vocab_size, seed)
+    sent = {**prompts, **shared}
+    scfg = replace(cfg, seq_parallel_min_tokens=1024)
+    reset_counts()
+    xla0 = attention.paged_attention_xla.launches
+    dense0 = attention.dense_prefill_route.launches
+    toks, st, wall = serve_greedy(engine_mod, scfg, params, prompts, shared,
+                                  mesh=seq_mesh4())
+    xla = attention.paged_attention_xla.launches - xla0
+    dense = attention.dense_prefill_route.launches - dense0
+    k1, k2, k3, k6 = (fn.launches for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    tps = sum(map(len, toks.values())) / wall
+    log(f"  {tag} on a seq=4 pool, shards {st['pool']}: {len(toks)} "
+        f"requests of {MOE_NEW} tokens in {wall:.1f} s ({tps:.1f} generated "
+        f"tok/s, eager; information only, {card}); ring prefills "
+        f"{st['ring_prefills']}, prefix hits {st['prefix_hits']}, "
+        f"{steps} decode steps; MLA decode route calls {xla}, dense-route "
+        f"prefills {dense}; kernels 1/2/3/6 {k1}/{k2}/{k3}/{k6}")
+    shard = (L, 2, cfg.num_pages // 4, m.num_kv_heads, cfg.page_size,
+             m.head_dim)
+    assert st["pool"] == [shard] * 4, st["pool"]
+    assert st["ring_prefills"] == 1, "the ring did not take the long prompt"
+    assert st["prefix_hits"] >= 1, "no prefix hit on the seq mesh"
+    assert k1 == 0 and k3 == 0, "kernel 1 or 3 ran on the seq mesh"
+    if mla:
+        assert xla == L * steps, \
+            f"the MLA route ran {xla} times, not {L} a step for {steps}"
+        assert (k2, k6) == (0, 0), "a GQA kernel ran on the MLA engine"
+        assert dense >= L, "the prefix hit did not take the dense route"
+    else:
+        assert k6 == 4 * L * steps, \
+            f"kernel 6 launched {k6} times, not {4 * L} a step for {steps}"
+        assert k2 >= L, "the prefix hit did not take kernel 2"
+    reset_counts()
+    want, st1, _ = serve_greedy(engine_mod, cfg, params, prompts, shared)
+    one = (paged.launches, mq.launches)
+    assert st1["ring_prefills"] == 0 and st1["prefix_hits"] >= 1
+    held_to(moe, cfg, params, sent, toks, want, f"{tag}, seq=4 vs one device")
+    return k6, xla, one
+
+
+def mixtral_spec_leg(engine_mod, moe, kernels, cfg, params, card):
+    """4m (i): Mixtral-8x7B int8 under ``speculate_k=4`` (four cycles a
+    call) and plain, on (b)'s weights: four greedy requests on phase 4h's
+    repetitive prompts (the id unit repeated to 256 tokens plus the
+    request's index), MOE_NEW tokens each. Checks: a cycle accepted a
+    draft, kernel 2 once a layer in every captured spec variant and at
+    least once a layer a cycle run, and the greedy tokens against the
+    plain engine's (``held_to``). Returns the spec run's launches of
+    kernels 1 and 2."""
+    from dataclasses import replace
+
+    L = cfg.model.num_layers
+    scfg = replace(cfg, speculate_k=4, speculate_cycles=4)
+    body = (SPEC_UNIT * (256 // len(SPEC_UNIT)))[:256]
+    reqs = {f"g{i}": (body + [i], dict(temperature=0.0)) for i in range(4)}
+    runs = {}
+    for name, rcfg in (("speculate_k=4", scfg), ("plain", cfg)):
+        t = time.monotonic()
+        runs[name] = spec_serve(engine_mod, rcfg, params, [reqs], kernels,
+                                max_tokens=MOE_NEW)
+        r = runs[name]
+        log(f"  (i) mixtral-8x7b int8, {name}: {r['tps']:.1f} generated "
+            f"tok/s, spec calls {r['calls']}, launches kernel 1 / kernel 2 "
+            f"{r['launches']}, {time.monotonic() - t:.1f} s (information "
+            f"only; {card})")
+    spec, plain = runs["speculate_k=4"], runs["plain"]
+    per = [e for n in reqs for e in spec["per_cycle"].get(n, [])]
+    log(f"  (i) tokens a spec cycle: {sum(per)} in {len(per)} stream-"
+        f"cycles, {sum(per) / max(1, len(per)):.2f} a cycle, most "
+        f"{max(per or [0])}; captured spec variants' launches a replay "
+        f"{spec['graphs']}")
+    assert spec["calls"] > 0 and plain["calls"] == 0
+    assert max(per) >= 2, "no spec cycle accepted a draft"
+    assert spec["graphs"] and all(
+        g.get("mq_paged_attention", 0) == L for g in spec["graphs"].values()
+    ), "kernel 2 not in every layer of a spec cycle"
+    assert spec["launches"][1] >= spec["calls"] * scfg.speculate_cycles * L
+    prompts = {n: p for n, (p, _) in reqs.items()}
+    held_to(moe, cfg, params, prompts, spec["tokens"], plain["tokens"],
+            "(i) mixtral-8x7b int8, speculation vs plain")
+    return spec["launches"]
+
+
+def mla_decode_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --mla-decode-agent LAYERS SID ARGS...``:
+    ``decode_agent_child`` with the agent's engine configuration made for
+    DeepSeek-V2-Lite cut to LAYERS layers at full width (the agent's
+    ``--model-config`` table has no DeepSeek entry, as the reference
+    agent's has none); the rest of the configuration from ARGS. The
+    engine draws the weights from its seed, as the prefill side's."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+    from xllm_service_tpu_torch.models.deepseek_moe import (
+        deepseek_v2_lite_config,
+    )
+
+    layers, rest = int(argv[0]), argv[1:]
+    real = agent_mod.engine_config
+
+    def engine_config(args):
+        mcfg = replace(deepseek_v2_lite_config(), num_layers=layers)
+        return replace(real(args), model=mcfg, model_family=mcfg.name,
+                       max_seq_len=args.max_seq_len)
+
+    agent_mod.engine_config = engine_config
+    return decode_agent_child(rest)
+
+
+def pd_pair_run(pre, child, master, store, requests, probe, body):
+    """Dispatch ``requests`` (name -> body fields) to the PREFILL agent
+    ``pre`` with ``routing.decode_name`` set to ``child``'s agent and a
+    trace context each, after linking the pair; probes kernel 4 against
+    the plain gather at every extract and digests the probe request's
+    extracted buffer. ``body`` is the route (``/v1/completions`` or
+    ``/v1/chat/completions``). Returns (tokens by name, handoff ms by
+    name: the device offer's span here plus the device pull's span in the
+    decode process, the differing elements of every extract, the probe's
+    digests (extracted, installed), the decode side's launches during the
+    run, seconds to the decode agent's registration)."""
+    import hashlib
+    import types
+    import uuid
+
+    from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
+    from xllm_service_tpu_torch.ops import page_dma
+
+    reg_s = child.link(store, pre)
+    offered = {}
+    offer = pre.kv_transfer.offer
+
+    def probed_offer(sid, blob, incarnation="", ready=None, ctx=None):
+        desc = offer(sid, blob, incarnation, ready=ready, ctx=ctx)
+        if sid == probe:
+            offered[sid] = hashlib.blake2b(tensor_bytes(blob),
+                                           digest_size=16).hexdigest()
+        return desc
+
+    pre.kv_transfer.offer = probed_offer
+    extract = pre.engine.extract_kv_pages_device
+    gathers = []
+
+    def probed_extract(pages):
+        got = extract(pages)
+        want = page_dma.gather_kv_pages_plain(pre.engine.kv_pages, pages)
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        gathers.append((got.view(bits) != want.view(bits)).sum())
+        return got
+
+    pre.engine.extract_kv_pages_device = probed_extract
+    before = child.report()["launches"]
+    post = Poster(pre.name)
+    ctxs = {}
+    try:
+        reset_counts()
+        for sid, fields in requests.items():
+            ctxs[sid] = {"trace_id": uuid.uuid4().hex,
+                         "span_id": uuid.uuid4().hex[:16]}
+            status, reply = post(body, dict(
+                service_request_id=sid, request_id=sid,
+                source_service_addr=master.addr, trace_context=ctxs[sid],
+                routing={"decode_name": child.name}, **fields))
+            assert status == 200, (sid, status, reply)
+        master.wait(lambda: all(map(master.finished, requests)),
+                    "the PD pair's requests", timeout=600)
+    finally:
+        post.close()
+    after = child.report()
+    dec = types.SimpleNamespace(name=child.name,
+                                incarnation_id=child.meta.incarnation_id)
+    toks = {n: check_deltas(n, master.gens[n], dec)[0] for n in requests}
+    status, dstats = http_get(child.name, "/stats")
+    kvt = dstats["kv_transfer"]
+    n = len(requests)
+    assert (pre.kv_device_sent, pre.kv_host_sent) == (n, 0) and \
+        (kvt["device_received"], kvt["host_received"]) == (n, 0), \
+        f"handoffs off the device path: {pre.kv_device_sent} device / " \
+        f"{pre.kv_host_sent} host sent, received {kvt}"
+
+    def span_ms(addr, sid, point):
+        status, out = http_get(addr, f"/admin/trace?request_id={sid}")
+        assert status == 200, out
+        return next(s["duration_ms"] for s in out["spans"]
+                    if s["point"] == point
+                    and s["attrs"].get("path") == "device")
+
+    handoff = {sid: span_ms(pre.name, sid, "kv_transfer.offer")
+               + span_ms(child.name, sid, "kv_transfer.pull")
+               for sid in requests}
+    dl = {k: after["launches"][k] - before[k] for k in before}
+    return (toks, handoff, [int(d) for d in gathers],
+            (offered.get(probe), after["digests"].get(probe)), dl, reg_s)
+
+
+def mla_pd_leg(engine_mod, moe, card):
+    """4m (h): a PREFILL agent here and a DECODE agent in a second process
+    (``--mla-decode-agent``), both DeepSeek-V2-Lite at full width cut to
+    MLA_PD_LAYERS layers (layer 0 dense, then MoE), bf16, weights drawn
+    from seed 0 on each side, behind the stub master, the KV over CUDA
+    IPC (one 576-wide latent head a page). Four prompts at once, then two
+    sharing the first's 512 tokens; MOE_NEW tokens each. Checks: every
+    handoff on the device path, kernel 4 once a handoff here and bit for
+    bit equal to the plain gather, kernel 5 once a handoff there, the
+    probe request's installed pages equal to its extracted buffer bit for
+    bit, and the tokens against an in-process MIX engine on the same
+    weights (``held_to``). Returns the launches of kernels 4 and 5."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    mcfg = replace(moe.deepseek_v2_lite_config(), num_layers=MLA_PD_LAYERS)
+    cfg = engine_config_4j(mcfg, num_pages=512, max_seq_len=2048)
+    params = moe.init_params(mcfg, torch.Generator(device="cuda")
+                             .manual_seed(cfg.seed), "cuda")
+    rng = np.random.default_rng(71)
+    V = mcfg.vocab_size
+    prompts = {f"g{i}": rng.integers(3, V, size=int(n)).tolist()
+               for i, n in enumerate([640, 200, 700, 96])}
+    shared = {f"s{j}": prompts["g0"][:512] + rng.integers(3, V, size=int(n))
+              .tolist() for j, n in enumerate([80, 150])}
+    want, _, _ = serve_greedy(engine_mod, cfg, params, prompts, shared)
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    child = DecodeChild(
+        ["--mla-decode-agent", str(MLA_PD_LAYERS), MLA_PD_PROBE],
+        ["--model-config", "tiny", "--model-id", "deepseek-v2-lite",
+         "--num-pages", str(cfg.num_pages), "--page-size",
+         str(cfg.page_size), "--max-batch-size", str(cfg.max_batch_size),
+         "--max-seq-len", str(cfg.max_seq_len), "--decode-horizon",
+         str(cfg.decode_horizon)], coord.addr, "phase4m_decode_agent.log")
+    pre = None
+    try:
+        pre = EngineAgent(cfg, AgentConfig(
+            instance_type=InstanceType.PREFILL, model_id="deepseek-v2-lite",
+            heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
+            params=params, device="cuda")
+        pre.start()
+        greedy = dict(max_tokens=MOE_NEW, temperature=0.0, ignore_eos=True)
+        reqs = {n: dict(token_ids=p, **greedy)
+                for n, p in {**prompts, **shared}.items()}
+        toks, handoff, bad, digests, dl, reg_s = pd_pair_run(
+            pre, child, master, store, reqs, MLA_PD_PROBE, "/v1/completions")
+        n = len(reqs)
+        g4 = page_dma.gather_kv_pages.launches
+        ms = sorted(handoff.values())
+        log(f"  (h) deepseek-v2-lite at {MLA_PD_LAYERS} layers: decode agent "
+            f"registered after {reg_s:.1f} s; {n} handoffs on the CUDA IPC "
+            f"path, handoff ms (device offer + pull spans) p50 "
+            f"{ms[len(ms) // 2]:.3f} max {ms[-1]:.3f} (information only; "
+            f"{card}); kernel 4 here {g4}, kernel 5 there "
+            f"{dl['scatter_kv_pages']}; extracts differing from the plain "
+            f"gather {sum(bad)}; {MLA_PD_PROBE} extracted / installed "
+            f"{digests}")
+        assert len(bad) == n and not any(bad), "kernel 4 at a handoff"
+        assert g4 == n and dl["scatter_kv_pages"] == n, \
+            "not one gather here and one scatter there a handoff"
+        assert digests[0] is not None and digests[0] == digests[1], \
+            "the installed latent pages differ from the extracted buffer"
+        held_to(moe, cfg, params, {**prompts, **shared}, toks, want,
+                f"(h) deepseek-v2-lite PD pair ({MLA_PD_LAYERS} layers) vs "
+                "an in-process MIX engine")
+        return g4, dl["scatter_kv_pages"]
+    except BaseException:
+        log(f"  the decode agent's log, last lines:\n{child.tail()}")
+        raise
+    finally:
+        child.close()
+        if pre is not None:
+            pre.stop()
+        master.close()
+        coord.close()
+        store.close()
+        del pre, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def kvtier_twin(params, card):
+    """4m (j): the ``kvtier_bench`` twin at DeepSeek-V2-Lite (bf16, (c)'s
+    weights): legs 1 (tier-aware TTFT, one round) and 2 (capacity);
+    information only."""
+    from xllm_service_tpu_torch.benchmarks import kvtier_bench
+
+    t = time.monotonic()
+    rec = kvtier_bench.run("cuda", "deepseek_v2_lite", rounds=1,
+                           legs=("ttft", "capacity"), params=params)
+    log("  kvtier_bench " + json.dumps(rec))
+    tt, cap = rec["tier_ttft"], rec["capacity"]
+    log(f"  (j) kvtier_bench twin at deepseek-v2-lite ({tt['block_nbytes']} "
+        f"bytes a block of 64 tokens): TTFT ms hot {tt['hot_hbm_ttft_ms']}, "
+        f"warm DRAM {tt['warm_dram_ttft_ms']}, SSD "
+        f"{tt['warm_ssd_ttft_ms']}, recompute "
+        f"{tt['cold_recompute_ttft_ms']}; onload "
+        f"{tt['onload_ms_per_block']} ms a block; capacity x"
+        f"{cap['capacity_multiplier']} ({cap['tiered_addressable_blocks']} "
+        f"/ {cap['hbm_only_addressable_blocks']} blocks); "
+        f"{time.monotonic() - t:.1f} s (information only; {card})")
+    assert tt["tier_stats"]["onload_total"] >= tt["prefix_blocks"]
+    assert cap["tiered_addressable_blocks"] > cap["hbm_only_addressable_blocks"]
+    return rec
+
+
+def moe_phase(engine_mod, attention, page_dma, kernels, card):
+    """Phase 4m: MoE and MLA at full width, (a) to (j), in the order that
+    keeps one model's weights on the card at a time: (a), (b) and on
+    Mixtral-8x7B's weights (f) and (i); (c) and on DeepSeek-V2-Lite's (e),
+    (g) and (j); then (h) and (d), each drawing its own. Returns the
+    launches of kernels 1, 2, 4, 5 and 6 in its serving legs."""
     from xllm_service_tpu_torch.models import deepseek_moe, mixtral
 
-    paged_attention, mq_paged_attention, fused_decode_attention = kernels
+    paged_attention, mq_paged_attention, fused_decode_attention, partial = \
+        kernels
     moe_layer_check(deepseek_moe, mixtral, card)
-    t = time.monotonic()
-    k1, k2 = mixtral_agent_leg(deepseek_moe,
-                               (paged_attention, mq_paged_attention), card)
-    log(f"  (b) leg: {time.monotonic() - t:.1f} s")
-    t = time.monotonic()
-    deepseek_leg(engine_mod, deepseek_moe, attention, kernels, card)
-    log(f"  (c) leg: {time.monotonic() - t:.1f} s")
+
+    def leg(name, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        log(f"  {name} leg: {time.monotonic() - t:.1f} s")
+        return out
+
+    k1, k2, xcfg, xparams = leg("(b)", mixtral_agent_leg, deepseek_moe,
+                                (paged_attention, mq_paged_attention), card)
+    k6, _, (f1, f2) = leg("(f)", moe_seq_leg, engine_mod, deepseek_moe,
+                          attention, kernels, xcfg, xparams,
+                          "(f) mixtral-8x7b int8", 81, card)
+    i1, i2 = leg("(i)", mixtral_spec_leg, engine_mod, deepseek_moe,
+                 (paged_attention, mq_paged_attention), xcfg, xparams, card)
+    del xparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, dcfg, dparams = leg("(c)", deepseek_leg, engine_mod, deepseek_moe,
+                           attention, kernels[:3], card)
+    leg("(e)", moe_seq_leg, engine_mod, deepseek_moe, attention, kernels,
+        dcfg, dparams, "(e) deepseek-v2-lite bf16", 61, card)
+    log("  (g) deepseek-v2-lite bf16 through the KV tiers:")
+    g4, g5 = leg("(g)", tier_phase, engine_mod, dcfg, dparams, page_dma,
+                 card)
+    leg("(j)", kvtier_twin, dparams, card)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    h4, h5 = leg("(h)", mla_pd_leg, engine_mod, deepseek_moe, card)
     moe_bench_twin(card)
-    return k1, k2
+    return dict(paged=k1 + f1 + i1, mq=k2 + f2 + i2, partial=k6,
+                gather=g4 + h4, scatter=g5 + h5, mla_gather=g4 + h4,
+                mla_scatter=g5 + h5)
 
 
 # --------------------------------------------------------------- phase 4n
@@ -5942,7 +6502,8 @@ def vl_agents_leg(engine_mod, cfg, params, kernels, card):
     stage to the ENCODE agent (``routing.encode_name``). Eight greedy image
     chats (one or two PNG data URIs, two of them differing only in their
     image) and two text chats; checks in the module docstring. Returns
-    the launches of kernels 1 and 2."""
+    the launches of kernels 1 and 2, the image chats and their tokens
+    (equal to the in-process engine's)."""
     from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
@@ -6074,7 +6635,7 @@ def vl_agents_leg(engine_mod, cfg, params, kernels, card):
             "in-process engine's tokens")
         assert len(same) == len(chats), \
             f"agent and engine differ: {sorted(set(chats) - set(same))}"
-        return k1, k2
+        return k1, k2, chats, {n: toks[n] for n in chats}
     finally:
         post.close()
         mix.stop()
@@ -6140,13 +6701,192 @@ def vl_chunked_leg(engine_mod, cfg, params, mm, kernels, card):
     return out[128][1], out[128][2] + out[0][2]
 
 
+VL_PD_PROBE = "i0"   # the image chat whose pages phase 4n (e) holds
+
+
+def vl_streams_recomputed(llama, qwen2_vl, cfg, params, sent, rows, toks,
+                          what):
+    """Qwen2-VL streams against their recomputation: each prompt and its
+    stream but the last token through one prefill (the visual rows
+    spliced in, M-RoPE positions of the whole sequence), whose logits at
+    every position must give each stream token as the argmax or a
+    near-tie (``compare_streams``' rule: one of the two largest values,
+    within TIE_STEPS bf16 steps of the top)."""
+    m = cfg.model
+    i32 = dict(dtype=torch.int32, device="cuda")
+    checked = exact = 0
+    for name, gen in toks.items():
+        prompt = sent[name]
+        whole = prompt + gen[:-1]
+        pos, _ = qwen2_vl.mrope_positions(whole, m.image_token_id)
+        n_pages = -(-len(whole) // cfg.page_size)
+        kv = empty_pool(cfg, n_pages + 1, "cuda")
+        pt = torch.arange(1, n_pages + 1, **i32)[None]
+        mm = rows.get(name)
+        x = qwen2_vl.splice_mm_embeds(
+            params, m, torch.tensor([whole], **i32),
+            None if mm is None else torch.from_numpy(mm).cuda()[None])
+        logits = llama.prefill_from_embeddings(
+            params, m, x, torch.from_numpy(pos).cuda()[None], kv, pt,
+            torch.zeros((1,), **i32), torch.tensor([len(whole)], **i32),
+            has_prefix=False, all_logits=True)[0][0]
+        for j, tok in enumerate(gen):
+            rank, gap, tol = tie_rank(logits[len(prompt) - 1 + j], tok)
+            assert rank <= 2 and gap <= tol, \
+                f"{what}: {name} token {j} ({tok}) is no near-tie: rank " \
+                f"{rank}, {gap:.4g} below the top (tol {tol:.4g})"
+            checked += 1
+            exact += rank == 1
+        del kv, logits
+    log(f"  {what}: {checked} greedy tokens against their recomputation: "
+        f"{exact} the argmax, {checked - exact} near-ties")
+
+
+def vl_seq_leg(engine_mod, llama, qwen2_vl, cfg, params, mm, kernels, card):
+    """4n (d): Qwen2-VL-2B on a seq=4 pool (``seq_mesh4``), then on one
+    device on the same weights: two image prompts ((a)'s visual rows; an
+    image prompt never takes the ring) and a 1101-token text prompt (the
+    ring: its suffix and its M-RoPE rows padded by three), MOE_NEW tokens
+    each. Checks: one ring route, kernel 6 at group 6 (12/2 heads) once a
+    layer and shard every step, kernels 1, 2 and 3 idle, and the tokens
+    against the one-device engine's: equal, or parted where both streams
+    pass their recomputation (``vl_streams_recomputed``). Returns kernel
+    6's launches and the one-device run's launches of kernel 1."""
+    from dataclasses import replace
+
+    paged, mq, fused, partial = kernels
+    m = cfg.model
+    L, img, n_img = m.num_layers, m.image_token_id, m.vision.out_tokens
+    rng = np.random.default_rng(47)
+    text = [int(x) for x in rng.integers(3, 150000, size=1101)]
+    prompts = {"text": text,
+               "i0": text[:40] + [img] * n_img + text[40:100],
+               "i1": text[200:230] + [img] * n_img + text[230:260]
+               + [img] * n_img + text[260:300]}
+    D = m.hidden_size
+    rows = {"i0": mm[0].float().cpu().numpy(),
+            "i1": mm[1:3].reshape(-1, D).float().cpu().numpy()}
+    scfg = replace(cfg, seq_parallel_min_tokens=1024)
+    reset_counts()
+    toks, st, wall = serve_greedy(engine_mod, scfg, params, prompts,
+                                  mesh=seq_mesh4(), mm=rows)
+    k1, k2, k3, k6 = (fn.launches for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    log(f"  (d) qwen2-vl-2b on a seq=4 pool, shards {st['pool']}: "
+        f"{len(toks)} requests of {MOE_NEW} tokens in {wall:.1f} s "
+        f"({sum(map(len, toks.values())) / wall:.1f} generated tok/s, "
+        f"eager; information only, {card}); ring prefills "
+        f"{st['ring_prefills']}, {steps} decode steps; kernels 1/2/3/6 "
+        f"{k1}/{k2}/{k3}/{k6}")
+    assert st["ring_prefills"] == 1, "the ring did not take the text prompt"
+    assert (k1, k2, k3) == (0, 0, 0), "kernel 1, 2 or 3 ran on the seq mesh"
+    assert k6 == 4 * L * steps, \
+        f"kernel 6 launched {k6} times, not {4 * L} a step for {steps}"
+    reset_counts()
+    want, _, _ = serve_greedy(engine_mod, cfg, params, prompts, mm=rows)
+    one = paged.launches
+    parted = [n for n in toks if toks[n] != want[n]]
+    log(f"  (d) seq=4 vs one device: {len(toks) - len(parted)}/{len(toks)} "
+        f"greedy streams equal; parted {parted}")
+    for side, streams in (("seq=4", toks), ("one device", want)):
+        if not parted:
+            break
+        vl_streams_recomputed(llama, qwen2_vl, cfg, params, prompts, rows,
+                              {n: streams[n] for n in parted},
+                              f"(d) the parted streams ({side})")
+    return k6, one
+
+
+def vl_pd_leg(cfg, params, chats, want, card):
+    """4n (e): a PREFILL agent here (encoding its images itself) and a
+    DECODE agent in a second process (the agent's entry point,
+    ``--model-config qwen2_vl_2b``, the same seed), behind the stub
+    master, the KV over CUDA IPC: six of (b)'s image chats, MOE_NEW
+    tokens each. Checks: every handoff on the device path, kernel 4 once
+    a handoff here and bit for bit equal to the plain gather, kernel 5
+    once a handoff there and kernel 1 there, the probe chat's installed
+    pages equal to its extracted buffer bit for bit, and every stream
+    equal to the first MOE_NEW tokens of (b)'s (its in-process engine's).
+    Returns the launches of kernels 1, 4 and 5."""
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    child = DecodeChild(
+        ["--decode-agent", VL_PD_PROBE],
+        ["--model-config", "qwen2_vl_2b", "--model-id", "qwen2-vl-2b",
+         "--num-pages", str(cfg.num_pages), "--page-size",
+         str(cfg.page_size), "--max-batch-size", str(cfg.max_batch_size),
+         "--max-seq-len", str(cfg.max_seq_len), "--decode-horizon",
+         str(cfg.decode_horizon)], coord.addr, "phase4n_decode_agent.log")
+    pre = None
+    try:
+        pre = EngineAgent(cfg, AgentConfig(
+            instance_type=InstanceType.PREFILL, model_id="qwen2-vl-2b",
+            heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
+            params=params, device="cuda")
+        pre.start()
+        names = list(chats)[:6]
+        assert VL_PD_PROBE in names
+        reqs = {n: dict(messages=chats[n], max_tokens=MOE_NEW,
+                        temperature=0.0, ignore_eos=True) for n in names}
+        toks, handoff, bad, digests, dl, reg_s = pd_pair_run(
+            pre, child, master, store, reqs, VL_PD_PROBE,
+            "/v1/chat/completions")
+        n = len(reqs)
+        g4 = page_dma.gather_kv_pages.launches
+        ms = sorted(handoff.values())
+        same = [nm for nm in names if toks[nm] == want[nm][:MOE_NEW]]
+        log(f"  (e) qwen2-vl-2b PD pair: decode agent registered after "
+            f"{reg_s:.1f} s; {n} image chats handed off on the CUDA IPC "
+            f"path, handoff ms (device offer + pull spans) p50 "
+            f"{ms[len(ms) // 2]:.3f} max {ms[-1]:.3f} (information only; "
+            f"{card}); kernel 4 here {g4}, "
+            f"kernel 5 there {dl['scatter_kv_pages']}, kernel 1 there "
+            f"{dl['paged_attention']}; extracts differing from the plain "
+            f"gather {sum(bad)}; {VL_PD_PROBE} extracted / installed "
+            f"{digests}; {len(same)}/{n} streams equal to (b)'s")
+        assert len(bad) == n and not any(bad), "kernel 4 at a handoff"
+        assert g4 == n and dl["scatter_kv_pages"] == n, \
+            "not one gather here and one scatter there a handoff"
+        assert dl["paged_attention"] > 0, "kernel 1 idle on the decode side"
+        assert digests[0] is not None and digests[0] == digests[1], \
+            "the installed pages differ from the extracted buffer"
+        assert len(same) == n, \
+            f"PD streams differ from (b)'s: {sorted(set(names) - set(same))}"
+        return dl["paged_attention"], g4, dl["scatter_kv_pages"]
+    except BaseException:
+        log(f"  the decode agent's log, last lines:\n{child.tail()}")
+        raise
+    finally:
+        child.close()
+        if pre is not None:
+            pre.stop()
+        master.close()
+        coord.close()
+        store.close()
+        del pre
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def vl_phase(engine_mod, kernels, card):
     """Phase 4n: Qwen2-VL-2B at full width and depth on random weights
     (seed 0), bf16, page 16: (a) the encoder, (b) EPD through a MIX and an
-    ENCODE agent, (c) a chunked multimodal prompt. Returns the launches of
-    kernels 1 and 2 in (b) and (c)."""
+    ENCODE agent, (c) a chunked multimodal prompt, (d) a seq=4 pool, (e) a
+    PD pair over CUDA IPC. Returns the launches of kernels 1, 2, 4, 5 and
+    6 in (b) to (e)."""
     from xllm_service_tpu_torch.engine import EngineConfig
-    from xllm_service_tpu_torch.models import qwen2_vl
+    from xllm_service_tpu_torch.models import llama, qwen2_vl
 
     mcfg = qwen2_vl.qwen2_vl_2b_config()
     t = time.monotonic()
@@ -6167,12 +6907,22 @@ def vl_phase(engine_mod, kernels, card):
         mm = vl_encoder_check(qwen2_vl, mcfg, params, card)
         log(f"  (a) {time.monotonic() - t:.1f} s")
         t = time.monotonic()
-        b1, b2 = vl_agents_leg(engine_mod, cfg, params, kernels, card)
+        b1, b2, chats, chat_toks = vl_agents_leg(engine_mod, cfg, params,
+                                                 kernels[:2], card)
         log(f"  (b) {time.monotonic() - t:.1f} s")
         t = time.monotonic()
-        c2, c1 = vl_chunked_leg(engine_mod, cfg, params, mm, kernels, card)
+        c2, c1 = vl_chunked_leg(engine_mod, cfg, params, mm, kernels[:2],
+                                card)
         log(f"  (c) {time.monotonic() - t:.1f} s")
-        return b1 + c1, b2 + c2
+        t = time.monotonic()
+        d6, d1 = vl_seq_leg(engine_mod, llama, qwen2_vl, cfg, params, mm,
+                            kernels, card)
+        log(f"  (d) {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        e1, e4, e5 = vl_pd_leg(cfg, params, chats, chat_toks, card)
+        log(f"  (e) {time.monotonic() - t:.1f} s")
+        return dict(paged=b1 + c1 + d1 + e1, mq=b2 + c2, partial=d6,
+                    gather=e4, scatter=e5)
     finally:
         del params
         gc.collect()
@@ -6246,6 +6996,15 @@ def main() -> int:
                                cp.ShardedPages)
     k6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
                          build_mesh, MeshConfig, _build.kernel_fn)
+    log("[3] kernels 4-5 at DeepSeek-V2-Lite's MLA block, kernel 6 at "
+        "Qwen2-VL-2B's group 6")
+    k4_mla, k5_mla = check_page_movers(
+        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=27, n_kv=1,
+        hd=576, what="deepseek-v2-lite MLA", sweep=False)
+    k6_g6 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
+                            build_mesh, MeshConfig, _build.kernel_fn,
+                            n_q=12, n_kv=2, what="qwen2-vl-2b's 12/2 heads",
+                            extras=False)
     log("[3] head dim 256 (Gemma) and kernel 2's walk shapes")
     t = time.monotonic()
     check_hd256_decode(paged_attention, paged_attention_plain, split_count)
@@ -6428,11 +7187,13 @@ def main() -> int:
 
     # Phase 4n: multimodal and EPD.
     log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
-        "EPD through a MIX and an ENCODE agent, chunked multimodal "
+        "EPD through a MIX and an ENCODE agent, chunked multimodal, a seq=4 "
+        "pool, a PD pair over CUDA IPC "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
-    n_launches = vl_phase(engine_mod, (paged_attention, mq_paged_attention),
-                          card)
+    n_launches = vl_phase(engine_mod, (paged_attention, mq_paged_attention,
+                                       fused_decode_attention,
+                                       cp.paged_partial), card)
     log(f"  phase 4n: {time.monotonic() - t:.1f} s")
 
     # Phase 4m: MoE and MLA. Phase 4's weights go first: Mixtral-8x7B's
@@ -6440,14 +7201,16 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    log("[4m] MoE and MLA at full width and depth: one MoE layer at "
-        "mixtral-8x7b's width; mixtral-8x7b int8 through the agent; "
-        "deepseek-v2-lite bf16; the moe bench twin "
+    log("[4m] MoE and MLA at full width: one MoE layer at mixtral-8x7b's "
+        "width; mixtral-8x7b int8 through the agent, on a seq=4 pool and "
+        "under speculation; deepseek-v2-lite bf16, on a seq=4 pool, "
+        "through the KV tiers, the kvtier_bench twin, a PD pair over CUDA "
+        f"IPC at {MLA_PD_LAYERS} layers; the moe bench twin "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
-    m_launches = moe_phase(engine_mod, attention,
+    m_launches = moe_phase(engine_mod, attention, page_dma,
                            (paged_attention, mq_paged_attention,
-                            fused_decode_attention), card)
+                            fused_decode_attention, cp.paged_partial), card)
     log(f"  phase 4m: {time.monotonic() - t:.1f} s")
 
     # Phase 5: the kernels line, the card line, the result.
@@ -6458,26 +7221,40 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
-             + k_launches[0] + l_launches[0] + m_launches[0]
-             + n_launches[0]),
+             + k_launches[0] + l_launches[0] + m_launches["paged"]
+             + n_launches["paged"]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
-             + k_launches[1] + l_launches[1] + m_launches[1]
-             + n_launches[1]),
+             + k_launches[1] + l_launches[1] + m_launches["mq"]
+             + n_launches["mq"]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
-             tier_launches[0] + i_launches[2]),
+             tier_launches[0] + i_launches[2] + m_launches["gather"]
+             + n_launches["gather"]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
-             tier_launches[1] + i_launches[3]),
+             tier_launches[1] + i_launches[3] + m_launches["scatter"]
+             + n_launches["scatter"]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
-             cp_launches["partial"])):
+             cp_launches["partial"] + m_launches["partial"]
+             + n_launches["partial"]),
+            # The same kernels at this slice's new shapes, counted where
+            # the main path runs them at those shapes.
+            ("gather_kv_pages@mla_block", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:222", k4_mla,
+             m_launches["mla_gather"]),
+            ("scatter_kv_pages@mla_block", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:250", k5_mla,
+             m_launches["mla_scatter"]),
+            ("cp_paged_partial@group6", csrc + "cp_paged_partial.cu",
+             "xllm_service_tpu/ops/cp_paged_attention.py:179", k6_g6,
+             n_launches["partial"])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": n, **res})
     log(f"  total {time.monotonic() - t_start:.1f} s")
@@ -6494,4 +7271,6 @@ if __name__ == "__main__":
         sys.exit(decode_agent_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--checkpoint-agent"]:
         sys.exit(checkpoint_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mla-decode-agent"]:
+        sys.exit(mla_decode_agent_child(sys.argv[2:]))
     sys.exit(main())

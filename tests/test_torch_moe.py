@@ -386,8 +386,29 @@ def test_chunks_never_ride_for_the_moe_families():
 
 
 def test_seq_mesh_is_refused():
-    cfg = deepseek_moe.tiny_moe_config(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE families"):
-        InferenceEngine(EngineConfig(model=cfg, model_family=cfg.name,
-                                     **ENGINE_KW), device="cpu",
-                        mesh=build_mesh(MeshConfig(seq=2), ["cpu"] * 2))
+    """A seq mesh is not refused for the MoE families: the engine builds a
+    ``ShardedPages`` pool of the family's width (GQA heads, MLA's one
+    latent head) split by page range over the axis, as the reference
+    serves them on one (test_torch_moe_seq_parallel.py holds the tokens
+    and pools to it)."""
+    from xllm_service_tpu_torch.models import mixtral
+    from xllm_service_tpu_torch.ops.cp_paged_attention import ShardedPages
+
+    for cfg in (deepseek_moe.tiny_moe_config(dtype=torch.float32),
+                deepseek_moe.tiny_mla_config(dtype=torch.float32),
+                mixtral.mixtral_tiny_config(dtype=torch.float32)):
+        eng = InferenceEngine(EngineConfig(model=cfg, model_family=cfg.name,
+                                           **ENGINE_KW), device="cpu",
+                              mesh=build_mesh(MeshConfig(seq=2),
+                                              ["cpu"] * 2))
+        try:
+            assert eng.seq_parallel == 2
+            assert isinstance(eng.kv_pages, ShardedPages)
+            P = ENGINE_KW["num_pages"]
+            want = (cfg.num_layers, 2, P // 2, cfg.num_kv_heads,
+                    ENGINE_KW["page_size"], cfg.head_dim)
+            assert [tuple(s.shape) for s in eng.kv_pages.shards] == \
+                [want, want], cfg
+            assert tuple(eng.kv_pages.shape) == (*want[:2], P, *want[3:])
+        finally:
+            eng.stop()

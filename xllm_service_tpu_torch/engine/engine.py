@@ -119,8 +119,11 @@ draw random weights in their int8 form directly, one layer of one leaf at
 a time, so Mixtral-8x7B's bf16 tree never exists whole. The MoE families
 have no mixed step, so their chunks never ride a decode step. A config
 with Gemma-2's score softcap or sliding window refuses a seq mesh, as the
-reference does; so do the MoE families, whose context-parallel path is
-not ported.
+reference does. Every other family serves on one: a long prefix-free
+install takes the ring in the MoE families' GQA (mixtral) and MLA layers
+alike, MLA's decode reads the row's pages gathered from their shards
+(``paged_attention_xla``), and a qwen2_vl text prompt takes the ring with
+its M-RoPE rows zero-padded to the ring's length.
 
 - **Multimodal** (the ``qwen2_vl`` family): a request's ``mm_embeds``
   (the encoder's visual tokens, ``[n, D]``) are spliced into its
@@ -136,8 +139,8 @@ not ported.
   ids do not see the image), never rides a decode step and never takes
   the ring. A PD decode side recomputes the delta from the prompt's ids.
 
-Not in this port yet: mesh axes other than ``seq``, the captured step
-under a seq mesh, and the qwen2_vl family under a seq mesh.
+Not in this port yet: mesh axes other than ``seq``, and the captured
+step under a seq mesh.
 """
 
 from __future__ import annotations
@@ -298,16 +301,8 @@ class InferenceEngine:
                 "seq-axis parallelism is not supported for models with "
                 "attn_logit_softcap/sliding_window (gemma-2); use a mesh "
                 "without a seq axis")
-        if self.seq_parallel > 1 and cfg.model.num_experts > 0:
-            raise NotImplementedError(
-                "seq-axis parallelism is not ported for the MoE families "
-                "(deepseek_moe, mixtral)")
         # The qwen2_vl family: M-RoPE prefill positions and a decode delta.
         self._is_vl = cfg.model_family == "qwen2_vl"
-        if self.seq_parallel > 1 and self._is_vl:
-            raise NotImplementedError(
-                "seq-axis parallelism is not ported for the qwen2_vl family "
-                "(ROADMAP queue 1 item 16)")
         self.ring_prefills = 0          # prefills that took the ring route
         self.tokenizer = tokenizer or SimpleTokenizer()
         self.eos_token_id = eos_token_id if eos_token_id is not None else \
@@ -1492,15 +1487,18 @@ class InferenceEngine:
         tid = self.cfg.model.image_token_id
         return sum(1 for t in tokens if t == tid)
 
-    def _mrope_chunk(self, prompt: list[int], start: int, end: int
-                     ) -> tuple[np.ndarray, int]:
-        """The M-RoPE position rows [end - start, 3] of prompt[start:end]
-        and the prompt's decode delta (``models/qwen2_vl.py::
+    def _mrope_chunk(self, prompt: list[int], start: int, end: int,
+                     S: int = 0) -> tuple[np.ndarray, int]:
+        """The M-RoPE position rows of prompt[start:end], zero-padded to
+        ``S`` rows when ``S`` is larger (the ring's end padding, masked by
+        ``seq_lens``), and the prompt's decode delta (``models/qwen2_vl.py::
         mrope_positions``)."""
         from ..models.qwen2_vl import mrope_positions
 
         pos, delta = mrope_positions(prompt, self.cfg.model.image_token_id)
-        return pos[start:end], delta
+        out = np.zeros((max(S, end - start), 3), np.int32)
+        out[:end - start] = pos[start:end]
+        return out, delta
 
     def _mm_chunk_array(self, req: EngineRequest, prompt: list[int],
                         start: int, end: int) -> torch.Tensor:
@@ -1656,9 +1654,10 @@ class InferenceEngine:
             self.ring_prefills += 1
         vl = None
         if self._is_vl:
-            # [pos3 (3S) | delta]: M-RoPE's rows depend on the image grids,
-            # which only the host sees.
-            pos3, delta = self._mrope_chunk(prompt, matched, len(prompt))
+            # [pos3 (3 a row, padded as the suffix) | delta]: M-RoPE's
+            # rows depend on the image grids, which only the host sees.
+            pos3, delta = self._mrope_chunk(prompt, matched, len(prompt),
+                                            len(suffix))
             vl = np.concatenate([pos3.reshape(-1),
                                  np.asarray([delta], np.int32)])
         pt_row, toks, stop_ids, b_ids, b_vals, counts, vl_t = \
@@ -1666,7 +1665,7 @@ class InferenceEngine:
         i32 = torch.int32
         kw: dict[str, Any] = dict(has_prefix=matched > 0, ring=ring)
         if vl_t is not None:
-            positions = vl_t[:-1].reshape(1, S, 3)
+            positions = vl_t[:-1].reshape(1, len(suffix), 3)
             kw["mm_embeds"] = self._mm_chunk_array(seq.req, prompt, matched,
                                                    len(prompt))
         else:

@@ -18,10 +18,14 @@ after attention. Its decode calls ``ops/attention.py::paged_attention_xla``
 and its prefill behind a cached prefix takes the dense route (an explicit
 scale), as the reference's does: no TPU kernel computes MLA attention.
 Without MLA (mixtral) attention is llama's GQA with RoPE on the port's
-kernels. The first ``first_dense_layers`` layers run a dense MLP (the
-``dense_mlp`` subtree, stacked over those layers only); the ``moe``
-subtree stacks the rest, so HF checkpoints map position for position
-(``models/loader.py``).
+kernels. On a pool sharded over a seq mesh (``ShardedPages``) both take
+the ring for a long prefix-free install (MLA at its explicit scale over
+the one latent head), GQA decodes through kernel 6 per shard on tables
+compacted once a step, and MLA's decode route gathers the row's pages
+from their shards. The first ``first_dense_layers`` layers run a dense
+MLP (the ``dense_mlp`` subtree, stacked over those layers only); the
+``moe`` subtree stacks the rest, so HF checkpoints map position for
+position (``models/loader.py``).
 
 Parameters are a plain dict in the reference's layout, so
 ``models/weights.py`` carries a reference tree over unchanged. Under
@@ -51,6 +55,7 @@ from ..ops.attention import (
     write_decode_kv,
     write_prefill_kv,
 )
+from ..ops.cp_paged_attention import ShardedPages, cp_tables
 from .base import ModelConfig, ModelFamily, register_model_family
 from .llama import _embed, _project_qkv, _rope, _unembed
 from .quant import (
@@ -264,7 +269,8 @@ def _dense_mlp(mp: Params, x: torch.Tensor) -> torch.Tensor:
 def _mla_attention(lp: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
                    k_pages, v_pages, page_table, prefix_lens, seq_lens,
                    cos_sin, context_lens, positions,
-                   has_prefix: Optional[bool]) -> torch.Tensor:
+                   has_prefix: Optional[bool], ring: bool = False
+                   ) -> torch.Tensor:
     """MLA (DeepSeek-V2). ``mode``: "prefill", "decode" or "dense" (the
     embeddings path: no pool, nothing written). The latent ``[c ‖
     k_rope]`` is written as both K and V of the one-head pool; the nope
@@ -272,7 +278,9 @@ def _mla_attention(lp: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
     ``1 / sqrt(dn + dr)`` (the uncompressed per-head key width), and the V
     up-projection runs on the latent part of the attention's output.
     ``cos_sin`` is rope's of the forward's positions at ``dr`` dims.
-    Returns the attention output flattened [..., H * dv]."""
+    ``ring``: the prefill's self-attention over the sharded pool's seq
+    axis (the latent is K and V alike, at its explicit scale). Returns the
+    attention output flattened [..., H * dv]."""
     H, dn = cfg.num_heads, cfg.qk_nope_head_dim
     dc = cfg.kv_lora_rank
 
@@ -298,7 +306,8 @@ def _mla_attention(lp: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
                          prefix_lens, seq_lens)
         attn = prefill_attention(q_lat, entry, entry, k_pages, v_pages,
                                  page_table, prefix_lens, seq_lens,
-                                 scale=scale, has_prefix=has_prefix)
+                                 scale=scale, has_prefix=has_prefix,
+                                 ring=ring)
     else:
         write_decode_kv(k_pages, v_pages, entry, entry, page_table,
                         positions)
@@ -312,14 +321,19 @@ def _mla_attention(lp: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
 def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 kv_pages: Optional[torch.Tensor], mode: str,
                 page_table, prefix_lens, seq_lens, positions: torch.Tensor,
-                context_lens, has_prefix: Optional[bool] = None
-                ) -> torch.Tensor:
+                context_lens, has_prefix: Optional[bool] = None,
+                ring: bool = False) -> torch.Tensor:
     """The layer loop, each layer's K/V written into ``kv_pages`` in place
     (None: the embeddings path, no pool, ``prefix_lens`` zeros). ``mode``
-    is "prefill" or "decode"."""
+    is "prefill" or "decode"; ``ring`` takes the prefill's attention over
+    the sharded pool's seq axis. A GQA decode step over a sharded pool
+    compacts its tables once for every layer (``cp_tables``)."""
     use_mla = cfg.kv_lora_rank > 0
     Ld = cfg.first_dense_layers
     dense = kv_pages is None
+    tables = (cp_tables(page_table, context_lens, kv_pages)
+              if mode == "decode" and not use_mla
+              and isinstance(kv_pages, ShardedPages) else None)
     if use_mla:
         cos_sin = rope_cos_sin(positions, cfg.qk_rope_head_dim,
                                cfg.rope_theta)
@@ -334,7 +348,7 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
             attn = _mla_attention(lp, cfg, h, "dense" if dense else mode,
                                   k_pages, v_pages, page_table, prefix_lens,
                                   seq_lens, cos_sin, context_lens, positions,
-                                  has_prefix)
+                                  has_prefix, ring)
         else:
             q, k, v = _project_qkv(lp, h, cfg, cos_sin)
             if dense:
@@ -345,10 +359,11 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                  prefix_lens, seq_lens)
                 attn = prefill_attention(q, k, v, k_pages, v_pages,
                                          page_table, prefix_lens, seq_lens,
-                                         has_prefix=has_prefix)
+                                         has_prefix=has_prefix, ring=ring)
             else:
                 attn, _, _ = decode_attention_step(q, k, v, k_pages, v_pages,
-                                                   page_table, context_lens)
+                                                   page_table, context_lens,
+                                                   cp_tables=tables)
             attn = attn.reshape(*attn.shape[:-2], cfg.q_size)
         x = x + quantized_matmul(attn, lp["o_proj"]["kernel"])
         h2 = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_eps)
@@ -371,13 +386,11 @@ def prefill_forward(params: Params, cfg: ModelConfig,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (last-valid-token logits [B, V] f32, kv_pages); the suffix's
     K/V (MLA: its latents) are written into ``kv_pages`` in place.
-    ``has_prefix`` as in ``models/llama.py::prefill_forward``; ``ring`` is
-    not taken (the engine refuses a seq mesh for these families)."""
-    if ring:
-        raise NotImplementedError("the MoE families take no ring prefill")
+    ``has_prefix`` and ``ring`` as in ``models/llama.py::prefill_forward``
+    (MLA's ring runs over the one latent head at MLA's scale)."""
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), kv_pages,
                     "prefill", page_table, prefix_lens, seq_lens, positions,
-                    None, has_prefix)
+                    None, has_prefix, ring)
     idx = torch.clamp(seq_lens.long() - 1, min=0)
     last = x[torch.arange(x.shape[0], device=x.device), idx]
     return _unembed(params, cfg, last), kv_pages
@@ -392,8 +405,9 @@ def decode_forward(params: Params, cfg: ModelConfig,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step. Returns (logits [B, V] f32, kv_pages), the new
     tokens' K/V written in place: GQA through ``decode_attention_step``
-    (kernel 1 on the card, kernel 3 under ``XLLM_KV_WRITEBACK=fused``),
-    MLA through ``paged_attention_xla``."""
+    (kernel 1 on the card, kernel 3 under ``XLLM_KV_WRITEBACK=fused``;
+    kernel 6 per shard over a sharded pool), MLA through
+    ``paged_attention_xla``."""
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), kv_pages,
                     "decode", page_table, None, None, positions,
                     context_lens)

@@ -35,8 +35,9 @@ reference's pool under a seq mesh) changes three things, as in the
 reference: each K/V write lands on the shard that owns its page; a decode
 step is the write, then the context-parallel op (kernel 6 per shard and
 the merge), whatever ``XLLM_KV_WRITEBACK`` says; and a prefill against a
-cached prefix reads the row's pages gathered from their shards. A long
-prefix-free prefill may take the ring (``ring=True``).
+cached prefix, or MLA's decode (``paged_attention_xla``), reads the row's
+pages gathered from their shards. A long prefix-free prefill may take the
+ring (``ring=True``), GQA or MLA's latent alike.
 """
 
 from __future__ import annotations
@@ -478,8 +479,16 @@ def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
     on device data, so this gathers the whole table: a row's
     ``max_pages * page_size`` slots every layer, whatever its context.
     Each call adds one to ``paged_attention_xla.launches``, so a serving
-    run can say how many decode layers took it."""
+    run can say how many decode layers took it.
+
+    A pool sharded over the seq axis (``ShardedPages``: MLA under a seq
+    mesh, where the reference runs this body over its GSPMD-sharded pool)
+    has the row's pages gathered from their shards first
+    (``gather_sharded_table``); the body is the same."""
     _build.count_launch(paged_attention_xla)
+    if isinstance(k_pages, ShardedPages):
+        k_pages, v_pages, page_table = gather_sharded_table(
+            k_pages, v_pages, page_table)
     return paged_attention_plain(q, k_pages, v_pages, page_table,
                                  context_lens, scale=scale)
 
