@@ -298,6 +298,28 @@ Phases (any failure exits non-zero before the result line):
    agent's entry point, ``--model-config qwen2_vl_2b``), six of (b)'s
    image chats over CUDA IPC, checked as 4m (h) and every stream equal to
    (b)'s;
+4o. the tensor, expert and data axes in one process, on meshes of this
+   card repeated (phase 4c's way), eager, at most six requests of TP_NEW
+   tokens a leg, each stream held to another route by ``held_to``'s rule:
+   (a) Llama-3-8B bf16 on ``model=4`` (phase 4's weights as views, 8/2
+   heads a shard): kernel 1 at 128 launches a step, kernel 2 on the prefix
+   hits, the tokens against phase 4's, one decode step's logits and the
+   joined pool against the one-device route (PREFILL_REL_TOL); (b) phase
+   4a's tier round trip on that pool, kernels 4 and 5 once a shard on
+   blocks of [32, 2, 8, 2, 16, 128]; (f) a ``model=2`` PREFILL agent here
+   and a ``model=2`` DECODE agent in a second process
+   (``--tp-decode-agent``), every handoff over CUDA IPC one handle a
+   shard (kernel 4 twice a handoff here, kernel 5 twice there), then the
+   same PREFILL agent and an unmeshed DECODE agent here on the host path,
+   both against an in-process MIX engine on ``model=2``; inside 4m, (d)
+   Mixtral-8x7B int8 and (e) DeepSeek-V2-Lite on ``expert=2 x model=2``
+   against 4m's one-device streams (kernel 1 at 64 a step; MLA's route at
+   27 a step a model shard over its replicated latent pool); after 4m,
+   (c) Llama-3-70B int8 at full width and all 80 layers on ``model=8``,
+   drawn straight into int8 (kernel 1 at 640 a step, every token against
+   its recomputation; build seconds, ``max_memory_allocated`` and tok/s
+   are information) and (g) ``parallel/dryrun.py`` at the north-star
+   sizes;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -1703,7 +1725,7 @@ def wait_for(pred, what, timeout=120.0):
         time.sleep(0.01)
 
 
-def tier_phase(engine_mod, cfg, params, page_dma, card):
+def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
     """Prompt A (1024 tokens = 8 hash blocks) served from HBM, evicted into
     the tiers by two unrelated prompts, served again from the tiers.
 
@@ -1719,7 +1741,8 @@ def tier_phase(engine_mod, cfg, params, page_dma, card):
     One tier worker: installs land in eviction order, and an install that
     the walk's own eviction starts cannot demote the next block before the
     walk fetches it (with two workers, two installs could race one
-    fetch)."""
+    fetch). With ``mesh`` the engine's pool is sharded on it (4o (b)).
+    """
     from dataclasses import replace
 
     from xllm_service_tpu_torch.common.hashing import prefix_block_hashes
@@ -1734,7 +1757,7 @@ def tier_phase(engine_mod, cfg, params, page_dma, card):
     # 129 usable pages: A's 65 (1024 + 16 tokens) and U1's 64 cached pages.
     tcfg = replace(cfg, num_pages=130, kv_tier_dram_bytes=4 * blk,
                    kv_tier_ssd_bytes=16 * blk, kv_tier_threads=1)
-    eng = engine_mod.InferenceEngine(tcfg, params=params)
+    eng = engine_mod.InferenceEngine(tcfg, params=params, mesh=mesh)
     store = eng.tier_store
     assert store is not None and store.block_nbytes == blk
     log(f"  block {blk / (1 << 20):.0f} MiB; DRAM arena 4 blocks, SSD file "
@@ -2948,12 +2971,17 @@ def mixed_rows_check(llama, cfg, params):
     torch.cuda.empty_cache()
 
 
-def empty_pool(cfg, n_pages, device):
-    """A zeroed KV pool of ``n_pages`` pages for ``cfg``'s model."""
+def empty_pool(cfg, n_pages, device, mesh=None):
+    """A zeroed KV pool of ``n_pages`` pages for ``cfg``'s model (its
+    shards over the model axis of ``mesh``, when that axis is over 1)."""
+    from xllm_service_tpu_torch.parallel.sharding import ModelShardedPages
+
     m = cfg.model
-    return torch.zeros((m.num_layers, 2, n_pages, m.num_kv_heads,
-                        cfg.page_size, m.head_dim), dtype=m.dtype,
-                       device=device)
+    shape = (m.num_layers, 2, n_pages, m.num_kv_heads, cfg.page_size,
+             m.head_dim)
+    if mesh is not None and mesh.shape["model"] > 1:
+        return ModelShardedPages.zeros(shape, m.dtype, mesh)
+    return torch.zeros(shape, dtype=m.dtype, device=device)
 
 
 def next_token_logits(llama, cfg, params, context):
@@ -4249,20 +4277,19 @@ def decode_step_vs_plain(llama, attention, cfg, params, context,
 def router_logits(moe):
     """The f32 router logits [T, E] of every MoE layer the forwards of
     module ``moe`` (models/deepseek_moe.py) run inside the block, in
-    call order."""
-    real = moe._moe_mlp
+    call order (its gate map's, on one device or over expert shards)."""
+    real = moe._gate_map
     rec = []
 
-    def logged(mp, x, cfg):
-        rec.append(x.reshape(-1, x.shape[-1]).float()
-                   @ mp["router"]["kernel"].float())
-        return real(mp, x, cfg)
+    def logged(router, x2, cfg):
+        rec.append(x2.float() @ router.float())
+        return real(router, x2, cfg)
 
-    moe._moe_mlp = logged
+    moe._gate_map = logged
     try:
         yield rec
     finally:
-        moe._moe_mlp = real
+        moe._gate_map = real
 
 
 def check_streams_recomputed(llama, cfg, params, sent, toks, what,
@@ -4289,7 +4316,9 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what,
     a fault of the serving path (a wrong page, position or gate) moves
     most tokens, not a few. With random weights over 26-32 MoE layers most
     positions have such a layer (the count is logged), so the share is
-    what holds the run. Returns (tokens checked, argmax tokens)."""
+    what holds the run. ``params`` may be sharded over a mesh (phase 4o):
+    the recomputation then runs on its shards. Returns (tokens checked,
+    argmax tokens)."""
     m = cfg.model
     i32 = dict(dtype=torch.int32, device="cuda")
     checked = exact = routed = excusable = 0
@@ -4300,7 +4329,8 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what,
         prompt = sent[name]
         n = len(prompt)
         n_pages = -(-(n + len(gen)) // cfg.page_size)
-        kv = empty_pool(cfg, n_pages + 1, "cuda")
+        mesh = getattr(params, "mesh", None)
+        kv = empty_pool(cfg, n_pages + 1, "cuda", mesh)
         pt = torch.arange(1, n_pages + 1, **i32)[None]
         llama.prefill_forward(params, m, torch.tensor([prompt[:-1]], **i32),
                               torch.arange(n - 1, **i32)[None], kv, pt,
@@ -4320,7 +4350,7 @@ def check_streams_recomputed(llama, cfg, params, sent, toks, what,
             top = r1.topk(k + 1, dim=-1).values
             margin = top[..., k - 1] - top[..., k]                # [L, S]
             whole = prompt + gen[:-1]
-            kv2 = empty_pool(cfg, n_pages + 1, "cuda")
+            kv2 = empty_pool(cfg, n_pages + 1, "cuda", mesh)
             with router_logits(moe) as rec2:
                 llama.prefill_forward(
                     params, m, torch.tensor([whole], **i32),
@@ -6013,26 +6043,32 @@ def serve_greedy(engine_mod, cfg, params, prompts, shared=None, mesh=None,
     return toks, stats, wall
 
 
-def held_to(moe, cfg, params, sent, got, want, what):
+def held_to(moe, cfg, params, sent, got, want, what, routed=True,
+            served_params=None):
     """MoE streams ``got`` against ``want``, served by another route on the
     same weights (PERF.md's rule): equal streams are counted; a stream
     that parts, and the one it parts from, must each pass
     ``check_streams_recomputed`` (every token its recomputation's argmax,
     a logit near-tie or a counted routing near-tie), so every parting is
-    a reported near-tie. Returns the count of streams that parted."""
+    a reported near-tie. ``routed=False`` (a dense family, ``moe`` its
+    module) admits no routing near-tie. ``served_params`` (the served
+    route's sharded tree, phase 4o) recomputes the served streams on that
+    route, the other side's on ``params``. Returns the count of streams
+    that parted."""
     parted = [n for n in got if got[n] != want[n]]
     for n in parted:
         j = next(i for i, (a, b) in enumerate(zip(got[n], want[n]))
                  if a != b)
         log(f"  {what}: {n} parts at token {j} ({got[n][j]} against "
             f"{want[n][j]})")
-    for side, streams in (("served", got), ("other route", want)):
+    for side, streams, p in (("served", got, served_params or params),
+                             ("other route", want, params)):
         if not parted:
             break
-        check_streams_recomputed(moe, cfg, params, sent,
+        check_streams_recomputed(moe, cfg, p, sent,
                                  {n: streams[n] for n in parted},
                                  f"{what}, the parted streams ({side})",
-                                 moe=moe)
+                                 moe=moe if routed else None)
     log(f"  {what}: {len(got) - len(parted)}/{len(got)} greedy streams "
         f"equal to the other route's; every parting a near-tie")
     return len(parted)
@@ -6062,7 +6098,9 @@ def moe_seq_leg(engine_mod, moe, attention, kernels, cfg, params, tag,
     2, 3 and 6 idle; GQA: kernel 6 once a layer and shard, kernel 2 on the
     prefix hit, kernels 1 and 3 idle), and the tokens against the
     one-device engine's (``held_to``). Returns (kernel 6's launches, the
-    MLA route's calls, the launches of kernels 1 and 2 on one device)."""
+    MLA route's calls, the launches of kernels 1 and 2 on one device, and
+    the requests with the one-device streams, which 4o (d) and (e) are
+    held to)."""
     from dataclasses import replace
 
     paged, mq, fused, partial = kernels
@@ -6107,7 +6145,7 @@ def moe_seq_leg(engine_mod, moe, attention, kernels, cfg, params, tag,
     one = (paged.launches, mq.launches)
     assert st1["ring_prefills"] == 0 and st1["prefix_hits"] >= 1
     held_to(moe, cfg, params, sent, toks, want, f"{tag}, seq=4 vs one device")
-    return k6, xla, one
+    return k6, xla, one, ((prompts, shared), want)
 
 
 def mixtral_spec_leg(engine_mod, moe, kernels, cfg, params, card):
@@ -6196,15 +6234,19 @@ def pd_pair_run(pre, child, master, store, requests, probe, body):
 
     from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
     from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.parallel.sharding import ShardedBlock
 
     reg_s = child.link(store, pre)
     offered = {}
     offer = pre.kv_transfer.offer
 
+    def joined(blob):
+        return blob.join() if isinstance(blob, ShardedBlock) else blob
+
     def probed_offer(sid, blob, incarnation="", ready=None, ctx=None):
         desc = offer(sid, blob, incarnation, ready=ready, ctx=ctx)
         if sid == probe:
-            offered[sid] = hashlib.blake2b(tensor_bytes(blob),
+            offered[sid] = hashlib.blake2b(tensor_bytes(joined(blob)),
                                            digest_size=16).hexdigest()
         return desc
 
@@ -6214,9 +6256,10 @@ def pd_pair_run(pre, child, master, store, requests, probe, body):
 
     def probed_extract(pages):
         got = extract(pages)
+        full = joined(got)
         want = page_dma.gather_kv_pages_plain(pre.engine.kv_pages, pages)
-        bits = torch.int16 if got.element_size() == 2 else torch.int32
-        gathers.append((got.view(bits) != want.view(bits)).sum())
+        bits = torch.int16 if full.element_size() == 2 else torch.int32
+        gathers.append((full.view(bits) != want.view(bits)).sum())
         return got
 
     pre.engine.extract_kv_pages_device = probed_extract
@@ -6384,9 +6427,10 @@ def kvtier_twin(params, card):
 def moe_phase(engine_mod, attention, page_dma, kernels, card):
     """Phase 4m: MoE and MLA at full width, (a) to (j), in the order that
     keeps one model's weights on the card at a time: (a), (b) and on
-    Mixtral-8x7B's weights (f) and (i); (c) and on DeepSeek-V2-Lite's (e),
-    (g) and (j); then (h) and (d), each drawing its own. Returns the
-    launches of kernels 1, 2, 4, 5 and 6 in its serving legs."""
+    Mixtral-8x7B's weights (f), 4o (d) and (i); (c) and on
+    DeepSeek-V2-Lite's (e), 4o (e), (g) and (j); then (h) and (d), each
+    drawing its own. Returns the launches of kernels 1, 2, 4, 5 and 6 in
+    its serving legs (4o (d)'s apart)."""
     from xllm_service_tpu_torch.models import deepseek_moe, mixtral
 
     paged_attention, mq_paged_attention, fused_decode_attention, partial = \
@@ -6401,9 +6445,13 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
 
     k1, k2, xcfg, xparams = leg("(b)", mixtral_agent_leg, deepseek_moe,
                                 (paged_attention, mq_paged_attention), card)
-    k6, _, (f1, f2) = leg("(f)", moe_seq_leg, engine_mod, deepseek_moe,
-                          attention, kernels, xcfg, xparams,
-                          "(f) mixtral-8x7b int8", 81, card)
+    k6, _, (f1, f2), x_one = leg("(f)", moe_seq_leg, engine_mod,
+                                 deepseek_moe, attention, kernels, xcfg,
+                                 xparams, "(f) mixtral-8x7b int8", 81, card)
+    log("[4o] (d) mixtral-8x7b int8 on expert=2 x model=2, (b)'s weights:")
+    d1, d2 = leg("4o (d)", ep_leg, engine_mod, deepseek_moe, attention,
+                 kernels, xcfg, xparams, "4o (d) mixtral-8x7b int8", x_one,
+                 card)
     i1, i2 = leg("(i)", mixtral_spec_leg, engine_mod, deepseek_moe,
                  (paged_attention, mq_paged_attention), xcfg, xparams, card)
     del xparams
@@ -6411,8 +6459,13 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
     torch.cuda.empty_cache()
     _, dcfg, dparams = leg("(c)", deepseek_leg, engine_mod, deepseek_moe,
                            attention, kernels[:3], card)
-    leg("(e)", moe_seq_leg, engine_mod, deepseek_moe, attention, kernels,
-        dcfg, dparams, "(e) deepseek-v2-lite bf16", 61, card)
+    *_, d_one = leg("(e)", moe_seq_leg, engine_mod, deepseek_moe,
+                    attention, kernels, dcfg, dparams,
+                    "(e) deepseek-v2-lite bf16", 61, card)
+    log("[4o] (e) deepseek-v2-lite bf16 on expert=2 x model=2, (c)'s "
+        "weights:")
+    leg("4o (e)", ep_leg, engine_mod, deepseek_moe, attention, kernels,
+        dcfg, dparams, "4o (e) deepseek-v2-lite bf16", d_one, card)
     log("  (g) deepseek-v2-lite bf16 through the KV tiers:")
     g4, g5 = leg("(g)", tier_phase, engine_mod, dcfg, dparams, page_dma,
                  card)
@@ -6424,7 +6477,477 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
     moe_bench_twin(card)
     return dict(paged=k1 + f1 + i1, mq=k2 + f2 + i2, partial=k6,
                 gather=g4 + h4, scatter=g5 + h5, mla_gather=g4 + h4,
-                mla_scatter=g5 + h5)
+                mla_scatter=g5 + h5, ep_paged=d1, ep_mq=d2)
+
+
+# --------------------------------------------------------------- phase 4o
+# The tensor, expert and data axes in one process, on meshes of the cards
+# round robin (the one card repeated, phase 4c's way). The legs are eager
+# and carry at most six requests of TP_NEW tokens.
+TP_NEW = 16
+# Llama-3-70B int8's pool: 512 pages of 16 tokens at 327,680 bytes a token
+# (80 layers x K and V x 8 heads x 128 x bf16), 2.68 GB.
+TP70_PAGES = 512
+TP_PROBE = "s0"      # the request whose pages leg (f) holds bit for bit
+
+
+def card_mesh(**axes):
+    """A mesh of ``axes`` over the cards round robin (``cuda:0`` repeated
+    on one card)."""
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    cfg = MeshConfig(**axes)
+    count = torch.cuda.device_count()
+    return build_mesh(cfg, [torch.device("cuda", i % count)
+                            for i in range(cfg.num_devices())])
+
+
+def tp_traffic(prompts, shared):
+    """Phase 4's requests cut to six: its first four prompts (by their
+    names there) and its two prefix hits. Returns (prompts, shared)."""
+    return ({f"g{i}": prompts[i] for i in range(4)},
+            {f"s{j}": p for j, p in enumerate(shared)})
+
+
+def check_mq_groups(mq_paged_attention, mq_paged_attention_plain, mq_route,
+                    groups=((8, 2), (8, 1))):
+    """Kernel 2 at a model shard's groups: Llama-3-8B at ``model=4`` (8/2
+    heads, a group of 4) and Llama-3-70B at ``model=8`` (8/1, a group of
+    8), head dim 128, on the tensor-core route: against the plain version
+    (f32 at Sq 17 behind 384, bf16 at Sq 512 behind 512), then timed at Sq
+    512 behind 512 beside one masked SDPA call and the bound. Returns a
+    row per group."""
+    out = {}
+    hd = HD
+    for n_q, n_kv in groups:
+        assert mq_route(torch.bfloat16, hd, PS, n_q // n_kv) == "mma", \
+            f"group {n_q // n_kv} is not on the tensor-core route"
+        k, v, pt = paged_inputs(torch.float32, [384 + 17, 384 + 14],
+                                seed=36, n_kv=n_kv, hd=hd)
+        q = torch.randn((2, 17, n_q, hd), device="cuda")
+        pre = torch.full((2,), 384, dtype=torch.int32, device="cuda")
+        blk = torch.tensor([17, 14], dtype=torch.int32, device="cuda")
+        e32 = (mq_paged_attention(q, k, v, pt, pre, blk)
+               - mq_paged_attention_plain(q, k, v, pt, pre, blk)).abs().max(
+               ).item()
+        assert e32 <= TOL[torch.float32], "mq at a shard's group (f32)"
+        s_q = prefix = 512
+        T = prefix + s_q
+        k, v, pt = paged_inputs(torch.bfloat16, [T], seed=37, n_kv=n_kv,
+                                hd=hd)
+        q = torch.randn((1, s_q, n_q, hd), device="cuda").to(torch.bfloat16)
+        pre = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+        blk = torch.tensor([s_q], dtype=torch.int32, device="cuda")
+        got = mq_paged_attention(q, k, v, pt, pre, blk)
+        want = mq_paged_attention_plain(q, k, v, pt, pre, blk)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        assert e <= TOL[torch.bfloat16], "mq at a shard's group (bf16)"
+        kd, vd = gathered(k, pt, T).contiguous(), gathered(v, pt, T
+                                                           ).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= prefix + torch.arange(s_q, device="cuda")[:, None])
+        ms = time_ms(lambda: mq_paged_attention(q, k, v, pt, pre, blk))
+        plain_ms = time_ms(
+            lambda: mq_paged_attention_plain(q, k, v, pt, pre, blk))
+        lib = time_ms(lambda: sdpa(qd, kd, vd, mask))
+        nbytes = (2 * q.numel() * 2 + T * n_kv * hd * 2 * 2 + (T // PS) * 4
+                  + 8)
+        ops = 4 * n_q * hd * (s_q * prefix + s_q * (s_q + 1) // 2)
+        bound, by = bound_of(nbytes, ops)
+        out[(n_q, n_kv)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                bound_ms=bound, bound_by=by, max_abs_err=e)
+        log(f"  mq_paged_attention mma bf16 {n_q}/{n_kv} heads (group "
+            f"{n_q // n_kv}) Sq 512 behind 512: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound "
+            f"{bound:.4f} ms ({by}), {ms / bound:.1f}x the bound; "
+            f"max_abs_err={e:.3g} (f32 at Sq 17 behind 384: {e32:.3g})")
+    return out
+
+
+def check_tp_logits(llama, cfg, params, prompt, mesh, sharded):
+    """One prompt's decode-step logits and pool two ways on the same
+    weights: the one-device route (``params``) and the sharded one the
+    engine takes (``sharded``, ``params`` on ``mesh``: each shard's heads
+    against its pool, the partials summed, the vocabulary shards joined;
+    the experts over their shards). ``llama`` is the family's module. The
+    logits must agree within PREFILL_REL_TOL of max |logit| and the
+    shards, joined on the head axis, the one-device pool within
+    PREFILL_REL_TOL of max |K/V| (the same layers of bf16 rounding in
+    another order reach both)."""
+    from xllm_service_tpu_torch.parallel.sharding import ModelShardedPages
+
+    mcfg = cfg.model
+    n = len(prompt)
+    n_pages = -(-n // PS)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    shape = (mcfg.num_layers, 2, n_pages + 1, mcfg.num_kv_heads, PS,
+             mcfg.head_dim)
+    pt = torch.arange(1, n_pages + 1, **i32)[None]
+    toks = torch.tensor([prompt], **i32)
+
+    def route(p, kv):
+        llama.prefill_forward(
+            p, mcfg, toks[:, :n - 1], torch.arange(n - 1, **i32)[None], kv,
+            pt, torch.zeros((1,), **i32), torch.tensor([n - 1], **i32),
+            has_prefix=False)
+        return llama.decode_forward(
+            p, mcfg, toks[:, n - 1], torch.tensor([n - 1], **i32), kv, pt,
+            torch.tensor([n], **i32))[0]
+
+    one_kv = torch.zeros(shape, dtype=mcfg.dtype, device="cuda")
+    single = route(params, one_kv)
+    tp_kv = (ModelShardedPages.zeros(shape, mcfg.dtype, mesh)
+             if mesh.shape["model"] > 1
+             else torch.zeros(shape, dtype=mcfg.dtype, device="cuda"))
+    tp = route(sharded, tp_kv)
+    joined = tp_kv.full() if mesh.shape["model"] > 1 else tp_kv
+    scale = single.abs().max().item()
+    err = (single - tp).abs().max().item()
+    kv_scale = one_kv[:, :, 1:].abs().max().item()
+    kv_err = (joined - one_kv)[:, :, 1:].abs().max().item()
+    log(f"  one-device vs {dict(mesh.shape)} decode step ({n} tokens): "
+        f"logits max_abs_err={err:.4g}, max|logit|={scale:.4g}; pool "
+        f"{tuple(getattr(tp_kv, 'shards', [tp_kv])[0].shape)} a shard, "
+        f"joined max_abs_err="
+        f"{kv_err:.4g}, max|K/V|={kv_scale:.4g} (tol {PREFILL_REL_TOL} x "
+        f"max each); argmax {int(single.argmax())} vs {int(tp.argmax())}")
+    assert torch.isfinite(tp).all()
+    assert err <= PREFILL_REL_TOL * scale, "sharded decode logits drifted"
+    assert kv_err <= PREFILL_REL_TOL * kv_scale, "sharded pool drifted"
+
+
+def tp_leg(engine_mod, llama, cfg, params, prompts, shared, phase4, kernels,
+           card):
+    """4o (a): Llama-3-8B bf16 at full width and depth on ``model=4``,
+    phase 4's weights resharded (views: no memory): 8/2 heads and ffn 3584
+    a shard, phase 4's requests cut to six (two prefix hits), TP_NEW
+    tokens each. Checks: four shards ``[32, 2, P, 2, 16, 128]``, kernel 1
+    at 128 launches a step (32 layers x 4 shards), kernel 2 on the prefix
+    hits, kernels 3 and 6 idle, the tokens held to phase 4's one-device
+    streams (``held_to``), one decode step's logits and the pool
+    (``check_tp_logits``). Returns (kernel 1's and 2's launches, the
+    mesh)."""
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    paged, mq, fused, partial = kernels
+    mesh = card_mesh(model=4)
+    log(f"  mesh model=4 on {[str(d) for d in mesh.devices]}")
+    sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
+    reqs, hits = tp_traffic(prompts, shared)
+    sent = {**reqs, **hits}
+    want = {n: phase4[n][:TP_NEW] for n in sent}
+    reset_counts()
+    toks, st, wall = serve_greedy(engine_mod, cfg, sharded, reqs, hits,
+                                  mesh=mesh, max_tokens=TP_NEW)
+    k1, k2, k3, k6 = (fn.launches for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    m = cfg.model
+    log(f"  (a) llama3-8b on model=4, shards {st['pool']}: {len(toks)} "
+        f"requests of {TP_NEW} tokens in {wall:.1f} s "
+        f"({sum(map(len, toks.values())) / wall:.1f} generated tok/s, "
+        f"eager; information only, {card}); prefix hits "
+        f"{st['prefix_hits']}, {steps} decode steps, route "
+        f"{st['decode_route']}; kernels 1/2/3/6 {k1}/{k2}/{k3}/{k6}")
+    assert st["pool"] == [(m.num_layers, 2, cfg.num_pages, 2, PS, HD)] * 4
+    assert st["decode_route"] == "eager" and st["prefix_hits"] >= 2
+    assert k1 == 4 * m.num_layers * steps, \
+        f"kernel 1 launched {k1} times, not {4 * m.num_layers} a step"
+    assert k2 >= 4 * m.num_layers, "the prefix hits did not take kernel 2"
+    assert k3 == 0 and k6 == 0, "kernel 3 or 6 ran on the model axis"
+    held_to(llama, cfg, params, sent, toks, want,
+            "(a) llama3-8b model=4 vs phase 4's one-device engine",
+            routed=False)
+    check_tp_logits(llama, cfg, params, shared[0], mesh, sharded)
+    return (k1, k2), mesh
+
+
+def tp_decode_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --tp-decode-agent N SID ARGS...``:
+    ``decode_agent_child`` with the agent's engine handed a ``model=N``
+    mesh of this card repeated, as ``InferenceEngine`` takes one (the
+    agent's ``mesh`` argument; ``--tp N`` alone takes N distinct
+    cards)."""
+    import functools
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+
+    n, rest = int(argv[0]), argv[1:]
+    agent_mod.EngineAgent = functools.partial(agent_mod.EngineAgent,
+                                              mesh=card_mesh(model=n))
+    return decode_agent_child(rest)
+
+
+def pd_host_pair(pre, dec, master, requests):
+    """``requests`` through a PREFILL agent ``pre`` and a DECODE agent
+    ``dec`` of this process, linked both ways as the master does, behind
+    the stub master. Returns the tokens by name."""
+    for addr, peer in ((pre.name, dec.meta()), (dec.name, pre.meta())):
+        post = Poster(addr)
+        try:
+            status, reply = post("/rpc/link",
+                                 {"peer": json.loads(peer.to_json())})
+        finally:
+            post.close()
+        assert status == 200 and reply["ok"], reply
+    post = Poster(pre.name)
+    try:
+        for sid, fields in requests.items():
+            status, reply = post("/v1/completions", dict(
+                service_request_id=sid, request_id=sid,
+                source_service_addr=master.addr,
+                routing={"decode_name": dec.name}, **fields))
+            assert status == 200, (sid, status, reply)
+        master.wait(lambda: all(map(master.finished, requests)),
+                    "the host pair's requests", timeout=600)
+    finally:
+        post.close()
+    return {n: check_deltas(n, master.gens[n], dec)[0] for n in requests}
+
+
+def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card):
+    """4o (f): PD pairs of Llama-3-8B bf16 at full depth. A ``model=2``
+    PREFILL agent here, handed its mesh as ``InferenceEngine`` takes one,
+    and a ``model=2`` DECODE agent in a second process
+    (``--tp-decode-agent``, weights from the same seed): every handoff on
+    CUDA IPC, one handle a shard; kernel 4 once a shard a handoff here,
+    bit for bit against the plain gather; kernel 5 once a shard there; the
+    probe request's installed pages equal to its extracted block. Then the
+    same PREFILL agent and an unmeshed DECODE agent of this process: the
+    meshes differ, so every handoff rides the host path (the reference's
+    topology rule). Both pairs' streams are held to an in-process MIX
+    engine's on ``model=2`` (``held_to``). Returns the launches of kernels
+    4 and 5."""
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    mesh = card_mesh(model=2)
+    reqs, hits = tp_traffic(prompts, shared)
+    sent = {**reqs, **hits}
+    want, _, _ = serve_greedy(engine_mod, cfg, params, reqs, hits, mesh=mesh,
+                              max_tokens=TP_NEW)
+    greedy = dict(max_tokens=TP_NEW, temperature=0.0, ignore_eos=True)
+    requests = {n: dict(token_ids=p, **greedy) for n, p in sent.items()}
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    child = DecodeChild(
+        ["--tp-decode-agent", "2", TP_PROBE],
+        ["--model-config", "llama3_8b", "--model-id", "llama3-8b",
+         "--tp", "2", "--num-pages", str(cfg.num_pages),
+         "--page-size", str(cfg.page_size),
+         "--max-batch-size", str(cfg.max_batch_size),
+         "--max-seq-len", str(cfg.max_seq_len),
+         "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
+        "phase4o_decode_agent.log")
+    pre = dec = None
+    try:
+        pre = EngineAgent(cfg, AgentConfig(
+            instance_type=InstanceType.PREFILL, model_id="llama3-8b",
+            heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
+            params=params, device="cuda", mesh=mesh)
+        pre.start()
+        toks, handoff, bad, digests, dl, reg_s = pd_pair_run(
+            pre, child, master, store, requests, TP_PROBE,
+            "/v1/completions")
+        n = len(requests)
+        g4 = page_dma.gather_kv_pages.launches
+        ms = sorted(handoff.values())
+        log(f"  (f) model=2 pair over CUDA IPC: decode agent registered "
+            f"after {reg_s:.1f} s; {n} handoffs, two handles each; handoff "
+            f"ms (device offer + pull spans) p50 {ms[len(ms) // 2]:.3f} max "
+            f"{ms[-1]:.3f} (information only; {card}); kernel 4 here {g4}, "
+            f"kernel 5 there {dl['scatter_kv_pages']}, kernel 1 there "
+            f"{dl['paged_attention']}; extracts differing from the plain "
+            f"gather {sum(bad)}; {TP_PROBE} extracted / installed {digests}")
+        assert len(bad) == n and not any(bad), "kernel 4 at a handoff"
+        assert g4 == 2 * n and dl["scatter_kv_pages"] == 2 * n, \
+            "not one gather here and one scatter there a shard a handoff"
+        assert digests[0] is not None and digests[0] == digests[1], \
+            "the installed pages differ from the extracted block"
+        held_to(llama, cfg, params, sent, toks, want,
+                "(f) model=2 PD pair vs an in-process MIX engine",
+                routed=False)
+        scatters = dl["scatter_kv_pages"]
+        dec = EngineAgent(cfg, AgentConfig(
+            instance_type=InstanceType.DECODE, model_id="llama3-8b",
+            heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
+            params=params, device="cuda")
+        dec.start()
+        reset_counts()
+        host = pd_host_pair(pre, dec, master, {
+            f"h{k}": v for k, v in requests.items()})
+        h4 = page_dma.gather_kv_pages.launches
+        h5 = page_dma.scatter_kv_pages.launches
+        log(f"  (f) model=2 -> unmeshed pair: {pre.kv_host_sent} host "
+            f"handoffs ({pre.kv_stream_sent} streamed), {pre.kv_device_sent} "
+            f"device; kernels 4/5 {h4}/{h5}")
+        assert (pre.kv_device_sent, pre.kv_host_sent) == (n, n), \
+            "a mismatched pair's handoff left the host path"
+        assert dec.kv_host_received == n
+        assert h4 == 2 * n and h5 == n, "not two gathers and one scatter"
+        held_to(llama, cfg, params, sent,
+                {k[1:]: v for k, v in host.items()}, want,
+                "(f) model=2 -> unmeshed pair vs the MIX engine",
+                routed=False)
+        return g4 + h4, scatters + h5
+    except BaseException:
+        log(f"  the decode agent's log, last lines:\n{child.tail()}")
+        raise
+    finally:
+        child.close()
+        for a in (pre, dec):
+            if a is not None:
+                a.stop()
+        master.close()
+        coord.close()
+        store.close()
+        del pre, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ep_leg(engine_mod, moe, attention, kernels, cfg, params, tag, sent_want,
+           card):
+    """4o (d) and (e): an MoE model on ``expert=2 x model=2`` (the
+    reference's EP-PD layout) on 4m's weights: the requests of its seq
+    leg (``seq_prompts``), TP_NEW tokens each, held to that leg's
+    one-device streams: every stream's first token (the prefill's argmax)
+    equal to one device's, and each parting a near-tie or a counted
+    routing near-tie where each side is recomputed on its own route
+    (``held_to``; recomputed on one device, the served streams take more
+    routing near-ties than ROUTED_SHARE allows: the shards' partial sums
+    round apart, and random weights leave many router margins below
+    that). GQA (Mixtral, 8 KV heads): two shards of 4 heads, kernel 1
+    at 64 launches a step (32 layers x 2 model shards), kernel 2 on the
+    prefix hit. MLA (DeepSeek-V2-Lite): the one-head latent pool
+    replicated, its route (``paged_attention_xla``) 27 times a step a
+    model shard, kernels 1-3 idle. Returns (kernel 1's and 2's
+    launches)."""
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    paged, mq, fused, partial = kernels
+    (prompts, shared), want = sent_want
+    m = cfg.model
+    L, mla = m.num_layers, m.kv_lora_rank > 0
+    mesh = card_mesh(expert=2, model=2)
+    sharded = shard_params(params, mesh, moe.MOE_STACKED_RULES)
+    reset_counts()
+    xla0 = attention.paged_attention_xla.launches
+    toks, st, wall = serve_greedy(engine_mod, cfg, sharded, prompts, shared,
+                                  mesh=mesh, max_tokens=TP_NEW)
+    xla = attention.paged_attention_xla.launches - xla0
+    k1, k2, k3, k6 = (fn.launches for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    log(f"  {tag} on expert=2 x model=2, pool {st['pool']}: {len(toks)} "
+        f"requests of {TP_NEW} tokens in {wall:.1f} s "
+        f"({sum(map(len, toks.values())) / wall:.1f} generated tok/s, eager; "
+        f"information only, {card}); prefix hits {st['prefix_hits']}, "
+        f"{steps} decode steps; MLA route calls {xla}; kernels 1/2/3/6 "
+        f"{k1}/{k2}/{k3}/{k6}")
+    heads = m.num_kv_heads if mla else m.num_kv_heads // 2
+    assert st["pool"] == [(L, 2, cfg.num_pages, heads, PS, m.head_dim)] * 2
+    assert st["prefix_hits"] >= 1 and k3 == 0 and k6 == 0
+    if mla:
+        assert xla == 2 * L * steps, \
+            f"the MLA route ran {xla} times, not {2 * L} a step"
+        assert k1 == 0 and k2 == 0, "a GQA kernel ran on the MLA engine"
+    else:
+        assert k1 == 2 * L * steps, \
+            f"kernel 1 launched {k1} times, not {2 * L} a step"
+        assert k2 >= 2 * L, "the prefix hit did not take kernel 2"
+    assert all(toks[n][0] == want[n][0] for n in toks), \
+        "a prefill on the expert mesh took another first token"
+    held_to(moe, cfg, params, {**prompts, **shared}, toks,
+            {n: want[n][:TP_NEW] for n in toks},
+            f"{tag}, expert=2 x model=2 vs one device",
+            served_params=sharded)
+    return k1, k2
+
+
+def tp70b_leg(engine_mod, llama, prompts, shared, kernels, card):
+    """4o (c): Llama-3-70B in weight-only int8 (``llama3_70b_config``) at
+    full width and all 80 layers on ``model=8`` of this card: 8/1 heads a
+    shard, the weights drawn straight into int8 (one layer of one
+    projection at a time) and sharded as views, a pool of TP70_PAGES
+    pages; phase 4's requests cut to six (two prefix hits), TP_NEW tokens
+    each. Checks: eight shards ``[80, 2, 512, 1, 16, 128]``, kernel 1 at
+    640 launches a step, kernel 2 on the prefix hits, every greedy token
+    against its recomputation by the same sharded weights. The build's
+    seconds, ``max_memory_allocated`` and tok/s are information. Returns
+    (kernel 1's and 2's launches)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.engine import EngineConfig
+    from xllm_service_tpu_torch.models.base import llama3_70b_config
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    paged, mq, fused, partial = kernels
+    mcfg = replace(llama3_70b_config(), quant="int8")
+    cfg = EngineConfig(model=mcfg, num_pages=TP70_PAGES, page_size=PS,
+                       hash_block_size=128, max_batch_size=8,
+                       max_seq_len=2048, decode_horizon=8,
+                       admission_horizon=8, seed=0)
+    mesh = card_mesh(model=8)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    params = shard_params(
+        llama.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda"), mesh, llama.LLAMA_STACKED_RULES)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t
+    log(f"  (c) llama3-70b int8 drawn and sharded eight ways in "
+        f"{build_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated ({card})")
+    reqs, hits = tp_traffic(prompts, shared)
+    sent = {**reqs, **hits}
+    reset_counts()
+    toks, st, wall = serve_greedy(engine_mod, cfg, params, reqs, hits,
+                                  mesh=mesh, max_tokens=TP_NEW)
+    k1, k2, k3, k6 = (fn.launches for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (c) llama3-70b int8 on model=8, shards {st['pool'][:1]} x "
+        f"{len(st['pool'])}: {len(toks)} requests of {TP_NEW} tokens in "
+        f"{wall:.1f} s ({sum(map(len, toks.values())) / wall:.2f} generated "
+        f"tok/s, eager; information only, {card}); max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; prefix hits {st['prefix_hits']}, {steps} "
+        f"decode steps; kernels 1/2/3/6 {k1}/{k2}/{k3}/{k6}")
+    assert st["pool"] == [(80, 2, TP70_PAGES, 1, PS, HD)] * 8
+    assert st["prefix_hits"] >= 2
+    assert k1 == 8 * 80 * steps, \
+        f"kernel 1 launched {k1} times, not 640 a step for {steps}"
+    assert k2 >= 8 * 80, "the prefix hits did not take kernel 2"
+    assert k3 == 0 and k6 == 0
+    check_streams_recomputed(llama, cfg, params, sent, toks,
+                             "(c) llama3-70b int8 on model=8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def dryrun_leg(card):
+    """4o (g): ``parallel/dryrun.py`` at the north-star sizes on this card
+    repeated eight times: the decode step on ``model=8``, the MoE decode
+    on ``expert=8``, the ring and context-parallel decode on ``seq=8``,
+    each against its unsharded run."""
+    from xllm_service_tpu_torch.parallel.dryrun import TOL, dryrun
+
+    t = time.monotonic()
+    out = dryrun([torch.device("cuda", i % torch.cuda.device_count())
+                  for i in range(8)], northstar=True)
+    log(f"  (g) dry run at the north-star sizes: {json.dumps(out)} (tol "
+        f"{TOL}); {time.monotonic() - t:.1f} s ({card})")
+    return out
 
 
 # --------------------------------------------------------------- phase 4n
@@ -7015,6 +7538,17 @@ def main() -> int:
     check_mq_walk_shapes(mq_paged_attention, mq_paged_attention_plain,
                          mq_route)
     log(f"  head dim 256 and walk shapes: {time.monotonic() - t:.1f} s")
+    log("[3] a model shard's shapes: kernel 1 at 8/2 and 8/1 heads, "
+        "kernel 2 at groups 4 and 8, kernels 4-5 at a model=4 shard's block")
+    t = time.monotonic()
+    k1_82 = check_gqa_decode(paged_attention, paged_attention_plain, 8, 2)
+    k1_81 = check_gqa_decode(paged_attention, paged_attention_plain, 8, 1)
+    k2_groups = check_mq_groups(mq_paged_attention, mq_paged_attention_plain,
+                                mq_route)
+    k4_tp, k5_tp = check_page_movers(
+        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=32, n_kv=2,
+        hd=HD, what="llama3-8b model=4 shard", sweep=False)
+    log(f"  a model shard's shapes: {time.monotonic() - t:.1f} s")
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
@@ -7185,6 +7719,29 @@ def main() -> int:
                               (paged_attention, mq_paged_attention), card)
     log(f"  phase 4l: {time.monotonic() - t:.1f} s")
 
+    # Phase 4o (a), (b), (f): the model axis on phase 4's weights.
+    log("[4o] the tensor, expert and data axes in one process on this card "
+        "repeated: (a) llama3-8b bf16 on model=4, (b) its tier round trip, "
+        "(f) model=2 PD pairs "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    o_a, tp_mesh = tp_leg(engine_mod, llama, cfg, params, prompts, shared,
+                          runs[0][0], (paged_attention, mq_paged_attention,
+                                       fused_decode_attention,
+                                       cp.paged_partial), card)
+    log(f"  (a): {time.monotonic() - t:.1f} s")
+    t_ = time.monotonic()
+    log("  (b) phase 4a's tier round trip on (a)'s model=4 pool:")
+    o_b = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=tp_mesh)
+    assert o_b[0] % 4 == 0 and o_b[1] % 4 == 0, \
+        "a mover did not launch once a shard"
+    log(f"  (b): {time.monotonic() - t_:.1f} s; kernels 4/5 {o_b} (one "
+        "launch a shard, blocks of [32, 2, 8, 2, 16, 128] a shard)")
+    t_ = time.monotonic()
+    o_f = tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card)
+    log(f"  (f): {time.monotonic() - t_:.1f} s")
+    log(f"  phase 4o (a), (b), (f): {time.monotonic() - t:.1f} s")
+
     # Phase 4n: multimodal and EPD.
     log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
         "EPD through a MIX and an ENCODE agent, chunked multimodal, a seq=4 "
@@ -7213,6 +7770,19 @@ def main() -> int:
                             fused_decode_attention, cp.paged_partial), card)
     log(f"  phase 4m: {time.monotonic() - t:.1f} s")
 
+    # Phase 4o (c), (g): Llama-3-70B int8 once every other weight is gone,
+    # then the dry run.
+    log("[4o] (c) llama3-70b int8 at full width and depth on model=8; (g) "
+        "the dry run at the north-star sizes "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    o_c = tp70b_leg(engine_mod, llama, prompts, shared,
+                    (paged_attention, mq_paged_attention,
+                     fused_decode_attention, cp.paged_partial), card)
+    log(f"  (c): {time.monotonic() - t:.1f} s")
+    dryrun_leg(card)
+    log(f"  phase 4o (c), (g): {time.monotonic() - t:.1f} s")
+
     # Phase 5: the kernels line, the card line, the result.
     rows = []
     csrc = "xllm_service_tpu_torch/csrc/"
@@ -7222,24 +7792,25 @@ def main() -> int:
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
              + k_launches[0] + l_launches[0] + m_launches["paged"]
-             + n_launches["paged"]),
+             + n_launches["paged"] + o_a[0] + o_c[0]
+             + m_launches["ep_paged"]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
              + k_launches[1] + l_launches[1] + m_launches["mq"]
-             + n_launches["mq"]),
+             + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
              tier_launches[0] + i_launches[2] + m_launches["gather"]
-             + n_launches["gather"]),
+             + n_launches["gather"] + o_b[0] + o_f[0]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
              tier_launches[1] + i_launches[3] + m_launches["scatter"]
-             + n_launches["scatter"]),
+             + n_launches["scatter"] + o_b[1] + o_f[1]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
              cp_launches["partial"] + m_launches["partial"]
@@ -7254,7 +7825,27 @@ def main() -> int:
              m_launches["mla_scatter"]),
             ("cp_paged_partial@group6", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6_g6,
-             n_launches["partial"])):
+             n_launches["partial"]),
+            # A model shard's shapes (phase 4o): Llama-3-8B at model=4
+            # (8/2 heads, group 4, its tier blocks) and Llama-3-70B at
+            # model=8 (8/1, group 8).
+            ("paged_attention@8/2_heads", csrc + "paged_attention.cu",
+             "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1_82,
+             o_a[0]),
+            ("paged_attention@8/1_heads", csrc + "paged_attention.cu",
+             "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1_81,
+             o_c[0]),
+            ("mq_paged_attention@group4", csrc + "mq_paged_attention.cu",
+             "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100",
+             k2_groups[(8, 2)], o_a[1]),
+            ("mq_paged_attention@group8", csrc + "mq_paged_attention.cu",
+             "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100",
+             k2_groups[(8, 1)], o_c[1]),
+            ("gather_kv_pages@model4_shard", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:222", k4_tp, o_b[0]),
+            ("scatter_kv_pages@model4_shard", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:250", k5_tp,
+             o_b[1])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": n, **res})
     log(f"  total {time.monotonic() - t_start:.1f} s")
@@ -7273,4 +7864,6 @@ if __name__ == "__main__":
         sys.exit(checkpoint_agent_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--mla-decode-agent"]:
         sys.exit(mla_decode_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-decode-agent"]:
+        sys.exit(tp_decode_agent_child(sys.argv[2:]))
     sys.exit(main())

@@ -524,19 +524,26 @@ def test_tokenizer_factory():
 
 
 # ------------------------------------------------------------ entry point
-def _refused_value(default):
-    if isinstance(default, str):
-        return {"": "x", "slice-0": "slice-9", "master": "mux"}[default]
-    return str(default + 2)
-
-
-@pytest.mark.parametrize("flag", sorted(port_agent._REFUSED_FLAGS))
+@pytest.mark.parametrize("flag", ["--device-offset", "--tp"])
 def test_unported_flags_are_refused(flag, capsys):
-    default, item = port_agent._REFUSED_FLAGS[flag]
+    """The two flags this agent once refused are ported (the name stays
+    from then): ``--tp`` builds the reference's model-axis mesh and
+    ``--device-offset`` places it, with the reference's ``p.error``
+    messages for an offset without a mesh and a negative one."""
+    args = port_agent._parser().parse_args(
+        ["--model-config", "tiny", "--tp", "2", "--device-offset", "2"])
+    cfg = port_agent.engine_config(args)
+    assert cfg.mesh.shape == (1, 1, 1, 1, 2)
+    assert cfg.mesh_device_offset == 2
+    argv = (["--device-offset", "2"] if flag == "--device-offset"
+            else ["--tp", "2", "--device-offset", "-1"])
     with pytest.raises(SystemExit) as e:
-        port_agent.main([flag, _refused_value(default)])
+        port_agent.main(argv)
     assert e.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("--device-offset requires --tp > 1 (a mesh to place)" in err
+            if flag == "--device-offset"
+            else "--device-offset must be >= 0" in err)
 
 
 @pytest.mark.parametrize("config", ["gemma_tiny", "gemma_2b"])

@@ -1,6 +1,6 @@
 """The port's mixtral family against the reference's, on the CPU (mirrors
-tests/test_mixtral.py, minus its expert-sharded case: expert parallelism
-is ROADMAP queue 1 item 11).
+tests/test_mixtral.py; its expert-sharded case is in
+tests/test_torch_ep_engine.py).
 
 ``mixtral_tiny_config`` (GQA 4/2, every layer MoE, no shared expert) on the
 reference's weights, norm scales drawn non-zero: prefill, decode (also

@@ -520,7 +520,6 @@ def test_agent_takes_speculate_k():
     cfg = port_agent.engine_config(args)
     assert cfg.speculate_k == 4
     assert cfg.speculate_ngram == 3 and cfg.speculate_cycles == 4
-    assert "--speculate-k" not in port_agent._REFUSED_FLAGS
     assert port_agent.engine_config(port_agent._parser().parse_args(
         ["--model-config", "tiny"])).speculate_k == 0
 

@@ -98,6 +98,7 @@ import torch
 
 from ..chat_template import MM_PLACEHOLDER, JinjaChatTemplate
 from ..common import topology as topo
+from ..common.device import resolve_device
 from ..common.flightrecorder import RECORDER, admin_flightrecorder_recent
 from ..common.metrics import (
     ENGINE_HEARTBEATS_TOTAL,
@@ -129,7 +130,9 @@ from ..common.types import (
     now_ms,
 )
 from ..coordination import CoordinationClient, connect
+from ..models.base import get_model_family
 from ..multimaster.ownership import TelemetryOwnerResolver
+from ..parallel.mesh import DeviceMesh, MeshConfig, mesh_from_config
 from ..profiling.sampler import PROFILER, admin_profile
 from ..rpc import MASTER_KEY, instance_key, msgpack_lite
 from ..rpc import wire
@@ -662,7 +665,8 @@ class EngineAgent:
     def __init__(self, engine_cfg: EngineConfig, agent_cfg: AgentConfig,
                  coord: Optional[CoordinationClient] = None,
                  params: Optional[dict] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[DeviceMesh] = None):
         if agent_cfg.telemetry_mode not in TELEMETRY_MODES:
             raise ValueError(f"telemetry_mode {agent_cfg.telemetry_mode!r} "
                              f"is not one of {TELEMETRY_MODES}")
@@ -674,7 +678,7 @@ class EngineAgent:
         # The engines first: without a card (and no device named) the
         # first raises before anything else is opened.
         self.engines = self._build_engines(engine_cfg, tokenizer, params,
-                                           device)
+                                           device, mesh)
         self.engine = self.engines[0]   # config and metadata accessor
         self._rr_replica = 0
         self.coord = coord or connect(agent_cfg.coordination_addr)
@@ -781,22 +785,26 @@ class EngineAgent:
         RECORDER.add_context_provider("engine", self._anomaly_context)
 
     def _build_engines(self, engine_cfg: EngineConfig, tokenizer,
-                       params: Optional[dict],
-                       device) -> list[InferenceEngine]:
+                       params: Optional[dict], device,
+                       mesh: Optional[DeviceMesh] = None
+                       ) -> list[InferenceEngine]:
         """The replicas: replica 0 on ``device``, replica i on the i-th
         CUDA device from it (every replica on the one card of a one-card
         machine; the CPU for all on the CPU), each with its own pool,
         pinned buffers and streams, sharing replica 0's weight tensors
         where the device is the same (copies elsewhere). A tier spill file
         is per replica (``<path>.<i>``): a shared one would be truncated
-        under another replica's live mapping."""
+        under another replica's live mapping. ``mesh`` (the engine's
+        ``mesh`` argument: devices the caller names, which may repeat)
+        takes the place of ``engine_cfg.mesh``."""
         dp = max(1, self.cfg.dp_size)
-        if dp > 1 and engine_cfg.mesh is not None:
+        if dp > 1 and (engine_cfg.mesh is not None or mesh is not None):
             logger.warning("dp_size > 1 with an engine mesh is not "
                            "supported; forcing dp_size 1")
             dp = 1
         first = InferenceEngine(engine_cfg, device=device,
-                                tokenizer=tokenizer, params=params)
+                                tokenizer=tokenizer, params=params,
+                                mesh=mesh)
         engines = [first]
         for i in range(1, dp):
             dev = first.device
@@ -1920,7 +1928,8 @@ class EngineAgent:
         token_ids = list(obj["token_ids"])
         engine = self._pick_engine(token_ids)
         blob = obj["kv_blob"]
-        if blob.device.type == "cuda" and blob.device != engine.device:
+        if (isinstance(blob, torch.Tensor) and blob.device.type == "cuda"
+                and blob.device != engine.device):
             blob = blob.to(engine.device)   # a replica on another card
         dspan = self._stage_span("engine.decode", ctx, sid, injected=True)
 
@@ -1981,13 +1990,6 @@ class EngineAgent:
                 pass
         return sp
 
-# Reference flags this agent does not take: flag -> (the value that means
-# "off", the ROADMAP item that ports it). Any other value is an error.
-_REFUSED_FLAGS: dict[str, tuple[Any, str]] = {
-    "--tp": (0, "tensor parallelism, queue 1 item 11"),
-    "--device-offset": (0, "multi-device placement, queue 1 item 11"),
-}
-
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -2000,9 +2002,10 @@ def _parser() -> argparse.ArgumentParser:
                    choices=[t.value for t in InstanceType])
     p.add_argument("--model-id", default="bench-1b")
     p.add_argument("--model-config", default="bench_1b",
-                   choices=["tiny", "bench_1b", "llama3_8b", "gemma_2b",
-                            "gemma_tiny", "mixtral_8x7b", "mixtral_tiny",
-                            "qwen2_vl_2b", "qwen2_vl_tiny", "hf"],
+                   choices=["tiny", "tiny_f32", "bench_1b", "llama3_8b",
+                            "llama3_70b", "gemma_2b", "gemma_tiny",
+                            "mixtral_8x7b", "mixtral_tiny", "qwen2_vl_2b",
+                            "qwen2_vl_tiny", "hf"],
                    help="config factory in models.base, models.gemma, "
                         "models.mixtral or models.qwen2_vl, or 'hf': "
                         "--checkpoint-path's config.json (models/"
@@ -2039,6 +2042,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dp-size", type=int, default=1,
                    help="engine replicas behind this registration (replica "
                         "i on the i-th card from the agent's, round robin)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel mesh size (0 = single device): "
+                        "that many distinct cards from --device-offset")
+    p.add_argument("--device-offset", type=int, default=0,
+                   help="first device index for this instance's mesh: "
+                        "co-hosted instances (e.g. a PREFILL/DECODE "
+                        "pair) own disjoint device groups instead of "
+                        "stacking on device 0")
     p.add_argument("--telemetry-mode", default="mux",
                    choices=list(TELEMETRY_MODES),
                    help="mux = one multiplexed kept-alive session to the "
@@ -2076,9 +2087,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a "
                         "card). 'cpu' runs on the CPU")
-    for flag, (default, item) in _REFUSED_FLAGS.items():
-        p.add_argument(flag, type=type(default), default=default,
-                       help=f"not ported ({item})")
     return p
 
 
@@ -2093,8 +2101,13 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
             dtype=hf_config.checkpoint_dtype(args.checkpoint_path))
     else:
         mcfg = {"tiny": model_base.tiny_config,
+                # The CPU bench shape: f32, the context of the in-process
+                # serve bench.
+                "tiny_f32": lambda: model_base.tiny_config(
+                    dtype=torch.float32, max_context_len=1024),
                 "bench_1b": model_base.bench_1b_config,
                 "llama3_8b": model_base.llama3_8b_config,
+                "llama3_70b": model_base.llama3_70b_config,
                 "gemma_2b": gemma.gemma_2b_config,
                 "gemma_tiny": gemma.gemma_tiny_config,
                 "mixtral_8x7b": mixtral.mixtral_8x7b_config,
@@ -2119,10 +2132,15 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         ecfg.prefill_chunk_tokens = args.prefill_chunk
     if args.speculate_k > 0:
         ecfg.speculate_k = args.speculate_k
+    if args.tp and args.tp > 1:
+        ecfg.mesh = MeshConfig(model=args.tp)
+    if args.device_offset:
+        ecfg.mesh_device_offset = args.device_offset
     return ecfg
 
 
-def checkpoint_params(path: str, mcfg, device=None) -> dict:
+def checkpoint_params(path: str, mcfg, device=None,
+                      mesh: Optional[DeviceMesh] = None) -> dict:
     """The weights under ``path`` for model ``mcfg``: a directory holding
     ``*.safetensors`` is an HF model directory, read by the family's loader
     (``models/hf_config.py::loader_for``; the reference agent reads every
@@ -2130,12 +2148,18 @@ def checkpoint_params(path: str, mcfg, device=None) -> dict:
     anything else a native checkpoint (``load_params``). A failed load
     raises: the agent never falls back to random weights. Under ``--quant
     int8`` the loaders quantize the stacked projections as they assemble
-    them, and the engine quantizes the rest at start."""
+    them, and the engine quantizes the rest at start. With ``mesh`` the
+    tree comes back sharded by the family's rules, each shard on its
+    device."""
     from ..models import hf_config, loader
 
+    kw = {}
+    if mesh is not None:
+        kw = dict(mesh=mesh,
+                  rules=get_model_family(mcfg.name).sharding_rules)
     if loader.shard_files(path):
-        return hf_config.loader_for(mcfg)(path, mcfg, device=device)
-    return loader.load_params(path, mcfg, device=device)
+        return hf_config.loader_for(mcfg)(path, mcfg, device=device, **kw)
+    return loader.load_params(path, mcfg, device=device, **kw)
 
 
 def build_agent(args: argparse.Namespace,
@@ -2143,8 +2167,15 @@ def build_agent(args: argparse.Namespace,
     """The agent of parsed command-line ``args`` (not started), its
     weights loaded from ``--checkpoint-path`` when one is given."""
     ecfg = engine_config(args)
-    params = checkpoint_params(args.checkpoint_path, ecfg.model,
-                               args.device) if args.checkpoint_path else None
+    params = None
+    if args.checkpoint_path:
+        # The weights go onto the devices the engine's mesh takes (from
+        # --device-offset), so a co-hosted pair's never share a card.
+        mesh = (mesh_from_config(ecfg.mesh, resolve_device(args.device),
+                                 ecfg.mesh_device_offset)
+                if ecfg.mesh is not None else None)
+        params = checkpoint_params(args.checkpoint_path, ecfg.model,
+                                   args.device, mesh)
     return EngineAgent(
         ecfg,
         AgentConfig(host=args.host, port=args.port,
@@ -2166,9 +2197,11 @@ def build_agent(args: argparse.Namespace,
 def main(argv: Optional[list[str]] = None) -> None:
     p = _parser()
     args = p.parse_args(argv)
-    for flag, (default, item) in _REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            p.error(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.device_offset:
+        if not (args.tp and args.tp > 1):
+            p.error("--device-offset requires --tp > 1 (a mesh to place)")
+        if args.device_offset < 0:
+            p.error("--device-offset must be >= 0")
     if args.model_config == "hf" and not args.checkpoint_path:
         p.error("--model-config hf reads --checkpoint-path's config.json")
     if args.dp_size < 1:

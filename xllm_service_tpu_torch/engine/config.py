@@ -15,10 +15,9 @@ class EngineConfig:
     model_family: str = "llama"
     model: ModelConfig = field(default_factory=tiny_config)
     # Device mesh. None = one device (the reference's None means all local
-    # devices on its TP axis; the port has no tensor parallelism yet, so
-    # only the `seq` axis may exceed 1). A config mesh takes distinct cards
-    # cuda:offset..; pass InferenceEngine(mesh=...) to name the devices,
-    # which may repeat.
+    # devices on its TP axis; the port's means one, as the agent's
+    # --tp 0). A config mesh takes distinct cards cuda:offset..; pass
+    # InferenceEngine(mesh=...) to name the devices, which may repeat.
     mesh: Optional[MeshConfig] = None
     # First device index for this engine's mesh (co-hosted instances on
     # disjoint device groups).

@@ -10,10 +10,11 @@
   page tables, stop ids and budgets live on the device, are allocated once
   and are updated in place; a decode horizon is H steps with sampling on
   the device and ONE host fetch.
-- **The step as a CUDA graph** (``engine/decode_graph.py``): on a card with
-  a single-device pool each step of a horizon is a replay of one captured
-  step (the reference's horizon is one jit); on the CPU, and under a seq
-  mesh, the step's ops run one by one.
+- **The step as a CUDA graph** (``engine/decode_graph.py``): on a card
+  without a mesh axis above 1 each step of a horizon is a replay of one
+  captured step (the reference's horizon is one jit); on the CPU, and
+  under any mesh axis above 1, the step's ops run one by one (``stats()``
+  names the route: ``decode_route`` "captured" or "eager").
 - **Dispatch before fetch**: a horizon's rows are copied into a pinned
   host buffer behind it on the stream; the engine dispatches horizon N+1
   before it waits for and emits horizon N, so the host's emission overlaps
@@ -47,6 +48,24 @@
   them redundantly, with the same result). Every decode step attends
   through the context-parallel op (kernel 6 per shard, then the merge);
   a long prefix-free prompt prefills with ring attention over the axis.
+- **Tensor and expert parallelism** (a mesh whose ``model`` or ``expert``
+  axis is above 1): the parameters go through
+  ``parallel/sharding.py::shard_params`` with the family's rules, drawn
+  or given alike (quantized first under int8; a loader's tree on the mesh
+  is taken as it is), so each (expert, model) coordinate holds its shard
+  on its device (views of the tree on a repeated device). The KV pool is
+  a ``ModelShardedPages``: ``[L, 2, P, n_kv / n, ps, hd]`` a model shard
+  (the reference's ``KV_PAGES_SPEC``), or replicated where ``n_kv`` does
+  not divide (MLA's one latent head). Each layer runs once a model shard
+  (``models/llama.py::forward_shards``; the experts once an (expert,
+  model) shard) and the partials are summed on the mesh's first device,
+  where the residual stream, the logits and sampling stay. The tiers and
+  PD gather and scatter each shard with kernels 4–5; the host-side block
+  keeps the reference's layout ``[L, 2, n, n_kv, ps, hd]``, and a PD
+  handoff between identical meshes goes one CUDA IPC handle a shard
+  (``ShardedBlock``). The ``data`` and ``pipe`` axes replicate: the port
+  computes once where the reference computes the same values on each
+  replica, as for ``seq``. The captured and mixed steps stay off.
 
 - **Admission order** as the reference's: online before offline, then
   higher priority first, FIFO otherwise.
@@ -139,8 +158,9 @@ its M-RoPE rows zero-padded to the ring's length.
   ids do not see the image), never rides a decode step and never takes
   the ring. A PD decode side recomputes the delta from the prompt's ids.
 
-Not in this port yet: mesh axes other than ``seq``, and the captured
-step under a seq mesh.
+Not in this port yet: a ``seq`` axis together with a ``model`` or
+``expert`` axis (refused: ROADMAP queue 1 item 18), a mesh over several
+processes, and the captured and mixed steps under a mesh.
 """
 
 from __future__ import annotations
@@ -171,11 +191,27 @@ from ..common.request import (
     Usage,
 )
 from ..common.types import KvCacheEvent
-from ..models.base import get_model_family
+from ..models.base import get_model_family, shard_config
 from ..models.quant import quantize_tree
 from ..ops.cp_paged_attention import ShardedPages
-from ..ops.page_dma import gather_kv_pages, scatter_kv_pages
-from ..parallel.mesh import AXIS_SEQ, DeviceMesh, mesh_from_config
+from ..ops.page_dma import (
+    gather_kv_pages,
+    gather_kv_shards,
+    scatter_kv_pages,
+)
+from ..parallel.mesh import (
+    AXIS_EXPERT,
+    AXIS_MODEL,
+    AXIS_SEQ,
+    DeviceMesh,
+    mesh_from_config,
+)
+from ..parallel.sharding import (
+    ModelShardedPages,
+    ShardedBlock,
+    ShardedParams,
+    shard_params,
+)
 from ..tokenizer.base import Tokenizer
 from ..tokenizer.simple import SimpleTokenizer
 from .config import EngineConfig
@@ -316,15 +352,41 @@ class InferenceEngine:
             logger.warning("model family %s has no verify_forward; "
                            "speculative decoding disabled", cfg.model_family)
         mcfg = cfg.model
+        # Tensor and expert parallelism: the sizes of the mesh's model and
+        # expert axes (1 = off); any axis above 1 keeps the eager step.
+        self.tensor_parallel = mesh.shape[AXIS_MODEL] if mesh else 1
+        self.expert_parallel = mesh.shape[AXIS_EXPERT] if mesh else 1
+        self._meshed = mesh is not None and max(mesh.sizes) > 1
+        sharded = self.tensor_parallel * self.expert_parallel > 1
+        if sharded:
+            if self.family.sharding_rules is None:
+                raise NotImplementedError(
+                    f"family {cfg.model_family} has no sharding rules")
+            shard_config(mcfg, self.tensor_parallel, self.expert_parallel)
         if params is None:
             # Random weights from the config's seed (benchmarks, the smoke;
-            # the MoE families draw int8 leaves directly under quant).
+            # under quant every family draws its projections in int8
+            # directly).
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = self.family.init_params(mcfg, gen, dev)
-        if mcfg.quant:
-            # Random or given weights alike, as the reference: quantized
-            # one layer at a time where they lie.
-            params = self._quantize(params, mcfg)
+        if isinstance(params, ShardedParams):
+            # A loader's tree on a mesh (models/loader.py: quantized, then
+            # sharded) is taken as it is.
+            if not sharded or params.mesh.shape != mesh.shape:
+                raise ValueError(f"weights sharded on {params.mesh.shape} "
+                                 f"for an engine mesh of "
+                                 f"{mesh.shape if mesh else None}")
+        else:
+            if mcfg.quant:
+                # Random or given weights alike, as the reference:
+                # quantized one layer at a time where they lie, then
+                # sharded.
+                params = self._quantize(params, mcfg)
+            if sharded:
+                # Each (expert, model) shard on its device; on a repeated
+                # device the shards are views of the drawn or loaded tree.
+                params = shard_params(params, mesh,
+                                      self.family.sharding_rules)
         self.params = params
         self.page_mgr = KVPageManager(cfg.num_pages, cfg.page_size,
                                       cfg.hash_block_size)
@@ -333,16 +395,18 @@ class InferenceEngine:
         if self.seq_parallel > 1:
             self.kv_pages = ShardedPages.zeros(shape, mcfg.dtype, mesh,
                                                AXIS_SEQ)
+        elif self.tensor_parallel > 1:
+            self.kv_pages = ModelShardedPages.zeros(shape, mcfg.dtype, mesh)
         else:
             self.kv_pages = torch.zeros(shape, dtype=mcfg.dtype, device=dev)
         self._init_tiers()
         self._alloc_slot_state()
         # Seeds of unseeded sampled requests.
         self._rng = random.Random(cfg.seed + 1)
-        # The captured step: on a card, for a single-device pool (a
-        # sharded pool keeps the eager step).
+        # The captured step: on a card, without a mesh axis above 1 (a
+        # mesh keeps the eager step).
         self._graphs: Optional[DecodeGraphs] = None
-        if dev.type == "cuda" and self.seq_parallel == 1:
+        if dev.type == "cuda" and not self._meshed:
             state = [self._last, self._clens, self._active,
                      self._st.token_counts]
             if self._spec_on:
@@ -413,18 +477,20 @@ class InferenceEngine:
                       ) -> Optional[DeviceMesh]:
         """The engine's mesh: the caller's, else one built from
         ``cfg.mesh`` over distinct devices from ``mesh_device_offset``
-        (raising when the machine has fewer), else None. Only the ``seq``
-        axis may exceed 1; a named ``device`` must be the mesh's first."""
+        (raising when the machine has fewer), else None. A ``seq`` axis
+        above 1 together with a ``model`` or ``expert`` axis above 1 is
+        not ported; a named ``device`` must be the mesh's first."""
         if mesh is None and cfg.mesh is not None:
             mesh = mesh_from_config(cfg.mesh, resolve_device(device),
                                     cfg.mesh_device_offset)
         if mesh is None:
             return None
-        wide = [a for a, n in mesh.shape.items() if a != AXIS_SEQ and n > 1]
-        if wide:
+        shape = mesh.shape
+        if shape[AXIS_SEQ] > 1 and max(shape[AXIS_MODEL],
+                                       shape[AXIS_EXPERT]) > 1:
             raise NotImplementedError(
-                f"mesh axes {wide} > 1: tensor, expert, data and pipe "
-                "parallelism are not ported yet (ROADMAP queue 1 item 11)")
+                f"mesh {shape}: the seq axis together with the model or "
+                "expert axis is not ported yet (ROADMAP queue 1 item 18)")
         if device is not None:
             want, first = torch.device(device), mesh.devices[0]
             if want.type != first.type or want.index not in (None,
@@ -650,6 +716,12 @@ class InferenceEngine:
         if self._graphs is not None:
             out["decode_graph"] = {"captures": self._graphs.captures,
                                    "replays": self._graphs.replays}
+        # Which step route ran: the captured step, or the eager one op by
+        # op (on the CPU, and under any mesh axis above 1).
+        out["decode_route"] = ("captured" if self._graphs is not None
+                               else "eager")
+        if self.mesh is not None:
+            out["mesh"] = dict(self.mesh.shape)
         return out
 
     def drain_recent_latency(self) -> tuple[float, float]:
@@ -1169,12 +1241,12 @@ class InferenceEngine:
         """Write the next chunk of the FRONT prefilling sequence into the
         mixed step's inputs and return its span (C, or 4C under queue
         pressure), or None when nothing can ride: no mixed forward, no
-        prefill in flight, a seq mesh, rides turned off, or only the final
+        prefill in flight, a mesh, rides turned off, or only the final
         chunk left (it samples the first token through the install). The
         host's ``written`` advances here; the device work follows in
         stream order."""
         if (self.family.mixed_decode_chunk_forward is None
-                or not self._prefillings or self.seq_parallel > 1
+                or not self._prefillings or self._meshed
                 or not self._sarathi):
             return None
         st = self._prefillings[0]
@@ -1285,17 +1357,23 @@ class InferenceEngine:
         self._emit_token(seq, first_token, lp)
 
     # ------------------------------------------------- PD disaggregation
-    def extract_kv_pages_device(self, pages: list[int]) -> torch.Tensor:
+    def extract_kv_pages_device(self, pages: list[int]
+                                ) -> Union[torch.Tensor, ShardedBlock]:
         """Gather a sequence's KV pages into a new tensor [L, 2, n, n_kv,
         ps, hd] on the engine's device (kernel ``gather_kv_pages`` on a
         card, the plain gather on the CPU), enqueued on the engine's
-        stream. The device path offers it untouched; the host paths
-        download it."""
+        stream; from a head-sharded pool, each shard's part on its device
+        (one launch a shard, a ``ShardedBlock``). The device path offers
+        it untouched (one buffer a shard); the host paths download it in
+        the reference's layout."""
+        if (isinstance(self.kv_pages, ModelShardedPages)
+                and not self.kv_pages.replicated):
+            return ShardedBlock(gather_kv_shards(self.kv_pages, pages))
         return gather_kv_pages(self.kv_pages, pages)
 
     def extract_kv_pages(self, pages: list[int]) -> torch.Tensor:
-        """A sequence's KV pages on the host (a CPU tensor), for the host
-        paths."""
+        """A sequence's KV pages on the host (a CPU tensor in the
+        reference's layout), for the host paths."""
         return self.extract_kv_pages_device(pages).cpu()
 
     def _hand_off(self, seq: _Sequence, first_token: int,

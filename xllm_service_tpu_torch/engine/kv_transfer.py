@@ -13,7 +13,9 @@ one of three transports, behind the same ``PrefillHandoff`` contract:
   carries the handle, the buffer's offset in its allocation and its byte
   count. The decode side opens the handle, copies the bytes into a buffer
   this engine owns, synchronizes (the prefill side releases its offer as
-  soon as the handoff POST returns) and closes the handle. The address
+  soon as the handoff POST returns) and closes the handle. A block of a
+  head-sharded pool (``ShardedBlock``, between identical meshes) goes one
+  handle a shard, listed under the descriptor's ``shards``. The address
   names the card (``cuda-ipc:<GPU uuid>``): the path serves two processes
   on one card; a handle opened in the process that exported it fails.
 - **the streamed host path** (:class:`StreamOfferTable`,
@@ -55,6 +57,7 @@ import torch
 
 from ..common.faults import FAULTS
 from ..common.tracing import TRACER, TraceContext
+from ..parallel.sharding import ShardedBlock
 from ..rpc import msgpack_lite
 
 logger = logging.getLogger(__name__)
@@ -486,7 +489,8 @@ class KvTransferManager:
         return self._address
 
     # ------------------------------------------------------------ prefill
-    def offer(self, service_request_id: str, blob: torch.Tensor,
+    def offer(self, service_request_id: str,
+              blob: Union[torch.Tensor, ShardedBlock],
               incarnation: str = "",
               ready: Optional[torch.cuda.Event] = None,
               ctx: Optional[TraceContext] = None) -> dict[str, Any]:
@@ -495,10 +499,14 @@ class KvTransferManager:
         wrote ``blob`` (the gather); the offer waits for it, so the peer
         never reads the buffer before it is written (without one, it waits
         for the work enqueued so far on the blob's device). ``ctx``
-        parents the offer span."""
+        parents the offer span. A ``ShardedBlock`` (a head-sharded pool's
+        block, for a peer on an identical mesh) is exported one handle a
+        shard, its parts under ``shards``."""
         uid = transfer_uuid(service_request_id, incarnation)
-        if blob.device.type != "cuda" or not blob.is_contiguous():
-            raise ValueError("offer needs a contiguous CUDA tensor")
+        parts = blob.parts if isinstance(blob, ShardedBlock) else [blob]
+        if any(p.device.type != "cuda" or not p.is_contiguous()
+               for p in parts):
+            raise ValueError("offer needs contiguous CUDA tensors")
         with TRACER.span("kv_transfer.offer", ctx=ctx, require_ctx=True,
                          request_id=service_request_id, path="device",
                          shape=list(blob.shape)):
@@ -508,22 +516,27 @@ class KvTransferManager:
             if ready is not None:
                 ready.synchronize()
             else:
-                torch.cuda.current_stream(blob.device).synchronize()
-            with torch.cuda.device(blob.device):
-                self._ipc.bind(blob.device.index)
-                handle, offset = self._ipc.export(blob.data_ptr())
+                for p in parts:
+                    torch.cuda.current_stream(p.device).synchronize()
+            exported = []
+            for p in parts:
+                with torch.cuda.device(p.device):
+                    self._ipc.bind(p.device.index)
+                    handle, offset = self._ipc.export(p.data_ptr())
+                exported.append({"ipc_handle": handle, "offset": offset,
+                                 "shape": list(p.shape),
+                                 "nbytes": p.numel() * p.element_size()})
             with self._lock:
-                self._pending[uid] = ([blob],
+                self._pending[uid] = (parts,
                                       time.monotonic() + OFFER_TTL_S)
-        return {
-            "addr": self.address,
-            "uuid": uid,
-            "shape": list(blob.shape),
-            "dtype": dtype_name(blob.dtype),
-            "ipc_handle": handle,
-            "offset": offset,
-            "nbytes": blob.numel() * blob.element_size(),
-        }
+        desc = {"addr": self.address, "uuid": uid,
+                "shape": list(blob.shape), "dtype": dtype_name(blob.dtype)}
+        if isinstance(blob, ShardedBlock):
+            desc["shards"] = exported
+        else:
+            desc.update({k: exported[0][k]
+                         for k in ("ipc_handle", "offset", "nbytes")})
+        return desc
 
     def release(self, uuid: int) -> None:
         with self._lock:
@@ -559,17 +572,32 @@ class KvTransferManager:
             FAULTS.check("kv_transfer.pull", uuid=desc.get("uuid"))
             return self._pull(desc)
 
-    def _pull(self, desc: dict[str, Any]) -> torch.Tensor:
+    def _pull(self, desc: dict[str, Any]
+              ) -> Union[torch.Tensor, ShardedBlock]:
         if desc.get("addr") != self.address:
             raise ValueError(f"offer at {desc.get('addr')!r} is not on this "
                              f"card ({self.address})")
-        shape = [int(d) for d in desc["shape"]]
-        out = torch.empty(shape, dtype=wire_dtype(desc["dtype"]),
-                          device=self._device)
+        dtype = wire_dtype(desc["dtype"])
+        if "shards" not in desc:
+            return self._pull_one(desc, [int(d) for d in desc["shape"]],
+                                  dtype)
+        parts = [self._pull_one(sh, [int(d) for d in sh["shape"]], dtype)
+                 for sh in desc["shards"]]
+        block = ShardedBlock(parts)
+        if list(block.shape) != [int(d) for d in desc["shape"]]:
+            raise ValueError(f"shards of {list(block.shape)} for an offer "
+                             f"of {desc['shape']}")
+        return block
+
+    def _pull_one(self, desc: dict[str, Any], shape: list[int],
+                  dtype: torch.dtype) -> torch.Tensor:
+        """One exported buffer (``ipc_handle``, ``offset``, ``nbytes``)
+        copied into a new tensor of this engine's device."""
+        out = torch.empty(shape, dtype=dtype, device=self._device)
         nbytes = int(desc["nbytes"])
         if nbytes != out.numel() * out.element_size():
             raise ValueError(f"offer of {nbytes} bytes for shape {shape} of "
-                             f"{desc['dtype']}")
+                             f"{dtype_name(dtype)}")
         with self._pull_lock, torch.cuda.device(self._device):
             self._ipc.bind(self._device.index)
             t0 = time.perf_counter()

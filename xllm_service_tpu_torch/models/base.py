@@ -20,7 +20,7 @@ Both forwards update the paged pool ``kv_pages`` in place and return it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional
 
 import torch
@@ -191,6 +191,9 @@ class ModelFamily:
     # models/quant.py (quantized_matmul, quantized_einsum: weight-only
     # int8).
     supports_int8: bool = False
+    # The family's parallel/sharding.py::ShardingRules over its stacked
+    # tree (the mesh's expert and model axes).
+    sharding_rules: Any = None
 
 
 _REGISTRY: dict[str, ModelFamily] = {}
@@ -236,6 +239,37 @@ def llama3_8b_config() -> ModelConfig:
                        num_layers=32, num_heads=32, num_kv_heads=8,
                        head_dim=128, ffn_size=14336, rope_theta=500000.0,
                        max_context_len=8192)
+
+
+def llama3_70b_config() -> ModelConfig:
+    return ModelConfig(name="llama", vocab_size=128256, hidden_size=8192,
+                       num_layers=80, num_heads=64, num_kv_heads=8,
+                       head_dim=128, ffn_size=28672, rope_theta=500000.0,
+                       max_context_len=8192)
+
+
+def shard_config(cfg: ModelConfig, model: int, expert: int = 1
+                 ) -> ModelConfig:
+    """The config one (expert, model) shard computes with: the heads, the
+    ffn widths and the experts divided over the axes; KV heads that do not
+    divide (MLA's one latent head) stay whole, as the pool then does.
+    Raises where the query heads or a GQA model's KV heads do not
+    divide."""
+    if model == 1 and expert == 1:
+        return cfg
+    kv = cfg.num_kv_heads
+    if cfg.num_heads % model or (cfg.kv_lora_rank == 0 and kv % model):
+        raise ValueError(
+            f"{cfg.num_heads} query and {kv} KV heads do not divide over "
+            f"a model axis of {model}")
+    if cfg.num_experts % expert:
+        raise ValueError(f"{cfg.num_experts} experts do not divide over an "
+                         f"expert axis of {expert}")
+    return replace(cfg, num_heads=cfg.num_heads // model,
+                   num_kv_heads=kv // model if kv % model == 0 else kv,
+                   ffn_size=cfg.ffn_size // model,
+                   moe_ffn_size=cfg.moe_ffn_size // model,
+                   num_experts=cfg.num_experts // expert)
 
 
 def bench_1b_config() -> ModelConfig:

@@ -27,6 +27,16 @@ MLP (the ``dense_mlp`` subtree, stacked over those layers only); the
 ``moe`` subtree stacks the rest, so HF checkpoints map position for
 position (``models/loader.py``).
 
+On a mesh's ``expert`` and ``model`` axes (``MOE_STACKED_RULES``, a
+``ShardedParams``) the experts lie on ``expert`` and each expert's ffn on
+``model``: every (expert, model) shard runs its experts over every token
+and combines them with its columns of the gate map in f32, and the
+combines are summed over all shards; the router is replicated and the
+gate map computed once. Attention, the dense MLP and the shared experts
+run per model shard as llama's do (``models/llama.py::forward_shards``);
+MLA's ``k_up``/``v_up`` heads lie on ``model`` and its one-head latent
+pool is replicated, each shard writing its copy.
+
 Parameters are a plain dict in the reference's layout, so
 ``models/weights.py`` carries a reference tree over unchanged. Under
 ``cfg.quant == "int8"`` ``init_params`` builds every projection in its
@@ -56,8 +66,23 @@ from ..ops.attention import (
     write_prefill_kv,
 )
 from ..ops.cp_paged_attention import ShardedPages, cp_tables
+from ..parallel.mesh import AXIS_EXPERT, AXIS_MODEL
+from ..parallel.sharding import (
+    ShardedParams,
+    ShardingRules,
+    all_reduce,
+    broadcast,
+    replicated_tree,
+)
 from .base import ModelConfig, ModelFamily, register_model_family
-from .llama import _embed, _project_qkv, _rope, _unembed
+from .llama import (
+    _embed,
+    _project_qkv,
+    _rope,
+    _unembed,
+    forward_shards,
+    on_shards,
+)
 from .quant import (
     QUANT_KERNELS,
     quantize_kernel,
@@ -66,6 +91,41 @@ from .quant import (
 )
 
 Params = dict
+
+# The reference's stacked rules. int8 ``/scale`` leaves first (the first
+# match wins): a scale has the kernel's dims minus the contraction (-2)
+# and shards with the kernel's output dim.
+MOE_STACKED_RULES = ShardingRules(rules=[
+    (r"(k_up|v_up)/kernel/scale", (None, AXIS_MODEL, None)),
+    (r"(kv_down|k_rope)/kernel/scale", ()),
+    (r"experts/(gate_proj|up_proj)/kernel/scale",
+     (None, AXIS_EXPERT, AXIS_MODEL)),                 # [L, E, F]
+    (r"experts/down_proj/kernel/scale", (None, AXIS_EXPERT, None)),
+    (r"(shared|dense_mlp)/(gate_proj|up_proj)/kernel/scale",
+     (None, AXIS_MODEL)),
+    (r"(shared|dense_mlp)/down_proj/kernel/scale", ()),
+    (r"(q_proj|k_proj|v_proj)/kernel/scale", (None, AXIS_MODEL)),
+    (r"o_proj/kernel/scale", ()),
+    (r"lm_head/kernel/scale", (AXIS_MODEL,)),
+    # MLA: heads on the model axis; the shared latent projections
+    # replicated.
+    (r"(k_up|v_up)/kernel", (None, AXIS_MODEL, None, None)),  # [L, H, ., .]
+    (r"(kv_down|k_rope)/kernel", ()),
+    (r"kv_norm/scale", ()),
+    (r"experts/(gate_proj|up_proj)/kernel",
+     (None, AXIS_EXPERT, None, AXIS_MODEL)),           # [L, E, D, F]
+    (r"experts/down_proj/kernel",
+     (None, AXIS_EXPERT, AXIS_MODEL, None)),           # [L, E, F, D]
+    (r"shared/(gate_proj|up_proj)/kernel", (None, None, AXIS_MODEL)),
+    (r"shared/down_proj/kernel", (None, AXIS_MODEL, None)),
+    (r"dense_mlp/(gate_proj|up_proj)/kernel", (None, None, AXIS_MODEL)),
+    (r"dense_mlp/down_proj/kernel", (None, AXIS_MODEL, None)),
+    (r"router/kernel", ()),
+    (r"embed/embedding", (AXIS_MODEL, None)),
+    (r"(q_proj|k_proj|v_proj)/kernel", (None, None, AXIS_MODEL)),
+    (r"o_proj/kernel", (None, AXIS_MODEL, None)),
+    (r"lm_head/kernel", (None, AXIS_MODEL)),
+])
 
 
 def deepseek_v2_lite_config() -> ModelConfig:
@@ -232,31 +292,66 @@ def _at(node, l: int):
     return node[l]
 
 
-def _moe_mlp(mp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [..., D] -> [..., D], the reference's dense dispatch: f32 router
-    logits (a loaded router is in the model dtype, as the reference's
-    loader casts it, and is promoted), the top-k, a softmax over the selected logits scattered into a
-    dense [T, E] gate map, every expert over every token ([E, T, F]; the
-    products ``td,edf->etf`` and ``etf,efd->etd`` as one batched product
-    each, the int8 scale aligned per expert), the combine contracting E in
-    f32, then the shared experts."""
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1])                                # [T, D]
-    logits = x2.float() @ mp["router"]["kernel"].float()         # [T, E]
+def _gate_map(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The dense [T, E] gate map: f32 router logits (a loaded router is in
+    the model dtype, as the reference's loader casts it, and is promoted),
+    the top-k, a softmax over the selected logits scattered into place."""
+    logits = x2.float() @ router.float()                         # [T, E]
     topv, topi = torch.topk(logits, cfg.num_experts_per_token, dim=-1)
-    gates = torch.zeros_like(logits).scatter_(
+    return torch.zeros_like(logits).scatter_(
         1, topi, torch.softmax(topv, dim=-1))
-    ex = mp["experts"]
+
+
+def _experts(ex: Params, x2: torch.Tensor, gates: torch.Tensor
+             ) -> torch.Tensor:
+    """Every expert of the stack ``ex`` over every token ([E, T, F]; the
+    products ``td,edf->etf`` and ``etf,efd->etd`` as one batched product
+    each, the int8 scale aligned per expert) and the combine with
+    ``gates`` [T, E] contracting E in f32 -> [T, D] f32."""
     g = quantized_matmul(x2, ex["gate_proj"]["kernel"])          # [E, T, F]
     u = quantized_matmul(x2, ex["up_proj"]["kernel"])
     eo = quantized_matmul(F.silu(g) * u, ex["down_proj"]["kernel"])
-    routed = torch.einsum("etd,te->td", eo.float(), gates).to(x.dtype)
+    return torch.einsum("etd,te->td", eo.float(), gates)
+
+
+def _moe_mlp(mp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: [..., D] -> [..., D], the reference's dense dispatch: the gate
+    map (``_gate_map``), every expert over every token and the f32
+    combine (``_experts``), then the shared experts."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])                                # [T, D]
+    gates = _gate_map(mp["router"]["kernel"], x2, cfg)
+    routed = _experts(mp["experts"], x2, gates).to(x.dtype)
     if "shared" in mp:
-        sh = mp["shared"]
-        sg = quantized_matmul(x2, sh["gate_proj"]["kernel"])
-        su = quantized_matmul(x2, sh["up_proj"]["kernel"])
-        routed = routed + quantized_matmul(
-            F.silu(sg) * su, sh["down_proj"]["kernel"]).to(routed.dtype)
+        routed = routed + _dense_mlp(mp["shared"], x2).to(routed.dtype)
+    return routed.reshape(shape)
+
+
+def _moe_mlp_sharded(params: ShardedParams, l: int, x: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """``_moe_mlp`` of MoE layer ``l`` over the (expert, model) shards:
+    the gate map once on the first device; each shard's experts (its ffn
+    columns) combined with its columns of the map in f32, the combines
+    summed over every shard; the shared experts' partials summed over the
+    model shards."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    first = params.tree()["moe"]
+    gates = _gate_map(first["router"]["kernel"][l], x2, cfg)
+    E_loc = cfg.num_experts // params.expert
+    xs = broadcast(x2, params.devices)
+    parts = []
+    for i, (tree, dev) in enumerate(zip(params.trees, params.devices)):
+        e = i // params.model
+        g = gates[:, e * E_loc:(e + 1) * E_loc].to(dev)
+        parts.append(_experts(_at(tree["moe"]["experts"], l), xs[i], g))
+    routed = all_reduce(parts, x.device).to(x.dtype)
+    if "shared" in first:
+        shared = all_reduce(
+            [_dense_mlp(_at(t["moe"]["shared"], l), xi) for t, xi in
+             zip(params.model_trees, xs[:params.model])], x.device)
+        routed = routed + shared.to(routed.dtype)
     return routed.reshape(shape)
 
 
@@ -326,8 +421,10 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """The layer loop, each layer's K/V written into ``kv_pages`` in place
     (None: the embeddings path, no pool, ``prefix_lens`` zeros). ``mode``
     is "prefill" or "decode"; ``ring`` takes the prefill's attention over
-    the sharded pool's seq axis. A GQA decode step over a sharded pool
-    compacts its tables once for every layer (``cp_tables``)."""
+    the sharded pool's seq axis. A GQA decode step over a pool sharded by
+    page range compacts its tables once for every layer (``cp_tables``).
+    Attention and the dense MLP run per model shard, their partial output
+    products summed; the MoE MLP per (expert, model) shard."""
     use_mla = cfg.kv_lora_rank > 0
     Ld = cfg.first_dense_layers
     dense = kv_pages is None
@@ -339,36 +436,50 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                cfg.rope_theta)
     else:
         cos_sin = _rope(cfg, positions, x[..., 0])
+    shards = forward_shards(params, cfg, kv_pages)
+    cos, sin = (on_shards(shards, t) for t in cos_sin)
+    pts, pls, sls, pos, cls = (on_shards(shards, t) for t in (
+        page_table, prefix_lens, seq_lens, positions, context_lens))
     for l in range(cfg.num_layers):
-        lp = _at(params["layers"], l)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_eps)
-        k_pages, v_pages = ((None, None) if dense
-                            else (kv_pages[l, 0], kv_pages[l, 1]))
-        if use_mla:
-            attn = _mla_attention(lp, cfg, h, "dense" if dense else mode,
-                                  k_pages, v_pages, page_table, prefix_lens,
-                                  seq_lens, cos_sin, context_lens, positions,
-                                  has_prefix, ring)
-        else:
-            q, k, v = _project_qkv(lp, h, cfg, cos_sin)
-            if dense:
-                attn = prefill_attention(q, k, v, None, None, None,
-                                         prefix_lens, seq_lens)
-            elif mode == "prefill":
-                write_prefill_kv(k_pages, v_pages, k, v, page_table,
-                                 prefix_lens, seq_lens)
-                attn = prefill_attention(q, k, v, k_pages, v_pages,
-                                         page_table, prefix_lens, seq_lens,
-                                         has_prefix=has_prefix, ring=ring)
+        lps = [_at(s.tree["layers"], l) for s in shards]
+        h = rms_norm(x, lps[0]["input_norm"]["scale"], cfg.rms_eps)
+        parts = []
+        for i, (s, lp, hi) in enumerate(zip(shards, lps,
+                                            on_shards(shards, h))):
+            c = s.cfg
+            k_pages, v_pages = ((None, None) if dense
+                                else (s.pool[l, 0], s.pool[l, 1]))
+            if use_mla:
+                attn = _mla_attention(lp, c, hi, "dense" if dense else mode,
+                                      k_pages, v_pages, pts[i], pls[i],
+                                      sls[i], (cos[i], sin[i]), cls[i],
+                                      pos[i], has_prefix, ring)
             else:
-                attn, _, _ = decode_attention_step(q, k, v, k_pages, v_pages,
-                                                   page_table, context_lens,
-                                                   cp_tables=tables)
-            attn = attn.reshape(*attn.shape[:-2], cfg.q_size)
-        x = x + quantized_matmul(attn, lp["o_proj"]["kernel"])
-        h2 = rms_norm(x, lp["post_attn_norm"]["scale"], cfg.rms_eps)
+                q, k, v = _project_qkv(lp, hi, c, (cos[i], sin[i]))
+                if dense:
+                    attn = prefill_attention(q, k, v, None, None, None,
+                                             pls[i], sls[i])
+                elif mode == "prefill":
+                    write_prefill_kv(k_pages, v_pages, k, v, pts[i], pls[i],
+                                     sls[i])
+                    attn = prefill_attention(q, k, v, k_pages, v_pages,
+                                             pts[i], pls[i], sls[i],
+                                             has_prefix=has_prefix,
+                                             ring=ring)
+                else:
+                    attn, _, _ = decode_attention_step(
+                        q, k, v, k_pages, v_pages, pts[i], cls[i],
+                        cp_tables=tables)
+                attn = attn.reshape(*attn.shape[:-2], c.q_size)
+            parts.append(quantized_matmul(attn, lp["o_proj"]["kernel"]))
+        x = x + all_reduce(parts, x.device)
+        h2 = rms_norm(x, lps[0]["post_attn_norm"]["scale"], cfg.rms_eps)
         if l < Ld:
-            x = x + _dense_mlp(_at(params["dense_mlp"], l), h2)
+            x = x + all_reduce(
+                [_dense_mlp(_at(s.tree["dense_mlp"], l), hi) for s, hi in
+                 zip(shards, on_shards(shards, h2))], x.device)
+        elif isinstance(params, ShardedParams):
+            x = x + _moe_mlp_sharded(params, l - Ld, h2, cfg)
         else:
             x = x + _moe_mlp(_at(params["moe"], l - Ld), h2, cfg)
     return x
@@ -444,7 +555,8 @@ def embed_forward(params: Params, cfg: ModelConfig,
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), None,
                     "prefill", None, zeros, seq_lens, positions, None)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = rms_norm(x, replicated_tree(params)["final_norm"]["scale"],
+                 cfg.rms_eps)
     mask = (torch.arange(S, device=x.device)[None, :]
             < seq_lens.long()[:, None])[..., None]
     summed = torch.where(mask, x.float(), 0.0).sum(dim=1)
@@ -459,4 +571,5 @@ register_model_family(ModelFamily(
     verify_forward=verify_forward,
     embed_forward=embed_forward,
     supports_int8=True,
+    sharding_rules=MOE_STACKED_RULES,
 ))

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from .base import ModelConfig, ModelFamily, register_model_family
 from .llama import (
+    LLAMA_STACKED_RULES,
     decode_forward,
     embed_forward,
     init_params,
@@ -84,5 +85,6 @@ register_model_family(ModelFamily(
     embed_forward=embed_forward,
     mixed_decode_chunk_forward=mixed_decode_chunk_forward,
     verify_forward=verify_forward,
+    sharding_rules=LLAMA_STACKED_RULES,
     supports_int8=True,
 ))

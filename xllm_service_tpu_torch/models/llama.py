@@ -16,11 +16,22 @@ compute the same thing. The layer loop is a Python loop; the KV pool
 ``[L, 2, P, n_kv, ps, hd]`` is updated in place. The pool may be sharded
 over a mesh's ``seq`` axis (``ShardedPages``): the forwards then compute on
 the mesh's first device and the attention ops route per shard.
+
+Under a mesh's ``model`` axis the parameters are a ``ShardedParams``
+(``LLAMA_STACKED_RULES``) and the pool a ``ModelShardedPages``: every
+forward runs each layer once per model shard (``forward_shards``) —
+q/k/v, gate and up column-parallel, each shard's query heads against its
+own KV heads, o and down row-parallel with the partial products summed
+(``all_reduce``) — while the norms and the residual stream are computed
+once on the mesh's first device. The embedding takes each row from the
+shard that holds it, and the logits of the vocabulary shards are joined
+before sampling (``all_gather``). An unsharded tree is the one-shard case
+of the same loop, with no copy and no reduction.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,10 +46,79 @@ from ..ops.attention import (
     write_prefill_kv,
 )
 from ..ops.cp_paged_attention import ShardedPages, cp_tables
-from .base import ModelConfig, ModelFamily, register_model_family
-from .quant import quantized_matmul
+from ..parallel.mesh import AXIS_MODEL
+from ..parallel.sharding import (
+    ModelShardedPages,
+    ShardedParams,
+    ShardingRules,
+    all_gather,
+    all_reduce,
+    broadcast,
+)
+from .base import ModelConfig, ModelFamily, register_model_family, \
+    shard_config
+from .quant import quantize_kernel, quantized_matmul
 
 Params = dict
+
+
+# Stacked-layer sharding rules (the reference's, leading L dim on every
+# layer tensor). int8 ``/scale`` leaves come first (the first match wins):
+# a scale [L, out] shards with a column-parallel kernel's output dim and is
+# replicated for a row-parallel one, whose sharded dim is the contraction
+# it reduced over. The ``q8`` leaf matches its kernel's pattern.
+LLAMA_STACKED_RULES = ShardingRules(rules=[
+    (r"embed/embedding", (AXIS_MODEL, None)),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)/kernel/scale",
+     (None, AXIS_MODEL)),
+    (r"(o_proj|down_proj)/kernel/scale", ()),
+    (r"lm_head/kernel/scale", (AXIS_MODEL,)),
+    (r"(q_proj|k_proj|v_proj)/kernel", (None, None, AXIS_MODEL)),
+    (r"(q_proj|k_proj|v_proj)/bias", (None, AXIS_MODEL)),
+    (r"o_proj/kernel", (None, AXIS_MODEL, None)),
+    (r"(gate_proj|up_proj)/kernel", (None, None, AXIS_MODEL)),
+    (r"down_proj/kernel", (None, AXIS_MODEL, None)),
+    (r"lm_head/kernel", (None, AXIS_MODEL)),
+])
+
+
+# Columns of a projection quantized at once by the int8 draw.
+QUANT_COLUMNS = 8192
+
+
+class Shard(NamedTuple):
+    """One model shard of a forward: its tree, the config it computes
+    with (its heads and ffn), its pool (None without one) and its device
+    (None for an unsharded tree: where the inputs lie)."""
+    tree: dict
+    cfg: ModelConfig
+    pool: object
+    device: Optional[torch.device]
+
+
+def forward_shards(params, cfg: ModelConfig, kv_pages=None) -> list[Shard]:
+    """The model shards a forward runs: one (the tree itself) for an
+    unsharded tree; for a ``ShardedParams`` the trees of the model axis at
+    expert index 0, each with its part of a ``ModelShardedPages`` pool."""
+    if not isinstance(params, ShardedParams):
+        return [Shard(params, cfg, kv_pages, None)]
+    scfg = shard_config(cfg, params.model)
+    if isinstance(kv_pages, ModelShardedPages):
+        pools = kv_pages.shards
+    elif kv_pages is None or params.model == 1:
+        pools = [kv_pages] * params.model
+    else:
+        raise TypeError("a tree sharded over a model axis needs a "
+                        "ModelShardedPages pool")
+    return [Shard(t, scfg, p, d) for t, p, d in
+            zip(params.model_trees, pools, params.model_devices)]
+
+
+def on_shards(shards: list[Shard], x):
+    """``x`` (a tensor, or None) on each shard's device."""
+    if x is None or shards[0].device is None:
+        return [x] * len(shards)
+    return broadcast(x, [s.device for s in shards])
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -50,19 +130,47 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     Layer tensors are drawn one layer at a time so a full-width model never
     holds an f32 copy of a whole stacked projection. Biases are zeros and
     norm scales ones, or zeros under ``rms_unit_offset`` (the norm then
-    computes 1 + w), as the reference draws them."""
+    computes 1 + w), as the reference draws them. Under ``cfg.quant ==
+    "int8"`` each drawn layer of a projection is quantized at once into
+    its ``{"q8", "scale"}`` (the draw does not depend on the mode, so the
+    leaves equal ``quantize_tree`` of the model-dtype tree bit for bit),
+    and the model dtype's peak is one layer of one projection: a model
+    whose model-dtype tree does not fit the card (Llama-3-70B) never
+    exists whole in it."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     D, L = cfg.hidden_size, cfg.num_layers
     Hq, Hkv, F_ = cfg.q_size, cfg.kv_size, cfg.ffn_size
 
-    def dense(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+    quant = cfg.quant == "int8"
+
+    def dense(shape, fan_in, projection=True):
+        if not (quant and projection):
+            out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+            for i in range(shape[0] if len(shape) == 3 else 1):
+                dst = out[i] if len(shape) == 3 else out
+                dst.copy_(torch.randn(dst.shape, generator=generator,
+                                      device=dev, dtype=torch.float32)
+                          * (fan_in ** -0.5))
+            return out
+        out = {"q8": torch.empty(shape, dtype=torch.int8, device=dev),
+               "scale": torch.empty((*shape[:-2], shape[-1]),
+                                    dtype=torch.float32, device=dev)}
         for i in range(shape[0] if len(shape) == 3 else 1):
-            dst = out[i] if len(shape) == 3 else out
-            dst.copy_(torch.randn(dst.shape, generator=generator, device=dev,
-                                  dtype=torch.float32) * (fan_in ** -0.5))
+            part = shape[1:] if len(shape) == 3 else shape
+            w = torch.randn(part, generator=generator, device=dev,
+                            dtype=torch.float32)
+            w = w.mul_(fan_in ** -0.5).to(cfg.dtype)
+            q8, scale = ((out["q8"][i], out["scale"][i]) if len(shape) == 3
+                         else (out["q8"], out["scale"]))
+            # Output channels quantize independently: in column blocks,
+            # so a [8192, 128256] lm_head needs no f32 copy of itself.
+            for c in range(0, part[-1], QUANT_COLUMNS):
+                q = quantize_kernel(w[:, c:c + QUANT_COLUMNS])
+                q8[:, c:c + QUANT_COLUMNS] = q["q8"]
+                scale[c:c + QUANT_COLUMNS] = q["scale"]
+            del w
         return out
 
     def norm_init(shape):
@@ -73,7 +181,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return torch.zeros(shape, dtype=cfg.dtype, device=dev)
 
     params: Params = {
-        "embed": {"embedding": dense((cfg.vocab_size, D), D)},
+        "embed": {"embedding": dense((cfg.vocab_size, D), D, False)},
         "layers": {
             "input_norm": {"scale": norm_init((L, D))},
             "q_proj": {"kernel": dense((L, D, Hq), D)},
@@ -171,34 +279,73 @@ def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return quantized_matmul(act * up, lp["down_proj"]["kernel"])
 
 
-def _attn_mlp_residual(lp: dict, x: torch.Tensor, attn: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """Fold the attention output and the MLP into the residual stream.
+def _attn_mlp_residual(shards: list[Shard], lps: list[dict],
+                       x: torch.Tensor, o: torch.Tensor, cfg: ModelConfig
+                       ) -> torch.Tensor:
+    """Fold the attention's output projection ``o`` (summed over the
+    shards) and the MLP into the residual stream; each shard's MLP runs
+    its ffn columns and their partial products are summed.
     ``sandwich_norms`` (Gemma-2) norms the attention and MLP outputs too:
-    x += post_attn_norm(o_proj(attn)); x += post_ffw_norm(mlp(
-    pre_ffw_norm(x)))."""
-    o = quantized_matmul(attn, lp["o_proj"]["kernel"])
+    x += post_attn_norm(o); x += post_ffw_norm(mlp(pre_ffw_norm(x)))."""
+    def mlp(h2: torch.Tensor) -> torch.Tensor:
+        return all_reduce([_mlp(lp, h, s.cfg) for s, lp, h in
+                           zip(shards, lps, on_shards(shards, h2))],
+                          h2.device)
+
     if cfg.sandwich_norms:
-        x = x + _norm(o, lp["post_attn_norm"]["scale"], cfg)
-        h2 = _norm(x, lp["pre_ffw_norm"]["scale"], cfg)
-        return x + _norm(_mlp(lp, h2, cfg), lp["post_ffw_norm"]["scale"],
-                         cfg)
+        x = x + _norm(o, lps[0]["post_attn_norm"]["scale"], cfg)
+        h2 = _norm(x, lps[0]["pre_ffw_norm"]["scale"], cfg)
+        return x + _norm(mlp(h2), lps[0]["post_ffw_norm"]["scale"], cfg)
     x = x + o
-    h2 = _norm(x, lp["post_attn_norm"]["scale"], cfg)
-    return x + _mlp(lp, h2, cfg)
+    h2 = _norm(x, lps[0]["post_attn_norm"]["scale"], cfg)
+    return x + mlp(h2)
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _layers(shards: list[Shard], cfg: ModelConfig, x: torch.Tensor,
+            attend) -> torch.Tensor:
+    """Every layer over the residual stream ``x``: the input norm once,
+    then on each shard ``attend(i, l, lp, h)`` (shard ``i``'s attention
+    over its heads of layer ``l``, [..., H_i, hd], its K/V written into
+    its pool) and its output projection, the partials summed in shard
+    order, then the MLP."""
+    for l in range(cfg.num_layers):
+        lps = [_layer(s.tree, l) for s in shards]
+        h = _norm(x, lps[0]["input_norm"]["scale"], cfg)
+        parts = []
+        for i, (s, lp, hi) in enumerate(zip(shards, lps,
+                                            on_shards(shards, h))):
+            attn = attend(i, l, lp, hi)
+            parts.append(quantized_matmul(
+                attn.reshape(*attn.shape[:-2], s.cfg.q_size),
+                lp["o_proj"]["kernel"]))
+        x = _attn_mlp_residual(shards, lps, x, all_reduce(parts, x.device),
+                               cfg)
+    return x
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows of ``tokens``, with the reference's gather semantics:
     a negative id wraps like numpy's and an id past the vocabulary is
     clamped to its last row (the reference's ``embedding[tokens]`` in JAX
-    clamps out-of-range ids; a torch index would raise)."""
-    table = params["embed"]["embedding"]
-    V = table.shape[0]
+    clamps out-of-range ids; a torch index would raise). A vocabulary-
+    sharded table gives each row from the shard that holds it."""
+    tables = ([t["embed"]["embedding"] for t in params.model_trees]
+              if isinstance(params, ShardedParams)
+              else [params["embed"]["embedding"]])
+    Vl = tables[0].shape[0]
+    V = Vl * len(tables)
     idx = tokens.long()
     idx = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
-    x = table[idx].to(cfg.dtype)
+    if len(tables) == 1:
+        x = tables[0][idx]
+    else:
+        owner = (idx // Vl)[..., None]
+        x = None
+        for m, table in enumerate(tables):
+            local = (idx - m * Vl).clamp(0, Vl - 1).to(table.device)
+            rows = table[local].to(idx.device)
+            x = rows if x is None else torch.where(owner == m, rows, x)
+    x = x.to(cfg.dtype)
     if cfg.embed_scale:
         # gemma scales by sqrt(hidden), cast to the model dtype first as
         # the reference's jnp.asarray(h ** 0.5, dtype) (bf16: 59.75 for
@@ -207,13 +354,18 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     return x
 
 
-def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = _norm(x, params["final_norm"]["scale"], cfg)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["embedding"].T
-    else:
-        logits = quantized_matmul(x, params["lm_head"]["kernel"])
-    logits = logits.float()
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and logits [..., V] f32; vocabulary shards' logits are
+    joined on the first device."""
+    shards = forward_shards(params, cfg)
+    x = _norm(x, shards[0].tree["final_norm"]["scale"], cfg)
+    parts = []
+    for s, xi in zip(shards, on_shards(shards, x)):
+        if cfg.tie_embeddings:
+            parts.append(xi @ s.tree["embed"]["embedding"].T)
+        else:
+            parts.append(quantized_matmul(xi, s.tree["lm_head"]["kernel"]))
+    logits = all_gather(parts, -1, x.device).float()
     if cfg.final_logit_softcap > 0:       # gemma-2's tanh cap
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -259,19 +411,21 @@ def prefill_from_embeddings(params: Params, cfg: ModelConfig,
     prediction); by default only the last valid token's [B, V]."""
     if has_prefix is None:
         has_prefix = bool((prefix_lens > 0).any())
-    cos_sin = _rope(cfg, positions, x[..., 0])
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        h = _norm(x, lp["input_norm"]["scale"], cfg)
-        q, k, v = _project_qkv(lp, h, cfg, cos_sin)
-        k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
-        write_prefill_kv(k_pages, v_pages, k, v, page_table, prefix_lens,
-                         seq_lens)
-        attn = prefill_attention(q, k, v, k_pages, v_pages, page_table,
-                                 prefix_lens, seq_lens, has_prefix=has_prefix,
-                                 ring=ring, **_attn_opts(cfg, l))
-        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
-                                                   cfg.q_size), cfg)
+    shards = forward_shards(params, cfg, kv_pages)
+    cos, sin = (on_shards(shards, t) for t in _rope(cfg, positions, x[..., 0]))
+    pts, pls, sls = (on_shards(shards, t)
+                     for t in (page_table, prefix_lens, seq_lens))
+
+    def attend(i, l, lp, h):
+        s = shards[i]
+        q, k, v = _project_qkv(lp, h, s.cfg, (cos[i], sin[i]))
+        k_pages, v_pages = s.pool[l, 0], s.pool[l, 1]
+        write_prefill_kv(k_pages, v_pages, k, v, pts[i], pls[i], sls[i])
+        return prefill_attention(q, k, v, k_pages, v_pages, pts[i], pls[i],
+                                 sls[i], has_prefix=has_prefix, ring=ring,
+                                 **_attn_opts(cfg, l))
+
+    x = _layers(shards, cfg, x, attend)
     if all_logits:
         return _unembed(params, cfg, x), kv_pages
     idx = torch.clamp(seq_lens.long() - 1, min=0)
@@ -315,8 +469,9 @@ def decode_forward(params: Params, cfg: ModelConfig,
     """One decode step. Returns (logits [B, V] f32, kv_pages); the new
     tokens' K/V are written into ``kv_pages`` in place and every layer's
     attention runs through the paged-attention wrapper (the CUDA kernel
-    on the card). With a sharded pool every layer runs the
-    context-parallel op on tables compacted once for the step.
+    on the card; once per model shard over a head-sharded pool). With a
+    pool sharded over the seq axis every layer runs the context-parallel
+    op on tables compacted once for the step.
 
     ``rope_positions`` [B] (M-RoPE, qwen2_vl): rope rotates q and k at
     these positions (the sequence index plus the slot's delta left by its
@@ -328,17 +483,21 @@ def decode_forward(params: Params, cfg: ModelConfig,
     if rope_positions is None:
         rope_positions = positions
     # Rope's cos/sin once for the step, shared by every layer's q and k.
-    cos_sin = _rope(cfg, rope_positions, tokens)
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        h = _norm(x, lp["input_norm"]["scale"], cfg)
-        q, k, v = _project_qkv(lp, h, cfg, cos_sin)             # [B, H, hd]
-        attn, _, _ = decode_attention_step(q, k, v, kv_pages[l, 0],
-                                           kv_pages[l, 1], page_table,
-                                           context_lens, cp_tables=tables,
+    shards = forward_shards(params, cfg, kv_pages)
+    cos, sin = (on_shards(shards, t)
+                for t in _rope(cfg, rope_positions, tokens))
+    pts, cls = (on_shards(shards, t) for t in (page_table, context_lens))
+
+    def attend(i, l, lp, h):
+        s = shards[i]
+        q, k, v = _project_qkv(lp, h, s.cfg, (cos[i], sin[i]))  # [B, H, hd]
+        attn, _, _ = decode_attention_step(q, k, v, s.pool[l, 0],
+                                           s.pool[l, 1], pts[i], cls[i],
+                                           cp_tables=tables,
                                            **_attn_opts(cfg, l))
-        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
-                                                   cfg.q_size), cfg)
+        return attn
+
+    x = _layers(shards, cfg, x, attend)
     return _unembed(params, cfg, x), kv_pages
 
 
@@ -354,17 +513,19 @@ def embed_forward(params: Params, cfg: ModelConfig,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
-    cos_sin = _rope(cfg, positions, tokens)
-    zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        h = _norm(x, lp["input_norm"]["scale"], cfg)
-        q, k, v = _project_qkv(lp, h, cfg, cos_sin)
-        attn = prefill_attention(q, k, v, None, None, None, zeros, seq_lens,
-                                 **_attn_opts(cfg, l))
-        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
-                                                   cfg.q_size), cfg)
-    x = _norm(x, params["final_norm"]["scale"], cfg)
+    shards = forward_shards(params, cfg)
+    cos, sin = (on_shards(shards, t) for t in _rope(cfg, positions, tokens))
+    zeros = on_shards(shards, torch.zeros((B,), dtype=torch.int32,
+                                          device=tokens.device))
+    sls = on_shards(shards, seq_lens)
+
+    def attend(i, l, lp, h):
+        q, k, v = _project_qkv(lp, h, shards[i].cfg, (cos[i], sin[i]))
+        return prefill_attention(q, k, v, None, None, None, zeros[i],
+                                 sls[i], **_attn_opts(cfg, l))
+
+    x = _layers(shards, cfg, x, attend)
+    x = _norm(x, shards[0].tree["final_norm"]["scale"], cfg)
     mask = (torch.arange(S, device=x.device)[None, :]
             < seq_lens.long()[:, None])[..., None]
     summed = torch.where(mask, x.float(), 0.0).sum(dim=1)
@@ -405,26 +566,28 @@ def mixed_decode_chunk_forward(
     x = torch.cat([_embed(params, cfg, dec_tokens),
                    _embed(params, cfg, chunk_tokens)])            # [B+c, D]
     tokens = torch.cat([dec_tokens, chunk_tokens])
-    cos_sin = _rope(cfg, torch.cat([dec_positions, chunk_positions]), tokens)
-    start = chunk_start.reshape(1)
-    valid = chunk_valid.reshape(1)
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+    shards = forward_shards(params, cfg, kv_pages)
+    cos, sin = (on_shards(shards, t) for t in _rope(
+        cfg, torch.cat([dec_positions, chunk_positions]), tokens))
+    dpt, cpt, dcl, start, valid = (on_shards(shards, t) for t in (
+        dec_pt, chunk_pt, dec_clens, chunk_start.reshape(1),
+        chunk_valid.reshape(1)))
+
+    def attend(i, l, lp, h):
+        s = shards[i]
         opts = _attn_opts(cfg, l)
-        h = _norm(x, lp["input_norm"]["scale"], cfg)
-        q, k, v = _project_qkv(lp, h, cfg, cos_sin)           # [B+c, H, hd]
-        k_pages, v_pages = kv_pages[l, 0], kv_pages[l, 1]
+        q, k, v = _project_qkv(lp, h, s.cfg, (cos[i], sin[i]))  # [B+c, H, hd]
+        k_pages, v_pages = s.pool[l, 0], s.pool[l, 1]
         write_prefill_kv(k_pages, v_pages, k[None, B:], v[None, B:],
-                         chunk_pt, start, valid)
+                         cpt[i], start[i], valid[i])
         attn_d, _, _ = decode_attention_step(q[:B], k[:B], v[:B], k_pages,
-                                             v_pages, dec_pt, dec_clens,
-                                             **opts)
+                                             v_pages, dpt[i], dcl[i], **opts)
         attn_c = prefill_attention(q[None, B:], k[None, B:], v[None, B:],
-                                   k_pages, v_pages, chunk_pt, start, valid,
-                                   has_prefix=True, **opts)
-        attn = torch.cat([attn_d, attn_c[0]])
-        x = _attn_mlp_residual(lp, x, attn.reshape(*attn.shape[:-2],
-                                                   cfg.q_size), cfg)
+                                   k_pages, v_pages, cpt[i], start[i],
+                                   valid[i], has_prefix=True, **opts)
+        return torch.cat([attn_d, attn_c[0]])
+
+    x = _layers(shards, cfg, x, attend)
     return _unembed(params, cfg, x[:B]), kv_pages
 
 
@@ -437,4 +600,5 @@ register_model_family(ModelFamily(
     mixed_decode_chunk_forward=mixed_decode_chunk_forward,
     verify_forward=verify_forward,
     supports_int8=True,
+    sharding_rules=LLAMA_STACKED_RULES,
 ))

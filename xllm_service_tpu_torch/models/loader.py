@@ -35,6 +35,10 @@ k_rope, ``kv_b_proj`` -> k_up and v_up), the experts stacked ``[Lm, E,
 ...]``, the leading dense layers' MLP into ``dense_mlp``; every leaf in
 the model's dtype, the router included, as the reference's cast.
 
+Every loader takes the reference's ``mesh`` and ``rules``: the tree is
+then read onto the mesh's first device and each (expert, model) shard
+placed on its device (``_on_mesh``).
+
 The vision loader (``load_hf_qwen2_vl_safetensors``) maps the LM as
 qwen2's and the ``visual.*`` tower onto ``models/qwen2_vl.py``'s encoder,
 as the reference's: the Conv3d patch embedding flattened to the (c, t, ph,
@@ -53,8 +57,10 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..common.device import resolve_device
+from ..parallel.mesh import DeviceMesh
+from ..parallel.sharding import ShardingRules, shard_params
 from .base import ModelConfig
-from .quant import QUANT_KERNELS, quantize_kernel
+from .quant import QUANT_KERNELS, quantize_kernel, quantize_tree
 from .safetensors_io import SafeTensorsFile, save_file, shard_files
 
 logger = logging.getLogger(__name__)
@@ -230,6 +236,29 @@ def _load_pieces(ckpt_dir: Union[str, Path], cfg: ModelConfig,
     return tree
 
 
+def _device(device, mesh: Optional[DeviceMesh]):
+    """Where a loader reads: the mesh's first device under a mesh."""
+    return mesh.devices[0] if mesh is not None and device is None \
+        else device
+
+
+def _on_mesh(tree: Params, cfg: ModelConfig, mesh: Optional[DeviceMesh],
+             rules: Optional[ShardingRules]) -> Params:
+    """A loaded tree on ``mesh`` (the reference's ``mesh=``/``rules=``):
+    under int8 its remaining projections quantized first (a row-parallel
+    kernel's scale reduces over the whole contraction), then each (expert,
+    model) shard on its device (``shard_params``: views of the tree on a
+    repeated device, copies elsewhere). The engine takes such a tree as it
+    is. Without a mesh the tree itself."""
+    if mesh is None:
+        return tree
+    if rules is None:
+        raise ValueError("a mesh needs the family's sharding rules")
+    if cfg.quant:
+        tree = quantize_tree(tree)
+    return shard_params(tree, mesh, rules)
+
+
 def _layer_index(name: str, num_layers: int) -> tuple[int, str]:
     idx_str, _, leaf = name[len("model.layers."):].partition(".")
     li = int(idx_str)
@@ -241,7 +270,9 @@ def _layer_index(name: str, num_layers: int) -> tuple[int, str]:
 
 def load_hf_llama_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
                               device: Optional[Union[str, torch.device]]
-                              = None) -> Params:
+                              = None, mesh: Optional[DeviceMesh] = None,
+                              rules: Optional[ShardingRules] = None
+                              ) -> Params:
     """Load an HF llama/qwen2/gemma2 checkpoint directory (``*.safetensors``
     shards) into the stacked tree on ``device`` (``cuda`` unless named), in
     ``cfg.dtype``."""
@@ -259,15 +290,18 @@ def load_hf_llama_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
         return [(f"layers/{path}", (li,), _t if transpose else _same,
                  shape[::-1] if transpose else shape)]
 
-    return _load_pieces(ckpt_dir, cfg, device, place,
-                        lambda path: (L,) if path.startswith("layers/")
-                        else (), missing_word="layers")
+    return _on_mesh(_load_pieces(
+        ckpt_dir, cfg, _device(device, mesh), place,
+        lambda path: (L,) if path.startswith("layers/") else (),
+        missing_word="layers"), cfg, mesh, rules)
 
 
 def load_hf_deepseek_safetensors(ckpt_dir: Union[str, Path],
                                  cfg: ModelConfig,
                                  device: Optional[Union[str, torch.device]]
-                                 = None) -> Params:
+                                 = None, mesh: Optional[DeviceMesh] = None,
+                                 rules: Optional[ShardingRules] = None
+                                 ) -> Params:
     """An HF DeepSeek-V2/V3 checkpoint directory -> the deepseek_moe tree
     on ``device`` (``cuda`` unless named): the MLA projections split and
     reshaped (``kv_a_proj_with_mqa`` rows -> kv_down ‖ k_rope, ``kv_b_proj``
@@ -344,7 +378,8 @@ def load_hf_deepseek_safetensors(ckpt_dir: Union[str, Path],
         logger.warning("unmapped layer tensor: %s", name)
         return []
 
-    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
+    return _on_mesh(_load_pieces(ckpt_dir, cfg, _device(device, mesh),
+                                 place, stack_dims), cfg, mesh, rules)
 
 
 _MIXTRAL_EXPERT = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
@@ -352,7 +387,9 @@ _MIXTRAL_EXPERT = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
 
 def load_hf_mixtral_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
                                 device: Optional[Union[str, torch.device]]
-                                = None) -> Params:
+                                = None, mesh: Optional[DeviceMesh] = None,
+                                rules: Optional[ShardingRules] = None
+                                ) -> Params:
     """An HF Mixtral checkpoint directory -> the mixtral tree on ``device``
     (``cuda`` unless named): attention and norms as llama's,
     ``block_sparse_moe`` gate/w1/w3/w2 as router/gate_proj/up_proj/
@@ -391,7 +428,8 @@ def load_hf_mixtral_safetensors(ckpt_dir: Union[str, Path], cfg: ModelConfig,
         logger.warning("unmapped layer tensor: %s", name)
         return []
 
-    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
+    return _on_mesh(_load_pieces(ckpt_dir, cfg, _device(device, mesh),
+                                 place, stack_dims), cfg, mesh, rules)
 
 
 # visual.blocks.{i}.<leaf> -> (the vision/layers path, transpose?)
@@ -427,7 +465,9 @@ def _patch_kernel(t: torch.Tensor) -> torch.Tensor:
 def load_hf_qwen2_vl_safetensors(ckpt_dir: Union[str, Path],
                                  cfg: ModelConfig,
                                  device: Optional[Union[str, torch.device]]
-                                 = None) -> Params:
+                                 = None, mesh: Optional[DeviceMesh] = None,
+                                 rules: Optional[ShardingRules] = None
+                                 ) -> Params:
     """An HF Qwen2-VL checkpoint directory -> the qwen2_vl tree on
     ``device`` (``cuda`` unless named), in ``cfg.dtype``: the LM as
     qwen2's (the qkv-bias llama), the ``visual.*`` tower onto the
@@ -475,7 +515,8 @@ def load_hf_qwen2_vl_safetensors(ckpt_dir: Union[str, Path],
             return (Lv,)
         return ()
 
-    return _load_pieces(ckpt_dir, cfg, device, place, stack_dims)
+    return _on_mesh(_load_pieces(ckpt_dir, cfg, _device(device, mesh),
+                                 place, stack_dims), cfg, mesh, rules)
 
 
 # ------------------------------------------------------ native checkpoint
@@ -503,13 +544,14 @@ def save_params(params: Params, path: Union[str, Path]) -> None:
 
 
 def load_params(path: Union[str, Path], cfg: ModelConfig,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> Params:
+                device: Optional[Union[str, torch.device]] = None,
+                mesh: Optional[DeviceMesh] = None,
+                rules: Optional[ShardingRules] = None) -> Params:
     """A tree written by ``save_params``, on ``device`` (``cuda`` unless
     named): floating leaves in ``cfg.dtype``, the leaves of an int8 kernel
     (``q8``, ``scale``) and an MoE router (f32 from ``init_params``) as
-    written."""
-    dev = resolve_device(device)
+    written. With ``mesh`` and ``rules``, sharded as ``_on_mesh`` says."""
+    dev = resolve_device(_device(device, mesh))
     files = sorted(Path(path).glob(f"*{NATIVE_SUFFIX}"))
     if not files:
         raise FileNotFoundError(f"no native checkpoint (*{NATIVE_SUFFIX}) "
@@ -525,4 +567,4 @@ def load_params(path: Union[str, Path], cfg: ModelConfig,
                                    if as_written else cfg.dtype)
                 leaf.copy_(src.to(dev))
                 _set_path(tree, name, leaf)
-    return tree
+    return _on_mesh(tree, cfg, mesh, rules)

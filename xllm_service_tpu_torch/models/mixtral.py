@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from .base import ModelConfig, ModelFamily, register_model_family
 from .deepseek_moe import (
+    MOE_STACKED_RULES,
     decode_forward,
     embed_forward,
     init_params,
@@ -48,4 +49,5 @@ register_model_family(ModelFamily(
     verify_forward=verify_forward,
     embed_forward=embed_forward,
     supports_int8=True,
+    sharding_rules=MOE_STACKED_RULES,
 ))

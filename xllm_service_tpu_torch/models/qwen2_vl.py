@@ -28,10 +28,18 @@ import torch
 import torch.nn.functional as F
 
 from ..common.device import resolve_device
+from ..parallel.sharding import ShardingRules, replicated_tree
 from . import llama as _llama
 from .base import ModelConfig, ModelFamily, VisionConfig, register_model_family
 
 Params = dict
+
+# The vision tower is replicated (each model shard's tree holds it whole);
+# the text body takes the llama rules.
+QWEN2_VL_RULES = ShardingRules(rules=[
+    (r"vision/", ()),
+    *_llama.LLAMA_STACKED_RULES.rules,
+])
 
 IMAGE_TOKEN_ID = 151655   # Qwen2-VL's <|image_pad|> id (the splice's marker)
 
@@ -187,9 +195,10 @@ def encode_images(params: Params, cfg: ModelConfig,
     PatchMerger down to out_tokens an image. Scores, softmax and the value
     sum are f32; rope rotates q and k in f32. ``window_size`` > 0 masks
     attention to non-overlapping windows except in the blocks listed in
-    ``fullatt_block_indexes`` (Qwen2.5-VL)."""
+    ``fullatt_block_indexes`` (Qwen2.5-VL). A sharded tree's tower is
+    replicated: the first shard's is whole."""
     v = cfg.vision
-    vp = params["vision"]
+    vp = replicated_tree(params)["vision"]
     dev = vp["patch_embed"]["kernel"].device
     N = pixels.shape[0]
     p = v.patch_size
@@ -343,4 +352,5 @@ register_model_family(ModelFamily(
     init_params=init_params,
     prefill_forward=prefill_forward,
     decode_forward=_llama.decode_forward,
+    sharding_rules=QWEN2_VL_RULES,
 ))

@@ -4,10 +4,15 @@ Replace the TPU kernels
 ``xllm_service_tpu/ops/pallas_page_dma.py::gather_kv_pages`` and
 ``::scatter_kv_pages`` with the hand-written CUDA kernel
 ``csrc/page_dma.cu`` (built by ``ops/_build.py``). The pool is
-``[L, 2, P, n_kv, ps, hd]``, as one tensor or as a ``ShardedPages`` (the
+``[L, 2, P, n_kv, ps, hd]``, as one tensor, as a ``ShardedPages`` (the
 pool of a seq mesh: shard ``d`` holds global pages ``[d * P_loc, (d + 1) *
-P_loc)``); a block buffer is ``[L, 2, n, n_kv, ps, hd]`` for ``n`` page
-ids. Gather copies the pages out into a NEW block on the pool's first
+P_loc)``) or as a ``ModelShardedPages`` (the pool of a model axis: shard
+``m`` holds its KV heads of every page, or the whole pool where the heads
+do not divide); a block buffer is ``[L, 2, n, n_kv, ps, hd]`` for ``n``
+page ids. Over a head-sharded pool each mover launches once per shard,
+on the shard's part of the block (``gather_kv_shards``); the block is the
+shards' parts joined on the head axis on the first device, the
+reference's layout, which the tiers and the host handoff paths keep. Gather copies the pages out into a NEW block on the pool's first
 device (the pool is untouched, so the engine can download the block
 off-thread while later kernels recycle the pages); scatter writes a block
 back into the pool.
@@ -43,11 +48,12 @@ from typing import Sequence, Union
 import torch
 
 from . import _build
+from ..parallel.sharding import HEAD_DIM, ModelShardedPages, ShardedBlock
 from .cp_paged_attention import ShardedPages
 from .paged_attention import sm_count
 
 PageIds = Union[Sequence[int], torch.Tensor]
-Pool = Union[torch.Tensor, ShardedPages]
+Pool = Union[torch.Tensor, ShardedPages, ModelShardedPages]
 
 # The bulk route's shape: chunks of CHUNK_BYTES through a ring of STAGES
 # stages, BLOCKS_PER_SM blocks on each SM (the fastest of chip_smoke.py's
@@ -74,6 +80,10 @@ def _shards(kv: Pool) -> tuple[list[torch.Tensor], int]:
 def gather_kv_pages_plain(kv: Pool, page_ids: PageIds) -> torch.Tensor:
     """Plain version of the gather: ``kv[:, :, ids]`` (a new tensor; for a
     sharded pool each shard's pages, assembled on the first device)."""
+    if isinstance(kv, ModelShardedPages):
+        return kv.join([gather_kv_pages_plain(kv.shards[i], page_ids)
+                        for i in (kv.distinct()[:1] if kv.replicated
+                                  else range(len(kv.shards)))])
     if not isinstance(kv, ShardedPages):
         return kv[:, :, torch.as_tensor(page_ids, device=kv.device).long()]
     shards, P_loc = _shards(kv)
@@ -211,10 +221,23 @@ def _launch(name: str, shards: list[torch.Tensor], launch: Launch,
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def gather_kv_shards(kv: ModelShardedPages,
+                     page_ids: PageIds) -> list[torch.Tensor]:
+    """The gather of a head-sharded pool as each shard's part
+    ``[L, 2, n, n_kv / n_shards, ps, hd]`` on its device (one launch a
+    shard; one part, the whole block, for a replicated pool): what the
+    device handoff path offers, one buffer a shard."""
+    if kv.replicated:
+        return [gather_kv_pages(kv.shards[0], page_ids)]
+    return [gather_kv_pages(s, page_ids) for s in kv.shards]
+
+
 def gather_kv_pages(kv: Pool, page_ids: PageIds) -> torch.Tensor:
     """kv: [L, 2, P, n_kv, ps, hd] (one tensor or sharded); page_ids: n
     global host ids -> [L, 2, n, n_kv, ps, hd], a new tensor on the pool's
     first device."""
+    if isinstance(kv, ModelShardedPages):
+        return kv.join(gather_kv_shards(kv, page_ids))
     ids = _host_ids("gather_kv_pages", page_ids, kv.shape[2])
     shards, P_loc = _shards(kv)
     if shards[0].device.type == "cpu":
@@ -241,13 +264,36 @@ def gather_kv_pages(kv: Pool, page_ids: PageIds) -> torch.Tensor:
 
 
 def scatter_kv_pages(kv: Pool, page_ids: PageIds,
-                     block: torch.Tensor) -> Pool:
+                     block: Union[torch.Tensor, ShardedBlock]) -> Pool:
     """Inverse of :func:`gather_kv_pages`: write ``block``
     [L, 2, n, n_kv, ps, hd] into the pool at ``page_ids``, IN PLACE (the
     reference returns a new pool that its engine donates; here the pool is
     updated where it lies), and return the pool. The block is cast to the
     pool's dtype first, as the reference does; on a CUDA pool it must
-    already be on the pool's first device. The ids must be distinct."""
+    already be on the pool's first device. The ids must be distinct.
+
+    For a head-sharded pool ``block`` may also be a ``ShardedBlock`` of
+    as many parts (``gather_kv_shards``' layout); a canonical block is
+    split on the head axis (given whole to each copy of a replicated
+    pool), and each shard takes its part, one launch a shard. A
+    ``ShardedBlock`` for any other pool is joined first."""
+    if isinstance(block, ShardedBlock) and not (
+            isinstance(kv, ModelShardedPages) and not kv.replicated
+            and len(block.parts) == len(kv.shards)):
+        block = block.join()
+    if isinstance(kv, ModelShardedPages):
+        if isinstance(block, ShardedBlock):
+            parts = block.parts
+        else:
+            if block.shape[HEAD_DIM] != kv.shape[HEAD_DIM]:
+                raise ValueError(f"scatter_kv_pages: block shape "
+                                 f"{tuple(block.shape)} for a pool of "
+                                 f"{tuple(kv.shape)}")
+            parts = kv.split(block)
+        for i in kv.distinct():
+            shard = kv.shards[i]
+            scatter_kv_pages(shard, page_ids, parts[i].to(shard.device))
+        return kv
     ids = _host_ids("scatter_kv_pages", page_ids, kv.shape[2], unique=True)
     shards, P_loc = _shards(kv)
     want = (shards[0].shape[0], 2, ids.numel(), *shards[0].shape[3:])

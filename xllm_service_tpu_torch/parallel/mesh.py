@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -52,6 +52,15 @@ class MeshConfig:
     def num_devices(self) -> int:
         return math.prod(self.shape)
 
+    @classmethod
+    def for_devices(cls, n: int, tp: Optional[int] = None) -> "MeshConfig":
+        """The reference's default layout: every device on the model (TP)
+        axis unless ``tp`` says otherwise, the rest on ``data``."""
+        tp = tp or n
+        if n % tp:
+            raise ValueError(f"{n} devices not divisible by tp={tp}")
+        return cls(data=n // tp, model=tp)
+
 
 @dataclass(frozen=True)
 class DeviceMesh:
@@ -71,6 +80,22 @@ class DeviceMesh:
         i = self.axis_names.index(axis)
         stride = math.prod(self.sizes[i + 1:])
         return [self.devices[k * stride] for k in range(self.sizes[i])]
+
+    def device_at(self, **coords: int) -> torch.device:
+        """The device at the named axis indices, every other axis at 0."""
+        flat = 0
+        for name, size in zip(self.axis_names, self.sizes):
+            flat = flat * size + coords.get(name, 0)
+        return self.devices[flat]
+
+    def shard_devices(self) -> list[torch.device]:
+        """The devices of the (expert, model) coordinates, row-major
+        (``e * model + m``), every other axis at index 0: where the shards
+        of a parameter tree lie (``parallel/sharding.py``)."""
+        shape = self.shape
+        return [self.device_at(expert=e, model=m)
+                for e in range(shape[AXIS_EXPERT])
+                for m in range(shape[AXIS_MODEL])]
 
 
 def build_mesh(config: MeshConfig,
