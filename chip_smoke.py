@@ -320,6 +320,28 @@ Phases (any failure exits non-zero before the result line):
    its recomputation; build seconds, ``max_memory_allocated`` and tok/s
    are information) and (g) ``parallel/dryrun.py`` at the north-star
    sizes;
+4p. one engine instance over processes (``parallel/multihost.py``,
+   ``engine/multihost_driver.py``), after 4o (f): every rank a process of
+   this script (``--mh-rank``, ``--mh-agent``) with its coordinates on
+   ``cuda:0``, so the data plane is gloo (NCCL refuses two ranks on one
+   device); each rank draws the weights from seed 0 and keeps only its
+   shards. (a) Llama-3-8B bf16 at full width and depth on ``model=2`` as
+   two ranks, six greedy streams of 32 tokens and a seeded sampled one,
+   against the one-process ``model=2`` engine on phase 4's weights
+   driven by the same schedule (``mh_drive``; greedy streams by
+   ``held_to``'s rule, the sampled one equal where they all are); (b) the
+   agent as two ranks (``--tp 2``) behind the stub master, four
+   completions, the follower exiting 0 at the primary's shutdown event;
+   (c) Mixtral-8x7B int8 at full width and MH_MOE_LAYERS layers on
+   ``expert=2 x model=2`` as four ranks, against the one-process engine
+   on that mesh; (d) Llama-3-8B at MH_SEQ_LAYERS layers on ``seq=2`` as
+   two ranks (the ring over the ranks, kernel 6 on each), every stream
+   equal to the one-process ``seq=2`` engine's. Each rank prints its
+   launches (kernels 1 and 2 once a layer a step and on prefix hits,
+   kernel 6 once a layer a step on (d)), its memory after the build and
+   at the peaks, the ms of ``broadcast_bytes`` a tick and of the
+   collectives a decode step, and the backend; every follower emits the
+   primary's tokens in the same ticks and steps;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -7452,6 +7474,622 @@ def vl_phase(engine_mod, kernels, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 4p
+MH_NEW = {"a": 32, "c": 16, "d": 16}     # tokens a stream, by leg
+MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
+MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
+MH_AGENT_NEW = 16     # (b): tokens a completion
+MH_WORLD = {"a": 2, "c": 4, "d": 2}
+MH_AXES = {"a": dict(model=2), "c": dict(expert=2, model=2),
+           "d": dict(seq=2)}
+MH_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=5, ignore_eos=True)
+
+
+def phase4_config():
+    """Phase 4's engine configuration: Llama-3-8B at full width and depth
+    (phase 4p's leg (a) and its ranks serve with it too)."""
+    from xllm_service_tpu_torch.engine import EngineConfig
+    from xllm_service_tpu_torch.models.base import llama3_8b_config
+
+    return EngineConfig(model=llama3_8b_config(),
+                        num_pages=2048, page_size=16, hash_block_size=128,
+                        max_batch_size=8, max_seq_len=2048, decode_horizon=8,
+                        admission_horizon=8, seed=0)
+
+
+def mh_config(leg):
+    """The engine configuration of phase 4p's leg ``leg``, the same in this
+    process and in its ranks (random weights from seed 0)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.engine import EngineConfig
+    from xllm_service_tpu_torch.models import mixtral
+    from xllm_service_tpu_torch.models.base import llama3_8b_config
+
+    if leg == "a":
+        return phase4_config()
+    if leg == "c":
+        mcfg = replace(mixtral.mixtral_8x7b_config(), quant="int8",
+                       num_layers=MH_MOE_LAYERS)
+        return EngineConfig(model=mcfg, model_family="mixtral",
+                            num_pages=512, page_size=16, hash_block_size=128,
+                            max_batch_size=8, max_seq_len=2048,
+                            decode_horizon=8, admission_horizon=8, seed=0)
+    return EngineConfig(model=replace(llama3_8b_config(),
+                                      num_layers=MH_SEQ_LAYERS),
+                        num_pages=2048, page_size=16, hash_block_size=128,
+                        max_batch_size=8, max_seq_len=2048, decode_horizon=8,
+                        admission_horizon=8, seed=0)
+
+
+def mh_traffic(leg, V):
+    """Phase 4p's requests of leg ``leg``: four prompts at once (on (d) the
+    first is 1101 tokens and prefix-free: the ring), two more sharing the
+    first's first 512 tokens once it has its first token (prefix hits),
+    and one seeded sampled request. Returns (prompts, shared, sampled)."""
+    rng = np.random.default_rng({"a": 40, "c": 41, "d": 42}[leg])
+    first = 1101 if leg == "d" else 700
+    lens = [first, 300, 90, 500]
+    prompts = {f"g{i}": rng.integers(3, V, size=n).tolist()
+               for i, n in enumerate(lens)}
+    shared = {f"s{j}": prompts["g0"][:512]
+              + rng.integers(3, V, size=n).tolist()
+              for j, n in enumerate((100, 60))}
+    return prompts, shared, rng.integers(3, V, size=200).tolist()
+
+
+def mh_drive(submit, step, prompts, shared, sampled, max_tokens):
+    """Phase 4p's schedule, the same for a one-process engine (``step`` its
+    ``step``) and for the ranks' primary (the driver's ``tick``): the
+    prompts and the sampled request at once, the shared ones once the
+    first prompt has its first token, then steps until every request is
+    done. Returns the collectors by name."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    greedy = SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                            ignore_eos=True)
+    cols = {}
+    for name, toks in prompts.items():
+        cols[name] = Collector()
+        submit(name, toks, greedy, cols[name])
+    cols["sampled"] = Collector()
+    submit("sampled", sampled,
+           SamplingParams(max_tokens=max_tokens, **MH_SAMPLING),
+           cols["sampled"])
+    first = cols[next(iter(prompts))]
+    for _ in range(100000):
+        if shared and first.first.is_set() and \
+                not any(n in cols for n in shared):
+            for name, toks in shared.items():
+                cols[name] = Collector()
+                submit(name, toks, greedy, cols[name])
+        if len(cols) == len(prompts) + len(shared) + 1 and \
+                all(c.done.is_set() for c in cols.values()):
+            return cols
+        step()
+    raise AssertionError("phase 4p's requests never finished")
+
+
+def mh_kernels():
+    """The kernel wrappers a rank counts: kernels 1, 2, 3 and 6."""
+    from xllm_service_tpu_torch.ops.cp_paged_attention import paged_partial
+    from xllm_service_tpu_torch.ops.fused_decode_attention import (
+        fused_decode_attention,
+    )
+    from xllm_service_tpu_torch.ops.mq_paged_attention import (
+        mq_paged_attention,
+    )
+    from xllm_service_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"paged_attention": paged_attention,
+            "mq_paged_attention": mq_paged_attention,
+            "fused_decode_attention": fused_decode_attention,
+            "cp_paged_partial": paged_partial}
+
+
+def mh_rank_child(argv) -> int:
+    """``python3 chip_smoke.py --mh-rank LEG RANK WORLD PORT``: one rank of
+    phase 4p's leg LEG, a process of a gloo group of WORLD over
+    ``127.0.0.1:PORT``, its coordinates of the leg's mesh on ``cuda:0``
+    (``process_mesh``: the card shared by every rank). It builds the leg's
+    engine (the weights drawn from seed 0, only its shards kept), then the
+    primary drives ``mh_drive``'s schedule through the lockstep driver and
+    the followers run its loop until the shutdown event. It prints one
+    line ``RESULT {...}``: its tokens (a follower's are the deltas its
+    sink drops), its kernel launches, the driver's ticks and the eager
+    decode steps, the control plane's and the collectives' calls and
+    seconds, its memory and the data plane's backend."""
+    import logging
+
+    from xllm_service_tpu_torch.common.request import RequestOutput
+    from xllm_service_tpu_torch.engine import engine as engine_mod
+    from xllm_service_tpu_torch.engine import multihost_driver as md
+    from xllm_service_tpu_torch.parallel import multihost
+    from xllm_service_tpu_torch.parallel.mesh import MeshConfig, process_mesh
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    leg, rank, world, port = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = mh_kernels()
+    KERNEL_WRAPPERS.extend(kernels.values())
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, timeout_s=300)
+    cfg = mh_config(leg)
+    mcfg = MeshConfig(**MH_AXES[leg])
+    mesh = process_mesh(mcfg, [torch.device("cuda", 0)]
+                        * (mcfg.num_devices() // world))
+    t = time.monotonic()
+    eng = engine_mod.InferenceEngine(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t
+    load_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [0]
+    decode_step = eng._decode_step
+
+    def counted(*args):
+        steps[0] += 1
+        return decode_step(*args)
+
+    eng._decode_step = counted
+    drv = md.MultihostEngineDriver(eng)
+    prompts, shared, sampled = mh_traffic(leg, cfg.model.vocab_size)
+    streams: dict = {}
+
+    def sink(out: RequestOutput):
+        streams.setdefault(out.service_request_id, []).extend(
+            tk for s in out.outputs for tk in s.token_ids)
+
+    md._drop = sink
+    reset_counts()
+    multihost.reset_stats()
+    ticks = [0]
+    tick = drv.tick
+
+    def counted_tick():
+        ticks[0] += 1
+        return tick()
+
+    drv.tick = counted_tick
+    t0 = time.monotonic()
+    if rank == 0:
+        cols = mh_drive(
+            lambda n, toks, sp, col: drv.submit(engine_mod.EngineRequest(
+                n, token_ids=toks, sampling=sp, on_output=col)),
+            drv.tick, prompts, shared, sampled, MH_NEW[leg])
+        wall = time.monotonic() - t0
+        streams = {n: c.tokens for n, c in cols.items()}
+        drv.shutdown()
+        while drv.tick():
+            pass
+    else:
+        drv.follower_loop()
+        wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    report = {
+        "rank": rank, "tokens": streams, "wall_s": wall, "build_s": build_s,
+        "launches": {k: fn.launches for k, fn in kernels.items()},
+        "ticks": ticks[0], "decode_steps": steps[0],
+        "ring_prefills": eng.ring_prefills,
+        "prefix_hits": eng.stats()["prefix_hits"],
+        "stats": dict(multihost.STATS), "backend": multihost.backend(),
+        "load_peak": load_peak, "held": held,
+        "serve_peak": torch.cuda.max_memory_allocated(),
+        "pool": [list(s.shape) for s in eng.kv_pages.shards],
+        "shards": (eng.params.coords if hasattr(eng.params, "coords")
+                   else None)}
+    eng.stop()
+    print("RESULT " + json.dumps(report), flush=True)
+    return 0
+
+
+def mh_spawn(head, world, log_name, env=None):
+    """``world`` processes of this script (``head`` + the rank's index +
+    the rest of its arguments, as ``head(rank)`` gives them), each logging
+    to ``build/<log_name>.<rank>.log``. Returns [(process, log path)]."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    out = []
+    for r in range(world):
+        path = os.path.join(root, "build", f"{log_name}.{r}.log")
+        out.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *head(r)], cwd=root,
+            stdout=subprocess.PIPE, stderr=open(path, "w"), text=True,
+            env={**os.environ, **(env(r) if env else {})}), path))
+    return out
+
+
+def mh_reap(procs, timeout, tag="RESULT "):
+    """Each process's ``tag`` line, parsed, once every process has exited
+    0 (a non-zero exit or the time limit fails the phase with the last
+    lines of every failed process's log). Every process is gone when this
+    returns."""
+    import subprocess
+
+    outs = []
+    try:
+        deadline = time.monotonic() + timeout
+        for p, _ in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            outs.append(out)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for (p, path), out in zip(procs, outs):
+        if p.returncode != 0:
+            with open(path) as f:
+                tail = "".join(f.readlines()[-25:])
+            failed.append(f"{path} exited {p.returncode}:\n{tail}")
+    assert not failed, "\n".join(failed)
+    results = []
+    for (_, path), out in zip(procs, outs):
+        line = next((ln for ln in out.splitlines() if ln.startswith(tag)),
+                    None)
+        assert line is not None, f"{path} printed no {tag.strip()}"
+        results.append(json.loads(line[len(tag):]))
+    return results
+
+
+def mh_ranks(leg, card):
+    """Leg ``leg``'s ranks, started together: their RESULTs, rank order."""
+    from xllm_service_tpu_torch.common.net import pick_free_port
+
+    port = str(pick_free_port("127.0.0.1"))
+    world = MH_WORLD[leg]
+    t = time.monotonic()
+    res = mh_reap(mh_spawn(lambda r: ["--mh-rank", leg, str(r), str(world),
+                                      port], world, f"phase4p_{leg}"), 600)
+    log(f"  ({leg}) {world} ranks done in {time.monotonic() - t:.1f} s "
+        "(their start, the draw and the serving)")
+    return res
+
+
+def mh_report(leg, ranks, card, what):
+    """Log each rank's figures and check the lockstep: every follower
+    emitted the primary's tokens, every rank the same steps, prefix hits
+    and backend. Returns the launches summed over the ranks."""
+    primary = ranks[0]
+    gib = 2 ** 30
+    for r in ranks:
+        st = r["stats"]
+        ticks = max(1, r["ticks"])
+        log(f"  ({leg}) rank {r['rank']} {r['shards'] or ''}: pool "
+            f"{r['pool']}; weights and pool {r['held'] / gib:.2f} GiB held "
+            f"after the build ({r['build_s']:.1f} s; peak while building "
+            f"{r['load_peak'] / gib:.2f} GiB), peak while serving "
+            f"{r['serve_peak'] / gib:.2f} GiB; launches {r['launches']}; "
+            f"{r['ticks']} ticks, {r['decode_steps']} decode steps; "
+            f"broadcast_bytes "
+            f"{1e3 * st['broadcast_s'] / max(1, st['broadcast_calls']):.3f} "
+            f"ms a tick ({st['broadcast_calls']} calls); collectives "
+            f"{1e3 * st['collective_s'] / max(1, r['decode_steps']):.2f} ms "
+            f"a decode step, the prefills' included "
+            f"({1e3 * st['collective_s'] / ticks:.2f} ms a tick; "
+            f"{st['collective_calls']} calls, "
+            f"{st['collective_bytes'] / 2**20:.1f} MiB sent, "
+            f"{1e3 * st['collective_s'] / max(1, st['collective_calls']):.3f} ms a call); "
+            f"backend {r['backend']} (information only; {card})")
+    n_tok = sum(map(len, primary["tokens"].values()))
+    log(f"  ({leg}) {what}: {len(primary['tokens'])} requests, {n_tok} "
+        f"tokens in {primary['wall_s']:.1f} s ({n_tok / primary['wall_s']:.1f} "
+        f"generated tok/s over the ranks' lockstep; information only, "
+        f"{card})")
+    for r in ranks:
+        assert r["backend"] == "gloo", "ranks on one card took another backend"
+        assert r["tokens"] == primary["tokens"], \
+            f"rank {r['rank']} emitted other tokens than the primary"
+        assert (r["ticks"], r["decode_steps"], r["prefix_hits"]) == \
+            (primary["ticks"], primary["decode_steps"],
+             primary["prefix_hits"]), f"rank {r['rank']} left the lockstep"
+    assert primary["prefix_hits"] >= 2, "no prefix hits over the ranks"
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in primary["launches"]}
+
+
+def mh_one_process(engine_mod, leg, params, mesh):
+    """Leg ``leg``'s schedule on one process's engine over ``mesh`` (this
+    card repeated): (tokens by name, the engine's params, stats)."""
+    cfg = mh_config(leg)
+    eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
+    prompts, shared, sampled = mh_traffic(leg, cfg.model.vocab_size)
+    cols = mh_drive(
+        lambda n, toks, sp, col: eng.submit(engine_mod.EngineRequest(
+            n, token_ids=toks, sampling=sp, on_output=col)),
+        eng.step, prompts, shared, sampled, MH_NEW[leg])
+    out = ({n: c.tokens for n, c in cols.items()}, eng.params,
+           dict(eng.stats(), ring_prefills=eng.ring_prefills))
+    eng.stop()
+    return out
+
+
+def mh_compare(moe_or_llama, leg, got, want, params, served, routed, what):
+    """The ranks' streams against one process's: the greedy ones by
+    ``held_to``'s rule; the sampled one must be equal where every greedy
+    stream is (the same logits then drew the same tokens), else it is
+    logged. Returns the greedy streams that parted."""
+    cfg = mh_config(leg)
+    prompts, shared, _ = mh_traffic(leg, cfg.model.vocab_size)
+    sent = {**prompts, **shared}
+    greedy = {n: got[n] for n in sent}
+    for n, t in got.items():
+        assert len(t) == MH_NEW[leg], f"{n}: {len(t)} tokens"
+    parted = held_to(moe_or_llama, cfg, params, sent, greedy,
+                     {n: want[n] for n in sent}, what, routed=routed,
+                     served_params=served)
+    same = got["sampled"] == want["sampled"]
+    log(f"  {what}: the seeded sampled stream "
+        f"{'equal' if same else 'parted'} ({MH_SAMPLING})")
+    if not parted:
+        assert same, "the sampled stream parted where every greedy " \
+            "stream held"
+    return parted
+
+
+def mh_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --mh-agent RANK WORLD PORT ARGS...``: one
+    rank of phase 4p (b)'s agent, the agent's own entry point
+    (``engine/agent.py::main`` with ARGS) under ``XLLM_MH_COORDINATOR``,
+    ``XLLM_MH_NUM_HOSTS`` and ``XLLM_MH_HOST_ID``, the engine's mesh
+    placed on ``cuda:0`` as ``process_mesh`` takes one (``--tp 2`` alone
+    gives each rank a card of its own). When the agent's main returns (a
+    follower at the shutdown event) or exits (the primary after SIGTERM's
+    drain) it prints ``REPORT {...}``: its kernel launches, the control
+    plane's and collectives' figures and its memory."""
+    import logging
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+    from xllm_service_tpu_torch.engine import engine as engine_mod
+    from xllm_service_tpu_torch.parallel import multihost
+    from xllm_service_tpu_torch.parallel.mesh import process_mesh
+
+    rank, world, port, args = argv[0], argv[1], argv[2], argv[3:]
+    os.environ.update(XLLM_MH_COORDINATOR=f"127.0.0.1:{port}",
+                      XLLM_MH_NUM_HOSTS=world, XLLM_MH_HOST_ID=rank)
+    kernels = mh_kernels()
+    KERNEL_WRAPPERS.extend(kernels.values())
+
+    def on_card(config, device, offset=0):
+        return process_mesh(config, [torch.device("cuda", 0)]
+                            * (config.num_devices()
+                               // multihost.process_count()))
+
+    engine_mod.mesh_from_config = on_card
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    try:
+        agent_mod.main(args)
+    finally:
+        print("REPORT " + json.dumps({
+            "rank": int(rank),
+            "launches": {k: fn.launches for k, fn in kernels.items()},
+            "stats": dict(multihost.STATS), "backend": multihost.backend(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "held": torch.cuda.memory_allocated()}), flush=True)
+    return 0
+
+
+def mh_agent_leg(card):
+    """4p (b): Llama-3-8B bf16 at full width and depth served by the
+    port's agent as two ranks on this card (``--tp 2``, ``--mh-agent``):
+    the primary registers with the stub master through a coordination
+    server here and serves four completions of MH_AGENT_NEW greedy
+    tokens, dispatched as the master dispatches them; the follower mirrors
+    them and exits 0 at the shutdown event that the primary's drain sends
+    (SIGTERM). Returns the launches summed over both ranks."""
+    import signal
+
+    from xllm_service_tpu_torch.common.net import pick_free_port
+    from xllm_service_tpu_torch.common.types import InstanceMetaInfo
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.rpc import MASTER_KEY, instance_key
+
+    cfg = phase4_config()
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    port, http = pick_free_port("127.0.0.1"), pick_free_port("127.0.0.1")
+    name = f"127.0.0.1:{http}"
+    args = ["--coordination-addr", coord.addr, "--port", str(http),
+            "--model-config", "llama3_8b", "--model-id", "llama3-8b",
+            "--tp", "2", "--num-pages", "512",
+            "--page-size", str(cfg.page_size),
+            "--max-batch-size", str(cfg.max_batch_size),
+            "--max-seq-len", str(cfg.max_seq_len),
+            "--decode-horizon", str(cfg.decode_horizon)]
+    procs = mh_spawn(lambda r: ["--mh-agent", str(r), "2", str(port), *args],
+                     2, "phase4p_b")
+    post = None
+    try:
+        t = time.monotonic()
+        key = instance_key("MIX", name)
+        while store.get(key) is None:
+            assert all(p.poll() is None for p, _ in procs) and \
+                time.monotonic() - t < 600, "the primary did not register"
+            time.sleep(0.5)
+        meta = InstanceMetaInfo.from_json(store.get(key))
+        log(f"  (b) the primary registered after {time.monotonic() - t:.1f} "
+            "s (both ranks' start and draw)")
+        rng = np.random.default_rng(43)
+        V = cfg.model.vocab_size
+        requests = {f"c{i}": rng.integers(3, V, size=n).tolist()
+                    for i, n in enumerate((400, 200, 120, 64))}
+        post = Poster(name)
+        t = time.monotonic()
+        for sid, toks in requests.items():
+            status, reply = post("/v1/completions", dict(
+                service_request_id=sid, request_id=sid,
+                source_service_addr=master.addr, token_ids=toks,
+                max_tokens=MH_AGENT_NEW, temperature=0.0, ignore_eos=True))
+            assert status == 200, (sid, status, reply)
+        master.wait(lambda: all(map(master.finished, requests)),
+                    "the ranks' completions", timeout=600)
+        wall = time.monotonic() - t
+        import types
+
+        agent = types.SimpleNamespace(name=name,
+                                      incarnation_id=meta.incarnation_id)
+        toks = {n: check_deltas(n, master.gens[n], agent)[0]
+                for n in requests}
+        for n, tk in toks.items():
+            assert len(tk) == MH_AGENT_NEW, f"{n}: {len(tk)} tokens"
+            assert master.gens[n][-1]["outputs"][-1].get(
+                "finish_reason") == "length", f"{n}: not 'length'"
+        log(f"  (b) four completions through the primary: "
+            f"{len(toks)} x {MH_AGENT_NEW} tokens in {wall:.1f} s "
+            f"(information only; {card})")
+        procs[0][0].send_signal(signal.SIGTERM)
+        reports = mh_reap(procs, 300, tag="REPORT ")
+        gib = 2 ** 30
+        for r in reports:
+            st = r["stats"]
+            log(f"  (b) rank {r['rank']}: launches {r['launches']}; "
+                f"{st['broadcast_calls']} ticks, broadcast_bytes "
+                f"{1e3 * st['broadcast_s'] / max(1, st['broadcast_calls']):.3f} "
+                f"ms a tick; collectives {st['collective_calls']} calls, "
+                f"{st['collective_s']:.2f} s; peak {r['peak'] / gib:.2f} "
+                f"GiB, held at exit {r['held'] / gib:.2f} GiB; backend "
+                f"{r['backend']} ({card})")
+        assert all(r["backend"] == "gloo" for r in reports)
+        assert reports[0]["launches"] == reports[1]["launches"], \
+            "the ranks launched other kernels"
+        assert reports[0]["launches"]["paged_attention"] > 0
+        log("  (b) the follower exited 0 at the shutdown event")
+        return {k: sum(r["launches"][k] for r in reports)
+                for k in reports[0]["launches"]}
+    finally:
+        if post is not None:
+            post.close()
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        master.close()
+        coord.close()
+        store.close()
+
+
+def mh_leg_a(engine_mod, llama, params, card):
+    """4p (a): Llama-3-8B bf16 at full width and depth on ``model=2`` as
+    two ranks, against the one-process ``model=2`` engine on phase 4's
+    weights (views) driven by the same schedule: kernel 1 once a layer a
+    step and kernel 2 on the prefix hits on each rank, each rank holding
+    about half the weights and its half of the pool. Returns the launches
+    summed over the ranks."""
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    mesh = card_mesh(model=2)
+    sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
+    want, _, st = mh_one_process(engine_mod, "a", sharded, mesh)
+    log(f"  (a) the one-process model=2 engine: {st['prefix_hits']} prefix "
+        f"hits, route {st['decode_route']}")
+    torch.cuda.empty_cache()
+    ranks = mh_ranks("a", card)
+    launches = mh_report("a", ranks, card,
+                         "llama3-8b bf16 on model=2 as two ranks")
+    m = mh_config("a").model
+    pool = 2048 * PS * 2 * m.num_layers * m.num_kv_heads * m.head_dim
+    for r in ranks:
+        assert r["launches"]["paged_attention"] == \
+            m.num_layers * r["decode_steps"], \
+            "kernel 1 not once a layer a step on a rank"
+        assert r["launches"]["mq_paged_attention"] >= m.num_layers
+        assert r["pool"] == [[m.num_layers, 2, 2048, m.num_kv_heads // 2,
+                              PS, m.head_dim]]
+        assert r["held"] < 0.6 * 16.06e9 + pool, \
+            "a rank holds more than its half of the weights and pool"
+    mh_compare(llama, "a", ranks[0]["tokens"], want, sharded, sharded,
+               False, "(a) two ranks vs the one-process model=2 engine")
+    return launches
+
+
+def mh_leg_c(engine_mod, moe, card):
+    """4p (c): Mixtral-8x7B int8 at full width, MH_MOE_LAYERS layers, on
+    ``expert=2 x model=2`` as four ranks (each rank one (expert, model)
+    coordinate), against the one-process engine on that mesh. The ranks
+    run first: each draws the whole cut tree before it keeps its shards.
+    Returns the launches summed over the ranks."""
+    ranks = mh_ranks("c", card)
+    launches = mh_report("c", ranks, card, f"mixtral-8x7b int8 at "
+                         f"{MH_MOE_LAYERS} layers on expert=2 x model=2 as "
+                         "four ranks")
+    assert [tuple(r["shards"][0]) for r in ranks] == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
+    m = mh_config("c").model
+    for r in ranks:
+        assert r["launches"]["paged_attention"] == \
+            m.num_layers * r["decode_steps"]
+    want, served, _ = mh_one_process(engine_mod, "c", None,
+                                     card_mesh(expert=2, model=2))
+    mh_compare(moe, "c", ranks[0]["tokens"], want, served, served, True,
+               "(c) four ranks vs the one-process expert=2 x model=2 engine")
+    return launches
+
+
+def mh_leg_d(engine_mod, card):
+    """4p (d): Llama-3-8B at MH_SEQ_LAYERS layers on ``seq=2`` as two
+    ranks: the 1101-token prompt through the ring over the ranks (its K/V
+    handed on through host memory), every decode step through kernel 6
+    on each rank's pages and the partials merged over the ranks; every
+    stream equal to the one-process ``seq=2`` engine's. Returns the
+    launches summed over the ranks."""
+    want, _, st = mh_one_process(engine_mod, "d", None, card_mesh(seq=2))
+    torch.cuda.empty_cache()
+    ranks = mh_ranks("d", card)
+    launches = mh_report("d", ranks, card, f"llama3-8b at {MH_SEQ_LAYERS} "
+                         "layers on seq=2 as two ranks")
+    m = mh_config("d").model
+    assert st["ring_prefills"] == 1
+    for r in ranks:
+        assert r["ring_prefills"] == 1, "the long prompt missed the ring"
+        assert r["launches"]["cp_paged_partial"] == \
+            m.num_layers * r["decode_steps"], \
+            "kernel 6 not once a layer a step on a rank"
+        assert r["launches"]["paged_attention"] == 0
+    same = sum(ranks[0]["tokens"][n] == want[n] for n in want)
+    log(f"  (d) two ranks vs the one-process seq=2 engine: {same}/"
+        f"{len(want)} streams equal")
+    assert ranks[0]["tokens"] == want, "a stream of the seq ranks parted"
+    return launches
+
+
+def mh_phase(engine_mod, llama, moe, params, card):
+    """Phase 4p: one engine instance over processes, each rank a process on
+    this card (gloo: NCCL refuses two ranks on one device): legs (a)-(d)
+    (``mh_leg_a``, ``mh_agent_leg``, ``mh_leg_c``, ``mh_leg_d``). Returns
+    the launches of kernels 1, 2 and 6 summed over every rank of every
+    leg."""
+    total = {"paged_attention": 0, "mq_paged_attention": 0,
+             "cp_paged_partial": 0}
+    for tag, leg in (("a", lambda: mh_leg_a(engine_mod, llama, params,
+                                            card)),
+                     ("b", lambda: mh_agent_leg(card)),
+                     ("c", lambda: mh_leg_c(engine_mod, moe, card)),
+                     ("d", lambda: mh_leg_d(engine_mod, card))):
+        t = time.monotonic()
+        launches = leg()
+        for k in total:
+            total[k] += launches.get(k, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  ({tag}): {time.monotonic() - t:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7461,10 +8099,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from xllm_service_tpu_torch.common.device import card_line
-    from xllm_service_tpu_torch.engine import EngineConfig
     from xllm_service_tpu_torch.engine import engine as engine_mod
     from xllm_service_tpu_torch.models import llama
-    from xllm_service_tpu_torch.models.base import llama3_8b_config
     from xllm_service_tpu_torch.ops import _build, page_dma
     from xllm_service_tpu_torch.ops import cp_paged_attention as cp
     from xllm_service_tpu_torch.ops.fused_decode_attention import (
@@ -7552,10 +8188,7 @@ def main() -> int:
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
-    cfg = EngineConfig(model=llama3_8b_config(),
-                       num_pages=2048, page_size=16, hash_block_size=128,
-                       max_batch_size=8, max_seq_len=2048, decode_horizon=8,
-                       admission_horizon=8, seed=0)
+    cfg = phase4_config()
     t = time.monotonic()
     params = llama.init_params(cfg.model,
                                torch.Generator(device="cuda").manual_seed(0),
@@ -7742,6 +8375,18 @@ def main() -> int:
     log(f"  (f): {time.monotonic() - t_:.1f} s")
     log(f"  phase 4o (a), (b), (f): {time.monotonic() - t:.1f} s")
 
+    # Phase 4p: one engine instance over processes, ranks on this card.
+    log("[4p] the mesh over processes, ranks on this card over gloo: (a) "
+        "llama3-8b on model=2 as two ranks, (b) the agent as two ranks, "
+        f"(c) mixtral-8x7b int8 at {MH_MOE_LAYERS} layers on expert=2 x "
+        f"model=2 as four ranks, (d) llama3-8b at {MH_SEQ_LAYERS} layers "
+        "on seq=2 as two ranks "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    from xllm_service_tpu_torch.models import deepseek_moe
+    p_launches = mh_phase(engine_mod, llama, deepseek_moe, params, card)
+    log(f"  phase 4p: {time.monotonic() - t:.1f} s")
+
     # Phase 4n: multimodal and EPD.
     log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
         "EPD through a MIX and an ENCODE agent, chunked multimodal, a seq=4 "
@@ -7793,13 +8438,14 @@ def main() -> int:
              + h_launches[0] + i_launches[0] + j_launches[0]
              + k_launches[0] + l_launches[0] + m_launches["paged"]
              + n_launches["paged"] + o_a[0] + o_c[0]
-             + m_launches["ep_paged"]),
+             + m_launches["ep_paged"] + p_launches["paged_attention"]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
              + k_launches[1] + l_launches[1] + m_launches["mq"]
-             + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]),
+             + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
+             + p_launches["mq_paged_attention"]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
@@ -7814,7 +8460,7 @@ def main() -> int:
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
              cp_launches["partial"] + m_launches["partial"]
-             + n_launches["partial"]),
+             + n_launches["partial"] + p_launches["cp_paged_partial"]),
             # The same kernels at this slice's new shapes, counted where
             # the main path runs them at those shapes.
             ("gather_kv_pages@mla_block", csrc + "page_dma.cu",
@@ -7866,4 +8512,8 @@ if __name__ == "__main__":
         sys.exit(mla_decode_agent_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-decode-agent"]:
         sys.exit(tp_decode_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mh-rank"]:
+        sys.exit(mh_rank_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mh-agent"]:
+        sys.exit(mh_agent_child(sys.argv[2:]))
     sys.exit(main())

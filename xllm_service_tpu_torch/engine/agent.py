@@ -31,6 +31,14 @@ serves it in the reference's defaults:
   registration, replica ``i`` on the ``i``-th device from the agent's
   (the same card for every replica on a one-card machine, sharing replica
   0's weight tensors), dispatched prefix-affine with a load guard.
+- **One instance over processes** (``XLLM_MH_COORDINATOR``,
+  ``XLLM_MH_NUM_HOSTS``, ``XLLM_MH_HOST_ID``): ``main`` joins the process
+  group before it touches a device, and every rank builds the same engine
+  and tokenizer over a mesh that spans the ranks. The primary (rank 0)
+  serves as above, its engine wrapped in
+  ``engine/multihost_driver.py::MultihostEngineProxy``; a follower runs
+  the lockstep loop and never serves HTTP. ``--dp-size`` above 1 is an
+  error there.
 
 PD disaggregation: a PREFILL agent given a ``routing.decode_name`` runs
 the request prefill-only and ships the ``PrefillHandoff`` to that peer on
@@ -132,6 +140,7 @@ from ..common.types import (
 from ..coordination import CoordinationClient, connect
 from ..models.base import get_model_family
 from ..multimaster.ownership import TelemetryOwnerResolver
+from ..parallel import multihost
 from ..parallel.mesh import DeviceMesh, MeshConfig, mesh_from_config
 from ..profiling.sampler import PROFILER, admin_profile
 from ..rpc import MASTER_KEY, instance_key, msgpack_lite
@@ -798,6 +807,8 @@ class EngineAgent:
         ``mesh`` argument: devices the caller names, which may repeat)
         takes the place of ``engine_cfg.mesh``."""
         dp = max(1, self.cfg.dp_size)
+        if multihost.process_count() > 1 and dp != 1:
+            raise ValueError("multihost mode requires dp_size == 1")
         if dp > 1 and (engine_cfg.mesh is not None or mesh is not None):
             logger.warning("dp_size > 1 with an engine mesh is not "
                            "supported; forcing dp_size 1")
@@ -821,6 +832,17 @@ class EngineAgent:
             engines.append(InferenceEngine(
                 cfg_i, device=dev, tokenizer=tokenizer,
                 params=_params_on(first.params, dev)))
+        if multihost.process_count() > 1:
+            # One instance over processes: this agent runs on the primary
+            # only; submits and cancels are mirrored to the followers and
+            # the engine steps collectively in the proxy's tick loop.
+            from .multihost_driver import (
+                MultihostEngineDriver,
+                MultihostEngineProxy,
+            )
+
+            return [MultihostEngineProxy(       # type: ignore[list-item]
+                MultihostEngineDriver(first))]
         return engines
 
     def _anomaly_context(self) -> dict[str, Any]:
@@ -2162,20 +2184,40 @@ def checkpoint_params(path: str, mcfg, device=None,
     return loader.load_params(path, mcfg, device=device, **kw)
 
 
-def build_agent(args: argparse.Namespace,
-                coord: Optional[CoordinationClient] = None) -> EngineAgent:
-    """The agent of parsed command-line ``args`` (not started), its
-    weights loaded from ``--checkpoint-path`` when one is given."""
+def _engine_inputs(args: argparse.Namespace
+                   ) -> tuple[EngineConfig, Optional[dict]]:
+    """The engine configuration of ``args`` and its weights, loaded from
+    ``--checkpoint-path`` when one is given (else None: the engine draws
+    them). Loaded weights go onto the devices the engine's mesh takes
+    (from --device-offset), so a co-hosted pair's never share a card; in
+    a joined process group that mesh spans the ranks, each keeping only
+    its shards."""
     ecfg = engine_config(args)
     params = None
     if args.checkpoint_path:
-        # The weights go onto the devices the engine's mesh takes (from
-        # --device-offset), so a co-hosted pair's never share a card.
         mesh = (mesh_from_config(ecfg.mesh, resolve_device(args.device),
                                  ecfg.mesh_device_offset)
                 if ecfg.mesh is not None else None)
         params = checkpoint_params(args.checkpoint_path, ecfg.model,
                                    args.device, mesh)
+    return ecfg, params
+
+
+def build_follower(args: argparse.Namespace) -> InferenceEngine:
+    """A follower rank's engine: the primary's exactly, its tokenizer
+    included (eos and stop ids feed the device state; another one would
+    change the batch's composition and break the lockstep)."""
+    ecfg, params = _engine_inputs(args)
+    return InferenceEngine(
+        ecfg, device=args.device, params=params,
+        tokenizer=TokenizerFactory.create_tokenizer(args.tokenizer_path))
+
+
+def build_agent(args: argparse.Namespace,
+                coord: Optional[CoordinationClient] = None) -> EngineAgent:
+    """The agent of parsed command-line ``args`` (not started), its
+    weights loaded from ``--checkpoint-path`` when one is given."""
+    ecfg, params = _engine_inputs(args)
     return EngineAgent(
         ecfg,
         AgentConfig(host=args.host, port=args.port,
@@ -2206,6 +2248,23 @@ def main(argv: Optional[list[str]] = None) -> None:
         p.error("--model-config hf reads --checkpoint-path's config.json")
     if args.dp_size < 1:
         p.error("--dp-size must be >= 1")
+    # One instance over processes: join the group (XLLM_MH_COORDINATOR,
+    # XLLM_MH_NUM_HOSTS, XLLM_MH_HOST_ID) before any device is touched,
+    # so that every mesh built below spans the ranks. A configuration
+    # error is raised before the split, so that it cannot leave the
+    # followers in a collective.
+    multihost.initialize_from_env()
+    if multihost.process_count() > 1 and args.dp_size != 1:
+        p.error("multihost mode requires --dp-size 1")
+    if not multihost.is_primary():
+        from .multihost_driver import MultihostEngineDriver
+
+        # A follower never serves HTTP nor registers: it mirrors the
+        # primary's engine events until the shutdown event.
+        engine = build_follower(args)
+        MultihostEngineDriver(engine).follower_loop()
+        engine.stop()
+        return
     agent = build_agent(args)
     agent.start()
     import signal as _signal

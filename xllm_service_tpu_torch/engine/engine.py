@@ -158,9 +158,21 @@ its M-RoPE rows zero-padded to the ring's length.
   ids do not see the image), never rides a decode step and never takes
   the ring. A PD decode side recomputes the delta from the prompt's ids.
 
+- **A mesh over processes** (``parallel/mesh.py::process_mesh``, after
+  ``parallel/multihost.py::initialize``): one engine per process, each
+  holding only its coordinates' shards and pool shards; the collectives
+  cross the processes. The lockstep driver (``engine/multihost_driver.py``)
+  mirrors the primary's submits and cancels and calls ``step`` on every
+  rank; the engine's own loop thread does not run. Every scheduling
+  decision is a function of the event order and the step count, and every
+  value the host reads (sampled rows, first tokens, logprobs) is computed
+  from logits that the model axis's gather made the same on every rank,
+  so the ranks read the same values, as the reference's ``_fetch``
+  arranges. The KV tiers are off there, with the reference's warning.
+
 Not in this port yet: a ``seq`` axis together with a ``model`` or
-``expert`` axis (refused: ROADMAP queue 1 item 18), a mesh over several
-processes, and the captured and mixed steps under a mesh.
+``expert`` axis (refused: ROADMAP queue 1 item 18), and the captured and
+mixed steps under a mesh.
 """
 
 from __future__ import annotations
@@ -322,7 +334,7 @@ class InferenceEngine:
         cfg.validate()
         self.cfg = cfg
         self.mesh = mesh = self._resolve_mesh(cfg, device, mesh)
-        self.device = dev = (mesh.devices[0] if mesh is not None
+        self.device = dev = (mesh.first_device if mesh is not None
                              else resolve_device(device))
         # Context parallelism: size of the mesh's seq axis (1 = off).
         self.seq_parallel = mesh.shape[AXIS_SEQ] if mesh is not None else 1
@@ -492,7 +504,7 @@ class InferenceEngine:
                 f"mesh {shape}: the seq axis together with the model or "
                 "expert axis is not ported yet (ROADMAP queue 1 item 18)")
         if device is not None:
-            want, first = torch.device(device), mesh.devices[0]
+            want, first = torch.device(device), mesh.first_device
             if want.type != first.type or want.index not in (None,
                                                              first.index):
                 raise ValueError(f"device {want} is not the mesh's first "
@@ -513,6 +525,13 @@ class InferenceEngine:
                 "kv_tier_ssd_bytes=%d ignored: tiering is DRAM-fronted "
                 "(SSD holds DRAM overflow) — set kv_tier_dram_bytes > 0 "
                 "to enable the tiers", cfg.kv_tier_ssd_bytes)
+        elif (cfg.kv_tier_dram_bytes > 0 and self.mesh is not None
+              and self.mesh.process_count > 1):
+            # The lockstep step runs every collective in one order on
+            # every rank; the tier pump's off-thread downloads would break
+            # that order. As in the reference, the tiers are a
+            # one-process feature.
+            logger.warning("KV tiering disabled: multi-host mesh")
         elif cfg.kv_tier_dram_bytes > 0:
             on_cuda = self.device.type == "cuda"
             store = TieredKVStore(

@@ -31,8 +31,9 @@ On a mesh's ``expert`` and ``model`` axes (``MOE_STACKED_RULES``, a
 ``ShardedParams``) the experts lie on ``expert`` and each expert's ffn on
 ``model``: every (expert, model) shard runs its experts over every token
 and combines them with its columns of the gate map in f32, and the
-combines are summed over all shards; the router is replicated and the
-gate map computed once. Attention, the dense MLP and the shared experts
+combines are summed over all shards (over processes, every rank's
+gathered over the expert x model plane's group and added in shard order);
+the router is replicated and the gate map computed once. Attention, the dense MLP and the shared experts
 run per model shard as llama's do (``models/llama.py::forward_shards``);
 MLA's ``k_up``/``v_up`` heads lie on ``model`` and its one-head latent
 pool is replicated, each shard writing its copy.
@@ -337,20 +338,22 @@ def _moe_mlp_sharded(params: ShardedParams, l: int, x: torch.Tensor,
     model shards."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    first = params.tree()["moe"]
+    first = replicated_tree(params)["moe"]
     gates = _gate_map(first["router"]["kernel"][l], x2, cfg)
     E_loc = cfg.num_experts // params.expert
     xs = broadcast(x2, params.devices)
     parts = []
-    for i, (tree, dev) in enumerate(zip(params.trees, params.devices)):
-        e = i // params.model
-        g = gates[:, e * E_loc:(e + 1) * E_loc].to(dev)
-        parts.append(_experts(_at(tree["moe"]["experts"], l), xs[i], g))
-    routed = all_reduce(parts, x.device).to(x.dtype)
+    for (e, _), tree, xi in zip(params.coords, params.trees, xs):
+        g = gates[:, e * E_loc:(e + 1) * E_loc].to(xi.device)
+        parts.append(_experts(_at(tree["moe"]["experts"], l), xi, g))
+    routed = all_reduce(parts, x.device,
+                        params.group(AXIS_EXPERT, AXIS_MODEL)).to(x.dtype)
     if "shared" in first:
         shared = all_reduce(
             [_dense_mlp(_at(t["moe"]["shared"], l), xi) for t, xi in
-             zip(params.model_trees, xs[:params.model])], x.device)
+             zip(params.model_trees,
+                 broadcast(x2, params.model_devices))],
+            x.device, params.group(AXIS_MODEL))
         routed = routed + shared.to(routed.dtype)
     return routed.reshape(shape)
 
@@ -472,12 +475,13 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         cp_tables=tables)
                 attn = attn.reshape(*attn.shape[:-2], c.q_size)
             parts.append(quantized_matmul(attn, lp["o_proj"]["kernel"]))
-        x = x + all_reduce(parts, x.device)
+        x = x + all_reduce(parts, x.device, shards[0].group)
         h2 = rms_norm(x, lps[0]["post_attn_norm"]["scale"], cfg.rms_eps)
         if l < Ld:
             x = x + all_reduce(
                 [_dense_mlp(_at(s.tree["dense_mlp"], l), hi) for s, hi in
-                 zip(shards, on_shards(shards, h2))], x.device)
+                 zip(shards, on_shards(shards, h2))], x.device,
+                shards[0].group)
         elif isinstance(params, ShardedParams):
             x = x + _moe_mlp_sharded(params, l - Ld, h2, cfg)
         else:

@@ -27,6 +27,12 @@ once on the mesh's first device. The embedding takes each row from the
 shard that holds it, and the logits of the vocabulary shards are joined
 before sampling (``all_gather``). An unsharded tree is the one-shard case
 of the same loop, with no copy and no reduction.
+
+On a mesh over processes each rank runs its own model shards and the sums
+and joins gather every rank's parts over the model axis's process group
+(``Shard.group``), in shard order: every rank ends each layer with the same
+residual stream and the step with the same full logits, so every rank
+samples the same tokens.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ..parallel.sharding import (
     ShardedParams,
     ShardingRules,
     all_gather,
+    all_parts,
     all_reduce,
     broadcast,
 )
@@ -88,30 +95,35 @@ QUANT_COLUMNS = 8192
 
 class Shard(NamedTuple):
     """One model shard of a forward: its tree, the config it computes
-    with (its heads and ffn), its pool (None without one) and its device
-    (None for an unsharded tree: where the inputs lie)."""
+    with (its heads and ffn), its pool (None without one), its device
+    (None for an unsharded tree: where the inputs lie) and the model
+    axis's process group (None within one process)."""
     tree: dict
     cfg: ModelConfig
     pool: object
     device: Optional[torch.device]
+    group: object = None
 
 
 def forward_shards(params, cfg: ModelConfig, kv_pages=None) -> list[Shard]:
     """The model shards a forward runs: one (the tree itself) for an
-    unsharded tree; for a ``ShardedParams`` the trees of the model axis at
-    expert index 0, each with its part of a ``ModelShardedPages`` pool."""
+    unsharded tree; for a ``ShardedParams`` the trees of the model axis
+    this process holds (at expert index 0 on one process), each with its
+    part of a ``ModelShardedPages`` pool."""
     if not isinstance(params, ShardedParams):
         return [Shard(params, cfg, kv_pages, None)]
     scfg = shard_config(cfg, params.model)
+    trees = params.model_trees
     if isinstance(kv_pages, ModelShardedPages):
         pools = kv_pages.shards
     elif kv_pages is None or params.model == 1:
-        pools = [kv_pages] * params.model
+        pools = [kv_pages] * len(trees)
     else:
         raise TypeError("a tree sharded over a model axis needs a "
                         "ModelShardedPages pool")
-    return [Shard(t, scfg, p, d) for t, p, d in
-            zip(params.model_trees, pools, params.model_devices)]
+    group = params.group(AXIS_MODEL)
+    return [Shard(t, scfg, p, d, group) for t, p, d in
+            zip(trees, pools, params.model_devices)]
 
 
 def on_shards(shards: list[Shard], x):
@@ -290,7 +302,7 @@ def _attn_mlp_residual(shards: list[Shard], lps: list[dict],
     def mlp(h2: torch.Tensor) -> torch.Tensor:
         return all_reduce([_mlp(lp, h, s.cfg) for s, lp, h in
                            zip(shards, lps, on_shards(shards, h2))],
-                          h2.device)
+                          h2.device, shards[0].group)
 
     if cfg.sandwich_norms:
         x = x + _norm(o, lps[0]["post_attn_norm"]["scale"], cfg)
@@ -318,8 +330,9 @@ def _layers(shards: list[Shard], cfg: ModelConfig, x: torch.Tensor,
             parts.append(quantized_matmul(
                 attn.reshape(*attn.shape[:-2], s.cfg.q_size),
                 lp["o_proj"]["kernel"]))
-        x = _attn_mlp_residual(shards, lps, x, all_reduce(parts, x.device),
-                               cfg)
+        x = _attn_mlp_residual(
+            shards, lps, x, all_reduce(parts, x.device, shards[0].group),
+            cfg)
     return x
 
 
@@ -328,23 +341,26 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     a negative id wraps like numpy's and an id past the vocabulary is
     clamped to its last row (the reference's ``embedding[tokens]`` in JAX
     clamps out-of-range ids; a torch index would raise). A vocabulary-
-    sharded table gives each row from the shard that holds it."""
+    sharded table gives each row from the shard that holds it (every
+    rank's rows gathered over processes)."""
+    sharded = isinstance(params, ShardedParams)
     tables = ([t["embed"]["embedding"] for t in params.model_trees]
-              if isinstance(params, ShardedParams)
-              else [params["embed"]["embedding"]])
+              if sharded else [params["embed"]["embedding"]])
     Vl = tables[0].shape[0]
-    V = Vl * len(tables)
+    V = Vl * (params.model if sharded else 1)
     idx = tokens.long()
     idx = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
-    if len(tables) == 1:
+    if V == Vl:
         x = tables[0][idx]
     else:
         owner = (idx // Vl)[..., None]
+        rows = all_parts(
+            [table[(idx - m * Vl).clamp(0, Vl - 1).to(table.device)]
+             for m, table in zip(params.model_indices, tables)],
+            idx.device, params.group(AXIS_MODEL))
         x = None
-        for m, table in enumerate(tables):
-            local = (idx - m * Vl).clamp(0, Vl - 1).to(table.device)
-            rows = table[local].to(idx.device)
-            x = rows if x is None else torch.where(owner == m, rows, x)
+        for m, r in enumerate(rows):
+            x = r if x is None else torch.where(owner == m, r, x)
     x = x.to(cfg.dtype)
     if cfg.embed_scale:
         # gemma scales by sqrt(hidden), cast to the model dtype first as
@@ -365,7 +381,7 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             parts.append(xi @ s.tree["embed"]["embedding"].T)
         else:
             parts.append(quantized_matmul(xi, s.tree["lm_head"]["kernel"]))
-    logits = all_gather(parts, -1, x.device).float()
+    logits = all_gather(parts, -1, x.device, shards[0].group).float()
     if cfg.final_logit_softcap > 0:       # gemma-2's tanh cap
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

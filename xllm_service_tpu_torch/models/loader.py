@@ -238,7 +238,7 @@ def _load_pieces(ckpt_dir: Union[str, Path], cfg: ModelConfig,
 
 def _device(device, mesh: Optional[DeviceMesh]):
     """Where a loader reads: the mesh's first device under a mesh."""
-    return mesh.devices[0] if mesh is not None and device is None \
+    return mesh.first_device if mesh is not None and device is None \
         else device
 
 
@@ -248,8 +248,9 @@ def _on_mesh(tree: Params, cfg: ModelConfig, mesh: Optional[DeviceMesh],
     under int8 its remaining projections quantized first (a row-parallel
     kernel's scale reduces over the whole contraction), then each (expert,
     model) shard on its device (``shard_params``: views of the tree on a
-    repeated device, copies elsewhere). The engine takes such a tree as it
-    is. Without a mesh the tree itself."""
+    repeated device, copies elsewhere; on a mesh over processes only this
+    rank's shards, as copies, and the whole tree can be freed). The engine
+    takes such a tree as it is. Without a mesh the tree itself."""
     if mesh is None:
         return tree
     if rules is None:

@@ -9,6 +9,11 @@ with the same layout and dtypes, so both engines compute from the same
 weights. ``llama_params_from_jax`` is the same function under its first
 name. The caller converts its arrays with ``numpy.asarray``; nothing here
 imports JAX.
+
+Given a mesh and the family's sharding rules, each leaf is converted and
+cut at once (``parallel/sharding.py::shard_params``): on a mesh over
+processes a rank keeps only its own shards, as contiguous tensors, and
+the whole tree never exists on its device.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import numpy as np
 import torch
 
 from ..common.device import resolve_device
+from ..parallel.mesh import DeviceMesh
+from ..parallel.sharding import ShardedParams, ShardingRules, shard_params
 
 
 def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -33,11 +40,22 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict,
-                    device: Optional[Union[str, torch.device]] = None
-                    ) -> dict:
+                    device: Optional[Union[str, torch.device]] = None,
+                    mesh: Optional[DeviceMesh] = None,
+                    rules: Optional[ShardingRules] = None
+                    ) -> Union[dict, ShardedParams]:
     """Nested dict of numpy arrays -> the same nested dict of tensors (same
-    dtypes) on ``device`` (``cuda`` unless named)."""
+    dtypes) on ``device`` (``cuda`` unless named). With ``mesh`` and
+    ``rules``, the ``ShardedParams`` of this process's coordinates, each
+    leaf converted on ``device`` and cut onto the mesh's devices one at a
+    time (the tree in the form the engine serves: an int8 tree already
+    quantized)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if rules is None:
+            raise ValueError("a mesh needs the family's sharding rules")
+        return shard_params(tree, mesh, rules,
+                            convert=lambda a: _to_tensor(a, dev))
 
     def walk(node):
         if isinstance(node, dict):

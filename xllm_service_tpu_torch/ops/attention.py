@@ -184,8 +184,8 @@ def _scatter_rows_sharded(pages: ShardedPages, page_idx: torch.Tensor,
     shard keeps none, rewrites its slot of local page 0 with what it
     holds."""
     P_loc = pages.pages_per_shard
-    p, ok = _wrap(page_idx.long(), P_loc * len(pages.shards))
-    for d, shard in enumerate(pages.shards):
+    p, ok = _wrap(page_idx.long(), P_loc * pages.count)
+    for d, shard in zip(pages.index, pages.shards):
         dev = shard.device
         keep = (ok & (p // P_loc == d)).to(dev)
         local = (p - d * P_loc).clamp(0, P_loc - 1).to(dev)

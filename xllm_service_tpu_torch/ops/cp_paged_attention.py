@@ -25,6 +25,13 @@ same for every layer of a decode step, so the engine compacts once per
 step and shard (``cp_tables``) and reuses the tables for all layers; the
 reference recomputes them inside its jit, with the same result.
 
+On a mesh over processes (``parallel/mesh.py::process_mesh``) a rank holds
+only its shards (``ShardedPages.index``): it runs kernel 6 on its own
+pages, gathers every rank's ``(m, l, acc)`` over the seq axis's process
+group (one collective a layer) and merges them in shard order, the same
+bits as the one-process merge. Writes, gathers and the tables take the
+global shard indices.
+
 Bound on the H100: the owned, occupied K/V bytes a shard reads (a quarter
 of kernel 1's at four shards and even ownership). A shard walks about
 ``1 / n`` of a row, so ``partial_split_count`` sizes the split-K grid from
@@ -46,6 +53,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..parallel.mesh import AXIS_SEQ, DeviceMesh
+from ..parallel.sharding import all_parts
 from . import _build
 from .paged_attention import (
     NEG_INF,
@@ -71,31 +79,43 @@ class ShardedPages:
 
     ``shape`` is the global shape (the page axis times ``n``), so code that
     reads page counts and sizes works on either kind of pool. Only shard 0
-    holds the garbage page (global page 0)."""
+    holds the garbage page (global page 0).
+
+    Over processes a rank holds only its shards: ``shards[i]`` is shard
+    ``index[i]`` of ``count``, and ``group`` is the seq axis's process
+    group (None within one process)."""
 
     def __init__(self, shards: Sequence[torch.Tensor], mesh: DeviceMesh,
-                 seq_axis: str = AXIS_SEQ):
+                 seq_axis: str = AXIS_SEQ,
+                 index: Optional[Sequence[int]] = None):
         self.shards = list(shards)
         self.mesh = mesh
         self.seq_axis = seq_axis
+        self.index = (list(range(len(self.shards))) if index is None
+                      else list(index))
+        self.count = mesh.shape[seq_axis]
+        self.group = mesh.group(seq_axis)
 
     @classmethod
     def zeros(cls, shape: Sequence[int], dtype: torch.dtype,
               mesh: DeviceMesh, seq_axis: str = AXIS_SEQ) -> "ShardedPages":
         """A zero pool of global ``shape`` (page axis ``-4``, divisible by
-        the axis size), one shard per device of the axis."""
-        devs = mesh.axis_devices(seq_axis)
+        the axis size), one shard per device of the axis this process
+        holds."""
+        local = mesh.local_axis(seq_axis)
+        n = mesh.shape[seq_axis]
         shape = list(shape)
-        if shape[-4] % len(devs):
+        if shape[-4] % n:
             raise ValueError(f"{shape[-4]} pages do not divide over "
-                             f"{len(devs)} shards")
-        shape[-4] //= len(devs)
-        return cls([torch.zeros(shape, dtype=dtype, device=d) for d in devs],
-                   mesh, seq_axis)
+                             f"{n} shards")
+        shape[-4] //= n
+        return cls([torch.zeros(shape, dtype=dtype, device=d)
+                    for _, d in local], mesh, seq_axis,
+                   [i for i, _ in local])
 
     def __getitem__(self, key) -> "ShardedPages":
         return ShardedPages([s[key] for s in self.shards], self.mesh,
-                            self.seq_axis)
+                            self.seq_axis, self.index)
 
     @property
     def pages_per_shard(self) -> int:
@@ -104,30 +124,35 @@ class ShardedPages:
     @property
     def shape(self) -> torch.Size:
         s = list(self.shards[0].shape)
-        s[-4] *= len(self.shards)
+        s[-4] *= self.count
         return torch.Size(s)
 
     @property
     def device(self) -> torch.device:
-        """The mesh's first device, where the model computes."""
+        """This process's first shard's device, where the model
+        computes."""
         return self.shards[0].device
 
     def full(self) -> torch.Tensor:
-        """The shards concatenated on the first device (tests, checks)."""
-        return torch.cat([s.to(self.device) for s in self.shards], dim=-4)
+        """Every shard concatenated on the first device (tests, checks)."""
+        return torch.cat(all_parts(self.shards, self.device, self.group),
+                         dim=-4)
 
     def gather(self, ids: torch.Tensor) -> torch.Tensor:
         """Pages ``ids`` (global, clamped into the pool) of a per-layer
         pool, ``[len(ids), n_kv, ps, hd]`` on the first device: each shard
-        gathers the ids it owns, with no host sync."""
+        gathers the ids it owns (every rank's rows gathered over
+        processes), with no host sync."""
         P_loc = self.pages_per_shard
-        ids = ids.long().clamp(0, P_loc * len(self.shards) - 1)
+        ids = ids.long().clamp(0, P_loc * self.count - 1)
         owner = (ids // P_loc)[:, None, None, None]
+        rows = all_parts(
+            [shard[(ids - d * P_loc).clamp(0, P_loc - 1).to(shard.device)]
+             for d, shard in zip(self.index, self.shards)],
+            self.device, self.group)
         out = None
-        for d, shard in enumerate(self.shards):
-            local = (ids - d * P_loc).clamp(0, P_loc - 1).to(shard.device)
-            rows = shard[local].to(self.device)
-            out = rows if out is None else torch.where(owner == d, rows, out)
+        for d, r in enumerate(rows):
+            out = r if out is None else torch.where(owner == d, r, out)
         return out
 
 
@@ -168,7 +193,7 @@ def cp_tables(page_table: torch.Tensor, context_lens: torch.Tensor,
     shard's device: one decode step's tables, shared by all its layers."""
     P_loc, ps = pages.pages_per_shard, pages.shape[-2]
     out = []
-    for d, shard in enumerate(pages.shards):
+    for d, shard in zip(pages.index, pages.shards):
         pt, cl = page_table.to(shard.device), context_lens.to(shard.device)
         out.append((*compact_local_table(pt, cl, d * P_loc, P_loc, ps),
                     cl.to(torch.int32).contiguous()))
@@ -337,12 +362,22 @@ paged_partial.launches = 0
 
 # -------------------------------------------------------------- the merge
 def merge_partials(parts: Sequence[tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]]) -> torch.Tensor:
+                                         torch.Tensor]],
+                   group=None) -> torch.Tensor:
     """The reference's ``pmax``/``psum`` merge (cp_paged_attention.py:
     285-293) of every shard's ``(m, l, acc)``, already on one device: a
     shard with nothing visible (``m <= NEG_INF / 2``) weighs 0, and l is
-    clamped at 1e-9, so a row no shard sees comes out zero. Returns the
-    f32 attention ``[B, n_q, hd]``."""
+    clamped at 1e-9, so a row no shard sees comes out zero. With the seq
+    axis's process ``group`` the partials are this rank's, and every
+    rank's are gathered first (packed ``[B, n_q, hd + 2]``, one collective)
+    and merged in shard order. Returns the f32 attention ``[B, n_q,
+    hd]``."""
+    if group is not None:
+        hd = parts[0][2].shape[-1]
+        packed = all_parts([torch.cat([m[..., None], l[..., None], acc],
+                                      dim=-1) for m, l, acc in parts],
+                           parts[0][2].device, group)
+        parts = [(p[..., 0], p[..., 1], p[..., 2:2 + hd]) for p in packed]
     m = torch.stack([p[0] for p in parts])                     # [n, B, n_q]
     l = torch.stack([p[1] for p in parts])
     acc = torch.stack([p[2] for p in parts])                   # [n, B, n_q, hd]
@@ -367,18 +402,20 @@ def cp_paged_attention(q: torch.Tensor, k_shards: Sequence[torch.Tensor],
     ``context_lens`` include the new token. Returns [B, n_heads, hd],
     what single-device paged attention returns. ``tables`` are
     ``cp_tables``' output for this step (computed here when None)."""
-    devs = mesh.axis_devices(seq_axis)
-    if len(k_shards) != len(devs) or len(v_shards) != len(devs):
-        raise ValueError(f"{len(k_shards)} shards for a {seq_axis} axis of "
-                         f"{len(devs)}")
+    n, held = mesh.shape[seq_axis], len(mesh.local_axis(seq_axis))
+    if len(k_shards) != held or len(v_shards) != held:
+        raise ValueError(f"{len(k_shards)} shards for this process's "
+                         f"{held} of a {seq_axis} axis of {n}")
     if tables is None:
         tables = cp_tables(page_table, context_lens,
-                           ShardedPages(k_shards, mesh, seq_axis))
+                           ShardedPages(k_shards, mesh, seq_axis,
+                                        [i for i, _ in
+                                         mesh.local_axis(seq_axis)]))
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     parts = []
     for kd, vd, (lpt, st, nl, cl) in zip(k_shards, v_shards, tables):
         m, l, acc = paged_partial(q.to(kd.device), kd, vd, lpt, st, nl, cl,
-                                  scale=scale, shards=len(devs))
+                                  scale=scale, shards=n)
         parts.append((m.to(q.device), l.to(q.device), acc.to(q.device)))
-    return merge_partials(parts).to(q.dtype)
+    return merge_partials(parts, mesh.group(seq_axis)).to(q.dtype)

@@ -19,7 +19,14 @@ first hop (its own chunk's diagonal), so the rescale is exp(0) = 1 and
 every p is re-zeroed.
 
 With distinct devices a hop is a ``.to`` of each chunk to the next device;
-with repeated devices (one card, or the CPU) it is a no-op.
+with repeated devices (one card, or the CPU) it is a no-op. On a mesh over
+processes a rank computes only the chunks of its own coordinates (q, k and
+v are whole on every rank: the seq axis replicates the residual stream),
+and a hop hands the K/V chunk of its last coordinate on to the next rank
+of the seq axis's process group while it takes the previous rank's
+(``AxisGroup.shift``, send and receive); the outputs of every rank's
+chunks are gathered in chunk order. Each chunk's arithmetic is the one
+process's, so the result is the same bits.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Optional
 import torch
 
 from ..parallel.mesh import AXIS_SEQ, DeviceMesh
+from ..parallel.sharding import all_parts
 
 NEG_INF = -1e30
 
@@ -40,8 +48,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divisible by the axis size; returns the causal self-attention [B, S,
     H, hd] in q's dtype on q's device, each chunk computed on its device
     in f32."""
-    devs = mesh.axis_devices(seq_axis)
-    n = len(devs)
+    n = mesh.shape[seq_axis]
+    local = mesh.local_axis(seq_axis)          # [(chunk index, device)]
+    mine = [i for i, _ in local]
+    devs = dict(local)
+    group = mesh.group(seq_axis)
     B, S, H, hd = q.shape
     if S % n:
         raise ValueError(f"sequence of {S} does not divide over {n} shards")
@@ -53,15 +64,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def chunk(x, i):
         return x[:, i * Sl:(i + 1) * Sl].to(devs[i])
 
-    qf = [chunk(q, i).float() * scale for i in range(n)]
-    kv = [(chunk(k, i), chunk(v, i)) for i in range(n)]   # visiting chunks
-    m = [torch.full((B, H, Sl, 1), NEG_INF, device=d) for d in devs]
-    l = [torch.zeros((B, H, Sl, 1), device=d) for d in devs]
-    acc = [torch.zeros((B, Sl, H, hd), device=d) for d in devs]
+    qf = {i: chunk(q, i).float() * scale for i in mine}
+    kv = {i: (chunk(k, i), chunk(v, i)) for i in mine}   # visiting chunks
+    m = {i: torch.full((B, H, Sl, 1), NEG_INF, device=devs[i]) for i in mine}
+    l = {i: torch.zeros((B, H, Sl, 1), device=devs[i]) for i in mine}
+    acc = {i: torch.zeros((B, Sl, H, hd), device=devs[i]) for i in mine}
     causal = torch.ones((Sl, Sl), dtype=torch.bool, device=q.device).tril()
 
     for step in range(n):
-        for my in range(n):
+        for my in mine:
             src = (my - step) % n               # which chunk is visiting
             if src > my:
                 continue                        # later chunk: adds nothing
@@ -80,10 +91,20 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc[my] = acc[my] * alpha_b + torch.einsum(
                 "bhqk,bkhd->bhqd", p, vu.float()).transpose(1, 2)
             m[my] = m_new
-        # Rotate K/V one device along the ring.
-        kv = [(kv[(i - 1) % n][0].to(devs[i]), kv[(i - 1) % n][1].to(devs[i]))
-              for i in range(n)]
+        if step == n - 1:
+            break
+        # Rotate K/V one coordinate along the ring: from the previous
+        # coordinate where this process holds it, else from the previous
+        # rank, which takes this process's last chunk in turn.
+        nxt = {i: (kv[(i - 1) % n][0].to(devs[i]),
+                   kv[(i - 1) % n][1].to(devs[i]))
+               for i in mine if (i - 1) % n in kv}
+        if group is not None:
+            got = group.shift(torch.stack(kv[mine[-1]]))
+            nxt[mine[0]] = (got[0].to(devs[mine[0]]),
+                            got[1].to(devs[mine[0]]))
+        kv = nxt
 
     out = [(acc[i] / l[i][..., 0].transpose(1, 2)[..., None].clamp_min(1e-9))
-           .to(q.dtype).to(q.device) for i in range(n)]
-    return torch.cat(out, dim=1)
+           .to(q.dtype) for i in mine]
+    return torch.cat(all_parts(out, q.device, group), dim=1)
