@@ -45,7 +45,12 @@ Phases (any failure exits non-zero before the result line):
    ``index_copy_`` and the copy floor) and kernel 6 at Qwen2-VL-2B's 12/2
    heads (per shard at seq 2 and 4, the whole op, timed on shard 0 of
    four beside SDPA over the owned K/V); each of these two shapes is a
-   row of its own in the ``kernels`` line;
+   row of its own in the ``kernels`` line, as are phase 4o's shapes
+   (kernel 1 at 8/2 and 8/1 heads, kernel 2 at groups 4 and 8, the movers
+   at a ``model=4`` shard's block) and phase 4q's: kernel 6 at a
+   ``model=2`` shard's 16/4 heads (per shard at seq 2 and 4, timed on
+   shard 0 of two) and the movers at a ``seq=2 x model=2`` grid shard's
+   block ``[32, 2, 8, 4, 16, 128]`` (one pool and two shards);
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -57,20 +62,24 @@ Phases (any failure exits non-zero before the result line):
    cold, cached-prefix and decode routes;
 4a. KV tiers at the same width: a 1024-token prompt served from HBM, its
    blocks evicted into a DRAM arena of four blocks and an SSD spill file,
-   then served again from the tiers; the tokens must match, both tiers
-   must have onloaded, and the restored pages must equal the evicted ones;
+   then served again from the tiers (TIER_NEW tokens each time; the
+   requests that only fill and evict stop at TIER_FILL_NEW); the tokens
+   must match, both tiers must have onloaded, and the restored pages must
+   equal the evicted ones;
 4b. the fused decode writeback (``XLLM_KV_WRITEBACK=fused``): phase 4's
    batch served twice through the fused kernel (replayed in the captured
    step), with kernel 1 idle, and the decode-step logits checked again;
-4c. context-parallel serving at the same width and depth: the KV pool
-   sharded four ways over a ``seq`` mesh (on one card, ``cuda:0`` four
-   times); a long prefix-free prompt (ring prefill), a short one, one
-   sharing the long one's first 512 tokens (a prefix hit through kernel 2)
-   and a seeded sampled one, run twice on fresh engines; every decode step
-   through kernel 6, kernels 1 and 3 idle; one decode step's logits against
-   the single-device engine's (the step stays eager under the mesh);
-4d. KV tiers under that seq mesh: phase 4a's round trip on a pool sharded
-   four ways, with hash blocks that straddle shards; both tiers must have
+4c. context-parallel serving at the same width and CP_LAYERS layers
+   (``depth_view`` of phase 4's weights): the KV pool sharded four ways
+   over a ``seq`` mesh (on one card, ``cuda:0`` four times); a long
+   prefix-free prompt (ring prefill), a short one, one sharing the long
+   one's first 512 tokens (a prefix hit through kernel 2) and a seeded
+   sampled one, CP_NEW tokens each, run twice on fresh engines; every
+   decode step through kernel 6, kernels 1 and 3 idle; one decode step's
+   logits against the single-device engine's (the step stays eager under
+   the mesh);
+4d. KV tiers under that seq mesh, at 4c's depth: phase 4a's round trip
+   on a pool sharded four ways, with hash blocks that straddle shards; both tiers must have
    been used, the restored pages must equal the evicted ones, A's first
    token after the onload must equal its first from HBM, a decode step
    over the restored pages must agree with one over the evicted bytes on
@@ -167,7 +176,8 @@ Phases (any failure exits non-zero before the result line):
    ``/admin/flightrecorder/recent`` holds exactly one
    ``kv_stream_fallback`` bundle with its ``engine`` context. Then the
    ``pd_handoff_bench`` twin (device, streamed and inline paths at
-   ``bench_1b_config``'s KV shapes, 2048 and 8192 tokens). Handoff ms, the pair's TTFT beside
+   ``bench_1b_config``'s KV shapes, PD_TWIN_CTXS tokens). Handoff ms, the
+   pair's TTFT beside
    phase 4f's and tokens/s are information;
 4j. the llama family's variants at full width and depth, one after the
    other on random weights with drawn norm scales and biases: Gemma-2-9B
@@ -179,7 +189,8 @@ Phases (any failure exits non-zero before the result line):
    greedy token against its recomputation at the near-tie rule; Gemma-2's
    prefills take the dense route (counted, kernel 2 idle). Then the bench
    twin in int8 beside phase 4e's bf16 figure (information);
-4k. checkpoint loading: phase 4's Llama-3-8B weights written as a Hugging
+4k. checkpoint loading: phase 4's Llama-3-8B weights at full width, cut to
+   K_LLAMA_DEPTH layers (``depth_view``), written as a Hugging
    Face model directory through the port's safetensors writer (four bf16
    shards named as Meta's with their index, ``config.json`` with the
    published values, a Llama-3-shaped ``tokenizer.json`` of 128000 ranks
@@ -187,13 +198,14 @@ Phases (any failure exits non-zero before the result line):
    ``tokenizer_config.json``), under ``tempfile.mkdtemp()``; loaded here
    (every leaf bit for bit against phase 4's; with ``quant="int8"`` against
    ``quantize_tree`` of phase 4's); then served by the agent in a second
-   process started from its command line (``--model-config llama3_8b
+   process started from its command line (``--model-config hf
    --checkpoint-path D --tokenizer-path D``, through ``python3
    chip_smoke.py --checkpoint-agent``, which runs ``engine/agent.py::main``
    with probes) behind the stub master: after a warm pass on other
-   prompts, phase 4's requests give phase 4's tokens exactly (their host
-   split beside phase 4f's), two text requests are tokenised there as here and
-   stream the decode of their ids, kernels 1 and 2 launch there. Then
+   prompts, phase 4's requests give exactly the tokens of an engine here
+   on the same cut tree (their host split beside phase 4f's), two text
+   requests are tokenised there as here and stream the decode of their
+   ids, kernels 1 and 2 launch there. Then
    Qwen2-7B and Gemma-2-9B (tied, no ``lm_head``) at full width and
    K_DEPTH layers, norms and biases drawn: written, loaded bit for bit,
    one rollout (kernel 2 behind a cached prefix for Qwen2, kernel 1 on
@@ -235,7 +247,8 @@ Phases (any failure exits non-zero before the result line):
    in int8 one layer of one leaf at a time by the engine (the build's
    seconds and ``max_memory_allocated``), served by the port's agent from
    its command line (``--model-config mixtral_8x7b --quant int8``) behind
-   phase 4f's stub master: six requests, two sharing a 512-token prefix;
+   phase 4f's stub master: six requests of MOE_AGENT_NEW tokens, two
+   sharing a 512-token prefix;
    checks the deltas, kernel 1 at 32 launches a replayed step, kernel 2
    on the prefix hits, the replays, every greedy token against its
    recomputation (the near-tie rule of 4g, and routing near-ties: a
@@ -253,14 +266,15 @@ Phases (any failure exits non-zero before the result line):
    (d) the bench twin at ``XLLM_BENCH_MODEL=moe``. Tokens/s, TTFT and KV
    bytes a token are information. Then, MOE_NEW tokens a request: (f)
    Mixtral-8x7B int8 on a ``seq=4`` pool (phase 4c's mesh) on (b)'s
-   weights: a 1101-token prompt (the ring), two short ones and a prefix
-   hit (kernel 2 on the gathered table); kernel 6 at 32 a step and shard,
+   weights cut to MOE_MESH_LAYERS layers (``depth_view``): a 1101-token
+   prompt (the ring), two short ones and a prefix hit (kernel 2 on the
+   gathered table); kernel 6 once a layer a step and shard,
    kernels 1 and 3 idle, the tokens against the one-device engine's (each
    parting a counted near-tie, ``held_to``); (i) Mixtral-8x7B int8 under
    ``speculate_k=4`` against the plain engine: tokens a cycle, kernel 2 in
    every layer of the captured cycle, the tokens held as in (f); (e)
-   DeepSeek-V2-Lite as (f) on (c)'s weights: the MLA decode route at 27
-   a step over the sharded pool, the prefix hit on the dense route,
+   DeepSeek-V2-Lite as (f) on (c)'s weights at the same depth: the MLA
+   decode route once a layer a step over the sharded pool, the prefix hit on the dense route,
    kernels 1, 2, 3 and 6 idle; (g) phase 4a's tier round trip at
    DeepSeek-V2-Lite (hash blocks of 7,962,624 bytes): the restored pages
    bit for bit, the tier hit's tokens equal to the hot run's; (j) the
@@ -313,10 +327,12 @@ Phases (any failure exits non-zero before the result line):
    same PREFILL agent and an unmeshed DECODE agent here on the host path,
    both against an in-process MIX engine on ``model=2``; inside 4m, (d)
    Mixtral-8x7B int8 and (e) DeepSeek-V2-Lite on ``expert=2 x model=2``
-   against 4m's one-device streams (kernel 1 at 64 a step; MLA's route at
-   27 a step a model shard over its replicated latent pool); after 4m,
-   (c) Llama-3-70B int8 at full width and all 80 layers on ``model=8``,
-   drawn straight into int8 (kernel 1 at 640 a step, every token against
+   at 4m (f)'s depth against 4m's one-device streams (kernel 1 at 2 a
+   layer a step; MLA's route once a layer a step a model shard over its
+   replicated latent pool); after 4m,
+   (c) Llama-3-70B int8 at full width and TP70_LAYERS of its 80 layers on
+   ``model=8``, drawn straight into int8 (kernel 1 at 8 a layer and step,
+   every token against
    its recomputation; build seconds, ``max_memory_allocated`` and tok/s
    are information) and (g) ``parallel/dryrun.py`` at the north-star
    sizes;
@@ -325,10 +341,10 @@ Phases (any failure exits non-zero before the result line):
    this script (``--mh-rank``, ``--mh-agent``) with its coordinates on
    ``cuda:0``, so the data plane is gloo (NCCL refuses two ranks on one
    device); each rank draws the weights from seed 0 and keeps only its
-   shards. (a) Llama-3-8B bf16 at full width and depth on ``model=2`` as
-   two ranks, six greedy streams of 32 tokens and a seeded sampled one,
-   against the one-process ``model=2`` engine on phase 4's weights
-   driven by the same schedule (``mh_drive``; greedy streams by
+   shards. (a) Llama-3-8B bf16 at full width and MH_TP_LAYERS layers on
+   ``model=2`` as two ranks, six greedy streams of 32 tokens and a seeded
+   sampled one, against the one-process ``model=2`` engine on the same
+   draw driven by the same schedule (``mh_drive``; greedy streams by
    ``held_to``'s rule, the sampled one equal where they all are); (b) the
    agent as two ranks (``--tp 2``) behind the stub master, four
    completions, the follower exiting 0 at the primary's shutdown event;
@@ -342,6 +358,24 @@ Phases (any failure exits non-zero before the result line):
    at the peaks, the ms of ``broadcast_bytes`` a tick and of the
    collectives a decode step, and the backend; every follower emits the
    primary's tokens in the same ticks and steps;
+4q. ``seq`` together with ``model`` or ``expert``, after 4p, on this card
+   repeated, eager: (a) Llama-3-8B bf16 at full width and depth on
+   ``seq=2 x model=2`` (phase 4's weights as views), its pool the
+   page-and-head grid (four shards ``[32, 2, 1024, 4, 16, 128]``): phase
+   4's first four prompts (those of GRID_RING_MIN tokens or more on the
+   ring), the first one's re-send and a shared prompt (prefix hits,
+   kernel 2) and a seeded sampled request, GRID_NEW tokens each; kernel 6
+   at 2 x 2 x 32 launches a step, the greedy streams held to phase 4's
+   by ``held_to``'s rule, one decode step's logits and the grid against
+   the one-device route; tok/s and peak GiB are information; (c) phase
+   4a's tier round trip on that grid, kernels 4 and 5 once a model shard
+   over both its seq shards; (b) Mixtral-8x7B int8 at MH_MOE_LAYERS layers
+   on ``seq=2 x expert=2`` against the ``expert=2`` engine on the same
+   weights (the 700-token prompt on the ring; streams by ``held_to``'s
+   rule); (d) Llama-3-8B at MH_SEQ_LAYERS layers on ``seq=2 x model=2``
+   as four ranks over gloo (``--mh-rank qd``), every stream equal to the
+   one-process engine's on that mesh, kernel 6 once a layer a step on
+   each rank;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -388,7 +422,14 @@ F32_FLOPS = 67e12                # f32 outside the tensor cores, same source
 N_Q, N_KV, HD, PS, B, MAX_PAGES = 32, 8, 128, 16, 8, 128
 
 
+T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
+    """One line of the report; a phase's heading carries the seconds since
+    the script started, so a run's log shows where its time went."""
+    if msg.startswith("["):
+        msg += f"  (at {time.monotonic() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -842,20 +883,22 @@ def sweep_movers(page_dma, gather, scatter):
 
 
 def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
-                      L=32, n_kv=N_KV, hd=HD, what="llama3-8b", sweep=True):
+                      L=32, n_kv=N_KV, hd=HD, what="llama3-8b", sweep=True,
+                      seq=4):
     """Kernels 4-5 against their plain versions at one hash block of 128
     tokens, ``[L, 2, 8, n_kv, 16, hd]`` (Llama-3-8B's [32, 2, 8, 8, 16,
     128] by default; DeepSeek-V2-Lite's MLA block is [27, 2, 8, 1, 16,
-    576]): bit for bit, with NaN in every page they must not touch, on one
-    pool and on the same pool sharded four ways on one card (the block's
-    eight pages on all four shards), one launch per call. Then times, the
-    bulk route's sweep (``sweep``) and the copy floor. Returns (gather
-    row, scatter row)."""
+    576]; a ``seq=2 x model=2`` grid shard's is [32, 2, 8, 4, 16, 128] on
+    ``seq=2``): bit for bit, with NaN in every page they must not touch,
+    on one pool and on the same pool sharded ``seq`` ways on one card (the
+    block's eight pages on every shard), one launch per call. Then times,
+    the bulk route's sweep (``sweep``) and the copy floor. Returns
+    (gather row, scatter row)."""
     ppb, n_pages = 8, 40
     ids = [17, 3, 29, 8, 35, 1, 22, 12]                  # shuffled, 8 pages
     untouched = [p for p in range(n_pages) if p not in ids]
-    mesh = build_mesh(MeshConfig(seq=4), ["cuda:0"] * 4)
-    assert sorted({p // (n_pages // 4) for p in ids}) == [0, 1, 2, 3]
+    mesh = build_mesh(MeshConfig(seq=seq), ["cuda:0"] * seq)
+    assert sorted({p // (n_pages // seq) for p in ids}) == list(range(seq))
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(6)
         kv = torch.randn((L, 2, n_pages, n_kv, PS, hd), generator=g,
@@ -864,10 +907,10 @@ def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
         block = torch.randn((L, 2, ppb, n_kv, PS, hd), generator=g,
                             device="cuda").to(dtype)
         mover_case(page_dma, kv, ids, untouched, block, f"{what} pool")
-        sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)],
-                               mesh)
+        sharded = ShardedPages([c.contiguous()
+                                for c in kv.chunk(seq, dim=2)], mesh)
         mover_case(page_dma, sharded, ids, untouched, block,
-                   f"{what} 4 shards")
+                   f"{what} {seq} shards")
 
     # Timing at one bf16 hash block (the offload and onload of one block).
     kv = torch.randn((L, 2, n_pages, n_kv, PS, hd), device="cuda").to(
@@ -878,7 +921,8 @@ def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
     # Each byte of the block read once and written once, and the ids.
     nbytes = 2 * block.numel() * 2 + len(ids) * 4
     bound = 1e3 * nbytes / HBM_BYTES_PER_S
-    sharded = ShardedPages([c.contiguous() for c in kv.chunk(4, dim=2)], mesh)
+    sharded = ShardedPages([c.contiguous() for c in kv.chunk(seq, dim=2)],
+                           mesh)
     # The copy floor: the card's own contiguous copy of the same bytes (a
     # yardstick only; the port never calls it).
     src = torch.empty_like(block)
@@ -900,7 +944,7 @@ def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
         shard_ms = time_ms(shard_call)
         log(f"  {name} {what} bf16 block {tuple(block.shape)}: kernel "
             f"{ms:.4f} ms "
-            f"(4 shards {shard_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"({seq} shards {shard_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
             f"{lib_ms:.4f} ms, copy floor {floor_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
             f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of the bound)")
@@ -954,12 +998,12 @@ def cp_case(dtype, ctxs, seed, tail_row=None, n_q=N_Q, n_kv=N_KV, hd=HD):
 
 def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                     build_mesh, MeshConfig, kernel_fn, n_q=N_Q, n_kv=N_KV,
-                    what="llama3-8b's 32/8 heads", extras=True):
+                    what="llama3-8b's 32/8 heads", extras=True, seq=4):
     """Kernel 6 against its plain version, shard by shard, at seq 2 and 4;
     the whole CP op against single-device attention on the same pool; then
     times at the decode step's shapes, with ``n_q``/``n_kv`` heads at head
-    dim 128 (``extras``: the splits sweep and the whole op's time beside
-    kernel 1's).
+    dim 128, on shard 0 of ``seq`` (``extras``: the splits sweep and the
+    whole op's time beside kernel 1's).
 
     Cases: ragged contexts up to the full table; kernel 1's split-K edges
     (a context shorter than one split, 3; one whose last split holds part
@@ -1037,10 +1081,10 @@ def check_cp_kernel(cp, paged_attention, paged_attention_plain,
                 assert e <= TOL[dtype], "cp op disagrees with single-device"
                 err = max(err, e)
 
-    # Timing at the decode step's shapes over four shards: B 8, ctx 1024,
-    # bf16; entry j of every row on shard j % 4, so each shard owns 16 of
-    # a row's 64 pages, at positions that are not contiguous.
-    n, ctx, mp = 4, 1024, 1024 // PS
+    # Timing at the decode step's shapes over ``seq`` shards: B 8, ctx
+    # 1024, bf16; entry j of every row on shard j % seq, so each shard owns
+    # 64 / seq of a row's 64 pages, at positions that are not contiguous.
+    n, ctx, mp = seq, 1024, 1024 // PS
     P = 4 * B * mp + 4
     P_loc = P // n
     k = torch.randn((P, n_kv, PS, HD), device="cuda").to(torch.bfloat16)
@@ -1618,18 +1662,18 @@ class StepClock:
 
 
 def serve_once(engine_mod, cfg, params, prompts, shared, sampled_prompt,
-               mesh=None, clocks=None):
+               mesh=None, clocks=None, new=64):
     """One serving run on a fresh engine (on ``mesh`` if given) with its
-    background loop. Returns (tokens per request, finish reasons, stats
-    with the count of ring prefills, ttft ms, generated tokens/s over the
-    run). With a ``clocks`` list, a ``StepClock`` summary of the run is
-    appended to it."""
+    background loop, ``new`` tokens a request. Returns (tokens per
+    request, finish reasons, stats with the count of ring prefills, ttft
+    ms, generated tokens/s over the run). With a ``clocks`` list, a
+    ``StepClock`` summary of the run is appended to it."""
     from xllm_service_tpu_torch.common.request import SamplingParams
 
     eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
     clock = StepClock(eng) if clocks is not None else None
-    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
-    samp = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
+    greedy = SamplingParams(max_tokens=new, temperature=0.0, ignore_eos=True)
+    samp = SamplingParams(max_tokens=new, temperature=0.8, top_p=0.9,
                           seed=1234, ignore_eos=True)
     cols = {}
     t_sub = {}
@@ -1740,11 +1784,42 @@ def serve_one(eng, engine_mod, name, toks, max_tokens=16):
     return col.tokens
 
 
+# The tier round trips' tokens a request: A's two compared runs (A1 from
+# HBM, A2 from the tiers) take TIER_NEW, the requests that only fill and
+# evict (A0, A-half, U1, U2) TIER_FILL_NEW. A 1024-token prompt takes 65
+# pages with either, so the evictions and the tiers' contents are those
+# of 16 tokens a request; on an eager mesh each token is a decode step.
+TIER_NEW = 8
+TIER_FILL_NEW = 2
+
+
 def wait_for(pred, what, timeout=120.0):
     t0 = time.monotonic()
     while not pred():
         assert time.monotonic() - t0 < timeout, f"timed out: {what}"
         time.sleep(0.01)
+
+
+def depth_view(cfg, params, layers):
+    """Engine configuration ``cfg`` cut to its first ``layers`` layers, and
+    those layers of ``params`` as views (no copy): the stacked ``layers``
+    and ``moe`` groups sliced on their leading axis (``moe`` holds no
+    stack for a family's leading dense layers), every other leaf shared.
+    An earlier phase's leg runs at this depth where its time grows with
+    the layers and its reference is drawn in the same leg."""
+    from dataclasses import replace
+
+    m = cfg.model
+    cut = {"layers": layers,
+           "moe": layers - (getattr(m, "first_dense_layers", 0) or 0)}
+
+    def head(tree, n):
+        if isinstance(tree, dict):
+            return {k: head(v, n) for k, v in tree.items()}
+        return tree[:n]
+
+    view = {k: head(v, cut[k]) if k in cut else v for k, v in params.items()}
+    return replace(cfg, model=replace(m, num_layers=layers)), view
 
 
 def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
@@ -1776,7 +1851,8 @@ def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
     m = cfg.model
     blk = (m.num_layers * 2 * hbs * m.num_kv_heads * m.head_dim
            * torch.empty((), dtype=m.dtype).element_size())
-    # 129 usable pages: A's 65 (1024 + 16 tokens) and U1's 64 cached pages.
+    # 129 usable pages: A's 65 (1024 + TIER_NEW tokens) and U1's 64 cached
+    # pages.
     tcfg = replace(cfg, num_pages=130, kv_tier_dram_bytes=4 * blk,
                    kv_tier_ssd_bytes=16 * blk, kv_tier_threads=1)
     eng = engine_mod.InferenceEngine(tcfg, params=params, mesh=mesh)
@@ -1788,8 +1864,9 @@ def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
     reset_counts()
     eng.start()
     try:
-        serve_one(eng, engine_mod, "A0", prompt_a)
-        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a)        # HBM hit
+        serve_one(eng, engine_mod, "A0", prompt_a, TIER_FILL_NEW)
+        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a,        # HBM hit
+                          TIER_NEW)
         # The bytes to be evicted, for the check after the onload (plain
         # gather; looking the blocks up refreshes them in LRU order).
         before = {}
@@ -1798,10 +1875,13 @@ def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
             before[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
             eng.page_mgr.release_prefix([h])
         serve_one(eng, engine_mod, "A-half",
-                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist())
+                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist(),
+                  TIER_FILL_NEW)
         t0 = time.monotonic()
-        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist())
-        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist())
+        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist(),
+                  TIER_FILL_NEW)
+        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist(),
+                  TIER_FILL_NEW)
         wait_for(lambda: all(store.ready(h) for h in hashes),
                  "A's blocks in the tiers")
         t_off = time.monotonic() - t0
@@ -1809,7 +1889,8 @@ def tier_phase(engine_mod, cfg, params, page_dma, card, mesh=None):
         tiers = [store.tier_of(h) for h in hashes]
         log(f"  after eviction: A's blocks in tiers {tiers}, stats {st0}")
         t0 = time.monotonic()
-        t_tier = serve_one(eng, engine_mod, "A2", prompt_a)      # tiers
+        t_tier = serve_one(eng, engine_mod, "A2", prompt_a,      # tiers
+                           TIER_NEW)
         t_on = time.monotonic() - t0
         launches = (page_dma.gather_kv_pages.launches,
                     page_dma.scatter_kv_pages.launches)
@@ -1921,11 +2002,17 @@ def check_cp_logits(llama, cfg, params, prompt, mesh, ShardedPages):
     assert err <= PREFILL_REL_TOL * scale, "CP decode-step logits drifted"
 
 
+# Phases 4c and 4d: tokens a request (each an eager decode step on
+# seq=4) and Llama-3-8B's depth there (``depth_view`` of phase 4's).
+CP_NEW = 32
+CP_LAYERS = 8
+
+
 def cp_phase(engine_mod, cfg, params, llama, kernels, card):
     """Context-parallel serving of Llama-3-8B on a seq=4 mesh, twice on
-    fresh engines: ring prefill for the long prompt, a prefix hit through
-    kernel 2, every decode step through kernel 6, kernels 1 and 3 idle.
-    Returns (the first run's tokens and launches, single-device tokens)."""
+    fresh engines, CP_NEW tokens a request: ring prefill for the long
+    prompt, a prefix hit through kernel 2, every decode step through
+    kernel 6, kernels 1 and 3 idle. Returns (the first run's tokens and launches, single-device tokens)."""
     from dataclasses import replace
 
     from xllm_service_tpu_torch.ops.cp_paged_attention import ShardedPages
@@ -1944,14 +2031,14 @@ def cp_phase(engine_mod, cfg, params, llama, kernels, card):
     shared = [long[:512] + rng.integers(3, V, size=200).tolist()]
     sampled_prompt = rng.integers(3, V, size=200).tolist()
     log(f"  prompts: long {len(long)}, short {len(short)}, shared 512 + 200, "
-        f"sampled 200 tokens; 64 generated each")
+        f"sampled 200 tokens; {CP_NEW} generated each")
     runs = []
     for r in range(2):
         reset_counts()
         t = time.monotonic()
         toks, reasons, stats, ttft, tps = serve_once(
             engine_mod, cp_cfg, params, [long, short], shared,
-            sampled_prompt, mesh=mesh)
+            sampled_prompt, mesh=mesh, new=CP_NEW)
         launches = dict(partial=partial.launches, decode=paged.launches,
                         mq=mq.launches, fused=fused.launches)
         log(f"  cp run {r}: {time.monotonic() - t:.1f} s, ring prefills "
@@ -1961,7 +2048,7 @@ def cp_phase(engine_mod, cfg, params, llama, kernels, card):
             f"{ttft[-1]:.1f}; {tps:.1f} generated tok/s over the run "
             f"(information only; {card})")
         for name, tk in toks.items():
-            assert len(tk) == 64 and reasons[name] == "length", \
+            assert len(tk) == CP_NEW and reasons[name] == "length", \
                 f"{name}: {len(tk)} tokens, reason {reasons[name]!r}"
         assert launches["partial"] > 0, "kernel 6 never launched"
         assert "decode_graph" not in stats, "a graph under the seq mesh"
@@ -1975,7 +2062,7 @@ def cp_phase(engine_mod, cfg, params, llama, kernels, card):
     assert runs[0][0] == runs[1][0], "two CP runs of the same batch differ"
     log("  both CP runs gave identical tokens for all 4 requests")
     single, *_ = serve_once(engine_mod, cfg, params, [long, short], shared,
-                            sampled_prompt)
+                            sampled_prompt, new=CP_NEW)
     same = sum(single[n] == runs[0][0][n] for n in single)
     log(f"  CP vs single-device engine: {same}/{len(single)} requests with "
         "identical tokens (information only: random bf16 weights give "
@@ -2065,8 +2152,9 @@ def tier_cp_phase(engine_mod, cfg, params, llama, page_dma, partial,
     reset_counts()
     eng.start()
     try:
-        serve_one(eng, engine_mod, "A0", prompt_a)
-        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a)        # HBM hit
+        serve_one(eng, engine_mod, "A0", prompt_a, TIER_FILL_NEW)
+        t_hbm = serve_one(eng, engine_mod, "A1", prompt_a,        # HBM hit
+                          TIER_NEW)
         before, spans = {}, []
         for h in hashes[:7]:
             pages = eng.page_mgr.match_block(h)
@@ -2074,10 +2162,13 @@ def tier_cp_phase(engine_mod, cfg, params, llama, page_dma, partial,
             before[h] = page_dma.gather_kv_pages_plain(eng.kv_pages, pages)
             eng.page_mgr.release_prefix([h])
         serve_one(eng, engine_mod, "A-half",
-                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist())
+                  prompt_a[:4 * hbs] + rng.integers(3, V, 100).tolist(),
+                  TIER_FILL_NEW)
         t0 = time.monotonic()
-        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist())
-        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist())
+        serve_one(eng, engine_mod, "U1", rng.integers(3, V, 8 * hbs).tolist(),
+                  TIER_FILL_NEW)
+        serve_one(eng, engine_mod, "U2", rng.integers(3, V, 8 * hbs).tolist(),
+                  TIER_FILL_NEW)
         wait_for(lambda: all(store.ready(h) for h in hashes),
                  "A's blocks in the tiers")
         t_off = time.monotonic() - t0
@@ -2086,7 +2177,8 @@ def tier_cp_phase(engine_mod, cfg, params, llama, page_dma, partial,
         log(f"  A's blocks on shards {spans} (blocks 0-6); after eviction in "
             f"tiers {tiers}")
         t0 = time.monotonic()
-        t_tier = serve_one(eng, engine_mod, "A2", prompt_a)      # tiers
+        t_tier = serve_one(eng, engine_mod, "A2", prompt_a,      # tiers
+                           TIER_NEW)
         t_on = time.monotonic() - t0
         launches = (page_dma.gather_kv_pages.launches,
                     page_dma.scatter_kv_pages.launches, partial.launches)
@@ -2226,7 +2318,7 @@ def twins_phase(params, card):
         torch.cuda.empty_cache()
         t = time.monotonic()
         prof = decode_profile.run("cuda", params=params, iters=10,
-                                  trace_steps=8)
+                                  trace_steps=4)
         log(f"  profile twin (8b): full_step_ms eager "
             f"{prof['full_step_ms']:.3f}, graphed "
             f"{prof['full_step_graphed_ms']:.3f}; forward "
@@ -2995,10 +3087,14 @@ def mixed_rows_check(llama, cfg, params):
 
 def empty_pool(cfg, n_pages, device, mesh=None):
     """A zeroed KV pool of ``n_pages`` pages for ``cfg``'s model (its
-    shards over the model axis of ``mesh``, when that axis is over 1)."""
+    shards over the model axis of ``mesh``, when that axis is over 1; a
+    page-and-head grid, its pages rounded up to a multiple of the seq
+    axis, when the seq axis is too)."""
     from xllm_service_tpu_torch.parallel.sharding import ModelShardedPages
 
     m = cfg.model
+    if mesh is not None:
+        n_pages += -n_pages % mesh.shape["seq"]
     shape = (m.num_layers, 2, n_pages, m.num_kv_heads, cfg.page_size,
              m.head_dim)
     if mesh is not None and mesh.shape["model"] > 1:
@@ -3679,6 +3775,9 @@ def spec_phase(engine_mod, llama, cfg, params, kernels, card):
 
 # --------------------------------------------------------------- phase 4i
 PD_PROBE = "s0"      # the request whose pages phase 4i holds bit for bit
+# The pd_handoff_bench twin's contexts here: the host paths at 8192 tokens
+# took 4.1 and 1.6 s a handoff, best of three, a half of phase 4i.
+PD_TWIN_CTXS = (2048,)
 
 
 class CoordServer:
@@ -4589,6 +4688,10 @@ LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
                 r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
                 r"|\s+(?!\S)|\s+")
 K_DEPTH = 4          # phase 4k (b): layers of Qwen2-7B and Gemma-2-9B
+# Phase 4k (a): layers of phase 4's Llama-3-8B in the checkpoint. The
+# directory is written to and read back from the disk three times over;
+# at all 32 layers it held 16.06 GB.
+K_LLAMA_DEPTH = 8
 K_PROBE_NEW = 16     # phase 4k (b): greedy tokens per rollout
 
 
@@ -4892,17 +4995,19 @@ def sample_text(seed, n_chars) -> str:
     return "".join(parts)[:n_chars]
 
 
-def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
-                     want, split_4f, kernels, card):
-    """Phase 4k: checkpoint loading. (a) Phase 4's Llama-3-8B weights
+def checkpoint_phase(engine_mod, llama, cfg, params, prompts, shared,
+                     sampled_prompt, split_4f, kernels, card):
+    """Phase 4k: checkpoint loading. (a) Phase 4's Llama-3-8B weights at
+    full width, cut to their first K_LLAMA_DEPTH layers (``depth_view``),
     written as an HF model directory (four bf16 shards with their index,
     ``config.json``, a Llama-3-shaped ``tokenizer.json``), loaded in this
     process (every leaf bit for bit, and in int8 against ``quantize_tree``),
     then served by the agent in a second process from its command line
-    (``--checkpoint-path D --tokenizer-path D``) behind the stub master:
-    after a warm pass on other prompts, phase 4's requests give phase 4's
-    tokens (``want``), two text requests are tokenised as here, kernels 1
-    and 2 launch there. (b) Qwen2-7B and
+    (``--model-config hf --checkpoint-path D --tokenizer-path D``) behind
+    the stub master: after a warm pass on other prompts, phase 4's requests
+    give the tokens of an engine here on the same cut tree (run, with the
+    in-process loads, while the agent starts), two text requests are
+    tokenised as here, kernels 1 and 2 launch there. (b) Qwen2-7B and
     Gemma-2-9B at full width and K_DEPTH layers: written, loaded bit for
     bit, and one rollout's tokens and logits equal to the tree in memory's.
     ``split_4f`` = phase 4f's host split (the byte tokenizer). Returns the
@@ -4927,6 +5032,7 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
     from xllm_service_tpu_torch.tokenizer import HFTokenizer
 
     paged_attention, mq_paged_attention = kernels
+    cfg, params = depth_view(cfg, params, K_LLAMA_DEPTH)
     mcfg = cfg.model
     here = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="phase4k-")
@@ -4947,45 +5053,6 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
             f"{sorted(os.listdir(d))} ({card})")
         assert hf_config.model_config_from_hf(d) == mcfg, "config.json"
 
-        # In-process loads: bf16 bit for bit, then int8.
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loaded = hf_config.load_checkpoint(d, mcfg, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t
-        n = assert_trees_bit_equal(loaded, params, "llama3-8b")
-        del loaded
-        t = time.perf_counter()
-        q8 = hf_config.load_checkpoint(
-            d, dataclasses.replace(mcfg, quant="int8"), device="cuda")
-        torch.cuda.synchronize()
-        q8_s = time.perf_counter() - t
-        n8 = assert_trees_bit_equal(q8, quantize_tree(params),
-                                    "llama3-8b int8")
-        del q8
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"  in-process load: {n} leaves bit-identical to phase 4's in "
-            f"{load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s, shards just "
-            f"written: the page cache); int8: {n8} leaves bit-identical to "
-            f"quantize_tree of phase 4's in {q8_s:.2f} s ({card})")
-
-        # The tokenizer: the parent's copy, and its encode rate.
-        t = time.perf_counter()
-        tok = HFTokenizer(os.path.join(d, "tokenizer.json"))
-        build_s = time.perf_counter() - t
-        text = sample_text(1, 1 << 20)
-        t = time.perf_counter()
-        ids = tok.encode(text)
-        enc_s = time.perf_counter() - t
-        log(f"  tokenizer: built in {build_s:.2f} s; encode of "
-            f"{len(text.encode()) / 1e6:.2f} MB: {enc_s:.2f} s, "
-            f"{len(text.encode()) / 1e6 / enc_s:.3f} MB/s, "
-            f"{len(ids) / enc_s:.0f} tokens/s ({len(ids)} tokens; the "
-            f"host's CPU)")
-        assert tok.decode(tok.encode("Hello world, ¡hola!")) == \
-            "Hello world, ¡hola!"
-
         # Served through the agent's command line in a second process.
         store = MemoryStore()
         coord = CoordServer(store)
@@ -4994,10 +5061,10 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
         name = f"127.0.0.1:{pick_free_port('127.0.0.1')}"
         os.makedirs(os.path.join(here, "build"), exist_ok=True)
         log_path = os.path.join(here, "build", "phase4k_agent.log")
-        t = time.monotonic()
+        t_spawn = time.monotonic()
         child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--checkpoint-agent",
-             "--model-config", "llama3_8b", "--model-id", "llama3-8b",
+             "--model-config", "hf", "--model-id", "llama3-8b",
              "--checkpoint-path", d, "--tokenizer-path", d,
              "--coordination-addr", coord.addr,
              "--port", name.rpartition(":")[2],
@@ -5024,13 +5091,57 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
 
         post = None
         try:
+            # While the agent starts: the tokens of an engine here on the
+            # same tree, the in-process loads and the tokenizer.
+            want, *_ = serve_once(engine_mod, cfg, params, prompts, shared,
+                                  sampled_prompt)
+            # In-process loads: bf16 bit for bit, then int8.
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loaded = hf_config.load_checkpoint(d, mcfg, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            n = assert_trees_bit_equal(loaded, params, "llama3-8b")
+            del loaded
+            t = time.perf_counter()
+            q8 = hf_config.load_checkpoint(
+                d, dataclasses.replace(mcfg, quant="int8"), device="cuda")
+            torch.cuda.synchronize()
+            q8_s = time.perf_counter() - t
+            n8 = assert_trees_bit_equal(q8, quantize_tree(params),
+                                        "llama3-8b int8")
+            del q8
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  in-process load: {n} leaves bit-identical to phase 4's "
+                f"in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s, "
+                "shards just written: the page cache; the agent starting "
+                f"beside it); int8: {n8} leaves bit-identical to "
+                f"quantize_tree of phase 4's in {q8_s:.2f} s ({card})")
+
+            # The tokenizer: the parent's copy, and its encode rate.
+            t = time.perf_counter()
+            tok = HFTokenizer(os.path.join(d, "tokenizer.json"))
+            build_s = time.perf_counter() - t
+            text = sample_text(1, 1 << 20)
+            t = time.perf_counter()
+            ids = tok.encode(text)
+            enc_s = time.perf_counter() - t
+            log(f"  tokenizer: built in {build_s:.2f} s; encode of "
+                f"{len(text.encode()) / 1e6:.2f} MB: {enc_s:.2f} s, "
+                f"{len(text.encode()) / 1e6 / enc_s:.3f} MB/s, "
+                f"{len(ids) / enc_s:.0f} tokens/s ({len(ids)} tokens; the "
+                f"host's CPU, the agent starting beside it)")
+            assert tok.decode(tok.encode("Hello world, ¡hola!")) == \
+                "Hello world, ¡hola!"
+
             key = instance_key("MIX", name)
             deadline = time.monotonic() + 600
             while store.get(key) is None:
                 assert child.poll() is None and time.monotonic() < deadline, \
                     f"the agent did not register:\n{child_log()}"
                 time.sleep(0.25)
-            reg_s = time.monotonic() - t
+            reg_s = time.monotonic() - t_spawn
             before = command("report")
             log(f"  agent {name} (pid {child.pid}) registered {reg_s:.1f} s "
                 f"after its start; its load {before['load_s']:.2f} s "
@@ -5092,9 +5203,10 @@ def checkpoint_phase(llama, cfg, params, prompts, shared, sampled_prompt,
                    for n_ in names}
             same = [n_ for n_ in names if got[n_] == want[n_]]
             log(f"  phase 4's {len(names)} requests through the checkpoint "
-                f"agent: {len(same)}/{len(names)} with phase 4's tokens")
+                f"agent: {len(same)}/{len(names)} with the tokens of an "
+                f"engine here on the same {K_LLAMA_DEPTH} layers")
             assert len(same) == len(names), \
-                f"tokens differ from phase 4's: " \
+                f"tokens differ from the engine's here: " \
                 f"{sorted(set(names) - set(same))}"
             for i, text in enumerate(texts):
                 gens = master.gens[f"text{i}"]
@@ -5659,15 +5771,19 @@ def moe_layer_check(deepseek_moe, mixtral, card):
     return times
 
 
+MOE_AGENT_NEW = 32    # 4m (b): tokens a request through the agent
+
+
 def mixtral_agent_leg(deepseek_moe, kernels, card):
     """4m (b): Mixtral-8x7B in weight-only int8, all 32 layers and eight
     experts, random weights drawn in their int8 form from the engine's
     seed, served by the port's agent built from its command line
     (``--model-config mixtral_8x7b --quant int8``) behind phase 4f's stub
     master: four greedy requests, then two sharing the first's 512-token
-    prefix once it streams. Checks the deltas, kernel 1 at 32 launches a
-    replayed step, kernel 2 on the prefix hits, the captured step's
-    replays, and every greedy token against its recomputation. Returns the
+    prefix once it streams, MOE_AGENT_NEW tokens each. Checks the deltas,
+    kernel 1 at 32 launches a replayed step, kernel 2 on the prefix hits,
+    the captured step's replays, and every greedy token against its
+    recomputation. Returns the
     launches of kernels 1 and 2, the engine's configuration and its int8
     weights (legs (f) and (i) serve on them)."""
     from xllm_service_tpu_torch.coordination.memory import (
@@ -5706,7 +5822,8 @@ def mixtral_agent_leg(deepseek_moe, kernels, card):
     prompts = [rng.integers(3, V, size=n).tolist() for n in lens]
     shared = [prompts[0][:512] + rng.integers(3, V, size=int(n)).tolist()
               for n in rng.integers(32, 257, size=2)]
-    greedy = dict(max_tokens=64, temperature=0.0, ignore_eos=True)
+    greedy = dict(max_tokens=MOE_AGENT_NEW, temperature=0.0,
+                  ignore_eos=True)
     sent_at, sent = {}, {}
     installs = spy_installs(agent.engine)
     reset_counts()
@@ -5734,7 +5851,8 @@ def mixtral_agent_leg(deepseek_moe, kernels, card):
         stats = agent.engine.stats()
         k1, k2 = paged_attention.launches, mq_paged_attention.launches
         graph = stats["decode_graph"]
-        assert all(len(v) == 64 for v in toks.values()), "short streams"
+        assert all(len(v) == MOE_AGENT_NEW for v in toks.values()), \
+            "short streams"
         ttft = sorted((master.first[n] - sent_at[n]) * 1e3 for n in names)
         tps = sum(map(len, toks.values())) / wall
         kv_tok = m.num_layers * 2 * m.kv_size * m.dtype_bytes
@@ -5989,6 +6107,10 @@ def moe_bench_twin(card):
 # The later legs run eager on a seq mesh (phase 4c served 14.7-29.4 tok/s
 # there), so each serves at most six requests of MOE_NEW tokens.
 MOE_NEW = 16
+# (f), (e) and 4o (d), (e) run eager on four shards, every prefill and
+# step layer by layer on each: they take (b)'s and (c)'s weights cut to
+# this depth (``depth_view``).
+MOE_MESH_LAYERS = 8
 # Leg (h) runs two DeepSeek-V2-Lite engines, one in each process: at full
 # depth their weights alone take about 63 GB, so the pair runs layer 0
 # (dense) and the first three MoE layers at full width.
@@ -6362,7 +6484,6 @@ def mla_pd_leg(engine_mod, moe, card):
                for i, n in enumerate([640, 200, 700, 96])}
     shared = {f"s{j}": prompts["g0"][:512] + rng.integers(3, V, size=int(n))
               .tolist() for j, n in enumerate([80, 150])}
-    want, _, _ = serve_greedy(engine_mod, cfg, params, prompts, shared)
     store = MemoryStore()
     coord = CoordServer(store)
     master = StubMaster()
@@ -6376,6 +6497,8 @@ def mla_pd_leg(engine_mod, moe, card):
          str(cfg.decode_horizon)], coord.addr, "phase4m_decode_agent.log")
     pre = None
     try:
+        # The reference streams while the decode agent starts.
+        want, _, _ = serve_greedy(engine_mod, cfg, params, prompts, shared)
         pre = EngineAgent(cfg, AgentConfig(
             instance_type=InstanceType.PREFILL, model_id="deepseek-v2-lite",
             heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
@@ -6467,27 +6590,31 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
 
     k1, k2, xcfg, xparams = leg("(b)", mixtral_agent_leg, deepseek_moe,
                                 (paged_attention, mq_paged_attention), card)
+    mesh_cfg, mesh_params = depth_view(xcfg, xparams, MOE_MESH_LAYERS)
+    tag = f"mixtral-8x7b int8 at {MOE_MESH_LAYERS} layers"
     k6, _, (f1, f2), x_one = leg("(f)", moe_seq_leg, engine_mod,
-                                 deepseek_moe, attention, kernels, xcfg,
-                                 xparams, "(f) mixtral-8x7b int8", 81, card)
-    log("[4o] (d) mixtral-8x7b int8 on expert=2 x model=2, (b)'s weights:")
+                                 deepseek_moe, attention, kernels, mesh_cfg,
+                                 mesh_params, f"(f) {tag}", 81, card)
+    log(f"[4o] (d) {tag} on expert=2 x model=2, (b)'s weights:")
     d1, d2 = leg("4o (d)", ep_leg, engine_mod, deepseek_moe, attention,
-                 kernels, xcfg, xparams, "4o (d) mixtral-8x7b int8", x_one,
+                 kernels, mesh_cfg, mesh_params, f"4o (d) {tag}", x_one,
                  card)
     i1, i2 = leg("(i)", mixtral_spec_leg, engine_mod, deepseek_moe,
                  (paged_attention, mq_paged_attention), xcfg, xparams, card)
-    del xparams
+    del xparams, mesh_params
     gc.collect()
     torch.cuda.empty_cache()
     _, dcfg, dparams = leg("(c)", deepseek_leg, engine_mod, deepseek_moe,
                            attention, kernels[:3], card)
+    mesh_cfg, mesh_params = depth_view(dcfg, dparams, MOE_MESH_LAYERS)
+    tag = f"deepseek-v2-lite bf16 at {MOE_MESH_LAYERS} layers"
     *_, d_one = leg("(e)", moe_seq_leg, engine_mod, deepseek_moe,
-                    attention, kernels, dcfg, dparams,
-                    "(e) deepseek-v2-lite bf16", 61, card)
-    log("[4o] (e) deepseek-v2-lite bf16 on expert=2 x model=2, (c)'s "
-        "weights:")
+                    attention, kernels, mesh_cfg, mesh_params, f"(e) {tag}",
+                    61, card)
+    log(f"[4o] (e) {tag} on expert=2 x model=2, (c)'s weights:")
     leg("4o (e)", ep_leg, engine_mod, deepseek_moe, attention, kernels,
-        dcfg, dparams, "4o (e) deepseek-v2-lite bf16", d_one, card)
+        mesh_cfg, mesh_params, f"4o (e) {tag}", d_one, card)
+    del mesh_params
     log("  (g) deepseek-v2-lite bf16 through the KV tiers:")
     g4, g5 = leg("(g)", tier_phase, engine_mod, dcfg, dparams, page_dma,
                  card)
@@ -6510,6 +6637,10 @@ TP_NEW = 16
 # Llama-3-70B int8's pool: 512 pages of 16 tokens at 327,680 bytes a token
 # (80 layers x K and V x 8 heads x 128 x bf16), 2.68 GB.
 TP70_PAGES = 512
+# 4o (c)'s depth: every eager step runs each layer on eight shards, so the
+# leg's time grows with it; at all 80 layers it took a twelfth of the
+# script.
+TP70_LAYERS = 8
 TP_PROBE = "s0"      # the request whose pages leg (f) holds bit for bit
 
 
@@ -6604,8 +6735,10 @@ def check_tp_logits(llama, cfg, params, prompt, mesh, sharded):
     n = len(prompt)
     n_pages = -(-n // PS)
     i32 = dict(dtype=torch.int32, device="cuda")
-    shape = (mcfg.num_layers, 2, n_pages + 1, mcfg.num_kv_heads, PS,
-             mcfg.head_dim)
+    # A page-and-head grid's pages divide over the seq axis.
+    shape = (mcfg.num_layers, 2, n_pages + 1 + (-(n_pages + 1)
+                                                 % mesh.shape["seq"]),
+             mcfg.num_kv_heads, PS, mcfg.head_dim)
     pt = torch.arange(1, n_pages + 1, **i32)[None]
     toks = torch.tensor([prompt], **i32)
 
@@ -6753,8 +6886,6 @@ def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card):
     mesh = card_mesh(model=2)
     reqs, hits = tp_traffic(prompts, shared)
     sent = {**reqs, **hits}
-    want, _, _ = serve_greedy(engine_mod, cfg, params, reqs, hits, mesh=mesh,
-                              max_tokens=TP_NEW)
     greedy = dict(max_tokens=TP_NEW, temperature=0.0, ignore_eos=True)
     requests = {n: dict(token_ids=p, **greedy) for n, p in sent.items()}
     store = MemoryStore()
@@ -6772,6 +6903,9 @@ def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card):
         "phase4o_decode_agent.log")
     pre = dec = None
     try:
+        # The reference streams while the decode agent starts.
+        want, _, _ = serve_greedy(engine_mod, cfg, params, reqs, hits,
+                                  mesh=mesh, max_tokens=TP_NEW)
         pre = EngineAgent(cfg, AgentConfig(
             instance_type=InstanceType.PREFILL, model_id="llama3-8b",
             heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
@@ -6849,9 +6983,9 @@ def ep_leg(engine_mod, moe, attention, kernels, cfg, params, tag, sent_want,
     routing near-ties than ROUTED_SHARE allows: the shards' partial sums
     round apart, and random weights leave many router margins below
     that). GQA (Mixtral, 8 KV heads): two shards of 4 heads, kernel 1
-    at 64 launches a step (32 layers x 2 model shards), kernel 2 on the
+    at 2 launches a layer a step (2 model shards), kernel 2 on the
     prefix hit. MLA (DeepSeek-V2-Lite): the one-head latent pool
-    replicated, its route (``paged_attention_xla``) 27 times a step a
+    replicated, its route (``paged_attention_xla``) once a layer a step a
     model shard, kernels 1-3 idle. Returns (kernel 1's and 2's
     launches)."""
     from xllm_service_tpu_torch.parallel.sharding import shard_params
@@ -6897,13 +7031,14 @@ def ep_leg(engine_mod, moe, attention, kernels, cfg, params, tag, sent_want,
 
 def tp70b_leg(engine_mod, llama, prompts, shared, kernels, card):
     """4o (c): Llama-3-70B in weight-only int8 (``llama3_70b_config``) at
-    full width and all 80 layers on ``model=8`` of this card: 8/1 heads a
-    shard, the weights drawn straight into int8 (one layer of one
-    projection at a time) and sharded as views, a pool of TP70_PAGES
-    pages; phase 4's requests cut to six (two prefix hits), TP_NEW tokens
-    each. Checks: eight shards ``[80, 2, 512, 1, 16, 128]``, kernel 1 at
-    640 launches a step, kernel 2 on the prefix hits, every greedy token
-    against its recomputation by the same sharded weights. The build's
+    full width and TP70_LAYERS of its 80 layers on ``model=8`` of this
+    card: 8/1 heads a shard, the weights drawn straight into int8 (one
+    layer of one projection at a time) and sharded as views, a pool of
+    TP70_PAGES pages; phase 4's requests cut to six (two prefix hits),
+    TP_NEW tokens each. Checks: eight shards ``[TP70_LAYERS, 2, 512, 1, 16,
+    128]``, kernel 1 at 8 x TP70_LAYERS launches a step, kernel 2 on the
+    prefix hits, every greedy token against its recomputation by the same
+    sharded weights. The build's
     seconds, ``max_memory_allocated`` and tok/s are information. Returns
     (kernel 1's and 2's launches)."""
     from dataclasses import replace
@@ -6913,7 +7048,8 @@ def tp70b_leg(engine_mod, llama, prompts, shared, kernels, card):
     from xllm_service_tpu_torch.parallel.sharding import shard_params
 
     paged, mq, fused, partial = kernels
-    mcfg = replace(llama3_70b_config(), quant="int8")
+    mcfg = replace(llama3_70b_config(), quant="int8", num_layers=TP70_LAYERS)
+    L = mcfg.num_layers
     cfg = EngineConfig(model=mcfg, num_pages=TP70_PAGES, page_size=PS,
                        hash_block_size=128, max_batch_size=8,
                        max_seq_len=2048, decode_horizon=8,
@@ -6926,9 +7062,9 @@ def tp70b_leg(engine_mod, llama, prompts, shared, kernels, card):
                           "cuda"), mesh, llama.LLAMA_STACKED_RULES)
     torch.cuda.synchronize()
     build_s = time.monotonic() - t
-    log(f"  (c) llama3-70b int8 drawn and sharded eight ways in "
-        f"{build_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated ({card})")
+    log(f"  (c) llama3-70b int8 at {L} layers drawn and sharded eight "
+        f"ways in {build_s:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated ({card})")
     reqs, hits = tp_traffic(prompts, shared)
     sent = {**reqs, **hits}
     reset_counts()
@@ -6943,11 +7079,11 @@ def tp70b_leg(engine_mod, llama, prompts, shared, kernels, card):
         f"tok/s, eager; information only, {card}); max_memory_allocated "
         f"{peak / 1e9:.2f} GB; prefix hits {st['prefix_hits']}, {steps} "
         f"decode steps; kernels 1/2/3/6 {k1}/{k2}/{k3}/{k6}")
-    assert st["pool"] == [(80, 2, TP70_PAGES, 1, PS, HD)] * 8
+    assert st["pool"] == [(L, 2, TP70_PAGES, 1, PS, HD)] * 8
     assert st["prefix_hits"] >= 2
-    assert k1 == 8 * 80 * steps, \
-        f"kernel 1 launched {k1} times, not 640 a step for {steps}"
-    assert k2 >= 8 * 80, "the prefix hits did not take kernel 2"
+    assert k1 == 8 * L * steps, \
+        f"kernel 1 launched {k1} times, not {8 * L} a step for {steps}"
+    assert k2 >= 8 * L, "the prefix hits did not take kernel 2"
     assert k3 == 0 and k6 == 0
     check_streams_recomputed(llama, cfg, params, sent, toks,
                              "(c) llama3-70b int8 on model=8")
@@ -7476,18 +7612,27 @@ def vl_phase(engine_mod, kernels, card):
 
 # ---------------------------------------------------------------- phase 4p
 MH_NEW = {"a": 32, "c": 16, "d": 16}     # tokens a stream, by leg
+MH_TP_LAYERS = 8      # (a): Llama-3-8B cut to these layers
 MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
 MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
 MH_AGENT_NEW = 16     # (b): tokens a completion
 MH_WORLD = {"a": 2, "c": 4, "d": 2}
 MH_AXES = {"a": dict(model=2), "c": dict(expert=2, model=2),
            "d": dict(seq=2)}
+# Phase 4q's legs on the same machinery: (b) Mixtral-8x7B int8 at
+# MH_MOE_LAYERS layers on seq=2 x expert=2 in one process, its first
+# prompt of 700 tokens on the ring (GRID_RING_MIN); (d) Llama-3-8B at
+# MH_SEQ_LAYERS layers on seq=2 x model=2 as four ranks.
+GRID_RING_MIN = 512
+MH_NEW.update(qb=16, qd=16)
+MH_WORLD.update(qd=4)
+MH_AXES.update(qb=dict(seq=2, expert=2), qd=dict(seq=2, model=2))
 MH_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=5, ignore_eos=True)
 
 
 def phase4_config():
-    """Phase 4's engine configuration: Llama-3-8B at full width and depth
-    (phase 4p's leg (a) and its ranks serve with it too)."""
+    """Phase 4's engine configuration: Llama-3-8B at full width and
+    depth."""
     from xllm_service_tpu_torch.engine import EngineConfig
     from xllm_service_tpu_torch.models.base import llama3_8b_config
 
@@ -7507,14 +7652,18 @@ def mh_config(leg):
     from xllm_service_tpu_torch.models.base import llama3_8b_config
 
     if leg == "a":
-        return phase4_config()
-    if leg == "c":
+        cfg = phase4_config()
+        return replace(cfg, model=replace(cfg.model,
+                                          num_layers=MH_TP_LAYERS))
+    if leg in ("c", "qb"):
         mcfg = replace(mixtral.mixtral_8x7b_config(), quant="int8",
                        num_layers=MH_MOE_LAYERS)
-        return EngineConfig(model=mcfg, model_family="mixtral",
-                            num_pages=512, page_size=16, hash_block_size=128,
-                            max_batch_size=8, max_seq_len=2048,
-                            decode_horizon=8, admission_horizon=8, seed=0)
+        cfg = EngineConfig(model=mcfg, model_family="mixtral",
+                           num_pages=512, page_size=16, hash_block_size=128,
+                           max_batch_size=8, max_seq_len=2048,
+                           decode_horizon=8, admission_horizon=8, seed=0)
+        return (replace(cfg, seq_parallel_min_tokens=GRID_RING_MIN)
+                if leg == "qb" else cfg)
     return EngineConfig(model=replace(llama3_8b_config(),
                                       num_layers=MH_SEQ_LAYERS),
                         num_pages=2048, page_size=16, hash_block_size=128,
@@ -7523,12 +7672,14 @@ def mh_config(leg):
 
 
 def mh_traffic(leg, V):
-    """Phase 4p's requests of leg ``leg``: four prompts at once (on (d) the
-    first is 1101 tokens and prefix-free: the ring), two more sharing the
+    """Phase 4p's (and 4q's) requests of leg ``leg``: four prompts at once
+    (on 4p (d) and 4q (d) the first is 1101 tokens and prefix-free: the
+    ring; on 4q (b) its 700 take the ring too), two more sharing the
     first's first 512 tokens once it has its first token (prefix hits),
     and one seeded sampled request. Returns (prompts, shared, sampled)."""
-    rng = np.random.default_rng({"a": 40, "c": 41, "d": 42}[leg])
-    first = 1101 if leg == "d" else 700
+    rng = np.random.default_rng({"a": 40, "c": 41, "d": 42, "qb": 44,
+                                 "qd": 45}[leg])
+    first = 1101 if leg in ("d", "qd") else 700
     lens = [first, 300, 90, 500]
     prompts = {f"g{i}": rng.integers(3, V, size=n).tolist()
                for i, n in enumerate(lens)}
@@ -7983,26 +8134,29 @@ def mh_agent_leg(card):
         store.close()
 
 
-def mh_leg_a(engine_mod, llama, params, card):
-    """4p (a): Llama-3-8B bf16 at full width and depth on ``model=2`` as
-    two ranks, against the one-process ``model=2`` engine on phase 4's
-    weights (views) driven by the same schedule: kernel 1 once a layer a
-    step and kernel 2 on the prefix hits on each rank, each rank holding
-    about half the weights and its half of the pool. Returns the launches
-    summed over the ranks."""
-    from xllm_service_tpu_torch.parallel.sharding import shard_params
-
+def mh_leg_a(engine_mod, llama, card):
+    """4p (a): Llama-3-8B bf16 at full width and MH_TP_LAYERS layers on
+    ``model=2`` as two ranks, against the one-process ``model=2`` engine
+    (its weights drawn from seed 0 as the ranks draw theirs) driven by
+    the same schedule: kernel 1 once a layer a step and kernel 2 on the
+    prefix hits on each rank, each rank holding about half the weights
+    and its half of the pool. Returns the launches summed over the
+    ranks."""
     mesh = card_mesh(model=2)
-    sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
-    want, _, st = mh_one_process(engine_mod, "a", sharded, mesh)
+    want, served, st = mh_one_process(engine_mod, "a", None, mesh)
     log(f"  (a) the one-process model=2 engine: {st['prefix_hits']} prefix "
         f"hits, route {st['decode_route']}")
     torch.cuda.empty_cache()
     ranks = mh_ranks("a", card)
     launches = mh_report("a", ranks, card,
-                         "llama3-8b bf16 on model=2 as two ranks")
+                         f"llama3-8b bf16 at {MH_TP_LAYERS} layers on "
+                         "model=2 as two ranks")
     m = mh_config("a").model
     pool = 2048 * PS * 2 * m.num_layers * m.num_kv_heads * m.head_dim
+    D, V = m.hidden_size, m.vocab_size
+    tree = (m.num_layers * (D * (2 * m.q_size + 2 * m.kv_size)
+                            + 3 * D * m.ffn_size + 2 * D)
+            + 2 * V * D + D) * m.dtype_bytes
     for r in ranks:
         assert r["launches"]["paged_attention"] == \
             m.num_layers * r["decode_steps"], \
@@ -8010,9 +8164,9 @@ def mh_leg_a(engine_mod, llama, params, card):
         assert r["launches"]["mq_paged_attention"] >= m.num_layers
         assert r["pool"] == [[m.num_layers, 2, 2048, m.num_kv_heads // 2,
                               PS, m.head_dim]]
-        assert r["held"] < 0.6 * 16.06e9 + pool, \
+        assert r["held"] < 0.6 * tree + pool, \
             "a rank holds more than its half of the weights and pool"
-    mh_compare(llama, "a", ranks[0]["tokens"], want, sharded, sharded,
+    mh_compare(llama, "a", ranks[0]["tokens"], want, served, served,
                False, "(a) two ranks vs the one-process model=2 engine")
     return launches
 
@@ -8067,7 +8221,7 @@ def mh_leg_d(engine_mod, card):
     return launches
 
 
-def mh_phase(engine_mod, llama, moe, params, card):
+def mh_phase(engine_mod, llama, moe, card):
     """Phase 4p: one engine instance over processes, each rank a process on
     this card (gloo: NCCL refuses two ranks on one device): legs (a)-(d)
     (``mh_leg_a``, ``mh_agent_leg``, ``mh_leg_c``, ``mh_leg_d``). Returns
@@ -8075,8 +8229,7 @@ def mh_phase(engine_mod, llama, moe, params, card):
     leg."""
     total = {"paged_attention": 0, "mq_paged_attention": 0,
              "cp_paged_partial": 0}
-    for tag, leg in (("a", lambda: mh_leg_a(engine_mod, llama, params,
-                                            card)),
+    for tag, leg in (("a", lambda: mh_leg_a(engine_mod, llama, card)),
                      ("b", lambda: mh_agent_leg(card)),
                      ("c", lambda: mh_leg_c(engine_mod, moe, card)),
                      ("d", lambda: mh_leg_d(engine_mod, card))):
@@ -8088,6 +8241,238 @@ def mh_phase(engine_mod, llama, moe, params, card):
         torch.cuda.empty_cache()
         log(f"  ({tag}): {time.monotonic() - t:.1f} s")
     return total
+
+
+# ---------------------------------------------------------------- phase 4q
+GRID_NEW = 16         # tokens a stream in 4q (a)
+
+
+def grid_serve(engine_mod, cfg, params, mesh, prompts, shared, sampled,
+               new, kernels):
+    """One engine on ``mesh`` (``params`` its tree, sharded or not) driven
+    by ``mh_drive``'s schedule, its kernel counts zeroed just before.
+    Returns (tokens by name, stats with the ring count and the eager decode
+    steps, the launches of ``kernels`` by wrapper, wall s, peak bytes
+    allocated while built and serving, the pool's shard shapes, the
+    engine's tree)."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
+    steps = [0]
+    step = eng._decode_step
+
+    def counted(*args):
+        steps[0] += 1
+        return step(*args)
+
+    eng._decode_step = counted
+    reset_counts()
+    t0 = time.monotonic()
+    cols = mh_drive(
+        lambda n, toks, sp, col: eng.submit(engine_mod.EngineRequest(
+            n, token_ids=toks, sampling=sp, on_output=col)),
+        eng.step, prompts, shared, sampled, new)
+    wall = time.monotonic() - t0
+    launches = {fn: fn.launches for fn in kernels}
+    stats = dict(eng.stats(), ring_prefills=eng.ring_prefills,
+                 eager_steps=steps[0])
+    pool = eng.kv_pages
+    shapes = [tuple(x.shape) for part in getattr(pool, "shards", [pool])
+              for x in getattr(part, "shards", [part])]
+    served = eng.params
+    eng.stop()
+    peak = torch.cuda.max_memory_allocated()
+    toks = {n: c.tokens for n, c in cols.items()}
+    for n, t in toks.items():
+        assert len(t) == new, f"{n}: {len(t)} tokens"
+    del eng, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, stats, launches, wall, peak, shapes, served
+
+
+def grid_leg(engine_mod, llama, cfg, params, prompts, shared, sampled,
+             phase4, kernels, card):
+    """4q (a): Llama-3-8B bf16 at full width and depth on ``seq=2 x
+    model=2``, phase 4's weights as views (16/4 heads and ffn 7168 a model
+    shard), its pool the page-and-head grid (each model shard's heads,
+    their pages split over its seq line: four shards ``[32, 2, 1024, 4,
+    16, 128]``). Phase 4's first four prompts at once (each of
+    GRID_RING_MIN tokens or more, prefix-free, on the ring), then, once the
+    first has its first token, its re-send and phase 4's first shared
+    prompt (two prefix hits), and a seeded sampled request, GRID_NEW tokens
+    each. Checks: kernel 6 at 2 x 2 x 32 launches a step, kernels 1 and 3
+    idle, kernel 2 on the prefix hits, the ring count, every greedy stream
+    held to phase 4's one-device stream (``held_to``), one decode step's
+    logits and the grid joined against the one-device route
+    (``check_tp_logits``). Returns (kernel 2's and 6's launches, the
+    mesh)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    paged, mq, fused, partial = kernels
+    mesh = card_mesh(seq=2, model=2)
+    log(f"  mesh seq=2 x model=2 on {[str(d) for d in mesh.devices]}")
+    sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
+    reqs = {f"g{i}": prompts[i] for i in range(4)}
+    hits = {"r0": prompts[0], "s0": shared[0]}
+    sent = {**reqs, **hits}
+    want = {n: phase4["g0" if n == "r0" else n][:GRID_NEW] for n in sent}
+    rings = sum(len(p) >= GRID_RING_MIN for p in reqs.values())
+    before = torch.cuda.memory_allocated()
+    toks, st, launches, wall, peak, shapes, _ = grid_serve(
+        engine_mod, replace(cfg, seq_parallel_min_tokens=GRID_RING_MIN),
+        sharded, mesh, reqs, hits, sampled, GRID_NEW, kernels)
+    k1, k2, k3, k6 = (launches[fn] for fn in (paged, mq, fused, partial))
+    steps = st["eager_steps"]
+    m = cfg.model
+    gib = 2 ** 30
+    n_tok = sum(map(len, toks.values()))
+    log(f"  (a) llama3-8b on seq=2 x model=2, grid shards {shapes}: "
+        f"{len(toks)} requests, {n_tok} tokens in {wall:.1f} s "
+        f"({n_tok / wall:.1f} generated tok/s, eager; information only, "
+        f"{card}); peak {peak / gib:.2f} GiB allocated ({before / gib:.2f} "
+        f"before the engine: phase 4's weights); prefix hits "
+        f"{st['prefix_hits']}, rings {st['ring_prefills']}, {steps} decode "
+        f"steps, route {st['decode_route']}; kernels 1/2/3/6 "
+        f"{k1}/{k2}/{k3}/{k6} ({k6 / max(1, steps):.0f} of kernel 6 a "
+        "step)")
+    assert shapes == [(m.num_layers, 2, cfg.num_pages // 2,
+                       m.num_kv_heads // 2, PS, HD)] * 4, shapes
+    assert st["decode_route"] == "eager" and st["prefix_hits"] >= 2
+    assert st["ring_prefills"] == rings >= 1, \
+        f"{st['ring_prefills']} rings, {rings} prompts long enough"
+    assert k6 == 4 * m.num_layers * steps, \
+        f"kernel 6 launched {k6} times, not {4 * m.num_layers} a step"
+    assert k2 >= 2 * 2 * m.num_layers, "the prefix hits did not take kernel 2"
+    assert k1 == 0 and k3 == 0, "kernel 1 or 3 ran on the grid"
+    held_to(llama, cfg, params, sent, {n: toks[n] for n in sent}, want,
+            "(a) llama3-8b seq=2 x model=2 vs phase 4's one-device engine",
+            routed=False)
+    check_tp_logits(llama, cfg, params, shared[0], mesh, sharded)
+    return (k2, k6), mesh
+
+
+def grid_moe_leg(engine_mod, moe, kernels, card):
+    """4q (b): Mixtral-8x7B int8 at full width and MH_MOE_LAYERS layers
+    on ``seq=2 x expert=2`` (its experts over ``expert``, its pool split
+    over ``seq`` and held once), against the one-process ``expert=2``
+    engine on the same weights (drawn once from seed 0; each engine's
+    shards are views), both driven by ``mh_drive``'s schedule of leg
+    ``qb`` (its 700-token first prompt on the ring): kernel 6 at 2 x 4 a
+    step, kernel 1 idle, the ring once, the greedy streams by ``held_to``'s
+    rule (routing near-ties counted); the seeded sampled stream's equality
+    is information (two attention routes round apart). Returns (kernel
+    2's and 6's launches)."""
+    from xllm_service_tpu_torch.models.base import get_model_family
+
+    paged, mq, fused, partial = kernels
+    cfg = mh_config("qb")
+    m = cfg.model
+    tree = get_model_family("mixtral").init_params(
+        m, torch.Generator(device="cuda").manual_seed(cfg.seed), "cuda")
+    prompts, shared, sampled = mh_traffic("qb", m.vocab_size)
+    want, st_e, *_, ep_params = grid_serve(
+        engine_mod, cfg, tree, card_mesh(expert=2), prompts, shared,
+        sampled, MH_NEW["qb"], kernels)
+    toks, st, launches, wall, peak, shapes, served = grid_serve(
+        engine_mod, cfg, tree, card_mesh(seq=2, expert=2), prompts, shared,
+        sampled, MH_NEW["qb"], kernels)
+    k1, k2, k6 = (launches[fn] for fn in (paged, mq, partial))
+    steps = st["eager_steps"]
+    n_tok = sum(map(len, toks.values()))
+    log(f"  (b) mixtral-8x7b int8 at {m.num_layers} layers on seq=2 x "
+        f"expert=2, pool shards {shapes}: {n_tok} tokens in {wall:.1f} s "
+        f"({n_tok / wall:.1f} generated tok/s, eager; information only, "
+        f"{card}); peak {peak / 2 ** 30:.2f} GiB; prefix hits "
+        f"{st['prefix_hits']}, rings {st['ring_prefills']}, {steps} decode "
+        f"steps; kernels 1/2/6 {k1}/{k2}/{k6}")
+    assert shapes == [(m.num_layers, 2, cfg.num_pages // 2, m.num_kv_heads,
+                       PS, m.head_dim)] * 2, shapes
+    assert st["ring_prefills"] == 1 and st_e["ring_prefills"] == 0
+    assert st["prefix_hits"] >= 2
+    assert k6 == 2 * m.num_layers * steps and k1 == 0
+    sent = {**prompts, **shared}
+    held_to(moe, cfg, ep_params, sent, {n: toks[n] for n in sent},
+            {n: want[n] for n in sent},
+            "(b) mixtral int8 seq=2 x expert=2 vs the expert=2 engine",
+            routed=True, served_params=served)
+    log(f"  (b) the seeded sampled stream "
+        f"{'equal' if toks['sampled'] == want['sampled'] else 'parted'} "
+        "(information: kernel 6 and the merge against kernel 1)")
+    del tree, ep_params, served
+    return k2, k6
+
+
+def grid_ranks_leg(engine_mod, card):
+    """4q (d): Llama-3-8B at MH_SEQ_LAYERS layers on ``seq=2 x model=2``
+    as four ranks (rank r holds grid shard (seq r // 2, model r % 2): its
+    model shard of the weights, its pages of its heads): the 1101-token
+    prompt through the ring of each model shard over the ranks, every
+    decode step through kernel 6 on each rank's pages and the merge over
+    its seq group; every stream equal to the one-process engine's on that
+    mesh. Returns the launches summed over the ranks."""
+    want, _, st = mh_one_process(engine_mod, "qd", None,
+                                 card_mesh(seq=2, model=2))
+    torch.cuda.empty_cache()
+    ranks = mh_ranks("qd", card)
+    launches = mh_report("qd", ranks, card, f"llama3-8b at {MH_SEQ_LAYERS} "
+                         "layers on seq=2 x model=2 as four ranks")
+    m = mh_config("qd").model
+    assert st["ring_prefills"] == 1
+    assert [tuple(r["shards"][0]) for r in ranks] == \
+        [(0, 0), (0, 1), (0, 0), (0, 1)]
+    for r in ranks:
+        assert r["ring_prefills"] == 1, "the long prompt missed the ring"
+        assert r["launches"]["cp_paged_partial"] == \
+            m.num_layers * r["decode_steps"], \
+            "kernel 6 not once a layer a step on a rank"
+        assert r["launches"]["paged_attention"] == 0
+        assert r["pool"] == [[m.num_layers, 2, 2048, m.num_kv_heads // 2,
+                              PS, m.head_dim]]
+    same = sum(ranks[0]["tokens"][n] == want[n] for n in want)
+    log(f"  (d) four ranks vs the one-process seq=2 x model=2 engine: "
+        f"{same}/{len(want)} streams equal; kernel 6 "
+        f"{ranks[0]['launches']['cp_paged_partial'] // ranks[0]['decode_steps']}"
+        " a step a rank")
+    assert ranks[0]["tokens"] == want, "a stream of the grid ranks parted"
+    return launches
+
+
+def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
+               shared, sampled, phase4, kernels, card):
+    """Phase 4q: ``seq`` together with ``model`` or ``expert``, legs (a),
+    (c), (b), (d) (``grid_leg``, phase 4a's ``tier_phase`` on (a)'s grid,
+    ``grid_moe_leg``, ``grid_ranks_leg``). Returns the launches of kernels
+    2 and 6 and of the movers: ``partial_16_4`` counts kernel 6 at a model
+    shard's 16/4 heads ((a) and (d)), ``gather`` and ``scatter`` the
+    movers at a grid shard's block ((c))."""
+    out = {}
+    t = time.monotonic()
+    (mq_a, k6_a), mesh = grid_leg(engine_mod, llama, cfg, params, prompts,
+                                  shared, sampled, phase4, kernels, card)
+    log(f"  (a): {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    log("  (c) phase 4a's tier round trip on (a)'s grid pool:")
+    c = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=mesh)
+    assert c[0] % 2 == 0 and c[1] % 2 == 0, \
+        "a mover did not launch once a model shard"
+    log(f"  (c): {time.monotonic() - t:.1f} s; kernels 4/5 {c} (one launch "
+        "a model shard over both its seq shards, blocks of [32, 2, 8, 4, "
+        "16, 128] a model shard)")
+    t = time.monotonic()
+    mq_b, k6_b = grid_moe_leg(engine_mod, moe, kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b): {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    d = grid_ranks_leg(engine_mod, card)
+    log(f"  (d): {time.monotonic() - t:.1f} s")
+    out["mq"] = mq_a + mq_b + d["mq_paged_attention"]
+    out["partial"] = k6_a + k6_b + d["cp_paged_partial"]
+    out["partial_16_4"] = k6_a + d["cp_paged_partial"]
+    out["gather"], out["scatter"] = c
+    return out
 
 
 def main() -> int:
@@ -8185,6 +8570,20 @@ def main() -> int:
         page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=32, n_kv=2,
         hd=HD, what="llama3-8b model=4 shard", sweep=False)
     log(f"  a model shard's shapes: {time.monotonic() - t:.1f} s")
+    log("[3] a seq x model grid shard's shapes: kernel 6 at a model=2 "
+        "shard's 16/4 heads, kernels 4-5 at a seq=2 x model=2 grid shard's "
+        "block")
+    t = time.monotonic()
+    k6_16_4 = check_cp_kernel(cp, paged_attention, paged_attention_plain,
+                              build_mesh, MeshConfig, _build.kernel_fn,
+                              n_q=16, n_kv=4,
+                              what="llama3-8b model=2 shard's 16/4 heads",
+                              extras=False, seq=2)
+    k4_grid, k5_grid = check_page_movers(
+        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=32, n_kv=4,
+        hd=HD, what="llama3-8b seq=2 x model=2 grid shard", sweep=False,
+        seq=2)
+    log(f"  a grid shard's shapes: {time.monotonic() - t:.1f} s")
 
     # Phase 4: serving Llama-3-8B at full width and depth.
     log("[4] serving llama3-8b (32 layers, random weights, seed 0)")
@@ -8250,18 +8649,22 @@ def main() -> int:
         "identical tokens (information only: the two sum in another order)")
 
     # Phase 4c: context-parallel serving.
-    log("[4c] context-parallel serving on a seq=4 mesh, llama3-8b")
+    log(f"[4c] context-parallel serving on a seq=4 mesh, llama3-8b at "
+        f"{CP_LAYERS} layers")
+    cp_cfg, cp_params = depth_view(cfg, params, CP_LAYERS)
     _, cp_launches = cp_phase(
-        engine_mod, cfg, params, llama,
+        engine_mod, cp_cfg, cp_params, llama,
         (cp.paged_partial, paged_attention, mq_paged_attention,
          fused_decode_attention), card)
 
     # Phase 4d: KV tiers under the seq mesh.
     log("[4d] KV tiers on a seq=4 mesh: HBM -> DRAM -> SSD and back, "
-        "llama3-8b")
+        f"llama3-8b at {CP_LAYERS} layers")
     count = torch.cuda.device_count()
-    tier_cp_phase(engine_mod, cfg, params, llama, page_dma, cp.paged_partial,
+    tier_cp_phase(engine_mod, cp_cfg, cp_params, llama, page_dma,
+                  cp.paged_partial,
                   [torch.device("cuda", i % count) for i in range(4)], card)
+    del cp_params
 
     # Phase 4e: the decode step's host path.
     log("[4e] the captured decode step against the eager one; the bench "
@@ -8309,14 +8712,14 @@ def main() -> int:
                           (paged_attention, mq_paged_attention), card)
     from xllm_service_tpu_torch.benchmarks import pd_handoff_bench
     t_ = time.monotonic()
-    rec = pd_handoff_bench.run("cuda")
+    rec = pd_handoff_bench.run("cuda", ctxs=PD_TWIN_CTXS)
     log("  pd_handoff_bench " + json.dumps(rec))
     log(f"  pd_handoff_bench twin: {time.monotonic() - t_:.1f} s; per-path "
         "handoff ms " + "; ".join(
             f"ctx {r['ctx']}: device {r['device_ms']:.3f} (open "
             f"{r['device_open_ms']:.3f}, copy {r['device_copy_ms']:.3f}), "
             f"stream {r['stream_ms']:.1f}, inline {r['inline_ms']:.1f}"
-            for r in (rec["ctx_2048"], rec["ctx_8192"])) + f" ({card})")
+            for r in (rec[f"ctx_{c}"] for c in PD_TWIN_CTXS)) + f" ({card})")
     log(f"  phase 4i: {time.monotonic() - t:.1f} s")
 
     # Phase 4j: the llama family's variants.
@@ -8331,13 +8734,14 @@ def main() -> int:
     log(f"  phase 4j: {time.monotonic() - t:.1f} s")
 
     # Phase 4k: checkpoint loading.
-    log("[4k] checkpoint loading: llama3-8b as an HF model directory, "
-        "loaded here and served by the agent from its command line; "
+    log(f"[4k] checkpoint loading: llama3-8b at {K_LLAMA_DEPTH} layers as an "
+        "HF model directory, loaded here and served by the agent from its "
+        "command line; "
         f"qwen2-7b and gemma2-9b at {K_DEPTH} layers "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
     k_launches = checkpoint_phase(
-        llama, cfg, params, prompts, shared, sampled_prompt, runs[0][0],
+        engine_mod, llama, cfg, params, prompts, shared, sampled_prompt,
         split_4f, (paged_attention, mq_paged_attention), card)
     log(f"  phase 4k: {time.monotonic() - t:.1f} s")
 
@@ -8377,15 +8781,31 @@ def main() -> int:
 
     # Phase 4p: one engine instance over processes, ranks on this card.
     log("[4p] the mesh over processes, ranks on this card over gloo: (a) "
-        "llama3-8b on model=2 as two ranks, (b) the agent as two ranks, "
+        f"llama3-8b at {MH_TP_LAYERS} layers on model=2 as two ranks, (b) "
+        "the agent as two ranks, "
         f"(c) mixtral-8x7b int8 at {MH_MOE_LAYERS} layers on expert=2 x "
         f"model=2 as four ranks, (d) llama3-8b at {MH_SEQ_LAYERS} layers "
         "on seq=2 as two ranks "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
     from xllm_service_tpu_torch.models import deepseek_moe
-    p_launches = mh_phase(engine_mod, llama, deepseek_moe, params, card)
+    p_launches = mh_phase(engine_mod, llama, deepseek_moe, card)
     log(f"  phase 4p: {time.monotonic() - t:.1f} s")
+
+    # Phase 4q: seq together with model or expert.
+    log("[4q] seq together with model or expert on this card repeated: (a) "
+        "llama3-8b bf16 on seq=2 x model=2 (the page-and-head grid), (c) "
+        f"its tier round trip, (b) mixtral-8x7b int8 at {MH_MOE_LAYERS} "
+        f"layers on seq=2 x expert=2, (d) llama3-8b at {MH_SEQ_LAYERS} "
+        "layers on seq=2 x model=2 as four ranks "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    q_launches = grid_phase(engine_mod, llama, deepseek_moe, page_dma, cfg,
+                            params, prompts, shared, sampled_prompt,
+                            runs[0][0], (paged_attention, mq_paged_attention,
+                                         fused_decode_attention,
+                                         cp.paged_partial), card)
+    log(f"  phase 4q: {time.monotonic() - t:.1f} s")
 
     # Phase 4n: multimodal and EPD.
     log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
@@ -8417,7 +8837,8 @@ def main() -> int:
 
     # Phase 4o (c), (g): Llama-3-70B int8 once every other weight is gone,
     # then the dry run.
-    log("[4o] (c) llama3-70b int8 at full width and depth on model=8; (g) "
+    log(f"[4o] (c) llama3-70b int8 at full width, {TP70_LAYERS} of 80 "
+        "layers, on model=8; (g) "
         "the dry run at the north-star sizes "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
@@ -8445,22 +8866,24 @@ def main() -> int:
              + h_launches[1] + i_launches[1] + j_launches[1]
              + k_launches[1] + l_launches[1] + m_launches["mq"]
              + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
-             + p_launches["mq_paged_attention"]),
+             + p_launches["mq_paged_attention"] + q_launches["mq"]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
              tier_launches[0] + i_launches[2] + m_launches["gather"]
-             + n_launches["gather"] + o_b[0] + o_f[0]),
+             + n_launches["gather"] + o_b[0] + o_f[0] + q_launches["gather"]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
              tier_launches[1] + i_launches[3] + m_launches["scatter"]
-             + n_launches["scatter"] + o_b[1] + o_f[1]),
+             + n_launches["scatter"] + o_b[1] + o_f[1]
+             + q_launches["scatter"]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
              cp_launches["partial"] + m_launches["partial"]
-             + n_launches["partial"] + p_launches["cp_paged_partial"]),
+             + n_launches["partial"] + p_launches["cp_paged_partial"]
+             + q_launches["partial"]),
             # The same kernels at this slice's new shapes, counted where
             # the main path runs them at those shapes.
             ("gather_kv_pages@mla_block", csrc + "page_dma.cu",
@@ -8491,7 +8914,19 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4_tp, o_b[0]),
             ("scatter_kv_pages@model4_shard", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5_tp,
-             o_b[1])):
+             o_b[1]),
+            # A seq x model grid shard's shapes (phase 4q): kernel 6 at a
+            # model=2 shard's 16/4 heads ((a), (d)), the movers at a seq=2
+            # x model=2 grid shard's block ((c)).
+            ("cp_paged_partial@16/4_heads", csrc + "cp_paged_partial.cu",
+             "xllm_service_tpu/ops/cp_paged_attention.py:179", k6_16_4,
+             q_launches["partial_16_4"]),
+            ("gather_kv_pages@grid_shard", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:222", k4_grid,
+             q_launches["gather"]),
+            ("scatter_kv_pages@grid_shard", csrc + "page_dma.cu",
+             "xllm_service_tpu/ops/pallas_page_dma.py:250", k5_grid,
+             q_launches["scatter"])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": n, **res})
     log(f"  total {time.monotonic() - t_start:.1f} s")

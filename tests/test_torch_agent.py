@@ -56,6 +56,8 @@ from xllm_service_tpu_torch.tokenizer.simple import SimpleTokenizer
 
 from fakes import wait_until
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=4, max_seq_len=256)
 EMBED_TOL = 1e-5   # f32 on both sides; measured at most 1.6e-6

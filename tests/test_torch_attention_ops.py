@@ -18,6 +18,8 @@ import torch
 from xllm_service_tpu.ops import attention as ref
 from xllm_service_tpu_torch.ops import attention as port
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}

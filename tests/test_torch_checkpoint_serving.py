@@ -20,6 +20,7 @@ tokenizer; a native checkpoint serves through the same flag; a failed
 load ends the process non-zero.
 """
 
+import os
 import subprocess
 import sys
 
@@ -47,6 +48,8 @@ from xllm_service_tpu_torch.tokenizer import HFTokenizer, SimpleTokenizer
 from fakes import wait_until
 from test_hf_parity import drill, make_model_dir
 from test_torch_agent_e2e import _record
+
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
 
 PROMPT = "the capital of france is"
 MAX_NEW = 12
@@ -188,7 +191,8 @@ def _run_agent(*argv):
     return subprocess.run(
         [sys.executable, "-m", "xllm_service_tpu_torch.engine.agent",
          "--coordination-addr", "", "--device", "cpu", *argv],
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
 
 
 def test_failed_load_exits_non_zero(tmp_path):
@@ -209,6 +213,77 @@ def test_failed_load_exits_non_zero(tmp_path):
 
 
 # ------------------------------------- chip_smoke.py phase 4k's helpers
+@pytest.mark.parametrize("family", ["llama", "mixtral", "mla"])
+def test_depth_view_serves_the_first_layers(family):
+    """``chip_smoke.depth_view``, which cuts phase 4k's checkpoint and the
+    mesh legs to their first layers: the stacked ``layers`` group cut as
+    views of the drawn tree (MLA's leading dense layer kept, its MoE stack
+    one shorter), every other leaf the same tensor; an engine on the view
+    gives the greedy tokens of one on a copy of it, and leaves the deep
+    tree's bytes as they were."""
+    import copy
+    import dataclasses
+
+    import chip_smoke
+    from xllm_service_tpu_torch.common.request import SamplingParams
+    from xllm_service_tpu_torch.engine import (
+        EngineConfig,
+        EngineRequest,
+        InferenceEngine,
+    )
+    from xllm_service_tpu_torch.models import deepseek_moe, mixtral
+
+    m = {"llama": tiny_config(dtype=torch.float32),
+         "mixtral": mixtral.mixtral_tiny_config(dtype=torch.float32),
+         "mla": dataclasses.replace(deepseek_moe.tiny_mla_config(
+             dtype=torch.float32), first_dense_layers=1)}[family]
+    m = dataclasses.replace(m, num_layers=3)
+    init = llama.init_params if family == "llama" else \
+        deepseek_moe.init_params
+    params = init(m, torch.Generator().manual_seed(4), "cpu")
+    before = copy.deepcopy(params)
+    cfg = EngineConfig(model=m, model_family=m.name, num_pages=64,
+                       page_size=16, hash_block_size=32, max_batch_size=2,
+                       max_seq_len=256)
+    cut, view = chip_smoke.depth_view(cfg, params, 2)
+    assert cut.model.num_layers == 2 and cfg.model.num_layers == 3
+    for group, n in (("layers", 2), ("moe", 1 if family == "mla" else 2)):
+        for leaf, deep in zip(_leaves(view.get(group, {})),
+                              _leaves(params.get(group, {}))):
+            assert leaf.shape[0] == n and leaf.data_ptr() == deep.data_ptr()
+    for group in set(params) - {"layers", "moe"}:
+        assert view[group] is params[group]
+
+    def greedy(tree):
+        eng = InferenceEngine(cut, params=tree, device="cpu")
+        out = []
+        try:
+            eng.submit(EngineRequest(
+                "r", token_ids=list(range(3, 60)), on_output=out.append,
+                sampling=SamplingParams(max_tokens=8, temperature=0.0,
+                                        ignore_eos=True)))
+            for _ in range(50):
+                if out and out[-1].finished:
+                    break
+                eng.step()
+        finally:
+            eng.stop()
+        return [t for o in out for s in o.outputs for t in s.token_ids]
+
+    got = greedy(view)
+    assert len(got) == 8 and got == greedy(copy.deepcopy(view))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(params),
+                                                _leaves(before)))
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 @pytest.mark.parametrize("model_type", ["llama", "qwen2", "gemma2"])
 def test_phase_4k_writer_gives_an_hf_directory(tmp_path, model_type):
     """``chip_smoke.py``'s HF writer at a tiny width: ``transformers``

@@ -39,6 +39,8 @@ from xllm_service_tpu_torch.engine import (
 from xllm_service_tpu_torch.models import base
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 CONTEXT = 512
 # tests/test_engine.py's make_engine.
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,

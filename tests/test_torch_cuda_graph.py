@@ -30,6 +30,8 @@ from xllm_service_tpu_torch.ops.fused_decode_attention import (
 )
 from xllm_service_tpu_torch.ops.paged_attention import paged_attention
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 pytestmark = pytest.mark.cuda
 B = 4
 

@@ -46,6 +46,8 @@ from xllm_service_tpu_torch.ops.paged_attention import (
 )
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 

@@ -12,6 +12,7 @@ model's top logits.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,6 +39,8 @@ from xllm_service_tpu_torch.engine import (
 from xllm_service_tpu_torch.models import base, llama
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 from xllm_service_tpu_torch.ops import attention
+
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
 
 ROOT = Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
@@ -312,7 +315,8 @@ def test_roofline_byte_counts_equal_reference(name):
 def test_twin_runs_on_the_cpu_and_prints_one_json_line(module, keys):
     out = subprocess.run([sys.executable, "-m", module, "--device", "cpu"],
                          cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1

@@ -22,6 +22,8 @@ from xllm_service_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 @pytest.fixture
 def no_cuda(monkeypatch):

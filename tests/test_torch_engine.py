@@ -34,6 +34,8 @@ from xllm_service_tpu_torch.models import llama
 from xllm_service_tpu_torch.models.base import tiny_config
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=256, decode_horizon=4)
 

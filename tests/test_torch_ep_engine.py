@@ -36,6 +36,8 @@ from xllm_service_tpu_torch.parallel.sharding import (
 from test_torch_gemma import drawn_tree, port_config
 from test_torch_moe_seq_parallel import run_one
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=512)
 PROMPTS = (list(range(40, 75)), list(range(40, 72)) + [7, 9, 11, 13, 15])

@@ -58,6 +58,8 @@ from xllm_service_tpu_torch.ops.fused_decode_attention import (
     fused_decode_attention_split_plain,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=0, atol=2 ** -6)}
 

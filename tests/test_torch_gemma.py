@@ -43,6 +43,8 @@ from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 KV_TOL = dict(rtol=1e-5, atol=1e-5)
 P, PS = 48, 4

@@ -19,6 +19,8 @@ from xllm_service_tpu_torch.models.base import ModelConfig
 from test_hf_parity import make_model_dir
 from test_torch_loader import assert_trees_equal
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 def _fields_equal(port: ModelConfig, ref) -> None:
     for f in dataclasses.fields(port):

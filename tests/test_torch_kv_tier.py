@@ -49,6 +49,8 @@ from xllm_service_tpu_torch.models.base import tiny_config
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 from xllm_service_tpu_torch.ops.page_dma import gather_kv_pages
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 BLOCK_SHAPE = (2, 2, 2, 1, 4, 8)        # [L, 2, ppb, n_kv, ps, hd]
 
 

@@ -24,6 +24,8 @@ from xllm_service_tpu.engine import kv_transfer as ref
 from xllm_service_tpu_torch.engine import kv_transfer as port
 from xllm_service_tpu_torch.rpc import msgpack_lite
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -267,3 +269,14 @@ def test_pd_handoff_bench_twin_on_the_cpu():
         timeout=300, env={"CUDA_VISIBLE_DEVICES": "",
                           "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0 and "device='cpu'" in out.stderr
+
+
+def test_pd_handoff_bench_twin_takes_its_contexts():
+    """``ctxs`` names the contexts timed: one row each, the record's value
+    from the last."""
+    from xllm_service_tpu_torch.benchmarks import pd_handoff_bench
+
+    rec = pd_handoff_bench.run("cpu", ctxs=(128, 256))
+    assert [k for k in rec if k.startswith("ctx_")] == ["ctx_128", "ctx_256"]
+    assert rec["ctx_128"]["blob_mb"] < rec["ctx_256"]["blob_mb"]
+    assert rec["value"] == rec["ctx_256"]["inline_ms"]

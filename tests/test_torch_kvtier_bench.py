@@ -8,6 +8,7 @@ card and without ``--device cpu`` it raises and prints nothing.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -81,7 +82,7 @@ def test_command_line_on_the_cpu_and_without_a_card():
     out = subprocess.run(
         [sys.executable, "-m", MODULE, "--device", "cpu", "--quick",
          "--legs", "capacity"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
+        timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout)
     assert rec["model"] == "tiny" and "capacity" in rec

@@ -19,6 +19,8 @@ from xllm_service_tpu_torch.models import llama
 from xllm_service_tpu_torch.models.base import get_model_family, tiny_config
 from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 L, P, PS = 2, 24, 4
 # The reference forwards, compiled once per shape (eager op-by-op dispatch

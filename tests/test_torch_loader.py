@@ -43,6 +43,8 @@ from xllm_service_tpu_torch.models.safetensors_io import (
 from test_loader import make_hf_checkpoint
 from test_torch_gemma import port_config
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 # name -> (reference config factory, make_hf_checkpoint keywords)
 CASES = {
     "llama": (lambda: ref_tiny(dtype=jnp.float32), {}),

@@ -34,6 +34,8 @@ from test_torch_moe import (
     moe_models,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 @pytest.fixture(scope="module")
 def models():

@@ -43,6 +43,8 @@ from test_torch_moe import (
     moe_models,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 def tiny_mla(**kw):
     return ref_ds.tiny_mla_config(dtype=jnp.float32, **kw)

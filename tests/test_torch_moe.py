@@ -52,6 +52,8 @@ from test_torch_gemma import (
     traffic,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 MLP_TOL = dict(rtol=1e-5, atol=1e-5)
 
 

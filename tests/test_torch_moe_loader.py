@@ -69,6 +69,8 @@ from test_torch_checkpoint_serving import (
 from test_torch_gemma import port_config
 from test_torch_loader import _as_np, _leaves, assert_trees_equal
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 # family -> (reference config factory, directory writer, JAX loader,
 #            port loader)
 CASES = {

@@ -43,7 +43,7 @@ from xllm_service_tpu_torch.engine import (
     EngineRequest,
     InferenceEngine,
 )
-from xllm_service_tpu_torch.models import deepseek_moe
+from xllm_service_tpu_torch.models import deepseek_moe, llama
 from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.ops import cp_paged_attention as cp
@@ -52,6 +52,8 @@ from xllm_service_tpu_torch.ops.ring_attention import ring_attention
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
 from test_torch_gemma import drawn_tree, port_config
+
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
 
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=512,
@@ -268,7 +270,7 @@ def test_decode_step_compacts_tables_once(monkeypatch):
         calls["given"] += tables is not None
         return real_cp(*a, tables=tables, **k)
 
-    monkeypatch.setattr(deepseek_moe, "cp_tables", tables)
+    monkeypatch.setattr(llama, "cp_tables", tables)
     monkeypatch.setattr(attention, "cp_paged_attention", cp_op)
     pt = torch.tensor([[1, 6, 11, 0], [2, 7, 12, 13]], dtype=torch.int32)
     clens = torch.tensor([9, 14], dtype=torch.int32)

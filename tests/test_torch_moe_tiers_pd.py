@@ -48,6 +48,8 @@ from test_torch_moe_seq_parallel import cpu_mesh
 from test_torch_pd_e2e import FakeDevicePath, _Cluster, _pair
 from test_torch_tier_seq_parallel import _prompts, _serve
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TIER_KW = dict(num_pages=12, page_size=16, hash_block_size=32,
                max_batch_size=2, max_seq_len=256)
 # [L, 2, ppb, n_kv, ps, hd] in f32: MLA's one head of 48, Mixtral's two

@@ -35,6 +35,8 @@ from xllm_service_tpu_torch.ops.mq_paged_attention import (
     query_tile,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

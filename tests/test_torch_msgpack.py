@@ -28,6 +28,8 @@ from xllm_service_tpu_torch.engine import agent as port_agent
 from xllm_service_tpu_torch.engine.engine import PrefillHandoff
 from xllm_service_tpu_torch.rpc.msgpack_lite import packb, unpackb
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 UUID = 2**63 - 1
 
 

@@ -45,6 +45,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ROOT = Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=512,
@@ -99,6 +101,14 @@ def _nest(flat):
             node = node.setdefault(k, {})
         node[leaf] = arr
     return tree
+
+
+def pool_parts(pool):
+    """The tensors a pool holds here: itself, its shards, or each model
+    shard's seq shards (the page-and-head grid), in order."""
+    parts = pool.shards if hasattr(pool, "shards") else [pool]
+    return [t for p in parts
+            for t in (p.shards if hasattr(p, "shards") else [p])]
 
 
 def rank_main(spec_path, rank, world, port, out_path):
@@ -163,9 +173,7 @@ def rank_main(spec_path, rank, world, port, out_path):
     snap = []
 
     def snapshot():
-        pool = eng.kv_pages
-        snap.extend(s.clone() for s in
-                    (pool.shards if hasattr(pool, "shards") else [pool]))
+        snap.extend(s.clone() for s in pool_parts(eng.kv_pages))
 
     def follower_sink(o):
         streams.setdefault(o.service_request_id, []).extend(
@@ -216,6 +224,12 @@ def rank_main(spec_path, rank, world, port, out_path):
     eng.stop()
     with open(out_path, "w") as f:
         json.dump(out, f)
+    # Leave the group together: a rank whose peers have gone can abort in
+    # gloo's teardown at exit.
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
     return 0
 
 
@@ -246,9 +260,9 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _spawn(case, spec_path, tmp):
+def _spawn(case, spec_path, tmp, cases=CASES):
     world = 1
-    for n in CASES[case]["axes"].values():
+    for n in cases[case]["axes"].values():
         world *= n
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
@@ -284,7 +298,7 @@ def _collect(procs):
     return results
 
 
-def _one_process(case, rcfg, tree):
+def _one_process(case, rcfg, tree, cases=CASES):
     """The reference engine and the port's one-process engine on the
     case's mesh, serving its greedy requests (the reference) and all of
     them (the port) one after another."""
@@ -304,7 +318,7 @@ def _one_process(case, rcfg, tree):
 
     from test_torch_gemma import port_config
 
-    spec = CASES[case]
+    spec = cases[case]
     axes = spec["axes"]
     mcfg = MeshConfig(**axes)
     kw = {**ENGINE_KW, **spec.get("engine", {})}
@@ -322,9 +336,8 @@ def _one_process(case, rcfg, tree):
         if port_shards is None and sampling.get("temperature", 0) > 0:
             # The pools after the greedy requests (the reference serves
             # no sampled one).
-            pool = port.kv_pages
-            port_shards = [s.numpy().copy() for s in pool.shards] \
-                if hasattr(pool, "shards") else [pool.numpy().copy()]
+            port_shards = [s.numpy().copy()
+                           for s in pool_parts(port.kv_pages)]
         for name, eng, req_cls, sp_cls in (
                 ("ref", ref, RefRequest, RefSampling),
                 ("port", port, EngineRequest, SamplingParams)):

@@ -28,6 +28,8 @@ from xllm_service_tpu_torch.ops.page_dma import (
 )
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 SHAPE = (2, 2, 6, 2, 4, 8)          # [L, 2, P, n_kv, ps, hd]
 IDS = [4, 1, 5]                     # shuffled; pages 0, 2, 3 untouched
 

@@ -33,6 +33,8 @@ from xllm_service_tpu_torch.ops.paged_attention import (
     split_unit_range,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

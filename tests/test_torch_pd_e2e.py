@@ -45,6 +45,8 @@ from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 
 from fakes import wait_until
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=4, max_seq_len=256)
 BODY = {"model": "tiny-llama", "prompt": "disaggregate me please",

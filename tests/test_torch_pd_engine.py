@@ -36,6 +36,8 @@ from xllm_service_tpu_torch.engine.engine import InferenceEngine
 from xllm_service_tpu_torch.models.base import tiny_config
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 KV_TOL = 5e-5
 GREEDY = dict(temperature=0.0, ignore_eos=True)
 PROMPT = [(i * 7 + 3) % 400 + 5 for i in range(45)]

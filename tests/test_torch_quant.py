@@ -40,6 +40,8 @@ from test_torch_gemma import (
     traffic,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 def _weights(shape, seed, scale=1.0):
     rng = np.random.default_rng(seed)

@@ -36,6 +36,8 @@ from test_torch_gemma import (
     traffic,
 )
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 
 def tiny_qwen2(**kw):
     return ref_base.tiny_config(name="qwen2", dtype=jnp.float32,

@@ -35,6 +35,8 @@ from xllm_service_tpu_torch.models.weights import params_from_jax
 
 from test_torch_gemma import KV_TOL, TOL, drawn_tree
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENC_TOL = dict(rtol=1e-5, atol=1e-5)
 P, PS = 48, 4
 IMG = 100      # the placeholder id of the tiny configs here

@@ -23,6 +23,8 @@ from xllm_service_tpu_torch.ops.attention import prefill_attention
 from xllm_service_tpu_torch.ops.ring_attention import ring_attention
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

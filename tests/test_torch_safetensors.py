@@ -33,6 +33,8 @@ from xllm_service_tpu_torch.models.safetensors_io import (
 
 from test_torch_isolation import ROOT, _imported_roots
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 DTYPE_LIST = [torch.float32, torch.float16, torch.bfloat16, torch.int8]
 
 

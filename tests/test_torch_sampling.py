@@ -12,6 +12,8 @@ import torch
 from xllm_service_tpu.engine import sampling as ref
 from xllm_service_tpu_torch.engine import sampling as port
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 B, V = 4, 64
 
 

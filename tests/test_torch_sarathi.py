@@ -34,6 +34,8 @@ from xllm_service_tpu_torch.ops.mq_paged_attention import (
 from test_torch_chunked_prefill import both, step_until, weights  # noqa: F401
 from test_torch_gemma import check_mixed, drawn_tree, make_models, serve_both
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 # tests/test_sarathi.py's make_engine.
 SARATHI_KW = dict(num_pages=96, max_seq_len=512)
 TOL = dict(rtol=1e-5, atol=1e-5)

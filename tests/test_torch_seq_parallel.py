@@ -38,6 +38,8 @@ from xllm_service_tpu_torch.models.weights import llama_params_from_jax
 from xllm_service_tpu_torch.ops.cp_paged_attention import ShardedPages
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=512,
                  seq_parallel_min_tokens=64)
@@ -176,9 +178,17 @@ def test_other_mesh_axes_not_ported(axes, served):
 
 @pytest.mark.parametrize("axes", [dict(seq=2, model=2),
                                   dict(seq=2, expert=2)])
-def test_seq_with_model_or_expert_refused(axes):
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        InferenceEngine(port_cfg(), device="cpu", mesh=cpu_mesh(**axes))
+def test_seq_with_model_or_expert_refused(axes, served):
+    """Served now (the name stays from when these meshes were refused): on
+    ``seq`` together with ``model`` (the page-and-head grid pool) or
+    ``expert`` the engine's greedy tokens equal the reference's on
+    ``seq=4``, and the long prompt takes the ring once."""
+    _, _, single, out = served
+    eng = InferenceEngine(port_cfg(), device="cpu", mesh=cpu_mesh(**axes),
+                          params=clone_tree(single.params))
+    assert [run_one(eng, p) for p in (SHORT, LONG, LONG)] == out["ref"]
+    assert eng.ring_prefills == 1
+    eng.stop()
 
 
 def test_config_mesh_needs_distinct_devices():

@@ -30,6 +30,8 @@ from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.parallel import sharding
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 CONFIGS = {
     "llama": lambda: ref_base.tiny_config(dtype=jnp.float32),
     "qwen2": lambda: ref_base.tiny_config(name="qwen2", qkv_bias=True,

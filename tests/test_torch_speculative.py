@@ -15,6 +15,7 @@ inside the gaps between a random model's top logits.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -51,6 +52,8 @@ from xllm_service_tpu_torch.ops.mq_paged_attention import (
     mq_paged_attention_plain,
     mq_paged_attention_tiled_plain,
 )
+
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
 
 ROOT = Path(__file__).resolve().parents[1]
 # tests/test_speculative.py's make_engine.
@@ -555,7 +558,7 @@ def test_spec_bench_twin_runs_on_the_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "xllm_service_tpu_torch.benchmarks.spec_bench",
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
+        timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
     assert [x.get("mode") for x in lines[:2]] == ["speculate_k=0",

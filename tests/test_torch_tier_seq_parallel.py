@@ -51,6 +51,8 @@ from xllm_service_tpu_torch.ops.cp_paged_attention import ShardedPages
 from xllm_service_tpu_torch.ops.page_dma import gather_kv_pages
 from xllm_service_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=12, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=256)
 BLOCK_BYTES = 2 * 2 * 2 * 2 * 16 * 32 * 4      # [L, 2, ppb, n_kv, ps, hd] f32

@@ -48,6 +48,8 @@ from test_torch_chunked_prefill import step_until
 from test_torch_gemma import drawn_tree, port_config
 from test_torch_vl_engine import rows, submitter
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 ENGINE_KW = dict(num_pages=64, page_size=16, hash_block_size=32,
                  max_batch_size=2, max_seq_len=512)
 PROMPTS = (list(range(40, 75)), list(range(40, 72)) + [7, 9, 11, 13, 15])

@@ -40,6 +40,8 @@ from test_torch_chunked_prefill import Collector, step_until
 from test_torch_gemma import drawn_tree
 from test_torch_qwen2_vl import port_config
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 IMG = 100
 KV_TOL = dict(rtol=1e-4, atol=1e-4)
 GREEDY = dict(temperature=0.0, ignore_eos=True)

@@ -25,6 +25,8 @@ from test_loader import make_hf_qwen2_vl_checkpoint
 from test_torch_loader import assert_trees_equal
 from test_torch_qwen2_vl import assert_configs_equal
 
+torch.set_num_threads(1)   # six xdist workers share the CPU's cores
+
 HF_CONFIG = {
     "model_type": "qwen2_vl", "architectures":
         ["Qwen2VLForConditionalGeneration"],

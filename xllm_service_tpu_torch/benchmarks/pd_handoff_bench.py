@@ -170,13 +170,15 @@ def _puller_main() -> None:
         print(json.dumps(rec), flush=True)
 
 
-def run(device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Time each path on ``device``; returns the JSON record."""
+def run(device: Optional[Union[str, torch.device]] = None,
+        ctxs: Optional[tuple[int, ...]] = None) -> dict:
+    """Time each path on ``device``; returns the JSON record. ``ctxs``
+    replaces the contexts timed (2048 and 8192 tokens on the card)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     L, n_kv, ps, hd = (16, 8, 16, 128) if on_card else (2, 2, 16, 32)
     dtype = torch.bfloat16 if on_card else torch.float32
-    ctxs = (2048, 8192) if on_card else (256,)
+    ctxs = ctxs or ((2048, 8192) if on_card else (256,))
     result: dict = {"metric": "pd_handoff_ms_per_transfer", "unit": "ms",
                     "backend": dev.type, "dtype": dtype_name(dtype),
                     "kv_shape": [L, 2, "n_pages", n_kv, ps, hd]}

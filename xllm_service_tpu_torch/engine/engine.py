@@ -66,6 +66,16 @@
   (``ShardedBlock``). The ``data`` and ``pipe`` axes replicate: the port
   computes once where the reference computes the same values on each
   replica, as for ``seq``. The captured and mixed steps stay off.
+- **``seq`` together with ``model`` or ``expert``**: with a model axis
+  the pool is a grid of pages and heads (``ModelShardedPages`` whose
+  model shards are each a ``ShardedPages`` over their seq line): every
+  model shard decodes through kernel 6 on its seq line at its heads and
+  merges over that line, and a long prefix-free prompt takes the ring
+  per model shard. The reference replicates the heads over ``model``
+  there; the tokens and the pool's contents are the same. With an expert
+  axis and no model axis the pool is split over ``seq`` and held once
+  (by each rank over processes, at its expert coordinate), as on
+  ``expert`` alone.
 
 - **Admission order** as the reference's: online before offline, then
   higher priority first, FIFO otherwise.
@@ -170,9 +180,7 @@ its M-RoPE rows zero-padded to the ring's length.
   so the ranks read the same values, as the reference's ``_fetch``
   arranges. The KV tiers are off there, with the reference's warning.
 
-Not in this port yet: a ``seq`` axis together with a ``model`` or
-``expert`` axis (refused: ROADMAP queue 1 item 18), and the captured and
-mixed steps under a mesh.
+Not in this port yet: the captured and mixed steps under a mesh.
 """
 
 from __future__ import annotations
@@ -404,11 +412,13 @@ class InferenceEngine:
                                       cfg.hash_block_size)
         shape = (mcfg.num_layers, 2, cfg.num_pages, mcfg.num_kv_heads,
                  cfg.page_size, mcfg.head_dim)
-        if self.seq_parallel > 1:
+        if self.tensor_parallel > 1:
+            # Heads over the model axis; under a seq axis too, each model
+            # shard's pages over its seq line (the page-and-head grid).
+            self.kv_pages = ModelShardedPages.zeros(shape, mcfg.dtype, mesh)
+        elif self.seq_parallel > 1:
             self.kv_pages = ShardedPages.zeros(shape, mcfg.dtype, mesh,
                                                AXIS_SEQ)
-        elif self.tensor_parallel > 1:
-            self.kv_pages = ModelShardedPages.zeros(shape, mcfg.dtype, mesh)
         else:
             self.kv_pages = torch.zeros(shape, dtype=mcfg.dtype, device=dev)
         self._init_tiers()
@@ -489,20 +499,13 @@ class InferenceEngine:
                       ) -> Optional[DeviceMesh]:
         """The engine's mesh: the caller's, else one built from
         ``cfg.mesh`` over distinct devices from ``mesh_device_offset``
-        (raising when the machine has fewer), else None. A ``seq`` axis
-        above 1 together with a ``model`` or ``expert`` axis above 1 is
-        not ported; a named ``device`` must be the mesh's first."""
+        (raising when the machine has fewer), else None. A named
+        ``device`` must be the mesh's first."""
         if mesh is None and cfg.mesh is not None:
             mesh = mesh_from_config(cfg.mesh, resolve_device(device),
                                     cfg.mesh_device_offset)
         if mesh is None:
             return None
-        shape = mesh.shape
-        if shape[AXIS_SEQ] > 1 and max(shape[AXIS_MODEL],
-                                       shape[AXIS_EXPERT]) > 1:
-            raise NotImplementedError(
-                f"mesh {shape}: the seq axis together with the model or "
-                "expert axis is not ported yet (ROADMAP queue 1 item 18)")
         if device is not None:
             want, first = torch.device(device), mesh.first_device
             if want.type != first.type or want.index not in (None,

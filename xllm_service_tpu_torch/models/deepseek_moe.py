@@ -66,7 +66,6 @@ from ..ops.attention import (
     write_decode_kv,
     write_prefill_kv,
 )
-from ..ops.cp_paged_attention import ShardedPages, cp_tables
 from ..parallel.mesh import AXIS_EXPERT, AXIS_MODEL
 from ..parallel.sharding import (
     ShardedParams,
@@ -83,6 +82,7 @@ from .llama import (
     _unembed,
     forward_shards,
     on_shards,
+    shard_cp_tables,
 )
 from .quant import (
     QUANT_KERNELS,
@@ -431,15 +431,14 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
     use_mla = cfg.kv_lora_rank > 0
     Ld = cfg.first_dense_layers
     dense = kv_pages is None
-    tables = (cp_tables(page_table, context_lens, kv_pages)
-              if mode == "decode" and not use_mla
-              and isinstance(kv_pages, ShardedPages) else None)
     if use_mla:
         cos_sin = rope_cos_sin(positions, cfg.qk_rope_head_dim,
                                cfg.rope_theta)
     else:
         cos_sin = _rope(cfg, positions, x[..., 0])
     shards = forward_shards(params, cfg, kv_pages)
+    tables = (shard_cp_tables(shards, page_table, context_lens)
+              if mode == "decode" and not use_mla else [None] * len(shards))
     cos, sin = (on_shards(shards, t) for t in cos_sin)
     pts, pls, sls, pos, cls = (on_shards(shards, t) for t in (
         page_table, prefix_lens, seq_lens, positions, context_lens))
@@ -472,7 +471,7 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 else:
                     attn, _, _ = decode_attention_step(
                         q, k, v, k_pages, v_pages, pts[i], cls[i],
-                        cp_tables=tables)
+                        cp_tables=tables[i])
                 attn = attn.reshape(*attn.shape[:-2], c.q_size)
             parts.append(quantized_matmul(attn, lp["o_proj"]["kernel"]))
         x = x + all_reduce(parts, x.device, shards[0].group)

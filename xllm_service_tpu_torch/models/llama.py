@@ -26,7 +26,11 @@ own KV heads, o and down row-parallel with the partial products summed
 once on the mesh's first device. The embedding takes each row from the
 shard that holds it, and the logits of the vocabulary shards are joined
 before sampling (``all_gather``). An unsharded tree is the one-shard case
-of the same loop, with no copy and no reduction.
+of the same loop, with no copy and no reduction. With a ``seq`` axis too
+the pool is the page-and-head grid: each model shard's part is a
+``ShardedPages`` over its seq line, so its decode runs the
+context-parallel op at its heads (on tables compacted once a step,
+``shard_cp_tables``) and a long prefix-free prefill its own ring.
 
 On a mesh over processes each rank runs its own model shards and the sums
 and joins gather every rank's parts over the model axis's process group
@@ -124,6 +128,25 @@ def forward_shards(params, cfg: ModelConfig, kv_pages=None) -> list[Shard]:
     group = params.group(AXIS_MODEL)
     return [Shard(t, scfg, p, d, group) for t, p, d in
             zip(trees, pools, params.model_devices)]
+
+
+def shard_cp_tables(shards: list[Shard], page_table: torch.Tensor,
+                    context_lens: torch.Tensor) -> list[Optional[list]]:
+    """Each shard's decode tables (``cp_tables``) where its pool is split
+    over the seq axis (a seq mesh, or a model shard's line of the
+    page-and-head grid), else None: compacted once a step for every
+    layer, and once for the shards whose seq lines lie on the same
+    devices (one card, the CPU)."""
+    out, seen = [], {}
+    for s in shards:
+        if not isinstance(s.pool, ShardedPages):
+            out.append(None)
+            continue
+        key = (tuple(sh.device for sh in s.pool.shards), tuple(s.pool.index))
+        if key not in seen:
+            seen[key] = cp_tables(page_table, context_lens, s.pool)
+        out.append(seen[key])
+    return out
 
 
 def on_shards(shards: list[Shard], x):
@@ -493,13 +516,12 @@ def decode_forward(params: Params, cfg: ModelConfig,
     these positions (the sequence index plus the slot's delta left by its
     image grids), while the K/V write and the paging stay at
     ``positions``."""
-    tables = (cp_tables(page_table, context_lens, kv_pages)
-              if isinstance(kv_pages, ShardedPages) else None)
     x = _embed(params, cfg, tokens)                                # [B, D]
     if rope_positions is None:
         rope_positions = positions
     # Rope's cos/sin once for the step, shared by every layer's q and k.
     shards = forward_shards(params, cfg, kv_pages)
+    tables = shard_cp_tables(shards, page_table, context_lens)
     cos, sin = (on_shards(shards, t)
                 for t in _rope(cfg, rope_positions, tokens))
     pts, cls = (on_shards(shards, t) for t in (page_table, context_lens))
@@ -509,7 +531,7 @@ def decode_forward(params: Params, cfg: ModelConfig,
         q, k, v = _project_qkv(lp, h, s.cfg, (cos[i], sin[i]))  # [B, H, hd]
         attn, _, _ = decode_attention_step(q, k, v, s.pool[l, 0],
                                            s.pool[l, 1], pts[i], cls[i],
-                                           cp_tables=tables,
+                                           cp_tables=tables[i],
                                            **_attn_opts(cfg, l))
         return attn
 

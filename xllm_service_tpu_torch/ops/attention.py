@@ -323,7 +323,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("ring prefill needs a pool sharded over the "
                              "seq axis and no cached prefix")
         return ring_attention(q, k, v, k_pages.mesh,
-                              seq_axis=k_pages.seq_axis, scale=scale)
+                              seq_axis=k_pages.seq_axis, scale=scale,
+                              local=k_pages.local)
     with_prefix = k_pages is not None and has_prefix
     if with_prefix and isinstance(k_pages, ShardedPages):
         k_pages, v_pages, page_table = gather_sharded_table(

@@ -32,6 +32,12 @@ group (one collective a layer) and merges them in shard order, the same
 bits as the one-process merge. Writes, gathers and the tables take the
 global shard indices.
 
+With a ``model`` axis too (the page-and-head grid, ``parallel/sharding.py
+::ModelShardedPages``) every model shard holds a ``ShardedPages`` of its
+heads over its own seq line (``ShardedPages.zeros(..., model=m)``): kernel
+6 runs at the shard's heads and the merge is over that line (its seq
+group over processes).
+
 Bound on the H100: the owned, occupied K/V bytes a shard reads (a quarter
 of kernel 1's at four shards and even ownership). A shard walks about
 ``1 / n`` of a row, so ``partial_split_count`` sizes the split-K grid from
@@ -98,11 +104,15 @@ class ShardedPages:
 
     @classmethod
     def zeros(cls, shape: Sequence[int], dtype: torch.dtype,
-              mesh: DeviceMesh, seq_axis: str = AXIS_SEQ) -> "ShardedPages":
+              mesh: DeviceMesh, seq_axis: str = AXIS_SEQ,
+              **at: int) -> "ShardedPages":
         """A zero pool of global ``shape`` (page axis ``-4``, divisible by
         the axis size), one shard per device of the axis this process
-        holds."""
-        local = mesh.local_axis(seq_axis)
+        holds: on the axis's line through this process's first coordinate,
+        or through the indices ``at`` names (``model=m``: model shard m's
+        line of the page-and-head grid, ``parallel/sharding.py::
+        ModelShardedPages``)."""
+        local = mesh.local_axis(seq_axis, **at)
         n = mesh.shape[seq_axis]
         shape = list(shape)
         if shape[-4] % n:
@@ -132,6 +142,16 @@ class ShardedPages:
         """This process's first shard's device, where the model
         computes."""
         return self.shards[0].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def local(self) -> list[tuple[int, torch.device]]:
+        """``(index, device)`` of the shards held here: the ring's chunks
+        of this pool's seq line."""
+        return [(d, s.device) for d, s in zip(self.index, self.shards)]
 
     def full(self) -> torch.Tensor:
         """Every shard concatenated on the first device (tests, checks)."""

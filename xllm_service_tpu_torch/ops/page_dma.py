@@ -12,7 +12,12 @@ do not divide); a block buffer is ``[L, 2, n, n_kv, ps, hd]`` for ``n``
 page ids. Over a head-sharded pool each mover launches once per shard,
 on the shard's part of the block (``gather_kv_shards``); the block is the
 shards' parts joined on the head axis on the first device, the
-reference's layout, which the tiers and the host handoff paths keep. Gather copies the pages out into a NEW block on the pool's first
+reference's layout, which the tiers and the host handoff paths keep. On
+the page-and-head grid (a ``ModelShardedPages`` whose model shards are
+``ShardedPages``, a mesh with ``seq`` and ``model`` above 1) a model
+shard's part is moved over its seq shards by one launch a device, so a
+grid shard's block is that model shard's heads of the block's pages.
+Gather copies the pages out into a NEW block on the pool's first
 device (the pool is untouched, so the engine can download the block
 off-thread while later kernels recycle the pages); scatter writes a block
 back into the pool.

@@ -27,11 +27,17 @@ of the seq axis's process group while it takes the previous rank's
 (``AxisGroup.shift``, send and receive); the outputs of every rank's
 chunks are gathered in chunk order. Each chunk's arithmetic is the one
 process's, so the result is the same bits.
+
+On a mesh whose model axis is above 1 too (the page-and-head grid pool,
+``parallel/sharding.py::ModelShardedPages``) each model shard runs its
+own ring at its heads, over its seq line's devices (``local``); over
+processes the rank's seq group is that line's, so the hops pass K/V of
+the same heads.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -43,13 +49,19 @@ NEG_INF = -1e30
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mesh: DeviceMesh, seq_axis: str = AXIS_SEQ,
-                   scale: Optional[float] = None) -> torch.Tensor:
+                   scale: Optional[float] = None,
+                   local: Optional[Sequence[tuple[int, torch.device]]] = None
+                   ) -> torch.Tensor:
     """q: [B, S, H, hd], k/v: [B, S, H_kv, hd] (H_kv divides H) with S
     divisible by the axis size; returns the causal self-attention [B, S,
     H, hd] in q's dtype on q's device, each chunk computed on its device
-    in f32."""
+    in f32. ``local`` is the ``(chunk index, device)`` of the coordinates
+    held here (``ShardedPages.local``: a model shard's seq line, whose
+    heads q, k and v are); by default the axis's line through this
+    process's first coordinate."""
     n = mesh.shape[seq_axis]
-    local = mesh.local_axis(seq_axis)          # [(chunk index, device)]
+    if local is None:
+        local = mesh.local_axis(seq_axis)      # [(chunk index, device)]
     mine = [i for i, _ in local]
     devs = dict(local)
     group = mesh.group(seq_axis)

@@ -12,6 +12,10 @@ its unsharded run on the same inputs.
 - **Ring attention** over ``seq`` against the dense causal attention, and
   **context-parallel paged decode** over the same axis against the
   single-pool attention.
+- **The decode step over ``seq x model``**: the llama step of the first
+  part on ``seq=2 x model`` (``n / 2`` model shards), its pool the
+  page-and-head grid (a ``ModelShardedPages`` of ``ShardedPages``), so
+  every model shard runs the context-parallel op at its heads.
 
 ``northstar`` takes the reference's north-star axis sizes (``model=8``,
 ``expert=8`` with 16 experts, ``seq=8``) where it takes 4 or 2 otherwise,
@@ -69,15 +73,16 @@ def _decode(family, cfg, params, kv, B: int, device) -> torch.Tensor:
 
 
 def _sharded_decode(family, cfg, params, rules, mesh, B, device, seed,
-                    results, name) -> None:
+                    results, name, pages: Optional[int] = None) -> None:
     """One decode step of ``params`` unsharded and sharded over ``mesh``
-    from the same pool."""
-    full = _pool(cfg, 4 * B + 1, 16, device, seed)
+    from the same pool of ``pages`` pages (``4 * B + 1`` by default)."""
+    from ..ops.page_dma import scatter_kv_pages
+
+    full = _pool(cfg, pages or 4 * B + 1, 16, device, seed)
     ref_pool = full.clone()
     want = _decode(family, cfg, params, ref_pool, B, device)
     sharded = ModelShardedPages.zeros(full.shape, full.dtype, mesh)
-    for i in sharded.distinct():
-        sharded.shards[i].copy_(sharded.split(full)[i])
+    scatter_kv_pages(sharded, range(full.shape[2]), full)
     got = _decode(family, cfg, shard_params(params, mesh, rules), sharded,
                   B, device)
     _check(name, got, want, results)
@@ -168,6 +173,14 @@ def dryrun(devices: Sequence[Union[str, torch.device]],
                                   AXIS_SEQ),
                paged_attention(qd, kp, vp, ptd, clens), results)
         results["seq_axis"] = sp
+
+    if n >= 4:
+        # The decode step over seq x model: the grid pool.
+        gm = max(2, tp // 2)
+        grid = build_mesh(MeshConfig(seq=2, model=gm), devs[:2 * gm])
+        _sharded_decode(fam, cfg, params, fam.sharding_rules, grid, 2, dev,
+                        4, results, "seq_model_decode", pages=10)
+        results["seq_model_mesh"] = dict(grid.shape)
     return results
 
 

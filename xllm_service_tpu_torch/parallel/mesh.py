@@ -131,10 +131,11 @@ class DeviceMesh:
         and sampling lie."""
         return self.devices[self._block()[0]]
 
-    def _line(self, axes: Sequence[str]) -> list[int]:
-        """Flat coordinates through this process's first one that differ
-        from it only along ``axes``, in row-major order."""
-        base = self.coords(self._block()[0])
+    def _line(self, axes: Sequence[str], **at: int) -> list[int]:
+        """Flat coordinates through this process's first one (with the
+        axes named in ``at`` at those indices) that differ from it only
+        along ``axes``, in row-major order."""
+        base = {**self.coords(self._block()[0]), **at}
         out = []
         for f in range(len(self.devices)):
             c = self.coords(f)
@@ -143,13 +144,16 @@ class DeviceMesh:
                 out.append(f)
         return out
 
-    def local_axis(self, axis: str) -> list[tuple[int, torch.device]]:
+    def local_axis(self, axis: str, **at: int
+                   ) -> list[tuple[int, torch.device]]:
         """``(index, device)`` of this process's coordinates along
-        ``axis`` (every other axis at this process's first coordinate):
-        the shards of a tensor sharded over ``axis`` that it holds."""
+        ``axis`` (every other axis at this process's first coordinate, or
+        at the index ``at`` names): the shards of a tensor sharded over
+        ``axis`` that it holds. ``local_axis(AXIS_SEQ, model=m)`` is the
+        seq line of model shard m (the page-and-head grid pool)."""
         block = set(self._block())
         return [(self.coords(f)[axis], self.devices[f])
-                for f in self._line((axis,)) if f in block]
+                for f in self._line((axis,), **at) if f in block]
 
     def local_shards(self) -> list[tuple[tuple[int, int], torch.device]]:
         """``((expert, model), device)`` of this process's coordinates on

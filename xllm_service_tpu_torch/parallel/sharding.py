@@ -39,7 +39,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from .mesh import AXIS_EXPERT, AXIS_MODEL, DeviceMesh
+from .mesh import AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ, DeviceMesh
 
 Spec = tuple
 
@@ -262,7 +262,21 @@ class ModelShardedPages:
     processes). Where ``n_kv`` does not divide over the axis (MLA's one
     latent head) the pool is replicated: every shard is the whole pool,
     held once per distinct device (``replicated``), and a write goes to
-    each copy. ``shape`` is the global shape."""
+    each copy. ``shape`` is the global shape.
+
+    On a mesh whose ``seq`` axis is above 1 too the pool is a grid of
+    pages and heads: ``shards[i]`` is then a ``ShardedPages`` (``ops/
+    cp_paged_attention.py``) of model shard ``index[i]``'s heads, its
+    pages split over the seq line through that model coordinate, so grid
+    shard (s, m) holds pages ``[s * P / n_seq, (s + 1) * P / n_seq)`` of
+    heads ``[m * n_kv / n, (m + 1) * n_kv / n)``. Each model shard runs
+    kernel 6 and the ring over its own seq line, at its heads. The
+    reference keeps the heads replicated over ``model`` under ``seq``
+    (its pool is ``P(None, None, 'seq')``); the port shards them as on a
+    model axis alone: what is held equal is the tokens and the pool's
+    contents (``full()``), and a model shard then reads only its heads'
+    pages. A replicated (MLA) grid holds one ``ShardedPages`` per distinct
+    seq line of devices."""
 
     def __init__(self, shards: Sequence[torch.Tensor], mesh: DeviceMesh,
                  replicated: bool, index: Optional[Sequence[int]] = None):
@@ -281,15 +295,29 @@ class ModelShardedPages:
         shape = list(shape)
         n = mesh.shape[AXIS_MODEL]
         replicated = shape[HEAD_DIM] % n != 0
-        if replicated:
-            held: dict[torch.device, torch.Tensor] = {}
-            shards = [held.setdefault(d, torch.zeros(shape, dtype=dtype,
-                                                     device=d))
-                      for _, d in local]
-        else:
+        if not replicated:
             shape[HEAD_DIM] //= n
-            shards = [torch.zeros(shape, dtype=dtype, device=d)
-                      for _, d in local]
+        grid = mesh.shape[AXIS_SEQ] > 1
+
+        def line(m: int, d: torch.device) -> tuple:
+            """Where model shard m's part lies: its seq line's devices."""
+            return (tuple(x for _, x in mesh.local_axis(AXIS_SEQ, model=m))
+                    if grid else (d,))
+
+        def make(m: int, d: torch.device):
+            if grid:
+                from ..ops.cp_paged_attention import ShardedPages
+                return ShardedPages.zeros(shape, dtype, mesh, AXIS_SEQ,
+                                          model=m)
+            return torch.zeros(shape, dtype=dtype, device=d)
+
+        held: dict[tuple, object] = {}
+        shards = []
+        for m, d in local:
+            key = line(m, d) if replicated else (m,)
+            if key not in held:
+                held[key] = make(m, d)
+            shards.append(held[key])
         return cls(shards, mesh, replicated, [i for i, _ in local])
 
     @property
@@ -338,8 +366,9 @@ class ModelShardedPages:
 
     def full(self) -> torch.Tensor:
         """The pool in the reference's layout on the first device (tests,
-        checks)."""
-        return self.join(self.shards)
+        checks); a grid's model shards each join their seq line first."""
+        return self.join([s if isinstance(s, torch.Tensor) else s.full()
+                          for s in self.shards])
 
 
 class ShardedBlock:
