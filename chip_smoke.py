@@ -375,7 +375,33 @@ Phases (any failure exits non-zero before the result line):
    rule); (d) Llama-3-8B at MH_SEQ_LAYERS layers on ``seq=2 x model=2``
    as four ranks over gloo (``--mh-rank qd``), every stream equal to the
    one-process engine's on that mesh, kernel 6 once a layer a step on
-   each rank;
+   each rank; (e) a ``seq=2 x model=2`` PREFILL agent here and a
+   ``seq=2 x model=2`` DECODE agent in a second process
+   (``--tp-decode-agent seq=2,model=2``), 4o (f)'s six requests over CUDA
+   IPC, one handle a model shard (kernel 4 twice a handoff here, bit for
+   bit against the plain gather; kernel 5 twice there; the probe's
+   installed pages equal to its extracted block; the decode side on
+   kernel 6), the streams held to an in-process engine on the grid;
+4r. after 4q, on this card repeated: (a) Llama-3-8B bf16 at full width
+   and depth on ``model=2`` (phase 4's weights as views) with chunks of
+   CHUNK: four greedy streams and a seeded sampled one decoding while a
+   RIDE_LONG-token prompt is admitted, its chunks riding their decode
+   steps (the eager mixed step, once a model shard), against the
+   unmeshed chunked engine on the same schedule: as many rides, kernel 2
+   once a layer and model shard in every ride step (a shard's 16/4
+   heads), kernel 1 once a layer and model shard a step, the greedy
+   streams by 4g's rule (every parting a near-tie) and each parted
+   stream of the mesh against its recomputation there, one mixed step's
+   logits and pool
+   against the one-device route; (b) ``ops/pipeline.py`` at Llama-3-8B's
+   width, PP_LAYERS layers in f32 (the train loss's layer body), on
+   ``pipe`` 2 and 4 with 2 and 4 microbatches against the sequential
+   stack; (c) ``parallel/train.py``'s step at Llama-3-8B's width,
+   TRAIN_LAYERS layers in f32 (TF32 off), TRAIN_STEPS steps on one batch
+   on ``data=2 x model=4`` against the unsharded step: the losses and
+   every updated leaf within F32_REL_TOL (a leaf by its norm), the loss
+   falling, every copy of a slice equal; tok/s, ms a forward, s a step and peak GiB are
+   information;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -3845,6 +3871,7 @@ def decode_agent_child(argv) -> int:
     from xllm_service_tpu_torch.engine import engine as engine_mod
     from xllm_service_tpu_torch.engine.kv_transfer import tensor_bytes
     from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.ops.cp_paged_attention import paged_partial
     from xllm_service_tpu_torch.ops.mq_paged_attention import (
         mq_paged_attention,
     )
@@ -3874,7 +3901,8 @@ def decode_agent_child(argv) -> int:
                 "paged_attention": paged_attention.launches,
                 "mq_paged_attention": mq_paged_attention.launches,
                 "gather_kv_pages": page_dma.gather_kv_pages.launches,
-                "scatter_kv_pages": page_dma.scatter_kv_pages.launches},
+                "scatter_kv_pages": page_dma.scatter_kv_pages.launches,
+                "cp_paged_partial": paged_partial.launches},
                 "digests": dict(digests)}), flush=True)
         os.kill(os.getpid(), signal.SIGTERM)
 
@@ -6819,18 +6847,21 @@ def tp_leg(engine_mod, llama, cfg, params, prompts, shared, phase4, kernels,
 
 
 def tp_decode_agent_child(argv) -> int:
-    """``python3 chip_smoke.py --tp-decode-agent N SID ARGS...``:
-    ``decode_agent_child`` with the agent's engine handed a ``model=N``
-    mesh of this card repeated, as ``InferenceEngine`` takes one (the
-    agent's ``mesh`` argument; ``--tp N`` alone takes N distinct
-    cards)."""
+    """``python3 chip_smoke.py --tp-decode-agent AXES SID ARGS...``:
+    ``decode_agent_child`` with the agent's engine handed a mesh of this
+    card repeated, as ``InferenceEngine`` takes one (the agent's ``mesh``
+    argument; ``--tp N`` alone takes N distinct cards). AXES is N
+    (``model=N``) or ``axis=n,...`` (``seq=2,model=2``: the page-and-head
+    grid)."""
     import functools
 
     from xllm_service_tpu_torch.engine import agent as agent_mod
 
-    n, rest = int(argv[0]), argv[1:]
+    spec, rest = argv[0], argv[1:]
+    axes = (dict(model=int(spec)) if spec.isdigit() else
+            {k: int(v) for k, v in (a.split("=") for a in spec.split(","))})
     agent_mod.EngineAgent = functools.partial(agent_mod.EngineAgent,
-                                              mesh=card_mesh(model=n))
+                                              mesh=card_mesh(**axes))
     return decode_agent_child(rest)
 
 
@@ -8439,14 +8470,126 @@ def grid_ranks_leg(engine_mod, card):
     return launches
 
 
+def grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod, kernels,
+                card):
+    """4q (e): a PD pair of Llama-3-8B bf16 at full depth on the
+    page-and-head grid. A ``seq=2 x model=2`` PREFILL agent here (phase
+    4's weights as views, handed its mesh as ``InferenceEngine`` takes
+    one) and a ``seq=2 x model=2`` DECODE agent in a second process
+    (``--tp-decode-agent seq=2,model=2``, weights from the same seed),
+    4o (f)'s six requests: every handoff on CUDA IPC, one handle a model
+    shard (each extract a ``ShardedBlock`` of two parts, each part one
+    model shard's heads of both its seq shards' pages); kernel 4 once a
+    model shard a handoff here, bit for bit against the plain gather;
+    kernel 5 once a model shard there; the probe request's installed pages
+    equal to its extracted block; the decode side's steps through kernel
+    6; the streams held to an in-process MIX engine on the grid
+    (``held_to``). Returns the launches of kernels 2, 4, 5 and 6 (the
+    in-process engine's and the pair's, both processes)."""
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    paged, mq, fused, partial = kernels
+    mesh = card_mesh(seq=2, model=2)
+    reqs, hits = tp_traffic(prompts, shared)
+    sent = {**reqs, **hits}
+    greedy = dict(max_tokens=TP_NEW, temperature=0.0, ignore_eos=True)
+    requests = {n: dict(token_ids=p, **greedy) for n, p in sent.items()}
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    child = DecodeChild(
+        ["--tp-decode-agent", "seq=2,model=2", TP_PROBE],
+        ["--model-config", "llama3_8b", "--model-id", "llama3-8b",
+         "--tp", "2", "--num-pages", str(cfg.num_pages),
+         "--page-size", str(cfg.page_size),
+         "--max-batch-size", str(cfg.max_batch_size),
+         "--max-seq-len", str(cfg.max_seq_len),
+         "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
+        "phase4q_decode_agent.log")
+    pre = None
+    try:
+        # The reference streams while the decode agent starts.
+        reset_counts()
+        want, st, _ = serve_greedy(engine_mod, cfg, params, reqs, hits,
+                                   mesh=mesh, max_tokens=TP_NEW)
+        ref = (mq.launches, partial.launches)
+        pre = EngineAgent(cfg, AgentConfig(
+            instance_type=InstanceType.PREFILL, model_id="llama3-8b",
+            heartbeat_interval_s=1.0), coord=InMemoryCoordination(store),
+            params=params, device="cuda", mesh=mesh)
+        pre.start()
+        parts = []
+        extract = pre.engine.extract_kv_pages_device
+
+        def counted_extract(pages):
+            got = extract(pages)
+            parts.append(len(getattr(got, "parts", [got])))
+            return got
+
+        pre.engine.extract_kv_pages_device = counted_extract
+        toks, handoff, bad, digests, dl, reg_s = pd_pair_run(
+            pre, child, master, store, requests, TP_PROBE,
+            "/v1/completions")
+        n = len(requests)
+        # pd_pair_run set the counts to 0 just before its dispatches.
+        g4, k2 = page_dma.gather_kv_pages.launches, mq.launches
+        ms = sorted(handoff.values())
+        log(f"  (e) seq=2 x model=2 pair over CUDA IPC: decode agent "
+            f"registered after {reg_s:.1f} s; {n} handoffs, parts a handoff "
+            f"{sorted(set(parts))}; handoff ms (device offer + pull spans) "
+            f"p50 {ms[len(ms) // 2]:.3f} max {ms[-1]:.3f} (information "
+            f"only; {card}); kernel 4 here {g4}, kernel 2 here {k2}; there "
+            f"kernel 5 {dl['scatter_kv_pages']}, kernel 6 "
+            f"{dl['cp_paged_partial']}, kernel 1 {dl['paged_attention']}; "
+            f"extracts differing from the plain gather {sum(bad)}; "
+            f"{TP_PROBE} extracted / installed {digests}")
+        assert parts == [2] * n, "not one IPC handle a model shard"
+        assert len(bad) == n and not any(bad), "kernel 4 at a handoff"
+        assert g4 == 2 * n and dl["scatter_kv_pages"] == 2 * n, \
+            "not one gather here and one scatter there a model shard a " \
+            "handoff"
+        assert digests[0] is not None and digests[0] == digests[1], \
+            "the installed pages differ from the extracted block"
+        assert dl["cp_paged_partial"] > 0 and dl["paged_attention"] == 0, \
+            "the decode side did not attend through kernel 6"
+        held_to(llama, cfg, params, sent, toks, want,
+                "(e) seq=2 x model=2 PD pair vs an in-process MIX engine "
+                "on the grid", routed=False)
+        return dict(mq=ref[0] + k2, gather=g4,
+                    scatter=dl["scatter_kv_pages"],
+                    partial=ref[1] + dl["cp_paged_partial"])
+    except BaseException:
+        log(f"  the decode agent's log, last lines:\n{child.tail()}")
+        raise
+    finally:
+        child.close()
+        if pre is not None:
+            pre.stop()
+        master.close()
+        coord.close()
+        store.close()
+        del pre
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
                shared, sampled, phase4, kernels, card):
     """Phase 4q: ``seq`` together with ``model`` or ``expert``, legs (a),
-    (c), (b), (d) (``grid_leg``, phase 4a's ``tier_phase`` on (a)'s grid,
-    ``grid_moe_leg``, ``grid_ranks_leg``). Returns the launches of kernels
-    2 and 6 and of the movers: ``partial_16_4`` counts kernel 6 at a model
-    shard's 16/4 heads ((a) and (d)), ``gather`` and ``scatter`` the
-    movers at a grid shard's block ((c))."""
+    (c), (e), (b), (d) (``grid_leg``, phase 4a's ``tier_phase`` on (a)'s
+    grid, ``grid_pd_leg``, ``grid_moe_leg``, ``grid_ranks_leg``). Returns
+    the launches of kernels 2 and 6 and of the movers: ``partial_16_4``
+    counts kernel 6 at a model shard's 16/4 heads ((a), (e) and (d)),
+    ``gather`` and ``scatter`` the movers at a grid shard's block ((c)),
+    ``pd_gather`` and ``pd_scatter`` at (e)'s handoffs."""
     out = {}
     t = time.monotonic()
     (mq_a, k6_a), mesh = grid_leg(engine_mod, llama, cfg, params, prompts,
@@ -8461,6 +8604,10 @@ def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
         "a model shard over both its seq shards, blocks of [32, 2, 8, 4, "
         "16, 128] a model shard)")
     t = time.monotonic()
+    e = grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod,
+                    kernels, card)
+    log(f"  (e): {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     mq_b, k6_b = grid_moe_leg(engine_mod, moe, kernels, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8468,10 +8615,377 @@ def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
     t = time.monotonic()
     d = grid_ranks_leg(engine_mod, card)
     log(f"  (d): {time.monotonic() - t:.1f} s")
-    out["mq"] = mq_a + mq_b + d["mq_paged_attention"]
-    out["partial"] = k6_a + k6_b + d["cp_paged_partial"]
-    out["partial_16_4"] = k6_a + d["cp_paged_partial"]
+    out["mq"] = mq_a + mq_b + d["mq_paged_attention"] + e["mq"]
+    out["partial"] = k6_a + k6_b + d["cp_paged_partial"] + e["partial"]
+    out["partial_16_4"] = k6_a + d["cp_paged_partial"] + e["partial"]
     out["gather"], out["scatter"] = c
+    out["pd_gather"], out["pd_scatter"] = e["gather"], e["scatter"]
+    return out
+
+
+# ---------------------------------------------------------------- phase 4r
+RIDE_NEW = 40          # 4r (a): tokens of each short stream and the sampled
+RIDE_SHORT = 128       # 4r (a): the short prompts' length
+RIDE_LONG = 1280       # 4r (a): the prompt whose chunks ride
+RIDE_LONG_NEW = 8      # 4r (a): its tokens
+PP_LAYERS = 4          # 4r (b): Llama-3-8B's layers through the pipeline
+PP_B, PP_S = 8, 128
+TRAIN_LAYERS = 2       # 4r (c): Llama-3-8B's layers in the train step
+TRAIN_B, TRAIN_S = 4, 128
+TRAIN_STEPS = 3
+# (b), (c) in f32 (TF32 off): a sharded or pipelined route differs from
+# the one-device one in summation order and GEMM shapes only, about 1e-6
+# of the values; a misplaced shard or microbatch moves them by their
+# whole scale. (c) measures a leaf by its norm: AdamW's update is about
+# lr times the sign of the gradient wherever the gradient is well above
+# eps, so an element whose gradient is at f32 noise may step either way
+# (up to about lr apart on a few thousand of a leaf's 10^8 elements), and
+# those elements, not a wrong gradient, set the largest element error.
+F32_REL_TOL = 1e-4
+
+
+def ride_serve(engine_mod, cfg, params, mesh, shorts, long_prompt, sampled,
+               kernels):
+    """One engine (on ``mesh`` if given) stepped here, with no loop
+    thread, so two engines take the same schedule: the short greedy
+    prompts and a seeded sampled one at once, then, once each has its
+    first token, the long prompt, whose chunks ride their decode steps;
+    steps until every request is done. Returns (tokens by name, rides,
+    eager decode steps, kernel 2's launches in each eager ride step, the
+    launches of kernels 1 and 2 over the run, wall s)."""
+    from xllm_service_tpu_torch.common.request import SamplingParams
+
+    paged, mq = kernels
+    eng = engine_mod.InferenceEngine(cfg, params=params, mesh=mesh)
+    steps, ride_k2 = [0], []
+    step = eng._decode_step
+
+    def counted(want_lp, sample, span=0):
+        steps[0] += 1
+        before = mq.launches
+        step(want_lp, sample, span)
+        if span:
+            ride_k2.append(mq.launches - before)
+
+    eng._decode_step = counted
+    cols = {}
+
+    def submit(name, toks, sp):
+        cols[name] = Collector()
+        eng.submit(engine_mod.EngineRequest(name, token_ids=toks,
+                                            sampling=sp,
+                                            on_output=cols[name]))
+
+    def run_until(pred, what):
+        for _ in range(100000):
+            if pred():
+                return
+            eng.step()
+        raise AssertionError(f"4r (a): {what} never happened")
+
+    reset_counts()
+    t0 = time.monotonic()
+    for name, toks in shorts.items():
+        submit(name, toks, SamplingParams(max_tokens=RIDE_NEW,
+                                          temperature=0.0, ignore_eos=True))
+    submit("sampled", sampled,
+           SamplingParams(max_tokens=RIDE_NEW, **MH_SAMPLING))
+    run_until(lambda: all(c.first.is_set() for c in cols.values()),
+              "the first tokens")
+    submit("long", long_prompt, SamplingParams(
+        max_tokens=RIDE_LONG_NEW, temperature=0.0, ignore_eos=True))
+    run_until(lambda: all(c.done.is_set() for c in cols.values()),
+              "the end of the requests")
+    wall = time.monotonic() - t0
+    launches = (paged.launches, mq.launches)
+    rides = eng.sarathi_rides
+    eng.stop()
+    toks = {n: c.tokens for n, c in cols.items()}
+    for n, c in cols.items():
+        assert c.reason == "length", f"{n}: reason {c.reason!r}"
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, rides, steps[0], ride_k2, launches, wall
+
+
+def mixed_tp_check(llama, cfg, params, mesh, sharded):
+    """One mixed step at full width on one device and on ``mesh``
+    (``sharded``, ``params`` on it; the pool a ``ModelShardedPages`` of the
+    same random K/V): four decode rows (contexts 200-1300) and one chunk
+    of CHUNK at start 512. The logits must agree within PREFILL_REL_TOL of
+    max |logit| and the pools, joined on the head axis, within
+    PREFILL_REL_TOL of max |K/V| (bf16 rounding in another order)."""
+    from xllm_service_tpu_torch.parallel.sharding import ModelShardedPages
+
+    mcfg = cfg.model
+    i32 = dict(dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ctxs = [200, 517, 901, 1300]
+    B_, P_, ps = len(ctxs), cfg.pages_per_seq, cfg.page_size
+    per_row = -(-max(ctxs) // ps)
+    chunk_pages = -(-(512 + CHUNK) // ps)
+    n_pages = 1 + B_ * per_row + chunk_pages
+    base = torch.randn((mcfg.num_layers, 2, n_pages, mcfg.num_kv_heads, ps,
+                        mcfg.head_dim), generator=g,
+                       device="cuda").to(mcfg.dtype)
+    dec_pt = torch.zeros((B_, P_), **i32)
+    dec_pt[:, :per_row] = torch.arange(1, 1 + B_ * per_row,
+                                       **i32).reshape(B_, per_row)
+    chunk_pt = torch.zeros((1, P_), **i32)
+    chunk_pt[0, :chunk_pages] = torch.arange(1 + B_ * per_row, n_pages, **i32)
+    V = mcfg.vocab_size
+    tok = torch.randint(3, V, (B_,), generator=g, device="cuda").to(
+        torch.int32)
+    clens = torch.tensor(ctxs, **i32)
+    chunk_tok = torch.randint(3, V, (CHUNK,), generator=g,
+                              device="cuda").to(torch.int32)
+    args = (tok, clens - 1, chunk_tok, torch.arange(512, 512 + CHUNK, **i32))
+    rest = (dec_pt, chunk_pt, clens, torch.tensor([512], **i32),
+            torch.tensor([CHUNK], **i32))
+    one = base.clone()
+    single = llama.mixed_decode_chunk_forward(params, mcfg, *args, one,
+                                              *rest)[0]
+    tp = ModelShardedPages.zeros(base.shape, mcfg.dtype, mesh)
+    for shard, part in zip(tp.shards, tp.split(base)):
+        shard.copy_(part)
+    del base
+    got = llama.mixed_decode_chunk_forward(sharded, mcfg, *args, tp,
+                                           *rest)[0]
+    scale = single.abs().max().item()
+    err = (single - got).abs().max().item()
+    kv_scale = one[:, :, 1:].abs().max().item()
+    kv_err = (tp.full() - one)[:, :, 1:].abs().max().item()
+    log(f"  one-device vs {dict(mesh.shape)} mixed step ({B_} decode rows, "
+        f"a chunk of {CHUNK} at 512): logits max_abs_err={err:.4g}, "
+        f"max|logit|={scale:.4g}; pool joined max_abs_err={kv_err:.4g}, "
+        f"max|K/V|={kv_scale:.4g} (tol {PREFILL_REL_TOL} x max each); "
+        f"argmax equal {int((single.argmax(-1) == got.argmax(-1)).sum())}"
+        f"/{B_}")
+    assert torch.isfinite(got).all(), "mixed step on the mesh: non-finite"
+    assert err <= PREFILL_REL_TOL * scale, "sharded mixed logits drifted"
+    assert kv_err <= PREFILL_REL_TOL * kv_scale, "sharded mixed pool drifted"
+    del one, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ride_leg(engine_mod, llama, cfg, params, prompts, kernels, card):
+    """4r (a): Llama-3-8B bf16 at full width and depth on ``model=2``
+    (phase 4's weights as views, 16/4 heads a shard) with chunks of CHUNK:
+    four greedy streams of RIDE_SHORT-token prompts and a seeded sampled
+    one decoding while a RIDE_LONG-token prompt is admitted, against the
+    unmeshed chunked engine (captured steps) on the same schedule.
+    Checks: rides above 0 and as many as the unmeshed engine's; kernel 2
+    once a layer and model shard in every ride step; kernel 1 once a layer
+    and model shard in every step; the greedy streams against the
+    unmeshed engine's (``compare_streams``, each parted stream of the
+    mesh then against its recomputation on the mesh); one mixed step's
+    logits and pool against the one-device route (``mixed_tp_check``).
+    Tok/s is information. Returns the launches of kernels 1 and 2 (both
+    runs)."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.parallel.sharding import shard_params
+
+    rcfg = replace(cfg, prefill_chunk_tokens=CHUNK)
+    rng = np.random.default_rng(21)
+    V = cfg.model.vocab_size
+    shorts = {f"r{i}": prompts[i][:RIDE_SHORT] for i in range(4)}
+    long_prompt = rng.integers(3, V, size=RIDE_LONG).tolist()
+    sampled = rng.integers(3, V, size=200).tolist()
+    want, rides_1, _, _, one, wall_1 = ride_serve(
+        engine_mod, rcfg, params, None, shorts, long_prompt, sampled,
+        kernels)
+    mesh = card_mesh(model=2)
+    sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
+    toks, rides, steps, ride_k2, (k1, k2), wall = ride_serve(
+        engine_mod, rcfg, sharded, mesh, shorts, long_prompt, sampled,
+        kernels)
+    m = cfg.model
+    n_tok = sum(map(len, toks.values()))
+    log(f"  (a) llama3-8b on model=2, chunks of {CHUNK}: {rides} rides "
+        f"(unmeshed {rides_1}), {steps} decode steps, kernel 2 in the ride "
+        f"steps {sorted(set(ride_k2))} a step, kernels 1/2 {k1}/{k2} "
+        f"(unmeshed {one[0]}/{one[1]}); {n_tok} tokens in {wall:.1f} s "
+        f"({n_tok / wall:.1f} generated tok/s, eager; unmeshed "
+        f"{n_tok / wall_1:.1f}, captured; information only, {card})")
+    assert rides == rides_1 > 0, "the chunks rode differently on the mesh"
+    assert ride_k2 == [2 * m.num_layers] * rides, \
+        "kernel 2 not once a layer and model shard in a ride step"
+    assert k1 == 2 * m.num_layers * steps, \
+        f"kernel 1 launched {k1} times, not {2 * m.num_layers} a step"
+    greedy = [n for n in toks if n != "sampled"]
+    sent = {**shorts, "long": long_prompt}
+    # Phase 4g's rule for streams with rides against others: each parting
+    # at a near-tie of the one-device logits after the shared context;
+    # then each parted stream of the mesh against its recomputation on
+    # the mesh's own route (held_to's rule for the served side). The
+    # unmeshed side is not recomputed: its mixed steps' rounding can put
+    # a token at a three-way near-tie there (rank 3, 1.5 bf16 steps below
+    # the top, on the card), which held_to's two-value rule refuses.
+    what = "(a) llama3-8b model=2 with rides vs the unmeshed chunked engine"
+    compare_streams(llama, cfg, params, sent, {n: toks[n] for n in greedy},
+                    {n: want[n] for n in greedy}, what)
+    parted = {n: toks[n] for n in greedy if toks[n] != want[n]}
+    if parted:
+        check_streams_recomputed(llama, cfg, sharded, sent, parted,
+                                 f"{what}, the parted streams on the mesh")
+    log(f"  (a) the seeded sampled stream "
+        f"{'equal' if toks['sampled'] == want['sampled'] else 'parted'} "
+        "(information: two routes round apart)")
+    mixed_tp_check(llama, rcfg, params, mesh, sharded)
+    return one[0] + k1, one[1] + k2
+
+
+def pipeline_leg(params, card):
+    """4r (b): ``ops/pipeline.py`` at Llama-3-8B's width: PP_LAYERS of
+    phase 4's layers in f32 as ``layer_fn`` (the train loss's layer body,
+    ``parallel/train.py::layer``: no KV pool), B PP_B, S PP_S, on ``pipe``
+    2 and 4 with 2 and 4 microbatches, each against the sequential stack
+    within F32_REL_TOL of max |out|. Ms a forward is information."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.models.base import llama3_8b_config
+    from xllm_service_tpu_torch.ops.pipeline import pipeline_forward
+    from xllm_service_tpu_torch.parallel import train
+
+    mcfg = replace(llama3_8b_config(), num_layers=PP_LAYERS,
+                   dtype=torch.float32)
+    layers = {k: {kk: vv[:PP_LAYERS].float() for kk, vv in v.items()}
+              for k, v in params["layers"].items()}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((PP_B, PP_S, mcfg.hidden_size), generator=g,
+                    device="cuda") * mcfg.hidden_size ** -0.5
+
+    def layer_fn(h, lp):
+        return train.layer(lp, h, mcfg)
+
+    def sequential():
+        h = x
+        for l in range(PP_LAYERS):
+            h = layer_fn(h, {k: {kk: vv[l] for kk, vv in v.items()}
+                             for k, v in layers.items()})
+        return h
+
+    want = sequential()
+    scale = want.abs().max().item()
+    seq_ms = time_ms(sequential, reps=3, warmup=1)
+    parts = []
+    for pipe in (2, 4):
+        mesh = card_mesh(pipe=pipe)
+        for micro in (2, 4):
+            def run():
+                return pipeline_forward(layer_fn, layers, x, mesh, micro)
+
+            got = run()
+            err = (got - want).abs().max().item()
+            ms = time_ms(run, reps=3, warmup=1)
+            parts.append(f"pipe {pipe} x {micro} microbatches "
+                         f"max_abs_err={err:.3g} {ms:.1f} ms")
+            assert torch.isfinite(got).all() and \
+                err <= F32_REL_TOL * scale, \
+                f"pipeline pipe={pipe} micro={micro} off the stack"
+    log(f"  (b) pipeline_forward, llama3-8b's width, {PP_LAYERS} layers "
+        f"f32, B {PP_B} S {PP_S}, max|out|={scale:.4g} (tol {F32_REL_TOL} x "
+        f"max): " + "; ".join(parts) + f"; the sequential stack {seq_ms:.1f}"
+        f" ms (information only; {card})")
+    del layers, x, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_leg(llama, card):
+    """4r (c): ``parallel/train.py``'s step at Llama-3-8B's width,
+    TRAIN_LAYERS of its layers in f32 (seed 7; TF32 off for matmuls, as
+    PyTorch's default and ``main`` keep it), B TRAIN_B, S TRAIN_S,
+    TRAIN_STEPS steps on one batch, unsharded and on ``data=2 x model=4``
+    of this card repeated: each step's loss and every updated leaf within
+    F32_REL_TOL (relative: the norm of a leaf's difference against the
+    leaf's norm), the loss falling, every copy of a slice (replicated over
+    ``model`` or over ``data``) equal. Each leaf's largest difference in
+    units of lr and the elements past 1e-5 of its largest magnitude, peak
+    GiB and seconds a step are information."""
+    from dataclasses import replace
+
+    from xllm_service_tpu_torch.models.base import llama3_8b_config
+    from xllm_service_tpu_torch.parallel.train import TrainState
+
+    mcfg = replace(llama3_8b_config(), num_layers=TRAIN_LAYERS,
+                   dtype=torch.float32)
+    tree = llama.init_params(mcfg, torch.Generator(device="cuda").manual_seed(
+        7), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    batch = torch.randint(0, mcfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                          generator=g, device="cuda")
+    gib = 2 ** 30
+    for name, mesh in (("unsharded", None),
+                       ("data=2 x model=4", card_mesh(data=2, model=4))):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        state = TrainState(tree, mcfg, mesh)
+        if mesh is not None:
+            del tree                        # the shards are copies
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            losses.append(state.step(batch).item())
+            secs.append(time.monotonic() - t)
+        state.opt.zero_grad(set_to_none=True)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  (c) train step {name}: losses {losses}, s a step "
+            f"{[round(x, 3) for x in secs]}, peak {peak / gib:.2f} GiB "
+            f"({before / gib:.2f} before; information only, {card})")
+        if mesh is None:
+            want_losses = losses
+            want = {k: v.cpu() for k, v in state.full().items()}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    worst, worst_leaf, stats = 0.0, "", []
+    got = state.full()
+    lr = state.opt.defaults["lr"]
+    for path, w in want.items():
+        d = got[path].cpu() - w
+        e = (d.norm() / w.norm()).item()
+        stats.append(f"{path.split('/')[-2]} {e:.3g} (max "
+                     f"{d.abs().max() / lr:.3g} lr, "
+                     f"{int((d.abs() > 1e-5 * w.abs().max()).sum())} of "
+                     f"{w.numel()} past 1e-5 x max)")
+        if e > worst:
+            worst, worst_leaf = e, path
+    log("  (c) per leaf, |sharded - unsharded| / |unsharded|: "
+        + "; ".join(stats))
+    equal = all(torch.equal(x, grp[0]) for grp in state.groups
+                for x in grp[1:])
+    shared = sum(len(grp) > 1 for grp in state.groups)
+    log(f"  (c) sharded vs unsharded after {TRAIN_STEPS} steps: loss "
+        f"rel err {loss_err:.3g}, worst leaf {worst_leaf} rel err "
+        f"{worst:.3g} over {len(want)} leaves (tol {F32_REL_TOL}); "
+        f"{shared} groups of copies, every copy equal: {equal}")
+    assert loss_err <= F32_REL_TOL, "the sharded loss drifted"
+    assert worst <= F32_REL_TOL, f"leaf {worst_leaf} drifted"
+    assert losses[-1] < losses[0], "the loss did not fall"
+    assert equal, "copies of a replicated slice parted"
+    del state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ride_phase(engine_mod, llama, cfg, params, prompts, kernels, card):
+    """Phase 4r: legs (a) ``ride_leg``, (b) ``pipeline_leg``, (c)
+    ``train_leg``. Returns (a)'s launches of kernels 1 and 2."""
+    t = time.monotonic()
+    out = ride_leg(engine_mod, llama, cfg, params, prompts, kernels, card)
+    log(f"  (a): {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    pipeline_leg(params, card)
+    log(f"  (b): {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    train_leg(llama, card)
+    log(f"  (c): {time.monotonic() - t:.1f} s")
     return out
 
 
@@ -8795,7 +9309,8 @@ def main() -> int:
     # Phase 4q: seq together with model or expert.
     log("[4q] seq together with model or expert on this card repeated: (a) "
         "llama3-8b bf16 on seq=2 x model=2 (the page-and-head grid), (c) "
-        f"its tier round trip, (b) mixtral-8x7b int8 at {MH_MOE_LAYERS} "
+        "its tier round trip, (e) a PD pair on that grid over CUDA IPC, "
+        f"(b) mixtral-8x7b int8 at {MH_MOE_LAYERS} "
         f"layers on seq=2 x expert=2, (d) llama3-8b at {MH_SEQ_LAYERS} "
         "layers on seq=2 x model=2 as four ranks "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
@@ -8806,6 +9321,18 @@ def main() -> int:
                                          fused_decode_attention,
                                          cp.paged_partial), card)
     log(f"  phase 4q: {time.monotonic() - t:.1f} s")
+
+    # Phase 4r: chunks riding on a model axis, the pipeline, the train step.
+    log("[4r] (a) llama3-8b bf16 on model=2 with chunks riding decode "
+        f"steps, (b) the pipeline over pipe at llama3-8b's width, {PP_LAYERS}"
+        f" layers f32, (c) the train step at llama3-8b's width, "
+        f"{TRAIN_LAYERS} layers f32 (TF32 off for matmuls), on data=2 x "
+        "model=4 ("
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    r_launches = ride_phase(engine_mod, llama, cfg, params, prompts,
+                            (paged_attention, mq_paged_attention), card)
+    log(f"  phase 4r: {time.monotonic() - t:.1f} s")
 
     # Phase 4n: multimodal and EPD.
     log("[4n] Qwen2-VL-2B at full width and depth: the vision encoder, "
@@ -8859,26 +9386,29 @@ def main() -> int:
              + h_launches[0] + i_launches[0] + j_launches[0]
              + k_launches[0] + l_launches[0] + m_launches["paged"]
              + n_launches["paged"] + o_a[0] + o_c[0]
-             + m_launches["ep_paged"] + p_launches["paged_attention"]),
+             + m_launches["ep_paged"] + p_launches["paged_attention"]
+             + r_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
              + k_launches[1] + l_launches[1] + m_launches["mq"]
              + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
-             + p_launches["mq_paged_attention"] + q_launches["mq"]),
+             + p_launches["mq_paged_attention"] + q_launches["mq"]
+             + r_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
              tier_launches[0] + i_launches[2] + m_launches["gather"]
-             + n_launches["gather"] + o_b[0] + o_f[0] + q_launches["gather"]),
+             + n_launches["gather"] + o_b[0] + o_f[0] + q_launches["gather"]
+             + q_launches["pd_gather"]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
              tier_launches[1] + i_launches[3] + m_launches["scatter"]
              + n_launches["scatter"] + o_b[1] + o_f[1]
-             + q_launches["scatter"]),
+             + q_launches["scatter"] + q_launches["pd_scatter"]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",
              "xllm_service_tpu/ops/cp_paged_attention.py:179", k6,
              cp_launches["partial"] + m_launches["partial"]

@@ -65,7 +65,8 @@
   handoff between identical meshes goes one CUDA IPC handle a shard
   (``ShardedBlock``). The ``data`` and ``pipe`` axes replicate: the port
   computes once where the reference computes the same values on each
-  replica, as for ``seq``. The captured and mixed steps stay off.
+  replica, as for ``seq``. The captured step stays off; a chunk rides
+  a decode step in the eager mixed step, once a model shard.
 - **``seq`` together with ``model`` or ``expert``**: with a model axis
   the pool is a grid of pages and heads (``ModelShardedPages`` whose
   model shards are each a ``ShardedPages`` over their seq line): every
@@ -1263,12 +1264,13 @@ class InferenceEngine:
         """Write the next chunk of the FRONT prefilling sequence into the
         mixed step's inputs and return its span (C, or 4C under queue
         pressure), or None when nothing can ride: no mixed forward, no
-        prefill in flight, a mesh, rides turned off, or only the final
-        chunk left (it samples the first token through the install). The
-        host's ``written`` advances here; the device work follows in
-        stream order."""
+        prefill in flight, a seq mesh (as the reference), rides turned
+        off, or only the final chunk left (it samples the first token
+        through the install). On any other mesh the mixed step runs
+        eager, once a model shard. The host's ``written`` advances here;
+        the device work follows in stream order."""
         if (self.family.mixed_decode_chunk_forward is None
-                or not self._prefillings or self._meshed
+                or not self._prefillings or self.seq_parallel > 1
                 or not self._sarathi):
             return None
         st = self._prefillings[0]

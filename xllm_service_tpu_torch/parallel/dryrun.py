@@ -1,7 +1,12 @@
-"""Multi-device dry run of the port's mesh (the serving steps of the
-reference's ``__graft_entry__.py::dryrun_multichip``), each held against
-its unsharded run on the same inputs.
+"""Multi-device dry run of the port's mesh (the port of the reference's
+``__graft_entry__.py::dryrun_multichip``), each part held against its
+unsharded run on the same inputs.
 
+- **The train step** over ``data x model`` (``parallel/train.py``): the
+  reference's one-layer f32 llama (hidden 64, heads covering the model
+  axis), one step of loss, gradients and AdamW with optax's ``adamw(1e-4)``
+  defaults on a batch of ``2 * data`` rows of 16 tokens; the loss and
+  every updated leaf against the unsharded step.
 - **The sharded decode step** over ``data x model``: a one-layer f32
   llama whose heads cover the model axis, its tree through
   ``shard_params`` with ``LLAMA_STACKED_RULES`` and its pool head-sharded
@@ -16,14 +21,17 @@ its unsharded run on the same inputs.
   part on ``seq=2 x model`` (``n / 2`` model shards), its pool the
   page-and-head grid (a ``ModelShardedPages`` of ``ShardedPages``), so
   every model shard runs the context-parallel op at its heads.
+- **The pipeline forward** over ``pipe`` (``ops/pipeline.py``): the
+  reference's toy residual layer (``x + tanh(x @ w1) @ w2``, 2 layers a
+  stage, D 16, H 32, B 4) in two microbatches, against the sequential
+  stack.
 
 ``northstar`` takes the reference's north-star axis sizes (``model=8``,
-``expert=8`` with 16 experts, ``seq=8``) where it takes 4 or 2 otherwise,
+``expert=8`` with 16 experts, ``seq=8``, ``pipe=8``) where it takes 4 or 2
+otherwise,
 so mesh arithmetic that only breaks past an axis of 4 (head, expert and
 page divisibility, ring step counts) fails here. The devices are the
 caller's and may repeat (``cuda:0`` eight times on a one-card machine).
-The reference's train step (loss, gradients and an optimizer update) is
-training work the port does not have.
 
     python -m xllm_service_tpu_torch.parallel.dryrun --device cpu
     python -m xllm_service_tpu_torch.parallel.dryrun --northstar
@@ -100,6 +108,7 @@ def dryrun(devices: Sequence[Union[str, torch.device]],
     from ..ops.attention import dense_prefill_attention
     from ..ops.cp_paged_attention import cp_paged_attention
     from ..ops.paged_attention import paged_attention
+    from ..ops.pipeline import pipeline_forward
     from ..ops.ring_attention import ring_attention
 
     devs = [torch.device(d) for d in devices]
@@ -113,8 +122,21 @@ def dryrun(devices: Sequence[Union[str, torch.device]],
     else:
         tp = next((c for c in (4, 2) if n % c == 0), 1)
 
-    # The sharded decode step over data x model.
+    # The train step over data x model, at the reference's sizes.
     fam = get_model_family("llama")
+    tcfg = ModelConfig(vocab_size=256, hidden_size=64, num_layers=1,
+                       num_heads=max(4, tp), num_kv_heads=max(4, tp),
+                       head_dim=32, ffn_size=128, max_context_len=256,
+                       dtype=torch.float32)
+    tparams = fam.init_params(
+        tcfg, torch.Generator(device=dev).manual_seed(5), dev)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    batch = torch.randint(0, tcfg.vocab_size, (n // tp * 2, 17),
+                          generator=gen).to(dev)
+    tmesh = build_mesh(MeshConfig(data=n // tp, model=tp), devs)
+    _train(fam, tcfg, tparams, tmesh, batch, results)
+
+    # The sharded decode step over data x model.
     cfg = ModelConfig(vocab_size=256, hidden_size=128, num_layers=1,
                       num_heads=max(4, tp), num_kv_heads=max(4, tp),
                       head_dim=32, ffn_size=256, max_context_len=256,
@@ -181,7 +203,46 @@ def dryrun(devices: Sequence[Union[str, torch.device]],
         _sharded_decode(fam, cfg, params, fam.sharding_rules, grid, 2, dev,
                         4, results, "seq_model_decode", pages=10)
         results["seq_model_mesh"] = dict(grid.shape)
+
+    if n >= 2:
+        # The pipeline forward over pipe.
+        pp = 8 if northstar else (4 if n % 4 == 0 else 2)
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        lyr = {"w1": torch.randn((2 * pp, 16, 32), generator=gen) * 0.3,
+               "w2": torch.randn((2 * pp, 32, 16), generator=gen) * 0.3}
+        lyr = {k: v.to(dev) for k, v in lyr.items()}
+        xp = torch.randn((4, 16), generator=gen).to(dev)
+
+        def toy(x, lp):
+            return x + torch.tanh(x @ lp["w1"]) @ lp["w2"]
+
+        want = xp
+        for l in range(2 * pp):
+            want = toy(want, {k: v[l] for k, v in lyr.items()})
+        _check("pipeline", pipeline_forward(
+            toy, lyr, xp, build_mesh(MeshConfig(pipe=pp), devs[:pp]),
+            n_microbatches=2), want, results)
+        results["pipe_stages"] = pp
     return results
+
+
+def _train(fam, cfg, params, mesh, batch, results: dict) -> None:
+    """One train step of ``params`` unsharded and over ``mesh``: the loss
+    and every updated leaf (the largest error over the leaves)."""
+    from .train import TrainState
+
+    want = TrainState(params, cfg)
+    want_loss = want.step(batch)
+    got = TrainState(params, cfg, mesh)
+    _check("train_loss", got.step(batch), want_loss, results)
+    _check("train_params", _joined(got.full()), _joined(want.full()),
+           results)
+    results["train_mesh"] = dict(mesh.shape)
+
+
+def _joined(leaves: dict) -> torch.Tensor:
+    """Every leaf, flattened and joined in path order."""
+    return torch.cat([leaves[p].flatten() for p in sorted(leaves)])
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -190,7 +251,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help="torch device, repeated --n times (default: cuda)")
     p.add_argument("--n", type=int, default=8, help="mesh devices")
     p.add_argument("--northstar", action="store_true",
-                   help="the north-star axis sizes (model, expert, seq 8)")
+                   help="the north-star axis sizes (model, expert, seq, "
+                        "pipe 8)")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     print(json.dumps(dryrun([dev] * args.n, northstar=args.northstar)))

@@ -72,8 +72,10 @@ class MeshConfig:
 
 # The axes (and planes) whose collectives may cross processes: the model
 # axis's sums and joins, the expert x model plane's MoE sum, the seq axis's
-# merges, gathers and ring.
-GROUP_AXES = ((AXIS_MODEL,), (AXIS_EXPERT, AXIS_MODEL), (AXIS_SEQ,))
+# merges, gathers and ring, and the pipe axis's hops and broadcast
+# (``ops/pipeline.py``).
+GROUP_AXES = ((AXIS_MODEL,), (AXIS_EXPERT, AXIS_MODEL), (AXIS_SEQ,),
+              (AXIS_PIPE,))
 
 
 @dataclass(frozen=True)

@@ -54,7 +54,8 @@ DEFAULT_TIMEOUT_S = 600.0
 #: and broadcast took CUDA tensors in f32 and bf16; its send of a CUDA
 #: tensor aborted the process ("gloo::IoException ... writev: Bad
 #: address").
-GLOO_CUDA_CALLS = {"all_gather": True, "send_recv": False}
+GLOO_CUDA_CALLS = {"all_gather": True, "broadcast": True,
+                   "send_recv": False}
 
 #: Calls and wall seconds of the control plane (``broadcast``) and of the
 #: data plane's collectives (``collective``, with the bytes this rank
@@ -247,6 +248,20 @@ class AxisGroup:
             outs = [o.to(t.device) for o in outs]
         _count(t, t0)
         return outs
+
+    def broadcast(self, t: torch.Tensor, index: int) -> torch.Tensor:
+        """The ``t`` of the group's rank ``index`` on every rank of the
+        group (the same shape and dtype on each), on ``t``'s device."""
+        import torch.distributed as dist
+
+        t0 = _start(t, self.backend)
+        staged = self._staged(t, "broadcast")
+        buf = (t.cpu() if staged else t).contiguous()
+        dist.broadcast(buf, self.ranks[index], group=self.group)
+        if staged:
+            buf = buf.to(t.device)
+        _count(t, t0)
+        return buf
 
     def shift(self, t: torch.Tensor) -> torch.Tensor:
         """The ring's hop: ``t`` goes to the next rank of the group and
