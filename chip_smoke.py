@@ -3,7 +3,8 @@
 NVIDIA GPU: the quickest proof that the port starts, that its hand-written
 kernels build and agree with their plain versions, and that the engine
 serves Llama-3-8B, its variants, Qwen2-VL-2B's image chats, Mixtral-8x7B
-and DeepSeek-V2-Lite through them.
+and DeepSeek-V2-Lite through them, behind stub masters and behind the
+port's own master.
 
     python3 chip_smoke.py
 
@@ -237,6 +238,26 @@ Phases (any failure exits non-zero before the result line):
    usage) and ``/admin/profile`` (the engine loop's role; the folded text
    parses back). Tokens/s against phase 4f's, the telemetry counts and
    the sampler thread's CPU share are information;
+4s. the port's own master (after 4l, on phase 4's weights): the port's
+   coordination server on a loopback port, the port's master at the
+   reference's defaults (CAR, brownout, breaker, ownership, the journal),
+   two MIX agents here, each with its engine and pool. Phase 4's eleven
+   requests as ``/v1/completions`` on ``http.client`` (streamed and
+   whole, in phase 4's order): greedy tokens equal to phase 4's (at a
+   near-tie, ``compare_streams``), well-formed SSE with usage on the last
+   event, the two shared-prefix requests sent once request 0's blocks are
+   in the master's index and routed by CAR to the agent holding them, its
+   prefix hits up by two and kernel 2 launched; chats streamed and whole
+   (the same text, usage and tokens); ``/v1/models``, ``/hello`` and the
+   master's ``/metrics`` families; one agent killed (its lease left to
+   lapse): LEASE_LOST or SUSPECT, evicted at the default timeouts, the
+   next requests on the survivor, which the master then drains; a
+   PREFILL and a DECODE agent at MASTER_PD_LAYERS layers (``depth_view``)
+   linked by the master, every handoff on the host path (one process:
+   the device path is between processes, 4i), kernels 4 and 5 once a
+   handoff, the streams equal to an in-process MIX engine's. Client TTFT
+   and inter-token latency (p50, p99) and the master's hot-path stages
+   are information;
 4m. MoE and MLA at full width and depth, phase 4's weights freed first:
    (a) one MoE layer at Mixtral-8x7B's width (eight experts of 14336,
    top 2), 16 tokens, bf16 and int8: the dense dispatch against an
@@ -8989,6 +9010,448 @@ def ride_phase(engine_mod, llama, cfg, params, prompts, kernels, card):
     return out
 
 
+# --------------------------------------------------------------- phase 4s
+MASTER_NEW = 64        # 4s (a): tokens of phase 4's requests (phase 4's)
+MASTER_AFTER_NEW = 16  # 4s (d): tokens of each request after the death
+MASTER_PD_LAYERS = 8   # 4s (e): Llama-3-8B cut to these layers for PD
+MASTER_PD_NEW = 16     # 4s (e): tokens of each request of the PD pair
+
+
+class MasterCall:
+    """One request to the master's HTTP port on ``http.client``, read as
+    it arrives: ``status``, ``headers``, the ``body`` bytes and, for a
+    stream, each SSE frame with its arrival time (``frames``)."""
+
+    def __init__(self, port, path, body, stream=False):
+        import http.client
+
+        self.t_send = time.monotonic()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request("POST" if body is not None else "GET", path,
+                         body=json.dumps(body) if body is not None else None,
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            self.status = r.status
+            self.headers = {k.lower(): v for k, v in r.getheaders()}
+            self.frames: list = []
+            if not stream:
+                self.body = r.read()
+                return
+            buf = b""
+            while True:
+                piece = r.read1(1 << 16)
+                if not piece:
+                    break
+                now = time.monotonic()
+                buf += piece
+                while b"\n\n" in buf:
+                    frame, buf = buf.split(b"\n\n", 1)
+                    self.frames.append((now, frame))
+            assert not buf, f"a partial SSE frame at the end: {buf[:80]!r}"
+            self.body = b"".join(f + b"\n\n" for _, f in self.frames)
+        finally:
+            conn.close()
+
+    def json(self):
+        return json.loads(self.body)
+
+    def events(self):
+        """The stream's data payloads in order (``[DONE]`` last)."""
+        out = []
+        for _, frame in self.frames:
+            assert frame.startswith(b"data: "), frame[:80]
+            data = frame[6:]
+            out.append(data if data == b"[DONE]" else json.loads(data))
+        return out
+
+    def content_times(self):
+        """Arrival of each frame that carries generated text."""
+        ts = []
+        for t, frame in self.frames:
+            if frame == b"data: [DONE]":
+                continue
+            obj = json.loads(frame[6:])
+            for c in obj.get("choices") or ():
+                piece = c.get("text")
+                if piece is None:
+                    piece = (c.get("delta") or {}).get("content")
+                if piece:
+                    ts.append(t)
+                    break
+        return ts
+
+
+def record_tokens(agents):
+    """Token ids each agent's streamer pushes, by service request id, and
+    which agent pushed them."""
+    toks: dict = {}
+    served: dict = {}
+    for i, agent in enumerate(agents):
+        push = agent.streamer.push
+
+        def recording(dest, out, i=i, push=push):
+            served.setdefault(out.service_request_id, i)
+            for o in out.outputs:
+                toks.setdefault(out.service_request_id, []).extend(
+                    o.token_ids)
+            push(dest, out)
+        agent.streamer.push = recording
+    return toks, served
+
+
+def check_sse(call, name, n_new):
+    """A streamed completion or chat: 200, text/event-stream, chunked, data
+    frames then ``[DONE]``, usage on the last data event."""
+    assert call.status == 200, (name, call.status, call.body[:200])
+    assert call.headers["content-type"] == "text/event-stream" and \
+        call.headers.get("transfer-encoding") == "chunked" and \
+        call.headers.get("x-request-id"), (name, call.headers)
+    ev = call.events()
+    assert ev[-1] == b"[DONE]" and len(ev) >= 3, (name, ev[-2:])
+    usage = ev[-2].get("usage")
+    assert usage and usage["completion_tokens"] == n_new and \
+        ev[-2]["choices"] == [], (name, ev[-2])
+    return ev
+
+
+def master_phase(cfg, params, llama, engine_mod, prompts, shared,
+                 sampled_prompt, want, kernels, card, device="cuda",
+                 pd_layers=MASTER_PD_LAYERS, check_launches=True):
+    """Phase 4s: the port's own master on the card. The port's coordination
+    server on a loopback port and the port's master at the reference's
+    defaults (CAR, brownout, breaker, ownership, the journal), two MIX
+    agents of this process on phase 4's weights, each with its engine and
+    pool. (a) phase 4's eleven requests as ``/v1/completions`` (token-id
+    prompts; streamed and whole) in phase 4's order: the greedy tokens
+    against phase 4's (``compare_streams``), the two shared-prefix
+    requests sent once their first request's blocks are in the master's
+    index: routed by CAR to the agent holding them, its prefix hits up
+    by two, kernel 2 launched; (b) chats streamed and whole (the same
+    text); (c) ``/v1/models``, ``/hello``, the master's ``/metrics``
+    families; (d) one agent killed (its lease left to lapse): the master
+    evicts it and the next requests complete on the survivor; (e) a
+    PREFILL and a DECODE agent at ``pd_layers`` layers linked by the
+    master, every handoff on the host path (two agents of one process;
+    the device path is between processes, phase 4i): kernel 4 once and
+    kernel 5 once a handoff, the streams held to an in-process MIX engine
+    at that depth. Client TTFT and inter-token latency (p50, p99) and
+    the master's hot-path stages are information. Returns the launches
+    of kernels 1, 2, 4 and 5."""
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.common.hotpath import HOTPATH
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.coordination.client import (
+        TcpCoordinationClient,
+    )
+    from xllm_service_tpu_torch.coordination.memory import MemoryStore
+    from xllm_service_tpu_torch.coordination.server import (
+        CoordinationServer,
+    )
+    from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
+    from xllm_service_tpu_torch.common.tracing import TRACER
+    from xllm_service_tpu_torch.master import Master
+    from xllm_service_tpu_torch.ops import page_dma
+    from xllm_service_tpu_torch.overload import BROWNOUT
+
+    paged_attention, mq_paged_attention = kernels
+    # The master configures the process's tracer, and its brownout may
+    # lower the sampling rate: both are given back for the later phases'
+    # agents in this process.
+    tracing_before = (TRACER.enabled, TRACER.sample_rate,
+                      TRACER.store.capacity)
+    srv = CoordinationServer(host="127.0.0.1", port=0, store=MemoryStore())
+    srv.start_background()
+    addr = f"127.0.0.1:{srv.port}"
+    master = Master(ServiceOptions(host="127.0.0.1", http_port=0,
+                                   rpc_port=0, coordination_addr=addr))
+    master.start()
+    sched = master.scheduler
+    mgr, kvm = sched.instance_mgr, sched.kvcache_mgr
+    port = master.http_port
+    agents: list = []
+
+    def start_agent(c, p, itype=InstanceType.MIX, host_path=False):
+        a = EngineAgent(c, AgentConfig(
+            model_id="llama3-8b", instance_type=itype,
+            heartbeat_interval_s=1.0), coord=TcpCoordinationClient(addr),
+            params=p, device=device)
+        if host_path and a.kv_transfer is not None:
+            a.kv_transfer.close()
+            a.kv_transfer = None
+        agents.append(a.start())
+        return a
+
+    def registered(*names):
+        wait_for(lambda: all(mgr.get_instance_meta(n) for n in names),
+                 "the agents' registration at the master", timeout=60)
+
+    try:
+        log(f"  coordination server {addr}; master HTTP :{port} RPC "
+            f":{master.rpc_port}, policy {sched._opts.load_balance_policy}, "
+            f"elected {sched.is_master}")
+        t = time.monotonic()
+        mix = [start_agent(cfg, params), start_agent(cfg, params)]
+        registered(*(a.name for a in mix))
+        toks, served = record_tokens(mix)
+        log(f"  two MIX agents {[a.name for a in mix]} registered in "
+            f"{time.monotonic() - t:.1f} s")
+
+        # (a) phase 4's requests through the master.
+        greedy = dict(max_tokens=MASTER_NEW, temperature=0.0,
+                      ignore_eos=True)
+        samp = dict(max_tokens=MASTER_NEW, temperature=0.8, top_p=0.9,
+                    seed=1234, ignore_eos=True)
+        calls: dict = {}
+
+        def send(name, ids, stream, sp):
+            body = {"model": "llama3-8b", "prompt": ids, "stream": stream,
+                    **sp}
+            if stream:
+                body["stream_options"] = {"include_usage": True}
+            calls[name] = MasterCall(port, "/v1/completions", body, stream)
+
+        def send_all(batch):
+            threads = [threading.Thread(target=send, args=b)
+                       for b in batch]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+
+        reset_counts()
+        HOTPATH.clear()
+        t0 = time.monotonic()
+        send_all([(f"g{i}", p, i % 2 == 0, greedy)
+                  for i, p in enumerate(prompts)]
+                 + [("sampled", sampled_prompt, False, samp)])
+        sid0 = calls["g0"].headers["x-request-id"]
+        holder = served[sid0]
+        blocks = 512 // cfg.hash_block_size
+        wait_for(lambda: kvm.match(prompts[0][:512]).scores.get(
+            mix[holder].name, 0) >= blocks,
+            "request 0's blocks in the master's index", timeout=60)
+        hits0 = mix[holder].engine.stats()["prefix_hits"]
+        mq0 = mq_paged_attention.launches
+        send_all([(f"s{j}", p, True, greedy) for j, p in enumerate(shared)])
+        wall = time.monotonic() - t0
+        mq_s = mq_paged_attention.launches - mq0
+        names = list(calls)
+        got = {}
+        for n in names:
+            c = calls[n]
+            if n.startswith("g") and int(n[1:]) % 2 or n == "sampled":
+                assert c.status == 200, (n, c.status, c.body[:200])
+                body = c.json()
+                assert body["usage"]["completion_tokens"] == MASTER_NEW \
+                    and body["choices"][0]["finish_reason"] == "length", \
+                    (n, body["usage"])
+            else:
+                check_sse(c, n, MASTER_NEW)
+            got[n] = toks[c.headers["x-request-id"]]
+        placed = {n: served[calls[n].headers["x-request-id"]]
+                  for n in names}
+        hits = mix[holder].engine.stats()["prefix_hits"] - hits0
+        log(f"  (a) phase 4's 11 requests through the master in "
+            f"{wall:.1f} s; placement {placed}; the shared-prefix requests "
+            f"on agent {holder} (request 0's) with {hits} prefix hits, "
+            f"kernel 2 launches during them {mq_s}")
+        assert placed["s0"] == placed["s1"] == holder, \
+            f"CAR did not route the shared prefix to its holder: {placed}"
+        assert hits >= 2, f"no prefix hits on the holder: {hits}"
+        if check_launches:
+            assert mq_s > 0, "kernel 2 not launched for the prefix hits"
+        ctx = {f"g{i}": p for i, p in enumerate(prompts)}
+        ctx.update({f"s{j}": p for j, p in enumerate(shared)})
+        if device == "cuda":
+            compare_streams(llama, cfg, params, ctx,
+                            {n: got[n] for n in ctx},
+                            {n: want[n] for n in ctx}, "4s (a)")
+        else:
+            assert {n: got[n] for n in ctx} == {n: want[n] for n in ctx}
+        log(f"  (a) sampled request equal to phase 4's: "
+            f"{got['sampled'] == want['sampled']} (information)")
+        launches = [paged_attention.launches, mq_paged_attention.launches]
+        if check_launches:
+            assert launches[0] > 0 and launches[1] > 0, launches
+
+        # Client-side TTFT and inter-token latency of the streams.
+        ttft, itl, gaps = [], [], []
+        for n in names:
+            c = calls[n]
+            if not c.frames:
+                continue
+            ts = c.content_times()
+            ttft.append((ts[0] - c.t_send) * 1e3)
+            itl.append((ts[-1] - ts[0]) * 1e3 / (MASTER_NEW - 1))
+            gaps += [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
+        def pct(xs, p):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+        log(f"  (a) client TTFT ms p50 {pct(ttft, 50):.1f} p99 "
+            f"{pct(ttft, 99):.1f}; inter-token ms (a stream's span over "
+            f"its tokens) p50 {pct(itl, 50):.2f} p99 {pct(itl, 99):.2f}; "
+            f"SSE frame gaps ms p50 {pct(gaps, 50):.2f} p99 "
+            f"{pct(gaps, 99):.2f}; {len(ttft)} streams "
+            f"(information only; {card})")
+        log("  (a) master hot path ms: " + "; ".join(
+            f"{k} n {v['n']} p50 {v['p50']} p99 {v['p99']}"
+            for k, v in HOTPATH.summary().items()) + f" ({card})")
+
+        # (b) chats, whole and streamed.
+        chat = dict(model="llama3-8b", max_tokens=24, temperature=0.0,
+                    ignore_eos=True)
+        for k, text in enumerate(("Tell me about the port of a serving "
+                                  "system.", "Count from one to ten.")):
+            msgs = [{"role": "user", "content": text}]
+            whole = MasterCall(port, "/v1/chat/completions",
+                               {**chat, "messages": msgs})
+            assert whole.status == 200, whole.body[:200]
+            w = whole.json()
+            streamed = MasterCall(port, "/v1/chat/completions", {
+                **chat, "messages": msgs, "stream": True,
+                "stream_options": {"include_usage": True}}, stream=True)
+            ev = check_sse(streamed, f"chat{k}", 24)
+            text_s = "".join((c.get("delta") or {}).get("content") or ""
+                             for e in ev[:-1] for c in e["choices"])
+            assert ev[0]["choices"][0]["delta"].get("role") == "assistant"
+            assert text_s == w["choices"][0]["message"]["content"] and \
+                w["usage"] == ev[-2]["usage"], (text_s, w)
+            assert toks[whole.headers["x-request-id"]] == \
+                toks[streamed.headers["x-request-id"]]
+        log("  (b) two chats: streamed content, usage and token ids equal "
+            "to the whole responses'")
+
+        # (c) the other routes.
+        models = MasterCall(port, "/v1/models", None)
+        assert models.status == 200 and [m["id"] for m in models.json()[
+            "data"]] == ["llama3-8b"], models.body
+        hello = MasterCall(port, "/hello", None)
+        assert hello.status == 200 and hello.json() == \
+            {"status": "ok", "master": True}
+        metrics = MasterCall(port, "/metrics", None)
+        fams = set(re.findall(r"^# TYPE (\S+) ", metrics.body.decode(),
+                              re.M))
+        need = {"server_request_in_total",
+                "time_to_first_token_latency_milliseconds",
+                "inter_token_latency_milliseconds",
+                "instance_inflight_requests", "requests_cancelled_total",
+                "coordination_connected", "admission_pending_requests"}
+        assert metrics.status == 200 and need <= fams, need - fams
+        served_n = re.search(r'^server_request_in_total\{kind="completion"\}'
+                             r' (\S+)$', metrics.body.decode(), re.M)
+        assert served_n and float(served_n.group(1)) >= len(names)
+        log(f"  (c) /v1/models, /hello and /metrics ({len(fams)} families, "
+            f"{float(served_n.group(1)):.0f} completions counted)")
+
+        # (d) an agent's death.
+        victim, survivor = mix[holder], mix[1 - holder]
+        t = time.monotonic()
+        victim.coord.rm = lambda key: True     # no deregistration
+        victim.stop()
+        states = []
+
+        def evicted():
+            entry = mgr._instances.get(victim.name)
+            st = entry.state.value if entry is not None else "EVICTED"
+            if not states or states[-1] != st:
+                states.append(st)
+            return st == "EVICTED"
+
+        wait_for(evicted, "the dead agent's eviction", timeout=120)
+        dead_s = time.monotonic() - t
+        after = {f"g{i}": prompts[i] for i in range(1, 4)}
+        after_got = {}
+        for n, ids in after.items():
+            c = MasterCall(port, "/v1/completions", {
+                "model": "llama3-8b", "prompt": ids,
+                "max_tokens": MASTER_AFTER_NEW, "temperature": 0.0,
+                "ignore_eos": True})
+            assert c.status == 200, (n, c.status, c.body[:200])
+            sid = c.headers["x-request-id"]
+            assert served[sid] == 1 - holder, "served by the dead agent"
+            after_got[n] = toks[sid]
+        after_want = {n: want[n][:MASTER_AFTER_NEW] for n in after}
+        if device == "cuda":
+            compare_streams(llama, cfg, params, after, after_got,
+                            after_want, "4s (d) after the death")
+        else:
+            assert after_got == after_want
+        log(f"  (d) agent {victim.name} stopped with its lease left to "
+            f"lapse: states {states}, evicted after {dead_s:.1f} s (the "
+            f"reference's default timeouts); {len(after)} requests then "
+            f"served by the survivor")
+        # The survivor retires by the master's graceful drain (DRAINING at
+        # once, deregistered when idle, no eviction), so the PD pair's
+        # links meet no stale peer.
+        t = time.monotonic()
+        mgr.request_drain(survivor.name)
+        wait_for(lambda: mgr.get_instance_meta(survivor.name) is None,
+                 "the drained agent's deregistration", timeout=60)
+        survivor.stop()
+        log(f"  (d) the survivor drained by the master and deregistered in "
+            f"{time.monotonic() - t:.1f} s")
+        agents.clear()
+        del mix, victim, survivor
+
+        # (e) a PD pair linked by the master.
+        pd_cfg, pd_params = depth_view(cfg, params, pd_layers)
+        pre = start_agent(pd_cfg, pd_params, InstanceType.PREFILL, True)
+        dec = start_agent(pd_cfg, pd_params, InstanceType.DECODE, True)
+        registered(pre.name, dec.name)
+        wait_for(lambda: pre.name in dec.linked_peers
+                 and dec.name in pre.linked_peers,
+                 "the master's PD link", timeout=60)
+        pd_toks, pd_served = record_tokens([pre, dec])
+        sent = {f"g{i}": prompts[i] for i in range(6)}
+        reset_counts()
+        pd_calls = {}
+        for i, (n, ids) in enumerate(sent.items()):
+            body = {"model": "llama3-8b", "prompt": ids,
+                    "max_tokens": MASTER_PD_NEW, "temperature": 0.0,
+                    "ignore_eos": True, "stream": i % 2 == 1}
+            pd_calls[n] = MasterCall(port, "/v1/completions", body,
+                                     stream=i % 2 == 1)
+        g4 = page_dma.gather_kv_pages.launches
+        g5 = page_dma.scatter_kv_pages.launches
+        pd_got = {}
+        for n, c in pd_calls.items():
+            assert c.status == 200, (n, c.status, c.body[:200])
+            sid = c.headers["x-request-id"]
+            assert pd_served[sid] == 1, f"{n} not streamed by the decode agent"
+            pd_got[n] = pd_toks[sid]
+        n_pd = len(sent)
+        log(f"  (e) PD pair at {pd_layers} layers linked by the master: "
+            f"{pre.kv_host_sent} host handoffs ({pre.kv_stream_sent} "
+            f"streamed), {pre.kv_device_sent} device; kernels 4/5 {g4}/{g5}")
+        assert (pre.kv_host_sent, dec.kv_host_received) == (n_pd, n_pd)
+        if check_launches:
+            assert g4 == n_pd and g5 == n_pd, \
+                "not one gather and one scatter a handoff"
+        want_pd = serve_greedy(engine_mod, pd_cfg, pd_params, sent,
+                               max_tokens=MASTER_PD_NEW)[0]
+        if device == "cuda":
+            compare_streams(llama, pd_cfg, pd_params, sent, pd_got, want_pd,
+                            "4s (e) PD pair vs an in-process MIX engine")
+        else:
+            assert pd_got == want_pd
+        return launches + [g4, g5]
+    finally:
+        for a in agents:
+            a.stop()
+        master.stop()
+        srv.stop()
+        BROWNOUT.reset()
+        TRACER.configure(enabled=tracing_before[0],
+                         sample_rate=tracing_before[1],
+                         capacity=tracing_before[2], mirror=None)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9270,6 +9733,18 @@ def main() -> int:
                               (paged_attention, mq_paged_attention), card)
     log(f"  phase 4l: {time.monotonic() - t:.1f} s")
 
+    # Phase 4s: the port's own master.
+    log("[4s] the port's master at the reference's defaults on the port's "
+        "coordination server: two MIX agents, phase 4's requests and chats "
+        "through it, CAR's prefix routing, an agent's death, a PD pair at "
+        f"{MASTER_PD_LAYERS} layers "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    t = time.monotonic()
+    s_launches = master_phase(cfg, params, llama, engine_mod, prompts,
+                              shared, sampled_prompt, runs[0][0],
+                              (paged_attention, mq_paged_attention), card)
+    log(f"  phase 4s: {time.monotonic() - t:.1f} s")
+
     # Phase 4o (a), (b), (f): the model axis on phase 4's weights.
     log("[4o] the tensor, expert and data axes in one process on this card "
         "repeated: (a) llama3-8b bf16 on model=4, (b) its tier round trip, "
@@ -9384,7 +9859,8 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_paged_attention.py:107", k1,
              runs[0][1][0] + agent_launches[0] + g_launches[0]
              + h_launches[0] + i_launches[0] + j_launches[0]
-             + k_launches[0] + l_launches[0] + m_launches["paged"]
+             + k_launches[0] + l_launches[0] + s_launches[0]
+             + m_launches["paged"]
              + n_launches["paged"] + o_a[0] + o_c[0]
              + m_launches["ep_paged"] + p_launches["paged_attention"]
              + r_launches[0]),
@@ -9392,7 +9868,8 @@ def main() -> int:
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
              + h_launches[1] + i_launches[1] + j_launches[1]
-             + k_launches[1] + l_launches[1] + m_launches["mq"]
+             + k_launches[1] + l_launches[1] + s_launches[1]
+             + m_launches["mq"]
              + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
              + p_launches["mq_paged_attention"] + q_launches["mq"]
              + r_launches[1]),
@@ -9401,12 +9878,14 @@ def main() -> int:
              fused_launches[0]),
             ("gather_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:222", k4,
-             tier_launches[0] + i_launches[2] + m_launches["gather"]
+             tier_launches[0] + i_launches[2] + s_launches[2]
+             + m_launches["gather"]
              + n_launches["gather"] + o_b[0] + o_f[0] + q_launches["gather"]
              + q_launches["pd_gather"]),
             ("scatter_kv_pages", csrc + "page_dma.cu",
              "xllm_service_tpu/ops/pallas_page_dma.py:250", k5,
-             tier_launches[1] + i_launches[3] + m_launches["scatter"]
+             tier_launches[1] + i_launches[3] + s_launches[3]
+             + m_launches["scatter"]
              + n_launches["scatter"] + o_b[1] + o_f[1]
              + q_launches["scatter"] + q_launches["pd_scatter"]),
             ("cp_paged_partial", csrc + "cp_paged_partial.cu",

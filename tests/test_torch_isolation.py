@@ -3,8 +3,11 @@
 ``xllm_service_tpu`` (nor ``ml_dtypes``, the reference's bf16 host type),
 and ``chip_smoke.py`` imports none of them. Nor does the port import the
 third-party packages its card's machine lacks (``aiohttp``, ``requests``,
-``msgpack``, ``tokenizers``): its agent is written on the standard
-library. ``jinja2`` (PyTorch requires it) and PIL are on the card's
+``msgpack``, ``tokenizers``): its agent, master and coordination server
+are written on the standard library, and both entry points
+(``python -m xllm_service_tpu_torch.master`` and ``python -m
+xllm_service_tpu_torch.coordination.server``) run in a process that
+imports none of them. ``jinja2`` (PyTorch requires it) and PIL are on the card's
 machine: the chat template and the image decode use them, as the
 reference does."""
 
@@ -46,7 +49,24 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "profiling.critical_path", "models.deepseek_moe",
               "models.mixtral", "models.quant", "models.weights",
               "models.qwen2_vl", "chat_template",
-              "chat_template.jinja_chat_template"):
+              "chat_template.jinja_chat_template",
+              # The master and its service plane.
+              "master", "utils", "coordination.base", "coordination.server",
+              "coordination.health", "common.config", "common.slo",
+              "common.hotpath", "common.call_data",
+              "common.ordered_executor", "common.time_predictor",
+              "common.types", "common.request", "overload",
+              "overload.admission", "overload.brownout", "overload.deadline",
+              "overload.retry_budget", "rpc.breaker", "rpc.channel",
+              "scheduler.output_parsers", "scheduler.response_handler",
+              "scheduler.policies", "scheduler.policies.base",
+              "scheduler.policies.round_robin",
+              "scheduler.policies.cache_aware",
+              "scheduler.global_kvcache_mgr", "scheduler.instance_mgr",
+              "scheduler.planner", "scheduler.scheduler",
+              "multimaster.handoff", "http_service.web",
+              "http_service.connection", "http_service.request_tracer",
+              "http_service.service"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -86,3 +106,30 @@ def test_port_sources_import_neither():
     for path in (ROOT / "xllm_service_tpu_torch").rglob("*.py"):
         assert not _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD), \
             path
+
+
+ENTRY_POINTS = ("xllm_service_tpu_torch.master",
+                "xllm_service_tpu_torch.coordination.server")
+
+
+def test_entry_points_run_without_jax_the_reference_or_aiohttp():
+    """``--help`` of the master and of the coordination server, each as
+    ``python -m``, in a process whose modules are then listed."""
+    for mod in ENTRY_POINTS:
+        code = (
+            "import runpy, sys\n"
+            f"sys.argv = [{mod!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_module({mod!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "bad = sorted(n for n in sys.modules\n"
+            f"             if n.split('.')[0] in "
+            f"{FORBIDDEN + NOT_ON_THE_CARD!r})\n"
+            "print(repr(bad))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.strip().splitlines()
+        assert lines[0].startswith("usage:"), out.stdout[:200]
+        assert lines[-1] == "[]", (mod, lines[-1])

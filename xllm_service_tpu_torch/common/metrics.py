@@ -1,6 +1,7 @@
 """Counters, gauges and histograms with Prometheus text export (copy of
-the instruments of ``xllm_service_tpu/common/metrics.py`` and its two
-engine-agent families).
+the instruments of ``xllm_service_tpu/common/metrics.py`` and of its
+families: the master's, the overload and coordination planes', and the
+engine agent's two).
 
 Instruments may declare ``labelnames``; a call site then takes a child
 series with ``.labels(peer=...)`` (every declared label, by keyword) and
@@ -241,11 +242,158 @@ class MetricsRegistry:
         return "".join(parts)
 
 
-#: The process's registry and the engine agent's labeled families (its
-#: ``/metrics`` appends their render to the ``engine_*`` text). Each is
-#: evicted when its subject goes: ENGINE_PEER_LINKED on a PD unlink,
-#: ENGINE_HEARTBEATS_TOTAL when the heartbeat master changes.
+# Global registry + the reference's instruments (`metrics.h:108-111`).
+# TTFT/ITL carry {instance, policy} so tail latency can be attributed to a
+# routing decision; the frontend counter carries the API kind.
 REGISTRY = MetricsRegistry()
+SERVER_REQUEST_IN_TOTAL = REGISTRY.counter(
+    "server_request_in_total", "Total requests accepted by the HTTP frontend",
+    labelnames=("kind",))
+TTFT_MS = REGISTRY.histogram(
+    "time_to_first_token_latency_milliseconds", "TTFT per request (ms)",
+    labelnames=("instance", "policy"))
+ITL_MS = REGISTRY.histogram(
+    "inter_token_latency_milliseconds", "Inter-token latency (ms)",
+    labelnames=("instance", "policy"))
+
+# Per-instance live-load gauges (service-side view of the fleet; phase is
+# prefill|decode) + engine-reported queue depth from heartbeats.
+INSTANCE_INFLIGHT_REQUESTS = REGISTRY.gauge(
+    "instance_inflight_requests",
+    "In-flight requests the scheduler has accounted to an instance",
+    labelnames=("instance", "phase"))
+INSTANCE_QUEUE_DEPTH = REGISTRY.gauge(
+    "instance_queue_depth",
+    "Engine-reported waiting queue depth (from heartbeats)",
+    labelnames=("instance",))
+
+# Failure-handling observability (beyond the reference, which exposes no
+# failure-path instruments at all): transparent-failover outcomes, channel
+# retry pressure, and fleet eviction churn.
+FAILOVER_ATTEMPTS_TOTAL = REGISTRY.counter(
+    "failover_attempts_total",
+    "Re-dispatch attempts for requests on failed instances "
+    "(instance = the failed one)",
+    labelnames=("instance",))
+FAILOVER_SUCCESS_TOTAL = REGISTRY.counter(
+    "failover_success_total",
+    "Requests successfully re-dispatched after an instance failure "
+    "(instance = the surviving target)",
+    labelnames=("instance",))
+RPC_RETRIES_TOTAL = REGISTRY.counter(
+    "rpc_retries_total", "Engine-channel RPC attempts beyond the first",
+    labelnames=("instance",))
+INSTANCE_EVICTIONS_TOTAL = REGISTRY.counter(
+    "instance_evictions_total", "Instances removed from the fleet",
+    labelnames=("instance",))
+# Successor of requests_cancelled_on_failure_total (which only counted
+# the failover-surfaced subset): every service-side cancellation, by
+# cause. Bounded label set (the four causes below) — no eviction needed,
+# unlike the per-instance series above.
+REQUESTS_CANCELLED_TOTAL = REGISTRY.counter(
+    "requests_cancelled_total",
+    "Requests cancelled by the service, by cause "
+    "(deadline = per-request deadline / GC timeout expiry, disconnect = "
+    "client went away, shed = admission control refused it, failover = "
+    "instance failure with no replay path or budget exhausted)",
+    labelnames=("reason",))
+
+# Fleet observability plane (docs/observability.md): locally-exported
+# control-plane freshness gauges (previously visible only as
+# /admin/hotpath JSON), the SLO burn-rate surface (common/slo.py), and
+# the anomaly flight recorder's capture counter. The freshness gauges
+# are refreshed at scrape time by the /metrics handler — no background
+# thread.
+ROUTING_SNAPSHOT_AGE_SECONDS = REGISTRY.gauge(
+    "routing_snapshot_age_seconds",
+    "Age of the published RCU routing snapshot (how stale this "
+    "frontend's lock-free fleet view is)")
+LOADINFO_MAX_AGE_SECONDS = REGISTRY.gauge(
+    "loadinfo_max_age_seconds",
+    "Age of the stalest per-instance load-info entry (-1 = never "
+    "updated)")
+LOADINFO_STALE_INSTANCES = REGISTRY.gauge(
+    "loadinfo_stale_instances",
+    "Instances whose load telemetry is older than loadinfo_stale_after_s "
+    "(relative staleness: 0 when all entries are equally stale)")
+KVCACHE_FRAME_LOG_SEQ = REGISTRY.gauge(
+    "kvcache_frame_log_seq",
+    "Next coordination KV-index frame-log sequence number (replicas "
+    "lagging this have not applied the newest frames)")
+PLANNER_SCALE_HINT = REGISTRY.gauge(
+    "planner_scale_hint",
+    "Latest planner scale decision (positive = add instances, negative "
+    "= remove; hint for an external autoscaler)")
+# Closed-loop autoscaler (autoscaler/, docs/autoscaling.md): enacted
+# action counts by kind, the controller's live fleet view by role, and
+# the age of the newest decision (a stuck control loop shows up here
+# before it shows up as an unserved burst). fleet_size and the decision
+# age are refreshed at tick time and at scrape time.
+HOTPATH_CPU_SECONDS = REGISTRY.counter(
+    "hotpath_cpu_seconds_total",
+    "Master hot-loop CPU seconds by coarse loop (ingest = heartbeat/"
+    "telemetry-frame ingest, route = schedule, stream = generation-delta "
+    "ingest) — the per-master scaling-evidence series; frame-level "
+    "breakdown lives at /admin/profile",
+    labelnames=("loop",))
+NATIVE_PATH_ACTIVE = REGISTRY.gauge(
+    "native_path_active",
+    "1 when the libhotcore.so native fast path serves this component "
+    "(wire = LOADFRAME/telemetry msgpack, sse = delta-frame assembly, "
+    "rendezvous = ownership hashing, tokenizer = byte-id encode); 0 = "
+    "pure-Python fallback — a degraded process in a fleet scrape",
+    labelnames=("component",))
+AUTOSCALER_ACTIONS_TOTAL = REGISTRY.counter(
+    "autoscaler_actions_total",
+    "Actions enacted by the autoscaler controller, by kind "
+    "(scale_out|scale_in|drain|flip|hold)",
+    labelnames=("action",))
+FLEET_SIZE = REGISTRY.gauge(
+    "fleet_size",
+    "Schedulable instances per role as seen by this frontend's routing "
+    "snapshot (draining/suspect excluded; role=draining counts retiring "
+    "instances)",
+    labelnames=("role",))
+AUTOSCALER_LAST_DECISION_AGE_SECONDS = REGISTRY.gauge(
+    "autoscaler_last_decision_age_seconds",
+    "Seconds since the autoscaler controller last completed a decision "
+    "tick (-1 = never ticked / disabled)")
+# Overload-hardening plane (overload/, docs/robustness.md): admission
+# gate depth, brownout state, retry-budget level (scrape-time refreshed
+# by the /metrics handler) and per-instance breaker state (written on
+# reconcile transitions; series evicted with the instance).
+ADMISSION_PENDING_REQUESTS = REGISTRY.gauge(
+    "admission_pending_requests",
+    "In-flight requests admitted through the overload-admission gate")
+BROWNOUT_ACTIVE = REGISTRY.gauge(
+    "brownout_active",
+    "1 while the frontend is in brownout (SLO burn breaching on both "
+    "windows: batch max_tokens clamped, optional work shed)")
+RETRY_BUDGET_TOKENS = REGISTRY.gauge(
+    "retry_budget_tokens",
+    "Remaining global retry-budget tokens (failover + relay recovery "
+    "spend from this bucket; empty = retries fail fast)")
+CIRCUIT_BREAKER_OPEN = REGISTRY.gauge(
+    "circuit_breaker_open",
+    "1 while an instance's engine channel is OPEN/HALF_OPEN (excluded "
+    "from routing like SUSPECT until a half-open probe closes it)",
+    labelnames=("instance",))
+SLO_BURN_RATE = REGISTRY.gauge(
+    "slo_burn_rate",
+    "Error-budget burn rate per objective and rolling window "
+    "(1.0 = budget-neutral pace; see /admin/slo)",
+    labelnames=("objective", "window"))
+FLIGHT_RECORDS_TOTAL = REGISTRY.counter(
+    "flight_records_total",
+    "Anomaly bundles captured by the flight recorder",
+    labelnames=("kind",))
+
+# Engine-agent-side labeled series (the agent's /metrics appends the
+# registry render to its hand-rolled engine_* text). Both are evicted
+# when their label subject goes away — ENGINE_PEER_LINKED on PD unlink,
+# ENGINE_HEARTBEATS_TOTAL when the master changes — mirroring the
+# master's evicted-instance series eviction (instance_mgr), so a
+# long-lived engine doesn't grow /metrics without bound.
 ENGINE_PEER_LINKED = REGISTRY.gauge(
     "engine_peer_linked",
     "PD peers currently linked to this engine agent (1 per live link)",
@@ -254,3 +402,81 @@ ENGINE_HEARTBEATS_TOTAL = REGISTRY.counter(
     "engine_heartbeats_total",
     "Heartbeats this agent pushed, by destination master",
     labelnames=("master",))
+
+# Multi-master service plane (multimaster/): ownership handoffs between
+# active frontends and owner-death recoveries. `owner` is the TARGET
+# master of the forward (small cardinality: one series per replica).
+HANDOFF_FORWARDED_TOTAL = REGISTRY.counter(
+    "handoff_forwarded_total",
+    "Requests relayed to their owning master by an accepting frontend",
+    labelnames=("owner",))
+HANDOFF_SERVED_TOTAL = REGISTRY.counter(
+    "handoff_served_total",
+    "Foreign-accepted requests served by this master as owner")
+HANDOFF_RECOVERIES_TOTAL = REGISTRY.counter(
+    "handoff_recoveries_total",
+    "Mid-flight re-ownerships after an owning master died "
+    "(owner = the rendezvous successor)",
+    labelnames=("owner",))
+HANDOFF_JOURNAL_REPLAYS_TOTAL = REGISTRY.counter(
+    "handoff_journal_replays_total",
+    "Relayed-stream reconnects served from the owner's seq-numbered "
+    "delta journal (exact replay — no pipeline re-run, no splice risk)")
+
+# Sharded telemetry-ingest plane: heartbeat ingest by shard
+# verdict, coalesced load-frame publication, and the master->master
+# generation-delta relay behind the multiplexed engine session.
+HEARTBEATS_INGESTED_TOTAL = REGISTRY.counter(
+    "heartbeats_ingested_total",
+    "Heartbeats ingested by this frontend, by telemetry-shard verdict "
+    "(owned = this master owns the instance's ingest, foreign = "
+    "membership race / legacy engine still funneling to the elected "
+    "master)",
+    labelnames=("shard",))
+LOADFRAMES_PUBLISHED_TOTAL = REGISTRY.counter(
+    "loadframes_published_total",
+    "Coalesced load/lease frames this master published for its "
+    "telemetry shard")
+LOADFRAMES_APPLIED_TOTAL = REGISTRY.counter(
+    "loadframes_applied_total",
+    "Peer owners' load/lease frames mirrored into this frontend's "
+    "lock-free load-info view")
+TELEMETRY_GENS_RELAYED_TOTAL = REGISTRY.counter(
+    "telemetry_gens_relayed_total",
+    "Generation-delta batches relayed master->master for engines whose "
+    "multiplexed telemetry session lands here but whose request owner "
+    "is another frontend",
+    labelnames=("dest",))
+LOADINFO_AGE_SECONDS = REGISTRY.gauge(
+    "loadinfo_age_seconds",
+    "Per-instance load-info snapshot age (scrape-time refreshed; -1 = "
+    "never updated) — the staleness signal SLO/CAR scoring discounts by, "
+    "now observable instead of inferred",
+    labelnames=("instance",))
+
+# Coordination-plane static stability: degraded-mode serving
+# when the coordination plane is unreachable — plane health, outage
+# accounting, reconnect churn, and the held-actions backlog.
+COORDINATION_CONNECTED = REGISTRY.gauge(
+    "coordination_connected",
+    "1 while the coordination plane answers liveness probes, 0 while "
+    "the health monitor classifies it DEGRADED/RECOVERING")
+COORDINATION_DEGRADED_SECONDS_TOTAL = REGISTRY.counter(
+    "coordination_degraded_seconds_total",
+    "Cumulative seconds this frontend spent serving in degraded mode "
+    "(coordination plane unreachable; census frozen, mastership sticky)")
+COORDINATION_RECONNECTS_TOTAL = REGISTRY.counter(
+    "coordination_reconnects_total",
+    "Successful coordination-client reconnects (each one re-auths, "
+    "re-subscribes watches, and re-establishes leased keys)")
+COORDINATION_HELD_ACTIONS = REGISTRY.gauge(
+    "coordination_held_actions",
+    "Depth of the held-actions log: ownership-changing actions "
+    "(evictions, drains, flips, frame publishes, autoscaler enactment) "
+    "suspended while the coordination plane is degraded")
+COORDINATION_FROZEN_EVENTS_TOTAL = REGISTRY.counter(
+    "coordination_frozen_events_total",
+    "Census events ignored under the degraded-mode freeze (lease-lapse "
+    "verdicts and missed-lease sweeps suppressed while the plane is "
+    "down)",
+    labelnames=("kind",))

@@ -32,7 +32,7 @@ import uuid
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from hashlib import blake2b
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -110,6 +110,13 @@ def current_span() -> Optional["Span"]:
 def current_context() -> Optional[TraceContext]:
     sp = current_span()
     return sp.context() if sp is not None else None
+
+
+def current_headers() -> dict[str, str]:
+    """Propagation headers of the calling thread's active span ({} when
+    none; the master's engine channel stamps them on every call)."""
+    ctx = current_context()
+    return ctx.to_headers() if ctx is not None else {}
 
 
 def add_event(name: str, **attrs: Any) -> None:
@@ -376,17 +383,23 @@ class Tracer:
         self.enabled = True
         self.sample_rate = 1.0
         self.store = SpanStore(capacity)
+        # Called with each recorded span's dict (the master's request
+        # tracer mirrors spans into its JSONL file).
+        self._mirror: Optional[Callable[[dict[str, Any]], None]] = None
         # Traces kept by a tail decision: their later spans go straight to
         # the ring. Bounded ordered set.
         self._kept: OrderedDict[str, None] = OrderedDict()
 
     def configure(self, enabled: Optional[bool] = None,
                   capacity: Optional[int] = None,
+                  mirror: Any = "__unset__",
                   sample_rate: Optional[float] = None) -> None:
         if enabled is not None:
             self.enabled = enabled
         if capacity is not None and capacity != self.store.capacity:
             self.store = SpanStore(capacity)
+        if mirror != "__unset__":
+            self._mirror = mirror
         if sample_rate is not None:
             self.sample_rate = min(1.0, max(0.0, float(sample_rate)))
 
@@ -445,6 +458,12 @@ class Tracer:
             self.store.add(span)
         else:
             self.store.add_pending(span)
+        mirror = self._mirror
+        if mirror is not None:
+            try:
+                mirror(span.to_dict())
+            except Exception:  # noqa: BLE001 — tracing never breaks a request
+                logger.exception("span mirror failed")
 
     def query_trace(self, request_id: str = "",
                     trace_id: str = "") -> tuple[int, dict[str, Any]]:

@@ -10,15 +10,26 @@ when a master dies only what it owned moves, each key to the next-highest
 scoring survivor. The agent mirrors the membership through
 :class:`TelemetryOwnerResolver` and sends its beats and delta pushes to
 that owner.
+
+The master's side is :class:`OwnershipRouter`: it mirrors the member set
+through a watch, decides the owner of each request id (and mines ids this
+master owns) and the telemetry owner of each instance.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from hashlib import blake2b
-from typing import Iterable
+from typing import Callable, Iterable, Optional
 
+from ..coordination.base import CoordinationClient, KeyEvent, WatchEventType
 from ..rpc import MASTER_KEY, SERVICE_KEY_PREFIX
+from ..utils import generate_service_request_id
+
+#: Bounded id-mining draws. P(all misses) = (1-1/N)^tries; a miss means
+#: the request pays one handoff hop.
+MINE_TRIES = 32
 
 #: Telemetry shard salt: the owner of an instance's ingest hashes
 #: ``<member>|hb|<instance name>``. Masters and engines share it.
@@ -117,3 +128,171 @@ class TelemetryOwnerResolver:
         it for one cache window."""
         if owner:
             self._cached = (owner, time.monotonic() + self._cache_s)
+
+
+class OwnershipRouter:
+    """Rendezvous-hash request→master ownership (lock-free reads)."""
+
+    def __init__(self, coord: CoordinationClient, self_addr: str,
+                 enabled: bool = True, mine_ids: bool = True,
+                 start_watch: bool = True):
+        self._coord = coord
+        self.self_addr = self_addr
+        self.enabled = enabled
+        self.mine_ids = mine_ids
+        # Writers (watch callbacks, self-addr updates) serialize here and
+        # publish an immutable sorted tuple; readers never take the lock.
+        self._lock = threading.Lock()
+        self._addrs: set[str] = {self_addr}
+        self._members: tuple[str, ...] = (self_addr,)
+        self.mined = 0          # ids mined to self-ownership
+        self.mine_misses = 0    # draws exhausted -> foreign owner accepted
+        # Telemetry-shard verdict memo: (member tuple it was computed
+        # against, {instance name -> owner addr}). Keyed by IDENTITY of
+        # the RCU-published member tuple — _publish_locked always builds
+        # a fresh tuple, so any membership change invalidates the whole
+        # memo on the next read without coordination (the "membership
+        # epoch" is the tuple object itself).
+        self._own_cache: tuple[tuple[str, ...], dict] = (self._members, {})
+        self._watch_id: Optional[int] = None
+        if enabled and start_watch:
+            self._watch_id = coord.add_watch(SERVICE_KEY_PREFIX,
+                                             self._on_service_event)
+            self._bootstrap()
+
+    # ------------------------------------------------------------ membership
+    def _bootstrap(self) -> None:
+        addrs = {k[len(SERVICE_KEY_PREFIX):]
+                 for k in self._coord.get_prefix(SERVICE_KEY_PREFIX)
+                 if k != MASTER_KEY}
+        with self._lock:
+            self._addrs |= addrs
+            self._publish_locked()
+
+    def _on_service_event(self, events: list[KeyEvent], _prefix: str) -> None:
+        with self._lock:
+            for ev in events:
+                if ev.key == MASTER_KEY:
+                    continue   # election key shares the prefix
+                addr = ev.key[len(SERVICE_KEY_PREFIX):]
+                if ev.type == WatchEventType.PUT:
+                    self._addrs.add(addr)
+                elif addr != self.self_addr:
+                    # Self stays a member even through a lease blip: this
+                    # process is alive by construction, and dropping it
+                    # would stampede every mined id into handoffs.
+                    self._addrs.discard(addr)
+            self._publish_locked()
+
+    def _publish_locked(self) -> None:
+        self._members = tuple(sorted(self._addrs))
+
+    def update_self_addr(self, addr: str) -> None:
+        """Follow the scheduler's post-bind re-registration (ephemeral
+        ports are only known after the RPC site binds)."""
+        with self._lock:
+            self._addrs.discard(self.self_addr)
+            self.self_addr = addr
+            self._addrs.add(addr)
+            self._publish_locked()
+
+    def members(self) -> tuple[str, ...]:
+        """Live service-replica addresses (lock-free, immutable)."""
+        return self._members
+
+    # ------------------------------------------------------------- ownership
+    _score = staticmethod(_rendezvous_score)
+
+    def owner_of(self, key: str,
+                 exclude: Iterable[str] = ()) -> str:
+        """The owning master's rpc address for a request id (or explicit
+        affinity key). ``exclude`` drops members the caller has observed
+        dead but whose lease has not lapsed yet — the result is the
+        deterministic rendezvous successor. Falls back to self when the
+        plane is empty or ownership is disabled."""
+        if not self.enabled:
+            return self.self_addr
+        members = self._members
+        if exclude:
+            excluded = set(exclude)
+            members = tuple(m for m in members if m not in excluded)
+        if not members:
+            return self.self_addr
+        if len(members) == 1:
+            return members[0]
+        best, best_score = members[0], -1
+        for m in members:
+            s = self._score(m, key)
+            if s > best_score:
+                best, best_score = m, s
+        return best
+
+    def is_self(self, key: str, exclude: Iterable[str] = ()) -> bool:
+        return self.owner_of(key, exclude) == self.self_addr
+
+    # ---------------------------------------------------- telemetry shard map
+    #: Verdict-memo safety bound: far above any real fleet's instance
+    #: count; a runaway name space (chaos drills mint random names)
+    #: resets the memo instead of growing it.
+    OWN_CACHE_MAX = 65536
+
+    def instance_owner(self, instance_name: str,
+                       exclude: Iterable[str] = ()) -> str:
+        """The master owning an instance's heartbeat/load ingest
+        (telemetry shard map; falls back to self when ownership is
+        disabled or the plane is empty). Lock-free, and memoized per
+        (published member tuple, instance): every heartbeat of every
+        instance consults this verdict — often twice (in-lock ingest
+        gate + bare-beat kv relay) — so the rendezvous walk runs once
+        per instance per membership epoch, not per beat. ``exclude`` is
+        the rare failover path and bypasses the memo."""
+        if not self.enabled:
+            return self.self_addr
+        members = self._members
+        if exclude:
+            return telemetry_owner(members, instance_name,
+                                   exclude) or self.self_addr
+        cache = self._own_cache
+        if cache[0] is not members or len(cache[1]) >= self.OWN_CACHE_MAX:
+            cache = (members, {})
+            self._own_cache = cache
+        owner = cache[1].get(instance_name)
+        if owner is None:
+            owner = telemetry_owner(members, instance_name) or self.self_addr
+            cache[1][instance_name] = owner
+        return owner
+
+    def owns_instance(self, instance_name: str) -> bool:
+        """Does THIS master own the instance's telemetry ingest?"""
+        return self.instance_owner(instance_name) == self.self_addr
+
+    def mine(self, kind: str,
+             gen: Optional[Callable[[str], str]] = None) -> tuple[str, str]:
+        """Generate a service request id, preferring one THIS node owns
+        (bounded draws). Returns ``(sid, owner_addr)``; the caller hands
+        off when ``owner_addr != self_addr`` (draws exhausted against an
+        unlucky membership, or mining disabled)."""
+        gen = gen or generate_service_request_id
+        if not self.enabled or len(self._members) <= 1:
+            return gen(kind), self.self_addr
+        if not self.mine_ids:
+            sid = gen(kind)
+            return sid, self.owner_of(sid)
+        sid = gen(kind)
+        for _ in range(MINE_TRIES):
+            if self.owner_of(sid) == self.self_addr:
+                self.mined += 1
+                return sid, self.self_addr
+            sid = gen(kind)
+        self.mine_misses += 1
+        return sid, self.owner_of(sid)
+
+    def stats(self) -> dict:
+        return {"self": self.self_addr, "members": list(self._members),
+                "enabled": self.enabled, "mine_ids": self.mine_ids,
+                "mined": self.mined, "mine_misses": self.mine_misses}
+
+    def stop(self) -> None:
+        if self._watch_id is not None:
+            self._coord.remove_watch(self._watch_id)
+            self._watch_id = None

@@ -15,12 +15,17 @@ msgpack byte through ``rpc/msgpack_lite.py``.
   advertises ``wire_formats``.
 
 The engine advertises ``[WIRE_MSGPACK, WIRE_JSON]``; the master then
-dispatches msgpack to it. The reference's KV-index and load frames are
-the master's and are not here.
+dispatches msgpack to it.
+
+The master's half: ``encode_kv_frame``/``decode_kv_frame`` (the KV-index
+delta frames the master writes to coordination each sync tick) and
+``encode_load_frame``/``decode_load_frame`` (a telemetry owner's coalesced
+load frame), each base64(msgpack) since coordination values are strings.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 from typing import Any
 
@@ -85,3 +90,59 @@ def negotiate(wire_formats: Any) -> str:
             else WIRE_JSON
     except TypeError:
         return WIRE_JSON
+
+
+def _b64_pack(frame: dict) -> str:
+    return base64.b64encode(msgpack_lite.packb(frame)).decode("ascii")
+
+
+def encode_kv_frame(upserts: "dict[bytes, Any]", removals: "list[bytes]",
+                    full: bool = False) -> str:
+    """One sync tick's KV-index delta: ``upserts`` maps a raw block key to
+    its positional [hbm, dram, ssd] instance-name row; ``full`` marks a
+    compaction frame carrying the entire index."""
+    frame = {"u": upserts, "r": list(removals)}
+    if full:
+        frame["full"] = True
+    return _b64_pack(frame)
+
+
+def decode_kv_frame(value: str) -> "tuple[dict[bytes, Any], list[bytes], bool]":
+    """Inverse of :func:`encode_kv_frame` -> (upserts, removals, full).
+    Raises ValueError on a malformed frame (callers skip it)."""
+    try:
+        frame = msgpack_lite.unpackb(base64.b64decode(value))
+        if not isinstance(frame, dict):
+            raise TypeError("frame is not a map")
+        upserts = frame.get("u") or {}
+        removals = list(frame.get("r") or ())
+        if not isinstance(upserts, dict):
+            raise TypeError("frame upserts is not a map")
+    except Exception as e:  # base64 and the decoder raise their own types
+        raise ValueError(f"malformed kv frame: {e}") from None
+    return upserts, removals, bool(frame.get("full"))
+
+
+def encode_load_frame(instances: dict, gone: "dict[str, str]", seq: int,
+                      now_ms: int) -> str:
+    """One owner's telemetry shard: ``instances`` maps a name to {"l":
+    load, "y": latency, "hb": last heartbeat ms, "up": telemetry-updated
+    ms, "st": runtime state}; ``gone`` maps recently evicted instances to
+    the reason; ``now_ms`` is the owner's clock at build time."""
+    return _b64_pack({"i": instances, "g": dict(gone), "s": seq,
+                      "ms": now_ms})
+
+
+def decode_load_frame(value: str) -> dict:
+    """Inverse of :func:`encode_load_frame`. Raises ValueError on a
+    malformed frame (callers skip it)."""
+    try:
+        frame = msgpack_lite.unpackb(base64.b64decode(value))
+        if not isinstance(frame, dict) or not isinstance(
+                frame.get("i", {}), dict):
+            raise TypeError("load frame is not a map")
+    except Exception as e:  # base64 and the decoder raise their own types
+        raise ValueError(f"malformed load frame: {e}") from None
+    frame.setdefault("i", {})
+    frame.setdefault("g", {})
+    return frame
