@@ -249,15 +249,33 @@ Phases (any failure exits non-zero before the result line):
    in the master's index and routed by CAR to the agent holding them, its
    prefix hits up by two and kernel 2 launched; chats streamed and whole
    (the same text, usage and tokens); ``/v1/models``, ``/hello`` and the
-   master's ``/metrics`` families; one agent killed (its lease left to
+   master's ``/metrics`` families; several masters: (f) a second master
+   as ``python -m xllm_service_tpu_torch.master --load-balance-policy
+   SLO_AWARE``, a replica whose load view holds both agents ACTIVE, and
+   four of phase 4's requests (streamed and whole, ``ownership_key``s by
+   rendezvous) each sent to the frontend that does not own it: phase 4's
+   tokens, the handoff counters of both masters; (g) that master SIGKILLed
+   after MASTER_KILL_AFTER frames of a relayed 64-token stream: the stream
+   completes through the survivor with phase 4's tokens and exactly the
+   successor's frames, a ``handoff_recovery`` record names the successor,
+   and the agents whose telemetry it owned pass over without SUSPECT;
+   (h) a second master in this process, then the elected one stopped
+   with no drain: the survivor holds ``XLLM:SERVICE:MASTER`` within the
+   lease TTL plus one sync and serves phase 4's tokens, and is the master
+   of the rest of the phase; one agent killed (its lease left to
    lapse): LEASE_LOST or SUSPECT, evicted at the default timeouts, the
    next requests on the survivor, which the master then drains; a
    PREFILL and a DECODE agent at MASTER_PD_LAYERS layers (``depth_view``)
    linked by the master, every handoff on the host path (one process:
    the device path is between processes, 4i), kernels 4 and 5 once a
-   handoff, the streams equal to an in-process MIX engine's. Client TTFT
-   and inter-token latency (p50, p99) and the master's hot-path stages
-   are information;
+   handoff, the streams equal to an in-process MIX engine's; (i) a master
+   process at SLO_AWARE routes that pair (the same streams, kernels 4 and
+   5 once a handoff), and a flip hint posted to it (a replica) reaches
+   the elected master, which flips the prefill agent to DECODE (its
+   registration moves) and back, and the next PD request streams equal.
+   Client TTFT and inter-token latency (p50, p99), the relay's added
+   TTFT, the client's gap at the owner's death, the seconds to takeover
+   and the master's hot-path stages are information;
 4m. MoE and MLA at full width and depth, phase 4's weights freed first:
    (a) one MoE layer at Mixtral-8x7B's width (eight experts of 14336,
    top 2), 16 tokens, bf16 and int8: the dense dispatch against an
@@ -6500,7 +6518,62 @@ def pd_pair_run(pre, child, master, store, requests, probe, body):
             (offered.get(probe), after["digests"].get(probe)), dl, reg_s)
 
 
-def mla_pd_leg(engine_mod, moe, card):
+def decode_plane(head, model_args, cfg, log_name):
+    """A PD leg's store, coordination server, stub master (holding
+    ``XLLM:SERVICE:MASTER``) and ``DecodeChild`` (``head``, the agent's
+    ``model_args`` and ``cfg``'s engine sizes), made ahead of the leg so
+    the child's start overlaps the legs before it. Returns (store, coord,
+    master, child); ``close_plane`` closes them."""
+    from xllm_service_tpu_torch.coordination.memory import (
+        InMemoryCoordination,
+        MemoryStore,
+    )
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    store = MemoryStore()
+    coord = CoordServer(store)
+    master = StubMaster()
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    child = DecodeChild(
+        head, [*model_args, "--num-pages", str(cfg.num_pages),
+               "--page-size", str(cfg.page_size),
+               "--max-batch-size", str(cfg.max_batch_size),
+               "--max-seq-len", str(cfg.max_seq_len),
+               "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
+        log_name)
+    return store, coord, master, child
+
+
+def close_plane(plane):
+    store, coord, master, child = plane
+    child.close()
+    master.close()
+    coord.close()
+    store.close()
+
+
+def tp_decode_plane(cfg, axes, log_name):
+    """4o (f)'s (``axes`` "2") or 4q (e)'s ("seq=2,model=2") plane: a
+    Llama-3-8B DECODE agent on that mesh of this card repeated."""
+    return decode_plane(["--tp-decode-agent", axes, TP_PROBE],
+                        ["--model-config", "llama3_8b", "--model-id",
+                         "llama3-8b", "--tp", "2"], cfg, log_name)
+
+
+def mla_pd_plane(moe):
+    """4m (h)'s configuration and plane (DeepSeek-V2-Lite at
+    MLA_PD_LAYERS layers). Returns (cfg, plane)."""
+    from dataclasses import replace
+
+    mcfg = replace(moe.deepseek_v2_lite_config(), num_layers=MLA_PD_LAYERS)
+    cfg = engine_config_4j(mcfg, num_pages=512, max_seq_len=2048)
+    return cfg, decode_plane(
+        ["--mla-decode-agent", str(MLA_PD_LAYERS), MLA_PD_PROBE],
+        ["--model-config", "tiny", "--model-id", "deepseek-v2-lite"], cfg,
+        "phase4m_decode_agent.log")
+
+
+def mla_pd_leg(engine_mod, moe, card, cfg_plane):
     """4m (h): a PREFILL agent here and a DECODE agent in a second process
     (``--mla-decode-agent``), both DeepSeek-V2-Lite at full width cut to
     MLA_PD_LAYERS layers (layer 0 dense, then MoE), bf16, weights drawn
@@ -6511,20 +6584,18 @@ def mla_pd_leg(engine_mod, moe, card):
     bit equal to the plain gather, kernel 5 once a handoff there, the
     probe request's installed pages equal to its extracted buffer bit for
     bit, and the tokens against an in-process MIX engine on the same
-    weights (``held_to``). Returns the launches of kernels 4 and 5."""
-    from dataclasses import replace
-
+    weights (``held_to``). ``cfg_plane`` is ``mla_pd_plane``'s; the leg
+    closes the plane. Returns the launches of kernels 4 and 5."""
     from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
-        MemoryStore,
     )
     from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
     from xllm_service_tpu_torch.ops import page_dma
-    from xllm_service_tpu_torch.rpc import MASTER_KEY
 
-    mcfg = replace(moe.deepseek_v2_lite_config(), num_layers=MLA_PD_LAYERS)
-    cfg = engine_config_4j(mcfg, num_pages=512, max_seq_len=2048)
+    cfg, plane = cfg_plane
+    store, coord, master, child = plane
+    mcfg = cfg.model
     params = moe.init_params(mcfg, torch.Generator(device="cuda")
                              .manual_seed(cfg.seed), "cuda")
     rng = np.random.default_rng(71)
@@ -6533,17 +6604,6 @@ def mla_pd_leg(engine_mod, moe, card):
                for i, n in enumerate([640, 200, 700, 96])}
     shared = {f"s{j}": prompts["g0"][:512] + rng.integers(3, V, size=int(n))
               .tolist() for j, n in enumerate([80, 150])}
-    store = MemoryStore()
-    coord = CoordServer(store)
-    master = StubMaster()
-    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
-    child = DecodeChild(
-        ["--mla-decode-agent", str(MLA_PD_LAYERS), MLA_PD_PROBE],
-        ["--model-config", "tiny", "--model-id", "deepseek-v2-lite",
-         "--num-pages", str(cfg.num_pages), "--page-size",
-         str(cfg.page_size), "--max-batch-size", str(cfg.max_batch_size),
-         "--max-seq-len", str(cfg.max_seq_len), "--decode-horizon",
-         str(cfg.decode_horizon)], coord.addr, "phase4m_decode_agent.log")
     pre = None
     try:
         # The reference streams while the decode agent starts.
@@ -6582,12 +6642,9 @@ def mla_pd_leg(engine_mod, moe, card):
         log(f"  the decode agent's log, last lines:\n{child.tail()}")
         raise
     finally:
-        child.close()
         if pre is not None:
             pre.stop()
-        master.close()
-        coord.close()
-        store.close()
+        close_plane(plane)
         del pre, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -6657,21 +6714,27 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
                            attention, kernels[:3], card)
     mesh_cfg, mesh_params = depth_view(dcfg, dparams, MOE_MESH_LAYERS)
     tag = f"deepseek-v2-lite bf16 at {MOE_MESH_LAYERS} layers"
-    *_, d_one = leg("(e)", moe_seq_leg, engine_mod, deepseek_moe,
-                    attention, kernels, mesh_cfg, mesh_params, f"(e) {tag}",
-                    61, card)
-    log(f"[4o] (e) {tag} on expert=2 x model=2, (c)'s weights:")
-    leg("4o (e)", ep_leg, engine_mod, deepseek_moe, attention, kernels,
-        mesh_cfg, mesh_params, f"4o (e) {tag}", d_one, card)
-    del mesh_params
-    log("  (g) deepseek-v2-lite bf16 through the KV tiers:")
-    g4, g5 = leg("(g)", tier_phase, engine_mod, dcfg, dparams, page_dma,
-                 card)
-    leg("(j)", kvtier_twin, dparams, card)
+    # (h)'s decode agent starts now: its start overlaps (e) to (j).
+    plane = mla_pd_plane(deepseek_moe)
+    try:
+        *_, d_one = leg("(e)", moe_seq_leg, engine_mod, deepseek_moe,
+                        attention, kernels, mesh_cfg, mesh_params,
+                        f"(e) {tag}", 61, card)
+        log(f"[4o] (e) {tag} on expert=2 x model=2, (c)'s weights:")
+        leg("4o (e)", ep_leg, engine_mod, deepseek_moe, attention, kernels,
+            mesh_cfg, mesh_params, f"4o (e) {tag}", d_one, card)
+        del mesh_params
+        log("  (g) deepseek-v2-lite bf16 through the KV tiers:")
+        g4, g5 = leg("(g)", tier_phase, engine_mod, dcfg, dparams,
+                     page_dma, card)
+        leg("(j)", kvtier_twin, dparams, card)
+    except BaseException:
+        close_plane(plane[1])
+        raise
     del dparams
     gc.collect()
     torch.cuda.empty_cache()
-    h4, h5 = leg("(h)", mla_pd_leg, engine_mod, deepseek_moe, card)
+    h4, h5 = leg("(h)", mla_pd_leg, engine_mod, deepseek_moe, card, plane)
     moe_bench_twin(card)
     return dict(paged=k1 + f1 + i1, mq=k2 + f2 + i2, partial=k6,
                 gather=g4 + h4, scatter=g5 + h5, mla_gather=g4 + h4,
@@ -6681,8 +6744,9 @@ def moe_phase(engine_mod, attention, page_dma, kernels, card):
 # --------------------------------------------------------------- phase 4o
 # The tensor, expert and data axes in one process, on meshes of the cards
 # round robin (the one card repeated, phase 4c's way). The legs are eager
-# and carry at most six requests of TP_NEW tokens.
-TP_NEW = 16
+# and carry at most six requests of TP_NEW tokens (8: the script's time
+# went to phase 4s's several masters).
+TP_NEW = 8
 # Llama-3-70B int8's pool: 512 pages of 16 tokens at 327,680 bytes a token
 # (80 layers x K and V x 8 heads x 128 x bf16), 2.68 GB.
 TP70_PAGES = 512
@@ -6913,7 +6977,8 @@ def pd_host_pair(pre, dec, master, requests):
     return {n: check_deltas(n, master.gens[n], dec)[0] for n in requests}
 
 
-def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card):
+def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card,
+              plane):
     """4o (f): PD pairs of Llama-3-8B bf16 at full depth. A ``model=2``
     PREFILL agent here, handed its mesh as ``InferenceEngine`` takes one,
     and a ``model=2`` DECODE agent in a second process
@@ -6924,35 +6989,22 @@ def tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card):
     same PREFILL agent and an unmeshed DECODE agent of this process: the
     meshes differ, so every handoff rides the host path (the reference's
     topology rule). Both pairs' streams are held to an in-process MIX
-    engine's on ``model=2`` (``held_to``). Returns the launches of kernels
-    4 and 5."""
+    engine's on ``model=2`` (``held_to``). ``plane`` is
+    ``tp_decode_plane``'s, which the leg closes. Returns the launches of
+    kernels 4 and 5."""
     from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
-        MemoryStore,
     )
     from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
     from xllm_service_tpu_torch.ops import page_dma
-    from xllm_service_tpu_torch.rpc import MASTER_KEY
 
     mesh = card_mesh(model=2)
     reqs, hits = tp_traffic(prompts, shared)
     sent = {**reqs, **hits}
     greedy = dict(max_tokens=TP_NEW, temperature=0.0, ignore_eos=True)
     requests = {n: dict(token_ids=p, **greedy) for n, p in sent.items()}
-    store = MemoryStore()
-    coord = CoordServer(store)
-    master = StubMaster()
-    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
-    child = DecodeChild(
-        ["--tp-decode-agent", "2", TP_PROBE],
-        ["--model-config", "llama3_8b", "--model-id", "llama3-8b",
-         "--tp", "2", "--num-pages", str(cfg.num_pages),
-         "--page-size", str(cfg.page_size),
-         "--max-batch-size", str(cfg.max_batch_size),
-         "--max-seq-len", str(cfg.max_seq_len),
-         "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
-        "phase4o_decode_agent.log")
+    store, coord, master, child = plane
     pre = dec = None
     try:
         # The reference streams while the decode agent starts.
@@ -7667,7 +7719,7 @@ MH_NEW = {"a": 32, "c": 16, "d": 16}     # tokens a stream, by leg
 MH_TP_LAYERS = 8      # (a): Llama-3-8B cut to these layers
 MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
 MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
-MH_AGENT_NEW = 16     # (b): tokens a completion
+MH_AGENT_NEW = 8      # (b): tokens a completion
 MH_WORLD = {"a": 2, "c": 4, "d": 2}
 MH_AXES = {"a": dict(model=2), "c": dict(expert=2, model=2),
            "d": dict(seq=2)}
@@ -8296,7 +8348,7 @@ def mh_phase(engine_mod, llama, moe, card):
 
 
 # ---------------------------------------------------------------- phase 4q
-GRID_NEW = 16         # tokens a stream in 4q (a)
+GRID_NEW = 8          # tokens a stream in 4q (a)
 
 
 def grid_serve(engine_mod, cfg, params, mesh, prompts, shared, sampled,
@@ -8492,7 +8544,7 @@ def grid_ranks_leg(engine_mod, card):
 
 
 def grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod, kernels,
-                card):
+                card, plane):
     """4q (e): a PD pair of Llama-3-8B bf16 at full depth on the
     page-and-head grid. A ``seq=2 x model=2`` PREFILL agent here (phase
     4's weights as views, handed its mesh as ``InferenceEngine`` takes
@@ -8505,16 +8557,15 @@ def grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod, kernels,
     kernel 5 once a model shard there; the probe request's installed pages
     equal to its extracted block; the decode side's steps through kernel
     6; the streams held to an in-process MIX engine on the grid
-    (``held_to``). Returns the launches of kernels 2, 4, 5 and 6 (the
+    (``held_to``). ``plane`` is ``tp_decode_plane``'s, which the leg
+    closes. Returns the launches of kernels 2, 4, 5 and 6 (the
     in-process engine's and the pair's, both processes)."""
     from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
-        MemoryStore,
     )
     from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
     from xllm_service_tpu_torch.ops import page_dma
-    from xllm_service_tpu_torch.rpc import MASTER_KEY
 
     paged, mq, fused, partial = kernels
     mesh = card_mesh(seq=2, model=2)
@@ -8522,19 +8573,7 @@ def grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod, kernels,
     sent = {**reqs, **hits}
     greedy = dict(max_tokens=TP_NEW, temperature=0.0, ignore_eos=True)
     requests = {n: dict(token_ids=p, **greedy) for n, p in sent.items()}
-    store = MemoryStore()
-    coord = CoordServer(store)
-    master = StubMaster()
-    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
-    child = DecodeChild(
-        ["--tp-decode-agent", "seq=2,model=2", TP_PROBE],
-        ["--model-config", "llama3_8b", "--model-id", "llama3-8b",
-         "--tp", "2", "--num-pages", str(cfg.num_pages),
-         "--page-size", str(cfg.page_size),
-         "--max-batch-size", str(cfg.max_batch_size),
-         "--max-seq-len", str(cfg.max_seq_len),
-         "--decode-horizon", str(cfg.decode_horizon)], coord.addr,
-        "phase4q_decode_agent.log")
+    store, coord, master, child = plane
     pre = None
     try:
         # The reference streams while the decode agent starts.
@@ -8613,20 +8652,27 @@ def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
     ``pd_gather`` and ``pd_scatter`` at (e)'s handoffs."""
     out = {}
     t = time.monotonic()
-    (mq_a, k6_a), mesh = grid_leg(engine_mod, llama, cfg, params, prompts,
-                                  shared, sampled, phase4, kernels, card)
-    log(f"  (a): {time.monotonic() - t:.1f} s")
-    t = time.monotonic()
-    log("  (c) phase 4a's tier round trip on (a)'s grid pool:")
-    c = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=mesh)
-    assert c[0] % 2 == 0 and c[1] % 2 == 0, \
-        "a mover did not launch once a model shard"
-    log(f"  (c): {time.monotonic() - t:.1f} s; kernels 4/5 {c} (one launch "
-        "a model shard over both its seq shards, blocks of [32, 2, 8, 4, "
-        "16, 128] a model shard)")
+    # (e)'s decode agent starts now: its start overlaps (a) and (c).
+    plane = tp_decode_plane(cfg, "seq=2,model=2", "phase4q_decode_agent.log")
+    try:
+        (mq_a, k6_a), mesh = grid_leg(engine_mod, llama, cfg, params,
+                                      prompts, shared, sampled, phase4,
+                                      kernels, card)
+        log(f"  (a): {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        log("  (c) phase 4a's tier round trip on (a)'s grid pool:")
+        c = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=mesh)
+        assert c[0] % 2 == 0 and c[1] % 2 == 0, \
+            "a mover did not launch once a model shard"
+        log(f"  (c): {time.monotonic() - t:.1f} s; kernels 4/5 {c} (one "
+            "launch a model shard over both its seq shards, blocks of [32, "
+            "2, 8, 4, 16, 128] a model shard)")
+    except BaseException:
+        close_plane(plane)
+        raise
     t = time.monotonic()
     e = grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod,
-                    kernels, card)
+                    kernels, card, plane)
     log(f"  (e): {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     mq_b, k6_b = grid_moe_leg(engine_mod, moe, kernels, card)
@@ -9015,14 +9061,17 @@ MASTER_NEW = 64        # 4s (a): tokens of phase 4's requests (phase 4's)
 MASTER_AFTER_NEW = 16  # 4s (d): tokens of each request after the death
 MASTER_PD_LAYERS = 8   # 4s (e): Llama-3-8B cut to these layers for PD
 MASTER_PD_NEW = 16     # 4s (e): tokens of each request of the PD pair
+MASTER_TTFT_NEW = 4    # 4s (f): tokens of each request that times TTFT
+MASTER_KILL_AFTER = 2  # 4s (g): frames the client takes before the kill
 
 
 class MasterCall:
     """One request to the master's HTTP port on ``http.client``, read as
     it arrives: ``status``, ``headers``, the ``body`` bytes and, for a
-    stream, each SSE frame with its arrival time (``frames``)."""
+    stream, each SSE frame with its arrival time (``frames``). ``hook``
+    runs once, after ``after`` frames of a stream."""
 
-    def __init__(self, port, path, body, stream=False):
+    def __init__(self, port, path, body, stream=False, hook=None, after=0):
         import http.client
 
         self.t_send = time.monotonic()
@@ -9048,6 +9097,9 @@ class MasterCall:
                 while b"\n\n" in buf:
                     frame, buf = buf.split(b"\n\n", 1)
                     self.frames.append((now, frame))
+                    if hook is not None and len(self.frames) >= after:
+                        hook()
+                        hook = None
             assert not buf, f"a partial SSE frame at the end: {buf[:80]!r}"
             self.body = b"".join(f + b"\n\n" for _, f in self.frames)
         finally:
@@ -9082,9 +9134,10 @@ class MasterCall:
         return ts
 
 
-def record_tokens(agents):
+def record_tokens(agents, by_dest=None):
     """Token ids each agent's streamer pushes, by service request id, and
-    which agent pushed them."""
+    which agent pushed them; with a ``by_dest`` dict, also by (service
+    request id, destination master)."""
     toks: dict = {}
     served: dict = {}
     for i, agent in enumerate(agents):
@@ -9095,6 +9148,9 @@ def record_tokens(agents):
             for o in out.outputs:
                 toks.setdefault(out.service_request_id, []).extend(
                     o.token_ids)
+                if by_dest is not None:
+                    by_dest.setdefault((out.service_request_id, dest),
+                                       []).extend(o.token_ids)
             push(dest, out)
         agent.streamer.push = recording
     return toks, served
@@ -9115,6 +9171,457 @@ def check_sse(call, name, n_new):
     return ev
 
 
+class MasterProcess:
+    """``python -m xllm_service_tpu_torch.master`` on the coordination
+    server at ``coord_addr``, beside this process's master (a process, so
+    SIGKILL-able as a master is in a deployment), its log under
+    ``build/``."""
+
+    def __init__(self, coord_addr, log_name, *extra, rpc_port=0):
+        import subprocess
+
+        from xllm_service_tpu_torch.common.net import pick_free_port
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        self.log_path = os.path.join(root, "build", log_name)
+        self.http_port = pick_free_port("127.0.0.1")
+        self.rpc_port = rpc_port or pick_free_port("127.0.0.1")
+        self.addr = f"127.0.0.1:{self.rpc_port}"
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "xllm_service_tpu_torch.master",
+             "--host", "127.0.0.1", "--http-port", str(self.http_port),
+             "--rpc-port", str(self.rpc_port),
+             "--coordination-addr", coord_addr, *extra],
+            cwd=root, stdout=open(self.log_path, "w"),
+            stderr=subprocess.STDOUT)
+
+    def tail(self):
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def metrics(self):
+        """The master's ``/metrics`` text, or None while it is not up."""
+        assert self.proc.poll() is None, \
+            f"master {self.addr} exited:\n{self.tail()}"
+        try:
+            c = MasterCall(self.http_port, "/metrics", None)
+        except OSError:
+            return None
+        return c.body.decode() if c.status == 200 else None
+
+    def kill(self):
+        self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def stop(self):
+        """SIGTERM; the exit code."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except Exception:  # noqa: BLE001 — a hung master is killed
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        return self.proc.returncode
+
+
+def prom_value(text, name, **labels):
+    """The sum of the samples of ``name`` whose labels include ``labels``
+    in a Prometheus text (None when there is none)."""
+    total = None
+    for line in (text or "").splitlines():
+        m = re.match(r"^(\w+)(?:\{(.*)\})? (\S+)$", line)
+        if not m or m.group(1) != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2) or ""))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total = (total or 0.0) + float(m.group(3))
+    return total
+
+
+def owned_keys(router, addr, n, prefix):
+    """``n`` ownership keys whose rendezvous owner is ``addr``."""
+    keys = [k for k in (f"{prefix}-{i}" for i in range(20000))
+            if router.owner_of(k) == addr][:n]
+    assert len(keys) == n, f"no {n} keys owned by {addr}"
+    return keys
+
+
+def scrub_frame(frame):
+    """An SSE frame with the random ids and the timestamps dropped."""
+    if frame.rstrip(b"\n") == b"data: [DONE]":
+        return "[DONE]"
+    obj = json.loads(frame.rstrip(b"\n")[6:])
+    return {k: v for k, v in obj.items() if k not in ("id", "created")}
+
+
+def master_greedy(prompt, key, stream, new):
+    body = {"model": "llama3-8b", "prompt": prompt, "max_tokens": new,
+            "temperature": 0.0, "ignore_eos": True, "stream": stream}
+    if key:
+        body["ownership_key"] = key
+    if stream:
+        body["stream_options"] = {"include_usage": True}
+    return body
+
+
+def check_call(c, name, n_new, stream):
+    if stream:
+        check_sse(c, name, n_new)
+    else:
+        assert c.status == 200, (name, c.status, c.body[:200])
+        usage = c.json()["usage"]
+        assert usage["completion_tokens"] == n_new, (name, usage)
+
+
+def relay_leg(master, mix, toks, prompts, want, coord_addr, ttft_a, cmp,
+              card, procs):
+    """4s (f): a second master as a process at SLO_AWARE, a replica; four
+    of phase 4's requests, streamed and whole, each sent to the frontend
+    that does not own it (keys by rendezvous), relayed to its owner.
+    Returns the second master."""
+    from xllm_service_tpu_torch.common.metrics import (
+        HANDOFF_FORWARDED_TOTAL,
+        HANDOFF_SERVED_TOTAL,
+    )
+
+    from xllm_service_tpu_torch.common.net import pick_free_port
+    from xllm_service_tpu_torch.multimaster.ownership import telemetry_owner
+
+    sched, mgr = master.scheduler, master.scheduler.instance_mgr
+    names = [a.name for a in mix]
+    # B's address is drawn until the telemetry shard map gives it one of
+    # the two agents, so that (g)'s handover of ingest is not empty.
+    for _ in range(200):
+        port = pick_free_port("127.0.0.1")
+        owners = [telemetry_owner([sched.self_addr, f"127.0.0.1:{port}"], n)
+                  for n in names]
+        if sorted(owners) == sorted([sched.self_addr, f"127.0.0.1:{port}"]):
+            break
+    t = time.monotonic()
+    b = MasterProcess(coord_addr, "phase4s_master_b.log",
+                      "--load-balance-policy", "SLO_AWARE", rpc_port=port)
+    procs.append(b)
+
+    def b_sees_both():
+        text = b.metrics()
+        return text is not None and \
+            prom_value(text, "fleet_size", role="prefill") == 2 and \
+            prom_value(text, "fleet_size", role="decode") == 2 and \
+            all((prom_value(text, "loadinfo_age_seconds", instance=n)
+                 or -1) >= 0 for n in names)
+    wait_for(b_sees_both, "master B's load view of both agents", timeout=90)
+    wait_for(lambda: set(sched.ownership.members())
+             == {sched.self_addr, b.addr}, "the two masters' membership",
+             timeout=60)
+    hello = MasterCall(b.http_port, "/hello", None).json()
+    assert hello == {"status": "ok", "master": False}, hello
+    assert sched.is_master
+    states = [mgr.get_instance_state(n).name for n in names]
+    assert states == ["ACTIVE", "ACTIVE"], states
+    log(f"  (f) master B {b.addr} (python -m, --load-balance-policy "
+        f"SLO_AWARE) up as a replica in {time.monotonic() - t:.1f} s; both "
+        "frontends' load views hold both agents ACTIVE")
+
+    fwd0, srv0 = HANDOFF_FORWARDED_TOTAL.value(), HANDOFF_SERVED_TOTAL.value()
+    text0 = b.metrics()
+    bf0 = prom_value(text0, "handoff_forwarded_total") or 0.0
+    bs0 = prom_value(text0, "handoff_served_total") or 0.0
+    to_b = owned_keys(sched.ownership, b.addr, 5, "4s-f")
+    to_a = owned_keys(sched.ownership, sched.self_addr, 5, "4s-f")
+    plan = [("g1", master.http_port, to_b[0], True),
+            ("g2", master.http_port, to_b[1], False),
+            ("g3", b.http_port, to_a[0], True),
+            ("g4", b.http_port, to_a[1], False)]
+    calls = {}
+
+    def send(n, port, key, stream):
+        calls[n] = MasterCall(port, "/v1/completions", master_greedy(
+            prompts[int(n[1:])], key, stream, MASTER_NEW), stream)
+    threads = [threading.Thread(target=send, args=p) for p in plan]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    got = {}
+    for n, _, _, stream in plan:
+        check_call(calls[n], n, MASTER_NEW, stream)
+        got[n] = toks[calls[n].headers["x-request-id"]]
+    ctx = {n: prompts[int(n[1:])] for n in got}
+    cmp(ctx, got, {n: want[n] for n in got}, "4s (f) relayed requests")
+    text1 = b.metrics()
+    counts = (HANDOFF_FORWARDED_TOTAL.value() - fwd0,
+              HANDOFF_SERVED_TOTAL.value() - srv0,
+              (prom_value(text1, "handoff_forwarded_total") or 0.0) - bf0,
+              (prom_value(text1, "handoff_served_total") or 0.0) - bs0)
+    assert counts == (2, 2, 2, 2), \
+        f"handoffs forwarded/served on A, forwarded/served on B: {counts}"
+    log("  (f) g1-g4 relayed to their owners (A->B streamed and whole, "
+        "B->A streamed and whole): greedy tokens equal to phase 4's; "
+        f"forwarded/served A {counts[0]:.0f}/{counts[1]:.0f}, B "
+        f"{counts[2]:.0f}/{counts[3]:.0f}")
+
+    # The relay's added TTFT: the same cached prompts through A, owned by
+    # A and then owned by B, one at a time.
+    ttft = {"direct": [], "relayed": []}
+    for i, n in enumerate(("g5", "g6", "g7")):
+        for kind, key in (("direct", to_a[2 + i]), ("relayed", to_b[2 + i])):
+            c = MasterCall(master.http_port, "/v1/completions", master_greedy(
+                prompts[int(n[1:])], key, True, MASTER_TTFT_NEW), True)
+            check_sse(c, f"{n} {kind}", MASTER_TTFT_NEW)
+            ttft[kind].append((c.content_times()[0] - c.t_send) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ttft.items()}
+    batch = [(calls[n].content_times()[0] - calls[n].t_send) * 1e3
+             for n in ("g1", "g3")]
+    log(f"  (f) TTFT ms through A, one request at a time on cached prompts: "
+        f"relayed p50 {med['relayed']:.1f} vs owned p50 {med['direct']:.1f} "
+        f"(the relay adds {med['relayed'] - med['direct']:.1f}); the two "
+        f"relayed streams of the batch {batch[0]:.1f}, {batch[1]:.1f} "
+        f"against 4s (a)'s p50 {ttft_a:.1f} (information only; {card})")
+    return b
+
+
+def owner_death_leg(master, b, mix, by_dest, prompts, want, cmp, card):
+    """4s (g): a relayed 64-token stream accepted by A and owned by B; B
+    SIGKILLed after MASTER_KILL_AFTER frames. The stream completes
+    through A with phase 4's tokens and exactly the successor's frames; a
+    ``handoff_recovery`` record names A; the agents whose telemetry B
+    owned pass to A without a SUSPECT transition."""
+    from xllm_service_tpu_torch.common.flightrecorder import RECORDER
+    from xllm_service_tpu_torch.common.metrics import HANDOFF_RECOVERIES_TOTAL
+
+    sched, mgr = master.scheduler, master.scheduler.instance_mgr
+    names = [a.name for a in mix]
+    owned_b = [n for n in names if not mgr.owns_telemetry(n)]
+    assert owned_b, "master B owns no agent's telemetry"
+    key = owned_keys(sched.ownership, b.addr, 1, "4s-g")[0]
+    states = {n: [] for n in names}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for n in names:
+                st = mgr.get_instance_state(n)
+                st = st.name if st is not None else "GONE"
+                if not states[n] or states[n][-1] != st:
+                    states[n].append(st)
+            time.sleep(0.02)
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    rec0 = HANDOFF_RECOVERIES_TOTAL.value()
+    killed = []
+
+    def kill():
+        killed.append(time.monotonic())
+        b.kill()
+    try:
+        c = MasterCall(master.http_port, "/v1/completions", master_greedy(
+            prompts[5], key, True, MASTER_NEW), True,
+            hook=kill, after=MASTER_KILL_AFTER)
+        check_sse(c, "g5 (g)", MASTER_NEW)
+        assert killed, "the stream ended before the owner's death"
+        sid = c.headers["x-request-id"]
+        got = by_dest.get((sid, sched.self_addr), [])
+        cmp({"g5": prompts[5]}, {"g5": got}, {"g5": want["g5"]},
+            "4s (g) the successor's stream")
+        entry = master.service._journal.get(sid)
+        assert entry is not None and entry.finished, \
+            "the successor kept no journal of the re-owned stream"
+        client = [scrub_frame(f) for _, f in c.frames]
+        succ = [scrub_frame(f) for f in entry.frames]
+        assert client == succ, \
+            f"client frames {len(client)} vs the successor's {len(succ)}"
+        recs = [r["detail"] for r in RECORDER.recent(
+            limit=50, kind="handoff_recovery") if r["request_id"] == sid]
+        assert recs and recs[-1]["successor"] == sched.self_addr and \
+            recs[-1]["dead_owner"] == b.addr, recs
+        assert HANDOFF_RECOVERIES_TOTAL.value() - rec0 >= 1
+        ts = [t for t, _ in c.frames]
+        k = MASTER_KILL_AFTER
+        gap = (ts[k] - ts[k - 1]) * 1e3
+        # Frame gaps after the resumption, the usage and [DONE] left out.
+        steady = sorted((y - x) * 1e3
+                        for x, y in zip(ts[k:-3], ts[k + 1:-2]))
+        t = time.monotonic()
+        wait_for(lambda: all(mgr.owns_telemetry(n) for n in names),
+                 "A's telemetry ownership of every agent", timeout=60)
+        wait_for(lambda: all(0 <= mgr.load_info_ages_s().get(n, -1) < 2.5
+                             for n in names),
+                 "fresh telemetry of every agent at A", timeout=30)
+    finally:
+        stop.set()
+        watcher.join(timeout=5)
+    suspect = {n: s for n, s in states.items() if "SUSPECT" in s
+               or s[-1] != "ACTIVE"}
+    assert not suspect, f"states during the handoff: {states}"
+    log(f"  (g) owner B SIGKILLed after {k} frames of a relayed "
+        f"{MASTER_NEW}-token stream: completed through A, {len(client)} "
+        f"frames equal to the successor's, tokens equal to phase 4's; "
+        f"handoff_recovery names {recs[-1]['successor']}; the client's gap "
+        f"at the death {gap:.1f} ms (frame gaps after it p50 "
+        f"{steady[len(steady) // 2] if steady else 0:.1f} ms); agents B "
+        f"owned {owned_b} ingested by A {time.monotonic() - t:.1f} s after "
+        f"the stream, states {states} ({card})")
+
+
+def takeover_leg(master, coord_addr, mix, toks, prompts, want, cmp, card):
+    """4s (h): a second master in this process (a replica) beside A; A
+    stopped with no drain (its sockets reset, its coordination client
+    closed, its lease left to lapse). The survivor must hold
+    ``XLLM:SERVICE:MASTER`` within the lease TTL plus one sync, and serve
+    phase 4's requests with phase 4's tokens. Returns the survivor (A is
+    then marked ``_killed``)."""
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.master import Master
+
+    names = [a.name for a in mix]
+    a2 = Master(ServiceOptions(host="127.0.0.1", http_port=0, rpc_port=0,
+                               coordination_addr=coord_addr))
+    a2.start()
+    try:
+        return _takeover(master, a2, coord_addr, names, toks, prompts, want,
+                         cmp, card)
+    except BaseException:
+        a2.stop()
+        raise
+
+
+def _takeover(master, a2, coord_addr, names, toks, prompts, want, cmp,
+              card):
+    from xllm_service_tpu_torch.coordination.client import (
+        TcpCoordinationClient,
+    )
+    from xllm_service_tpu_torch.rpc import MASTER_KEY
+
+    s2 = a2.scheduler
+    wait_for(lambda: not s2.is_master and all(
+        s2.instance_mgr.get_instance_meta(n) for n in names)
+        and set(s2.ownership.members())
+        == {s2.self_addr, master.scheduler.self_addr},
+        "the second in-process master's view", timeout=60)
+    watch = TcpCoordinationClient(coord_addr)
+    try:
+        opts = master.scheduler._opts
+        limit = opts.lease_ttl_s + opts.sync_interval_s
+        t0 = time.monotonic()
+        reaper = master.kill()
+        master._killed = True
+        wait_for(lambda: watch.get(MASTER_KEY) == s2.self_addr
+                 and s2.is_master, "the survivor's takeover", timeout=60)
+        took = time.monotonic() - t0
+        reaper.join(timeout=30)
+    finally:
+        watch.close()
+    assert took <= limit, \
+        f"takeover in {took:.2f} s, beyond the lease TTL plus a sync {limit}"
+    calls = {}
+
+    def send(n):
+        calls[n] = MasterCall(a2.http_port, "/v1/completions", master_greedy(
+            prompts[int(n[1:])], None, n == "g6", MASTER_NEW), n == "g6")
+    threads = [threading.Thread(target=send, args=(n,)) for n in ("g6", "g7")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    got = {}
+    for n, c in calls.items():
+        check_call(c, n, MASTER_NEW, n == "g6")
+        got[n] = toks[c.headers["x-request-id"]]
+    cmp({n: prompts[int(n[1:])] for n in got}, got,
+        {n: want[n] for n in got}, "4s (h) after the takeover")
+    log(f"  (h) A stopped with no drain: {s2.self_addr} held "
+        f"{MASTER_KEY} after {took:.2f} s (limit: lease TTL "
+        f"{opts.lease_ttl_s} s + sync {opts.sync_interval_s} s); g6, g7 "
+        f"through it equal to phase 4's ({card})")
+    return a2
+
+
+def slo_flip_leg(master, coord_addr, pre, dec, pd_toks, pd_served, prompts,
+                 want_pd, page_dma, cmp, check_launches, card, procs):
+    """4s (i): a master process at SLO_AWARE (a replica) routes the PD
+    pair; a flip hint posted to it reaches the elected master, which flips
+    the prefill agent to DECODE and back; the next PD request streams as
+    before. Returns the launches of kernels 4 and 5."""
+    from xllm_service_tpu_torch.common.types import InstanceType
+    from xllm_service_tpu_torch.rpc import instance_key
+
+    sched, mgr = master.scheduler, master.scheduler.instance_mgr
+    t = time.monotonic()
+    c_proc = MasterProcess(coord_addr, "phase4s_master_c.log",
+                           "--load-balance-policy", "SLO_AWARE")
+    procs.append(c_proc)
+
+    def pair_seen():
+        text = c_proc.metrics()
+        return text is not None and \
+            prom_value(text, "fleet_size", role="prefill") == 1 and \
+            prom_value(text, "fleet_size", role="decode") == 1
+    wait_for(pair_seen, "master C's view of the PD pair", timeout=90)
+    wait_for(lambda: c_proc.addr in sched.ownership.members(),
+             "master C in the membership", timeout=60)
+    keys = owned_keys(sched.ownership, c_proc.addr, 5, "4s-i")
+    log(f"  (i) master C {c_proc.addr} (python -m, SLO_AWARE, a "
+        f"replica) up in {time.monotonic() - t:.1f} s")
+
+    def run(names, first):
+        reset_counts()
+        got = {}
+        for i, n in enumerate(names):
+            stream = (first + i) % 2 == 1
+            call = MasterCall(c_proc.http_port, "/v1/completions",
+                              master_greedy(prompts[int(n[1:])],
+                                            keys[first + i], stream,
+                                            MASTER_PD_NEW), stream)
+            check_call(call, n, MASTER_PD_NEW, stream)
+            sid = call.headers["x-request-id"]
+            assert pd_served[sid] == 1, f"{n} not streamed by decode"
+            got[n] = pd_toks[sid]
+        g4 = page_dma.gather_kv_pages.launches
+        g5 = page_dma.scatter_kv_pages.launches
+        if check_launches:
+            assert g4 == g5 == len(names), \
+                f"kernels 4/5 {g4}/{g5} for {len(names)} handoffs"
+        cmp({n: prompts[int(n[1:])] for n in got}, got,
+            {n: want_pd[n] for n in got}, f"4s (i) {names}")
+        return g4, g5
+    k1 = run(["g0", "g1", "g2", "g3"], 0)
+    log(f"  (i) g0-g3 routed by C's SLO_AWARE policy over the pair: "
+        f"streams equal to the in-process MIX engine's, kernels 4/5 "
+        f"{k1[0]}/{k1[1]}")
+
+    def flip(to):
+        t_ = time.monotonic()
+        hint = MasterCall(c_proc.rpc_port, "/rpc/flip_hint",
+                          {"name": pre.name, "type": to})
+        assert (hint.status, hint.json()) == (
+            200, {"ok": True, "master": False}), hint.body
+        want_t = InstanceType.parse(to)
+        other = "PREFILL" if to == "DECODE" else "DECODE"
+        wait_for(lambda: (m := mgr.get_instance_meta(pre.name))
+                 is not None and m.type == want_t
+                 and pre.instance_type == want_t
+                 and sched._coord.get(instance_key(to, pre.name))
+                 and not sched._coord.get(instance_key(other, pre.name)),
+                 f"the flip of {pre.name} to {to}", timeout=60)
+        return time.monotonic() - t_
+    to_d = flip("DECODE")
+    to_p = flip("PREFILL")
+    wait_for(lambda: pre.name in dec.linked_peers
+             and dec.name in pre.linked_peers and pair_seen(),
+             "the pair linked again", timeout=60)
+    log(f"  (i) flip hints posted to replica C, enacted by the elected "
+        f"master {sched.self_addr}: {pre.name} PREFILL -> DECODE in "
+        f"{to_d:.2f} s (its registration moved), back in {to_p:.2f} s")
+    k2 = run(["g4"], 4)
+    log(f"  (i) g4 after the flips: equal, kernels 4/5 {k2[0]}/{k2[1]}")
+    procs.remove(c_proc)
+    rc = c_proc.stop()
+    assert rc in (0, -15), f"master C exited {rc}:\n{c_proc.tail()}"
+    return k1[0] + k2[0], k1[1] + k2[1]
+
+
 def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                  sampled_prompt, want, kernels, card, device="cuda",
                  pd_layers=MASTER_PD_LAYERS, check_launches=True):
@@ -9129,15 +9636,18 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
     index: routed by CAR to the agent holding them, its prefix hits up
     by two, kernel 2 launched; (b) chats streamed and whole (the same
     text); (c) ``/v1/models``, ``/hello``, the master's ``/metrics``
-    families; (d) one agent killed (its lease left to lapse): the master
-    evicts it and the next requests complete on the survivor; (e) a
-    PREFILL and a DECODE agent at ``pd_layers`` layers linked by the
-    master, every handoff on the host path (two agents of one process;
-    the device path is between processes, phase 4i): kernel 4 once and
-    kernel 5 once a handoff, the streams held to an in-process MIX engine
-    at that depth. Client TTFT and inter-token latency (p50, p99) and
-    the master's hot-path stages are information. Returns the launches
-    of kernels 1, 2, 4 and 5."""
+    families; several masters: (f) ``relay_leg``, (g) ``owner_death_leg``
+    and (h) ``takeover_leg``, after which the survivor of (h) is the
+    master of the rest; (d) one agent killed (its lease left to lapse):
+    the master evicts it and the next requests complete on the survivor;
+    (e) a PREFILL and a DECODE agent at ``pd_layers`` layers linked by
+    the master, every handoff on the host path (two agents of one
+    process; the device path is between processes, phase 4i): kernel 4
+    once and kernel 5 once a handoff, the streams held to an in-process
+    MIX engine at that depth; (i) ``slo_flip_leg`` over that pair.
+    Client TTFT and inter-token latency (p50, p99) and the master's
+    hot-path stages are information. Returns the launches of kernels 1,
+    2, 4 and 5 in (a), (f)-(h), (e) and (i)."""
     from xllm_service_tpu_torch.common.config import ServiceOptions
     from xllm_service_tpu_torch.common.hotpath import HOTPATH
     from xllm_service_tpu_torch.common.types import InstanceType
@@ -9170,6 +9680,13 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
     mgr, kvm = sched.instance_mgr, sched.kvcache_mgr
     port = master.http_port
     agents: list = []
+    procs: list = []       # master processes of (f) and (i)
+
+    def cmp(ctx, got, want_, what):
+        if device == "cuda":
+            compare_streams(llama, cfg, params, ctx, got, want_, what)
+        else:
+            assert got == want_, what
 
     def start_agent(c, p, itype=InstanceType.MIX, host_path=False):
         a = EngineAgent(c, AgentConfig(
@@ -9193,7 +9710,8 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
         t = time.monotonic()
         mix = [start_agent(cfg, params), start_agent(cfg, params)]
         registered(*(a.name for a in mix))
-        toks, served = record_tokens(mix)
+        by_dest: dict = {}
+        toks, served = record_tokens(mix, by_dest)
         log(f"  two MIX agents {[a.name for a in mix]} registered in "
             f"{time.monotonic() - t:.1f} s")
 
@@ -9346,6 +9864,24 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
         log(f"  (c) /v1/models, /hello and /metrics ({len(fams)} families, "
             f"{float(served_n.group(1)):.0f} completions counted)")
 
+        # (f)-(h): several masters.
+        t = time.monotonic()
+        reset_counts()
+        b = relay_leg(master, mix, toks, prompts, want, addr,
+                      pct(ttft, 50), cmp, card, procs)
+        owner_death_leg(master, b, mix, by_dest, prompts, want, cmp, card)
+        procs.remove(b)
+        master = takeover_leg(master, addr, mix, toks, prompts, want, cmp,
+                              card)
+        sched = master.scheduler
+        mgr, kvm = sched.instance_mgr, sched.kvcache_mgr
+        port = master.http_port
+        fh = [paged_attention.launches, mq_paged_attention.launches]
+        if check_launches:
+            assert fh[0] > 0 and fh[1] > 0, f"kernels 1/2 in (f)-(h): {fh}"
+        log(f"  (f)-(h): {time.monotonic() - t:.1f} s, kernels 1/2 {fh}; "
+            f"the rest of 4s on the survivor {sched.self_addr} ({card})")
+
         # (d) an agent's death.
         victim, survivor = mix[holder], mix[1 - holder]
         t = time.monotonic()
@@ -9437,11 +9973,28 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                             "4s (e) PD pair vs an in-process MIX engine")
         else:
             assert pd_got == want_pd
-        return launches + [g4, g5]
+
+        # (i) SLO_AWARE over the pair, and a flip hint through a replica.
+        t = time.monotonic()
+
+        def cmp_pd(ctx, got, want_, what):
+            if device == "cuda":
+                compare_streams(llama, pd_cfg, pd_params, ctx, got, want_,
+                                what)
+            else:
+                assert got == want_, what
+        i4, i5 = slo_flip_leg(master, addr, pre, dec, pd_toks, pd_served,
+                              prompts, want_pd, page_dma, cmp_pd,
+                              check_launches, card, procs)
+        log(f"  (i): {time.monotonic() - t:.1f} s")
+        return [launches[0] + fh[0], launches[1] + fh[1], g4 + i4, g5 + i5]
     finally:
+        for mp in procs:
+            mp.kill()
         for a in agents:
             a.stop()
-        master.stop()
+        if not getattr(master, "_killed", False):
+            master.stop()
         srv.stop()
         BROWNOUT.reset()
         TRACER.configure(enabled=tracing_before[0],
@@ -9736,8 +10289,10 @@ def main() -> int:
     # Phase 4s: the port's own master.
     log("[4s] the port's master at the reference's defaults on the port's "
         "coordination server: two MIX agents, phase 4's requests and chats "
-        "through it, CAR's prefix routing, an agent's death, a PD pair at "
-        f"{MASTER_PD_LAYERS} layers "
+        "through it, CAR's prefix routing, several masters (the relay, an "
+        "owner's death mid-stream, a takeover), an agent's death, a PD pair "
+        f"at {MASTER_PD_LAYERS} layers under CAR and SLO_AWARE with a flip "
+        "hint "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
     s_launches = master_phase(cfg, params, llama, engine_mod, prompts,
@@ -9751,20 +10306,29 @@ def main() -> int:
         "(f) model=2 PD pairs "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
-    o_a, tp_mesh = tp_leg(engine_mod, llama, cfg, params, prompts, shared,
-                          runs[0][0], (paged_attention, mq_paged_attention,
-                                       fused_decode_attention,
-                                       cp.paged_partial), card)
-    log(f"  (a): {time.monotonic() - t:.1f} s")
+    # (f)'s decode agent starts now: its start overlaps (a) and (b).
+    o_plane = tp_decode_plane(cfg, "2", "phase4o_decode_agent.log")
+    try:
+        o_a, tp_mesh = tp_leg(engine_mod, llama, cfg, params, prompts,
+                              shared, runs[0][0],
+                              (paged_attention, mq_paged_attention,
+                               fused_decode_attention, cp.paged_partial),
+                              card)
+        log(f"  (a): {time.monotonic() - t:.1f} s")
+        t_ = time.monotonic()
+        log("  (b) phase 4a's tier round trip on (a)'s model=4 pool:")
+        o_b = tier_phase(engine_mod, cfg, params, page_dma, card,
+                         mesh=tp_mesh)
+        assert o_b[0] % 4 == 0 and o_b[1] % 4 == 0, \
+            "a mover did not launch once a shard"
+        log(f"  (b): {time.monotonic() - t_:.1f} s; kernels 4/5 {o_b} (one "
+            "launch a shard, blocks of [32, 2, 8, 2, 16, 128] a shard)")
+    except BaseException:
+        close_plane(o_plane)
+        raise
     t_ = time.monotonic()
-    log("  (b) phase 4a's tier round trip on (a)'s model=4 pool:")
-    o_b = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=tp_mesh)
-    assert o_b[0] % 4 == 0 and o_b[1] % 4 == 0, \
-        "a mover did not launch once a shard"
-    log(f"  (b): {time.monotonic() - t_:.1f} s; kernels 4/5 {o_b} (one "
-        "launch a shard, blocks of [32, 2, 8, 2, 16, 128] a shard)")
-    t_ = time.monotonic()
-    o_f = tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card)
+    o_f = tp_pd_leg(cfg, params, llama, prompts, shared, engine_mod, card,
+                    o_plane)
     log(f"  (f): {time.monotonic() - t_:.1f} s")
     log(f"  phase 4o (a), (b), (f): {time.monotonic() - t:.1f} s")
 

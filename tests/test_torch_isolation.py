@@ -7,7 +7,8 @@ third-party packages its card's machine lacks (``aiohttp``, ``requests``,
 are written on the standard library, and both entry points
 (``python -m xllm_service_tpu_torch.master`` and ``python -m
 xllm_service_tpu_torch.coordination.server``) run in a process that
-imports none of them. ``jinja2`` (PyTorch requires it) and PIL are on the card's
+imports none of them, as does a second master started beside a live one
+(a replica frontend with the handoff relay's client). ``jinja2`` (PyTorch requires it) and PIL are on the card's
 machine: the chat template and the image decode use them, as the
 reference does."""
 
@@ -65,6 +66,7 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "scheduler.global_kvcache_mgr", "scheduler.instance_mgr",
               "scheduler.planner", "scheduler.scheduler",
               "multimaster.handoff", "http_service.web",
+              "http_service.client", "scheduler.policies.slo_aware",
               "http_service.connection", "http_service.request_tracer",
               "http_service.service"):
         assert f"xllm_service_tpu_torch.{m}" in mods
@@ -133,3 +135,59 @@ def test_entry_points_run_without_jax_the_reference_or_aiohttp():
         lines = out.stdout.strip().splitlines()
         assert lines[0].startswith("usage:"), out.stdout[:200]
         assert lines[-1] == "[]", (mod, lines[-1])
+
+
+def test_second_master_entry_point_runs_without_jax_the_reference_or_aiohttp():
+    """A port master and the port's coordination server in a process, then
+    ``python -m xllm_service_tpu_torch.master`` in the same process beside
+    them: it starts as a replica frontend (``/hello`` says ``master:
+    false``), the process's modules are listed, and SIGTERM ends it with
+    exit 0."""
+    code = (
+        "import http.client, json, os, runpy, signal, sys, threading, time\n"
+        "from xllm_service_tpu_torch.common.config import ServiceOptions\n"
+        "from xllm_service_tpu_torch.common.net import pick_free_port\n"
+        "from xllm_service_tpu_torch.coordination.memory import MemoryStore\n"
+        "from xllm_service_tpu_torch.coordination.server import "
+        "CoordinationServer\n"
+        "from xllm_service_tpu_torch.master import Master\n"
+        "srv = CoordinationServer(host='127.0.0.1', port=0,\n"
+        "                         store=MemoryStore(expiry_tick_s=0.05))\n"
+        "srv.start_background()\n"
+        "addr = f'127.0.0.1:{srv.port}'\n"
+        "first = Master(ServiceOptions(host='127.0.0.1', http_port=0,\n"
+        "    rpc_port=0, coordination_addr=addr, lease_ttl_s=1.0))\n"
+        "first.start()\n"
+        "http_port = pick_free_port()\n"
+        "def probe():\n"
+        "    for _ in range(300):\n"
+        "        try:\n"
+        "            c = http.client.HTTPConnection('127.0.0.1', http_port,\n"
+        "                                           timeout=5)\n"
+        "            c.request('GET', '/hello')\n"
+        "            hello = json.loads(c.getresponse().read())\n"
+        "            break\n"
+        "        except OSError:\n"
+        "            time.sleep(0.1)\n"
+        "    print('HELLO', json.dumps(hello), first.scheduler.is_master)\n"
+        "    bad = sorted(n for n in sys.modules\n"
+        f"                 if n.split('.')[0] in "
+        f"{FORBIDDEN + NOT_ON_THE_CARD!r})\n"
+        "    print(repr(bad), flush=True)\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=probe, daemon=True).start()\n"
+        "sys.argv = ['xllm_service_tpu_torch.master', '--host', '127.0.0.1',\n"
+        "            '--http-port', str(http_port), '--rpc-port', '0',\n"
+        "            '--coordination-addr', addr, '--lease-ttl-s', '1.0']\n"
+        "runpy.run_module('xllm_service_tpu_torch.master', "
+        "run_name='__main__')\n"
+        "first.stop()\n"
+        "srv.stop()\n"
+        "print('STOPPED')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == 'HELLO {"status": "ok", "master": false} True', lines
+    assert lines[1] == "[]", lines[1]
+    assert lines[-1] == "STOPPED"

@@ -113,8 +113,10 @@ def _script(make_client):
 
         def deletes_in():
             keys = {k for t, k, _ in ev.flat() if t == "DELETE"}
-            return {"XLLM:SERVICE:MASTER", "XLLM:INSTANCE:MIX:i1",
-                    "XLLM:INSTANCE:MIX:once"} <= keys
+            # The new winner's PUT arrives on the watch after the lapse.
+            won = ("PUT", "XLLM:SERVICE:MASTER", "m2") in ev.flat()
+            return won and {"XLLM:SERVICE:MASTER", "XLLM:INSTANCE:MIX:i1",
+                            "XLLM:INSTANCE:MIX:once"} <= keys
 
         _settle(deletes_in)
         # Per-key event order (batches across keys may interleave with

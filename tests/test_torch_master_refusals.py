@@ -1,17 +1,14 @@
 """What the port's master does not serve yet is refused by name, never
 given way to.
 
-- ``--load-balance-policy SLO_AWARE`` and ``--autoscaler-enabled``: the
-  master exits 2 before it starts, naming ROADMAP queue 1 item 23; a
-  ``Scheduler`` built with them raises.
-- Another live master: a port master refuses to start while another
-  address holds ``XLLM:SERVICE:MASTER`` (item 22), against the port's
-  store, and as a process against a JAX master elected through the port's
-  coordination server.
-- A request owned by another live frontend answers 503 naming item 22.
-- The admin and fleet surface (item 24), the handoff routes (item 22) and
-  ``/rpc/flip_hint`` (item 23) are unknown routes: 404, while the JAX
-  master serves them.
+- ``--autoscaler-enabled``: the master exits 2 before it starts, naming
+  ROADMAP queue 1 item 23; a ``Scheduler`` built with it raises.
+- The admin and fleet surface (item 24) is unknown routes: 404, while the
+  JAX master serves them.
+
+Several masters, the handoff routes, ``/rpc/flip_hint`` and SLO_AWARE are
+served: ``tests/test_torch_master_multimaster.py``, ``_failover.py`` and
+``_slo.py``.
 """
 
 import http.client
@@ -25,22 +22,15 @@ import pytest
 import torch
 
 from xllm_service_tpu.common.config import ServiceOptions as RefOptions
-from xllm_service_tpu.coordination.client import (
-    TcpCoordinationClient as RefTcpClient,
-)
 from xllm_service_tpu.master import Master as RefMaster
 from xllm_service_tpu_torch.common.config import ServiceOptions
 from xllm_service_tpu_torch.coordination import memory
-from xllm_service_tpu_torch.coordination.server import CoordinationServer
 from xllm_service_tpu_torch.master import Master
-from xllm_service_tpu_torch.multimaster.ownership import rendezvous_owner
-from xllm_service_tpu_torch.rpc import MASTER_KEY, SERVICE_KEY_PREFIX
+from xllm_service_tpu_torch.rpc import SERVICE_KEY_PREFIX
 from xllm_service_tpu_torch.scheduler.scheduler import (
     Scheduler,
     UnportedFeatureError,
 )
-
-from fakes import wait_until
 
 torch.set_num_threads(1)   # six xdist workers share the CPU's cores
 
@@ -61,17 +51,16 @@ def _run_master(*argv, timeout=60):
         timeout=timeout)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--load-balance-policy", "SLO_AWARE"], ["--autoscaler-enabled"]],
-    ids=["slo_aware", "autoscaler"])
+@pytest.mark.parametrize("argv", [["--autoscaler-enabled"]],
+                         ids=["autoscaler"])
 def test_unported_options_exit_2_naming_the_item(argv):
     out = _run_master(*argv)
     assert out.returncode == 2, (out.stdout, out.stderr)
     assert "ROADMAP queue 1 item 23" in out.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(load_balance_policy="slo_aware"),
-                                dict(autoscaler_enabled=True)])
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(autoscaler_enabled=True), id="kw1")])
 def test_scheduler_refuses_unported_options(kw):
     store = memory.MemoryStore(expiry_tick_s=0.05)
     try:
@@ -82,47 +71,6 @@ def test_scheduler_refuses_unported_options(kw):
         assert store.get_prefix(SERVICE_KEY_PREFIX) == {}
     finally:
         store.close()
-
-
-def test_second_master_is_refused():
-    store = memory.MemoryStore(expiry_tick_s=0.05)
-    holder = memory.InMemoryCoordination(store)
-    try:
-        holder.set(MASTER_KEY, "10.9.9.9:1", ttl_s=1.0)
-        with pytest.raises(UnportedFeatureError, match="item 22"):
-            Master(_opts(), coord=memory.InMemoryCoordination(store))
-        assert set(store.get_prefix(SERVICE_KEY_PREFIX)) == {MASTER_KEY}
-        # Once the other master's lease lapses, a port master starts.
-        holder.close()
-        assert wait_until(lambda: store.get(MASTER_KEY) is None, timeout=5)
-        m = Master(_opts(), coord=memory.InMemoryCoordination(store))
-        m.start()
-        try:
-            assert m.scheduler.is_master
-        finally:
-            m.stop()
-    finally:
-        store.close()
-
-
-def test_second_master_process_refused_beside_a_jax_master():
-    srv = CoordinationServer(host="127.0.0.1", port=0,
-                             store=memory.MemoryStore(expiry_tick_s=0.05))
-    srv.start_background()
-    addr = f"127.0.0.1:{srv.port}"
-    ref = RefMaster(RefOptions(host="127.0.0.1", http_port=0, rpc_port=0,
-                               lease_ttl_s=1.0, coordination_addr=addr),
-                    coord=RefTcpClient(addr))
-    ref.start()
-    try:
-        assert ref.scheduler.is_master
-        out = _run_master("--coordination-addr", addr)
-        assert out.returncode == 2, (out.stdout, out.stderr)
-        assert "ROADMAP queue 1 item 22" in out.stderr
-        assert ref.scheduler.self_addr in out.stderr
-    finally:
-        ref.stop()
-        srv.stop()
 
 
 def _call(port, method, path, body=None):
@@ -158,10 +106,7 @@ def masters():
     ("http", "GET", "/admin/config"), ("http", "GET", "/admin/hotpath"),
     ("http", "GET", "/admin/overload"), ("http", "GET", "/metrics/fleet"),
     ("http", "GET", "/admin/trace/recent"),
-    ("http", "GET", "/admin/flightrecorder/recent"),
-    ("rpc", "POST", "/rpc/handoff?sid=x"),
-    ("rpc", "POST", "/rpc/handoff_abort?sid=x"),
-    ("rpc", "POST", "/rpc/flip_hint")])
+    ("http", "GET", "/admin/flightrecorder/recent")])
 def test_unported_routes_are_unknown(masters, site, method, path):
     ref, port = masters
     p = port.http_port if site == "http" else port.rpc_port
@@ -171,24 +116,3 @@ def test_unported_routes_are_unknown(masters, site, method, path):
     assert _call(rp, method, path,
                  {} if method == "POST" else None)[0] != 404
 
-
-def test_request_owned_by_another_frontend_is_refused(masters):
-    port = masters[1]
-    sched = port.scheduler
-    other = "10.9.9.9:1"
-    sched._coord.set(SERVICE_KEY_PREFIX + other, "{}", ttl_s=1.0)
-    try:
-        assert wait_until(lambda: other in sched.ownership.members(),
-                          timeout=5)
-        key = next(k for k in (f"affinity-{i}" for i in range(200))
-                   if rendezvous_owner(sched.ownership.members(), k)
-                   == other)
-        # No engine is needed: ownership is decided before admission.
-        sched.instance_mgr.has_available_instances = lambda: True
-        status, body = _call(port.http_port, "POST", "/v1/completions", {
-            "model": "m", "prompt": "x", "ownership_key": key})
-        assert status == 503
-        assert "ROADMAP queue 1 item 22" in json.loads(body)["error"]["message"]
-    finally:
-        del sched.instance_mgr.has_available_instances
-        sched._coord.rm(SERVICE_KEY_PREFIX + other)

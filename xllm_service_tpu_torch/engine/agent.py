@@ -502,9 +502,16 @@ class GenerationStreamer:
                 n = attempts.get(dest, 0) + 1
                 if stopping or n > self.FLUSH_RETRIES:
                     # Repeatedly unreachable: cancel these requests so the
-                    # engine doesn't burn the card on a dead stream.
+                    # engine doesn't burn the card on a dead stream (only
+                    # where the request still streams to this dest: a
+                    # successor master may have re-dispatched it).
+                    cancel = getattr(self._engine, "cancel_stream", None)
                     for g in pending.pop(dest):
-                        self._engine.cancel(g.get("service_request_id", ""))
+                        sid = g.get("service_request_id", "")
+                        if cancel is not None:
+                            cancel(sid, dest)
+                        else:
+                            self._engine.cancel(sid)
                     attempts.pop(dest, None)
                     next_try.pop(dest, None)
                 else:
@@ -759,6 +766,11 @@ class EngineAgent:
         # Registration and role flips under one lock: a heartbeat's
         # re-registration must not re-create the key a flip just removed.
         self._reg_lock = threading.Lock()
+        # The destination of each request's running incarnation (MIX
+        # path): a master whose owner died re-dispatches the request under
+        # the same id, and cancels go by id.
+        self._streams_lock = threading.Lock()
+        self._streams: dict[str, tuple[str, threading.Event]] = {}
         self._stop_lock = threading.Lock()
         self._stopped = False
         self._profiler_started = False
@@ -858,6 +870,41 @@ class EngineAgent:
                 "stream_received": self.kv_stream_received,
             },
         }
+
+    def _supersede(self, sid: str, dest: str) -> threading.Event:
+        """Make ``dest``'s dispatch of ``sid`` its running incarnation.
+        When another master's incarnation of the same request still runs
+        here (its owner died and the relay re-owned the request), end it
+        first: a cancel by id issued after the new submit would end both,
+        and its last delta resets the request's delta sequence."""
+        done = threading.Event()
+        with self._streams_lock:
+            prev = self._streams.get(sid)
+            self._streams[sid] = (dest, done)
+        if prev is not None and prev[0] != dest and not prev[1].is_set():
+            logger.info("request %s re-dispatched by %s: ending its "
+                        "incarnation for %s", sid, dest, prev[0])
+            self.cancel(sid)
+            prev[1].wait(timeout=10.0)
+            deadline = time.monotonic() + 1.0
+            while any(sid in e._cancelled for e in self.engines) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+        return done
+
+    def _stream_done(self, sid: str, done: threading.Event) -> None:
+        done.set()
+        with self._streams_lock:
+            if self._streams.get(sid, (None, None))[1] is done:
+                del self._streams[sid]
+
+    def cancel_stream(self, service_request_id: str, dest: str) -> None:
+        """Cancel a request whose deltas ``dest`` no longer takes, unless
+        its running incarnation streams to another master."""
+        with self._streams_lock:
+            cur = self._streams.get(service_request_id)
+        if cur is None or cur[0] == dest:
+            self.cancel(service_request_id)
 
     # --------------------------------------------------------- dp dispatch
     def cancel(self, service_request_id: str) -> None:
@@ -1568,9 +1615,15 @@ class EngineAgent:
         priority = int(body.get("priority") or 0)
         engine = self._pick_engine(token_ids)
         if n == 1:
+            done = self._supersede(sid, dest)
+
+            def tracked(out: RequestOutput) -> None:
+                on_output(out)
+                if out.finished:
+                    self._stream_done(sid, done)
             engine.submit(EngineRequest(
                 service_request_id=sid, request_id=request_id,
-                token_ids=token_ids, sampling=sampling, on_output=on_output,
+                token_ids=token_ids, sampling=sampling, on_output=tracked,
                 offline=offline, priority=priority, mm_embeds=mm_embeds))
             return 200, {"ok": True, "service_request_id": sid}
 

@@ -1,4 +1,4 @@
-"""L6 HTTP API + L2 RPC endpoints (aiohttp).
-
-Parity: reference `http_service/` + `rpc_service/` (SURVEY.md §2.2-2.3).
+"""The HTTP API and RPC endpoints of the master, on ``asyncio`` streams:
+the server (``web.py``), the client the handoff relay uses
+(``client.py``) and the service (``service.py``).
 """

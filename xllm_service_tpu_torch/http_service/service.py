@@ -4,11 +4,15 @@
 dispatches run on a thread pool over the keep-alive session of
 ``rpc/channel.py``).
 
+Several active masters serve one fleet: a request this frontend accepts
+but another owns is relayed to its owner's ``/rpc/handoff`` on the
+asyncio client of ``http_service/client.py`` (``multimaster/handoff.py``),
+a relay's client abort reaches ``/rpc/handoff_abort``, and a replica's
+PD-role flip hints reach the elected master's ``/rpc/flip_hint``.
+
 Not ported yet, so unknown routes (404) here: ``/admin/*``,
 ``/metrics/fleet``, the fleet trace and profile fan-outs (ROADMAP queue 1
-item 24); ``/rpc/handoff``, ``/rpc/handoff_abort`` and the relay of a
-request this master does not own (item 22: such a request answers 503);
-``/rpc/flip_hint`` (item 23).
+item 24).
 
 Parity: reference `http_service/service.cpp` (SURVEY.md §2.2, §3.2) and
 `rpc_service/service.cpp` (§2.3, §3.3):
@@ -51,6 +55,8 @@ from ..common.metrics import (
     AUTOSCALER_LAST_DECISION_AGE_SECONDS,
     BROWNOUT_ACTIVE,
     FLEET_SIZE,
+    HANDOFF_JOURNAL_REPLAYS_TOTAL,
+    HANDOFF_SERVED_TOTAL,
     KVCACHE_FRAME_LOG_SEQ,
     LOADINFO_AGE_SECONDS,
     LOADINFO_MAX_AGE_SECONDS,
@@ -66,7 +72,7 @@ from ..common.request import Request, RequestOutput, SamplingParams
 from ..common.slo import SLO_MONITOR
 from ..common.tracing import TRACER, TraceContext
 from ..common.types import InstanceType
-from ..multimaster.handoff import DeltaJournal
+from ..multimaster.handoff import DeltaJournal, HandoffRelay
 from ..overload import (
     ADMISSION,
     BROWNOUT,
@@ -75,12 +81,13 @@ from ..overload import (
     parse_deadline_ms,
     parse_priority,
 )
-from ..overload.deadline import remaining_ms
+from ..overload.deadline import ABS_DEADLINE_HEADER, remaining_ms
 from ..rpc import wire
 from ..rpc.channel import ChannelError, make_keepalive_session
 from ..scheduler.scheduler import Scheduler
 from ..utils import generate_service_request_id, get_logger, short_uuid
 from . import web
+from .client import ClientSession
 from .connection import AioConnection
 from .request_tracer import RequestTracer
 
@@ -205,10 +212,20 @@ class XllmHttpService:
         # The event loop keeps only weak refs to tasks; hold forward tasks
         # here so they can't be garbage-collected mid-flight.
         self._forward_tasks: set[asyncio.Task] = set()
-        # The owner-side delta journal a relay reconnect replays from
-        # (multimaster/handoff.py; it records relayed streams only).
+        # Multi-master: owner-forward path for the minority of requests
+        # this frontend accepts but does not own (multimaster/handoff.py),
+        # plus the owner-side delta journal a relay reconnect replays
+        # from (exact dedup — no pipeline re-run under sampling).
         self._journal = DeltaJournal(
             grace_s=self.opts.handoff_journal_grace_s)
+        self._relay = HandoffRelay(
+            scheduler.ownership,
+            max_attempts=self.opts.handoff_max_attempts,
+            stall_timeout_s=self.opts.handoff_stall_timeout_s,
+            same_owner_retry=self._journal.enabled)
+        # The relay's HTTP client, on the event loop (a relayed stream
+        # holds its connection for the whole generation).
+        self._client = ClientSession()
 
     # ------------------------------------------------------------- HTTP app
     def build_http_app(self) -> web.Application:
@@ -233,6 +250,11 @@ class XllmHttpService:
         # connection per engine carries tagged hb/gens frames to the
         # engine's owning master; foreign-dest gens relay master->master.
         app.router.add_post("/rpc/telemetry", self.handle_telemetry)
+        # Multi-master plane: owner-side ingest of relayed requests, and
+        # the replica→master write-lease proxy for PD-role flip hints.
+        app.router.add_post("/rpc/handoff", self.handle_handoff)
+        app.router.add_post("/rpc/handoff_abort", self.handle_handoff_abort)
+        app.router.add_post("/rpc/flip_hint", self.handle_flip_hint)
         app.router.add_get("/rpc/hello", self.handle_hello)
         app.router.add_get("/rpc/instance_info", self.handle_instance_info)
         app.router.add_get("/rpc/static_prefill_list", self.handle_prefill_list)
@@ -463,12 +485,10 @@ class XllmHttpService:
                               owner_key: str, stream: bool,
                               deadline_ms: int = 0,
                               priority: str = "") -> web.StreamResponse:
-        """The relay to another owning master is not ported (the port's
-        master starts only as the lone master): refuse by name."""
-        return _error_response(
-            503, f"request owned by master {owner}; relaying to another "
-                 f"master is not ported yet (ROADMAP queue 1 item 22)",
-            "service_unavailable")
+        return await self._relay.relay(
+            http_req, self._client, raw, kind, sid, owner, owner_key,
+            stream, self.opts.request_timeout_s,
+            deadline_ms=deadline_ms, priority=priority)
 
     def _admission_check(self, priority: str) -> Optional[web.Response]:
         """Overload-admission gate (overload/admission.py): None =
@@ -1021,6 +1041,127 @@ class XllmHttpService:
                                   "master": self.scheduler.is_master})
 
     # ----------------------------------------------------------- RPC routes
+    # ----------------------------------------------------------- RPC routes
+    async def handle_handoff(self, request: web.Request) -> web.StreamResponse:
+        """Owner-side ingest of a request relayed by another frontend
+        (multimaster/handoff.py): run the FULL local pipeline — schedule,
+        dispatch, failover bookkeeping, trace assembly — under the
+        relay-supplied service id. Never re-relays: the accepting
+        frontend resolved ownership, and re-resolving here on a
+        membership race could loop. The response (SSE frames or one JSON
+        document) streams back to the relay, which copies it to the
+        client — dropping the already-delivered frame prefix on a
+        re-owned replay."""
+        sid = request.query.get("sid", "")
+        kind = request.query.get("kind", "completion")
+        if not sid:
+            return _error_response(400, "missing sid")
+        try:
+            attempt = int(request.query.get("attempt", 0))
+            skip = int(request.query.get("skip", 0))
+        except (TypeError, ValueError):
+            attempt, skip = 0, 0
+        if attempt > 0:
+            # Relay reconnect: if THIS owner journaled the stream (the
+            # relay retries the same owner first), replay the exact
+            # recorded frames after `skip` — no pipeline re-run, so the
+            # continuation is identical even under temperature>0
+            # sampling. No journal (we are the rendezvous successor of a
+            # dead owner) → fall through to the legacy full re-run with
+            # relay-side frame dropping.
+            entry = self._journal.get(sid)
+            if entry is not None:
+                HANDOFF_JOURNAL_REPLAYS_TOTAL.inc()
+                return await self._replay_from_journal(request, sid, skip,
+                                                       entry)
+        HANDOFF_SERVED_TOTAL.inc()
+        # The relay forwards the ABSOLUTE deadline it computed at accept
+        # (x-xllm-deadline-ms) so the owner enforces the original
+        # budget, not a fresh one restarted at the relay hop.
+        try:
+            deadline_ms = int(request.headers.get(ABS_DEADLINE_HEADER, 0))
+        except (TypeError, ValueError):
+            deadline_ms = 0
+        if kind == "messages":
+            return await self.handle_messages(request, sid=sid,
+                                              deadline_override=deadline_ms)
+        if kind not in ("chat", "completion"):
+            return _error_response(400, f"unknown handoff kind {kind}")
+        return await self._handle_generate(request, kind, sid=sid,
+                                           deadline_override=deadline_ms)
+
+    async def _replay_from_journal(self, http_req: web.Request, sid: str,
+                                   skip: int, entry) -> web.StreamResponse:
+        """Serve a relay reconnect from the delta journal: stream the
+        recorded frames after ``skip``, then follow the LIVE journal
+        growth (the original generation keeps appending while detached)
+        until the stream finishes. Pure frame copy — the engine sees
+        nothing."""
+        resp = web.StreamResponse()
+        resp.headers["Content-Type"] = "text/event-stream"
+        resp.headers["Cache-Control"] = "no-cache"
+        await resp.prepare(http_req)
+        i = max(0, skip)
+        deadline = time.monotonic() + self.opts.request_timeout_s
+        try:
+            while True:
+                # Keep the journal (and the detached generation's grace
+                # window) alive while this replay is attached: the
+                # detached _respond loop extends its deadline off
+                # `touched`, so an active replay is never cancelled
+                # under it mid-stream.
+                entry.touched = time.monotonic()
+                frames = entry.frames
+                while i < len(frames):
+                    await resp.write(frames[i])
+                    i += 1
+                if entry.finished and i >= len(entry.frames):
+                    break
+                if time.monotonic() > deadline:
+                    break
+                await asyncio.sleep(0.02)
+            await resp.write_eof()
+        except (ConnectionResetError, OSError):
+            pass   # the relay broke again; its next attempt re-enters here
+        return resp
+
+    async def handle_handoff_abort(self, request: web.Request) -> web.Response:
+        """Relay-signalled CLIENT abort of a relayed stream: the journal
+        grace exists for transport blips, but a gone client must cancel
+        NOW (engine capacity, exit accounting) — the relay distinguishes
+        the two, this endpoint enacts it. Idempotent; unknown sids ack."""
+        sid = request.query.get("sid", "")
+        if not sid:
+            return _error_response(400, "missing sid")
+        entry = self._journal.get(sid)
+        if entry is not None:
+            DeltaJournal.finish(entry)
+        cancelled = await asyncio.get_running_loop().run_in_executor(
+            None, self.scheduler.cancel_request, sid, 499,
+            "client disconnected at relay", "disconnect")
+        return web.json_response({"ok": True, "cancelled": cancelled})
+
+    async def handle_flip_hint(self, request: web.Request) -> web.Response:
+        """Replica→master write-lease proxy for PD-role flips: a
+        non-elected frontend's SLO policy saw a role imbalance, but the
+        coordination writes a flip performs are master-only (frame-log +
+        instance-key invariants). The hint lands in this master's pending
+        set; its reconcile thread executes. If mastership just moved, the
+        local drain re-proxies to the current master — convergent."""
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error_response(400, "invalid JSON")
+        if not isinstance(body, dict) or not body.get("name"):
+            return _error_response(400, "missing instance name")
+        try:
+            new_type = InstanceType.parse(body.get("type"))
+        except ValueError:
+            return _error_response(400, f"bad type {body.get('type')!r}")
+        self.scheduler.instance_mgr.request_flip(str(body["name"]), new_type)
+        return web.json_response({"ok": True,
+                                  "master": self.scheduler.is_master})
+
     async def handle_heartbeat(self, request: web.Request) -> web.Response:
         """Per-instance heartbeat (load/latency metrics + KV-cache event
         delta). Wire is msgpack by default — KV-event block keys ride as

@@ -4,12 +4,15 @@
 Builds Scheduler → services, runs the HTTP frontend (client-facing) and
 the RPC endpoint (engine-facing) as two sites of ``http_service/web.py``
 in one event loop owned by a background thread. ``main()`` parses the
-reference's flags, refuses the options whose paths are not ported yet
-(exit 2, naming the ROADMAP item), checks ports, installs signal handlers.
+reference's flags, refuses ``--autoscaler-enabled`` (not ported yet: exit
+2, naming its ROADMAP item), checks ports, installs signal handlers.
 
 Run: ``python -m xllm_service_tpu_torch.master --coordination-addr
 host:port ...`` (the coordination server:
-``python -m xllm_service_tpu_torch.coordination.server``).
+``python -m xllm_service_tpu_torch.coordination.server``). Any number of
+masters may share one coordination server: the first holds
+``XLLM:SERVICE:MASTER``, the others start as active replica frontends,
+and each relays the requests another owns to that owner.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ Lock discipline (reference documents a two-lock order,
 Scheduling reads are LOCK-FREE (RCU): every membership/state writer
 rebuilds an immutable :class:`RoutingSnapshot` under `_cluster_lock` and
 publishes it with one atomic reference assignment; `get_next_instance_pair`
-/ `bind_request_instance_incarnations` /
+/ `select_instance_pair_on_slo` / `bind_request_instance_incarnations` /
 `has_available_instances` / `get_channel` read the current snapshot without
 taking any instance_mgr lock — a heartbeat or eviction storm can no longer
 stall the request hot path on `_cluster_lock`. A reader that routed from a
@@ -1498,6 +1498,16 @@ class InstanceMgr:
             # token counts without taking `_metrics_lock`.
             self._publish_request_load_locked(pname, dname)
 
+    def select_instance_pair_on_slo(self, req: Request) -> Routing:
+        """SLO-aware pair selection with dynamic PD flipping (reference
+        `instance_mgr.cpp:905-1063`). The selection kernel lives in
+        policies/slo_aware.py and is LOCK-FREE: routing snapshot +
+        published request-load view, staleness-aware — no
+        `_metrics_lock` fleet re-scan on the schedule path."""
+        from .policies.slo_aware import select_pair_on_slo
+
+        return select_pair_on_slo(self, self._opts, req)
+
     def request_flip(self, name: str, new_type: InstanceType) -> None:
         """Enqueue a role flip to be performed by the reconcile thread
         (engine RPC + coordination writes stay off the request path)."""
@@ -1572,15 +1582,19 @@ class InstanceMgr:
         if not master_addr:
             return
         session = make_keepalive_session(1, 1)
-        for name, new_type in pending.items():
-            try:
-                session.post(f"http://{master_addr}/rpc/flip_hint",
-                             json={"name": name, "type": new_type.value},
-                             timeout=2)
-            except ChannelError as e:
-                logger.warning("flip hint for %s -> %s lost (master %s "
-                               "unreachable: %s)", name, new_type.value,
-                               master_addr, e)
+        try:
+            for name, new_type in pending.items():
+                try:
+                    session.post(f"http://{master_addr}/rpc/flip_hint",
+                                 json={"name": name,
+                                       "type": new_type.value},
+                                 timeout=2)
+                except ChannelError as e:
+                    logger.warning("flip hint for %s -> %s lost (master "
+                                   "%s unreachable: %s)", name,
+                                   new_type.value, master_addr, e)
+        finally:
+            session.close()
 
     def flip_instance_role(self, name: str, new_type: InstanceType) -> bool:
         """Dynamic PD-role switch: tell the engine to swap programs, then

@@ -1,14 +1,15 @@
 """Load-balance policies (port of
-``xllm_service_tpu/scheduler/policies/``): RR (round robin) and CAR
-(cache-aware). SLO_AWARE is refused by the scheduler at start (ROADMAP
-queue 1 item 23)."""
+``xllm_service_tpu/scheduler/policies/``): RR (round robin, the
+default), CAR (cache-aware), SLO_AWARE (predictive with dynamic PD
+flipping)."""
 
 from .base import LoadBalancePolicy
 from .round_robin import RoundRobinPolicy
 from .cache_aware import CacheAwareRoutingPolicy
+from .slo_aware import SloAwarePolicy
 
 __all__ = ["LoadBalancePolicy", "RoundRobinPolicy", "CacheAwareRoutingPolicy",
-           "create_policy"]
+           "SloAwarePolicy", "create_policy"]
 
 
 def create_policy(name: str, instance_mgr, kvcache_mgr, options):
@@ -18,4 +19,6 @@ def create_policy(name: str, instance_mgr, kvcache_mgr, options):
         return RoundRobinPolicy(instance_mgr)
     if name == "CAR":
         return CacheAwareRoutingPolicy(instance_mgr, kvcache_mgr, options)
+    if name == "SLO_AWARE":
+        return SloAwarePolicy(instance_mgr, options)
     raise ValueError(f"unknown load balance policy: {name}")

@@ -1,11 +1,9 @@
-"""Central orchestrator (port of ``xllm_service_tpu/scheduler/scheduler.py``
-in the reference's default deployment: one master, CAR or RR routing, the
-planner hint-only, the autoscaler off).
+"""Central orchestrator (port of ``xllm_service_tpu/scheduler/scheduler.py``:
+any number of active masters, one of them elected; RR, CAR or SLO_AWARE
+routing; the planner hint-only).
 
-Two parts of the reference wait for later slices and are refused at
-start, naming their ROADMAP queue 1 item: several masters (another live
-address holding ``XLLM:SERVICE:MASTER``; item 22) and the ``SLO_AWARE``
-policy or the autoscaler (item 23).
+The autoscaler waits for a later slice and is refused at start, naming
+its ROADMAP queue 1 item (23).
 
 Parity: reference `scheduler/scheduler.{h,cpp}` (733 LoC, SURVEY.md §2.4,
 §3.2-3.5):
@@ -99,24 +97,10 @@ class UnportedFeatureError(RuntimeError):
 def refuse_unported(options: ServiceOptions) -> None:
     """Refuse, before anything starts, the options whose reference paths
     the port has not ported (no fallback: the caller exits non-zero)."""
-    if (options.load_balance_policy or "").upper() == "SLO_AWARE":
-        raise UnportedFeatureError(
-            "--load-balance-policy SLO_AWARE is not ported yet (ROADMAP "
-            "queue 1 item 23: the SLO_AWARE policy with PD role flipping)")
     if options.autoscaler_enabled:
         raise UnportedFeatureError(
             "--autoscaler-enabled is not ported yet (ROADMAP queue 1 item "
             "23: the autoscaler's controller and actuators)")
-
-
-def refuse_second_master(coord: CoordinationClient, self_addr: str) -> None:
-    """Several masters (the handoff relay, owner failover, takeover) are
-    not ported: a port master starts only as the lone master."""
-    holder = coord.get(MASTER_KEY)
-    if holder and holder != self_addr:
-        raise UnportedFeatureError(
-            f"another master ({holder}) holds {MASTER_KEY}; several "
-            f"masters are not ported yet (ROADMAP queue 1 item 22)")
 
 
 class _RequestState:
@@ -186,19 +170,14 @@ class Scheduler:
         self.chat_template = JinjaChatTemplate(template)
 
         # Self-registration + master election (reference
-        # `scheduler.cpp:72-76,170-184`), as the lone master.
-        refuse_second_master(self._coord, self.self_addr)
+        # `scheduler.cpp:72-76,170-184`). A master that loses the election
+        # starts as an ACTIVE replica frontend: it takes the key over on
+        # its DELETE (`_on_master_event`).
         self._coord.set(SERVICE_KEY_PREFIX + self.self_addr,
                         json.dumps({"rpc_address": self.self_addr}),
                         ttl_s=options.lease_ttl_s)
         self.is_master = self._coord.create_if_absent(
             MASTER_KEY, self.self_addr, ttl_s=options.lease_ttl_s)
-        if not self.is_master:
-            self._coord.rm(SERVICE_KEY_PREFIX + self.self_addr)
-            refuse_second_master(self._coord, self.self_addr)
-            raise UnportedFeatureError(
-                f"lost the election for {MASTER_KEY}; several masters "
-                f"are not ported yet (ROADMAP queue 1 item 22)")
 
         # Coordination-plane static stability: classify the plane
         # CONNECTED -> DEGRADED -> RECOVERING from client-side evidence
