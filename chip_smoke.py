@@ -10,8 +10,11 @@ port's own master.
 
 Phases (any failure exits non-zero before the result line):
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build the five CUDA libraries from ``xllm_service_tpu_torch/csrc`` (one
-   nvcc per source, in parallel) into ``build/torch_kernels``;
+2. the compile gate (``xllm_service_tpu_torch/benchmarks/compile_gate.py``):
+   build the six CUDA libraries from ``xllm_service_tpu_torch/csrc`` (one
+   nvcc per source, in parallel) into ``build/torch_kernels`` and launch
+   each kernel arm once at the bench-1b shapes; its JSON line is printed
+   and every arm must be ``ok``;
 3. each kernel against its plain PyTorch version on the card at Llama-3-8B
    shapes, timed beside its plain version and a PyTorch yardstick: the two
    attention kernels and the fused append-and-attend (bf16 and f32, ragged
@@ -48,10 +51,11 @@ Phases (any failure exits non-zero before the result line):
    four beside SDPA over the owned K/V); each of these two shapes is a
    row of its own in the ``kernels`` line, as are phase 4o's shapes
    (kernel 1 at 8/2 and 8/1 heads, kernel 2 at groups 4 and 8, the movers
-   at a ``model=4`` shard's block) and phase 4q's: kernel 6 at a
-   ``model=2`` shard's 16/4 heads (per shard at seq 2 and 4, timed on
-   shard 0 of two) and the movers at a ``seq=2 x model=2`` grid shard's
-   block ``[32, 2, 8, 4, 16, 128]`` (one pool and two shards);
+   at a ``model=4`` shard's block ``[TP_LAYERS, 2, 8, 2, 16, 128]``) and
+   phase 4q's: kernel 6 at a ``model=2`` shard's 16/4 heads (per shard at
+   seq 2 and 4, timed on shard 0 of two) and the movers at a ``seq=2 x
+   model=2`` grid shard's block ``[GRID_LAYERS, 2, 8, 4, 16, 128]`` (one
+   pool and two shards): 4o (b)'s and 4q (c)'s blocks;
 4. serving at Llama-3-8B's full width and depth (random weights from a
    fixed seed) through ``InferenceEngine`` with its background loop: ten
    greedy requests (two of them sharing a 512-token prefix with the first,
@@ -276,6 +280,31 @@ Phases (any failure exits non-zero before the result line):
    Client TTFT and inter-token latency (p50, p99), the relay's added
    TTFT, the client's gap at the owner's death, the seconds to takeover
    and the master's hot-path stages are information;
+4t. the autoscaler's closed loop (after 4s): the port's coordination
+   server and the port's master with the autoscaler on and the local
+   actuator, whose spawn command launches port agents of this script
+   (``--autoscaled-agent``: Llama-3-8B at full width and AUTO_LAYERS
+   layers, drawn from seed 0 by the agent's engine, each process with its
+   own CUDA context and AUTO_PAGES pages), minimum 1 and maximum 2, a TTFT
+   objective of 1 ms over windows of 2 and 3 s: (a) the controller
+   launches the first agent (cold start), registered inside the pending
+   window; (b) a burst of four of phase 4's prompts and a shared-prefix
+   one (sent once the first's blocks are in the master's index) breaches
+   the objective and the controller launches the second agent, which
+   registers inside the window while short requests keep coming (one
+   every TRICKLE_S), and takes the prefix-free requests of a
+   second wave while the other shared-prefix request goes to the block
+   holder; ``/admin/autoscaler`` shows both scale-outs with their reasons,
+   ``/metrics`` ``autoscaler_actions_total``, ``/metrics/fleet`` both
+   agents' series and ``/admin/trace?scope=fleet`` one tree with an
+   agent's ``engine.*`` spans under the master's root; (c) with no
+   traffic the controller drains the least-loaded agent, which leaves the
+   fleet and, reaped, exits 0 by itself; two launches in all; every
+   stream held to an in-process engine on the same configuration and
+   seed (``compare_streams``), kernel 1 in both agents and kernel 2 on
+   the prefix hits (their launches and memory from each agent's REPORT);
+   (d) a master with no spawn command launches the port's fake engine
+   (the default launcher), which is killed and replaced;
 4m. MoE and MLA at full width and depth, phase 4's weights freed first:
    (a) one MoE layer at Mixtral-8x7B's width (eight experts of 14336,
    top 2), 16 tokens, bf16 and int8: the dense dispatch against an
@@ -354,12 +383,14 @@ Phases (any failure exits non-zero before the result line):
 4o. the tensor, expert and data axes in one process, on meshes of this
    card repeated (phase 4c's way), eager, at most six requests of TP_NEW
    tokens a leg, each stream held to another route by ``held_to``'s rule:
-   (a) Llama-3-8B bf16 on ``model=4`` (phase 4's weights as views, 8/2
-   heads a shard): kernel 1 at 128 launches a step, kernel 2 on the prefix
-   hits, the tokens against phase 4's, one decode step's logits and the
+   (a) Llama-3-8B bf16 at TP_LAYERS layers (``depth_view``) on
+   ``model=4`` (phase 4's weights as views, 8/2 heads a shard): kernel 1
+   at 4 x TP_LAYERS launches a step, kernel 2 on the prefix hits, the
+   tokens against a one-device engine's at that depth, one decode step's
+   logits and the
    joined pool against the one-device route (PREFILL_REL_TOL); (b) phase
-   4a's tier round trip on that pool, kernels 4 and 5 once a shard on
-   blocks of [32, 2, 8, 2, 16, 128]; (f) a ``model=2`` PREFILL agent here
+   4a's tier round trip on that pool at the same depth, kernels 4 and 5
+   once a shard on blocks of [TP_LAYERS, 2, 8, 2, 16, 128]; (f) a ``model=2`` PREFILL agent here
    and a ``model=2`` DECODE agent in a second process
    (``--tp-decode-agent``), every handoff over CUDA IPC one handle a
    shard (kernel 4 twice a handoff here, kernel 5 twice there), then the
@@ -385,7 +416,8 @@ Phases (any failure exits non-zero before the result line):
    sampled one, against the one-process ``model=2`` engine on the same
    draw driven by the same schedule (``mh_drive``; greedy streams by
    ``held_to``'s rule, the sampled one equal where they all are); (b) the
-   agent as two ranks (``--tp 2``) behind the stub master, four
+   agent as two ranks (``--tp 2``, Llama-3-8B cut to MH_AGENT_LAYERS
+   layers in its engine configuration) behind the stub master, four
    completions, the follower exiting 0 at the primary's shutdown event;
    (c) Mixtral-8x7B int8 at full width and MH_MOE_LAYERS layers on
    ``expert=2 x model=2`` as four ranks, against the one-process engine
@@ -398,14 +430,16 @@ Phases (any failure exits non-zero before the result line):
    collectives a decode step, and the backend; every follower emits the
    primary's tokens in the same ticks and steps;
 4q. ``seq`` together with ``model`` or ``expert``, after 4p, on this card
-   repeated, eager: (a) Llama-3-8B bf16 at full width and depth on
-   ``seq=2 x model=2`` (phase 4's weights as views), its pool the
-   page-and-head grid (four shards ``[32, 2, 1024, 4, 16, 128]``): phase
+   repeated, eager: (a) Llama-3-8B bf16 at full width and GRID_LAYERS
+   layers (``depth_view``) on ``seq=2 x model=2`` (phase 4's weights as
+   views), its pool the page-and-head grid (four shards ``[GRID_LAYERS, 2,
+   1024, 4, 16, 128]``): phase
    4's first four prompts (those of GRID_RING_MIN tokens or more on the
    ring), the first one's re-send and a shared prompt (prefix hits,
    kernel 2) and a seeded sampled request, GRID_NEW tokens each; kernel 6
-   at 2 x 2 x 32 launches a step, the greedy streams held to phase 4's
-   by ``held_to``'s rule, one decode step's logits and the grid against
+   at 2 x 2 x GRID_LAYERS launches a step, the greedy streams held to a
+   one-device engine's at that depth by ``held_to``'s rule, one decode
+   step's logits and the grid against
    the one-device route; tok/s and peak GiB are information; (c) phase
    4a's tier round trip on that grid, kernels 4 and 5 once a model shard
    over both its seq shards; (b) Mixtral-8x7B int8 at MH_MOE_LAYERS layers
@@ -953,8 +987,8 @@ def check_page_movers(page_dma, build_mesh, MeshConfig, ShardedPages,
     """Kernels 4-5 against their plain versions at one hash block of 128
     tokens, ``[L, 2, 8, n_kv, 16, hd]`` (Llama-3-8B's [32, 2, 8, 8, 16,
     128] by default; DeepSeek-V2-Lite's MLA block is [27, 2, 8, 1, 16,
-    576]; a ``seq=2 x model=2`` grid shard's is [32, 2, 8, 4, 16, 128] on
-    ``seq=2``): bit for bit, with NaN in every page they must not touch,
+    576]; a ``seq=2 x model=2`` grid shard's is [GRID_LAYERS, 2, 8, 4, 16,
+    128] on ``seq=2``): bit for bit, with NaN in every page they must not touch,
     on one pool and on the same pool sharded ``seq`` ways on one card (the
     block's eight pages on every shard), one launch per call. Then times,
     the bulk route's sweep (``sweep``) and the copy floor. Returns
@@ -6754,6 +6788,7 @@ TP70_PAGES = 512
 # leg's time grows with it; at all 80 layers it took a twelfth of the
 # script.
 TP70_LAYERS = 8
+TP_LAYERS = 8        # 4o (a): Llama-3-8B cut to these layers on model=4
 TP_PROBE = "s0"      # the request whose pages leg (f) holds bit for bit
 
 
@@ -6886,26 +6921,27 @@ def check_tp_logits(llama, cfg, params, prompt, mesh, sharded):
     assert kv_err <= PREFILL_REL_TOL * kv_scale, "sharded pool drifted"
 
 
-def tp_leg(engine_mod, llama, cfg, params, prompts, shared, phase4, kernels,
-           card):
-    """4o (a): Llama-3-8B bf16 at full width and depth on ``model=4``,
-    phase 4's weights resharded (views: no memory): 8/2 heads and ffn 3584
-    a shard, phase 4's requests cut to six (two prefix hits), TP_NEW
-    tokens each. Checks: four shards ``[32, 2, P, 2, 16, 128]``, kernel 1
-    at 128 launches a step (32 layers x 4 shards), kernel 2 on the prefix
-    hits, kernels 3 and 6 idle, the tokens held to phase 4's one-device
-    streams (``held_to``), one decode step's logits and the pool
-    (``check_tp_logits``). Returns (kernel 1's and 2's launches, the
-    mesh)."""
+def tp_leg(engine_mod, llama, cfg, params, prompts, shared, kernels, card):
+    """4o (a): Llama-3-8B bf16 at full width and TP_LAYERS layers
+    (``depth_view`` of phase 4's weights) on ``model=4``, resharded
+    (views: no memory): 8/2 heads and ffn 3584 a shard, phase 4's requests
+    cut to six (two prefix hits), TP_NEW tokens each. Checks: four shards
+    ``[TP_LAYERS, 2, P, 2, 16, 128]``, kernel 1 at 4 x TP_LAYERS launches
+    a step, kernel 2 on the prefix hits, kernels 3 and 6 idle, the tokens
+    held to a one-device engine's streams at that depth (``held_to``), one
+    decode step's logits and the pool (``check_tp_logits``). Returns
+    (kernel 1's and 2's launches, the mesh)."""
     from xllm_service_tpu_torch.parallel.sharding import shard_params
 
     paged, mq, fused, partial = kernels
+    cfg, params = depth_view(cfg, params, TP_LAYERS)
     mesh = card_mesh(model=4)
     log(f"  mesh model=4 on {[str(d) for d in mesh.devices]}")
     sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
     reqs, hits = tp_traffic(prompts, shared)
     sent = {**reqs, **hits}
-    want = {n: phase4[n][:TP_NEW] for n in sent}
+    want = serve_greedy(engine_mod, cfg, params, reqs, hits,
+                        max_tokens=TP_NEW)[0]
     reset_counts()
     toks, st, wall = serve_greedy(engine_mod, cfg, sharded, reqs, hits,
                                   mesh=mesh, max_tokens=TP_NEW)
@@ -6925,8 +6961,8 @@ def tp_leg(engine_mod, llama, cfg, params, prompts, shared, phase4, kernels,
     assert k2 >= 4 * m.num_layers, "the prefix hits did not take kernel 2"
     assert k3 == 0 and k6 == 0, "kernel 3 or 6 ran on the model axis"
     held_to(llama, cfg, params, sent, toks, want,
-            "(a) llama3-8b model=4 vs phase 4's one-device engine",
-            routed=False)
+            f"(a) llama3-8b model=4 vs a one-device engine, {TP_LAYERS} "
+            "layers", routed=False)
     check_tp_logits(llama, cfg, params, shared[0], mesh, sharded)
     return (k1, k2), mesh
 
@@ -7582,11 +7618,19 @@ def vl_seq_leg(engine_mod, llama, qwen2_vl, cfg, params, mm, kernels, card):
     return k6, one
 
 
-def vl_pd_leg(cfg, params, chats, want, card):
+def vl_pd_plane(cfg):
+    """4n (e)'s plane (``decode_plane``): the DECODE agent of
+    ``--model-config qwen2_vl_2b``, started ahead of 4n's legs."""
+    return decode_plane(["--decode-agent", VL_PD_PROBE],
+                        ["--model-config", "qwen2_vl_2b", "--model-id",
+                         "qwen2-vl-2b"], cfg, "phase4n_decode_agent.log")
+
+
+def vl_pd_leg(cfg, params, chats, want, card, plane):
     """4n (e): a PREFILL agent here (encoding its images itself) and a
-    DECODE agent in a second process (the agent's entry point,
-    ``--model-config qwen2_vl_2b``, the same seed), behind the stub
-    master, the KV over CUDA IPC: six of (b)'s image chats, MOE_NEW
+    DECODE agent in a second process (``plane``'s: the agent's entry
+    point, ``--model-config qwen2_vl_2b``, the same seed), behind the
+    stub master, the KV over CUDA IPC: six of (b)'s image chats, MOE_NEW
     tokens each. Checks: every handoff on the device path, kernel 4 once
     a handoff here and bit for bit equal to the plain gather, kernel 5
     once a handoff there and kernel 1 there, the probe chat's installed
@@ -7596,23 +7640,11 @@ def vl_pd_leg(cfg, params, chats, want, card):
     from xllm_service_tpu_torch.common.types import InstanceType
     from xllm_service_tpu_torch.coordination.memory import (
         InMemoryCoordination,
-        MemoryStore,
     )
     from xllm_service_tpu_torch.engine.agent import AgentConfig, EngineAgent
     from xllm_service_tpu_torch.ops import page_dma
-    from xllm_service_tpu_torch.rpc import MASTER_KEY
 
-    store = MemoryStore()
-    coord = CoordServer(store)
-    master = StubMaster()
-    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
-    child = DecodeChild(
-        ["--decode-agent", VL_PD_PROBE],
-        ["--model-config", "qwen2_vl_2b", "--model-id", "qwen2-vl-2b",
-         "--num-pages", str(cfg.num_pages), "--page-size",
-         str(cfg.page_size), "--max-batch-size", str(cfg.max_batch_size),
-         "--max-seq-len", str(cfg.max_seq_len), "--decode-horizon",
-         str(cfg.decode_horizon)], coord.addr, "phase4n_decode_agent.log")
+    store, coord, master, child = plane
     pre = None
     try:
         pre = EngineAgent(cfg, AgentConfig(
@@ -7687,6 +7719,8 @@ def vl_phase(engine_mod, kernels, card):
     cfg = EngineConfig(model=mcfg, model_family="qwen2_vl", num_pages=1024,
                        page_size=16, hash_block_size=128, max_batch_size=8,
                        max_seq_len=2048, decode_horizon=8, seed=0)
+    # (e)'s decode agent starts now: its start overlaps (a) to (d).
+    plane = vl_pd_plane(cfg)
     try:
         t = time.monotonic()
         mm = vl_encoder_check(qwen2_vl, mcfg, params, card)
@@ -7704,11 +7738,14 @@ def vl_phase(engine_mod, kernels, card):
                             kernels, card)
         log(f"  (d) {time.monotonic() - t:.1f} s")
         t = time.monotonic()
-        e1, e4, e5 = vl_pd_leg(cfg, params, chats, chat_toks, card)
+        e1, e4, e5 = vl_pd_leg(cfg, params, chats, chat_toks, card, plane)
+        plane = None             # closed by the leg
         log(f"  (e) {time.monotonic() - t:.1f} s")
         return dict(paged=b1 + c1 + d1 + e1, mq=b2 + c2, partial=d6,
                     gather=e4, scatter=e5)
     finally:
+        if plane is not None:
+            close_plane(plane)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -7720,6 +7757,7 @@ MH_TP_LAYERS = 8      # (a): Llama-3-8B cut to these layers
 MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
 MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
 MH_AGENT_NEW = 8      # (b): tokens a completion
+MH_AGENT_LAYERS = 8   # (b): Llama-3-8B cut to these layers in both ranks
 MH_WORLD = {"a": 2, "c": 4, "d": 2}
 MH_AXES = {"a": dict(model=2), "c": dict(expert=2, model=2),
            "d": dict(seq=2)}
@@ -7996,18 +8034,36 @@ def mh_reap(procs, timeout, tag="RESULT "):
     return results
 
 
-def mh_ranks(leg, card):
-    """Leg ``leg``'s ranks, started together: their RESULTs, rank order."""
+def mh_start(leg):
+    """Leg ``leg``'s ranks, started together: (processes, start time)."""
     from xllm_service_tpu_torch.common.net import pick_free_port
 
     port = str(pick_free_port("127.0.0.1"))
     world = MH_WORLD[leg]
-    t = time.monotonic()
-    res = mh_reap(mh_spawn(lambda r: ["--mh-rank", leg, str(r), str(world),
-                                      port], world, f"phase4p_{leg}"), 600)
-    log(f"  ({leg}) {world} ranks done in {time.monotonic() - t:.1f} s "
-        "(their start, the draw and the serving)")
+    return (mh_spawn(lambda r: ["--mh-rank", leg, str(r), str(world), port],
+                     world, f"phase4p_{leg}"), time.monotonic())
+
+
+def mh_ranks(leg, card, started=None):
+    """Leg ``leg``'s ranks (``started`` by ``mh_start`` while this process
+    drew its reference, or started now): their RESULTs, rank order."""
+    procs, t = started or mh_start(leg)
+    res = mh_reap(procs, 600)
+    log(f"  ({leg}) {MH_WORLD[leg]} ranks done in {time.monotonic() - t:.1f}"
+        " s (their start, the draw and the serving)")
     return res
+
+
+def mh_reference(leg, started, one_process):
+    """``one_process()`` while ``started``'s ranks start; the ranks are
+    killed if it fails."""
+    try:
+        return one_process()
+    except BaseException:
+        for p, _ in started[0]:
+            p.kill()
+            p.wait()
+        raise
 
 
 def mh_report(leg, ranks, card, what):
@@ -8097,7 +8153,8 @@ def mh_agent_child(argv) -> int:
     (``engine/agent.py::main`` with ARGS) under ``XLLM_MH_COORDINATOR``,
     ``XLLM_MH_NUM_HOSTS`` and ``XLLM_MH_HOST_ID``, the engine's mesh
     placed on ``cuda:0`` as ``process_mesh`` takes one (``--tp 2`` alone
-    gives each rank a card of its own). When the agent's main returns (a
+    gives each rank a card of its own), the model cut to MH_AGENT_LAYERS
+    layers (the agent's ``engine_config``). When the agent's main returns (a
     follower at the shutdown event) or exits (the primary after SIGTERM's
     drain) it prints ``REPORT {...}``: its kernel launches, the control
     plane's and collectives' figures and its memory."""
@@ -8108,9 +8165,18 @@ def mh_agent_child(argv) -> int:
     from xllm_service_tpu_torch.parallel import multihost
     from xllm_service_tpu_torch.parallel.mesh import process_mesh
 
+    from dataclasses import replace
+
     rank, world, port, args = argv[0], argv[1], argv[2], argv[3:]
     os.environ.update(XLLM_MH_COORDINATOR=f"127.0.0.1:{port}",
                       XLLM_MH_NUM_HOSTS=world, XLLM_MH_HOST_ID=rank)
+    engine_config = agent_mod.engine_config
+
+    def cut(a):
+        ecfg = engine_config(a)
+        return replace(ecfg, model=replace(ecfg.model,
+                                           num_layers=MH_AGENT_LAYERS))
+    agent_mod.engine_config = cut
     kernels = mh_kernels()
     KERNEL_WRAPPERS.extend(kernels.values())
 
@@ -8135,8 +8201,9 @@ def mh_agent_child(argv) -> int:
 
 
 def mh_agent_leg(card):
-    """4p (b): Llama-3-8B bf16 at full width and depth served by the
-    port's agent as two ranks on this card (``--tp 2``, ``--mh-agent``):
+    """4p (b): Llama-3-8B bf16 at full width and MH_AGENT_LAYERS layers
+    served by the port's agent as two ranks on this card (``--tp 2``,
+    ``--mh-agent``):
     the primary registers with the stub master through a coordination
     server here and serves four completions of MH_AGENT_NEW greedy
     tokens, dispatched as the master dispatches them; the follower mirrors
@@ -8247,11 +8314,13 @@ def mh_leg_a(engine_mod, llama, card):
     and its half of the pool. Returns the launches summed over the
     ranks."""
     mesh = card_mesh(model=2)
-    want, served, st = mh_one_process(engine_mod, "a", None, mesh)
+    started = mh_start("a")
+    want, served, st = mh_reference("a", started, lambda: mh_one_process(
+        engine_mod, "a", None, mesh))
     log(f"  (a) the one-process model=2 engine: {st['prefix_hits']} prefix "
         f"hits, route {st['decode_route']}")
     torch.cuda.empty_cache()
-    ranks = mh_ranks("a", card)
+    ranks = mh_ranks("a", card, started)
     launches = mh_report("a", ranks, card,
                          f"llama3-8b bf16 at {MH_TP_LAYERS} layers on "
                          "model=2 as two ranks")
@@ -8305,9 +8374,11 @@ def mh_leg_d(engine_mod, card):
     on each rank's pages and the partials merged over the ranks; every
     stream equal to the one-process ``seq=2`` engine's. Returns the
     launches summed over the ranks."""
-    want, _, st = mh_one_process(engine_mod, "d", None, card_mesh(seq=2))
+    started = mh_start("d")
+    want, _, st = mh_reference("d", started, lambda: mh_one_process(
+        engine_mod, "d", None, card_mesh(seq=2)))
     torch.cuda.empty_cache()
-    ranks = mh_ranks("d", card)
+    ranks = mh_ranks("d", card, started)
     launches = mh_report("d", ranks, card, f"llama3-8b at {MH_SEQ_LAYERS} "
                          "layers on seq=2 as two ranks")
     m = mh_config("d").model
@@ -8325,18 +8396,21 @@ def mh_leg_d(engine_mod, card):
     return launches
 
 
-def mh_phase(engine_mod, llama, moe, card):
+def mh_phase(engine_mod, llama, moe, card, before_d=None):
     """Phase 4p: one engine instance over processes, each rank a process on
     this card (gloo: NCCL refuses two ranks on one device): legs (a)-(d)
-    (``mh_leg_a``, ``mh_agent_leg``, ``mh_leg_c``, ``mh_leg_d``). Returns
-    the launches of kernels 1, 2 and 6 summed over every rank of every
-    leg."""
+    (``mh_leg_a``, ``mh_agent_leg``, ``mh_leg_c``, ``mh_leg_d``).
+    ``before_d`` runs before (d), whose two ranks leave room on the card
+    for a later phase's processes to start. Returns the launches of
+    kernels 1, 2 and 6 summed over every rank of every leg."""
     total = {"paged_attention": 0, "mq_paged_attention": 0,
              "cp_paged_partial": 0}
     for tag, leg in (("a", lambda: mh_leg_a(engine_mod, llama, card)),
                      ("b", lambda: mh_agent_leg(card)),
                      ("c", lambda: mh_leg_c(engine_mod, moe, card)),
                      ("d", lambda: mh_leg_d(engine_mod, card))):
+        if tag == "d" and before_d is not None:
+            before_d()
         t = time.monotonic()
         launches = leg()
         for k in total:
@@ -8349,6 +8423,7 @@ def mh_phase(engine_mod, llama, moe, card):
 
 # ---------------------------------------------------------------- phase 4q
 GRID_NEW = 8          # tokens a stream in 4q (a)
+GRID_LAYERS = 8       # 4q (a): Llama-3-8B cut to these layers on the grid
 
 
 def grid_serve(engine_mod, cfg, params, mesh, prompts, shared, sampled,
@@ -8395,18 +8470,19 @@ def grid_serve(engine_mod, cfg, params, mesh, prompts, shared, sampled,
 
 
 def grid_leg(engine_mod, llama, cfg, params, prompts, shared, sampled,
-             phase4, kernels, card):
-    """4q (a): Llama-3-8B bf16 at full width and depth on ``seq=2 x
-    model=2``, phase 4's weights as views (16/4 heads and ffn 7168 a model
-    shard), its pool the page-and-head grid (each model shard's heads,
-    their pages split over its seq line: four shards ``[32, 2, 1024, 4,
-    16, 128]``). Phase 4's first four prompts at once (each of
+             kernels, card):
+    """4q (a): Llama-3-8B bf16 at full width and GRID_LAYERS layers
+    (``depth_view`` of phase 4's weights) on ``seq=2 x model=2``, as views
+    (16/4 heads and ffn 7168 a model shard), its pool the page-and-head
+    grid (each model shard's heads, their pages split over its seq line:
+    four shards ``[GRID_LAYERS, 2, 1024, 4, 16, 128]``). Phase 4's first four prompts at once (each of
     GRID_RING_MIN tokens or more, prefix-free, on the ring), then, once the
     first has its first token, its re-send and phase 4's first shared
     prompt (two prefix hits), and a seeded sampled request, GRID_NEW tokens
-    each. Checks: kernel 6 at 2 x 2 x 32 launches a step, kernels 1 and 3
-    idle, kernel 2 on the prefix hits, the ring count, every greedy stream
-    held to phase 4's one-device stream (``held_to``), one decode step's
+    each. Checks: kernel 6 at 2 x 2 x GRID_LAYERS launches a step, kernels
+    1 and 3 idle, kernel 2 on the prefix hits, the ring count, every greedy
+    stream held to a one-device engine's on the same schedule and depth
+    (``held_to``), one decode step's
     logits and the grid joined against the one-device route
     (``check_tp_logits``). Returns (kernel 2's and 6's launches, the
     mesh)."""
@@ -8415,13 +8491,16 @@ def grid_leg(engine_mod, llama, cfg, params, prompts, shared, sampled,
     from xllm_service_tpu_torch.parallel.sharding import shard_params
 
     paged, mq, fused, partial = kernels
+    cfg, params = depth_view(cfg, params, GRID_LAYERS)
     mesh = card_mesh(seq=2, model=2)
     log(f"  mesh seq=2 x model=2 on {[str(d) for d in mesh.devices]}")
     sharded = shard_params(params, mesh, llama.LLAMA_STACKED_RULES)
     reqs = {f"g{i}": prompts[i] for i in range(4)}
     hits = {"r0": prompts[0], "s0": shared[0]}
     sent = {**reqs, **hits}
-    want = {n: phase4["g0" if n == "r0" else n][:GRID_NEW] for n in sent}
+    want = grid_serve(engine_mod, cfg, params, None, reqs, hits, sampled,
+                      GRID_NEW, kernels)[0]
+    want = {n: want[n] for n in sent}
     rings = sum(len(p) >= GRID_RING_MIN for p in reqs.values())
     before = torch.cuda.memory_allocated()
     toks, st, launches, wall, peak, shapes, _ = grid_serve(
@@ -8451,8 +8530,8 @@ def grid_leg(engine_mod, llama, cfg, params, prompts, shared, sampled,
     assert k2 >= 2 * 2 * m.num_layers, "the prefix hits did not take kernel 2"
     assert k1 == 0 and k3 == 0, "kernel 1 or 3 ran on the grid"
     held_to(llama, cfg, params, sent, {n: toks[n] for n in sent}, want,
-            "(a) llama3-8b seq=2 x model=2 vs phase 4's one-device engine",
-            routed=False)
+            f"(a) llama3-8b seq=2 x model=2 vs a one-device engine, "
+            f"{GRID_LAYERS} layers", routed=False)
     check_tp_logits(llama, cfg, params, shared[0], mesh, sharded)
     return (k2, k6), mesh
 
@@ -8516,10 +8595,11 @@ def grid_ranks_leg(engine_mod, card):
     decode step through kernel 6 on each rank's pages and the merge over
     its seq group; every stream equal to the one-process engine's on that
     mesh. Returns the launches summed over the ranks."""
-    want, _, st = mh_one_process(engine_mod, "qd", None,
-                                 card_mesh(seq=2, model=2))
+    started = mh_start("qd")
+    want, _, st = mh_reference("qd", started, lambda: mh_one_process(
+        engine_mod, "qd", None, card_mesh(seq=2, model=2)))
     torch.cuda.empty_cache()
-    ranks = mh_ranks("qd", card)
+    ranks = mh_ranks("qd", card, started)
     launches = mh_report("qd", ranks, card, f"llama3-8b at {MH_SEQ_LAYERS} "
                          "layers on seq=2 x model=2 as four ranks")
     m = mh_config("qd").model
@@ -8642,7 +8722,7 @@ def grid_pd_leg(cfg, params, llama, prompts, shared, engine_mod, kernels,
 
 
 def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
-               shared, sampled, phase4, kernels, card):
+               shared, sampled, kernels, card, plane=None):
     """Phase 4q: ``seq`` together with ``model`` or ``expert``, legs (a),
     (c), (e), (b), (d) (``grid_leg``, phase 4a's ``tier_phase`` on (a)'s
     grid, ``grid_pd_leg``, ``grid_moe_leg``, ``grid_ranks_leg``). Returns
@@ -8652,21 +8732,24 @@ def grid_phase(engine_mod, llama, moe, page_dma, cfg, params, prompts,
     ``pd_gather`` and ``pd_scatter`` at (e)'s handoffs."""
     out = {}
     t = time.monotonic()
-    # (e)'s decode agent starts now: its start overlaps (a) and (c).
-    plane = tp_decode_plane(cfg, "seq=2,model=2", "phase4q_decode_agent.log")
+    # (e)'s decode agent (``plane``, or started now): its start overlaps
+    # the legs before (e).
+    plane = plane or tp_decode_plane(cfg, "seq=2,model=2",
+                                     "phase4q_decode_agent.log")
     try:
         (mq_a, k6_a), mesh = grid_leg(engine_mod, llama, cfg, params,
-                                      prompts, shared, sampled, phase4,
-                                      kernels, card)
+                                      prompts, shared, sampled, kernels,
+                                      card)
         log(f"  (a): {time.monotonic() - t:.1f} s")
         t = time.monotonic()
         log("  (c) phase 4a's tier round trip on (a)'s grid pool:")
-        c = tier_phase(engine_mod, cfg, params, page_dma, card, mesh=mesh)
+        c = tier_phase(engine_mod, *depth_view(cfg, params, GRID_LAYERS),
+                       page_dma, card, mesh=mesh)
         assert c[0] % 2 == 0 and c[1] % 2 == 0, \
             "a mover did not launch once a model shard"
         log(f"  (c): {time.monotonic() - t:.1f} s; kernels 4/5 {c} (one "
-            "launch a model shard over both its seq shards, blocks of [32, "
-            "2, 8, 4, 16, 128] a model shard)")
+            "launch a model shard over both its seq shards, blocks of "
+            f"[{GRID_LAYERS}, 2, 8, 4, 16, 128] a model shard)")
     except BaseException:
         close_plane(plane)
         raise
@@ -10005,6 +10088,533 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
             torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 4t
+AUTO_LAYERS = 8        # 4t: Llama-3-8B cut to these layers in the agents
+AUTO_NEW = 16          # 4t: tokens of each request
+AUTO_PAGES = 1024      # 4t: pages of each spawned agent's pool
+AUTO_HEARTBEAT_S = 1.0  # 4t: the spawned agents' heartbeat (4s (a)'s)
+# 4t: the scale-out cooldown is the actuator's pending window. While the
+# fleet is empty the planner's scale hint reads as pressure over the
+# threshold, so a cold start would otherwise launch the second agent as
+# soon as the cooldown of its own launch ran out; an agent that takes
+# longer than the window to register fails the phase anyway.
+AUTO_COOLDOWN_S = 20.0
+# 4t: idle ticks before a scale-in (0.5 s at the 0.25 s sync). Idle means
+# no bad sample in the window: the trickle below keeps one there until
+# the second wave's own samples arrive.
+AUTO_IDLE_TICKS = 2
+# 4t: the TTFT objective's slow window; the burst goes out this long minus
+# a second before the cold start's cooldown ends.
+AUTO_WINDOW_S = 3.0
+# 4t: requests that keep the objective breached while the second agent
+# starts, one a TRICKLE_S (short prompts drawn from a seed; at most
+# AUTO_TRICKLE, past which the agent took longer than the pending window).
+AUTO_TRICKLE = 48
+TRICKLE_S = 1.0
+
+
+def auto_agent_args(cfg):
+    """The spawned agents' command line after the script's path (the
+    actuator fills ``{coordination_addr}`` and ``{port}``)."""
+    return ["--autoscaled-agent", "--coordination-addr",
+            "{coordination_addr}", "--port", "{port}",
+            "--model-config", "llama3_8b", "--model-id", "llama3-8b",
+            "--num-pages", str(AUTO_PAGES), "--page-size", str(cfg.page_size),
+            "--max-batch-size", str(cfg.max_batch_size),
+            "--max-seq-len", str(cfg.max_seq_len),
+            "--decode-horizon", str(cfg.decode_horizon)]
+
+
+def auto_cut(ecfg):
+    """An agent's engine configuration cut to AUTO_LAYERS layers: the
+    engine then draws those layers from its seed, as any engine draws
+    random weights."""
+    from dataclasses import replace
+
+    return replace(ecfg, model=replace(ecfg.model, num_layers=AUTO_LAYERS))
+
+
+def autoscaled_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --autoscaled-agent ARGS...`` (phase 4t runs it
+    through ``python3 -c``, importing this script): the agent phase
+    4t's master launches through its local actuator (its spawn command):
+    the agent's own entry point (``engine/agent.py::main`` with ARGS) on
+    Llama-3-8B at AUTO_LAYERS layers, beating every AUTO_HEARTBEAT_S, the
+    token ids it pushes recorded by service request id. When the agent
+    exits (SIGTERM's drain, from the actuator's reap or stop) it prints
+    ``REPORT {...}``: its name, the launches of kernels 1 and 2, the
+    tokens, the seconds from start to registration and its memory."""
+    import logging
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+
+    t0 = time.monotonic()
+    kernels = mh_kernels()
+    KERNEL_WRAPPERS.extend(kernels.values())
+    engine_config = agent_mod.engine_config
+    build_agent = agent_mod.build_agent
+    box: dict = {"toks": {}, "entered": time.time()}
+
+    def build(args, coord=None):
+        agent = build_agent(args, coord)
+        agent.cfg.heartbeat_interval_s = AUTO_HEARTBEAT_S
+        register = agent.register
+
+        def registered():
+            register()
+            box.setdefault("registered_s", time.monotonic() - t0)
+        agent.register = registered
+        push = agent.streamer.push
+
+        def recording(dest, out):
+            for o in out.outputs:
+                box["toks"].setdefault(out.service_request_id, []).extend(
+                    o.token_ids)
+            push(dest, out)
+        agent.streamer.push = recording
+        box["name"] = agent.name
+        return agent
+
+    agent_mod.engine_config = lambda args: auto_cut(engine_config(args))
+    agent_mod.build_agent = build
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    try:
+        agent_mod.main(argv)
+    finally:
+        print("REPORT " + json.dumps({
+            **box, "launches": {k: fn.launches for k, fn in kernels.items()},
+            "peak": torch.cuda.max_memory_allocated(),
+            "exit_s": time.monotonic() - t0}), flush=True)
+    return 0
+
+
+def auto_report(log_path):
+    """The REPORT line of a spawned agent's log (None before it exits)."""
+    with open(log_path) as f:
+        for line in f:
+            if line.startswith("REPORT "):
+                return json.loads(line[len("REPORT "):])
+    return None
+
+
+def decision_actions(report, kind):
+    """The ``kind`` actions of an ``/admin/autoscaler`` report, oldest
+    first, each with its decision's ``ts_ms``."""
+    return [dict(a, ts_ms=d["ts_ms"]) for d in reversed(report["decisions"])
+            for a in d["actions"] if a["kind"] == kind]
+
+
+def default_launcher_leg(card, slo):
+    """4t (d): a master with the local actuator and no spawn command on a
+    coordination server of its own (minimum and maximum 1, the failure
+    detection of the CPU drills, the SLO options ``slo`` of the phase's
+    master: the objectives are the process's, and a master sets them when
+    it starts): its controller launches the port's fake engine (``python
+    -m xllm_service_tpu_torch.testing.fake_engine``, the default
+    launcher), a completion comes back with its reply, the fake engine's
+    process is killed, and the controller replaces it with a second fake
+    engine that serves the next completion."""
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.coordination.memory import MemoryStore
+    from xllm_service_tpu_torch.coordination.server import (
+        CoordinationServer,
+    )
+    from xllm_service_tpu_torch.master import Master
+
+    srv = CoordinationServer(host="127.0.0.1", port=0,
+                             store=MemoryStore(expiry_tick_s=0.05))
+    srv.start_background()
+    master = Master(ServiceOptions(
+        host="127.0.0.1", http_port=0, rpc_port=0,
+        coordination_addr=f"127.0.0.1:{srv.port}", lease_ttl_s=1.0,
+        sync_interval_s=0.2, reconcile_interval_s=0.05,
+        heartbeat_silence_to_suspect_s=0.3,
+        detect_disconnected_instance_interval_s=0.3,
+        health_probe_attempts=1, health_probe_timeout_s=0.2,
+        autoscaler_enabled=True, autoscaler_actuator="local",
+        autoscaler_min_instances=1, autoscaler_max_instances=1,
+        autoscaler_stale_hold_s=30.0, autoscaler_spawn_retry_base_s=0.2,
+        autoscaler_spawn_retry_max_s=1.0, brownout_enabled=False, **slo))
+    master.start()
+    mgr = master.scheduler.instance_mgr
+    act = master.scheduler.autoscaler.actuator
+    try:
+        t = time.monotonic()
+        names = []
+        texts = []
+        for round_ in range(2):
+            wait_for(lambda: len(mgr.routing_snapshot().schedulable) == 1
+                     and not set(mgr.routing_snapshot().schedulable)
+                     & set(names),
+                     "a fake engine from the default launcher", timeout=30)
+            names.append(sorted(mgr.routing_snapshot().schedulable)[0])
+            c = MasterCall(master.http_port, "/v1/completions", {
+                "model": "fake-model", "prompt": "autoscale",
+                "max_tokens": 64})
+            assert c.status == 200, (c.status, c.body[:200])
+            texts.append(c.json()["choices"][0]["text"])
+            if round_ == 0:
+                took = time.monotonic() - t
+                t = time.monotonic()
+                act._procs[names[0]].kill()
+        replaced = time.monotonic() - t
+        assert texts == ["Hello from the fake engine!"] * 2, texts
+        assert act.launched_total == 2 and names[0] != names[1], \
+            (act.launched_total, names)
+        log(f"  (d) default launcher: fake engine {names[0]} up and serving "
+            f"{took:.1f} s after the master's start; killed; replaced by "
+            f"{names[1]}, serving {replaced:.1f} s after the kill; "
+            f"{act.launched_total} launches ({card})")
+    finally:
+        master.stop()
+        srv.stop()
+
+
+def autoscale_phase(cfg, llama, engine_mod, prompts, shared,
+                    kernels, card, on_full=None):
+    """Phase 4t: the autoscaler's closed loop on the card. The port's
+    coordination server on a loopback port and the port's master with the
+    autoscaler on and the local actuator, whose spawn command launches
+    port agents of this script (``--autoscaled-agent``): Llama-3-8B at
+    full width and AUTO_LAYERS layers, each process with its own engine,
+    pool and CUDA context. ``min_instances`` 1, ``max_instances`` 2, the
+    TTFT objective 1 ms over windows of 2 and AUTO_WINDOW_S s, one breach
+    tick,
+    AUTO_IDLE_TICKS idle ticks, a scale-out cooldown of AUTO_COOLDOWN_S (the pending
+    window). (a) cold start: the controller launches the first agent
+    (live 0 below the minimum); the seconds from the decision to the
+    registration are logged. (b) scale out: once the cooldown is about to
+    end (the samples of a burst sent earlier would have left the window),
+    a burst of four of phase 4's
+    prompts, then its first shared-prefix prompt once the first's blocks
+    are in the master's index, breaches the objective; the controller
+    launches the second agent, which registers while short requests keep
+    the objective breached (one every TRICKLE_S); a second wave (three
+    prompts and the other shared-prefix prompt) goes to both agents.
+    ``/admin/autoscaler`` shows the scale-out and its reason, ``/metrics``
+    ``autoscaler_actions_total``, ``/metrics/fleet`` both agents' series,
+    ``/admin/trace?scope=fleet`` an agent's ``engine.*`` spans under the
+    master's root. (c) scale in: with no traffic the controller drains the
+    least-loaded agent (``/rpc/drain``), which leaves the fleet and is
+    reaped (SIGTERM: it exits 0 by itself), with no further launch. The
+    streams are held to an in-process engine on the same configuration
+    and seed (``compare_streams``); kernel 1 must run in both agents and
+    kernel 2 on the prefix hits. (d) ``default_launcher_leg``, while the
+    first agent starts. ``on_full`` runs once the second agent reports
+    (a later phase starts its processes there). Returns the agents'
+    launches of kernels 1 and 2."""
+    import shlex
+
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.common.slo import SLO_MONITOR
+    from xllm_service_tpu_torch.common.tracing import TRACER
+    from xllm_service_tpu_torch.coordination.memory import MemoryStore
+    from xllm_service_tpu_torch.coordination.server import (
+        CoordinationServer,
+    )
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+    from xllm_service_tpu_torch.master import Master
+    from xllm_service_tpu_torch.overload import BROWNOUT
+
+    paged_attention, mq_paged_attention = kernels
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    logdir = os.path.join(root, "build")
+    os.makedirs(logdir, exist_ok=True)
+    args = auto_agent_args(cfg)
+    # The agents import this script as a module (its bytecode cached after
+    # the first), not run it as __main__.
+    boot = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "sys.exit(chip_smoke.autoscaled_agent_child(sys.argv[2:]))"
+            % root)
+    spawn = " ".join(shlex.quote(a) for a in
+                     [sys.executable, "-c", boot, *args])
+    acfg = auto_cut(agent_mod.engine_config(agent_mod._parser().parse_args(
+        [a.format(coordination_addr="127.0.0.1:1", port=0)
+         for a in args[1:]])))
+    tracing_before = (TRACER.enabled, TRACER.sample_rate,
+                      TRACER.store.capacity)
+    slo = dict(slo_ttft_ms=1.0, slo_tpot_ms=60000.0, slo_fast_window_s=2.0,
+               slo_slow_window_s=AUTO_WINDOW_S)
+    logdir_before = os.environ.get("XLLM_AUTOSCALER_LOGDIR")
+    os.environ["XLLM_AUTOSCALER_LOGDIR"] = logdir
+    srv = CoordinationServer(host="127.0.0.1", port=0, store=MemoryStore())
+    srv.start_background()
+    addr = f"127.0.0.1:{srv.port}"
+    master = Master(ServiceOptions(
+        host="127.0.0.1", http_port=0, rpc_port=0, coordination_addr=addr,
+        sync_interval_s=0.25, reconcile_interval_s=0.25,
+        detect_disconnected_instance_interval_s=0.5,
+        autoscaler_drain_grace_s=0.5, brownout_enabled=False,
+        autoscaler_enabled=True, autoscaler_actuator="local",
+        autoscaler_spawn_cmd=spawn, autoscaler_min_instances=1,
+        autoscaler_max_instances=2, autoscaler_breach_ticks=1,
+        autoscaler_idle_ticks=AUTO_IDLE_TICKS,
+        autoscaler_scale_out_cooldown_s=AUTO_COOLDOWN_S,
+        autoscaler_scale_in_cooldown_s=0.5, autoscaler_stale_hold_s=30.0,
+        autoscaler_decision_log_capacity=1024, **slo))
+    if logdir_before is None:
+        os.environ.pop("XLLM_AUTOSCALER_LOGDIR")
+    else:
+        os.environ["XLLM_AUTOSCALER_LOGDIR"] = logdir_before
+    master.start()
+    sched = master.scheduler
+    mgr, kvm, ctl = sched.instance_mgr, sched.kvcache_mgr, sched.autoscaler
+    act = ctl.actuator
+    port = master.http_port
+    procs: dict = {}          # name -> Popen, kept past the actuator's reap
+    logs: dict = {}
+
+    def report():
+        return MasterCall(port, "/admin/autoscaler", None).json()
+
+    def fleet():
+        return sorted(mgr.routing_snapshot().schedulable)
+
+    def launched(n):
+        wait_for(lambda: len(act.live_children()) >= n,
+                 f"launch {n} by the controller", timeout=30)
+        for name in act.live_children():
+            procs.setdefault(name, act._procs[name])
+            logs.setdefault(name, os.path.join(
+                logdir, f"autoscaled_{name.rsplit(':', 1)[1]}.log"))
+
+    def registered(n, what):
+        t = time.monotonic()
+        wait_for(lambda: len(fleet()) == n and all(
+            mgr.load_info_ages_s().get(x, -1) >= 0 for x in fleet()),
+            what, timeout=60)
+        return time.monotonic() - t
+
+    calls: dict = {}
+
+    def send_all(batch):
+        def send(name, ids, stream):
+            body = {"model": "llama3-8b", "prompt": ids, "stream": stream,
+                    "max_tokens": AUTO_NEW, "temperature": 0.0,
+                    "ignore_eos": True}
+            if stream:
+                body["stream_options"] = {"include_usage": True}
+            calls[name] = MasterCall(port, "/v1/completions", body, stream)
+        threads = [threading.Thread(target=send, args=b) for b in batch]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+
+    try:
+        # (a) cold start; the reference streams are drawn meanwhile.
+        log(f"  coordination server {addr}; master HTTP :{port}, local "
+            f"actuator, spawn {' '.join(args[:1])} ... (llama3-8b at "
+            f"{AUTO_LAYERS} layers, {AUTO_PAGES} pages)")
+        launched(1)
+        first = act.live_children()[0]
+        # (d) and the reference streams run while the first agent starts
+        # ((d)'s samples leave the window long before the cooldown ends).
+        default_launcher_leg(card, slo)
+        ref_params = llama.init_params(
+            acfg.model, torch.Generator(device="cuda").manual_seed(acfg.seed),
+            "cuda")
+        burst = {f"b{i}": prompts[i] for i in range(4)}
+        wave = {f"w{i}": prompts[4 + i] for i in range(3)}
+        hits = {"s0": shared[0], "s1": shared[1]}
+        rng = np.random.default_rng(24)
+        trickle = {f"t{i}": rng.integers(3, acfg.model.vocab_size,
+                                         size=int(n)).tolist()
+                   for i, n in enumerate(rng.integers(64, 129,
+                                                      size=AUTO_TRICKLE))}
+        want = serve_greedy(engine_mod, acfg, ref_params,
+                            {**burst, **wave, **trickle}, hits,
+                            max_tokens=AUTO_NEW)[0]
+        wait_s = registered(1, "the first agent's registration")
+        rep = report()
+        cold = decision_actions(rep, "scale_out")
+        assert len(cold) == 1 and "replacing lost capacity" in \
+            cold[0]["reason"], cold
+        up_s = time.time() - cold[0]["ts_ms"] / 1000
+        log(f"  (a) cold start: {first} launched by the controller "
+            f"({cold[0]['reason']!r}); registered and reporting "
+            f"{up_s:.1f} s after the decision ((d) and the reference "
+            f"streams ran meanwhile; waited {wait_s:.1f} s after them)")
+        assert up_s < act.SPAWN_PENDING_TIMEOUT_S, \
+            f"the first agent took {up_s:.1f} s, past the pending window"
+
+        # (b) the burst breaches; the second agent joins.
+        time.sleep(max(0.0, cold[0]["ts_ms"] / 1000 + AUTO_COOLDOWN_S
+                       - (AUTO_WINDOW_S - 1.0) - time.time()))
+        t_burst = time.time()
+        send_all([(n, p, i % 2 == 0) for i, (n, p) in enumerate(
+            burst.items())])
+        blocks = 512 // acfg.hash_block_size
+        wait_for(lambda: kvm.match(prompts[0][:512]).scores.get(
+            first, 0) >= blocks, "b0's blocks in the master's index",
+            timeout=30)
+        send_all([("s0", shared[0], True)])
+        # The traffic goes on while the second agent starts and the fleet
+        # is checked (one request a TRICKLE_S): the objective stays
+        # breached, so an idle streak cannot retire an agent before then.
+        stop_trickle = threading.Event()
+
+        def trickle_on():
+            for n, p in trickle.items():
+                if stop_trickle.wait(TRICKLE_S):
+                    return
+                send_all([(n, p, False)])
+        trickler = threading.Thread(target=trickle_on)
+        trickler.start()
+        try:
+            launched(2)
+            second = [n for n in act.live_children() if n != first][0]
+            out = [a for a in decision_actions(report(), "scale_out")
+                   if a["ts_ms"] > cold[0]["ts_ms"]]
+            # The burst breaches through its TTFT samples or through the
+            # planner's pressure (its queue), whichever the tick sees first.
+            assert len(out) == 1 and out[0]["ts_ms"] / 1000 >= t_burst \
+                and out[0]["reason"] in ("SLO burn over alert",
+                                         "fleet pressure over threshold"), \
+                out
+            wait_s = registered(2, "the second agent's registration")
+            out_s = time.time() - out[0]["ts_ms"] / 1000
+            if on_full is not None:
+                on_full()
+            log(f"  (b) the burst ({len(burst) + 1} requests) breached: "
+                f"scale_out ({out[0]['reason']!r}) "
+                f"{out[0]['ts_ms'] / 1000 - t_burst:.1f} s after the burst "
+                f"began; {second} registered and reporting {out_s:.1f} s "
+                f"after the decision (waited {wait_s:.1f} s)")
+            assert out_s < act.SPAWN_PENDING_TIMEOUT_S, \
+                f"the second agent took {out_s:.1f} s, past the pending " \
+                "window"
+            # The wave and the fleet's surface, while the trickle keeps
+            # both agents in the fleet.
+            send_all([(n, p, i % 2 == 1) for i, (n, p) in enumerate(
+                [*wave.items(), ("s1", shared[1])])])
+            metrics = MasterCall(port, "/metrics", None).body.decode()
+            actions = prom_value(metrics, "autoscaler_actions_total",
+                                 action="scale_out")
+            assert actions is not None and actions >= 2, actions
+            fleet_text = MasterCall(port, "/metrics/fleet",
+                                    None).body.decode()
+            for name in (first, second):
+                assert prom_value(fleet_text, "fleet_scrape_up",
+                                  instance=name, role="engine") == 1, name
+                assert prom_value(fleet_text, "engine_heartbeats_total",
+                                  instance=name) is not None, name
+            sid = calls["w0"].headers["x-request-id"]
+            tr = MasterCall(
+                port, f"/admin/trace?request_id={sid}&scope=fleet",
+                None).json()
+            assert len(tr["tree"]) == 1 and \
+                tr["tree"][0]["point"] == "frontend.request", tr["tree"]
+            engine_spans = sorted({(s["point"], s.get("instance", ""))
+                                   for s in tr["spans"]
+                                   if s["point"].startswith("engine.")})
+            assert engine_spans and all(
+                i in (first, second) for _, i in engine_spans), engine_spans
+        finally:
+            stop_trickle.set()
+            trickler.join()
+        t_quiet = time.time()    # the last request has ended
+        sent = {n: p for n, p in {**burst, **wave, **hits,
+                                  **trickle}.items() if n in calls}
+        for n, c in calls.items():
+            if c.headers.get("content-type") == "text/event-stream":
+                check_sse(c, n, AUTO_NEW)
+            else:
+                assert c.status == 200, (n, c.status, c.body[:200])
+                assert c.json()["usage"]["completion_tokens"] == AUTO_NEW
+        log(f"  (b) /metrics autoscaler_actions_total{{scale_out}} "
+            f"{actions:.0f}; /metrics/fleet scrapes both agents; the fleet "
+            f"trace of w0: one tree, {tr['num_spans']} spans, the agent's "
+            f"{engine_spans}")
+
+        # (c) quiet: the controller drains one agent, which is reaped.
+        wait_for(lambda: decision_actions(report(), "scale_in"),
+                 "the scale-in decision", timeout=30)
+        scale_in = decision_actions(report(), "scale_in")[0]
+        victim = scale_in["instance"]
+        drain_s = scale_in["ts_ms"] / 1000 - t_quiet
+        wait_for(lambda: mgr.get_instance_meta(victim) is None,
+                 "the drained agent leaving the fleet", timeout=30)
+        left_s = time.time() - scale_in["ts_ms"] / 1000
+        t_left = time.monotonic()
+        wait_for(lambda: victim not in act.live_children()
+                 and procs[victim].poll() is not None,
+                 "the drained agent's reap", timeout=30)
+        reap_s = time.monotonic() - t_left
+        assert procs[victim].returncode == 0, \
+            f"the reaped agent exited {procs[victim].returncode}"
+        survivor = first if victim == second else second
+        time.sleep(1.0)          # a few more ticks: nothing re-launched
+        assert act.launched_total == 2 and act.live_children() == \
+            [survivor], (act.launched_total, act.live_children())
+        assert fleet() == [survivor] and \
+            len(decision_actions(report(), "scale_out")) == 2
+        log(f"  (c) quiet: scale_in of {victim} ({scale_in['reason']!r}) "
+            f"{drain_s:.1f} s after the last stream; it left the fleet "
+            f"within {left_s:.1f} s of the decision and exited 0 "
+            f"{reap_s:.1f} s after we saw it leave (SIGTERM's drain; the "
+            "reap waits 5 s before it kills); 2 launches in all")
+    finally:
+        master.stop()            # the actuator's stop ends the survivor
+        srv.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        BROWNOUT.reset()
+        d = ServiceOptions()
+        SLO_MONITOR.configure(ttft_ms=d.slo_ttft_ms, tpot_ms=d.slo_tpot_ms,
+                              budget=d.slo_error_budget,
+                              fast_s=d.slo_fast_window_s,
+                              slow_s=d.slo_slow_window_s,
+                              alert=d.slo_burn_alert)
+        TRACER.configure(enabled=tracing_before[0],
+                         sample_rate=tracing_before[1],
+                         capacity=tracing_before[2], mirror=None)
+
+    # The agents' reports: tokens, launches, memory.
+    reports = {n: auto_report(path) for n, path in logs.items()}
+    assert all(reports.values()), \
+        {n: r is not None for n, r in reports.items()}
+    gib = 2 ** 30
+    served, got = {}, {}
+    launches_at = {first: cold[0]["ts_ms"] / 1000,
+                   second: out[0]["ts_ms"] / 1000}
+    for name, r in reports.items():
+        log(f"  agent {name}: its code ran "
+            f"{r['entered'] - launches_at[name]:.1f} s after the launch "
+            f"decision (the interpreter's start and imports), registered "
+            f"{r['registered_s']:.1f} s later, launches {r['launches']}, peak "
+            f"{r['peak'] / gib:.2f} GiB allocated, exit at "
+            f"{r['exit_s']:.1f} s ({card})")
+        for n, c in calls.items():
+            sid_ = c.headers["x-request-id"]
+            if sid_ in r["toks"]:
+                served[n] = name
+                got[n] = r["toks"][sid_]
+    assert sorted(served) == sorted(sent), served
+    assert served["s0"] == served["s1"] == first, \
+        f"CAR did not send the shared prefixes to their holder: {served}"
+    assert any(served[n] == second for n in wave), \
+        f"no request of the second wave reached the second agent: {served}"
+    k1 = {n: r["launches"]["paged_attention"] for n, r in reports.items()}
+    k2 = {n: r["launches"]["mq_paged_attention"]
+          for n, r in reports.items()}
+    assert all(v > 0 for v in k1.values()), f"kernel 1 idle in an agent {k1}"
+    assert k2[first] > 0, f"kernel 2 not launched on the prefix hits {k2}"
+    log(f"  placement {served}; kernels 1 {k1}, 2 {k2}")
+    compare_streams(llama, acfg, ref_params, sent, got,
+                    {n: want[n] for n in sent},
+                    "4t: the spawned agents vs an in-process engine")
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4t: {time.monotonic() - t_phase:.1f} s")
+    return sum(k1.values()), sum(k2.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -10044,11 +10654,19 @@ def main() -> int:
         f"python {sys.version.split()[0]} | {card} | "
         f"devices {torch.cuda.device_count()}")
 
-    # Phase 2: build the five libraries in parallel.
+    # Phase 2: the compile gate builds the six libraries in parallel and
+    # launches each kernel arm once.
+    from xllm_service_tpu_torch.benchmarks import compile_gate
+
     t = time.monotonic()
-    logs = _build.build(verbose=True)
-    log(f"[2] built {sorted(logs) or 'nothing (up to date)'} in "
-        f"{time.monotonic() - t:.1f} s into {_build.BUILD_DIR}")
+    logs: dict = {}
+    gate = compile_gate.run_gate(logs=logs)
+    log(f"[2] compile gate: built {sorted(logs) or 'nothing (up to date)'} "
+        f"in {time.monotonic() - t:.1f} s into {_build.BUILD_DIR}; arms "
+        f"launched once each")
+    print(json.dumps(gate), flush=True)
+    assert gate["backend"] == "cuda" and not gate["failed_arms"] and all(
+        v["ok"] for v in gate["arms"].values()), gate
     for name, text in logs.items():
         for line in ptxas_report(text):
             log(f"  {name}: {line}")
@@ -10097,8 +10715,8 @@ def main() -> int:
     k2_groups = check_mq_groups(mq_paged_attention, mq_paged_attention_plain,
                                 mq_route)
     k4_tp, k5_tp = check_page_movers(
-        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=32, n_kv=2,
-        hd=HD, what="llama3-8b model=4 shard", sweep=False)
+        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=TP_LAYERS,
+        n_kv=2, hd=HD, what="llama3-8b model=4 shard", sweep=False)
     log(f"  a model shard's shapes: {time.monotonic() - t:.1f} s")
     log("[3] a seq x model grid shard's shapes: kernel 6 at a model=2 "
         "shard's 16/4 heads, kernels 4-5 at a seq=2 x model=2 grid shard's "
@@ -10110,8 +10728,9 @@ def main() -> int:
                               what="llama3-8b model=2 shard's 16/4 heads",
                               extras=False, seq=2)
     k4_grid, k5_grid = check_page_movers(
-        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=32, n_kv=4,
-        hd=HD, what="llama3-8b seq=2 x model=2 grid shard", sweep=False,
+        page_dma, build_mesh, MeshConfig, cp.ShardedPages, L=GRID_LAYERS,
+        n_kv=4, hd=HD, what="llama3-8b seq=2 x model=2 grid shard",
+        sweep=False,
         seq=2)
     log(f"  a grid shard's shapes: {time.monotonic() - t:.1f} s")
 
@@ -10300,29 +10919,50 @@ def main() -> int:
                               (paged_attention, mq_paged_attention), card)
     log(f"  phase 4s: {time.monotonic() - t:.1f} s")
 
+    # Phase 4t: the autoscaler's closed loop.
+    log("[4t] the autoscaler's closed loop: the port's master with the "
+        "local actuator launches, drains and reaps port agents "
+        f"(llama3-8b at {AUTO_LAYERS} layers), then replaces a killed "
+        "fake engine through the default launcher "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    # 4o (f)'s decode agent starts once 4t's second agent reports: its
+    # start overlaps the rest of 4t and 4o (a), (b).
+    planes: dict = {}
+    try:
+        t_launches = autoscale_phase(
+            cfg, llama, engine_mod, prompts, shared,
+            (paged_attention, mq_paged_attention), card,
+            on_full=lambda: planes.setdefault("o", tp_decode_plane(
+                cfg, "2", "phase4o_decode_agent.log")))
+    except BaseException:
+        if "o" in planes:
+            close_plane(planes["o"])
+        raise
+
     # Phase 4o (a), (b), (f): the model axis on phase 4's weights.
     log("[4o] the tensor, expert and data axes in one process on this card "
         "repeated: (a) llama3-8b bf16 on model=4, (b) its tier round trip, "
         "(f) model=2 PD pairs "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
-    # (f)'s decode agent starts now: its start overlaps (a) and (b).
-    o_plane = tp_decode_plane(cfg, "2", "phase4o_decode_agent.log")
+    o_plane = planes.get("o") or tp_decode_plane(
+        cfg, "2", "phase4o_decode_agent.log")
     try:
         o_a, tp_mesh = tp_leg(engine_mod, llama, cfg, params, prompts,
-                              shared, runs[0][0],
+                              shared,
                               (paged_attention, mq_paged_attention,
                                fused_decode_attention, cp.paged_partial),
                               card)
         log(f"  (a): {time.monotonic() - t:.1f} s")
         t_ = time.monotonic()
         log("  (b) phase 4a's tier round trip on (a)'s model=4 pool:")
-        o_b = tier_phase(engine_mod, cfg, params, page_dma, card,
-                         mesh=tp_mesh)
+        o_b = tier_phase(engine_mod, *depth_view(cfg, params, TP_LAYERS),
+                         page_dma, card, mesh=tp_mesh)
         assert o_b[0] % 4 == 0 and o_b[1] % 4 == 0, \
             "a mover did not launch once a shard"
         log(f"  (b): {time.monotonic() - t_:.1f} s; kernels 4/5 {o_b} (one "
-            "launch a shard, blocks of [32, 2, 8, 2, 16, 128] a shard)")
+            f"launch a shard, blocks of [{TP_LAYERS}, 2, 8, 2, 16, 128] a "
+            "shard)")
     except BaseException:
         close_plane(o_plane)
         raise
@@ -10335,14 +10975,24 @@ def main() -> int:
     # Phase 4p: one engine instance over processes, ranks on this card.
     log("[4p] the mesh over processes, ranks on this card over gloo: (a) "
         f"llama3-8b at {MH_TP_LAYERS} layers on model=2 as two ranks, (b) "
-        "the agent as two ranks, "
+        f"the agent as two ranks at {MH_AGENT_LAYERS} layers, "
         f"(c) mixtral-8x7b int8 at {MH_MOE_LAYERS} layers on expert=2 x "
         f"model=2 as four ranks, (d) llama3-8b at {MH_SEQ_LAYERS} layers "
         "on seq=2 as two ranks "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
     from xllm_service_tpu_torch.models import deepseek_moe
-    p_launches = mh_phase(engine_mod, llama, deepseek_moe, card)
+    # 4q (e)'s decode agent starts before 4p (d): its start overlaps (d)
+    # and 4q (a), (c).
+    try:
+        p_launches = mh_phase(
+            engine_mod, llama, deepseek_moe, card,
+            before_d=lambda: planes.setdefault("q", tp_decode_plane(
+                cfg, "seq=2,model=2", "phase4q_decode_agent.log")))
+    except BaseException:
+        if "q" in planes:
+            close_plane(planes["q"])
+        raise
     log(f"  phase 4p: {time.monotonic() - t:.1f} s")
 
     # Phase 4q: seq together with model or expert.
@@ -10356,9 +11006,9 @@ def main() -> int:
     t = time.monotonic()
     q_launches = grid_phase(engine_mod, llama, deepseek_moe, page_dma, cfg,
                             params, prompts, shared, sampled_prompt,
-                            runs[0][0], (paged_attention, mq_paged_attention,
-                                         fused_decode_attention,
-                                         cp.paged_partial), card)
+                            (paged_attention, mq_paged_attention,
+                             fused_decode_attention, cp.paged_partial), card,
+                            plane=planes.get("q"))
     log(f"  phase 4q: {time.monotonic() - t:.1f} s")
 
     # Phase 4r: chunks riding on a model axis, the pipeline, the train step.
@@ -10427,7 +11077,7 @@ def main() -> int:
              + m_launches["paged"]
              + n_launches["paged"] + o_a[0] + o_c[0]
              + m_launches["ep_paged"] + p_launches["paged_attention"]
-             + r_launches[0]),
+             + r_launches[0] + t_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
@@ -10436,7 +11086,7 @@ def main() -> int:
              + m_launches["mq"]
              + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
              + p_launches["mq_paged_attention"] + q_launches["mq"]
-             + r_launches[1]),
+             + r_launches[1] + t_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
@@ -10524,4 +11174,6 @@ if __name__ == "__main__":
         sys.exit(mh_rank_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--mh-agent"]:
         sys.exit(mh_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--autoscaled-agent"]:
+        sys.exit(autoscaled_agent_child(sys.argv[2:]))
     sys.exit(main())

@@ -4,11 +4,15 @@
 and ``chip_smoke.py`` imports none of them. Nor does the port import the
 third-party packages its card's machine lacks (``aiohttp``, ``requests``,
 ``msgpack``, ``tokenizers``): its agent, master and coordination server
-are written on the standard library, and both entry points
-(``python -m xllm_service_tpu_torch.master`` and ``python -m
-xllm_service_tpu_torch.coordination.server``) run in a process that
-imports none of them, as does a second master started beside a live one
-(a replica frontend with the handoff relay's client). ``jinja2`` (PyTorch requires it) and PIL are on the card's
+are written on the standard library, and the entry points
+(``python -m xllm_service_tpu_torch.master``, ``python -m
+xllm_service_tpu_torch.coordination.server`` and ``python -m
+xllm_service_tpu_torch.testing.fake_engine``) run in a process that
+imports none of them, as do a second master started beside a live one
+(a replica frontend with the handoff relay's client), a fake engine
+serving from its entry point, and a master started with
+``--autoscaler-enabled --autoscaler-actuator local`` whose default
+launcher starts the port's fake engine. ``jinja2`` (PyTorch requires it) and PIL are on the card's
 machine: the chat template and the image decode use them, as the
 reference does."""
 
@@ -68,7 +72,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "multimaster.handoff", "http_service.web",
               "http_service.client", "scheduler.policies.slo_aware",
               "http_service.connection", "http_service.request_tracer",
-              "http_service.service"):
+              "http_service.service",
+              # The autoscaler, the fake engine and the compile gate.
+              "autoscaler", "autoscaler.controller", "autoscaler.actuator",
+              "testing", "testing.fake_engine", "benchmarks.compile_gate"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -111,7 +118,8 @@ def test_port_sources_import_neither():
 
 
 ENTRY_POINTS = ("xllm_service_tpu_torch.master",
-                "xllm_service_tpu_torch.coordination.server")
+                "xllm_service_tpu_torch.coordination.server",
+                "xllm_service_tpu_torch.testing.fake_engine")
 
 
 def test_entry_points_run_without_jax_the_reference_or_aiohttp():
@@ -191,3 +199,110 @@ def test_second_master_entry_point_runs_without_jax_the_reference_or_aiohttp():
     assert lines[0] == 'HELLO {"status": "ok", "master": false} True', lines
     assert lines[1] == "[]", lines[1]
     assert lines[-1] == "STOPPED"
+
+
+_BAD = ("    bad = sorted(n for n in sys.modules\n"
+        f"                 if n.split('.')[0] in "
+        f"{FORBIDDEN + NOT_ON_THE_CARD!r})\n"
+        "    print(repr(bad), flush=True)\n")
+
+
+def test_fake_engine_entry_point_serves_without_jax_the_reference_or_aiohttp():
+    """``python -m xllm_service_tpu_torch.testing.fake_engine`` in a
+    process beside the port's coordination server: it registers, serves
+    ``/health``, the process's modules are listed, and SIGTERM ends it
+    with exit 0 and its registration gone."""
+    code = (
+        "import http.client, json, os, runpy, signal, sys, threading, time\n"
+        "from xllm_service_tpu_torch.common.net import pick_free_port\n"
+        "from xllm_service_tpu_torch.coordination.memory import (\n"
+        "    InMemoryCoordination, MemoryStore)\n"
+        "from xllm_service_tpu_torch.coordination.server import "
+        "CoordinationServer\n"
+        "store = MemoryStore(expiry_tick_s=0.05)\n"
+        "srv = CoordinationServer(host='127.0.0.1', port=0, store=store)\n"
+        "srv.start_background()\n"
+        "coord = InMemoryCoordination(store)\n"
+        "port = pick_free_port()\n"
+        "key = f'XLLM:INSTANCE:MIX:127.0.0.1:{port}'\n"
+        "def probe():\n"
+        "    for _ in range(300):\n"
+        "        if coord.get(key):\n"
+        "            break\n"
+        "        time.sleep(0.1)\n"
+        "    c = http.client.HTTPConnection('127.0.0.1', port, timeout=5)\n"
+        "    c.request('GET', '/health')\n"
+        "    print('HEALTH', c.getresponse().read().decode())\n"
+        + _BAD +
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=probe, daemon=True).start()\n"
+        "sys.argv = ['fake_engine', '--coordination-addr',\n"
+        "            f'127.0.0.1:{srv.port}', '--port', str(port)]\n"
+        "runpy.run_module('xllm_service_tpu_torch.testing.fake_engine', "
+        "run_name='__main__')\n"
+        "print('GONE', coord.get(key) is None)\n"
+        "srv.stop()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [ln for ln in out.stdout.strip().splitlines()
+             if not ln.startswith("fake engine ")]
+    assert lines == ['HEALTH {"status": "ok"}', "[]", "GONE True"], lines
+
+
+def test_autoscaling_master_launches_the_ports_fake_engine():
+    """``python -m xllm_service_tpu_torch.master --autoscaler-enabled
+    --autoscaler-actuator local`` with no spawn command, beside the port's
+    coordination server: its controller's first tick launches the port's
+    fake engine (``python -m xllm_service_tpu_torch.testing.fake_engine``),
+    which registers; the master's modules are listed; SIGTERM stops the
+    master, whose actuator ends the child."""
+    code = (
+        "import json, os, runpy, signal, sys, threading, time\n"
+        "from xllm_service_tpu_torch.common.net import pick_free_port\n"
+        "from xllm_service_tpu_torch.coordination.memory import (\n"
+        "    InMemoryCoordination, MemoryStore)\n"
+        "from xllm_service_tpu_torch.coordination.server import "
+        "CoordinationServer\n"
+        "store = MemoryStore(expiry_tick_s=0.05)\n"
+        "srv = CoordinationServer(host='127.0.0.1', port=0, store=store)\n"
+        "srv.start_background()\n"
+        "coord = InMemoryCoordination(store)\n"
+        "def probe():\n"
+        "    names = {}\n"
+        "    for _ in range(600):\n"
+        "        names = coord.get_prefix('XLLM:INSTANCE:')\n"
+        "        if names:\n"
+        "            break\n"
+        "        time.sleep(0.1)\n"
+        "    meta = json.loads(next(iter(names.values())))\n"
+        "    print('LAUNCHED', len(names), meta['models'])\n"
+        + _BAD +
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=probe, daemon=True).start()\n"
+        "sys.argv = ['xllm_service_tpu_torch.master', '--host', '127.0.0.1',\n"
+        "            '--http-port', '0', '--rpc-port', '0',\n"
+        "            '--coordination-addr', f'127.0.0.1:{srv.port}',\n"
+        "            '--sync-interval-s', '0.2', '--autoscaler-enabled',\n"
+        "            '--autoscaler-actuator', 'local']\n"
+        "runpy.run_module('xllm_service_tpu_torch.master', "
+        "run_name='__main__')\n"
+        "for _ in range(100):\n"
+        "    if not coord.get_prefix('XLLM:INSTANCE:'):\n"
+        "        break\n"
+        "    time.sleep(0.1)\n"
+        "print('ENDED', coord.get_prefix('XLLM:INSTANCE:') == {})\n"
+        "srv.stop()\n")
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as logs:
+        out = subprocess.run(
+            [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+            text=True, timeout=120,
+            env={**os.environ, "XLLM_AUTOSCALER_LOGDIR": logs,
+                 "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines == ["LAUNCHED 1 ['fake-model']", "[]", "ENDED True"], \
+        (lines, out.stderr[-2000:])

@@ -283,14 +283,22 @@ def drill_fencing(P):
         demoted = wait_until(lambda: not m.scheduler.is_master, timeout=5)
         kinds = {"kvframe_publish", "loadmetrics_upload", "planner_publish",
                  "autoscaler_tick"}
-        kept = sorted(a["kind"] for a in mon.held.report()["actions"]
-                      if a["kind"] in kinds)
-        discards = P.RECORDER.recent(limit=50, kind="held_action_discarded")
+
+        def kept():
+            return sorted(a["kind"] for a in mon.held.report()["actions"]
+                          if a["kind"] in kinds)
+
+        def discarded():
+            return any("demoted" in r["detail"].get("discard_reason", "")
+                       for r in P.RECORDER.recent(
+                           limit=50, kind="held_action_discarded"))
+        # The demotion drops and flight-records the held actions just after
+        # it clears is_master (each record runs the recorder's context
+        # providers): both are awaited, not read at once.
+        wait_until(lambda: not kept() and discarded(), timeout=5)
         return dict(first=first, degraded=degraded, held=held,
-                    sticky=sticky, demoted=demoted, kept=kept,
-                    discarded=any("demoted" in r["detail"].get(
-                        "discard_reason", "") for r in discards),
-                    still_degraded=mon.degraded())
+                    sticky=sticky, demoted=demoted, kept=kept(),
+                    discarded=discarded(), still_degraded=mon.degraded())
     finally:
         P.FAULTS.clear()
         pl.close()

@@ -358,10 +358,17 @@ def drill_kill_owner(P):
         datas = [f for f in c.frames if f != b"data: [DONE]\n\n"]
         recs = [r["detail"] for r in P.RECORDER.recent(
             limit=50, kind="handoff_recovery") if r["request_id"] == sid]
-        status, trace = P.TRACER.query_trace(request_id=sid)
-        roots = [s for s in trace.get("spans", ())
-                 if s["point"] == "frontend.request"]
-        relay_root = [s["attrs"] for s in roots if s["attrs"].get("relay")]
+
+        def relay_roots():
+            _, trace = P.TRACER.query_trace(request_id=sid)
+            return [s["attrs"] for s in trace.get("spans", ())
+                    if s["point"] == "frontend.request"
+                    and s["attrs"].get("relay")]
+        # The relay ends its root span after it has written the stream's
+        # last chunk, so the client can read the whole stream first: the
+        # span is awaited, not read at once.
+        wait_until(relay_roots, timeout=5)
+        relay_root = relay_roots()
         return dict(
             text=c.text(), frames=len(datas),
             distinct=len(set(datas)) == len(datas),

@@ -12,6 +12,7 @@ take, so a histogram's buckets, sum and count render consistently.
 
 from __future__ import annotations
 
+import re as _re
 import threading
 from bisect import bisect_right
 from typing import Any, Iterable, Optional
@@ -191,6 +192,56 @@ def evict_series(metric: _Metric, **labels: Any) -> None:
     unlinked, the heartbeat master changed), so a long-lived engine's
     exposition stays bounded."""
     metric.remove(**labels)
+
+
+def relabel_prometheus_text(text: str, instance: str, role: str,
+                            strip_comments: bool = False) -> str:
+    """Stamp fleet-target labels onto a scraped Prometheus exposition
+    (the /metrics/fleet merge): every sample line gains
+    ``instance="<addr>",role="frontend|engine"``. A series that already
+    carries an ``instance`` label (the master's per-engine series) keeps
+    it as ``exported_instance`` — the same collision rule Prometheus
+    federation applies with honor_labels=false. Comment/blank lines pass
+    through (or are dropped with ``strip_comments`` — the fleet merge
+    strips foreign sources' ``# TYPE`` lines, which would duplicate);
+    unparseable lines are dropped rather than corrupting the merged
+    exposition."""
+    extra = (f'instance="{_escape_label_value(instance)}",'
+             f'role="{_escape_label_value(role)}"')
+
+    def _is_value(v: str) -> bool:
+        try:
+            float(v.split()[0])
+            return True
+        except (ValueError, IndexError):
+            return False
+
+    out: list[str] = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            if line and not strip_comments:
+                out.append(line)
+            continue
+        brace = line.find("{")
+        if brace < 0:
+            # name value [ts]
+            parts = line.split(None, 1)
+            if len(parts) != 2 or not _is_value(parts[1]):
+                continue
+            out.append(f"{parts[0]}{{{extra}}} {parts[1]}")
+            continue
+        close = line.rfind("}")
+        if close < brace:
+            continue
+        name, labels, rest = line[:brace], line[brace + 1:close], \
+            line[close + 1:].lstrip()
+        if not rest or not _is_value(rest):
+            continue
+        labels = _re.sub(r"(^|,)instance=", r"\1exported_instance=",
+                         labels)
+        inner = f"{labels},{extra}" if labels else extra
+        out.append(f"{name}{{{inner}}} {rest}")
+    return "\n".join(out) + ("\n" if out else "")
 
 
 class MetricsRegistry:

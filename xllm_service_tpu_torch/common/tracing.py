@@ -347,6 +347,16 @@ class SpanStore:
         rows.sort(key=lambda r: r[key], reverse=True)
         return rows[:max(0, int(limit))]
 
+    def recent_trace_spans(self, limit: int = 50) -> list[list[dict]]:
+        """Span dicts of the most recently started traces (newest last) —
+        the /admin/hotpath critical-path aggregation input."""
+        with self._lock:
+            traces = [(min(s.start_ms for s in spans), list(spans))
+                      for spans in self._by_trace.values() if spans]
+        traces.sort(key=lambda t: t[0])
+        return [[s.to_dict() for s in spans]
+                for _, spans in traces[-max(1, int(limit)):]]
+
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()

@@ -928,22 +928,32 @@ int launch(Kernel kernel, int smem, int* per_sm, const Args& a, int B,
   return int(cudaGetLastError());
 }
 
+// Each library built from this header prepares its own kernels: the
+// launchers are static (internal linkage), so their per_sm flags are the
+// library's own. As inline templates of external linkage the flags were
+// GNU_UNIQUE symbols, one per process: a library whose kernel another
+// library had prepared launched it without its shared-memory cap raised
+// (cudaErrorInvalidValue: split_routes' mma route after kernel 1 at head
+// dim 256, as the compile gate ran them).
 template <typename P, typename T, int HD, int GMAX>
-int launch_fma(const Args& a, int B, int splits, cudaStream_t stream) {
+static int launch_fma(const Args& a, int B, int splits,
+                      cudaStream_t stream) {
   static int per_sm = 0;
   return launch(fma_kernel<T, HD, GMAX, P>, Smem<T, HD, GMAX>::kBytes,
                 &per_sm, a, B, splits, stream);
 }
 
 template <typename P, int HD>
-int launch_mma(const Args& a, int B, int splits, cudaStream_t stream) {
+static int launch_mma(const Args& a, int B, int splits,
+                      cudaStream_t stream) {
   static int per_sm = 0;
   return launch(mma_kernel<HD, P>, Smem<bf16, HD, kMaxGroup>::kRegion0,
                 &per_sm, a, B, splits, stream);
 }
 
 template <typename P, typename T, int HD>
-int launch_fma_group(const Args& a, int B, int splits, cudaStream_t stream) {
+static int launch_fma_group(const Args& a, int B, int splits,
+                            cudaStream_t stream) {
   const int G = a.n_q / a.n_kv;
   if (G <= 4) return launch_fma<P, T, HD, 4>(a, B, splits, stream);
   if constexpr (HD > 128) {  // groups up to kMaxGroupHd256
@@ -961,8 +971,8 @@ int launch_fma_group(const Args& a, int B, int splits, cudaStream_t stream) {
 // spill (ptxas -v, in chip_smoke.py's build log) and ran faster than the
 // CUDA-core route on the card at Gemma-2-9B's shapes.
 template <typename P>
-int dispatch(const Args& a, int B, int hd, int dtype, int splits,
-             cudaStream_t stream) {
+static int dispatch(const Args& a, int B, int hd, int dtype, int splits,
+                    cudaStream_t stream) {
   if (dtype == 1) {
     if (hd == 128) return launch_mma<P, 128>(a, B, splits, stream);
     if (hd == 64) return launch_mma<P, 64>(a, B, splits, stream);
@@ -980,8 +990,8 @@ int dispatch(const Args& a, int B, int hd, int dtype, int splits,
 // A launch of policy P after the checks every entry point makes (a GQA
 // group of 1 to kMaxGroup, a shape the kernels take, splits >= 1).
 template <typename P>
-int checked_launch(const Args& a, int B, int hd, int dtype, int splits,
-                   void* stream) {
+static int checked_launch(const Args& a, int B, int hd, int dtype,
+                          int splits, void* stream) {
   const int G = a.n_kv > 0 ? a.n_q / a.n_kv : 0;
   if (G < 1 || G > max_group(hd, a.ps) || splits < 1)
     return int(cudaErrorInvalidValue);
@@ -992,7 +1002,7 @@ int checked_launch(const Args& a, int B, int hd, int dtype, int splits,
 // Blocks of policy P's kernel for this head dim, GQA group and dtype that
 // one SM holds, by the occupancy calculator; negative: a cudaError_t.
 template <typename P>
-int blocks_per_sm(int hd, int group, int dtype) {
+static int blocks_per_sm(int hd, int group, int dtype) {
   if (group < 1 || group > max_group(hd, 16))
     return -int(cudaErrorInvalidValue);
   Args a = {};

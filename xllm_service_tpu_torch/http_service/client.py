@@ -7,11 +7,13 @@ its stream for the whole generation, so no thread per stream):
 
 - ``async with session.post(url, data=..., headers=..., timeout=...) as r``
   sends one request with its headers and body on a connection of its own
-  (``Connection: close``);
+  (``Connection: close``), and ``session.get(url, params=..., ...)`` a GET
+  with its query (the master's fleet fan-outs);
 - :class:`ClientResponse` has ``status``, ``headers``
   (case-insensitive), ``content_type`` (the MIME type without its
   parameters), :meth:`~ClientResponse.read` and
-  :meth:`~ClientResponse.iter_chunks`, for bodies framed by
+  :meth:`~ClientResponse.iter_chunks` (and :meth:`~ClientResponse.text`
+  and :meth:`~ClientResponse.json` on the whole body), for bodies framed by
   ``Content-Length``, by chunked transfer or by the connection's close;
 - :class:`ClientTimeout`: ``total`` bounds the request from its connect to
   the end of its body, ``sock_connect`` the connect, and ``sock_read``
@@ -27,9 +29,10 @@ A failed connect, a reset, a malformed answer or a body cut short raise
 from __future__ import annotations
 
 import asyncio
+import json
 from dataclasses import dataclass
-from typing import AsyncIterator, Optional
-from urllib.parse import urlsplit
+from typing import Any, AsyncIterator, Optional
+from urllib.parse import urlencode, urlsplit
 
 from .web import Headers
 
@@ -137,6 +140,14 @@ class ClientResponse:
             self._body = bytes(out)
         return self._body
 
+    async def text(self) -> str:
+        return (await self.read()).decode("utf-8", "replace")
+
+    async def json(self) -> Any:
+        """The body as JSON, whatever its content type (aiohttp's
+        ``json(content_type=None)``); ``ValueError`` if it is not."""
+        return json.loads(await self.read())
+
     def close(self) -> None:
         """Abort the connection now: the peer sees a reset at its next
         write."""
@@ -164,15 +175,24 @@ class _RequestContext:
 
 
 class ClientSession:
-    """POSTs, each on a connection of its own (nothing is pooled: a
-    relayed stream holds its connection for the whole generation)."""
+    """POSTs and GETs, each on a connection of its own (nothing is pooled:
+    a relayed stream holds its connection for the whole generation)."""
 
     def post(self, url: str, data: bytes = b"",
              headers: Optional[dict] = None,
              timeout: ClientTimeout = ClientTimeout()) -> _RequestContext:
-        return _RequestContext(self._request(url, data, headers, timeout))
+        return _RequestContext(
+            self._request("POST", url, data, headers, timeout))
 
-    async def _request(self, url: str, data: bytes,
+    def get(self, url: str, params: Optional[dict] = None,
+            headers: Optional[dict] = None,
+            timeout: ClientTimeout = ClientTimeout()) -> _RequestContext:
+        if params:
+            url += ("&" if "?" in url else "?") + urlencode(params)
+        return _RequestContext(
+            self._request("GET", url, b"", headers, timeout))
+
+    async def _request(self, method: str, url: str, data: bytes,
                        headers: Optional[dict],
                        timeout: ClientTimeout) -> ClientResponse:
         u = urlsplit(url)
@@ -200,7 +220,7 @@ class ClientSession:
             head[k] = v
         body = data or b""
         head["Content-Length"] = str(len(body))
-        lines = [f"POST {target} HTTP/1.1"]
+        lines = [f"{method} {target} HTTP/1.1"]
         lines += [f"{k}: {v}" for k, v in head.items()]
         try:
             writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")

@@ -10,9 +10,16 @@ asyncio client of ``http_service/client.py`` (``multimaster/handoff.py``),
 a relay's client abort reaches ``/rpc/handoff_abort``, and a replica's
 PD-role flip hints reach the elected master's ``/rpc/flip_hint``.
 
-Not ported yet, so unknown routes (404) here: ``/admin/*``,
-``/metrics/fleet``, the fleet trace and profile fan-outs (ROADMAP queue 1
-item 24).
+The admin and fleet surface is the reference's: ``/admin/config`` (GET
+and POST), ``/admin/planner``, ``/admin/autoscaler`` (the controller's
+decision log), ``/admin/coordination``, ``/admin/overload``,
+``/admin/hotpath``, ``/admin/faults`` (GET and POST), ``/admin/slo``,
+``/admin/flightrecorder/recent``, and ``/admin/trace``,
+``/admin/trace/recent``, ``/admin/profile`` and ``/metrics/fleet``, whose
+``?scope=fleet`` (always, for ``/metrics/fleet``) fans out on the same
+asyncio client to every agent and peer frontend and merges. The RPC app
+serves the local scope of ``/metrics``, the trace routes and the profile,
+and never honours ``scope=fleet``: a peer's fan-out ends at one hop.
 
 Parity: reference `http_service/service.cpp` (SURVEY.md §2.2, §3.2) and
 `rpc_service/service.cpp` (§2.3, §3.3):
@@ -43,12 +50,14 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import json
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
-from ..common.flightrecorder import RECORDER
+from ..common.faults import FAULTS
+from ..common.flightrecorder import RECORDER, admin_flightrecorder_recent
 from ..common.hotpath import CPU_ATTR, HOTPATH
 from ..common.metrics import (
     ADMISSION_PENDING_REQUESTS,
@@ -67,10 +76,18 @@ from ..common.metrics import (
     ROUTING_SNAPSHOT_AGE_SECONDS,
     SERVER_REQUEST_IN_TOTAL,
     TELEMETRY_GENS_RELAYED_TOTAL,
+    relabel_prometheus_text,
 )
 from ..common.request import Request, RequestOutput, SamplingParams
 from ..common.slo import SLO_MONITOR
-from ..common.tracing import TRACER, TraceContext
+from ..common.tracing import (
+    TRACER,
+    TraceContext,
+    admin_trace,
+    admin_trace_recent,
+    merge_fleet_spans,
+    span_tree,
+)
 from ..common.types import InstanceType
 from ..multimaster.handoff import DeltaJournal, HandoffRelay
 from ..overload import (
@@ -82,12 +99,20 @@ from ..overload import (
     parse_priority,
 )
 from ..overload.deadline import ABS_DEADLINE_HEADER, remaining_ms
+from ..profiling import (
+    PROFILER,
+    admin_profile,
+    aggregate_critical_paths,
+    critical_path,
+    parse_folded,
+    summarize_stacks,
+)
 from ..rpc import wire
 from ..rpc.channel import ChannelError, make_keepalive_session
 from ..scheduler.scheduler import Scheduler
 from ..utils import generate_service_request_id, get_logger, short_uuid
 from . import web
-from .client import ClientSession
+from .client import ClientError, ClientSession, ClientTimeout
 from .connection import AioConnection
 from .request_tracer import RequestTracer
 
@@ -159,6 +184,22 @@ def _error_response(code: int, message: str, etype: str = "invalid_request_error
         status=code)
 
 
+async def _local_trace(request: web.Request) -> web.Response:
+    return web.reply(*admin_trace(request.query))
+
+
+async def _local_trace_recent(request: web.Request) -> web.Response:
+    return web.reply(*admin_trace_recent(request.query))
+
+
+async def _local_profile(request: web.Request) -> web.Response:
+    return web.reply(*admin_profile(request.query))
+
+
+async def _flightrecorder_recent(request: web.Request) -> web.Response:
+    return web.reply(*admin_flightrecorder_recent(request.query))
+
+
 class XllmHttpService:
     """Both applications (client HTTP and engine RPC) + the dispatch client."""
 
@@ -185,6 +226,17 @@ class XllmHttpService:
             alert=self.opts.slo_burn_alert)
         RECORDER.configure(capacity=self.opts.flightrecorder_capacity,
                            directory=self.opts.flightrecorder_dir)
+        # The recorder's context provider captures this frontend's
+        # control-plane view into every anomaly bundle.
+        RECORDER.add_context_provider("service", self._anomaly_context)
+        # Continuous profiler (profiling/sampler.py): always-on sampling
+        # at profile_hz (0 disables), refcounted — an in-process engine
+        # agent shares the same process-global sampler.
+        PROFILER.configure(hz=self.opts.profile_hz,
+                           window_s=self.opts.profile_window_s,
+                           max_stacks=self.opts.profile_max_stacks,
+                           max_depth=self.opts.profile_max_depth)
+        PROFILER.start()
         # Overload-hardening plane (overload/, docs/robustness.md):
         # admission gate, brownout state, global retry budget. Ticked by
         # the scheduler's sync loop; enforced on the request paths here.
@@ -223,9 +275,16 @@ class XllmHttpService:
             max_attempts=self.opts.handoff_max_attempts,
             stall_timeout_s=self.opts.handoff_stall_timeout_s,
             same_owner_retry=self._journal.enabled)
-        # The relay's HTTP client, on the event loop (a relayed stream
-        # holds its connection for the whole generation).
+        # The relay's and the fleet fan-outs' HTTP client, on the event
+        # loop (a relayed stream holds its connection for the whole
+        # generation).
         self._client = ClientSession()
+        # /metrics/fleet TTL cache: (monotonic deadline, rendered text).
+        self._fleet_metrics_cache: Optional[tuple[float, str]] = None
+        # Fleet fan-out concurrency bound (asyncio primitives bind their
+        # loop lazily on first await, so construction here is safe).
+        self._fleet_sem = asyncio.Semaphore(
+            max(1, self.opts.fleet_scrape_concurrency))
 
     # ------------------------------------------------------------- HTTP app
     def build_http_app(self) -> web.Application:
@@ -238,6 +297,32 @@ class XllmHttpService:
         app.router.add_get("/metrics", self.handle_metrics)
         app.router.add_get("/hello", self.handle_hello)
         app.router.add_get("/health", self.handle_hello)
+        app.router.add_get("/admin/config", self.handle_get_config)
+        app.router.add_post("/admin/config", self.handle_set_config)
+        app.router.add_get("/admin/planner", self.handle_planner)
+        app.router.add_get("/admin/autoscaler", self.handle_autoscaler)
+        app.router.add_get("/admin/coordination", self.handle_coordination)
+        app.router.add_get("/admin/overload", self.handle_overload)
+        app.router.add_get("/admin/hotpath", self.handle_hotpath)
+        app.router.add_get("/admin/faults", self.handle_get_faults)
+        app.router.add_post("/admin/faults", self.handle_set_faults)
+        # Span-trace query surface. Default scope serves this process's
+        # SpanStore; `?scope=fleet` fans out to every live engine agent
+        # and peer frontend and merges the per-process span rings into
+        # ONE tree.
+        app.router.add_get("/admin/trace", self.handle_admin_trace)
+        app.router.add_get("/admin/trace/recent",
+                           self.handle_admin_trace_recent)
+        # Fleet observability plane: merged fleet metrics, the SLO
+        # burn-rate report, and the anomaly flight recorder.
+        app.router.add_get("/metrics/fleet", self.handle_metrics_fleet)
+        app.router.add_get("/admin/slo", self.handle_slo)
+        app.router.add_get("/admin/flightrecorder/recent",
+                           _flightrecorder_recent)
+        # Continuous-profiling plane: this process's folded stacks, or
+        # `?scope=fleet` for the merged per-role view across every live
+        # engine agent and peer frontend.
+        app.router.add_get("/admin/profile", self.handle_admin_profile)
         app.on_startup.append(self._on_startup)
         app.on_cleanup.append(self._on_cleanup)
         return app
@@ -260,7 +345,15 @@ class XllmHttpService:
         app.router.add_get("/rpc/static_prefill_list", self.handle_prefill_list)
         app.router.add_get("/rpc/static_decode_list", self.handle_decode_list)
         app.router.add_get("/health", self.handle_hello)
+        # Fleet fan-out targets reach peer frontends by their RPC address
+        # (the only address the XLLM:SERVICE:* records carry), so the
+        # LOCAL-scope observability surface is served here too. scope=
+        # fleet is deliberately not honored on this app — a peer's fan-out
+        # must terminate at one hop, never cascade.
         app.router.add_get("/metrics", self.handle_metrics)
+        app.router.add_get("/admin/trace", _local_trace)
+        app.router.add_get("/admin/trace/recent", _local_trace_recent)
+        app.router.add_get("/admin/profile", _local_profile)
         return app
 
     async def _on_startup(self, app: web.Application) -> None:
@@ -271,6 +364,23 @@ class XllmHttpService:
         self._session.close()
         self.tracer.close()
         RECORDER.close()
+        PROFILER.stop()
+        RECORDER.remove_context_provider("service", self._anomaly_context)
+
+    def _anomaly_context(self) -> dict[str, Any]:
+        """Flight-recorder context provider: this frontend's control-plane
+        state at anomaly time (lock-free reads only)."""
+        mgr = self.scheduler.instance_mgr
+        return {
+            "self_addr": self.scheduler.self_addr,
+            "is_master": self.scheduler.is_master,
+            "snapshot_age_s": mgr.snapshot_age_s(),
+            "loadinfo_ages_s": mgr.load_info_ages_s(),
+            "stale_load": sorted(mgr.stale_load_names()),
+            "frame_log_seq": self.scheduler.kvcache_mgr.frame_log_seq(),
+            "ownership": self.scheduler.ownership.stats(),
+            "inflight_requests": self.scheduler.num_inflight_requests(),
+        }
 
     def _mirror_span(self, span: dict[str, Any]) -> None:
         self.tracer.log(span.get("request_id", ""),
@@ -1019,9 +1129,8 @@ class XllmHttpService:
         FLEET_SIZE.labels(role="decode").set(len(snap.decode))
         FLEET_SIZE.labels(role="encode").set(len(snap.encode))
         FLEET_SIZE.labels(role="draining").set(len(mgr.draining_names()))
-        # The autoscaler is refused at start (ROADMAP queue 1 item 23):
-        # its decision age is the reference's "never" sentinel.
-        AUTOSCALER_LAST_DECISION_AGE_SECONDS.set(-1.0)
+        AUTOSCALER_LAST_DECISION_AGE_SECONDS.set(
+            self.scheduler.autoscaler.last_decision_age_s())
         # Overload plane: gate depth, brownout state, retry-budget level.
         ADMISSION_PENDING_REQUESTS.set(ADMISSION.pending())
         BROWNOUT_ACTIVE.set(1.0 if BROWNOUT.active() else 0.0)
@@ -1040,7 +1149,363 @@ class XllmHttpService:
         return web.json_response({"status": "ok",
                                   "master": self.scheduler.is_master})
 
-    # ----------------------------------------------------------- RPC routes
+    # ----------------------------------------------- fleet observability
+    def _fleet_targets(self) -> list[tuple[str, str]]:
+        """(addr, role) fan-out targets: every known engine agent (from
+        the RCU routing snapshot — SUSPECT/draining included, their view
+        may hold the evidence) and every peer frontend (ownership member
+        set)."""
+        targets = [(name, "engine") for name in
+                   self.scheduler.instance_mgr.routing_snapshot().entries]
+        self_addr = self.scheduler.self_addr
+        targets += [(addr, "frontend")
+                    for addr in self.scheduler.ownership.members()
+                    if addr != self_addr]
+        return targets
+
+    async def _fanout_get(self, path: str, params: dict[str, str],
+                          as_json: bool = True
+                          ) -> list[tuple[str, str, str, Any]]:
+        """Concurrent bounded GET against every fleet target. Returns
+        ``(addr, role, status, payload)`` rows where status is ``ok``,
+        ``http <code>``, ``timeout`` or ``error`` — a dead peer degrades
+        the view, never the endpoint."""
+        timeout = ClientTimeout(
+            total=max(0.1, self.opts.fleet_peer_timeout_s))
+
+        async def one(addr: str, role: str):
+            async with self._fleet_sem:
+                try:
+                    async with self._client.get(
+                            f"http://{addr}{path}", params=params,
+                            timeout=timeout) as r:
+                        payload = (await r.json()
+                                   if as_json else await r.text())
+                        status = "ok" if r.status == 200 \
+                            else f"http {r.status}"
+                        return addr, role, status, payload
+                except asyncio.TimeoutError:
+                    return addr, role, "timeout", None
+                except (ClientError, OSError, ValueError) as e:
+                    return addr, role, f"error: {type(e).__name__}", None
+
+        return list(await asyncio.gather(
+            *(one(a, r) for a, r in self._fleet_targets())))
+
+    async def handle_admin_trace(self, request: web.Request) -> web.Response:
+        if request.query.get("scope") != "fleet":
+            return await _local_trace(request)
+        request_id = request.query.get("request_id", "")
+        trace_id = request.query.get("trace_id", "")
+        if not request_id and not trace_id:
+            return _error_response(400, "pass request_id= or trace_id=")
+        status, local = TRACER.query_trace(request_id=request_id,
+                                           trace_id=trace_id)
+        span_lists: list[list[dict[str, Any]]] = []
+        if status == 200:
+            span_lists.append(local["spans"])
+            trace_id = trace_id or local["trace_id"]
+        # Peers resolve request_id against their own stores, so the
+        # fan-out works even when this frontend recorded nothing (e.g. a
+        # trace rooted by a peer that relayed elsewhere).
+        params = {"trace_id": trace_id} if trace_id \
+            else {"request_id": request_id}
+        peers: dict[str, dict[str, str]] = {}
+        for addr, role, pstatus, payload in await self._fanout_get(
+                "/admin/trace", params):
+            if pstatus == "ok" and isinstance(payload, dict):
+                span_lists.append(payload.get("spans") or [])
+                trace_id = trace_id or payload.get("trace_id", "")
+            elif pstatus == "http 404":
+                pstatus = "no_spans"   # a peer this trace never touched
+            peers[addr] = {"role": role, "status": pstatus}
+        spans = merge_fleet_spans(span_lists)
+        if not spans:
+            return web.json_response(
+                {"error": "no spans recorded anywhere in the fleet",
+                 "scope": "fleet", "peers": peers}, status=404)
+        payload = {
+            "scope": "fleet",
+            "trace_id": trace_id,
+            "request_id": request_id or next(
+                (s["request_id"] for s in spans if s.get("request_id")), ""),
+            "num_spans": len(spans),
+            "peers": peers,
+            "spans": spans,
+            "tree": span_tree(spans),
+        }
+        # TTFT critical path over the MERGED tree: on a relayed request
+        # the root span lives on the accepting frontend and the prefill
+        # span on an engine — only the fleet view can decompose it.
+        cp = critical_path(spans)
+        if cp is not None:
+            payload["critical_path"] = cp
+        return web.json_response(payload)
+
+    async def handle_admin_trace_recent(self,
+                                        request: web.Request) -> web.Response:
+        if request.query.get("scope") != "fleet":
+            return await _local_trace_recent(request)
+        try:
+            limit = int(request.query.get("limit", 20))
+        except ValueError:
+            return _error_response(400, "limit must be an integer")
+        sort = request.query.get("sort", "recent")
+        local = TRACER.query_recent(limit=limit, sort=sort)
+        rows: dict[str, dict[str, Any]] = {
+            r["trace_id"]: r for r in local["traces"]}
+        peers: dict[str, dict[str, str]] = {}
+        for addr, role, pstatus, payload in await self._fanout_get(
+                "/admin/trace/recent",
+                {"limit": str(limit), "sort": sort}):
+            if pstatus == "ok" and isinstance(payload, dict):
+                for r in payload.get("traces") or ():
+                    cur = rows.get(r.get("trace_id", ""))
+                    # Keep the row closest to the root (a frontend's view
+                    # names the root point; an engine's view doesn't).
+                    if cur is None or (not cur.get("root_point")
+                                       and r.get("root_point")):
+                        rows[r["trace_id"]] = r
+            peers[addr] = {"role": role, "status": pstatus}
+        key = "duration_ms" if sort == "slowest" else "start_ms"
+        merged = sorted(rows.values(), key=lambda r: r.get(key, 0.0),
+                        reverse=True)[:max(0, limit)]
+        return web.json_response({"scope": "fleet", "sort": sort,
+                                  "peers": peers, "traces": merged})
+
+    async def handle_admin_profile(self,
+                                   request: web.Request) -> web.Response:
+        """Continuous-profiling view (profiling/sampler.py). Default
+        scope serves this process's folded stacks / top-N summary;
+        ``?scope=fleet`` fans out to every live engine agent and peer
+        frontend, merges the folded counts exactly (role prefixes keep
+        per-role attribution across processes) and marks each peer's
+        contribution — a dead peer degrades the view, never the
+        endpoint."""
+        if request.query.get("scope") != "fleet":
+            return await _local_profile(request)
+        try:
+            top = int(request.query.get("top", 30))
+        except ValueError:
+            return _error_response(400, "top must be an integer")
+        counts = parse_folded(PROFILER.folded())
+        peers: dict[str, dict[str, str]] = {}
+        for addr, role, pstatus, payload in await self._fanout_get(
+                "/admin/profile", {"format": "folded"}, as_json=False):
+            if pstatus == "ok" and isinstance(payload, str):
+                for stack, n in parse_folded(payload).items():
+                    counts[stack] = counts.get(stack, 0) + n
+            peers[addr] = {"role": role, "status": pstatus}
+        if request.query.get("format") == "folded":
+            lines = [f"{';'.join(stack)} {n}"
+                     for stack, n in sorted(counts.items())]
+            return web.Response(text="\n".join(lines) + "\n",
+                                content_type="text/plain")
+        merged = summarize_stacks(counts, top_n=top)
+        merged.update({"scope": "fleet", "peers": peers})
+        return web.json_response(merged)
+
+    async def handle_metrics_fleet(self,
+                                   request: web.Request) -> web.Response:
+        """Merged fleet Prometheus exposition: local series + every peer
+        frontend's + every engine agent's /metrics, each sample re-labeled
+        with ``instance``/``role``, behind a short TTL cache. A dead
+        target contributes only ``fleet_scrape_up 0`` — partial, never an
+        error."""
+        now = time.monotonic()
+        cached = self._fleet_metrics_cache
+        if cached is not None and now < cached[0]:
+            return web.Response(text=cached[1], content_type="text/plain")
+        self._refresh_local_gauges()
+        self_addr = self.scheduler.self_addr
+        parts = [relabel_prometheus_text(REGISTRY.render_prometheus(),
+                                         self_addr, "frontend")]
+        up_lines = ["# TYPE fleet_scrape_up gauge",
+                    f'fleet_scrape_up{{instance="{self_addr}",'
+                    f'role="frontend"}} 1']
+        for addr, role, pstatus, payload in await self._fanout_get(
+                "/metrics", {}, as_json=False):
+            up = 1 if pstatus == "ok" and isinstance(payload, str) else 0
+            up_lines.append(f'fleet_scrape_up{{instance="{addr}",'
+                            f'role="{role}"}} {up}')
+            if up:
+                # Foreign comments dropped: duplicate # TYPE lines across
+                # sources would make the merged exposition invalid.
+                parts.append(relabel_prometheus_text(
+                    payload, addr, role, strip_comments=True))
+        text = "".join(parts) + "\n".join(up_lines) + "\n"
+        self._fleet_metrics_cache = (
+            now + max(0.0, self.opts.metrics_fleet_cache_ttl_s), text)
+        return web.Response(text=text, content_type="text/plain")
+
+    async def handle_slo(self, request: web.Request) -> web.Response:
+        """Scored SLO report: per-objective multi-window burn rates
+        (common/slo.py) — the machine-readable signal the autoscaling /
+        SLO-policy loop consumes."""
+        report = SLO_MONITOR.export_gauges()
+        report["targets"] = {
+            "slo_ttft_ms": self.opts.slo_ttft_ms,
+            "slo_tpot_ms": self.opts.slo_tpot_ms,
+            "slo_error_budget": self.opts.slo_error_budget,
+        }
+        return web.json_response(report)
+
+    # ----------------------------------------------------------- admin routes
+    # Live-reloadable knobs (reference exposes target_ttft/target_tpot as
+    # brpc-reloadable flags with validation, `global_gflags.cpp:122-132`).
+    _RELOADABLE = {"target_ttft_ms": float, "target_tpot_ms": float,
+                   "max_waiting_requests": int, "request_timeout_s": float,
+                   "enable_request_trace": _cast_bool,
+                   "enable_tracing": _cast_bool,
+                   "trace_sample_rate": float}
+
+    async def handle_get_config(self, request: web.Request) -> web.Response:
+        return web.json_response({
+            f.name: getattr(self.opts, f.name)
+            for f in dataclasses.fields(self.opts)
+            if isinstance(getattr(self.opts, f.name), (int, float, str, bool))
+        })
+
+    async def handle_planner(self, request: web.Request) -> web.Response:
+        """Latest fleet-planning decision (scale hints + requested flips;
+        reference Planner component, docs/en/overview.md:56-60)."""
+        d = self.scheduler.planner.last_decision
+        if d is None:
+            return web.json_response({"decision": None})
+        return web.json_response({"decision": dataclasses.asdict(d)})
+
+    async def handle_autoscaler(self, request: web.Request) -> web.Response:
+        """The autoscaler controller's decision log + state
+        (docs/autoscaling.md): every tick's inputs, actions and the
+        reasons they were (or were not) taken — PlanDecision.reasons,
+        but acted on."""
+        return web.json_response(self.scheduler.autoscaler.report())
+
+    async def handle_coordination(self, request: web.Request) -> web.Response:
+        """Coordination-plane health (docs/robustness.md degraded mode):
+        CONNECTED/DEGRADED/RECOVERING state, probe-failure streak,
+        outage accounting, frozen census events, the held-action log,
+        and the client's reconnect counter — one page answering "is the
+        fleet serving through a coordination outage right now, and what
+        is being held back"."""
+        return web.json_response(self.scheduler.coordination_health.report())
+
+    async def handle_overload(self, request: web.Request) -> web.Response:
+        """Overload-hardening plane state (docs/robustness.md): the
+        admission gate (watermarks, pending, shed counts/rate), the
+        brownout controller (state + transition log with reasons), the
+        global retry budget, and every instance channel's circuit
+        breaker — one page answering "what is being degraded, shed or
+        fenced off right now, and why"."""
+        snap = self.scheduler.instance_mgr.routing_snapshot()
+        breakers = {}
+        for name, ch in snap.channels.items():
+            br = getattr(ch, "breaker", None)
+            if br is not None:
+                breakers[name] = br.snapshot()
+        return web.json_response({
+            "deadline": {
+                "default_request_deadline_ms":
+                    self.opts.default_request_deadline_ms,
+                "request_timeout_s": self.opts.request_timeout_s,
+            },
+            "admission": ADMISSION.report(),
+            "brownout": BROWNOUT.report(),
+            "retry_budget": RETRY_BUDGET.report(),
+            "breakers": breakers,
+        })
+
+    async def handle_hotpath(self, request: web.Request) -> web.Response:
+        """Per-stage master hot-path latency table (always-on recorder,
+        common/hotpath.py): schedule / enrich / forward / first_delta
+        percentiles over the recent sample window, plus the multi-master
+        plane's view — ownership/mining stats and the load-info
+        telemetry ages staleness-aware scoring discounts by."""
+        mgr = self.scheduler.instance_mgr
+        return web.json_response({
+            "stages": HOTPATH.summary(),
+            # Per-category CPU attribution (ingest = heartbeat/telemetry,
+            # route = schedule, stream = delta ingest): the bench's
+            # ingest-share evidence for the sharded telemetry plane.
+            "cpu": CPU_ATTR.summary(),
+            # Where recent requests' TTFT went, stage by stage: the
+            # critical-path aggregate over this process's span ring
+            # (per-request decomposition: /admin/trace?request_id=...).
+            "critical_path": aggregate_critical_paths(
+                critical_path(spans)
+                for spans in TRACER.store.recent_trace_spans(50)),
+            "ownership": self.scheduler.ownership.stats(),
+            # Telemetry-ingest shard map + frame-log progress + the
+            # per-instance load-info snapshot ages (observable, not
+            # inferred).
+            "telemetry": mgr.stats(),
+            "handoff_journal": self._journal.stats(),
+            "snapshot_age_s": mgr.snapshot_age_s(),
+            "frame_log_seq": self.scheduler.kvcache_mgr.frame_log_seq(),
+            "loadinfo": {
+                "ages_s": mgr.load_info_ages_s(),
+                "stale": sorted(mgr.stale_load_names()),
+                "stale_after_s": self.opts.loadinfo_stale_after_s,
+            },
+        })
+
+    async def handle_get_faults(self, request: web.Request) -> web.Response:
+        """Inspect the deterministic fault-injection plane (rules + hit/fire
+        counters)."""
+        return web.json_response({
+            "seed": FAULTS.seed,
+            "rules": [r.to_dict() for r in FAULTS.rules()]})
+
+    async def handle_set_faults(self, request: web.Request) -> web.Response:
+        """Configure the fault plane: `{"rules": [...], "seed": N}` replaces
+        the rule set (seeded → deterministic), `{"clear": true}` disarms."""
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error_response(400, "invalid JSON")
+        if not isinstance(body, dict):
+            return _error_response(400, "request body must be a JSON object")
+        if body.get("clear"):
+            FAULTS.clear()
+        if body.get("rules") is not None:
+            try:
+                FAULTS.configure(body["rules"], seed=body.get("seed"))
+            except (TypeError, ValueError) as e:
+                return _error_response(400, f"bad fault rule: {e}")
+        return web.json_response({
+            "ok": True, "seed": FAULTS.seed,
+            "rules": [r.to_dict() for r in FAULTS.rules()]})
+
+    async def handle_set_config(self, request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error_response(400, "invalid JSON")
+        applied = {}
+        for key, value in (body or {}).items():
+            caster = self._RELOADABLE.get(key)
+            if caster is None:
+                return _error_response(
+                    400, f"{key} is not live-reloadable "
+                         f"(reloadable: {sorted(self._RELOADABLE)})")
+            try:
+                cast_value = caster(value)
+            except (TypeError, ValueError):
+                return _error_response(400, f"bad value for {key}")
+            if key.startswith("target_") and cast_value <= 0:
+                return _error_response(400, f"{key} must be positive")
+            setattr(self.opts, key, cast_value)
+            applied[key] = cast_value
+        if "enable_tracing" in applied:
+            # Live span-tracing toggle (e.g. shed the overhead under a
+            # traffic spike without a restart).
+            TRACER.configure(enabled=self.opts.enable_tracing)
+        if "trace_sample_rate" in applied:
+            # Live sampling knob: dial down under a traffic spike without
+            # losing anomalies (tail-based keep still promotes them).
+            TRACER.configure(sample_rate=self.opts.trace_sample_rate)
+        return web.json_response({"ok": True, "applied": applied})
+
     # ----------------------------------------------------------- RPC routes
     async def handle_handoff(self, request: web.Request) -> web.StreamResponse:
         """Owner-side ingest of a request relayed by another frontend

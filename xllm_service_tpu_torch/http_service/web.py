@@ -10,7 +10,8 @@ them:
   ``client_max_size`` bytes (413 above it);
 - :func:`json_response` (``json.dumps`` with its default separators,
   ``application/json; charset=utf-8``) and :class:`Response` with text
-  (``charset=utf-8``) or bytes;
+  (``charset=utf-8``) or bytes; :func:`reply` for the admin helpers'
+  ``(status, payload)``;
 - :class:`StreamResponse`: headers on :meth:`~StreamResponse.prepare`,
   then each :meth:`~StreamResponse.write` leaves the socket as one chunk
   of chunked transfer before it returns (an SSE delta is sent when it is
@@ -252,6 +253,15 @@ def json_response(data: Any, status: int = 200,
                   dumps: Callable[[Any], str] = json.dumps) -> Response:
     return Response(text=dumps(data), status=status,
                     content_type="application/json", headers=headers)
+
+
+def reply(status: int, payload: Any) -> Response:
+    """The answer to a local admin helper's ``(status, payload)``: text (a
+    folded profile) as ``text/plain``, anything else as JSON."""
+    if isinstance(payload, str):
+        return Response(text=payload, status=status,
+                        content_type="text/plain")
+    return json_response(payload, status=status)
 
 
 def middleware(fn):

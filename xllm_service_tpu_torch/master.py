@@ -4,8 +4,10 @@
 Builds Scheduler → services, runs the HTTP frontend (client-facing) and
 the RPC endpoint (engine-facing) as two sites of ``http_service/web.py``
 in one event loop owned by a background thread. ``main()`` parses the
-reference's flags, refuses ``--autoscaler-enabled`` (not ported yet: exit
-2, naming its ROADMAP item), checks ports, installs signal handlers.
+reference's flags, checks ports, installs signal handlers. With
+``--autoscaler-enabled --autoscaler-actuator local`` and no
+``--autoscaler-spawn-cmd`` the master launches the port's fake engine
+(``python -m xllm_service_tpu_torch.testing.fake_engine``).
 
 Run: ``python -m xllm_service_tpu_torch.master --coordination-addr
 host:port ...`` (the coordination server:
@@ -20,7 +22,6 @@ from __future__ import annotations
 import argparse
 import asyncio
 import signal
-import sys
 import threading
 from typing import Optional
 
@@ -28,8 +29,7 @@ from .common.config import ServiceOptions
 from .coordination import CoordinationClient
 from .http_service import web
 from .http_service.service import XllmHttpService
-from .scheduler.scheduler import (Scheduler, UnportedFeatureError,
-                                  refuse_unported)
+from .scheduler.scheduler import Scheduler
 from .utils import get_local_ip, get_logger, is_port_available
 
 logger = get_logger(__name__)
@@ -156,19 +156,10 @@ def main() -> None:
     ServiceOptions.add_cli_args(parser)
     args = parser.parse_args()
     options = ServiceOptions.from_cli_args(args)
-    try:
-        refuse_unported(options)
-    except UnportedFeatureError as e:
-        print(f"xllm_service_tpu_torch.master: {e}", file=sys.stderr)
-        raise SystemExit(2)
     for port in (options.http_port, options.rpc_port):
         if port and not is_port_available(port, options.host):
             raise SystemExit(f"port {port} is not available")
-    try:
-        master = Master(options)
-    except UnportedFeatureError as e:
-        print(f"xllm_service_tpu_torch.master: {e}", file=sys.stderr)
-        raise SystemExit(2)
+    master = Master(options)
     master.start()
     stop_event = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

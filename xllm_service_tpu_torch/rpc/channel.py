@@ -116,6 +116,7 @@ class KeepaliveSession:
         self._lock = threading.Lock()
         # "host:port" -> [idle connections], LRU order.
         self._pools: OrderedDict[str, list] = OrderedDict()
+        self.connections_created = 0
 
     def _take(self, dest: str, timeout: float) -> http.client.HTTPConnection:
         dropped: list = []
@@ -139,6 +140,8 @@ class KeepaliveSession:
         if conn is None:
             host, _, port = dest.rpartition(":")
             conn = _Connection(host, int(port), timeout=timeout)
+            with self._lock:
+                self.connections_created += 1
         else:
             conn.timeout = timeout
             conn.sock.settimeout(timeout)
@@ -185,6 +188,13 @@ class KeepaliveSession:
     def get(self, url: str, headers: Optional[dict] = None,
             timeout: float = DEFAULT_TIMEOUT_S) -> Response:
         return self.request("GET", url, headers=headers, timeout=timeout)
+
+    def stats(self) -> dict:
+        """``hosts``: destinations with a pool now; ``connections_created``:
+        connects ever made (an engine's connection-count evidence)."""
+        with self._lock:
+            return {"hosts": len(self._pools),
+                    "connections_created": self.connections_created}
 
     def close(self) -> None:
         with self._lock:

@@ -1,9 +1,7 @@
 """Central orchestrator (port of ``xllm_service_tpu/scheduler/scheduler.py``:
 any number of active masters, one of them elected; RR, CAR or SLO_AWARE
-routing; the planner hint-only).
-
-The autoscaler waits for a later slice and is refused at start, naming
-its ROADMAP queue 1 item (23).
+routing; the planner, and the closed-loop autoscaler that enacts its
+flips when enabled).
 
 Parity: reference `scheduler/scheduler.{h,cpp}` (733 LoC, SURVEY.md §2.4,
 §3.2-3.5):
@@ -39,6 +37,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
+from ..autoscaler import AutoscalerController, create_actuator
 from ..chat_template import JinjaChatTemplate
 from ..common import tracing
 from ..common.call_data import ClientConnection
@@ -82,25 +81,12 @@ from ..scheduler.instance_mgr import InstanceMgr
 from ..multimaster.ownership import OwnershipRouter
 from ..scheduler.planner import PLANNER_KEY, Planner
 from ..scheduler.policies import create_policy
+from ..scheduler.policies.slo_aware import SloAwarePolicy
 from ..scheduler.response_handler import ChatStreamState, ResponseHandler
 from ..tokenizer import TokenizerFactory
 from ..utils import get_logger, jittered_backoff
 
 logger = get_logger(__name__)
-
-
-class UnportedFeatureError(RuntimeError):
-    """A reference feature the port has not ported yet was asked for; the
-    message names its ROADMAP queue 1 item."""
-
-
-def refuse_unported(options: ServiceOptions) -> None:
-    """Refuse, before anything starts, the options whose reference paths
-    the port has not ported (no fallback: the caller exits non-zero)."""
-    if options.autoscaler_enabled:
-        raise UnportedFeatureError(
-            "--autoscaler-enabled is not ported yet (ROADMAP queue 1 item "
-            "23: the autoscaler's controller and actuators)")
 
 
 class _RequestState:
@@ -156,7 +142,6 @@ class Scheduler:
     def __init__(self, options: ServiceOptions,
                  coord: Optional[CoordinationClient] = None,
                  start_threads: bool = True):
-        refuse_unported(options)
         self._opts = options
         self._coord = coord or connect(
             options.coordination_addr, options.coordination_namespace,
@@ -215,9 +200,25 @@ class Scheduler:
         self.lb_policy = create_policy(options.load_balance_policy,
                                        self.instance_mgr, self.kvcache_mgr,
                                        options)
-        # Fleet planning, hint-only (the autoscaler that would enact its
-        # flips is refused at start).
         self.planner = Planner(self.instance_mgr, options)
+        # Closed-loop autoscaler (autoscaler/): master-gated controller
+        # turning SLO burn rates + planner pressure into fleet actions
+        # through a pluggable actuator. Constructed always (the admin
+        # surface reports state either way); it self-gates on
+        # `autoscaler_enabled` and the election. With the controller
+        # enabled, planner and SLO-policy PD flips route through it —
+        # ONE actuation path; disabled (default) keeps the hint-only
+        # behavior.
+        self.autoscaler = AutoscalerController(
+            options, self.instance_mgr,
+            create_actuator(options, self._coord),
+            planner=self.planner,
+            is_master_fn=lambda: self.is_master,
+            degraded_fn=self.coordination_health.degraded)
+        if options.autoscaler_enabled:
+            self.planner.flip_sink = self.autoscaler.propose_flip
+            if isinstance(self.lb_policy, SloAwarePolicy):
+                self.lb_policy.flip_sink = self.autoscaler.propose_flip
         self.response_handler = ResponseHandler(
             options.model_id, options.tool_call_parser,
             options.reasoning_parser)
@@ -372,6 +373,10 @@ class Scheduler:
             h.hold("planner_publish", self.self_addr,
                    reason="plane degraded: planner decision publish "
                           "suspended")
+            if self._opts.autoscaler_enabled:
+                h.hold("autoscaler_tick", self.self_addr,
+                       reason="plane degraded: autoscaler enactment "
+                              "suspended")
         elif self.is_master:
             self.kvcache_mgr.upload_kvcache()
             self.instance_mgr.upload_load_metrics()
@@ -382,6 +387,15 @@ class Scheduler:
                 self._coord.set(PLANNER_KEY, decision.to_json())
             except Exception:  # noqa: BLE001 — planning must not kill sync
                 logger.exception("planner pass failed")
+        # Closed-loop autoscaler tick. Self-gating: disabled or
+        # non-elected controllers gather nothing and act on nothing (a
+        # demoted master's straggler tick enacts zero actions — the
+        # write-lease discipline the multimaster drills assert).
+        try:
+            self.autoscaler.tick(decision)
+            self.autoscaler.reap_departed()
+        except Exception:  # noqa: BLE001 — scaling must not kill sync
+            logger.exception("autoscaler tick failed")
         # Brownout evaluation (overload plane): every frontend degrades
         # its OWN traffic off its own burn monitor — no election gate.
         try:
@@ -1328,6 +1342,7 @@ class Scheduler:
     def stop(self) -> None:
         self._stopped.set()
         self.ownership.stop()
+        self.autoscaler.stop()
         self.instance_mgr.stop()
         self.kvcache_mgr.stop()
         self._output_executor.shutdown()
