@@ -129,9 +129,10 @@ Phases (any failure exits non-zero before the result line):
    unchanged bit for bit by the chunk; the captured mixed step against
    the same step op by op, bit for bit, at spans 256 and 1024; then six
    short requests decoding while two 1792-token prompts and one of 1100
-   arrive, three times (chunks of 256 riding the decode steps,
-   ``XLLM_SARATHI=0``, whole installs): rides happen, kernel 2 runs inside
-   every captured mixed step, every request gets its budget, and the
+   arrive, three times at ADMISSION_LAYERS layers (chunks of 256 riding
+   the decode steps, ``XLLM_SARATHI=0``, whole installs): rides happen,
+   kernel 2 runs inside every captured mixed step, every request gets
+   its budget, and the
    chunked runs' greedy streams equal the whole installs' but at a
    near-tie (the token taken at one of the two largest logit values,
    within TIE_STEPS bf16 steps of the top); an online request preempting
@@ -475,6 +476,19 @@ Phases (any failure exits non-zero before the result line):
    every updated leaf within F32_REL_TOL (a leaf by its norm), the loss
    falling, every copy of a slice equal; tok/s, ms a forward, s a step and peak GiB are
    information;
+4u. last, the runtime verifiers (``devtools/``: locks, RCU, state
+   ownership, lifecycle pairs) armed in the port's master and agent, and
+   the native hot core (``common/native.py``, ``csrc/hotcore.c``) on and
+   off (``verified_phase``): masters A (``XLLM_NATIVE=1``) and B
+   (``XLLM_NATIVE=0``) and a Llama-3-8B agent at AUTO_LAYERS layers as
+   processes of this script (``--verified-master``, ``--verified-agent``,
+   started before 4o (c)) on the port's coordination server; phase 4t's
+   requests (phase 4's prompts) through A with one client leaving
+   mid-stream, then through B (bodies byte-identical but for ids and
+   timestamps where the tokens are equal, greedy streams equal to 4t's
+   in-process engine's or parting at near-ties), the agent SIGKILLed,
+   evicted and replaced by a warm one, xlint over the port's tree clean;
+   every process's verifiers must record nothing;
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -2416,8 +2430,8 @@ def twins_phase(params, card):
         gc.collect()
         torch.cuda.empty_cache()
         t = time.monotonic()
-        prof = decode_profile.run("cuda", params=params, iters=10,
-                                  trace_steps=4)
+        prof = decode_profile.run("cuda", params=params, iters=5,
+                                  trace_steps=2)
         log(f"  profile twin (8b): full_step_ms eager "
             f"{prof['full_step_ms']:.3f}, graphed "
             f"{prof['full_step_graphed_ms']:.3f}; forward "
@@ -2976,6 +2990,7 @@ def agent_phase(cfg, params, prompts, shared, sampled_prompt, phase4,
 
 # --------------------------------------------------------------- phase 4g
 CHUNK = 256                  # phase 4g's prefill_chunk_tokens
+ADMISSION_LAYERS = 16        # phase 4g: the three admission runs' depth
 
 
 def time_mq_chunk_shapes(mq_paged_attention, mq_paged_attention_plain):
@@ -3513,12 +3528,16 @@ def admission_phase(engine_mod, llama, attention, cfg, params, prompts,
               for _ in range(2)]
     prompts_4g = {**passes[-1][0], **passes[-1][1]}
     counters = (paged_attention, mq)
+    # The three runs at ADMISSION_LAYERS layers of phase 4's weights: the
+    # rides, chunks, mixed-step captures and streams they compare do not
+    # depend on the depth.
+    rcfg, rparams = depth_view(cfg, params, ADMISSION_LAYERS)
     runs = {}
     for name, chunk, sarathi in (("chunked, rides", CHUNK, True),
                                  ("chunked, XLLM_SARATHI=0", CHUNK, False),
                                  ("whole installs", 0, True)):
         t = time.monotonic()
-        r = runs[name] = admission_run(engine_mod, cfg, params, passes,
+        r = runs[name] = admission_run(engine_mod, rcfg, rparams, passes,
                                        chunk, sarathi, counters)
         for n, tk in r["tokens"].items():
             want = 16 if n.startswith("long") else 128
@@ -3540,10 +3559,10 @@ def admission_phase(engine_mod, llama, attention, cfg, params, prompts,
     for key, deltas in main["mixed"].items():
         per_replay = dict((fn.__name__, n) for fn, n in deltas)
         assert per_replay.get("mq_paged_attention", 0) == \
-            cfg.model.num_layers, f"kernel 2 not in the mixed step {key}"
-    assert main["launches"][1] >= main["rides"] * cfg.model.num_layers
+            rcfg.model.num_layers, f"kernel 2 not in the mixed step {key}"
+    assert main["launches"][1] >= main["rides"] * rcfg.model.num_layers
     for name in ("chunked, rides", "chunked, XLLM_SARATHI=0"):
-        compare_streams(llama, cfg, params, prompts_4g,
+        compare_streams(llama, rcfg, rparams, prompts_4g,
                         runs[name]["tokens"],
                         runs["whole installs"]["tokens"],
                         f"{name} vs whole installs")
@@ -10272,7 +10291,7 @@ def default_launcher_leg(card, slo):
 
 
 def autoscale_phase(cfg, llama, engine_mod, prompts, shared,
-                    kernels, card, on_full=None):
+                    kernels, card, on_full=None, refs=None):
     """Phase 4t: the autoscaler's closed loop on the card. The port's
     coordination server on a loopback port and the port's master with the
     autoscaler on and the local actuator, whose spawn command launches
@@ -10302,8 +10321,10 @@ def autoscale_phase(cfg, llama, engine_mod, prompts, shared,
     and seed (``compare_streams``); kernel 1 must run in both agents and
     kernel 2 on the prefix hits. (d) ``default_launcher_leg``, while the
     first agent starts. ``on_full`` runs once the second agent reports
-    (a later phase starts its processes there). Returns the agents'
-    launches of kernels 1 and 2."""
+    (a later phase starts its processes there). ``refs`` (a dict), if
+    given, receives the burst's, wave's and shared-prefix prompts and
+    their reference streams (phase 4u serves them again). Returns the
+    agents' launches of kernels 1 and 2."""
     import shlex
 
     from xllm_service_tpu_torch.common.config import ServiceOptions
@@ -10427,6 +10448,9 @@ def autoscale_phase(cfg, llama, engine_mod, prompts, shared,
         want = serve_greedy(engine_mod, acfg, ref_params,
                             {**burst, **wave, **trickle}, hits,
                             max_tokens=AUTO_NEW)[0]
+        if refs is not None:
+            refs["prompts"] = {**burst, **wave, **hits}
+            refs["want"] = {n: want[n] for n in refs["prompts"]}
         wait_s = registered(1, "the first agent's registration")
         rep = report()
         cold = decision_actions(rep, "scale_out")
@@ -10613,6 +10637,512 @@ def autoscale_phase(cfg, llama, engine_mod, prompts, shared,
     torch.cuda.empty_cache()
     log(f"  phase 4t: {time.monotonic() - t_phase:.1f} s")
     return sum(k1.values()), sum(k2.values())
+
+
+# --------------------------------------------------------------- phase 4u
+VERIFIED_NEW = 16          # 4u: tokens of each request (4t's)
+VERIFIED_CANCEL_AFTER = 2  # 4u (a): frames the cancelled client reads
+VERIFIED_CANCEL_NEW = 512  # 4u (a): tokens the cancelled request asks for
+#: The four runtime verifiers (devtools/), armed in 4u's processes.
+VERIFIERS = {"XLLM_LOCK_DEBUG": "1", "XLLM_RCU_DEBUG": "1",
+             "XLLM_STATE_DEBUG": "1", "XLLM_LEAK_DEBUG": "1"}
+#: 4u's masters: failure detection in tenths of a second, so that (c)'s
+#: eviction follows the lease (AUTO_HEARTBEAT_S beats, a 1 s lease).
+VERIFIED_MASTER_ARGS = [
+    "--host", "127.0.0.1", "--sync-interval-s", "0.25",
+    "--reconcile-interval-s", "0.25",
+    "--detect-disconnected-instance-interval-s", "0.5",
+    "--heartbeat-silence-to-suspect-s", "1.0",
+    "--health-probe-attempts", "1", "--health-probe-timeout-s", "0.2"]
+VERIFIED_LEASE_S = 1.0
+
+
+def verifier_report(strict=True):
+    """This process's verifier findings: violation counts by verifier and
+    kind, a few messages, and (with ``strict``) the unbalanced strict
+    lifecycle pairs."""
+    import collections
+
+    from xllm_service_tpu_torch.devtools import (lifecycle, locks,
+                                                  ownership, rcu)
+
+    out = {"armed": [m.debug_enabled() for m in (locks, rcu, ownership,
+                                                 lifecycle)]}
+    for name, mod in (("locks", locks), ("rcu", rcu), ("state", ownership),
+                      ("leak", lifecycle)):
+        vs = mod.violations()
+        out[name] = dict(collections.Counter(v.kind for v in vs))
+        out[name + "_first"] = [str(v)[:400] for v in vs[:3]]
+    if strict:
+        out["strict"] = [str(v)[:400] for v in lifecycle.strict_imbalances()]
+    return out
+
+
+def verified_master_child(argv) -> int:
+    """``python3 chip_smoke.py --verified-master ARGS...``: phase 4u's
+    master, the port's ``Master`` with ``ServiceOptions`` from ARGS, in a
+    process whose environment arms the four verifiers (VERIFIERS) and sets
+    ``XLLM_NATIVE``. Once serving it prints ``NATIVE {...}``: the native
+    core's status and the block hash's. SIGTERM stops it; then it prints
+    ``REPORT {...}``: ``verifier_report`` and the native status."""
+    import argparse
+    import logging
+    import signal
+
+    from xllm_service_tpu_torch.common import hashing, native
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.master import Master
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    p = argparse.ArgumentParser()
+    ServiceOptions.add_cli_args(p)
+    master = Master(ServiceOptions.from_cli_args(p.parse_args(argv)))
+    master.start()
+    print("NATIVE " + json.dumps({
+        "status": native.status(), "blockhash": hashing.native_available(),
+        "blockhash_error": hashing.native_error()}), flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    stop.wait()
+    master.stop()
+    print("REPORT " + json.dumps({**verifier_report(),
+                                  "native": native.status()}), flush=True)
+    return 0
+
+
+def verified_agent_child(argv) -> int:
+    """``python3 chip_smoke.py --verified-agent ARGS...``: phase 4u's
+    agent, the agent's own entry point (``engine/agent.py::main`` with
+    ARGS) on Llama-3-8B at AUTO_LAYERS layers, beating every
+    AUTO_HEARTBEAT_S on a VERIFIED_LEASE_S lease, in a process whose
+    environment arms the four verifiers. It imports and starts CUDA at
+    once, then waits for a ``go`` line on standard input before it builds
+    the agent (a replacement starts warm). Each ``report`` line is
+    answered with ``REPORT {...}`` (the verifier findings so far, the
+    token ids it pushed by service request id, the launches of kernels 1
+    and 2); end of input drains and stops it, and it prints a last
+    ``REPORT`` with the strict pairs' balance."""
+    import logging
+    import signal
+
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+
+    kernels = mh_kernels()
+    torch.cuda.init()
+    box: dict = {"toks": {}}
+    go = threading.Event()
+
+    def rep(strict):
+        return "REPORT " + json.dumps({
+            **verifier_report(strict), "toks": box["toks"],
+            "name": box.get("name"),
+            "launches": {k: fn.launches for k, fn in kernels.items()}})
+
+    def commands():
+        for line in sys.stdin:
+            if line.strip() == "go":
+                go.set()
+            elif line.strip() == "report":
+                print(rep(False), flush=True)
+        go.set()
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    engine_config = agent_mod.engine_config
+    build_agent = agent_mod.build_agent
+
+    def build(args, coord=None):
+        agent = build_agent(args, coord)
+        agent.cfg.heartbeat_interval_s = AUTO_HEARTBEAT_S
+        agent.cfg.lease_ttl_s = VERIFIED_LEASE_S
+        push = agent.streamer.push
+
+        def recording(dest, out):
+            for o in out.outputs:
+                box["toks"].setdefault(out.service_request_id, []).extend(
+                    o.token_ids)
+            push(dest, out)
+        agent.streamer.push = recording
+        box["name"] = agent.name
+        return agent
+
+    agent_mod.engine_config = lambda args: auto_cut(engine_config(args))
+    agent_mod.build_agent = build
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)"
+                        ".1s %(name)s: %(message)s")
+    threading.Thread(target=commands, daemon=True).start()
+    print("WARM", flush=True)
+    go.wait()
+    try:
+        agent_mod.main(argv)
+    finally:
+        print(rep(True), flush=True)
+    return 0
+
+
+class VerifiedChild:
+    """One of phase 4u's processes (``--verified-master`` or
+    ``--verified-agent`` of this script) with the verifiers armed by its
+    environment; its output in a log under ``build/``, whose tagged lines
+    (``NATIVE``, ``REPORT``, ``WARM``) the phase reads."""
+
+    def __init__(self, mode, args, log_name, **env):
+        import subprocess
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.log_path = os.path.join(root, "build", log_name)
+        self.is_master = mode == "--verified-master"
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode, *args],
+            cwd=root, stdin=subprocess.PIPE, text=True,
+            stdout=open(self.log_path, "w"), stderr=subprocess.STDOUT,
+            env={**os.environ, **VERIFIERS, **env})
+
+    def tail(self):
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def tagged(self, tag):
+        with open(self.log_path) as f:
+            return [json.loads(ln[len(tag) + 1:]) if ln[len(tag) + 1:].strip()
+                    else {} for ln in f if ln.startswith(tag + " ")
+                    or ln.rstrip("\n") == tag]
+
+    def wait_tag(self, tag, n=1, timeout=120.0):
+        t0 = time.monotonic()
+        while len(self.tagged(tag)) < n:
+            assert self.proc.poll() is None, \
+                f"{self.log_path} exited {self.proc.returncode}:\n" \
+                f"{self.tail()}"
+            assert time.monotonic() - t0 < timeout, \
+                f"no {tag} line in {self.log_path}:\n{self.tail()}"
+            time.sleep(0.02)
+        return self.tagged(tag)[n - 1]
+
+    def send(self, line):
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def ask(self):
+        """The agent's findings so far."""
+        n = len(self.tagged("REPORT"))
+        self.send("report")
+        return self.wait_tag("REPORT", n + 1, timeout=30)
+
+    def finish(self, timeout=60):
+        """End of input (an agent drains), SIGTERM (a master stops); the
+        last REPORT."""
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            if self.is_master:
+                self.proc.terminate()
+            self.proc.wait(timeout=timeout)
+        assert self.proc.returncode == 0, \
+            f"{self.log_path} exited {self.proc.returncode}:\n{self.tail()}"
+        return self.tagged("REPORT")[-1]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def hotpath_of(port):
+    return MasterCall(port, "/admin/hotpath", None).json()
+
+
+def cancelled_stream(port, prompt):
+    """A streamed request whose client hangs up after
+    VERIFIED_CANCEL_AFTER frames; its service request id."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(
+            {"model": "llama3-8b", "prompt": prompt, "stream": True,
+             "max_tokens": VERIFIED_CANCEL_NEW, "temperature": 0.0,
+             "ignore_eos": True}),
+            headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        assert r.status == 200, r.status
+        sid = r.getheader("x-request-id")
+        frames = 0
+        while frames < VERIFIED_CANCEL_AFTER:
+            if r.fp.readline() == b"\n":
+                frames += 1
+        return sid
+    finally:
+        conn.close()
+
+
+_ID_TS = re.compile(rb'"(id|created)": ?("[^"]*"|\d+)')
+
+
+def scrub_ids(body: bytes) -> bytes:
+    """A response's bytes with its random ids and timestamps blanked."""
+    return _ID_TS.sub(rb'"\1":_', body)
+
+
+def verified_start(cfg):
+    """Start phase 4u's processes (a phase early, so that they warm up
+    while it runs): the port's coordination server here, xlint over the
+    port's tree, master A (``XLLM_NATIVE=1``) and master B
+    (``XLLM_NATIVE=0``), the agent and its replacement (which waits for
+    ``go``), each a process of this script with the verifiers armed from
+    its start. Returns the phase's state for :func:`verified_phase`;
+    :func:`verified_stop` ends what it started."""
+    import subprocess
+
+    from xllm_service_tpu_torch.common.net import pick_free_port
+    from xllm_service_tpu_torch.coordination.memory import MemoryStore
+    from xllm_service_tpu_torch.coordination.server import (
+        CoordinationServer,
+    )
+    from xllm_service_tpu_torch.engine import agent as agent_mod
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    u: dict = {"t0": time.monotonic(), "root": root, "procs": [],
+               "masters": {}}
+    u["lint"] = subprocess.Popen(
+        [sys.executable, "-m", "xllm_service_tpu_torch.devtools.xlint",
+         "--format", "json", "xllm_service_tpu_torch"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    srv = u["srv"] = CoordinationServer(host="127.0.0.1", port=0,
+                                        store=MemoryStore())
+    srv.start_background()
+    addr = u["addr"] = f"127.0.0.1:{srv.port}"
+    try:
+        for which, native_on in (("A", "1"), ("B", "0")):
+            http_port = pick_free_port("127.0.0.1")
+            u["masters"][which] = (http_port, VerifiedChild(
+                "--verified-master", [
+                    *VERIFIED_MASTER_ARGS, "--coordination-addr", addr,
+                    "--http-port", str(http_port), "--rpc-port",
+                    str(pick_free_port("127.0.0.1"))],
+                f"phase4u_master_{which}.log", XLLM_NATIVE=native_on))
+            u["procs"].append(u["masters"][which][1])
+        for key in ("first", "spare"):
+            port = pick_free_port("127.0.0.1")
+            args = [a.format(coordination_addr=addr, port=port)
+                    for a in auto_agent_args(cfg)[1:]]
+            u[key] = VerifiedChild("--verified-agent", args,
+                                   f"phase4u_agent_{key}.log")
+            u["procs"].append(u[key])
+            u[key + "_name"] = f"127.0.0.1:{port}"
+            u["acfg"] = auto_cut(agent_mod.engine_config(
+                agent_mod._parser().parse_args(args)))
+        u["first"].send("go")
+    except BaseException:
+        verified_stop(u)
+        raise
+    return u
+
+
+def verified_stop(u):
+    for p in u["procs"]:
+        p.kill()
+    u["srv"].stop()
+    if u["lint"].poll() is None:
+        u["lint"].kill()
+        u["lint"].wait()
+
+
+def verified_phase(u, llama, engine_mod, refs, card):
+    """Phase 4u: the port's master and agent with the four runtime
+    verifiers armed (locks, RCU, state ownership, lifecycle pairs), the
+    native hot core on and off, and xlint over the port, on the processes
+    :func:`verified_start` started: two masters and an agent (Llama-3-8B
+    at AUTO_LAYERS layers, random bf16 weights from its seed). ``refs``:
+    the prompts phase 4t served through its agents (phase 4's, its
+    shared-prefix pair among them) and their streams from an in-process
+    engine on the same configuration and seed (drawn here when ``refs``
+    holds only the prompts).
+    (a) those requests through A, streamed and whole, and one stream its
+    client leaves after VERIFIED_CANCEL_AFTER frames: A's native status
+    shows all four components and the block hash loaded, every greedy
+    stream equal to the reference's or parting at a near-tie
+    (``compare_streams``), the cancelled one stopped early; (b) the same
+    requests through B: each body whose tokens equal A's is
+    byte-identical to A's but for ids and timestamps; (c) the agent
+    SIGKILLed (its findings taken first), evicted by both masters, the
+    replacement (started warm) registered and serving; (d) xlint over the
+    port's tree, run beside the phase, clean. Every process's verifiers
+    must have recorded nothing, and no strict pair may stay unbalanced
+    where its process stops. The masters' route and stream CPU a request
+    under (a) and (b), tok/s with the verifiers armed and the phase's
+    seconds are logged. Returns the agents' launches of kernels 1 and
+    2."""
+    t_phase = time.monotonic()
+    masters, first, spare = u["masters"], u["first"], u["spare"]
+    name1, name2, acfg = u["first_name"], u["spare_name"], u["acfg"]
+    try:
+        ref_params = llama.init_params(
+            acfg.model, torch.Generator(device="cuda").manual_seed(acfg.seed),
+            "cuda")
+        if "want" not in refs:
+            refs["want"] = serve_greedy(engine_mod, acfg, ref_params,
+                                        refs["prompts"],
+                                        max_tokens=VERIFIED_NEW)[0]
+        reqs, want = refs["prompts"], refs["want"]
+        natives = {w: m[1].wait_tag("NATIVE") for w, m in masters.items()}
+        st_a = natives["A"]
+        log(f"  coordination server {u['addr']}; masters A (XLLM_NATIVE=1) "
+            f"HTTP :{masters['A'][0]}, B (XLLM_NATIVE=0) HTTP "
+            f":{masters['B'][0]}; A's native core "
+            f"{st_a['status']['components']} from "
+            f"{os.path.relpath(st_a['status']['so'], u['root'])}, block "
+            f"hash {st_a['blockhash']}; B's "
+            f"{natives['B']['status']['components']}")
+        assert st_a["status"]["loaded"] and all(
+            st_a["status"]["components"].values()) and \
+            not st_a["status"]["error"], st_a
+        assert st_a["blockhash"], st_a
+        assert not any(natives["B"]["status"]["components"].values()), \
+            natives["B"]
+
+        def registered(name, present=True, timeout=90):
+            t = time.monotonic()
+            wait_for(lambda: all(
+                (hotpath_of(p)["loadinfo"]["ages_s"].get(name, -1) >= 0)
+                == present for p, _ in masters.values()),
+                f"{name} {'in' if present else 'out of'} both masters' "
+                "fleets", timeout=timeout)
+            return time.monotonic() - t
+
+        wait_s = registered(name1)
+        log(f"  agent {name1} (llama3-8b at {AUTO_LAYERS} layers) registered "
+            f"at both masters {time.monotonic() - u['t0']:.1f} s after its "
+            f"start (waited {wait_s:.1f} s here)")
+
+        streamed = {n for i, n in enumerate(reqs) if i % 2 == 0}
+        cancel_prompt = next(iter(reqs.values()))
+
+        def serve(port, cancel):
+            calls: dict = {}
+
+            def send(n, ids, stream):
+                body = master_greedy(ids, "", stream, VERIFIED_NEW)
+                calls[n] = MasterCall(port, "/v1/completions", body, stream)
+            threads = [threading.Thread(target=send,
+                                        args=(n, ids, n in streamed))
+                       for n, ids in reqs.items()]
+            box = {}
+            if cancel:
+                threads.append(threading.Thread(target=lambda: box.setdefault(
+                    "sid", cancelled_stream(port, cancel_prompt))))
+            t = time.monotonic()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.monotonic() - t
+            for n, c in calls.items():
+                check_call(c, n, VERIFIED_NEW, n in streamed)
+            return calls, wall, box.get("sid")
+
+        cpu0 = {w: hotpath_of(p)["cpu"] for w, (p, _) in masters.items()}
+        calls_a, wall_a, cancel_sid = serve(masters["A"][0], True)
+        calls_b, wall_b, _ = serve(masters["B"][0], False)
+        cpu1 = {w: hotpath_of(p)["cpu"] for w, (p, _) in masters.items()}
+        per_req = {"A": len(reqs) + 1, "B": len(reqs)}
+
+        def cpu_ms(w, k):
+            d = cpu1[w][k]["cpu_s"] - cpu0[w][k]["cpu_s"]
+            return d * 1e3 / per_req[w]
+        cpu_line = "; ".join(
+            f"{w} ({'native' if w == 'A' else 'python'}) route "
+            f"{cpu_ms(w, 'route'):.3f} ms, stream {cpu_ms(w, 'stream'):.3f}"
+            " ms" for w in ("A", "B"))
+        rep1 = first.ask()
+        toks = rep1["toks"]
+        got_a = {n: toks[c.headers["x-request-id"]]
+                 for n, c in calls_a.items()}
+        got_b = {n: toks[c.headers["x-request-id"]]
+                 for n, c in calls_b.items()}
+        compare_streams(llama, acfg, ref_params, reqs, got_a, want,
+                        "4u (a): master A's streams vs an in-process engine")
+        # B's requests find A's prefixes cached, so the agent computes
+        # their first tokens by another route: a stream may part at a
+        # near-tie. Where the tokens are equal, the bodies must be too.
+        compare_streams(llama, acfg, ref_params, reqs, got_b, want,
+                        "4u (b): master B's streams vs an in-process engine")
+        n_cancelled = len(toks.get(cancel_sid, []))
+        assert n_cancelled < VERIFIED_CANCEL_NEW, \
+            f"the cancelled stream ran to its end ({n_cancelled} tokens)"
+        same = [n for n in calls_a if got_a[n] == got_b[n]]
+        assert any(n in streamed for n in same) and any(
+            n not in streamed for n in same), f"4u (b): too few equal " \
+            f"streams to compare bodies: {same}"
+        differ = [n for n in same
+                  if scrub_ids(calls_a[n].body) != scrub_ids(calls_b[n].body)]
+        assert not differ, f"4u (b): bodies differ between A and B: {differ}"
+        tps = len(reqs) * VERIFIED_NEW / wall_a
+        log(f"  (a) {len(reqs)} requests through A in {wall_a:.2f} s, "
+            f"{tps:.1f} generated tok/s with the verifiers armed; the client "
+            f"that left after {VERIFIED_CANCEL_AFTER} frames: its stream "
+            f"stopped at {n_cancelled} of {VERIFIED_CANCEL_NEW} tokens "
+            f"({card})")
+        log(f"  (b) the same through B in {wall_b:.2f} s: {len(same)} of "
+            f"{len(reqs)} with A's tokens, and each of those bodies equal to "
+            f"A's byte for byte but for ids and timestamps; "
+            f"master CPU a request (CPU_ATTR): {cpu_line} (information; "
+            f"{card})")
+
+        # (c) the agent dies; the replacement joins.
+        t = time.monotonic()
+        first.kill()
+        spare.send("go")
+        evict_s = registered(name1, present=False)
+        reg_s = registered(name2)
+        name0, prompt0 = next(iter(reqs.items()))
+        c = MasterCall(masters["A"][0], "/v1/completions",
+                       master_greedy(prompt0, "", True, VERIFIED_NEW), True)
+        check_sse(c, "after", VERIFIED_NEW)
+        rep2 = spare.ask()
+        after = rep2["toks"][c.headers["x-request-id"]]
+        compare_streams(llama, acfg, ref_params, {name0: prompt0},
+                        {name0: after}, {name0: want[name0]},
+                        "4u (c): the replacement vs an in-process engine")
+        log(f"  (c) {name1} SIGKILLed: out of both masters' fleets "
+            f"{evict_s:.2f} s later; the replacement {name2} registered "
+            f"{reg_s:.2f} s after that and served {name0} "
+            f"({time.monotonic() - t:.1f} s; {card})")
+        del ref_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        final2 = spare.finish()
+        finals = {"agent 1 (at its kill)": rep1, "agent 2": final2}
+        for w in ("A", "B"):
+            finals[f"master {w}"] = masters[w][1].finish()
+        launches = [rep1["launches"][k] + final2["launches"][k]
+                    for k in ("paged_attention", "mq_paged_attention")]
+        # (d) xlint over the port's tree, on this machine's Python.
+        out, _ = u["lint"].communicate(timeout=120)
+    finally:
+        verified_stop(u)
+    lint_rep = json.loads(out.strip().splitlines()[-1])
+    assert u["lint"].returncode == 0 and lint_rep["count"] == 0, out[-2000:]
+    log(f"  (d) xlint over xllm_service_tpu_torch: {lint_rep['files']} "
+        f"files, {lint_rep['count']} violations, "
+        f"{len(lint_rep['hatches'])} hatches, every one with its reason")
+
+    bad = {}
+    for who, r in finals.items():
+        assert all(r["armed"]), f"{who}: verifiers not armed {r['armed']}"
+        counts = {k: r[k] for k in ("locks", "rcu", "state", "leak")}
+        log(f"  violations, {who}: {counts}; strict imbalances "
+            f"{len(r.get('strict', []))} ({card})")
+        if any(counts.values()) or r.get("strict"):
+            bad[who] = {k: r[k] for k in r if k.endswith("_first")
+                        or k == "strict"}
+    assert not bad, f"4u: verifier findings {bad}"
+    log(f"  kernels 1 and 2 launched {launches[0]} and {launches[1]} times "
+        "in the two agents")
+    log(f"  phase 4u: {time.monotonic() - t_phase:.1f} s here, "
+        f"{time.monotonic() - u['t0']:.1f} s from its processes' start "
+        f"({card})")
+    return launches
 
 
 def main() -> int:
@@ -10928,12 +11458,13 @@ def main() -> int:
     # 4o (f)'s decode agent starts once 4t's second agent reports: its
     # start overlaps the rest of 4t and 4o (a), (b).
     planes: dict = {}
+    u_refs: dict = {}        # 4t's reference streams, which 4u serves
     try:
         t_launches = autoscale_phase(
             cfg, llama, engine_mod, prompts, shared,
             (paged_attention, mq_paged_attention), card,
             on_full=lambda: planes.setdefault("o", tp_decode_plane(
-                cfg, "2", "phase4o_decode_agent.log")))
+                cfg, "2", "phase4o_decode_agent.log")), refs=u_refs)
     except BaseException:
         if "o" in planes:
             close_plane(planes["o"])
@@ -11058,12 +11589,27 @@ def main() -> int:
         "the dry run at the north-star sizes "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     t = time.monotonic()
-    o_c = tp70b_leg(engine_mod, llama, prompts, shared,
-                    (paged_attention, mq_paged_attention,
-                     fused_decode_attention, cp.paged_partial), card)
-    log(f"  (c): {time.monotonic() - t:.1f} s")
-    dryrun_leg(card)
+    # 4u's processes start here: they warm up while (c) and (g) run.
+    u_state = verified_start(phase4_config())
+    try:
+        o_c = tp70b_leg(engine_mod, llama, prompts, shared,
+                        (paged_attention, mq_paged_attention,
+                         fused_decode_attention, cp.paged_partial), card)
+        log(f"  (c): {time.monotonic() - t:.1f} s")
+        dryrun_leg(card)
+    except BaseException:
+        verified_stop(u_state)
+        raise
     log(f"  phase 4o (c), (g): {time.monotonic() - t:.1f} s")
+
+    # Phase 4u: the master and agent under the runtime verifiers, the
+    # native hot core on and off, xlint over the port.
+    log("[4u] the port's master and agent with the four runtime verifiers "
+        "armed: master A on the native hot core, master B on its Python "
+        f"path, an agent (llama3-8b at {AUTO_LAYERS} layers) SIGKILLed and "
+        "replaced, xlint over the port "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
+    u_launches = verified_phase(u_state, llama, engine_mod, u_refs, card)
 
     # Phase 5: the kernels line, the card line, the result.
     rows = []
@@ -11077,7 +11623,7 @@ def main() -> int:
              + m_launches["paged"]
              + n_launches["paged"] + o_a[0] + o_c[0]
              + m_launches["ep_paged"] + p_launches["paged_attention"]
-             + r_launches[0] + t_launches[0]),
+             + r_launches[0] + t_launches[0] + u_launches[0]),
             ("mq_paged_attention", csrc + "mq_paged_attention.cu",
              "xllm_service_tpu/ops/pallas_mq_paged_attention.py:100", k2,
              runs[0][1][1] + agent_launches[1] + g_launches[1]
@@ -11086,7 +11632,7 @@ def main() -> int:
              + m_launches["mq"]
              + n_launches["mq"] + o_a[1] + o_c[1] + m_launches["ep_mq"]
              + p_launches["mq_paged_attention"] + q_launches["mq"]
-             + r_launches[1] + t_launches[1]),
+             + r_launches[1] + t_launches[1] + u_launches[1]),
             ("fused_decode_attention", csrc + "fused_decode_attention.cu",
              "xllm_service_tpu/ops/pallas_fused_decode_attention.py:158", k3,
              fused_launches[0]),
@@ -11176,4 +11722,8 @@ if __name__ == "__main__":
         sys.exit(mh_agent_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--autoscaled-agent"]:
         sys.exit(autoscaled_agent_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--verified-master"]:
+        sys.exit(verified_master_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--verified-agent"]:
+        sys.exit(verified_agent_child(sys.argv[2:]))
     sys.exit(main())

@@ -39,6 +39,8 @@ from typing import Any, Optional
 
 from ..common.config import ServiceOptions
 from ..common.types import now_ms
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..utils import get_logger, pick_free_port
 
 logger = get_logger(__name__)
@@ -92,6 +94,7 @@ class FleetActuator:
         """Service shutdown: release everything."""
 
 
+@_ownership.verify_state
 class HintActuator(FleetActuator):
     """Publishes action records for external infrastructure. Every
     enacted action lands under a fresh ``XLLM:AUTOSCALER:action:<seq>``
@@ -111,7 +114,7 @@ class HintActuator(FleetActuator):
 
     def __init__(self, coord):
         self._coord = coord
-        self._lock = threading.Lock()
+        self._lock = make_lock("autoscaler.hint_actuator", order=18)  # lock-order: 18
         self._seq = 0
         self._last_publish: dict[str, tuple[float, int]] = {}
 
@@ -150,6 +153,7 @@ class HintActuator(FleetActuator):
                        "phase": "drained"})
 
 
+@_ownership.verify_state
 class LocalProcessActuator(FleetActuator):
     """Launches engine agent processes on this box. The spawn command is
     a shell-split template with ``{port}`` / ``{coordination_addr}``
@@ -171,7 +175,7 @@ class LocalProcessActuator(FleetActuator):
         self._log_dir = Path(log_dir or os.environ.get(
             "XLLM_AUTOSCALER_LOGDIR", tempfile.gettempdir()))
         self._max_procs = max(2, options.autoscaler_max_instances * 2)
-        self._lock = threading.Lock()
+        self._lock = make_lock("autoscaler.local_actuator", order=18)  # lock-order: 18
         self._procs: dict[str, subprocess.Popen] = {}
         self._spawned_at: dict[str, float] = {}
         self.launched_total = 0

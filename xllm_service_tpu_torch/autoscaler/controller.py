@@ -47,6 +47,8 @@ from ..common import topology as _topo
 from ..common.slo import SLO_MONITOR
 from ..common.tracing import TRACER
 from ..common.types import InstanceType, now_ms
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..utils import get_logger, jittered_backoff
 
 logger = get_logger(__name__)
@@ -333,6 +335,7 @@ def decide(inp: KernelInputs, st: KernelState,
     return actions, nxt, reasons
 
 
+@_ownership.verify_state
 class AutoscalerController:
     """The closed control loop. One instance per frontend; ticks ride the
     scheduler's sync cadence; only the elected master's ticks act."""
@@ -362,7 +365,7 @@ class AutoscalerController:
         # Controller-private state: kernel state, the decision log, flip
         # proposals awaiting a tick, and retiring victims (drain
         # requested; awaiting departure so the actuator can reap).
-        self._lock = threading.Lock()
+        self._lock = make_lock("autoscaler.controller", order=16)  # lock-order: 16
         self._state = KernelState()
         self._log: deque = deque(
             maxlen=max(8, options.autoscaler_decision_log_capacity))

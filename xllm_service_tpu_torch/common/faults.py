@@ -1,14 +1,23 @@
 """Deterministic fault injection (copy of
-``xllm_service_tpu/common/faults.py``), with the engine's two fault
-points:
+``xllm_service_tpu/common/faults.py``), with every fault point of the
+port's I/O layers:
 
 =====================  ==================================================
 point                  where it is checked
 =====================  ==================================================
+``rpc.post``           ``rpc/channel.py`` before every POST attempt
+``rpc.get``            ``rpc/channel.py`` before every GET attempt
+``coord.call``         ``coordination/client.py`` before each request
+``coord.connect``      ``coordination/client.py`` on every (re)connect
+``coord.outage``       ``coordination/memory.py`` plane liveness ping
 ``kv_transfer.offer``  ``engine/kv_transfer.py``, the prefill-side offer
                        (device and streamed paths)
 ``kv_transfer.pull``   ``engine/kv_transfer.py``, the decode-side pull
                        (device and streamed paths)
+``engine.accept``      ``testing/fake_engine.py`` request admission
+``engine.token``       ``testing/fake_engine.py`` before each generated
+                       delta
+``engine.heartbeat``   ``testing/fake_engine.py`` heartbeat loop
 =====================  ==================================================
 
 A :class:`FaultRule` names a point (a glob), an action, and when it fires:
@@ -37,10 +46,35 @@ logger = logging.getLogger(__name__)
 #: Actions understood by at least one fault point.
 ACTIONS = ("error", "drop", "delay", "disconnect", "crash", "silence")
 
+#: Registry of every fault point compiled into the I/O layers. xlint's
+#: fault-point rule enforces the bidirectional contract: every
+#: ``FAULTS.check("name")``/``FAULTS.fire("name")`` call site must name a
+#: point registered here, and every registered point must have at least
+#: one live call site (no dead fault points). Keep the table in the module
+#: docstring in sync — it is the human-readable view of this dict.
 FAULT_POINTS: dict[str, str] = {
+    "rpc.post": "rpc/channel.py before every POST attempt",
+    "rpc.get": "rpc/channel.py before every GET attempt",
+    "coord.call": "coordination/client.py before each request",
+    "coord.connect": "coordination/client.py on every (re)connect",
+    "coord.outage": "coordination/memory.py plane liveness ping",
     "kv_transfer.offer": "engine/kv_transfer.py prefill-side offer",
     "kv_transfer.pull": "engine/kv_transfer.py decode-side pull",
+    "engine.accept": "testing/fake_engine.py request admission",
+    "engine.token": "testing/fake_engine.py before each generated delta",
+    "engine.heartbeat": "testing/fake_engine.py heartbeat loop",
 }
+
+# Yield-point hook: every fire() marks a modeled blocking-I/O site. The
+# instrumented-lock detector (devtools.locks) installs itself here under
+# XLLM_LOCK_DEBUG=1 to flag locks held across I/O; None costs one attribute
+# read per fault point.
+_yield_hook = None
+
+
+def set_yield_hook(hook) -> None:
+    global _yield_hook
+    _yield_hook = hook
 
 
 class FaultInjected(RuntimeError):
@@ -90,7 +124,7 @@ class FaultPlane:
         if seed is None:
             seed = int(os.environ.get("XLLM_CHAOS_SEED", "0"))
         self.seed = seed
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()   # lock-order: 800
         self._rng = Random(seed)
         self._rules: list[FaultRule] = []
 
@@ -121,9 +155,13 @@ class FaultPlane:
             return list(self._rules)
 
     def fire(self, point: str, **ctx: Any) -> Optional[FaultRule]:
-        """The first rule that fires at `point` (counters advanced), or
-        None. Callers enact its action."""
-        if not self._rules:   # the plane is almost always empty
+        """Return the first rule that triggers at `point` (counters
+        advanced), or None. Callers enact the returned rule's action."""
+        hook = _yield_hook
+        if hook is not None:
+            # Lock-debug mode: every fault point is a blocking-I/O marker.
+            hook(point)
+        if not self._rules:   # fast path: the plane is almost always empty
             return None
         fired: Optional[FaultRule] = None
         with self._lock:
@@ -149,6 +187,11 @@ class FaultPlane:
         if fired is not None:
             logger.info("fault fired at %s: %s (ctx=%s)",
                         point, fired.action, ctx)
+            # Self-explaining chaos drills: the injection lands as an event
+            # on whatever span the calling thread is inside. Lazy import:
+            # under XLLM_LOCK_DEBUG the lock factory imports this module at
+            # its own import time, so a top-level tracing import would cycle
+            # (faults -> tracing -> devtools.locks -> faults).
             from . import tracing
 
             tracing.add_event("fault", point=point, action=fired.action)

@@ -16,30 +16,35 @@ which an engine process does not record.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
 
-logger = logging.getLogger(__name__)
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
+from ..utils import get_logger
+
+logger = get_logger(__name__)
 
 #: Anomaly kinds (the ring's records and the JSONL use these values).
 KINDS = ("slo_breach", "failover", "error", "kv_stream_fallback",
          "handoff_recovery")
 
 
+@_ownership.verify_state
 class FlightRecorder:
     def __init__(self, capacity: int = 64):
-        self._lock = threading.Lock()
+        self._lock = make_lock("flightrecorder.ring", order=818)  # lock-order: 818
         self._ring: deque[dict[str, Any]] = deque(maxlen=max(1, capacity))
         self._path: Optional[str] = None
         self._file = None
-        self._file_lock = threading.Lock()
-        # name -> zero-argument callable returning a JSON-able snapshot,
-        # captured into every bundle; a provider's error is recorded in
-        # place of its value.
+        self._file_lock = threading.Lock()   # lock-order: 819
+        # Context providers: name -> zero-arg callable returning a JSON-
+        # able snapshot, captured into every bundle. Provider errors are
+        # recorded in place of their value, never raised.
         self._context: dict[str, Callable[[], Any]] = {}
 
     def configure(self, capacity: Optional[int] = None,
@@ -58,7 +63,13 @@ class FlightRecorder:
     def add_context_provider(self, name: str,
                              fn: Callable[[], Any]) -> None:
         with self._lock:
+            if name in self._context:
+                # Replacement: the old registration's obligation passes
+                # to the new owner — release before re-acquiring so the
+                # keyed balance stays exactly one.
+                _lifecycle.note_release("flight-context", key=name)
             self._context[name] = fn
+            _lifecycle.note_acquire("flight-context", key=name)
 
     def remove_context_provider(self, name: str,
                                 fn: Optional[Callable[[], Any]] = None
@@ -67,12 +78,15 @@ class FlightRecorder:
         holds that callable (a newer owner of the name keeps its own)."""
         with self._lock:
             if fn is None or self._context.get(name) == fn:
+                if name in self._context:
+                    _lifecycle.note_release("flight-context", key=name)
                 self._context.pop(name, None)
 
     def record(self, kind: str, request_id: str = "", trace_id: str = "",
                detail: Optional[dict[str, Any]] = None) -> dict[str, Any]:
         """Capture one anomaly bundle. Never raises: a failed capture logs
         and records what it got."""
+        from .metrics import FLIGHT_RECORDS_TOTAL
         from .tracing import TRACER, span_tree
 
         bundle: dict[str, Any] = {
@@ -100,6 +114,7 @@ class FlightRecorder:
                     bundle[name] = {"error": str(e)}
         except Exception:  # noqa: BLE001 — capture is best effort
             logger.exception("flight-recorder capture failed (%s)", kind)
+        FLIGHT_RECORDS_TOTAL.labels(kind=kind).inc()
         with self._lock:
             self._ring.append(bundle)
         self._dump(bundle)

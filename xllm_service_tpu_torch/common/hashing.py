@@ -1,15 +1,26 @@
 """Chained block hashing for global prefix-KV-cache identity.
 
-A copy of the pure-Python path of ``xllm_service_tpu/common/hashing.py``:
-16-byte keys from a chained keyed BLAKE2b-128 over ``[prev_hash ‖
-block_token_ids]`` per fixed-size token block. The keys must equal the
-reference's byte for byte, because they are what the global prefix index
-routes on; ``tests/test_torch_kv_cache.py`` checks that.
+A copy of ``xllm_service_tpu/common/hashing.py``: 16-byte keys from a
+chained keyed BLAKE2b-128 over ``[prev_hash ‖ block_token_ids]`` per
+fixed-size token block. The keys must equal the reference's byte for
+byte, because they are what the global prefix index routes on;
+``tests/test_torch_kv_cache.py`` and
+``tests/test_torch_native_hotcore.py`` check that.
+
+The native path is the port's copy of ``csrc/blockhash.c``, built at first
+use by :func:`xllm_service_tpu_torch.common.native.build_library` (with
+the list-ingest entry point, which reads a Python token sequence under
+the GIL) and loaded with ``ctypes``. ``XLLM_NO_NATIVE_HASH=1`` keeps the
+pure path, as in the reference; a NumPy array always takes the buffer
+entry point, and a library that does not build leaves the pure path on.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import os
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -17,6 +28,60 @@ import numpy as np
 DEFAULT_BLOCK_SIZE = 128
 HASH_NBYTES = 16
 _SEED = b"xllm-service-tpu"
+
+_native_lock = threading.Lock()   # lock-order: 841
+_NATIVE = None          # buffer entry point, once loaded
+_NATIVE_LIST = None     # list-ingest entry point (GIL held), once loaded
+_NATIVE_TRIED = False
+_NATIVE_ERROR = ""
+
+
+def _load_native() -> None:
+    """Build and bind the block hash library once per process (the
+    reference's ``_load_native`` over the port's own source)."""
+    global _NATIVE, _NATIVE_LIST, _NATIVE_TRIED, _NATIVE_ERROR
+    if _NATIVE_TRIED:
+        return
+    with _native_lock:
+        if _NATIVE_TRIED:
+            return
+        if os.environ.get("XLLM_NO_NATIVE_HASH", "") not in ("", "0"):
+            _NATIVE_TRIED = True
+            return
+        from . import native
+
+        try:
+            so = native.build_library("blockhash", ("BLOCKHASH_PYLIST",))
+            buf_fn = ctypes.CDLL(str(so)).chained_block_hashes
+            buf_fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                               ctypes.c_size_t, ctypes.c_char_p,
+                               ctypes.c_size_t, ctypes.c_char_p]
+            buf_fn.restype = None
+            # PyDLL: keeps the GIL held across the call — the entry point
+            # uses CPython APIs to read the token sequence.
+            list_fn = ctypes.PyDLL(str(so)).chained_block_hashes_list
+            list_fn.argtypes = [ctypes.py_object, ctypes.c_ssize_t,
+                                ctypes.py_object]
+            list_fn.restype = ctypes.py_object
+        except (OSError, AttributeError) as e:
+            _NATIVE_ERROR = str(e)
+        else:
+            _NATIVE, _NATIVE_LIST = buf_fn, list_fn
+        _NATIVE_TRIED = True
+
+
+def native_available() -> bool:
+    """Whether the native block hash serves this process (built and
+    loaded at first call)."""
+    _load_native()
+    return _NATIVE is not None
+
+
+def native_error() -> str:
+    """Why the native block hash does not serve ("" when it does, or when
+    ``XLLM_NO_NATIVE_HASH`` turned it off)."""
+    _load_native()
+    return _NATIVE_ERROR
 
 
 def hash_block(prev: bytes, token_ids: Sequence[int]) -> bytes:
@@ -29,6 +94,13 @@ def hash_block(prev: bytes, token_ids: Sequence[int]) -> bytes:
 def _chain(buf: bytes, n_blocks: int, block_bytes: int,
            seed: bytes) -> list[bytes]:
     """Chained keyed BLAKE2b-128 over ``n_blocks`` slices of ``buf``."""
+    _load_native()
+    if _NATIVE is not None:
+        out = ctypes.create_string_buffer(n_blocks * HASH_NBYTES)
+        _NATIVE(buf, n_blocks, block_bytes, seed, len(seed), out)
+        raw = out.raw
+        return [raw[i * HASH_NBYTES:(i + 1) * HASH_NBYTES]
+                for i in range(n_blocks)]
     blake2b = hashlib.blake2b
     mv = memoryview(buf)
     prev = seed
@@ -42,6 +114,13 @@ def _chain(buf: bytes, n_blocks: int, block_bytes: int,
 
 def _hash_tokens(token_seq: Sequence[int], block_size: int,
                  seed: bytes) -> list[bytes]:
+    _load_native()
+    if _NATIVE_LIST is not None and not isinstance(token_seq, np.ndarray):
+        # List path: the element-by-element int32 conversion runs in C
+        # too (through np.asarray it costs far more than the chain).
+        raw = _NATIVE_LIST(token_seq, block_size, seed)
+        return [raw[i:i + HASH_NBYTES]
+                for i in range(0, len(raw), HASH_NBYTES)]
     arr = np.asarray(token_seq, dtype=np.int32)
     n_blocks = len(arr) // block_size
     if n_blocks == 0:

@@ -17,6 +17,8 @@ import threading
 from bisect import bisect_right
 from typing import Any, Iterable, Optional
 
+from ..devtools import lifecycle as _lifecycle
+
 
 def _escape_label_value(v: str) -> str:
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
@@ -37,7 +39,7 @@ class _Metric:
         self.labelnames = tuple(labelnames)
         # Set on children made by labels(); () on families and plain series.
         self._labelvalues: tuple[str, ...] = ()
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()   # lock-order: 810
         self._children: dict[tuple[str, ...], Any] = {}
 
     def _label_suffix(self,
@@ -69,6 +71,7 @@ class _Metric:
                 child.labelnames = self.labelnames
                 child._labelvalues = key
                 self._children[key] = child
+                _lifecycle.note_series_created(self.name, key)
             return child
 
     def remove(self, **kw: Any) -> None:
@@ -188,10 +191,19 @@ class Histogram(_Metric):
 
 
 def evict_series(metric: _Metric, **labels: Any) -> None:
-    """Drop one labeled child series when its subject goes away (a PD peer
-    unlinked, the heartbeat master changed), so a long-lived engine's
-    exposition stays bounded."""
+    """Drop one labeled child series when its subject goes away (an
+    instance evicted, a PD peer unlinked, the heartbeat master changed),
+    so a long-lived process's exposition stays bounded.
+
+    This is the single blessed release site for the ``metric-series``
+    effect pair (devtools/lifecycle.py): xlint's ``pair-evict`` rule
+    flags direct ``.remove()`` calls outside this module, and under
+    ``XLLM_LEAK_DEBUG=1`` the evicted key is tombstoned so a later
+    stale write re-creating the series (the gauge-resurrection bug) is
+    reported."""
+    key = metric._child_key(labels)
     metric.remove(**labels)
+    _lifecycle.note_series_evicted(metric.name, key)
 
 
 def relabel_prometheus_text(text: str, instance: str, role: str,
@@ -247,7 +259,7 @@ def relabel_prometheus_text(text: str, instance: str, role: str,
 class MetricsRegistry:
     def __init__(self) -> None:
         self._metrics: dict[str, _Metric] = {}
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()   # lock-order: 814
 
     def counter(self, name: str, help_: str = "",
                 labelnames: Iterable[str] = ()) -> Counter:

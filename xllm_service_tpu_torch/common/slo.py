@@ -35,6 +35,8 @@ import time
 from collections import deque
 from typing import Any, Optional
 
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 
 #: Objective keys (stable API: gauge label values and report keys).
 OBJECTIVES = ("ttft", "tpot", "error_rate")
@@ -154,13 +156,14 @@ class _Objective:
         }
 
 
+@_ownership.verify_state
 class SloMonitor:
     """Process-global burn-rate tracker over the three serving
     objectives. Writers (the scheduler's token/exit paths) hold one leaf
     lock for a deque append; the report walks bounded bucket lists."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.monitor", order=816)  # lock-order: 816
         self.alert = 14.4
         self._configure_locked(1000.0, 50.0, 0.01, 300.0, 3600.0)
 

@@ -25,7 +25,6 @@ lock.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 import uuid
@@ -34,9 +33,40 @@ from dataclasses import dataclass
 from hashlib import blake2b
 from typing import Any, Callable, Optional
 
-logger = logging.getLogger(__name__)
+from ..devtools import lifecycle as _lifecycle
+from ..devtools.locks import make_lock
+from ..utils import get_logger
 
-#: Wire header names (the RPC hop).
+logger = get_logger(__name__)
+
+#: Registry of every span point compiled into the request path. xlint's
+#: span-point rule enforces the bidirectional contract: every
+#: ``TRACER.span("name")``/``TRACER.start_span("name")`` call site must name
+#: a point registered here, and every registered point must have at least
+#: one live call site (no dead span points).
+SPAN_POINTS: dict[str, str] = {
+    "frontend.request": "http_service/service.py root span per API request "
+                        "(fallback-created in scheduler.schedule for "
+                        "direct-scheduler callers)",
+    "scheduler.schedule": "scheduler dispatch: template + tokenize + route "
+                          "+ incarnation bind",
+    "scheduler.template": "chat-template apply sub-stage of schedule",
+    "scheduler.tokenize": "prompt tokenization sub-stage of schedule",
+    "scheduler.route": "LB-policy pair selection sub-stage of schedule "
+                       "(lock-free routing-snapshot read)",
+    "scheduler.bind": "incarnation bind + RCU re-validation sub-stage of "
+                      "schedule",
+    "scheduler.failover": "one transparent-failover re-dispatch attempt; "
+                          "children are the replayed engine spans",
+    "engine.prefill": "engine-side prefill stage (accept -> first delta)",
+    "engine.decode": "engine-side decode stage (first delta -> finish)",
+    "kv_transfer.offer": "prefill-side KV offer/handoff to the decode peer",
+    "kv_transfer.pull": "decode-side device KV pull",
+    "autoscaler.tick": "one autoscaler enactment pass (only ticks that "
+                       "act record a span; attrs carry the action kinds)",
+}
+
+#: Wire header names (RPC channel hop).
 TRACE_ID_HEADER = "x-xllm-trace-id"
 PARENT_SPAN_HEADER = "x-xllm-parent-span-id"
 
@@ -253,7 +283,7 @@ class SpanStore:
 
     def __init__(self, capacity: int = 2048):
         self.capacity = max(1, int(capacity))
-        self._lock = threading.Lock()
+        self._lock = make_lock("tracing.span_store", order=820)  # lock-order: 820
         self._ring: deque[Span] = deque()
         self._by_trace: dict[str, list[Span]] = {}
         # request_id -> trace_id, insertion-ordered for bounded eviction.
@@ -290,8 +320,10 @@ class SpanStore:
             spans = self._pending.get(span.trace_id)
             if spans is None:
                 spans = self._pending[span.trace_id] = []
+                _lifecycle.note_acquire("span-pending", key=span.trace_id)
                 while len(self._pending) > self._pending_traces_cap:
-                    self._pending.popitem(last=False)
+                    old_tid, _ = self._pending.popitem(last=False)
+                    _lifecycle.note_release("span-pending", key=old_tid)
             spans.append(span)
             self._index_request(span)
 
@@ -299,13 +331,16 @@ class SpanStore:
         """Tail-based keep: move a parked trace into the ring."""
         with self._lock:
             spans = self._pending.pop(trace_id, None)
+            if spans is not None:
+                _lifecycle.note_release("span-pending", key=trace_id)
         for s in spans or ():
             self.add(s)
 
     def drop(self, trace_id: str) -> None:
         """Tail-based drop: the request ended cleanly."""
         with self._lock:
-            self._pending.pop(trace_id, None)
+            if self._pending.pop(trace_id, None) is not None:
+                _lifecycle.note_release("span-pending", key=trace_id)
 
     def has_pending(self) -> bool:
         return bool(self._pending)
@@ -363,6 +398,7 @@ class SpanStore:
             self._by_trace.clear()
             self._req_index.clear()
             self._pending.clear()
+        _lifecycle.note_reset("span-pending")
 
 
 def span_tree(spans: list[dict[str, Any]]) -> list[dict[str, Any]]:

@@ -19,6 +19,8 @@ from typing import Optional
 from .base import CoordinationClient, KeyEvent, WatchCallback, WatchEventType
 from ..common.faults import FAULTS, FaultInjected
 from ..common.metrics import COORDINATION_RECONNECTS_TOTAL
+from ..devtools import lifecycle as _lifecycle
+from ..devtools.locks import make_lock
 from ..utils import get_logger, jittered_backoff
 
 logger = get_logger(__name__)
@@ -54,12 +56,12 @@ class TcpCoordinationClient(CoordinationClient):
         # only by the reader thread after __init__.
         self.connected = True
         self.reconnects_total = 0
-        self._wlock = threading.Lock()
+        self._wlock = make_lock("coord_client.write", order=30)  # lock-order: 30
         self._ns = namespace.strip("/")
         self._ids = itertools.count(1)
         # rid -> (event, response, connection generation it was sent on).
         self._pending: dict[int, tuple[threading.Event, dict, int]] = {}
-        self._plock = threading.Lock()
+        self._plock = make_lock("coord_client.pending", order=32)  # lock-order: 32
         self._watches: dict[int, tuple[str, WatchCallback]] = {}
         # wid -> keys (namespace-stripped) last known to exist under the
         # watch prefix; the reconnect resync diffs the server's current
@@ -71,7 +73,7 @@ class TcpCoordinationClient(CoordinationClient):
         # be re-asserted with a plain put — that would overwrite a new
         # winner and split-brain).
         self._keepalives: dict[str, tuple[float, str, bool]] = {}
-        self._ka_lock = threading.Lock()
+        self._ka_lock = make_lock("coord_client.keepalives", order=34)  # lock-order: 34
         self._closed = threading.Event()
         self._timeout_s = timeout_s
         # Connection generation, bumped under _wlock with each (re)connect;
@@ -261,6 +263,7 @@ class TcpCoordinationClient(CoordinationClient):
         data = (json.dumps(req) + "\n").encode()
         try:
             with self._wlock:
+                # xlint: allow-blocking-under-lock(single-writer frame serialization; the socket is the resource this lock guards)
                 self._sock.sendall(data)
             return True
         except OSError:
@@ -390,6 +393,7 @@ class TcpCoordinationClient(CoordinationClient):
             with self._wlock:
                 with self._plock:
                     self._pending[rid] = (ev, resp, self._gen)
+                # xlint: allow-blocking-under-lock(single-writer frame serialization; registration + send must be atomic vs reconnect)
                 self._sock.sendall(data)
         except OSError as e:
             with self._plock:
@@ -428,7 +432,10 @@ class TcpCoordinationClient(CoordinationClient):
                             # are no longer the owner — stop claiming it.
                             # (Owners detect demotion via verify_ownership.)
                             with self._ka_lock:
-                                self._keepalives.pop(key, None)
+                                if self._keepalives.pop(key, None) \
+                                        is not None:
+                                    _lifecycle.note_release(
+                                        "coord-lease", key=(id(self), key))
 
     # ---- CoordinationClient ------------------------------------------------
     def ping(self) -> bool:
@@ -450,6 +457,9 @@ class TcpCoordinationClient(CoordinationClient):
                          "ttl": ttl_s}).get("ok", False)
         if ok and ttl_s and keepalive:
             with self._ka_lock:
+                if self._k(key) not in self._keepalives:
+                    _lifecycle.note_acquire("coord-lease",
+                                            key=(id(self), self._k(key)))
                 self._keepalives[self._k(key)] = (ttl_s, value, False)
         return ok
 
@@ -458,6 +468,9 @@ class TcpCoordinationClient(CoordinationClient):
                          "ttl": ttl_s, "create_only": True}).get("ok", False)
         if ok and ttl_s and keepalive:
             with self._ka_lock:
+                if self._k(key) not in self._keepalives:
+                    _lifecycle.note_acquire("coord-lease",
+                                            key=(id(self), self._k(key)))
                 self._keepalives[self._k(key)] = (ttl_s, value, True)
         return ok
 
@@ -502,7 +515,9 @@ class TcpCoordinationClient(CoordinationClient):
 
     def release(self, key) -> None:
         with self._ka_lock:
-            self._keepalives.pop(self._k(key), None)
+            if self._keepalives.pop(self._k(key), None) is not None:
+                _lifecycle.note_release("coord-lease",
+                                        key=(id(self), self._k(key)))
 
     def add_watch(self, prefix, cb) -> int:
         wid = next(self._ids)
@@ -520,6 +535,8 @@ class TcpCoordinationClient(CoordinationClient):
             return
         self._closed.set()
         with self._ka_lock:
+            for k in self._keepalives:
+                _lifecycle.note_release("coord-lease", key=(id(self), k))
             self._keepalives.clear()
         self._watch_q.put(None)   # dispatcher sentinel
         try:

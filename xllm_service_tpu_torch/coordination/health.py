@@ -53,6 +53,8 @@ from ..common.metrics import (COORDINATION_CONNECTED,
                               COORDINATION_DEGRADED_SECONDS_TOTAL,
                               COORDINATION_FROZEN_EVENTS_TOTAL,
                               COORDINATION_HELD_ACTIONS)
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -96,13 +98,14 @@ class HeldAction:
                 "first_held_ms": self.first_held_ms}
 
 
+@_ownership.verify_state
 class HeldActionLog:
     """Bounded, coalescing log of suspended actions, behind its own
     leaf lock (fed from the sync, reconcile, and watch-dispatch
     threads; drained by recovery on the sync thread)."""
 
     def __init__(self, capacity: int) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("coordination.heldlog", order=27)  # lock-order: 27
         self._capacity = max(1, int(capacity))
         self._items: dict[tuple[str, str], HeldAction] = {}
         self._order: list[tuple[str, str]] = []
@@ -149,6 +152,7 @@ class HeldActionLog:
                                 for s in self._order]}
 
 
+@_ownership.verify_state
 class CoordinationHealthMonitor:
     """CONNECTED -> DEGRADED -> RECOVERING classifier + held-action log.
 
@@ -166,7 +170,7 @@ class CoordinationHealthMonitor:
             options, "coordination_degraded_after_ticks", 2)))
         self._jitter_window_s = float(getattr(
             options, "coordination_reconnect_jitter_s", 5.0))
-        self._lock = threading.Lock()
+        self._lock = make_lock("coordination.health", order=26)  # lock-order: 26
         self.held = HeldActionLog(
             int(getattr(options, "coordination_held_log_capacity", 256)))
         self._state = CONNECTED
@@ -199,7 +203,10 @@ class CoordinationHealthMonitor:
     def update_entity(self, entity: str) -> None:
         """Follow the scheduler's post-bind re-registration."""
         with self._lock:
-            self._entity = entity
+            with _ownership.escape("post-bind re-registration: rebinds "
+                                   "the init-only entity id once, before "
+                                   "traffic"):
+                self._entity = entity
 
     # ---------------------------------------------------------- transitions
     def tick(self) -> str:
@@ -280,7 +287,7 @@ class CoordinationHealthMonitor:
             return False
         try:
             return bool(self._coord.ping())
-        except Exception:
+        except Exception:  # noqa: BLE001  # xlint: allow-broad-except(a probe that THROWS is exactly the evidence this monitor exists to classify)
             return False
 
     # ------------------------------------------------------ freeze / holds

@@ -22,6 +22,8 @@ from typing import Callable, Iterable, Mapping, Optional
 
 from .base import CoordinationClient, KeyEvent, WatchCallback, WatchEventType
 from ..common.faults import FAULTS
+from ..devtools import lifecycle as _lifecycle
+from ..devtools.locks import make_lock
 
 
 @dataclass
@@ -42,7 +44,7 @@ class MemoryStore:
     dispatch thread (never under the store lock)."""
 
     _shared: dict[str, "MemoryStore"] = {}
-    _shared_lock = threading.Lock()
+    _shared_lock = make_lock("memory_store.shared", order=40)  # lock-order: 40
 
     @classmethod
     def shared(cls, name: str = "default") -> "MemoryStore":
@@ -64,7 +66,7 @@ class MemoryStore:
         self._data: dict[str, _Entry] = {}
         self._watches: list[_Watch] = []
         self._next_watch_id = 1
-        self._lock = threading.Lock()
+        self._lock = make_lock("memory_store.data", order=44)  # lock-order: 44
         self._events: "queue.Queue[Optional[tuple[list[KeyEvent], str, WatchCallback]]]" = queue.Queue()
         self._closed = False
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
@@ -221,7 +223,7 @@ class InMemoryCoordination(CoordinationClient):
         self._ns = namespace.strip("/")
         # key -> ttl for keys this client keeps alive.
         self._keepalives: dict[str, float] = {}
-        self._ka_lock = threading.Lock()
+        self._ka_lock = make_lock("memory_coord.keepalives", order=42)  # lock-order: 42
         self._watch_ids: list[int] = []
         self._closed = threading.Event()
         self._ka_thread = threading.Thread(target=self._keepalive_loop,
@@ -266,6 +268,9 @@ class InMemoryCoordination(CoordinationClient):
         ok = self._store.put(self._k(key), value, ttl_s)
         if ok and ttl_s and keepalive:
             with self._ka_lock:
+                if self._k(key) not in self._keepalives:
+                    _lifecycle.note_acquire("coord-lease",
+                                            key=(id(self), self._k(key)))
                 self._keepalives[self._k(key)] = ttl_s
         return ok
 
@@ -273,6 +278,9 @@ class InMemoryCoordination(CoordinationClient):
         ok = self._store.put(self._k(key), value, ttl_s, create_only=True)
         if ok and ttl_s and keepalive:
             with self._ka_lock:
+                if self._k(key) not in self._keepalives:
+                    _lifecycle.note_acquire("coord-lease",
+                                            key=(id(self), self._k(key)))
                 self._keepalives[self._k(key)] = ttl_s
         return ok
 
@@ -303,7 +311,9 @@ class InMemoryCoordination(CoordinationClient):
 
     def release(self, key) -> None:
         with self._ka_lock:
-            self._keepalives.pop(self._k(key), None)
+            if self._keepalives.pop(self._k(key), None) is not None:
+                _lifecycle.note_release("coord-lease",
+                                        key=(id(self), self._k(key)))
 
     def add_watch(self, prefix, cb) -> int:
         ns_prefix = self._k(prefix)
@@ -323,6 +333,8 @@ class InMemoryCoordination(CoordinationClient):
     def close(self) -> None:
         self._closed.set()
         with self._ka_lock:
+            for k in self._keepalives:
+                _lifecycle.note_release("coord-lease", key=(id(self), k))
             self._keepalives.clear()
         for wid in list(self._watch_ids):
             self._store.remove_watch(wid)

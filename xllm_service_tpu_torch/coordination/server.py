@@ -31,6 +31,7 @@ from typing import Optional
 
 from .base import KeyEvent
 from .memory import MemoryStore
+from ..devtools.locks import make_lock
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -40,7 +41,7 @@ class _Conn(socketserver.BaseRequestHandler):
     """One client connection: request/response + watch pushes."""
 
     def setup(self) -> None:
-        self.wlock = threading.Lock()
+        self.wlock = make_lock("coord_server.conn_write", order=36)  # lock-order: 36
         self.watch_ids: dict[int, int] = {}   # client watch id -> store watch id
         self.authed = not self.server.auth    # type: ignore[attr-defined]
         self.rfile = self.request.makefile("rb")
@@ -50,6 +51,7 @@ class _Conn(socketserver.BaseRequestHandler):
         data = (json.dumps(obj) + "\n").encode()
         with self.wlock:
             try:
+                # xlint: allow-blocking-under-lock(single-writer frame serialization; the socket is the resource this lock guards)
                 self.request.sendall(data)
             except OSError:
                 pass
@@ -78,7 +80,7 @@ class _Conn(socketserver.BaseRequestHandler):
                     self._send({"id": rid, "ok": False, "error": "unauthenticated"})
                     continue
                 self._send({"id": rid, **self._dispatch(store, op, req)})
-            except Exception as e:
+            except Exception as e:  # noqa: BLE001  # xlint: allow-broad-except(error is surfaced to the client as a protocol-level error frame)
                 self._send({"id": rid, "ok": False, "error": str(e)})
 
     def _dispatch(self, store: MemoryStore, op: str, req: dict) -> dict:
@@ -150,7 +152,7 @@ class CoordinationServer(socketserver.ThreadingTCPServer):
         # Connection bookkeeping + bounded accept log (timestamps of
         # every accepted connection): the outage bench reads the accept
         # spread after a restart to verify recovery is storm-free.
-        self._conn_lock = threading.Lock()
+        self._conn_lock = make_lock("coord_server.conns", order=38)  # lock-order: 38
         self._conns: set = set()
         self.accept_log: list[float] = []
         self._accept_log_path = accept_log_path

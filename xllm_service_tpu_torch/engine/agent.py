@@ -138,6 +138,9 @@ from ..common.types import (
     now_ms,
 )
 from ..coordination import CoordinationClient, connect
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..models.base import get_model_family
 from ..multimaster.ownership import TelemetryOwnerResolver
 from ..parallel import multihost
@@ -270,7 +273,7 @@ class _ChoiceAggregator:
         self._push = push
         self._prompt_tokens = 0
         self._generated = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("agent.choice_aggregator", order=60)  # lock-order: 60
 
     def callback_for(self, index: int) -> Callable[[RequestOutput], None]:
         def cb(out: RequestOutput) -> None:
@@ -314,7 +317,7 @@ class _Connections:
 
     def __init__(self, timeout_s: float):
         self._timeout_s = timeout_s
-        self._lock = threading.Lock()
+        self._lock = make_lock("agent.connections", order=63)  # lock-order: 63
         # dest -> [idle connections, connections made], LRU order.
         self._pools: OrderedDict[str, list] = OrderedDict()
 
@@ -419,7 +422,7 @@ class GenerationStreamer:
         self._engine = engine
         self._q: "queue.Queue[Optional[tuple[str, dict]]]" = queue.Queue()
         self._flush_s = flush_ms / 1000.0
-        self._seq_lock = threading.Lock()
+        self._seq_lock = make_lock("agent.streamer_seq", order=62)  # lock-order: 62
         self._seqs: dict[str, int] = {}
         # Sender identity stamped on every delta (set by the agent).
         self.instance_name = ""
@@ -677,6 +680,7 @@ def _params_on(tree: Any, device: torch.device) -> Any:
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+@_ownership.verify_state
 class EngineAgent:
     def __init__(self, engine_cfg: EngineConfig, agent_cfg: AgentConfig,
                  coord: Optional[CoordinationClient] = None,
@@ -747,10 +751,10 @@ class EngineAgent:
         # POST whose response is lost makes the prefill side retry by a
         # host path; without this the sequence would inject twice.
         self._handoffs_seen: dict[str, float] = {}
-        self._seen_lock = threading.Lock()
+        self._seen_lock = make_lock("agent.handoffs_seen", order=72)  # lock-order: 72
         # PD transfer-path counters (/stats), bumped through _count_kv
         # from the handoff and pull threads.
-        self._kv_count_lock = threading.Lock()
+        self._kv_count_lock = make_lock("agent.kv_counts", order=73)  # lock-order: 73
         self.kv_device_sent = 0
         self.kv_host_sent = 0
         self.kv_stream_sent = 0
@@ -762,22 +766,25 @@ class EngineAgent:
         # /rpc/encode calls served (EPD's ENCODE stage), bumped by the
         # handler threads under their own lock.
         self.encode_count = 0
-        self._encode_lock = threading.Lock()
-        # Registration and role flips under one lock: a heartbeat's
-        # re-registration must not re-create the key a flip just removed.
-        self._reg_lock = threading.Lock()
+        self._encode_lock = make_lock("agent.encode_count", order=74)  # lock-order: 74
+        # Registration and role flips: a heartbeat's re-registration must
+        # not leave behind the key a flip just removed. The lock guards
+        # only the role and its epoch; the coordination calls run outside
+        # it, and a registration that raced a flip removes what it wrote.
+        self._reg_lock = make_lock("agent.registration", order=68)  # lock-order: 68
+        self._reg_epoch = 0
         # The destination of each request's running incarnation (MIX
         # path): a master whose owner died re-dispatches the request under
         # the same id, and cancels go by id.
-        self._streams_lock = threading.Lock()
+        self._streams_lock = make_lock("agent.streams", order=67)  # lock-order: 67
         self._streams: dict[str, tuple[str, threading.Event]] = {}
-        self._stop_lock = threading.Lock()
+        self._stop_lock = make_lock("agent.stop", order=69)  # lock-order: 69
         self._stopped = False
         self._profiler_started = False
         self._wake = threading.Event()
         self._server: Optional[_Server] = None
         self._conns: set = set()
-        self._conns_lock = threading.Lock()
+        self._conns_lock = make_lock("agent.conns", order=71)  # lock-order: 71
         self._threads: list[threading.Thread] = []
         self._routes: dict[tuple[str, str], Callable[[_Request], Reply]] = {
             ("GET", "/health"): self._h_health,
@@ -1035,10 +1042,17 @@ class EngineAgent:
 
     def register(self) -> None:
         with self._reg_lock:
+            epoch = self._reg_epoch
             meta = self.meta()
-            meta.draining = self._draining
-            self.coord.set(instance_key(self.instance_type.value, self.name),
-                           meta.to_json(), ttl_s=self.cfg.lease_ttl_s)
+        meta.draining = self._draining
+        key = instance_key(meta.type.value, self.name)
+        self.coord.set(key, meta.to_json(), ttl_s=self.cfg.lease_ttl_s)
+        with self._reg_lock:
+            stale = self._reg_epoch != epoch
+        if stale:
+            # A flip moved the role while this registration was in
+            # flight: the key written above is the old role's.
+            self.coord.rm(key)
 
     def drain(self, timeout_s: float = 60.0) -> None:
         """Graceful shutdown: advertise draining (the scheduler stops
@@ -1232,6 +1246,9 @@ class EngineAgent:
             return
         if self._hb_master:
             evict_series(ENGINE_HEARTBEATS_TOTAL, master=self._hb_master)
+        # A flap back to a previously-evicted master legitimately
+        # re-creates its series (not the stale-writer resurrection bug).
+        _lifecycle.note_series_revived(master)
         self._hb_master = master
         self._hb_wire = wire.WIRE_MSGPACK
 
@@ -1425,7 +1442,7 @@ class EngineAgent:
         context; a request without one is not traced (there is no tree to
         hang it on). Only started and ended, never entered: it may end on
         another thread than the one that opened it."""
-        return TRACER.start_span(point, ctx=ctx, request_id=sid,
+        return TRACER.start_span(point, ctx=ctx, request_id=sid,  # xlint: allow-span-point(forwards literal point names from its call sites)
                                  require_ctx=True, instance=self.name,
                                  incarnation=self.incarnation_id, **attrs)
 
@@ -1439,6 +1456,8 @@ class EngineAgent:
                 return 409, {"ok": False,
                              "error": f"kv layout mismatch on {f}"}
         self.linked_peers[peer.name] = peer
+        # Unlink→relink of the same peer re-creates its series on purpose.
+        _lifecycle.note_series_revived(peer.name)
         ENGINE_PEER_LINKED.labels(peer=peer.name).set(1)
         return 200, {"ok": True}
 
@@ -1467,8 +1486,10 @@ class EngineAgent:
         pools; the registration moves to the new role's key."""
         new_type = InstanceType.parse(self._json(req.body).get("type"))
         with self._reg_lock:
-            self.coord.rm(instance_key(self.instance_type.value, self.name))
+            old_key = instance_key(self.instance_type.value, self.name)
             self.instance_type = new_type
+            self._reg_epoch += 1
+        self.coord.rm(old_key)
         self.register()
         return 200, {"ok": True}
 
@@ -1531,14 +1552,14 @@ class EngineAgent:
                 pixels = self._extract_images(body.get("messages") or [])
             except ValueError as e:
                 return 400, {"error": str(e)}
-            except Exception as e:  # noqa: BLE001 — bad base64 or image
+            except Exception as e:  # noqa: BLE001  # xlint: allow-broad-except(bad base64/PIL data is surfaced as a 400 to the client)
                 return 400, {"error": f"invalid image payload: {e}"}
             if pixels is not None:
                 encode_name = (body.get("routing") or {}).get(
                     "encode_name", "")
                 try:
                     mm_embeds = self._encode_pixels(pixels, encode_name)
-                except Exception as e:  # noqa: BLE001 — surfaced as 502
+                except Exception as e:  # noqa: BLE001  # xlint: allow-broad-except(encode failure is surfaced as a 502 to the client)
                     return 502, {"error": f"vision encode failed: {e}"}
                 token_ids = self._build_mm_token_ids(
                     body.get("messages") or [])

@@ -68,7 +68,7 @@ import torch
 from ..ops import _build
 
 # One capture at a time in the process (see the module docstring).
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()   # lock-order: 845
 
 
 class DecodeGraphs:

@@ -212,6 +212,8 @@ from ..common.request import (
     Usage,
 )
 from ..common.types import KvCacheEvent
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..models.base import get_model_family, shard_config
 from ..models.quant import quantize_tree
 from ..ops.cp_paged_attention import ShardedPages
@@ -333,6 +335,7 @@ class _Sequence:
     decoded_ok: int = 0
 
 
+@_ownership.verify_state
 class InferenceEngine:
     def __init__(self, cfg: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -452,7 +455,7 @@ class InferenceEngine:
         # per step, round-robin, standalone or riding a decode step.
         self._prefillings: deque[dict[str, Any]] = deque()
         self._free_slots = list(range(B - 1, -1, -1))
-        self._lock = threading.Condition()
+        self._lock = threading.Condition()  # lock-order: 50
         self._cancelled: set[str] = set()
         # Calls run on the engine thread between steps (``embed``), with
         # the future their caller waits on.
@@ -467,7 +470,7 @@ class InferenceEngine:
         # resets the recent maxima through drain_recent_latency (under the
         # leaf lock, so a sample landing between read and reset is never
         # lost); ttft: (prompt_len, ms); tpot: (batch, total_ctx, ms/tok).
-        self._telemetry_lock = threading.Lock()
+        self._telemetry_lock = make_lock("engine.telemetry", order=822)  # lock-order: 822
         self.recent_max_ttft_ms = 0.0
         self.recent_max_tbt_ms = 0.0
         self.ttft_samples: deque[tuple[int, float]] = deque(maxlen=512)
@@ -823,6 +826,8 @@ class InferenceEngine:
             try:
                 fut.set_result(fn())
             except Exception as e:  # noqa: BLE001 — handed to the caller
+                logger.debug("engine call raised; its caller re-raises",
+                             exc_info=True)
                 fut.set_exception(e)
         return bool(calls)
 

@@ -11,13 +11,13 @@ step write their K/V there, never corrupting live data.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 from ..common.hashing import prefix_block_hashes
 from ..common.types import KvCacheEvent
+from ..devtools.locks import make_lock
 
 GARBAGE_PAGE = 0
 
@@ -45,7 +45,7 @@ class KVPageManager:
         self.pages_per_block = hash_block_size // page_size
         self.num_pages = num_pages
         self._free: list[int] = list(range(num_pages - 1, GARBAGE_PAGE, -1))
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_cache.pages", order=54)  # lock-order: 54
         # hash hex -> CachedBlock, LRU-ordered (oldest first).
         self._blocks: OrderedDict[str, CachedBlock] = OrderedDict()
         # Heartbeat delta accumulators.

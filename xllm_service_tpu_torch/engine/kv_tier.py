@@ -47,6 +47,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools import rcu
+from ..devtools.locks import make_lock
+
 logger = logging.getLogger(__name__)
 
 
@@ -67,6 +72,7 @@ def block_bytes(t: torch.Tensor) -> bytes:
     return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
 
 
+@_ownership.verify_state
 class TieredKVStore:
     """Host-side cold tiers for evicted prefix-cache blocks.
 
@@ -114,7 +120,7 @@ class TieredKVStore:
         self._free_ssd = list(range(self.ssd_capacity_blocks - 1, -1, -1))
         self._ssd: "OrderedDict[str, int]" = OrderedDict()
         self._sums: dict[str, bytes] = {}        # SSD per-block checksums
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_tier.store", order=55)  # lock-order: 55
         # Completion fences: hashes whose tier write is in flight.
         self._pending: set[str] = set()
         # In-flight offloads superseded by a discard() (the block was
@@ -188,7 +194,9 @@ class TieredKVStore:
             with self._lock:
                 self._removed.append(hash_hex)
             return False
-        if not self._inflight.acquire(blocking=False):
+        if self._inflight.acquire(blocking=False):
+            _lifecycle.note_acquire("tier-inflight")
+        else:
             # Pump saturated: dropping is the backpressure (queueing device
             # buffers without bound would pin HBM and stall the loop).
             with self._lock:
@@ -202,6 +210,7 @@ class TieredKVStore:
                 # (same hash = same bytes — let the pending worker land).
                 self._superseded.discard(hash_hex)
                 self._inflight.release()
+                _lifecycle.note_release("tier-inflight")
                 return True     # already resident / in flight
             self._pending.add(hash_hex)
         if callable(blob):
@@ -214,6 +223,7 @@ class TieredKVStore:
                 self._pending.discard(hash_hex)
                 self._removed.append(hash_hex)
             self._inflight.release()
+            _lifecycle.note_release("tier-inflight")
             return False
         return True
 
@@ -229,6 +239,7 @@ class TieredKVStore:
                 self._removed.append(hash_hex)
         finally:
             self._inflight.release()
+            _lifecycle.note_release("tier-inflight")
 
     def _install_dram(self, hash_hex: str, arr: torch.Tensor) -> None:
         """Land a fetched block in the arena, demoting the LRU DRAM block
@@ -383,13 +394,20 @@ class TieredKVStore:
 
     # --------------------------------------------------------------- events
     def drain_events(self) -> tuple[list[str], list[str]]:
-        """(offloaded, removed) hex hashes since the last heartbeat. The
-        drained lists belong to the caller; the store starts new ones."""
+        """(offloaded, removed) hex hashes since the last heartbeat.
+
+        The drained lists are PUBLISHED on handoff (``rcu.publish``): once
+        a delta batch leaves the store it belongs to the heartbeat it
+        ships in, and appending to (or cancelling from) an already drained
+        batch is the intra-window ordering bug class; under
+        XLLM_RCU_DEBUG the freezer turns any such late mutation into a
+        raise."""
         with self._lock:
             off, rem = self._offloaded, self._removed
             self._offloaded = []
             self._removed = []
-            return off, rem
+            return (rcu.publish(off, "kv_tier.drained"),
+                    rcu.publish(rem, "kv_tier.drained"))
 
     # ------------------------------------------------------------ lifecycle
     def close(self) -> None:

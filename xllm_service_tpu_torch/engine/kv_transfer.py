@@ -57,6 +57,8 @@ import torch
 
 from ..common.faults import FAULTS
 from ..common.tracing import TRACER, TraceContext
+from ..devtools import lifecycle as _lifecycle
+from ..devtools.locks import make_lock
 from ..parallel.sharding import ShardedBlock
 from ..rpc import msgpack_lite
 
@@ -137,7 +139,7 @@ class BandwidthAccountant:
                  dcn_bytes_per_s: float = 0.0):
         self._budget = {"ici": float(ici_bytes_per_s),
                         "dcn": float(dcn_bytes_per_s)}
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_transfer.bandwidth", order=57)  # lock-order: 57
         # link -> [bytes_total, busy_seconds, bucket_level, bucket_ts]
         self._links: dict[str, list[float]] = {}
 
@@ -187,7 +189,7 @@ class StreamOfferTable:
 
     def __init__(self, default_chunk_bytes: int = 1 << 20):
         self.default_chunk_bytes = max(1, int(default_chunk_bytes))
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_transfer.stream_offers", order=58)  # lock-order: 58
         # uuid -> (bytes, meta, deadline)
         self._offers: dict[int, tuple[bytes, dict, float]] = {}
 
@@ -206,6 +208,8 @@ class StreamOfferTable:
             FAULTS.check("kv_transfer.offer", sid=service_request_id)
             self.gc()
             with self._lock:
+                if uid not in self._offers:
+                    _lifecycle.note_acquire("stream-offer", key=uid)
                 self._offers[uid] = (data, {"shape": list(shape),
                                             "dtype": dtype},
                                      time.monotonic() + OFFER_TTL_S)
@@ -239,7 +243,8 @@ class StreamOfferTable:
 
     def release(self, uuid: int) -> None:
         with self._lock:
-            self._offers.pop(int(uuid), None)
+            if self._offers.pop(int(uuid), None) is not None:
+                _lifecycle.note_release("stream-offer", key=int(uuid))
 
     def gc(self) -> None:
         now = time.monotonic()
@@ -247,6 +252,7 @@ class StreamOfferTable:
             dead = [u for u, (_, _, dl) in self._offers.items() if dl < now]
             for u in dead:
                 self._offers.pop(u, None)
+                _lifecycle.note_release("stream-offer", key=u)
         if dead:
             logger.warning("dropped %d expired KV stream offers", len(dead))
 
@@ -467,10 +473,10 @@ class KvTransferManager:
         self._ipc = _CudaIpc()
         self._address = "cuda-ipc:GPU-" + str(
             torch.cuda.get_device_properties(device).uuid)
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_transfer.pending", order=56)  # lock-order: 56
         # Opening a handle that another pull of this process holds open
         # can fail; pulls run one at a time.
-        self._pull_lock = threading.Lock()
+        self._pull_lock = make_lock("kv_transfer.pull", order=59)  # lock-order: 59
         # uuid -> (buffers, deadline): keeps offered buffers alive until
         # the peer confirms the pull (release()) or the TTL lapses.
         self._pending: dict[int, tuple[list, float]] = {}

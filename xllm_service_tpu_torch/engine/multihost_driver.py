@@ -35,6 +35,7 @@ import threading
 from typing import Optional
 
 from ..common.request import RequestOutput, SamplingParams
+from ..devtools.locks import make_lock
 from ..parallel import multihost
 from ..rpc import msgpack_lite
 from .engine import EngineRequest, InferenceEngine
@@ -52,7 +53,7 @@ class MultihostEngineDriver:
         # the lockstep thread: the pending events and their callbacks
         # share one lock, so an event and its callback are registered
         # together against the drain.
-        self._lock = threading.Lock()
+        self._lock = make_lock("multihost_driver.pending", order=52)  # lock-order: 52
         self._pending: list[dict] = []
         self._callbacks: dict[int, object] = {}
         self._cb_seq = 0

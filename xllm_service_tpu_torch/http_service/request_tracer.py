@@ -23,12 +23,13 @@ import time
 from pathlib import Path
 from typing import Any, Optional, TextIO
 
+from ..devtools.locks import make_lock
 
 
 class RequestTracer:
     def __init__(self, trace_dir: str = "trace", enabled: bool = False):
         self._enabled = enabled
-        self._lock = threading.Lock()
+        self._lock = make_lock("request_tracer.file", order=70)  # lock-order: 70
         d = Path(trace_dir)
         legacy = d / "trace.json"
         self._path = legacy if legacy.exists() else d / "trace.jsonl"

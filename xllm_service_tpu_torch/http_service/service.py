@@ -56,6 +56,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
+from ..common import hashing
+from ..common import native as _native
 from ..common.faults import FAULTS
 from ..common.flightrecorder import RECORDER, admin_flightrecorder_recent
 from ..common.hotpath import CPU_ATTR, HOTPATH
@@ -229,6 +231,12 @@ class XllmHttpService:
         # The recorder's context provider captures this frontend's
         # control-plane view into every anomaly bundle.
         RECORDER.add_context_provider("service", self._anomaly_context)
+        # Which libhotcore components this process serves natively: a
+        # bundle from a degraded master says so. Loading the core here
+        # (built at first use) keeps that cost off the first request.
+        _native.available()
+        hashing.native_available()
+        RECORDER.add_context_provider("native", _native.status)
         # Continuous profiler (profiling/sampler.py): always-on sampling
         # at profile_hz (0 disables), refcounted — an in-process engine
         # agent shares the same process-global sampler.
@@ -283,7 +291,7 @@ class XllmHttpService:
         self._fleet_metrics_cache: Optional[tuple[float, str]] = None
         # Fleet fan-out concurrency bound (asyncio primitives bind their
         # loop lazily on first await, so construction here is safe).
-        self._fleet_sem = asyncio.Semaphore(
+        self._fleet_sem = asyncio.Semaphore(  # lock-order: 830
             max(1, self.opts.fleet_scrape_concurrency))
 
     # ------------------------------------------------------------- HTTP app
@@ -366,6 +374,7 @@ class XllmHttpService:
         RECORDER.close()
         PROFILER.stop()
         RECORDER.remove_context_provider("service", self._anomaly_context)
+        RECORDER.remove_context_provider("native", _native.status)
 
     def _anomaly_context(self) -> dict[str, Any]:
         """Flight-recorder context provider: this frontend's control-plane
@@ -902,7 +911,7 @@ class XllmHttpService:
             # connection DETACHES instead of cancelling: deltas keep
             # absorbing into the journal for the reconnect grace window
             # so a relay retry replays the exact stream.
-            dumps = json.dumps  # SSE frames are client-protocol JSON
+            dumps = json.dumps  # xlint: allow-hot-json(SSE frames are client-protocol JSON, not the negotiated dispatch wire)
             buf = bytearray()
             done = False
             detached = False
@@ -938,13 +947,15 @@ class XllmHttpService:
                             continue   # re-check the grace window
                         raise
                     # The drain below is pure CPU (no awaits): frame
-                    # assembly + JSON serialization per delta — the
-                    # profiler's hottest output-lane work. Attributed to
-                    # the "stream" loop so the native-on/off A/B is
-                    # measured where the bytes are built; libhotcore
-                    # assembles data/event frames in one C call when it
-                    # can (error frames are rare and ensure_ascii, so
-                    # they stay on the Python encoder).
+                    # assembly + JSON serialization per delta, attributed
+                    # to the "stream" loop so XLLM_NATIVE=1 and =0 are
+                    # compared where the bytes are built. The port's
+                    # libhotcore (common/native.py, csrc/hotcore.c)
+                    # assembles each data/event frame in one C call; on
+                    # MISS (an input it cannot render bit-exactly) the
+                    # Python encoder below builds the same bytes. Error
+                    # frames are rare and ensure_ascii, so they always
+                    # take the Python encoder.
                     with CPU_ATTR.measure("stream"):
                         while True:
                             frame = b""
@@ -962,17 +973,21 @@ class XllmHttpService:
                                 done = True
                             elif tag == "event":
                                 name, obj = item
-                                frame = (f"event: {name}\n".encode()
-                                         + _DATA_PREFIX
-                                         + dumps(obj, ensure_ascii=False,
-                                                 separators=_COMPACT
-                                                 ).encode()
-                                         + _FRAME_SEP)
+                                frame = _native.sse_event_frame(name, obj)
+                                if frame is _native.MISS:
+                                    frame = (f"event: {name}\n".encode()
+                                             + _DATA_PREFIX
+                                             + dumps(obj, ensure_ascii=False,
+                                                     separators=_COMPACT
+                                                     ).encode()
+                                             + _FRAME_SEP)
                             else:
-                                frame = _DATA_PREFIX + dumps(
-                                    item, ensure_ascii=False,
-                                    separators=_COMPACT).encode() \
-                                    + _FRAME_SEP
+                                frame = _native.sse_data_frame(item)
+                                if frame is _native.MISS:
+                                    frame = _DATA_PREFIX + dumps(
+                                        item, ensure_ascii=False,
+                                        separators=_COMPACT).encode() \
+                                        + _FRAME_SEP
                             if frame:
                                 buf += frame
                                 if journal is not None:
@@ -1139,6 +1154,9 @@ class XllmHttpService:
         SLO_MONITOR.export_gauges()
         # Hot-loop CPU attribution as counters.
         CPU_ATTR.export_counters()
+        # Which libhotcore components serve this process (1) and which
+        # run the pure-Python path (0): fleet scrapes spot degraded peers.
+        _native.export_gauges()
 
     async def handle_metrics(self, request: web.Request) -> web.Response:
         self._refresh_local_gauges()

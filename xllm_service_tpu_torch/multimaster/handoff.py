@@ -41,6 +41,8 @@ from ..common.metrics import (
     HANDOFF_RECOVERIES_TOTAL,
 )
 from ..common.tracing import TRACER
+from ..devtools import lifecycle as _lifecycle
+from ..devtools.locks import make_lock
 from ..http_service import web
 from ..http_service.client import (
     ClientError,
@@ -94,7 +96,7 @@ class DeltaJournal:
         self.grace_s = grace_s
         self.max_requests = max_requests
         self.ttl_s = ttl_s
-        self._lock = threading.Lock()
+        self._lock = make_lock("multimaster.journal", order=30)  # lock-order: 30
         self._entries: dict[str, _JournalEntry] = {}
 
     @property
@@ -115,6 +117,7 @@ class DeltaJournal:
                 if len(self._entries) >= self.max_requests:
                     return None
                 entry = self._entries[sid] = _JournalEntry(now, sid)
+                _lifecycle.note_acquire("journal-session", key=sid)
             return entry
 
     def get(self, sid: str) -> Optional[_JournalEntry]:
@@ -135,6 +138,8 @@ class DeltaJournal:
     @staticmethod
     def finish(entry: Optional[_JournalEntry]) -> None:
         if entry is not None:
+            if not entry.finished:
+                _lifecycle.note_release("journal-session", key=entry.sid)
             entry.finished = True
 
     def _gc_locked(self, now: float) -> None:
@@ -143,6 +148,7 @@ class DeltaJournal:
         for sid in dead:
             # Idempotent pair: a finished entry already released; this
             # only balances entries the grace window abandoned.
+            _lifecycle.note_release("journal-session", key=sid)
             del self._entries[sid]
 
     def stats(self) -> dict:

@@ -14,6 +14,9 @@ that owner.
 The master's side is :class:`OwnershipRouter`: it mirrors the member set
 through a watch, decides the owner of each request id (and mines ids this
 master owns) and the telemetry owner of each instance.
+
+``owner_of`` runs on the request hot path → registered in xlint's
+``HOT_PATH_FUNCTIONS``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ import time
 from hashlib import blake2b
 from typing import Callable, Iterable, Optional
 
+from ..common import native as _native
 from ..coordination.base import CoordinationClient, KeyEvent, WatchEventType
+from ..devtools import ownership as _ownership
+from ..devtools import rcu
+from ..devtools.locks import make_lock
 from ..rpc import MASTER_KEY, SERVICE_KEY_PREFIX
 from ..utils import generate_service_request_id
 
@@ -46,6 +53,15 @@ def rendezvous_owner(members: Iterable[str], key: str,
     """Highest-random-weight owner of ``key`` over ``members``, the first
     strict maximum ("" when no member survives ``exclude``)."""
     excluded = set(exclude)
+    if excluded:
+        members = [m for m in members if m not in excluded]
+    elif not isinstance(members, (tuple, list)):
+        members = list(members)
+    # One native call walks the whole member set (libhotcore; identical
+    # winner — blake2b-8 big-endian scores, first strict max).
+    best = _native.rendezvous(members, key)
+    if best is not _native.MISS:
+        return best
     best, best_score = "", -1
     for m in members:
         if m in excluded:
@@ -98,7 +114,7 @@ class TelemetryOwnerResolver:
             members = [k[len(SERVICE_KEY_PREFIX):]
                        for k in self._coord.get_prefix(SERVICE_KEY_PREFIX)
                        if k != MASTER_KEY]
-        except Exception:  # noqa: BLE001 — a plane blip falls back below
+        except Exception:  # noqa: BLE001  # xlint: allow-broad-except(a coordination blip degrades to the cached/master fallback; the next window re-resolves)
             members = []
         exclude = {o for o, ts in list(self._failed.items())
                    if now - ts < self.FAILURE_TTL_S}
@@ -106,7 +122,7 @@ class TelemetryOwnerResolver:
         if not owner:
             try:
                 owner = self._coord.get(MASTER_KEY) or ""
-            except Exception:  # noqa: BLE001 — as the membership read
+            except Exception:  # noqa: BLE001  # xlint: allow-broad-except(same degradation contract as the membership read above)
                 owner = ""
         if owner:
             self._last_good = owner
@@ -130,6 +146,7 @@ class TelemetryOwnerResolver:
             self._cached = (owner, time.monotonic() + self._cache_s)
 
 
+@_ownership.verify_state
 class OwnershipRouter:
     """Rendezvous-hash request→master ownership (lock-free reads)."""
 
@@ -142,7 +159,7 @@ class OwnershipRouter:
         self.mine_ids = mine_ids
         # Writers (watch callbacks, self-addr updates) serialize here and
         # publish an immutable sorted tuple; readers never take the lock.
-        self._lock = threading.Lock()
+        self._lock = make_lock("multimaster.ownership", order=28)  # lock-order: 28
         self._addrs: set[str] = {self_addr}
         self._members: tuple[str, ...] = (self_addr,)
         self.mined = 0          # ids mined to self-ownership
@@ -185,14 +202,18 @@ class OwnershipRouter:
             self._publish_locked()
 
     def _publish_locked(self) -> None:
-        self._members = tuple(sorted(self._addrs))
+        self._members = rcu.publish(tuple(sorted(self._addrs)),
+                                    "ownership.members")
 
     def update_self_addr(self, addr: str) -> None:
         """Follow the scheduler's post-bind re-registration (ephemeral
         ports are only known after the RPC site binds)."""
         with self._lock:
             self._addrs.discard(self.self_addr)
-            self.self_addr = addr
+            with _ownership.escape("post-bind re-registration: rebinds "
+                                   "the init-only self_addr once, before "
+                                   "traffic"):
+                self.self_addr = addr
             self._addrs.add(addr)
             self._publish_locked()
 
@@ -220,6 +241,9 @@ class OwnershipRouter:
             return self.self_addr
         if len(members) == 1:
             return members[0]
+        best = _native.rendezvous(members, key)
+        if best is not _native.MISS:
+            return best
         best, best_score = members[0], -1
         for m in members:
             s = self._score(m, key)
@@ -252,14 +276,22 @@ class OwnershipRouter:
         if exclude:
             return telemetry_owner(members, instance_name,
                                    exclude) or self.self_addr
-        cache = self._own_cache
+        cache = self._own_cache  # xlint: allow-state-read(verdict memo: GIL-atomic snapshot read; a stale pair fails the identity check below and is rebuilt)
         if cache[0] is not members or len(cache[1]) >= self.OWN_CACHE_MAX:
             cache = (members, {})
-            self._own_cache = cache
+            with _ownership.escape("verdict-memo swap on the beat hot "
+                                   "path: single-assignment publish of a "
+                                   "fresh (members, {}) pair; racing "
+                                   "readers rebuild identical entries"):
+                self._own_cache = cache
         owner = cache[1].get(instance_name)
         if owner is None:
             owner = telemetry_owner(members, instance_name) or self.self_addr
-            cache[1][instance_name] = owner
+            with _ownership.escape("verdict-memo fill: GIL-atomic item "
+                                   "store of a deterministic value — "
+                                   "every racer computes the same owner "
+                                   "for the same member tuple"):
+                cache[1][instance_name] = owner
         return owner
 
     def owns_instance(self, instance_name: str) -> bool:
@@ -279,12 +311,15 @@ class OwnershipRouter:
             sid = gen(kind)
             return sid, self.owner_of(sid)
         sid = gen(kind)
-        for _ in range(MINE_TRIES):
-            if self.owner_of(sid) == self.self_addr:
-                self.mined += 1
-                return sid, self.self_addr
-            sid = gen(kind)
-        self.mine_misses += 1
+        with _ownership.escape("stat counters on the accept hot path: "
+                               "GIL-atomic int adds; losing a rare "
+                               "increment beats a lock per accept"):
+            for _ in range(MINE_TRIES):
+                if self.owner_of(sid) == self.self_addr:
+                    self.mined += 1
+                    return sid, self.self_addr
+                sid = gen(kind)
+            self.mine_misses += 1
         return sid, self.owner_of(sid)
 
     def stats(self) -> dict:

@@ -37,10 +37,10 @@ KERNELS = ("paged_attention", "mq_paged_attention",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()   # lock-order: 850
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
-_count_lock = threading.Lock()
+_count_lock = threading.Lock()   # lock-order: 853
 _tally = threading.local()
 
 

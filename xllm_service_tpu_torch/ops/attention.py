@@ -68,7 +68,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 _inv_freq: dict[tuple[int, float, torch.device], torch.Tensor] = {}
-_inv_freq_lock = threading.Lock()
+_inv_freq_lock = threading.Lock()   # lock-order: 851
 
 
 def rope_inv_freq(head_dim: int, theta: float,
@@ -366,7 +366,7 @@ def dense_prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 dense_prefill_route.launches = 0
 
 
-_sdpa_lock = threading.Lock()   # see sdpa_prefill_attention
+_sdpa_lock = threading.Lock()   # lock-order: 852 (see sdpa_prefill_attention)
 
 
 def sdpa_prefill_attention(q: torch.Tensor, k: torch.Tensor,

@@ -229,7 +229,8 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-_work_lock = threading.Lock()   # engines of one process launch at once
+# Engines of one process launch at once.
+_work_lock = threading.Lock()   # lock-order: 854
 
 
 def _work_space(device: torch.device, stream: int, n_tickets: int,

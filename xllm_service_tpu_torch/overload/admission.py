@@ -34,6 +34,9 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 from ..common.slo import WindowCounts
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from .deadline import PRIORITY_BATCH
 
 #: Sliding window for the shed-rate signal the autoscaler consumes.
@@ -71,6 +74,7 @@ def decide_admission(inp: AdmissionInputs) -> tuple[bool, str]:
     return True, "admitted"
 
 
+@_ownership.verify_state
 class AdmissionController:
     """Process-global admission gate. ``try_admit`` runs on the request
     hot path: one leaf-lock hold around integer math and a deque
@@ -78,7 +82,7 @@ class AdmissionController:
     snapshot read)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("overload.admission", order=832)  # lock-order: 832
         self._per_instance_limit = 0
         self._batch_watermark = 0.5
         self._retry_after_s = 1.0
@@ -104,6 +108,7 @@ class AdmissionController:
             self._admitted_total = 0
             self._shed_total = {}
             self._shed_window = WindowCounts(_SHED_WINDOW_S)
+        _lifecycle.note_reset("admission-slot")
 
     @property
     def enabled(self) -> bool:
@@ -125,6 +130,7 @@ class AdmissionController:
             if admit:
                 self._pending += 1
                 self._admitted_total += 1
+                _lifecycle.note_acquire("admission-slot")
             else:
                 self._shed_total[priority] = \
                     self._shed_total.get(priority, 0) + 1
@@ -137,6 +143,7 @@ class AdmissionController:
         admitted must not be able to underflow the gate."""
         with self._lock:
             self._pending = max(0, self._pending - 1)
+            _lifecycle.note_release("admission-slot")
 
     # -------------------------------------------------------------- signals
     def shed_rate(self, now: Optional[float] = None) -> float:

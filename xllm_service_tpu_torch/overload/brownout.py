@@ -33,19 +33,22 @@ import time
 from collections import deque
 from typing import Any, Callable, Optional
 
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..utils import get_logger
 from .deadline import PRIORITY_BATCH
 
 logger = get_logger(__name__)
 
 
+@_ownership.verify_state
 class BrownoutController:
     """Process-global degradation state. ``active()`` /
     ``clamp_max_tokens()`` are the hot-path reads: one attribute load
     (GIL-atomic bool), no lock."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("overload.brownout", order=834)  # lock-order: 834
         self._enabled = True
         self._batch_max_tokens = 32
         self._recover_ticks = 2

@@ -30,14 +30,18 @@ import threading
 
 from typing import Any
 
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 
 
+@_ownership.verify_state
 class RetryBudget:
     """Process-global token bucket. Both paths are a leaf-lock hold
     around float math."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("overload.retry_budget", order=838)  # lock-order: 838
         self._ratio = 0.1
         self._cap = 50.0
         self._tokens = 50.0
@@ -60,6 +64,7 @@ class RetryBudget:
             self._tokens = self._cap
             self._spent_total = 0
             self._denied_total = 0
+        _lifecycle.note_reset("retry-budget")
 
     @property
     def enabled(self) -> bool:
@@ -71,6 +76,7 @@ class RetryBudget:
         with self._lock:
             if self._cap > 0:
                 self._tokens = min(self._cap, self._tokens + self._ratio)
+                _lifecycle.note_release("retry-budget")
 
     def try_spend(self, n: float = 1.0) -> bool:
         """Withdraw `n` tokens for a retry; False = budget exhausted,
@@ -81,6 +87,7 @@ class RetryBudget:
             if self._tokens >= n:
                 self._tokens -= n
                 self._spent_total += 1
+                _lifecycle.note_acquire("retry-budget")
                 return True
             self._denied_total += 1
             return False

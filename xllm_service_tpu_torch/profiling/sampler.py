@@ -21,13 +21,17 @@ refcounted.
 
 from __future__ import annotations
 
-import logging
 import sys
 import threading
 import time
 from typing import Any, Optional
 
-logger = logging.getLogger(__name__)
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
+from ..utils import get_logger
+
+logger = get_logger(__name__)
 
 #: The port's threads by role: role -> thread-name prefixes.
 THREAD_ROLES: dict[str, tuple[str, ...]] = {
@@ -78,11 +82,12 @@ def _name_stem(name: str) -> str:
     return stem or "other"
 
 
+@_ownership.verify_state
 class SamplingProfiler:
     """Refcounted process-global sampling profiler (see module doc)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("profiling.sampler", order=824)  # lock-order: 824
         self._refs = 0
         self._thread: Optional[threading.Thread] = None
         self._stop_evt: Optional[threading.Event] = None
@@ -141,6 +146,7 @@ class SamplingProfiler:
                 self._window_started = time.monotonic()
                 spawned = t
         if spawned is not None:
+            _lifecycle.note_acquire("profiler-thread")
             from ..common.flightrecorder import RECORDER
 
             RECORDER.add_context_provider("profile", self.anomaly_context)
@@ -168,6 +174,7 @@ class SamplingProfiler:
             from ..common.flightrecorder import RECORDER
 
             RECORDER.remove_context_provider("profile", self.anomaly_context)
+            _lifecycle.note_release("profiler-thread")
 
     def running(self) -> bool:
         with self._lock:

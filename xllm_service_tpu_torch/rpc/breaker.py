@@ -39,12 +39,16 @@ import time
 from collections import deque
 from typing import Any, Optional
 
+from ..devtools import lifecycle as _lifecycle
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 
 STATE_CLOSED = "closed"
 STATE_OPEN = "open"
 STATE_HALF_OPEN = "half_open"
 
 
+@_ownership.verify_state
 class CircuitBreaker:
     """Rolling-window breaker; all transitions under one leaf lock."""
 
@@ -57,7 +61,7 @@ class CircuitBreaker:
         self.failure_ratio = min(1.0, max(0.0, failure_ratio))
         self.open_cooldown_s = max(0.0, open_cooldown_s)
         self.enabled = enabled
-        self._lock = threading.Lock()
+        self._lock = make_lock("rpc.breaker", order=836)  # lock-order: 836
         self._events: deque = deque()     # (monotonic_ts, ok)
         self._state = STATE_CLOSED
         self._opened_at = 0.0
@@ -94,11 +98,13 @@ class CircuitBreaker:
                     return False
                 self._state = STATE_HALF_OPEN
                 self._probe_inflight = True
+                _lifecycle.note_acquire("breaker-probe", key=self.name)
                 return True
             # HALF_OPEN: one probe in flight at a time.
             if self._probe_inflight:
                 return False
             self._probe_inflight = True
+            _lifecycle.note_acquire("breaker-probe", key=self.name)
             return True
 
     def record(self, ok: bool, now: Optional[float] = None) -> None:
@@ -110,6 +116,8 @@ class CircuitBreaker:
         now = now if now is not None else time.monotonic()
         with self._lock:
             if self._state == STATE_HALF_OPEN:
+                if self._probe_inflight:
+                    _lifecycle.note_release("breaker-probe", key=self.name)
                 self._probe_inflight = False
                 if ok:
                     self._state = STATE_CLOSED

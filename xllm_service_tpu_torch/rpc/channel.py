@@ -28,6 +28,8 @@ from ..common import tracing
 from ..common.faults import FAULTS, FaultInjected
 from ..common.metrics import RPC_RETRIES_TOTAL
 from ..common.types import InstanceMetaInfo
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..utils import get_logger, jittered_backoff
 from . import wire
 from .breaker import CircuitBreaker
@@ -113,7 +115,7 @@ class KeepaliveSession:
     def __init__(self, pool_connections: int = 4, pool_maxsize: int = 4):
         self._max_hosts = max(1, pool_connections)
         self._max_per_host = max(1, pool_maxsize)
-        self._lock = threading.Lock()
+        self._lock = make_lock("rpc.keepalive_pool", order=839)  # lock-order: 839
         # "host:port" -> [idle connections], LRU order.
         self._pools: OrderedDict[str, list] = OrderedDict()
         self.connections_created = 0
@@ -212,6 +214,7 @@ def make_keepalive_session(pool_connections: int = 4,
     return KeepaliveSession(pool_connections, pool_maxsize)
 
 
+@_ownership.verify_state
 class EngineChannel:
     def __init__(self, name: str, base_url: Optional[str] = None,
                  timeout_s: float = DEFAULT_TIMEOUT_S,
@@ -403,7 +406,10 @@ class EngineChannel:
                 and isinstance(resp, str) and resp.startswith("HTTP 415"):
             logger.warning("engine %s rejected msgpack dispatch; demoting "
                            "channel to JSON wire", self.name)
-            self.wire_format = wire.WIRE_JSON
+            with _ownership.escape("415 wire demotion: one-way monotonic "
+                                   "fallback to JSON; GIL-atomic string "
+                                   "swap on the negotiation slot"):
+                self.wire_format = wire.WIRE_JSON
             ok, resp = self._post(path, payload, retries=1)
         return ok, resp
 

@@ -21,6 +21,17 @@ The master's half: ``encode_kv_frame``/``decode_kv_frame`` (the KV-index
 delta frames the master writes to coordination each sync tick) and
 ``encode_load_frame``/``decode_load_frame`` (a telemetry owner's coalesced
 load frame), each base64(msgpack) since coordination values are strings.
+
+Every msgpack and base64(msgpack) byte goes through the port's native hot
+core first (``common/native.py``, component ``wire``): it returns the
+same bytes as the pure path or ``MISS``, and on ``MISS`` the pure path
+below runs.
+
+``HOT_PATH_FUNCTIONS`` is the registry behind xlint's ``hot-json`` rule:
+inside these functions, hand-rolled ``json.dumps``/``json=`` encoding is
+a lint violation (hatch: ``# xlint: allow-hot-json(reason)``) — dispatch
+bytes must come from this module so the wire stays symmetric and the
+negotiation stays in one place.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import base64
 import json
 from typing import Any
 
+from ..common import native as _native
 from . import msgpack_lite
 
 #: Wire format names (the values carried in InstanceMetaInfo.wire_formats).
@@ -42,14 +54,109 @@ JSON_CONTENT_TYPE = "application/json"
 TELEMETRY_HB = "hb"
 TELEMETRY_GENS = "gens"
 
+#: Registered hot-path dispatch call sites ("Class.method" or a bare
+#: module-level function name → why it is hot). xlint's hot-json rule is
+#: bidirectional over this registry: each entry must resolve to a live
+#: function in the tree, and inside each, ``json.dumps(...)`` calls and
+#: ``json=`` kwargs are violations unless hatched with
+#: ``# xlint: allow-hot-json(reason)``.
+HOT_PATH_FUNCTIONS: dict[str, str] = {
+    "XllmHttpService._forward_to_instance":
+        "initial engine dispatch from the HTTP frontend",
+    "XllmHttpService.handle_generations":
+        "token-return ingest (hottest service endpoint)",
+    "XllmHttpService.handle_telemetry":
+        "multiplexed engine telemetry ingest (tagged hb/gens frames + "
+        "master->master gens relay)",
+    "XllmHttpService._respond":
+        "SSE emit loop (client-facing frames are protocol JSON)",
+    "Scheduler._failover_loop":
+        "failover replay dispatch",
+    "EngineChannel.forward":
+        "sync dispatch fallback / failover wire",
+    "GenerationStreamer._send":
+        "engine agent batched Generations push",
+    "FakeEngine._generate":
+        "fake-engine Generations push (wire-contract reference impl)",
+    "EngineAgent._heartbeat_loop":
+        "heartbeat push (KV-cache event deltas, raw 16-byte keys)",
+    "FakeEngine._heartbeat_loop":
+        "fake-engine heartbeat push (wire-contract reference impl)",
+    "GlobalKVCacheMgr.upload_kvcache":
+        "master→coordination KV-index sync (binary delta frames)",
+    "OwnershipRouter.owner_of":
+        "per-request ownership resolution (every accept + every relay)",
+    "OwnershipRouter.instance_owner":
+        "per-beat telemetry-shard verdict (memoized on the published "
+        "member tuple; native rendezvous walk on miss)",
+    "SimpleTokenizer.encode":
+        "per-request prompt tokenization inside the route loop (the "
+        "profiler's hottest route frame; native byte-id fast path)",
+    "HandoffRelay._relay_stream":
+        "owner-forward SSE relay (frames must pass through as raw bytes)",
+    "XllmHttpService.handle_handoff":
+        "owner-side ingest of relayed requests (full dispatch pipeline)",
+    "TieredKVStore.offload":
+        "per-eviction tier-offload admission (engine thread, never blocks)",
+    "TieredKVStore.fetch":
+        "cold-tier onload read on the engine admission path",
+    "InferenceEngine._pump_tier_offloads":
+        "eviction drain after every page allocation (decode loop)",
+    "InferenceEngine._onload_cold_prefix":
+        "cold-prefix extension walk at admission (ahead of prefill)",
+    "StreamOfferTable.read_chunk":
+        "per-chunk streaming-transfer serve (one memoryview slice)",
+    "pull_stream":
+        "chunked KV pull loop (decode-side executor thread, paced)",
+    "EngineAgent._h_kv_stream_pull":
+        "streaming-transfer pull endpoint (msgpack frames)",
+    "SamplingProfiler._sample_once":
+        "always-on ~19 Hz wall-clock stack sampler tick (overhead gate "
+        "<=1%: benchmarks/bench_profile_overhead.py)",
+    # RCU snapshot readers (rcu-read single-load discipline applies: one
+    # load of the publication attribute per call, or two loads may
+    # observe different snapshots — the copy-on-write torn-read smell).
+    "GlobalKVCacheMgr.match":
+        "lock-free prefix-index walk on every CAR schedule",
+    "InstanceMgr.get_next_instance_pair":
+        "RR pair selection off the routing snapshot",
+    "InstanceMgr.select_instance_pair_on_slo":
+        "SLO pair selection off the routing snapshot",
+    "select_pair_on_slo":
+        "lock-free SLO selection kernel (snapshot + request-load view + "
+        "staleness-aware predictive scoring)",
+    "SloAwarePolicy.select_instances_pair":
+        "whole SLO_AWARE selection on the schedule path",
+    "InstanceMgr.get_request_loads":
+        "published request-load accessor for SLO predictive scoring",
+    "AutoscalerController.tick":
+        "autoscaler decision loop (sync cadence; lock-free telemetry "
+        "gather, pure kernel, rate-limited enactment)",
+    "InstanceMgr.bind_request_instance_incarnations":
+        "RCU bind re-validation against the current snapshot",
+    "InstanceMgr.get_channel":
+        "per-dispatch channel lookup off the routing snapshot",
+    "InstanceMgr.get_load_infos":
+        "published load-info accessor for CAR/planner scoring",
+    "CacheAwareRoutingPolicy.select_instances_pair":
+        "whole CAR selection (match + load-info scoring, lock-free)",
+}
+
+
 
 def pack_dispatch(payload: dict[str, Any]) -> bytes:
     """Deterministic msgpack encoding of a dispatch payload (the bytes of
     ``msgpack.packb(payload, use_bin_type=True)``)."""
+    enc = _native.packb(payload)
+    if enc is not _native.MISS:
+        return enc
     return msgpack_lite.packb(payload)
 
 
 def unpack_dispatch(data: bytes) -> Any:
+    obj = _native.unpackb(data)
+    if obj is not _native.MISS:
+        return obj
     return msgpack_lite.unpackb(data)
 
 
@@ -79,7 +186,10 @@ def encode_telemetry(frames: "list[dict]") -> tuple[bytes, str]:
     """Tagged telemetry frames for one POST to ``/rpc/telemetry``. Always
     msgpack: a master without the route answers 404 and the engine falls
     back to the per-endpoint wires."""
-    return msgpack_lite.packb({"frames": frames}), MSGPACK_CONTENT_TYPE
+    enc = _native.packb({"frames": frames})
+    if enc is _native.MISS:
+        enc = msgpack_lite.packb({"frames": frames})
+    return enc, MSGPACK_CONTENT_TYPE
 
 
 def negotiate(wire_formats: Any) -> str:
@@ -93,7 +203,17 @@ def negotiate(wire_formats: Any) -> str:
 
 
 def _b64_pack(frame: dict) -> str:
+    enc = _native.pack_b64(frame)
+    if enc is not _native.MISS:
+        return enc
     return base64.b64encode(msgpack_lite.packb(frame)).decode("ascii")
+
+
+def _b64_unpack(value: Any) -> Any:
+    frame = _native.unpack_b64(value)
+    if frame is _native.MISS:
+        frame = msgpack_lite.unpackb(base64.b64decode(value))
+    return frame
 
 
 def encode_kv_frame(upserts: "dict[bytes, Any]", removals: "list[bytes]",
@@ -111,7 +231,7 @@ def decode_kv_frame(value: str) -> "tuple[dict[bytes, Any], list[bytes], bool]":
     """Inverse of :func:`encode_kv_frame` -> (upserts, removals, full).
     Raises ValueError on a malformed frame (callers skip it)."""
     try:
-        frame = msgpack_lite.unpackb(base64.b64decode(value))
+        frame = _b64_unpack(value)
         if not isinstance(frame, dict):
             raise TypeError("frame is not a map")
         upserts = frame.get("u") or {}
@@ -137,7 +257,7 @@ def decode_load_frame(value: str) -> dict:
     """Inverse of :func:`encode_load_frame`. Raises ValueError on a
     malformed frame (callers skip it)."""
     try:
-        frame = msgpack_lite.unpackb(base64.b64decode(value))
+        frame = _b64_unpack(value)
         if not isinstance(frame, dict) or not isinstance(
                 frame.get("i", {}), dict):
             raise TypeError("load frame is not a map")

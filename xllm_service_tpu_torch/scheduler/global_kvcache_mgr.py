@@ -62,6 +62,9 @@ from ..common.config import ServiceOptions
 from ..common.hashing import as_key, prefix_block_hashes
 from ..common.types import CacheLocations, KvCacheEvent, OverlapScores
 from ..coordination.base import CoordinationClient, KeyEvent, WatchEventType
+from ..devtools import ownership as _ownership
+from ..devtools import rcu
+from ..devtools.locks import make_lock
 from ..rpc import CACHE_FRAME_KEY_PREFIX, CACHE_KEY_PREFIX
 from ..rpc.wire import decode_kv_frame, encode_kv_frame
 from ..utils import get_logger
@@ -139,6 +142,7 @@ class PrefixIndex:
         self.blocks: dict[bytes, _BlockLoc] = blocks if blocks is not None else {}
 
 
+@_ownership.verify_state
 class GlobalKVCacheMgr:
     def __init__(self, coord: CoordinationClient, block_size: int = 128,
                  is_master: bool = True,
@@ -157,8 +161,8 @@ class GlobalKVCacheMgr:
             self._compact_every = 64
         # Writer lock: serializes index WRITERS only (ingest, eviction,
         # frame apply, bootstrap). match() never takes it.
-        self._lock = threading.Lock()
-        self._snapshot = PrefixIndex()
+        self._lock = make_lock("global_kvcache_mgr.cache", order=26)  # lock-order: 26
+        self._snapshot = rcu.publish(PrefixIndex(), "kvcache.index")
         # Reverse index: instance → keys it holds (any tier). Keeps
         # remove_instance / eviction O(blocks owned by that instance).
         self._by_instance: dict[str, set[bytes]] = {}
@@ -234,7 +238,7 @@ class GlobalKVCacheMgr:
                 self._apply_frame_into(blocks, upserts, removals)
             self._by_instance = _build_by_instance(blocks)
             self._frame_seq = max(self._frame_seq, max_seq + 1)
-            self._snapshot = PrefixIndex(blocks)
+            self._snapshot = rcu.publish(PrefixIndex(blocks), "kvcache.index")
             # Replay watch deliveries that raced the rebuild, then disarm.
             buffered = self._bootstrap_buffer or []
             self._bootstrap_buffer = None
@@ -304,7 +308,9 @@ class GlobalKVCacheMgr:
         offloaded = [k for k in map(as_key, event.offloaded) if k is not None]
         removed = [k for k in map(as_key, event.removed) if k is not None]
         with self._lock:
-            blocks = self._snapshot.blocks
+            blocks = rcu.thaw(self._snapshot.blocks,
+                              "entry-level RCU writer: immutable _BlockLoc "
+                              "slot swaps are atomic under the GIL")
             owned = self._by_instance.setdefault(instance, set())
             for h in stored:
                 loc = blocks.get(h)
@@ -359,7 +365,9 @@ class GlobalKVCacheMgr:
         """Drop a dead instance from every block it holds — O(blocks owned
         by that instance) via the reverse index, not O(index)."""
         with self._lock:
-            blocks = self._snapshot.blocks
+            blocks = rcu.thaw(self._snapshot.blocks,
+                              "entry-level RCU writer: immutable _BlockLoc "
+                              "slot swaps are atomic under the GIL")
             removed, dirty = self._removed, self._dirty
             for h in self._by_instance.pop(instance, ()):
                 loc = blocks.get(h)
@@ -514,7 +522,7 @@ class GlobalKVCacheMgr:
                     blocks = {}
                 self._apply_frame_into(blocks, upserts, removals)
             self._by_instance = _build_by_instance(blocks)
-            self._snapshot = PrefixIndex(blocks)
+            self._snapshot = rcu.publish(PrefixIndex(blocks), "kvcache.index")
             return
         for op in ops:
             if op[0] == "legacy":
@@ -550,7 +558,9 @@ class GlobalKVCacheMgr:
                 del self._by_instance[inst]
 
     def _put_key_locked(self, h: bytes, loc: _BlockLoc) -> None:
-        blocks = self._snapshot.blocks
+        blocks = rcu.thaw(self._snapshot.blocks,
+                          "entry-level RCU writer: immutable _BlockLoc "
+                          "slot swaps are atomic under the GIL")
         old = blocks.get(h)
         if old is not None:
             for inst in old.holders():
@@ -561,7 +571,9 @@ class GlobalKVCacheMgr:
         blocks[h] = loc
 
     def _drop_key_locked(self, h: bytes) -> None:
-        old = self._snapshot.blocks.pop(h, None)
+        old = rcu.thaw(self._snapshot.blocks,
+                       "entry-level RCU writer: immutable _BlockLoc "
+                       "slot swaps are atomic under the GIL").pop(h, None)
         if old is not None:
             for inst in old.holders():
                 self._unindex_locked(inst, h)

@@ -74,6 +74,7 @@ from ..common.metrics import (
     TTFT_MS,
     evict_series,
 )
+from ..devtools import lifecycle as _lifecycle
 from ..common.time_predictor import TimePredictor
 from ..common import topology as topo
 from ..common.types import (
@@ -89,6 +90,9 @@ from ..common.types import (
 )
 from ..common.request import Request
 from ..coordination.base import CoordinationClient, KeyEvent, WatchEventType
+from ..devtools import ownership as _ownership
+from ..devtools import rcu
+from ..devtools.locks import make_lock
 from ..rpc import (
     INSTANCE_KEY_PREFIX,
     LOADFRAME_KEY_PREFIX,
@@ -224,6 +228,7 @@ class RoutingSnapshot:
             [self.coords[n] for n in pd])
 
 
+@_ownership.verify_state
 class InstanceMgr:
     def __init__(self, coord: CoordinationClient, options: ServiceOptions,
                  is_master: bool = True,
@@ -248,9 +253,9 @@ class InstanceMgr:
             lambda name, rpc_addr: EngineChannel.from_options(name, options))
         # L1: fleet membership (writers). Scheduling reads go through the
         # published RoutingSnapshot, not this lock.
-        self._cluster_lock = threading.RLock()
+        self._cluster_lock = make_lock("instance_mgr.cluster", order=20, reentrant=True)  # lock-order: 20
         self._instances: dict[str, _Entry] = {}
-        self._snapshot = RoutingSnapshot({})
+        self._snapshot = rcu.publish(RoutingSnapshot({}), "routing.snapshot")
         # RR cursors: shared monotonic counters (next() on itertools.count
         # is atomic under the GIL) — no lock, stable fairness across
         # snapshot republishes.
@@ -260,11 +265,11 @@ class InstanceMgr:
         # Pending async role flips + graceful drains (performed by the
         # reconcile thread — the engine RPCs and coordination writes they
         # issue never run on a request path).
-        self._flip_lock = threading.Lock()
+        self._flip_lock = make_lock("instance_mgr.flip", order=22)  # lock-order: 22
         self._pending_flips: dict[str, InstanceType] = {}
         self._pending_drains: set[str] = set()
         # L2: metrics.
-        self._metrics_lock = threading.Lock()
+        self._metrics_lock = make_lock("instance_mgr.metrics", order=24)  # lock-order: 24
         self._load_metrics: dict[str, LoadMetrics] = {}
         self._latency_metrics: dict[str, LatencyMetrics] = {}
         # Link-class census of scheduled PD pairs (topology plane
@@ -286,14 +291,16 @@ class InstanceMgr:
         # and read LOCK-FREE by the SLO policy's predictive scoring —
         # the selection no longer re-scans `_request_loads` under the
         # manager lock on every schedule/planner tick.
-        self._request_load_view: dict[str, tuple] = {}
+        self._request_load_view: dict[str, tuple] = rcu.publish(
+            {}, "routing.request_loads")
         self._updated_load_names: set[str] = set()
         self._removed_load_names: set[str] = set()
         # Published load-info view (RCU, like the routing snapshot):
         # rebuilt under `_metrics_lock` by every load/latency/membership
         # writer, read lock-free by CAR / planner / admin. Treat as
         # immutable.
-        self._load_infos: dict[str, InstanceLoadInfo] = {}
+        self._load_infos: dict[str, InstanceLoadInfo] = rcu.publish(
+            {}, "routing.load_infos")
         # Sharded telemetry-ingest plane. `_owned_names` is the
         # reconcile thread's view of this master's telemetry shard (the
         # set difference against the fresh rendezvous answer is the
@@ -361,7 +368,8 @@ class InstanceMgr:
         republished in the same step (nested `_metrics_lock` is fine:
         lock order 20 → 24, and no path nests them the other way)."""
         with self._cluster_lock:
-            self._snapshot = RoutingSnapshot(self._instances)
+            self._snapshot = rcu.publish(RoutingSnapshot(self._instances),
+                                         "routing.snapshot")
             with self._metrics_lock:
                 self._rebuild_load_infos_locked()
 
@@ -373,9 +381,9 @@ class InstanceMgr:
         of ONE entry, so a large fleet's heartbeat stream doesn't rebuild
         O(fleet) objects per beat)."""
         snap = self._snapshot
-        self._load_infos = {
+        self._load_infos = rcu.publish({
             name: self._make_load_info_locked(name, entry, snap)
-            for name, entry in snap.entries.items()}
+            for name, entry in snap.entries.items()}, "routing.load_infos")
 
     def _make_load_info_locked(self, name: str, entry: _Entry,
                                snap: RoutingSnapshot) -> InstanceLoadInfo:
@@ -400,11 +408,11 @@ class InstanceMgr:
             if name in self._load_infos:
                 nxt = dict(self._load_infos)
                 nxt.pop(name, None)
-                self._load_infos = nxt
+                self._load_infos = rcu.publish(nxt, "routing.load_infos")
             return
         nxt = dict(self._load_infos)
         nxt[name] = self._make_load_info_locked(name, entry, snap)
-        self._load_infos = nxt
+        self._load_infos = rcu.publish(nxt, "routing.load_infos")
 
     def _publish_request_load_locked(self, *names: str) -> None:
         """Copy-on-write republish of the lock-free request-load view for
@@ -418,7 +426,7 @@ class InstanceMgr:
             else:
                 nxt[name] = (rl.num_prefill_requests, rl.num_prefill_tokens,
                              rl.num_decode_requests, rl.num_decode_tokens)
-        self._request_load_view = nxt
+        self._request_load_view = rcu.publish(nxt, "routing.request_loads")
 
     def get_request_loads(self) -> dict[str, tuple]:
         """Per-instance in-flight accounting for the SLO policy's
@@ -470,7 +478,10 @@ class InstanceMgr:
             if entry is None:
                 return
             if entry.channel is not None:
-                entry.channel.wire_format = WIRE_JSON
+                with _ownership.escape("415 wire demotion: monotonic "
+                                       "JSON fallback on the negotiation "
+                                       "slot (GIL-atomic string swap)"):
+                    entry.channel.wire_format = WIRE_JSON
             if WIRE_JSON == negotiate(entry.meta.wire_formats):
                 return
             entry.meta.wire_formats = [WIRE_JSON]
@@ -500,8 +511,12 @@ class InstanceMgr:
         (legacy funnel: whoever receives a heartbeat ingests it, every
         frontend runs its own detection). Lock-free: one memo lookup on
         the router's per-membership-epoch verdict cache (a rendezvous
-        walk only on the first ask per epoch)."""
-        return (not self.sharded()) or self._ownership.owns_instance(name)
+        walk only on the first ask per epoch). Under XLLM_STATE_DEBUG the
+        answer is noted per-thread — the runtime half of the `owner:`
+        state discipline on the sharded heartbeat fields."""
+        ok = (not self.sharded()) or self._ownership.owns_instance(name)
+        _ownership.note_owner_guard("owns_telemetry", ok)
+        return ok
 
     def telemetry_owner_addr(self, name: str) -> str:
         """The owning master's rpc address for an instance's telemetry
@@ -536,14 +551,18 @@ class InstanceMgr:
         with self._metrics_lock:
             dirty = bool(self._shard_dirty) or bool(self._shard_gone)
             horizon = now - 30_000
-            self._shard_dirty.clear()
-            # Tombstones republish for a window (a mirror that missed
-            # one frame catches the next), then age out.
-            for n, (reason, ms) in list(self._shard_gone.items()):
-                if ms < horizon:
-                    del self._shard_gone[n]
-                else:
-                    gone[n] = reason
+            with _ownership.escape("frame build drains this owner's own "
+                                   "dirty set and prunes expired "
+                                   "tombstones whole — owner-neutral "
+                                   "bookkeeping, no per-instance verdict"):
+                self._shard_dirty.clear()
+                # Tombstones republish for a window (a mirror that missed
+                # one frame catches the next), then age out.
+                for n, (reason, ms) in list(self._shard_gone.items()):
+                    if ms < horizon:
+                        del self._shard_gone[n]
+                    else:
+                        gone[n] = reason
             owned = [n for n in snap.entries if self.owns_telemetry(n)]
             if not dirty and set(owned) == self._published_owned:
                 return
@@ -715,8 +734,12 @@ class InstanceMgr:
                 if cur.channel is not None:
                     # Keep the sync-dispatch flag coherent with the
                     # refreshed advertisement (one negotiation truth).
-                    cur.channel.wire_format = \
-                        negotiate(meta.wire_formats)
+                    with _ownership.escape("registration refresh under "
+                                           "_cluster_lock re-negotiates "
+                                           "the wire slot (GIL-atomic "
+                                           "string swap)"):
+                        cur.channel.wire_format = \
+                            negotiate(meta.wire_formats)
                 if refit:
                     if meta.ttft_profiling_data:
                         cur.predictor.fit_ttft(meta.ttft_profiling_data)
@@ -835,7 +858,9 @@ class InstanceMgr:
         # watch thread, and an unreachable instance's connect timeout must
         # not stall eviction/heartbeat event processing behind it. Both
         # tolerate test doubles without the richer channel API.
-        channel.wire_format = negotiate(meta.wire_formats)
+        with _ownership.escape("pre-publication: the channel is not yet "
+                               "visible to any other thread"):
+            channel.wire_format = negotiate(meta.wire_formats)
         warm = getattr(channel, "warm_up", None)
         if warm is not None:
             threading.Thread(target=warm, daemon=True,
@@ -883,6 +908,7 @@ class InstanceMgr:
         # re-create series evicted with the previous incarnation — clear
         # the leak verifier's tombstones so those are not misreported as
         # the stale-writer resurrection bug.
+        _lifecycle.note_series_revived(meta.name)
         with self._metrics_lock:
             self._load_metrics.setdefault(meta.name, LoadMetrics())
             self._request_loads.setdefault(meta.name, _RequestLoad())

@@ -25,6 +25,7 @@ from typing import Optional
 from ..common.config import ServiceOptions
 from ..common.metrics import PLANNER_SCALE_HINT
 from ..common.types import InstanceType
+from ..devtools import ownership as _ownership
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -53,6 +54,7 @@ class PlanDecision:
         return json.dumps(asdict(self))
 
 
+@_ownership.verify_state
 class Planner:
     # Pressure thresholds (fractions of capacity / SLO).
     SCALE_OUT_PRESSURE = 1.5    # waiting ≥ 1.5x running capacity

@@ -73,6 +73,8 @@ from ..common.types import (
 from ..coordination import CoordinationClient, connect
 from ..coordination.base import KeyEvent, WatchEventType
 from ..coordination.health import CoordinationHealthMonitor, HeldAction
+from ..devtools import ownership as _ownership
+from ..devtools.locks import make_lock
 from ..overload import ADMISSION, BROWNOUT, RETRY_BUDGET
 from ..overload.deadline import deadline_expired
 from ..rpc import MASTER_KEY, SERVICE_KEY_PREFIX
@@ -138,6 +140,7 @@ class _RequestState:
         self.dispatch_done_pc: Optional[float] = None
 
 
+@_ownership.verify_state
 class Scheduler:
     def __init__(self, options: ServiceOptions,
                  coord: Optional[CoordinationClient] = None,
@@ -228,7 +231,7 @@ class Scheduler:
         # holding it so a concurrent first-token delta can't interleave a
         # FINISH_PREFILL after a CANCEL (which would leak decode load).
         self._requests: dict[str, _RequestState] = {}
-        self._req_lock = threading.RLock()
+        self._req_lock = make_lock("scheduler.requests", order=10, reentrant=True)  # lock-order: 10
         self._output_executor = OrderedExecutor(options.num_output_threads)
         # Dedicated bounded pool for schedule() (template/tokenize/route/
         # bind): on the default event-loop executor a schedule queues
@@ -256,7 +259,9 @@ class Scheduler:
         if addr == self.self_addr:
             return
         old = self.self_addr
-        self.self_addr = addr
+        with _ownership.escape("post-bind re-registration: rebinds the "
+                               "init-only self_addr once, before traffic"):
+            self.self_addr = addr
         self._coord.rm(SERVICE_KEY_PREFIX + old)
         self._coord.set(SERVICE_KEY_PREFIX + addr,
                         json.dumps({"rpc_address": addr}),
@@ -316,7 +321,7 @@ class Scheduler:
             return self.self_addr
         try:
             return self._coord.get(MASTER_KEY) or ""
-        except Exception:
+        except Exception:  # noqa: BLE001  # xlint: allow-broad-except(hint-only: a coordination blip degrades to no owner hint, the engine keeps its current target)
             return ""
 
     def sync_once(self) -> None:
@@ -415,7 +420,7 @@ class Scheduler:
             self._coord.set(SERVICE_KEY_PREFIX + self.self_addr,
                             json.dumps({"rpc_address": self.self_addr}),
                             ttl_s=self._opts.lease_ttl_s)
-        except Exception:
+        except Exception:  # noqa: BLE001  # xlint: allow-broad-except(re-registration is retried by the client keepalive; a throw here must not abort held-action replay)
             logger.exception("post-outage re-registration failed")
         owner = self._coord.get(MASTER_KEY)
         if self.is_master:
@@ -583,7 +588,7 @@ class Scheduler:
                     request.prompt = self.chat_template.apply(
                         request.messages, request.tools,
                         request.chat_template_kwargs)
-                except Exception as e:
+                except Exception as e:  # noqa: BLE001  # xlint: allow-broad-except(template errors surface to the client as INVALID_ARGUMENT)
                     return Status(StatusCode.INVALID_ARGUMENT,
                                   f"chat template error: {e}")
         if not request.token_ids and request.prompt:
@@ -733,7 +738,7 @@ class Scheduler:
             self._kv_relay_session.post(
                 f"http://{master}/rpc/heartbeat", data=body,
                 headers={"Content-Type": ctype}, timeout=3)
-        except Exception as e:
+        except Exception as e:  # noqa: BLE001  # xlint: allow-broad-except(a lost KV delta degrades cache-hit routing for one beat; the next heartbeat's absolute tier moves re-converge)
             logger.warning("kv-event relay to master %s failed: %s",
                            master, e)
 

@@ -56,6 +56,7 @@ from ..common.tracing import (TRACER, TraceContext, admin_trace,
 from ..common.types import (InstanceMetaInfo, InstanceType, KvCacheEvent,
                             TpuTopology, now_ms)
 from ..coordination.base import CoordinationClient
+from ..devtools.locks import make_lock
 from ..http_service import web
 from ..multimaster.ownership import TelemetryOwnerResolver
 from ..overload.deadline import deadline_expired
@@ -181,7 +182,7 @@ class FakeEngine:
         # draining engines advertise the flag, reject new accepts, and
         # self-stop once the active generation count hits zero.
         self.draining = False
-        self._active_lock = threading.Lock()
+        self._active_lock = make_lock("fake_engine.active", order=66)  # lock-order: 66
         self._active_gens = 0
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._runner: Optional[web.AppRunner] = None
@@ -190,7 +191,7 @@ class FakeEngine:
         self._started = threading.Event()
         self._stored_hashes: list[str] = []
         self._pending_kv_stored: list[str] = []
-        self._kv_lock = threading.Lock()
+        self._kv_lock = make_lock("fake_engine.kv_events", order=64)  # lock-order: 64
         # Heartbeat wire: msgpack w/ raw KV keys; demoted on legacy
         # master, re-probed when the master address changes.
         self._hb_wire = wire.WIRE_MSGPACK
@@ -589,7 +590,7 @@ class FakeEngine:
                 body["trace_context"] = hctx.to_dict()
         # A delay rule here deliberately stalls the engine's loop (accepts
         # serialize behind it): a test double's model of a stuck engine.
-        rule = FAULTS.fire("engine.accept", instance=self.name,
+        rule = FAULTS.fire("engine.accept", instance=self.name,  # xlint: allow-async-blocking(test double: a delay rule on engine.accept deliberately models a stalled engine loop, serialized accepts included)
                            sid=body.get("service_request_id", ""))
         if rule is not None and rule.action == "error":
             return web.Response(status=503, text="fault injected")
@@ -719,7 +720,7 @@ class FakeEngine:
         for t in self._PEER_TYPE_ORDER:
             try:
                 raw = self.coord.get(instance_key(t.value, name))
-            except Exception:  # noqa: BLE001 — plane outage: unmodeled
+            except Exception:  # noqa: BLE001  # xlint: allow-broad-except(plane outage = no coordinate; the handoff just goes unmodeled)
                 return None
             if raw:
                 try:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from ..common import native as _native
 from .base import Tokenizer
 
 _BYTE_OFFSET = 256
@@ -20,6 +21,12 @@ class SimpleTokenizer(Tokenizer):
         self._special_by_id = {v: k for k, v in self._special.items()}
 
     def encode(self, text: str) -> list[int]:
+        # Hottest route frame under fleet load (per-request prompt encode
+        # inside Scheduler._schedule_inner) — libhotcore builds the id
+        # list in C when available; identical output by construction.
+        ids = _native.tok_encode(text)
+        if ids is not _native.MISS:
+            return ids
         return [b + _BYTE_OFFSET for b in text.encode("utf-8")]
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
