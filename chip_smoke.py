@@ -267,8 +267,31 @@ Phases (any failure exits non-zero before the result line):
    (h) a second master in this process, then the elected one stopped
    with no drain: the survivor holds ``XLLM:SERVICE:MASTER`` within the
    lease TTL plus one sync and serves phase 4's tokens, and is the master
-   of the rest of the phase; one agent killed (its lease left to
-   lapse): LEASE_LOST or SUSPECT, evicted at the default timeouts, the
+   of the rest of the phase; (j)-(m), on a master of this process beside
+   it (``plane_master``: RR, admission at SHED_LIMIT a live agent, the
+   breaker's cooldown at BREAKER_COOLDOWN_S, OUTAGE_OPTS' outage
+   timings): (j) a burst of four times the admission limit, every answer
+   200 or 429, each 429 with ``Retry-After`` and counted as
+   ``requests_cancelled_total{reason="shed"}``, every served stream equal
+   to phase 4's, the gate drained; (k) a DEADLINE_NEW-token stream with
+   ``x-request-deadline-ms`` DEADLINE_BUDGET_MS: the client's end the CPU
+   twin's (DEADLINE_END), the agent's engine stopped within two decode
+   calls of the deadline with its running set empty, a concurrent stream
+   on the other agent whole, an expired relayed deadline 504 with no
+   dispatch; (l) ``rpc.post`` and ``rpc.get`` failing for one agent's
+   name through ``/admin/faults`` and its accepts failing: its
+   dispatches fail over to the other agent, its breaker opens and
+   routing leaves it out, and once cleared a half-open probe closes it
+   and it serves again; (m) the coordination server killed while
+   OUTAGE_NEW-token streams run on both agents: the streams complete,
+   no agent SUSPECT or evicted, the plane master DEGRADED, the elected
+   master keeps its mastership; restarted empty on the same port: both
+   agents re-register, both monitors CONNECTED, both masters serve; (d)
+   the agent serving a MASTER_NEW-token stream killed mid-stream (its
+   lease left to lapse): the stream completes through failover on the
+   survivor, which prefills the prompt plus the replayed tokens (the
+   client's tokens phase 4's, no duplicate, no gap, a failover record),
+   the agent LEASE_LOST or SUSPECT, evicted at the default timeouts, the
    next requests on the survivor, which the master then drains; a
    PREFILL and a DECODE agent at MASTER_PD_LAYERS layers (``depth_view``)
    linked by the master, every handoff on the host path (one process:
@@ -279,8 +302,12 @@ Phases (any failure exits non-zero before the result line):
    the elected master, which flips the prefill agent to DECODE (its
    registration moves) and back, and the next PD request streams equal.
    Client TTFT and inter-token latency (p50, p99), the relay's added
-   TTFT, the client's gap at the owner's death, the seconds to takeover
-   and the master's hot-path stages are information;
+   TTFT, the client's gap at the owner's death, the seconds to takeover,
+   the master's hot-path stages, the share of (j)'s burst shed, the ms
+   from (k)'s deadline to the engine's stop, the seconds for (l)'s
+   breaker to open and close, the client's largest gap in (m)'s outage
+   and at (d)'s kill and the seconds to re-register after (m)'s restart
+   are information;
 4t. the autoscaler's closed loop (after 4s): the port's coordination
    server and the port's master with the autoscaler on and the local
    actuator, whose spawn command launches port agents of this script
@@ -347,7 +374,8 @@ Phases (any failure exits non-zero before the result line):
    kernels 1, 2, 3 and 6 idle; (g) phase 4a's tier round trip at
    DeepSeek-V2-Lite (hash blocks of 7,962,624 bytes): the restored pages
    bit for bit, the tier hit's tokens equal to the hot run's; (j) the
-   ``kvtier_bench`` twin's legs 1 and 2 at DeepSeek-V2-Lite (information);
+   ``kvtier_bench`` twin's legs 1 and 2 at DeepSeek-V2-Lite, leg 2 at
+   KVTIER_PREFIXES prefixes (information);
    (h) a PREFILL agent here and a DECODE agent in a second process, both
    DeepSeek-V2-Lite at full width cut to MLA_PD_LAYERS layers (two
    processes at full depth would hold about 63 GB of weights), the KV
@@ -413,9 +441,9 @@ Phases (any failure exits non-zero before the result line):
    ``cuda:0``, so the data plane is gloo (NCCL refuses two ranks on one
    device); each rank draws the weights from seed 0 and keeps only its
    shards. (a) Llama-3-8B bf16 at full width and MH_TP_LAYERS layers on
-   ``model=2`` as two ranks, six greedy streams of 32 tokens and a seeded
-   sampled one, against the one-process ``model=2`` engine on the same
-   draw driven by the same schedule (``mh_drive``; greedy streams by
+   ``model=2`` as two ranks, six greedy streams of MH_NEW["a"] tokens and
+   a seeded sampled one, against the one-process ``model=2`` engine on the
+   same draw driven by the same schedule (``mh_drive``; greedy streams by
    ``held_to``'s rule, the sampled one equal where they all are); (b) the
    agent as two ranks (``--tp 2``, Llama-3-8B cut to MH_AGENT_LAYERS
    layers in its engine configuration) behind the stub master, four
@@ -6703,14 +6731,20 @@ def mla_pd_leg(engine_mod, moe, card, cfg_plane):
         torch.cuda.empty_cache()
 
 
+# 4m (j): the capacity leg's prefixes (28 blocks fed to a 16-block pool;
+# the bench's default is 14).
+KVTIER_PREFIXES = 7
+
+
 def kvtier_twin(params, card):
     """4m (j): the ``kvtier_bench`` twin at DeepSeek-V2-Lite (bf16, (c)'s
-    weights): legs 1 (tier-aware TTFT, one round) and 2 (capacity);
-    information only."""
+    weights): legs 1 (tier-aware TTFT, one round) and 2 (capacity, at
+    KVTIER_PREFIXES prefixes); information only."""
     from xllm_service_tpu_torch.benchmarks import kvtier_bench
 
     t = time.monotonic()
     rec = kvtier_bench.run("cuda", "deepseek_v2_lite", rounds=1,
+                           prefixes=KVTIER_PREFIXES,
                            legs=("ttft", "capacity"), params=params)
     log("  kvtier_bench " + json.dumps(rec))
     tt, cap = rec["tier_ttft"], rec["capacity"]
@@ -7771,7 +7805,7 @@ def vl_phase(engine_mod, kernels, card):
 
 
 # ---------------------------------------------------------------- phase 4p
-MH_NEW = {"a": 32, "c": 16, "d": 16}     # tokens a stream, by leg
+MH_NEW = {"a": 16, "c": 16, "d": 16}     # tokens a stream, by leg
 MH_TP_LAYERS = 8      # (a): Llama-3-8B cut to these layers
 MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
 MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
@@ -9165,6 +9199,12 @@ MASTER_PD_LAYERS = 8   # 4s (e): Llama-3-8B cut to these layers for PD
 MASTER_PD_NEW = 16     # 4s (e): tokens of each request of the PD pair
 MASTER_TTFT_NEW = 4    # 4s (f): tokens of each request that times TTFT
 MASTER_KILL_AFTER = 2  # 4s (g): frames the client takes before the kill
+# 4s (k): the last data frame of a stream whose deadline passes
+# mid-decode, under either master (the CPU twin:
+# tests/test_torch_overload_drills.py::
+# test_agent_deadline_mid_decode_ends_as_under_the_jax_master).
+DEADLINE_END = {"error": {"message": "deadline exceeded", "code": 504}}
+DEADLINE_DONE = False   # ... and no ``[DONE]`` after it
 
 
 class MasterCall:
@@ -9173,7 +9213,8 @@ class MasterCall:
     stream, each SSE frame with its arrival time (``frames``). ``hook``
     runs once, after ``after`` frames of a stream."""
 
-    def __init__(self, port, path, body, stream=False, hook=None, after=0):
+    def __init__(self, port, path, body, stream=False, hook=None, after=0,
+                 headers=None):
         import http.client
 
         self.t_send = time.monotonic()
@@ -9181,13 +9222,14 @@ class MasterCall:
         try:
             conn.request("POST" if body is not None else "GET", path,
                          body=json.dumps(body) if body is not None else None,
-                         headers={"Content-Type": "application/json"})
+                         headers={"Content-Type": "application/json",
+                                  **(headers or {})})
             r = conn.getresponse()
             self.status = r.status
             self.headers = {k.lower(): v for k, v in r.getheaders()}
             self.frames: list = []
-            if not stream:
-                self.body = r.read()
+            if not stream or r.status != 200:
+                self.body = r.read()    # a whole answer or a refusal
                 return
             buf = b""
             while True:
@@ -9236,23 +9278,31 @@ class MasterCall:
         return ts
 
 
-def record_tokens(agents, by_dest=None):
+def record_tokens(agents, by_dest=None, by_agent=None, times=None):
     """Token ids each agent's streamer pushes, by service request id, and
     which agent pushed them; with a ``by_dest`` dict, also by (service
-    request id, destination master)."""
+    request id, destination master), with a ``by_agent`` dict by (agent
+    index, service request id), and with a ``times`` dict each push's
+    (unix ms, tokens, finished) by service request id."""
     toks: dict = {}
     served: dict = {}
     for i, agent in enumerate(agents):
         push = agent.streamer.push
 
         def recording(dest, out, i=i, push=push):
-            served.setdefault(out.service_request_id, i)
+            sid = out.service_request_id
+            served.setdefault(sid, i)
             for o in out.outputs:
-                toks.setdefault(out.service_request_id, []).extend(
-                    o.token_ids)
+                toks.setdefault(sid, []).extend(o.token_ids)
                 if by_dest is not None:
-                    by_dest.setdefault((out.service_request_id, dest),
-                                       []).extend(o.token_ids)
+                    by_dest.setdefault((sid, dest), []).extend(o.token_ids)
+                if by_agent is not None:
+                    by_agent.setdefault((i, sid), []).extend(o.token_ids)
+            if times is not None:
+                times.setdefault(sid, []).append((
+                    time.time() * 1e3,
+                    sum(len(o.token_ids) for o in out.outputs),
+                    out.finished))
             push(dest, out)
         agent.streamer.push = recording
     return toks, served
@@ -9724,6 +9774,619 @@ def slo_flip_leg(master, coord_addr, pre, dec, pd_toks, pd_served, prompts,
     return k1[0] + k2[0], k1[1] + k2[1]
 
 
+# 4s (j)-(m): the overload, outage and failover planes, on a master of
+# this process with the options those legs need (``plane_master``).
+SHED_LIMIT = 2          # (j): admission_max_inflight_per_instance
+SHED_NEW = 16           # (j): tokens of each request of the burst
+DEADLINE_NEW = 512      # (k): tokens the deadline stream asks for
+DEADLINE_BUDGET_MS = 800   # (k): its x-request-deadline-ms
+BREAKER_COOLDOWN_S = 1.0   # (l): circuit_breaker_open_cooldown_s
+BREAKER_NEW = 16        # (l): tokens of each request
+OUTAGE_NEW = 64         # (m): tokens of the streams the outage runs under
+# (m): outage timings near the reference drills' (a sync tick of 0.5 s,
+# DEGRADED after two failed probes, a 0.5 s reconnect jitter window).
+OUTAGE_OPTS = dict(sync_interval_s=0.5, coordination_degraded_after_ticks=2,
+                   coordination_reconnect_jitter_s=0.5)
+
+
+def route_spy(agents):
+    """Wrap each agent's ``POST /v1/completions`` route: every dispatch's
+    decoded body is logged as (agent index, body), and an agent whose name
+    is in ``broken`` answers 500 without serving (the failing engine of
+    (l)). Returns (log, broken, restore)."""
+    from xllm_service_tpu_torch.rpc import wire
+
+    key = ("POST", "/v1/completions")
+    log: list = []
+    broken: set = set()
+    originals = [a._routes[key] for a in agents]
+    for i, a in enumerate(agents):
+        def spied(req, i=i, a=a, orig=originals[i]):
+            try:
+                body = wire.decode_body(req.ctype, req.body)
+            except ValueError:
+                body = {}
+            log.append((i, body if isinstance(body, dict) else {}))
+            if a.name in broken:
+                return 500, {"error": "injected accept fault (4s (l))"}
+            return orig(req)
+        a._routes[key] = spied
+
+    def restore():
+        for a, orig in zip(agents, originals):
+            a._routes[key] = orig
+    return log, broken, restore
+
+
+def plane_master(addr):
+    """A master of this process on 4s's coordination server for (j)-(m):
+    RR (requests alternate the agents), admission at SHED_LIMIT a live
+    agent, the breaker's cooldown at BREAKER_COOLDOWN_S, OUTAGE_OPTS, and
+    brownout off (its state, like the admission gate's, is one per
+    process and would act on the other master's traffic too)."""
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.master import Master
+
+    m = Master(ServiceOptions(
+        host="127.0.0.1", http_port=0, rpc_port=0, coordination_addr=addr,
+        load_balance_policy="RR",
+        admission_max_inflight_per_instance=SHED_LIMIT,
+        circuit_breaker_open_cooldown_s=BREAKER_COOLDOWN_S,
+        brownout_enabled=False, **OUTAGE_OPTS))
+    m.start()
+    return m
+
+
+def restore_overload(opts):
+    """The process's overload singletons back to ``opts`` (the 4s
+    master's), as its service configured them."""
+    from xllm_service_tpu_torch.common.faults import FAULTS
+    from xllm_service_tpu_torch.overload import (
+        ADMISSION,
+        BROWNOUT,
+        RETRY_BUDGET,
+    )
+
+    FAULTS.clear()
+    ADMISSION.configure(
+        per_instance_limit=opts.admission_max_inflight_per_instance,
+        batch_watermark=opts.admission_batch_watermark,
+        retry_after_s=opts.admission_retry_after_s)
+    BROWNOUT.configure(
+        enabled=opts.brownout_enabled,
+        batch_max_tokens=opts.brownout_batch_max_tokens,
+        recover_ticks=opts.brownout_recover_ticks,
+        trace_sample_rate=opts.brownout_trace_sample_rate,
+        restore_rate_fn=lambda: opts.trace_sample_rate)
+    RETRY_BUDGET.configure(ratio=opts.retry_budget_ratio,
+                           cap=opts.retry_budget_cap)
+
+
+def shed_leg(m, toks, prompts, want, cmp, card):
+    """4s (j): a burst of four times the admission limit (SHED_LIMIT a
+    live agent), phase 4's prompts at SHED_NEW tokens, all at once."""
+    from xllm_service_tpu_torch.common.metrics import REQUESTS_CANCELLED_TOTAL
+
+    shed0 = REQUESTS_CANCELLED_TOTAL.labels(reason="shed").value()
+    n = 4 * SHED_LIMIT * 2
+    go = threading.Barrier(n)
+    calls: dict = {}
+
+    def send(k):
+        stream = k % 2 == 0
+        body = master_greedy(prompts[k % len(prompts)], None, stream,
+                             SHED_NEW)
+        go.wait()
+        calls[k] = MasterCall(m.http_port, "/v1/completions", body, stream)
+    threads = [threading.Thread(target=send, args=(k,)) for k in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    codes = sorted(c.status for c in calls.values())
+    shed = [c for c in calls.values() if c.status == 429]
+    assert set(codes) <= {200, 429}, f"(j) answers {codes}"
+    assert shed, "(j) nothing shed by a burst of four times the limit"
+    for c in shed:
+        assert c.headers.get("retry-after"), c.headers
+        assert time.monotonic() - c.t_send < 60
+    got, ctx, wants = {}, {}, {}
+    for k, c in calls.items():
+        if c.status != 200:
+            continue
+        check_call(c, f"(j) {k}", SHED_NEW, k % 2 == 0)
+        name = f"g{k % len(prompts)}"
+        got[f"j{k}"] = toks[c.headers["x-request-id"]]
+        ctx[f"j{k}"] = prompts[k % len(prompts)]
+        wants[f"j{k}"] = want[name][:SHED_NEW]
+    cmp(ctx, got, wants, "4s (j) the admitted requests")
+    counted = REQUESTS_CANCELLED_TOTAL.labels(reason="shed").value() - shed0
+    assert counted == len(shed), (counted, len(shed))
+
+    def drained():
+        rep = MasterCall(m.http_port, "/admin/overload", None).json()
+        return rep["admission"]["pending"] == 0 and rep
+    wait_for(drained, "(j) the admission gate drained", timeout=60)
+    rep = drained()
+    body = shed[0].json()
+    log(f"  (j) a burst of {n} (four times the limit of {SHED_LIMIT} a "
+        f"live agent): {len(got)} served whole and equal to phase 4's, "
+        f"{len(shed)} shed with 429 and Retry-After "
+        f"{shed[0].headers['retry-after']} s (shared {len(shed) / n:.3f} of "
+        f"the burst; {card}); requests_cancelled_total{{reason=\"shed\"}} "
+        f"+{counted:.0f}; /admin/overload pending 0, shed_total "
+        f"{rep['admission']['shed_total']}; body {body}")
+    return len(shed) / n
+
+
+def deadline_leg(m, mix, toks, served, spy, times, prompts, want, cmp,
+                 card):
+    """4s (k): a DEADLINE_NEW-token greedy stream with
+    ``x-request-deadline-ms`` DEADLINE_BUDGET_MS beside two concurrent
+    streams on the other agent; then a relayed request whose deadline
+    has already passed."""
+    from xllm_service_tpu_torch.common.metrics import REQUESTS_CANCELLED_TOTAL
+    from xllm_service_tpu_torch.common.types import now_ms
+
+    H = mix[0].engine.cfg.decode_horizon
+    d0 = REQUESTS_CANCELLED_TOTAL.labels(reason="deadline").value()
+    calls: dict = {}
+
+    def send(name, body, headers=None):
+        calls[name] = MasterCall(m.http_port, "/v1/completions", body, True,
+                                 headers=headers)
+    # c1, then the deadline request, then c2: RR alternates the two
+    # agents, so the deadline stream has its agent to itself and both
+    # concurrent streams run on the other.
+    body = master_greedy(prompts[0], None, True, DEADLINE_NEW)
+    ths = [threading.Thread(target=send, args=("c1", master_greedy(
+        prompts[1], None, True, MASTER_NEW))),
+        threading.Thread(target=send, args=("deadline", body, {
+            "x-request-deadline-ms": str(DEADLINE_BUDGET_MS)})),
+        threading.Thread(target=send, args=("c2", master_greedy(
+            prompts[2], None, True, MASTER_NEW)))]
+    for th in ths:
+        th.start()
+        time.sleep(0.02)
+    for th in ths:
+        th.join()
+    d = calls["deadline"]
+    sid = d.headers["x-request-id"]
+    i = served[sid]
+    others = [n for n in ("c1", "c2")
+              if served[calls[n].headers["x-request-id"]] != i]
+    assert others, "(k) no concurrent stream on the other agent"
+    # The client's end: the one the CPU twin gets under both masters.
+    assert d.status == 200, (d.status, d.body[:200])
+    ev = d.events()
+    done = ev[-1] == b"[DONE]"
+    end = ev[-2] if done else ev[-1]
+    assert (end, done) == (DEADLINE_END, DEADLINE_DONE), (end, done)
+    wait_for(lambda: REQUESTS_CANCELLED_TOTAL.labels(reason="deadline")
+             .value() == d0 + 1, "(k) one deadline cancellation",
+             timeout=30)
+    # The agent's engine dropped the sequence within two decode calls
+    # (each DECODE_HORIZON tokens) of the deadline it was dispatched with.
+    deadline = next(b["deadline_ms"] for j, b in spy
+                    if b.get("service_request_id") == sid)
+    pushes = times[sid]
+    assert pushes[0][0] < deadline, (
+        "(k) no token before the deadline: pushes (ms from the deadline, "
+        "tokens, finished) "
+        f"{[(round(t - deadline, 1), n, f) for t, n, f in pushes]}, the "
+        f"concurrent streams' first tokens (ms after the deadline) "
+        f"{[round(times[calls[n].headers['x-request-id']][0][0] - deadline, 1) for n in ('c1', 'c2')]}, "
+        f"agents' stats {[a.engine.stats() for a in mix]}")
+    late = sum(n for t, n, _ in pushes if t > deadline)
+    stop_ms = pushes[-1][0] - deadline
+    assert pushes[-1][2], "(k) no final output from the agent"
+    assert late <= 2 * H, f"(k) {late} tokens after the deadline"
+    n_tok = len(toks[sid])
+    assert 0 < n_tok < DEADLINE_NEW // 2, n_tok
+    wait_for(lambda: mix[i].engine.stats()["running"] == 0,
+             "(k) the deadline agent's running set empty", timeout=30)
+    k = min(n_tok, MASTER_NEW)
+    cmp({"k": prompts[0], "c1": prompts[1], "c2": prompts[2]},
+        {"k": toks[sid][:k],
+         **{n: toks[calls[n].headers["x-request-id"]] for n in ("c1", "c2")}},
+        {"k": want["g0"][:k], "c1": want["g1"], "c2": want["g2"]}, "4s (k)")
+    for n in ("c1", "c2"):
+        check_sse(calls[n], f"(k) concurrent {n}", MASTER_NEW)
+    # An expired deadline at the owner's hop: 504, never an engine.
+    d0 = REQUESTS_CANCELLED_TOTAL.labels(reason="deadline").value()
+    n_spy = len(spy)
+    exp = MasterCall(m.rpc_port,
+                     "/rpc/handoff?kind=completion&sid=4s-k-expired",
+                     master_greedy(prompts[2], None, False, 4),
+                     headers={"x-xllm-deadline-ms": str(now_ms() - 5000)})
+    assert exp.status == 504 and b"expired" in exp.body, exp.body[:200]
+    assert REQUESTS_CANCELLED_TOTAL.labels(reason="deadline").value() \
+        == d0 + 1
+    assert len(spy) == n_spy, "(k) the expired request reached an agent"
+    gaps = [(b - a) for (a, _, _), (b, _, _) in zip(pushes, pushes[1:])]
+    log(f"  (k) a {DEADLINE_NEW}-token stream with x-request-deadline-ms "
+        f"{DEADLINE_BUDGET_MS} on agent {i}: {n_tok} tokens (equal to phase "
+        f"4's), the agent's stop {stop_ms:.1f} ms after the deadline with "
+        f"{late} tokens pushed past it (limit two decode calls, {2 * H}; "
+        f"push gaps p50 {sorted(gaps)[len(gaps) // 2] if gaps else 0:.1f} "
+        f"ms; {card}), its engine's running set empty; the client's end "
+        f"{end} as under the JAX master; two concurrent streams whole and "
+        f"equal ({len(others)} of them on the other agent); an expired "
+        f"relayed "
+        f"deadline 504 with no dispatch")
+    return stop_ms
+
+
+def breaker_leg(m, mix, toks, served, spy, broken, prompts, want, cmp,
+                card):
+    """4s (l): ``rpc.post`` (and ``rpc.get``, the half-open probe's) fail
+    for one agent's name through ``/admin/faults``, and its accepts fail
+    (the failing engine): dispatches to it fail over to the other agent,
+    its breaker opens and routing leaves it out; the fault cleared, a
+    half-open probe after the cooldown closes the breaker and it serves
+    again."""
+    from xllm_service_tpu_torch.common.flightrecorder import RECORDER
+    from xllm_service_tpu_torch.common.metrics import (
+        CIRCUIT_BREAKER_OPEN,
+        FAILOVER_SUCCESS_TOTAL,
+    )
+    from xllm_service_tpu_torch.common.types import InstanceRuntimeState
+
+    mgr = m.scheduler.instance_mgr
+    x, y = mix[0], mix[1]
+    ch = mgr.get_channel(x.name)
+    opened0 = ch.breaker.snapshot()["open_total"]
+    rules = [{"point": p, "action": "error", "match": {"instance": x.name}}
+             for p in ("rpc.post", "rpc.get")]
+    r = MasterCall(m.http_port, "/admin/faults", {"seed": 0,
+                                                  "rules": rules})
+    assert r.status == 200 and len(r.json()["rules"]) == 2, r.body
+    broken.add(x.name)
+    t0 = time.monotonic()
+    f0 = FAILOVER_SUCCESS_TOTAL.value()
+    got, ctx, wants, moved = {}, {}, {}, []
+
+    def one(tag, k):
+        n_spy = len(spy)
+        stream = k % 2 == 1
+        c = MasterCall(m.http_port, "/v1/completions", master_greedy(
+            prompts[k % len(prompts)], None, stream, BREAKER_NEW), stream)
+        check_call(c, f"(l) {tag}", BREAKER_NEW, stream)
+        sid = c.headers["x-request-id"]
+        got[tag] = toks[sid]
+        ctx[tag] = prompts[k % len(prompts)]
+        wants[tag] = want[f"g{k % len(prompts)}"][:BREAKER_NEW]
+        firsts = [j for j, b in spy[n_spy:]
+                  if b.get("service_request_id") == sid]
+        return sid, firsts
+    k = 0
+    while mgr.get_instance_state(x.name) != InstanceRuntimeState.BREAKER_OPEN \
+            and k < 8:
+        sid, firsts = one(f"l{k}", k)
+        assert served[sid] == 1, f"(l) {sid} streamed by the failing agent"
+        if firsts and firsts[0] == 0:
+            moved.append(sid)
+        k += 1
+    wait_for(lambda: mgr.get_instance_state(x.name)
+             == InstanceRuntimeState.BREAKER_OPEN,
+             "(l) the failing agent's breaker OPEN", timeout=30)
+    open_s = time.monotonic() - t0
+    snap = ch.breaker.snapshot()
+    assert snap["state"] == "open" and snap["open_total"] == opened0 + 1
+    opts = m.scheduler._opts
+    assert snap["window_samples"] >= opts.circuit_breaker_min_samples and \
+        snap["window_failures"] >= opts.circuit_breaker_failure_ratio \
+        * snap["window_samples"], snap
+    assert moved, "(l) no request was first dispatched to the failing agent"
+    assert FAILOVER_SUCCESS_TOTAL.value() - f0 == len(moved)
+    recs = {r_["request_id"] for r_ in RECORDER.recent(limit=100,
+                                                        kind="failover")}
+    assert set(moved) <= recs, "(l) a failover without its record"
+    assert CIRCUIT_BREAKER_OPEN.labels(instance=x.name).value() == 1
+    over = MasterCall(m.http_port, "/admin/overload", None).json()
+    assert over["breakers"][x.name]["state"] == "open", over["breakers"]
+    # Routing leaves it out: the next requests reach only the other agent.
+    assert x.name not in mgr.routing_snapshot().schedulable
+    for j in range(2):
+        sid, firsts = one(f"l{k}", k)
+        assert firsts == [1] and served[sid] == 1, (firsts, served[sid])
+        k += 1
+    # The fault cleared: after the cooldown a half-open probe closes it.
+    r = MasterCall(m.http_port, "/admin/faults", {"clear": True})
+    assert r.status == 200 and r.json()["rules"] == [], r.body
+    broken.clear()
+    t1 = time.monotonic()
+    wait_for(lambda: mgr.get_instance_state(x.name)
+             == InstanceRuntimeState.ACTIVE
+             and ch.breaker.state() == "closed",
+             "(l) the half-open probe closing the breaker", timeout=60)
+    close_s = time.monotonic() - t1
+    assert CIRCUIT_BREAKER_OPEN.labels(instance=x.name).value() == 0
+    back = []
+    for _ in range(3):
+        sid, _ = one(f"l{k}", k)
+        k += 1
+        if served[sid] == 0:
+            back.append(sid)
+            break
+    assert back, "(l) the recovered agent served nothing"
+    cmp(ctx, got, wants, "4s (l)")
+    log(f"  (l) rpc.post and rpc.get failing for {x.name} and its accepts "
+        f"500: {len(moved)} dispatches to it failed over to the other "
+        f"agent (failover_success_total +{len(moved)}, each with its "
+        f"flight record); its breaker OPEN {open_s:.2f} s after the fault "
+        f"({snap['window_failures']} failures of {snap['window_samples']} "
+        f"calls in the window), routing left "
+        f"it out (2 requests, no dispatch to it); fault cleared: breaker "
+        f"closed by the half-open probe {close_s:.2f} s later (cooldown "
+        f"{BREAKER_COOLDOWN_S} s), then it served again; {k} requests, all "
+        f"equal to phase 4's ({card})")
+    return open_s, close_s
+
+
+def outage_leg(masters, servers, addr, mix, toks, served, prompts, want,
+               cmp, card):
+    """4s (m): the port's coordination server stopped while four
+    OUTAGE_NEW-token streams run on both agents, then restarted empty on
+    the same port.
+    ``masters``: (the elected 4s master, the plane master), the second
+    with OUTAGE_OPTS; ``servers[0]`` is replaced by the new server."""
+    from xllm_service_tpu_torch.coordination.client import (
+        TcpCoordinationClient,
+    )
+    from xllm_service_tpu_torch.coordination.memory import MemoryStore
+    from xllm_service_tpu_torch.coordination.server import (
+        CoordinationServer,
+    )
+    from xllm_service_tpu_torch.rpc import instance_key
+
+    a2, m = masters
+    names = [a.name for a in mix]
+    port = int(addr.rsplit(":", 1)[1])
+    bad: list = []
+    sticky: list = []
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for mm in masters:
+                st = mm.scheduler.instance_mgr.get_instance_state
+                for n in names:
+                    s_ = st(n)
+                    if s_ is None or s_.name in ("SUSPECT", "EVICTED"):
+                        bad.append((mm.scheduler.self_addr, n, s_))
+            sticky.append((time.monotonic(), a2.scheduler.is_master))
+            time.sleep(0.02)
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    killed: list = []
+    go = threading.Event()
+
+    def kill():
+        # Off the client's thread, so the kill does not pause its reads.
+        go.wait(60)
+        wait_for(lambda: all(a.engine.stats()["running"] >= 1 for a in mix),
+                 "(m) a stream running on each agent", timeout=30)
+        killed.append(time.monotonic())
+        servers[0].kill()
+    killer = threading.Thread(target=kill, daemon=True)
+    killer.start()
+    calls: dict = {}
+
+    def send(name, k, hook=None):
+        calls[name] = MasterCall(m.http_port, "/v1/completions",
+                                 master_greedy(prompts[k], None, True,
+                                               OUTAGE_NEW), True,
+                                 hook=hook, after=MASTER_KILL_AFTER)
+    try:
+        # Four streams (RR over two agents), so each agent runs some.
+        ths = [threading.Thread(target=send, args=(
+            f"m{k}", k + 2, go.set if k == 0 else None)) for k in range(4)]
+        for th in ths:
+            th.start()
+            time.sleep(0.02)
+        for th in ths:
+            th.join()
+        killer.join(timeout=60)
+        assert killed, "(m) the server was not killed"
+        assert min(c.frames[-1][0] for c in calls.values()) > killed[0], \
+            "(m) a stream ended before the outage"
+        got = {}
+        for n, c in calls.items():
+            check_sse(c, f"(m) {n}", OUTAGE_NEW)
+            got[n] = toks[c.headers["x-request-id"]]
+        assert {served[c.headers["x-request-id"]] for c in calls.values()} \
+            == {0, 1}, "(m) the streams did not run on both agents"
+        mon = m.scheduler.coordination_health
+        wait_for(lambda: mon.state() == "DEGRADED",
+                 "(m) the plane master's monitor DEGRADED", timeout=30)
+        report = MasterCall(m.http_port, "/admin/coordination", None).json()
+        assert report["state"] == "DEGRADED", report
+        during = MasterCall(m.http_port, "/v1/completions", master_greedy(
+            prompts[6], None, False, SHED_NEW))
+        check_call(during, "(m) during the outage", SHED_NEW, False)
+        got["during"] = toks[during.headers["x-request-id"]]
+        assert a2.scheduler.is_master and not m.scheduler.is_master
+        outage_states = {n: a2.scheduler.instance_mgr.get_instance_state(
+            n).name for n in names}
+        gaps = [b - a for c in calls.values()
+                for a, b in zip(c.content_times(), c.content_times()[1:])]
+        # The server back, empty, on the same port.
+        t_r = time.monotonic()
+        srv2 = CoordinationServer(host="127.0.0.1", port=port,
+                                  store=MemoryStore())
+        srv2.start_background()
+        servers[0] = srv2
+        down_s = t_r - killed[0]
+        probe = TcpCoordinationClient(addr)
+        try:
+            wait_for(lambda: all(probe.get(instance_key("MIX", n))
+                                 for n in names),
+                     "(m) both agents re-registered", timeout=60)
+            rereg_s = time.monotonic() - t_r
+        finally:
+            probe.close()
+        wait_for(lambda: all(mm.scheduler.coordination_health.state()
+                             == "CONNECTED"
+                             and mm.scheduler._coord.connected
+                             for mm in masters),
+                 "(m) both monitors CONNECTED", timeout=60)
+        conn_s = time.monotonic() - t_r
+    finally:
+        stop.set()
+        watcher.join(timeout=5)
+    assert not bad, f"(m) SUSPECT or evicted: {bad[:5]}"
+    assert all(held for t_, held in sticky if t_ <= t_r), \
+        "(m) the elected master lost its mastership during the outage"
+    after = {}
+    for n, mm, k in (("after0", m, 7), ("after1", a2, 1)):
+        c = MasterCall(mm.http_port, "/v1/completions", master_greedy(
+            prompts[k], None, False, SHED_NEW))
+        check_call(c, f"(m) {n} after the restart", SHED_NEW, False)
+        after[n] = toks[c.headers["x-request-id"]]
+    got.update(after)
+    ctx = {f"m{k}": prompts[k + 2] for k in range(4)}
+    wants = {f"m{k}": want[f"g{k + 2}"] for k in range(4)}
+    for n, k in (("during", 6), ("after0", 7), ("after1", 1)):
+        ctx[n], wants[n] = prompts[k], want[f"g{k}"][:SHED_NEW]
+    cmp(ctx, got, wants, "4s (m)")
+    holder = "the 4s master" if a2.scheduler.is_master else \
+        "the plane master" if m.scheduler.is_master else "no master yet"
+    log(f"  (m) the coordination server killed after {MASTER_KILL_AFTER} "
+        f"frames of four {OUTAGE_NEW}-token streams (on both agents): "
+        f"all complete equal to phase 4's, a request served during the "
+        f"outage, the plane master DEGRADED (held {report['held']['depth']}"
+        f" actions), the 4s master still elected, no agent SUSPECT or "
+        f"evicted on either master (4s master's states {outage_states}); "
+        f"the client's largest inter-token gap {max(gaps) * 1e3:.1f} ms; "
+        f"the server back empty after {down_s:.2f} s: both agents "
+        f"re-registered in {rereg_s:.2f} s, both monitors CONNECTED in "
+        f"{conn_s:.2f} s, {holder} holds the election key; requests served "
+        f"through both masters ({card})")
+    return max(gaps), rereg_s
+
+
+def failover_stream(master, mix, toks, served, pushed, prompts, want, cmp,
+                    card):
+    """4s (d): the agent serving a MASTER_NEW-token greedy stream killed
+    (its server, engine and heartbeats stopped, its lease left to lapse)
+    after MASTER_KILL_AFTER frames. The stream completes through failover
+    on the survivor, which prefills the prompt plus the replayed tokens
+    and continues: the client's tokens are phase 4's with no duplicate
+    and no gap. Returns (the dead agent's index, the client's largest
+    inter-token gap in s). ``pushed``: ``record_tokens``'s ``by_agent``."""
+    from xllm_service_tpu_torch.common.flightrecorder import RECORDER
+    from xllm_service_tpu_torch.common.metrics import FAILOVER_SUCCESS_TOTAL
+
+    spy, _, restore = route_spy(mix)
+    killed: list = []
+
+    def kill():
+        busy = [i for i, a in enumerate(mix)
+                if a.engine.stats()["running"]]
+        assert len(busy) == 1, f"(d) agents running the stream: {busy}"
+        killed.append(busy[0])
+        victim = mix[busy[0]]
+        victim.coord.rm = lambda key: True     # no deregistration
+        victim.stop()
+    f0 = FAILOVER_SUCCESS_TOTAL.value()
+    try:
+        c = MasterCall(master.http_port, "/v1/completions", master_greedy(
+            prompts[0], None, True, MASTER_NEW), True, hook=kill,
+            after=MASTER_KILL_AFTER)
+    finally:
+        restore()
+    assert killed, "(d) the stream ended before the kill"
+    v = killed[0]
+    victim = mix[v]
+    check_sse(c, "(d) the failed-over stream", MASTER_NEW)
+    sid = c.headers["x-request-id"]
+    assert served[sid] == v, "(d) the stream did not start on the victim"
+    replays = [b for j, b in spy if j == 1 - v
+               and b.get("service_request_id") == sid]
+    assert len(replays) == 1, f"(d) {len(replays)} dispatches to the survivor"
+    resume = list(replays[0]["resume_generated_token_ids"])
+    assert replays[0]["token_ids"] == prompts[0] + resume
+    client = resume + pushed.get((1 - v, sid), [])
+    assert len(client) == MASTER_NEW and \
+        pushed[(v, sid)][:len(resume)] == resume, \
+        (len(resume), len(client), len(pushed.get((v, sid), ())))
+    cmp({"d": prompts[0]}, {"d": client}, {"d": want["g0"]},
+        "4s (d) the failed-over stream")
+    assert FAILOVER_SUCCESS_TOTAL.value() - f0 == 1
+    recs = [r["detail"] for r in RECORDER.recent(limit=100, kind="failover")
+            if r["request_id"] == sid]
+    assert recs and recs[0]["dead_instance"] == victim.name and \
+        recs[0]["resumed_tokens"] == len(resume), recs
+    ts = c.content_times()
+    gap = max(b - a for a, b in zip(ts, ts[1:]))
+    log(f"  (d) agent {victim.name} killed after {MASTER_KILL_AFTER} frames "
+        f"of a {MASTER_NEW}-token stream on it: the survivor prefilled the "
+        f"prompt plus {len(resume)} replayed tokens and streamed the other "
+        f"{MASTER_NEW - len(resume)}; the client's tokens equal phase 4's, "
+        f"no duplicate or gap; failover_success_total +1, a failover record "
+        f"names the dead agent; the client's largest gap {gap * 1e3:.1f} ms "
+        f"({card})")
+    return v, gap
+
+
+def plane_legs(master, addr, servers, mix, toks, served, times, prompts,
+               want, cmp, card):
+    """4s (j)-(m) on a ``plane_master`` beside the 4s master, both agents
+    live; the plane master stopped afterwards, the 4s master elected again
+    and the process's overload state given back. ``times``:
+    ``record_tokens``'s. Returns the numbers the legs log."""
+    mix_names = [a.name for a in mix]
+    spy, broken, restore = route_spy(mix)
+    t0 = time.monotonic()
+    m = plane_master(addr)
+    try:
+        mgr = m.scheduler.instance_mgr
+        wait_for(lambda: all(mgr.get_instance_meta(n) for n in mix_names)
+                 and set(m.scheduler.ownership.members())
+                 == {m.scheduler.self_addr, master.scheduler.self_addr}
+                 and all(0 <= mgr.load_info_ages_s().get(n, -1) < 5
+                         for n in mix_names),
+                 "the plane master's view of both agents", timeout=60)
+        log(f"  the plane master {m.scheduler.self_addr} up with both agents "
+            f"in view in {time.monotonic() - t0:.1f} s")
+        out = {}
+        t = time.monotonic()
+        out["shed_share"] = shed_leg(m, toks, prompts, want, cmp, card)
+        log(f"  (j): {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        out["deadline_stop_ms"] = deadline_leg(m, mix, toks, served, spy,
+                                               times, prompts, want, cmp,
+                                               card)
+        log(f"  (k): {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        out["breaker_s"] = breaker_leg(m, mix, toks, served, spy, broken,
+                                       prompts, want, cmp, card)
+        log(f"  (l): {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        out["outage"] = outage_leg((master, m), servers, addr, mix, toks,
+                                   served, prompts, want, cmp, card)
+        log(f"  (m): {time.monotonic() - t:.1f} s")
+    finally:
+        broken.clear()
+        restore()
+        m.stop()
+        restore_overload(master.scheduler._opts)
+    t1 = time.monotonic()
+    sched, mgr = master.scheduler, master.scheduler.instance_mgr
+    wait_for(lambda: sched.is_master and set(sched.ownership.members())
+             == {sched.self_addr} and all(
+                 mgr.get_instance_state(n) is not None
+                 and mgr.get_instance_state(n).name == "ACTIVE"
+                 for n in mix_names),
+             "the 4s master elected alone with both agents ACTIVE",
+             timeout=60)
+    log(f"  the plane master stopped; the 4s master elected, alone in its "
+        f"membership view, with both agents ACTIVE {time.monotonic() - t1:.1f}"
+        f" s later")
+    return out
+
+
 def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                  sampled_prompt, want, kernels, card, device="cuda",
                  pd_layers=MASTER_PD_LAYERS, check_launches=True):
@@ -9740,8 +10403,9 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
     text); (c) ``/v1/models``, ``/hello``, the master's ``/metrics``
     families; several masters: (f) ``relay_leg``, (g) ``owner_death_leg``
     and (h) ``takeover_leg``, after which the survivor of (h) is the
-    master of the rest; (d) one agent killed (its lease left to lapse):
-    the master evicts it and the next requests complete on the survivor;
+    master of the rest; (j)-(m) ``plane_legs``; (d) ``failover_stream``,
+    one agent killed mid-stream (its lease left to lapse): the master
+    evicts it and the next requests complete on the survivor;
     (e) a PREFILL and a DECODE agent at ``pd_layers`` layers linked by
     the master, every handoff on the host path (two agents of one
     process; the device path is between processes, phase 4i): kernel 4
@@ -9749,7 +10413,7 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
     MIX engine at that depth; (i) ``slo_flip_leg`` over that pair.
     Client TTFT and inter-token latency (p50, p99) and the master's
     hot-path stages are information. Returns the launches of kernels 1,
-    2, 4 and 5 in (a), (f)-(h), (e) and (i)."""
+    2, 4 and 5 in (a), (f)-(h), (j)-(m) with (d), (e) and (i)."""
     from xllm_service_tpu_torch.common.config import ServiceOptions
     from xllm_service_tpu_torch.common.hotpath import HOTPATH
     from xllm_service_tpu_torch.common.types import InstanceType
@@ -9774,6 +10438,7 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                       TRACER.store.capacity)
     srv = CoordinationServer(host="127.0.0.1", port=0, store=MemoryStore())
     srv.start_background()
+    servers = [srv]        # (m) replaces it with a restarted one
     addr = f"127.0.0.1:{srv.port}"
     master = Master(ServiceOptions(host="127.0.0.1", http_port=0,
                                    rpc_port=0, coordination_addr=addr))
@@ -9813,7 +10478,9 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
         mix = [start_agent(cfg, params), start_agent(cfg, params)]
         registered(*(a.name for a in mix))
         by_dest: dict = {}
-        toks, served = record_tokens(mix, by_dest)
+        by_agent: dict = {}
+        times: dict = {}
+        toks, served = record_tokens(mix, by_dest, by_agent, times)
         log(f"  two MIX agents {[a.name for a in mix]} registered in "
             f"{time.monotonic() - t:.1f} s")
 
@@ -9984,12 +10651,37 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
         log(f"  (f)-(h): {time.monotonic() - t:.1f} s, kernels 1/2 {fh}; "
             f"the rest of 4s on the survivor {sched.self_addr} ({card})")
 
-        # (d) an agent's death.
-        victim, survivor = mix[holder], mix[1 - holder]
+        # (j)-(m): the overload, outage and failover planes.
         t = time.monotonic()
-        victim.coord.rm = lambda key: True     # no deregistration
-        victim.stop()
-        states = []
+        reset_counts()
+        planes = plane_legs(master, addr, servers, mix, toks, served, times,
+                            prompts, want, cmp, card)
+        log(f"  (j)-(m): {time.monotonic() - t:.1f} s")
+
+        # (d) an agent's death with a stream in flight on it.
+        t = time.monotonic()
+        hist: dict = {a.name: [] for a in mix}
+        stop_h = threading.Event()
+
+        def sample():
+            while not stop_h.is_set():
+                for n_, h in hist.items():
+                    e_ = mgr._instances.get(n_)
+                    st_ = e_.state.value if e_ is not None else "EVICTED"
+                    if not h or h[-1] != st_:
+                        h.append(st_)
+                stop_h.wait(0.02)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            dead_i, gap_d = failover_stream(master, mix, toks, served,
+                                            by_agent, prompts, want, cmp,
+                                            card)
+        finally:
+            stop_h.set()
+            sampler.join(timeout=5)
+        victim, survivor = mix[dead_i], mix[1 - dead_i]
+        states = list(hist[victim.name])
 
         def evicted():
             entry = mgr._instances.get(victim.name)
@@ -10009,7 +10701,7 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                 "ignore_eos": True})
             assert c.status == 200, (n, c.status, c.body[:200])
             sid = c.headers["x-request-id"]
-            assert served[sid] == 1 - holder, "served by the dead agent"
+            assert served[sid] == 1 - dead_i, "served by the dead agent"
             after_got[n] = toks[sid]
         after_want = {n: want[n][:MASTER_AFTER_NEW] for n in after}
         if device == "cuda":
@@ -10017,10 +10709,21 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                             after_want, "4s (d) after the death")
         else:
             assert after_got == after_want
+        jm = [paged_attention.launches, mq_paged_attention.launches]
+        if check_launches:
+            assert jm[0] > 0 and jm[1] > 0, \
+                f"kernels 1/2 in (j)-(m), (d): {jm}"
         log(f"  (d) agent {victim.name} stopped with its lease left to "
             f"lapse: states {states}, evicted after {dead_s:.1f} s (the "
             f"reference's default timeouts); {len(after)} requests then "
-            f"served by the survivor")
+            f"served by the survivor; kernels 1/2 in (j)-(m) and (d) {jm}; "
+            f"logged: shed share {planes['shed_share']:.3f}, deadline to "
+            f"the engine's stop {planes['deadline_stop_ms']:.1f} ms, breaker "
+            f"open/closed after {planes['breaker_s'][0]:.2f}/"
+            f"{planes['breaker_s'][1]:.2f} s, the largest inter-token gap "
+            f"in the outage {planes['outage'][0] * 1e3:.1f} ms and at the "
+            f"kill {gap_d * 1e3:.1f} ms, re-registration "
+            f"{planes['outage'][1]:.2f} s ({card})")
         # The survivor retires by the master's graceful drain (DRAINING at
         # once, deregistered when idle, no eviction), so the PD pair's
         # links meet no stale peer.
@@ -10089,7 +10792,8 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
                               prompts, want_pd, page_dma, cmp_pd,
                               check_launches, card, procs)
         log(f"  (i): {time.monotonic() - t:.1f} s")
-        return [launches[0] + fh[0], launches[1] + fh[1], g4 + i4, g5 + i5]
+        return [launches[0] + fh[0] + jm[0], launches[1] + fh[1] + jm[1],
+                g4 + i4, g5 + i5]
     finally:
         for mp in procs:
             mp.kill()
@@ -10097,7 +10801,7 @@ def master_phase(cfg, params, llama, engine_mod, prompts, shared,
             a.stop()
         if not getattr(master, "_killed", False):
             master.stop()
-        srv.stop()
+        servers[0].stop()
         BROWNOUT.reset()
         TRACER.configure(enabled=tracing_before[0],
                          sample_rate=tracing_before[1],
@@ -11439,7 +12143,9 @@ def main() -> int:
     log("[4s] the port's master at the reference's defaults on the port's "
         "coordination server: two MIX agents, phase 4's requests and chats "
         "through it, CAR's prefix routing, several masters (the relay, an "
-        "owner's death mid-stream, a takeover), an agent's death, a PD pair "
+        "owner's death mid-stream, a takeover), shedding, a deadline "
+        "mid-decode, a failing agent's breaker, a coordination outage, an "
+        "agent's death mid-stream, a PD pair "
         f"at {MASTER_PD_LAYERS} layers under CAR and SLO_AWARE with a flip "
         "hint "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")

@@ -75,6 +75,8 @@ class StubMaster:
         self.heartbeats: list = []
         self.alive: dict = {}
         self.telemetry_posts = 0
+        self.hold = None      # an Event: heartbeats answer once it is set
+        self.held = 0
         stub = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -97,6 +99,9 @@ class StubMaster:
                     stub.gens.extend(body["gens"])
                 else:
                     stub.heartbeats.append(body)
+                    if stub.hold is not None:      # a slow answer
+                        stub.held += 1
+                        stub.hold.wait(10)
                 data = json.dumps({"ok": True,
                                    "alive": dict(stub.alive)}).encode()
                 self.send_response(200)
@@ -436,6 +441,30 @@ def test_kv_cache_event_to_dict_matches_reference():
                  offloaded=hashes[5:])
     assert KvCacheEvent(**lists).to_dict() == \
         RefKvCacheEvent(**lists).to_dict()
+
+
+def test_stop_waits_for_a_beat_in_flight(master):
+    """An agent stopped while a heartbeat's POST is in flight evicts its
+    master's heartbeat series only after that beat has ended: the late
+    write would otherwise re-create the evicted series."""
+    from xllm_service_tpu_torch.common.metrics import ENGINE_HEARTBEATS_TOTAL
+
+    store = MemoryStore(expiry_tick_s=0.02)
+    InMemoryCoordination(store).set(MASTER_KEY, master.addr)
+    a = _agent(store).start()
+    try:
+        assert wait_until(lambda: master.heartbeats, timeout=10)
+        master.hold = threading.Event()
+        assert wait_until(lambda: master.held, timeout=10)
+        beat = next(t for t in a._threads if t.name == "agent-heartbeat")
+        threading.Timer(0.3, master.hold.set).start()
+        a.stop()
+        assert wait_until(lambda: not beat.is_alive(), timeout=10)
+        assert (master.addr,) not in ENGINE_HEARTBEATS_TOTAL._children
+    finally:
+        master.hold.set()
+        a.stop()
+        store.close()
 
 
 def test_kept_alive_replies_do_not_wait_on_nagle(agent):

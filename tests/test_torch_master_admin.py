@@ -55,6 +55,7 @@ class Plane:
             coord=memory.InMemoryCoordination(self.store))
         self.master.start()
         self.engines = []
+        self.sent = []   # X-Request-Id of each request this plane sent
         if engine:
             fe = mod(P, "testing.fake_engine")
             self.engines.append(fe.FakeEngine(
@@ -79,6 +80,8 @@ class Plane:
                       body=json.dumps(body) if body is not None else None,
                       headers={"Content-Type": "application/json"})
             r = c.getresponse()
+            if r.getheader("X-Request-Id"):
+                self.sent.append(r.getheader("X-Request-Id"))
             return (r.status, (r.getheader("Content-Type") or "")
                     .split(";")[0], r.read().decode())
         finally:
@@ -211,9 +214,12 @@ def test_admin_route_matches_reference(planes, path):
 
 
 def _root_request(pl):
-    recent = body(pl, "/admin/trace/recent?limit=5")[2]["traces"]
+    """The ``frontend.request`` root of the last request this plane sent,
+    selected by that request's id: the trace store is process-wide in
+    both packages, so the newest root may be another test's."""
+    recent = body(pl, "/admin/trace/recent?limit=50")[2]["traces"]
     return next(r["request_id"] for r in recent if r["root_point"]
-                == "frontend.request")
+                == "frontend.request" and r["request_id"] == pl.sent[-1])
 
 
 @pytest.mark.parametrize("scope", ["", "&scope=fleet"])

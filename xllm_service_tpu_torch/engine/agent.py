@@ -119,6 +119,7 @@ from ..common.request import (
     LogProbData,
     RequestOutput,
     SamplingParams,
+    SequenceOutput,
     Status,
     StatusCode,
     Usage,
@@ -1080,6 +1081,13 @@ class EngineAgent:
                 return
             self._stopped = True
         self._wake.set()
+        # A beat may be in flight (its POST waits up to 3 s): it ends
+        # before the series below are evicted and the registration
+        # removed, or its late write would re-create both.
+        me = threading.current_thread()
+        for t in self._threads:
+            if t.name == "agent-heartbeat" and t is not me:
+                t.join(timeout=5.0)
         if self._profiler_started:
             self._profiler_started = False
             PROFILER.stop()
@@ -1571,12 +1579,33 @@ class EngineAgent:
                 prompt = "\n".join(str(m.get("content", "")) for m in msgs)
             token_ids = self.engine.tokenizer.encode(str(prompt))
         sampling = self._sampling_from_body(body)
+        # Failover resume: the service appended the tokens its client has
+        # already received to ``token_ids`` (``resume_generated_token_ids``);
+        # the engine generates only the rest of ``max_tokens``, and the
+        # usage counts the replayed tokens as generated, not as prompt (the
+        # wire contract of the service's failover layer, which the fake
+        # engine keeps too).
+        resumed = len(body.get("resume_generated_token_ids") or ())
+        left = sampling.max_tokens - resumed
 
         if not source:
             return 400, {"error": "source_service_addr required (engine "
                                   "streams results to the service RPC "
                                   "endpoint)"}
         dest = source
+        if resumed:
+            if left <= 0:
+                # Every token was delivered before the failover: only the
+                # terminal delta is left to send.
+                self.streamer.push(dest, RequestOutput(
+                    service_request_id=sid,
+                    request_id=body.get("request_id", sid),
+                    outputs=[SequenceOutput(index=0, finish_reason="length")],
+                    usage=Usage(num_prompt_tokens=len(token_ids) - resumed,
+                                num_generated_tokens=resumed),
+                    finished=True))
+                return 200, {"ok": True, "service_request_id": sid}
+            sampling.max_tokens = left
         first_delta = [True]
         # Stage spans under the orchestrator's carried context: prefill
         # from accept to the first delta (or the PD handoff), decode from
@@ -1587,6 +1616,11 @@ class EngineAgent:
                                           prompt_tokens=len(token_ids))}
 
         def on_output(out: RequestOutput) -> None:
+            if resumed and out.usage is not None:
+                out.usage = Usage(
+                    num_prompt_tokens=out.usage.num_prompt_tokens - resumed,
+                    num_generated_tokens=(out.usage.num_generated_tokens
+                                          + resumed))
             if deadline_ms and not out.finished and now_ms() > deadline_ms:
                 # Mid-decode expiry: stop the request through the cancel
                 # path; the delta in hand still ships.

@@ -14,8 +14,9 @@ Flip decisions (an overloaded decode fleet flips an idle prefill, a
 surplus decode flips back) are emitted through a pluggable ``flip_sink``:
 by default ``InstanceMgr.request_flip`` (enacted by the reconcile
 thread, never the request path; a replica proxies the hint to the elected
-master's ``/rpc/flip_hint``). The closed-loop autoscaler that would
-rewire the sink is not ported yet (ROADMAP queue 1 item 23).
+master's ``/rpc/flip_hint``); with the closed-loop autoscaler enabled
+the scheduler rewires the sink to the controller's ``propose_flip`` so
+there is exactly ONE actuation path (autoscaler/controller.py).
 """
 
 from __future__ import annotations
