@@ -374,8 +374,9 @@ Phases (any failure exits non-zero before the result line):
    kernels 1, 2, 3 and 6 idle; (g) phase 4a's tier round trip at
    DeepSeek-V2-Lite (hash blocks of 7,962,624 bytes): the restored pages
    bit for bit, the tier hit's tokens equal to the hot run's; (j) the
-   ``kvtier_bench`` twin's legs 1 and 2 at DeepSeek-V2-Lite, leg 2 at
-   KVTIER_PREFIXES prefixes (information);
+   ``kvtier_bench`` twin's leg 2 (capacity) at DeepSeek-V2-Lite at
+   KVTIER_PREFIXES prefixes (information; its leg 1, the tier-aware TTFT,
+   is not run here);
    (h) a PREFILL agent here and a DECODE agent in a second process, both
    DeepSeek-V2-Lite at full width cut to MLA_PD_LAYERS layers (two
    processes at full depth would hold about 63 GB of weights), the KV
@@ -517,6 +518,18 @@ Phases (any failure exits non-zero before the result line):
    in-process engine's or parting at near-ties), the agent SIGKILLed,
    evicted and replaced by a warm one, xlint over the port's tree clean;
    every process's verifiers must record nothing;
+4v. after 4u, the eight service-plane bench twins
+   (``xllm_service_tpu_torch/benchmarks/``: ``master_hotpath_bench``,
+   ``kvcache_routing_bench``, ``generations_bench``,
+   ``bench_tracing_overhead``, ``bench_profile_overhead``,
+   ``overload_bench``, ``outage_bench``, ``fleet_bench``), each as
+   ``python -m`` on this card's host at the sizes of SERVICE_TWINS against
+   the port's master, coordination server and fake engines
+   (``services_phase``; the outage twin's paced drive beside the overload
+   twin's, the rest one at a time): a line each with its headline keys and wall
+   seconds beside the card line and the host's CPUs, each held to the
+   reference bench's gate (the profile twin's 1 % gate is printed, not
+   held: a timing);
 5. a ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card; without CUDA it exits non-zero and prints no result.
@@ -6738,26 +6751,21 @@ KVTIER_PREFIXES = 7
 
 def kvtier_twin(params, card):
     """4m (j): the ``kvtier_bench`` twin at DeepSeek-V2-Lite (bf16, (c)'s
-    weights): legs 1 (tier-aware TTFT, one round) and 2 (capacity, at
-    KVTIER_PREFIXES prefixes); information only."""
+    weights): leg 2 (capacity, at KVTIER_PREFIXES prefixes); information
+    only. Its leg 1 (tier-aware TTFT) is left to the twin's own runs:
+    (g) holds the tier round trip at this model."""
     from xllm_service_tpu_torch.benchmarks import kvtier_bench
 
     t = time.monotonic()
     rec = kvtier_bench.run("cuda", "deepseek_v2_lite", rounds=1,
-                           prefixes=KVTIER_PREFIXES,
-                           legs=("ttft", "capacity"), params=params)
+                           prefixes=KVTIER_PREFIXES, legs=("capacity",),
+                           params=params)
     log("  kvtier_bench " + json.dumps(rec))
-    tt, cap = rec["tier_ttft"], rec["capacity"]
-    log(f"  (j) kvtier_bench twin at deepseek-v2-lite ({tt['block_nbytes']} "
-        f"bytes a block of 64 tokens): TTFT ms hot {tt['hot_hbm_ttft_ms']}, "
-        f"warm DRAM {tt['warm_dram_ttft_ms']}, SSD "
-        f"{tt['warm_ssd_ttft_ms']}, recompute "
-        f"{tt['cold_recompute_ttft_ms']}; onload "
-        f"{tt['onload_ms_per_block']} ms a block; capacity x"
+    cap = rec["capacity"]
+    log(f"  (j) kvtier_bench twin at deepseek-v2-lite: capacity x"
         f"{cap['capacity_multiplier']} ({cap['tiered_addressable_blocks']} "
         f"/ {cap['hbm_only_addressable_blocks']} blocks); "
         f"{time.monotonic() - t:.1f} s (information only; {card})")
-    assert tt["tier_stats"]["onload_total"] >= tt["prefix_blocks"]
     assert cap["tiered_addressable_blocks"] > cap["hbm_only_addressable_blocks"]
     return rec
 
@@ -7806,11 +7814,11 @@ def vl_phase(engine_mod, kernels, card):
 
 # ---------------------------------------------------------------- phase 4p
 MH_NEW = {"a": 16, "c": 16, "d": 16}     # tokens a stream, by leg
-MH_TP_LAYERS = 8      # (a): Llama-3-8B cut to these layers
+MH_TP_LAYERS = 4      # (a): Llama-3-8B cut to these layers
 MH_MOE_LAYERS = 4     # (c): Mixtral-8x7B int8 cut to these layers
-MH_SEQ_LAYERS = 8     # (d): Llama-3-8B cut to these layers
+MH_SEQ_LAYERS = 4     # (d): Llama-3-8B cut to these layers
 MH_AGENT_NEW = 8      # (b): tokens a completion
-MH_AGENT_LAYERS = 8   # (b): Llama-3-8B cut to these layers in both ranks
+MH_AGENT_LAYERS = 4   # (b): Llama-3-8B cut to these layers in both ranks
 MH_WORLD = {"a": 2, "c": 4, "d": 2}
 MH_AXES = {"a": dict(model=2), "c": dict(expert=2, model=2),
            "d": dict(seq=2)}
@@ -11849,6 +11857,180 @@ def verified_phase(u, llama, engine_mod, refs, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 4v
+# The eight service-plane bench twins, each as ``python -m`` at these
+# sizes: (module, argv, the report's headline keys to print).
+SERVICE_TWINS = (
+    ("master_hotpath_bench", ["--quick"]),
+    ("kvcache_routing_bench", ["--quick"]),
+    ("generations_bench", ["--quick"]),
+    ("bench_tracing_overhead", ["--quick"]),
+    ("bench_profile_overhead", ["--quick"]),
+    ("overload_bench", ["--steady-s", "3", "--burst-s", "6",
+                        "--skip-noshed", "--skip-autoscale",
+                        "--skip-overhead"]),
+    ("outage_bench", ["--steady-s", "3", "--outage-s", "5",
+                      "--recovery-s", "3", "--skip-control"]),
+    ("fleet_bench", ["--quick"]),
+)
+
+
+def start_twin(name, argv):
+    """One twin as ``python -m`` in a session of its own (its children
+    are reaped by the twin). The profile twin's exit gate (a timing of
+    1 %) is lifted: its verdict is printed, not held."""
+    import subprocess
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PROFILE_GATE_PCT": "1e9"}
+    p = subprocess.Popen(
+        [sys.executable, "-m", f"xllm_service_tpu_torch.benchmarks.{name}",
+         *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return p, time.monotonic()
+
+
+def finish_twin(name, started, timeout=300):
+    """A started twin's standard output and its wall seconds."""
+    import signal
+
+    p, t = started
+    try:
+        out, err = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+    assert p.returncode == 0, f"4v {name}: exit {p.returncode}: {err[-3000:]}"
+    return out, time.monotonic() - t
+
+
+def twin_headline(name, out):
+    """(the headline keys of a twin's output, the reference's acceptance
+    failures: empty when it meets its gate)."""
+    from xllm_service_tpu_torch.benchmarks import (
+        bench_profile_overhead,
+        fleet_bench,
+        master_hotpath_bench,
+        outage_bench,
+        overload_bench,
+    )
+
+    lines = out.strip().splitlines()
+    docs = [json.loads(ln[len("BENCH_DOC "):]) for ln in lines
+            if ln.startswith("BENCH_DOC ")]
+    if name == "master_hotpath_bench":
+        r = json.loads(out)
+        stages = {k: v["p50"] for k, v in r.get("master_stages_ms",
+                                                {}).items()}
+        return ({"requests": r["requests"], "errors": r["errors"],
+                 "req_per_s": r["req_per_s"],
+                 "master_wire_ttft_ms": r["master_wire_ttft_ms"],
+                 "stage_p50_ms": stages,
+                 "master_cpu_ms_per_request":
+                     r["master_cpu_ms_per_request"]},
+                master_hotpath_bench.gate(r))
+    if name == "kvcache_routing_bench":
+        r = json.loads(out)
+        idx, h = r["index"], r["hashing"]
+        return ({"match_speedup_1t": idx["match_speedup_1t"],
+                 "match_speedup_4t": idx["match_speedup_4t"],
+                 "match_new_p50_ms": idx["match_new"]["p50_ms"],
+                 "index_blocks": idx["config"]["index_blocks"],
+                 "ingest_new_keys_per_s": idx["ingest_new_keys_per_s"],
+                 "remove_instance_new_ms": idx["remove_instance_new_ms"],
+                 "hash_new_us_per_prompt": h["new_us_per_prompt"],
+                 "hash_speedup": h["speedup"],
+                 "native_hash": h["native_hash"]}, [])
+    if name == "generations_bench":
+        rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        return ({"json_deltas_per_s": rows[0]["deltas_per_s"],
+                 "msgpack_deltas_per_s": rows[1]["deltas_per_s"],
+                 "msgpack_vs_json": rows[2]["value"]}, [])
+    if name == "bench_tracing_overhead":
+        d = docs[-1]
+        first = json.loads(lines[0])
+        return ({**d["headline"], **d["fleet_endpoint_cost"],
+                 "disabled_span_call_ns": first["disabled_span_call_ns"],
+                 "off_p50_ms": d["modes"]["off"]["p50_ms"]}, [])
+    if name == "bench_profile_overhead":
+        d = docs[-1]
+        return ({**d["headline"],
+                 "overall_p50_delta_pct": d["overall_p50_delta_pct"],
+                 "sample_tick_us": d["sample_tick_us"],
+                 "amortized_cpu_pct": d["amortized_cpu_pct"],
+                 "within_reference_1pct_gate":
+                     bench_profile_overhead.passes(d, 1.0)}, [])
+    if name == "overload_bench":
+        r = json.loads(out)
+        s = r["shed"]
+        return ({**{k: v for k, v in r["headline"].items()
+                    if v is not None},
+                 "steady_ttft_p50_ms": s["steady_ttft_p50_ms"],
+                 "burst_admitted_ttft_p50_ms":
+                     s["burst_admitted_ttft_p50_ms"],
+                 "burst_shed_count": s["burst_shed_count"],
+                 "burst_admitted_count": s["burst_admitted_count"],
+                 "burst_shed_p50_ms": s["burst_shed_p50_ms"],
+                 "errors": s["errors"]}, overload_bench.gate(r))
+    if name == "outage_bench":
+        r = json.loads(out)
+        d = r["degraded"]
+        return ({**r["headline"],
+                 "rps": [d[p]["rps"] for p in ("steady", "outage",
+                                               "recovery")],
+                 "errors": [d[p]["errors"] for p in ("steady", "outage",
+                                                     "recovery")],
+                 "evictions_total": d["evictions_total"],
+                 "final_monitor_state": d["final_monitor_state"],
+                 "reconnect_spread_s": d["reconnect_spread_s"]},
+                outage_bench.gate(r))
+    r = json.loads(out)   # fleet_bench
+    return ({**r["headline"],
+             "served": {("on" if leg["native_on"] else "off"):
+                        f"{leg['served']}/{leg['windows'][0]['requests']}"
+                        for leg in r["legs"]},
+             "mode": r["legs"][0]["mode"],
+             "agg_req_per_s": {("on" if leg["native_on"] else "off"):
+                               leg["agg_req_per_s"] for leg in r["legs"]}},
+            fleet_bench.gate(r))
+
+
+def services_phase(card):
+    """Phase 4v: the eight service-plane bench twins on this card's host
+    (none of them touches the card), each once at the sizes of
+    SERVICE_TWINS, the outage twin beside the overload twin and the rest
+    one after another: a line each with its headline keys and wall seconds,
+    beside the card line and the host's CPUs; each held to the
+    reference bench's acceptance gate (master_hotpath: no errors and the
+    four stages; overload: 429s, their p99 under 50 ms; outage: no
+    eviction, the monitor CONNECTED again; fleet: both sides of the
+    native A/B served every request). Returns the wall seconds by twin."""
+    host = (f"host: os.cpu_count() {os.cpu_count()}, affinity "
+            f"{sorted(os.sched_getaffinity(0))}")
+    walls, failed = {}, {}
+    # The outage twin's paced drive (8 requests a second, 11 s) mostly
+    # waits: it runs beside the overload twin's, started 2 s ahead so its
+    # stack holds its ports before the other picks free ones.
+    argvs = dict(SERVICE_TWINS)
+    outage = start_twin("outage_bench", argvs["outage_bench"])
+    time.sleep(2.0)
+    order = ["overload_bench", "outage_bench"] + [
+        n for n in argvs if n not in ("overload_bench", "outage_bench")]
+    for name in order:
+        argv = argvs[name]
+        out, wall = finish_twin(name, outage if name == "outage_bench"
+                                else start_twin(name, argv))
+        head, bad = twin_headline(name, out)
+        walls[name] = round(wall, 1)
+        log(f"  4v {name} {' '.join(argv)}: {json.dumps(head)}; wall "
+            f"{wall:.1f} s ({card}; {host})")
+        if bad:
+            failed[name] = bad
+    assert not failed, f"4v: twins below the reference's gate: {failed}"
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -12316,6 +12498,16 @@ def main() -> int:
         "replaced, xlint over the port "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before)")
     u_launches = verified_phase(u_state, llama, engine_mod, u_refs, card)
+
+    # Phase 4v: the service-plane bench twins on this card's host.
+    log("[4v] the eight service-plane bench twins (master hot path, KV "
+        "routing, generations ingest, tracing and profiler overhead, "
+        "overload, outage, fleet), each against the port's master, "
+        "coordination server and fake engines, held to the reference "
+        "bench's gate")
+    t = time.monotonic()
+    services_phase(card)
+    log(f"  phase 4v: {time.monotonic() - t:.1f} s")
 
     # Phase 5: the kernels line, the card line, the result.
     rows = []

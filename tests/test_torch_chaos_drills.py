@@ -518,6 +518,10 @@ def drill_monitor_degrades_holds_recovers(P):
     fl = Fleet(P, engines=({}, {}), **OUTAGE)
     m = fl.masters[0]
     chatty, doomed = fl.engines
+    # The flight recorder is the process's: earlier drills' records (the
+    # burst through an outage replays held actions too) are not this
+    # drill's evidence.
+    since_ms = time.time() * 1000.0
     try:
         assert m.scheduler.is_master
         mon = m.scheduler.coordination_health
@@ -555,16 +559,20 @@ def drill_monitor_degrades_holds_recovers(P):
                           is None, timeout=5)
         assert mon.held.depth() == 0
 
+        def records(kind):
+            return [r for r in P.RECORDER.recent(limit=50, kind=kind)
+                    if r["ts_ms"] >= since_ms]
+
         def replays():
-            return P.RECORDER.recent(limit=50, kind="held_action_replay")
+            return records("held_action_replay")
         assert wait_until(lambda: any(
             r["detail"].get("key") == doomed.name
             and r["detail"].get("outcome") == "replayed: evicted"
             for r in replays()), timeout=5)
         assert any("superseded" in r["detail"].get("outcome", "")
                    for r in replays())
-        assert P.RECORDER.recent(limit=50, kind="coordination_degraded")
-        assert P.RECORDER.recent(limit=50, kind="coordination_recovered")
+        assert records("coordination_degraded")
+        assert records("coordination_recovered")
         r = requests.post(base(m) + "/v1/completions", json={
             "model": "fake-model", "prompt": "multimaster",
             "max_tokens": 1000}, timeout=30)
@@ -587,6 +595,52 @@ def test_monitor_degrades_holds_and_recovers():
     out = both(drill_monitor_degrades_holds_recovers)
     assert out["state"] == "CONNECTED" and out["connected"] == 1
     assert {"replayed", "superseded"} <= set(out["outcomes"])
+
+
+def test_held_eviction_replays_when_recovery_is_slow():
+    """The port's master alone: the census unfreezes (CONNECTED) before
+    the recovery callback replays the held actions. With that callback
+    slowed (its first coordination write stalls 0.5 s, as a loaded box
+    stalls it), the reconcile pass (every 0.05 s) must still leave the
+    dead engine's eviction to the replay: "replayed: evicted", not
+    "discarded: already gone". The JAX master evicts it first."""
+    P = PKGS["port"]
+    fl = Fleet(P, engines=({}, {}), **OUTAGE)
+    m = fl.masters[0]
+    _, doomed = fl.engines
+    since_ms = time.time() * 1000.0
+    coord = m.scheduler._coord
+    real_set = coord.set
+
+    def slow_set(key, *a, **kw):
+        if key.startswith(P.rpc.SERVICE_KEY_PREFIX):
+            time.sleep(0.5)
+        return real_set(key, *a, **kw)
+    try:
+        mon = m.scheduler.coordination_health
+        P.FAULTS.add("coord.outage", action="error")
+        assert wait_until(lambda: mon.state() == "DEGRADED", timeout=5)
+        doomed.kill()
+        assert wait_until(lambda: any(
+            a["kind"] == "evict" and a["key"] == doomed.name
+            for a in mon.held.report()["actions"]), timeout=5)
+        coord.set = slow_set
+        P.FAULTS.clear()
+        assert wait_until(lambda: mon.state() == "CONNECTED", timeout=5)
+
+        def outcomes():
+            return [r["detail"].get("outcome") for r in P.RECORDER.recent(
+                limit=50, kind="held_action_replay")
+                if r["ts_ms"] >= since_ms
+                and r["detail"].get("key") == doomed.name]
+        assert wait_until(outcomes, timeout=5)
+        assert outcomes() == ["replayed: evicted"]
+        assert m.scheduler.instance_mgr.get_instance_meta(doomed.name) \
+            is None
+    finally:
+        coord.set = real_set
+        P.FAULTS.clear()
+        fl.close()
 
 
 def drill_degraded_mode_off(P):

@@ -211,3 +211,69 @@ def test_get_prefix_of_the_in_memory_store_matches_reference():
         mine.close()
         ref.close()
     assert got == want
+
+
+def test_in_memory_keepalive_recreates_a_lapsed_key():
+    """A leased key that ran out while its client lives (a keepalive
+    thread starved past the TTL: here the store drops it) comes back with
+    its value, as the TCP client re-creates a key the server lost; an
+    election key another client took meanwhile is not overwritten and no
+    longer claimed; a released key stays gone."""
+    store = MemoryStore(expiry_tick_s=0.01)
+    owner = InMemoryCoordination(store)
+    other = InMemoryCoordination(store)
+    try:
+        owner.set("member", "m", ttl_s=TTL)
+        assert owner.create_if_absent("elect", "me", ttl_s=TTL)
+        owner.set("gone", "g", ttl_s=TTL)
+        owner.release("gone")
+        assert store.rm("member") and store.rm("elect") and store.rm("gone")
+        assert wait_until(lambda: other.get("member") == "m", timeout=2)
+        assert wait_until(lambda: other.get("elect") == "me", timeout=2)
+        assert store.rm("elect")
+        assert other.create_if_absent("elect", "you", ttl_s=30)
+        time.sleep(3 * TTL)
+        assert other.get("elect") == "you"
+        assert other.get("member") == "m" and other.get("gone") is None
+        owner.close()
+        assert wait_until(lambda: other.get("member") is None,
+                          timeout=5 * TTL)
+    finally:
+        owner.close()
+        other.close()
+        store.close()
+
+
+def test_master_rejoins_membership_after_its_lease_lapsed():
+    """Two port masters on one in-memory store: the second's membership
+    key lapses while it lives (its keepalive starved past the 0.5 s
+    lease, as under a loaded box); both masters see both members again
+    within a second. Before the in-memory client re-created lapsed keys,
+    the first master never saw the second again."""
+    from xllm_service_tpu_torch.common.config import ServiceOptions
+    from xllm_service_tpu_torch.master import Master
+    from xllm_service_tpu_torch.rpc import SERVICE_KEY_PREFIX
+
+    store = MemoryStore(expiry_tick_s=0.02)
+    masters = []
+    try:
+        for _ in range(2):
+            m = Master(ServiceOptions(host="127.0.0.1", http_port=0,
+                                      rpc_port=0, lease_ttl_s=0.5,
+                                      sync_interval_s=0.2),
+                       coord=InMemoryCoordination(store))
+            m.start()
+            masters.append(m)
+        addrs = {m.scheduler.self_addr for m in masters}
+
+        def converged():
+            return all(set(m.scheduler.ownership.members()) == addrs
+                       for m in masters)
+        assert wait_until(converged, timeout=10)
+        assert store.rm(SERVICE_KEY_PREFIX + masters[1].scheduler.self_addr)
+        time.sleep(0.3)
+        assert wait_until(converged, timeout=2)
+    finally:
+        for m in masters:
+            m.stop()
+        store.close()

@@ -75,7 +75,15 @@ def test_every_port_module_imports_without_jax_or_the_reference():
               "http_service.service",
               # The autoscaler, the fake engine and the compile gate.
               "autoscaler", "autoscaler.controller", "autoscaler.actuator",
-              "testing", "testing.fake_engine", "benchmarks.compile_gate"):
+              "testing", "testing.fake_engine", "benchmarks.compile_gate",
+              # The service-plane bench twins and what they share.
+              "benchmarks.stack", "benchmarks.master_hotpath_bench",
+              "benchmarks.kvcache_routing_bench",
+              "benchmarks.generations_bench",
+              "benchmarks.bench_tracing_overhead",
+              "benchmarks.bench_profile_overhead",
+              "benchmarks.overload_bench", "benchmarks.outage_bench",
+              "benchmarks.fleet_bench"):
         assert f"xllm_service_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -664,6 +664,9 @@ def drill_slot_released_on_raising_parser(P):
             "model": "fake-model", "prompt": "ok", "max_tokens": 4},
             timeout=10)
         assert r.status_code == 200, r.text
+        # The slot is given back as the handler ends, which may be just
+        # after the client has the whole answer: wait for it, bounded.
+        wait_until(lambda: P.ADMISSION.pending() == 0, timeout=5)
         return bad, P.ADMISSION.pending(), r.json()["choices"][0]["text"]
     finally:
         fl.close()
@@ -737,10 +740,17 @@ def test_relayed_shed_keeps_retry_after():
 # ========================================== TestRelayedClientDisconnect
 def drill_dropped_relayed_stream(P):
     """A client dropping a relayed stream: the cancel reaches the owner
-    and the engines."""
+    and the engines.
+
+    The masters' leases are 2 s, not OPTS's 0.5 s: the JAX package's
+    in-memory client never re-creates a leased key that ran out, so a
+    keepalive thread starved past a 0.5 s lease on a loaded box drops a
+    JAX master from its peer's membership for good, and the fleet never
+    forms (the port's client re-creates the key). This drill is about the
+    relay's cancel, not leases."""
     fl = Fleet(P, n_masters=2,
                engines=[dict(delay_s=0.1, chunk_size=1, reply_text="d" * 80)
-                        for _ in range(2)])
+                        for _ in range(2)], lease_ttl_s=2.0)
     m1, m2 = fl.masters
     engines = fl.engines
     try:

@@ -110,6 +110,10 @@ class HeldActionLog:
         self._items: dict[tuple[str, str], HeldAction] = {}
         self._order: list[tuple[str, str]] = []
         self._dropped = 0
+        # (kind, key) of the actions drained for a replay that has not
+        # finished: the census unfreezes before the recovery callback
+        # runs, and the normal path must not act on them meanwhile.
+        self._replaying: set[tuple[str, str]] = set()
 
     def hold(self, kind: str, key: str, reason: str = "",
              **detail: Any) -> HeldAction:
@@ -133,13 +137,27 @@ class HeldActionLog:
             COORDINATION_HELD_ACTIONS.set(len(self._order))
             return action
 
-    def drain(self) -> list[HeldAction]:
+    def drain(self, for_replay: bool = False) -> list[HeldAction]:
+        """Empty the log; ``for_replay`` keeps the drained actions
+        :meth:`pending` until :meth:`replay_done`."""
         with self._lock:
             out = [self._items[slot] for slot in self._order]
+            if for_replay:
+                self._replaying = set(self._order)
             self._items = {}
             self._order = []
             COORDINATION_HELD_ACTIONS.set(0)
             return out
+
+    def replay_done(self) -> None:
+        with self._lock:
+            self._replaying = set()
+
+    def pending(self, kind: str, key: str) -> bool:
+        """Is this action held, or drained for a replay not yet done?"""
+        with self._lock:
+            return (kind, key) in self._items or \
+                (kind, key) in self._replaying
 
     def depth(self) -> int:
         with self._lock:
@@ -304,7 +322,18 @@ class CoordinationHealthMonitor:
             self._frozen_events[kind] = self._frozen_events.get(kind, 0) + 1
 
     def drain_held(self) -> list[HeldAction]:
-        return self.held.drain()
+        """The held actions, for the recovery replay; each stays
+        :meth:`evict_pending` until :meth:`replay_done`."""
+        return self.held.drain(for_replay=True)
+
+    def replay_done(self) -> None:
+        self.held.replay_done()
+
+    def evict_pending(self, name: str) -> bool:
+        """Is the instance's eviction held or being replayed? Its verdict
+        then belongs to the replay (which evicts only a still suspect and
+        silent instance), not to the normal path."""
+        return self.held.pending("evict", name)
 
     def discard_held(self, reason: str) -> int:
         """Drop every held action WITHOUT replaying (demotion fencing:

@@ -221,8 +221,9 @@ class InMemoryCoordination(CoordinationClient):
     def __init__(self, store: Optional[MemoryStore] = None, namespace: str = ""):
         self._store = store or MemoryStore()
         self._ns = namespace.strip("/")
-        # key -> ttl for keys this client keeps alive.
-        self._keepalives: dict[str, float] = {}
+        # key -> (ttl, last value, create_only) for keys this client keeps
+        # alive, so a failed refresh can re-create the key.
+        self._keepalives: dict[str, tuple[float, str, bool]] = {}
         self._ka_lock = make_lock("memory_coord.keepalives", order=42)  # lock-order: 42
         self._watch_ids: list[int] = []
         self._closed = threading.Event()
@@ -247,12 +248,31 @@ class InMemoryCoordination(CoordinationClient):
     def _keepalive_loop(self) -> None:
         # Refresh each leased key at ~ttl/3 cadence (etcd KeepAlive behavior,
         # reference retains `etcd::KeepAlive` handles in `keep_alives_`,
-        # `etcd_client.h:160`).
+        # `etcd_client.h:160`). A key whose lease ran out while this thread
+        # was starved (a stall longer than the TTL) is re-created with its
+        # last value and its original create-only semantics, as the TCP
+        # client's keepalive re-creates a key the server lost: otherwise a
+        # live master's membership key would stay gone for good.
         while not self._closed.wait(0.1):
             with self._ka_lock:
                 items = list(self._keepalives.items())
-            for key, ttl in items:
-                self._store.refresh(key, ttl)
+            for key, entry in items:
+                ttl, value, create_only = entry
+                if self._store.refresh(key, ttl):
+                    continue
+                with self._ka_lock:
+                    if self._closed.is_set() \
+                            or self._keepalives.get(key) != entry:
+                        continue        # released or re-set meanwhile
+                    if not self._store.put(key, value, ttl,
+                                           create_only=create_only) \
+                            and create_only:
+                        # Another holds the election key now: stop
+                        # claiming it (the owner learns of its demotion
+                        # from the key's value).
+                        del self._keepalives[key]
+                        _lifecycle.note_release("coord-lease",
+                                                key=(id(self), key))
 
     # ---- CoordinationClient ------------------------------------------------
     def ping(self) -> bool:
@@ -271,7 +291,7 @@ class InMemoryCoordination(CoordinationClient):
                 if self._k(key) not in self._keepalives:
                     _lifecycle.note_acquire("coord-lease",
                                             key=(id(self), self._k(key)))
-                self._keepalives[self._k(key)] = ttl_s
+                self._keepalives[self._k(key)] = (ttl_s, value, False)
         return ok
 
     def create_if_absent(self, key, value, ttl_s=None, keepalive=True) -> bool:
@@ -281,7 +301,7 @@ class InMemoryCoordination(CoordinationClient):
                 if self._k(key) not in self._keepalives:
                     _lifecycle.note_acquire("coord-lease",
                                             key=(id(self), self._k(key)))
-                self._keepalives[self._k(key)] = ttl_s
+                self._keepalives[self._k(key)] = (ttl_s, value, True)
         return ok
 
     def get(self, key):

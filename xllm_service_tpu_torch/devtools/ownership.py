@@ -312,6 +312,7 @@ STATE_DISCIPLINES: dict[str, str] = {
     "HeldActionLog._items": "lock:_lock",
     "HeldActionLog._order": "lock:_lock",
     "HeldActionLog._dropped": "lock:_lock",
+    "HeldActionLog._replaying": "lock:_lock",
     "HeldActionLog._capacity": "init-only",
     # --------------------------------------------------------- RetryBudget
     # Global retry token bucket (overload/retry_budget.py): deposits

@@ -1198,7 +1198,12 @@ class InstanceMgr:
                                 "evict", name,
                                 reason="plane degraded: suspect eviction "
                                        "held")
-                        else:
+                        elif self._health is None \
+                                or not self._health.evict_pending(name):
+                            # A held eviction is the recovery replay's
+                            # to decide: the census unfreezes before the
+                            # replay runs, and evicting here first would
+                            # turn the replay into "already gone".
                             to_evict.append(name)
                 elif entry.state == InstanceRuntimeState.DRAINING:
                     to_drain_check.append((name, now - entry.state_since_ms))

@@ -448,12 +448,16 @@ class Scheduler:
             # old master either died or has not re-asserted within its
             # own jitter slot. Jitter spreads this contention too.
             self._try_takeover()
-        for action in self.coordination_health.drain_held():
-            outcome = self._replay_held_action(action)
-            RECORDER.record("held_action_replay",
-                            detail={**action.to_dict(), "outcome": outcome})
-            logger.info("held action %s(%s) x%d -> %s",
-                        action.kind, action.key, action.count, outcome)
+        try:
+            for action in self.coordination_health.drain_held():
+                outcome = self._replay_held_action(action)
+                RECORDER.record("held_action_replay",
+                                detail={**action.to_dict(),
+                                        "outcome": outcome})
+                logger.info("held action %s(%s) x%d -> %s",
+                            action.kind, action.key, action.count, outcome)
+        finally:
+            self.coordination_health.replay_done()
         self.instance_mgr.resync_after_outage()
 
     def _replay_held_action(self, action: HeldAction) -> str:
